@@ -1,0 +1,59 @@
+"""Hand state between the JAX package and this one as numpy arrays.
+
+``graph_from_numpy`` / ``index_from_numpy`` take the JAX package's graph
+arrays (``np.asarray(jax_index.graph.vectors)``, ...) and labels and build
+this package's ``GraphState`` / ``HnswIndex`` over the same graph, so both
+packages compute on identical state; ``to_numpy`` goes the other way for
+comparisons.  Nothing here imports jax.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from .api import HnswIndex
+from .config import HnswConfig
+from .core.graph import GraphState
+
+
+def graph_from_numpy(vectors, links, link_counts, deleted, n_nodes,
+                     device="cpu") -> GraphState:
+    """A GraphState holding copies of the given arrays on ``device``."""
+    def t(x, dtype):
+        return torch.tensor(np.asarray(x), dtype=dtype, device=device)
+
+    return GraphState(vectors=t(vectors, torch.float32),
+                      links=t(links, torch.int32),
+                      link_counts=t(link_counts, torch.int32),
+                      deleted=t(deleted, torch.bool),
+                      n_nodes=int(n_nodes))
+
+
+def index_from_numpy(config: HnswConfig, vectors, links, link_counts,
+                     deleted, n_nodes, labels, device="cpu",
+                     **kwargs) -> HnswIndex:
+    """An HnswIndex over the given graph arrays and labels; ``kwargs`` go
+    to the HnswIndex constructor."""
+    idx = HnswIndex(config, device=device, **kwargs)
+    graph = graph_from_numpy(vectors, links, link_counts, deleted, n_nodes,
+                             device=device)
+    if graph.dims != config.dims or graph.max_m != config.max_m:
+        raise ValueError(f"graph is {graph.dims}-d with maxM {graph.max_m}; "
+                         f"config wants {config.dims}-d, maxM {config.max_m}")
+    idx._graph = graph
+    idx._labels = np.zeros(graph.capacity, dtype=np.uint64)
+    idx._labels[: graph.n_nodes] = np.asarray(labels, np.uint64)[: graph.n_nodes]
+    idx.counters["n_deleted"] = int(graph.deleted[: graph.n_nodes].sum())
+    return idx
+
+
+def to_numpy(graph: GraphState) -> Dict[str, np.ndarray]:
+    """The graph's arrays as host numpy arrays (n_nodes as an int)."""
+    return {"vectors": graph.vectors.cpu().numpy(),
+            "links": graph.links.cpu().numpy(),
+            "link_counts": graph.link_counts.cpu().numpy(),
+            "deleted": graph.deleted.cpu().numpy(),
+            "n_nodes": graph.n_nodes}

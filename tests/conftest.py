@@ -26,3 +26,9 @@ import pytest  # noqa: E402
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(42)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc (the CUDA kernels "
+        "have no CPU mode); skips elsewhere")

@@ -1,0 +1,76 @@
+"""The CUDA kernel on the card: ops/cuda_bruteforce.bruteforce_topk against
+its plain twin, and the index's exact route through it.  A CUDA kernel has
+no CPU mode, so every test here skips without a CUDA device; run them on
+the card with ``python -m pytest tests/ -m cuda``.
+
+Tolerances: distances rtol 1e-5; ids equal except where the two sides'
+distances at that rank are within 1e-5 relative (float32 sums in another
+order may swap near-tied rows)."""
+
+import numpy as np
+import pytest
+import torch
+
+from pg_embedding_tpu_torch import HnswConfig, HnswIndex
+from pg_embedding_tpu_torch.ops import cuda_bruteforce as cb
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _check(got, want):
+    (dk, ik), (dp, ip) = [(d.cpu().numpy(), i.cpu().numpy())
+                          for d, i in (got, want)]
+    np.testing.assert_array_equal(np.isinf(dk), np.isinf(dp))
+    fin = np.isfinite(dp)
+    np.testing.assert_allclose(dk[fin], dp[fin], rtol=1e-5, atol=1e-6)
+    diff = ik != ip
+    assert np.all(np.abs(dk[diff] - dp[diff]) <= 1e-5 * np.abs(dp[diff]))
+
+
+@pytest.mark.parametrize("metric,n,d,b,k_run,masked", [
+    (0, 20000, 128, 300, 12, False),
+    (1, 20000, 100, 64, 1, True),
+    (0, 7000, 960, 40, 102, True),
+    (1, 5000, 30, 17, 1000, False),      # the 2-queries-per-warp variant
+    (0, 3000, 64, 33, 100, True),        # k_run > live rows
+])
+def test_kernel_matches_plain(cuda, metric, n, d, b, k_run, masked):
+    g = torch.Generator(device=cuda).manual_seed(n + d)
+    pts = torch.randn((n, d), generator=g, device=cuda)
+    qs = torch.randn((b, d), generator=g, device=cuda)
+    n_valid, dead = n, None
+    if masked:
+        n_valid = n // 30 if k_run == 100 else n - 123
+        dead = torch.rand(n, generator=g, device=cuda) < 0.1
+    before = cb.LAUNCHES
+    got = cb.bruteforce_topk(qs, pts, k_run, metric, n_valid, dead)
+    torch.cuda.synchronize()
+    assert cb.LAUNCHES == before + 1
+    _check(got, cb._bruteforce_topk_plain(qs, pts, k_run, metric, n_valid,
+                                          dead))
+
+
+def test_index_exact_route_uses_kernel(cuda):
+    rng = np.random.default_rng(0)
+    pts = rng.normal(size=(3000, 32)).astype(np.float32)
+    qs = rng.normal(size=(64, 32)).astype(np.float32)
+    cfg = HnswConfig(dims=32, m=8, ef_construction=32, ef_search=32)
+    gpu = HnswIndex(cfg, device=cuda)
+    cpu = HnswIndex(cfg, device="cpu")
+    for idx in (gpu, cpu):
+        idx.build(pts)
+        idx.delete(np.arange(0, 3000, 11))
+    before = cb.LAUNCHES
+    d, l, v = gpu.search(qs, 10)                   # auto -> exact route
+    assert cb.LAUNCHES > before
+    dc, lc, vc = cpu.search(qs, 10)
+    assert (l == lc).mean() >= 0.99
+    np.testing.assert_allclose(d, dc, rtol=1e-5)
+    assert not np.isin(l[v], np.arange(0, 3000, 11)).any()
