@@ -6,17 +6,30 @@
 Phases, each printing one line (no failure is caught; any failed check
 exits non-zero):
   1. device: the card's name and power limit, torch/CUDA versions, TF32 off;
-  2. build the CUDA kernel from the repository's sources;
+  2. build the CUDA kernels from the repository's sources;
   3. the kernel against its plain torch twin: L2 and cosine, D in
      {128, 100, 960}, k in {1, 10, 100, 1000}, with and without n_valid < N
-     and tombstones, one k > n_valid case, up to 1M rows x 1024 queries;
-     kernel and plain times at 1M x 128-d, B=1024, k=10 (CUDA events);
+     and tombstones, one k > n_valid case, up to 1M rows x 1024 queries, for
+     a float32 corpus and (three cases) a bfloat16 one; kernel and plain
+     times of both instantiations at 1M x 128-d, B=1024, k=10 (CUDA events);
   4. the main path at SIFT1M's shape (1,000,000 x 128-d, BASELINE.md
      config 1, bench.py's clustered recipe, seed 12345): HnswIndex.build,
      graph invariants, search() in auto mode through the kernel, exact and
      graph QPS, recall@10 of the graph route (>= 0.90 at T=8; T=4's is
      printed), deletes never surfacing; before it, a small build that must
-     match the same build on the CPU.
+     match the same build on the CPU;
+  5. on the same index: the serving variants at T=8 (quantized, packed
+     int8 / bf16 / float32 records; QPS and recall@10; float32 records give
+     the plain walk's ids and order), the bitmap visited set against dense;
+     save -> load onto the card (same answers, clean integrity, vacuum);
+     WAL crash recovery (snapshot, 10,000 adds + 1,000 deletes, no save,
+     load with the log: the live index's state); a scan cursor against
+     search(); last, downcast_corpus("bfloat16") and search() through the
+     kernel's bf16 instantiation, held on every query to a float64 oracle
+     over the stored bf16 rows: recall@10 >= 0.99, and every row it returns
+     within the kernel check's near-tie tolerance of the oracle's 10th
+     distance.  Its recall@10 against the float32 route is printed, not
+     held: bf16 rounding of the rows reorders near-ties at rank 10.
 The last three lines are the card's nvidia-smi line, a JSON line of the
 kernels, and {"ok": true, "device": {...}}.
 
@@ -29,6 +42,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -115,23 +129,31 @@ def time_ms(torch, fn, reps):
 
 
 def kernel_phase(torch, cb, dev):
-    # (metric, rows, dims, queries, k_run, n_valid fraction, tombstones)
+    """Both instantiations against the plain twin.  Returns
+    {kernel name: (max_abs_err, kernel ms, plain ms)}."""
+    bf16 = torch.bfloat16
+    # (metric, rows, dims, queries, k_run, n_valid fraction, tombstones,
+    #  corpus dtype)
+    f32 = torch.float32
     cases = [
-        (L2, 1_000_000, 128, 1024, 12, 1.0, False),
-        (COSINE, 1_000_000, 128, 1024, 10, 0.9, True),
-        (L2, 300_000, 100, 1024, 102, 1.0, True),
-        (COSINE, 300_000, 100, 1024, 1, 0.5, False),
-        (L2, 100_000, 960, 1024, 1, 0.8, True),
-        (COSINE, 100_000, 960, 1024, 100, 1.0, False),
-        (L2, 200_000, 128, 1024, 3, 1.0, False),
-        (COSINE, 50_000, 128, 256, 1000, 1.0, True),
-        (L2, 50_000, 100, 128, 1024, 0.7, False),
-        (L2, 20_000, 128, 1024, 100, 0.004, True),    # k > n_valid
+        (L2, 1_000_000, 128, 1024, 12, 1.0, False, f32),
+        (COSINE, 1_000_000, 128, 1024, 10, 0.9, True, f32),
+        (L2, 300_000, 100, 1024, 102, 1.0, True, f32),
+        (COSINE, 300_000, 100, 1024, 1, 0.5, False, f32),
+        (L2, 100_000, 960, 1024, 1, 0.8, True, f32),
+        (COSINE, 100_000, 960, 1024, 100, 1.0, False, f32),
+        (L2, 200_000, 128, 1024, 3, 1.0, False, f32),
+        (COSINE, 50_000, 128, 256, 1000, 1.0, True, f32),
+        (L2, 50_000, 100, 128, 1024, 0.7, False, f32),
+        (L2, 20_000, 128, 1024, 100, 0.004, True, f32),   # k > n_valid
+        (L2, 1_000_000, 128, 1024, 12, 1.0, False, bf16),
+        (COSINE, 300_000, 100, 1024, 10, 0.9, True, bf16),
+        (L2, 100_000, 960, 1024, 12, 1.0, False, bf16),
     ]
-    max_err = 0.0
-    for metric, n, d, b, k_run, frac, tomb in cases:
+    max_err = {f32: 0.0, bf16: 0.0}
+    for metric, n, d, b, k_run, frac, tomb, dtype in cases:
         g = torch.Generator(device=dev).manual_seed(SEED + n + d + k_run)
-        pts = torch.randn((n, d), generator=g, device=dev)
+        pts = torch.randn((n, d), generator=g, device=dev).to(dtype)
         qs = torch.randn((b, d), generator=g, device=dev)
         n_valid = int(n * frac)
         dead = (torch.rand(n, generator=g, device=dev) < 0.05) if tomb else None
@@ -144,8 +166,9 @@ def kernel_phase(torch, cb, dev):
         live = n_valid - (0 if dead is None else int(dead[:n_valid].sum()))
         if k_run > live:
             check(bool((got[1][:, live:] == -1).all()), "k > n_valid padding")
-        max_err = max(max_err, err)
-        log(f"kernel vs plain: {'l2' if metric == L2 else 'cosine'} "
+        max_err[dtype] = max(max_err[dtype], err)
+        log(f"kernel vs plain: {cb._KERNELS[dtype]} "
+            f"{'l2' if metric == L2 else 'cosine'} "
             f"N={n} D={d} B={b} k_run={k_run} n_valid={n_valid} "
             f"tombstones={tomb}: max_abs_err={err:.3g} near-tie id "
             f"swaps={n_diff}")
@@ -155,15 +178,20 @@ def kernel_phase(torch, cb, dev):
     pts = torch.randn((1_000_000, 128), generator=g, device=dev)
     qs = torch.randn((1024, 128), generator=g, device=dev)
     n = pts.shape[0]
-    plain_ms = time_ms(torch, lambda: cb._bruteforce_topk_plain(
-        qs, pts, K + 2, L2, n), 3)
-    ms = time_ms(torch, lambda: cb.bruteforce_topk(qs, pts, K + 2, L2, n), 10)
-    plain_ms2 = time_ms(torch, lambda: cb._bruteforce_topk_plain(
-        qs, pts, K + 2, L2, n), 3)
-    log(f"timing at 1M x 128-d, B=1024, k=10 (k_run=12): kernel {ms:.3f} ms "
-        f"({1024 / ms * 1e3:.0f} QPS), plain {plain_ms:.3f} / "
-        f"{plain_ms2:.3f} ms")
-    return max_err, ms, (plain_ms + plain_ms2) / 2
+    out = {}
+    for corpus in (pts, pts.to(bf16)):
+        plain_ms = time_ms(torch, lambda: cb._bruteforce_topk_plain(
+            qs, corpus, K + 2, L2, n), 3)
+        ms = time_ms(torch, lambda: cb.bruteforce_topk(qs, corpus, K + 2, L2,
+                                                       n), 10)
+        plain_ms2 = time_ms(torch, lambda: cb._bruteforce_topk_plain(
+            qs, corpus, K + 2, L2, n), 3)
+        name = cb._KERNELS[corpus.dtype]
+        log(f"timing {name} at 1M x 128-d, B=1024, k=10 (k_run=12): "
+            f"kernel {ms:.3f} ms ({1024 / ms * 1e3:.0f} QPS), plain "
+            f"{plain_ms:.3f} / {plain_ms2:.3f} ms")
+        out[name] = (max_err[corpus.dtype], ms, (plain_ms + plain_ms2) / 2)
+    return out
 
 
 def small_build_matches_cpu(torch, HnswConfig, HnswIndex, dev):
@@ -187,6 +215,11 @@ def small_build_matches_cpu(torch, HnswConfig, HnswIndex, dev):
           "cuda and cpu builds disagree")
 
 
+def reset_launches(cb):
+    for name in cb.LAUNCHES:
+        cb.LAUNCHES[name] = 0
+
+
 def recall(got_l, got_v, want_l, k=K):
     return float(np.mean([len(set(got_l[i][got_v[i]][:k].tolist()) &
                               set(want_l[i][:k].tolist())) / k
@@ -200,7 +233,7 @@ def main_path(torch, cb, HnswConfig, HnswIndex, dev, n, n_queries):
     log(f"data: {n} x {DIMS} SIFT-like clustered, {n_queries} queries "
         f"(seed {SEED}) in {time.time() - t0:.1f} s")
 
-    cb.LAUNCHES = 0
+    reset_launches(cb)
     # The graph route expands T=8 candidates per step, the setting of the
     # JAX package's own 1M graph measurement (BASELINE.md, "Measured at
     # 1M"): on this data the default T=4 reaches recall@10 0.895 at 1M, a
@@ -227,7 +260,8 @@ def main_path(torch, cb, HnswConfig, HnswIndex, dev, n, n_queries):
     log(f"graph invariants ok: mean degree {float(cnts.float().mean()):.2f}")
 
     d, l, v = idx.search(qs, K)                        # auto -> exact route
-    check(cb.LAUNCHES > 0, "search(mode='auto') did not launch the kernel")
+    check(cb.LAUNCHES["bruteforce_topk"] > 0,
+          "search(mode='auto') did not launch the kernel")
     check(d.shape == (n_queries, K) and bool(np.isfinite(d).all())
           and bool(v.all()), "exact results shape/finite")
 
@@ -264,7 +298,190 @@ def main_path(torch, cb, HnswConfig, HnswIndex, dev, n, n_queries):
         check(bool(dv.all()), f"{mode}: fewer than k live results")
     log(f"delete: {len(dead)} labels tombstoned; none returned by the exact "
         f"or graph route")
-    return cb.LAUNCHES
+    launches = dict(cb.LAUNCHES)
+    log(f"main path kernel launches: {launches}")
+    return idx, pts, qs, launches
+
+
+def serving_variants(torch, idx, qs):
+    """Quantized and packed walks on the 1M index at T=8: QPS and recall@10
+    against the exact route, each within 0.005 of the plain walk's recall;
+    float32 records must give the plain walk's ids and order; the bitmap
+    visited set must give dense's ids."""
+    _, el, _ = idx.exact_search(qs, K)
+    _, plain_ids = idx.search_ids(qs)
+    _, pl, pv = idx.search(qs, K, mode="graph")
+    plain_rec = recall(pl, pv, el)
+    log(f"serving plain walk (T={idx.search_expand_width}): recall@10 "
+        f"{plain_rec:.4f} vs the exact route")
+    variants = [("quantized", dict(quantized_traversal=True)),
+                ("packed int8", dict(packed_traversal=True,
+                                     packed_dtype="int8")),
+                ("packed bfloat16", dict(packed_traversal=True,
+                                         packed_dtype="bfloat16")),
+                ("packed float32", dict(packed_traversal=True,
+                                        packed_dtype="float32"))]
+    reps = 3
+    for name, knobs in variants:
+        for key, val in knobs.items():
+            setattr(idx, key, val)
+        t0 = time.time()
+        _, ids = idx.search_ids(qs)            # builds the shadow/records
+        torch.cuda.synchronize()
+        first_s = time.time() - t0
+        t0 = time.time()
+        for _ in range(reps):
+            _, gl, gv = idx.search(qs, K, mode="graph")
+        qps = reps * len(qs) / (time.time() - t0)
+        size = (idx._pcodes if idx.packed_traversal else idx._qvec)
+        gb = size.numel() * size.element_size() / 1e9
+        rec = recall(gl, gv, el)
+        log(f"serving {name} (T={idx.search_expand_width}): {qps:.0f} QPS at "
+            f"recall@10 {rec:.4f} vs the exact route; shadow {gb:.2f} GB, "
+            f"first call {first_s:.1f} s")
+        check(rec >= plain_rec - 0.005,
+              f"{name}: recall {rec} vs the plain walk's {plain_rec}")
+        if name == "packed float32":
+            check(np.array_equal(ids, plain_ids),
+                  "packed float32 ids/order differ from the plain walk")
+        idx.quantized_traversal = idx.packed_traversal = False
+    log("packed float32 walk: ids and order equal the plain walk's on all "
+        f"{len(qs)} queries")
+    sub = qs[:64]
+    _, dense = idx.search_ids(sub)
+    idx.visited_mode = "bitmap"
+    _, bitmap = idx.search_ids(sub)
+    idx.visited_mode = "dense"
+    check(np.array_equal(bitmap, dense), "bitmap visited set != dense")
+    log("visited_mode='bitmap' gives dense's ids on 64 queries")
+
+
+def answers(idx, qs):
+    return [idx.search(qs, K, mode=mode)[1] for mode in ("graph", "exact")]
+
+
+def same_answers(a, b, what):
+    for mode, x, y in zip(("graph", "exact"), a, b):
+        check(np.array_equal(x, y), f"{what}: {mode} labels differ")
+
+
+def persistence(torch, HnswIndex, idx, qs, tmp):
+    path = os.path.join(tmp, "index.npz")
+    t0 = time.time()
+    idx.save(path, compressed=False)
+    save_s = time.time() - t0
+    t0 = time.time()
+    back = HnswIndex.load(path, device=idx.device)
+    back.search_expand_width = idx.search_expand_width   # not persisted
+    torch.cuda.synchronize()
+    load_s = time.time() - t0
+    log(f"save(compressed=False) of {idx.n_nodes} nodes: "
+        f"{os.path.getsize(path) / 1e9:.3f} GB in {save_s:.1f} s; "
+        f"load onto the card {load_s:.1f} s")
+    same_answers(answers(idx, qs), answers(back, qs), "loaded index")
+    viol = back.check_integrity(raise_on_error=False)
+    check(not any(viol.values()), f"loaded index integrity {viol}")
+    counts = ("num_nodes", "num_live", "num_dead")     # capacity may differ
+    check(all(back.vacuum()[c] == idx.vacuum()[c] for c in counts),
+          "vacuum counts differ")
+    check(back.counters["n_deleted"] == idx.counters["n_deleted"],
+          "tombstone count")
+    log(f"loaded index: graph and exact labels equal the saved index's; "
+        f"integrity clean; vacuum {back.vacuum()}")
+    del back
+    os.remove(path)
+
+
+def wal_recovery(torch, HnswIndex, idx, pts, qs, tmp):
+    snap, log_path = os.path.join(tmp, "snap.npz"), os.path.join(tmp, "wal")
+    idx.enable_wal(log_path)
+    idx.save(snap, compressed=False)
+    rng = np.random.default_rng(SEED + 1)
+    n0 = idx.n_nodes
+    extra = (pts[:10_000] + rng.normal(scale=0.1, size=(10_000, DIMS))
+             ).astype(np.float32)
+    t0 = time.time()
+    idx.add(extra, np.arange(n0, n0 + 10_000, dtype=np.uint64))
+    alive = np.nonzero(~idx.graph.deleted[:idx.n_nodes].cpu().numpy())[0]
+    gone = rng.choice(idx.labels[alive], 1_000, replace=False)
+    check(idx.delete(gone) == 1_000, "WAL phase delete count")
+    torch.cuda.synchronize()
+    write_s = time.time() - t0
+    want = (idx.n_nodes, idx.counters["n_deleted"], answers(idx, qs))
+    wal_bytes = os.path.getsize(log_path)
+    t0 = time.time()
+    back = HnswIndex.load(snap, wal=log_path, device=idx.device)
+    back.search_expand_width = idx.search_expand_width
+    torch.cuda.synchronize()
+    rec_s = time.time() - t0
+    got = (back.n_nodes, back.counters["n_deleted"], answers(back, qs))
+    check(got[:2] == want[:2], f"recovered n_nodes/tombstones {got[:2]} "
+          f"!= live {want[:2]}")
+    same_answers(want[2], got[2], "WAL-recovered index")
+    log(f"WAL: 10,000 adds + 1,000 deletes logged ({wal_bytes / 1e6:.1f} MB, "
+        f"{write_s:.1f} s with the writes); load(snapshot, wal=) recovered "
+        f"n_nodes {got[0]}, {got[1]} tombstones and both routes' labels in "
+        f"{rec_s:.1f} s")
+    del back
+    os.remove(snap)
+
+
+def scan_check(idx, qs):
+    scan = idx.open_scan(qs[0])
+    _, labels = scan.next(K)
+    _, gl, gv = idx.search(qs[:1], K, mode="graph")
+    check(len(labels) == K == len(set(labels.tolist())), "scan labels")
+    check(np.array_equal(labels, gl[0][gv[0]]), "scan != search(graph)")
+    _, more = scan.next(K)
+    check(not np.isin(more, labels).any(), "scan repeated a row")
+    log(f"open_scan: first {K} labels equal search(mode='graph')'s; the next "
+        f"{len(more)} are new")
+
+
+def bf16_phase(torch, cb, idx, qs):
+    """The one-way downcast, then the exact route through the bf16
+    instantiation; returns its launch counts.  On every query the route must
+    return the exact top-k of the rows it stores: a float64 oracle over the
+    bf16 rows, with the kernel check's near-tie rule (a returned row within
+    1e-5 relative of the oracle's k-th distance).  Its recall against the
+    float32 route is printed only: bf16 rounding reorders near-ties."""
+    n = idx.n_nodes
+    check(np.array_equal(idx.labels, np.arange(n)), "labels are node ids")
+    _, el, _ = idx.exact_search(qs, K)
+    idx.downcast_corpus("bfloat16")
+    reset_launches(cb)
+    _, bl, bv = idx.search(qs, K)                      # auto -> exact route
+    launches = dict(cb.LAUNCHES)
+    check(launches["bruteforce_topk_bf16"] > 0,
+          "search() on a bf16 corpus did not launch the bf16 kernel")
+    check(bool(bv.all()), "bf16 route: fewer than k results")
+    rec32 = recall(bl, bv, el)
+    rows = idx.graph.vectors[:n].double()
+    dead = idx.graph.deleted[:n]
+    oracle, kth, got_d = [], [], []
+    for lo in range(0, len(qs), 128):
+        q = torch.as_tensor(qs[lo:lo + 128], device=rows.device).double()
+        d64 = torch.cdist(q, rows).masked_fill(dead, float("inf"))
+        top = torch.topk(d64, K, largest=False)
+        oracle.append(top.indices.cpu().numpy())
+        kth.append(top.values[:, K - 1])
+        got = torch.as_tensor(bl[lo:lo + 128].astype(np.int64),
+                              device=rows.device)
+        got_d.append(d64.gather(1, got).amax(1))
+        del d64
+    oracle = np.concatenate(oracle)
+    kth, got_d = torch.cat(kth), torch.cat(got_d)
+    rec_own = recall(bl, bv, oracle)
+    excess = float(((got_d - kth) / kth).max())
+    log(f"downcast_corpus('bfloat16'): search(mode='auto') recall@10 "
+        f"{rec_own:.4f} vs a float64 oracle over the bf16 rows on "
+        f"{len(qs)} queries (largest returned distance {excess:+.2e} "
+        f"relative to the oracle's 10th); recall@10 {rec32:.4f} vs the "
+        f"float32 exact route (not held); launches {launches}")
+    check(rec_own >= 0.99, f"bf16 route vs its own rows: recall {rec_own}")
+    check(bool((got_d <= kth * (1 + 1e-5) + 1e-6).all()),
+          f"bf16 route returned a row past the oracle's 10th ({excess})")
+    return launches
 
 
 def main():
@@ -292,18 +509,31 @@ def main():
     _kernels.load_library()
     log(f"kernel build: {time.time() - t0:.1f} s (nvcc, sm_90a)")
 
-    max_err, ms, plain_ms = kernel_phase(torch, cb, dev)
+    timings = kernel_phase(torch, cb, dev)
     small_build_matches_cpu(torch, HnswConfig, HnswIndex, dev)
-    launches = main_path(torch, cb, HnswConfig, HnswIndex, dev, args.n,
-                         args.queries)
+    idx, pts, qs, main_launches = main_path(torch, cb, HnswConfig, HnswIndex,
+                                            dev, args.n, args.queries)
+    serving_variants(torch, idx, qs)
+    os.makedirs(os.path.join(REPO, ".kernel_build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(
+            dir=os.path.join(REPO, ".kernel_build")) as tmp:
+        persistence(torch, HnswIndex, idx, qs, tmp)
+        wal_recovery(torch, HnswIndex, idx, pts, qs, tmp)
+    scan_check(idx, qs)
+    bf16_launches = bf16_phase(torch, cb, idx, qs)
 
     log(smi)
-    print(json.dumps({"kernels": [{
-        "name": "bruteforce_topk", "route": "cuda",
-        "source": "pg_embedding_tpu_torch/csrc/bruteforce_topk.cu",
-        "replaces": "pg_embedding_tpu/ops/pallas_bruteforce.py:58",
-        "launches": launches, "max_abs_err": max_err, "ms": ms,
-        "plain_ms": plain_ms}]}))
+    kernels = []
+    for name, launches in (("bruteforce_topk", main_launches),
+                           ("bruteforce_topk_bf16", bf16_launches)):
+        err, ms, plain_ms = timings[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "pg_embedding_tpu_torch/csrc/bruteforce_topk.cu",
+            "replaces": "pg_embedding_tpu/ops/pallas_bruteforce.py:58",
+            "launches": launches[name], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms})
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,16 +2,19 @@
 pg_embedding_tpu (the ``hnsw`` index of neondatabase/pg_embedding), ported
 to PyTorch with hand-written CUDA kernels for NVIDIA Hopper.
 
-Same surface as the JAX package, main-path subset:
+Same surface as the JAX package's single-device HnswIndex, PQ aside:
   SQL operators <-> / <=> / <~>      -> ops.distance.{l2,cosine,manhattan}_distance
   opclasses ann_{l2,cos,manhattan}_ops -> config.Metric + resolve_metric
   reloptions {dims,m,efconstruction,efsearch} -> config.HnswConfig
   CREATE INDEX / ambuild             -> api.HnswIndex.build
   aminsert                           -> api.HnswIndex.add
-  amgettuple + progressive widening  -> api.HnswIndex.search
+  amgettuple + progressive widening  -> api.HnswIndex.search / open_scan
   ambulkdelete (tombstones)          -> api.HnswIndex.delete
+  amvacuumcleanup                    -> api.HnswIndex.vacuum
   seq-scan exact ordering            -> api.HnswIndex.exact_search /
                                         ops.cuda_bruteforce.fused_exact_search
+  WAL/page durability                -> api.HnswIndex.save / load /
+                                        enable_wal (wal.py)
 
 Importing builds no kernel: the CUDA sources compile at first CUDA use.
 """
@@ -20,7 +23,7 @@ from .config import HnswConfig, HnswConfigError, Metric, resolve_metric
 from .ops.distance import cosine_distance, l2_distance, manhattan_distance
 from .ops.bruteforce import exact_search
 from .ops.cuda_bruteforce import fused_exact_search
-from .api import HnswIndex
+from .api import HnswIndex, TuneResult, TuneTargetMissed
 
 __version__ = "0.1.0"
 
@@ -35,5 +38,7 @@ __all__ = [
     "exact_search",
     "fused_exact_search",
     "HnswIndex",
+    "TuneResult",
+    "TuneTargetMissed",
     "__version__",
 ]

@@ -44,9 +44,10 @@ def _declare(lib) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.bruteforce_topk_splits.argtypes = [ci, ci, ci]
     lib.bruteforce_topk_splits.restype = ci
-    lib.bruteforce_topk.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci,
-                                    vp, vp, vp, vp, vp]
-    lib.bruteforce_topk.restype = ci
+    for fn in (lib.bruteforce_topk, lib.bruteforce_topk_bf16):
+        fn.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, vp, vp, vp, vp,
+                       vp]
+        fn.restype = ci
     lib.bruteforce_topk_error_string.argtypes = [ci]
     lib.bruteforce_topk_error_string.restype = ctypes.c_char_p
 

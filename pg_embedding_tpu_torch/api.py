@@ -8,8 +8,13 @@ on one device (reference entry points in parentheses):
   .add(vectors, labels)        aminsert / hnsw_insert      (embedding.c:556)
   .search(queries, k)          amgettuple + progressive ef-doubling
                                                            (embedding.c:284-366)
+  .open_scan(query)            the amgettuple cursor itself
   .delete(labels)              ambulkdelete tombstones     (embedding.c:883-944)
+  .vacuum()                    amvacuumcleanup stats       (embedding.c:867-878)
   .exact_search(queries, k)    seq-scan ORDER BY oracle    (embedding.c:1022-1038)
+  .save(path) / .load(path)    page durability + metadata guard
+                                                           (embedding.c:594-602)
+  .enable_wal(path)            GenericXLog per insert/delete (embedding.c:651-686)
 
 Labels are opaque uint64 user ids kept in host numpy (torch's uint64
 support is partial); device search returns internal node ids, mapped to
@@ -17,19 +22,26 @@ labels at the very end, exactly where searchKnn does (hnswalg.cpp:243-246).
 Tombstoned nodes remain graph waypoints but are filtered from results
 (hnswalg.cpp:245).
 
-This is the main-path subset of the JAX package's HnswIndex.  The knobs and
-methods it does not port yet raise NotImplementedError naming the
-ROADMAP.md queue-1 item that ports them.
+Snapshots are the JAX package's npz format, key for key and dtype for
+dtype, and the WAL is the same bytes (wal.py), so either package restores
+what the other wrote.  Product quantization (packed_dtype="pq",
+search(mode="sweep_pq"), pq_sweep_search) is not ported yet and raises
+NotImplementedError naming its ROADMAP.md queue-1 item; a snapshot that
+carries a PQ codebook still loads, and save() writes the codebook back
+unchanged.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Dict, Optional, Tuple
+import json
+import os
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from . import wal as walmod
 from .config import HnswConfig
 from .core.build import build_schedule, insert_batch_core, quantize_rows
 from .core.graph import GraphState, empty_graph, grow_graph
@@ -50,7 +62,9 @@ def _write_locked(fn):
 
 
 def _read_locked(fn):
-    """Reader: shared section; any number may overlap, none with a writer."""
+    """Reader: shared section; any number may overlap, none with a writer.
+    Reentrant under this thread's own write (auto-checkpoint calls save()
+    from inside add())."""
     @functools.wraps(fn)
     def wrapper(self, *a, **k):
         with self._rwlock.read():
@@ -64,14 +78,77 @@ def _unported(what: str, item: int):
         f"(ROADMAP.md queue 1, item {item})")
 
 
+_SAVE_FORMAT_VERSION = 1
+
+_STORAGE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# element type of the packed neighbour records
+_PACKED_DTYPES = {"int8": torch.int8, "bfloat16": torch.bfloat16,
+                  "float32": torch.float32}
+# records are gathered this many nodes at a time, so packing peaks at the
+# records plus one chunk
+_PACK_CHUNK = 131_072
+
+
+class TuneResult(NamedTuple):
+    """tune_ef_search outcome: the chosen ef, the recall it achieved on the
+    tuning queries, and whether the target was met."""
+
+    ef: int
+    recall: float
+    met: bool
+
+
+class TuneTargetMissed(RuntimeError):
+    """Raised by tune_ef_search(strict=True) when even max_ef missed the
+    recall target."""
+
+
+def _npz_path(path: str) -> str:
+    """np.savez appends '.npz' to suffix-less paths; normalize so
+    save(p) / load(p) are symmetric for any p."""
+    return path if path.endswith(".npz") else path + ".npz"
+
+
+def _atomic_savez(path: str, payload: dict, compressed: bool) -> None:
+    """Write an .npz durably and atomically: tmp file + flush + fsync +
+    rename + directory fsync.  A crash mid-save leaves the previous
+    snapshot intact."""
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        (np.savez_compressed if compressed else np.savez)(f, **payload)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+    dirfd = os.open(os.path.dirname(os.path.abspath(path)) or ".",
+                    os.O_RDONLY)
+    try:
+        os.fsync(dirfd)
+    finally:
+        os.close(dirfd)
+
+
+def _pack_records(rows: torch.Tensor, links: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """Packed neighbour records [cap, maxM, D] of ``dtype``: record i, slot
+    j holds row links[i, j] (row 0 where the slot is empty)."""
+    cap, max_m = links.shape
+    out = torch.empty((cap, max_m, rows.shape[1]), dtype=dtype,
+                      device=rows.device)
+    for start in range(0, cap, _PACK_CHUNK):
+        end = min(start + _PACK_CHUNK, cap)
+        out[start:end] = rows[links[start:end].clamp(min=0)]
+    return out
+
+
 class HnswIndex:
     """Flat-NSW approximate nearest neighbor index on one torch device.
 
     ``device`` defaults to "cuda"; the CPU runs only when asked for.
     Thread-safety contract — MURSIW (embedding.c:624-631): any number of
-    concurrent readers (search/search_ids/exact_search), at most one writer
-    (build/add/delete/delete_where), and reads never overlap writes.  All
-    public methods take the right side of an internal reader-writer lock."""
+    concurrent readers (search/search_ids/exact_search/save/scan fetches),
+    at most one writer (build/add/delete/delete_where), and reads never
+    overlap writes.  All public methods take the right side of an internal
+    reader-writer lock."""
 
     def __init__(self, config: HnswConfig, *,
                  device="cuda",
@@ -82,19 +159,24 @@ class HnswIndex:
                  build_candidates: str = "auto",
                  storage_dtype: str = "float32",
                  quantized_traversal: bool = False,
-                 packed_traversal: bool = False) -> None:
-        if storage_dtype != "float32":
-            raise _unported(f"storage_dtype={storage_dtype!r}", 11)
-        if quantized_traversal:
-            raise _unported("quantized_traversal", 11)
-        if packed_traversal:
-            raise _unported("packed_traversal", 11)
+                 packed_traversal: bool = False,
+                 packed_dtype: str = "int8") -> None:
+        if storage_dtype not in _STORAGE_DTYPES:
+            raise ValueError(f"unknown storage_dtype: {storage_dtype!r}")
         if build_candidates not in ("auto", "beam", "exact", "exact8"):
             raise ValueError(
                 f"unknown build_candidates: {build_candidates!r}")
+        if packed_dtype not in (*_PACKED_DTYPES, "pq"):
+            raise ValueError(f"unknown packed_dtype: {packed_dtype!r}")
+        if packed_dtype == "pq":
+            raise _unported('packed_dtype="pq"', 12)
         self.config = config
         self.device = torch.device(device)
         self.max_insert_batch = int(max_insert_batch)
+        # "float32" or "bfloat16": the dtype the corpus rows are stored in
+        # (a memory knob, persisted on save).  Distances are float32 either
+        # way; bf16 rows are upcast where they are read.
+        self.storage_dtype = storage_dtype
         # candidates expanded per beam-search step (T), a serving knob
         self.search_expand_width = int(search_expand_width)
         # beam expansion width for construction searches ("beam" mode)
@@ -113,22 +195,48 @@ class HnswIndex:
         # Router thresholds, inherited from the JAX package so that both
         # route the same calls; they have not been measured on this card.
         # search(mode="auto") sends batches >= 32 over corpora up to
-        # exact_threshold rows to the exact sweep, and filters that allow
-        # fewer than filter_exact_selectivity of the rows to the masked
-        # exact sweep.
+        # exact_threshold rows (exact_threshold_packed under packed
+        # traversal) to the exact sweep, and filters that allow fewer than
+        # filter_exact_selectivity of the rows to the masked exact sweep.
         self.exact_threshold = 5_500_000
+        self.exact_threshold_packed = 2_700_000
         self.filter_exact_selectivity = 0.75
         # widening-loop ceiling: beyond it a starved query returns a
         # partial valid mask (a semantic limit shared with the JAX package)
         self.max_widen_ef = 4096
+        # serving knobs: the walk reads int8 rows (quantized_traversal) or
+        # per-node neighbour records of packed_dtype (packed_traversal;
+        # "int8", "bfloat16" or "float32"), then reranks exactly (float32
+        # records need no rerank: their walk equals the plain walk).  The
+        # shadows are built lazily and dropped by add().
+        self.quantized_traversal = bool(quantized_traversal)
+        self.packed_traversal = bool(packed_traversal)
+        self.packed_dtype = packed_dtype
+        # PQ is not ported: a loaded snapshot's pq_codebook /
+        # pq_groups_trained / pq_rot arrays (host numpy) are only carried
+        # through, unchanged, to the next save
+        self._pq_arrays: Dict[str, np.ndarray] = {}
+        # visited set of the walk: "dense" (no visited memory; "auto" is
+        # dense), "bitmap" (the exact per-query bitmap, a cross-check
+        # oracle) or "hash" (a fixed-size open-hash table per query)
+        self.visited_mode = "dense"
+        # write-ahead delta log (see enable_wal); None until enabled
+        self._wal: Optional[walmod.WalWriter] = None
+        self._wal_replaying = False
+        self._wal_auto_bytes: Optional[int] = None
+        self._wal_snapshot_path: Optional[str] = None
         self._rwlock = RWLock()
-        # int8 shadow of the corpus for the exact8 sweep, valid for its
-        # first _qvec_rows rows
+        # int8 shadow of the corpus (exact8 sweep, quantized traversal,
+        # int8 records), valid for its first _qvec_rows rows
         self._qvec: Optional[torch.Tensor] = None
         self._qscale: Optional[torch.Tensor] = None
         self._qvec_rows = 0
+        # packed neighbour records [cap, maxM, D] and, for int8, scales
+        self._pcodes: Optional[torch.Tensor] = None
+        self._pscales: Optional[torch.Tensor] = None
         self._graph = empty_graph(initial_capacity, config.dims,
-                                  config.max_m, device=self.device)
+                                  config.max_m, device=self.device,
+                                  dtype=_STORAGE_DTYPES[storage_dtype])
         self._labels = np.zeros(self._graph.capacity, dtype=np.uint64)
         self.counters: Dict[str, int] = {
             "n_inserted": 0, "n_deleted": 0, "n_searches": 0,
@@ -161,7 +269,9 @@ class HnswIndex:
     def _check_dims(self, vectors) -> np.ndarray:
         if isinstance(vectors, torch.Tensor):
             vectors = vectors.detach().cpu().numpy()
-        vectors = np.asarray(vectors, dtype=np.float32)
+        # writable, so torch can share it (WAL replay hands in read-only
+        # buffers)
+        vectors = np.require(vectors, np.float32, ["C", "W"])
         if vectors.ndim == 1:
             vectors = vectors[None, :]
         if vectors.shape[1] != self.config.dims:
@@ -235,6 +345,9 @@ class HnswIndex:
             if labels.shape[0] != n:
                 raise ValueError("labels/vectors length mismatch")
         self._ensure_capacity(n)
+        if self._wal is not None and not self._wal_replaying:
+            # write-ahead: the record is durable before the device mutation
+            self._wal.log_insert(vectors, labels)
         base = self.n_nodes
         cfg = self.config
         pts = torch.as_tensor(vectors, device=self.device)
@@ -250,6 +363,14 @@ class HnswIndex:
                 candidates=mode, qvec=self._qvec, qscale=self._qscale)
         self._labels[base: base + n] = labels
         self.counters["n_inserted"] += n
+        # the serving shadows are stale, except the int8 rows when the
+        # exact8 batches staged every inserted row (rows are append-only)
+        if self._qvec_rows != base + n:
+            self._qvec = None
+            self._qvec_rows = 0
+        self._pcodes = None
+        self._pscales = None
+        self._maybe_auto_checkpoint()
         return np.arange(base, base + n, dtype=np.int64)
 
     @_write_locked
@@ -261,10 +382,12 @@ class HnswIndex:
             raise RuntimeError("build() requires an empty index; use add()")
         self._graph = empty_graph(
             max(vectors.shape[0] + self.max_insert_batch, 32),
-            self.config.dims, self.config.max_m, device=self.device)
+            self.config.dims, self.config.max_m, device=self.device,
+            dtype=_STORAGE_DTYPES[self.storage_dtype])
         self._labels = np.zeros(self._graph.capacity, dtype=np.uint64)
         self._qvec = None
         self._qvec_rows = 0
+        self._pq_arrays = {}
         self.add(vectors, labels)
 
     # ------------------------------------------------------------------ #
@@ -282,10 +405,57 @@ class HnswIndex:
     def _queries(self, queries) -> torch.Tensor:
         return torch.as_tensor(self._check_dims(queries), device=self.device)
 
+    def _visited_slots(self, ef: int) -> int:
+        """-1 = dense dedupe (the default), 0 = exact bitmap, else the
+        hash-table slot count (a power of two, ~4x the expected unique
+        visits ef * maxM)."""
+        if self.visited_mode in ("dense", "auto"):
+            return -1
+        if self.visited_mode == "bitmap":
+            return 0
+        return 1 << max(13, (4 * ef * self.config.max_m - 1).bit_length())
+
+    def _ensure_quantized(self):
+        if self._qvec is None:
+            self._qvec, self._qscale = self._quantize(self._graph.vectors,
+                                                      self.n_nodes)
+            self._qvec_rows = self.n_nodes
+        return self._qvec, self._qscale
+
+    def _ensure_packed(self):
+        """The packed records of packed_dtype, (re)built when missing or of
+        another element type."""
+        if self.packed_dtype == "pq":
+            raise _unported('packed_dtype="pq"', 12)
+        want = _PACKED_DTYPES[self.packed_dtype]
+        if self._pcodes is None or self._pcodes.dtype != want:
+            self._pcodes = self._pscales = None      # free before packing
+            links = self._graph.links
+            if want == torch.int8:
+                qv, qs = self._ensure_quantized()
+                self._pcodes = _pack_records(qv, links, want)
+                self._pscales = qs[links.clamp(min=0)]
+            else:
+                self._pcodes = _pack_records(self._graph.vectors, links, want)
+        return self._pcodes, self._pscales
+
     def _graph_search(self, qdev: torch.Tensor, ef: int):
+        kw = {}
+        if self.packed_traversal:
+            pc, ps = self._ensure_packed()
+            kw = dict(pcodes=pc, pscales=ps)
+        elif self.quantized_traversal:
+            qv, qs = self._ensure_quantized()
+            kw = dict(qvectors=qv, qscale=qs)
         return search_graph(self._graph, qdev, ef=ef,
                             metric_value=self.config.metric.value,
-                            expand_width=self.search_expand_width)
+                            expand_width=self.search_expand_width,
+                            visited_slots=self._visited_slots(ef), **kw)
+
+    @staticmethod
+    def _alive(dead: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        """Which result ids are real and not dead (device bool)."""
+        return (ids >= 0) & ~dead[ids.clamp(min=0)]
 
     def _count_walk(self, b: int, stats) -> None:
         self.counters["n_searches"] += b
@@ -306,8 +476,11 @@ class HnswIndex:
 
     def _use_exact(self, batch: int) -> bool:
         """Cost-based routing between the graph walk and the exact sweep —
-        the planner analog (embedding.c:393-436)."""
-        return self.n_nodes <= self.exact_threshold and batch >= 32
+        the planner analog (embedding.c:393-436).  Packed traversal serves
+        a faster walk, so its crossover is lower."""
+        threshold = (self.exact_threshold_packed if self.packed_traversal
+                     else self.exact_threshold)
+        return self.n_nodes <= threshold and batch >= 32
 
     def _filter_to_excluded(self, where
                             ) -> Tuple[Optional[torch.Tensor], int]:
@@ -373,7 +546,7 @@ class HnswIndex:
         while True:
             dd, ii, stats = self._graph_search(qdev, ef)
             self._count_walk(b, stats)
-            alive_dev = (ii >= 0) & ~dead[ii.clamp(min=0)]
+            alive_dev = self._alive(dead, ii)
             d = dd.cpu().numpy()
             i = ii.cpu().numpy()
             alive = alive_dev.cpu().numpy()
@@ -397,13 +570,29 @@ class HnswIndex:
             out_v[row, :m] = True
         return out_d, out_l, out_v
 
+    def open_scan(self, query, ef: Optional[int] = None,
+                  where=None) -> "HnswScan":
+        """Open a pull-model cursor over one query — the amgettuple analog
+        (embedding.c:284-366).  ``scan.next(n)`` returns the next n
+        not-yet-returned live results, re-searching with doubled ef when
+        the cache is exhausted and deduping rows already handed out.
+
+        Like the reference (comment embedding.c:345-351), rows appended by
+        a widened re-search may be CLOSER than rows already returned."""
+        query = self._check_dims(query)
+        if query.shape[0] != 1:
+            raise ValueError("open_scan takes exactly one query vector")
+        ef = self.config.ef_search if ef is None else int(ef)
+        return HnswScan(self, query, self._bucket_ef(max(ef, 1)), where)
+
     @_read_locked
     def exact_search(self, queries, k: int, excluded=None
                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Brute-force exact k-NN over live vectors — the seq-scan ground
         truth (embedding.c:1022-1038).  On CUDA, L2 and cosine run the
-        fused kernel (ops/cuda_bruteforce); ``excluded`` is an optional
-        bool[cap] device mask of further rows to skip."""
+        fused kernel (ops/cuda_bruteforce) at the corpus's storage dtype;
+        ``excluded`` is an optional bool[cap] device mask of further rows
+        to skip."""
         qdev = self._queries(queries)
         if excluded is None:
             # no tombstones: no mask operand at all
@@ -420,15 +609,22 @@ class HnswIndex:
         labels = np.where(valid, self._labels[np.maximum(i, 0)], 0)
         return d, labels.astype(np.uint64), valid
 
+    def pq_sweep_search(self, *a, **k):
+        raise _unported("pq_sweep_search", 12)
+
     # ------------------------------------------------------------------ #
-    # delete (tombstones)
+    # delete / vacuum (tombstones)
     # ------------------------------------------------------------------ #
 
     def _tombstone(self, newly: np.ndarray) -> int:
         idxs = np.nonzero(newly)[0]
         if len(idxs):
+            if self._wal is not None and not self._wal_replaying:
+                # canonical WAL form is labels (the TID analog)
+                self._wal.log_delete(self._labels[idxs])
             self._graph.deleted[torch.as_tensor(idxs, device=self.device)] = True
         self.counters["n_deleted"] += len(idxs)
+        self._maybe_auto_checkpoint()
         return len(idxs)
 
     @_write_locked
@@ -449,28 +645,434 @@ class HnswIndex:
         already = self._graph.deleted[:n].cpu().numpy()
         return self._tombstone(mask[:n] & ~already)
 
+    def tune_ef_search(self, queries, target_recall: float = 0.95,
+                       k: int = 10, max_ef: int = 4096,
+                       strict: bool = False) -> TuneResult:
+        """Find (and set) the smallest power-of-two efSearch whose graph-mode
+        recall@k on ``queries`` meets ``target_recall`` against the exact
+        oracle — the ef/beam autotuner.
+
+        Returns TuneResult(ef, recall, met); config.ef_search is set to the
+        chosen ef either way (the best available if the target was missed).
+        ``strict=True`` raises TuneTargetMissed instead of returning an
+        unmet result."""
+        queries = self._check_dims(queries)
+        _, ol, ov = self.exact_search(queries, k)
+        ef = max(self.config.ef_search, k)
+        ef = 1 << (ef - 1).bit_length()
+        best, achieved = ef, 0.0
+        while ef <= min(max_ef, max(self.n_nodes, 1)):
+            _, i = self.search_ids(queries, ef)
+            it = torch.as_tensor(i, device=self.device)
+            alive = self._alive(self._graph.deleted, it).cpu().numpy()
+            recs = []
+            for r in range(queries.shape[0]):
+                got = set(self._labels[i[r][alive[r]][:k]].tolist())
+                want = set(ol[r][ov[r]][:k].tolist())
+                recs.append(len(got & want) / max(len(want), 1))
+            best, achieved = ef, float(np.mean(recs))
+            if achieved >= target_recall:
+                break
+            ef *= 2
+        met = achieved >= target_recall
+        if strict and not met:
+            raise TuneTargetMissed(
+                f"recall {achieved:.4f} at ef={best} misses target "
+                f"{target_recall} (max_ef={max_ef})")
+        self.set_ef_search(best)
+        return TuneResult(best, achieved, met)
+
+    @_write_locked
+    def downcast_corpus(self, dtype: str = "bfloat16") -> None:
+        """Cast the resident corpus to a narrower storage dtype in place —
+        the footprint transition for a built index.  Equivalent to
+        ``storage_dtype="bfloat16"`` at construction, except that the graph
+        and the derived shadows (int8 rows, packed records) were computed
+        from full-precision rows and are kept.  Lossy and one-way; later
+        inserts and the exact sweep work in the narrow dtype (on CUDA the
+        exact route runs the kernel's bf16 instantiation), and save()
+        persists it."""
+        if dtype != "bfloat16":
+            if dtype == "float32":
+                raise ValueError(
+                    "cannot widen a downcast corpus back to float32 — "
+                    "the dropped mantissa bits are gone; rebuild from "
+                    "the source vectors")
+            raise ValueError(f"unknown downcast dtype: {dtype!r}")
+        if self.storage_dtype == dtype:
+            return
+        self.storage_dtype = dtype
+        self._graph.vectors = self._graph.vectors.to(_STORAGE_DTYPES[dtype])
+
+    @_read_locked
+    def compact(self) -> "HnswIndex":
+        """Rebuild the index over live (non-tombstoned) vectors only,
+        reclaiming dead space — a capability the reference lacks entirely
+        (space is never reclaimed, embedding.c:867-878).  Returns a NEW
+        index on the same device with every knob carried over; self is
+        untouched."""
+        n = self.n_nodes
+        alive = ~self._graph.deleted[:n].cpu().numpy()
+        vecs = self._to_host(self._graph.vectors, n)[alive]
+        labels = self._labels[:n][alive]
+        fresh = HnswIndex(self.config, device=self.device,
+                          max_insert_batch=self.max_insert_batch,
+                          search_expand_width=self.search_expand_width,
+                          build_expand_width=self.build_expand_width,
+                          build_candidates=self.build_candidates,
+                          storage_dtype=self.storage_dtype,
+                          quantized_traversal=self.quantized_traversal,
+                          packed_traversal=self.packed_traversal,
+                          packed_dtype=self.packed_dtype)
+        for knob in ("exact_build_threshold", "exact8_build_threshold",
+                     "build_cand_cap", "exact_threshold",
+                     "exact_threshold_packed", "filter_exact_selectivity",
+                     "max_widen_ef", "visited_mode"):
+            setattr(fresh, knob, getattr(self, knob))
+        if len(vecs):
+            fresh.build(vecs, labels)
+        return fresh
+
+    @_read_locked
+    def check_integrity(self, raise_on_error: bool = True) -> Dict[str, int]:
+        """Validate graph invariants — the debug-mode analog of the
+        reference's runtime asserts: blank-slot / self-link / link-count
+        bounds (hnswalg.cpp:170-177, 183-184, 190-191) plus id-range,
+        duplicate-link and -1-padding discipline.  Returns violation
+        counts."""
+        n = self.n_nodes
+        links = self._graph.links[:n].long()
+        cnts = self._graph.link_counts[:n].long()
+        slot = torch.arange(self.config.max_m, device=links.device)
+        in_range = slot < cnts.unsqueeze(1)
+        node = torch.arange(n, device=links.device).unsqueeze(1)
+        # duplicates among a row's first cnt links: out-of-range slots get
+        # distinct sentinels below every id, then equal neighbours after a
+        # sort are duplicates
+        keyed = torch.where(in_range, links, -(1 << 40) - slot)
+        srt = torch.sort(keyed, dim=1).values
+        viol = {
+            "count_over_maxm": int((cnts > self.config.max_m).sum()),
+            "self_links": int(((links == node) & in_range).sum()),
+            "bad_ids": int((((links < 0) | (links >= n)) & in_range).sum()),
+            "dup_links": int((srt[:, 1:] == srt[:, :-1]).sum()),
+            "pad_violations": int(((links != -1) & ~in_range).sum()),
+        }
+        if raise_on_error and any(viol.values()):
+            raise AssertionError(f"graph integrity violations: {viol}")
+        return viol
+
+    @_read_locked
+    def vacuum(self) -> Dict[str, int]:
+        """Stats only — space is never reclaimed (amvacuumcleanup,
+        embedding.c:867-878)."""
+        n = self.n_nodes
+        dead = int(self._graph.deleted[:n].sum())
+        return {"num_nodes": n, "num_live": n - dead, "num_dead": dead,
+                "capacity": self._graph.capacity}
+
     # ------------------------------------------------------------------ #
-    # not ported yet
+    # durability (save/load, WAL)
     # ------------------------------------------------------------------ #
 
-    def save(self, *a, **k):
-        raise _unported("save", 9)
+    def enable_wal(self, path: str,
+                   auto_checkpoint_bytes: Optional[int] = None,
+                   snapshot_path: Optional[str] = None) -> None:
+        """Enable the write-ahead delta log — the GenericXLog analog
+        (embedding.c:651-686): every add()/delete() is appended and fsync'd
+        BEFORE the device mutation, so a crash between save() snapshots
+        loses nothing acknowledged.  load(snapshot, wal=path) replays the
+        records appended after the snapshot (see wal.py).
+
+        ``auto_checkpoint_bytes``: once the log passes this size, the next
+        completed add()/delete() snapshots to ``snapshot_path`` (default
+        ``path + ".ckpt.npz"``), which truncates the log.  Recovery after a
+        crash: ``load(snapshot_path, wal=path)``.  None keeps checkpoints
+        manual."""
+        self._wal = walmod.WalWriter(path, self.config)
+        self._wal_auto_bytes = (int(auto_checkpoint_bytes)
+                                if auto_checkpoint_bytes else None)
+        self._wal_snapshot_path = snapshot_path or (path + ".ckpt.npz")
+
+    def _maybe_auto_checkpoint(self) -> None:
+        """Called AFTER a mutation is applied on the device: every logged
+        record is covered by device state, so the snapshot+truncate pair
+        is loss-free."""
+        if (self._wal is not None and not self._wal_replaying
+                and self._wal_auto_bytes is not None
+                and self._wal.tell() >= self._wal_auto_bytes):
+            self.save(self._wal_snapshot_path)
+
+    @staticmethod
+    def _to_host(t: torch.Tensor, n: int, rows: int = 1 << 20) -> np.ndarray:
+        """The first n rows of a device tensor as host numpy, copied in
+        bounded chunks; bf16 rows widen (losslessly) to float32, which
+        numpy can hold."""
+        dt = torch.float32 if t.dtype == torch.bfloat16 else t.dtype
+        out = torch.empty((n,) + tuple(t.shape[1:]), dtype=dt)
+        for off in range(0, n, rows):
+            hi = min(off + rows, n)
+            out[off:hi] = t[off:hi]
+        return out.numpy()
+
+    @_read_locked
+    def save(self, path: str, compressed: Optional[bool] = None,
+             truncate_wal: bool = True) -> None:
+        """Serialize the full index state in the JAX package's npz format.
+        Like the reference, everything except the arrays is re-derived from
+        config on load (embedding.c:58-64).  The snapshot is written
+        atomically (tmp + fsync + rename).
+
+        With a WAL enabled, the snapshot records the WAL (epoch, offset) so
+        load(wal=...) replays only the tail; with ``truncate_wal`` the log
+        is then truncated to a new epoch, and the snapshot also records the
+        predicted post-truncation position, so a crash on either side of
+        the truncation replays exactly the un-snapshotted tail.
+
+        ``compressed``: None compresses only indexes under ~1 GB."""
+        path = _npz_path(path)
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        n = self.n_nodes
+        g = self._graph
+        do_truncate = truncate_wal and self._wal is not None
+        payload = dict(
+            format_version=np.int64(_SAVE_FORMAT_VERSION),
+            wal_offset=np.int64(self._wal.tell() if self._wal is not None
+                                else -1),
+            wal_epoch=np.int64(self._wal.epoch if self._wal is not None
+                               else -1),
+            storage_dtype=np.frombuffer(
+                self.storage_dtype.encode(), dtype=np.uint8),
+            config=np.frombuffer(
+                json.dumps(self.config.to_dict()).encode(), dtype=np.uint8),
+            vectors=self._to_host(g.vectors, n),
+            links=self._to_host(g.links, n),
+            link_counts=self._to_host(g.link_counts, n),
+            deleted=self._to_host(g.deleted, n),
+            labels=self._labels[:n],
+        )
+        if do_truncate:
+            nxt = self._wal.epoch + 1
+            payload["wal_epoch_next"] = np.int64(nxt)
+            payload["wal_offset_next"] = np.int64(self._wal.header_len(nxt))
+        payload.update(self._pq_arrays)
+        if compressed is None:
+            compressed = payload["vectors"].nbytes < (1 << 30)
+        _atomic_savez(path, payload, compressed)
+        if do_truncate:
+            # the covering snapshot is durable; reclaim the replayed prefix
+            self._wal.truncate(self._wal.epoch + 1)
 
     @classmethod
-    def load(cls, *a, **k):
-        raise _unported("load", 9)
+    def load(cls, path: str, config: Optional[HnswConfig] = None,
+             wal: Optional[str] = None, device="cuda") -> "HnswIndex":
+        """Restore an index onto ``device``.  If ``config`` is given, its
+        frozen fields {dims, maxM, metric} must match the stored ones — the
+        metadata-guard analog (embedding.c:594-602); ef* knobs may differ
+        freely.
 
-    def open_scan(self, *a, **k):
-        raise _unported("open_scan", 9)
+        ``wal``: path of the write-ahead delta log; records appended after
+        the snapshot's stored position are replayed (crash recovery), then
+        the log stays enabled on the restored index."""
+        with np.load(_npz_path(path)) as z:
+            wal_offset = int(z["wal_offset"]) if "wal_offset" in z else -1
+            wal_epoch = int(z["wal_epoch"]) if "wal_epoch" in z else None
+            wal_next = (int(z["wal_epoch_next"]),
+                        int(z["wal_offset_next"])) \
+                if "wal_epoch_next" in z else None
+            if int(z["format_version"]) != _SAVE_FORMAT_VERSION:
+                raise ValueError("unsupported index format version")
+            stored = HnswConfig.from_dict(
+                json.loads(bytes(z["config"]).decode()))
+            if config is not None:
+                if config.frozen_fields() != stored.frozen_fields():
+                    raise ValueError(
+                        "index was built with different options "
+                        "(dims/m/metric are frozen; only ef* may change)")
+                cfg = config
+            else:
+                cfg = stored
+            storage_dtype = (bytes(z["storage_dtype"]).decode()
+                             if "storage_dtype" in z else "float32")
+            arrays = {key: z[key] for key in ("vectors", "links",
+                                              "link_counts", "deleted",
+                                              "labels")}
+            pq = {key: z[key] for key in ("pq_codebook", "pq_groups_trained",
+                                          "pq_rot") if key in z}
 
-    def tune_ef_search(self, *a, **k):
-        raise _unported("tune_ef_search", 9)
+        n = arrays["vectors"].shape[0]
+        idx = cls(cfg, device=device, initial_capacity=max(n, 32),
+                  storage_dtype=storage_dtype)
+        cap = idx._graph.capacity
+        # free the constructor's empty graph before uploading the real one
+        idx._graph = None
 
-    def downcast_corpus(self, *a, **k):
-        raise _unported("downcast_corpus", 11)
+        def upload(key, fill, dtype):
+            host = torch.full((cap,) + arrays[key].shape[1:], fill,
+                              dtype=dtype)
+            host[:n] = torch.from_numpy(np.asarray(arrays[key]))
+            return host.to(idx.device)
 
-    def pq_sweep_search(self, *a, **k):
-        raise _unported("pq_sweep_search", 12)
+        deleted = upload("deleted", False, torch.bool)
+        idx._graph = GraphState(
+            vectors=upload("vectors", 0.0, _STORAGE_DTYPES[storage_dtype]),
+            links=upload("links", -1, torch.int32),
+            link_counts=upload("link_counts", 0, torch.int32),
+            deleted=deleted, n_nodes=n)
+        idx._labels[:n] = arrays["labels"]
+        idx.counters["n_inserted"] = n
+        # live tombstone count (exact_search drops the mask operand when
+        # it is zero)
+        idx.counters["n_deleted"] = int(arrays["deleted"].sum())
+        idx._pq_arrays = pq
+        if wal is not None:
+            idx._replay_wal(wal, wal_offset, wal_epoch, wal_next)
+        return idx
 
-    def enable_wal(self, *a, **k):
-        raise _unported("enable_wal", 13)
+    @staticmethod
+    def _wal_replay_start(wal_path: str, from_offset: int,
+                          snap_epoch, snap_next) -> Optional[int]:
+        """Pick the replay start by comparing the WAL file's actual epoch
+        with the snapshot's recorded pre-/post-truncation positions (see
+        wal.py module doc).  Returns a byte offset or None (= whole log)."""
+        if not os.path.exists(wal_path):
+            return None
+        file_epoch = int(walmod.read_header(wal_path).get("epoch", 0))
+        if snap_next is not None and file_epoch == snap_next[0]:
+            return snap_next[1]       # truncation completed before the crash
+        if snap_epoch is None or snap_epoch < 0:
+            # legacy snapshot (no epoch recorded): offsets are only valid
+            # against a never-truncated (epoch-0) log
+            if file_epoch != 0:
+                raise ValueError(
+                    f"WAL {wal_path} is at epoch {file_epoch} but the "
+                    f"snapshot predates WAL epochs; the tail this snapshot "
+                    f"needs was truncated by a later save()")
+            return from_offset if from_offset >= 0 else None
+        if file_epoch == snap_epoch:
+            return from_offset        # crash before the truncation (or none)
+        raise ValueError(
+            f"WAL {wal_path} is at epoch {file_epoch} but the snapshot "
+            f"recorded epoch {snap_epoch}: the log was truncated by a "
+            f"LATER snapshot — load that snapshot instead")
+
+    def _replay_wal(self, wal_path: str, from_offset: int,
+                    snap_epoch=None, snap_next=None) -> None:
+        """Apply WAL records past the snapshot position, then reopen the log
+        for appending (the recovered index keeps journaling)."""
+        start = self._wal_replay_start(wal_path, from_offset, snap_epoch,
+                                       snap_next)
+        self._wal_replaying = True
+        try:
+            for op, labels, vectors in walmod.replay(
+                    wal_path, self.config.dims, start):
+                if op == walmod.OP_INSERT:
+                    self.add(vectors, labels)
+                elif op == walmod.OP_DELETE:
+                    self.delete(labels)
+        finally:
+            self._wal_replaying = False
+        self.enable_wal(wal_path)
+
+    # ------------------------------------------------------------------ #
+    # knobs
+    # ------------------------------------------------------------------ #
+
+    def set_ef_search(self, ef_search: int) -> None:
+        """ALTER INDEX ... SET (efsearch=...) — the only legal live
+        mutation besides ef_construction (embedding.c:594-602)."""
+        self.config = self.config.with_ef(ef_search=ef_search)
+
+    def set_ef_construction(self, ef_construction: int) -> None:
+        self.config = self.config.with_ef(ef_construction=ef_construction)
+
+
+class HnswScan:
+    """Pull-model scan cursor over one query — HnswScanOpaqueData + the
+    hnsw_gettuple state machine (embedding.c:100-107, 284-366).
+
+    State: the current result cache, the set of node ids already returned
+    (the sorted-TID dedup array analog), the current ef, and the
+    ``no_more_results`` flag (embedding.c:322, 338-343).  Created via
+    HnswIndex.open_scan()."""
+
+    def __init__(self, index: HnswIndex, query: np.ndarray, ef: int,
+                 where) -> None:
+        self._idx = index
+        self._q = torch.as_tensor(query, device=index.device)   # [1, D]
+        self._ef = ef
+        # the where-filter is snapshotted at open (rescan to refresh);
+        # tombstones are re-read per fetch so concurrent deletes are seen
+        self._excluded, _ = index._filter_to_excluded(where)
+        self._buf_d: list = []                          # undelivered rows
+        self._buf_l: list = []
+        self._seen: set = set()                         # returned node ids
+        self._no_more = False
+        self._first = True
+
+    def _dead_mask(self) -> torch.Tensor:
+        """Current tombstone|filter mask, padded to the CURRENT capacity:
+        rows inserted after open were never evaluated by the where-filter,
+        so they stay excluded (snapshot semantics) while fresh tombstones
+        are honored."""
+        dead = self._idx._graph.deleted
+        exc = self._excluded
+        if exc is None:
+            return dead
+        if exc.shape[0] != dead.shape[0]:
+            exc = torch.cat([exc, exc.new_ones(dead.shape[0] - exc.shape[0])])
+            self._excluded = exc
+        return dead | exc
+
+    @property
+    def exhausted(self) -> bool:
+        """True once the graph can produce no further rows (the cache may
+        still hold undelivered ones)."""
+        return self._no_more and not self._buf_d
+
+    def _fetch(self) -> None:
+        """Run (or widen + re-run) the search, appending only new live rows
+        to the cache — one iteration of the embedding.c:297-366 machine."""
+        with self._idx._rwlock.read():
+            self._fetch_locked()
+
+    def _fetch_locked(self) -> None:
+        idx = self._idx
+        if not self._first:
+            if self._ef >= min(max(idx.n_nodes, 1), idx.max_widen_ef):
+                self._no_more = True
+                return
+            self._ef = idx._bucket_ef(self._ef * 2)
+            idx.counters["n_widenings"] += 1
+        dd, ii, stats = idx._graph_search(self._q, self._ef)
+        alive = idx._alive(self._dead_mask(), ii)[0].cpu().numpy()
+        d = dd[0].cpu().numpy()
+        i = ii[0].cpu().numpy()
+        idx._count_walk(1, stats)
+        for pos in range(len(i)):
+            node = int(i[pos])
+            if node < 0 or not alive[pos] or node in self._seen:
+                continue
+            self._seen.add(node)
+            self._buf_d.append(float(d[pos]))
+            self._buf_l.append(idx._labels[node])
+        # the graph is exhausted once a search cannot fill its RAW beam
+        # (embedding.c:322's rule, applied before the filter, so a scan
+        # starved by tombstones keeps widening — as the JAX package does)
+        if int((i >= 0).sum()) < self._ef:
+            self._no_more = True
+        self._first = False
+
+    def next(self, n: int = 1) -> Tuple[np.ndarray, np.ndarray]:
+        """Return up to ``n`` further (dists f32[m], labels u64[m]) rows,
+        m <= n; m < n means the scan is exhausted.  Each row is returned
+        exactly once across the scan's lifetime."""
+        if n < 1:
+            raise ValueError("next() needs n >= 1")
+        while len(self._buf_d) < n and not self._no_more:
+            self._fetch()
+        m = min(n, len(self._buf_d))
+        out_d = np.asarray(self._buf_d[:m], np.float32)
+        out_l = np.asarray(self._buf_l[:m], np.uint64)
+        del self._buf_d[:m], self._buf_l[:m]
+        return out_d, out_l

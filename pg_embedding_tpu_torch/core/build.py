@@ -222,7 +222,8 @@ def _exact_candidates(vectors, points, base: int, *, cand_cap: int,
         run_d, run_i = merge_min_k(run_d, run_i, d, ids, keep)
 
     # exact rerank with the reference's elementwise forms
-    rd = dist_one_to_many(pts32, vectors[run_i.clamp(min=0)], metric_value)
+    rrows = vectors[run_i.clamp(min=0)].to(torch.float32)
+    rd = dist_one_to_many(pts32, rrows, metric_value)
     rd = torch.where(run_i >= 0, rd, _INF)
     vals, sel = min_k(rd, cand_cap)
     return vals, torch.gather(run_i, 1, sel)
@@ -231,9 +232,13 @@ def _exact_candidates(vectors, points, base: int, *, cand_cap: int,
 def quantize_rows(points: torch.Tensor):
     """Per-row symmetric int8 quantization: scale = max|v|/127,
     q = clip(round(v/scale)).  Appended rows never change, so incremental
-    staging reproduces a full re-quantization."""
+    staging reproduces a full re-quantization.  The scale is max|v| times
+    float32(1/127): the JAX package always runs this compiled, and XLA
+    folds a division by a constant into that product, which differs from
+    the true quotient by an ulp in ~5% of rows (and then moves codes that
+    sit at x.5)."""
     v = points.to(torch.float32)
-    scale = torch.clamp(v.abs().amax(dim=1), min=1e-30) / 127.0
+    scale = torch.clamp(v.abs().amax(dim=1), min=1e-30) * (1.0 / 127.0)
     q = torch.clamp(torch.round(v / scale.unsqueeze(1)), -127, 127)
     return q.to(torch.int8), scale
 
@@ -265,6 +270,8 @@ def insert_batch_core(graph: GraphState, points: torch.Tensor,
     if cand_cap is None:
         cand_cap = ef_construction
     points = points.to(torch.float32)
+    # stored in the graph's dtype (bf16 rounds to nearest even, as jnp's
+    # astype does); the batch's own distances below use the f32 points
     graph.vectors[base:base + b] = points
     vectors = graph.vectors
 

@@ -6,7 +6,8 @@ Postgres pages (embedding.c:224-231).  Here, as in the JAX package, that
 becomes structure-of-arrays on the device so a whole frontier's neighbour
 rows gather in one shot:
 
-  vectors     f32[cap, D]     coordinate rows
+  vectors     f32[cap, D]     coordinate rows (bf16 under
+                              storage_dtype="bfloat16")
   links       i32[cap, maxM]  adjacency, -1 padded
   link_counts i32[cap]        valid-link counts
   deleted     bool[cap]       tombstone bits (embedding.c:44)
@@ -40,7 +41,7 @@ def _round_capacity(capacity: int) -> int:
 
 @dataclasses.dataclass
 class GraphState:
-    vectors: torch.Tensor      # f32[cap, D]
+    vectors: torch.Tensor      # f32 or bf16 [cap, D]
     links: torch.Tensor        # i32[cap, maxM], -1 padded
     link_counts: torch.Tensor  # i32[cap]
     deleted: torch.Tensor      # bool[cap]
@@ -63,12 +64,13 @@ class GraphState:
         return self.vectors.device
 
 
-def empty_graph(capacity: int, dims: int, max_m: int,
-                device="cpu") -> GraphState:
-    """Allocate an empty graph; capacity is rounded by _round_capacity."""
+def empty_graph(capacity: int, dims: int, max_m: int, device="cpu",
+                dtype=torch.float32) -> GraphState:
+    """Allocate an empty graph whose rows are stored as ``dtype``;
+    capacity is rounded by _round_capacity."""
     cap = _round_capacity(capacity)
     return GraphState(
-        vectors=torch.zeros((cap, dims), dtype=torch.float32, device=device),
+        vectors=torch.zeros((cap, dims), dtype=dtype, device=device),
         links=torch.full((cap, max_m), -1, dtype=torch.int32, device=device),
         link_counts=torch.zeros((cap,), dtype=torch.int32, device=device),
         deleted=torch.zeros((cap,), dtype=torch.bool, device=device),
@@ -83,7 +85,8 @@ def grow_graph(graph: GraphState, new_capacity: int) -> GraphState:
     old = graph.capacity
     if cap <= old:
         return graph
-    out = empty_graph(cap, graph.dims, graph.max_m, device=graph.device)
+    out = empty_graph(cap, graph.dims, graph.max_m, device=graph.device,
+                      dtype=graph.vectors.dtype)
     out.vectors[:old] = graph.vectors
     out.links[:old] = graph.links
     out.link_counts[:old] = graph.link_counts

@@ -11,6 +11,9 @@
 //   even into empty slots (an all-masked query returns ids -1, +inf);
 //   results ascend by (score, id): equal scores keep the lower id, as the
 //   TPU kernel's argmin + strict-< admission do;  L2 comes back sqrt'd.
+// The corpus comes at its stored width, float32 or bfloat16 (as the Pallas
+// kernel takes it); queries are always float32.  A bf16 row is widened to
+// float32 exactly in registers, and everything after the load is the same.
 //
 // What bounds it on an H100: at 128-d and a 1024-query batch the sweep
 // reads 512 MB of corpus per 1M rows (0.15 ms at 3.35 TB/s) and does
@@ -32,6 +35,9 @@
 //    as float4 (conflict-free: the row stride is padded to 36 floats).
 //    |p|^2 comes from the same registers.  Ragged rows and dims are masked
 //    at load, so any D and N work and the corpus is never padded or copied.
+//    A bf16 corpus halves the bytes read; when its rows are 16-byte aligned
+//    (D % 8 == 0) a thread loads 8 dims in one 16-byte load, else one at a
+//    time, and widens them into the same float32 shared-memory tile.
 //  * Selection stays inside the warp that owns the query: a ballot of
 //    scores below the current k-th finds the rare candidates (a tile with
 //    none costs one ballot), and each is inserted into a sorted list of
@@ -80,11 +86,67 @@ size_t sweep_smem_bytes(int k_run) {
          (sizeof(float) + sizeof(int)) * (size_t)qt * k_run;
 }
 
-template <int QPW>
+// One kTileN x kTileD corpus tile into shared memory as float32, zero past
+// row_end and D.  float32 corpus: a warp reads 32 consecutive floats of a
+// row.
+__device__ __forceinline__ void load_tile(const float* __restrict__ p,
+                                          float* p_s, int tile, int row_end,
+                                          int d0, int D, bool /*vec*/,
+                                          int tid) {
+  for (int e = tid; e < kTileN * kTileD; e += kThreads) {
+    const int r = e / kTileD, c = e % kTileD;
+    const int row = tile + r, col = d0 + c;
+    p_s[r * kPStride + c] =
+        (row < row_end && col < D) ? p[(size_t)row * D + col] : 0.f;
+  }
+}
+
+// bf16 corpus, as its raw 16-bit patterns: thread e owns 8 consecutive dims
+// of one row, read in one 16-byte load when ``vec`` (rows 16-byte aligned),
+// else one by one.  A bf16 value is the high half of its float32, so the
+// widening is a shift and exact.
+__device__ __forceinline__ float bf16_bits_to_float(unsigned bits) {
+  return __uint_as_float(bits << 16);
+}
+
+__device__ __forceinline__ void load_tile(const uint16_t* __restrict__ p,
+                                          float* p_s, int tile, int row_end,
+                                          int d0, int D, bool vec, int tid) {
+  constexpr int kVec = 8;
+  constexpr int kPerRow = kTileD / kVec;
+  for (int e = tid; e < kTileN * kPerRow; e += kThreads) {
+    const int r = e / kPerRow, c = (e % kPerRow) * kVec;
+    const int row = tile + r, col = d0 + c;
+    float v[kVec];
+    if (vec && row < row_end && col < D) {    // D % 8 == 0: all 8 in range
+      const uint4 u =
+          *reinterpret_cast<const uint4*>(p + (size_t)row * D + col);
+      v[0] = bf16_bits_to_float(u.x & 0xffffu);
+      v[1] = __uint_as_float(u.x & 0xffff0000u);
+      v[2] = bf16_bits_to_float(u.y & 0xffffu);
+      v[3] = __uint_as_float(u.y & 0xffff0000u);
+      v[4] = bf16_bits_to_float(u.z & 0xffffu);
+      v[5] = __uint_as_float(u.z & 0xffff0000u);
+      v[6] = bf16_bits_to_float(u.w & 0xffffu);
+      v[7] = __uint_as_float(u.w & 0xffff0000u);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kVec; ++j)
+        v[j] = (row < row_end && col + j < D)
+                   ? bf16_bits_to_float(p[(size_t)row * D + col + j])
+                   : 0.f;
+    }
+    float4* dst = reinterpret_cast<float4*>(&p_s[r * kPStride + c]);
+    dst[0] = make_float4(v[0], v[1], v[2], v[3]);
+    dst[1] = make_float4(v[4], v[5], v[6], v[7]);
+  }
+}
+
+template <int QPW, typename T>
 __global__ void __launch_bounds__(kThreads)
-sweep_kernel(const float* __restrict__ q, const float* __restrict__ p,
+sweep_kernel(const float* __restrict__ q, const T* __restrict__ p,
              const unsigned char* __restrict__ del, int B, int n_rows, int D,
-             int k_run, int metric, int rows_per_split,
+             bool vec, int k_run, int metric, int rows_per_split,
              float* __restrict__ part_d, int* __restrict__ part_i) {
   constexpr int QT = kWarps * QPW;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -128,12 +190,7 @@ sweep_kernel(const float* __restrict__ q, const float* __restrict__ p,
     }
 
     for (int d0 = 0; d0 < D; d0 += kTileD) {
-      for (int e = tid; e < kTileN * kTileD; e += kThreads) {
-        const int r = e / kTileD, c = e % kTileD;
-        const int row = tile + r, col = d0 + c;
-        p_s[r * kPStride + c] =
-            (row < row_end && col < D) ? p[(size_t)row * D + col] : 0.f;
-      }
+      load_tile(p, p_s, tile, row_end, d0, D, vec, tid);
       for (int e = tid; e < QT * kTileD; e += kThreads) {
         const int r = e / kTileD, c = e % kTileD;
         const int qi = q0 + r, col = d0 + c;
@@ -291,23 +348,47 @@ int queries_per_warp(int k_run) { return k_run <= 512 ? 4 : 2; }
 
 int ceil_div(long long a, long long b) { return (int)((a + b - 1) / b); }
 
-template <int QPW>
-cudaError_t launch_sweep(const float* q, const float* p,
+template <int QPW, typename T>
+cudaError_t launch_sweep(const float* q, const T* p,
                          const unsigned char* del, int B, int n_rows, int D,
                          int k_run, int metric, int S, float* part_d,
                          int* part_i, cudaStream_t stream) {
   const size_t smem = sweep_smem_bytes<QPW>(k_run);
   cudaError_t err = cudaFuncSetAttribute(
-      sweep_kernel<QPW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      sweep_kernel<QPW, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   const int rows_per_split =
       ceil_div(ceil_div(n_rows, S), kTileN) * kTileN;
+  // 16-byte row loads need 16-byte rows and a 16-byte aligned corpus
+  const bool vec = (D * sizeof(T)) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(p) % 16 == 0;
   dim3 grid(ceil_div(B, kWarps * QPW), S);
-  sweep_kernel<QPW><<<grid, kThreads, smem, stream>>>(
-      q, p, del, B, n_rows, D, k_run, metric, rows_per_split, part_d,
+  sweep_kernel<QPW, T><<<grid, kThreads, smem, stream>>>(
+      q, p, del, B, n_rows, D, vec, k_run, metric, rows_per_split, part_d,
       part_i);
   return cudaGetLastError();
+}
+
+template <typename T>
+int run_topk(const float* q, const T* p, const unsigned char* del, int B,
+             int n_rows, int D, int k_run, int metric, int S, float* part_d,
+             int* part_i, float* out_d, int* out_i, void* stream_ptr) {
+  if (B <= 0 || n_rows < 0 || D <= 0 || k_run < 1 || k_run > kMaxK ||
+      S < 1 || S > kMaxSplits ||
+      (metric != kMetricL2 && metric != kMetricCosine))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  cudaError_t err =
+      queries_per_warp(k_run) == 4
+          ? launch_sweep<4, T>(q, p, del, B, n_rows, D, k_run, metric, S,
+                               part_d, part_i, stream)
+          : launch_sweep<2, T>(q, p, del, B, n_rows, D, k_run, metric, S,
+                               part_d, part_i, stream);
+  if (err != cudaSuccess) return (int)err;
+  merge_kernel<<<ceil_div(B, kMergeWarps), kMergeWarps * 32, 0, stream>>>(
+      part_d, part_i, B, S, k_run, metric, out_d, out_i);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -337,21 +418,18 @@ int bruteforce_topk(const float* q, const float* p, const unsigned char* del,
                     int B, int n_rows, int D, int k_run, int metric, int S,
                     float* part_d, int* part_i, float* out_d, int* out_i,
                     void* stream_ptr) {
-  if (B <= 0 || n_rows < 0 || D <= 0 || k_run < 1 || k_run > kMaxK ||
-      S < 1 || S > kMaxSplits ||
-      (metric != kMetricL2 && metric != kMetricCosine))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  cudaError_t err =
-      queries_per_warp(k_run) == 4
-          ? launch_sweep<4>(q, p, del, B, n_rows, D, k_run, metric, S,
-                            part_d, part_i, stream)
-          : launch_sweep<2>(q, p, del, B, n_rows, D, k_run, metric, S,
-                            part_d, part_i, stream);
-  if (err != cudaSuccess) return (int)err;
-  merge_kernel<<<ceil_div(B, kMergeWarps), kMergeWarps * 32, 0, stream>>>(
-      part_d, part_i, B, S, k_run, metric, out_d, out_i);
-  return (int)cudaGetLastError();
+  return run_topk(q, p, del, B, n_rows, D, k_run, metric, S, part_d, part_i,
+                  out_d, out_i, stream_ptr);
+}
+
+// The same with p bf16[n_rows.., D] (its raw 16-bit patterns).
+int bruteforce_topk_bf16(const float* q, const void* p,
+                         const unsigned char* del, int B, int n_rows, int D,
+                         int k_run, int metric, int S, float* part_d,
+                         int* part_i, float* out_d, int* out_i,
+                         void* stream_ptr) {
+  return run_topk(q, static_cast<const uint16_t*>(p), del, B, n_rows, D,
+                  k_run, metric, S, part_d, part_i, out_d, out_i, stream_ptr);
 }
 
 }  // extern "C"

@@ -46,6 +46,14 @@ def merge_min_k(d_a, i_a, d_b, i_b, k: int):
     return vals, torch.gather(i, -1, sel)
 
 
+def as_corpus(points) -> torch.Tensor:
+    """A corpus tensor keeps its storage dtype (float32 or bfloat16, which
+    the sweeps upcast one chunk at a time); anything else becomes float32."""
+    if isinstance(points, torch.Tensor) and points.dtype == torch.bfloat16:
+        return points
+    return torch.as_tensor(points, dtype=torch.float32)
+
+
 def _rerank_exact(queries, points, i_run, *, k: int, metric_value: int):
     """Re-score [B, k_run] candidate ids with the exact elementwise
     distance form and keep the k best (ascending; -1 ids stay last)."""
@@ -85,7 +93,7 @@ def exact_search(queries, points, k: int, metric=Metric.L2,
 
     Args:
       queries: [B, D] float32 (tensor or array; moved to ``points``' device).
-      points:  [N, D] float32 (may be padded; pass n_valid).
+      points:  [N, D] float32 or bfloat16 (may be padded; pass n_valid).
       k:       results per query.
       metric:  Metric / operator string.
       n_valid: number of valid rows in ``points`` (default: all).
@@ -96,7 +104,7 @@ def exact_search(queries, points, k: int, metric=Metric.L2,
     such neighbor).
     """
     metric = resolve_metric(metric)
-    points = torch.as_tensor(points, dtype=torch.float32)
+    points = as_corpus(points)
     queries = torch.as_tensor(queries, dtype=torch.float32,
                               device=points.device)
     n = points.shape[0] if n_valid is None else min(int(n_valid),

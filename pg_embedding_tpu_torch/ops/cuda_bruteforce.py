@@ -4,14 +4,16 @@ The counterpart of pg_embedding_tpu/ops/pallas_bruteforce.py.  The kernel
 (``csrc/bruteforce_topk.cu``) scores a query batch against the corpus with
 float32 FMA and keeps a running per-query top-k on chip, so the [B, N]
 distance matrix is never written out.  Its note says what bounds it on the
-card and how the design answers that.
+card and how the design answers that.  It has two instantiations, one per
+corpus dtype: ``bruteforce_topk`` (float32 rows) and
+``bruteforce_topk_bf16`` (bfloat16 rows, widened to float32 on load).
 
 ``bruteforce_topk`` is the wrapper: on a CPU tensor it runs
 ``_bruteforce_topk_plain`` (the same function in plain torch), on a CUDA
-tensor it launches the kernel or raises.  ``fused_exact_search`` is the
-entry with the contract of ``pallas_exact_search``: Manhattan goes to
-ops/bruteforce, L2 fetches k + _RERANK_PAD and reranks with the difference
-form.
+tensor it launches the instantiation for the corpus dtype or raises.
+``fused_exact_search`` is the entry with the contract of
+``pallas_exact_search``: Manhattan goes to ops/bruteforce, L2 fetches
+k + _RERANK_PAD and reranks with the difference form.
 """
 
 from __future__ import annotations
@@ -20,12 +22,13 @@ import torch
 
 from .. import _kernels
 from ..config import Metric, resolve_metric
-from .bruteforce import _RERANK_PAD, _rerank_exact, exact_search, sweep_min_k
+from .bruteforce import (_RERANK_PAD, _rerank_exact, as_corpus,
+                         exact_search, sweep_min_k)
 from .distance import _matmul
 
-# Kernel launches since import (or since a caller reset it); a run reads it
-# to show that a path went through the kernel.
-LAUNCHES = 0
+# Launches of each instantiation since import (or since a caller reset
+# them); a run reads them to show that a path went through the kernel.
+LAUNCHES = {"bruteforce_topk": 0, "bruteforce_topk_bf16": 0}
 
 # Running lists live in shared memory: 8 bytes x k_run x 16 queries fit
 # a block up to here.
@@ -33,10 +36,15 @@ MAX_K_RUN = 1024
 
 _PLAIN_CHUNK = 16384
 
+# the kernel instantiation for each corpus dtype
+_KERNELS = {torch.float32: "bruteforce_topk",
+            torch.bfloat16: "bruteforce_topk_bf16"}
+
 
 def _scores(queries, rows, metric_value: int) -> torch.Tensor:
     """The kernel's score in matmul form: squared L2 (before the sqrt) or
-    cosine distance, [B, n]."""
+    cosine distance, [B, n]; bf16 rows are upcast first."""
+    rows = rows.to(torch.float32)
     qp = _matmul(queries, rows.T)
     qn = torch.sum(queries * queries, dim=1, keepdim=True)
     pn = torch.sum(rows * rows, dim=1).unsqueeze(0)
@@ -69,9 +77,12 @@ def _check_args(queries, points, k_run, metric_value, deleted) -> None:
             queries.shape[1] != points.shape[1]):
         raise ValueError(f"shapes {tuple(queries.shape)} and "
                          f"{tuple(points.shape)} are not [B, D] and [N, D]")
+    if queries.dtype != torch.float32:
+        raise ValueError(f"queries must be float32, got {queries.dtype}")
+    if points.dtype not in _KERNELS:
+        raise ValueError(f"points must be float32 or bfloat16, got "
+                         f"{points.dtype}")
     for name, t in (("queries", queries), ("points", points)):
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32, got {t.dtype}")
         if t.device != points.device:
             raise ValueError(f"{name} on {t.device}, points on "
                              f"{points.device}")
@@ -87,11 +98,10 @@ def _check_args(queries, points, k_run, metric_value, deleted) -> None:
 
 def bruteforce_topk(queries, points, k_run: int, metric_value: int,
                     n_valid: int, deleted=None):
-    """Exact top-k_run of queries f32[B, D] against points f32[N, D] rows
-    [0, n_valid), skipping ``deleted`` rows.  Returns (d f32[B, k_run],
-    ids i32[B, k_run]), ascending by (score, id), -1/+inf padded, L2
-    sqrt'd."""
-    global LAUNCHES
+    """Exact top-k_run of queries f32[B, D] against points f32 or bf16
+    [N, D] rows [0, n_valid), skipping ``deleted`` rows.  Returns (d
+    f32[B, k_run], ids i32[B, k_run]), ascending by (score, id), -1/+inf
+    padded, L2 sqrt'd."""
     _check_args(queries, points, k_run, metric_value, deleted)
     if points.device.type == "cpu":
         return _bruteforce_topk_plain(queries, points, k_run, metric_value,
@@ -106,20 +116,21 @@ def bruteforce_topk(queries, points, k_run: int, metric_value: int,
     if b == 0:
         return out_d, out_i
     lib = _kernels.load_library()
+    name = _KERNELS[points.dtype]
     with torch.cuda.device(dev):
         splits = lib.bruteforce_topk_splits(b, n_rows, k_run)
         part_d = torch.empty((splits, b, k_run), dtype=torch.float32,
                              device=dev)
         part_i = torch.empty((splits, b, k_run), dtype=torch.int32,
                              device=dev)
-        err = lib.bruteforce_topk(
+        err = getattr(lib, name)(
             queries.data_ptr(), points.data_ptr(),
             None if deleted is None else deleted.data_ptr(),
             b, n_rows, dims, k_run, metric_value, splits,
             part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(),
             out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    _kernels.check(lib, err, "bruteforce_topk")
-    LAUNCHES += 1
+    _kernels.check(lib, err, name)
+    LAUNCHES[name] += 1
     return out_d, out_i
 
 
@@ -131,13 +142,13 @@ def fused_exact_search(queries, points, k: int, metric=Metric.L2,
     L2/cosine run the fused kernel (its plain twin on CPU tensors);
     Manhattan has no matmul form and routes to ops.bruteforce.  For L2 the
     kernel fetches k + _RERANK_PAD and the difference form reranks them.
+    ``points`` may be float32 or bfloat16 (a bf16-storage corpus).
     Returns (dists f32[B, k] ascending, ids i32[B, k]; -1 => none)."""
     metric = resolve_metric(metric)
     if metric is Metric.MANHATTAN:
         return exact_search(queries, points, k, metric, n_valid=n_valid,
                             deleted=deleted)
-    if not isinstance(points, torch.Tensor):
-        points = torch.as_tensor(points, dtype=torch.float32)
+    points = as_corpus(points)
     queries = torch.as_tensor(queries, dtype=torch.float32,
                               device=points.device).contiguous()
     n = points.shape[0] if n_valid is None else int(n_valid)

@@ -16,7 +16,13 @@ Two families, as in the JAX package:
     matmul expansion; Manhattan has none and uses ``torch.cdist(p=1)``.
 
 Every function takes leading batch dimensions, which replaces the JAX
-package's ``vmap`` over these functions.  All math is float32, and float32
+package's ``vmap`` over these functions.  Rows stored in bfloat16 follow
+the JAX package's semantics on the CPU, where its tests run: an operation
+with a float32 operand promotes to float32 (torch's ``@`` does not
+promote, so the matmuls cast explicitly); an operation on bf16 operands
+only rounds its result to bf16, and a sum of squares of bf16 values
+accumulates the squares in float32 and rounds once (:func:`_sum_sq`, what
+XLA's fusion does under jit).  All other math is float32, and float32
 matmuls must run in full float32: a TF32 product keeps ~10 mantissa bits,
 whose O(1) absolute score error at |p||q| ~ 2e3 reorders true neighbours
 (the reason the JAX package forces ``Precision.HIGHEST``).  PyTorch's
@@ -44,6 +50,13 @@ def _matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a, b)
 
 
+def _sum_sq(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
+    """sum(x * x) over the last axis, squared and summed in float32 and
+    rounded once to x's dtype."""
+    xf = x.to(torch.float32)
+    return torch.sum(xf * xf, dim=-1, keepdim=keepdim).to(x.dtype)
+
+
 def dist_one_to_many(query: torch.Tensor, points: torch.Tensor,
                      metric) -> torch.Tensor:
     """Distances from queries [..., D] to gathered sets [..., K, D] -> [..., K].
@@ -54,12 +67,12 @@ def dist_one_to_many(query: torch.Tensor, points: torch.Tensor,
     m = _metric_value(metric)
     q = query.unsqueeze(-2)
     if m == Metric.L2.value:
-        d = points - q
-        return torch.sqrt(torch.sum(d * d, dim=-1))
+        return torch.sqrt(_sum_sq(points - q))
     if m == Metric.COSINE.value:
-        dot = _matmul(points, query.unsqueeze(-1)).squeeze(-1)
-        na = torch.sum(query * query, dim=-1, keepdim=True)
-        nb = torch.sum(points * points, dim=-1)
+        dt = torch.promote_types(points.dtype, query.dtype)
+        dot = _matmul(points.to(dt), query.to(dt).unsqueeze(-1)).squeeze(-1)
+        na = _sum_sq(query, keepdim=True)
+        nb = _sum_sq(points)
         return 1.0 - dot * torch.rsqrt(torch.clamp(na * nb, min=1e-30))
     if m == Metric.MANHATTAN.value:
         return torch.sum(torch.abs(points - q), dim=-1)
@@ -76,22 +89,26 @@ def pairwise_dist(queries: torch.Tensor, points: torch.Tensor,
     """Distance matrix [..., B, D] x [..., N, D] -> [..., B, N], float32.
 
     L2/cosine route their FLOPs through one matmul; Manhattan has no
-    matmul form and broadcasts (callers tile N to bound memory)."""
+    matmul form and broadcasts (callers tile N to bound memory).  Points
+    are scored in float32 whatever their storage dtype; the query norms
+    keep the queries' dtype (jnp's order of operations)."""
     m = _metric_value(metric)
+    pf = points.to(torch.float32)
+    qf = queries.to(torch.float32)
     if m == Metric.L2.value:
-        qq = torch.sum(queries * queries, dim=-1, keepdim=True)       # [B,1]
-        pp = torch.sum(points * points, dim=-1).unsqueeze(-2)         # [1,N]
-        qp = _matmul(queries, points.transpose(-1, -2))
+        qq = _sum_sq(queries, keepdim=True)                           # [B,1]
+        pp = torch.sum(pf * pf, dim=-1).unsqueeze(-2)                 # [1,N]
+        qp = _matmul(qf, pf.transpose(-1, -2))
         return torch.sqrt(torch.clamp(qq + pp - 2.0 * qp, min=0.0))
     if m == Metric.COSINE.value:
-        qp = _matmul(queries, points.transpose(-1, -2))
-        nq = torch.sum(queries * queries, dim=-1, keepdim=True)
-        npts = torch.sum(points * points, dim=-1).unsqueeze(-2)
+        qp = _matmul(qf, pf.transpose(-1, -2))
+        nq = _sum_sq(queries, keepdim=True)
+        npts = torch.sum(pf * pf, dim=-1).unsqueeze(-2)
         return 1.0 - qp * torch.rsqrt(torch.clamp(nq * npts, min=1e-30))
     if m == Metric.MANHATTAN.value:
         # cdist accumulates |a-b| per pair without materializing the
         # [B, N, D] broadcast (XLA fuses that away in the JAX package)
-        return torch.cdist(queries, points, p=1.0)
+        return torch.cdist(qf, pf, p=1.0)
     raise ValueError(f"unknown metric: {metric}")
 
 

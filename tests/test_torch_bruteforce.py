@@ -33,6 +33,17 @@ CASES = [
 ]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """These tensors are small: one intra-op thread runs them faster than
+    many, and test files running side by side do not oversubscribe the
+    cores.  The count is restored for whatever runs next."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(n, d, n_valid, n_deleted, seed=0):
     rng = np.random.default_rng(seed)
     pts = rng.normal(size=(n, d)).astype(np.float32)
@@ -100,12 +111,13 @@ def test_wrapper_is_the_plain_twin_on_cpu():
     qs = torch.from_numpy(rng.normal(size=(6, 20)).astype(np.float32))
     dead = torch.zeros(300, dtype=torch.bool)
     dead[::7] = True
-    before = cuda_bruteforce.LAUNCHES
-    got = bruteforce_topk(qs, pts, 12, L2, 250, dead)
-    want = _bruteforce_topk_plain(qs, pts, 12, L2, 250, dead)
+    before = dict(cuda_bruteforce.LAUNCHES)
+    for corpus in (pts, pts.to(torch.bfloat16)):
+        got = bruteforce_topk(qs, corpus, 12, L2, 250, dead)
+        want = _bruteforce_topk_plain(qs, corpus, 12, L2, 250, dead)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
     assert cuda_bruteforce.LAUNCHES == before      # no kernel on the CPU
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():

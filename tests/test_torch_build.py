@@ -20,6 +20,17 @@ from pg_embedding_tpu_torch.convert import graph_from_numpy
 from pg_embedding_tpu_torch.core import build as tb
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """These tensors are small: one intra-op thread runs them faster than
+    many, and test files running side by side do not oversubscribe the
+    cores.  The count is restored for whatever runs next."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _prune_inputs(seed, b=48, c=20, tie=True):
     rng = np.random.default_rng(seed)
     # coarse grid values make exact ties in both the query distances and
@@ -53,10 +64,14 @@ def test_prune_heuristic(seed, nn, tie):
 
 
 def test_quantize_rows():
+    """Against the compiled function, which is what the JAX index runs
+    (XLA turns its /127 into a multiply by the reciprocal); bf16-valued
+    rows put many codes at x.5, where an ulp of scale moves them."""
     rng = np.random.default_rng(5)
-    v = (rng.normal(size=(64, 24)) * 3).astype(np.float32)
+    v = (rng.normal(size=(2000, 24)) * 3).astype(np.float32)
+    v[1000:] = np.asarray(jnp.asarray(v[1000:], jnp.bfloat16), np.float32)
     v[3] = 0.0
-    jq, js = jb.quantize_rows(jnp.asarray(v))
+    jq, js = jax.jit(jb.quantize_rows)(jnp.asarray(v))
     tq, ts = tb.quantize_rows(torch.from_numpy(v))
     np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))

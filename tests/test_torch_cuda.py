@@ -1,5 +1,6 @@
-"""The CUDA kernel on the card: ops/cuda_bruteforce.bruteforce_topk against
-its plain twin, and the index's exact route through it.  A CUDA kernel has
+"""The CUDA kernel on the card: ops/cuda_bruteforce.bruteforce_topk (float32
+and bfloat16 corpus) against its plain twin, and the index's exact route
+through it.  A CUDA kernel has
 no CPU mode, so every test here skips without a CUDA device; run them on
 the card with ``python -m pytest tests/ -m cuda``.
 
@@ -49,12 +50,40 @@ def test_kernel_matches_plain(cuda, metric, n, d, b, k_run, masked):
     if masked:
         n_valid = n // 30 if k_run == 100 else n - 123
         dead = torch.rand(n, generator=g, device=cuda) < 0.1
-    before = cb.LAUNCHES
+    before = cb.LAUNCHES["bruteforce_topk"]
     got = cb.bruteforce_topk(qs, pts, k_run, metric, n_valid, dead)
     torch.cuda.synchronize()
-    assert cb.LAUNCHES == before + 1
+    assert cb.LAUNCHES["bruteforce_topk"] == before + 1
     _check(got, cb._bruteforce_topk_plain(qs, pts, k_run, metric, n_valid,
                                           dead))
+
+
+@pytest.mark.parametrize("metric,n,d,b,k_run,masked", [
+    (0, 20000, 128, 300, 12, False),     # 16-byte row loads
+    (1, 20000, 100, 64, 10, True),       # D % 8 != 0: element loads
+    (0, 7000, 960, 40, 102, True),
+    (1, 5000, 32, 17, 1000, False),
+])
+def test_bf16_kernel_matches_plain(cuda, metric, n, d, b, k_run, masked):
+    g = torch.Generator(device=cuda).manual_seed(n + d + 1)
+    pts = torch.randn((n, d), generator=g, device=cuda).to(torch.bfloat16)
+    qs = torch.randn((b, d), generator=g, device=cuda)
+    n_valid, dead = n, None
+    if masked:
+        n_valid = n - 321
+        dead = torch.rand(n, generator=g, device=cuda) < 0.1
+    before = dict(cb.LAUNCHES)
+    got = cb.bruteforce_topk(qs, pts, k_run, metric, n_valid, dead)
+    torch.cuda.synchronize()
+    assert cb.LAUNCHES["bruteforce_topk_bf16"] == (
+        before["bruteforce_topk_bf16"] + 1)
+    assert cb.LAUNCHES["bruteforce_topk"] == before["bruteforce_topk"]
+    _check(got, cb._bruteforce_topk_plain(qs, pts, k_run, metric, n_valid,
+                                          dead))
+    # an unaligned corpus view (rows start 2 bytes in) takes element loads
+    off = pts.view(-1)[1:1 + (n - 1) * d].view(n - 1, d)
+    _check(cb.bruteforce_topk(qs, off, k_run, metric, n - 1),
+           cb._bruteforce_topk_plain(qs, off, k_run, metric, n - 1))
 
 
 def test_index_exact_route_uses_kernel(cuda):
@@ -67,10 +96,27 @@ def test_index_exact_route_uses_kernel(cuda):
     for idx in (gpu, cpu):
         idx.build(pts)
         idx.delete(np.arange(0, 3000, 11))
-    before = cb.LAUNCHES
+    before = cb.LAUNCHES["bruteforce_topk"]
     d, l, v = gpu.search(qs, 10)                   # auto -> exact route
-    assert cb.LAUNCHES > before
+    assert cb.LAUNCHES["bruteforce_topk"] > before
     dc, lc, vc = cpu.search(qs, 10)
     assert (l == lc).mean() >= 0.99
     np.testing.assert_allclose(d, dc, rtol=1e-5)
     assert not np.isin(l[v], np.arange(0, 3000, 11)).any()
+
+
+def test_bf16_storage_exact_route_uses_bf16_kernel(cuda):
+    rng = np.random.default_rng(1)
+    pts = rng.normal(size=(3000, 32)).astype(np.float32)
+    qs = rng.normal(size=(64, 32)).astype(np.float32)
+    cfg = HnswConfig(dims=32, m=8, ef_construction=32, ef_search=32)
+    gpu = HnswIndex(cfg, device=cuda, storage_dtype="bfloat16")
+    cpu = HnswIndex(cfg, device="cpu", storage_dtype="bfloat16")
+    for idx in (gpu, cpu):
+        idx.build(pts)
+    before = cb.LAUNCHES["bruteforce_topk_bf16"]
+    d, l, v = gpu.exact_search(qs, 10)
+    assert cb.LAUNCHES["bruteforce_topk_bf16"] == before + 1
+    dc, lc, vc = cpu.exact_search(qs, 10)
+    assert (l == lc).mean() >= 0.99
+    np.testing.assert_allclose(d, dc, rtol=1e-5)

@@ -15,6 +15,17 @@ from pg_embedding_tpu_torch.ops import distance as td
 METRICS = [0, 1, 2]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """These tensors are small: one intra-op thread runs them faster than
+    many, and test files running side by side do not oversubscribe the
+    cores.  The count is restored for whatever runs next."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def data():
     rng = np.random.default_rng(5)

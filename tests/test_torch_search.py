@@ -21,6 +21,17 @@ from pg_embedding_tpu_torch.core.search import _merge_topk, search_graph
 N, D = 2000, 24
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """These tensors are small: one intra-op thread runs them faster than
+    many, and test files running side by side do not oversubscribe the
+    cores.  The count is restored for whatever runs next."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module", params=[0, 1], ids=["l2", "cosine"])
 def built(request):
     rng = np.random.default_rng(7)
