@@ -7,11 +7,18 @@ Phases, each printing one line (no failure is caught; any failed check
 exits non-zero):
   1. device: the card's name and power limit, torch/CUDA versions, TF32 off;
   2. build the CUDA kernels from the repository's sources;
-  3. the kernel against its plain torch twin: L2 and cosine, D in
-     {128, 100, 960}, k in {1, 10, 100, 1000}, with and without n_valid < N
-     and tombstones, one k > n_valid case, up to 1M rows x 1024 queries, for
-     a float32 corpus and (three cases) a bfloat16 one; kernel and plain
-     times of both instantiations at 1M x 128-d, B=1024, k=10 (CUDA events);
+  3. the kernel: its compiler report (registers, spills) and the TF32
+     HMMA instructions of each sweep instance (cuobjdump -sass); against its
+     plain torch twin: L2 and cosine, D in {30, 100, 128, 960}, k_run from 1
+     to 1024 with each query tile's edges (64 / 65, 256 / 257), B not a
+     multiple of the tile, with and without n_valid < N and tombstones, one
+     k > n_valid case, up to 1M rows x 1024 queries, for a float32 corpus
+     and a bfloat16 one (aligned and an unaligned view); at 1M x 128-d,
+     B=1024, k_run=12 (CUDA events) each instantiation's time, its bound
+     (3 TF32 passes for float32 rows, 2 for bf16, at 495 TFLOP/s) and share
+     of it, the plain twin's time, and library_ms: torch.addmm of the L2
+     scores in full float32 plus torch.topk (a yardstick the port never
+     calls);
   4. the main path at SIFT1M's shape (1,000,000 x 128-d, BASELINE.md
      config 1, bench.py's clustered recipe, seed 12345): HnswIndex.build,
      graph invariants, search() in auto mode through the kernel, exact and
@@ -40,6 +47,8 @@ printing any result.
 import argparse
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -56,6 +65,9 @@ N_CENTERS = 1_000
 DIMS = 128
 K = 10
 GRAPH_T = 8
+# NVIDIA's H100 SXM data sheet, dense: TF32 tensor cores, HBM3
+PEAK_TF32 = 495e12
+PEAK_BYTES = 3.35e12
 
 
 def check(cond, msg):
@@ -129,8 +141,10 @@ def time_ms(torch, fn, reps):
 
 
 def kernel_phase(torch, cb, dev):
-    """Both instantiations against the plain twin.  Returns
-    {kernel name: (max_abs_err, kernel ms, plain ms)}."""
+    """Both instantiations against the plain twin, then timed.  Returns
+    {kernel name: {max_abs_err, ms, plain_ms, bound_ms, bound_by,
+    library_ms}}; the bf16 instantiation's library_ms runs on the float32
+    values of its rows."""
     bf16 = torch.bfloat16
     # (metric, rows, dims, queries, k_run, n_valid fraction, tombstones,
     #  corpus dtype)
@@ -149,11 +163,29 @@ def kernel_phase(torch, cb, dev):
         (L2, 1_000_000, 128, 1024, 12, 1.0, False, bf16),
         (COSINE, 300_000, 100, 1024, 10, 0.9, True, bf16),
         (L2, 100_000, 960, 1024, 12, 1.0, False, bf16),
+        # each query tile's k_run edges (QT 128 / 64 / 16), B not a multiple
+        # of the tile, D % 4 != 0 (element loads)
+        (L2, 200_000, 128, 1000, 64, 1.0, True, f32),
+        (COSINE, 200_000, 128, 300, 65, 0.9, False, f32),
+        (L2, 100_000, 100, 300, 256, 1.0, False, f32),
+        (COSINE, 100_000, 30, 17, 257, 0.8, True, f32),
+        (L2, 50_000, 960, 300, 1024, 1.0, True, f32),
+        (COSINE, 200_000, 128, 1000, 64, 1.0, False, bf16),
+        (L2, 100_000, 960, 17, 65, 0.9, True, bf16),
+        (COSINE, 100_000, 30, 300, 256, 1.0, True, bf16),
+        (L2, 100_000, 128, 300, 257, 0.8, False, "bf16 unaligned"),
+        (COSINE, 50_000, 100, 17, 1024, 1.0, True, "bf16 unaligned"),
     ]
     max_err = {f32: 0.0, bf16: 0.0}
     for metric, n, d, b, k_run, frac, tomb, dtype in cases:
         g = torch.Generator(device=dev).manual_seed(SEED + n + d + k_run)
-        pts = torch.randn((n, d), generator=g, device=dev).to(dtype)
+        unaligned = dtype == "bf16 unaligned"
+        if unaligned:           # rows start 2 bytes in: element loads
+            dtype = bf16
+            pts = torch.randn((n + 1, d), generator=g, device=dev).to(dtype)
+            pts = pts.view(-1)[1:1 + n * d].view(n, d)
+        else:
+            pts = torch.randn((n, d), generator=g, device=dev).to(dtype)
         qs = torch.randn((b, d), generator=g, device=dev)
         n_valid = int(n * frac)
         dead = (torch.rand(n, generator=g, device=dev) < 0.05) if tomb else None
@@ -167,7 +199,8 @@ def kernel_phase(torch, cb, dev):
         if k_run > live:
             check(bool((got[1][:, live:] == -1).all()), "k > n_valid padding")
         max_err[dtype] = max(max_err[dtype], err)
-        log(f"kernel vs plain: {cb._KERNELS[dtype]} "
+        log(f"kernel vs plain: {cb._KERNELS[dtype]}"
+            f"{' (unaligned view)' if unaligned else ''} "
             f"{'l2' if metric == L2 else 'cosine'} "
             f"N={n} D={d} B={b} k_run={k_run} n_valid={n_valid} "
             f"tombstones={tomb}: max_abs_err={err:.3g} near-tie id "
@@ -177,21 +210,96 @@ def kernel_phase(torch, cb, dev):
     g = torch.Generator(device=dev).manual_seed(SEED)
     pts = torch.randn((1_000_000, 128), generator=g, device=dev)
     qs = torch.randn((1024, 128), generator=g, device=dev)
-    n = pts.shape[0]
+    (n, d), b, k_run = pts.shape, qs.shape[0], K + 2
     out = {}
     for corpus in (pts, pts.to(bf16)):
         plain_ms = time_ms(torch, lambda: cb._bruteforce_topk_plain(
-            qs, corpus, K + 2, L2, n), 3)
-        ms = time_ms(torch, lambda: cb.bruteforce_topk(qs, corpus, K + 2, L2,
+            qs, corpus, k_run, L2, n), 3)
+        ms = time_ms(torch, lambda: cb.bruteforce_topk(qs, corpus, k_run, L2,
                                                        n), 10)
         plain_ms2 = time_ms(torch, lambda: cb._bruteforce_topk_plain(
-            qs, corpus, K + 2, L2, n), 3)
+            qs, corpus, k_run, L2, n), 3)
+        lib_ms = library_ms(torch, qs, corpus.float(), k_run)
         name = cb._KERNELS[corpus.dtype]
+        bound, bound_by = bound_ms(b, n, d, corpus.element_size(), k_run)
+        qt, splits, q_res, smem = cb._launch_shape(
+            b, n, k_run, torch.cuda.get_device_properties(dev)
+            .multi_processor_count, corpus.element_size(), d)
+        log(f"launch shape of {name}: QT={qt}, {splits} splits, resident "
+            f"queries {q_res}, {smem} bytes of shared memory per block")
         log(f"timing {name} at 1M x 128-d, B=1024, k=10 (k_run=12): "
-            f"kernel {ms:.3f} ms ({1024 / ms * 1e3:.0f} QPS), plain "
-            f"{plain_ms:.3f} / {plain_ms2:.3f} ms")
-        out[name] = (max_err[corpus.dtype], ms, (plain_ms + plain_ms2) / 2)
+            f"kernel {ms:.3f} ms ({b / ms * 1e3:.0f} QPS), bound "
+            f"{bound:.3f} ms ({bound_by}; {bound / ms:.1%} of it reached), "
+            f"plain {plain_ms:.3f} / {plain_ms2:.3f} ms, library (addmm + "
+            f"topk) {lib_ms:.3f} ms")
+        out[name] = dict(max_abs_err=max_err[corpus.dtype], ms=ms,
+                         plain_ms=(plain_ms + plain_ms2) / 2,
+                         bound_ms=bound, bound_by=bound_by,
+                         library_ms=lib_ms)
     return out
+
+
+def bound_ms(b, n, d, itemsize, k_run):
+    """The least time the card could take for one launch: the products on
+    the TF32 tensor cores (3 passes for float32 rows, 2 for bf16 rows, which
+    are exact in TF32) or the bytes (corpus, queries, output lists) at the
+    HBM rate, whichever is larger."""
+    passes = 3 if itemsize == 4 else 2
+    ops = passes * 2.0 * b * n * d
+    nbytes = n * d * itemsize + b * d * 4 + b * k_run * 8
+    t_ops, t_bytes = ops / PEAK_TF32, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def library_ms(torch, qs, rows, k_run):
+    """torch.addmm of the L2 scores |p|^2 - 2 q.p in full float32 (|q|^2 is
+    the same for a query's every row), then torch.topk: two library calls
+    for what the kernel does in one pass.  Timing only; the port never
+    calls it."""
+    pn = (rows * rows).sum(1).unsqueeze(0)
+
+    def call():
+        scores = torch.addmm(pn, qs, rows.T, alpha=-2.0)
+        return torch.topk(scores, k_run, dim=1, largest=False)
+    return time_ms(torch, call, 3)
+
+
+def compiler_report(_kernels):
+    """ptxas's registers and spills for each sweep instance, and the TF32
+    HMMA count of each in the built library's SASS; fails if an instance
+    issues no TF32 HMMA."""
+    def instance(mangled):
+        m = re.search(r"sweep_kernelILi(\d+)ELb([01])E([ft])E", mangled)
+        return m and (f"sweep_kernel<QT={m[1]}, "
+                      f"{'resident' if m[2] == '1' else 'streamed'} queries, "
+                      f"{'float' if m[3] == 'f' else 'bf16'}>")
+    name, built = None, set()
+    for line in _kernels.build_log().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = instance(m[1])
+            if name:
+                built.add(name)
+        elif name and ("spill" in line or "Used" in line):
+            log(f"ptxas {name}: {line.strip()}")
+    lib = _kernels.load_library()
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", lib._name], capture_output=True,
+                          text=True, check=True).stdout
+    counts, example = {}, {}
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            name = instance(m[1])
+        elif name and "HMMA" in line and "TF32" in line:
+            counts[name] = counts.get(name, 0) + 1
+            example.setdefault(name, line.split(";")[0].split("*/")[-1]
+                               .strip())
+    for name in sorted(counts):
+        log(f"sass {name}: {counts[name]} TF32 HMMA, e.g. {example[name]}")
+    check(len(built) == 8 and set(counts) == built,
+          f"TF32 HMMA in {len(counts)} of {len(built)} sweep instances")
 
 
 def small_build_matches_cpu(torch, HnswConfig, HnswIndex, dev):
@@ -508,6 +616,7 @@ def main():
     t0 = time.time()
     _kernels.load_library()
     log(f"kernel build: {time.time() - t0:.1f} s (nvcc, sm_90a)")
+    compiler_report(_kernels)
 
     timings = kernel_phase(torch, cb, dev)
     small_build_matches_cpu(torch, HnswConfig, HnswIndex, dev)
@@ -526,13 +635,11 @@ def main():
     kernels = []
     for name, launches in (("bruteforce_topk", main_launches),
                            ("bruteforce_topk_bf16", bf16_launches)):
-        err, ms, plain_ms = timings[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "pg_embedding_tpu_torch/csrc/bruteforce_topk.cu",
             "replaces": "pg_embedding_tpu/ops/pallas_bruteforce.py:58",
-            "launches": launches[name], "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms})
+            "launches": launches[name], **timings[name]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

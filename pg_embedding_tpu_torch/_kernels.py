@@ -4,6 +4,8 @@ The sources under ``csrc/`` have a plain C interface.  At first CUDA use,
 :func:`load_library` compiles them with ``nvcc`` for Hopper (``sm_90a``)
 into one shared library under ``.kernel_build/`` at the repository root,
 keyed by a hash of the sources and flags, and loads it with ``ctypes``.
+The compiler's report (``-Xptxas -v``: registers, shared memory and spills
+of each kernel) is kept beside it; :func:`build_log` returns it.
 Importing this module builds nothing.  A failed build raises: there is no
 fallback to a plain version on a CUDA tensor.
 """
@@ -21,7 +23,7 @@ import threading
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 _SOURCES = ("bruteforce_topk.cu",)
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC")
+               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), ".kernel_build")
 
 _lock = threading.Lock()
@@ -42,11 +44,8 @@ def _nvcc() -> str:
 
 def _declare(lib) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.bruteforce_topk_splits.argtypes = [ci, ci, ci]
-    lib.bruteforce_topk_splits.restype = ci
     for fn in (lib.bruteforce_topk, lib.bruteforce_topk_bf16):
-        fn.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, vp, vp, vp, vp,
-                       vp]
+        fn.argtypes = [vp, vp, vp, *[ci] * 9, vp, vp, vp, vp, vp]
         fn.restype = ci
     lib.bruteforce_topk_error_string.argtypes = [ci]
     lib.bruteforce_topk_error_string.restype = ctypes.c_char_p
@@ -76,6 +75,8 @@ def load_library():
                 if proc.returncode != 0:
                     raise RuntimeError(
                         f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+                with open(path + ".log", "w") as f:
+                    f.write(proc.stderr)
                 os.replace(tmp, path)
             finally:
                 if os.path.exists(tmp):
@@ -84,6 +85,16 @@ def load_library():
         _declare(lib)
         _lib = lib
         return lib
+
+
+def build_log() -> str:
+    """The compiler's report for the loaded library ("" if not kept)."""
+    lib = load_library()
+    try:
+        with open(lib._name + ".log") as f:
+            return f.read()
+    except OSError:
+        return ""
 
 
 def check(lib, err: int, what: str) -> None:

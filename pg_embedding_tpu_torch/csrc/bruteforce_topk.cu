@@ -1,6 +1,6 @@
-// Fused exact k-NN sweep for NVIDIA Hopper (sm_90a): distance scores and a
-// running per-query top-k in one pass over the corpus, so the [B, N]
-// distance matrix never reaches device memory.
+// Fused exact k-NN sweep for NVIDIA Hopper (sm_90a): distance scores on the
+// tensor cores and a running per-query top-k in one pass over the corpus,
+// so the [B, N] distance matrix never reaches device memory.
 //
 // Replaces: pg_embedding_tpu/ops/pallas_bruteforce.py::_bruteforce_kernel
 // (with _finalize_and_select and _insert_pass), the Pallas kernel behind
@@ -12,45 +12,72 @@
 //   results ascend by (score, id): equal scores keep the lower id, as the
 //   TPU kernel's argmin + strict-< admission do;  L2 comes back sqrt'd.
 // The corpus comes at its stored width, float32 or bfloat16 (as the Pallas
-// kernel takes it); queries are always float32.  A bf16 row is widened to
-// float32 exactly in registers, and everything after the load is the same.
+// kernel takes it); queries are always float32.
 //
-// What bounds it on an H100: at 128-d and a 1024-query batch the sweep
-// reads 512 MB of corpus per 1M rows (0.15 ms at 3.35 TB/s) and does
-// 1.3e11 multiply-adds (about 4 ms at the 67 TFLOP/s float32 peak), so it
-// is bound by float32 FMA issue and by the shared-memory traffic that feeds
-// it, not by device memory.  The scores are float32 FMA on the CUDA cores:
-// more exact than the TPU's bf16x3 split (~2^-18 relative); a single TF32
-// tensor-core pass (~2^-11) would reorder true neighbours.
+// Precision.  One TF32 pass (10-bit mantissa) moves an L2 distance by up to
+// ~1e-3 relative on clustered data and would reorder true neighbours.  The
+// kernel splits each operand in registers into hi + lo, both TF32 values
+// rounded as cvt.rna.tf32.f32 rounds, and issues lo.hi + hi.lo + hi.hi as
+// TF32 mma.sync with float32 accumulation (CUTLASS's 3xTF32 "fast f32"):
+// as exact as a float32 product, inside the Pallas kernel's ~2^-18 bar.  A
+// bf16 row is exact in TF32 (p_lo = 0), so a bf16 corpus takes two passes,
+// q_lo.p + q_hi.p.
 //
-// Design:
-//  * Pass 1, grid (query tiles) x (corpus splits S).  S is chosen so the
-//    grid holds >= 2 blocks per SM.  Blocks that share a split run side by
-//    side (blockIdx.x is fastest), so each corpus tile comes from HBM about
-//    once and from L2 for the other query tiles.
-//  * A block holds 8 warps and QT = 8 * QPW queries.  It streams its split
-//    in tiles of 128 rows x 32 dims through shared memory; warp w owns
-//    queries w*QPW.. and lane l owns rows l, l+32, l+64, l+96 of the tile,
-//    so a thread keeps QPW x 4 scores in registers and reads both operands
-//    as float4 (conflict-free: the row stride is padded to 36 floats).
-//    |p|^2 comes from the same registers.  Ragged rows and dims are masked
-//    at load, so any D and N work and the corpus is never padded or copied.
-//    A bf16 corpus halves the bytes read; when its rows are 16-byte aligned
-//    (D % 8 == 0) a thread loads 8 dims in one 16-byte load, else one at a
-//    time, and widens them into the same float32 shared-memory tile.
-//  * Selection stays inside the warp that owns the query: a ballot of
-//    scores below the current k-th finds the rare candidates (a tile with
-//    none costs one ballot), and each is inserted into a sorted list of
-//    k_run entries in shared memory by a warp-parallel count and shift.
-//  * Pass 2 merges the S sorted partial lists of each query, one warp per
-//    query, applies sqrt for L2 and writes [B, k_run] directly.
-// No wgmma or TMA yet: right and simple first.
+// What bounds it on an H100 (1M x 128-d, B = 1024): 2 B N D = 262 GFLOP of
+// products, times 3 passes = 786 GFLOP at 495 TFLOP/s dense TF32 = 1.59 ms
+// (bf16 corpus, 2 passes: 1.06 ms).  The corpus is 512 MB (bf16: 256 MB),
+// 0.15 ms at 3.35 TB/s, so the tensor cores bind, not device memory.
+//
+// Design, against what held the float32-FMA version back (CUDA-core
+// scores, per-warp |p|^2, synchronous loads, a fixed query tile):
+//  * Scores on the tensor cores.  mma.sync m16n8k8 .tf32: the queries'
+//    row-major [B, D] layout is the "row" A operand and the corpus's
+//    row-major [N, D] layout is the "col" B operand, so neither is
+//    transposed.  With g = lane >> 2, t = lane & 3 a thread reads A at
+//    (g, t), (g+8, t), (g, t+4), (g+8, t+4) and B at rows (n0+g), dims
+//    (t, t+4); padded row strides (36 floats, 40 bf16) put the 32 lanes on
+//    32 banks.  A block of 8 warps covers QT queries x 128 rows as 2 x 4
+//    warps of 32 x 32 (QT = 64) or 1 x 8 of 16 x 16 (QT = 16).  Each thread
+//    splits its own fragments, with two integer ops per half (cvt is a
+//    multi-instruction conversion): a corpus value is split by 2 warps, not
+//    by all 8, and a split copy in shared memory would cost as many
+//    instructions as it saves.
+//  * |p|^2 once per row per block: 2 threads per row sum the landed chunk in
+//    float32 FMA.
+//  * Asynchronous loads.  Corpus chunks [128 x 32] come through a 2-stage
+//    ring of 16-byte cp.async.cg copies (zero-filled past the last row and
+//    dim): chunk s+1 is in flight while chunk s feeds the mma's and, at a
+//    tile's end, the selection.  The block's [QT x D] queries stay resident
+//    in shared memory when they fit (queries are then read once per block,
+//    not once per corpus tile: a third of the L2 traffic of a float32 sweep,
+//    half of a bf16 one); else a [QT x 32] query chunk streams beside each
+//    corpus chunk.  Rows that are not 16-byte multiples (float32 D % 4 != 0,
+//    bf16 D % 8 != 0) or an unaligned base take a masked element path.
+//  * A query tile sized by k_run.  The running lists take 8 QT k_run bytes
+//    of shared memory: QT = 64 for k_run <= 256, 16 for <= 1024.  At small
+//    k_run a QT = 64 block takes under half an SM's shared memory, so two
+//    blocks share an SM and one block's selection and barriers overlap the
+//    other's mma's (QT = 128 fills an SM alone and measured slower).
+//    Python chooses QT, the corpus splits S and the resident queries
+//    (ops/cuda_bruteforce._launch_shape) and passes its shared-memory
+//    figure; the launch refuses a figure that differs from sweep_smem_bytes
+//    or exceeds 232,448 bytes.  Blocks that share a split run side by side
+//    (blockIdx.x is fastest), so the corpus comes from HBM about once.
+//  * Selection is unchanged: the accumulators become scores in a [QT x 128]
+//    shared-memory tile; after one barrier warp w walks the scores of its
+//    own QT / 8 queries in ascending row order, a ballot against the k-th
+//    finds the rare candidates, and each is inserted into a sorted list of
+//    k_run entries by a warp-parallel count and shift.  Pass 2 merges the S
+//    sorted partial lists of each query, applies sqrt for L2 and writes
+//    [B, k_run].
+// Not here yet: wgmma and TMA, a warp-specialised producer, a persistent
+// grid, k_run > 1024.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
-#include <algorithm>
+#include <type_traits>
 
 namespace {
 
@@ -58,15 +85,54 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTileN = 128;                 // corpus rows per tile
 constexpr int kRowsPerLane = kTileN / 32;
-constexpr int kTileD = 32;                  // dims per shared-memory chunk
-constexpr int kPStride = kTileD + 4;        // padded row stride (floats)
+constexpr int kTileD = 32;                  // dims per ring chunk
+constexpr int kStages = 2;
+constexpr int kQStride = kTileD + 4;        // query chunk row stride (floats)
+constexpr int kSStride = kTileN + 8;        // score tile row stride (floats)
 constexpr int kMaxSplits = 128;
 constexpr int kMaxK = 1024;
-constexpr int kMinRowsPerSplit = 2048;
+constexpr int kSmemLimit = 232448;
 constexpr int kMergeWarps = 4;
 constexpr int kMetricL2 = 0;
 constexpr int kMetricCosine = 1;
 constexpr unsigned kFull = 0xffffffffu;
+
+// corpus chunk row stride in elements: 32 dims + 16 bytes of padding
+template <typename T>
+__host__ __device__ constexpr int p_stride() {
+  return kTileD + 16 / (int)sizeof(T);
+}
+
+// Warp layout of a QT x 128 block tile: WM x WN warps, each with MT m16
+// tiles of queries and NT n8 tiles of rows.
+template <int QT>
+struct Layout {
+  static constexpr int WM = QT >= 64 ? 2 : 1;
+  static constexpr int WN = kWarps / WM;
+  static constexpr int MT = QT / WM / 16;
+  static constexpr int NT = kTileN / WN / 8;
+  static constexpr int QPW = QT / kWarps;       // queries each warp selects
+};
+
+// Row stride (floats) of a block's resident query tile: D padded to whole
+// chunks, plus 4 (conflict-free fragment reads, 16-byte rows).
+__host__ __device__ inline int q_res_stride(int D) {
+  return kTileD * ((D + kTileD - 1) / kTileD) + 4;
+}
+
+// Shared memory: the ring (each stage a [128 x kPS] corpus chunk, then,
+// when queries stream, a [QT x 36] query chunk), the resident [QT x
+// q_res_stride(D)] queries when they do not, the [QT x 136] score tile,
+// |q|^2, |p|^2, and the [QT x k_run] running lists (score, id).
+template <typename T>
+size_t sweep_smem_bytes(int qt, int k_run, int D, bool q_res) {
+  const size_t stage = (size_t)kTileN * p_stride<T>() * sizeof(T) +
+                       (q_res ? 0 : (size_t)qt * kQStride * sizeof(float));
+  return kStages * stage +
+         sizeof(float) * ((q_res ? (size_t)qt * q_res_stride(D) : 0) +
+                          (size_t)qt * kSStride + qt + kTileN) +
+         (sizeof(float) + sizeof(int)) * (size_t)qt * k_run;
+}
 
 // (d, id) order; id -1 (an empty slot) sorts after every real id
 __device__ __forceinline__ bool lex_less(float da, int ia, float db, int ib) {
@@ -78,85 +144,140 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <int QPW>
-size_t sweep_smem_bytes(int k_run) {
-  const int qt = kWarps * QPW;
-  return sizeof(float) * ((size_t)qt * kTileD + (size_t)kTileN * kPStride +
-                          qt) +
-         (sizeof(float) + sizeof(int)) * (size_t)qt * k_run;
+// A bf16 value is the high half of its float32: the widening is exact.
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(uint16_t bits) {
+  return __uint_as_float((unsigned)bits << 16);
 }
 
-// One kTileN x kTileD corpus tile into shared memory as float32, zero past
-// row_end and D.  float32 corpus: a warp reads 32 consecutive floats of a
-// row.
-__device__ __forceinline__ void load_tile(const float* __restrict__ p,
-                                          float* p_s, int tile, int row_end,
-                                          int d0, int D, bool /*vec*/,
-                                          int tid) {
-  for (int e = tid; e < kTileN * kTileD; e += kThreads) {
-    const int r = e / kTileD, c = e % kTileD;
-    const int row = tile + r, col = d0 + c;
-    p_s[r * kPStride + c] =
-        (row < row_end && col < D) ? p[(size_t)row * D + col] : 0.f;
-  }
+// The split x = hi + lo with hi, lo TF32 values rounded as
+// cvt.rna.tf32.f32 rounds (to nearest, ties away from zero): adding half a
+// TF32 ulp (0x1000) to the float32 bits and clearing the 13 bits below the
+// 10-bit mantissa.  The mma reads only the top 19 bits of an operand, so
+// lo needs no clearing.  Two integer ops, where cvt.rna.tf32.f32 compiles
+// to a longer sequence (sweep_probe.py's cvt-rounding variant is slower).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
 }
 
-// bf16 corpus, as its raw 16-bit patterns: thread e owns 8 consecutive dims
-// of one row, read in one 16-byte load when ``vec`` (rows 16-byte aligned),
-// else one by one.  A bf16 value is the high half of its float32, so the
-// widening is a shift and exact.
-__device__ __forceinline__ float bf16_bits_to_float(unsigned bits) {
-  return __uint_as_float(bits << 16);
+// c += a.b, m16n8k8, TF32 inputs, float32 accumulation
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ void load_tile(const uint16_t* __restrict__ p,
-                                          float* p_s, int tile, int row_end,
-                                          int d0, int D, bool vec, int tid) {
-  constexpr int kVec = 8;
-  constexpr int kPerRow = kTileD / kVec;
-  for (int e = tid; e < kTileN * kPerRow; e += kThreads) {
-    const int r = e / kPerRow, c = (e % kPerRow) * kVec;
-    const int row = tile + r, col = d0 + c;
-    float v[kVec];
-    if (vec && row < row_end && col < D) {    // D % 8 == 0: all 8 in range
-      const uint4 u =
-          *reinterpret_cast<const uint4*>(p + (size_t)row * D + col);
-      v[0] = bf16_bits_to_float(u.x & 0xffffu);
-      v[1] = __uint_as_float(u.x & 0xffff0000u);
-      v[2] = bf16_bits_to_float(u.y & 0xffffu);
-      v[3] = __uint_as_float(u.y & 0xffff0000u);
-      v[4] = bf16_bits_to_float(u.z & 0xffffu);
-      v[5] = __uint_as_float(u.z & 0xffff0000u);
-      v[6] = bf16_bits_to_float(u.w & 0xffffu);
-      v[7] = __uint_as_float(u.w & 0xffff0000u);
-    } else {
-#pragma unroll
-      for (int j = 0; j < kVec; ++j)
-        v[j] = (row < row_end && col + j < D)
-                   ? bf16_bits_to_float(p[(size_t)row * D + col + j])
-                   : 0.f;
+// 16-byte global -> shared copy; zero-filled when !full
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(full ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [row0, row0 + ROWS) x dims [d0, d0 + 32) of a row-major [*, D]
+// matrix into dst (row stride S elements), zero past row_end and D.  With
+// ``vec`` (16-byte rows, aligned base) a 16-byte segment lies wholly inside
+// or outside D and goes by cp.async; else element by element.
+template <int ROWS, typename T>
+__device__ __forceinline__ void load_chunk(const T* __restrict__ src, T* dst,
+                                           int S, int row0, int row_end,
+                                           int d0, int D, bool vec, int tid) {
+  if (vec) {
+    constexpr int kVec = 16 / (int)sizeof(T);
+    constexpr int kSegs = kTileD / kVec;
+    for (int e = tid; e < ROWS * kSegs; e += kThreads) {
+      const int r = e / kSegs, c = (e % kSegs) * kVec;
+      const int row = row0 + r, col = d0 + c;
+      const bool in = row < row_end && col < D;
+      cp_async16(dst + r * S + c, in ? src + (size_t)row * D + col : src, in);
     }
-    float4* dst = reinterpret_cast<float4*>(&p_s[r * kPStride + c]);
-    dst[0] = make_float4(v[0], v[1], v[2], v[3]);
-    dst[1] = make_float4(v[4], v[5], v[6], v[7]);
+  } else {
+    for (int e = tid; e < ROWS * kTileD; e += kThreads) {
+      const int r = e / kTileD, c = e % kTileD;
+      const int row = row0 + r, col = d0 + c;
+      dst[r * S + c] =
+          (row < row_end && col < D) ? src[(size_t)row * D + col] : T(0);
+    }
   }
 }
 
-template <int QPW, typename T>
-__global__ void __launch_bounds__(kThreads)
+// Issue the copies of the step at (tile, d0) into ring stage s & 1 (see
+// sweep_kernel); the query chunk only when queries stream.
+template <int QT, bool kQRes, int kPBytes, int kStageBytes, typename T>
+__device__ __forceinline__ void load_step(const float* __restrict__ q,
+                                          const T* __restrict__ p,
+                                          unsigned char* smem, int s, int tile,
+                                          int d0, int row_end, int q0, int B,
+                                          int D, bool vec_q, bool vec_p,
+                                          int tid) {
+  unsigned char* stage = smem + (s & 1) * kStageBytes;
+  load_chunk<kTileN>(p, reinterpret_cast<T*>(stage), p_stride<T>(), tile,
+                     row_end, d0, D, vec_p, tid);
+  if (!kQRes)
+    load_chunk<QT>(q, reinterpret_cast<float*>(stage + kPBytes), kQStride,
+                   q0, B, d0, D, vec_q, tid);
+}
+
+// The score-tile row and the current k-th of local query ql: lane l reads
+// rows l, l + 32, l + 64, l + 96.
+__device__ __forceinline__ void read_query(const float* score_s,
+                                           const float* list_d, int ql,
+                                           int k_run, int lane,
+                                           float (&sc)[kRowsPerLane],
+                                           float& kth) {
+#pragma unroll
+  for (int j = 0; j < kRowsPerLane; ++j)
+    sc[j] = score_s[ql * kSStride + lane + 32 * j];
+  kth = list_d[ql * k_run + k_run - 1];
+}
+
+__device__ __forceinline__ float score(float dot, float pn, float qn,
+                                       int metric) {
+  return metric == kMetricL2 ? fmaxf(pn + qn - 2.f * dot, 0.f)
+                             : 1.f - dot * rsqrtf(fmaxf(pn * qn, 1e-30f));
+}
+
+template <int QT, bool kQRes, typename T>
+__global__ void __launch_bounds__(kThreads, 2)
 sweep_kernel(const float* __restrict__ q, const T* __restrict__ p,
              const unsigned char* __restrict__ del, int B, int n_rows, int D,
-             bool vec, int k_run, int metric, int rows_per_split,
-             float* __restrict__ part_d, int* __restrict__ part_i) {
-  constexpr int QT = kWarps * QPW;
+             bool vec_q, bool vec_p, int k_run, int metric,
+             int rows_per_split, float* __restrict__ part_d,
+             int* __restrict__ part_i) {
+  using L = Layout<QT>;
+  constexpr int kPS = p_stride<T>();
+  constexpr int kPBytes = kTileN * kPS * (int)sizeof(T);
+  constexpr bool kExactRows = !std::is_same<T, float>::value;  // bf16
+  constexpr int kStageBytes =
+      kPBytes + (kQRes ? 0 : QT * kQStride * (int)sizeof(float));
+  const int q_all_stride = q_res_stride(D);
+
   extern __shared__ __align__(16) unsigned char smem[];
-  float* q_s = reinterpret_cast<float*>(smem);          // [QT][kTileD]
-  float* p_s = q_s + QT * kTileD;                       // [kTileN][kPStride]
-  float* qn_s = p_s + kTileN * kPStride;                // [QT]
-  float* list_d = qn_s + QT;                            // [QT][k_run]
+  float* q_all = reinterpret_cast<float*>(smem + kStages * kStageBytes);
+  float* score_s = q_all + (kQRes ? QT * q_all_stride : 0);
+  float* qn_s = score_s + QT * kSStride;                // [QT]
+  float* pn_s = qn_s + QT;                              // [kTileN]
+  float* list_d = pn_s + kTileN;                        // [QT][k_run]
   int* list_i = reinterpret_cast<int*>(list_d + QT * k_run);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int m_base = (warp / L::WN) * (QT / L::WM);
+  const int n_base = (warp % L::WN) * (kTileN / L::WN);
   const int q0 = blockIdx.x * QT;
   const int split = blockIdx.y;
   const int row_begin = split * rows_per_split;
@@ -166,8 +287,8 @@ sweep_kernel(const float* __restrict__ q, const T* __restrict__ p,
     list_d[e] = CUDART_INF_F;
     list_i[e] = -1;
   }
-  for (int i = 0; i < QPW; ++i) {
-    const int qi = q0 + warp * QPW + i;
+  for (int i = 0; i < L::QPW; ++i) {
+    const int qi = q0 + warp * L::QPW + i;
     float s = 0.f;
     if (qi < B)
       for (int d = lane; d < D; d += 32) {
@@ -175,79 +296,165 @@ sweep_kernel(const float* __restrict__ q, const T* __restrict__ p,
         s = fmaf(v, v, s);
       }
     s = warp_sum(s);
-    if (lane == 0) qn_s[warp * QPW + i] = s;
+    if (lane == 0) qn_s[warp * L::QPW + i] = s;
   }
   __syncthreads();
 
-  for (int tile = row_begin; tile < row_end; tile += kTileN) {
-    float acc[QPW][kRowsPerLane];
-    float pn[kRowsPerLane];
+  // step s of the sweep is (tile s / n_chunks, dim chunk s % n_chunks), in
+  // ring stage s & 1; the loop carries both for step s and step s + 1
+  const int n_chunks = (D + kTileD - 1) / kTileD;
+  const int n_tiles =
+      row_end > row_begin ? (row_end - row_begin + kTileN - 1) / kTileN : 0;
+  const int total = n_tiles * n_chunks;
+
+  float acc[L::MT][L::NT][4];
 #pragma unroll
-    for (int j = 0; j < kRowsPerLane; ++j) {
-      pn[j] = 0.f;
+  for (int mt = 0; mt < L::MT; ++mt)
 #pragma unroll
-      for (int i = 0; i < QPW; ++i) acc[i][j] = 0.f;
+    for (int nt = 0; nt < L::NT; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[mt][nt][c] = 0.f;
+  float pn_part = 0.f;              // |p|^2 of row tid/2, half tid%2
+
+  if (total > 0) {
+    if (kQRes)                  // the whole query tile, once, with step 0
+      for (int c = 0; c < n_chunks; ++c)
+        load_chunk<QT>(q, q_all + c * kTileD, q_all_stride, q0, B,
+                       c * kTileD, D, vec_q, tid);
+    load_step<QT, kQRes, kPBytes, kStageBytes>(q, p, smem, 0, row_begin, 0,
+                                               row_end, q0, B, D, vec_q, vec_p,
+                                               tid);
+  }
+  cp_async_commit();
+  int tile = row_begin, chunk = 0;                      // step s
+  for (int s = 0; s < total; ++s) {
+    const bool last = chunk == n_chunks - 1;
+    // stage (s+1)&1 was last read in step s-1, before its closing barrier
+    if (s + 1 < total)
+      load_step<QT, kQRes, kPBytes, kStageBytes>(
+          q, p, smem, s + 1, last ? tile + kTileN : tile,
+          last ? 0 : (chunk + 1) * kTileD, row_end, q0, B, D, vec_q, vec_p,
+          tid);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();
+    __syncthreads();
+    const T* p_s = reinterpret_cast<const T*>(smem + (s & 1) * kStageBytes);
+    const float* q_s =
+        kQRes ? q_all + chunk * kTileD
+              : reinterpret_cast<const float*>(smem + (s & 1) * kStageBytes +
+                                               kPBytes);
+    const int qs = kQRes ? q_all_stride : kQStride;
+
+    {
+      const T* pr = p_s + (tid >> 1) * kPS + (tid & 1) * (kTileD / 2);
+#pragma unroll
+      for (int c = 0; c < kTileD / 2; ++c) {
+        const float v = widen(pr[c]);
+        pn_part = fmaf(v, v, pn_part);
+      }
     }
 
-    for (int d0 = 0; d0 < D; d0 += kTileD) {
-      load_tile(p, p_s, tile, row_end, d0, D, vec, tid);
-      for (int e = tid; e < QT * kTileD; e += kThreads) {
-        const int r = e / kTileD, c = e % kTileD;
-        const int qi = q0 + r, col = d0 + c;
-        q_s[r * kTileD + c] =
-            (qi < B && col < D) ? q[(size_t)qi * D + col] : 0.f;
+#pragma unroll
+    for (int k0 = 0; k0 < kTileD; k0 += 8) {
+      uint32_t ah[L::MT][4], al[L::MT][4];
+#pragma unroll
+      for (int mt = 0; mt < L::MT; ++mt) {
+        const float* qa = q_s + (m_base + mt * 16 + g) * qs + k0 + t;
+        split_tf32(qa[0], ah[mt][0], al[mt][0]);
+        split_tf32(qa[8 * qs], ah[mt][1], al[mt][1]);
+        split_tf32(qa[4], ah[mt][2], al[mt][2]);
+        split_tf32(qa[8 * qs + 4], ah[mt][3], al[mt][3]);
       }
-      __syncthreads();
 #pragma unroll
-      for (int c = 0; c < kTileD; c += 4) {
-        float4 pv[kRowsPerLane];
+      for (int nt = 0; nt < L::NT; ++nt) {
+        const T* pb = p_s + (n_base + nt * 8 + g) * kPS + k0 + t;
+        const float y0 = widen(pb[0]), y1 = widen(pb[4]);
+        if constexpr (kExactRows) {
+          const uint32_t b0 = __float_as_uint(y0), b1 = __float_as_uint(y1);
 #pragma unroll
-        for (int j = 0; j < kRowsPerLane; ++j) {
-          pv[j] = *reinterpret_cast<const float4*>(
-              &p_s[(lane + 32 * j) * kPStride + c]);
-          pn[j] = fmaf(pv[j].x, pv[j].x, pn[j]);
-          pn[j] = fmaf(pv[j].y, pv[j].y, pn[j]);
-          pn[j] = fmaf(pv[j].z, pv[j].z, pn[j]);
-          pn[j] = fmaf(pv[j].w, pv[j].w, pn[j]);
-        }
+          for (int mt = 0; mt < L::MT; ++mt) {
+            mma_tf32(acc[mt][nt], al[mt], b0, b1);
+            mma_tf32(acc[mt][nt], ah[mt], b0, b1);
+          }
+        } else {
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(y0, bh0, bl0);
+          split_tf32(y1, bh1, bl1);
 #pragma unroll
-        for (int i = 0; i < QPW; ++i) {
-          const float4 qv = *reinterpret_cast<const float4*>(
-              &q_s[(warp * QPW + i) * kTileD + c]);
-#pragma unroll
-          for (int j = 0; j < kRowsPerLane; ++j) {
-            acc[i][j] = fmaf(qv.x, pv[j].x, acc[i][j]);
-            acc[i][j] = fmaf(qv.y, pv[j].y, acc[i][j]);
-            acc[i][j] = fmaf(qv.z, pv[j].z, acc[i][j]);
-            acc[i][j] = fmaf(qv.w, pv[j].w, acc[i][j]);
+          for (int mt = 0; mt < L::MT; ++mt) {
+            mma_tf32(acc[mt][nt], al[mt], bh0, bh1);
+            mma_tf32(acc[mt][nt], ah[mt], bl0, bl1);
+            mma_tf32(acc[mt][nt], ah[mt], bh0, bh1);
           }
         }
       }
-      __syncthreads();
     }
 
-    // selection: warp w alone touches the lists of its own queries
+    if (last) {
+      pn_part += __shfl_xor_sync(kFull, pn_part, 1);
+      if ((tid & 1) == 0) pn_s[tid >> 1] = pn_part;
+      pn_part = 0.f;
+    }
+    __syncthreads();
+    if (!last) {
+      ++chunk;
+      continue;
+    }
+
+    // accumulators -> scores: C fragment (g, 2t), (g, 2t+1), (g+8, 2t),
+    // (g+8, 2t+1) of each m16 x n8 tile
 #pragma unroll
-    for (int i = 0; i < QPW; ++i) {
-      const int ql = warp * QPW + i;
-      if (q0 + ql >= B) continue;                        // warp-uniform
-      const float qn = qn_s[ql];
-      float* ld = list_d + ql * k_run;
-      int* li = list_i + ql * k_run;
-      float kth = ld[k_run - 1];
+    for (int mt = 0; mt < L::MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < L::NT; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int ql = m_base + mt * 16 + g + 8 * h;
+          const int r = n_base + nt * 8 + 2 * t;
+          const float qn = qn_s[ql];
+          *reinterpret_cast<float2*>(&score_s[ql * kSStride + r]) =
+              make_float2(score(acc[mt][nt][2 * h], pn_s[r], qn, metric),
+                          score(acc[mt][nt][2 * h + 1], pn_s[r + 1], qn,
+                                metric));
+          acc[mt][nt][2 * h] = acc[mt][nt][2 * h + 1] = 0.f;
+        }
+    __syncthreads();
+
+    // selection: warp w alone touches the lists of its own queries.  The
+    // scores and k-th of query i+1 are read while query i is served (no
+    // insertion changes them), so the shared-memory latency is paid once.
+    bool live[kRowsPerLane];
+#pragma unroll
+    for (int j = 0; j < kRowsPerLane; ++j) {
+      const int row = tile + lane + 32 * j;
+      live[j] = row < row_end && (del == nullptr || del[row] == 0);
+    }
+    const int n_mine = min(L::QPW, B - q0 - warp * L::QPW);   // warp-uniform
+    float next[kRowsPerLane], next_kth = 0.f;
+    if (n_mine > 0) read_query(score_s, list_d, warp * L::QPW, k_run, lane,
+                               next, next_kth);
+    for (int i = 0; i < n_mine; ++i) {
+      const int ql = warp * L::QPW + i;
+      float sc[kRowsPerLane];
+      float kth = next_kth;
+      float lo = CUDART_INF_F;
 #pragma unroll
       for (int j = 0; j < kRowsPerLane; ++j) {
-        const int row = tile + lane + 32 * j;
-        float s = metric == kMetricL2
-                      ? fmaxf(pn[j] + qn - 2.f * acc[i][j], 0.f)
-                      : 1.f - acc[i][j] * rsqrtf(fmaxf(pn[j] * qn, 1e-30f));
-        if (row >= row_end || (del != nullptr && del[row] != 0))
-          s = CUDART_INF_F;
-        unsigned mask = __ballot_sync(kFull, s < kth);
+        sc[j] = live[j] ? next[j] : CUDART_INF_F;
+        lo = fminf(lo, sc[j]);
+      }
+      if (i + 1 < n_mine)
+        read_query(score_s, list_d, ql + 1, k_run, lane, next, next_kth);
+      if (!__any_sync(kFull, lo < kth)) continue;         // the common case
+      float* ld = list_d + ql * k_run;
+      int* li = list_i + ql * k_run;
+#pragma unroll
+      for (int j = 0; j < kRowsPerLane; ++j) {
+        unsigned mask = __ballot_sync(kFull, sc[j] < kth);
         while (mask) {
           const int src = __ffs(mask) - 1;
           mask &= mask - 1;
-          const float dv = __shfl_sync(kFull, s, src);
+          const float dv = __shfl_sync(kFull, sc[j], src);
           if (!(dv < kth)) continue;                     // warp-uniform
           // rows arrive in ascending id order, so the new entry goes after
           // every entry with an equal score
@@ -279,10 +486,12 @@ sweep_kernel(const float* __restrict__ q, const T* __restrict__ p,
         }
       }
     }
+    tile += kTileN;
+    chunk = 0;
   }
 
-  for (int i = 0; i < QPW; ++i) {
-    const int ql = warp * QPW + i;
+  for (int i = 0; i < L::QPW; ++i) {
+    const int ql = warp * L::QPW + i;
     const int qi = q0 + ql;
     if (qi >= B) continue;
     const size_t base = ((size_t)split * B + qi) * k_run;
@@ -344,47 +553,59 @@ merge_kernel(const float* __restrict__ part_d, const int* __restrict__ part_i,
   }
 }
 
-int queries_per_warp(int k_run) { return k_run <= 512 ? 4 : 2; }
-
 int ceil_div(long long a, long long b) { return (int)((a + b - 1) / b); }
 
-template <int QPW, typename T>
+template <int QT, bool kQRes, typename T>
 cudaError_t launch_sweep(const float* q, const T* p,
                          const unsigned char* del, int B, int n_rows, int D,
-                         int k_run, int metric, int S, float* part_d,
-                         int* part_i, cudaStream_t stream) {
-  const size_t smem = sweep_smem_bytes<QPW>(k_run);
+                         int k_run, int metric, int S, size_t smem,
+                         float* part_d, int* part_i, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      sweep_kernel<QPW, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      sweep_kernel<QT, kQRes, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   const int rows_per_split =
       ceil_div(ceil_div(n_rows, S), kTileN) * kTileN;
-  // 16-byte row loads need 16-byte rows and a 16-byte aligned corpus
-  const bool vec = (D * sizeof(T)) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(p) % 16 == 0;
-  dim3 grid(ceil_div(B, kWarps * QPW), S);
-  sweep_kernel<QPW, T><<<grid, kThreads, smem, stream>>>(
-      q, p, del, B, n_rows, D, vec, k_run, metric, rows_per_split, part_d,
-      part_i);
+  // 16-byte copies need 16-byte rows and a 16-byte aligned base
+  const bool vec_q = (D * sizeof(float)) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  const bool vec_p = (D * sizeof(T)) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  dim3 grid(ceil_div(B, QT), S);
+  sweep_kernel<QT, kQRes, T><<<grid, kThreads, smem, stream>>>(
+      q, p, del, B, n_rows, D, vec_q, vec_p, k_run, metric, rows_per_split,
+      part_d, part_i);
   return cudaGetLastError();
 }
 
 template <typename T>
 int run_topk(const float* q, const T* p, const unsigned char* del, int B,
-             int n_rows, int D, int k_run, int metric, int S, float* part_d,
-             int* part_i, float* out_d, int* out_i, void* stream_ptr) {
+             int n_rows, int D, int k_run, int metric, int qt, int S,
+             int q_res, int smem_bytes, float* part_d, int* part_i,
+             float* out_d, int* out_i, void* stream_ptr) {
   if (B <= 0 || n_rows < 0 || D <= 0 || k_run < 1 || k_run > kMaxK ||
-      S < 1 || S > kMaxSplits ||
+      S < 1 || S > kMaxSplits || (qt != 64 && qt != 16) ||
       (metric != kMetricL2 && metric != kMetricCosine))
     return (int)cudaErrorInvalidValue;
+  const size_t smem = sweep_smem_bytes<T>(qt, k_run, D, q_res != 0);
+  if (smem != (size_t)smem_bytes || smem > (size_t)kSmemLimit)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  cudaError_t err =
-      queries_per_warp(k_run) == 4
-          ? launch_sweep<4, T>(q, p, del, B, n_rows, D, k_run, metric, S,
-                               part_d, part_i, stream)
-          : launch_sweep<2, T>(q, p, del, B, n_rows, D, k_run, metric, S,
-                               part_d, part_i, stream);
+  cudaError_t err;
+  if (qt == 64)
+    err = q_res ? launch_sweep<64, true, T>(q, p, del, B, n_rows, D, k_run,
+                                            metric, S, smem, part_d, part_i,
+                                            stream)
+                : launch_sweep<64, false, T>(q, p, del, B, n_rows, D, k_run,
+                                             metric, S, smem, part_d, part_i,
+                                             stream);
+  else
+    err = q_res ? launch_sweep<16, true, T>(q, p, del, B, n_rows, D, k_run,
+                                            metric, S, smem, part_d, part_i,
+                                            stream)
+                : launch_sweep<16, false, T>(q, p, del, B, n_rows, D, k_run,
+                                             metric, S, smem, part_d, part_i,
+                                             stream);
   if (err != cudaSuccess) return (int)err;
   merge_kernel<<<ceil_div(B, kMergeWarps), kMergeWarps * 32, 0, stream>>>(
       part_d, part_i, B, S, k_run, metric, out_d, out_i);
@@ -395,41 +616,33 @@ int run_topk(const float* q, const T* p, const unsigned char* del, int B,
 
 extern "C" {
 
-// Number of corpus splits S for a launch; the caller allocates the
-// [S, B, k_run] partial lists.
-int bruteforce_topk_splits(int B, int n_rows, int k_run) {
-  int device = 0, sms = 132;
-  if (cudaGetDevice(&device) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  const int q_tiles = ceil_div(B, kWarps * queries_per_warp(k_run));
-  int s = ceil_div(2 * sms, q_tiles);
-  s = std::min(s, ceil_div(n_rows, kMinRowsPerSplit));
-  return std::max(1, std::min(s, kMaxSplits));
-}
-
 const char* bruteforce_topk_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 // q f32[B, D], p f32[n_rows.., D] (row-major, contiguous), del u8[n_rows..]
-// or null; out_d f32[B, k_run], out_i i32[B, k_run].  Returns the CUDA
-// error of the launches (0 on success).
+// or null; QT (64 or 16), the corpus splits S, whether the block's queries
+// stay resident (else they stream through the ring) and the sweep's
+// shared-memory bytes come from ops/cuda_bruteforce._launch_shape; part_d /
+// part_i hold [S, B, k_run]; out_d f32[B, k_run], out_i i32[B, k_run].
+// Returns the CUDA error of the launches (0 on success).
 int bruteforce_topk(const float* q, const float* p, const unsigned char* del,
-                    int B, int n_rows, int D, int k_run, int metric, int S,
-                    float* part_d, int* part_i, float* out_d, int* out_i,
-                    void* stream_ptr) {
-  return run_topk(q, p, del, B, n_rows, D, k_run, metric, S, part_d, part_i,
-                  out_d, out_i, stream_ptr);
+                    int B, int n_rows, int D, int k_run, int metric, int qt,
+                    int S, int q_res, int smem_bytes, float* part_d,
+                    int* part_i, float* out_d, int* out_i, void* stream_ptr) {
+  return run_topk(q, p, del, B, n_rows, D, k_run, metric, qt, S, q_res,
+                  smem_bytes, part_d, part_i, out_d, out_i, stream_ptr);
 }
 
 // The same with p bf16[n_rows.., D] (its raw 16-bit patterns).
 int bruteforce_topk_bf16(const float* q, const void* p,
                          const unsigned char* del, int B, int n_rows, int D,
-                         int k_run, int metric, int S, float* part_d,
-                         int* part_i, float* out_d, int* out_i,
-                         void* stream_ptr) {
+                         int k_run, int metric, int qt, int S, int q_res,
+                         int smem_bytes, float* part_d, int* part_i,
+                         float* out_d, int* out_i, void* stream_ptr) {
   return run_topk(q, static_cast<const uint16_t*>(p), del, B, n_rows, D,
-                  k_run, metric, S, part_d, part_i, out_d, out_i, stream_ptr);
+                  k_run, metric, qt, S, q_res, smem_bytes, part_d, part_i,
+                  out_d, out_i, stream_ptr);
 }
 
 }  // extern "C"

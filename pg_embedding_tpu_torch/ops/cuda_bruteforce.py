@@ -1,12 +1,15 @@
 """Fused exact k-NN: the hand-written CUDA kernel and its plain twin.
 
 The counterpart of pg_embedding_tpu/ops/pallas_bruteforce.py.  The kernel
-(``csrc/bruteforce_topk.cu``) scores a query batch against the corpus with
-float32 FMA and keeps a running per-query top-k on chip, so the [B, N]
-distance matrix is never written out.  Its note says what bounds it on the
-card and how the design answers that.  It has two instantiations, one per
-corpus dtype: ``bruteforce_topk`` (float32 rows) and
-``bruteforce_topk_bf16`` (bfloat16 rows, widened to float32 on load).
+(``csrc/bruteforce_topk.cu``) scores a query batch against the corpus on
+the tensor cores (TF32 ``mma.sync`` with a hi/lo split: three passes for
+float32 rows, two for bf16 rows) and keeps a running per-query top-k on
+chip, so the [B, N] distance matrix is never written out.  Its note says
+what bounds it on the card and how the design answers that.  It has two
+instantiations, one per corpus dtype: ``bruteforce_topk`` (float32 rows)
+and ``bruteforce_topk_bf16`` (bfloat16 rows, exact in TF32).
+``_launch_shape`` chooses each launch's query tile, corpus splits and
+shared memory here, where the CPU tests reach it.
 
 ``bruteforce_topk`` is the wrapper: on a CPU tensor it runs
 ``_bruteforce_topk_plain`` (the same function in plain torch), on a CUDA
@@ -33,6 +36,20 @@ LAUNCHES = {"bruteforce_topk": 0, "bruteforce_topk_bf16": 0}
 # Running lists live in shared memory: 8 bytes x k_run x 16 queries fit
 # a block up to here.
 MAX_K_RUN = 1024
+
+# The sweep's launch shape, mirrored from csrc/bruteforce_topk.cu (whose
+# launch refuses a shared-memory figure that differs from its own): 128-row
+# corpus tiles streamed in 32-dim chunks through a 2-stage ring, padded row
+# strides (corpus: 32 dims + 16 bytes; streamed query chunks: 36 floats;
+# resident queries: D in whole chunks + 4 floats; scores: 136 floats), the
+# query tile QT by tier of k_run, 8 bytes per list entry.
+SMEM_LIMIT = 232_448                # bytes of shared memory a block can use
+MAX_SPLITS = 128
+_SMEM_PER_SM, _SMEM_PER_BLOCK_RESERVED = 233_472, 1024     # H100
+_TILE_N, _TILE_D, _STAGES = 128, 32, 2
+_Q_STRIDE, _SCORE_STRIDE = 36, 136
+_MIN_ROWS_PER_SPLIT = 2048
+_QT_TIERS = ((256, 64), (MAX_K_RUN, 16))               # (k_run <=, QT)
 
 _PLAIN_CHUNK = 16384
 
@@ -65,6 +82,53 @@ def _bruteforce_topk_plain(queries, points, k_run: int, metric_value: int,
     if metric_value == Metric.L2.value:
         d = torch.sqrt(d)
     return d, i
+
+
+def _smem_bytes(qt: int, k_run: int, itemsize: int, dims: int,
+                q_resident: bool) -> int:
+    stage = _TILE_N * (_TILE_D * itemsize + 16)
+    if q_resident:
+        queries = qt * (_TILE_D * -(-dims // _TILE_D) + 4) * 4
+    else:
+        stage, queries = stage + qt * _Q_STRIDE * 4, 0
+    return (_STAGES * stage + queries
+            + 4 * (qt * _SCORE_STRIDE + qt + _TILE_N) + 8 * qt * k_run)
+
+
+def _blocks_per_sm(smem: int) -> int:
+    return min(2, _SMEM_PER_SM // (smem + _SMEM_PER_BLOCK_RESERVED))
+
+
+def _launch_shape(b: int, n_rows: int, k_run: int, sms: int,
+                  itemsize: int = 4, dims: int = 128):
+    """(QT, corpus splits S, resident queries, shared-memory bytes) of a
+    sweep launch for ``b`` queries, ``n_rows`` rows of ``dims``
+    ``itemsize``-byte elements and ``k_run`` on a card with ``sms`` SMs.
+
+    QT is the largest query tile whose running lists fit beside the ring.
+    The block keeps its [QT, D] queries in shared memory for its whole
+    sweep, instead of streaming a query chunk beside every corpus chunk,
+    when that fits and leaves as many blocks on an SM: it halves what a
+    bf16 sweep reads through L2.  Two blocks share an SM where their shared
+    memory allows (QT = 64 at small k_run), so one block's selection
+    overlaps the other's mma's.  S fills the SMs' block slots as evenly as
+    whole waves allow (the fewest splits on a tie), with no split under
+    2048 rows."""
+    qt = next(qt for k_max, qt in _QT_TIERS if k_run <= k_max)
+    streamed = _smem_bytes(qt, k_run, itemsize, dims, False)
+    resident = _smem_bytes(qt, k_run, itemsize, dims, True)
+    q_res = (resident <= SMEM_LIMIT
+             and _blocks_per_sm(resident) >= _blocks_per_sm(streamed))
+    smem = resident if q_res else streamed
+    slots = sms * _blocks_per_sm(smem)
+    q_tiles = -(-b // qt)
+    cap = max(1, min(MAX_SPLITS, -(-n_rows // _MIN_ROWS_PER_SPLIT)))
+
+    def fill(s):
+        blocks = q_tiles * s
+        return blocks / (-(-blocks // slots) * slots)
+    splits = max(range(1, cap + 1), key=lambda s: (fill(s), -s))
+    return qt, splits, q_res, smem
 
 
 def _check_args(queries, points, k_run, metric_value, deleted) -> None:
@@ -117,8 +181,10 @@ def bruteforce_topk(queries, points, k_run: int, metric_value: int,
         return out_d, out_i
     lib = _kernels.load_library()
     name = _KERNELS[points.dtype]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    qt, splits, q_res, smem = _launch_shape(
+        b, n_rows, k_run, sms, points.element_size(), dims)
     with torch.cuda.device(dev):
-        splits = lib.bruteforce_topk_splits(b, n_rows, k_run)
         part_d = torch.empty((splits, b, k_run), dtype=torch.float32,
                              device=dev)
         part_i = torch.empty((splits, b, k_run), dtype=torch.int32,
@@ -126,8 +192,8 @@ def bruteforce_topk(queries, points, k_run: int, metric_value: int,
         err = getattr(lib, name)(
             queries.data_ptr(), points.data_ptr(),
             None if deleted is None else deleted.data_ptr(),
-            b, n_rows, dims, k_run, metric_value, splits,
-            part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(),
+            b, n_rows, dims, k_run, metric_value, qt, splits, int(q_res),
+            smem, part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(),
             out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _kernels.check(lib, err, name)
     LAUNCHES[name] += 1

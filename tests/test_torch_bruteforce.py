@@ -6,6 +6,9 @@ interpret mode (tile_n=128, as tests/test_pallas_bruteforce.py runs it).
 Ids must be equal; distances agree to rtol 1e-5 / atol 1e-5 (float32 sums
 in another order)."""
 
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -15,7 +18,8 @@ from pg_embedding_tpu.ops.pallas_bruteforce import pallas_exact_search
 from pg_embedding_tpu_torch.ops import cuda_bruteforce
 from pg_embedding_tpu_torch.ops.bruteforce import exact_search
 from pg_embedding_tpu_torch.ops.cuda_bruteforce import (
-    _bruteforce_topk_plain, bruteforce_topk, fused_exact_search)
+    MAX_K_RUN, MAX_SPLITS, SMEM_LIMIT, _bruteforce_topk_plain, _launch_shape,
+    bruteforce_topk, fused_exact_search)
 
 L2, COSINE, MANHATTAN = 0, 1, 2
 
@@ -133,3 +137,59 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         bruteforce_topk(qs, pts, 5, MANHATTAN, 100)
     with pytest.raises(ValueError, match="deleted"):
         bruteforce_topk(qs, pts, 5, L2, 100, torch.zeros(99, dtype=torch.bool))
+
+
+@pytest.mark.parametrize("b", [1, 17, 300, 1024])
+def test_launch_shape_fits_a_block(b):
+    """Every k_run the wrapper takes gets a launch whose shared memory fits
+    one Hopper block, a query tile that never grows with k_run, and splits
+    the merge kernel takes, none under 2048 rows."""
+    for itemsize, dims in ((4, 128), (2, 128), (4, 960), (2, 960), (4, 30)):
+        last_qt = 64
+        for k_run in range(1, MAX_K_RUN + 1):
+            qt, splits, _, smem = _launch_shape(b, 1_000_000, k_run, 132,
+                                                itemsize, dims)
+            assert smem <= SMEM_LIMIT, (k_run, itemsize, dims, smem)
+            assert qt in (64, 16) and qt <= last_qt
+            assert 1 <= splits <= MAX_SPLITS
+            last_qt = qt
+    for n_rows in (0, 1, 2048, 5000):
+        assert _launch_shape(b, n_rows, 12, 132)[1] == max(
+            1, -(-n_rows // 2048))
+
+
+def test_launch_shape_of_the_main_path():
+    """1M rows, 128-d, B=1024, k_run=12: 16 query tiles of 64, each block
+    holding its queries, x 33 splits; two blocks to an SM (under half its
+    shared memory each) fill 132 SMs in two waves."""
+    assert _launch_shape(1024, 1_000_000, 12, 132) == (64, 33, True, 112_384)
+    assert _launch_shape(1024, 1_000_000, 12, 132, 2) == (64, 33, True,
+                                                          96_000)
+    # resident queries would leave one block to an SM: they stream instead
+    assert _launch_shape(1024, 1_000_000, 19, 132)[2:] == (False, 100_608)
+    assert _launch_shape(1024, 1_000_000, 48, 132)[3] * 2 <= 233_472 - 2048
+    # or do not fit at all
+    assert not _launch_shape(1024, 1_000_000, 12, 132, 4, 960)[2]
+    assert _launch_shape(1024, 1_000_000, 257, 132)[:2] == (16, 33)
+    # one query tile: as many splits as rows allow, up to the slots
+    assert _launch_shape(17, 100_000, 12, 132)[1] == 49
+
+
+def test_launch_shape_mirrors_the_kernel_source():
+    """The Python figure is checked against the kernel's own on the card;
+    here the constants it is built from are read out of the source."""
+    src = open(os.path.join(os.path.dirname(cuda_bruteforce.__file__), "..",
+                            "csrc", "bruteforce_topk.cu")).read()
+    const = {m[0]: m[1] for m in re.findall(
+        r"constexpr int (k\w+) = ([^;]+);", src)}
+    tile_n, tile_d = int(const["kTileN"]), int(const["kTileD"])
+    assert (tile_n, tile_d, int(const["kStages"])) == (
+        cuda_bruteforce._TILE_N, cuda_bruteforce._TILE_D,
+        cuda_bruteforce._STAGES)
+    assert const["kQStride"] == "kTileD + 4" and (
+        cuda_bruteforce._Q_STRIDE == tile_d + 4)
+    assert const["kSStride"] == "kTileN + 8" and (
+        cuda_bruteforce._SCORE_STRIDE == tile_n + 8)
+    assert int(const["kSmemLimit"]) == SMEM_LIMIT
+    assert int(const["kMaxSplits"]) == MAX_SPLITS
+    assert int(const["kMaxK"]) == MAX_K_RUN

@@ -39,7 +39,7 @@ def _check(got, want):
     (0, 20000, 128, 300, 12, False),
     (1, 20000, 100, 64, 1, True),
     (0, 7000, 960, 40, 102, True),
-    (1, 5000, 30, 17, 1000, False),      # the 2-queries-per-warp variant
+    (1, 5000, 30, 17, 1000, False),      # QT = 16
     (0, 3000, 64, 33, 100, True),        # k_run > live rows
 ])
 def test_kernel_matches_plain(cuda, metric, n, d, b, k_run, masked):
@@ -84,6 +84,60 @@ def test_bf16_kernel_matches_plain(cuda, metric, n, d, b, k_run, masked):
     off = pts.view(-1)[1:1 + (n - 1) * d].view(n - 1, d)
     _check(cb.bruteforce_topk(qs, off, k_run, metric, n - 1),
            cb._bruteforce_topk_plain(qs, off, k_run, metric, n - 1))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("metric,n,d,b,k_run,masked", [
+    (0, 9000, 128, 300, 64, True),       # the largest k_run of QT = 128
+    (1, 9000, 128, 17, 65, False),       # the smallest of QT = 64
+    (0, 6000, 100, 300, 256, False),
+    (1, 6000, 30, 17, 257, True),        # QT = 16; element loads
+    (0, 5000, 960, 17, 1024, True),
+    (1, 4000, 960, 300, 12, False),
+])
+def test_kernel_tier_edges(cuda, dtype, metric, n, d, b, k_run, masked):
+    """Each query tile's k_run edges, B not a multiple of the tile, D = 30 /
+    100 / 960; bf16 also through an unaligned view (element loads)."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(n + d + k_run)
+    pts = torch.randn((n, d), generator=g, device=cuda).to(dt)
+    qs = torch.randn((b, d), generator=g, device=cuda)
+    n_valid, dead = n, None
+    if masked:
+        n_valid = n - 77
+        dead = torch.rand(n, generator=g, device=cuda) < 0.1
+    name = cb._KERNELS[dt]
+    before = cb.LAUNCHES[name]
+    got = cb.bruteforce_topk(qs, pts, k_run, metric, n_valid, dead)
+    torch.cuda.synchronize()
+    assert cb.LAUNCHES[name] == before + 1
+    _check(got, cb._bruteforce_topk_plain(qs, pts, k_run, metric, n_valid,
+                                          dead))
+    if dt is torch.bfloat16:
+        off = pts.view(-1)[1:1 + (n - 1) * d].view(n - 1, d)
+        _check(cb.bruteforce_topk(qs, off, k_run, metric, n - 1),
+               cb._bruteforce_topk_plain(qs, off, k_run, metric, n - 1))
+
+
+def test_launch_refuses_a_wrong_shared_memory_figure(cuda):
+    """The C side computes its own shared memory and raises rather than
+    launch with another figure."""
+    from pg_embedding_tpu_torch import _kernels
+    lib = _kernels.load_library()
+    qs = torch.zeros((4, 8), device=cuda)
+    pts = torch.zeros((100, 8), device=cuda)
+    part = torch.empty((1, 4, 5), device=cuda)
+    out = torch.empty((4, 5), device=cuda)
+    qt, splits, q_res, smem = cb._launch_shape(4, 100, 5, 132, 4, 8)
+    stream = torch.cuda.current_stream().cuda_stream
+    for res, bad in ((q_res, smem + 16), (q_res, smem - 16),
+                     (not q_res, smem)):
+        err = lib.bruteforce_topk(qs.data_ptr(), pts.data_ptr(), None, 4, 100,
+                                  8, 5, 0, qt, 1, int(res), bad,
+                                  part.data_ptr(), part.data_ptr(),
+                                  out.data_ptr(), out.data_ptr(), stream)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            _kernels.check(lib, err, "bruteforce_topk")
 
 
 def test_index_exact_route_uses_kernel(cuda):
