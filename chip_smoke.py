@@ -13,14 +13,17 @@ exits non-zero):
      to 1024 with each query tile's edges (64 / 65, 256 / 257), B not a
      multiple of the tile, with and without n_valid < N and tombstones, one
      k > n_valid case, up to 1M rows x 1024 queries, for a float32 corpus
-     and a bfloat16 one (aligned and an unaligned view); at 1M x 128-d,
+     and a bfloat16 one (aligned and an unaligned view); k_run 1502 and
+     2100 in pages (bruteforce_topk_paged) against the plain twin's one
+     list; at 1M x 128-d,
      B=1024, k_run=12 (CUDA events) each instantiation's time, its bound
      (3 TF32 passes for float32 rows, 2 for bf16, at 495 TFLOP/s) and share
      of it, the plain twin's time, and library_ms: torch.addmm of the L2
      scores in full float32 plus torch.topk (a yardstick the port never
      calls);
   4. the main path at SIFT1M's shape (1,000,000 x 128-d, BASELINE.md
-     config 1, bench.py's clustered recipe, seed 12345): HnswIndex.build,
+     config 1, bench.py's clustered recipe as utils/io.synthetic_clustered
+     draws it, seed 12345): HnswIndex.build,
      graph invariants, search() in auto mode through the kernel, exact and
      graph QPS, recall@10 of the graph route (>= 0.90 at T=8; T=4's is
      printed), deletes never surfacing; before it, a small build that must
@@ -31,12 +34,36 @@ exits non-zero):
      save -> load onto the card (same answers, clean integrity, vacuum);
      WAL crash recovery (snapshot, 10,000 adds + 1,000 deletes, no save,
      load with the log: the live index's state); a scan cursor against
-     search(); last, downcast_corpus("bfloat16") and search() through the
-     kernel's bf16 instantiation, held on every query to a float64 oracle
-     over the stored bf16 rows: recall@10 >= 0.99, and every row it returns
-     within the kernel check's near-tie tolerance of the oracle's 10th
-     distance.  Its recall@10 against the float32 route is printed, not
-     held: bf16 rounding of the rows reorders near-ties at rank 10.
+     search(); right after the main path, search(k=1500) on 64 queries,
+     past one launch's k_run cap: two kernel launches (pages of 751), and
+     the answer equals ops/bruteforce's exact_search on the same rows (ids
+     except float64 near-ties, distances rtol 1e-5);
+  6. product quantization on the same index: the PQ walk at G=32 (T=8,
+     ef=64; train / encode / pack seconds, records GB, QPS and recall@10,
+     printed: ~1,000 rows per centre are too many for PQ to rank inside
+     ef=64); the card's pq_encode against the CPU's on 100k rows (>= 99.9%
+     equal codes, every other one a float64 near-tie) and the card's PQ
+     walk against the CPU's on the same state;
+  7. last on that index, downcast_corpus("bfloat16") and search() through
+     the kernel's bf16 instantiation, held on every query to a float64
+     oracle over the stored bf16 rows: recall@10 >= 0.99, and every row it
+     returns within the kernel check's near-tie tolerance of the oracle's
+     10th distance.  Its recall@10 against the float32 route is printed,
+     not held: bf16 rounding of the rows reorders near-ties at rank 10.
+     The PQ shadows must be the same tensors after the cast, and the PQ
+     walk must still answer;
+  8. PQ serving on a second 1M x 128-d index of benchmarks/bench_pq.py's
+     recipe (50,000 centres), where the JAX package measured it: the PQ
+     walk at G=16, OPQ G=32 and G=32 (G=32 held within 0.03 of the plain
+     walk's recall@10, the others printed); tune_sweep_pool(0.95) on 256
+     queries, then search(mode="sweep_pq") on all (recall@10 >= 0.95,
+     distances equal to a float64 recompute at rtol 1e-5, QPS); save ->
+     load (the same codebook bytes, walk and sweep labels);
+  9. VectorTable on the card: the knn.sql replay (3-d), then a 20,000 x
+     128-d table with <->, <=> and <~> indexes: the seq scan
+     (order_by(use_index=False), through the exact entry) against a
+     float64 oracle, and the pull scan against order_by through the index.
+Phases are timed with utils/profiling's Timer (synchronising the card).
 The last three lines are the card's nvidia-smi line, a JSON line of the
 kernels, and {"ok": true, "device": {...}}.
 
@@ -45,6 +72,7 @@ printing any result.
 """
 
 import argparse
+import itertools
 import json
 import os
 import re
@@ -62,6 +90,11 @@ sys.path.insert(0, REPO)
 L2, COSINE = 0, 1
 SEED = 12345
 N_CENTERS = 1_000
+# The PQ index's data: benchmarks/bench_pq.py's recipe, where the JAX
+# package measured PQ serving.  At bench.py's 1,000 centres a 1M corpus
+# holds ~1,000 rows per centre, too many for 4-dim PQ cells to rank inside
+# ef=64 (PERF.md, Findings).
+PQ_CENTERS = 50_000
 DIMS = 128
 K = 10
 GRAPH_T = 8
@@ -79,17 +112,12 @@ def log(msg):
     print(msg, flush=True)
 
 
-def make_data(rng, n, n_queries):
-    """SIFT-like clustered synthetic corpus (bench.py's recipe)."""
-    centers = rng.normal(scale=4.0, size=(N_CENTERS, DIMS)).astype(np.float32)
-    assign = rng.integers(0, N_CENTERS, n)
-    pts = (centers[assign] +
-           rng.normal(size=(n, DIMS)).astype(np.float32)).astype(np.float32)
-    qassign = rng.integers(0, N_CENTERS, n_queries)
-    qs = (centers[qassign] +
-          rng.normal(size=(n_queries, DIMS)).astype(np.float32)
-          ).astype(np.float32)
-    return pts, qs
+def make_data(seed, n, n_queries, n_centers=N_CENTERS):
+    """SIFT-like clustered synthetic corpus and queries (bench.py's recipe;
+    with PQ_CENTERS, benchmarks/bench_pq.py's)."""
+    from pg_embedding_tpu_torch.utils.io import synthetic_clustered
+    return synthetic_clustered(n, DIMS, n_centers, seed=seed,
+                               n_queries=n_queries)
 
 
 def true_dist(torch, qs, pts, ids, metric):
@@ -175,6 +203,9 @@ def kernel_phase(torch, cb, dev):
         (COSINE, 100_000, 30, 300, 256, 1.0, True, bf16),
         (L2, 100_000, 128, 300, 257, 0.8, False, "bf16 unaligned"),
         (COSINE, 50_000, 100, 17, 1024, 1.0, True, "bf16 unaligned"),
+        # past one launch's cap: pages of 751 and of 700
+        (L2, 200_000, 128, 64, 1502, 0.9, True, f32),
+        (COSINE, 100_000, 100, 40, 2100, 1.0, False, bf16),
     ]
     max_err = {f32: 0.0, bf16: 0.0}
     for metric, n, d, b, k_run, frac, tomb, dtype in cases:
@@ -189,7 +220,8 @@ def kernel_phase(torch, cb, dev):
         qs = torch.randn((b, d), generator=g, device=dev)
         n_valid = int(n * frac)
         dead = (torch.rand(n, generator=g, device=dev) < 0.05) if tomb else None
-        got = cb.bruteforce_topk(qs, pts, k_run, metric, n_valid, dead)
+        got = cb.bruteforce_topk_paged(qs, pts, k_run, metric, n_valid,
+                                       dead)
         want = cb._bruteforce_topk_plain(qs, pts, k_run, metric, n_valid,
                                          dead)
         torch.cuda.synchronize()
@@ -303,8 +335,7 @@ def compiler_report(_kernels):
 
 
 def small_build_matches_cpu(torch, HnswConfig, HnswIndex, dev):
-    rng = np.random.default_rng(SEED)
-    pts, qs = make_data(rng, 4000, 64)
+    pts, qs = make_data(SEED, 4000, 64)
     cfg = HnswConfig(dims=DIMS, m=16, ef_construction=64, ef_search=64)
     gpu = HnswIndex(cfg, device=dev)
     cpu = HnswIndex(cfg, device="cpu")
@@ -335,11 +366,12 @@ def recall(got_l, got_v, want_l, k=K):
 
 
 def main_path(torch, cb, HnswConfig, HnswIndex, dev, n, n_queries):
-    rng = np.random.default_rng(SEED)
-    t0 = time.time()
-    pts, qs = make_data(rng, n, n_queries)
+    from pg_embedding_tpu_torch.utils.profiling import Timer
+    timer = Timer()
+    with timer.phase("data"):
+        pts, qs = make_data(SEED, n, n_queries)
     log(f"data: {n} x {DIMS} SIFT-like clustered, {n_queries} queries "
-        f"(seed {SEED}) in {time.time() - t0:.1f} s")
+        f"(seed {SEED}) in {timer.seconds['data']:.1f} s")
 
     reset_launches(cb)
     # The graph route expands T=8 candidates per step, the setting of the
@@ -350,10 +382,9 @@ def main_path(torch, cb, HnswConfig, HnswIndex, dev, n, n_queries):
     idx = HnswIndex(HnswConfig(dims=DIMS, m=16, ef_construction=64,
                                ef_search=64), device=dev,
                     search_expand_width=GRAPH_T)
-    t0 = time.time()
-    idx.build(pts)
-    torch.cuda.synchronize()
-    build_s = time.time() - t0
+    with timer.phase("build", torch.empty(0, device=dev)):
+        idx.build(pts)
+    build_s = timer.seconds["build"]
     log(f"build: {n} vectors in {build_s:.1f} s = {n / build_s:.0f} vec/s")
 
     g = idx.graph
@@ -398,7 +429,8 @@ def main_path(torch, cb, HnswConfig, HnswIndex, dev, n, n_queries):
         f"exact route (T=4: recall@10 {recall(gl4, gv4, el):.4f})")
     check(rec >= 0.90, f"graph recall {rec} < 0.90")
 
-    dead = rng.choice(n, n // 100, replace=False).astype(np.uint64)
+    dead = np.random.default_rng(SEED + 4).choice(
+        n, n // 100, replace=False).astype(np.uint64)
     check(idx.delete(dead) == len(dead), "delete count")
     for mode in ("exact", "graph"):
         _, dl, dv = idx.search(qs, K, mode=mode)
@@ -546,6 +578,201 @@ def scan_check(idx, qs):
         f"{len(more)} are new")
 
 
+def wide_k_phase(torch, cb, idx, qs):
+    """search() with k past one launch's k_run cap runs the kernel in pages
+    (two launches of 751 at k=1500) and answers what ops/bruteforce's
+    exact_search answers on the same rows: ids except float64 near-ties,
+    distances to rtol 1e-5."""
+    from pg_embedding_tpu_torch.ops.bruteforce import exact_search
+    check(np.array_equal(idx.labels, np.arange(idx.n_nodes)),
+          "labels are node ids")
+    launches = dict(cb.LAUNCHES)
+    t0 = time.time()
+    d, l, v = idx.search(qs[:64], 1500)                # auto -> exact route
+    wide_s = time.time() - t0
+    pages = cb.LAUNCHES["bruteforce_topk"] - launches["bruteforce_topk"]
+    check(pages == 2, f"k=1500 took {pages} kernel launches, not 2 pages")
+    check(bool(v.all()), "wide k: fewer than k results")
+    g = idx.graph
+    q = torch.as_tensor(qs[:64], device=idx.device)
+    want = exact_search(q, g.vectors, 1500, n_valid=idx.n_nodes,
+                        deleted=g.deleted)
+    got = (torch.as_tensor(d, device=idx.device),
+           torch.as_tensor(l.astype(np.int32), device=idx.device))
+    err, n_diff = compare(torch, got, want, q, g.vectors, L2, idx.n_nodes,
+                          g.deleted)
+    log(f"wide k: search(k=1500) on 64 queries ran the kernel in {pages} "
+        f"pages in {wide_s:.2f} s; against ops/bruteforce.exact_search: "
+        f"max_abs_err={err:.3g}, near-tie id swaps={n_diff}")
+
+
+def pq_walk(torch, idx, qs, el, groups, opq):
+    """Train, encode and pack at G=``groups`` (OPQ with ``opq``), then time
+    the PQ walk; returns its recall@10 against the exact route."""
+    from pg_embedding_tpu_torch.utils.profiling import Timer
+    idx.pq_groups, idx.pq_opq = groups, opq
+    idx._pq_codebook = idx._pq_rot = idx._pq_codes = idx._pcodes = None
+    idx.packed_traversal, idx.packed_dtype = True, "pq"
+    timer, card = Timer(), idx.graph.vectors
+    with timer.phase("train", card):
+        idx._ensure_pq_codebook()
+    with timer.phase("encode", card):
+        codes = idx._ensure_pq_codes()
+    with timer.phase("pack", card):
+        recs, _ = idx._ensure_packed()
+    idx.search(qs, K, mode="graph")
+    reps = 3
+    hops = idx.counters["n_hops"]
+    t0 = time.time()
+    for _ in range(reps):
+        _, gl, gv = idx.search(qs, K, mode="graph")
+    qps = reps * len(qs) / (time.time() - t0)
+    hops = (idx.counters["n_hops"] - hops) / (reps * len(qs))
+    rec = recall(gl, gv, el)
+    log(f"PQ walk G={groups}{' OPQ' if opq else ''} "
+        f"(T={idx.search_expand_width}, ef={idx.config.ef_search}): "
+        f"{timer.report()}; codes {codes.numel() / 1e9:.3f} GB, records "
+        f"{recs.numel() / 1e9:.3f} GB; {qps:.0f} QPS, {hops:.1f} hops a "
+        f"query, at recall@10 {rec:.4f} vs the exact route")
+    return rec
+
+
+def codes_card_vs_cpu(torch, idx, rows=100_000):
+    """The card's pq_encode against the CPU's on the same rows: >= 99.9%
+    equal codes, every other one a float64 near-tie (< 1e-5 relative)."""
+    from pg_embedding_tpu_torch.ops.pq import pq_encode
+    cb = idx._pq_codebook
+    rows = min(rows, idx.n_nodes)
+    x = idx.graph.vectors[:rows].float()
+    got = pq_encode(x, cb).cpu()
+    want = pq_encode(x.cpu(), cb.cpu())
+    diff = (got != want).nonzero()
+    g = cb.shape[0]
+    sub = x.cpu().double().view(rows, g, -1)
+    c64 = cb.cpu().double()
+    worst = 0.0
+    for r, grp in diff.tolist():
+        a = float(((sub[r, grp] - c64[grp, want[r, grp].long()]) ** 2).sum())
+        b = float(((sub[r, grp] - c64[grp, got[r, grp].long()]) ** 2).sum())
+        worst = max(worst, abs(a - b) / max(a, 1e-12))
+    same = 1.0 - len(diff) / want.numel()
+    log(f"pq_encode card vs CPU on {rows} rows x G={g}: {same:.6f} of codes "
+        f"equal, {len(diff)} differ (largest float64 gap "
+        f"{worst:.2e} relative)")
+    check(same >= 0.999, f"card/CPU codes agree on {same}")
+    check(worst < 1e-5, f"a differing code is not a near-tie ({worst})")
+
+
+def pq_sweep_phase(torch, idx, qs, el):
+    """tune_sweep_pool(0.95) on 256 queries, then sweep_pq on all: recall@10
+    >= 0.95 vs the exact route, distances equal to a float64 recompute."""
+    t0 = time.time()
+    res = idx.tune_sweep_pool(qs[:256], 0.95)
+    tune_s = time.time() - t0
+    idx.search(qs, K, mode="sweep_pq")
+    reps = 2
+    t0 = time.time()
+    for _ in range(reps):
+        d, l, v = idx.search(qs, K, mode="sweep_pq")
+    qps = reps * len(qs) / (time.time() - t0)
+    rec = recall(l, v, el)
+    check(bool(v.all()), "sweep_pq: fewer than k results")
+    rows = idx.graph.vectors[:idx.n_nodes]
+    q = torch.as_tensor(qs, device=rows.device)
+    ids = torch.as_tensor(l.astype(np.int64), device=rows.device)
+    d64 = true_dist(torch, q, rows.float(), ids, L2).cpu().numpy()
+    err = float(np.max(np.abs(d - d64) / np.maximum(d64, 1e-12)))
+    log(f"sweep_pq: tune_sweep_pool(0.95) chose pool {res.ef} (recall@10 "
+        f"{res.recall:.4f} on 256 queries, {tune_s:.1f} s); "
+        f"search(mode='sweep_pq') {qps:.0f} QPS at recall@10 {rec:.4f} vs "
+        f"the exact route on {len(qs)} queries; distances vs float64 max "
+        f"relative error {err:.2e}")
+    check(rec >= 0.95, f"sweep_pq recall {rec} < 0.95")
+    check(err <= 1e-5, f"sweep_pq distances off by {err}")
+
+
+def pq_persistence(torch, HnswIndex, idx, qs, tmp):
+    path = os.path.join(tmp, "pq.npz")
+    idx.save(path, compressed=False)
+    back = HnswIndex.load(path, device=idx.device)
+    for knob in ("search_expand_width", "packed_traversal", "packed_dtype",
+                 "pq_sweep_pool"):
+        setattr(back, knob, getattr(idx, knob))
+    check(np.array_equal(back._pq_codebook.cpu().numpy(),
+                         idx._pq_codebook.cpu().numpy()),
+          "loaded codebook bytes differ")
+    for mode in ("graph", "sweep_pq"):
+        check(np.array_equal(back.search(qs, K, mode=mode)[1],
+                             idx.search(qs, K, mode=mode)[1]),
+              f"loaded PQ index: {mode} labels differ")
+    log(f"PQ save -> load: codebook bytes equal (G={back.pq_groups}); PQ "
+        f"walk and sweep_pq labels equal on {len(qs)} queries")
+    del back
+    os.remove(path)
+
+
+def pq_walk_card_vs_cpu(torch, idx, qs):
+    """The card's PQ walk against its CPU twin on the same graph, codebook
+    and codes: the same ids in the same order on >= 90% of 64 queries
+    (distances summed in another order may flip a near-tie and with it the
+    rest of a walk)."""
+    from pg_embedding_tpu_torch.convert import index_from_numpy, to_numpy
+    a = to_numpy(idx.graph)
+    cpu = index_from_numpy(
+        idx.config, a["vectors"], a["links"], a["link_counts"], a["deleted"],
+        a["n_nodes"], idx.labels, device="cpu",
+        pq_codebook=idx._pq_codebook.cpu().numpy(), packed_traversal=True,
+        packed_dtype="pq", search_expand_width=idx.search_expand_width)
+    cpu._pq_codes = idx._pq_codes.cpu()
+    _, gi = idx.search_ids(qs[:64])
+    _, ci = cpu.search_ids(qs[:64])
+    same = float((gi == ci).all(axis=1).mean())
+    log(f"PQ walk card vs CPU on the same state: identical ids and order on "
+        f"{same:.4f} of 64 queries")
+    check(same >= 0.9, f"card and CPU PQ walks agree on {same}")
+
+
+def pq_main(torch, idx, qs):
+    """G=32 on the main index (bench.py's 1,000 centres): printed, not
+    held; then the card against the CPU (codes and the walk)."""
+    _, el, _ = idx.exact_search(qs, K)
+    _, pl, pv = idx.search(qs, K, mode="graph")
+    log(f"PQ on the main index (1,000 centres, ~1,000 rows each): plain "
+        f"walk recall@10 {recall(pl, pv, el):.4f}")
+    pq_walk(torch, idx, qs, el, 32, False)
+    codes_card_vs_cpu(torch, idx)
+    pq_walk_card_vs_cpu(torch, idx, qs)
+
+
+def pq_serving_phase(torch, HnswConfig, HnswIndex, dev, n, n_queries, tmp):
+    """PQ where the JAX package measured it serving (bench_pq.py's
+    50,000-centre recipe): G=16, OPQ G=32 and G=32 walks (G=32 held within
+    0.03 of the plain walk's recall), the tuned sweep, save -> load."""
+    from pg_embedding_tpu_torch.utils.profiling import Timer
+    pts, qs = make_data(SEED + 3, n, n_queries, PQ_CENTERS)
+    idx = HnswIndex(HnswConfig(dims=DIMS, m=16, ef_construction=64,
+                               ef_search=64), device=dev,
+                    search_expand_width=GRAPH_T)
+    timer = Timer()
+    with timer.phase("build", torch.empty(0, device=dev)):
+        idx.build(pts)
+    build_s = timer.seconds["build"]
+    _, el, _ = idx.exact_search(qs, K)
+    _, pl, pv = idx.search(qs, K, mode="graph")
+    plain = recall(pl, pv, el)
+    log(f"PQ index: {n} x {DIMS}-d, {PQ_CENTERS} centres (bench_pq.py's "
+        f"recipe, seed {SEED + 3}) built in {build_s:.1f} s; plain walk "
+        f"recall@10 {plain:.4f} (T={idx.search_expand_width}, "
+        f"ef={idx.config.ef_search})")
+    pq_walk(torch, idx, qs, el, 16, False)
+    pq_walk(torch, idx, qs, el, 32, True)
+    rec = pq_walk(torch, idx, qs, el, 32, False)
+    check(rec >= plain - 0.03,
+          f"PQ G=32 walk recall {rec} vs the plain walk's {plain}")
+    pq_sweep_phase(torch, idx, qs, el)
+    pq_persistence(torch, HnswIndex, idx, qs, tmp)
+
+
 def bf16_phase(torch, cb, idx, qs):
     """The one-way downcast, then the exact route through the bf16
     instantiation; returns its launch counts.  On every query the route must
@@ -592,6 +819,95 @@ def bf16_phase(torch, cb, idx, qs):
     return launches
 
 
+def pq_after_downcast(idx, qs, shadows):
+    """The PQ codebook, codes and records survive the one-way cast as the
+    same tensors, and the PQ walk keeps answering."""
+    check(all(a is b for a, b in zip(shadows, (
+        idx._pq_codebook, idx._pq_codes, idx._pcodes))),
+        "PQ shadows were rebuilt by the downcast")
+    _, _, v = idx.search(qs, K, mode="graph")
+    check(bool(v.all()), "PQ walk after the downcast")
+    log("after the downcast: PQ codebook, codes and records are the same "
+        "tensors; the PQ walk answers every query")
+
+
+def table_phase(torch, VectorTable, dev):
+    """knn.sql on the card, then a 20,000 x 128-d table with three
+    indexes: the seq scan against a float64 oracle, the pull scan against
+    order_by."""
+    t = VectorTable(dims=3, device=dev)
+    ids = t.insert([[0, 1, 2], [1, 2, 3], [1, 1, 1], None])
+    t.create_index("<->", m=3)
+    t.insert([[1, 2, 4]])
+    check([r for r, _ in t.order_by([3, 3, 3], "<->", limit=4)]
+          == [1, 4, 2, 0], "knn.sql index order")
+    for op in ("<=>", "<~>"):
+        t.create_index(op, m=3)
+    for op in ("<->", "<=>", "<~>"):
+        a = t.order_by([3, 3, 3], op, limit=4)
+        b = t.order_by([3, 3, 3], op, limit=4, use_index=False)
+        check({r for r, _ in a} == {r for r, _ in b} and np.allclose(
+            [d for _, d in a], [d for _, d in b], rtol=1e-5, atol=1e-6),
+            f"knn.sql {op}: index and seq scan differ")
+    t.delete(ids + [4])
+    check(t.count() == 0 and t.order_by([3, 3, 3], limit=4) == [],
+          "knn.sql delete")
+    log("VectorTable knn.sql replay on the card: index order, three "
+        "opclasses against the seq scan, delete")
+
+    from pg_embedding_tpu_torch.utils.profiling import sync
+    pts, qs = make_data(SEED + 2, 20_000, 32)
+    t = VectorTable(dims=DIMS, device=dev)
+    t0 = time.time()
+    t.insert(list(pts))
+    insert_s = time.time() - t0
+    ops = {"<->": 0, "<=>": 1, "<~>": 2}
+    build_s = {}
+    for op in ops:
+        t0 = time.time()
+        t.create_index(op, m=16, ef_construction=64, ef_search=64)
+        sync(torch.empty(0, device=dev))
+        build_s[op] = time.time() - t0
+    rows = torch.as_tensor(pts, device=dev).double()
+    seq_ms, idx_ms = {}, {}
+    for op, metric in ops.items():
+        t0 = time.time()
+        seq = [t.order_by(q, op, limit=K, use_index=False) for q in qs]
+        seq_ms[op] = (time.time() - t0) / len(qs) * 1e3
+        t0 = time.time()
+        via = [t.order_by(q, op, limit=K) for q in qs]
+        idx_ms[op] = (time.time() - t0) / len(qs) * 1e3
+        q = torch.as_tensor(qs, device=dev).double()
+        if metric == 2:
+            d64 = torch.cdist(q, rows, p=1)
+        elif metric == 0:
+            d64 = torch.cdist(q, rows)
+        else:
+            d64 = 1 - (q @ rows.T) / (q.norm(dim=1, keepdim=True)
+                                      * rows.norm(dim=1))
+        top = torch.topk(d64, K, largest=False)
+        kth = top.values[:, K - 1].cpu().numpy()
+        for i, res in enumerate(seq):
+            got = np.array([d for _, d in res])
+            want = d64[i, [r for r, _ in res]].cpu().numpy()
+            check(np.allclose(got, want, rtol=1e-5, atol=1e-5),
+                  f"seq scan {op}: distances vs float64")
+            check(got[-1] <= kth[i] * (1 + 1e-5) + 1e-5,
+                  f"seq scan {op}: a row past the oracle's k-th")
+        for q, res in zip(qs[:8], via[:8]):
+            pulled = list(itertools.islice(t.scan(q, op), K))
+            check([r for r, _ in pulled] == [r for r, _ in res],
+                  f"pull scan {op} != order_by")
+    log(f"VectorTable 20000 x {DIMS}-d on the card: insert {insert_s:.2f} "
+        f"s; create_index "
+        + ", ".join(f"{op} {s:.1f} s" for op, s in build_s.items())
+        + "; order_by per query, index / seq scan: "
+        + ", ".join(f"{op} {idx_ms[op]:.2f} / {seq_ms[op]:.2f} ms"
+                    for op in ops)
+        + f"; seq scan equals a float64 oracle on {len(qs)} queries per "
+        f"opclass; pull scan equals order_by on 8")
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=1_000_000)
@@ -602,7 +918,8 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from pg_embedding_tpu_torch import HnswConfig, HnswIndex, _kernels
+    from pg_embedding_tpu_torch import (HnswConfig, HnswIndex, VectorTable,
+                                        _kernels)
     from pg_embedding_tpu_torch.ops import cuda_bruteforce as cb
 
     dev = torch.device("cuda")
@@ -622,14 +939,23 @@ def main():
     small_build_matches_cpu(torch, HnswConfig, HnswIndex, dev)
     idx, pts, qs, main_launches = main_path(torch, cb, HnswConfig, HnswIndex,
                                             dev, args.n, args.queries)
+    wide_k_phase(torch, cb, idx, qs)
     serving_variants(torch, idx, qs)
     os.makedirs(os.path.join(REPO, ".kernel_build"), exist_ok=True)
     with tempfile.TemporaryDirectory(
             dir=os.path.join(REPO, ".kernel_build")) as tmp:
         persistence(torch, HnswIndex, idx, qs, tmp)
         wal_recovery(torch, HnswIndex, idx, pts, qs, tmp)
-    scan_check(idx, qs)
-    bf16_launches = bf16_phase(torch, cb, idx, qs)
+        scan_check(idx, qs)
+        pq_main(torch, idx, qs)
+        shadows = (idx._pq_codebook, idx._pq_codes, idx._pcodes)
+        bf16_launches = bf16_phase(torch, cb, idx, qs)
+        pq_after_downcast(idx, qs, shadows)
+        del idx, pts
+        torch.cuda.empty_cache()
+        pq_serving_phase(torch, HnswConfig, HnswIndex, dev, args.n,
+                         args.queries, tmp)
+    table_phase(torch, VectorTable, dev)
 
     log(smi)
     kernels = []

@@ -2,7 +2,7 @@
 pg_embedding_tpu (the ``hnsw`` index of neondatabase/pg_embedding), ported
 to PyTorch with hand-written CUDA kernels for NVIDIA Hopper.
 
-Same surface as the JAX package's single-device HnswIndex, PQ aside:
+Same surface as the JAX package's single-device HnswIndex and VectorTable:
   SQL operators <-> / <=> / <~>      -> ops.distance.{l2,cosine,manhattan}_distance
   opclasses ann_{l2,cos,manhattan}_ops -> config.Metric + resolve_metric
   reloptions {dims,m,efconstruction,efsearch} -> config.HnswConfig
@@ -15,6 +15,9 @@ Same surface as the JAX package's single-device HnswIndex, PQ aside:
                                         ops.cuda_bruteforce.fused_exact_search
   WAL/page durability                -> api.HnswIndex.save / load /
                                         enable_wal (wal.py)
+  product quantization               -> ops.pq, packed_dtype="pq",
+                                        search(mode="sweep_pq") (ops.pq_sweep)
+  the SQL table surface              -> table.VectorTable
 
 Importing builds no kernel: the CUDA sources compile at first CUDA use.
 """
@@ -24,6 +27,7 @@ from .ops.distance import cosine_distance, l2_distance, manhattan_distance
 from .ops.bruteforce import exact_search
 from .ops.cuda_bruteforce import fused_exact_search
 from .api import HnswIndex, TuneResult, TuneTargetMissed
+from .table import VectorTable
 
 __version__ = "0.1.0"
 
@@ -40,5 +44,6 @@ __all__ = [
     "HnswIndex",
     "TuneResult",
     "TuneTargetMissed",
+    "VectorTable",
     "__version__",
 ]

@@ -45,7 +45,7 @@ def _nvcc() -> str:
 def _declare(lib) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.bruteforce_topk, lib.bruteforce_topk_bf16):
-        fn.argtypes = [vp, vp, vp, *[ci] * 9, vp, vp, vp, vp, vp]
+        fn.argtypes = [vp, vp, vp, *[ci] * 9, *[vp] * 7]
         fn.restype = ci
     lib.bruteforce_topk_error_string.argtypes = [ci]
     lib.bruteforce_topk_error_string.restype = ctypes.c_char_p

@@ -24,11 +24,12 @@ Tombstoned nodes remain graph waypoints but are filtered from results
 
 Snapshots are the JAX package's npz format, key for key and dtype for
 dtype, and the WAL is the same bytes (wal.py), so either package restores
-what the other wrote.  Product quantization (packed_dtype="pq",
-search(mode="sweep_pq"), pq_sweep_search) is not ported yet and raises
-NotImplementedError naming its ROADMAP.md queue-1 item; a snapshot that
-carries a PQ codebook still loads, and save() writes the codebook back
-unchanged.
+what the other wrote, a trained PQ codebook (and OPQ rotation) included.
+
+Product quantization (ops/pq.py) serves two engines: the packed PQ walk
+(packed_traversal with packed_dtype="pq") and the compressed sweep
+(search(mode="sweep_pq") / pq_sweep_search, ops/pq_sweep.py).  Both rerank
+what they surface exactly, on the stored rows.
 """
 
 from __future__ import annotations
@@ -42,11 +43,14 @@ import numpy as np
 import torch
 
 from . import wal as walmod
-from .config import HnswConfig
+from .config import HnswConfig, Metric
 from .core.build import build_schedule, insert_batch_core, quantize_rows
-from .core.graph import GraphState, empty_graph, grow_graph
-from .core.search import search_graph
+from .core.graph import GraphState, empty_graph, grow_graph, pack_records
+from .core.search import search_graph, search_graph_pq
+from .ops import bruteforce
 from .ops.cuda_bruteforce import fused_exact_search
+from .ops.pq import pack_pq_records, pq_encode, train_opq, train_pq
+from .ops.pq_sweep import pq_sweep_search as _pq_sweep
 from .utils.locking import RWLock
 
 
@@ -72,21 +76,15 @@ def _read_locked(fn):
     return wrapper
 
 
-def _unported(what: str, item: int):
-    return NotImplementedError(
-        f"{what} is not ported to pg_embedding_tpu_torch yet "
-        f"(ROADMAP.md queue 1, item {item})")
-
-
 _SAVE_FORMAT_VERSION = 1
 
 _STORAGE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # element type of the packed neighbour records
 _PACKED_DTYPES = {"int8": torch.int8, "bfloat16": torch.bfloat16,
                   "float32": torch.float32}
-# records are gathered this many nodes at a time, so packing peaks at the
-# records plus one chunk
-_PACK_CHUNK = 131_072
+# PQ training: Lloyd iterations, and the live rows of the strided sample
+_PQ_TRAIN_ITERS = 12
+_PQ_TRAIN_SAMPLE = 131_072
 
 
 class TuneResult(NamedTuple):
@@ -127,19 +125,6 @@ def _atomic_savez(path: str, payload: dict, compressed: bool) -> None:
         os.close(dirfd)
 
 
-def _pack_records(rows: torch.Tensor, links: torch.Tensor,
-                  dtype: torch.dtype) -> torch.Tensor:
-    """Packed neighbour records [cap, maxM, D] of ``dtype``: record i, slot
-    j holds row links[i, j] (row 0 where the slot is empty)."""
-    cap, max_m = links.shape
-    out = torch.empty((cap, max_m, rows.shape[1]), dtype=dtype,
-                      device=rows.device)
-    for start in range(0, cap, _PACK_CHUNK):
-        end = min(start + _PACK_CHUNK, cap)
-        out[start:end] = rows[links[start:end].clamp(min=0)]
-    return out
-
-
 class HnswIndex:
     """Flat-NSW approximate nearest neighbor index on one torch device.
 
@@ -160,7 +145,9 @@ class HnswIndex:
                  storage_dtype: str = "float32",
                  quantized_traversal: bool = False,
                  packed_traversal: bool = False,
-                 packed_dtype: str = "int8") -> None:
+                 packed_dtype: str = "int8",
+                 pq_groups: int = 16,
+                 pq_opq: bool = False) -> None:
         if storage_dtype not in _STORAGE_DTYPES:
             raise ValueError(f"unknown storage_dtype: {storage_dtype!r}")
         if build_candidates not in ("auto", "beam", "exact", "exact8"):
@@ -168,8 +155,13 @@ class HnswIndex:
                 f"unknown build_candidates: {build_candidates!r}")
         if packed_dtype not in (*_PACKED_DTYPES, "pq"):
             raise ValueError(f"unknown packed_dtype: {packed_dtype!r}")
-        if packed_dtype == "pq":
-            raise _unported('packed_dtype="pq"', 12)
+        if packed_dtype == "pq" and config.dims % int(pq_groups):
+            raise ValueError(
+                f"dims {config.dims} not divisible by pq_groups {pq_groups}")
+        if pq_opq and config.metric == Metric.MANHATTAN:
+            raise ValueError(
+                "pq_opq requires a rotation-invariant metric (l2/cosine); "
+                "manhattan distances change under rotation")
         self.config = config
         self.device = torch.device(device)
         self.max_insert_batch = int(max_insert_batch)
@@ -206,16 +198,28 @@ class HnswIndex:
         self.max_widen_ef = 4096
         # serving knobs: the walk reads int8 rows (quantized_traversal) or
         # per-node neighbour records of packed_dtype (packed_traversal;
-        # "int8", "bfloat16" or "float32"), then reranks exactly (float32
-        # records need no rerank: their walk equals the plain walk).  The
-        # shadows are built lazily and dropped by add().
+        # "int8", "bfloat16", "float32" or "pq": G one-byte codes per
+        # neighbour), then reranks exactly (float32 records need no rerank:
+        # their walk equals the plain walk).  The shadows are built lazily
+        # and dropped by add().
         self.quantized_traversal = bool(quantized_traversal)
         self.packed_traversal = bool(packed_traversal)
         self.packed_dtype = packed_dtype
-        # PQ is not ported: a loaded snapshot's pq_codebook /
-        # pq_groups_trained / pq_rot arrays (host numpy) are only carried
-        # through, unchanged, to the next save
-        self._pq_arrays: Dict[str, np.ndarray] = {}
+        # PQ (ops/pq.py): G groups of D/G dims, one byte each; OPQ learns a
+        # rotation first (better codebooks on correlated dims, one q @ R per
+        # query batch; l2/cosine only).  The codebook f32[G, 256, D/G] (and
+        # rotation f32[D, D]) are trained once on a strided sample of
+        # _PQ_TRAIN_SAMPLE live rows, kept as the corpus grows and saved;
+        # build() resets them.  _pq_codes u8[cap, G] are the per-row codes
+        # of the sweep and the source of pq records; add() drops them.
+        self.pq_groups = int(pq_groups)
+        self.pq_opq = bool(pq_opq)
+        self._pq_codebook: Optional[torch.Tensor] = None
+        self._pq_rot: Optional[torch.Tensor] = None
+        self._pq_codes: Optional[torch.Tensor] = None
+        # sweep_pq coarse-pool width: None = per-call default (4k, capped
+        # at 256); tune_sweep_pool sets it from a recall target
+        self.pq_sweep_pool: Optional[int] = None
         # visited set of the walk: "dense" (no visited memory; "auto" is
         # dense), "bitmap" (the exact per-query bitmap, a cross-check
         # oracle) or "hash" (a fixed-size open-hash table per query)
@@ -370,6 +374,7 @@ class HnswIndex:
             self._qvec_rows = 0
         self._pcodes = None
         self._pscales = None
+        self._pq_codes = None
         self._maybe_auto_checkpoint()
         return np.arange(base, base + n, dtype=np.int64)
 
@@ -387,7 +392,7 @@ class HnswIndex:
         self._labels = np.zeros(self._graph.capacity, dtype=np.uint64)
         self._qvec = None
         self._qvec_rows = 0
-        self._pq_arrays = {}
+        self._pq_codebook = self._pq_rot = self._pq_codes = None
         self.add(vectors, labels)
 
     # ------------------------------------------------------------------ #
@@ -422,25 +427,57 @@ class HnswIndex:
             self._qvec_rows = self.n_nodes
         return self._qvec, self._qscale
 
+    def _ensure_pq_codebook(self) -> torch.Tensor:
+        """Train the PQ codebook (and, with pq_opq, the rotation) once, on
+        a strided sample of the live rows."""
+        if self._pq_codebook is None:
+            n = max(self.n_nodes, 1)
+            stride = max(1, n // _PQ_TRAIN_SAMPLE)
+            sample = self._graph.vectors[:n:stride].to(torch.float32)
+            if self.pq_opq:
+                self._pq_rot, self._pq_codebook = train_opq(
+                    sample, groups=self.pq_groups,
+                    pq_iters=_PQ_TRAIN_ITERS)
+            else:
+                self._pq_codebook = train_pq(sample, groups=self.pq_groups,
+                                             iters=_PQ_TRAIN_ITERS)
+        return self._pq_codebook
+
+    def _ensure_pq_codes(self) -> torch.Tensor:
+        """Per-row PQ codes u8[cap, G] of every stored row, the OPQ
+        rotation applied inside the chunked encode."""
+        if self._pq_codes is None:
+            cb = self._ensure_pq_codebook()
+            self._pq_codes = pq_encode(self._graph.vectors, cb, self._pq_rot)
+        return self._pq_codes
+
     def _ensure_packed(self):
         """The packed records of packed_dtype, (re)built when missing or of
         another element type."""
-        if self.packed_dtype == "pq":
-            raise _unported('packed_dtype="pq"', 12)
-        want = _PACKED_DTYPES[self.packed_dtype]
+        want = _PACKED_DTYPES.get(self.packed_dtype, torch.uint8)
         if self._pcodes is None or self._pcodes.dtype != want:
             self._pcodes = self._pscales = None      # free before packing
             links = self._graph.links
-            if want == torch.int8:
+            if self.packed_dtype == "pq":
+                self._pcodes = pack_pq_records(self._ensure_pq_codes(),
+                                               links)
+            elif want == torch.int8:
                 qv, qs = self._ensure_quantized()
-                self._pcodes = _pack_records(qv, links, want)
+                self._pcodes = pack_records(qv, links)
                 self._pscales = qs[links.clamp(min=0)]
             else:
-                self._pcodes = _pack_records(self._graph.vectors, links, want)
+                self._pcodes = pack_records(self._graph.vectors, links, want)
         return self._pcodes, self._pscales
 
     def _graph_search(self, qdev: torch.Tensor, ef: int):
         kw = {}
+        if self.packed_traversal and self.packed_dtype == "pq":
+            pc, _ = self._ensure_packed()
+            return search_graph_pq(self._graph, qdev, pc, self._pq_codebook,
+                                   self._pq_rot, ef=ef,
+                                   metric_value=self.config.metric.value,
+                                   expand_width=self.search_expand_width,
+                                   visited_slots=self._visited_slots(ef))
         if self.packed_traversal:
             pc, ps = self._ensure_packed()
             kw = dict(pcodes=pc, pscales=ps)
@@ -515,7 +552,8 @@ class HnswIndex:
         and search again, up to max_widen_ef.
 
         ``mode``: "graph" forces the beam walk, "exact" the exact sweep
-        (recall 1.0), "auto" routes by ``_use_exact`` and filter
+        (recall 1.0), "sweep_pq" the compressed sweep (pq_sweep_search),
+        "auto" routes between graph and exact by ``_use_exact`` and filter
         selectivity.  ``where``: optional filter, a bool mask over node ids
         or an array of allowed labels.
 
@@ -524,11 +562,12 @@ class HnswIndex:
         """
         queries = self._check_dims(queries)
         b = queries.shape[0]
-        if mode == "sweep_pq":
-            raise _unported('search(mode="sweep_pq")', 12)
-        if mode not in ("auto", "graph", "exact"):
+        if mode not in ("auto", "graph", "exact", "sweep_pq"):
             raise ValueError(f"unknown search mode: {mode!r}")
         excluded, n_allowed = self._filter_to_excluded(where)
+        if mode == "sweep_pq":
+            self.counters["n_searches"] += b
+            return self.pq_sweep_search(queries, k, excluded=excluded)
         selective = (excluded is not None and
                      n_allowed < self.filter_exact_selectivity
                      * max(self.n_nodes, 1))
@@ -585,14 +624,30 @@ class HnswIndex:
         ef = self.config.ef_search if ef is None else int(ef)
         return HnswScan(self, query, self._bucket_ef(max(ef, 1)), where)
 
+    def _answers(self, d: torch.Tensor, i: torch.Tensor
+                 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(dists, node ids) of a sweep as host (dists, labels, valid)."""
+        d = d.cpu().numpy()
+        i = i.cpu().numpy()
+        valid = i >= 0
+        labels = np.where(valid, self._labels[np.maximum(i, 0)], 0)
+        return d, labels.astype(np.uint64), valid
+
     @_read_locked
-    def exact_search(self, queries, k: int, excluded=None
+    def exact_search(self, queries, k: int, engine: str = "auto",
+                     excluded=None
                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Brute-force exact k-NN over live vectors — the seq-scan ground
-        truth (embedding.c:1022-1038).  On CUDA, L2 and cosine run the
-        fused kernel (ops/cuda_bruteforce) at the corpus's storage dtype;
-        ``excluded`` is an optional bool[cap] device mask of further rows
-        to skip."""
+        truth (embedding.c:1022-1038).
+
+        ``engine``: "auto" and "pallas" take the fused entry
+        (ops/cuda_bruteforce.fused_exact_search: on CUDA, L2 and cosine run
+        the kernel at the corpus's storage dtype), "jnp" the chunked torch
+        top-k (ops/bruteforce.exact_search); the names are the JAX
+        package's.  ``excluded`` is an optional bool[cap] device mask of
+        further rows to skip."""
+        if engine not in ("auto", "jnp", "pallas"):
+            raise ValueError(f"unknown exact engine: {engine!r}")
         qdev = self._queries(queries)
         if excluded is None:
             # no tombstones: no mask operand at all
@@ -600,17 +655,37 @@ class HnswIndex:
                     else None)
         else:
             dead = self._graph.deleted | excluded
-        d, i = fused_exact_search(qdev, self._graph.vectors, k,
-                                  self.config.metric, n_valid=self.n_nodes,
-                                  deleted=dead)
-        d = d.cpu().numpy()
-        i = i.cpu().numpy()
-        valid = i >= 0
-        labels = np.where(valid, self._labels[np.maximum(i, 0)], 0)
-        return d, labels.astype(np.uint64), valid
+        sweep = (bruteforce.exact_search if engine == "jnp"
+                 else fused_exact_search)
+        d, i = sweep(qdev, self._graph.vectors, k, self.config.metric,
+                     n_valid=self.n_nodes, deleted=dead)
+        return self._answers(d, i)
 
-    def pq_sweep_search(self, *a, **k):
-        raise _unported("pq_sweep_search", 12)
+    @_read_locked
+    def pq_sweep_search(self, queries, k: int, pool: Optional[int] = None,
+                        excluded=None
+                        ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Compressed brute-force k-NN (ops/pq_sweep.py): a sweep over the
+        rows' PQ codes keeps the ``pool`` best per query by the decoded
+        distance, and the exact distance on the stored rows reranks them.
+        Approximate (PQ distortion can keep a true neighbour out of the
+        pool), but every returned distance is exact; ``pool`` prices
+        recall.  It needs no graph.  ``pool`` defaults to pq_sweep_pool,
+        else min(max(4k, k + 28), 256), and is rounded up to a power of
+        two >= k.  Tombstones and ``excluded`` rows are skipped.  Returns
+        (dists, labels, valid) like search()."""
+        qdev = self._queries(queries)
+        codes = self._ensure_pq_codes()
+        dead = (self._graph.deleted if excluded is None
+                else self._graph.deleted | excluded)
+        if pool is None:
+            pool = (self.pq_sweep_pool if self.pq_sweep_pool
+                    else min(max(4 * k, k + 28), 256))
+        pool = 1 << (max(int(pool), int(k)) - 1).bit_length()
+        d, i = _pq_sweep(qdev, codes, self._pq_codebook, self._pq_rot,
+                         self._graph.vectors, k, self.config.metric,
+                         n_valid=self.n_nodes, deleted=dead, pool=pool)
+        return self._answers(d, i)
 
     # ------------------------------------------------------------------ #
     # delete / vacuum (tombstones)
@@ -657,38 +732,76 @@ class HnswIndex:
         ``strict=True`` raises TuneTargetMissed instead of returning an
         unmet result."""
         queries = self._check_dims(queries)
-        _, ol, ov = self.exact_search(queries, k)
-        ef = max(self.config.ef_search, k)
-        ef = 1 << (ef - 1).bit_length()
-        best, achieved = ef, 0.0
-        while ef <= min(max_ef, max(self.n_nodes, 1)):
+
+        def probe(ef):
             _, i = self.search_ids(queries, ef)
             it = torch.as_tensor(i, device=self.device)
             alive = self._alive(self._graph.deleted, it).cpu().numpy()
+            return self._labels[np.maximum(i, 0)], alive
+
+        res = self._tune_pow2(queries, k, target_recall,
+                              max(self.config.ef_search, k),
+                              min(max_ef, max(self.n_nodes, 1)), probe,
+                              strict, f"ef (max_ef={max_ef})")
+        self.set_ef_search(res.ef)
+        return res
+
+    def _tune_pow2(self, queries, k: int, target_recall: float, start: int,
+                   stop: int, probe, strict: bool, what: str) -> TuneResult:
+        """The shared loop of the tuners: powers of two p from the one at
+        or above ``start`` while p <= ``stop``, until recall@k of
+        ``probe(p)`` -> (labels [B, *], valid [B, *]) against the exact
+        route meets ``target_recall``.  Returns TuneResult(p, recall, met)
+        for the last p tried; ``strict`` raises TuneTargetMissed on a
+        miss, naming ``what``."""
+        _, ol, ov = self.exact_search(queries, k)
+        p = 1 << (int(start) - 1).bit_length()
+        best, achieved = p, 0.0
+        while p <= stop:
+            labels, valid = probe(p)
             recs = []
             for r in range(queries.shape[0]):
-                got = set(self._labels[i[r][alive[r]][:k]].tolist())
                 want = set(ol[r][ov[r]][:k].tolist())
+                got = set(labels[r][valid[r]][:k].tolist())
                 recs.append(len(got & want) / max(len(want), 1))
-            best, achieved = ef, float(np.mean(recs))
+            best, achieved = p, float(np.mean(recs))
             if achieved >= target_recall:
                 break
-            ef *= 2
+            p *= 2
         met = achieved >= target_recall
         if strict and not met:
             raise TuneTargetMissed(
-                f"recall {achieved:.4f} at ef={best} misses target "
-                f"{target_recall} (max_ef={max_ef})")
-        self.set_ef_search(best)
+                f"recall {achieved:.4f} at {best} misses target "
+                f"{target_recall}: {what}")
         return TuneResult(best, achieved, met)
+
+    def tune_sweep_pool(self, queries, target_recall: float = 0.95,
+                        k: int = 10, max_pool: int = 1024,
+                        strict: bool = False) -> TuneResult:
+        """Find (and set) the smallest power-of-two sweep_pq pool whose
+        recall@k on ``queries`` meets ``target_recall`` against the exact
+        oracle — the pool analog of tune_ef_search.  Sets pq_sweep_pool
+        and returns TuneResult(pool, recall, met); ``strict=True`` raises
+        TuneTargetMissed on a miss."""
+        queries = self._check_dims(queries)
+
+        def probe(pool):
+            return self.pq_sweep_search(queries, k, pool=pool)[1:]
+
+        res = self._tune_pow2(queries, k, target_recall, max(2 * k, 16),
+                              max_pool, probe, strict,
+                              f"pool (max_pool={max_pool})")
+        self.pq_sweep_pool = res.ef
+        return res
 
     @_write_locked
     def downcast_corpus(self, dtype: str = "bfloat16") -> None:
         """Cast the resident corpus to a narrower storage dtype in place —
         the footprint transition for a built index.  Equivalent to
         ``storage_dtype="bfloat16"`` at construction, except that the graph
-        and the derived shadows (int8 rows, packed records) were computed
-        from full-precision rows and are kept.  Lossy and one-way; later
+        and the derived shadows (int8 rows, packed records, the PQ
+        codebook, rotation and codes) were computed from full-precision
+        rows and are kept.  Lossy and one-way; later
         inserts and the exact sweep work in the narrow dtype (on CUDA the
         exact route runs the kernel's bf16 instantiation), and save()
         persists it."""
@@ -723,11 +836,12 @@ class HnswIndex:
                           storage_dtype=self.storage_dtype,
                           quantized_traversal=self.quantized_traversal,
                           packed_traversal=self.packed_traversal,
-                          packed_dtype=self.packed_dtype)
+                          packed_dtype=self.packed_dtype,
+                          pq_groups=self.pq_groups, pq_opq=self.pq_opq)
         for knob in ("exact_build_threshold", "exact8_build_threshold",
                      "build_cand_cap", "exact_threshold",
                      "exact_threshold_packed", "filter_exact_selectivity",
-                     "max_widen_ef", "visited_mode"):
+                     "max_widen_ef", "visited_mode", "pq_sweep_pool"):
             setattr(fresh, knob, getattr(self, knob))
         if len(vecs):
             fresh.build(vecs, labels)
@@ -855,7 +969,14 @@ class HnswIndex:
             nxt = self._wal.epoch + 1
             payload["wal_epoch_next"] = np.int64(nxt)
             payload["wal_offset_next"] = np.int64(self._wal.header_len(nxt))
-        payload.update(self._pq_arrays)
+        if self._pq_codebook is not None:
+            # the trained dictionary, so load() serves PQ without a retrain
+            # and with the same codes
+            payload["pq_codebook"] = self._pq_codebook.cpu().numpy()
+            payload["pq_groups_trained"] = np.int64(
+                self._pq_codebook.shape[0])
+            if self._pq_rot is not None:
+                payload["pq_rot"] = self._pq_rot.cpu().numpy()
         if compressed is None:
             compressed = payload["vectors"].nbytes < (1 << 30)
         _atomic_savez(path, payload, compressed)
@@ -924,7 +1045,14 @@ class HnswIndex:
         # live tombstone count (exact_search drops the mask operand when
         # it is zero)
         idx.counters["n_deleted"] = int(arrays["deleted"].sum())
-        idx._pq_arrays = pq
+        if "pq_codebook" in pq:
+            idx._pq_codebook = torch.as_tensor(
+                pq["pq_codebook"], dtype=torch.float32, device=idx.device)
+            idx.pq_groups = int(pq["pq_groups_trained"])
+            if "pq_rot" in pq:
+                idx._pq_rot = torch.as_tensor(
+                    pq["pq_rot"], dtype=torch.float32, device=idx.device)
+                idx.pq_opq = True
         if wal is not None:
             idx._replay_wal(wal, wal_offset, wal_epoch, wal_next)
         return idx

@@ -45,13 +45,19 @@ def graph_from_numpy(vectors, links, link_counts, deleted, n_nodes,
 
 def index_from_numpy(config: HnswConfig, vectors, links, link_counts,
                      deleted, n_nodes, labels, device="cpu",
+                     pq_codebook=None, pq_rot=None,
                      **kwargs) -> HnswIndex:
     """An HnswIndex over the given graph arrays and labels; ``kwargs`` go
     to the HnswIndex constructor (the serving knobs: storage_dtype,
-    quantized_traversal, packed_traversal, packed_dtype, ...)."""
+    quantized_traversal, packed_traversal, packed_dtype, ...).  A trained
+    PQ codebook f32[G, 256, D/G] (and OPQ rotation f32[D, D]) is served as
+    given, as load() serves a saved one: pq_groups becomes G, and a
+    rotation sets pq_opq."""
     graph = graph_from_numpy(vectors, links, link_counts, deleted, n_nodes,
                              device=device,
                              storage_dtype=kwargs.get("storage_dtype"))
+    if pq_codebook is not None:
+        kwargs.setdefault("pq_groups", np.asarray(pq_codebook).shape[0])
     kwargs["storage_dtype"] = ("bfloat16"
                                if graph.vectors.dtype == torch.bfloat16
                                else "float32")
@@ -63,6 +69,13 @@ def index_from_numpy(config: HnswConfig, vectors, links, link_counts,
     idx._labels = np.zeros(graph.capacity, dtype=np.uint64)
     idx._labels[: graph.n_nodes] = np.asarray(labels, np.uint64)[: graph.n_nodes]
     idx.counters["n_deleted"] = int(graph.deleted[: graph.n_nodes].sum())
+    if pq_codebook is not None:
+        idx._pq_codebook = torch.tensor(np.asarray(pq_codebook),
+                                        dtype=torch.float32, device=device)
+    if pq_rot is not None:
+        idx._pq_rot = torch.tensor(np.asarray(pq_rot), dtype=torch.float32,
+                                   device=device)
+        idx.pq_opq = True
     return idx
 
 

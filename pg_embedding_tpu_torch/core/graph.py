@@ -32,6 +32,9 @@ import torch
 # tile LCM.
 _EXACT_TILE_ALIGN = 15360
 _ALIGN_THRESHOLD = 1_000_000
+# records are gathered this many nodes at a time, so packing peaks at the
+# records plus one chunk
+_PACK_CHUNK = 131_072
 
 
 def _round_capacity(capacity: int) -> int:
@@ -92,4 +95,19 @@ def grow_graph(graph: GraphState, new_capacity: int) -> GraphState:
     out.link_counts[:old] = graph.link_counts
     out.deleted[:old] = graph.deleted
     out.n_nodes = graph.n_nodes
+    return out
+
+
+def pack_records(rows: torch.Tensor, links: torch.Tensor,
+                 dtype=None) -> torch.Tensor:
+    """Packed neighbour records [cap, maxM, W] of ``dtype`` (default:
+    rows'): record i, slot j holds rows[links[i, j]] (row 0 where the slot
+    is empty).  ``rows`` is [cap, W]: corpus rows, their int8 shadow, or PQ
+    codes."""
+    cap, max_m = links.shape
+    out = torch.empty((cap, max_m, rows.shape[1]), dtype=dtype or rows.dtype,
+                      device=rows.device)
+    for start in range(0, cap, _PACK_CHUNK):
+        end = min(start + _PACK_CHUNK, cap)
+        out[start:end] = rows[links[start:end].clamp(min=0)]
     return out

@@ -24,7 +24,7 @@ Visited set (``visited_slots``, as in the JAX package):
     uint32 arithmetic; torch has no full uint32, so it runs in int64 and
     masks to 32 bits, which gives the same buckets and slots.
 
-Neighbour rows come from one of three sources:
+Neighbour rows come from one of four sources:
   * the corpus rows (``graph.vectors``, float32 or bf16);
   * quantized traversal: int8 rows ``qvectors`` x per-row ``qscale``;
   * packed traversal: per-node records ``pcodes`` [cap, maxM, D] holding
@@ -32,10 +32,15 @@ Neighbour rows come from one of three sources:
     [cap, maxM]), bf16 or float32 — so a step gathers T records instead of
     T*maxM rows.  (The JAX package picks flat or 3-D records by the TPU's
     tiles; here records are always [cap, maxM, D].)
-Any approximate source (int8 or bf16 records, int8 rows) is followed by an
-exact rerank of the ef results against the corpus rows.  float32 records
-skip it: their distances are the plain walk's, so the ids, order and
-distances equal the plain walk's.
+  * PQ traversal: records ``pcodes`` uint8[cap, maxM, G] of the
+    neighbours' PQ codes, decoded through ``pq_codebook`` (ops/pq); with
+    an OPQ rotation the decoded rows live in the rotated space, so the
+    walk scores them against ``query_t`` = q @ R while the entry distance
+    and the rerank keep the original query (search_graph_pq).
+Any approximate source (int8, bf16 or PQ records, int8 rows) is followed
+by an exact rerank of the ef results against the corpus rows.  float32
+records skip it: their distances are the plain walk's, so the ids, order
+and distances equal the plain walk's.
 
 The JAX package runs ``vmap(while_loop)``; here the batch is explicit and
 the loop is a Python loop over steps.  A query whose loop condition fails
@@ -51,7 +56,8 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..ops.bruteforce import merge_min_k, min_k
-from ..ops.distance import dist_one_to_many
+from ..ops.distance import _matmul, dist_one_to_many
+from ..ops.pq import pq_decode
 from .graph import GraphState
 
 _INF = float("inf")
@@ -90,10 +96,11 @@ def _hash_slot_choice(ids: torch.Tensor) -> torch.Tensor:
 def _search_batch(graph: GraphState, queries: torch.Tensor, *, ef: int,
                   metric_value: int, cand_cap: int, expand_width: int = 1,
                   qvectors=None, qscale=None, pcodes=None, pscales=None,
-                  visited_slots: int = -1):
+                  pq_codebook=None, query_t=None, visited_slots: int = -1):
     """searchBaseLayer for a batch of queries f32[B, D].  Returns (res_d
     f32[B, ef], res_i i32[B, ef], hops i32[B], dist_evals i32[B]); results
-    ascending, -1/inf padded."""
+    ascending, -1/inf padded.  ``query_t`` f32[B, D], when given, replaces
+    the queries in the walk's distances only (the OPQ hook)."""
     b, dims = queries.shape
     dev = queries.device
     max_m = graph.max_m
@@ -138,6 +145,7 @@ def _search_batch(graph: GraphState, queries: torch.Tensor, *, ef: int,
     slot_in_row = slot_ids % max_m
     earlier_slot = slot_ids.unsqueeze(0) < slot_ids.unsqueeze(1)  # [tm, tm]
     pre = min(max(ef, cand_cap), tm)
+    walk_q = queries if query_t is None else query_t
 
     while True:
         go = (cand_d[:, 0] < _INF) & ~(cand_d[:, 0] > res_d[:, ef - 1])
@@ -149,7 +157,7 @@ def _search_batch(graph: GraphState, queries: torch.Tensor, *, ef: int,
         if idx.numel() == 0:
             break
         a = idx.numel()
-        q = queries[idx]
+        q = walk_q[idx]
         rd, ri, cd, ci = res_d[idx], res_i[idx], cand_d[idx], cand_i[idx]
         lower = rd[:, ef - 1:ef]
 
@@ -202,7 +210,10 @@ def _search_batch(graph: GraphState, queries: torch.Tensor, *, ef: int,
                 0, flat.reshape(-1),
                 torch.where(process, bits, 0).reshape(-1))
 
-        if pcodes is not None:
+        if pq_codebook is not None:
+            nvecs = pq_decode(pcodes[safe_cur].reshape(a, tm, -1),
+                              pq_codebook)
+        elif pcodes is not None:
             nvecs = pcodes[safe_cur].reshape(a, tm, dims).to(torch.float32)
             if pscales is not None:
                 nvecs = nvecs * pscales[safe_cur].reshape(a, tm, 1)
@@ -250,7 +261,8 @@ def _search_batch(graph: GraphState, queries: torch.Tensor, *, ef: int,
 def search_graph(graph: GraphState, queries: torch.Tensor, *, ef: int,
                  metric_value: int, cand_cap: int | None = None,
                  expand_width: int = 1, qvectors=None, qscale=None,
-                 pcodes=None, pscales=None, visited_slots: int = -1
+                 pcodes=None, pscales=None, pq_codebook=None, query_t=None,
+                 visited_slots: int = -1
                  ) -> Tuple[torch.Tensor, torch.Tensor, SearchStats]:
     """Batched searchBaseLayer; the counterpart of the JAX package's
     search_graph, search_graph_quantized and search_graph_packed.
@@ -266,6 +278,9 @@ def search_graph(graph: GraphState, queries: torch.Tensor, *, ef: int,
                traversal).
       pcodes, pscales: [cap, maxM, D] neighbour records (int8, bf16 or f32)
                and, for int8, f32[cap, maxM] scales (packed traversal).
+      pq_codebook: f32[G, 256, D/G]; ``pcodes`` then holds PQ codes
+               uint8[cap, maxM, G] (PQ traversal).
+      query_t: f32[B, D] queries for the walk's distances (OPQ: q @ R).
       visited_slots: -1 dense dedupe, 0 bitmap, 2^s hash-table slots.
 
     Returns:
@@ -277,5 +292,23 @@ def search_graph(graph: GraphState, queries: torch.Tensor, *, ef: int,
     res_d, res_i, hops, evals = _search_batch(
         graph, queries, ef=ef, metric_value=metric_value, cand_cap=cand_cap,
         expand_width=expand_width, qvectors=qvectors, qscale=qscale,
-        pcodes=pcodes, pscales=pscales, visited_slots=visited_slots)
+        pcodes=pcodes, pscales=pscales, pq_codebook=pq_codebook,
+        query_t=query_t, visited_slots=visited_slots)
     return res_d, res_i, SearchStats(hops=hops, dist_evals=evals)
+
+
+def search_graph_pq(graph: GraphState, queries: torch.Tensor,
+                    pcodes: torch.Tensor, codebook: torch.Tensor,
+                    rotation=None, *, ef: int, metric_value: int,
+                    cand_cap: int | None = None, expand_width: int = 1,
+                    visited_slots: int = -1
+                    ) -> Tuple[torch.Tensor, torch.Tensor, SearchStats]:
+    """Batched searchBaseLayer over packed PQ records uint8[cap, maxM, G]
+    with codebook f32[G, 256, D/G], then the exact rerank; with an OPQ
+    ``rotation`` f32[D, D] the walk scores against q @ R (the counterpart
+    of the JAX package's search_graph_pq)."""
+    query_t = None if rotation is None else _matmul(queries, rotation)
+    return search_graph(graph, queries, ef=ef, metric_value=metric_value,
+                        cand_cap=cand_cap, expand_width=expand_width,
+                        pcodes=pcodes, pq_codebook=codebook,
+                        query_t=query_t, visited_slots=visited_slots)

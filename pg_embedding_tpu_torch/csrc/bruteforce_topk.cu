@@ -70,8 +70,16 @@
 //    k_run entries by a warp-parallel count and shift.  Pass 2 merges the S
 //    sorted partial lists of each query, applies sqrt for L2 and writes
 //    [B, k_run].
+//  * k_run past 1024 (the lists' shared memory) goes in pages: the caller
+//    (ops/cuda_bruteforce.bruteforce_topk_paged) launches once per page of
+//    at most 1024 with a per-query floor (score, id), the last entry of the
+//    page before.  The selection admits only rows that follow the floor in
+//    (score, id) order, and the merge writes the page's own last entry back
+//    as the next floor (the score before the sqrt).  A row's score depends
+//    on the query and the row alone (the same mma sequence in every tile
+//    and launch shape), so the pages concatenate to the one long list.
 // Not here yet: wgmma and TMA, a warp-specialised producer, a persistent
-// grid, k_run > 1024.
+// grid, one launch for k_run > 1024.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -256,7 +264,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 sweep_kernel(const float* __restrict__ q, const T* __restrict__ p,
              const unsigned char* __restrict__ del, int B, int n_rows, int D,
              bool vec_q, bool vec_p, int k_run, int metric,
-             int rows_per_split, float* __restrict__ part_d,
+             int rows_per_split, const float* __restrict__ floor_d,
+             const int* __restrict__ floor_i, float* __restrict__ part_d,
              int* __restrict__ part_i) {
   using L = Layout<QT>;
   constexpr int kPS = p_stride<T>();
@@ -438,9 +447,18 @@ sweep_kernel(const float* __restrict__ q, const T* __restrict__ p,
       float sc[kRowsPerLane];
       float kth = next_kth;
       float lo = CUDART_INF_F;
+      // a later page admits only what follows its floor
+      float fd = -CUDART_INF_F;
+      int fi = -1;
+      if (floor_d != nullptr) {
+        fd = floor_d[q0 + ql];
+        fi = floor_i[q0 + ql];
+      }
 #pragma unroll
       for (int j = 0; j < kRowsPerLane; ++j) {
-        sc[j] = live[j] ? next[j] : CUDART_INF_F;
+        const bool after = floor_d == nullptr ||
+                           lex_less(fd, fi, next[j], tile + lane + 32 * j);
+        sc[j] = live[j] && after ? next[j] : CUDART_INF_F;
         lo = fminf(lo, sc[j]);
       }
       if (i + 1 < n_mine)
@@ -505,7 +523,8 @@ sweep_kernel(const float* __restrict__ q, const T* __restrict__ p,
 __global__ void __launch_bounds__(kMergeWarps * 32)
 merge_kernel(const float* __restrict__ part_d, const int* __restrict__ part_i,
              int B, int S, int k_run, int metric, float* __restrict__ out_d,
-             int* __restrict__ out_i) {
+             int* __restrict__ out_i, float* __restrict__ floor_d,
+             int* __restrict__ floor_i) {
   __shared__ int head[kMergeWarps][kMaxSplits];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int qi = blockIdx.x * kMergeWarps + warp;
@@ -548,6 +567,10 @@ merge_kernel(const float* __restrict__ part_d, const int* __restrict__ part_i,
       out_d[(size_t)qi * k_run + r] = metric == kMetricL2 ? sqrtf(bd) : bd;
       out_i[(size_t)qi * k_run + r] = bi;
       h[bs] += 1;
+      if (floor_d != nullptr && r == k_run - 1) {    // the next page's floor
+        floor_d[qi] = bd;
+        floor_i[qi] = bi;
+      }
     }
     __syncwarp();
   }
@@ -559,6 +582,7 @@ template <int QT, bool kQRes, typename T>
 cudaError_t launch_sweep(const float* q, const T* p,
                          const unsigned char* del, int B, int n_rows, int D,
                          int k_run, int metric, int S, size_t smem,
+                         const float* floor_d, const int* floor_i,
                          float* part_d, int* part_i, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       sweep_kernel<QT, kQRes, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -574,7 +598,7 @@ cudaError_t launch_sweep(const float* q, const T* p,
   dim3 grid(ceil_div(B, QT), S);
   sweep_kernel<QT, kQRes, T><<<grid, kThreads, smem, stream>>>(
       q, p, del, B, n_rows, D, vec_q, vec_p, k_run, metric, rows_per_split,
-      part_d, part_i);
+      floor_d, floor_i, part_d, part_i);
   return cudaGetLastError();
 }
 
@@ -582,10 +606,12 @@ template <typename T>
 int run_topk(const float* q, const T* p, const unsigned char* del, int B,
              int n_rows, int D, int k_run, int metric, int qt, int S,
              int q_res, int smem_bytes, float* part_d, int* part_i,
-             float* out_d, int* out_i, void* stream_ptr) {
+             float* out_d, int* out_i, float* floor_d, int* floor_i,
+             void* stream_ptr) {
   if (B <= 0 || n_rows < 0 || D <= 0 || k_run < 1 || k_run > kMaxK ||
       S < 1 || S > kMaxSplits || (qt != 64 && qt != 16) ||
-      (metric != kMetricL2 && metric != kMetricCosine))
+      (metric != kMetricL2 && metric != kMetricCosine) ||
+      (floor_d == nullptr) != (floor_i == nullptr))
     return (int)cudaErrorInvalidValue;
   const size_t smem = sweep_smem_bytes<T>(qt, k_run, D, q_res != 0);
   if (smem != (size_t)smem_bytes || smem > (size_t)kSmemLimit)
@@ -594,21 +620,21 @@ int run_topk(const float* q, const T* p, const unsigned char* del, int B,
   cudaError_t err;
   if (qt == 64)
     err = q_res ? launch_sweep<64, true, T>(q, p, del, B, n_rows, D, k_run,
-                                            metric, S, smem, part_d, part_i,
-                                            stream)
+                                            metric, S, smem, floor_d, floor_i,
+                                            part_d, part_i, stream)
                 : launch_sweep<64, false, T>(q, p, del, B, n_rows, D, k_run,
-                                             metric, S, smem, part_d, part_i,
-                                             stream);
+                                             metric, S, smem, floor_d, floor_i,
+                                             part_d, part_i, stream);
   else
     err = q_res ? launch_sweep<16, true, T>(q, p, del, B, n_rows, D, k_run,
-                                            metric, S, smem, part_d, part_i,
-                                            stream)
+                                            metric, S, smem, floor_d, floor_i,
+                                            part_d, part_i, stream)
                 : launch_sweep<16, false, T>(q, p, del, B, n_rows, D, k_run,
-                                             metric, S, smem, part_d, part_i,
-                                             stream);
+                                             metric, S, smem, floor_d, floor_i,
+                                             part_d, part_i, stream);
   if (err != cudaSuccess) return (int)err;
   merge_kernel<<<ceil_div(B, kMergeWarps), kMergeWarps * 32, 0, stream>>>(
-      part_d, part_i, B, S, k_run, metric, out_d, out_i);
+      part_d, part_i, B, S, k_run, metric, out_d, out_i, floor_d, floor_i);
   return (int)cudaGetLastError();
 }
 
@@ -624,14 +650,18 @@ const char* bruteforce_topk_error_string(int err) {
 // or null; QT (64 or 16), the corpus splits S, whether the block's queries
 // stay resident (else they stream through the ring) and the sweep's
 // shared-memory bytes come from ops/cuda_bruteforce._launch_shape; part_d /
-// part_i hold [S, B, k_run]; out_d f32[B, k_run], out_i i32[B, k_run].
-// Returns the CUDA error of the launches (0 on success).
+// part_i hold [S, B, k_run]; out_d f32[B, k_run], out_i i32[B, k_run];
+// floor_d f32[B] / floor_i i32[B], both null or both set: the page floor,
+// read by the sweep and overwritten by the merge with the page's last
+// entry.  Returns the CUDA error of the launches (0 on success).
 int bruteforce_topk(const float* q, const float* p, const unsigned char* del,
                     int B, int n_rows, int D, int k_run, int metric, int qt,
                     int S, int q_res, int smem_bytes, float* part_d,
-                    int* part_i, float* out_d, int* out_i, void* stream_ptr) {
+                    int* part_i, float* out_d, int* out_i, float* floor_d,
+                    int* floor_i, void* stream_ptr) {
   return run_topk(q, p, del, B, n_rows, D, k_run, metric, qt, S, q_res,
-                  smem_bytes, part_d, part_i, out_d, out_i, stream_ptr);
+                  smem_bytes, part_d, part_i, out_d, out_i, floor_d, floor_i,
+                  stream_ptr);
 }
 
 // The same with p bf16[n_rows.., D] (its raw 16-bit patterns).
@@ -639,10 +669,11 @@ int bruteforce_topk_bf16(const float* q, const void* p,
                          const unsigned char* del, int B, int n_rows, int D,
                          int k_run, int metric, int qt, int S, int q_res,
                          int smem_bytes, float* part_d, int* part_i,
-                         float* out_d, int* out_i, void* stream_ptr) {
+                         float* out_d, int* out_i, float* floor_d,
+                         int* floor_i, void* stream_ptr) {
   return run_topk(q, static_cast<const uint16_t*>(p), del, B, n_rows, D,
                   k_run, metric, qt, S, q_res, smem_bytes, part_d, part_i,
-                  out_d, out_i, stream_ptr);
+                  out_d, out_i, floor_d, floor_i, stream_ptr);
 }
 
 }  // extern "C"

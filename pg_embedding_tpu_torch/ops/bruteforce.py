@@ -65,11 +65,17 @@ def _rerank_exact(queries, points, i_run, *, k: int, metric_value: int):
 
 
 def sweep_min_k(queries, points, k: int, n_valid: int, deleted, score,
-                chunk: int):
+                chunk: int, after=None):
     """Running top-k of ``score(queries, rows)`` over rows [0, n_valid),
     ``chunk`` rows at a time.  Masked rows (tombstones, and everything past
-    n_valid) come back as (inf, -1) when fewer than k rows qualify.
+    n_valid) come back as (inf, -1) when fewer than k rows qualify.  With
+    ``after`` (d f32[B], ids i32[B]) a row qualifies only if it follows
+    (d[q], ids[q]) in (score, id) order; id -1 follows every row.
     Returns (d f32[B, k], ids i32[B, k]) ascending by (score, id)."""
+    if after is not None:
+        floor_d = after[0].unsqueeze(1)
+        floor_i = torch.where(after[1] < 0, torch.iinfo(torch.int32).max,
+                              after[1]).unsqueeze(1)
     b = queries.shape[0]
     dev = queries.device
     run_d = torch.full((b, k), _INF, dtype=torch.float32, device=dev)
@@ -83,6 +89,10 @@ def sweep_min_k(queries, points, k: int, n_valid: int, deleted, score,
             dead = deleted[start:end].unsqueeze(0)
             d = d.masked_fill(dead, _INF)
             ids = ids.masked_fill(dead, -1)
+        if after is not None:
+            before = (d < floor_d) | ((d == floor_d) & (ids <= floor_i))
+            d = d.masked_fill(before, _INF)
+            ids = ids.masked_fill(before, -1)
         run_d, run_i = merge_min_k(run_d, run_i, d, ids, k)
     return run_d, run_i
 

@@ -13,8 +13,11 @@ shared memory here, where the CPU tests reach it.
 
 ``bruteforce_topk`` is the wrapper: on a CPU tensor it runs
 ``_bruteforce_topk_plain`` (the same function in plain torch), on a CUDA
-tensor it launches the instantiation for the corpus dtype or raises.
-``fused_exact_search`` is the entry with the contract of
+tensor it launches the instantiation for the corpus dtype or raises.  One
+launch keeps at most MAX_K_RUN entries per query (its running lists live in
+shared memory); ``bruteforce_topk_paged`` takes any k_run in pages of at
+most MAX_K_RUN, each launch admitting only what follows the last entry of
+the page before.  ``fused_exact_search`` is the entry with the contract of
 ``pallas_exact_search``: Manhattan goes to ops/bruteforce, L2 fetches
 k + _RERANK_PAD and reranks with the difference form.
 """
@@ -34,7 +37,7 @@ from .distance import _matmul
 LAUNCHES = {"bruteforce_topk": 0, "bruteforce_topk_bf16": 0}
 
 # Running lists live in shared memory: 8 bytes x k_run x 16 queries fit
-# a block up to here.
+# a block up to here; a longer list takes pages of at most this.
 MAX_K_RUN = 1024
 
 # The sweep's launch shape, mirrored from csrc/bruteforce_topk.cu (whose
@@ -71,14 +74,17 @@ def _scores(queries, rows, metric_value: int) -> torch.Tensor:
 
 
 def _bruteforce_topk_plain(queries, points, k_run: int, metric_value: int,
-                           n_valid: int, deleted=None):
+                           n_valid: int, deleted=None, after=None):
     """The kernel's function in plain torch: (d f32[B, k_run], ids
     i32[B, k_run]) ascending by (score, id), masked rows never admitted,
-    L2 sqrt'd."""
+    L2 sqrt'd; ``after`` as in bruteforce_topk."""
     d, i = sweep_min_k(queries, points, k_run, min(n_valid, len(points)),
                        deleted,
                        lambda q, p: _scores(q, p, metric_value),
-                       _PLAIN_CHUNK)
+                       _PLAIN_CHUNK, after)
+    if after is not None:
+        after[0].copy_(d[:, -1])
+        after[1].copy_(i[:, -1])
     if metric_value == Metric.L2.value:
         d = torch.sqrt(d)
     return d, i
@@ -131,7 +137,8 @@ def _launch_shape(b: int, n_rows: int, k_run: int, sms: int,
     return qt, splits, q_res, smem
 
 
-def _check_args(queries, points, k_run, metric_value, deleted) -> None:
+def _check_args(queries, points, k_run, metric_value, deleted,
+                after) -> None:
     if metric_value not in (Metric.L2.value, Metric.COSINE.value):
         raise ValueError(f"the fused kernel takes L2 or cosine, not metric "
                          f"{metric_value}")
@@ -158,18 +165,30 @@ def _check_args(queries, points, k_run, metric_value, deleted) -> None:
                 or not deleted.is_contiguous()):
             raise ValueError("deleted must be a contiguous bool[N] tensor "
                              "on the points' device")
+    if after is not None:
+        fd, fi = after
+        for t, dt in ((fd, torch.float32), (fi, torch.int32)):
+            if (t.dtype != dt or t.shape != queries.shape[:1]
+                    or t.device != points.device or not t.is_contiguous()):
+                raise ValueError("after must be contiguous (f32[B], i32[B]) "
+                                 "tensors on the points' device")
 
 
 def bruteforce_topk(queries, points, k_run: int, metric_value: int,
-                    n_valid: int, deleted=None):
-    """Exact top-k_run of queries f32[B, D] against points f32 or bf16
-    [N, D] rows [0, n_valid), skipping ``deleted`` rows.  Returns (d
-    f32[B, k_run], ids i32[B, k_run]), ascending by (score, id), -1/+inf
-    padded, L2 sqrt'd."""
-    _check_args(queries, points, k_run, metric_value, deleted)
+                    n_valid: int, deleted=None, after=None):
+    """Exact top-k_run (k_run <= MAX_K_RUN) of queries f32[B, D] against
+    points f32 or bf16 [N, D] rows [0, n_valid), skipping ``deleted`` rows.
+    Returns (d f32[B, k_run], ids i32[B, k_run]), ascending by (score, id),
+    -1/+inf padded, L2 sqrt'd.
+
+    ``after`` (floor_d f32[B], floor_i i32[B]), a page floor: only rows
+    that follow (floor_d[q], floor_i[q]) in (score, id) order are admitted
+    (scores before the L2 sqrt; id -1 follows every row), and the call
+    overwrites it with each query's last entry, the next page's floor."""
+    _check_args(queries, points, k_run, metric_value, deleted, after)
     if points.device.type == "cpu":
         return _bruteforce_topk_plain(queries, points, k_run, metric_value,
-                                      n_valid, deleted)
+                                      n_valid, deleted, after)
     if points.device.type != "cuda":
         raise ValueError(f"no kernel for device {points.device}")
     b, dims = queries.shape
@@ -194,10 +213,33 @@ def bruteforce_topk(queries, points, k_run: int, metric_value: int,
             None if deleted is None else deleted.data_ptr(),
             b, n_rows, dims, k_run, metric_value, qt, splits, int(q_res),
             smem, part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(),
-            out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            out_i.data_ptr(), None if after is None else after[0].data_ptr(),
+            None if after is None else after[1].data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     _kernels.check(lib, err, name)
     LAUNCHES[name] += 1
     return out_d, out_i
+
+
+def bruteforce_topk_paged(queries, points, k_run: int, metric_value: int,
+                          n_valid: int, deleted=None):
+    """bruteforce_topk for any k_run >= 1: one call up to MAX_K_RUN, else
+    equal pages of at most MAX_K_RUN, each a call whose floor is the last
+    entry of the page before.  A score depends on its query and row alone,
+    so the pages concatenate to the single ascending list."""
+    if k_run <= MAX_K_RUN:
+        return bruteforce_topk(queries, points, k_run, metric_value, n_valid,
+                               deleted)
+    b, dev = queries.shape[0], points.device
+    size = -(-k_run // -(-k_run // MAX_K_RUN))
+    after = (torch.full((b,), -float("inf"), dtype=torch.float32,
+                        device=dev),
+             torch.full((b,), -1, dtype=torch.int32, device=dev))
+    pages = [bruteforce_topk(queries, points, min(size, k_run - start),
+                             metric_value, n_valid, deleted, after)
+             for start in range(0, k_run, size)]
+    return (torch.cat([d for d, _ in pages], dim=1),
+            torch.cat([i for _, i in pages], dim=1))
 
 
 def fused_exact_search(queries, points, k: int, metric=Metric.L2,
@@ -205,12 +247,15 @@ def fused_exact_search(queries, points, k: int, metric=Metric.L2,
     """Exact top-k — the counterpart of ``pallas_exact_search``, with the
     contract of ops.bruteforce.exact_search.
 
-    L2/cosine run the fused kernel (its plain twin on CPU tensors);
+    L2/cosine run the fused kernel (its plain twin on CPU tensors), in
+    pages when k_run (k + _RERANK_PAD for L2, else k) exceeds MAX_K_RUN;
     Manhattan has no matmul form and routes to ops.bruteforce.  For L2 the
     kernel fetches k + _RERANK_PAD and the difference form reranks them.
-    ``points`` may be float32 or bfloat16 (a bf16-storage corpus).
-    Returns (dists f32[B, k] ascending, ids i32[B, k]; -1 => none)."""
+    ``points`` may be float32 or bfloat16 (a bf16-storage corpus).  Returns
+    (dists f32[B, k] ascending, ids i32[B, k]; -1 => none)."""
     metric = resolve_metric(metric)
+    k = int(k)
+    k_run = k + _RERANK_PAD if metric is Metric.L2 else k
     if metric is Metric.MANHATTAN:
         return exact_search(queries, points, k, metric, n_valid=n_valid,
                             deleted=deleted)
@@ -221,9 +266,8 @@ def fused_exact_search(queries, points, k: int, metric=Metric.L2,
     if deleted is not None:
         deleted = torch.as_tensor(deleted, dtype=torch.bool,
                                   device=points.device)
-    k = int(k)
-    k_run = k + _RERANK_PAD if metric is Metric.L2 else k
-    d, i = bruteforce_topk(queries, points, k_run, metric.value, n, deleted)
+    d, i = bruteforce_topk_paged(queries, points, k_run, metric.value, n,
+                                 deleted)
     if k_run != k:
         return _rerank_exact(queries, points, i, k=k,
                              metric_value=metric.value)

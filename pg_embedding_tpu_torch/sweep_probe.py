@@ -134,7 +134,8 @@ def main() -> int:
                     err = fn(qs.data_ptr(), corpus.data_ptr(), None, B, N, D,
                              K_RUN, L2, qt, splits, int(q_res), smem,
                              part_d.data_ptr(), part_i.data_ptr(),
-                             out_d.data_ptr(), out_i.data_ptr(), stream)
+                             out_d.data_ptr(), out_i.data_ptr(), None,
+                             None, stream)
                     _kernels.check(lib, err, name)
                 ms = time_ms(call, args.reps)
                 note = ""

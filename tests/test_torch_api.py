@@ -185,27 +185,105 @@ def test_errors_and_empty_index():
     dict(packed_dtype="pq"),
     dict(packed_dtype="pq", packed_traversal=True),
     dict(packed_dtype="pq", quantized_traversal=True)])
-def test_unported_knobs_raise(kwargs):
-    """Only PQ serving is left unported (ROADMAP queue 1, item 12); its
-    knobs are not part of the port's constructor."""
-    with pytest.raises(TypeError):
-        HnswIndex(HnswConfig(dims=8), device="cpu", pq_groups=8)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        HnswIndex(HnswConfig(dims=8), device="cpu", **kwargs)
-    idx = HnswIndex(HnswConfig(dims=8), device="cpu", packed_traversal=True)
-    idx.packed_dtype = "pq"
-    with pytest.raises(NotImplementedError, match="item 12"):
-        idx.search_ids(np.zeros((1, 8), np.float32))
+def test_unported_knobs_raise(kwargs, data):
+    """The PQ knobs, once unported, now build and answer: each
+    packed_dtype="pq" variant serves the graph route like the JAX index
+    with the same knobs and codebook; pq_groups is taken, and a dims % G
+    mismatch raises the JAX package's ValueError."""
+    pts, qs = data
+    pts, qs = pts[:400, :8], qs[:4, :8]
+    cfg = dict(dims=8, m=6, ef_construction=24, ef_search=24)
+    with pytest.raises(ValueError, match="not divisible by pq_groups 3"):
+        HnswIndex(HnswConfig(**cfg), device="cpu", pq_groups=3, **kwargs)
+    ji = JaxIndex(JaxConfig(**cfg), pq_groups=8, **kwargs)
+    ji.pq_train_iters = 3
+    ji.build(pts)
+    jd, jl, jv = ji.search(qs, 5, mode="graph")
+    ji._ensure_pq_codebook()
+    g = ji.graph
+    ti = index_from_numpy(HnswConfig(**cfg), g.vectors, g.links,
+                          g.link_counts, g.deleted, ji.n_nodes, ji.labels,
+                          pq_codebook=ji._pq_codebook, **kwargs)
+    assert ti.pq_groups == 8 and ti.packed_dtype == "pq"
+    td, tl, tv = ti.search(qs, 5, mode="graph")
+    np.testing.assert_array_equal(tl, jl)
+    np.testing.assert_array_equal(tv, jv)
+    np.testing.assert_allclose(td, jd, rtol=1e-5, atol=1e-6)
+    own = HnswIndex(HnswConfig(**cfg), device="cpu", pq_groups=8, **kwargs)
+    own.build(pts)
+    assert own.search(qs, 5, mode="graph")[2].all()
 
 
 @pytest.mark.parametrize("call", ["pq_sweep_search", "sweep_pq"])
-def test_unported_methods_raise(call):
-    idx = HnswIndex(HnswConfig(dims=8), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_unported_methods_raise(call, data):
+    """pq_sweep_search and search(mode="sweep_pq"), once unported, now
+    answer with the JAX package's labels on the same codebook."""
+    pts, qs = data
+    cfg = dict(dims=D, m=6, ef_construction=24, ef_search=24)
+    ji = JaxIndex(JaxConfig(**cfg), pq_groups=8)
+    ti = HnswIndex(HnswConfig(**cfg), device="cpu", pq_groups=8)
+    for idx in (ji, ti):
+        idx.build(pts[:500])
+        idx.delete(np.arange(0, 500, 9))
+    ji.pq_train_iters = 3
+    ji._ensure_pq_codes()
+    ti._pq_codebook = torch.tensor(np.asarray(ji._pq_codebook))
+    for idx in (ji, ti):
         if call == "sweep_pq":
-            idx.search(np.zeros((1, 8), np.float32), 1, mode="sweep_pq")
+            got = idx.search(qs[:8], K, mode="sweep_pq")
         else:
-            getattr(idx, call)("x")
+            got = idx.pq_sweep_search(qs[:8], K, pool=32)
+        if idx is ji:
+            jd, jl, jv = got
+    td, tl, tv = got
+    np.testing.assert_array_equal(tl, jl)
+    np.testing.assert_array_equal(tv, jv)
+    np.testing.assert_allclose(td, jd, rtol=1e-5)
+    assert tv.all() and not np.isin(tl, np.arange(0, 500, 9)).any()
+
+
+def test_wide_k_answers_in_pages(pair, data, monkeypatch):
+    """k above one launch's k_run cap (1024) answers on the exact route in
+    two pages of the kernel's function (its plain twin on the CPU), with
+    the JAX index's labels."""
+    from pg_embedding_tpu_torch.ops import cuda_bruteforce as cb
+
+    ji, ti = pair
+    _, qs = data
+    pages = []
+    topk = cb.bruteforce_topk
+
+    def counted(*args):
+        pages.append(args[2])
+        return topk(*args)
+    monkeypatch.setattr(cb, "bruteforce_topk", counted)
+    jd, jl, jv = ji.search(qs[:40], 1500)
+    td, tl, tv = ti.search(qs[:40], 1500)
+    assert pages == [751, 751]
+    assert td.shape == (40, 1500) and tv.all()
+    np.testing.assert_array_equal(tv, jv)
+    np.testing.assert_allclose(td, jd, rtol=1e-5, atol=1e-5)
+    diff = tl != jl                 # only at float32 near-ties
+    assert np.allclose(td[diff], jd[diff], rtol=1e-5)
+    assert diff.mean() < 1e-3
+    # one launch's cap still holds
+    with pytest.raises(ValueError, match="k_run=1025"):
+        topk(torch.from_numpy(qs[:2]), ti.graph.vectors[:N], 1025, 0, N)
+
+
+def test_exact_engines(pair, data):
+    """exact_search takes the JAX package's engine names; every engine
+    gives the same answer, and an unknown one its ValueError."""
+    ji, ti = pair
+    _, qs = data
+    jd, jl, jv = ji.exact_search(qs, K)
+    for engine in ("auto", "jnp", "pallas"):
+        td, tl, tv = ti.exact_search(qs, K, engine=engine)
+        np.testing.assert_array_equal(tl, jl)
+        np.testing.assert_allclose(td, jd, rtol=1e-5, atol=1e-5)
+    for idx in (ji, ti):
+        with pytest.raises(ValueError, match="unknown exact engine: 'tpu'"):
+            idx.exact_search(qs, K, engine="tpu")
 
 
 def test_index_from_numpy(pair, data):

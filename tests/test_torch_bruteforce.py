@@ -19,7 +19,7 @@ from pg_embedding_tpu_torch.ops import cuda_bruteforce
 from pg_embedding_tpu_torch.ops.bruteforce import exact_search
 from pg_embedding_tpu_torch.ops.cuda_bruteforce import (
     MAX_K_RUN, MAX_SPLITS, SMEM_LIMIT, _bruteforce_topk_plain, _launch_shape,
-    bruteforce_topk, fused_exact_search)
+    bruteforce_topk, bruteforce_topk_paged, fused_exact_search)
 
 L2, COSINE, MANHATTAN = 0, 1, 2
 
@@ -122,6 +122,51 @@ def test_wrapper_is_the_plain_twin_on_cpu():
         for g, w in zip(got, want):
             assert torch.equal(g, w)
     assert cuda_bruteforce.LAUNCHES == before      # no kernel on the CPU
+
+
+@pytest.mark.parametrize("metric,dtype,k_run", [
+    (L2, torch.float32, 1025), (COSINE, torch.float32, 2100),
+    (L2, torch.bfloat16, 2049), (COSINE, torch.bfloat16, 1500)])
+def test_pages_concatenate_to_one_list(metric, dtype, k_run, monkeypatch):
+    """k_run past MAX_K_RUN goes in pages, each admitting only what follows
+    the last entry of the page before: the pages equal the one long list
+    of the plain twin, bit for bit, through runs of exact ties (every row
+    three times) that straddle the page edges, tombstones and n_valid."""
+    rng = np.random.default_rng(6)
+    base = rng.normal(size=(1000, 16)).astype(np.float32)
+    pts = torch.from_numpy(np.concatenate([base] * 3)).to(dtype)
+    qs = torch.from_numpy(rng.normal(size=(7, 16)).astype(np.float32))
+    dead = torch.from_numpy(rng.random(3000) < 0.05)
+    calls = []
+
+    def counted(*args):
+        calls.append(args[2])
+        return bruteforce_topk(*args)
+    monkeypatch.setattr(cuda_bruteforce, "bruteforce_topk", counted)
+    got = bruteforce_topk_paged(qs, pts, k_run, metric, 2900, dead)
+    want = _bruteforce_topk_plain(qs, pts, k_run, metric, 2900, dead)
+    assert len(calls) == -(-k_run // MAX_K_RUN) and max(calls) <= MAX_K_RUN
+    assert sum(calls) == k_run
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_page_floor_admits_only_what_follows():
+    """``after`` keeps rows after (score, id) only, an equal score with a
+    higher id included, and comes back holding the page's last entry as
+    the next floor (the L2 score before its sqrt); a floor of (inf, -1),
+    a page that ran out, admits nothing."""
+    pts = torch.tensor([[0.0], [1.0], [1.0], [2.0], [3.0]])
+    qs = torch.zeros((2, 1))
+    after = (torch.tensor([1.0, float("inf")]), torch.tensor([1, -1],
+                                                              dtype=torch.int32))
+    d, i = bruteforce_topk(qs, pts, 2, L2, 5, after=after)
+    assert i.tolist() == [[2, 3], [-1, -1]]
+    assert d[0].tolist() == [1.0, 2.0] and torch.isinf(d[1]).all()
+    assert after[0].tolist()[0] == 4.0 and after[1].tolist() == [3, -1]
+    with pytest.raises(ValueError, match="after"):
+        bruteforce_topk(qs, pts, 2, L2, 5, after=(after[0].double(),
+                                                  after[1]))
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():

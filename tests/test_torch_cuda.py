@@ -135,7 +135,8 @@ def test_launch_refuses_a_wrong_shared_memory_figure(cuda):
         err = lib.bruteforce_topk(qs.data_ptr(), pts.data_ptr(), None, 4, 100,
                                   8, 5, 0, qt, 1, int(res), bad,
                                   part.data_ptr(), part.data_ptr(),
-                                  out.data_ptr(), out.data_ptr(), stream)
+                                  out.data_ptr(), out.data_ptr(), None, None,
+                                  stream)
         with pytest.raises(RuntimeError, match="CUDA error"):
             _kernels.check(lib, err, "bruteforce_topk")
 
@@ -174,3 +175,72 @@ def test_bf16_storage_exact_route_uses_bf16_kernel(cuda):
     dc, lc, vc = cpu.exact_search(qs, 10)
     assert (l == lc).mean() >= 0.99
     np.testing.assert_allclose(d, dc, rtol=1e-5)
+
+
+def test_wide_k_pages_on_card(cuda):
+    """k_run above MAX_K_RUN runs the kernel in pages on the card: 2 launches
+    at k=1500 (3 at k_run 2100, bf16 rows), whose concatenation is the
+    plain twin's one list (ids except float64 near-ties, distances to rtol
+    1e-5), and the exact entry's answer is the CPU run's."""
+    from pg_embedding_tpu_torch.ops.bruteforce import exact_search
+    g = torch.Generator().manual_seed(5)
+    pts = torch.randn((6000, 32), generator=g)
+    qs = torch.randn((40, 32), generator=g)
+    dead = torch.rand(6000, generator=g) < 0.05
+    before = dict(cb.LAUNCHES)
+    got = cb.fused_exact_search(qs.to(cuda), pts.to(cuda), 1500,
+                                deleted=dead.to(cuda))
+    torch.cuda.synchronize()
+    assert cb.LAUNCHES["bruteforce_topk"] == before["bruteforce_topk"] + 2
+    assert got[1].shape == (40, 1500)
+    _check(got, exact_search(qs, pts, 1500, deleted=dead))
+    for corpus, k_run, metric in ((pts, 1502, 0),
+                                  (pts.to(torch.bfloat16), 2100, 1)):
+        c = corpus.to(cuda)
+        got = cb.bruteforce_topk_paged(qs.to(cuda), c, k_run, metric, 5900,
+                                       dead.to(cuda))
+        want = cb._bruteforce_topk_plain(qs, corpus, k_run, metric, 5900,
+                                         dead)
+        torch.cuda.synchronize()
+        _check(got, want)
+
+
+def test_pq_encode_and_sweep_on_card(cuda):
+    """pq_encode, train_pq and pq_sweep_search on the card against the
+    CPU: codes agree except float64 near-ties; a codebook trained on the
+    card reconstructs within 5% of the CPU's (atomic sums reorder, so a
+    near-tied assignment may flip); the sweep's distances to rtol 1e-5 and
+    its ids except near-ties."""
+    from pg_embedding_tpu_torch.ops import pq
+    from pg_embedding_tpu_torch.ops.pq_sweep import pq_sweep_search
+    g = torch.Generator().manual_seed(6)
+    centers = torch.randn((64, 64), generator=g) * 4
+    pts = centers[torch.randint(0, 64, (20000,), generator=g)] + torch.randn(
+        (20000, 64), generator=g)
+    qs = pts[:300] + 0.1 * torch.randn((300, 64), generator=g)
+    cb_cpu = pq.train_pq(pts[:8000], groups=16, iters=6)
+    cb_gpu = pq.train_pq(pts[:8000].to(cuda), groups=16, iters=6)
+    codes = pq.pq_encode(pts, cb_cpu)
+
+    def recon(cb):
+        rows = pq.pq_decode(pq.pq_encode(pts, cb), cb)
+        return float(((rows - pts) ** 2).sum(1).mean())
+    assert recon(cb_gpu.cpu()) <= 1.05 * recon(cb_cpu)
+    codes_gpu = pq.pq_encode(pts.to(cuda), cb_cpu.to(cuda)).cpu()
+    diff = (codes_gpu != codes).nonzero()
+    assert len(diff) <= 1e-3 * codes.numel()
+    sub = pts.view(20000, 16, 4).double()
+    c64 = cb_cpu.double()
+    for r, grp in diff.tolist():
+        a = ((sub[r, grp] - c64[grp, codes[r, grp].long()]) ** 2).sum()
+        b = ((sub[r, grp] - c64[grp, codes_gpu[r, grp].long()]) ** 2).sum()
+        assert abs(float(a - b)) <= 1e-5 * max(float(a), 1e-12)
+    dead = torch.rand(20000, generator=g) < 0.05
+    want = pq_sweep_search(qs, codes, cb_cpu, None, pts, 10, pool=64,
+                           deleted=dead)
+    got = pq_sweep_search(qs.to(cuda), codes.to(cuda), cb_cpu.to(cuda),
+                          None, pts.to(cuda), 10, pool=64,
+                          deleted=dead.to(cuda))
+    torch.cuda.synchronize()
+    assert (got[1].cpu() == want[1]).float().mean() >= 0.99
+    _check(got, want)

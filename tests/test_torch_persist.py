@@ -152,7 +152,8 @@ def test_frozen_fields_guard(pair, tmp_path):
 
 def test_pq_codebook_survives(data, tmp_path):
     """A snapshot carrying a trained PQ codebook (and an OPQ rotation)
-    loads in the port and saves back unchanged; PQ serving still raises."""
+    loads in the port as live tensors equal to the saved arrays, serves the
+    compressed sweep, and saves back unchanged."""
     pts, qs = data
     ji = JaxIndex(JaxConfig(**CFG), packed_traversal=True, packed_dtype="pq",
                   pq_groups=4, pq_opq=True)
@@ -161,11 +162,15 @@ def test_pq_codebook_survives(data, tmp_path):
     ji.search(qs[:2], K, mode="graph")           # trains the codebook
     ji.save(str(tmp_path / "pq"))
     back = HnswIndex.load(str(tmp_path / "pq"), device="cpu")
-    assert int(back._pq_arrays["pq_groups_trained"]) == 4
-    with pytest.raises(NotImplementedError, match="item 12"):
-        back.search(qs, K, mode="sweep_pq")
+    za = _npz(tmp_path / "pq.npz")
+    assert (back.pq_groups, back.pq_opq) == (4, True)
+    np.testing.assert_array_equal(back._pq_codebook.numpy(),
+                                  za["pq_codebook"])
+    np.testing.assert_array_equal(back._pq_rot.numpy(), za["pq_rot"])
+    _, _, v = back.search(qs, K, mode="sweep_pq")
+    assert v.all()
     back.save(str(tmp_path / "again"))
-    za, zb = _npz(tmp_path / "pq.npz"), _npz(tmp_path / "again.npz")
+    zb = _npz(tmp_path / "again.npz")
     assert {"pq_codebook", "pq_groups_trained", "pq_rot"} <= set(zb)
     assert sorted(zb) == sorted(za)
     for key in za:
