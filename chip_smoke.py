@@ -59,13 +59,29 @@ exits non-zero):
      queries, then search(mode="sweep_pq") on all (recall@10 >= 0.95,
      distances equal to a float64 recompute at rtol 1e-5, QPS); save ->
      load (the same codebook bytes, walk and sweep labels);
-  9. VectorTable on the card: the knn.sql replay (3-d), then a 20,000 x
+  9. the sharded index (parallel/sharded.ShardedHnswIndex, 4 shards on the
+     card, batches of 256 rows a shard as the single index takes them) on
+     the main index's rows and queries, built from scratch: build
+     seconds, exact and graph QPS and recall@10 beside the single index's;
+     search() in auto mode launches the kernel exactly once per shard and
+     its labels equal the single index's on every query except float64
+     near-ties; graph recall@10 >= 0.90 against the exact route; 1,000
+     deleted labels never surface; save(per_shard=True) -> load gives the
+     same labels on both routes (it runs before phase 8's index is built);
+     last, the kernel against its plain twin on every shard's own view of
+     the stacked rows, with that shard's count and tombstones (distances
+     within 32 float32 roundings of the raw score: these rows' norms dwarf
+     their distances), and the per-shard exact call against a float64
+     oracle at rtol 1e-5 (phase 3 also holds a random case of a shard's
+     shape at the plain 1e-5);
+ 10. VectorTable on the card: the knn.sql replay (3-d), then a 20,000 x
      128-d table with <->, <=> and <~> indexes: the seq scan
      (order_by(use_index=False), through the exact entry) against a
      float64 oracle, and the pull scan against order_by through the index.
 Phases are timed with utils/profiling's Timer (synchronising the card).
 The last three lines are the card's nvidia-smi line, a JSON line of the
-kernels, and {"ok": true, "device": {...}}.
+kernels ("launches" from the main path of phase 4, "sharded_launches" from
+phase 9, each counted from zero), and {"ok": true, "device": {...}}.
 
 Needs a CUDA device and nvcc; without a device it exits non-zero before
 printing any result.
@@ -98,6 +114,14 @@ PQ_CENTERS = 50_000
 DIMS = 128
 K = 10
 GRAPH_T = 8
+SHARDS = 4
+# rows a shard takes per insert batch: the single index's batch, not the
+# sharded default of 128, whose 7,812 host-bound batches cost the smoke
+# 190-270 s
+SHARD_BATCH = 256
+# float32 roundings of the raw L2 score within which the kernel and its plain
+# twin must agree on the clustered rows (see shard_kernel_vs_plain)
+SHARD_UNITS = 32
 # NVIDIA's H100 SXM data sheet, dense: TF32 tensor cores, HBM3
 PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
@@ -130,17 +154,28 @@ def true_dist(torch, qs, pts, ids, metric):
     return 1.0 - dot / torch.sqrt((p * p).sum(-1) * (q * q).sum(-1))
 
 
-def compare(torch, got, want, qs, pts, metric, n_valid, dead):
+def compare(torch, got, want, qs, pts, metric, n_valid, dead,
+            cancel_units=0):
     """Kernel vs plain: distances to rtol 1e-5; where ids differ, the
     kernel's row must be a near-tie: its float64 distance within 1e-5
-    relative of the plain's distance at that rank.  Returns (max abs
-    distance error, mismatched ids)."""
+    relative of the plain's distance at that rank.  ``cancel_units`` (L2
+    only) widens both by that many float32 roundings of the sweep's raw
+    score |q|^2 - 2 q.p + |p|^2, seen through the square root:
+    units * 2^-23 * (|q|^2 + |p|^2) / (2 d); it is for rows whose norms
+    dwarf their distances (the exact route reranks such scores).  Returns
+    (max abs distance error, mismatched ids)."""
     dk, ik = got
     dp, ip = want
     check(torch.equal(torch.isinf(dk), torch.isinf(dp)), "inf pattern")
     fin = torch.isfinite(dp)
     err = float((dk[fin] - dp[fin]).abs().max()) if fin.any() else 0.0
-    check(torch.allclose(dk[fin], dp[fin], rtol=1e-5, atol=1e-6),
+    tol = 1e-5 * dp.double().abs() + 1e-6
+    if cancel_units:
+        norms = ((qs.double() ** 2).sum(1, keepdim=True)
+                 + (pts[ip.clamp(min=0).long()].double() ** 2).sum(-1))
+        tol = tol + (cancel_units * 2.0 ** -23 * norms
+                     / (2 * dp.double()).clamp(min=1e-6))
+    check(bool(((dk[fin] - dp[fin]).abs() <= tol[fin]).all()),
           f"distances differ by up to {err}")
     ok_ids = ik[ik >= 0]
     check(bool((ok_ids < n_valid).all()), "id past n_valid")
@@ -149,8 +184,7 @@ def compare(torch, got, want, qs, pts, metric, n_valid, dead):
     diff = ik != ip
     if diff.any():
         d64 = true_dist(torch, qs, pts, ik, metric)[diff]
-        ref = dp[diff].double()
-        check(bool(((d64 - ref).abs() <= 1e-5 * ref.abs() + 1e-6).all()),
+        check(bool(((d64 - dp[diff].double()).abs() <= tol[diff]).all()),
               "an id differs at a rank that is not a near-tie")
     return err, int(diff.sum())
 
@@ -185,6 +219,8 @@ def kernel_phase(torch, cb, dev):
         (L2, 100_000, 960, 1024, 1, 0.8, True, f32),
         (COSINE, 100_000, 960, 1024, 100, 1.0, False, f32),
         (L2, 200_000, 128, 1024, 3, 1.0, False, f32),
+        # one shard of the sharded phase: its capacity, its rows, tombstones
+        (L2, 253_952, 128, 1024, 12, 250_000 / 253_952, True, f32),
         (COSINE, 50_000, 128, 256, 1000, 1.0, True, f32),
         (L2, 50_000, 100, 128, 1024, 0.7, False, f32),
         (L2, 20_000, 128, 1024, 100, 0.004, True, f32),   # k > n_valid
@@ -424,6 +460,8 @@ def main_path(torch, cb, HnswConfig, HnswIndex, dev, n, n_queries):
     idx.search_expand_width = 4
     _, gl4, gv4 = idx.search(qs, K, mode="graph")
     idx.search_expand_width = GRAPH_T
+    single = dict(exact_labels=el, exact_qps=exact_qps, graph_qps=graph_qps,
+                  recall=rec, build_s=build_s)
     log(f"exact_search: {exact_qps:.0f} QPS; search(mode='graph', "
         f"T={GRAPH_T}): {graph_qps:.0f} QPS at recall@10 {rec:.4f} vs the "
         f"exact route (T=4: recall@10 {recall(gl4, gv4, el):.4f})")
@@ -440,7 +478,7 @@ def main_path(torch, cb, HnswConfig, HnswIndex, dev, n, n_queries):
         f"or graph route")
     launches = dict(cb.LAUNCHES)
     log(f"main path kernel launches: {launches}")
-    return idx, pts, qs, launches
+    return idx, pts, qs, launches, single
 
 
 def serving_variants(torch, idx, qs):
@@ -831,6 +869,169 @@ def pq_after_downcast(idx, qs, shadows):
         "tensors; the PQ walk answers every query")
 
 
+def sharded_phase(torch, cb, HnswConfig, ShardedHnswIndex, dev, pts, qs,
+                  single, tmp):
+    """The sharded index on the main index's rows and queries: S shards on
+    the card, built from scratch, then both routes beside the single
+    index's figures (``single``, taken by main_path before its deletes).
+    Returns the launch counts of the phase's own run of the path (build,
+    search() in auto mode, the timed calls, the deletes, save -> load)."""
+    from pg_embedding_tpu_torch.utils.profiling import Timer
+    n, s = len(pts), SHARDS
+    reset_launches(cb)
+    idx = ShardedHnswIndex(HnswConfig(dims=DIMS, m=16, ef_construction=64,
+                                      ef_search=64), s, device=dev,
+                           max_insert_batch=SHARD_BATCH,
+                           search_expand_width=GRAPH_T)
+    timer = Timer()
+    with timer.phase("build", torch.empty(0, device=dev)):
+        idx.build(pts)
+    build_s = timer.seconds["build"]
+    counts = idx.shard_counts
+    check(idx.n_nodes == n and counts.max() - counts.min() <= 1,
+          f"shard counts {counts}")
+    viol = idx.check_integrity(raise_on_error=False)
+    check(not any(viol.values()), f"sharded integrity {viol}")
+    log(f"sharded build: {n} vectors into {s} shards (capacity "
+        f"{idx.capacity_per_shard} each, batches of {idx.max_insert_batch}) "
+        f"in {build_s:.1f} s = {n / build_s:.0f} vec/s (single index: "
+        f"{single['build_s']:.1f} s = {n / single['build_s']:.0f} vec/s); "
+        f"integrity clean")
+
+    before = cb.LAUNCHES["bruteforce_topk"]
+    d, l, v = idx.search(qs, K)                        # auto -> exact route
+    per_call = cb.LAUNCHES["bruteforce_topk"] - before
+    check(per_call == s, f"one sharded exact call launched the kernel "
+          f"{per_call} times, not once per shard ({s})")
+    check(idx.counters["n_exact_routed"] == len(qs), "auto did not route "
+          "to the exact sweep")
+    check(d.shape == (len(qs), K) and bool(np.isfinite(d).all())
+          and bool(v.all()), "sharded exact results shape/finite")
+    # the same rows as the single index, so the same answer: labels are
+    # insert positions in both; a differing one must be a float64 near-tie
+    want = single["exact_labels"]
+    rows, cols = np.nonzero(l != want)
+    if len(rows):
+        full = torch.as_tensor(pts, device=dev)
+        q = torch.as_tensor(qs[rows], device=dev).double()
+        a = (full[l[rows, cols].astype(np.int64)].double() - q).norm(dim=1)
+        b = (full[want[rows, cols].astype(np.int64)].double() - q).norm(dim=1)
+        check(bool(((a - b).abs() <= 1e-5 * b + 1e-6).all()),
+              "sharded exact label differs from the single index's at a "
+              "rank that is not a near-tie")
+
+    reps = 5
+    t0 = time.time()
+    for _ in range(reps):
+        el = idx.exact_search(qs, K)[1]
+    exact_qps = reps * len(qs) / (time.time() - t0)
+    reps = 3
+    idx.search(qs, K, mode="graph")
+    t0 = time.time()
+    for _ in range(reps):
+        _, gl, gv = idx.search(qs, K, mode="graph")
+    graph_qps = reps * len(qs) / (time.time() - t0)
+    rec = recall(gl, gv, el)
+    log(f"sharded exact_search: {exact_qps:.0f} QPS, {per_call} kernel "
+        f"launches a call, labels equal the single index's except "
+        f"{len(rows)} float64 near-ties of {want.size} (single index: "
+        f"{single['exact_qps']:.0f} QPS); sharded search(mode='graph', "
+        f"T={GRAPH_T}, ef={idx.config.ef_search}): {graph_qps:.0f} QPS at "
+        f"recall@10 {rec:.4f} vs the exact route (single index: "
+        f"{single['graph_qps']:.0f} QPS at {single['recall']:.4f})")
+    check(rec >= 0.90, f"sharded graph recall {rec} < 0.90")
+
+    dead = np.random.default_rng(SEED + 5).choice(
+        n, 1_000, replace=False).astype(np.uint64)
+    check(idx.delete(dead) == len(dead), "sharded delete count")
+    for mode in ("exact", "graph"):
+        _, dl, dv = idx.search(qs, K, mode=mode)
+        check(not np.isin(dl[dv], dead).any(),
+              f"sharded: deleted label from {mode}")
+        check(bool(dv.all()), f"sharded {mode}: fewer than k live results")
+
+    path = os.path.join(tmp, "sharded.npz")
+    t0 = time.time()
+    idx.save(path, per_shard=True)
+    save_s = time.time() - t0
+    files = [f for f in os.listdir(tmp) if f.startswith("sharded.")]
+    size = sum(os.path.getsize(os.path.join(tmp, f)) for f in files)
+    t0 = time.time()
+    back = ShardedHnswIndex.load(path, device=dev)
+    back.search_expand_width = idx.search_expand_width     # not persisted
+    torch.cuda.synchronize()
+    load_s = time.time() - t0
+    check(back.n_shards == s and back.vacuum()["num_dead"] == len(dead),
+          "loaded sharded index: shards / tombstones")
+    same_answers(answers(idx, qs), answers(back, qs), "loaded sharded index")
+    launches = dict(cb.LAUNCHES)
+    shard_err, shard_swaps, k_units, p_units = shard_kernel_vs_plain(
+        torch, cb, idx, qs, dev)
+    log(f"sharded delete: {len(dead)} labels tombstoned, none returned by "
+        f"either route; save(per_shard=True): {len(files)} files, "
+        f"{size / 1e9:.3f} GB in {save_s:.1f} s; load onto the card "
+        f"{load_s:.1f} s, both routes' labels equal; kernel launches of the "
+        f"sharded phase: {launches}; the kernel vs its plain twin on every "
+        f"shard's own rows (capacity {idx.capacity_per_shard}, n_valid and "
+        f"tombstones as the exact route passes them): max_abs_err="
+        f"{shard_err:.3g}, near-tie id swaps={shard_swaps}, within "
+        f"{SHARD_UNITS} float32 roundings of the raw score (against float64 "
+        f"the kernel is off by up to {k_units:.1f}, the plain twin "
+        f"{p_units:.1f}); the per-shard exact call equals a float64 oracle "
+        f"at rtol 1e-5")
+    for f in files:
+        os.remove(os.path.join(tmp, f))
+    return launches
+
+
+def shard_kernel_vs_plain(torch, cb, idx, qs, dev):
+    """The kernel against its plain twin with the arguments the sharded
+    exact route gives it: each shard's view of the stacked rows, its count
+    as n_valid, its tombstones, k_run = k + 2.  These rows' squared norms
+    (~2,200) are ~10x their squared distances, so the raw scores carry
+    the expansion's cancellation: the two are held within SHARD_UNITS
+    float32 roundings of the score, and each one's distance from float64
+    is measured in those roundings.  Then the whole per-shard call,
+    fused_exact_search (kernel + exact rerank), against a float64 oracle
+    at rtol 1e-5.  Returns (max abs distance error of the raw scores,
+    near-tie id swaps, the kernel's and the plain twin's largest error
+    against float64 in roundings) over the shards."""
+    from pg_embedding_tpu_torch.config import Metric
+    q = torch.as_tensor(qs, device=dev)
+    qn = (q.double() ** 2).sum(1, keepdim=True)
+    err, swaps, units = 0.0, 0, [0.0, 0.0]
+    for i, graph in enumerate(idx._graphs):
+        dead = idx._deleted[i]
+        check(graph.vectors.shape[0] == idx.capacity_per_shard
+              and bool(dead[: graph.n_nodes].any()),
+              f"shard {i}: not the serving view, or no tombstone in it")
+        args = (q, graph.vectors, K + 2, L2, graph.n_nodes, dead)
+        got = cb.bruteforce_topk_paged(*args)
+        want = cb._bruteforce_topk_plain(*args)
+        torch.cuda.synchronize()
+        e, n_diff = compare(torch, got, want, q, graph.vectors, L2,
+                            graph.n_nodes, dead, cancel_units=SHARD_UNITS)
+        err, swaps = max(err, e), swaps + n_diff
+        for j, (dist, ids) in enumerate((got, want)):
+            rows = graph.vectors[ids.long()].double()
+            true = (rows - q.double().unsqueeze(1)).norm(dim=-1)
+            unit = 2.0 ** -23 * (qn + (rows ** 2).sum(-1)) / (2 * true)
+            units[j] = max(units[j],
+                           float(((dist.double() - true).abs() / unit).max()))
+        d, ids = cb.fused_exact_search(q, graph.vectors, K, Metric.L2,
+                                       n_valid=graph.n_nodes, deleted=dead)
+        d64 = torch.cdist(q.double(), graph.vectors.double())
+        d64[:, graph.n_nodes:] = float("inf")
+        d64[:, dead] = float("inf")
+        kth = torch.topk(d64, K, largest=False).values
+        own = d64.gather(1, ids.long())
+        check(torch.allclose(d.double(), own, rtol=1e-5, atol=1e-6)
+              and torch.allclose(own, kth, rtol=1e-5, atol=1e-6),
+              f"shard {i}: the exact route against a float64 oracle")
+        del d64
+    return err, swaps, units[0], units[1]
+
+
 def table_phase(torch, VectorTable, dev):
     """knn.sql on the card, then a 20,000 x 128-d table with three
     indexes: the seq scan against a float64 oracle, the pull scan against
@@ -918,7 +1119,8 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from pg_embedding_tpu_torch import (HnswConfig, HnswIndex, VectorTable,
+    from pg_embedding_tpu_torch import (HnswConfig, HnswIndex,
+                                        ShardedHnswIndex, VectorTable,
                                         _kernels)
     from pg_embedding_tpu_torch.ops import cuda_bruteforce as cb
 
@@ -937,8 +1139,8 @@ def main():
 
     timings = kernel_phase(torch, cb, dev)
     small_build_matches_cpu(torch, HnswConfig, HnswIndex, dev)
-    idx, pts, qs, main_launches = main_path(torch, cb, HnswConfig, HnswIndex,
-                                            dev, args.n, args.queries)
+    idx, pts, qs, main_launches, single = main_path(
+        torch, cb, HnswConfig, HnswIndex, dev, args.n, args.queries)
     wide_k_phase(torch, cb, idx, qs)
     serving_variants(torch, idx, qs)
     os.makedirs(os.path.join(REPO, ".kernel_build"), exist_ok=True)
@@ -951,7 +1153,12 @@ def main():
         shadows = (idx._pq_codebook, idx._pq_codes, idx._pcodes)
         bf16_launches = bf16_phase(torch, cb, idx, qs)
         pq_after_downcast(idx, qs, shadows)
-        del idx, pts
+        del idx
+        torch.cuda.empty_cache()
+        sharded_launches = sharded_phase(torch, cb, HnswConfig,
+                                         ShardedHnswIndex, dev, pts, qs,
+                                         single, tmp)
+        del pts
         torch.cuda.empty_cache()
         pq_serving_phase(torch, HnswConfig, HnswIndex, dev, args.n,
                          args.queries, tmp)
@@ -965,7 +1172,10 @@ def main():
             "name": name, "route": "cuda",
             "source": "pg_embedding_tpu_torch/csrc/bruteforce_topk.cu",
             "replaces": "pg_embedding_tpu/ops/pallas_bruteforce.py:58",
-            "launches": launches[name], **timings[name]})
+            "launches": launches[name],
+            "sharded_launches": sharded_launches[name], **timings[name]})
+    check(sharded_launches["bruteforce_topk"] > 0,
+          "the sharded path never launched the kernel")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

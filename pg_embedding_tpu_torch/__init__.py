@@ -2,7 +2,8 @@
 pg_embedding_tpu (the ``hnsw`` index of neondatabase/pg_embedding), ported
 to PyTorch with hand-written CUDA kernels for NVIDIA Hopper.
 
-Same surface as the JAX package's single-device HnswIndex and VectorTable:
+Same surface as the JAX package's HnswIndex, ShardedHnswIndex and
+VectorTable:
   SQL operators <-> / <=> / <~>      -> ops.distance.{l2,cosine,manhattan}_distance
   opclasses ann_{l2,cos,manhattan}_ops -> config.Metric + resolve_metric
   reloptions {dims,m,efconstruction,efsearch} -> config.HnswConfig
@@ -18,6 +19,9 @@ Same surface as the JAX package's single-device HnswIndex and VectorTable:
   product quantization               -> ops.pq, packed_dtype="pq",
                                         search(mode="sweep_pq") (ops.pq_sweep)
   the SQL table surface              -> table.VectorTable
+  the sharded index (S sub-graphs, round-robin rows, merged top-k,
+  shared snapshots and WAL)          -> parallel.sharded.ShardedHnswIndex
+                                        (the shards share one device)
 
 Importing builds no kernel: the CUDA sources compile at first CUDA use.
 """
@@ -28,6 +32,7 @@ from .ops.bruteforce import exact_search
 from .ops.cuda_bruteforce import fused_exact_search
 from .api import HnswIndex, TuneResult, TuneTargetMissed
 from .table import VectorTable
+from .parallel.sharded import ShardedHnswIndex
 
 __version__ = "0.1.0"
 
@@ -45,5 +50,6 @@ __all__ = [
     "TuneResult",
     "TuneTargetMissed",
     "VectorTable",
+    "ShardedHnswIndex",
     "__version__",
 ]

@@ -125,7 +125,188 @@ def _atomic_savez(path: str, payload: dict, compressed: bool) -> None:
         os.close(dirfd)
 
 
-class HnswIndex:
+def _tune_pow2(index, queries, k: int, target_recall: float, start: int,
+               stop: int, probe, strict: bool, what: str) -> TuneResult:
+    """The shared loop of the tuners of ``index`` (single or sharded):
+    powers of two p from the one at or above ``start`` while p <=
+    ``stop``, until recall@k of ``probe(p)`` -> (labels [B, *], valid
+    [B, *]) against the index's exact route meets ``target_recall``.
+    Returns TuneResult(p, recall, met) for the last p tried; ``strict``
+    raises TuneTargetMissed on a miss, naming ``what``."""
+    _, ol, ov = index.exact_search(queries, k)
+    p = 1 << (int(start) - 1).bit_length()
+    best, achieved = p, 0.0
+    while p <= stop:
+        labels, valid = probe(p)
+        recs = []
+        for r in range(queries.shape[0]):
+            want = set(ol[r][ov[r]][:k].tolist())
+            got = set(labels[r][valid[r]][:k].tolist())
+            recs.append(len(got & want) / max(len(want), 1))
+        best, achieved = p, float(np.mean(recs))
+        if achieved >= target_recall:
+            break
+        p *= 2
+    met = achieved >= target_recall
+    if strict and not met:
+        raise TuneTargetMissed(
+            f"recall {achieved:.4f} at {best} misses target "
+            f"{target_recall}: {what}")
+    return TuneResult(best, achieved, met)
+
+
+def _graph_violations(graph: GraphState, max_m: int) -> Dict[str, int]:
+    """Counts of broken invariants among a graph's first n_nodes link
+    rows (check_integrity, of the single index and of each shard)."""
+    n = graph.n_nodes
+    links = graph.links[:n].long()
+    cnts = graph.link_counts[:n].long()
+    slot = torch.arange(max_m, device=links.device)
+    in_range = slot < cnts.unsqueeze(1)
+    node = torch.arange(n, device=links.device).unsqueeze(1)
+    # duplicates among a row's first cnt links: out-of-range slots get
+    # distinct sentinels below every id, then equal neighbours after a
+    # sort are duplicates
+    keyed = torch.where(in_range, links, -(1 << 40) - slot)
+    srt = torch.sort(keyed, dim=1).values
+    return {
+        "count_over_maxm": int((cnts > max_m).sum()),
+        "self_links": int(((links == node) & in_range).sum()),
+        "bad_ids": int((((links < 0) | (links >= n)) & in_range).sum()),
+        "dup_links": int((srt[:, 1:] == srt[:, :-1]).sum()),
+        "pad_violations": int(((links != -1) & ~in_range).sum()),
+    }
+
+
+class _IndexBase:
+    """What HnswIndex and parallel.sharded.ShardedHnswIndex share: input
+    checks, the build-candidate and ef rules, the ef knobs and the
+    write-ahead log.  A subclass provides config, add(), delete(), save()
+    and the _wal* attributes."""
+
+    def _check_dims(self, vectors) -> np.ndarray:
+        if isinstance(vectors, torch.Tensor):
+            vectors = vectors.detach().cpu().numpy()
+        # writable, so torch can share it (WAL replay hands in read-only
+        # buffers)
+        vectors = np.require(vectors, np.float32, ["C", "W"])
+        if vectors.ndim == 1:
+            vectors = vectors[None, :]
+        if vectors.shape[1] != self.config.dims:
+            # analog of "Wrong number of dimensions" (embedding.c:179,581)
+            raise ValueError(
+                f"wrong number of dimensions: {vectors.shape[1]} instead of "
+                f"{self.config.dims} expected")
+        return vectors
+
+    def _candidate_mode(self, count_at_start: int):
+        """Resolve (candidates, cand_cap) for a batch starting at the given
+        node count ("auto" switches engines at the build thresholds)."""
+        mode = self.build_candidates
+        if mode == "auto":
+            if count_at_start < self.exact_build_threshold:
+                mode = "exact"
+            elif (self.exact8_build_threshold is None or
+                  count_at_start < self.exact8_build_threshold):
+                mode = "exact8"
+            else:
+                mode = "beam"
+        cap = self.build_cand_cap
+        if cap is None and mode in ("exact", "exact8"):
+            cap = 2 * self.config.ef_construction
+        return mode, cap
+
+    def _bucket_ef(self, ef: int) -> int:
+        """Pad ef to a power-of-two multiple of ef_search, as the JAX
+        package does, so both widen through the same ef values."""
+        b = self.config.ef_search
+        while b < max(ef, 1):
+            b *= 2
+        return b
+
+    def enable_wal(self, path: str,
+                   auto_checkpoint_bytes: Optional[int] = None,
+                   snapshot_path: Optional[str] = None) -> None:
+        """Enable the write-ahead delta log — the GenericXLog analog
+        (embedding.c:651-686): every add()/delete() is appended and fsync'd
+        BEFORE the device mutation, so a crash between save() snapshots
+        loses nothing acknowledged.  load(snapshot, wal=path) replays the
+        records appended after the snapshot (see wal.py).
+
+        ``auto_checkpoint_bytes``: once the log passes this size, the next
+        completed add()/delete() snapshots to ``snapshot_path`` (default
+        ``path + ".ckpt.npz"``), which truncates the log.  Recovery after a
+        crash: ``load(snapshot_path, wal=path)``.  None keeps checkpoints
+        manual."""
+        self._wal = walmod.WalWriter(path, self.config)
+        self._wal_auto_bytes = (int(auto_checkpoint_bytes)
+                                if auto_checkpoint_bytes else None)
+        self._wal_snapshot_path = snapshot_path or (path + ".ckpt.npz")
+
+    def _maybe_auto_checkpoint(self) -> None:
+        """Called AFTER a mutation is applied on the device: every logged
+        record is covered by device state, so the snapshot+truncate pair
+        is loss-free."""
+        if (self._wal is not None and not self._wal_replaying
+                and self._wal_auto_bytes is not None
+                and self._wal.tell() >= self._wal_auto_bytes):
+            self.save(self._wal_snapshot_path)
+
+    @staticmethod
+    def _wal_replay_start(wal_path: str, from_offset: int,
+                          snap_epoch, snap_next) -> Optional[int]:
+        """Pick the replay start by comparing the WAL file's actual epoch
+        with the snapshot's recorded pre-/post-truncation positions (see
+        wal.py module doc).  Returns a byte offset or None (= whole log)."""
+        if not os.path.exists(wal_path):
+            return None
+        file_epoch = int(walmod.read_header(wal_path).get("epoch", 0))
+        if snap_next is not None and file_epoch == snap_next[0]:
+            return snap_next[1]       # truncation completed before the crash
+        if snap_epoch is None or snap_epoch < 0:
+            # legacy snapshot (no epoch recorded): offsets are only valid
+            # against a never-truncated (epoch-0) log
+            if file_epoch != 0:
+                raise ValueError(
+                    f"WAL {wal_path} is at epoch {file_epoch} but the "
+                    f"snapshot predates WAL epochs; the tail this snapshot "
+                    f"needs was truncated by a later save()")
+            return from_offset if from_offset >= 0 else None
+        if file_epoch == snap_epoch:
+            return from_offset        # crash before the truncation (or none)
+        raise ValueError(
+            f"WAL {wal_path} is at epoch {file_epoch} but the snapshot "
+            f"recorded epoch {snap_epoch}: the log was truncated by a "
+            f"LATER snapshot — load that snapshot instead")
+
+    def _replay_wal(self, wal_path: str, from_offset: int,
+                    snap_epoch=None, snap_next=None) -> None:
+        """Apply WAL records past the snapshot position, then reopen the log
+        for appending (the recovered index keeps journaling)."""
+        start = self._wal_replay_start(wal_path, from_offset, snap_epoch,
+                                       snap_next)
+        self._wal_replaying = True
+        try:
+            for op, labels, vectors in walmod.replay(
+                    wal_path, self.config.dims, start):
+                if op == walmod.OP_INSERT:
+                    self.add(vectors, labels)
+                elif op == walmod.OP_DELETE:
+                    self.delete(labels)
+        finally:
+            self._wal_replaying = False
+        self.enable_wal(wal_path)
+
+    def set_ef_search(self, ef_search: int) -> None:
+        """ALTER INDEX ... SET (efsearch=...) — the only legal live
+        mutation besides ef_construction (embedding.c:594-602)."""
+        self.config = self.config.with_ef(ef_search=ef_search)
+
+    def set_ef_construction(self, ef_construction: int) -> None:
+        self.config = self.config.with_ef(ef_construction=ef_construction)
+
+
+class HnswIndex(_IndexBase):
     """Flat-NSW approximate nearest neighbor index on one torch device.
 
     ``device`` defaults to "cuda"; the CPU runs only when asked for.
@@ -270,38 +451,6 @@ class HnswIndex:
     # insert paths
     # ------------------------------------------------------------------ #
 
-    def _check_dims(self, vectors) -> np.ndarray:
-        if isinstance(vectors, torch.Tensor):
-            vectors = vectors.detach().cpu().numpy()
-        # writable, so torch can share it (WAL replay hands in read-only
-        # buffers)
-        vectors = np.require(vectors, np.float32, ["C", "W"])
-        if vectors.ndim == 1:
-            vectors = vectors[None, :]
-        if vectors.shape[1] != self.config.dims:
-            # analog of "Wrong number of dimensions" (embedding.c:179,581)
-            raise ValueError(
-                f"wrong number of dimensions: {vectors.shape[1]} instead of "
-                f"{self.config.dims} expected")
-        return vectors
-
-    def _candidate_mode(self, count_at_start: int):
-        """Resolve (candidates, cand_cap) for a batch starting at the given
-        node count ("auto" switches engines at the build thresholds)."""
-        mode = self.build_candidates
-        if mode == "auto":
-            if count_at_start < self.exact_build_threshold:
-                mode = "exact"
-            elif (self.exact8_build_threshold is None or
-                  count_at_start < self.exact8_build_threshold):
-                mode = "exact8"
-            else:
-                mode = "beam"
-        cap = self.build_cand_cap
-        if cap is None and mode in ("exact", "exact8"):
-            cap = 2 * self.config.ef_construction
-        return mode, cap
-
     def _ensure_capacity(self, n_new: int) -> None:
         # one batch of slack, as in the JAX package (whose staging would
         # clamp into live rows without it), so capacities agree
@@ -398,14 +547,6 @@ class HnswIndex:
     # ------------------------------------------------------------------ #
     # search paths
     # ------------------------------------------------------------------ #
-
-    def _bucket_ef(self, ef: int) -> int:
-        """Pad ef to a power-of-two multiple of ef_search, as the JAX
-        package does, so both widen through the same ef values."""
-        b = self.config.ef_search
-        while b < max(ef, 1):
-            b *= 2
-        return b
 
     def _queries(self, queries) -> torch.Tensor:
         return torch.as_tensor(self._check_dims(queries), device=self.device)
@@ -739,41 +880,12 @@ class HnswIndex:
             alive = self._alive(self._graph.deleted, it).cpu().numpy()
             return self._labels[np.maximum(i, 0)], alive
 
-        res = self._tune_pow2(queries, k, target_recall,
-                              max(self.config.ef_search, k),
-                              min(max_ef, max(self.n_nodes, 1)), probe,
-                              strict, f"ef (max_ef={max_ef})")
+        res = _tune_pow2(self, queries, k, target_recall,
+                         max(self.config.ef_search, k),
+                         min(max_ef, max(self.n_nodes, 1)), probe,
+                         strict, f"ef (max_ef={max_ef})")
         self.set_ef_search(res.ef)
         return res
-
-    def _tune_pow2(self, queries, k: int, target_recall: float, start: int,
-                   stop: int, probe, strict: bool, what: str) -> TuneResult:
-        """The shared loop of the tuners: powers of two p from the one at
-        or above ``start`` while p <= ``stop``, until recall@k of
-        ``probe(p)`` -> (labels [B, *], valid [B, *]) against the exact
-        route meets ``target_recall``.  Returns TuneResult(p, recall, met)
-        for the last p tried; ``strict`` raises TuneTargetMissed on a
-        miss, naming ``what``."""
-        _, ol, ov = self.exact_search(queries, k)
-        p = 1 << (int(start) - 1).bit_length()
-        best, achieved = p, 0.0
-        while p <= stop:
-            labels, valid = probe(p)
-            recs = []
-            for r in range(queries.shape[0]):
-                want = set(ol[r][ov[r]][:k].tolist())
-                got = set(labels[r][valid[r]][:k].tolist())
-                recs.append(len(got & want) / max(len(want), 1))
-            best, achieved = p, float(np.mean(recs))
-            if achieved >= target_recall:
-                break
-            p *= 2
-        met = achieved >= target_recall
-        if strict and not met:
-            raise TuneTargetMissed(
-                f"recall {achieved:.4f} at {best} misses target "
-                f"{target_recall}: {what}")
-        return TuneResult(best, achieved, met)
 
     def tune_sweep_pool(self, queries, target_recall: float = 0.95,
                         k: int = 10, max_pool: int = 1024,
@@ -788,9 +900,9 @@ class HnswIndex:
         def probe(pool):
             return self.pq_sweep_search(queries, k, pool=pool)[1:]
 
-        res = self._tune_pow2(queries, k, target_recall, max(2 * k, 16),
-                              max_pool, probe, strict,
-                              f"pool (max_pool={max_pool})")
+        res = _tune_pow2(self, queries, k, target_recall, max(2 * k, 16),
+                         max_pool, probe, strict,
+                         f"pool (max_pool={max_pool})")
         self.pq_sweep_pool = res.ef
         return res
 
@@ -822,8 +934,10 @@ class HnswIndex:
         """Rebuild the index over live (non-tombstoned) vectors only,
         reclaiming dead space — a capability the reference lacks entirely
         (space is never reclaimed, embedding.c:867-878).  Returns a NEW
-        index on the same device with every knob carried over; self is
-        untouched."""
+        index on the same device, made from this one's constructor
+        arguments; attributes set after construction (the build and
+        routing thresholds, max_widen_ef, visited_mode, pq_sweep_pool) start
+        at their defaults, as in the JAX package.  self is untouched."""
         n = self.n_nodes
         alive = ~self._graph.deleted[:n].cpu().numpy()
         vecs = self._to_host(self._graph.vectors, n)[alive]
@@ -838,11 +952,6 @@ class HnswIndex:
                           packed_traversal=self.packed_traversal,
                           packed_dtype=self.packed_dtype,
                           pq_groups=self.pq_groups, pq_opq=self.pq_opq)
-        for knob in ("exact_build_threshold", "exact8_build_threshold",
-                     "build_cand_cap", "exact_threshold",
-                     "exact_threshold_packed", "filter_exact_selectivity",
-                     "max_widen_ef", "visited_mode", "pq_sweep_pool"):
-            setattr(fresh, knob, getattr(self, knob))
         if len(vecs):
             fresh.build(vecs, labels)
         return fresh
@@ -854,24 +963,7 @@ class HnswIndex:
         bounds (hnswalg.cpp:170-177, 183-184, 190-191) plus id-range,
         duplicate-link and -1-padding discipline.  Returns violation
         counts."""
-        n = self.n_nodes
-        links = self._graph.links[:n].long()
-        cnts = self._graph.link_counts[:n].long()
-        slot = torch.arange(self.config.max_m, device=links.device)
-        in_range = slot < cnts.unsqueeze(1)
-        node = torch.arange(n, device=links.device).unsqueeze(1)
-        # duplicates among a row's first cnt links: out-of-range slots get
-        # distinct sentinels below every id, then equal neighbours after a
-        # sort are duplicates
-        keyed = torch.where(in_range, links, -(1 << 40) - slot)
-        srt = torch.sort(keyed, dim=1).values
-        viol = {
-            "count_over_maxm": int((cnts > self.config.max_m).sum()),
-            "self_links": int(((links == node) & in_range).sum()),
-            "bad_ids": int((((links < 0) | (links >= n)) & in_range).sum()),
-            "dup_links": int((srt[:, 1:] == srt[:, :-1]).sum()),
-            "pad_violations": int(((links != -1) & ~in_range).sum()),
-        }
+        viol = _graph_violations(self._graph, self.config.max_m)
         if raise_on_error and any(viol.values()):
             raise AssertionError(f"graph integrity violations: {viol}")
         return viol
@@ -888,34 +980,6 @@ class HnswIndex:
     # ------------------------------------------------------------------ #
     # durability (save/load, WAL)
     # ------------------------------------------------------------------ #
-
-    def enable_wal(self, path: str,
-                   auto_checkpoint_bytes: Optional[int] = None,
-                   snapshot_path: Optional[str] = None) -> None:
-        """Enable the write-ahead delta log — the GenericXLog analog
-        (embedding.c:651-686): every add()/delete() is appended and fsync'd
-        BEFORE the device mutation, so a crash between save() snapshots
-        loses nothing acknowledged.  load(snapshot, wal=path) replays the
-        records appended after the snapshot (see wal.py).
-
-        ``auto_checkpoint_bytes``: once the log passes this size, the next
-        completed add()/delete() snapshots to ``snapshot_path`` (default
-        ``path + ".ckpt.npz"``), which truncates the log.  Recovery after a
-        crash: ``load(snapshot_path, wal=path)``.  None keeps checkpoints
-        manual."""
-        self._wal = walmod.WalWriter(path, self.config)
-        self._wal_auto_bytes = (int(auto_checkpoint_bytes)
-                                if auto_checkpoint_bytes else None)
-        self._wal_snapshot_path = snapshot_path or (path + ".ckpt.npz")
-
-    def _maybe_auto_checkpoint(self) -> None:
-        """Called AFTER a mutation is applied on the device: every logged
-        record is covered by device state, so the snapshot+truncate pair
-        is loss-free."""
-        if (self._wal is not None and not self._wal_replaying
-                and self._wal_auto_bytes is not None
-                and self._wal.tell() >= self._wal_auto_bytes):
-            self.save(self._wal_snapshot_path)
 
     @staticmethod
     def _to_host(t: torch.Tensor, n: int, rows: int = 1 << 20) -> np.ndarray:
@@ -1057,86 +1121,63 @@ class HnswIndex:
             idx._replay_wal(wal, wal_offset, wal_epoch, wal_next)
         return idx
 
-    @staticmethod
-    def _wal_replay_start(wal_path: str, from_offset: int,
-                          snap_epoch, snap_next) -> Optional[int]:
-        """Pick the replay start by comparing the WAL file's actual epoch
-        with the snapshot's recorded pre-/post-truncation positions (see
-        wal.py module doc).  Returns a byte offset or None (= whole log)."""
-        if not os.path.exists(wal_path):
-            return None
-        file_epoch = int(walmod.read_header(wal_path).get("epoch", 0))
-        if snap_next is not None and file_epoch == snap_next[0]:
-            return snap_next[1]       # truncation completed before the crash
-        if snap_epoch is None or snap_epoch < 0:
-            # legacy snapshot (no epoch recorded): offsets are only valid
-            # against a never-truncated (epoch-0) log
-            if file_epoch != 0:
-                raise ValueError(
-                    f"WAL {wal_path} is at epoch {file_epoch} but the "
-                    f"snapshot predates WAL epochs; the tail this snapshot "
-                    f"needs was truncated by a later save()")
-            return from_offset if from_offset >= 0 else None
-        if file_epoch == snap_epoch:
-            return from_offset        # crash before the truncation (or none)
-        raise ValueError(
-            f"WAL {wal_path} is at epoch {file_epoch} but the snapshot "
-            f"recorded epoch {snap_epoch}: the log was truncated by a "
-            f"LATER snapshot — load that snapshot instead")
 
-    def _replay_wal(self, wal_path: str, from_offset: int,
-                    snap_epoch=None, snap_next=None) -> None:
-        """Apply WAL records past the snapshot position, then reopen the log
-        for appending (the recovered index keeps journaling)."""
-        start = self._wal_replay_start(wal_path, from_offset, snap_epoch,
-                                       snap_next)
-        self._wal_replaying = True
-        try:
-            for op, labels, vectors in walmod.replay(
-                    wal_path, self.config.dims, start):
-                if op == walmod.OP_INSERT:
-                    self.add(vectors, labels)
-                elif op == walmod.OP_DELETE:
-                    self.delete(labels)
-        finally:
-            self._wal_replaying = False
-        self.enable_wal(wal_path)
+class _ScanBase:
+    """The cursor state and paging shared by HnswScan and
+    parallel.sharded.ShardedScan: the undelivered-row cache, the set of
+    node handles already returned (the sorted-TID dedup array analog), the
+    current ef, and the ``no_more_results`` flag (embedding.c:322,
+    338-343).  A subclass provides _fetch_locked(), one search at the
+    current (or doubled) ef that appends the new live rows."""
 
-    # ------------------------------------------------------------------ #
-    # knobs
-    # ------------------------------------------------------------------ #
+    def __init__(self, index, ef: int) -> None:
+        self._idx = index
+        self._ef = ef
+        self._buf_d: list = []                          # undelivered rows
+        self._buf_l: list = []
+        self._seen: set = set()                         # returned handles
+        self._no_more = False
+        self._first = True
 
-    def set_ef_search(self, ef_search: int) -> None:
-        """ALTER INDEX ... SET (efsearch=...) — the only legal live
-        mutation besides ef_construction (embedding.c:594-602)."""
-        self.config = self.config.with_ef(ef_search=ef_search)
+    @property
+    def exhausted(self) -> bool:
+        """True once the graph can produce no further rows (the cache may
+        still hold undelivered ones)."""
+        return self._no_more and not self._buf_d
 
-    def set_ef_construction(self, ef_construction: int) -> None:
-        self.config = self.config.with_ef(ef_construction=ef_construction)
+    def _fetch(self) -> None:
+        """Run (or widen + re-run) the search, appending only new live rows
+        to the cache — one iteration of the embedding.c:297-366 machine."""
+        with self._idx._rwlock.read():
+            self._fetch_locked()
+
+    def next(self, n: int = 1) -> Tuple[np.ndarray, np.ndarray]:
+        """Return up to ``n`` further (dists f32[m], labels u64[m]) rows,
+        m <= n; m < n means the scan is exhausted.  Each row is returned
+        exactly once across the scan's lifetime."""
+        if n < 1:
+            raise ValueError("next() needs n >= 1")
+        while len(self._buf_d) < n and not self._no_more:
+            self._fetch()
+        m = min(n, len(self._buf_d))
+        out_d = np.asarray(self._buf_d[:m], np.float32)
+        out_l = np.asarray(self._buf_l[:m], np.uint64)
+        del self._buf_d[:m], self._buf_l[:m]
+        return out_d, out_l
 
 
-class HnswScan:
+class HnswScan(_ScanBase):
     """Pull-model scan cursor over one query — HnswScanOpaqueData + the
-    hnsw_gettuple state machine (embedding.c:100-107, 284-366).
-
-    State: the current result cache, the set of node ids already returned
-    (the sorted-TID dedup array analog), the current ef, and the
-    ``no_more_results`` flag (embedding.c:322, 338-343).  Created via
-    HnswIndex.open_scan()."""
+    hnsw_gettuple state machine (embedding.c:100-107, 284-366).  Created
+    via HnswIndex.open_scan()."""
 
     def __init__(self, index: HnswIndex, query: np.ndarray, ef: int,
                  where) -> None:
-        self._idx = index
+        super().__init__(index, ef)
         self._q = torch.as_tensor(query, device=index.device)   # [1, D]
-        self._ef = ef
         # the where-filter is snapshotted at open (rescan to refresh);
         # tombstones are re-read per fetch so concurrent deletes are seen
         self._excluded, _ = index._filter_to_excluded(where)
-        self._buf_d: list = []                          # undelivered rows
-        self._buf_l: list = []
-        self._seen: set = set()                         # returned node ids
-        self._no_more = False
-        self._first = True
 
     def _dead_mask(self) -> torch.Tensor:
         """Current tombstone|filter mask, padded to the CURRENT capacity:
@@ -1151,18 +1192,6 @@ class HnswScan:
             exc = torch.cat([exc, exc.new_ones(dead.shape[0] - exc.shape[0])])
             self._excluded = exc
         return dead | exc
-
-    @property
-    def exhausted(self) -> bool:
-        """True once the graph can produce no further rows (the cache may
-        still hold undelivered ones)."""
-        return self._no_more and not self._buf_d
-
-    def _fetch(self) -> None:
-        """Run (or widen + re-run) the search, appending only new live rows
-        to the cache — one iteration of the embedding.c:297-366 machine."""
-        with self._idx._rwlock.read():
-            self._fetch_locked()
 
     def _fetch_locked(self) -> None:
         idx = self._idx
@@ -1190,17 +1219,3 @@ class HnswScan:
         if int((i >= 0).sum()) < self._ef:
             self._no_more = True
         self._first = False
-
-    def next(self, n: int = 1) -> Tuple[np.ndarray, np.ndarray]:
-        """Return up to ``n`` further (dists f32[m], labels u64[m]) rows,
-        m <= n; m < n means the scan is exhausted.  Each row is returned
-        exactly once across the scan's lifetime."""
-        if n < 1:
-            raise ValueError("next() needs n >= 1")
-        while len(self._buf_d) < n and not self._no_more:
-            self._fetch()
-        m = min(n, len(self._buf_d))
-        out_d = np.asarray(self._buf_d[:m], np.float32)
-        out_l = np.asarray(self._buf_l[:m], np.uint64)
-        del self._buf_d[:m], self._buf_l[:m]
-        return out_d, out_l

@@ -244,3 +244,54 @@ def test_pq_encode_and_sweep_on_card(cuda):
     torch.cuda.synchronize()
     assert (got[1].cpu() == want[1]).float().mean() >= 0.99
     _check(got, want)
+
+
+def _sharded_pair(cuda, **kw):
+    from pg_embedding_tpu_torch import ShardedHnswIndex
+    rng = np.random.default_rng(23)
+    centers = rng.normal(scale=3.0, size=(40, 64)).astype(np.float32)
+    pts = (centers[rng.integers(0, 40, 6001)] +
+           rng.normal(size=(6001, 64))).astype(np.float32)
+    qs = (centers[rng.integers(0, 40, 48)] +
+          rng.normal(size=(48, 64))).astype(np.float32)
+    cfg = HnswConfig(dims=64, m=8, ef_construction=32, ef_search=32)
+    pair = [ShardedHnswIndex(cfg, 4, device=dev, **kw)
+            for dev in (cuda, "cpu")]
+    for idx in pair:
+        idx.build(pts)
+    return pair, pts, qs
+
+
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+def test_sharded_exact_route_launches_once_per_shard(cuda, storage):
+    """The sharded exact route on the card: one kernel launch per shard and
+    call, the CPU index's answer (same rows, ragged shards, tombstones and
+    a label filter)."""
+    (gpu, cpu), pts, qs = _sharded_pair(cuda, storage_dtype=storage)
+    name = cb._KERNELS[gpu._vectors.dtype]
+    dead = np.arange(0, 6001, 11)
+    allowed = np.arange(0, 6001, 2)
+    for idx in (gpu, cpu):
+        idx.delete(dead)
+    for where in (None, allowed):
+        before = cb.LAUNCHES[name]
+        got = gpu.search(qs, 10, where=where)           # auto -> exact
+        assert cb.LAUNCHES[name] == before + 4
+        want = cpu.search(qs, 10, where=where)
+        np.testing.assert_allclose(got[0], want[0], rtol=1e-5, atol=1e-6)
+        assert (got[1] == want[1]).mean() >= 0.99
+        assert not np.isin(got[1], dead).any() and got[2].all()
+
+
+def test_sharded_build_and_walk_match_cpu(cuda):
+    """A sharded build on the card against the same build on the CPU: link
+    rows equal on >= 95% of each shard's rows, graph answers on >= 95% of
+    the slots (float32 sums in another order move near-ties)."""
+    (gpu, cpu), pts, qs = _sharded_pair(cuda)
+    assert gpu.shard_counts.tolist() == cpu.shard_counts.tolist()
+    for i, n in enumerate(cpu.shard_counts):
+        same = (gpu._links[i, :n].cpu() == cpu._links[i, :n]).all(dim=1)
+        assert float(same.float().mean()) >= 0.95
+    got, want = (idx.search(qs, 10, mode="graph") for idx in (gpu, cpu))
+    assert (got[1] == want[1]).mean() >= 0.95
+    gpu.check_integrity()

@@ -262,13 +262,25 @@ def test_compact_matches_jax(jidx, data):
     knobs = dict(packed_traversal=True, packed_dtype="bfloat16",
                  search_expand_width=2)
     ti = _port(jidx, **knobs)
-    ti.visited_mode = "bitmap"
-    with _knobs(jidx, **knobs):
+    # attributes set after construction: compact() hands on the
+    # constructor's arguments only, so in both packages the new index has
+    # them at their defaults
+    tuned = dict(pq_sweep_pool=64, exact_threshold=10, max_widen_ef=128,
+                 visited_mode="bitmap")
+    with _knobs(jidx, **knobs, **tuned):
         jc = jidx.compact()
+    for key, val in tuned.items():
+        setattr(ti, key, val)
     tc = ti.compact()
     for key, val in knobs.items():
-        assert getattr(tc, key) == val
-    assert tc.visited_mode == "bitmap" and tc.device == ti.device
+        assert getattr(tc, key) == getattr(jc, key) == val
+    for key in ("exact_build_threshold", "exact8_build_threshold",
+                "build_cand_cap", "exact_threshold",
+                "exact_threshold_packed", "filter_exact_selectivity",
+                "max_widen_ef", "visited_mode", "pq_sweep_pool"):
+        assert getattr(tc, key) == getattr(jc, key), key
+    assert tc.visited_mode == "dense" and tc.pq_sweep_pool is None
+    assert tc.device == ti.device
     n = N - len(DEAD)
     assert tc.n_nodes == jc.n_nodes == n
     np.testing.assert_array_equal(tc.labels, jc.labels)
