@@ -31,12 +31,31 @@ exits non-zero):
      graph QPS, recall@10 of the graph route (>= 0.90 at T=8; T=4's is
      printed), deletes never surfacing; before it, a small build that must
      match the same build on the CPU;
+ 4b. right after the main path, on its index: the walk and prune kernels
+     (ops/cuda_graph) against their plain twins.  beam_walk at ef=64, T=4
+     and T=8 on the 1,024 queries against core/search._search_batch called
+     directly on the card: recall@10 (vs the exact route over the same
+     rows) within 0.002 of the twin's, ids equal on >= 98% of queries (the
+     queries that differ are printed: float32 sums in another order flip
+     near-ties mid-walk), mean hops and dist_evals within 1%; on an
+     integer-coordinate index (3,000 x 32, integers in [-8, 8], every L2
+     and Manhattan distance exact in float32) bit-equal at T in {1, 4, 8}
+     and (ef, cand_cap) in {(16, 16), (64, 64), (64, 128), (128, 64)};
+     prune_scan bit-equal to core/build._prune_scan_plain on the candidate
+     sets of one real 256-row insert batch (an add() to the index, whose
+     first prune is captured).  Times (CUDA events, median of 5) of each
+     kernel and its twin beside the kernel's bound (the bytes it must
+     read, from the kernel's own hop and evaluation counts, and the pairs
+     the scan tests) and the share of it reached; torch.profiler (CPU and
+     CUDA activity) over one search(mode="graph") at T=4 and T=8 and over
+     that insert: wall time, device-busy share and device operations;
   5. on the same index: tune_exact8_chunk (its cache in a temp dir, not
      saved): the exact8 sweep's ms per 256-row insert batch at chunks of
      262,144 / 524,288 / 1,048,576 / 2,097,152 rows, and the chunk chosen;
      the serving variants at T=8 (quantized, packed
      int8 / bf16 / float32 records; QPS and recall@10; float32 records give
-     the plain walk's ids and order), the bitmap visited set against dense;
+     the plain walk's ids and order), the bitmap visited set against the
+     plain dense walk (_search_batch; both are torch ops);
      save -> load onto the card (same answers, clean integrity, vacuum);
      WAL crash recovery (snapshot, 10,000 adds + 1,000 deletes, no save,
      load with the log: the live index's state); a scan cursor against
@@ -101,7 +120,9 @@ Phases are timed with utils/profiling's Timer (synchronising the card).
 The last three lines are the card's nvidia-smi line, a JSON line of the
 kernels ("launches" from the main path of phase 4, "sharded_launches" from
 phase 9, "multiprocess_launches" summed over phase 11's ranks, each
-counted from zero), and {"ok": true, "device": {...}}.
+counted from zero; the main path, phase 9 and phase 11 must each launch
+beam_walk and prune_scan, and the main path's graph calls must run no
+plain walk on the card), and {"ok": true, "device": {...}}.
 
 Needs a CUDA device and nvcc; without a device it exits non-zero before
 printing any result.
@@ -146,7 +167,11 @@ SHARD_UNITS = 32
 MP_WORLD = 2
 MP_BUILD_ROWS = 200_000
 MP_TIMEOUT = 420
-LAUNCH_NAMES = ("bruteforce_topk", "bruteforce_topk_bf16")
+LAUNCH_NAMES = ("bruteforce_topk", "bruteforce_topk_bf16", "beam_walk",
+                "prune_scan")
+# phase 4b: the walk kernel's beam and widths at 1M
+WALK_EF = 64
+WALK_TS = (4, 8)
 # NVIDIA's H100 SXM data sheet, dense: TF32 tensor cores, HBM3
 PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
@@ -415,9 +440,18 @@ def small_build_matches_cpu(torch, HnswConfig, HnswIndex, dev):
           "cuda and cpu builds disagree")
 
 
-def reset_launches(cb):
-    for name in cb.LAUNCHES:
-        cb.LAUNCHES[name] = 0
+def reset_launches():
+    """Set every kernel's launch count to 0."""
+    from pg_embedding_tpu_torch.ops import cuda_bruteforce, cuda_graph
+    for counts in (cuda_bruteforce.LAUNCHES, cuda_graph.LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def launch_counts():
+    """Every kernel's launch count, by name."""
+    from pg_embedding_tpu_torch.ops import cuda_bruteforce, cuda_graph
+    return {**cuda_bruteforce.LAUNCHES, **cuda_graph.LAUNCHES}
 
 
 def recall(got_l, got_v, want_l, k=K):
@@ -434,7 +468,9 @@ def main_path(torch, cb, HnswConfig, HnswIndex, dev, n, n_queries):
     log(f"data: {n} x {DIMS} SIFT-like clustered, {n_queries} queries "
         f"(seed {SEED}) in {timer.seconds['data']:.1f} s")
 
-    reset_launches(cb)
+    from pg_embedding_tpu_torch.core import search as core_search
+    reset_launches()
+    core_search.PLAIN_WALKS_ON_CARD = 0
     # The graph route expands T=8 candidates per step, the setting of the
     # JAX package's own 1M graph measurement (BASELINE.md, "Measured at
     # 1M"): on this data the default T=4 reaches recall@10 0.895 at 1M, a
@@ -501,9 +537,211 @@ def main_path(torch, cb, HnswConfig, HnswIndex, dev, n, n_queries):
         check(bool(dv.all()), f"{mode}: fewer than k live results")
     log(f"delete: {len(dead)} labels tombstoned; none returned by the exact "
         f"or graph route")
-    launches = dict(cb.LAUNCHES)
-    log(f"main path kernel launches: {launches}")
+    launches = launch_counts()
+    plain_walks = core_search.PLAIN_WALKS_ON_CARD
+    log(f"main path kernel launches: {launches}; plain walks on the card: "
+        f"{plain_walks}")
+    check(plain_walks == 0, f"the main path ran {plain_walks} plain walks")
     return idx, pts, qs, launches, single
+
+
+def median_ms(torch, fn, reps=5):
+    """Median over ``reps`` calls of ``fn``'s time on the card (CUDA events
+    around each call, after one warm call)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+    return float(np.median(times))
+
+
+def profile_call(torch, fn, logdir):
+    """torch.profiler (CPU and CUDA activity) over one call of ``fn``:
+    (wall ms under the profiler, device-busy ms, device operations: the
+    kernels, copies and memsets the card ran, and the five host operations
+    of most self CPU time); busy is None when the trace holds no device
+    time."""
+    from pg_embedding_tpu_torch.utils.profiling import trace
+    torch.cuda.synchronize()
+    with trace(logdir) as prof:
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) * 1e3
+    ops = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in ops) / 1e3
+    host = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total,
+                  reverse=True)[:5]
+    top = ", ".join(f"{e.key} {e.self_cpu_time_total / 1e3:.2f} ms "
+                    f"({e.count}x)" for e in host)
+    return wall, (busy if ops else None), len(ops), top
+
+
+def log_profile(what, wall, busy, n_ops, top):
+    share = "not measured" if busy is None else (
+        f"{busy:.3f} ms ({busy / wall:.1%})")
+    log(f"profile of {what}: wall {wall:.3f} ms under the profiler, device "
+        f"busy {share}, {n_ops} device operations; most host self time: "
+        f"{top}")
+
+
+def walk_bound_ms(hops, evals, b, dims, t, max_m):
+    """The least time of a walk on the card: the bytes it must read (each
+    processed neighbour's row, each step's T link rows and counts, the
+    queries) at the HBM rate; hops and evals from the kernel's counters."""
+    nbytes = (int(evals.sum()) * dims * 4
+              + int(hops.sum()) * t * (max_m + 1) * 4 + b * dims * 4)
+    return nbytes / PEAK_BYTES * 1e3
+
+
+def integer_walks(torch, cg, core_search, dev):
+    """beam_walk against the plain twin on the card, bit for bit, on
+    integer-coordinate indexes (3,000 x 32, integers in [-8, 8], built on
+    the card): L2 and Manhattan, T in {1, 4, 8}, four (ef, cand_cap)."""
+    from pg_embedding_tpu_torch import HnswConfig, HnswIndex
+    rng = np.random.default_rng(8)
+    pts = rng.integers(-8, 9, size=(3000, 32)).astype(np.float32)
+    q = torch.as_tensor(rng.integers(-8, 9, size=(256, 32)).astype(
+        np.float32), device=dev)
+    cases = 0
+    for name, metric in (("l2", L2), ("manhattan", 2)):
+        idx = HnswIndex(HnswConfig(dims=32, m=8, ef_construction=32,
+                                   ef_search=32, metric=name), device=dev)
+        idx.build(pts)
+        for t in (1, 4, 8):
+            for ef, cap in ((16, 16), (64, 64), (64, 128), (128, 64)):
+                kw = dict(ef=ef, metric_value=metric, cand_cap=cap,
+                          expand_width=t)
+                got = cg.beam_walk(idx.graph, q, **kw)
+                want = core_search._search_batch(idx.graph, q, **kw)
+                check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                      f"integer walk {name} T={t} ef={ef} cap={cap}: the "
+                      f"kernel differs from the plain twin")
+                cases += 1
+    log(f"beam_walk vs plain on the integer index: bit-equal in all {cases} "
+        f"cases (L2, Manhattan; T 1 / 4 / 8; four (ef, cand_cap))")
+
+
+def walk_kernels_phase(torch, idx, qs, dev, tmp):
+    """Phase 4b: the walk and prune kernels against their plain twins on
+    the main index, timed beside their bounds, and the graph route and one
+    insert batch profiled.  Returns {kernel name: the JSON line's
+    numbers}."""
+    from pg_embedding_tpu_torch.core import build as core_build
+    from pg_embedding_tpu_torch.core import search as core_search
+    from pg_embedding_tpu_torch.ops import cuda_graph as cg
+    from pg_embedding_tpu_torch.ops.cuda_bruteforce import fused_exact_search
+    g, n = idx.graph, idx.n_nodes
+    q = torch.as_tensor(qs, device=dev)
+    b, max_m = len(qs), g.max_m
+    # the walk ignores tombstones (they stay waypoints): its truth is the
+    # exact route over every stored row
+    _, truth = fused_exact_search(q, g.vectors, K, n_valid=n)
+    truth = truth.cpu().numpy()
+    out = {}
+    for t in WALK_TS:
+        kw = dict(ef=WALK_EF, metric_value=L2, cand_cap=WALK_EF,
+                  expand_width=t)
+        kd, ki, kh, ke = cg.beam_walk(g, q, **kw)
+        pd, pi, ph, pe = core_search._search_batch(g, q, **kw)
+        ki_np, pi_np = ki.cpu().numpy(), pi.cpu().numpy()
+        rec_k = recall(ki_np, ki_np >= 0, truth)
+        rec_p = recall(pi_np, pi_np >= 0, truth)
+        same = (ki == pi).all(dim=1)
+        n_diff = int((~same).sum())
+        err = float((kd[same] - pd[same]).abs().max()) if same.any() else 0.0
+        hk, hp = float(kh.float().mean()), float(ph.float().mean())
+        ek, ep = float(ke.float().mean()), float(pe.float().mean())
+        ms = median_ms(torch, lambda: cg.beam_walk(g, q, **kw))
+        plain_ms = median_ms(torch, lambda: core_search._search_batch(
+            g, q, **kw))
+        bound = walk_bound_ms(kh, ke, b, g.dims, t, max_m)
+        log(f"beam_walk vs plain at {n} rows, {b} queries, ef={WALK_EF}, "
+            f"T={t}: "
+            f"recall@10 {rec_k:.4f} / {rec_p:.4f} vs the exact route; ids "
+            f"differ on {n_diff} of {b} queries; mean hops {hk:.2f} / "
+            f"{hp:.2f} (max {int(kh.max())}), dist_evals {ek:.1f} / "
+            f"{ep:.1f}; max_abs_err {err:.3g} where ids agree; kernel "
+            f"{ms:.3f} ms, plain {plain_ms:.3f} ms (median of 5, CUDA "
+            f"events), bound {bound:.4f} ms (bytes; {bound / ms:.1%} of it "
+            f"reached)")
+        check(abs(rec_k - rec_p) <= 0.002,
+              f"T={t}: walk recall {rec_k} vs the twin's {rec_p}")
+        check(n_diff <= 0.02 * b, f"T={t}: ids differ on {n_diff} queries")
+        check(abs(hk - hp) <= 0.01 * hp and abs(ek - ep) <= 0.01 * ep,
+              f"T={t}: hops {hk} / {hp}, evals {ek} / {ep}")
+        if t == GRAPH_T:
+            out["beam_walk"] = dict(max_abs_err=err, ms=ms,
+                                    plain_ms=plain_ms, bound_ms=bound,
+                                    bound_by="bytes", library_ms=None)
+    integer_walks(torch, cg, core_search, dev)
+
+    profiles = os.path.join(tmp, "profiles")
+    for t in WALK_TS:
+        idx.search_expand_width = t
+        log_profile(f"search(mode='graph'), {b} queries, T={t} ef="
+                    f"{idx.config.ef_search}",
+                    *profile_call(torch, lambda: idx.search(qs, K,
+                                                            mode="graph"),
+                                  os.path.join(profiles, f"walk_t{t}")))
+    idx.search_expand_width = GRAPH_T
+
+    # one real 256-row insert batch at 1M: its first prune's inputs
+    captured = []
+    real = core_build.prune_scan
+
+    def spy(*args):
+        if not captured:
+            captured.append(tuple(a.clone() if hasattr(a, "clone") else a
+                                  for a in args))
+        return real(*args)
+    rows = (qs[:idx.max_insert_batch] + np.random.default_rng(SEED + 7)
+            .normal(scale=0.1, size=(idx.max_insert_batch, DIMS))
+            ).astype(np.float32)
+    core_build.prune_scan = spy
+    try:
+        log_profile(f"add() of one {len(rows)}-row insert batch at {n} "
+                    f"rows", *profile_call(torch, lambda: idx.add(rows),
+                                           os.path.join(profiles,
+                                                        "insert")))
+    finally:
+        core_build.prune_scan = real
+    shutil.rmtree(profiles)
+    d_s, valid_s, order, pair, do_prune, nn = captured[0]
+    bsz, c = d_s.shape
+    got = cg.prune_scan(d_s, valid_s, order, pair, do_prune, nn)
+    want = core_build._prune_scan_plain(d_s, valid_s, order, pair, do_prune,
+                                        nn)
+    check(all(torch.equal(x, y) for x, y in zip(got, want)),
+          "prune_scan differs from the plain twin")
+    ms = median_ms(torch, lambda: cg.prune_scan(d_s, valid_s, order, pair,
+                                                do_prune, nn))
+    plain_ms = median_ms(torch, lambda: core_build._prune_scan_plain(
+        d_s, valid_s, order, pair, do_prune, nn))
+    kept = got[0].int()
+    before = torch.cumsum(kept, dim=1) - kept          # kept before each j
+    tested = valid_s & (before < nn) & do_prune.unsqueeze(1)
+    pairs = int((before * tested).sum())
+    nbytes = pairs * 4 + bsz * c * (4 + 1 + 8 + 1) + bsz * (1 + 4)
+    bound = nbytes / PEAK_BYTES * 1e3
+    log(f"prune_scan vs plain on one insert batch's candidate sets at {n} "
+        f"rows "
+        f"(B={bsz}, C={c}, nn={nn}, {int(do_prune.sum())} sets pruned, "
+        f"{pairs} pairs tested): bit-equal; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms (median of 5, CUDA events), bound {bound:.5f} ms "
+        f"(bytes; {bound / ms:.1%} of it reached)")
+    out["prune_scan"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound, bound_by="bytes",
+                             library_ms=None)
+    return out
 
 
 def serving_variants(torch, idx, qs):
@@ -550,13 +788,21 @@ def serving_variants(torch, idx, qs):
         idx.quantized_traversal = idx.packed_traversal = False
     log("packed float32 walk: ids and order equal the plain walk's on all "
         f"{len(qs)} queries")
+    # the bitmap walk runs torch ops: it is held to the plain dense walk
+    from pg_embedding_tpu_torch.core.search import _search_batch
     sub = qs[:64]
-    _, dense = idx.search_ids(sub)
+    ef = idx.config.ef_search
+    _, dense, _, _ = _search_batch(
+        idx.graph, torch.as_tensor(sub, device=idx.device), ef=ef,
+        metric_value=idx.config.metric.value, cand_cap=ef,
+        expand_width=idx.search_expand_width)
     idx.visited_mode = "bitmap"
     _, bitmap = idx.search_ids(sub)
     idx.visited_mode = "dense"
-    check(np.array_equal(bitmap, dense), "bitmap visited set != dense")
-    log("visited_mode='bitmap' gives dense's ids on 64 queries")
+    check(np.array_equal(bitmap, dense.cpu().numpy()),
+          "bitmap visited set != the plain dense walk")
+    log("visited_mode='bitmap' gives the plain dense walk's ids on 64 "
+        "queries")
 
 
 def answers(idx, qs):
@@ -847,9 +1093,9 @@ def bf16_phase(torch, cb, idx, qs):
     check(np.array_equal(idx.labels, np.arange(n)), "labels are node ids")
     _, el, _ = idx.exact_search(qs, K)
     idx.downcast_corpus("bfloat16")
-    reset_launches(cb)
+    reset_launches()
     _, bl, bv = idx.search(qs, K)                      # auto -> exact route
-    launches = dict(cb.LAUNCHES)
+    launches = launch_counts()
     check(launches["bruteforce_topk_bf16"] > 0,
           "search() on a bf16 corpus did not launch the bf16 kernel")
     check(bool(bv.all()), "bf16 route: fewer than k results")
@@ -903,7 +1149,7 @@ def sharded_phase(torch, cb, HnswConfig, ShardedHnswIndex, dev, pts, qs,
     search() in auto mode, the timed calls, the deletes, save -> load)."""
     from pg_embedding_tpu_torch.utils.profiling import Timer
     n, s = len(pts), SHARDS
-    reset_launches(cb)
+    reset_launches()
     idx = ShardedHnswIndex(HnswConfig(dims=DIMS, m=16, ef_construction=64,
                                       ef_search=64), s, device=dev,
                            max_insert_batch=SHARD_BATCH,
@@ -990,7 +1236,7 @@ def sharded_phase(torch, cb, HnswConfig, ShardedHnswIndex, dev, pts, qs,
           "loaded sharded index: shards / tombstones")
     kept = answers(idx, qs)
     same_answers(kept, answers(back, qs), "loaded sharded index")
-    launches = dict(cb.LAUNCHES)
+    launches = launch_counts()
     shard_err, shard_swaps, k_units, p_units = shard_kernel_vs_plain(
         torch, cb, idx, qs, dev)
     log(f"sharded delete: {len(dead)} labels tombstoned, none returned by "
@@ -1236,7 +1482,7 @@ def rank_main(args):
     group, w = dist.group.WORLD, args.workdir
     qs = np.load(os.path.join(w, "phase9.npz"))["qs"]
     out = {}
-    reset_launches(cb)
+    reset_launches()
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -1296,12 +1542,13 @@ def rank_main(args):
     out["links"] = built._links.cpu().numpy()
     out["build_exact"] = built.search(qs, K, mode="exact")[1]
     out["build_graph"] = built.search(qs, K, mode="graph")[1]
-    out["launches"] = np.array([cb.LAUNCHES[n] for n in LAUNCH_NAMES])
+    counts = launch_counts()
+    out["launches"] = np.array([counts[n] for n in LAUNCH_NAMES])
     np.savez(os.path.join(w, f"rank{args.rank}.npz"), **out)
     log(f"load {out['load_s']:.1f} s, exact {out['exact_qps']:.0f} QPS, "
         f"graph {out['graph_qps']:.0f} QPS, save {out['save_s']:.1f} s, "
         f"build of {len(rows)} rows {out['build_s']:.1f} s, launches "
-        f"{dict(cb.LAUNCHES)}")
+        f"{counts}")
     dist.barrier()
     dist.destroy_process_group()
     return 0
@@ -1423,11 +1670,12 @@ def main():
     small_build_matches_cpu(torch, HnswConfig, HnswIndex, dev)
     idx, pts, qs, main_launches, single = main_path(
         torch, cb, HnswConfig, HnswIndex, dev, args.n, args.queries)
-    wide_k_phase(torch, cb, idx, qs)
-    serving_variants(torch, idx, qs)
     os.makedirs(os.path.join(REPO, ".kernel_build"), exist_ok=True)
     with tempfile.TemporaryDirectory(
             dir=os.path.join(REPO, ".kernel_build")) as tmp:
+        timings.update(walk_kernels_phase(torch, idx, qs, dev, tmp))
+        wide_k_phase(torch, cb, idx, qs)
+        serving_variants(torch, idx, qs)
         tuner_phase(idx, tmp)
         persistence(torch, HnswIndex, idx, qs, tmp)
         wal_recovery(torch, HnswIndex, idx, pts, qs, tmp)
@@ -1454,19 +1702,28 @@ def main():
 
     log(smi)
     kernels = []
-    for name, launches in (("bruteforce_topk", main_launches),
-                           ("bruteforce_topk_bf16", bf16_launches)):
+    sweep = ("pg_embedding_tpu_torch/csrc/bruteforce_topk.cu",
+             "pg_embedding_tpu/ops/pallas_bruteforce.py:58")
+    for name, launches, (source, replaces) in (
+            ("bruteforce_topk", main_launches, sweep),
+            ("bruteforce_topk_bf16", bf16_launches, sweep),
+            ("beam_walk", main_launches,
+             ("pg_embedding_tpu_torch/csrc/beam_walk.cu",
+              "pg_embedding_tpu/core/search.py:80")),
+            ("prune_scan", main_launches,
+             ("pg_embedding_tpu_torch/csrc/prune_scan.cu",
+              "pg_embedding_tpu/core/build.py:44"))):
         kernels.append({
-            "name": name, "route": "cuda",
-            "source": "pg_embedding_tpu_torch/csrc/bruteforce_topk.cu",
-            "replaces": "pg_embedding_tpu/ops/pallas_bruteforce.py:58",
-            "launches": launches[name],
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
             "sharded_launches": sharded_launches[name],
             "multiprocess_launches": mp_launches[name], **timings[name]})
-    check(sharded_launches["bruteforce_topk"] > 0,
-          "the sharded path never launched the kernel")
-    check(mp_launches["bruteforce_topk"] > 0,
-          "the two ranks never launched the kernel")
+    for name in ("bruteforce_topk", "beam_walk", "prune_scan"):
+        check(main_launches[name] > 0,
+              f"the main path never launched {name}")
+        check(sharded_launches[name] > 0,
+              f"the sharded path never launched {name}")
+        check(mp_launches[name] > 0, f"the two ranks never launched {name}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,10 @@
 """Build and load the package's hand-written CUDA kernels.
 
 The sources under ``csrc/`` have a plain C interface.  At first CUDA use,
-:func:`load_library` compiles them with ``nvcc`` for Hopper (``sm_90a``)
-into one shared library under ``.kernel_build/`` at the repository root,
-keyed by a hash of the sources and flags, and loads it with ``ctypes``.
+:func:`load_library` compiles them with ``nvcc`` for Hopper (``sm_90a``),
+one ``nvcc`` per source, all started together, and links the objects into
+one shared library under ``.kernel_build/`` at the repository root, keyed
+by a hash of the sources and flags, and loads it with ``ctypes``.
 The compiler's report (``-Xptxas -v``: registers, shared memory and spills
 of each kernel) is kept beside it; :func:`build_log` returns it.
 Importing this module builds nothing.  A failed build raises: there is no
@@ -21,9 +22,10 @@ import tempfile
 import threading
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
-_SOURCES = ("bruteforce_topk.cu",)
+_SOURCES = ("bruteforce_topk.cu", "beam_walk.cu", "prune_scan.cu")
+# no --use_fast_math: the walk's sqrtf must stay correctly rounded
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), ".kernel_build")
 
 _lock = threading.Lock()
@@ -47,8 +49,38 @@ def _declare(lib) -> None:
     for fn in (lib.bruteforce_topk, lib.bruteforce_topk_bf16):
         fn.argtypes = [vp, vp, vp, *[ci] * 9, *[vp] * 7]
         fn.restype = ci
+    lib.beam_walk.argtypes = [*[vp] * 5, *[ci] * 10, *[vp] * 5]
+    lib.beam_walk.restype = ci
+    lib.prune_scan.argtypes = [*[vp] * 5, *[ci] * 3, *[vp] * 3]
+    lib.prune_scan.restype = ci
     lib.bruteforce_topk_error_string.argtypes = [ci]
     lib.bruteforce_topk_error_string.restype = ctypes.c_char_p
+
+
+def _build(srcs, work: str, path: str) -> None:
+    """Compile each source to an object in ``work`` (one nvcc each, side
+    by side), link them into the library at ``path`` and keep the
+    compilers' reports in ``path``.log."""
+    nvcc = _nvcc()
+    objs = [os.path.join(work, os.path.basename(s) + ".o") for s in srcs]
+    procs = [subprocess.Popen([nvcc, *_NVCC_FLAGS, "-c", "-o", o, s],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for s, o in zip(srcs, objs)]
+    reports = [p.communicate() for p in procs]
+    failed = [(s, p.returncode, err) for s, p, (_, err)
+              in zip(srcs, procs, reports) if p.returncode != 0]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{os.path.basename(s)} ({rc}):\n{err}" for s, rc, err in failed))
+    tmp = os.path.join(work, "lib.so")
+    link = subprocess.run([nvcc, *_NVCC_FLAGS[:2], "-shared", "-o", tmp,
+                           *objs], capture_output=True, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                           f"{link.stderr}")
+    with open(path + ".log", "w") as f:
+        f.write("".join(err for _, err in reports))
+    os.replace(tmp, path)
 
 
 def load_library():
@@ -65,22 +97,13 @@ def load_library():
         os.makedirs(BUILD_DIR, exist_ok=True)
         path = os.path.join(BUILD_DIR, f"libpg_kernels_{h.hexdigest()[:16]}.so")
         if not os.path.exists(path):
-            # build to a private name, then rename: concurrent builders
-            # never load a half-written library
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
+            # build in a private directory, then rename: concurrent
+            # builds never load a half-written library
+            work = tempfile.mkdtemp(dir=BUILD_DIR)
             try:
-                proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", tmp, *srcs],
-                                      capture_output=True, text=True)
-                if proc.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-                with open(path + ".log", "w") as f:
-                    f.write(proc.stderr)
-                os.replace(tmp, path)
+                _build(srcs, work, path)
             finally:
-                if os.path.exists(tmp):
-                    os.remove(tmp)
+                shutil.rmtree(work, ignore_errors=True)
         lib = ctypes.CDLL(path)
         _declare(lib)
         _lib = lib

@@ -14,8 +14,10 @@ brute-force candidates, the heuristic prunes each set, and the wiring
 replays the serial back-link order per target in rounds.  Differences of
 form, not of result:
 
-  * the JAX ``lax.fori_loop``/``while_loop`` loops are Python loops; the
-    graph tensors are updated in place (the API's write lock covers it);
+  * the JAX ``lax.fori_loop``/``while_loop`` loops are Python loops, except
+    the prune's scan and the beam walk, which run as one kernel launch each
+    on the card (ops/cuda_graph); the graph tensors are updated in place
+    (the API's write lock covers it);
   * ``approx_min_k`` in the sweep is an exact top-k (so is the JAX
     package's on the CPU, where its tests run);
   * ``jnp.lexsort`` is two stable sorts, ``lax.top_k`` a stable sort.
@@ -30,8 +32,9 @@ import torch
 
 from ..ops.bruteforce import merge_min_k, min_k
 from ..ops.distance import dist_one_to_many, pairwise_dist
+from ..ops.cuda_graph import prune_scan
 from .graph import GraphState
-from .search import _search_batch
+from .search import search_graph
 
 _INF = float("inf")
 # default rows per exact8 sweep step (the index's exact8_chunk knob, see
@@ -46,6 +49,45 @@ def _lexsort2(primary: torch.Tensor, secondary: torch.Tensor) -> torch.Tensor:
     o1 = torch.argsort(secondary, dim=-1, stable=True)
     o2 = torch.argsort(torch.gather(primary, -1, o1), dim=-1, stable=True)
     return torch.gather(o1, -1, o2)
+
+
+def _prune_order(cand_d: torch.Tensor, cand_i: torch.Tensor, nn: int):
+    """The prune's scan order: (key_d f32[B, C], the distances with invalid
+    entries at inf; order i64[B, C], nearest-first with ties larger-id-first
+    and invalid entries last; d_s f32[B, C] and valid_s bool[B, C] in that
+    order; do_prune bool[B], whether at least nn candidates are valid)."""
+    valid = (cand_i >= 0) & torch.isfinite(cand_d)
+    do_prune = valid.sum(dim=1) >= nn
+    key_d = torch.where(valid, cand_d, _INF)
+    order = _lexsort2(key_d, -cand_i)
+    return (key_d, order, torch.gather(key_d, 1, order),
+            torch.gather(valid, 1, order), do_prune)
+
+
+def _prune_scan_plain(d_s: torch.Tensor, valid_s: torch.Tensor,
+                      order: torch.Tensor, pair_d: torch.Tensor,
+                      do_prune: torch.Tensor, nn: int):
+    """The prune's keep/reject scan in torch ops, the plain twin of
+    ops/cuda_graph.prune_scan: candidate j (in scan order) is kept iff it
+    is valid, fewer than nn are kept, and, where the set is pruned, no
+    kept r has pair_d[order[j], order[r]] < d_s[j].  ``pair_d`` is in the
+    original candidate order.  Returns (kept_mask bool[B, C], kept_count
+    i32[B])."""
+    bsz, c = d_s.shape
+    dev = d_s.device
+    pair_s = torch.gather(pair_d, 1, order.unsqueeze(2).expand(bsz, c, c))
+    pair_s = torch.gather(pair_s, 2, order.unsqueeze(1).expand(bsz, c, c))
+    # closer[b, j, r]: kept candidate r would reject candidate j
+    closer = pair_s < d_s.unsqueeze(2)
+
+    kept_mask = torch.zeros((bsz, c), dtype=torch.bool, device=dev)
+    kept_count = torch.zeros(bsz, dtype=torch.int32, device=dev)
+    for j in range(c):
+        conflict = (kept_mask & closer[:, j]).any(dim=1)
+        take = valid_s[:, j] & (~conflict | ~do_prune) & (kept_count < nn)
+        kept_mask[:, j] = take
+        kept_count += take
+    return kept_mask, kept_count
 
 
 def _prune_heuristic(cand_d: torch.Tensor, cand_i: torch.Tensor,
@@ -70,27 +112,14 @@ def _prune_heuristic(cand_d: torch.Tensor, cand_i: torch.Tensor,
     """
     bsz, c = cand_d.shape
     dev = cand_d.device
-    valid = (cand_i >= 0) & torch.isfinite(cand_d)
-    do_prune = valid.sum(dim=1) >= nn
-
-    # nearest-first scan order, ties larger-id-first; invalid entries last
-    key_d = torch.where(valid, cand_d, _INF)
-    order = _lexsort2(key_d, -cand_i)
-    d_s = torch.gather(key_d, 1, order)
+    key_d, order, d_s, valid_s, do_prune = _prune_order(cand_d, cand_i, nn)
     i_s = torch.gather(cand_i, 1, order)
-    valid_s = torch.gather(valid, 1, order)
-    pair_s = torch.gather(pair_d, 1, order.unsqueeze(2).expand(bsz, c, c))
-    pair_s = torch.gather(pair_s, 2, order.unsqueeze(1).expand(bsz, c, c))
-    # closer[b, j, r]: kept candidate r would reject candidate j
-    closer = pair_s < d_s.unsqueeze(2)
-
-    kept_mask = torch.zeros((bsz, c), dtype=torch.bool, device=dev)
-    kept_count = torch.zeros(bsz, dtype=torch.int32, device=dev)
-    for j in range(c):
-        conflict = (kept_mask & closer[:, j]).any(dim=1)
-        take = valid_s[:, j] & (~conflict | ~do_prune) & (kept_count < nn)
-        kept_mask[:, j] = take
-        kept_count += take
+    # the scan: the kernel on a CUDA tensor, _prune_scan_plain on the CPU.
+    # Re-prune distances of bf16 rows come in bf16; the scan compares them
+    # with float32 pair distances, so widening them first (exactly) gives
+    # the same comparisons
+    kept_mask, kept_count = prune_scan(d_s.to(torch.float32), valid_s, order,
+                                       pair_d.contiguous(), do_prune, nn)
 
     # compact kept ids into [nn] in selection (ascending-distance) order;
     # the overflow slot nn is dropped
@@ -289,7 +318,7 @@ def insert_batch_core(graph: GraphState, points: torch.Tensor,
     elif candidates == "beam":
         # batched searchBaseLayer(point, efConstruction) (hnswalg.cpp:229)
         # over the pre-batch graph (n_nodes is still base)
-        cand_d, cand_i, _, _ = _search_batch(
+        cand_d, cand_i, _ = search_graph(
             graph, points, ef=ef_construction, metric_value=metric_value,
             cand_cap=cand_cap, expand_width=expand_width)
     else:

@@ -42,11 +42,18 @@ by an exact rerank of the ef results against the corpus rows.  float32
 records skip it: their distances are the plain walk's, so the ids, order
 and distances equal the plain walk's.
 
-The JAX package runs ``vmap(while_loop)``; here the batch is explicit and
-the loop is a Python loop over steps.  A query whose loop condition fails
-freezes — its queues, hop and distance-evaluation counts stop changing —
-exactly as vmap's per-lane select does.  Each step runs only the active
-queries and costs one host sync (reading which queries are still active).
+The JAX package runs ``vmap(while_loop)`` as one device program.  Here
+``search_graph`` routes each call (``walk_route``, a pure function of its
+arguments): on the card, the dense walk over float32 rows or float32
+records runs as one kernel launch (ops/cuda_graph.beam_walk); every other
+walk, and every walk on the CPU, runs ``_search_batch``, the kernel's
+plain twin.  There the batch is explicit and the loop is a Python loop
+over steps.  A query whose loop condition fails freezes — its queues, hop
+and distance-evaluation counts stop changing — exactly as vmap's per-lane
+select does.  Each step runs only the active queries and costs one host
+sync (reading which queries are still active).  ``PLAIN_WALKS_ON_CARD``
+counts the twin's calls on CUDA tensors, so a run can show that a path's
+walks all went through the kernel.
 """
 
 from __future__ import annotations
@@ -56,6 +63,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..ops.bruteforce import merge_min_k, min_k
+from ..ops.cuda_graph import MAX_WALK_QUEUE, beam_walk
 from ..ops.distance import _matmul, dist_one_to_many
 from ..ops.pq import pq_decode
 from .graph import GraphState
@@ -65,6 +73,10 @@ _INF = float("inf")
 _HASH_PRIME = 2654435761
 _HASH_SLOT_MULT = 0x9E3779B1
 _U32 = 0xFFFFFFFF
+
+# Calls of the plain walk (_search_batch) on CUDA tensors since import (or
+# since a caller reset it).
+PLAIN_WALKS_ON_CARD = 0
 
 
 class SearchStats(NamedTuple):
@@ -101,8 +113,11 @@ def _search_batch(graph: GraphState, queries: torch.Tensor, *, ef: int,
     f32[B, ef], res_i i32[B, ef], hops i32[B], dist_evals i32[B]); results
     ascending, -1/inf padded.  ``query_t`` f32[B, D], when given, replaces
     the queries in the walk's distances only (the OPQ hook)."""
+    global PLAIN_WALKS_ON_CARD
     b, dims = queries.shape
     dev = queries.device
+    if queries.is_cuda:
+        PLAIN_WALKS_ON_CARD += 1
     max_m = graph.max_m
     t = expand_width
     tm = t * max_m
@@ -258,6 +273,26 @@ def _search_batch(graph: GraphState, queries: torch.Tensor, *, ef: int,
     return res_d, res_i, hops, evals
 
 
+def walk_route(device_type: str, rows_dtype, *, ef: int, cand_cap: int,
+               visited_slots: int = -1, quantized: bool = False,
+               records_dtype=None, record_scales: bool = False,
+               pq: bool = False, rotated: bool = False) -> str:
+    """Which walk serves a call: "kernel" (ops/cuda_graph.beam_walk) for
+    the dense dedupe on the card over float32 corpus rows or float32
+    packed records, with ef and cand_cap up to MAX_WALK_QUEUE; "plain"
+    (_search_batch) for every other walk — the bitmap and hash visited
+    sets, int8 rows (``quantized``), int8 / bf16 / PQ records, bf16 corpus
+    rows, OPQ (``rotated``) — and for every walk off the card."""
+    if device_type != "cuda" or visited_slots >= 0:
+        return "plain"
+    if quantized or pq or rotated or record_scales:
+        return "plain"
+    if max(ef, cand_cap) > MAX_WALK_QUEUE:
+        return "plain"
+    dtype = rows_dtype if records_dtype is None else records_dtype
+    return "kernel" if dtype == torch.float32 else "plain"
+
+
 def search_graph(graph: GraphState, queries: torch.Tensor, *, ef: int,
                  metric_value: int, cand_cap: int | None = None,
                  expand_width: int = 1, qvectors=None, qscale=None,
@@ -265,7 +300,8 @@ def search_graph(graph: GraphState, queries: torch.Tensor, *, ef: int,
                  visited_slots: int = -1
                  ) -> Tuple[torch.Tensor, torch.Tensor, SearchStats]:
     """Batched searchBaseLayer; the counterpart of the JAX package's
-    search_graph, search_graph_quantized and search_graph_packed.
+    search_graph, search_graph_quantized and search_graph_packed.  The
+    walk runs as one kernel launch or as torch ops, as walk_route says.
 
     Args:
       graph:   GraphState.
@@ -289,11 +325,23 @@ def search_graph(graph: GraphState, queries: torch.Tensor, *, ef: int,
     """
     if cand_cap is None:
         cand_cap = ef
-    res_d, res_i, hops, evals = _search_batch(
-        graph, queries, ef=ef, metric_value=metric_value, cand_cap=cand_cap,
-        expand_width=expand_width, qvectors=qvectors, qscale=qscale,
-        pcodes=pcodes, pscales=pscales, pq_codebook=pq_codebook,
-        query_t=query_t, visited_slots=visited_slots)
+    route = walk_route(
+        queries.device.type, graph.vectors.dtype, ef=ef, cand_cap=cand_cap,
+        visited_slots=visited_slots, quantized=qvectors is not None,
+        records_dtype=None if pcodes is None else pcodes.dtype,
+        record_scales=pscales is not None, pq=pq_codebook is not None,
+        rotated=query_t is not None)
+    if route == "kernel":
+        res_d, res_i, hops, evals = beam_walk(
+            graph, queries, ef=ef, metric_value=metric_value,
+            cand_cap=cand_cap, expand_width=expand_width, records=pcodes)
+    else:
+        res_d, res_i, hops, evals = _search_batch(
+            graph, queries, ef=ef, metric_value=metric_value,
+            cand_cap=cand_cap, expand_width=expand_width, qvectors=qvectors,
+            qscale=qscale, pcodes=pcodes, pscales=pscales,
+            pq_codebook=pq_codebook, query_t=query_t,
+            visited_slots=visited_slots)
     return res_d, res_i, SearchStats(hops=hops, dist_evals=evals)
 
 

@@ -1,21 +1,69 @@
-"""The CUDA kernel on the card: ops/cuda_bruteforce.bruteforce_topk (float32
-and bfloat16 corpus) against its plain twin, and the index's exact route
-through it.  A CUDA kernel has
-no CPU mode, so every test here skips without a CUDA device; run them on
-the card with ``python -m pytest tests/ -m cuda``.
+"""The CUDA kernels on the card: ops/cuda_bruteforce.bruteforce_topk
+(float32 and bfloat16 corpus) against its plain twin, and the index's exact
+route through it; ops/cuda_graph.beam_walk and prune_scan against theirs
+(core/search._search_batch, core/build._prune_scan_plain), and the graph
+route through the walk kernel.  A CUDA kernel has no CPU mode, so every
+test here skips without a CUDA device; run them on the card with
+``python -m pytest tests/ -m cuda``.  This file imports no JAX (the card's
+machine has none); its integer fixture is shared with test_torch_walk.py.
 
 Tolerances: distances rtol 1e-5; ids equal except where the two sides'
 distances at that rank are within 1e-5 relative (float32 sums in another
-order may swap near-tied rows)."""
+order may swap near-tied rows).  The walk on the integer fixture (every
+L2 and Manhattan distance exact in float32) and the prune scan
+(comparisons of the same values) are held bit for bit."""
 
 import numpy as np
 import pytest
 import torch
 
 from pg_embedding_tpu_torch import HnswConfig, HnswIndex
+from pg_embedding_tpu_torch.convert import graph_from_numpy, to_numpy
 from pg_embedding_tpu_torch.ops import cuda_bruteforce as cb
 
 pytestmark = pytest.mark.cuda
+
+# the integer fixture: 3,000 rows of 32 integers in [-8, 8]
+N, D, B = 3000, 32, 64
+METRICS = {"l2": 0, "cosine": 1, "manhattan": 2}
+# (ef, cand_cap) of the walk's bit-equality cases
+QUEUES = [(16, 16), (64, 64), (64, 128), (128, 64)]
+
+
+def integer_data(seed=8, n=N, b=B):
+    """(rows f32[n, D], queries f32[b, D]): integers in [-8, 8], so every
+    L2 and Manhattan distance is exact in float32 whatever the summation
+    order, and exact ties are frequent."""
+    rng = np.random.default_rng(seed)
+    pts = rng.integers(-8, 9, size=(n, D)).astype(np.float32)
+    qs = rng.integers(-8, 9, size=(b, D)).astype(np.float32)
+    return pts, qs
+
+
+def integer_graph(metric: str):
+    """The integer fixture's graph, built by the port on the CPU with
+    ``metric``, as numpy arrays (convert.to_numpy), and its queries."""
+    pts, qs = integer_data()
+    idx = HnswIndex(HnswConfig(dims=D, m=8, ef_construction=32, ef_search=32,
+                               metric=metric), device="cpu")
+    idx.build(pts)
+    return to_numpy(idx.graph), qs
+
+
+def prune_case(seed, b, c):
+    """Candidate sets for the prune: exact ties in both the query
+    distances and the pairwise matrix, invalid entries, and sets with too
+    few valid candidates to prune."""
+    rng = np.random.default_rng(seed)
+    cand_d = (rng.integers(1, 12, size=(b, c)) / 4).astype(np.float32)
+    cand_i = rng.permutation(200_000)[: b * c].reshape(b, c).astype(np.int32)
+    cand_i[rng.random((b, c)) < 0.2] = -1
+    cand_d[rng.random((b, c)) < 0.1] = np.inf
+    cand_i[: b // 4, 6:] = -1
+    pair = (rng.integers(1, 12, size=(b, c, c)) / 4).astype(np.float32)
+    pair = np.minimum(pair, pair.transpose(0, 2, 1))
+    return (torch.from_numpy(cand_d), torch.from_numpy(cand_i),
+            torch.from_numpy(pair))
 
 
 @pytest.fixture
@@ -359,3 +407,218 @@ def test_two_ranks_share_the_card(cuda, tmp_path):
     for i, n in enumerate(single["counts"]):
         same = (links[i, :n] == single["links"][i, :n]).all(axis=1)
         assert same.mean() >= 0.95, (i, same.mean())
+
+
+@pytest.fixture(scope="module")
+def int_graphs():
+    """The integer fixture's graphs (L2- and Manhattan-built), as numpy."""
+    return {m: integer_graph(m) for m in ("l2", "manhattan")}
+
+
+def _card_graph(arrays, dev):
+    return graph_from_numpy(arrays["vectors"], arrays["links"],
+                            arrays["link_counts"], arrays["deleted"],
+                            arrays["n_nodes"], device=dev)
+
+
+def _walk_pair(graph, qs, **kw):
+    """(the kernel's walk, the plain twin's) on the card."""
+    from pg_embedding_tpu_torch.core.search import _search_batch
+    from pg_embedding_tpu_torch.ops import cuda_graph as cg
+    before = cg.LAUNCHES["beam_walk"]
+    got = cg.beam_walk(graph, qs, **kw)
+    torch.cuda.synchronize()
+    assert cg.LAUNCHES["beam_walk"] == before + 1
+    want = _search_batch(graph, qs, ef=kw["ef"],
+                         metric_value=kw["metric_value"],
+                         cand_cap=kw["cand_cap"],
+                         expand_width=kw["expand_width"],
+                         pcodes=kw.get("records"))
+    return got, want
+
+
+def _assert_bit_equal(got, want):
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("metric", ["l2", "manhattan"])
+@pytest.mark.parametrize("ef,cap", QUEUES)
+@pytest.mark.parametrize("width", [1, 4, 8])
+def test_beam_walk_bit_equal_on_integers(cuda, int_graphs, metric, width, ef,
+                                         cap):
+    arrays, qs = int_graphs[metric]
+    g = _card_graph(arrays, cuda)
+    got, want = _walk_pair(g, torch.from_numpy(qs).to(cuda), ef=ef,
+                           metric_value=METRICS[metric], cand_cap=cap,
+                           expand_width=width)
+    _assert_bit_equal(got, want)
+    assert bool((got[2] > 1).all())
+
+
+@pytest.mark.parametrize("case", ["B=1", "B=1000", "empty", "one node",
+                                  "ef=4096"])
+def test_beam_walk_edges(cuda, int_graphs, case):
+    arrays, qs = int_graphs["l2"]
+    arrays = dict(arrays)
+    ef = cap = 64
+    if case == "B=1":
+        qs = qs[:1]
+    elif case == "B=1000":
+        qs = integer_data(seed=9, b=1000)[1]
+    elif case == "empty":
+        arrays["n_nodes"] = 0
+        arrays["links"] = np.full_like(arrays["links"], -1)
+        arrays["link_counts"] = np.zeros_like(arrays["link_counts"])
+    elif case == "one node":
+        arrays["n_nodes"] = 1
+        arrays["links"] = np.full_like(arrays["links"], -1)
+        arrays["link_counts"] = np.zeros_like(arrays["link_counts"])
+    else:
+        ef = cap = 4096
+    g = _card_graph(arrays, cuda)
+    got, want = _walk_pair(g, torch.from_numpy(qs).to(cuda), ef=ef,
+                           metric_value=0, cand_cap=cap, expand_width=4)
+    _assert_bit_equal(got, want)
+    if case == "empty":
+        assert bool((got[1] == -1).all()) and bool((got[2] == 0).all())
+    if case == "one node":
+        assert bool((got[1][:, 0] == 0).all() and (got[1][:, 1:] == -1).all())
+        assert bool((got[2] == 1).all()) and bool((got[3] == 0).all())
+
+
+@pytest.mark.parametrize("width", [1, 4, 8])
+def test_beam_walk_cosine(cuda, int_graphs, width):
+    """Cosine scores are not exact: ids, hops and evals equal on >= 99% of
+    queries, every other one at a near-tie."""
+    arrays, _ = int_graphs["l2"]
+    qs = integer_data(seed=10, b=1000)[1]
+    g = _card_graph(arrays, cuda)
+    got, want = _walk_pair(g, torch.from_numpy(qs).to(cuda), ef=64,
+                           metric_value=1, cand_cap=64, expand_width=width)
+    (dk, ik, hk, ek), (dp, ip, hp, ep) = [[x.cpu().numpy() for x in r]
+                                          for r in (got, want)]
+    same = (ik == ip).all(axis=1) & (hk == hp) & (ek == ep)
+    assert same.mean() >= 0.99, same.mean()
+
+    def near_tie(row):
+        d = np.sort(row[np.isfinite(row)])
+        return bool(np.any(np.diff(d) <= 1e-5 * np.abs(d[1:])))
+    for q in np.nonzero(~same)[0]:
+        assert near_tie(dk[q]) or near_tie(dp[q]), q
+    np.testing.assert_allclose(dk[same], dp[same], rtol=1e-5, atol=1e-5)
+
+
+def test_packed_f32_walk_equals_rows_walk(cuda):
+    """float32 records hold the rows' own values, so the kernel's walk over
+    them gives the rows walk's ids, distances and counters bit for bit
+    (gaussian data: the equality does not rest on exact sums)."""
+    from pg_embedding_tpu_torch.core.graph import pack_records
+    from pg_embedding_tpu_torch.ops import cuda_graph as cg
+    rng = np.random.default_rng(11)
+    pts = rng.normal(size=(4000, 48)).astype(np.float32)
+    qs = torch.from_numpy(rng.normal(size=(300, 48)).astype(np.float32))
+    idx = HnswIndex(HnswConfig(dims=48, m=8, ef_construction=32,
+                               ef_search=32), device=cuda)
+    idx.build(pts)
+    g = idx.graph
+    recs = pack_records(g.vectors, g.links)
+    for metric in (0, 1, 2):
+        kw = dict(ef=48, metric_value=metric, cand_cap=64, expand_width=4)
+        rows = cg.beam_walk(g, qs.to(cuda), **kw)
+        packed = cg.beam_walk(g, qs.to(cuda), records=recs, **kw)
+        _assert_bit_equal(packed, rows)
+
+
+@pytest.mark.parametrize("c", [33, 128, 256])
+@pytest.mark.parametrize("nn", [16, 32])
+def test_prune_scan_bit_equal(cuda, c, nn):
+    from pg_embedding_tpu_torch.core import build as tb
+    from pg_embedding_tpu_torch.ops import cuda_graph as cg
+    cand_d, cand_i, pair = prune_case(c + nn, 300, c)
+    _, order, d_s, valid_s, do_prune = tb._prune_order(cand_d, cand_i, nn)
+    want = tb._prune_scan_plain(d_s, valid_s, order, pair, do_prune, nn)
+    before = cg.LAUNCHES["prune_scan"]
+    got = cg.prune_scan(*(x.to(cuda) for x in (d_s, valid_s, order, pair,
+                                               do_prune)), nn)
+    torch.cuda.synchronize()
+    assert cg.LAUNCHES["prune_scan"] == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    plain_card = tb._prune_scan_plain(*(x.to(cuda) for x in (
+        d_s, valid_s, order, pair, do_prune)), nn)
+    for a, b in zip(got, plain_card):
+        assert torch.equal(a, b)
+    assert not bool(do_prune.all()) and bool((want[1] < nn).any())
+
+
+def test_graph_route_launches_beam_walk(cuda):
+    """search(mode="graph") on a small index: the walk kernel, no plain
+    walk, and the CPU index's answers (near-ties aside); the build ran the
+    prune kernel."""
+    from pg_embedding_tpu_torch.core import search as ts
+    from pg_embedding_tpu_torch.ops import cuda_graph as cg
+    rng = np.random.default_rng(12)
+    pts = rng.normal(size=(3000, 32)).astype(np.float32)
+    qs = rng.normal(size=(64, 32)).astype(np.float32)
+    cfg = HnswConfig(dims=32, m=8, ef_construction=32, ef_search=32)
+    before = dict(cg.LAUNCHES)
+    gpu = HnswIndex(cfg, device=cuda)
+    gpu.build(pts)
+    assert cg.LAUNCHES["prune_scan"] > before["prune_scan"]
+    plain = ts.PLAIN_WALKS_ON_CARD
+    d, l, v = gpu.search(qs, 10, mode="graph")
+    assert cg.LAUNCHES["beam_walk"] > before["beam_walk"]
+    assert ts.PLAIN_WALKS_ON_CARD == plain
+    cpu = HnswIndex(cfg, device="cpu")
+    cpu.build(pts)
+    dc, lc, vc = cpu.search(qs, 10, mode="graph")
+    assert (l == lc).mean() >= 0.95
+
+
+def test_walk_and_prune_refuse_out_of_scope_arguments(cuda, int_graphs):
+    """What the kernels do not take raises on the card, and the C side
+    refuses a shared-memory figure other than its own."""
+    from pg_embedding_tpu_torch import _kernels
+    from pg_embedding_tpu_torch.ops import cuda_graph as cg
+    arrays, qs = int_graphs["l2"]
+    g = _card_graph(arrays, cuda)
+    q = torch.from_numpy(qs).to(cuda)
+    kw = dict(ef=16, metric_value=0, cand_cap=16, expand_width=4)
+    for bad in (dict(ef=5000, cand_cap=5000), dict(expand_width=32),
+                dict(metric_value=3)):
+        with pytest.raises(ValueError):
+            cg.beam_walk(g, q, **dict(kw, **bad))
+    with pytest.raises(ValueError):
+        cg.beam_walk(g, q.double(), **kw)
+    gb = _card_graph(arrays, cuda)
+    gb.vectors = gb.vectors.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="float32"):
+        cg.beam_walk(gb, q, **kw)
+    with pytest.raises(ValueError, match="float32"):
+        cg.beam_walk(g, q, records=torch.zeros(
+            (g.capacity, g.max_m, D), dtype=torch.bfloat16, device=cuda),
+            **kw)
+    lib = _kernels.load_library()
+    smem = cg._walk_smem_bytes(16, 16, 4, g.max_m, D)
+    out = torch.empty((len(qs), 16), device=cuda)
+    cnt = torch.empty(len(qs), dtype=torch.int32, device=cuda)
+    for bad in (smem + 16, smem - 16):
+        err = lib.beam_walk(g.links.data_ptr(), g.link_counts.data_ptr(),
+                            g.vectors.data_ptr(), q.data_ptr(),
+                            out.data_ptr(), 0, 1, len(qs), D, g.max_m, 4, 16,
+                            16, 0, bad, out.data_ptr(), out.data_ptr(),
+                            cnt.data_ptr(), cnt.data_ptr(),
+                            torch.cuda.current_stream().cuda_stream)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            _kernels.check(lib, err, "beam_walk")
+    z = torch.zeros((4, 8), device=cuda)
+    order = torch.zeros((4, 8), dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError):
+        cg.prune_scan(z, z.bool(), order.int(), torch.zeros((4, 8, 8),
+                                                            device=cuda),
+                      z[:, 0].bool(), 4)
+    with pytest.raises(ValueError):
+        cg.prune_scan(z, z.bool(), order, torch.zeros((4, 8, 8),
+                                                      device=cuda),
+                      z[:, 0].bool(), 0)
