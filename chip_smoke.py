@@ -43,12 +43,22 @@ exits non-zero):
      and (ef, cand_cap) in {(16, 16), (64, 64), (64, 128), (128, 64)};
      prune_scan bit-equal to core/build._prune_scan_plain on the candidate
      sets of one real 256-row insert batch (an add() to the index, whose
-     first prune is captured).  Times (CUDA events, median of 5) of each
-     kernel and its twin beside the kernel's bound (the bytes it must
-     read, from the kernel's own hop and evaluation counts, and the pairs
-     the scan tests) and the share of it reached; torch.profiler (CPU and
-     CUDA activity) over one search(mode="graph") at T=4 and T=8 and over
-     that insert: wall time, device-busy share and device operations;
+     first prune of each width is captured: the insert's, C = 128, nn =
+     16, and the first back-link re-prune's, C = maxM + 1 = 33, nn = 32),
+     with the main path's build's prune_scan launches counted at each
+     width.  Times of each kernel on the card (20 calls captured in a CUDA
+     graph, replayed between CUDA events: the host's launch overhead is
+     not timed) and a call (CUDA events around one call, median of 5, as
+     for each twin) at each shape beside the kernel's bound (the bytes it must read, from
+     the kernel's own hop and evaluation counts, and the pairs the scan
+     tests) and the share of it reached; torch.profiler (CPU and CUDA
+     activity) over one search(mode="graph") at T=4 and T=8 and over that
+     insert: wall time, device-busy share and device operations; last,
+     each kernel's phases at those shapes from a clock64()-stamped build
+     of the same sources (pg_embedding_tpu_torch/graph_probe.py, built
+     beside the port's library; never launched by the main path), and
+     ptxas's registers and spills of every walk and scan instance in
+     phase 3's report;
   5. on the same index: tune_exact8_chunk (its cache in a temp dir, not
      saved): the exact8 sweep's ms per 256-row insert batch at chunks of
      262,144 / 524,288 / 1,048,576 / 2,097,152 rows, and the chunk chosen;
@@ -118,7 +128,12 @@ exits non-zero):
      float64 oracle, and the pull scan against order_by through the index.
 Phases are timed with utils/profiling's Timer (synchronising the card).
 The last three lines are the card's nvidia-smi line, a JSON line of the
-kernels ("launches" from the main path of phase 4, "sharded_launches" from
+kernels ("launches" from the main path of phase 4; for prune_scan also
+"insert_launches" and "reprune_launches", the build's launches at each
+width, and the re-prune shape's "reprune_ms", "reprune_call_ms",
+"reprune_plain_ms" and "reprune_bound_ms"; the walk and the scan also
+give "call_ms", a call's time with the host's share; "sharded_launches"
+from
 phase 9, "multiprocess_launches" summed over phase 11's ranks, each
 counted from zero; the main path, phase 9 and phase 11 must each launch
 beam_walk and prune_scan, and the main path's graph calls must run no
@@ -129,6 +144,7 @@ printing any result.
 """
 
 import argparse
+import concurrent.futures
 import itertools
 import json
 import os
@@ -392,6 +408,18 @@ def compiler_report(_kernels):
         return m and (f"sweep_kernel<QT={m[1]}, "
                       f"{'resident' if m[2] == '1' else 'streamed'} queries, "
                       f"{'float' if m[3] == 'f' else 'bf16'}>")
+    def graph_instance(mangled):
+        m = re.search(r"beam_walk_kernelILb([01])ELi(\d+)E", mangled)
+        if m:
+            return (f"beam_walk_kernel<{'records' if m[1] == '1' else 'rows'}"
+                    f", {m[2]} threads>")
+        m = re.search(r"prune_scan_regsILi(\d+)ELb([01])E", mangled)
+        if m:
+            return (f"prune_scan_regs<{m[1]} words, pair block "
+                    f"{'staged' if m[2] == '1' else 'in L2'}>")
+        m = re.search(r"prune_scan_kernelILb([01])E", mangled)
+        return m and (f"prune_scan_kernel<pair block "
+                      f"{'staged' if m[1] == '1' else 'in L2'}>")
     name, built = None, set()
     for line in _kernels.build_log().splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -399,6 +427,8 @@ def compiler_report(_kernels):
             name = instance(m[1])
             if name:
                 built.add(name)
+            else:
+                name = graph_instance(m[1])
         elif name and ("spill" in line or "Used" in line):
             log(f"ptxas {name}: {line.strip()}")
     lib = _kernels.load_library()
@@ -479,10 +509,22 @@ def main_path(torch, cb, HnswConfig, HnswIndex, dev, n, n_queries):
     idx = HnswIndex(HnswConfig(dims=DIMS, m=16, ef_construction=64,
                                ef_search=64), device=dev,
                     search_expand_width=GRAPH_T)
-    with timer.phase("build", torch.empty(0, device=dev)):
-        idx.build(pts)
+    from pg_embedding_tpu_torch.core import build as core_build
+    real_scan, shapes = core_build.prune_scan, {}
+
+    def tally(*args):                   # prune_scan launches by (C, nn)
+        key = (args[0].shape[1], args[-1])
+        shapes[key] = shapes.get(key, 0) + 1
+        return real_scan(*args)
+    core_build.prune_scan = tally
+    try:
+        with timer.phase("build", torch.empty(0, device=dev)):
+            idx.build(pts)
+    finally:
+        core_build.prune_scan = real_scan
     build_s = timer.seconds["build"]
-    log(f"build: {n} vectors in {build_s:.1f} s = {n / build_s:.0f} vec/s")
+    log(f"build: {n} vectors in {build_s:.1f} s = {n / build_s:.0f} vec/s; "
+        f"prune_scan calls by (C, nn): {dict(sorted(shapes.items()))}")
 
     g = idx.graph
     links = g.links[:n]
@@ -522,7 +564,7 @@ def main_path(torch, cb, HnswConfig, HnswIndex, dev, n, n_queries):
     _, gl4, gv4 = idx.search(qs, K, mode="graph")
     idx.search_expand_width = GRAPH_T
     single = dict(exact_labels=el, exact_qps=exact_qps, graph_qps=graph_qps,
-                  recall=rec, build_s=build_s)
+                  recall=rec, build_s=build_s, prune_shapes=shapes)
     log(f"exact_search: {exact_qps:.0f} QPS; search(mode='graph', "
         f"T={GRAPH_T}): {graph_qps:.0f} QPS at recall@10 {rec:.4f} vs the "
         f"exact route (T=4: recall@10 {recall(gl4, gv4, el):.4f})")
@@ -630,14 +672,15 @@ def integer_walks(torch, cg, core_search, dev):
         f"cases (L2, Manhattan; T 1 / 4 / 8; four (ef, cand_cap))")
 
 
-def walk_kernels_phase(torch, idx, qs, dev, tmp):
+def walk_kernels_phase(torch, idx, qs, dev, tmp, single, profile_lib):
     """Phase 4b: the walk and prune kernels against their plain twins on
-    the main index, timed beside their bounds, and the graph route and one
-    insert batch profiled.  Returns {kernel name: the JSON line's
-    numbers}."""
+    the main index, timed beside their bounds, the graph route and one
+    insert batch profiled, and each kernel's phases.  Returns {kernel name:
+    the JSON line's numbers}."""
     from pg_embedding_tpu_torch.core import build as core_build
     from pg_embedding_tpu_torch.core import search as core_search
     from pg_embedding_tpu_torch.ops import cuda_graph as cg
+    from pg_embedding_tpu_torch.graph_probe import device_ms
     from pg_embedding_tpu_torch.ops.cuda_bruteforce import fused_exact_search
     g, n = idx.graph, idx.n_nodes
     q = torch.as_tensor(qs, device=dev)
@@ -660,7 +703,8 @@ def walk_kernels_phase(torch, idx, qs, dev, tmp):
         err = float((kd[same] - pd[same]).abs().max()) if same.any() else 0.0
         hk, hp = float(kh.float().mean()), float(ph.float().mean())
         ek, ep = float(ke.float().mean()), float(pe.float().mean())
-        ms = median_ms(torch, lambda: cg.beam_walk(g, q, **kw))
+        ms = device_ms(lambda: cg.beam_walk(g, q, **kw))
+        call_ms = median_ms(torch, lambda: cg.beam_walk(g, q, **kw))
         plain_ms = median_ms(torch, lambda: core_search._search_batch(
             g, q, **kw))
         bound = walk_bound_ms(kh, ke, b, g.dims, t, max_m)
@@ -670,9 +714,10 @@ def walk_kernels_phase(torch, idx, qs, dev, tmp):
             f"differ on {n_diff} of {b} queries; mean hops {hk:.2f} / "
             f"{hp:.2f} (max {int(kh.max())}), dist_evals {ek:.1f} / "
             f"{ep:.1f}; max_abs_err {err:.3g} where ids agree; kernel "
-            f"{ms:.3f} ms, plain {plain_ms:.3f} ms (median of 5, CUDA "
-            f"events), bound {bound:.4f} ms (bytes; {bound / ms:.1%} of it "
-            f"reached)")
+            f"{ms:.3f} ms on the card (a CUDA graph of 20 calls), "
+            f"{call_ms:.3f} ms a call, plain {plain_ms:.3f} ms (median of "
+            f"5, CUDA events), bound {bound:.4f} ms (bytes; "
+            f"{bound / ms:.1%} of it reached)")
         check(abs(rec_k - rec_p) <= 0.002,
               f"T={t}: walk recall {rec_k} vs the twin's {rec_p}")
         check(n_diff <= 0.02 * b, f"T={t}: ids differ on {n_diff} queries")
@@ -680,8 +725,9 @@ def walk_kernels_phase(torch, idx, qs, dev, tmp):
               f"T={t}: hops {hk} / {hp}, evals {ek} / {ep}")
         if t == GRAPH_T:
             out["beam_walk"] = dict(max_abs_err=err, ms=ms,
-                                    plain_ms=plain_ms, bound_ms=bound,
-                                    bound_by="bytes", library_ms=None)
+                                    call_ms=call_ms, plain_ms=plain_ms,
+                                    bound_ms=bound, bound_by="bytes",
+                                    library_ms=None)
     integer_walks(torch, cg, core_search, dev)
 
     profiles = os.path.join(tmp, "profiles")
@@ -694,14 +740,15 @@ def walk_kernels_phase(torch, idx, qs, dev, tmp):
                                   os.path.join(profiles, f"walk_t{t}")))
     idx.search_expand_width = GRAPH_T
 
-    # one real 256-row insert batch at 1M: its first prune's inputs
-    captured = []
+    # one real 256-row insert batch at 1M: the first prune of each width
+    # (the insert's, C = cand_cap, and the first back-link re-prune's, C =
+    # maxM + 1)
+    captured = {}
     real = core_build.prune_scan
 
     def spy(*args):
-        if not captured:
-            captured.append(tuple(a.clone() if hasattr(a, "clone") else a
-                                  for a in args))
+        captured.setdefault(args[0].shape[1], tuple(
+            a.clone() if hasattr(a, "clone") else a for a in args))
         return real(*args)
     rows = (qs[:idx.max_insert_batch] + np.random.default_rng(SEED + 7)
             .normal(scale=0.1, size=(idx.max_insert_batch, DIMS))
@@ -715,33 +762,81 @@ def walk_kernels_phase(torch, idx, qs, dev, tmp):
     finally:
         core_build.prune_scan = real
     shutil.rmtree(profiles)
-    d_s, valid_s, order, pair, do_prune, nn = captured[0]
-    bsz, c = d_s.shape
-    got = cg.prune_scan(d_s, valid_s, order, pair, do_prune, nn)
-    want = core_build._prune_scan_plain(d_s, valid_s, order, pair, do_prune,
-                                        nn)
-    check(all(torch.equal(x, y) for x, y in zip(got, want)),
-          "prune_scan differs from the plain twin")
-    ms = median_ms(torch, lambda: cg.prune_scan(d_s, valid_s, order, pair,
-                                                do_prune, nn))
-    plain_ms = median_ms(torch, lambda: core_build._prune_scan_plain(
-        d_s, valid_s, order, pair, do_prune, nn))
-    kept = got[0].int()
-    before = torch.cumsum(kept, dim=1) - kept          # kept before each j
-    tested = valid_s & (before < nn) & do_prune.unsqueeze(1)
-    pairs = int((before * tested).sum())
-    nbytes = pairs * 4 + bsz * c * (4 + 1 + 8 + 1) + bsz * (1 + 4)
-    bound = nbytes / PEAK_BYTES * 1e3
-    log(f"prune_scan vs plain on one insert batch's candidate sets at {n} "
-        f"rows "
-        f"(B={bsz}, C={c}, nn={nn}, {int(do_prune.sum())} sets pruned, "
-        f"{pairs} pairs tested): bit-equal; kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.3f} ms (median of 5, CUDA events), bound {bound:.5f} ms "
-        f"(bytes; {bound / ms:.1%} of it reached)")
-    out["prune_scan"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                             bound_ms=bound, bound_by="bytes",
-                             library_ms=None)
+    reprune_c = max_m + 1
+    check(reprune_c in captured and len(captured) == 2,
+          f"the add() ran prune widths {sorted(captured)}, not an insert's "
+          f"and a re-prune's ({reprune_c})")
+    shapes = single["prune_shapes"]
+    for c, sargs in sorted(captured.items(), reverse=True):
+        d_s, valid_s, order, pair, do_prune, nn = sargs
+        bsz = d_s.shape[0]
+        got = cg.prune_scan(d_s, valid_s, order, pair, do_prune, nn)
+        want = core_build._prune_scan_plain(d_s, valid_s, order, pair,
+                                            do_prune, nn)
+        what = "re-prune" if c == reprune_c else "insert"
+        check(all(torch.equal(x, y) for x, y in zip(got, want)),
+              f"prune_scan differs from the plain twin at the {what} shape")
+        ms = device_ms(lambda: cg.prune_scan(d_s, valid_s, order, pair,
+                                             do_prune, nn))
+        call_ms = median_ms(torch, lambda: cg.prune_scan(
+            d_s, valid_s, order, pair, do_prune, nn))
+        plain_ms = median_ms(torch, lambda: core_build._prune_scan_plain(
+            d_s, valid_s, order, pair, do_prune, nn))
+        kept = got[0].int()
+        before = torch.cumsum(kept, dim=1) - kept      # kept before each j
+        tested = valid_s & (before < nn) & do_prune.unsqueeze(1)
+        pairs = int((before * tested).sum())
+        nbytes = pairs * 4 + bsz * c * (4 + 1 + 8 + 1) + bsz * (1 + 4)
+        bound = nbytes / PEAK_BYTES * 1e3
+        launches = sum(v for (sc, _), v in shapes.items() if sc == c)
+        log(f"prune_scan vs plain at the {what} shape at {n} rows (B={bsz}, "
+            f"C={c}, nn={nn}, {int(do_prune.sum())} sets pruned, {pairs} "
+            f"pairs tested; {launches} launches of this width in the main "
+            f"path's build): bit-equal; kernel {ms:.4f} ms on the card (a "
+            f"CUDA graph of 20 calls), {call_ms:.4f} ms a call, plain "
+            f"{plain_ms:.3f} ms (median of 5, CUDA events), bound "
+            f"{bound:.5f} ms (bytes; {bound / ms:.1%} of it reached)")
+        if what == "insert":
+            out["prune_scan"] = dict(max_abs_err=0.0, ms=ms, call_ms=call_ms,
+                                     plain_ms=plain_ms, bound_ms=bound,
+                                     bound_by="bytes", library_ms=None,
+                                     insert_launches=launches)
+        else:
+            out["prune_scan"].update(
+                reprune_ms=ms, reprune_call_ms=call_ms,
+                reprune_plain_ms=plain_ms, reprune_bound_ms=bound,
+                reprune_launches=launches, reprune_shape=[bsz, c, nn])
+    phase_breakdown(torch, g, q, captured, profile_lib)
     return out
+
+
+def phase_breakdown(torch, g, q, captured, profile_lib):
+    """Where each kernel's time goes at phase 4b's shapes: the clock64()
+    build of the same sources (pg_embedding_tpu_torch/graph_probe.py;
+    never on the main path) gives each walk phase's cycles a block-step
+    and each scan phase's cycles a set or a round."""
+    from pg_embedding_tpu_torch import graph_probe
+    from pg_embedding_tpu_torch.ops import cuda_graph as cg
+    lib = profile_lib.result()
+    for t in WALK_TS:
+        kw = dict(ef=WALK_EF, cand_cap=WALK_EF, t=t, metric_value=L2)
+        r = graph_probe.walk_phases(lib, g, q, **kw)
+        smem, held, slots = cg._walk_layout(WALK_EF, WALK_EF, t, g.max_m,
+                                            g.dims)
+        log(f"beam_walk phases at T={t} (cycles a block-step, "
+            f"{r['steps']:.2f} steps a block; setup + output: a block; "
+            f"{smem} bytes of shared memory a block, tables of {held} and "
+            f"{slots} slots): "
+            f"{graph_probe.format_cycles(r['cycles'])}")
+    for c, (*tensors, nn) in sorted(captured.items(), reverse=True):
+        r = graph_probe.prune_phases(lib, tensors, nn)
+        log(f"prune_scan phases at C={c}, nn={nn} "
+            f"({graph_probe.prune_smem_bytes(c)} bytes of shared memory a "
+            f"block; {r['pruned']} of "
+            f"{r['sets']} sets pruned, {r['rounds']:.2f} rounds a pruned "
+            f"set; cycles: init and write a set, stage and masks a pruned "
+            f"set, search and reject a round): "
+            f"{graph_probe.format_cycles(r['cycles'])}")
 
 
 def serving_variants(torch, idx, qs):
@@ -1662,6 +1757,12 @@ def main():
     check(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 matmuls on")
 
     t0 = time.time()
+    # the phase-stamped build of the walk and the scan (phase 4b), beside
+    # the port's own
+    from pg_embedding_tpu_torch import graph_probe
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    profile_lib = pool.submit(graph_probe.build, "profile",
+                              ("-DPG_PROFILE",))
     _kernels.load_library()
     log(f"kernel build: {time.time() - t0:.1f} s (nvcc, sm_90a)")
     compiler_report(_kernels)
@@ -1673,7 +1774,8 @@ def main():
     os.makedirs(os.path.join(REPO, ".kernel_build"), exist_ok=True)
     with tempfile.TemporaryDirectory(
             dir=os.path.join(REPO, ".kernel_build")) as tmp:
-        timings.update(walk_kernels_phase(torch, idx, qs, dev, tmp))
+        timings.update(walk_kernels_phase(torch, idx, qs, dev, tmp,
+                                          single, profile_lib))
         wide_k_phase(torch, cb, idx, qs)
         serving_variants(torch, idx, qs)
         tuner_phase(idx, tmp)

@@ -1,6 +1,6 @@
 // The sequential keep/reject scan of the diversity prune (Malkov's
 // getNeighborsByHeuristic) for a batch of candidate sets in one launch, for
-// NVIDIA Hopper (sm_90a): one warp per set.
+// NVIDIA Hopper (sm_90a): one warp per set, driven by the kept neighbours.
 //
 // Replaces: pg_embedding_tpu/core/build.py::_prune_heuristic (:44), the
 // jax.lax.fori_loop (:87) that the JAX insert program vmaps over a batch
@@ -15,22 +15,41 @@
 //   take_j     = valid_s[j] && (!conflict_j || !do_prune) && kept < nn
 // and writes kept_mask bool[B, C] and kept_count i32[B].  Reading pair
 // through order replaces the twin's two [B, C, C] gathers (16.8 MB each at
-// B = 256, C = 128).  The result is comparisons of the same float32 values,
-// so it equals the twin bit for bit.
+// B = 256, C = 128).  The result is comparisons of the same float32 values
+// (row: the candidate, column: the keeper, as the twin reads them; pair is
+// not assumed symmetric), so it equals the twin bit for bit.
 //
-// What bounds it on an H100: the bytes it must read, at most B C C 4 of
-// pair plus d_s, valid_s and order (13 B C), over 3.35 TB/s: ~5 us at B =
-// 256, C = 128.  Only the pairs a scan tests are read (the kept r's of each
-// taken-or-tested j), so the data's own count is far lower.  The scan is a
-// dependent chain of C steps per set, each waiting on its loads from the
-// row pair[b, order[j]], so latency sets the time.
+// What bounds it on an H100: the bytes it must read, the pairs the scan
+// tests (each kept r of each tested j) plus d_s, valid_s and order (13 B C)
+// over 3.35 TB/s: ~0.4 us for an insert batch (B = 256, C = 128, nn = 16).
+// Nothing near that is reached: a set's scan is a chain of dependent
+// rounds, so latency sets the time.
 //
-// Design: one warp per set, 4 sets a block.  The warp reads d_s, valid_s
-// and order 32 candidates at a time (one coalesced load each) and passes
-// them from lane to lane with shuffles; at step j the lanes test the kept
-// r's in parallel (lane l the kept l, l + 32, ...) and __any_sync decides.
-// The kept list (original positions) lives in shared memory, nn entries a
-// warp.
+// Design: the loop runs over KEEPERS, not candidates.  A round finds the
+// next keeper, the first "alive" candidate (valid, not yet rejected) after
+// the last one, and then tests every alive later candidate against it at
+// once: the lanes issue their loads of pair[b, order[i], order[k]]
+// together and clear the rejected bits with one ballot a 32-candidate word.
+// A set costs at most nn dependent rounds (16 at the insert shape) instead
+// of C steps.  Up to 256 candidates (every set the main path makes) each
+// lane keeps the set's alive and kept words (warp-uniform) and its own
+// candidates' order and d_s in registers, so a round is a few ALU ops, one
+// shuffle (the keeper's original position) and the keeper's column loads;
+// wider sets keep the words in shared memory and read order and d_s
+// through L1.  Small sets (C <= kStageMaxC: the back-link re-prunes, C =
+// maxM + 1 = 33, where nearly every candidate is kept, so keeper rounds
+// save little) first copy their whole [C, C] block into shared memory with
+// coalesced loads (rows padded to an odd stride, so a column read hits 32
+// banks); each lane turns its candidates' rows into bit masks (bit r of
+// candidate i: pair[order[i], order[r]] < d_s[i]), and the scan runs over
+// the bits in registers, one candidate a step as the twin's loop does, a
+// few ALU operations each.  Sets that are not pruned take their first nn
+// valid candidates from the bits, with no round at all.  Two warps a block
+// spread B = 256 sets over 128 SMs.
+//
+// What holds it back now: each round of an unstaged set still waits on one
+// L2 latency for the keeper's column, and a set's rounds are a chain; a
+// staged set waits on its block's copy.
 
 #include <cuda_runtime.h>
 
@@ -39,9 +58,253 @@
 
 namespace {
 
-constexpr int kWarpsPerBlock = 4;
+constexpr int kWarpsPerBlock = 2;
+constexpr int kSmemLimit = 232448;
+constexpr int kWordsPerPass = 8;     // candidate words tested per load pass
+// Sets of at most this many candidates stage their pair block in shared
+// memory (chosen by measurement: PERF.md; graph_probe.py).
+constexpr int kStageMaxC = 64;
 constexpr unsigned kFull = 0xffffffffu;
 
+// Phase clocks of the instrumented build (-DPG_PROFILE): lane 0 of each
+// warp sums its laps and adds them to g_prune_prof at the end.
+enum { kLapInit, kLapStage, kLapMasks, kLapSearch, kLapReject, kLapWrite,
+       kLaps };
+#ifdef PG_PROFILE
+// the laps' cycles, then rounds, sets, pruned sets
+__device__ unsigned long long g_prune_prof[kLaps + 3];
+struct Laps {
+  long long t, acc[kLaps];
+  __device__ void start() {
+    t = clock64();
+    for (int i = 0; i < kLaps; ++i) acc[i] = 0;
+  }
+  __device__ void lap(int i) {
+    const long long now = clock64();
+    acc[i] += now - t;
+    t = now;
+  }
+  __device__ void flush(int lane, int rounds, bool prune) {
+    if (lane) return;
+    for (int i = 0; i < kLaps; ++i)
+      atomicAdd(&g_prune_prof[i], (unsigned long long)acc[i]);
+    atomicAdd(&g_prune_prof[kLaps], (unsigned long long)rounds);
+    atomicAdd(&g_prune_prof[kLaps + 1], 1ull);
+    atomicAdd(&g_prune_prof[kLaps + 2], (unsigned long long)prune);
+  }
+};
+#else
+struct Laps {
+  __device__ void start() {}
+  __device__ void lap(int) {}
+  __device__ void flush(int, int, bool) {}
+};
+#endif
+
+__device__ __forceinline__ unsigned lanes_below(int lane) {
+  return (1u << lane) - 1u;
+}
+
+// The first candidate after ``pos`` whose alive bit is set, or -1
+// (warp-uniform).
+__device__ __forceinline__ int next_alive(const unsigned* alive, int W,
+                                          int pos, int lane) {
+  const int start = pos + 1, w_start = start >> 5;
+  for (int w0 = w_start; w0 < W; w0 += 32) {
+    const int w = w0 + lane;
+    unsigned bits = w < W ? alive[w] : 0u;
+    if (w == w_start) bits &= ~lanes_below(start & 31);
+    const unsigned m = __ballot_sync(kFull, bits != 0u);
+    if (m) {
+      const int src = __ffs(m) - 1;
+      const unsigned word = __shfl_sync(kFull, bits, src);
+      return ((w0 + src) << 5) + __ffs(word) - 1;
+    }
+  }
+  return -1;
+}
+
+// Shared memory a warp: its alive and kept words; staged, its pair block.
+__host__ __device__ size_t words_bytes(int C) {
+  return 8 * (size_t)((C + 31) / 32);
+}
+
+__host__ __device__ size_t stage_bytes(int C) {
+  return 4 * (size_t)C * (C | 1);
+}
+
+// The lowest r set bits of m.
+__device__ __forceinline__ unsigned first_bits(unsigned m, int r) {
+  unsigned rest = m;
+  for (; r > 0; --r) rest &= rest - 1u;
+  return m ^ rest;
+}
+
+// The set's [C, C] pair block into shared memory with rows of an odd
+// stride (C | 1), 16 loads a lane in flight.
+__device__ __forceinline__ void stage_block(const float* __restrict__ pb,
+                                            float* pair_s, int C, int lane) {
+  constexpr int kInFlight = 16;
+  const int n = C * C;
+  for (int i0 = 0; i0 < n; i0 += 32 * kInFlight) {
+    float v[kInFlight];
+#pragma unroll
+    for (int u = 0; u < kInFlight; ++u) {
+      const int i = i0 + u * 32 + lane;
+      v[u] = i < n ? __ldg(pb + i) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kInFlight; ++u) {
+      const int i = i0 + u * 32 + lane;
+      if (i < n) pair_s[(C & 1) ? i : i + i / C] = v[u];
+    }
+  }
+  __syncwarp();
+}
+
+// Sets of up to 32 kWords candidates (C <= 256): every lane holds the
+// set's alive and kept words (warp-uniform) and, for its own candidates j
+// = 32 u + lane, order[j] and d_s[j], all in registers, so a round is a
+// shuffle (the keeper's original position) and the keeper's column loads;
+// staged, a bit test of masks made once from the staged block.
+template <int kWords, bool kStaged>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+prune_scan_regs(const float* __restrict__ d_s,
+                const unsigned char* __restrict__ valid_s,
+                const long long* __restrict__ order,
+                const float* __restrict__ pair,
+                const unsigned char* __restrict__ do_prune, int B, int C,
+                int nn, unsigned char* __restrict__ kept_mask,
+                int* __restrict__ kept_count) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * kWarpsPerBlock + warp;
+  if (b >= B) return;                    // a whole warp; no block barrier
+  Laps laps;
+  laps.start();
+  const int Cp = C | 1;
+  float* pair_s = reinterpret_cast<float*>(smem) + (size_t)warp * C * Cp;
+  const bool prune = do_prune[b] != 0;
+  const size_t row0 = (size_t)b * C;
+  const float* pb = pair + row0 * C;
+  const float kInf = __int_as_float(0x7f800000);
+  int o[kWords];
+  float d[kWords];
+  unsigned alive[kWords], kept[kWords];
+#pragma unroll
+  for (int u = 0; u < kWords; ++u) {
+    const int j = 32 * u + lane;
+    const bool in = j < C;
+    o[u] = in ? (int)__ldg(order + row0 + j) : 0;
+    d[u] = in ? __ldg(d_s + row0 + j) : 0.f;
+    alive[u] = __ballot_sync(kFull, in && valid_s[row0 + j]);
+    kept[u] = 0u;
+  }
+  laps.lap(kLapInit);
+
+  int k = 0, rounds = 0;
+  if (!prune) {
+#pragma unroll
+    for (int u = 0; u < kWords; ++u) {
+      const int c = __popc(alive[u]);
+      kept[u] = first_bits(alive[u], min(c, nn - k));
+      k += min(c, nn - k);
+    }
+  } else {
+    if (kStaged) {
+      // closer[u][w] bit l: pair[order[i], order[r]] < d_s[i] for this
+      // lane's candidate i = 32 u + lane and r = 32 w + l
+      stage_block(pb, pair_s, C, lane);
+      laps.lap(kLapStage);
+      unsigned closer[kWords][kWords];
+#pragma unroll
+      for (int w = 0; w < kWords; ++w) {
+#pragma unroll
+        for (int u = 0; u < kWords; ++u) closer[u][w] = 0u;
+        const int n_r = min(32, C - 32 * w);        // warp-uniform
+#pragma unroll 8
+        for (int l = 0; l < n_r; ++l) {
+          const int o_r = __shfl_sync(kFull, o[w], l);
+#pragma unroll
+          for (int u = 0; u < kWords; ++u)
+            closer[u][w] |= (unsigned)(pair_s[o[u] * Cp + o_r] < d[u]) << l;
+        }
+      }
+      laps.lap(kLapMasks);
+      // the scan itself, one candidate a step in registers: j is kept iff
+      // valid, no kept r has its bit in j's row, and fewer than nn are kept
+      // (the twin's loop; the rows' shuffles do not wait on it)
+#pragma unroll
+      for (int u = 0; u < kWords; ++u) {
+#pragma unroll 8
+        for (int l = 0; l < 32; ++l) {
+          bool conflict = false;
+#pragma unroll
+          for (int w = 0; w < kWords; ++w)
+            conflict |= (__shfl_sync(kFull, closer[u][w], l) & kept[w]) != 0u;
+          if (32 * u + l < C && ((alive[u] >> l) & 1u) && !conflict &&
+              k < nn) {
+            kept[u] |= 1u << l;
+            ++k;
+          }
+        }
+      }
+      rounds = k;
+      laps.lap(kLapReject);
+    } else {
+      int pos = -1;
+      while (k < nn) {
+        // the next keeper: the lowest alive bit after pos
+        int j = -1;
+#pragma unroll
+        for (int u = kWords - 1; u >= 0; --u) {
+          const int sh = pos - 32 * u;   // bits of word u at or below pos
+          const unsigned after =
+              sh < 0 ? ~0u : (sh >= 31 ? 0u : ~0u << (sh + 1));
+          const unsigned m = alive[u] & after;
+          if (m) j = 32 * u + __ffs(m) - 1;
+        }
+        laps.lap(kLapSearch);
+        if (j < 0) break;
+        int oj = 0;
+#pragma unroll
+        for (int u = 0; u < kWords; ++u) {
+          if (u == (j >> 5)) {
+            kept[u] |= 1u << (j & 31);
+            oj = o[u];
+          }
+        }
+        pos = j;
+        ++rounds;
+        if (++k == nn) break;
+        // reject every alive candidate after j that keeper j is closer to
+        const int ok = __shfl_sync(kFull, oj, j & 31);
+        float pv[kWords];
+#pragma unroll
+        for (int u = 0; u < kWords; ++u) {
+          pv[u] = kInf;
+          if (((alive[u] >> lane) & 1u) && 32 * u + lane > j)
+            pv[u] = __ldg(pb + (size_t)o[u] * C + ok);
+        }
+#pragma unroll
+        for (int u = 0; u < kWords; ++u)
+          alive[u] &= ~__ballot_sync(kFull, pv[u] < d[u]);
+        laps.lap(kLapReject);
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kWords; ++u) {
+    const int j = 32 * u + lane;
+    if (j < C) kept_mask[row0 + j] = (kept[u] >> lane) & 1u;
+  }
+  if (lane == 0) kept_count[b] = k;
+  laps.lap(kLapWrite);
+  laps.flush(lane, rounds, prune);
+}
+
+// Sets of more than 256 candidates: the alive and kept words in shared
+// memory, order and d_s read through L1 (a staged block would not fit).
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 prune_scan_kernel(const float* __restrict__ d_s,
                   const unsigned char* __restrict__ valid_s,
@@ -50,41 +313,109 @@ prune_scan_kernel(const float* __restrict__ d_s,
                   const unsigned char* __restrict__ do_prune, int B, int C,
                   int nn, unsigned char* __restrict__ kept_mask,
                   int* __restrict__ kept_count) {
-  extern __shared__ int kept_s[];
+  extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int b = blockIdx.x * kWarpsPerBlock + warp;
   if (b >= B) return;                    // a whole warp; no block barrier
-  int* kept = kept_s + (size_t)warp * nn;
+  Laps laps;
+  laps.start();
+  const int W = (C + 31) >> 5;
+  unsigned* alive = reinterpret_cast<unsigned*>(smem + warp * words_bytes(C));
+  unsigned* kept = alive + W;
   const bool prune = do_prune[b] != 0;
   const size_t row0 = (size_t)b * C;
   const float* pb = pair + row0 * C;
-  int k = 0;
-  for (int j0 = 0; j0 < C; j0 += 32) {
-    const int jl = j0 + lane;
-    const float dl = jl < C ? d_s[row0 + jl] : 0.f;
-    const int vl = jl < C ? valid_s[row0 + jl] : 0;
-    const int ol = jl < C ? (int)order[row0 + jl] : 0;
-    const int n = min(32, C - j0);
-    for (int t = 0; t < n; ++t) {
-      const float d = __shfl_sync(kFull, dl, t);
-      const int v = __shfl_sync(kFull, vl, t);
-      const int o = __shfl_sync(kFull, ol, t);
-      bool take = v && k < nn;                         // warp-uniform
-      if (take && prune) {
-        bool conflict = false;
-        const float* pr = pb + (size_t)o * C;
-        for (int r = lane; r < k; r += 32) conflict |= pr[kept[r]] < d;
-        take = !__any_sync(kFull, conflict);
-      }
-      if (lane == 0) kept_mask[row0 + j0 + t] = take;
-      if (take) {
-        if (lane == 0) kept[k] = o;
-        ++k;
-        __syncwarp();
+  const float kInf = __int_as_float(0x7f800000);
+
+  // alive = valid, a word per 32 candidates, 8 words' loads in flight
+  for (int w0 = 0; w0 < W; w0 += kWordsPerPass) {
+    int v[kWordsPerPass];
+#pragma unroll
+    for (int u = 0; u < kWordsPerPass; ++u) {
+      const int j = ((w0 + u) << 5) + lane;
+      v[u] = j < C ? valid_s[row0 + j] : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kWordsPerPass; ++u) {
+      const unsigned m = __ballot_sync(kFull, v[u] != 0);
+      if (lane == 0 && w0 + u < W) {
+        alive[w0 + u] = m;
+        kept[w0 + u] = 0u;
       }
     }
   }
+  __syncwarp();
+  laps.lap(kLapInit);
+
+  int k = 0, rounds = 0;
+  if (!prune) {
+    // the first nn valid candidates
+    for (int w = 0; w < W && k < nn; ++w) {
+      const int c = __popc(alive[w]);
+      if (lane == 0) kept[w] = first_bits(alive[w], min(c, nn - k));
+      k += min(c, nn - k);
+    }
+  } else {
+    int pos = -1;
+    while (k < nn) {
+      const int j = next_alive(alive, W, pos, lane);
+      laps.lap(kLapSearch);
+      if (j < 0) break;
+      if (lane == 0) kept[j >> 5] |= 1u << (j & 31);
+      pos = j;
+      ++rounds;
+      if (++k == nn) break;
+      // reject every alive candidate after j that keeper j is closer to
+      const int ok = (int)__ldg(order + row0 + j);
+      for (int w0 = (j + 1) >> 5; w0 < W; w0 += kWordsPerPass) {
+        float pv[kWordsPerPass], dv[kWordsPerPass];
+#pragma unroll
+        for (int u = 0; u < kWordsPerPass; ++u) {
+          const int w = w0 + u, i = (w << 5) + lane;
+          pv[u] = kInf;
+          dv[u] = 0.f;
+          if (w < W && i > j && ((alive[w] >> lane) & 1u)) {
+            const int o = (int)__ldg(order + row0 + i);
+            dv[u] = __ldg(d_s + row0 + i);
+            pv[u] = __ldg(pb + (size_t)o * C + ok);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kWordsPerPass; ++u) {
+          const unsigned rej = __ballot_sync(kFull, pv[u] < dv[u]);
+          if (lane == 0 && rej) alive[w0 + u] &= ~rej;
+        }
+      }
+      __syncwarp();
+      laps.lap(kLapReject);
+    }
+  }
+  __syncwarp();
+  for (int j = lane; j < C; j += 32)
+    kept_mask[row0 + j] = (kept[j >> 5] >> (j & 31)) & 1u;
   if (lane == 0) kept_count[b] = k;
+  laps.lap(kLapWrite);
+  laps.flush(lane, rounds, prune);
+}
+
+// The kernel for sets of W words: in registers up to kMaxRegWords words
+// (rounded up to a power of two), else in shared memory, never staged.
+constexpr int kMaxRegWords = 8;
+
+const void* pick_kernel(int W, bool staged) {
+  if (W <= 1)
+    return staged ? (const void*)prune_scan_regs<1, true>
+                  : (const void*)prune_scan_regs<1, false>;
+  if (W <= 2)
+    return staged ? (const void*)prune_scan_regs<2, true>
+                  : (const void*)prune_scan_regs<2, false>;
+  if (W <= 4)
+    return staged ? (const void*)prune_scan_regs<4, true>
+                  : (const void*)prune_scan_regs<4, false>;
+  if (W <= kMaxRegWords)
+    return staged ? (const void*)prune_scan_regs<8, true>
+                  : (const void*)prune_scan_regs<8, false>;
+  return (const void*)prune_scan_kernel;
 }
 
 }  // namespace
@@ -93,19 +424,48 @@ extern "C" {
 
 // d_s f32[B, C], valid_s bool[B, C], order i64[B, C], pair f32[B, C, C],
 // do_prune bool[B], all contiguous; writes kept_mask bool[B, C] and
-// kept_count i32[B].  Returns the launch's CUDA error (0 on success).
+// kept_count i32[B].  ``stage``: -1 stages the pair blocks in shared
+// memory iff C <= kStageMaxC, 0 never, 1 always (a probe's choice).
+// Returns the launch's CUDA error (0 on success).
 int prune_scan(const float* d_s, const unsigned char* valid_s,
                const long long* order, const float* pair,
                const unsigned char* do_prune, int B, int C, int nn,
-               unsigned char* kept_mask, int* kept_count, void* stream_ptr) {
-  const size_t smem = sizeof(int) * (size_t)kWarpsPerBlock * nn;
-  if (B <= 0 || C <= 0 || nn <= 0 || smem > 48 * 1024)
+               int stage, unsigned char* kept_mask, int* kept_count,
+               void* stream_ptr) {
+  if (B <= 0 || C <= 0 || nn <= 0 || stage < -1 || stage > 1)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const int W = (C + 31) / 32;
+  const bool regs = W <= kMaxRegWords;
+  const size_t staged = kWarpsPerBlock * stage_bytes(C);
+  const bool use_stage =
+      stage == 1 || (stage == -1 && C <= kStageMaxC && staged <= kSmemLimit);
+  if (use_stage && (!regs || staged > kSmemLimit))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      use_stage ? staged : regs ? 0 : kWarpsPerBlock * words_bytes(C);
+  if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
+  const void* fn = pick_kernel(W, use_stage);
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  void* args[] = {&d_s, &valid_s, &order, &pair, &do_prune,
+                  &B, &C, &nn, &kept_mask, &kept_count};
   const int blocks = (B + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  prune_scan_kernel<<<blocks, kWarpsPerBlock * 32, smem, stream>>>(
-      d_s, valid_s, order, pair, do_prune, B, C, nn, kept_mask, kept_count);
-  return (int)cudaGetLastError();
+  return (int)cudaLaunchKernel(fn, dim3(blocks), dim3(kWarpsPerBlock * 32),
+                               args, smem,
+                               static_cast<cudaStream_t>(stream_ptr));
 }
+
+#ifdef PG_PROFILE
+// Copies the instrumented build's counters (the laps' cycles, rounds, sets,
+// pruned sets) to ``out`` and zeroes them.
+int prune_scan_profile(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_prune_prof,
+                                         sizeof(g_prune_prof));
+  if (err != cudaSuccess) return (int)err;
+  const unsigned long long zero[kLaps + 3] = {};
+  return (int)cudaMemcpyToSymbol(g_prune_prof, zero, sizeof(zero));
+}
+#endif
 
 }  // extern "C"

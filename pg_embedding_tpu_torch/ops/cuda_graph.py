@@ -14,9 +14,9 @@ host.  Here each loop is one launch:
     float32 packed records, any metric and T, and ef and cand_cap up to
     MAX_WALK_QUEUE (core/search.walk_route decides which walks come here).
   * ``prune_scan`` (``csrc/prune_scan.cu``): the scan of a batch of sorted
-    candidate sets, one warp per set, reading the pairwise distances
-    through the sort order.  Its plain twin is core/build's
-    ``_prune_scan_plain``.
+    candidate sets, one warp per set and one round per kept neighbour,
+    reading the pairwise distances through the sort order.  Its plain
+    twin is core/build's ``_prune_scan_plain``.
 
 Each wrapper runs the plain twin on a CPU tensor and launches its kernel on
 a CUDA tensor or raises.  The sources' notes say what bounds each kernel on
@@ -42,23 +42,41 @@ SMEM_LIMIT = 232_448                # bytes of shared memory a block can use
 _METRICS = (Metric.L2.value, Metric.COSINE.value, Metric.MANHATTAN.value)
 
 
-def _walk_smem_bytes(ef: int, cand_cap: int, t: int, max_m: int,
-                     dims: int) -> int:
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length()
+
+
+def _walk_layout(ef: int, cand_cap: int, t: int, max_m: int,
+                 dims: int) -> tuple:
     """Shared memory of one walk block, as csrc/beam_walk.cu lays it out:
-    the query row (D rounded up to 4 floats), the result and candidate
-    queues twice over (d, id), 24 bytes per expansion slot (its id, the
-    compacted processed slots, the admitted (d, slot) and their ranked
-    (d, id)), 8 per popped candidate and 4 counters.  Raises ValueError
-    past SMEM_LIMIT."""
+    (bytes, held-table slots, slot-table slots).  The query row (D rounded
+    up to 4 floats), the result and candidate queues twice over (d, id),
+    24 bytes per expansion slot (its id, the compacted processed slots, the
+    admitted (d, slot) and their ranked (d, id)) and 8 counters; then the
+    dedupe's hash tables: the held ids (4 bytes a slot, a power of two of
+    at least 2 (ef + cand_cap) slots) and the expansion's ids with their
+    smallest slot (8 bytes a slot, at least 2 T maxM).  Where the tables do
+    not fit, the kernel dedupes by comparison and they take 0.  Raises
+    ValueError past SMEM_LIMIT."""
     tm = t * max_m
-    smem = (4 * (-(-dims // 4) * 4) + 16 * (ef + cand_cap) + 24 * tm + 8 * t
-            + 16)
-    if smem > SMEM_LIMIT:
+    base = 4 * (-(-dims // 4) * 4) + 16 * (ef + cand_cap) + 24 * tm + 32
+    held, slots = _pow2_at_least(2 * (ef + cand_cap)), _pow2_at_least(2 * tm)
+    tables = 4 * held + 8 * slots
+    if base + tables <= SMEM_LIMIT:
+        return base + tables, held, slots
+    if base > SMEM_LIMIT:
         raise ValueError(
-            f"the walk needs {smem} bytes of shared memory a block "
+            f"the walk needs {base} bytes of shared memory a block "
             f"(ef={ef}, cand_cap={cand_cap}, T={t}, maxM={max_m}, D={dims});"
             f" the limit is {SMEM_LIMIT}")
-    return smem
+    return base, 0, 0
+
+
+def _walk_smem_bytes(ef: int, cand_cap: int, t: int, max_m: int,
+                     dims: int) -> int:
+    """The bytes of _walk_layout: what the launch passes and the C side
+    checks."""
+    return _walk_layout(ef, cand_cap, t, max_m, dims)[0]
 
 
 def _check_walk_args(graph, queries, records, ef, cand_cap, t,
@@ -111,10 +129,21 @@ def beam_walk(graph, queries: torch.Tensor, *, ef: int, metric_value: int,
         raise ValueError(f"no kernel for device {queries.device}")
     t = int(expand_width)
     _check_walk_args(graph, queries, records, ef, cand_cap, t, metric_value)
-    queries = queries.contiguous()
+    out = _launch_walk(_kernels.load_library(), graph, queries.contiguous(),
+                       records, ef=ef, cand_cap=cand_cap, t=t,
+                       metric_value=metric_value,
+                       smem=_walk_smem_bytes(ef, cand_cap, t, graph.max_m,
+                                             queries.shape[1]))
+    LAUNCHES["beam_walk"] += int(queries.shape[0] > 0)   # b = 0: no launch
+    return out
+
+
+def _launch_walk(lib, graph, queries, records, *, ef, cand_cap, t,
+                 metric_value, smem):
+    """One launch of ``lib``'s beam_walk on checked arguments (the
+    wrapper's library, or a probe's build of the same source)."""
     b, dims = queries.shape
     dev = queries.device
-    smem = _walk_smem_bytes(ef, cand_cap, t, graph.max_m, dims)
     out_d = torch.empty((b, ef), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, ef), dtype=torch.int32, device=dev)
     hops = torch.empty(b, dtype=torch.int32, device=dev)
@@ -128,7 +157,6 @@ def beam_walk(graph, queries: torch.Tensor, *, ef: int, metric_value: int,
     else:
         entry = out_d[:, 0]                 # never read
     rows = graph.vectors if records is None else records
-    lib = _kernels.load_library()
     with torch.cuda.device(dev):
         err = lib.beam_walk(
             graph.links.data_ptr(), graph.link_counts.data_ptr(),
@@ -138,7 +166,6 @@ def beam_walk(graph, queries: torch.Tensor, *, ef: int, metric_value: int,
             out_i.data_ptr(), hops.data_ptr(), evals.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     _kernels.check(lib, err, "beam_walk")
-    LAUNCHES["beam_walk"] += 1
     return out_d, out_i, hops, evals
 
 
@@ -167,18 +194,28 @@ def prune_scan(d_s: torch.Tensor, valid_s: torch.Tensor, order: torch.Tensor,
             raise ValueError(f"{name} must be contiguous")
     if nn < 1:
         raise ValueError(f"nn={nn} < 1")
+    out = _launch_prune(_kernels.load_library(), d_s, valid_s, order, pair_d,
+                        do_prune, int(nn))
+    LAUNCHES["prune_scan"] += int(d_s.numel() > 0)       # empty: no launch
+    return out
+
+
+def _launch_prune(lib, d_s, valid_s, order, pair_d, do_prune, nn,
+                  stage: int = -1):
+    """One launch of ``lib``'s prune_scan on checked arguments; ``stage``
+    -1 lets the kernel choose whether to stage the pair blocks in shared
+    memory, 0 / 1 forces it (a probe's choice)."""
+    b, c = d_s.shape
     dev = d_s.device
     kept_mask = torch.empty((b, c), dtype=torch.bool, device=dev)
     kept_count = torch.empty(b, dtype=torch.int32, device=dev)
     if b == 0 or c == 0:
         return kept_mask.fill_(False), kept_count.fill_(0)
-    lib = _kernels.load_library()
     with torch.cuda.device(dev):
         err = lib.prune_scan(
             d_s.data_ptr(), valid_s.data_ptr(), order.data_ptr(),
-            pair_d.data_ptr(), do_prune.data_ptr(), b, c, int(nn),
+            pair_d.data_ptr(), do_prune.data_ptr(), b, c, nn, stage,
             kept_mask.data_ptr(), kept_count.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     _kernels.check(lib, err, "prune_scan")
-    LAUNCHES["prune_scan"] += 1
     return kept_mask, kept_count

@@ -66,6 +66,44 @@ def prune_case(seed, b, c):
             torch.from_numpy(pair))
 
 
+def prune_case_adversarial(seed, b, c, symmetric=True):
+    """prune_case, plus: a pair matrix that is not symmetric (when asked),
+    a quarter of the sets repeating one id, a quarter all valid (as a
+    re-prune's maxM + 1 candidates usually are) and an eighth with nothing
+    valid."""
+    cand_d, cand_i, pair = prune_case(seed, b, c)
+    if not symmetric:
+        rng = np.random.default_rng(seed + 1)
+        pair = torch.from_numpy((rng.integers(1, 12, size=(b, c, c)) / 4)
+                                .astype(np.float32))
+    cand_i[1::4, : min(c, 3)] = cand_i[1::4, :1]
+    full = cand_i[2::4]
+    cand_i[2::4] = 300_000 + torch.arange(full.numel(),
+                                          dtype=torch.int32).view_as(full)
+    cand_d[2::4] = torch.where(torch.isfinite(cand_d[2::4]), cand_d[2::4],
+                               0.25)
+    cand_i[3::8] = -1
+    return cand_d, cand_i, pair
+
+
+def repeated_links(arrays, seed=13):
+    """The integer graph with heavily repeated links: each row's slots
+    draw from its first four links and a small shared pool, so ids repeat
+    within a popped row and across the rows of a step."""
+    rng = np.random.default_rng(seed)
+    links = arrays["links"].copy()
+    n, max_m = links.shape
+    counts = arrays["link_counts"]
+    pool = rng.integers(0, int(arrays["n_nodes"]), size=16)
+    for i in range(n):
+        k = int(counts[i])
+        if k == 0:
+            continue
+        own = links[i, : min(k, 4)]
+        links[i, :k] = rng.choice(np.concatenate([own, pool]), size=k)
+    return dict(arrays, links=links)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -487,6 +525,27 @@ def test_beam_walk_edges(cuda, int_graphs, case):
         assert bool((got[2] == 1).all()) and bool((got[3] == 0).all())
 
 
+@pytest.mark.parametrize("metric", ["l2", "manhattan"])
+@pytest.mark.parametrize("width,ef,cap", [(16, 64, 64), (16, 32, 128),
+                                          (8, 64, 64), (64, 4096, 4096)])
+def test_beam_walk_repeated_links(cuda, int_graphs, metric, width, ef, cap):
+    """Links that repeat within a popped row and across the rows of a
+    step, at T = 16 (up to 256 slots, the 256-thread block) and at T = 64
+    with ef = cand_cap = 4096, where the dedupe tables do not fit and the
+    kernel compares instead: bit-equal to the twin."""
+    from pg_embedding_tpu_torch.ops import cuda_graph as cg
+    arrays, qs = int_graphs[metric]
+    arrays = repeated_links(arrays)
+    g = _card_graph(arrays, cuda)
+    held = cg._walk_layout(ef, cap, width, g.max_m, D)[1]
+    assert (held == 0) == (ef == 4096)
+    got, want = _walk_pair(g, torch.from_numpy(qs).to(cuda), ef=ef,
+                           metric_value=METRICS[metric], cand_cap=cap,
+                           expand_width=width)
+    _assert_bit_equal(got, want)
+    assert bool((got[2] > 1).all())
+
+
 @pytest.mark.parametrize("width", [1, 4, 8])
 def test_beam_walk_cosine(cuda, int_graphs, width):
     """Cosine scores are not exact: ids, hops and evals equal on >= 99% of
@@ -528,6 +587,49 @@ def test_packed_f32_walk_equals_rows_walk(cuda):
         rows = cg.beam_walk(g, qs.to(cuda), **kw)
         packed = cg.beam_walk(g, qs.to(cuda), records=recs, **kw)
         _assert_bit_equal(packed, rows)
+
+
+@pytest.mark.parametrize("c,nn", [(1, 1), (31, 16), (33, 32), (33, 16),
+                                  (129, 16), (129, 1), (20, 32), (300, 24)])
+@pytest.mark.parametrize("b", [1, 301])
+@pytest.mark.parametrize("symmetric", [True, False])
+def test_prune_scan_adversarial(cuda, c, nn, b, symmetric):
+    """Ties, repeated ids, invalid and empty sets, unpruned sets, nn = 1,
+    C off the warp's width, B = 1 and B odd (a block holds two sets), a
+    pair matrix that is not symmetric, sets past 256 candidates (their bits
+    in shared memory, not registers): the wrapper, and each of the
+    kernel's two variants (the pair block staged in shared memory or read
+    from L2; a staged block that does not fit is refused), bit-equal to the
+    twin."""
+    from pg_embedding_tpu_torch import _kernels
+    from pg_embedding_tpu_torch.core import build as tb
+    from pg_embedding_tpu_torch.ops import cuda_graph as cg
+    cand_d, cand_i, pair = prune_case_adversarial(c * 11 + nn, max(b, 8), c,
+                                                  symmetric)
+    cand_d, cand_i, pair = cand_d[:b], cand_i[:b], pair[:b]
+    _, order, d_s, valid_s, do_prune = tb._prune_order(cand_d, cand_i, nn)
+    want = tb._prune_scan_plain(d_s, valid_s, order, pair, do_prune, nn)
+    args = [x.to(cuda).contiguous() for x in (d_s, valid_s, order, pair,
+                                              do_prune)]
+    got = cg.prune_scan(*args, nn)
+    for a, w in zip(got, want):
+        assert torch.equal(a.cpu(), w)
+    lib = _kernels.load_library()
+    for stage in (0, 1):
+        mask = torch.empty((b, c), dtype=torch.bool, device=cuda)
+        count = torch.empty(b, dtype=torch.int32, device=cuda)
+        err = lib.prune_scan(*(x.data_ptr() for x in args), b, c, nn, stage,
+                             mask.data_ptr(), count.data_ptr(),
+                             torch.cuda.current_stream().cuda_stream)
+        # two warps a block; a set's words and, staged, its [C, C | 1] block
+        words = 0 if c <= 256 else 2 * 8 * -(-c // 32)
+        if stage and words + 2 * 4 * c * (c | 1) > cg.SMEM_LIMIT:
+            assert err != 0
+            continue
+        _kernels.check(lib, err, "prune_scan")
+        torch.cuda.synchronize()
+        assert torch.equal(mask.cpu(), want[0]), stage
+        assert torch.equal(count.cpu(), want[1]), stage
 
 
 @pytest.mark.parametrize("c", [33, 128, 256])

@@ -11,7 +11,9 @@ its plain twin).
     held as tests/test_torch_search.py holds it (>= 99% of queries equal,
     every other one at a near-tie).
   * core/search.walk_route: which walks go to the kernel.
-  * ops/cuda_graph._walk_smem_bytes: the walk block's shared memory.
+  * ops/cuda_graph._walk_layout: the walk block's shared memory and the
+    sizes of its dedupe tables (tests/test_torch_schedules.py holds the
+    tables' rule).
   * core/build._prune_scan_plain: reading pair_d through the sort order
     equals scanning the gathered matrix.
 """
@@ -158,19 +160,27 @@ def test_cpu_walks_are_not_counted_on_card(fixture):
     assert ts.PLAIN_WALKS_ON_CARD == before
 
 
-@pytest.mark.parametrize("ef,cap,t,max_m,dims", [
-    (64, 64, 8, 32, 128),          # the smoke's main path at T = 8
-    (4096, 4096, 8, 32, 128),      # the widest ef the API asks for
-    (1, 1, 1, 1, 1),
-    (16, 48, 3, 7, 30),            # D rounds up to whole float4's
+@pytest.mark.parametrize("ef,cap,t,max_m,dims,tables", [
+    (64, 64, 8, 32, 128, True),    # the smoke's main path at T = 8
+    (4096, 4096, 8, 32, 128, True),  # the widest ef the API asks for
+    (1, 1, 1, 1, 1, True),
+    (16, 48, 3, 7, 30, True),      # D rounds up to whole float4's
+    (4096, 4096, 8, 32, 20_000, False),   # no room for the hash tables
 ])
-def test_walk_smem_bytes(ef, cap, t, max_m, dims):
+def test_walk_smem_bytes(ef, cap, t, max_m, dims, tables):
     query = 4 * 4 * -(-dims // 4)
     queues = 2 * (ef + cap) * (4 + 4)          # two buffers of (d, id)
     slots = t * max_m * (4 + 4 + 4 + 4 + 4 + 4)
-    popped = t * (4 + 4)
-    assert cg._walk_smem_bytes(ef, cap, t, max_m, dims) == (
-        query + queues + slots + popped + 16)
+    counters = 8 * 4
+    held = 1 << (2 * (ef + cap) - 1).bit_length()   # ids, 4 bytes each
+    first = 1 << (2 * t * max_m - 1).bit_length()   # (id, slot), 8 bytes
+    base = query + queues + slots + counters
+    want = (base + 4 * held + 8 * first, held, first) if tables else (
+        base, 0, 0)
+    assert cg._walk_layout(ef, cap, t, max_m, dims) == want
+    assert cg._walk_smem_bytes(ef, cap, t, max_m, dims) == want[0]
+    assert want[0] <= cg.SMEM_LIMIT
+    assert held >= 2 * (ef + cap) and first >= 2 * t * max_m
 
 
 def test_walk_smem_bytes_refuses_past_the_limit():
