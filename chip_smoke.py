@@ -46,19 +46,21 @@ exits non-zero):
      first prune of each width is captured: the insert's, C = 128, nn =
      16, and the first back-link re-prune's, C = maxM + 1 = 33, nn = 32),
      with the main path's build's prune_scan launches counted at each
-     width.  Times of each kernel on the card (20 calls captured in a CUDA
-     graph, replayed between CUDA events: the host's launch overhead is
-     not timed) and a call (CUDA events around one call, median of 5, as
-     for each twin) at each shape beside the kernel's bound (the bytes it must read, from
-     the kernel's own hop and evaluation counts, and the pairs the scan
-     tests) and the share of it reached; torch.profiler (CPU and CUDA
-     activity) over one search(mode="graph") at T=4 and T=8 and over that
-     insert: wall time, device-busy share and device operations; last,
-     each kernel's phases at those shapes from a clock64()-stamped build
-     of the same sources (pg_embedding_tpu_torch/graph_probe.py, built
-     beside the port's library; never launched by the main path), and
-     ptxas's registers and spills of every walk and scan instance in
-     phase 3's report;
+     width (by the wrapper, ops/cuda_graph.PRUNE_SHAPES).  Times of each
+     kernel a call (CUDA events around one call, median of 5, as for each
+     twin: the JSON's "ms") and on the card (20 calls
+     captured in a CUDA graph, replayed between CUDA events: the host's
+     launch overhead is not timed; for the walk it includes the wrapper's
+     entry-distance op) at each shape beside the kernel's bound (the bytes
+     it must read, from the kernel's own hop and evaluation counts, and the
+     pairs the scan tests) and the share of it reached; torch.profiler
+     (CPU and CUDA activity) over one search(mode="graph") at T=4 and T=8
+     and over that insert: wall time, device-busy share and device
+     operations; last, each kernel's phases at those shapes from a
+     clock64()-stamped build of the same sources
+     (pg_embedding_tpu_torch/graph_probe.py, built beside the port's
+     library; never launched by the main path), and ptxas's registers
+     and spills of every walk and scan instance in phase 3's report;
   5. on the same index: tune_exact8_chunk (its cache in a temp dir, not
      saved): the exact8 sweep's ms per 256-row insert batch at chunks of
      262,144 / 524,288 / 1,048,576 / 2,097,152 rows, and the chunk chosen;
@@ -130,10 +132,11 @@ Phases are timed with utils/profiling's Timer (synchronising the card).
 The last three lines are the card's nvidia-smi line, a JSON line of the
 kernels ("launches" from the main path of phase 4; for prune_scan also
 "insert_launches" and "reprune_launches", the build's launches at each
-width, and the re-prune shape's "reprune_ms", "reprune_call_ms",
-"reprune_plain_ms" and "reprune_bound_ms"; the walk and the scan also
-give "call_ms", a call's time with the host's share; "sharded_launches"
-from
+width, and the re-prune shape's "reprune_ms", "reprune_device_ms",
+"reprune_plain_ms" and "reprune_bound_ms"; "ms" is a call's time between
+CUDA events, host share included, for every kernel, and
+the walk and the scan also give "device_ms", the card's time from the CUDA
+graph; "sharded_launches" from
 phase 9, "multiprocess_launches" summed over phase 11's ranks, each
 counted from zero; the main path, phase 9 and phase 11 must each launch
 beam_walk and prune_scan, and the main path's graph calls must run no
@@ -417,9 +420,8 @@ def compiler_report(_kernels):
         if m:
             return (f"prune_scan_regs<{m[1]} words, pair block "
                     f"{'staged' if m[2] == '1' else 'in L2'}>")
-        m = re.search(r"prune_scan_kernelILb([01])E", mangled)
-        return m and (f"prune_scan_kernel<pair block "
-                      f"{'staged' if m[1] == '1' else 'in L2'}>")
+        return ("prune_scan_kernel (words in shared memory)"
+                if "prune_scan_kernel" in mangled else None)
     name, built = None, set()
     for line in _kernels.build_log().splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -476,6 +478,7 @@ def reset_launches():
     for counts in (cuda_bruteforce.LAUNCHES, cuda_graph.LAUNCHES):
         for name in counts:
             counts[name] = 0
+    cuda_graph.PRUNE_SHAPES.clear()
 
 
 def launch_counts():
@@ -509,22 +512,15 @@ def main_path(torch, cb, HnswConfig, HnswIndex, dev, n, n_queries):
     idx = HnswIndex(HnswConfig(dims=DIMS, m=16, ef_construction=64,
                                ef_search=64), device=dev,
                     search_expand_width=GRAPH_T)
-    from pg_embedding_tpu_torch.core import build as core_build
-    real_scan, shapes = core_build.prune_scan, {}
-
-    def tally(*args):                   # prune_scan launches by (C, nn)
-        key = (args[0].shape[1], args[-1])
-        shapes[key] = shapes.get(key, 0) + 1
-        return real_scan(*args)
-    core_build.prune_scan = tally
-    try:
-        with timer.phase("build", torch.empty(0, device=dev)):
-            idx.build(pts)
-    finally:
-        core_build.prune_scan = real_scan
+    from pg_embedding_tpu_torch.ops import cuda_graph
+    with timer.phase("build", torch.empty(0, device=dev)):
+        idx.build(pts)
     build_s = timer.seconds["build"]
+    shapes = dict(cuda_graph.PRUNE_SHAPES)          # counted by the wrapper
+    check(sum(shapes.values()) == cuda_graph.LAUNCHES["prune_scan"],
+          "prune_scan's launches by shape do not sum to its launches")
     log(f"build: {n} vectors in {build_s:.1f} s = {n / build_s:.0f} vec/s; "
-        f"prune_scan calls by (C, nn): {dict(sorted(shapes.items()))}")
+        f"prune_scan launches by (C, nn): {dict(sorted(shapes.items()))}")
 
     g = idx.graph
     links = g.links[:n]
@@ -703,8 +699,8 @@ def walk_kernels_phase(torch, idx, qs, dev, tmp, single, profile_lib):
         err = float((kd[same] - pd[same]).abs().max()) if same.any() else 0.0
         hk, hp = float(kh.float().mean()), float(ph.float().mean())
         ek, ep = float(ke.float().mean()), float(pe.float().mean())
-        ms = device_ms(lambda: cg.beam_walk(g, q, **kw))
-        call_ms = median_ms(torch, lambda: cg.beam_walk(g, q, **kw))
+        dev_ms = device_ms(lambda: cg.beam_walk(g, q, **kw))
+        ms = median_ms(torch, lambda: cg.beam_walk(g, q, **kw))
         plain_ms = median_ms(torch, lambda: core_search._search_batch(
             g, q, **kw))
         bound = walk_bound_ms(kh, ke, b, g.dims, t, max_m)
@@ -714,10 +710,10 @@ def walk_kernels_phase(torch, idx, qs, dev, tmp, single, profile_lib):
             f"differ on {n_diff} of {b} queries; mean hops {hk:.2f} / "
             f"{hp:.2f} (max {int(kh.max())}), dist_evals {ek:.1f} / "
             f"{ep:.1f}; max_abs_err {err:.3g} where ids agree; kernel "
-            f"{ms:.3f} ms on the card (a CUDA graph of 20 calls), "
-            f"{call_ms:.3f} ms a call, plain {plain_ms:.3f} ms (median of "
-            f"5, CUDA events), bound {bound:.4f} ms (bytes; "
-            f"{bound / ms:.1%} of it reached)")
+            f"{ms:.3f} ms a call, plain {plain_ms:.3f} ms (median of 5, "
+            f"CUDA events); kernel {dev_ms:.3f} ms on the card (a CUDA "
+            f"graph of 20 calls); bound {bound:.4f} ms (bytes; "
+            f"{bound / dev_ms:.1%} of it reached on the card)")
         check(abs(rec_k - rec_p) <= 0.002,
               f"T={t}: walk recall {rec_k} vs the twin's {rec_p}")
         check(n_diff <= 0.02 * b, f"T={t}: ids differ on {n_diff} queries")
@@ -725,7 +721,7 @@ def walk_kernels_phase(torch, idx, qs, dev, tmp, single, profile_lib):
               f"T={t}: hops {hk} / {hp}, evals {ek} / {ep}")
         if t == GRAPH_T:
             out["beam_walk"] = dict(max_abs_err=err, ms=ms,
-                                    call_ms=call_ms, plain_ms=plain_ms,
+                                    device_ms=dev_ms, plain_ms=plain_ms,
                                     bound_ms=bound, bound_by="bytes",
                                     library_ms=None)
     integer_walks(torch, cg, core_search, dev)
@@ -776,9 +772,9 @@ def walk_kernels_phase(torch, idx, qs, dev, tmp, single, profile_lib):
         what = "re-prune" if c == reprune_c else "insert"
         check(all(torch.equal(x, y) for x, y in zip(got, want)),
               f"prune_scan differs from the plain twin at the {what} shape")
-        ms = device_ms(lambda: cg.prune_scan(d_s, valid_s, order, pair,
-                                             do_prune, nn))
-        call_ms = median_ms(torch, lambda: cg.prune_scan(
+        dev_ms = device_ms(lambda: cg.prune_scan(d_s, valid_s, order, pair,
+                                                 do_prune, nn))
+        ms = median_ms(torch, lambda: cg.prune_scan(
             d_s, valid_s, order, pair, do_prune, nn))
         plain_ms = median_ms(torch, lambda: core_build._prune_scan_plain(
             d_s, valid_s, order, pair, do_prune, nn))
@@ -792,18 +788,19 @@ def walk_kernels_phase(torch, idx, qs, dev, tmp, single, profile_lib):
         log(f"prune_scan vs plain at the {what} shape at {n} rows (B={bsz}, "
             f"C={c}, nn={nn}, {int(do_prune.sum())} sets pruned, {pairs} "
             f"pairs tested; {launches} launches of this width in the main "
-            f"path's build): bit-equal; kernel {ms:.4f} ms on the card (a "
-            f"CUDA graph of 20 calls), {call_ms:.4f} ms a call, plain "
-            f"{plain_ms:.3f} ms (median of 5, CUDA events), bound "
-            f"{bound:.5f} ms (bytes; {bound / ms:.1%} of it reached)")
+            f"path's build): bit-equal; kernel {ms:.4f} ms a call, plain "
+            f"{plain_ms:.3f} ms (median of 5, CUDA events); kernel "
+            f"{dev_ms:.4f} ms on the card (a CUDA graph of 20 calls); bound "
+            f"{bound:.5f} ms (bytes; {bound / dev_ms:.1%} of it reached on "
+            f"the card)")
         if what == "insert":
-            out["prune_scan"] = dict(max_abs_err=0.0, ms=ms, call_ms=call_ms,
+            out["prune_scan"] = dict(max_abs_err=0.0, ms=ms, device_ms=dev_ms,
                                      plain_ms=plain_ms, bound_ms=bound,
                                      bound_by="bytes", library_ms=None,
                                      insert_launches=launches)
         else:
             out["prune_scan"].update(
-                reprune_ms=ms, reprune_call_ms=call_ms,
+                reprune_ms=ms, reprune_device_ms=dev_ms,
                 reprune_plain_ms=plain_ms, reprune_bound_ms=bound,
                 reprune_launches=launches, reprune_shape=[bsz, c, nn])
     phase_breakdown(torch, g, q, captured, profile_lib)
@@ -1761,8 +1758,7 @@ def main():
     # the port's own
     from pg_embedding_tpu_torch import graph_probe
     pool = concurrent.futures.ThreadPoolExecutor(1)
-    profile_lib = pool.submit(graph_probe.build, "profile",
-                              ("-DPG_PROFILE",))
+    profile_lib = pool.submit(graph_probe.build, "profile")
     _kernels.load_library()
     log(f"kernel build: {time.time() - t0:.1f} s (nvcc, sm_90a)")
     compiler_report(_kernels)

@@ -51,7 +51,7 @@ def _declare(lib) -> None:
         fn.restype = ci
     lib.beam_walk.argtypes = [*[vp] * 5, *[ci] * 10, *[vp] * 5]
     lib.beam_walk.restype = ci
-    lib.prune_scan.argtypes = [*[vp] * 5, *[ci] * 4, *[vp] * 3]
+    lib.prune_scan.argtypes = [*[vp] * 5, *[ci] * 3, *[vp] * 3]
     lib.prune_scan.restype = ci
     lib.bruteforce_topk_error_string.argtypes = [ci]
     lib.bruteforce_topk_error_string.restype = ctypes.c_char_p

@@ -83,32 +83,16 @@
 #include <cstddef>
 #include <cstdint>
 
-#ifndef WALK_ROWS
-#define WALK_ROWS 8
-#endif
-#ifndef WALK_THREADS
-#define WALK_THREADS 0                   // 0: by T * maxM, as above
-#endif
-#ifndef WALK_RANK_GROUP
-#define WALK_RANK_GROUP 0                // 0: lanes an admitted entry, by n
-#endif
-#ifndef WALK_BLOCKS_128
-#define WALK_BLOCKS_128 5                // blocks of 128 an SM holds at once
-#endif
-#ifndef WALK_BLOCKS_256
-#define WALK_BLOCKS_256 4                // blocks of 256 an SM holds at once
-#endif
-
 namespace {
 
-constexpr int kRowsPerWarp = WALK_ROWS;  // rows a warp scores at once
+constexpr int kRowsPerWarp = 8;          // rows a warp scores at once
 static_assert(kRowsPerWarp >= 1 && kRowsPerWarp <= 32 &&
                   (kRowsPerWarp & (kRowsPerWarp - 1)) == 0,
               "rows a warp: a power of two up to 32");
 // blocks an SM must hold at once, which caps the registers a thread: 5 x
 // 128 threads (96 registers), 4 x 256 (64)
 template <int kThreads>
-constexpr int kMinBlocks = kThreads == 128 ? WALK_BLOCKS_128 : WALK_BLOCKS_256;
+constexpr int kMinBlocks = kThreads == 128 ? 5 : 4;
 constexpr int kSmemLimit = 232448;
 constexpr int kMaxQueue = 4096;          // ef and cand_cap (api max_widen_ef)
 constexpr int kMetricL2 = 0;
@@ -175,15 +159,12 @@ WalkLayout walk_layout(int ef, int cap, int T, int maxM, int D) {
   const size_t held = pow2_at_least(2 * ((size_t)ef + cap));
   const size_t slots = pow2_at_least(2 * tm);
   const size_t tables = 4 * held + 8 * slots;
-#ifndef WALK_DENSE
   if (base + tables <= (size_t)kSmemLimit)
     return {base + tables, (int)held, (int)slots};
-#endif
   return {base, 0, 0};
 }
 
 int walk_threads(int T, int maxM) {
-  if (WALK_THREADS) return WALK_THREADS;
   return T * maxM <= 128 ? 128 : 256;
 }
 
@@ -228,7 +209,8 @@ __device__ __forceinline__ int slot_first(const int* keys, const int* first,
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = __fadd_rn(v, __shfl_xor_sync(kFull, v, o));
+  for (int o = 16; o > 0; o >>= 1)
+    v = __fadd_rn(v, __shfl_xor_sync(kFull, v, o));
   return v;
 }
 
@@ -435,7 +417,8 @@ beam_walk_kernel(const int* __restrict__ links, const int* __restrict__ counts,
   }
   if (metric == kMetricCosine && warp == 0) {
     float s = 0.f;
-    for (int i = lane; i < D; i += 32) s = __fadd_rn(s, __fmul_rn(q_s[i], q_s[i]));
+    for (int i = lane; i < D; i += 32)
+      s = __fadd_rn(s, __fmul_rn(q_s[i], q_s[i]));
     s = warp_sum(s);
     if (lane == 0) ctr[4] = __float_as_int(s);
   }
@@ -531,17 +514,12 @@ beam_walk_kernel(const int* __restrict__ links, const int* __restrict__ counts,
     // --- 4. rank the admitted by (d, slot); 5. merge both queues by rank
     if (n_new > 0) {
       const int rest = cap - T;          // incumbents after the pop
-#ifndef WALK_FUSED_MERGE
       // the admitted ranked by (d, slot) into srt, then each queue merged
-      // by binary searches.  g lanes an entry (a power of two up to 32, as many as the block
-      // has threads to spare), each counting a g-th of the entries below
-      // it, then a shuffle sum over the g
+      // by binary searches.  g lanes an entry (a power of two up to 32, as
+      // many as the block has threads to spare), each counting a g-th of
+      // the entries below it, then a shuffle sum over the g
       int g = 1;
-      if (WALK_RANK_GROUP) {
-        g = WALK_RANK_GROUP;
-      } else {
-        while (g < 32 && 2 * g * n_new <= kThreads) g *= 2;
-      }
+      while (g < 32 && 2 * g * n_new <= kThreads) g *= 2;
       for (int t0 = 0; t0 < n_new * g; t0 += kThreads) {   // uniform
         const int e = (t0 + tid) / g, q = (t0 + tid) % g;
         float2 me = make_float2(0.f, 0.f);
@@ -580,38 +558,6 @@ beam_walk_kernel(const int* __restrict__ links, const int* __restrict__ counts,
         const int o = e + count_at_or_below(cd + T, rest, srt_d[e]);
         if (o < cap) { cd_n[o] = srt_d[e]; ci_n[o] = srt_i[e]; }
       }
-#else
-      // tried: one phase, a barrier fewer: an admitted entry's place is its
-      // rank plus the incumbents at or below it; an incumbent's, its own
-      // plus the admitted strictly below it (counted)
-      for (int it = tid; it < n_new + ef + rest; it += kThreads) {
-        if (it < n_new) {
-          const float2 me = new_ds[it];
-          const int s = __float_as_int(me.y);
-          int below = 0;
-#pragma unroll 8
-          for (int f = 0; f < n_new; ++f) {
-            const float2 o = new_ds[f];
-            below += o.x < me.x || (o.x == me.x && __float_as_int(o.y) < s);
-          }
-          const int id = slot_id[s];
-          const int o1 = below + count_at_or_below(rd, ef, me.x);
-          if (o1 < ef) { rd_n[o1] = me.x; ri_n[o1] = id; }
-          const int o2 = below + count_at_or_below(cd + T, rest, me.x);
-          if (o2 < cap) { cd_n[o2] = me.x; ci_n[o2] = id; }
-        } else {
-          const bool res = it < n_new + ef;
-          const int p = res ? it - n_new : it - n_new - ef;
-          const float x = res ? rd[p] : cd[T + p];
-          int below = 0;
-#pragma unroll 8
-          for (int f = 0; f < n_new; ++f) below += new_ds[f].x < x;
-          const int o = p + below;
-          if (res && o < ef) { rd_n[o] = x; ri_n[o] = ri[p]; }
-          if (!res && o < cap) { cd_n[o] = x; ci_n[o] = ci[T + p]; }
-        }
-      }
-#endif
       for (int o = rest + n_new + tid; o < cap; o += kThreads) {
         cd_n[o] = kInf;
         ci_n[o] = -1;

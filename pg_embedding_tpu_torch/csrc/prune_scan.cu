@@ -402,19 +402,19 @@ prune_scan_kernel(const float* __restrict__ d_s,
 // (rounded up to a power of two), else in shared memory, never staged.
 constexpr int kMaxRegWords = 8;
 
+// A staged instance exists only for the widths kStageMaxC reaches.
+template <int kWords>
+const void* regs_kernel(bool staged) {
+  if constexpr (32 * (kWords / 2) < kStageMaxC)
+    if (staged) return (const void*)prune_scan_regs<kWords, true>;
+  return (const void*)prune_scan_regs<kWords, false>;
+}
+
 const void* pick_kernel(int W, bool staged) {
-  if (W <= 1)
-    return staged ? (const void*)prune_scan_regs<1, true>
-                  : (const void*)prune_scan_regs<1, false>;
-  if (W <= 2)
-    return staged ? (const void*)prune_scan_regs<2, true>
-                  : (const void*)prune_scan_regs<2, false>;
-  if (W <= 4)
-    return staged ? (const void*)prune_scan_regs<4, true>
-                  : (const void*)prune_scan_regs<4, false>;
-  if (W <= kMaxRegWords)
-    return staged ? (const void*)prune_scan_regs<8, true>
-                  : (const void*)prune_scan_regs<8, false>;
+  if (W <= 1) return regs_kernel<1>(staged);
+  if (W <= 2) return regs_kernel<2>(staged);
+  if (W <= 4) return regs_kernel<4>(staged);
+  if (W <= kMaxRegWords) return regs_kernel<8>(staged);
   return (const void*)prune_scan_kernel;
 }
 
@@ -424,23 +424,16 @@ extern "C" {
 
 // d_s f32[B, C], valid_s bool[B, C], order i64[B, C], pair f32[B, C, C],
 // do_prune bool[B], all contiguous; writes kept_mask bool[B, C] and
-// kept_count i32[B].  ``stage``: -1 stages the pair blocks in shared
-// memory iff C <= kStageMaxC, 0 never, 1 always (a probe's choice).
-// Returns the launch's CUDA error (0 on success).
+// kept_count i32[B].  Returns the launch's CUDA error (0 on success).
 int prune_scan(const float* d_s, const unsigned char* valid_s,
                const long long* order, const float* pair,
                const unsigned char* do_prune, int B, int C, int nn,
-               int stage, unsigned char* kept_mask, int* kept_count,
-               void* stream_ptr) {
-  if (B <= 0 || C <= 0 || nn <= 0 || stage < -1 || stage > 1)
-    return (int)cudaErrorInvalidValue;
+               unsigned char* kept_mask, int* kept_count, void* stream_ptr) {
+  if (B <= 0 || C <= 0 || nn <= 0) return (int)cudaErrorInvalidValue;
   const int W = (C + 31) / 32;
   const bool regs = W <= kMaxRegWords;
   const size_t staged = kWarpsPerBlock * stage_bytes(C);
-  const bool use_stage =
-      stage == 1 || (stage == -1 && C <= kStageMaxC && staged <= kSmemLimit);
-  if (use_stage && (!regs || staged > kSmemLimit))
-    return (int)cudaErrorInvalidValue;
+  const bool use_stage = regs && C <= kStageMaxC && staged <= kSmemLimit;
   const size_t smem =
       use_stage ? staged : regs ? 0 : kWarpsPerBlock * words_bytes(C);
   if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;

@@ -1,33 +1,28 @@
 """Where the walk and prune kernels' time goes, on one NVIDIA GPU.
 
   python -m pg_embedding_tpu_torch.graph_probe [--n ROWS] [--reps N]
-      [--parent DIR]
 
-Builds csrc/beam_walk.cu and csrc/prune_scan.cu in variants (nvcc -D flags,
-each variant into its own library under .kernel_build/graph_probe/, all
-side by side):
-  kernel        as built for the port
+Builds csrc/beam_walk.cu and csrc/prune_scan.cu in variants, each a rewrite
+of the sources' text (as sweep_probe.py builds its variants) compiled into
+its own library under .kernel_build/graph_probe/, all side by side:
+  kernel        the sources as they are
   profile       the same with clock64() stamps (-DPG_PROFILE): thread 0 of
                 each walk block, lane 0 of each scan warp, sums the cycles
                 of each phase; the main path never launches it
   dense         the walk's dedupe by comparison with the queues and the
-                earlier slots (the design before the hash tables)
+                earlier slots (its fallback where the hash tables do not
+                fit, and the design before them)
   rank1 / rank32   the admitted ranked a thread an entry (the design
                 before) or a warp an entry, instead of as many lanes an
                 entry as the block can spare
-  fused-merge   rank and merge in one phase, a barrier fewer: incumbents
-                count the admitted below them instead of binary searches
   rows4 / rows16   4 or 16 neighbour rows a warp at a time instead of 8
   threads128 / threads256   one block shape for every T
   blocks8       8 blocks of 128 threads an SM (64 registers) instead of 5
   blocks3       3 blocks of 256 threads an SM (80 registers) instead of 4
-The scan's two variants (the pair block staged in shared memory or read
-from L2) are the kernel's own ``stage`` argument.  With ``--parent DIR`` (a
-checkout of the tree before this design, e.g. ``git archive`` of the parent
-commit unpacked into a git-ignored directory) its two sources are built as
-they are ("parent") and timed in turns with the kernel: parent, kernel,
-kernel, parent; and its walk once more with clock stamps put in after the
-barriers that end its phases ("parent-profile", stamp_parent).
+  stage-never / stage-always   the scan's pair blocks read from L2 at every
+                width, or staged in shared memory wherever two sets' blocks
+                fit (up to 169 candidates), instead of up to 64; each also
+                with clock stamps (profile-stage-never, profile-stage-always)
 
 The probe builds an index of ``--n`` rows x 128-d on the card
 (utils/io.synthetic_clustered, chip_smoke.py's recipe and seed), walks its
@@ -37,9 +32,10 @@ first back-link re-prune (C = maxM + 1 = 33, nn = 32).  Every variant's
 answers are checked against the kernel's (walk: ids, hops and evals; scan:
 the kept masks).  Times are the card's (device_ms: ``--reps`` calls in a
 CUDA graph, replayed between CUDA events), so a small kernel is not timed
-by the host's launch overhead; the card's name and power limit are
-printed first.  chip_smoke.py prints the profile
-build's breakdown at the same shapes (``walk_phases``, ``prune_phases``).
+by the host's launch overhead; variants are timed in turns, then in
+reverse order, and the card's name and power limit are printed first.
+chip_smoke.py prints the profile build's breakdown at the same shapes
+(``walk_phases``, ``prune_phases``).
 """
 
 from __future__ import annotations
@@ -57,120 +53,82 @@ from . import _kernels
 from .ops import cuda_graph as cg
 
 OUT = os.path.join(_kernels.BUILD_DIR, "graph_probe")
-SOURCES = ("beam_walk.cu", "prune_scan.cu")
+CSRC = os.path.join(_kernels._PKG_DIR, "csrc")
+WALK, SCAN = "beam_walk.cu", "prune_scan.cu"
+SOURCES = (WALK, SCAN)
 WALK_PHASES = ("setup + output", "links + inserts", "dedupe", "rows",
                "rank", "merge")
 PRUNE_PHASES = ("init", "stage", "masks", "search", "reject", "write")
+PROFILE = ("-DPG_PROFILE",)
+_RANK = ("      int g = 1;\n"
+         "      while (g < 32 && 2 * g * n_new <= kThreads) g *= 2;\n")
+_NEVER = ((SCAN, "kStageMaxC = 64;", "kStageMaxC = 0;"),)
+_ALWAYS = ((SCAN, "kStageMaxC = 64;", "kStageMaxC = 256;"),)
+# name: (nvcc flags, rewrites (source, text, replacement))
 VARIANTS = {
-    "kernel": (),
-    "profile": ("-DPG_PROFILE",),
-    "dense": ("-DWALK_DENSE",),
-    "rank1": ("-DWALK_RANK_GROUP=1",),
-    "rank32": ("-DWALK_RANK_GROUP=32",),
-    "fused-merge": ("-DWALK_FUSED_MERGE",),
-    "rows4": ("-DWALK_ROWS=4",),
-    "rows16": ("-DWALK_ROWS=16",),
-    "threads128": ("-DWALK_THREADS=128",),
-    "threads256": ("-DWALK_THREADS=256",),
-    "blocks8": ("-DWALK_BLOCKS_128=8",),
-    "blocks3": ("-DWALK_BLOCKS_256=3",),
+    "kernel": ((), ()),
+    "profile": (PROFILE, ()),
+    "dense": ((), ((WALK, "  if (base + tables <= (size_t)kSmemLimit)\n",
+                    "  if (false)\n"),)),
+    "rank1": ((), ((WALK, _RANK, "      int g = 1;\n"),)),
+    "rank32": ((), ((WALK, _RANK, "      int g = 32;\n"),)),
+    "rows4": ((), ((WALK, "kRowsPerWarp = 8;", "kRowsPerWarp = 4;"),)),
+    "rows16": ((), ((WALK, "kRowsPerWarp = 8;", "kRowsPerWarp = 16;"),)),
+    "threads128": ((), ((WALK, "  return T * maxM <= 128 ? 128 : 256;\n",
+                         "  return 128;\n"),)),
+    "threads256": ((), ((WALK, "  return T * maxM <= 128 ? 128 : 256;\n",
+                         "  return 256;\n"),)),
+    "blocks8": ((), ((WALK, "kThreads == 128 ? 5 : 4;",
+                      "kThreads == 128 ? 8 : 4;"),)),
+    "blocks3": ((), ((WALK, "kThreads == 128 ? 5 : 4;",
+                      "kThreads == 128 ? 5 : 3;"),)),
+    "stage-never": ((), _NEVER),
+    "stage-always": ((), _ALWAYS),
+    "profile-stage-never": (PROFILE, _NEVER),
+    "profile-stage-always": (PROFILE, _ALWAYS),
 }
-# Clock stamps for the parent's walk (the design before this one), put in
-# as text after the barriers that end its phases: (anchor, the lap that
-# ends there).  Its pop phase counts with the links.
-_PARENT_LAPS = (
-    ("    if (tid == 0) ctr[0] = ctr[1] = 0;\n    __syncthreads();\n", 1),
-    ("      slot_id[s] = id;\n    }\n    __syncthreads();\n", 1),
-    ("      if (keep) proc[atomicAdd(&ctr[0], 1)] = s;\n    }\n"
-     "    __syncthreads();\n", 2),
-    ("      }\n    }\n    __syncthreads();\n", 3),
-    ("        srt_i[rank] = slot_id[s];\n      }\n      __syncthreads();\n",
-     4),
-    ("    evals += n_proc;\n    __syncthreads();\n", 5),
-    ("  const float4* q4 = reinterpret_cast<const float4*>(q_s);\n"
-     "  int hops = 0, evals = 0;\n", 0),
-)
-_PARENT_PROFILE = """
-__device__ unsigned long long g_walk_prof[8];
-struct Laps {
-  long long t, acc[6];
-  __device__ void start() {
-    t = clock64();
-    for (int i = 0; i < 6; ++i) acc[i] = 0;
-  }
-  __device__ void lap(int i) {
-    const long long now = clock64();
-    acc[i] += now - t;
-    t = now;
-  }
-};
-"""
-_PARENT_EXPORT = """
-extern "C" int beam_walk_profile(unsigned long long* out) {
-  cudaError_t err = cudaMemcpyFromSymbol(out, g_walk_prof,
-                                         sizeof(g_walk_prof));
-  if (err != cudaSuccess) return (int)err;
-  const unsigned long long zero[8] = {};
-  return (int)cudaMemcpyToSymbol(g_walk_prof, zero, sizeof(zero));
-}
-extern "C" int prune_scan_profile(unsigned long long* out) { return 0; }
-"""
-
-
-def stamp_parent(src: str) -> str:
-    """The parent's beam_walk.cu with thread 0's phase clocks, summed into
-    g_walk_prof as the kernel's own -DPG_PROFILE build sums them."""
-    src = src.replace("namespace {\n", "namespace {\n" + _PARENT_PROFILE, 1)
-    src = src.replace("  const float* q = queries + (size_t)b * D;\n",
-                      "  Laps laps;\n  laps.start();\n"
-                      "  const float* q = queries + (size_t)b * D;\n", 1)
-    for anchor, lap in _PARENT_LAPS:
-        if src.count(anchor) != 1:
-            raise ValueError(f"the parent's walk has not one {anchor!r}")
-        src = src.replace(anchor,
-                          anchor + f"    if (tid == 0) laps.lap({lap});\n")
-    flush = ("    laps.lap(0);\n"
-             "    for (int i = 0; i < 6; ++i)\n"
-             "      atomicAdd(&g_walk_prof[i], (unsigned long long)"
-             "laps.acc[i]);\n"
-             "    atomicAdd(&g_walk_prof[6], (unsigned long long)hops);\n"
-             "    atomicAdd(&g_walk_prof[7], 1ull);\n")
-    anchor = "    out_evals[b] = evals;\n"
-    src = src.replace(anchor, anchor + flush, 1)
-    return src + _PARENT_EXPORT
-
-
-def _parent_walk_smem(ef, cap, t, max_m, dims):
-    """The walk's shared memory before this design (the parent's
-    ops/cuda_graph._walk_smem_bytes), for --parent."""
-    return (4 * (-(-dims // 4) * 4) + 16 * (ef + cap) + 24 * t * max_m
-            + 8 * t + 16)
+WALK_RUNS = ("kernel", "dense", "rank1", "rank32", "rows4", "rows16",
+             "threads128", "threads256", "blocks8", "blocks3")
+SCAN_RUNS = ("kernel", "stage-never", "stage-always")
 
 
 def prune_smem_bytes(c: int) -> int:
     """Shared memory of a scan block of two sets of ``c`` candidates, as
-    csrc/prune_scan.cu's launch sizes it when it chooses (stage = -1): the
-    pair blocks staged up to 64 candidates, the alive and kept words past
-    256."""
+    csrc/prune_scan.cu's launch sizes it: the pair blocks staged up to 64
+    candidates, the alive and kept words past 256."""
     words = 0 if c <= 256 else 2 * 8 * -(-c // 32)
     return words + (2 * 4 * c * (c | 1) if c <= 64 else 0)
 
 
-def build(name: str, flags=(), csrc: str | None = None,
-          stamped: bool = False):
-    """One library of the two sources (``csrc``: another checkout's csrc
-    directory; ``stamped``: its walk with stamp_parent's clocks) with
-    ``flags``; returns it loaded and declared."""
-    csrc = csrc or os.path.join(_kernels._PKG_DIR, "csrc")
+def variant_sources(name: str) -> dict:
+    """{source: text} of variant ``name``: the sources with its rewrites
+    applied; raises ValueError where a rewrite's text is not in its source
+    exactly once."""
+    out = {}
+    for src in SOURCES:
+        with open(os.path.join(CSRC, src)) as f:
+            text = f.read()
+        for where, old, new in VARIANTS[name][1]:
+            if where != src:
+                continue
+            if text.count(old) != 1:
+                raise ValueError(f"{name}: {src} has not one {old!r}")
+            text = text.replace(old, new)
+        out[src] = text
+    return out
+
+
+def build(name: str):
+    """Variant ``name``'s library: its sources compiled with its flags
+    added to nvcc's; returns it loaded and declared."""
+    flags = VARIANTS[name][0]
     os.makedirs(OUT, exist_ok=True)
-    so = os.path.join(OUT, name + ".so")
-    srcs = [os.path.join(csrc, s) for s in SOURCES]
-    if stamped:
-        with open(srcs[0]) as f:
-            text = stamp_parent(f.read())
-        srcs[0] = os.path.join(OUT, name + "_beam_walk.cu")
-        with open(srcs[0], "w") as f:
+    srcs = []
+    for src, text in variant_sources(name).items():
+        srcs.append(os.path.join(OUT, f"{name}_{src}"))
+        with open(srcs[-1], "w") as f:
             f.write(text)
+    so = os.path.join(OUT, name + ".so")
     proc = subprocess.run(
         [_kernels._nvcc(), *_kernels._NVCC_FLAGS, *flags, "-shared", "-o", so,
          *srcs], capture_output=True, text=True)
@@ -182,28 +140,20 @@ def build(name: str, flags=(), csrc: str | None = None,
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.beam_walk.argtypes = [*[vp] * 5, *[ci] * 10, *[vp] * 5]
     lib.beam_walk.restype = ci
-    lib.prune_scan.argtypes = ([*[vp] * 5, *[ci] * 3, *[vp] * 3]
-                               if name.startswith("parent") else
-                               [*[vp] * 5, *[ci] * 4, *[vp] * 3])
+    lib.prune_scan.argtypes = [*[vp] * 5, *[ci] * 3, *[vp] * 3]
     lib.prune_scan.restype = ci
     lib.bruteforce_topk_error_string = _kernels.load_library(
     ).bruteforce_topk_error_string
-    if stamped or "-DPG_PROFILE" in flags:
+    if "-DPG_PROFILE" in flags:
         for fn in (lib.beam_walk_profile, lib.prune_scan_profile):
             fn.argtypes = [vp]
             fn.restype = ci
     return lib
 
 
-def build_all(variants=VARIANTS, parent: str | None = None) -> dict:
-    jobs = dict(variants)
-    with concurrent.futures.ThreadPoolExecutor(len(jobs) + 2) as ex:
-        futs = {n: ex.submit(build, n, f) for n, f in jobs.items()}
-        if parent:
-            csrc = os.path.join(parent, "pg_embedding_tpu_torch", "csrc")
-            futs["parent"] = ex.submit(build, "parent", (), csrc)
-            futs["parent-profile"] = ex.submit(build, "parent-profile", (),
-                                               csrc, True)
+def build_all(names=tuple(VARIANTS)) -> dict:
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as ex:
+        futs = {n: ex.submit(build, n) for n in names}
         return {n: f.result() for n, f in futs.items()}
 
 
@@ -213,29 +163,17 @@ def walk(lib, graph, queries, *, ef, cand_cap, t, metric_value,
     variant)."""
     smem, held, slots = cg._walk_layout(ef, cand_cap, t, graph.max_m,
                                         graph.dims)
-    if variant.startswith("parent"):
-        smem = _parent_walk_smem(ef, cand_cap, t, graph.max_m, graph.dims)
-    elif "-DWALK_DENSE" in VARIANTS.get(variant, ()):
+    if variant == "dense":
         smem -= 4 * held + 8 * slots
     return cg._launch_walk(lib, graph, queries, None, ef=ef,
                            cand_cap=cand_cap, t=t, metric_value=metric_value,
                            smem=smem)
 
 
-def prune(lib, args, nn, stage=-1, variant="kernel"):
+def prune(lib, args, nn):
     """One launch of ``lib``'s scan on ``args`` (d_s, valid_s, order,
     pair_d, do_prune)."""
-    if not variant.startswith("parent"):
-        return cg._launch_prune(lib, *args, nn, stage)
-    b, c = args[0].shape
-    dev = args[0].device
-    mask = torch.empty((b, c), dtype=torch.bool, device=dev)
-    count = torch.empty(b, dtype=torch.int32, device=dev)
-    err = lib.prune_scan(*(x.data_ptr() for x in args), b, c, nn,
-                         mask.data_ptr(), count.data_ptr(),
-                         torch.cuda.current_stream(dev).cuda_stream)
-    _kernels.check(lib, err, "prune_scan (parent)")
-    return mask, count
+    return cg._launch_prune(lib, *args, nn)
 
 
 def _read(fn, n):
@@ -261,12 +199,12 @@ def walk_phases(lib, graph, queries, **kw) -> dict:
             "out": got}
 
 
-def prune_phases(lib, args, nn, stage=-1) -> dict:
+def prune_phases(lib, args, nn) -> dict:
     """The profile build's scan: each phase's mean cycles a set (search
     and reject: a round), rounds a pruned set, pruned sets."""
     torch.cuda.synchronize()
     _read(lib.prune_scan_profile, len(PRUNE_PHASES) + 3)
-    got = prune(lib, args, nn, stage)
+    got = prune(lib, args, nn)
     torch.cuda.synchronize()
     c = _read(lib.prune_scan_profile, len(PRUNE_PHASES) + 3)
     rounds, sets, pruned = c[-3], c[-2], c[-1]
@@ -331,7 +269,6 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=1_000_000)
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--parent")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("graph_probe: no CUDA device")
@@ -340,7 +277,7 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
-    libs = build_all(parent=args.parent)
+    libs = build_all()
     for name in libs:
         with open(os.path.join(OUT, name + ".so.log")) as f:
             for line in f:
@@ -356,49 +293,42 @@ def main() -> int:
         scale=0.1, size=(idx.max_insert_batch, 128))).astype(np.float32)
     sets = capture_prunes(idx, rows)
     g, q = idx.graph, torch.as_tensor(qs, device="cuda")
-    names = list(libs)
-    turns = names + names[::-1]
     for t in (4, 8):
         kw = dict(ef=64, cand_cap=64, t=t, metric_value=0)
         want = walk(libs["kernel"], g, q, **kw)
-        for n in names:
+        for n in WALK_RUNS:
             got = walk(libs[n], g, q, variant=n, **kw)
             same = all(torch.equal(a, b) for a, b in zip(got[1:], want[1:]))
             print(f"walk T={t} {n}: ids, hops and evals equal to the "
                   f"kernel's: {same}")
-        ms = {n: [] for n in names}
-        for n in turns:
+        ms = {n: [] for n in WALK_RUNS}
+        for n in WALK_RUNS + WALK_RUNS[::-1]:
             ms[n].append(device_ms(lambda: walk(libs[n], g, q, variant=n,
                                                 **kw), args.reps))
-        for n in names:
+        for n in WALK_RUNS:
             print(f"walk T={t} {n}: " + " / ".join(f"{m:.3f}" for m in ms[n])
                   + " ms", flush=True)
-        for n in ("profile", "parent-profile"):
-            if n not in libs:
-                continue
-            r = walk_phases(libs[n], g, q, variant=n, **kw)
-            print(f"walk T={t} {n} cycles a block-step "
-                  f"({r['steps']:.2f} steps a block): "
-                  f"{format_cycles(r['cycles'])}", flush=True)
+        r = walk_phases(libs["profile"], g, q, **kw)
+        print(f"walk T={t} profile cycles a block-step "
+              f"({r['steps']:.2f} steps a block): "
+              f"{format_cycles(r['cycles'])}", flush=True)
     for c, sargs in sorted(sets.items()):
         *tensors, nn = sargs
         want = prune(libs["kernel"], tensors, nn)
-        runs = [(n, -1) for n in names] + [("kernel", 0), ("kernel", 1)]
-        for n, stage in runs:
-            got = prune(libs[n], tensors, nn, stage, variant=n)
+        for n in SCAN_RUNS:
+            got = prune(libs[n], tensors, nn)
             assert all(torch.equal(a, b) for a, b in zip(got, want)), (n, c)
-        ms = {r: [] for r in runs}
-        for r in runs + runs[::-1]:
-            ms[r].append(device_ms(lambda: prune(libs[r[0]], tensors, nn,
-                                                 r[1], variant=r[0]),
+        ms = {n: [] for n in SCAN_RUNS}
+        for n in SCAN_RUNS + SCAN_RUNS[::-1]:
+            ms[n].append(device_ms(lambda: prune(libs[n], tensors, nn),
                                    args.reps))
         b = tensors[0].shape[0]
-        for (n, stage), m in ms.items():
-            print(f"prune B={b} C={c} nn={nn} {n} stage={stage}: "
-                  + " / ".join(f"{x:.4f}" for x in m) + " ms", flush=True)
-        for stage in (0, 1):
-            r = prune_phases(libs["profile"], tensors, nn, stage)
-            print(f"prune C={c} stage={stage} cycles ({r['pruned']} of "
+        for n in SCAN_RUNS:
+            print(f"prune B={b} C={c} nn={nn} {n}: "
+                  + " / ".join(f"{x:.4f}" for x in ms[n]) + " ms", flush=True)
+        for n in ("profile-stage-never", "profile-stage-always"):
+            r = prune_phases(libs[n], tensors, nn)
+            print(f"prune C={c} {n} cycles ({r['pruned']} of "
                   f"{r['sets']} sets pruned, {r['rounds']:.2f} rounds a "
                   f"pruned set; init, write a set; stage, masks a pruned set; "
                   f"search, reject a round): {format_cycles(r['cycles'])}",

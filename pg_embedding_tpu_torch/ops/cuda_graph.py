@@ -34,6 +34,9 @@ from .distance import dist_one_to_many
 # Launches of each kernel since import (or since a caller reset them); a run
 # reads them to show that a path went through the kernel.
 LAUNCHES = {"beam_walk": 0, "prune_scan": 0}
+# prune_scan's launches by candidate-set shape (C, nn), counted beside
+# LAUNCHES["prune_scan"]
+PRUNE_SHAPES: dict = {}
 
 # Widest result and candidate queue the walk kernel takes: the API widens
 # ef up to max_widen_ef = 4096.
@@ -196,15 +199,15 @@ def prune_scan(d_s: torch.Tensor, valid_s: torch.Tensor, order: torch.Tensor,
         raise ValueError(f"nn={nn} < 1")
     out = _launch_prune(_kernels.load_library(), d_s, valid_s, order, pair_d,
                         do_prune, int(nn))
-    LAUNCHES["prune_scan"] += int(d_s.numel() > 0)       # empty: no launch
+    if d_s.numel() > 0:                                  # empty: no launch
+        LAUNCHES["prune_scan"] += 1
+        PRUNE_SHAPES[c, int(nn)] = PRUNE_SHAPES.get((c, int(nn)), 0) + 1
     return out
 
 
-def _launch_prune(lib, d_s, valid_s, order, pair_d, do_prune, nn,
-                  stage: int = -1):
-    """One launch of ``lib``'s prune_scan on checked arguments; ``stage``
-    -1 lets the kernel choose whether to stage the pair blocks in shared
-    memory, 0 / 1 forces it (a probe's choice)."""
+def _launch_prune(lib, d_s, valid_s, order, pair_d, do_prune, nn):
+    """One launch of ``lib``'s prune_scan on checked arguments (the
+    wrapper's library, or a probe's build of the same source)."""
     b, c = d_s.shape
     dev = d_s.device
     kept_mask = torch.empty((b, c), dtype=torch.bool, device=dev)
@@ -214,7 +217,7 @@ def _launch_prune(lib, d_s, valid_s, order, pair_d, do_prune, nn,
     with torch.cuda.device(dev):
         err = lib.prune_scan(
             d_s.data_ptr(), valid_s.data_ptr(), order.data_ptr(),
-            pair_d.data_ptr(), do_prune.data_ptr(), b, c, nn, stage,
+            pair_d.data_ptr(), do_prune.data_ptr(), b, c, nn,
             kept_mask.data_ptr(), kept_count.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     _kernels.check(lib, err, "prune_scan")

@@ -21,9 +21,14 @@ on the CPU to what the kernels replace.
     table); and a whole walk on that schedule (hash dedupe, admitted
     ranked by (d, slot), both queues merged by rank) held bit for bit to
     _search_batch on the integer fixture.
+  * graph_probe's variants: rewrites of the kernels' text that apply to
+    the sources as they are, which take no build option but the clock
+    stamps.
 """
 
 import functools
+import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -32,6 +37,7 @@ import pytest
 import torch
 
 from pg_embedding_tpu.core.build import _prune_heuristic as jax_prune
+from pg_embedding_tpu_torch import graph_probe
 from pg_embedding_tpu_torch.convert import graph_from_numpy
 from pg_embedding_tpu_torch.core import build as tb
 from pg_embedding_tpu_torch.core import search as ts
@@ -343,3 +349,29 @@ def test_schedule_walk_equals_the_twin(metric, t, ef, cap, links):
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     assert bool((got[2] > 1).all())
+
+
+# --- graph_probe's variants -------------------------------------------------
+
+@pytest.mark.parametrize("name", sorted(graph_probe.VARIANTS))
+def test_probe_variants_rewrite_the_sources(name):
+    """graph_probe builds each variant by rewriting the kernels' text (as
+    sweep_probe does): every rewrite finds its text exactly once in the
+    sources as they are, and changes only the source it names."""
+    got = graph_probe.variant_sources(name)
+    rewrites = graph_probe.VARIANTS[name][1]
+    assert sorted(got) == sorted(graph_probe.SOURCES)
+    for src in graph_probe.SOURCES:
+        with open(os.path.join(graph_probe.CSRC, src)) as f:
+            text = f.read()
+        assert (got[src] != text) == any(w == src for w, _, _ in rewrites)
+
+
+def test_kernel_sources_take_no_build_option_but_the_clocks():
+    """The walk and the scan are built one way for the port; only the
+    probe's clock-stamped build (-DPG_PROFILE) sets a macro."""
+    for src in graph_probe.SOURCES:
+        with open(os.path.join(graph_probe.CSRC, src)) as f:
+            text = f.read()
+        assert set(re.findall(r"#\s*if(?:n?def)?\s+!?\s*(?:defined\()?(\w+)",
+                              text)) == {"PG_PROFILE"}, src

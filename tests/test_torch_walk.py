@@ -217,11 +217,11 @@ def test_prune_scan_plain_reads_through_the_order(seed, c, nn):
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     # the CPU wrapper is the twin, and counts no launch
-    before = cg.LAUNCHES["prune_scan"]
+    before = (cg.LAUNCHES["prune_scan"], dict(cg.PRUNE_SHAPES))
     for a, b in zip(cg.prune_scan(d_s, valid_s, order, pair, do_prune, nn),
                     want):
         assert torch.equal(a, b)
-    assert cg.LAUNCHES["prune_scan"] == before
+    assert (cg.LAUNCHES["prune_scan"], dict(cg.PRUNE_SHAPES)) == before
     assert not do_prune.all() and (got[1] < nn).any()
 
 
