@@ -40,7 +40,15 @@ exits non-zero):
      near-ties mid-walk), mean hops and dist_evals within 1%; on an
      integer-coordinate index (3,000 x 32, integers in [-8, 8], every L2
      and Manhattan distance exact in float32) bit-equal at T in {1, 4, 8}
-     and (ef, cand_cap) in {(16, 16), (64, 64), (64, 128), (128, 64)};
+     and (ef, cand_cap) in {(16, 16), (64, 64), (64, 128), (128, 64)},
+     and in every other row source (bf16 rows; int8 rows and int8 records
+     at power-of-two scales; f32 and bf16 records; PQ records through an
+     integer codebook, with and without OPQ's signed-permutation rotation)
+     and the bitmap and hash visited sets at T in {1, 4, 8}, (ef,
+     cand_cap) in {(16, 16), (64, 128)}, and queues wider than the 4096
+     the kernel keeps in shared memory (in device memory: (5120, 5120) for
+     every row source and set, (4097, 64) and (64, 8191) for float32
+     rows);
      prune_scan bit-equal to core/build._prune_scan_plain on the candidate
      sets of one real 256-row insert batch (an add() to the index, whose
      first prune of each width is captured: the insert's, C = 128, nn =
@@ -64,10 +72,19 @@ exits non-zero):
   5. on the same index: tune_exact8_chunk (its cache in a temp dir, not
      saved): the exact8 sweep's ms per 256-row insert batch at chunks of
      262,144 / 524,288 / 1,048,576 / 2,097,152 rows, and the chunk chosen;
-     the serving variants at T=8 (quantized, packed
+     beside it, torch.matmul + torch.topk over the same chunk and the
+     sweep's bound; the serving variants at T=8 (quantized, packed
      int8 / bf16 / float32 records; QPS and recall@10; float32 records give
-     the plain walk's ids and order), the bitmap visited set against the
-     plain dense walk (_search_batch; both are torch ops);
+     the plain walk's ids and order), the bitmap (the dense walk's ids)
+     and hash visited sets; each variant's walk kernel against its twin on
+     the card at 1M on every query (variant_vs_twin: recall within 0.002,
+     ids on >= 98% of queries, hops and dist_evals within 1%) and timed
+     beside its bound, each variant's launches counted from 0 over its own
+     API calls; a filtered graph search that widens from ef_search 40 to
+     5120 (queues in device memory): 8 kernel launches, no plain walk,
+     only allowed rows, >= 0.9 of them the masked exact route's; its last
+     walk, unfiltered, against the twin as each variant is (64 queries)
+     and timed beside its bound;
      save -> load onto the card (same answers, clean integrity, vacuum);
      WAL crash recovery (snapshot, 10,000 adds + 1,000 deletes, no save,
      load with the log: the live index's state); a scan cursor against
@@ -78,7 +95,7 @@ exits non-zero):
   6. product quantization on the same index: the PQ walk at G=32 (T=8,
      ef=64; train / encode / pack seconds, records GB, QPS and recall@10,
      printed: ~1,000 rows per centre are too many for PQ to rank inside
-     ef=64); the card's pq_encode against the CPU's on 100k rows (>= 99.9%
+     ef=64), its walk kernel against its twin; the card's pq_encode against the CPU's on 100k rows (>= 99.9%
      equal codes, every other one a float64 near-tie) and the card's PQ
      walk against the CPU's on the same state;
   7. last on that index, downcast_corpus("bfloat16") and search() through
@@ -87,12 +104,15 @@ exits non-zero):
      returns within the kernel check's near-tie tolerance of the oracle's
      10th distance.  Its recall@10 against the float32 route is printed,
      not held: bf16 rounding of the rows reorders near-ties at rank 10.
+     Then the graph route over the bf16 rows, and that walk kernel against
+     its twin.
      The PQ shadows must be the same tensors after the cast, and the PQ
      walk must still answer;
   8. PQ serving on a second 1M x 128-d index of benchmarks/bench_pq.py's
      recipe (50,000 centres), where the JAX package measured it: the PQ
-     walk at G=16, OPQ G=32 and G=32 (G=32 held within 0.03 of the plain
-     walk's recall@10, the others printed); tune_sweep_pool(0.95) on 256
+     walk at G=16, OPQ G=32 (its walk kernel against its twin) and G=32
+     (G=32 held within 0.03 of the plain walk's recall@10, the others
+     printed); tune_sweep_pool(0.95) on 256
      queries, then search(mode="sweep_pq") on all (recall@10 >= 0.95,
      distances equal to a float64 recompute at rtol 1e-5, QPS); save ->
      load (the same codebook bytes, walk and sweep labels);
@@ -136,11 +156,16 @@ width, and the re-prune shape's "reprune_ms", "reprune_device_ms",
 "reprune_plain_ms" and "reprune_bound_ms"; "ms" is a call's time between
 CUDA events, host share included, for every kernel, and
 the walk and the scan also give "device_ms", the card's time from the CUDA
-graph; "sharded_launches" from
+graph; the walk's "variants": each variant's launches over its own API
+path (counted from 0 just before it) and variant_vs_twin's numbers, and
+its "wide_queues": the widening search's launches and variant_vs_twin's
+numbers at ef 5120; "sharded_launches" from
 phase 9, "multiprocess_launches" summed over phase 11's ranks, each
 counted from zero; the main path, phase 9 and phase 11 must each launch
-beam_walk and prune_scan, and the main path's graph calls must run no
-plain walk on the card), and {"ok": true, "device": {...}}.
+beam_walk and prune_scan, every walk variant must reach the kernel, and
+no walk of phases 4-11 may run the plain twin on the card: only the
+smoke's own twin calls do, under own_twin_calls), and {"ok": true,
+"device": {...}}.
 
 Needs a CUDA device and nvcc; without a device it exits non-zero before
 printing any result.
@@ -162,6 +187,8 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
+# the integer walk operands the card tests build too (tests/walk_operands.py)
+sys.path.insert(1, os.path.join(REPO, "tests"))
 
 L2, COSINE = 0, 1
 SEED = 12345
@@ -191,9 +218,19 @@ LAUNCH_NAMES = ("bruteforce_topk", "bruteforce_topk_bf16", "beam_walk",
 # phase 4b: the walk kernel's beam and widths at 1M
 WALK_EF = 64
 WALK_TS = (4, 8)
-# NVIDIA's H100 SXM data sheet, dense: TF32 tensor cores, HBM3
+# NVIDIA's H100 SXM data sheet, dense: TF32 tensor cores, float32 outside
+# them, HBM3
 PEAK_TF32 = 495e12
+PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
+# the walk's row sources and visited sets beyond float32 rows under the
+# dense dedupe (ops/cuda_graph.walk_variant's names)
+WALK_SOURCES = ("rows bf16", "rows int8", "records f32", "records bf16",
+                "records int8", "records pq", "records pq rotated")
+WALK_VISITED = {"bitmap": 0, "hash": 8192}
+# queues past the 4096 the kernel keeps in shared memory: the API's
+# widening from ef_search = 40 lands on 5120; the integer index's cases
+WIDE_QUEUES = ((5120, 5120), (4097, 64), (64, 8191))
 
 
 def check(cond, msg):
@@ -412,10 +449,15 @@ def compiler_report(_kernels):
                       f"{'resident' if m[2] == '1' else 'streamed'} queries, "
                       f"{'float' if m[3] == 'f' else 'bf16'}>")
     def graph_instance(mangled):
-        m = re.search(r"beam_walk_kernelILb([01])ELi(\d+)E", mangled)
+        m = re.search(r"beam_walk_kernelILi(\d)ELb([01])ELi(\d+)ELb([01])E",
+                      mangled)
         if m:
-            return (f"beam_walk_kernel<{'records' if m[1] == '1' else 'rows'}"
-                    f", {m[2]} threads>")
+            elem = ("float32", "int8", "bf16", "pq")[int(m[1])]
+            dedupe = ("dense" if m[2] == "1" else "any visited set"
+                      if m[4] == "1" else "bitmap / hash")
+            queues = ", queues in device memory" if m[4] == "1" else ""
+            return (f"beam_walk_kernel<{elem} rows, {dedupe}, {m[3]} "
+                    f"threads{queues}>")
         m = re.search(r"prune_scan_regsILi(\d+)ELb([01])E", mangled)
         if m:
             return (f"prune_scan_regs<{m[1]} words, pair block "
@@ -472,6 +514,33 @@ def small_build_matches_cpu(torch, HnswConfig, HnswIndex, dev):
           "cuda and cpu builds disagree")
 
 
+class own_twin_calls:
+    """Around the smoke's own calls of a plain twin on the card: the walk
+    twin's count (core/search.PLAIN_WALKS_ON_CARD) and the kernels' launch
+    counts, by variant too, are put back as they were, so that what a path
+    ran is counted and the comparisons are not."""
+
+    def __enter__(self):
+        from pg_embedding_tpu_torch.core import search as core_search
+        from pg_embedding_tpu_torch.ops import cuda_bruteforce, cuda_graph
+        self.saved = (core_search.PLAIN_WALKS_ON_CARD,
+                      dict(cuda_bruteforce.LAUNCHES),
+                      dict(cuda_graph.LAUNCHES),
+                      dict(cuda_graph.WALK_VARIANTS))
+        return self
+
+    def __exit__(self, *exc):
+        from pg_embedding_tpu_torch.core import search as core_search
+        from pg_embedding_tpu_torch.ops import cuda_bruteforce, cuda_graph
+        plain, bf, graph, variants = self.saved
+        core_search.PLAIN_WALKS_ON_CARD = plain
+        cuda_bruteforce.LAUNCHES.update(bf)
+        cuda_graph.LAUNCHES.update(graph)
+        cuda_graph.WALK_VARIANTS.clear()
+        cuda_graph.WALK_VARIANTS.update(variants)
+        return False
+
+
 def reset_launches():
     """Set every kernel's launch count to 0."""
     from pg_embedding_tpu_torch.ops import cuda_bruteforce, cuda_graph
@@ -502,7 +571,11 @@ def main_path(torch, cb, HnswConfig, HnswIndex, dev, n, n_queries):
         f"(seed {SEED}) in {timer.seconds['data']:.1f} s")
 
     from pg_embedding_tpu_torch.core import search as core_search
+    from pg_embedding_tpu_torch.ops import cuda_graph
     reset_launches()
+    # the plain walks that phases 4-11 run on the card (the smoke's own
+    # twin calls excepted): read at the end
+    cuda_graph.WALK_VARIANTS.clear()
     core_search.PLAIN_WALKS_ON_CARD = 0
     # The graph route expands T=8 candidates per step, the setting of the
     # JAX package's own 1M graph measurement (BASELINE.md, "Measured at
@@ -512,7 +585,6 @@ def main_path(torch, cb, HnswConfig, HnswIndex, dev, n, n_queries):
     idx = HnswIndex(HnswConfig(dims=DIMS, m=16, ef_construction=64,
                                ef_search=64), device=dev,
                     search_expand_width=GRAPH_T)
-    from pg_embedding_tpu_torch.ops import cuda_graph
     with timer.phase("build", torch.empty(0, device=dev)):
         idx.build(pts)
     build_s = timer.seconds["build"]
@@ -631,25 +703,50 @@ def log_profile(what, wall, busy, n_ops, top):
         f"{top}")
 
 
-def walk_bound_ms(hops, evals, b, dims, t, max_m):
-    """The least time of a walk on the card: the bytes it must read (each
-    processed neighbour's row, each step's T link rows and counts, the
-    queries) at the HBM rate; hops and evals from the kernel's counters."""
-    nbytes = (int(evals.sum()) * dims * 4
+def walk_bound_ms(hops, evals, b, dims, t, max_m, row_bytes=None,
+                  visited=None):
+    """The least time of a walk on the card: the bytes it must move (each
+    processed neighbour's row, ``row_bytes`` each: float32 rows by default;
+    each step's T link rows and counts; the queries; for a visited set
+    ``visited`` = (words a query, 0 bitmap / 2^s hash), its initialisation
+    and each processed id's words read and written) at the HBM rate; hops
+    and evals from the kernel's counters."""
+    row_bytes = dims * 4 if row_bytes is None else row_bytes
+    n_evals = int(evals.sum())
+    nbytes = (n_evals * row_bytes
               + int(hops.sum()) * t * (max_m + 1) * 4 + b * dims * 4)
+    if visited is not None:
+        words, slots = visited
+        nbytes += b * words * 4 + n_evals * (8 if slots == 0 else 20)
     return nbytes / PEAK_BYTES * 1e3
+
+
+def twin(core_search, graph, q, kw, walk):
+    """The plain twin on ``graph`` / ``q``'s device with the wrapper's
+    operands (records are its pcodes); the smoke's own call."""
+    twin_kw = dict(kw)
+    twin_kw["pcodes"] = twin_kw.pop("records", None)
+    with own_twin_calls():
+        return core_search._search_batch(graph, q, **walk, **twin_kw)
 
 
 def integer_walks(torch, cg, core_search, dev):
     """beam_walk against the plain twin on the card, bit for bit, on
     integer-coordinate indexes (3,000 x 32, integers in [-8, 8], built on
-    the card): L2 and Manhattan, T in {1, 4, 8}, four (ef, cand_cap)."""
+    the card): L2 and Manhattan, T in {1, 4, 8}, four (ef, cand_cap) over
+    float32 rows; then every other row source (dense dedupe) and the
+    bitmap and hash sets (float32 rows) at T in {1, 4, 8} and (ef,
+    cand_cap) in {(16, 16), (64, 128)}; then queues past the 4096 kept in
+    shared memory (WIDE_QUEUES: every row source and visited set at (5120,
+    5120), float32 rows at the other two, T=4, 64 queries)."""
     from pg_embedding_tpu_torch import HnswConfig, HnswIndex
+    from pg_embedding_tpu_torch.convert import to_numpy
+    from walk_operands import integer_operands, on_device
     rng = np.random.default_rng(8)
     pts = rng.integers(-8, 9, size=(3000, 32)).astype(np.float32)
-    q = torch.as_tensor(rng.integers(-8, 9, size=(256, 32)).astype(
-        np.float32), device=dev)
-    cases = 0
+    qs = rng.integers(-8, 9, size=(256, 32)).astype(np.float32)
+    q = torch.as_tensor(qs, device=dev)
+    cases = variant_cases = wide_cases = 0
     for name, metric in (("l2", L2), ("manhattan", 2)):
         idx = HnswIndex(HnswConfig(dims=32, m=8, ef_construction=32,
                                    ef_search=32, metric=name), device=dev)
@@ -659,13 +756,50 @@ def integer_walks(torch, cg, core_search, dev):
                 kw = dict(ef=ef, metric_value=metric, cand_cap=cap,
                           expand_width=t)
                 got = cg.beam_walk(idx.graph, q, **kw)
-                want = core_search._search_batch(idx.graph, q, **kw)
+                want = twin(core_search, idx.graph, q, {}, kw)
                 check(all(torch.equal(a, b) for a, b in zip(got, want)),
                       f"integer walk {name} T={t} ef={ef} cap={cap}: the "
                       f"kernel differs from the plain twin")
                 cases += 1
+        # float32 rows under the dense dedupe: only their wide cases here
+        variants = ([("rows f32", -1)] + [(src, -1) for src in WALK_SOURCES]
+                    + [("rows f32", vs) for vs in WALK_VISITED.values()])
+        arrays = to_numpy(idx.graph)
+        for source, vs in variants:
+            g, kw = on_device(*integer_operands(arrays, qs, source)[::2],
+                              dev)
+            shapes = [(t, ef, cap) for t in (1, 4, 8)
+                      for ef, cap in ((16, 16), (64, 128))
+                      if (source, vs) != ("rows f32", -1)]
+            wide = [(4, ef, cap) for ef, cap in WIDE_QUEUES
+                    if source == "rows f32" or ef == cap]
+            for t, ef, cap in shapes + wide:
+                walk = dict(ef=ef, metric_value=metric, cand_cap=cap,
+                            expand_width=t, visited_slots=vs)
+                # the wide cases walk the first 64 queries (and OPQ's
+                # rotated rows of them)
+                qw, kww = q, kw
+                if max(ef, cap) > 128:
+                    qw = q[:64]
+                    kww = {k: v[:64] if k == "query_t" else v
+                           for k, v in kw.items()}
+                got = cg.beam_walk(g, qw, **walk, **kww)
+                want = twin(core_search, g, qw, kww, walk)
+                check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                      f"integer walk {name} {source} visited_slots={vs} "
+                      f"T={t} ef={ef} cap={cap}: the kernel differs from "
+                      f"the plain twin")
+                if max(ef, cap) <= 128:
+                    variant_cases += 1
+                else:
+                    wide_cases += 1
     log(f"beam_walk vs plain on the integer index: bit-equal in all {cases} "
-        f"cases (L2, Manhattan; T 1 / 4 / 8; four (ef, cand_cap))")
+        f"float32 cases (L2, Manhattan; T 1 / 4 / 8; four (ef, cand_cap)), "
+        f"all {variant_cases} cases of the other row sources "
+        f"({', '.join(WALK_SOURCES)}) and visited sets (bitmap, hash; T 1 / "
+        f"4 / 8; (16, 16), (64, 128)) and all {wide_cases} cases of queues "
+        f"in device memory ({', '.join(map(str, WIDE_QUEUES))}); ids, "
+        f"distances, hops and dist_evals")
 
 
 def walk_kernels_phase(torch, idx, qs, dev, tmp, single, profile_lib):
@@ -689,8 +823,9 @@ def walk_kernels_phase(torch, idx, qs, dev, tmp, single, profile_lib):
     for t in WALK_TS:
         kw = dict(ef=WALK_EF, metric_value=L2, cand_cap=WALK_EF,
                   expand_width=t)
-        kd, ki, kh, ke = cg.beam_walk(g, q, **kw)
-        pd, pi, ph, pe = core_search._search_batch(g, q, **kw)
+        with own_twin_calls():
+            kd, ki, kh, ke = cg.beam_walk(g, q, **kw)
+        pd, pi, ph, pe = twin(core_search, g, q, {}, kw)
         ki_np, pi_np = ki.cpu().numpy(), pi.cpu().numpy()
         rec_k = recall(ki_np, ki_np >= 0, truth)
         rec_p = recall(pi_np, pi_np >= 0, truth)
@@ -699,10 +834,11 @@ def walk_kernels_phase(torch, idx, qs, dev, tmp, single, profile_lib):
         err = float((kd[same] - pd[same]).abs().max()) if same.any() else 0.0
         hk, hp = float(kh.float().mean()), float(ph.float().mean())
         ek, ep = float(ke.float().mean()), float(pe.float().mean())
-        dev_ms = device_ms(lambda: cg.beam_walk(g, q, **kw))
-        ms = median_ms(torch, lambda: cg.beam_walk(g, q, **kw))
-        plain_ms = median_ms(torch, lambda: core_search._search_batch(
-            g, q, **kw))
+        with own_twin_calls():
+            dev_ms = device_ms(lambda: cg.beam_walk(g, q, **kw))
+            ms = median_ms(torch, lambda: cg.beam_walk(g, q, **kw))
+            plain_ms = median_ms(torch, lambda: core_search._search_batch(
+                g, q, **kw))
         bound = walk_bound_ms(kh, ke, b, g.dims, t, max_m)
         log(f"beam_walk vs plain at {n} rows, {b} queries, ef={WALK_EF}, "
             f"T={t}: "
@@ -724,7 +860,8 @@ def walk_kernels_phase(torch, idx, qs, dev, tmp, single, profile_lib):
                                     device_ms=dev_ms, plain_ms=plain_ms,
                                     bound_ms=bound, bound_by="bytes",
                                     library_ms=None)
-    integer_walks(torch, cg, core_search, dev)
+    with own_twin_calls():
+        integer_walks(torch, cg, core_search, dev)
 
     profiles = os.path.join(tmp, "profiles")
     for t in WALK_TS:
@@ -772,12 +909,13 @@ def walk_kernels_phase(torch, idx, qs, dev, tmp, single, profile_lib):
         what = "re-prune" if c == reprune_c else "insert"
         check(all(torch.equal(x, y) for x, y in zip(got, want)),
               f"prune_scan differs from the plain twin at the {what} shape")
-        dev_ms = device_ms(lambda: cg.prune_scan(d_s, valid_s, order, pair,
-                                                 do_prune, nn))
-        ms = median_ms(torch, lambda: cg.prune_scan(
-            d_s, valid_s, order, pair, do_prune, nn))
-        plain_ms = median_ms(torch, lambda: core_build._prune_scan_plain(
-            d_s, valid_s, order, pair, do_prune, nn))
+        with own_twin_calls():
+            dev_ms = device_ms(lambda: cg.prune_scan(d_s, valid_s, order,
+                                                     pair, do_prune, nn))
+            ms = median_ms(torch, lambda: cg.prune_scan(
+                d_s, valid_s, order, pair, do_prune, nn))
+            plain_ms = median_ms(torch, lambda: core_build._prune_scan_plain(
+                d_s, valid_s, order, pair, do_prune, nn))
         kept = got[0].int()
         before = torch.cumsum(kept, dim=1) - kept      # kept before each j
         tested = valid_s & (before < nn) & do_prune.unsqueeze(1)
@@ -836,11 +974,110 @@ def phase_breakdown(torch, g, q, captured, profile_lib):
             f"{graph_probe.format_cycles(r['cycles'])}")
 
 
-def serving_variants(torch, idx, qs):
-    """Quantized and packed walks on the 1M index at T=8: QPS and recall@10
-    against the exact route, each within 0.005 of the plain walk's recall;
-    float32 records must give the plain walk's ids and order; the bitmap
-    visited set must give dense's ids."""
+def row_bytes(graph, kw):
+    """Bytes of one neighbour's row as the walk reads it from ``kw``'s
+    source: 4 D float32, 2 D bf16, D + 4 int8 and its scale, G PQ."""
+    rows = kw.get("records", kw.get("qvectors", graph.vectors))
+    scale = 4 if "pscales" in kw or "qscale" in kw else 0
+    return rows.shape[-1] * rows.element_size() + scale
+
+
+def variant_vs_twin(torch, graph, qs, kw, results, launches, *,
+                    visited_slots=-1, ef=WALK_EF):
+    """One walk variant on a 1M index at T=8, ef=64 (the main path's
+    shape; ``ef`` = cand_cap another width), with the walk's operands
+    ``kw``: the kernel against the plain
+    twin on the card on every query: recall@10 after finish_walk (vs the
+    exact route over the stored rows) within 0.002 of the twin's, ids equal
+    on >= 98% of queries, mean hops and dist_evals within 1%; then a call's
+    time (CUDA events), the card's (a CUDA graph of 20 calls), the twin's
+    and the bound.  ``launches``: the walk launches by variant of the API
+    path just before, counted from 0 (walk_counts); the path must have
+    launched this variant.  Stores the numbers in ``results`` under the
+    variant's name."""
+    from pg_embedding_tpu_torch.core import search as core_search
+    from pg_embedding_tpu_torch.graph_probe import device_ms
+    from pg_embedding_tpu_torch.ops import cuda_graph as cg
+    from pg_embedding_tpu_torch.ops.cuda_bruteforce import fused_exact_search
+    q = torch.as_tensor(qs, device=graph.vectors.device)
+    walk = dict(ef=ef, metric_value=L2, cand_cap=ef, expand_width=GRAPH_T,
+                visited_slots=visited_slots)
+    records = kw.get("records")
+    name = cg.walk_variant(graph.vectors.dtype,
+                           None if records is None else records.dtype,
+                           quantized="qvectors" in kw,
+                           rotated="query_t" in kw,
+                           visited_slots=visited_slots)
+    fin = dict(metric_value=L2, hashed=visited_slots > 0,
+               rerank="qvectors" in kw or (records is not None and
+                                           records.dtype != torch.float32))
+    check(launches.get(name, 0) > 0,
+          f"the API path before launched no {name} walk: {launches}")
+    with own_twin_calls():
+        got = cg.beam_walk(graph, q, **walk, **kw)
+        want = twin(core_search, graph, q, kw, walk)
+        kd, ki = core_search.finish_walk(graph, q, *got[:2], **fin)
+        pd, pi = core_search.finish_walk(graph, q, *want[:2], **fin)
+    _, truth = fused_exact_search(q, graph.vectors, K,
+                                  n_valid=graph.n_nodes)
+    truth = truth.cpu().numpy()
+    ki_np, pi_np = ki.cpu().numpy(), pi.cpu().numpy()
+    rec_k = recall(ki_np, ki_np >= 0, truth)
+    rec_p = recall(pi_np, pi_np >= 0, truth)
+    same = (ki == pi).all(dim=1)
+    n_diff, b = int((~same).sum()), len(ki)
+    fin = torch.isfinite(pd) & same.unsqueeze(1)        # the hash set: inf
+    err = float((kd[fin] - pd[fin]).abs().max()) if fin.any() else 0.0
+    hk, hp = float(got[2].float().mean()), float(want[2].float().mean())
+    ek, ep = float(got[3].float().mean()), float(want[3].float().mean())
+    twin_kw = dict(kw)
+    twin_kw["pcodes"] = twin_kw.pop("records", None)
+    with own_twin_calls():
+        kh, ke = cg.beam_walk(graph, q, **walk, **kw)[2:]
+        dev_ms = device_ms(lambda: cg.beam_walk(graph, q, **walk, **kw))
+        ms = median_ms(torch, lambda: cg.beam_walk(graph, q, **walk, **kw))
+        plain_ms = median_ms(torch, lambda: core_search._search_batch(
+            graph, q, **walk, **twin_kw))
+    visited = None if visited_slots < 0 else (
+        -(-graph.capacity // 32) if visited_slots == 0 else visited_slots,
+        visited_slots)
+    bound = walk_bound_ms(kh, ke, len(qs), graph.dims, GRAPH_T, graph.max_m,
+                          row_bytes(graph, kw), visited)
+    log(f"beam_walk {name} vs plain at {graph.n_nodes} rows, {b} queries, "
+        f"ef={ef}, T={GRAPH_T} ({launches[name]} launches on its API path): "
+        f"recall@10 {rec_k:.4f} / {rec_p:.4f} vs the exact route; ids "
+        f"differ on {n_diff} of {b} queries; mean hops {hk:.2f} / {hp:.2f}, "
+        f"dist_evals {ek:.1f} / {ep:.1f}; max_abs_err {err:.3g} where ids "
+        f"agree; on {len(qs)} queries kernel {ms:.3f} ms a call, plain "
+        f"{plain_ms:.3f} ms (median of 5, CUDA events), kernel "
+        f"{dev_ms:.3f} ms on the card (a CUDA graph of 20 calls); bound "
+        f"{bound:.4f} ms (bytes; {bound / dev_ms:.1%} of it reached)")
+    check(abs(rec_k - rec_p) <= 0.002,
+          f"{name}: walk recall {rec_k} vs the twin's {rec_p}")
+    check(n_diff <= 0.02 * b, f"{name}: ids differ on {n_diff} queries")
+    check(abs(hk - hp) <= 0.01 * hp and abs(ek - ep) <= 0.01 * ep,
+          f"{name}: hops {hk} / {hp}, evals {ek} / {ep}")
+    results[name] = dict(launches=launches[name], max_abs_err=err, ms=ms,
+                         device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound,
+                         bound_by="bytes", recall=rec_k, plain_recall=rec_p)
+
+
+def walk_counts():
+    """Set the walk kernel's launch counts by variant to 0 before a path's
+    API calls; read them after it with dict(cuda_graph.WALK_VARIANTS)."""
+    from pg_embedding_tpu_torch.ops import cuda_graph
+    cuda_graph.WALK_VARIANTS.clear()
+    return cuda_graph.WALK_VARIANTS
+
+
+def serving_variants(torch, idx, qs, results):
+    """Quantized and packed walks on the 1M index at T=8 through the API:
+    QPS and recall@10 against the exact route, each within 0.005 of the
+    plain walk's recall; float32 records must give the plain walk's ids and
+    order; each variant's kernel against its plain twin (variant_vs_twin);
+    then the bitmap and hash visited sets: the dense walk's ids through the
+    API, and each kernel against its twin.  Each variant's launches are
+    counted over its own API calls."""
     _, el, _ = idx.exact_search(qs, K)
     _, plain_ids = idx.search_ids(qs)
     _, pl, pv = idx.search(qs, K, mode="graph")
@@ -858,6 +1095,7 @@ def serving_variants(torch, idx, qs):
     for name, knobs in variants:
         for key, val in knobs.items():
             setattr(idx, key, val)
+        counts = walk_counts()
         t0 = time.time()
         _, ids = idx.search_ids(qs)            # builds the shadow/records
         torch.cuda.synchronize()
@@ -866,6 +1104,7 @@ def serving_variants(torch, idx, qs):
         for _ in range(reps):
             _, gl, gv = idx.search(qs, K, mode="graph")
         qps = reps * len(qs) / (time.time() - t0)
+        launches = dict(counts)
         size = (idx._pcodes if idx.packed_traversal else idx._qvec)
         gb = size.numel() * size.element_size() / 1e9
         rec = recall(gl, gv, el)
@@ -877,24 +1116,87 @@ def serving_variants(torch, idx, qs):
         if name == "packed float32":
             check(np.array_equal(ids, plain_ids),
                   "packed float32 ids/order differ from the plain walk")
+        if idx.packed_traversal:
+            kw = dict(records=idx._pcodes)
+            if idx._pscales is not None:
+                kw["pscales"] = idx._pscales
+        else:
+            kw = dict(qvectors=idx._qvec, qscale=idx._qscale)
+        variant_vs_twin(torch, idx.graph, qs, kw, results, launches)
         idx.quantized_traversal = idx.packed_traversal = False
     log("packed float32 walk: ids and order equal the plain walk's on all "
         f"{len(qs)} queries")
-    # the bitmap walk runs torch ops: it is held to the plain dense walk
-    from pg_embedding_tpu_torch.core.search import _search_batch
-    sub = qs[:64]
-    ef = idx.config.ef_search
-    _, dense, _, _ = _search_batch(
-        idx.graph, torch.as_tensor(sub, device=idx.device), ef=ef,
-        metric_value=idx.config.metric.value, cand_cap=ef,
-        expand_width=idx.search_expand_width)
-    idx.visited_mode = "bitmap"
-    _, bitmap = idx.search_ids(sub)
-    idx.visited_mode = "dense"
-    check(np.array_equal(bitmap, dense.cpu().numpy()),
-          "bitmap visited set != the plain dense walk")
-    log("visited_mode='bitmap' gives the plain dense walk's ids on 64 "
-        "queries")
+    for mode, slots in WALK_VISITED.items():
+        idx.visited_mode = mode
+        check(idx._visited_slots(idx.config.ef_search) == slots,
+              f"visited_mode={mode!r}: {slots} slots expected")
+        counts = walk_counts()
+        _, ids = idx.search_ids(qs)
+        _, gl, gv = idx.search(qs, K, mode="graph")
+        launches = dict(counts)
+        idx.visited_mode = "dense"
+        rec = recall(gl, gv, el)
+        same = float((ids == plain_ids).all(axis=1).mean())
+        log(f"visited_mode={mode!r}: recall@10 {rec:.4f} vs the exact "
+            f"route; the dense walk's ef ids on {same:.4f} of the queries")
+        # the bitmap is exact: the dense walk's ids; the hash set loses
+        # entries to overwrites and re-expands their nodes (a different
+        # walk, held to its twin below)
+        check(mode == "hash" or same == 1.0,
+              f"visited_mode={mode!r} ids differ from the dense walk's")
+        variant_vs_twin(torch, idx.graph, qs, {}, results, launches,
+                        visited_slots=slots)
+
+
+def wide_queue_phase(torch, idx, qs):
+    """A filtered graph search on the 1M index that widens past the 4096
+    the walk keeps in shared memory: ef_search 40 doubles to 5120 (7
+    widenings, 8 walks, all launches of the kernel, none of the twin), 64
+    queries allowed only 0.2% of the rows, at random (2,000 at 1M).  Every
+    returned label is allowed, and the walk's answers are the masked exact
+    route's nearest (>= 0.9 of them).  Then that walk, unfiltered, against
+    its twin (variant_vs_twin at ef 5120); returns its numbers, the
+    launches those of this path."""
+    from pg_embedding_tpu_torch.core import search as core_search
+    n = idx.n_nodes
+    where = np.zeros(n, bool)
+    where[np.random.default_rng(SEED + 9).choice(n, n // 500,
+                                                 replace=False)] = True
+    ef_search = idx.config.ef_search
+    idx.set_ef_search(40)
+    plain = core_search.PLAIN_WALKS_ON_CARD
+    widenings = idx.counters["n_widenings"]
+    counts = walk_counts()
+    t0 = time.time()
+    _, gl, gv = idx.search(qs[:64], K, mode="graph", where=where)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(counts)
+    idx.set_ef_search(ef_search)
+    widened = idx.counters["n_widenings"] - widenings
+    _, el, ev = idx.search(qs[:64], K, mode="exact", where=where)
+    found = int(gv.sum())
+    hit = sum(len(set(gl[i][gv[i]].tolist()) & set(el[i][ev[i]].tolist()))
+              for i in range(64))
+    log(f"widening past 4096: a filtered graph search (64 queries, "
+        f"{n // 500} allowed rows) from ef_search 40 widened {widened} "
+        f"times to 5120 in {wall:.2f} s; walk launches {launches}; {found} results, "
+        f"{hit / max(found, 1):.4f} of them among the masked exact route's "
+        f"{K}")
+    check(widened == 7, f"widened {widened} times, not 40 -> 5120")
+    check(launches == {"rows f32, dense": 8},
+          f"the widening's walks: {launches}")
+    check(core_search.PLAIN_WALKS_ON_CARD == plain,
+          "the widening ran a plain walk on the card")
+    allowed = np.nonzero(where)[0].astype(np.uint64)
+    check(bool(np.isin(gl[gv], allowed).all()),
+          "the widening returned a row the filter excludes")
+    check(found > 0 and hit >= 0.9 * found,
+          f"the widened walk's results: {hit} of {found} among the exact "
+          f"route's")
+    wide = {}
+    variant_vs_twin(torch, idx.graph, qs[:64], {}, wide, launches, ef=5120)
+    return wide["rows f32, dense"]
 
 
 def answers(idx, qs):
@@ -1133,22 +1435,30 @@ def pq_walk_card_vs_cpu(torch, idx, qs):
     check(same >= 0.9, f"card and CPU PQ walks agree on {same}")
 
 
-def pq_main(torch, idx, qs):
+def pq_main(torch, idx, qs, results):
     """G=32 on the main index (bench.py's 1,000 centres): printed, not
-    held; then the card against the CPU (codes and the walk)."""
+    held; the PQ walk kernel against its twin; then the card against the
+    CPU (codes and the walk)."""
     _, el, _ = idx.exact_search(qs, K)
     _, pl, pv = idx.search(qs, K, mode="graph")
     log(f"PQ on the main index (1,000 centres, ~1,000 rows each): plain "
         f"walk recall@10 {recall(pl, pv, el):.4f}")
+    counts = walk_counts()
     pq_walk(torch, idx, qs, el, 32, False)
+    variant_vs_twin(torch, idx.graph, qs, dict(
+        records=idx._pcodes, pq_codebook=idx._pq_codebook), results,
+        dict(counts))
     codes_card_vs_cpu(torch, idx)
     pq_walk_card_vs_cpu(torch, idx, qs)
 
 
-def pq_serving_phase(torch, HnswConfig, HnswIndex, dev, n, n_queries, tmp):
+def pq_serving_phase(torch, HnswConfig, HnswIndex, dev, n, n_queries, tmp,
+                     results):
     """PQ where the JAX package measured it serving (bench_pq.py's
-    50,000-centre recipe): G=16, OPQ G=32 and G=32 walks (G=32 held within
-    0.03 of the plain walk's recall), the tuned sweep, save -> load."""
+    50,000-centre recipe): G=16, OPQ G=32 (its walk kernel against its
+    twin) and G=32 walks (G=32 held within 0.03 of the plain walk's
+    recall), the tuned sweep, save -> load."""
+    from pg_embedding_tpu_torch.ops.distance import _matmul
     from pg_embedding_tpu_torch.utils.profiling import Timer
     pts, qs = make_data(SEED + 3, n, n_queries, PQ_CENTERS)
     idx = HnswIndex(HnswConfig(dims=DIMS, m=16, ef_construction=64,
@@ -1166,7 +1476,13 @@ def pq_serving_phase(torch, HnswConfig, HnswIndex, dev, n, n_queries, tmp):
         f"recall@10 {plain:.4f} (T={idx.search_expand_width}, "
         f"ef={idx.config.ef_search})")
     pq_walk(torch, idx, qs, el, 16, False)
+    counts = walk_counts()
     pq_walk(torch, idx, qs, el, 32, True)
+    launches = dict(counts)
+    q = torch.as_tensor(qs, device=dev)
+    variant_vs_twin(torch, idx.graph, qs, dict(
+        records=idx._pcodes, pq_codebook=idx._pq_codebook,
+        query_t=_matmul(q, idx._pq_rot)), results, launches)
     rec = pq_walk(torch, idx, qs, el, 32, False)
     check(rec >= plain - 0.03,
           f"PQ G=32 walk recall {rec} vs the plain walk's {plain}")
@@ -1174,13 +1490,15 @@ def pq_serving_phase(torch, HnswConfig, HnswIndex, dev, n, n_queries, tmp):
     pq_persistence(torch, HnswIndex, idx, qs, tmp)
 
 
-def bf16_phase(torch, cb, idx, qs):
+def bf16_phase(torch, cb, idx, qs, results):
     """The one-way downcast, then the exact route through the bf16
     instantiation; returns its launch counts.  On every query the route must
     return the exact top-k of the rows it stores: a float64 oracle over the
     bf16 rows, with the kernel check's near-tie rule (a returned row within
     1e-5 relative of the oracle's k-th distance).  Its recall against the
-    float32 route is printed only: bf16 rounding reorders near-ties."""
+    float32 route is printed only: bf16 rounding reorders near-ties.  Then
+    the graph route over the bf16 rows (the walk kernel's bf16 rows) and
+    that kernel against its twin."""
     n = idx.n_nodes
     check(np.array_equal(idx.labels, np.arange(n)), "labels are node ids")
     _, el, _ = idx.exact_search(qs, K)
@@ -1217,6 +1535,14 @@ def bf16_phase(torch, cb, idx, qs):
     check(rec_own >= 0.99, f"bf16 route vs its own rows: recall {rec_own}")
     check(bool((got_d <= kth * (1 + 1e-5) + 1e-6).all()),
           f"bf16 route returned a row past the oracle's 10th ({excess})")
+    packed, idx.packed_traversal = idx.packed_traversal, False
+    counts = walk_counts()
+    _, gl, gv = idx.search(qs, K, mode="graph")
+    walks = dict(counts)
+    idx.packed_traversal = packed
+    log(f"search(mode='graph') over the bf16 rows: recall@10 "
+        f"{recall(gl, gv, oracle):.4f} vs the float64 oracle over them")
+    variant_vs_twin(torch, idx.graph, qs, {}, results, walks)
     return launches
 
 
@@ -1412,6 +1738,39 @@ def tuner_phase(idx, tmp):
           f"tune_exact8_chunk chose {chunk}")
     log(f"tune_exact8_chunk chose {chunk} rows a chunk in "
         f"{time.time() - t0:.1f} s")
+    exact8_yardstick(idx, chunk)
+
+
+def exact8_yardstick(idx, chunk):
+    """The exact8 sweep's library yardstick and bound at the tuner's
+    shape: one batch of max_insert_batch rows scored against the
+    dequantised int8 shadow by torch.matmul (float32) and cut by
+    torch.topk to its pool (2 cand_cap), a chunk of ``chunk`` rows at a
+    time (CUDA events, median of 5); the bound is the larger of the
+    operations (2 B N D at the float32 rate outside the tensor cores, the
+    sweep's type) and the bytes (the int8 shadow and its scales, the
+    batch, the pool)."""
+    import torch
+    qv, qsc = idx._ensure_quantized()
+    n, dims = idx.n_nodes, idx.config.dims
+    pts = idx.graph.vectors[: idx.max_insert_batch].to(torch.float32)
+    b, keep = pts.shape[0], 4 * idx.config.ef_construction
+    rows = (qv[:n].to(torch.bfloat16) * qsc[:n].to(torch.bfloat16)
+            .unsqueeze(1)).to(torch.float32)
+
+    def batch():
+        for start in range(0, n, chunk):
+            d = torch.matmul(pts, rows[start:start + chunk].T)
+            torch.topk(d, keep, dim=1, largest=False, sorted=False)
+    lib_ms = median_ms(torch, batch)
+    ops_ms = 2 * b * n * dims / PEAK_F32 * 1e3
+    bytes_ms = (n * (dims + 4) + b * dims * 4 + b * keep * 8) / PEAK_BYTES * 1e3
+    log(f"exact8 sweep yardstick at {n} rows, a {b}-row batch, chunks of "
+        f"{chunk}: torch.matmul + torch.topk (pool {keep}) {lib_ms:.3f} ms "
+        f"(median of 5, CUDA events); bound {max(ops_ms, bytes_ms):.4f} ms "
+        f"({'operations' if ops_ms >= bytes_ms else 'bytes'}: operations "
+        f"{ops_ms:.4f} ms at 67 TFLOP/s float32, bytes {bytes_ms:.4f} ms)")
+    del rows
 
 
 def free_port():
@@ -1636,6 +1995,10 @@ def rank_main(args):
     out["build_graph"] = built.search(qs, K, mode="graph")[1]
     counts = launch_counts()
     out["launches"] = np.array([counts[n] for n in LAUNCH_NAMES])
+    from pg_embedding_tpu_torch.core import search as core_search
+    check(core_search.PLAIN_WALKS_ON_CARD == 0,
+          f"rank {args.rank} ran {core_search.PLAIN_WALKS_ON_CARD} plain "
+          f"walks on the card")
     np.savez(os.path.join(w, f"rank{args.rank}.npz"), **out)
     log(f"load {out['load_s']:.1f} s, exact {out['exact_qps']:.0f} QPS, "
         f"graph {out['graph_qps']:.0f} QPS, save {out['save_s']:.1f} s, "
@@ -1764,6 +2127,7 @@ def main():
     compiler_report(_kernels)
 
     timings = kernel_phase(torch, cb, dev)
+    walk_variants = {}                 # variant_vs_twin's numbers, by name
     small_build_matches_cpu(torch, HnswConfig, HnswIndex, dev)
     idx, pts, qs, main_launches, single = main_path(
         torch, cb, HnswConfig, HnswIndex, dev, args.n, args.queries)
@@ -1773,14 +2137,16 @@ def main():
         timings.update(walk_kernels_phase(torch, idx, qs, dev, tmp,
                                           single, profile_lib))
         wide_k_phase(torch, cb, idx, qs)
-        serving_variants(torch, idx, qs)
+        serving_variants(torch, idx, qs, walk_variants)
+        timings["beam_walk"]["wide_queues"] = wide_queue_phase(torch, idx,
+                                                               qs)
         tuner_phase(idx, tmp)
         persistence(torch, HnswIndex, idx, qs, tmp)
         wal_recovery(torch, HnswIndex, idx, pts, qs, tmp)
         scan_check(idx, qs)
-        pq_main(torch, idx, qs)
+        pq_main(torch, idx, qs, walk_variants)
         shadows = (idx._pq_codebook, idx._pq_codes, idx._pcodes)
-        bf16_launches = bf16_phase(torch, cb, idx, qs)
+        bf16_launches = bf16_phase(torch, cb, idx, qs, walk_variants)
         pq_after_downcast(idx, qs, shadows)
         del idx
         torch.cuda.empty_cache()
@@ -1795,8 +2161,21 @@ def main():
         del pts
         torch.cuda.empty_cache()
         pq_serving_phase(torch, HnswConfig, HnswIndex, dev, args.n,
-                         args.queries, tmp)
+                         args.queries, tmp, walk_variants)
     table_phase(torch, VectorTable, dev)
+
+    # every walk variant reached the kernel through its own API path
+    # (variant_vs_twin checks each path's count), and no walk of phases
+    # 4-11 ran the plain twin on the card
+    from pg_embedding_tpu_torch.core import search as core_search
+    log(f"beam_walk launches by variant, each over its own API path (the "
+        f"smoke's comparisons not counted): "
+        f"{ {k: v['launches'] for k, v in walk_variants.items()} }")
+    check(len(walk_variants) == len(WALK_SOURCES) + len(WALK_VISITED),
+          f"variants held to their twin at 1M: {sorted(walk_variants)}")
+    check(core_search.PLAIN_WALKS_ON_CARD == 0,
+          f"phases 4-11 ran {core_search.PLAIN_WALKS_ON_CARD} plain walks "
+          f"on the card")
 
     log(smi)
     kernels = []
@@ -1816,6 +2195,8 @@ def main():
             "replaces": replaces, "launches": launches[name],
             "sharded_launches": sharded_launches[name],
             "multiprocess_launches": mp_launches[name], **timings[name]})
+        if name == "beam_walk":
+            kernels[-1]["variants"] = walk_variants
     for name in ("bruteforce_topk", "beam_walk", "prune_scan"):
         check(main_launches[name] > 0,
               f"the main path never launched {name}")

@@ -44,15 +44,22 @@ def _nvcc() -> str:
                        "(set CUDA_HOME or put nvcc on PATH)")
 
 
+def declare_graph(lib) -> None:
+    """The argument types of csrc/beam_walk.cu's and csrc/prune_scan.cu's
+    entries in ``lib`` (the port's library or a probe's build)."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.beam_walk.argtypes = [*[vp] * 9, *[ci] * 15, *[vp] * 5]
+    lib.beam_walk.restype = ci
+    lib.prune_scan.argtypes = [*[vp] * 5, *[ci] * 3, *[vp] * 3]
+    lib.prune_scan.restype = ci
+
+
 def _declare(lib) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.bruteforce_topk, lib.bruteforce_topk_bf16):
         fn.argtypes = [vp, vp, vp, *[ci] * 9, *[vp] * 7]
         fn.restype = ci
-    lib.beam_walk.argtypes = [*[vp] * 5, *[ci] * 10, *[vp] * 5]
-    lib.beam_walk.restype = ci
-    lib.prune_scan.argtypes = [*[vp] * 5, *[ci] * 3, *[vp] * 3]
-    lib.prune_scan.restype = ci
+    declare_graph(lib)
     lib.bruteforce_topk_error_string.argtypes = [ci]
     lib.bruteforce_topk_error_string.restype = ctypes.c_char_p
 

@@ -40,20 +40,22 @@ Neighbour rows come from one of four sources:
 Any approximate source (int8, bf16 or PQ records, int8 rows) is followed
 by an exact rerank of the ef results against the corpus rows.  float32
 records skip it: their distances are the plain walk's, so the ids, order
-and distances equal the plain walk's.
+and distances equal the plain walk's.  The rerank and the hash set's
+duplicate drop run after the walk, in ``finish_walk``, whichever route
+walked.
 
 The JAX package runs ``vmap(while_loop)`` as one device program.  Here
-``search_graph`` routes each call (``walk_route``, a pure function of its
-arguments): on the card, the dense walk over float32 rows or float32
-records runs as one kernel launch (ops/cuda_graph.beam_walk); every other
-walk, and every walk on the CPU, runs ``_search_batch``, the kernel's
-plain twin.  There the batch is explicit and the loop is a Python loop
-over steps.  A query whose loop condition fails freezes — its queues, hop
-and distance-evaluation counts stop changing — exactly as vmap's per-lane
-select does.  Each step runs only the active queries and costs one host
-sync (reading which queries are still active).  ``PLAIN_WALKS_ON_CARD``
-counts the twin's calls on CUDA tensors, so a run can show that a path's
-walks all went through the kernel.
+``search_graph`` routes each call (``walk_route``, a pure function of the
+device): on the card every variant above — each row source, OPQ, each
+visited set, any queue width — runs as one kernel launch
+(ops/cuda_graph.beam_walk, which launches or raises); every walk on the
+CPU runs ``_search_batch``, the kernel's plain twin.  There the batch is
+explicit and the loop is a Python loop over steps.  A query whose loop
+condition fails freezes — its queues, hop and distance-evaluation counts
+stop changing — exactly as vmap's per-lane select does.  Each step runs only the active queries and
+costs one host sync (reading which queries are still active).
+``PLAIN_WALKS_ON_CARD`` counts the twin's calls on CUDA tensors, so a run
+can show that a path's walks all went through the kernel.
 """
 
 from __future__ import annotations
@@ -63,7 +65,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..ops.bruteforce import merge_min_k, min_k
-from ..ops.cuda_graph import MAX_WALK_QUEUE, beam_walk
+from ..ops.cuda_graph import beam_walk
 from ..ops.distance import _matmul, dist_one_to_many
 from ..ops.pq import pq_decode
 from .graph import GraphState
@@ -109,10 +111,11 @@ def _search_batch(graph: GraphState, queries: torch.Tensor, *, ef: int,
                   metric_value: int, cand_cap: int, expand_width: int = 1,
                   qvectors=None, qscale=None, pcodes=None, pscales=None,
                   pq_codebook=None, query_t=None, visited_slots: int = -1):
-    """searchBaseLayer for a batch of queries f32[B, D].  Returns (res_d
-    f32[B, ef], res_i i32[B, ef], hops i32[B], dist_evals i32[B]); results
-    ascending, -1/inf padded.  ``query_t`` f32[B, D], when given, replaces
-    the queries in the walk's distances only (the OPQ hook)."""
+    """searchBaseLayer for a batch of queries f32[B, D]: the walk of
+    ops/cuda_graph.beam_walk in torch ops.  Returns (res_d f32[B, ef],
+    res_i i32[B, ef], hops i32[B], dist_evals i32[B]); results ascending,
+    -1/inf padded, before finish_walk.  ``query_t`` f32[B, D], when given,
+    replaces the queries in the walk's distances only (the OPQ hook)."""
     global PLAIN_WALKS_ON_CARD
     b, dims = queries.shape
     dev = queries.device
@@ -216,8 +219,15 @@ def _search_batch(graph: GraphState, queries: torch.Tensor, *, ef: int,
             ins = torch.gather(buckets, 2,
                                _hash_slot_choice(safe_nbrs).unsqueeze(2))
             rows = idx.unsqueeze(1).expand(a, tm)
-            visited[rows[process], ins.squeeze(2)[process]] = \
-                safe_nbrs[process]
+            r, c = rows[process], ins.squeeze(2)[process]
+            # where two ids of a step choose one slot, the later expansion
+            # slot's write wins (the mask lists them in slot order);
+            # index_put with repeated indices leaves the winner unspecified
+            key, perm = torch.sort(r * visited_slots + c, stable=True)
+            last = perm[torch.cat([key[1:] != key[:-1],
+                                   key.new_ones(min(key.numel(), 1),
+                                                dtype=torch.bool)])]
+            visited[r[last], c[last]] = safe_nbrs[process][last]
         elif not use_dense:
             # the processed ids are distinct, so their bits are disjoint
             # within a word and adding them sets them
@@ -252,7 +262,18 @@ def _search_batch(graph: GraphState, queries: torch.Tensor, *, ef: int,
         hops[idx] += 1
         evals[idx] += process.sum(dim=1, dtype=torch.int32)
 
-    if use_hash:
+    return res_d, res_i, hops, evals
+
+
+def finish_walk(graph: GraphState, queries: torch.Tensor,
+                res_d: torch.Tensor, res_i: torch.Tensor, *,
+                metric_value: int, hashed: bool, rerank: bool):
+    """What follows the walk on either route, once a batch: the hash set's
+    duplicate drop (``hashed``) and the exact rerank of an approximate
+    source's ef results against the corpus rows (``rerank``).  Returns
+    (res_d, res_i)."""
+    ef = res_i.shape[1]
+    if hashed:
         # overwrites can put an id into the results twice (with the same
         # distance): drop the later copies, then restore ascending order
         order = torch.argsort(res_i, dim=1, stable=True)
@@ -262,35 +283,22 @@ def _search_batch(graph: GraphState, queries: torch.Tensor, *, ef: int,
         dupe = (si == prev) & (si >= 0)
         res_d, sel = min_k(torch.where(dupe, _INF, sd), ef)
         res_i = torch.gather(torch.where(dupe, -1, si), 1, sel)
-    if qvectors is not None or (pcodes is not None
-                                and pcodes.dtype != torch.float32):
+    if rerank:
         # exact rerank of the ef results against the corpus rows
         fvecs = graph.vectors[res_i.clamp(min=0)]
         rd = torch.where(res_i >= 0,
                          dist_one_to_many(queries, fvecs, metric_value), _INF)
         res_d, sel = min_k(rd, ef)
         res_i = torch.gather(res_i, 1, sel)
-    return res_d, res_i, hops, evals
+    return res_d, res_i
 
 
-def walk_route(device_type: str, rows_dtype, *, ef: int, cand_cap: int,
-               visited_slots: int = -1, quantized: bool = False,
-               records_dtype=None, record_scales: bool = False,
-               pq: bool = False, rotated: bool = False) -> str:
-    """Which walk serves a call: "kernel" (ops/cuda_graph.beam_walk) for
-    the dense dedupe on the card over float32 corpus rows or float32
-    packed records, with ef and cand_cap up to MAX_WALK_QUEUE; "plain"
-    (_search_batch) for every other walk — the bitmap and hash visited
-    sets, int8 rows (``quantized``), int8 / bf16 / PQ records, bf16 corpus
-    rows, OPQ (``rotated``) — and for every walk off the card."""
-    if device_type != "cuda" or visited_slots >= 0:
-        return "plain"
-    if quantized or pq or rotated or record_scales:
-        return "plain"
-    if max(ef, cand_cap) > MAX_WALK_QUEUE:
-        return "plain"
-    dtype = rows_dtype if records_dtype is None else records_dtype
-    return "kernel" if dtype == torch.float32 else "plain"
+def walk_route(device_type: str) -> str:
+    """Which walk serves a call: "kernel" (ops/cuda_graph.beam_walk, which
+    launches or raises) for every walk on the card, whatever its row
+    source, visited set and queue widths; "plain" (_search_batch) off the
+    card."""
+    return "kernel" if device_type == "cuda" else "plain"
 
 
 def search_graph(graph: GraphState, queries: torch.Tensor, *, ef: int,
@@ -301,7 +309,8 @@ def search_graph(graph: GraphState, queries: torch.Tensor, *, ef: int,
                  ) -> Tuple[torch.Tensor, torch.Tensor, SearchStats]:
     """Batched searchBaseLayer; the counterpart of the JAX package's
     search_graph, search_graph_quantized and search_graph_packed.  The
-    walk runs as one kernel launch or as torch ops, as walk_route says.
+    walk runs as one kernel launch or as torch ops, as walk_route says;
+    finish_walk follows either.
 
     Args:
       graph:   GraphState.
@@ -325,23 +334,21 @@ def search_graph(graph: GraphState, queries: torch.Tensor, *, ef: int,
     """
     if cand_cap is None:
         cand_cap = ef
-    route = walk_route(
-        queries.device.type, graph.vectors.dtype, ef=ef, cand_cap=cand_cap,
-        visited_slots=visited_slots, quantized=qvectors is not None,
-        records_dtype=None if pcodes is None else pcodes.dtype,
-        record_scales=pscales is not None, pq=pq_codebook is not None,
-        rotated=query_t is not None)
-    if route == "kernel":
-        res_d, res_i, hops, evals = beam_walk(
-            graph, queries, ef=ef, metric_value=metric_value,
-            cand_cap=cand_cap, expand_width=expand_width, records=pcodes)
+    kw = dict(ef=ef, metric_value=metric_value, cand_cap=cand_cap,
+              expand_width=expand_width, qvectors=qvectors, qscale=qscale,
+              pscales=pscales, pq_codebook=pq_codebook, query_t=query_t,
+              visited_slots=visited_slots)
+    if walk_route(queries.device.type) == "kernel":
+        res_d, res_i, hops, evals = beam_walk(graph, queries, records=pcodes,
+                                              **kw)
     else:
-        res_d, res_i, hops, evals = _search_batch(
-            graph, queries, ef=ef, metric_value=metric_value,
-            cand_cap=cand_cap, expand_width=expand_width, qvectors=qvectors,
-            qscale=qscale, pcodes=pcodes, pscales=pscales,
-            pq_codebook=pq_codebook, query_t=query_t,
-            visited_slots=visited_slots)
+        res_d, res_i, hops, evals = _search_batch(graph, queries,
+                                                  pcodes=pcodes, **kw)
+    res_d, res_i = finish_walk(
+        graph, queries, res_d, res_i, metric_value=metric_value,
+        hashed=visited_slots > 0,
+        rerank=qvectors is not None or (pcodes is not None
+                                        and pcodes.dtype != torch.float32))
     return res_d, res_i, SearchStats(hops=hops, dist_evals=evals)
 
 

@@ -4,20 +4,33 @@
 // host round trip per step.
 //
 // Replaces: pg_embedding_tpu/core/search.py::_search_one (:80), the
-// jax.lax.while_loop (:327) that search_graph and search_graph_packed vmap
-// over a batch and XLA compiles into one device program.  Its plain twin is
-// the port's torch-op walk, core/search._search_batch, and the kernel
-// computes, per query, exactly what one lane of that walk computes:
-//   * entry node 0 at the caller's entry distance (the twin's own torch op,
-//     so both walks start from the same bits); no node: the padding;
-//   * loop while cand_d[0] < inf && !(cand_d[0] > res_d[ef-1]);
+// jax.lax.while_loop (:327) that search_graph (:455), search_graph_quantized
+// (:369), search_graph_packed (:392) and search_graph_pq (:418) vmap over a
+// batch and XLA compiles into one device program: every traversal variant
+// of it runs here.  Its plain twin is the port's torch-op walk,
+// core/search._search_batch, and the kernel computes, per query, exactly
+// what one lane of that walk computes:
+//   * entry node 0 at the caller's entry distance (the twin's own torch op
+//     on the original query and corpus row, so both walks start from the
+//     same bits); no node: the padding;
+//   * loop while cand_d[0] < inf && !(cand_d[0] > res_d[ef-1]) (and, with
+//     the hash visited set, hops < its slots);
 //   * pop the first T candidates; popped j expands iff
 //     !(pop_d[j] > lower) && pop_i[j] >= 0, lower = res_d[ef-1] at the
 //     step's start; slot s of the T*maxM expansion is valid iff
 //     s % maxM < link_counts[pop], the link is >= 0 and its pop expands;
-//   * dense dedupe: skip an id held by the candidate queue after the pop,
-//     the result queue or any of the T popped ids, then every valid slot
-//     that repeats an earlier valid slot's id;
+//   * a valid slot is processed iff no earlier valid slot holds its id and
+//     its id is unvisited, by one of three visited sets:
+//       dense (the default): not held by the candidate queue after the
+//         pop, the result queue or the T popped ids;
+//       bitmap: its bit is clear in the query's bit set over the ids
+//         (global memory, zeroed by the wrapper, node 0's bit set); the
+//         processed ids set theirs after every slot has read;
+//       hash: no slot of its 4-slot bucket of the query's table (global
+//         memory, -1 empty, node 0 in slot 0) holds it; bucket and slot
+//         are the twin's uint32 hashes; after every slot has read, each
+//         processed id writes its slot, the highest expansion slot winning
+//         where two choose one (the twin's index_put on the CPU);
 //   * dist_evals += processed slots; admit d < lower; results keep the ef
 //     and candidates the cand_cap smallest of incumbents + admitted, ties
 //     to the incumbents, then to the lower slot (merge_min_k after the
@@ -26,16 +39,35 @@
 //     sqrtf(sum (p - q)^2), cosine 1 - dot * rsqrtf(max(|q|^2 |p|^2,
 //     1e-30)), Manhattan sum |p - q|; products and sums are rounded one by
 //     one (no contraction into FMA), as the twin's separate torch ops are.
-// Neighbour rows come from the corpus rows f32[cap, D] or from float32
-// packed records f32[cap, maxM, D] (record p, slot r holds the row of
-// links[p, r]): the same values, so both give the same walk.
+//     The query is the walk's (under OPQ, q @ R: the wrapper passes it).
+// Neighbour rows (phase 3's source, a template parameter) are the twin's
+// float32 values of:
+//   * float32 corpus rows [cap, D] (read at the id) or packed records
+//     [cap, maxM, D] (record p, slot r holds the row of links[p, r]; read
+//     at the popped row's slot): the same values, so the same walk;
+//   * int8 rows [cap, D] x a scale f32[cap], or int8 records x f32[cap,
+//     maxM]: code * scale, one rounding (__fmul_rn);
+//   * bf16 corpus rows or records, widened exactly; with cosine over bf16
+//     corpus rows, |p|^2 is rounded to bf16 and back, as the twin's
+//     _sum_sq of a bf16 operand does (records are widened first: no);
+//   * PQ records u8[cap, maxM, G] through the codebook f32[G, 256, D / G]:
+//     element c is codebook[c / sub, code[c / sub], c % sub] (ops/pq
+//     pq_decode), read through the read-only cache.
+// The exact rerank of approximate sources and the hash mode's duplicate
+// drop stay torch ops after the walk (core/search.finish_walk), on both
+// routes.
 //
 // What bounds it on an H100: the bytes it must read,
-//   sum_q (dist_evals_q * D * 4 + hops_q * T * (maxM + 1) * 4) + B * D * 4,
-// about 0.36 ms at 3.35 TB/s for 1,024 queries at 1M x 128-d (ef = 64, T =
-// 8, ~2,240 processed neighbours a query).  A walk is a chain of dependent
-// steps (mean 17 at T = 8, up to 38), so the design keeps each step's chain
-// short and enough queries resident to overlap their latencies.
+//   sum_q (dist_evals_q * row_bytes + hops_q * T * (maxM + 1) * 4)
+//   + B * D * 4,
+// row_bytes = 4 D for float32 rows, 2 D for bf16, D + 4 for int8 and its
+// scale, G for PQ codes (plus, for the bitmap and hash sets, the words
+// each processed id reads and writes, and the tables' initialisation);
+// about 0.36 ms at 3.35 TB/s for 1,024 queries at 1M x 128-d float32
+// rows (ef = 64, T = 8, ~2,240 processed neighbours a query).  A walk is a
+// chain of dependent steps (mean 17 at T = 8, up to 38), so the design
+// keeps each step's chain short and enough queries resident to overlap
+// their latencies.
 //
 // Design.  A step has five phases, each ended by one block barrier (the
 // earlier design's step had six, and serial loops in three of them):
@@ -48,7 +80,9 @@
 //      sized to a power of two of at least twice their keys;
 //   2. dedupe: each slot probes both tables once: it is processed iff its
 //      id is not held and it is its id's smallest slot.  That is the dense
-//      dedupe's answer, so dist_evals do not change.  Processed slots are
+//      dedupe's answer, so dist_evals do not change.  Under the bitmap or
+//      hash set the held table stays empty and the slot reads the set's
+//      global words instead (a uniform branch).  Processed slots are
 //      compacted with one shared atomic a warp;
 //   3. rows: each warp scores kRowsPerWarp = 8 neighbours at a time, their
 //      row loads issued together; the metric is a template parameter (no
@@ -56,27 +90,44 @@
 //      also halves the rows each lane carries (9 shuffles, not 40; the
 //      same additions, so the same bits), leaving each lane group one
 //      row's distance; the admitted (d < lower) are appended with one
-//      atomic a warp; the tables are cleared for the next step;
+//      atomic a warp; the tables are cleared for the next step.  First the
+//      bitmap's processed ids set their bits (atomicOr), or warp 0 writes
+//      the hash table's slots in 32-slot chunks in slot order, a match
+//      among the chunk's lanes leaving the highest slot of each table slot
+//      to write it;
 //   4. rank: the admitted are ranked by (d, slot): g lanes an entry (a
 //      power of two up to 32, as many as the block can spare), each
 //      counting a g-th of the entries below it, then a shuffle sum;
 //   5. merge: each queue by rank (an incumbent moves down by the admitted
 //      strictly below it, an admitted entry by the incumbents at or below
 //      it: binary searches), into its second buffer.
-// 128 threads a block where T * maxM <= 128 (T <= 4 at maxM = 32), else
-// 256; an SM holds 5 blocks of 128 (96 registers a thread) or 4 of 256
-// (64): shapes chosen by measurement (PERF.md; graph_probe.py).  Where
-// the tables do not fit beside the queues (very wide D at ef = cand_cap =
-// 4096) the dedupe compares each slot with the queues and earlier slots
-// instead (the same answer).  Python computes the shared-memory figure
-// (ops/cuda_graph._walk_layout) and the launch refuses another one or one
-// above 232,448 bytes.
+// Each row source and visited-set kind (the dense dedupe, or a set in
+// device memory) is one instance: 4 x 2, by 128 or 256 threads: sixteen
+// (the dense instances compile the sets' branches away; graph_probe's
+// sets-runtime variant keeps them); the records / rows choice and bitmap
+// / hash are uniform runtime branches.  128 threads a block where T * maxM
+// <= 128 (T <= 4 at maxM = 32), else 256; an SM holds 5 blocks of 128 (96
+// registers a thread) or 4 of 256 (64): shapes chosen by measurement
+// (PERF.md; graph_probe.py).  Where the tables do not fit beside the
+// queues (very wide D at ef = cand_cap = 4096) the dedupe compares each
+// slot with the queues and earlier slots instead (the same answer).
+// Queues wider than 4096 (the API's widening reaches up to 8,191 on its
+// last doubling) do not fit in shared memory: they and the held table
+// live in device memory the wrapper allocates, with the same code over
+// them (four more instances, a row source each, 256 threads, the visited
+// set a runtime branch: twenty in all).  Python computes the
+// shared-memory figure (ops/cuda_graph._walk_layout) and the launch
+// refuses another one or one above 232,448 bytes.
 //
 // What holds it back now: each step still waits on two dependent global
-// latencies (the links, then the rows) plus one for each further round of
-// 8 rows a warp, and the block's five barriers make every phase wait for
-// its slowest warp; at 64 registers (T = 8) the kernel spills (ptxas).
+// latencies (the links, then the rows; a PQ row three: links, codes,
+// centroids) plus one for each further round of 8 rows a warp, and the
+// block's five barriers make every phase wait for its slowest warp; at 64
+// registers (T = 8) the kernel spills (ptxas).  Records read slower than
+// rows of the same type (PERF.md); they span maxM times the rows'
+// bytes (16.6 GB at 1M float32), and why that costs is not yet measured.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -94,12 +145,28 @@ static_assert(kRowsPerWarp >= 1 && kRowsPerWarp <= 32 &&
 template <int kThreads>
 constexpr int kMinBlocks = kThreads == 128 ? 5 : 4;
 constexpr int kSmemLimit = 232448;
-constexpr int kMaxQueue = 4096;          // ef and cand_cap (api max_widen_ef)
+// ef and cand_cap up to kMaxQueue: the queues in shared memory; wider (the
+// API's widening passes 4096 on its last doubling, up to 8,191), up to
+// kMaxWideQueue: the queues and the held table in device memory
+constexpr int kMaxQueue = 4096;
+constexpr int kMaxWideQueue = 1 << 20;
 constexpr int kMetricL2 = 0;
 constexpr int kMetricCosine = 1;
 constexpr int kMetricManhattan = 2;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kEmpty = -1;
+// phase 3's row sources (the element type of the rows or records)
+constexpr int kElemF32 = 0;              // float32
+constexpr int kElemI8 = 1;               // int8 x a float32 scale a row
+constexpr int kElemBF16 = 2;             // bfloat16
+constexpr int kElemPQ = 3;               // uint8 PQ codes x the codebook
+// the visited sets (the API's visited_slots: -1, 0, 2^s)
+constexpr int kVisDense = 0;
+constexpr int kVisBitmap = 1;
+constexpr int kVisHash = 2;
+// the hash set's uint32 hashes (core/search._hash_buckets, _hash_slot_choice)
+constexpr unsigned kBucketHash = 2654435761u;
+constexpr unsigned kSlotHash = 0x9E3779B1u;
 
 // Phase clocks of the instrumented build (-DPG_PROFILE): thread 0 of each
 // block sums its laps (each phase ends at a block barrier, so a lap is the
@@ -146,22 +213,27 @@ size_t pow2_at_least(size_t n) {
 // processed slots, the admitted (d, slot) and their ranked (d, id), 8
 // counters, then the held table (held_n ids) and the slot table (slot_n
 // ids and slot_n smallest slots); both tables are left out (0) where they
-// do not fit.
+// do not fit.  Queues wider than kMaxQueue move, with the held table, to
+// device memory: ``words`` int32 a query (0 where all is shared).
 struct WalkLayout {
   size_t smem;
   int held_n, slot_n;
+  size_t words;
 };
 
 WalkLayout walk_layout(int ef, int cap, int T, int maxM, int D) {
   const size_t tm = (size_t)T * maxM;
-  const size_t base = 4 * (size_t)((D + 3) / 4 * 4) +
-                      16 * ((size_t)ef + cap) + 24 * tm + 32;
+  const size_t row = 4 * (size_t)((D + 3) / 4 * 4);
   const size_t held = pow2_at_least(2 * ((size_t)ef + cap));
   const size_t slots = pow2_at_least(2 * tm);
+  if (ef > kMaxQueue || cap > kMaxQueue)
+    return {row + 24 * tm + 32 + 8 * slots, (int)held, (int)slots,
+            4 * ((size_t)ef + cap) + held};
+  const size_t base = row + 16 * ((size_t)ef + cap) + 24 * tm + 32;
   const size_t tables = 4 * held + 8 * slots;
   if (base + tables <= (size_t)kSmemLimit)
-    return {base + tables, (int)held, (int)slots};
-  return {base, 0, 0};
+    return {base + tables, (int)held, (int)slots, 0};
+  return {base, 0, 0, 0};
 }
 
 int walk_threads(int T, int maxM) {
@@ -206,6 +278,148 @@ __device__ __forceinline__ int slot_first(const int* keys, const int* first,
   unsigned h = hash_id(id, n);
   while (keys[h] != id) h = (h + 1) & (unsigned)(n - 1);
   return first[h];
+}
+
+// The hash set's table slot that ``id`` reads first (its 4-slot bucket
+// starts there) and the one it writes.
+__device__ __forceinline__ int vis_bucket(int id, int slots) {
+  return (int)(((unsigned)id * kBucketHash) & ((unsigned)(slots - 1) & ~3u));
+}
+
+__device__ __forceinline__ int vis_slot(int id, int slots) {
+  return vis_bucket(id, slots) + (int)(((unsigned)id * kSlotHash) >> 30);
+}
+
+// Whether the query's visited set (bitmap words or hash table) holds id.
+__device__ __forceinline__ bool vis_has(const int* vis, int mode, int n,
+                                        int id) {
+  if (mode == kVisBitmap)
+    return ((unsigned)vis[id >> 5] >> (id & 31)) & 1u;
+  const int h = vis_bucket(id, n);
+  return vis[h] == id || vis[h + 1] == id || vis[h + 2] == id ||
+         vis[h + 3] == id;
+}
+
+// Where phase 3 reads a neighbour's row: the rows or records of one element
+// type, each element widened to the float32 value the twin computes.
+struct RowSource {
+  const void* rows;       // [cap, D] rows or [cap, maxM, D] records (PQ: G)
+  const float* scales;    // int8: f32[cap] or f32[cap, maxM]
+  const float* codebook;  // PQ: f32[G, 256, sub]
+  int groups, sub;        // PQ: G and D / G
+  int records;            // read at the popped row's slot, not at the id
+  int round_pp;           // bf16 corpus rows under cosine: |p|^2 to bf16
+  int vec;                // 4-element loads (alignment and D allow them)
+};
+
+__device__ __forceinline__ float bf16_lo(unsigned w) {
+  return __uint_as_float(w << 16);
+}
+
+__device__ __forceinline__ float bf16_hi(unsigned w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+// Byte k of w as a signed code, times the row's scale: one rounding.
+__device__ __forceinline__ float i8_at(int w, int k, float sc) {
+  return __fmul_rn((float)((int)((unsigned)w << (24 - 8 * k)) >> 24), sc);
+}
+
+// The raw bits of 4 elements (the vector path: a float4, 4 int8 in 32
+// bits, 4 bf16 in 64 bits, or 4 elements of a PQ group's centroid) and of
+// one (the scalar path).  A warp's rows are loaded raw, all in flight
+// together, and widened only after: a widening right behind its load
+// would wait on it before the next row's load is issued (graph_probe's
+// widen-at-load variant).  A PQ element's centroid load waits on its
+// code's, inside load4: loading all a warp's codes first holds 8 more
+// registers, which spill at 256 threads.
+template <int kElem>
+struct Raw {
+  using Vec = float4;
+  using One = float;
+};
+template <>
+struct Raw<kElemI8> {
+  using Vec = int;
+  using One = int;
+};
+template <>
+struct Raw<kElemBF16> {
+  using Vec = uint2;
+  using One = unsigned;
+};
+
+// The PQ code of row ``at``'s group holding element e.
+__device__ __forceinline__ int pq_code(const RowSource& src, size_t at,
+                                       int e) {
+  return __ldg(reinterpret_cast<const unsigned char*>(src.rows) +
+               at * src.groups + e / src.sub);
+}
+
+// Elements [4c, 4c + 4) of row ``at``, raw.
+template <int kElem>
+__device__ __forceinline__ typename Raw<kElem>::Vec load4(
+    const RowSource& src, size_t at, int c, int D) {
+  if constexpr (kElem == kElemF32) {
+    return __ldg(reinterpret_cast<const float4*>(src.rows) + at * (D / 4) +
+                 c);
+  } else if constexpr (kElem == kElemI8) {
+    return __ldg(reinterpret_cast<const int*>(src.rows) + at * (D / 4) + c);
+  } else if constexpr (kElem == kElemBF16) {
+    return __ldg(reinterpret_cast<const uint2*>(src.rows) + at * (D / 4) +
+                 c);
+  } else {
+    const int e = 4 * c, g = e / src.sub;
+    const int code = pq_code(src, at, e);
+    return __ldg(reinterpret_cast<const float4*>(
+        src.codebook + ((size_t)g * 256 + code) * src.sub + (e - g * src.sub)));
+  }
+}
+
+// Element e of row ``at`` (the scalar path, any D), raw.
+template <int kElem>
+__device__ __forceinline__ typename Raw<kElem>::One load1(
+    const RowSource& src, size_t at, int e, int D) {
+  if constexpr (kElem == kElemF32) {
+    return __ldg(reinterpret_cast<const float*>(src.rows) + at * D + e);
+  } else if constexpr (kElem == kElemI8) {
+    return __ldg(reinterpret_cast<const signed char*>(src.rows) + at * D + e);
+  } else if constexpr (kElem == kElemBF16) {
+    return __ldg(reinterpret_cast<const unsigned short*>(src.rows) + at * D +
+                 e);
+  } else {
+    const int g = e / src.sub;
+    return __ldg(src.codebook + ((size_t)g * 256 + pq_code(src, at, e)) *
+                                    src.sub +
+                 (e - g * src.sub));
+  }
+}
+
+// The float32 values of raw elements (int8: times the row's scale ``sc``).
+template <int kElem>
+__device__ __forceinline__ float4 widen4(typename Raw<kElem>::Vec w,
+                                         float sc) {
+  if constexpr (kElem == kElemI8) {
+    return make_float4(i8_at(w, 0, sc), i8_at(w, 1, sc), i8_at(w, 2, sc),
+                       i8_at(w, 3, sc));
+  } else if constexpr (kElem == kElemBF16) {
+    return make_float4(bf16_lo(w.x), bf16_hi(w.x), bf16_lo(w.y),
+                       bf16_hi(w.y));
+  } else {
+    return w;
+  }
+}
+
+template <int kElem>
+__device__ __forceinline__ float widen1(typename Raw<kElem>::One w,
+                                        float sc) {
+  if constexpr (kElem == kElemI8) {
+    return __fmul_rn((float)w, sc);
+  } else if constexpr (kElem == kElemBF16) {
+    return bf16_lo(w);
+  } else {
+    return w;
+  }
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -283,16 +497,16 @@ __device__ __forceinline__ int count_at_or_below(const float* v, int n,
 // Phase 3's distances: each warp scores kRowsPerWarp processed slots at a
 // time (their row loads issued together), and appends those below lower to
 // new_ds (d, slot bits) with one atomic a warp.
-template <int kMetric, bool kRecords, int kWarps>
+template <int kMetric, int kElem, int kWarps>
 __device__ __forceinline__ void score_rows(
-    const float* __restrict__ rows, const float* q_s, int D, int vec,
-    int maxM, float qq, float lower, const int* proc, int n_proc,
-    const int* slot_id, const int* ci, int* n_new, float2* new_ds, int warp,
-    int lane) {
+    const RowSource& src, const float* q_s, int D, int maxM, float qq,
+    float lower, const int* proc, int n_proc, const int* slot_id,
+    const int* ci, int* n_new, float2* new_ds, int warp, int lane) {
   constexpr int R = kRowsPerWarp, kLanesPerRow = 32 / R;
   const float4* q4 = reinterpret_cast<const float4*>(q_s);
   for (int e0 = warp * R; e0 < n_proc; e0 += kWarps * R) {
-    // each row's index in ``rows`` (-1: none), 32 bits to spare registers
+    // each row's index in the rows or records (-1: none), 32 bits to spare
+    // registers
     int at[R];
     float a[R], pp[R];
 #pragma unroll
@@ -301,37 +515,49 @@ __device__ __forceinline__ void score_rows(
       at[u] = -1;
       if (e0 + u < n_proc) {
         const int s = proc[e0 + u];
-        at[u] = kRecords ? ci[s / maxM] * maxM + s % maxM : slot_id[s];
+        at[u] = src.records ? ci[s / maxM] * maxM + s % maxM : slot_id[s];
       }
     }
-    if (vec) {
-      const float4* rows4 = reinterpret_cast<const float4*>(rows);
-      const int D4 = D / 4;
-      for (int c = lane; c < D4; c += 32) {
+    // per chunk of a row: every row's raw elements and int8 scale, then
+    // the widening and the sums
+    float sc[R];
+    if (src.vec) {
+      for (int c = lane; c < D / 4; c += 32) {
         const float4 qv = q4[c];
-        float4 pv[R];
-#pragma unroll
-        for (int u = 0; u < R; ++u)
-          if (at[u] >= 0) pv[u] = __ldg(rows4 + (size_t)at[u] * D4 + c);
+        typename Raw<kElem>::Vec raw[R];
 #pragma unroll
         for (int u = 0; u < R; ++u) {
           if (at[u] < 0) continue;
-          accum<kMetric>(pv[u].x, qv.x, a[u], pp[u]);
-          accum<kMetric>(pv[u].y, qv.y, a[u], pp[u]);
-          accum<kMetric>(pv[u].z, qv.z, a[u], pp[u]);
-          accum<kMetric>(pv[u].w, qv.w, a[u], pp[u]);
+          raw[u] = load4<kElem>(src, at[u], c, D);
+          if (kElem == kElemI8) sc[u] = __ldg(src.scales + at[u]);
+        }
+#pragma unroll
+        for (int u = 0; u < R; ++u) {
+          if (at[u] < 0) continue;
+          const float4 pv =
+              widen4<kElem>(raw[u], kElem == kElemI8 ? sc[u] : 1.f);
+          accum<kMetric>(pv.x, qv.x, a[u], pp[u]);
+          accum<kMetric>(pv.y, qv.y, a[u], pp[u]);
+          accum<kMetric>(pv.z, qv.z, a[u], pp[u]);
+          accum<kMetric>(pv.w, qv.w, a[u], pp[u]);
         }
       }
     } else {
       for (int c = lane; c < D; c += 32) {
         const float qv = q_s[c];
-        float pv[R];
+        typename Raw<kElem>::One raw[R];
+#pragma unroll
+        for (int u = 0; u < R; ++u) {
+          if (at[u] < 0) continue;
+          raw[u] = load1<kElem>(src, at[u], c, D);
+          if (kElem == kElemI8) sc[u] = __ldg(src.scales + at[u]);
+        }
 #pragma unroll
         for (int u = 0; u < R; ++u)
-          if (at[u] >= 0) pv[u] = __ldg(rows + (size_t)at[u] * D + c);
-#pragma unroll
-        for (int u = 0; u < R; ++u)
-          if (at[u] >= 0) accum<kMetric>(pv[u], qv, a[u], pp[u]);
+          if (at[u] >= 0)
+            accum<kMetric>(
+                widen1<kElem>(raw[u], kElem == kElemI8 ? sc[u] : 1.f), qv,
+                a[u], pp[u]);
       }
     }
     // lane l holds row l / kLanesPerRow's sums; its group's first lane
@@ -342,7 +568,9 @@ __device__ __forceinline__ void score_rows(
     if (kMetric == kMetricL2) {
       d = sqrtf(s_a);
     } else if (kMetric == kMetricCosine) {
-      const float s_pp = rows_sum<R>(pp, lane);
+      float s_pp = rows_sum<R>(pp, lane);
+      if (kElem == kElemBF16 && src.round_pp)
+        s_pp = __bfloat162float(__float2bfloat16_rn(s_pp));
       d = __fsub_rn(1.f, __fmul_rn(s_a, rsqrtf(fmaxf(__fmul_rn(qq, s_pp),
                                                       1e-30f))));
     } else {
@@ -361,17 +589,19 @@ __device__ __forceinline__ void score_rows(
   }
 }
 
-template <bool kRecords, int kThreads>
+template <int kElem, bool kDense, int kThreads, bool kWide>
 __global__ void __launch_bounds__(kThreads, kMinBlocks<kThreads>)
 beam_walk_kernel(const int* __restrict__ links, const int* __restrict__ counts,
-                 const float* __restrict__ rows,
-                 const float* __restrict__ queries,
-                 const float* __restrict__ entry_d, int has_nodes, int D,
-                 int maxM, int T, int ef, int cap, int metric, int vec,
-                 int held_n, int slot_n, float* __restrict__ out_d,
-                 int* __restrict__ out_i, int* __restrict__ out_hops,
-                 int* __restrict__ out_evals) {
+                 const RowSource src, const float* __restrict__ queries,
+                 const float* __restrict__ entry_d, int* visited,
+                 int* wide_mem, size_t wide_words,
+                 int has_nodes, int D, int maxM, int T, int ef, int cap,
+                 int metric, int vis_set, int vis_n, int held_n, int slot_n,
+                 float* __restrict__ out_d, int* __restrict__ out_i,
+                 int* __restrict__ out_hops, int* __restrict__ out_evals) {
   constexpr int kWarps = kThreads / 32;
+  // the dense dedupe's instances compile the visited sets' branches away
+  const int vis_mode = kDense ? kVisDense : vis_set;
   extern __shared__ __align__(16) unsigned char smem[];
   const float kInf = __int_as_float(0x7f800000);
   const int b = blockIdx.x, tid = threadIdx.x;
@@ -382,7 +612,9 @@ beam_walk_kernel(const int* __restrict__ links, const int* __restrict__ counts,
   Laps laps;
   laps.start();
   float* q_s = reinterpret_cast<float*>(smem);
-  float* rd = q_s + Dp;
+  // the queues: after the query row, or (kWide) this query's device memory
+  float* rd = kWide ? reinterpret_cast<float*>(wide_mem + b * wide_words)
+                    : q_s + Dp;
   float* rd_n = rd + ef;
   float* cd = rd_n + ef;
   float* cd_n = cd + cap;
@@ -390,15 +622,21 @@ beam_walk_kernel(const int* __restrict__ links, const int* __restrict__ counts,
   int* ri_n = ri + ef;
   int* ci = ri_n + ef;
   int* ci_n = ci + cap;
-  int* slot_id = ci_n + cap;
+  int* slot_id = kWide ? reinterpret_cast<int*>(q_s + Dp) : ci_n + cap;
   int* proc = slot_id + tm;
   float2* new_ds = reinterpret_cast<float2*>(proc + tm);   // 8-aligned
   float* srt_d = reinterpret_cast<float*>(new_ds + tm);
   int* srt_i = reinterpret_cast<int*>(srt_d + tm);
   int* ctr = srt_i + tm;         // [processed, admitted] x step parity, |q|^2
-  int* held = ctr + 8;
-  int* slot_key = held + held_n;
+  // the held table: after the counters, or (kWide) after the queues
+  int* held = kWide ? ci_n + cap : ctr + 8;
+  int* slot_key = kWide ? ctr + 8 : held + held_n;
   int* slot_min = slot_key + slot_n;
+  // the hash set's processed slots, a word a 32-slot chunk, from phase 2 to
+  // phase 3's writes (srt_i is next written in phase 4)
+  unsigned* proc_bits = reinterpret_cast<unsigned*>(srt_i);
+  // this query's visited set: bitmap words or hash-table slots
+  int* vis = vis_mode == kVisDense ? nullptr : visited + (size_t)b * vis_n;
 
   const float* q = queries + (size_t)b * D;
   for (int i = tid; i < Dp; i += kThreads) q_s[i] = i < D ? q[i] : 0.f;
@@ -430,6 +668,8 @@ beam_walk_kernel(const int* __restrict__ links, const int* __restrict__ counts,
   while (true) {
     const float c0 = cd[0], lower = rd[ef - 1];
     if (!(c0 < kInf && !(c0 > lower))) break;   // uniform: shared reads
+    // overwritten hash entries can re-admit expanded nodes: the hop cap
+    if (vis_mode == kVisHash && hops >= vis_n) break;
     // this step's counters; the next step's are zeroed here (their last
     // reader finished before the previous step's final barrier)
     int* cnt = ctr + 2 * (hops & 1);
@@ -450,7 +690,7 @@ beam_walk_kernel(const int* __restrict__ links, const int* __restrict__ counts,
     };
     int left = 0, link = -1;
     if (tid < tm) load_slot(tid, left, link);   // in flight over the inserts
-    if (hashed) {
+    if (hashed && vis_mode == kVisDense) {
       for (int i = tid; i < cap + ef; i += kThreads) {
         const int id = i < cap ? ci[i] : ri[i - cap];
         if (id >= 0) held_insert(held, held_n, id);
@@ -465,20 +705,29 @@ beam_walk_kernel(const int* __restrict__ links, const int* __restrict__ counts,
     __syncthreads();
     if (tid == 0) laps.lap(kLapLinks);
 
-    // --- 2. dense dedupe; compact the processed slots, an atomic a warp
+    // --- 2. dedupe; compact the processed slots, an atomic a warp
     for (int s0 = warp * 32; s0 < tm; s0 += kThreads) {
       const int s = s0 + lane;
       const int id = s < tm ? slot_id[s] : -1;
       bool keep = id >= 0;
-      if (keep && hashed) {
+      if (keep && vis_mode == kVisDense && hashed) {
         keep = !held_has(held, held_n, id) &&
                slot_first(slot_key, slot_min, slot_n, id) == s;
-      } else if (keep) {
+      } else if (keep && vis_mode == kVisDense) {
         for (int k = 0; keep && k < cap; ++k) keep = ci[k] != id;
         for (int k = 0; keep && k < ef; ++k) keep = ri[k] != id;
         for (int k = 0; keep && k < s; ++k) keep = slot_id[k] != id;
+      } else if (keep) {
+        // the first slot of its id, then unvisited by the set
+        if (hashed) {
+          keep = slot_first(slot_key, slot_min, slot_n, id) == s;
+        } else {
+          for (int k = 0; keep && k < s; ++k) keep = slot_id[k] != id;
+        }
+        keep = keep && !vis_has(vis, vis_mode, vis_n, id);
       }
       const unsigned m = __ballot_sync(kFull, keep);
+      if (vis_mode == kVisHash && lane == 0) proc_bits[s0 >> 5] = m;
       int at = 0;
       if (lane == 0 && m) at = atomicAdd(&cnt[0], __popc(m));
       at = __shfl_sync(kFull, at, 0);
@@ -494,19 +743,41 @@ beam_walk_kernel(const int* __restrict__ links, const int* __restrict__ counts,
       slot_key[i] = kEmpty;
       slot_min[i] = INT_MAX;
     }
+    // every slot has read the visited set: the processed ids enter it (the
+    // next step reads it after two barriers)
+    if (vis_mode == kVisBitmap) {
+      for (int e = tid; e < n_proc; e += kThreads) {
+        const int id = slot_id[proc[e]];
+        atomicOr(reinterpret_cast<unsigned*>(vis) + (id >> 5),
+                 1u << (id & 31));
+      }
+    } else if (vis_mode == kVisHash && warp == 0) {
+      // in slot order, a chunk of 32 slots at a time: of the chunk's slots
+      // that write one table slot the highest writes, and a later chunk's
+      // write lands after (__syncwarp orders them)
+      for (int c = 0; c * 32 < tm; ++c) {
+        const int s = c * 32 + lane;
+        const bool mine = (proc_bits[c] >> lane) & 1u;
+        const int id = mine ? slot_id[s] : 0;
+        const int at = mine ? vis_slot(id, vis_n) : -1 - lane;
+        const unsigned peers = __match_any_sync(kFull, at);
+        if (mine && lane == 31 - __clz(peers)) vis[at] = id;
+        __syncwarp();
+      }
+    }
     // distances, kRowsPerWarp neighbours a warp at a time; admit
     if (metric == kMetricL2)
-      score_rows<kMetricL2, kRecords, kWarps>(
-          rows, q_s, D, vec, maxM, qq, lower, proc, n_proc, slot_id, ci,
-          cnt + 1, new_ds, warp, lane);
+      score_rows<kMetricL2, kElem, kWarps>(src, q_s, D, maxM, qq, lower,
+                                           proc, n_proc, slot_id, ci,
+                                           cnt + 1, new_ds, warp, lane);
     else if (metric == kMetricCosine)
-      score_rows<kMetricCosine, kRecords, kWarps>(
-          rows, q_s, D, vec, maxM, qq, lower, proc, n_proc, slot_id, ci,
-          cnt + 1, new_ds, warp, lane);
+      score_rows<kMetricCosine, kElem, kWarps>(src, q_s, D, maxM, qq, lower,
+                                               proc, n_proc, slot_id, ci,
+                                               cnt + 1, new_ds, warp, lane);
     else
-      score_rows<kMetricManhattan, kRecords, kWarps>(
-          rows, q_s, D, vec, maxM, qq, lower, proc, n_proc, slot_id, ci,
-          cnt + 1, new_ds, warp, lane);
+      score_rows<kMetricManhattan, kElem, kWarps>(
+          src, q_s, D, maxM, qq, lower, proc, n_proc, slot_id, ci, cnt + 1,
+          new_ds, warp, lane);
     __syncthreads();
     const int n_new = cnt[1];
     if (tid == 0) laps.lap(kLapRows);
@@ -590,58 +861,127 @@ beam_walk_kernel(const int* __restrict__ links, const int* __restrict__ counts,
   }
 }
 
-template <bool kRecords, int kThreads>
-cudaError_t launch(const int* links, const int* counts, const float* rows,
-                   const float* queries, const float* entry_d, int has_nodes,
-                   int B, int D, int maxM, int T, int ef, int cap, int metric,
-                   int vec, WalkLayout lay, float* out_d, int* out_i,
-                   int* hops, int* evals, cudaStream_t stream) {
+// The launch's arguments, bundled for the dispatch over instances.
+struct WalkArgs {
+  const int* links;
+  const int* counts;
+  RowSource src;
+  const float* queries;
+  const float* entry_d;
+  int* visited;
+  int* wide_mem;
+  int has_nodes, B, D, maxM, T, ef, cap, metric, vis_mode, vis_n;
+  float* out_d;
+  int* out_i;
+  int* hops;
+  int* evals;
+};
+
+template <int kElem, bool kDense, int kThreads, bool kWide = false>
+cudaError_t launch(const WalkArgs& a, WalkLayout lay, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      beam_walk_kernel<kRecords, kThreads>,
+      beam_walk_kernel<kElem, kDense, kThreads, kWide>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.smem);
   if (err != cudaSuccess) return err;
-  beam_walk_kernel<kRecords, kThreads><<<B, kThreads, lay.smem, stream>>>(
-      links, counts, rows, queries, entry_d, has_nodes, D, maxM, T, ef, cap,
-      metric, vec, lay.held_n, lay.slot_n, out_d, out_i, hops, evals);
+  beam_walk_kernel<kElem, kDense, kThreads, kWide>
+      <<<a.B, kThreads, lay.smem, stream>>>(
+      a.links, a.counts, a.src, a.queries, a.entry_d, a.visited, a.wide_mem,
+      lay.words, a.has_nodes, a.D, a.maxM, a.T, a.ef, a.cap, a.metric,
+      a.vis_mode, a.vis_n, lay.held_n, lay.slot_n, a.out_d, a.out_i, a.hops,
+      a.evals);
   return cudaGetLastError();
+}
+
+template <int kElem>
+cudaError_t launch_elem(const WalkArgs& a, WalkLayout lay,
+                        cudaStream_t stream) {
+  // queues in device memory: one instance a row source, the visited set a
+  // runtime branch (a rare, wide walk)
+  if (lay.words) return launch<kElem, false, 256, true>(a, lay, stream);
+  const bool wide = walk_threads(a.T, a.maxM) > 128;
+  if (a.vis_mode == kVisDense)
+    return wide ? launch<kElem, true, 256>(a, lay, stream)
+                : launch<kElem, true, 128>(a, lay, stream);
+  return wide ? launch<kElem, false, 256>(a, lay, stream)
+              : launch<kElem, false, 128>(a, lay, stream);
+}
+
+bool aligned(const void* p, size_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// links i32[cap, maxM], counts i32[cap], rows f32[cap, D] (records = 0) or
-// f32[cap, maxM, D] (records = 1), queries f32[B, D], entry_d f32[B] (read
-// only when has_nodes), all contiguous; T <= cap, ef and cap <= 4096;
-// smem_bytes from ops/cuda_graph._walk_layout.  Writes out_d f32[B, ef],
-// out_i i32[B, ef], hops i32[B], evals i32[B].  Returns the launch's CUDA
-// error (0 on success).
-int beam_walk(const int* links, const int* counts, const float* rows,
-              const float* queries, const float* entry_d, int records,
-              int has_nodes, int B, int D, int maxM, int T, int ef, int cap,
-              int metric, int smem_bytes, float* out_d, int* out_i,
-              int* hops, int* evals, void* stream_ptr) {
+// links i32[cap, maxM], counts i32[cap]; ``rows`` of element type ``elem``
+// (0 float32, 1 int8, 2 bfloat16, 3 uint8 PQ codes): [cap, D] rows read at
+// the neighbour's id (records = 0) or [cap, maxM, D] records read at the
+// popped row's slot (records = 1; PQ: [cap, maxM, groups], records only);
+// int8: ``scales`` f32[cap] or f32[cap, maxM] beside them; PQ:
+// ``codebook`` f32[groups, 256, D / groups].  queries f32[B, D] (the walk's
+// query), entry_d f32[B] (read only when has_nodes).  visited_slots: -1
+// the dense dedupe (``visited`` unread), 0 the bitmap (``visited``
+// i32[B, vis_n] words, vis_n >= cap / 32, zeroed but node 0's bit), 2^s
+// >= 4 the hash set (``visited`` i32[B, 2^s], vis_n = 2^s, -1 but slot 0 =
+// node 0); the kernel updates it.  ``wide_mem`` i32[B, wide_words]: the
+// queues and held table of a walk with ef or cap above 4096 (the kernel
+// initialises it; unread otherwise).  All contiguous; T <= cap, ef and cap
+// <= 2^20; smem_bytes and wide_words from ops/cuda_graph._walk_layout and
+// _walk_wide_words.  Writes out_d f32[B, ef], out_i i32[B, ef], hops
+// i32[B], evals i32[B].  Returns the launch's CUDA error (0 on success).
+int beam_walk(const int* links, const int* counts, const void* rows,
+              const float* scales, const float* codebook,
+              const float* queries, const float* entry_d, int* visited,
+              int* wide_mem, int elem, int records, int has_nodes, int B,
+              int D, int maxM, int T, int ef, int cap, int metric, int groups,
+              int visited_slots, int vis_n, int smem_bytes, int wide_words,
+              float* out_d, int* out_i, int* hops, int* evals,
+              void* stream_ptr) {
   if (B <= 0 || D <= 0 || maxM <= 0 || T <= 0 || ef <= 0 || cap <= 0 ||
-      T > cap || ef > kMaxQueue || cap > kMaxQueue ||
+      T > cap || ef > kMaxWideQueue || cap > kMaxWideQueue ||
       (metric != kMetricL2 && metric != kMetricCosine &&
        metric != kMetricManhattan))
     return (int)cudaErrorInvalidValue;
-  const WalkLayout lay = walk_layout(ef, cap, T, maxM, D);
-  if (lay.smem != (size_t)smem_bytes || lay.smem > (size_t)kSmemLimit)
+  if (elem < kElemF32 || elem > kElemPQ || (elem == kElemI8 && !scales) ||
+      (elem == kElemPQ && (!records || !codebook || groups <= 0 ||
+                           D % groups != 0)))
     return (int)cudaErrorInvalidValue;
-  const int vec = D % 4 == 0 && reinterpret_cast<uintptr_t>(rows) % 16 == 0;
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const bool wide = walk_threads(T, maxM) > 128;
-  auto go = [&](auto kernel_launch) {
-    return kernel_launch(links, counts, rows, queries, entry_d, has_nodes, B,
-                         D, maxM, T, ef, cap, metric, vec, lay, out_d, out_i,
-                         hops, evals, stream);
-  };
-  cudaError_t err;
-  if (records)
-    err = wide ? go(launch<true, 256>) : go(launch<true, 128>);
+  const int vis_mode = visited_slots < 0    ? kVisDense
+                       : visited_slots == 0 ? kVisBitmap
+                                            : kVisHash;
+  if (vis_mode != kVisDense && (!visited || vis_n <= 0))
+    return (int)cudaErrorInvalidValue;
+  if (vis_mode == kVisHash &&
+      (visited_slots < 4 || (visited_slots & (visited_slots - 1)) ||
+       vis_n != visited_slots))
+    return (int)cudaErrorInvalidValue;
+  const WalkLayout lay = walk_layout(ef, cap, T, maxM, D);
+  if (lay.smem != (size_t)smem_bytes || lay.smem > (size_t)kSmemLimit ||
+      lay.words != (size_t)wide_words || (lay.words && !wide_mem))
+    return (int)cudaErrorInvalidValue;
+  RowSource src{rows, scales, codebook, groups, groups > 0 ? D / groups : 0,
+                records, 0, 0};
+  src.round_pp = elem == kElemBF16 && !records && metric == kMetricCosine;
+  if (elem == kElemF32)
+    src.vec = D % 4 == 0 && aligned(rows, 16);
+  else if (elem == kElemI8)
+    src.vec = D % 4 == 0 && aligned(rows, 4);
+  else if (elem == kElemBF16)
+    src.vec = D % 4 == 0 && aligned(rows, 8);
   else
-    err = wide ? go(launch<false, 256>) : go(launch<false, 128>);
+    src.vec = src.sub % 4 == 0 && aligned(codebook, 16);
+  const WalkArgs a{links,  counts, src,  queries, entry_d, visited, wide_mem,
+                   has_nodes, B, D, maxM, T, ef, cap, metric, vis_mode,
+                   vis_n,  out_d,  out_i, hops,   evals};
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  cudaError_t err;
+  switch (elem) {
+    case kElemF32: err = launch_elem<kElemF32>(a, lay, stream); break;
+    case kElemI8: err = launch_elem<kElemI8>(a, lay, stream); break;
+    case kElemBF16: err = launch_elem<kElemBF16>(a, lay, stream); break;
+    default: err = launch_elem<kElemPQ>(a, lay, stream); break;
+  }
   return (int)err;
 }
 

@@ -19,6 +19,11 @@ its own library under .kernel_build/graph_probe/, all side by side:
   threads128 / threads256   one block shape for every T
   blocks8       8 blocks of 128 threads an SM (64 registers) instead of 5
   blocks3       3 blocks of 256 threads an SM (80 registers) instead of 4
+  sets-runtime  the dense dedupe's instances keep the visited sets' runtime
+                branches (one instance for every visited set)
+  widen-at-load each neighbour row widened to float32 right behind its
+                load (int8 x its scale, bf16, PQ), not after all of a
+                warp's rows are loaded
   stage-never / stage-always   the scan's pair blocks read from L2 at every
                 width, or staged in shared memory wherever two sets' blocks
                 fit (up to 169 candidates), instead of up to 64; each also
@@ -26,7 +31,8 @@ its own library under .kernel_build/graph_probe/, all side by side:
 
 The probe builds an index of ``--n`` rows x 128-d on the card
 (utils/io.synthetic_clustered, chip_smoke.py's recipe and seed), walks its
-1,024 queries at ef = 64, T = 4 and 8, and captures the candidate sets of
+1,024 queries at ef = 64, T = 4 and 8 (float32 rows; and int8 rows, the
+quantized traversal, for the kernel and widen-at-load), and captures the candidate sets of
 one 256-row add(): its insert prune (B = 256, C = 128, nn = 16) and its
 first back-link re-prune (C = maxM + 1 = 33, nn = 32).  Every variant's
 answers are checked against the kernel's (walk: ids, hops and evals; scan:
@@ -64,6 +70,30 @@ _RANK = ("      int g = 1;\n"
          "      while (g < 32 && 2 * g * n_new <= kThreads) g *= 2;\n")
 _NEVER = ((SCAN, "kStageMaxC = 64;", "kStageMaxC = 0;"),)
 _ALWAYS = ((SCAN, "kStageMaxC = 64;", "kStageMaxC = 256;"),)
+_WIDEN_AT_LOAD = (
+    "#pragma unroll\n"
+    "        for (int u = 0; u < R; ++u) {\n"
+    "          if (at[u] < 0) continue;\n"
+    "          raw[u] = load4<kElem>(src, at[u], c, D);\n"
+    "          if (kElem == kElemI8) sc[u] = __ldg(src.scales + at[u]);\n"
+    "        }\n"
+    "#pragma unroll\n"
+    "        for (int u = 0; u < R; ++u) {\n"
+    "          if (at[u] < 0) continue;\n"
+    "          const float4 pv =\n"
+    "              widen4<kElem>(raw[u], kElem == kElemI8 ? sc[u] : 1.f);\n",
+    "        float4 pvs[R];\n"
+    "#pragma unroll\n"
+    "        for (int u = 0; u < R; ++u) {\n"
+    "          if (at[u] < 0) continue;\n"
+    "          if (kElem == kElemI8) sc[u] = __ldg(src.scales + at[u]);\n"
+    "          pvs[u] = widen4<kElem>(load4<kElem>(src, at[u], c, D),\n"
+    "                                 kElem == kElemI8 ? sc[u] : 1.f);\n"
+    "        }\n"
+    "#pragma unroll\n"
+    "        for (int u = 0; u < R; ++u) {\n"
+    "          if (at[u] < 0) continue;\n"
+    "          const float4 pv = pvs[u];\n")
 # name: (nvcc flags, rewrites (source, text, replacement))
 VARIANTS = {
     "kernel": ((), ()),
@@ -82,13 +112,20 @@ VARIANTS = {
                       "kThreads == 128 ? 8 : 4;"),)),
     "blocks3": ((), ((WALK, "kThreads == 128 ? 5 : 4;",
                       "kThreads == 128 ? 5 : 3;"),)),
+    "sets-runtime": ((), ((WALK, "  const int vis_mode = kDense ? kVisDense"
+                           " : vis_set;\n",
+                           "  const int vis_mode = vis_set;\n"),)),
+    "widen-at-load": ((), ((WALK, *_WIDEN_AT_LOAD),)),
     "stage-never": ((), _NEVER),
     "stage-always": ((), _ALWAYS),
     "profile-stage-never": (PROFILE, _NEVER),
     "profile-stage-always": (PROFILE, _ALWAYS),
 }
 WALK_RUNS = ("kernel", "dense", "rank1", "rank32", "rows4", "rows16",
-             "threads128", "threads256", "blocks8", "blocks3")
+             "threads128", "threads256", "blocks8", "blocks3",
+             "sets-runtime", "widen-at-load")
+# the variants timed on the int8 rows (quantized traversal) too
+INT8_RUNS = ("kernel", "widen-at-load")
 SCAN_RUNS = ("kernel", "stage-never", "stage-always")
 
 
@@ -137,17 +174,13 @@ def build(name: str):
     with open(so + ".log", "w") as f:
         f.write(proc.stderr)
     lib = ctypes.CDLL(so)
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.beam_walk.argtypes = [*[vp] * 5, *[ci] * 10, *[vp] * 5]
-    lib.beam_walk.restype = ci
-    lib.prune_scan.argtypes = [*[vp] * 5, *[ci] * 3, *[vp] * 3]
-    lib.prune_scan.restype = ci
+    _kernels.declare_graph(lib)
     lib.bruteforce_topk_error_string = _kernels.load_library(
     ).bruteforce_topk_error_string
     if "-DPG_PROFILE" in flags:
         for fn in (lib.beam_walk_profile, lib.prune_scan_profile):
-            fn.argtypes = [vp]
-            fn.restype = ci
+            fn.argtypes = [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
     return lib
 
 
@@ -158,14 +191,17 @@ def build_all(names=tuple(VARIANTS)) -> dict:
 
 
 def walk(lib, graph, queries, *, ef, cand_cap, t, metric_value,
-         variant="kernel"):
+         variant="kernel", **operands):
     """One launch of ``lib``'s walk (the shared-memory figure of its
-    variant)."""
+    variant) over float32 rows or the row source ``operands`` give
+    (ops/cuda_graph.beam_walk's)."""
     smem, held, slots = cg._walk_layout(ef, cand_cap, t, graph.max_m,
                                         graph.dims)
     if variant == "dense":
         smem -= 4 * held + 8 * slots
-    return cg._launch_walk(lib, graph, queries, None, ef=ef,
+    src = cg._check_walk_args(graph, queries, ef, cand_cap, t, metric_value,
+                              **operands)
+    return cg._launch_walk(lib, graph, queries, src, ef=ef,
                            cand_cap=cand_cap, t=t, metric_value=metric_value,
                            smem=smem)
 
@@ -308,6 +344,22 @@ def main() -> int:
         for n in WALK_RUNS:
             print(f"walk T={t} {n}: " + " / ".join(f"{m:.3f}" for m in ms[n])
                   + " ms", flush=True)
+        qv, qsc = idx._ensure_quantized()
+        i8 = dict(kw, qvectors=qv, qscale=qsc)
+        want = walk(libs["kernel"], g, q, **i8)
+        for n in INT8_RUNS:
+            got = walk(libs[n], g, q, variant=n, **i8)
+            same = all(torch.equal(a, b) for a, b in zip(got, want))
+            print(f"walk T={t} int8 rows {n}: ids, distances, hops and "
+                  f"evals equal to the kernel's: {same}")
+        ms = {n: [] for n in INT8_RUNS}
+        for n in INT8_RUNS + INT8_RUNS[::-1]:
+            ms[n].append(device_ms(lambda: walk(libs[n], g, q, variant=n,
+                                                **i8), args.reps))
+        for n in INT8_RUNS:
+            print(f"walk T={t} int8 rows {n}: "
+                  + " / ".join(f"{m:.3f}" for m in ms[n]) + " ms",
+                  flush=True)
         r = walk_phases(libs["profile"], g, q, **kw)
         print(f"walk T={t} profile cycles a block-step "
               f"({r['steps']:.2f} steps a block): "

@@ -10,9 +10,14 @@ host.  Here each loop is one launch:
 
   * ``beam_walk`` (``csrc/beam_walk.cu``): the whole walk of a query batch,
     one thread block per query.  Its plain twin is core/search's
-    ``_search_batch``; it takes the dense dedupe over float32 rows or
-    float32 packed records, any metric and T, and ef and cand_cap up to
-    MAX_WALK_QUEUE (core/search.walk_route decides which walks come here).
+    ``_search_batch``; it takes every traversal variant of the JAX
+    package's walk: neighbour rows from the float32 or bf16 corpus rows,
+    int8 rows x scales (quantized traversal), float32 / bf16 / int8 (x
+    scales) packed records or PQ records through a codebook (with OPQ's
+    rotated query), the dense dedupe or the bitmap or hash visited set,
+    any metric and T, and ef and cand_cap up to MAX_WIDE_QUEUE (queues
+    wider than MAX_WALK_QUEUE in device memory; core/search.walk_route
+    sends every walk on the card here).
   * ``prune_scan`` (``csrc/prune_scan.cu``): the scan of a batch of sorted
     candidate sets, one warp per set and one round per kept neighbour,
     reading the pairwise distances through the sort order.  Its plain
@@ -25,6 +30,8 @@ the card and what the design does about it.
 
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import torch
 
 from .. import _kernels
@@ -34,15 +41,25 @@ from .distance import dist_one_to_many
 # Launches of each kernel since import (or since a caller reset them); a run
 # reads them to show that a path went through the kernel.
 LAUNCHES = {"beam_walk": 0, "prune_scan": 0}
-# prune_scan's launches by candidate-set shape (C, nn), counted beside
-# LAUNCHES["prune_scan"]
+# beam_walk's launches by variant (walk_variant's names), and prune_scan's
+# by candidate-set shape (C, nn), counted beside LAUNCHES
+WALK_VARIANTS: dict = {}
 PRUNE_SHAPES: dict = {}
 
-# Widest result and candidate queue the walk kernel takes: the API widens
-# ef up to max_widen_ef = 4096.
+# Widest result and candidate queue the walk kernel keeps in shared memory;
+# wider ones (the API's widening doubles ef past max_widen_ef = 4096 once,
+# to at most 8,191) live in device memory, up to MAX_WIDE_QUEUE.
 MAX_WALK_QUEUE = 4096
+MAX_WIDE_QUEUE = 1 << 20
 SMEM_LIMIT = 232_448                # bytes of shared memory a block can use
+# device memory a launch may take for its queries' visited sets and wide
+# queues; larger batches are walked in chunks of queries, a launch each
+SCRATCH_BYTES = 1 << 30
 _METRICS = (Metric.L2.value, Metric.COSINE.value, Metric.MANHATTAN.value)
+# the kernel's row sources by element type (csrc/beam_walk.cu kElem*)
+_ELEMS = {torch.float32: 0, torch.int8: 1, torch.bfloat16: 2, torch.uint8: 3}
+_DTYPE_NAMES = {torch.float32: "f32", torch.int8: "int8",
+                torch.bfloat16: "bf16", torch.uint8: "pq"}
 
 
 def _pow2_at_least(n: int) -> int:
@@ -59,11 +76,20 @@ def _walk_layout(ef: int, cand_cap: int, t: int, max_m: int,
     dedupe's hash tables: the held ids (4 bytes a slot, a power of two of
     at least 2 (ef + cand_cap) slots) and the expansion's ids with their
     smallest slot (8 bytes a slot, at least 2 T maxM).  Where the tables do
-    not fit, the kernel dedupes by comparison and they take 0.  Raises
-    ValueError past SMEM_LIMIT."""
+    not fit, the kernel dedupes by comparison and they take 0.  Queues
+    wider than MAX_WALK_QUEUE and the held table live in device memory
+    instead (_walk_wide_words); the slot table stays.  Raises ValueError
+    past SMEM_LIMIT."""
     tm = t * max_m
-    base = 4 * (-(-dims // 4) * 4) + 16 * (ef + cand_cap) + 24 * tm + 32
     held, slots = _pow2_at_least(2 * (ef + cand_cap)), _pow2_at_least(2 * tm)
+    if _walk_wide_words(ef, cand_cap):
+        base = 4 * (-(-dims // 4) * 4) + 24 * tm + 32 + 8 * slots
+        if base > SMEM_LIMIT:
+            raise ValueError(
+                f"the walk needs {base} bytes of shared memory a block "
+                f"(T={t}, maxM={max_m}, D={dims}); the limit is {SMEM_LIMIT}")
+        return base, held, slots
+    base = 4 * (-(-dims // 4) * 4) + 16 * (ef + cand_cap) + 24 * tm + 32
     tables = 4 * held + 8 * slots
     if base + tables <= SMEM_LIMIT:
         return base + tables, held, slots
@@ -75,6 +101,16 @@ def _walk_layout(ef: int, cand_cap: int, t: int, max_m: int,
     return base, 0, 0
 
 
+def _walk_wide_words(ef: int, cand_cap: int) -> int:
+    """int32 words of device memory one query's walk takes for its queues
+    and held table, as csrc/beam_walk.cu lays them out: 0 where both queues
+    fit MAX_WALK_QUEUE (all in shared memory), else the two queues twice
+    over (d, id) and the held table."""
+    if max(ef, cand_cap) <= MAX_WALK_QUEUE:
+        return 0
+    return 4 * (ef + cand_cap) + _pow2_at_least(2 * (ef + cand_cap))
+
+
 def _walk_smem_bytes(ef: int, cand_cap: int, t: int, max_m: int,
                      dims: int) -> int:
     """The bytes of _walk_layout: what the launch passes and the C side
@@ -82,69 +118,194 @@ def _walk_smem_bytes(ef: int, cand_cap: int, t: int, max_m: int,
     return _walk_layout(ef, cand_cap, t, max_m, dims)[0]
 
 
-def _check_walk_args(graph, queries, records, ef, cand_cap, t,
-                     metric_value) -> None:
+class WalkSource(NamedTuple):
+    """What the kernel's phase 3 reads, checked by _check_walk_args."""
+    rows: torch.Tensor            # rows [cap, D] or records [cap, maxM, .]
+    elem: int                     # csrc/beam_walk.cu's kElem
+    records: bool
+    scales: Optional[torch.Tensor]    # int8: f32[cap] or f32[cap, maxM]
+    codebook: Optional[torch.Tensor]  # PQ: f32[G, 256, D / G]
+    query: torch.Tensor           # the walk's query rows (OPQ: q @ R)
+    variant: str                  # walk_variant's name
+
+
+def visited_name(visited_slots: int) -> str:
+    return ("dense" if visited_slots < 0 else
+            "bitmap" if visited_slots == 0 else "hash")
+
+
+def walk_variant(rows_dtype, records_dtype=None, *, quantized=False,
+                 rotated=False, visited_slots=-1) -> str:
+    """The name a walk is counted under in WALK_VARIANTS: its row source
+    and visited set, e.g. "records int8, dense" or "records pq rotated,
+    hash"."""
+    if records_dtype is not None:
+        src = f"records {_DTYPE_NAMES[records_dtype]}"
+    elif quantized:
+        src = "rows int8"
+    else:
+        src = f"rows {_DTYPE_NAMES[rows_dtype]}"
+    return (f"{src}{' rotated' if rotated else ''}, "
+            f"{visited_name(visited_slots)}")
+
+
+def _want(name, x, dtype, shape, device) -> None:
+    """Raise ValueError unless ``x`` is ``dtype`` of ``shape`` on
+    ``device`` and contiguous."""
+    if x.dtype != dtype or tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} must be {dtype}{list(shape)}, got "
+                         f"{x.dtype}{list(x.shape)}")
+    if x.device != device:
+        raise ValueError(f"{name} must be on {device}, not {x.device}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_walk_args(graph, queries, ef, cand_cap, t, metric_value, *,
+                     records=None, pscales=None, qvectors=None, qscale=None,
+                     pq_codebook=None, query_t=None,
+                     visited_slots=-1) -> WalkSource:
+    """Check a walk's arguments for the kernel (the operands of
+    core/search._search_batch) and return its row source; raise
+    ValueError on anything the kernel does not take."""
     if metric_value not in _METRICS:
         raise ValueError(f"unknown metric {metric_value}")
-    if not (1 <= ef <= MAX_WALK_QUEUE and 1 <= cand_cap <= MAX_WALK_QUEUE):
+    if not (1 <= ef <= MAX_WIDE_QUEUE and 1 <= cand_cap <= MAX_WIDE_QUEUE):
         raise ValueError(f"ef={ef}, cand_cap={cand_cap} outside "
-                         f"[1, {MAX_WALK_QUEUE}]")
+                         f"[1, {MAX_WIDE_QUEUE}]")
     if not 1 <= t <= cand_cap:
         raise ValueError(f"expand_width={t} outside [1, cand_cap={cand_cap}]")
+    if visited_slots > 0 and (visited_slots < 4
+                              or visited_slots & (visited_slots - 1)):
+        raise ValueError(f"visited_slots={visited_slots} is not a power of "
+                         f"2 of at least 4")
     cap, dims = graph.vectors.shape
+    max_m, dev = graph.max_m, queries.device
     if queries.dim() != 2 or queries.shape[1] != dims:
         raise ValueError(f"queries {tuple(queries.shape)} are not [B, {dims}]")
-    if queries.dtype != torch.float32:
-        raise ValueError(f"queries must be float32, got {queries.dtype}")
-    rows = graph.vectors if records is None else records
-    if rows.dtype != torch.float32:
-        raise ValueError(f"the walk kernel reads float32 rows or records, "
-                         f"not {rows.dtype}")
-    if records is not None and records.shape != (cap, graph.max_m, dims):
-        raise ValueError(f"records {tuple(records.shape)} are not "
-                         f"[{cap}, {graph.max_m}, {dims}]")
-    for name, x, dt in (("links", graph.links, torch.int32),
-                        ("link_counts", graph.link_counts, torch.int32),
-                        ("rows", rows, torch.float32)):
-        if x.dtype != dt or x.device != queries.device:
-            raise ValueError(f"{name} must be {dt} on {queries.device}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    b = queries.shape[0]
+    _want("queries", queries, torch.float32, (b, dims), dev)
+    if graph.vectors.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"the walk kernel reads float32 or bf16 corpus "
+                         f"rows, not {graph.vectors.dtype}")
+    _want("vectors", graph.vectors, graph.vectors.dtype, (cap, dims), dev)
+    _want("links", graph.links, torch.int32, (cap, max_m), dev)
+    _want("link_counts", graph.link_counts, torch.int32, (cap,), dev)
+    if query_t is not None:
+        _want("query_t", query_t, torch.float32, (b, dims), dev)
+    if (pscales is not None) != (records is not None
+                                 and records.dtype == torch.int8):
+        raise ValueError("pscales go with int8 records, and only with them")
+    if (qscale is not None) != (qvectors is not None):
+        raise ValueError("qvectors and qscale go together")
+    if (pq_codebook is not None) and records is None:
+        raise ValueError("pq_codebook needs PQ records")
+    if records is not None and qvectors is not None:
+        raise ValueError("the walk reads records or int8 rows, not both")
+    scales = codebook = None
+    if pq_codebook is not None:
+        groups = records.shape[-1] if records.dim() == 3 else 0
+        if groups < 1 or dims % groups:
+            raise ValueError(f"PQ records {tuple(records.shape)} are not "
+                             f"[{cap}, {max_m}, G] with G dividing {dims}")
+        _want("records", records, torch.uint8, (cap, max_m, groups), dev)
+        _want("pq_codebook", pq_codebook, torch.float32,
+              (groups, 256, dims // groups), dev)
+        rows, codebook = records, pq_codebook
+    elif records is not None:
+        if records.dtype not in (torch.float32, torch.bfloat16, torch.int8):
+            raise ValueError(f"the walk kernel reads float32, bf16 or int8 "
+                             f"records, not {records.dtype}")
+        _want("records", records, records.dtype, (cap, max_m, dims), dev)
+        if pscales is not None:
+            _want("pscales", pscales, torch.float32, (cap, max_m), dev)
+        rows, scales = records, pscales
+    elif qvectors is not None:
+        _want("qvectors", qvectors, torch.int8, (cap, dims), dev)
+        _want("qscale", qscale, torch.float32, (cap,), dev)
+        rows, scales = qvectors, qscale
+    else:
+        rows = graph.vectors
+    variant = walk_variant(graph.vectors.dtype,
+                           None if records is None else records.dtype,
+                           quantized=qvectors is not None,
+                           rotated=query_t is not None,
+                           visited_slots=visited_slots)
+    return WalkSource(rows, _ELEMS[rows.dtype], records is not None, scales,
+                      codebook, queries if query_t is None else query_t,
+                      variant)
 
 
 def beam_walk(graph, queries: torch.Tensor, *, ef: int, metric_value: int,
-              cand_cap: int, expand_width: int = 1, records=None):
-    """searchBaseLayer for a batch of queries f32[B, D] over ``graph``
-    with the dense dedupe; neighbour rows from ``graph.vectors`` (float32)
-    or from float32 packed records f32[cap, maxM, D].  Returns (res_d
-    f32[B, ef], res_i i32[B, ef], hops i32[B], dist_evals i32[B]), results
-    ascending, -1/inf padded: what core/search._search_batch returns.
+              cand_cap: int, expand_width: int = 1, records=None,
+              pscales=None, qvectors=None, qscale=None, pq_codebook=None,
+              query_t=None, visited_slots: int = -1):
+    """searchBaseLayer for a batch of queries f32[B, D] over ``graph``:
+    the walk of core/search._search_batch, with the same operands (records
+    = its ``pcodes``).  Returns (res_d f32[B, ef], res_i i32[B, ef], hops
+    i32[B], dist_evals i32[B]), results ascending, -1/inf padded: what
+    _search_batch returns (core/search.finish_walk then reranks approximate
+    sources and drops the hash set's duplicates, on both routes).
 
-    The entry distance (to node 0) is the twin's own torch op, so both
-    walks start from the same bits (and the records, which hold no row of
-    the entry, need none)."""
+    The entry distance (to node 0) is the twin's own torch op on the
+    original queries and corpus row, so both walks start from the same
+    bits (and the records, which hold no row of the entry, need none).
+    The bitmap and hash sets, and queues wider than MAX_WALK_QUEUE, live
+    in device memory, SCRATCH_BYTES at most a launch: a larger batch is
+    walked in chunks."""
     if queries.device.type == "cpu":
         from ..core.search import _search_batch
         return _search_batch(graph, queries, ef=ef, metric_value=metric_value,
                              cand_cap=cand_cap, expand_width=expand_width,
-                             pcodes=records)
+                             pcodes=records, pscales=pscales,
+                             qvectors=qvectors, qscale=qscale,
+                             pq_codebook=pq_codebook, query_t=query_t,
+                             visited_slots=visited_slots)
     if queries.device.type != "cuda":
         raise ValueError(f"no kernel for device {queries.device}")
     t = int(expand_width)
-    _check_walk_args(graph, queries, records, ef, cand_cap, t, metric_value)
-    out = _launch_walk(_kernels.load_library(), graph, queries.contiguous(),
-                       records, ef=ef, cand_cap=cand_cap, t=t,
-                       metric_value=metric_value,
-                       smem=_walk_smem_bytes(ef, cand_cap, t, graph.max_m,
-                                             queries.shape[1]))
-    LAUNCHES["beam_walk"] += int(queries.shape[0] > 0)   # b = 0: no launch
-    return out
+    queries = queries.contiguous()
+    src = _check_walk_args(graph, queries, ef, cand_cap, t, metric_value,
+                           records=records, pscales=pscales,
+                           qvectors=qvectors, qscale=qscale,
+                           pq_codebook=pq_codebook, query_t=query_t,
+                           visited_slots=visited_slots)
+    lib = _kernels.load_library()
+    smem = _walk_smem_bytes(ef, cand_cap, t, graph.max_m, queries.shape[1])
+    b = queries.shape[0]
+    words = (_walk_wide_words(ef, cand_cap)
+             + (_visited_words(graph, visited_slots)
+                if visited_slots >= 0 else 0))
+    step = max(1, SCRATCH_BYTES // (4 * words)) if words else b
+    outs = []
+    for lo in range(0, max(b, 1), step):
+        hi = min(lo + step, b)
+        outs.append(_launch_walk(
+            lib, graph, queries[lo:hi], src._replace(query=src.query[lo:hi]),
+            ef=ef, cand_cap=cand_cap, t=t, metric_value=metric_value,
+            smem=smem, visited_slots=visited_slots))
+        if hi > lo:                                     # b = 0: no launch
+            LAUNCHES["beam_walk"] += 1
+            WALK_VARIANTS[src.variant] = WALK_VARIANTS.get(src.variant,
+                                                           0) + 1
+    if len(outs) == 1:
+        return outs[0]
+    return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
-def _launch_walk(lib, graph, queries, records, *, ef, cand_cap, t,
-                 metric_value, smem):
+def _visited_words(graph, visited_slots: int) -> int:
+    """32-bit words of one query's visited set: the bitmap's (a bit an id)
+    or the hash table's slots."""
+    return -(-graph.capacity // 32) if visited_slots == 0 else visited_slots
+
+
+def _launch_walk(lib, graph, queries, src: WalkSource, *, ef, cand_cap, t,
+                 metric_value, smem, visited_slots=-1):
     """One launch of ``lib``'s beam_walk on checked arguments (the
-    wrapper's library, or a probe's build of the same source)."""
+    wrapper's library, or a probe's build of the same source).  The
+    bitmap starts zeroed and the hash table empty (-1), each holding node
+    0 when the graph has nodes, as the twin's do; queues wider than
+    MAX_WALK_QUEUE get their device memory here (the kernel fills it)."""
     b, dims = queries.shape
     dev = queries.device
     out_d = torch.empty((b, ef), dtype=torch.float32, device=dev)
@@ -159,15 +320,30 @@ def _launch_walk(lib, graph, queries, records, *, ef, cand_cap, t,
                                  metric_value)[:, 0].contiguous()
     else:
         entry = out_d[:, 0]                 # never read
-    rows = graph.vectors if records is None else records
+    visited, vis_n = None, 0
+    if visited_slots >= 0:
+        vis_n = _visited_words(graph, visited_slots)
+        empty = 0 if visited_slots == 0 else -1
+        visited = torch.full((b, vis_n), empty, dtype=torch.int32,
+                             device=dev)
+        if has_nodes:
+            visited[:, 0] = 1 if visited_slots == 0 else 0
+    wide_words = _walk_wide_words(ef, cand_cap)
+    wide = (torch.empty((b, wide_words), dtype=torch.int32, device=dev)
+            if wide_words else None)
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+    groups = src.rows.shape[-1] if src.codebook is not None else 0
     with torch.cuda.device(dev):
         err = lib.beam_walk(
             graph.links.data_ptr(), graph.link_counts.data_ptr(),
-            rows.data_ptr(), queries.data_ptr(), entry.data_ptr(),
-            int(records is not None), int(has_nodes), b, dims, graph.max_m,
-            t, ef, cand_cap, metric_value, smem, out_d.data_ptr(),
-            out_i.data_ptr(), hops.data_ptr(), evals.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            src.rows.data_ptr(), ptr(src.scales), ptr(src.codebook),
+            src.query.data_ptr(), entry.data_ptr(), ptr(visited), ptr(wide),
+            src.elem, int(src.records), int(has_nodes), b, dims, graph.max_m,
+            t, ef, cand_cap, metric_value, groups, visited_slots, vis_n, smem,
+            wide_words, out_d.data_ptr(), out_i.data_ptr(), hops.data_ptr(),
+            evals.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _kernels.check(lib, err, "beam_walk")
     return out_d, out_i, hops, evals
 

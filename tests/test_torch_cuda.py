@@ -20,6 +20,8 @@ import torch
 from pg_embedding_tpu_torch import HnswConfig, HnswIndex
 from pg_embedding_tpu_torch.convert import graph_from_numpy, to_numpy
 from pg_embedding_tpu_torch.ops import cuda_bruteforce as cb
+# the walk's operands by row source, shared with chip_smoke.py
+from walk_operands import integer_operands, on_device
 
 pytestmark = pytest.mark.cuda
 
@@ -84,6 +86,14 @@ def prune_case_adversarial(seed, b, c, symmetric=True):
                                0.25)
     cand_i[3::8] = -1
     return cand_d, cand_i, pair
+
+
+# the walk's row sources (ops/cuda_graph.walk_variant's names, without the
+# visited set) and visited sets, as the integer operands give them
+SOURCES = ("rows f32", "rows bf16", "rows int8", "records f32",
+           "records bf16", "records int8", "records pq",
+           "records pq rotated")
+VISITED = {"dense": -1, "bitmap": 0, "hash": 8192}
 
 
 def repeated_links(arrays, seed=13):
@@ -467,11 +477,9 @@ def _walk_pair(graph, qs, **kw):
     got = cg.beam_walk(graph, qs, **kw)
     torch.cuda.synchronize()
     assert cg.LAUNCHES["beam_walk"] == before + 1
-    want = _search_batch(graph, qs, ef=kw["ef"],
-                         metric_value=kw["metric_value"],
-                         cand_cap=kw["cand_cap"],
-                         expand_width=kw["expand_width"],
-                         pcodes=kw.get("records"))
+    twin = dict(kw)
+    twin["pcodes"] = twin.pop("records", None)
+    want = _search_batch(graph, qs, **twin)
     return got, want
 
 
@@ -495,8 +503,12 @@ def test_beam_walk_bit_equal_on_integers(cuda, int_graphs, metric, width, ef,
 
 
 @pytest.mark.parametrize("case", ["B=1", "B=1000", "empty", "one node",
-                                  "ef=4096"])
+                                  "ef=4096", "ef=4097", "cap=8191",
+                                  "ef=cap=8191"])
 def test_beam_walk_edges(cuda, int_graphs, case):
+    """Batch sizes, an empty and a one-node graph, the widest queues in
+    shared memory and queues past them (one or both in device memory, up
+    to the widest the API's widening reaches): bit-equal to the twin."""
     arrays, qs = int_graphs["l2"]
     arrays = dict(arrays)
     ef = cap = 64
@@ -513,7 +525,9 @@ def test_beam_walk_edges(cuda, int_graphs, case):
         arrays["links"] = np.full_like(arrays["links"], -1)
         arrays["link_counts"] = np.zeros_like(arrays["link_counts"])
     else:
-        ef = cap = 4096
+        ef, cap = {"ef=4096": (4096, 4096), "ef=4097": (4097, 64),
+                   "cap=8191": (64, 8191),
+                   "ef=cap=8191": (8191, 8191)}[case]
     g = _card_graph(arrays, cuda)
     got, want = _walk_pair(g, torch.from_numpy(qs).to(cuda), ef=ef,
                            metric_value=0, cand_cap=cap, expand_width=4)
@@ -544,6 +558,135 @@ def test_beam_walk_repeated_links(cuda, int_graphs, metric, width, ef, cap):
                            expand_width=width)
     _assert_bit_equal(got, want)
     assert bool((got[2] > 1).all())
+
+
+@pytest.mark.parametrize("source", SOURCES)
+@pytest.mark.parametrize("visited", list(VISITED))
+@pytest.mark.parametrize("metric", ["l2", "manhattan"])
+@pytest.mark.parametrize("width,ef,cap", [(1, 16, 16), (4, 64, 128),
+                                          (8, 64, 128), (4, 5120, 5120)])
+def test_beam_walk_variants_bit_equal(cuda, int_graphs, source, visited,
+                                      metric, width, ef, cap):
+    """Every row source under every visited set on the integer fixture:
+    the kernel's ids, distances, hops and dist_evals equal the twin's on
+    the card on the same operands (the twin writes the hash set's colliding
+    ids deterministically, the highest slot winning), before and after
+    finish_walk; the launch is counted under the variant's name.  At ef =
+    cand_cap = 5120 (where the API's widening from ef_search 40 lands) the
+    queues live in device memory."""
+    from pg_embedding_tpu_torch.core import search as ts
+    from pg_embedding_tpu_torch.ops import cuda_graph as cg
+    arrays, qs = int_graphs[metric]
+    g, q, kw = integer_operands(arrays, qs, source)
+    walk = dict(ef=ef, metric_value=METRICS[metric], cand_cap=cap,
+                expand_width=width, visited_slots=VISITED[visited])
+    gc, kc = on_device(g, kw, cuda)
+    q = q.to(cuda)
+    name = f"{source}, {visited}"
+    before = (cg.LAUNCHES["beam_walk"], cg.WALK_VARIANTS.get(name, 0))
+    got = cg.beam_walk(gc, q, **walk, **kc)
+    torch.cuda.synchronize()
+    assert (cg.LAUNCHES["beam_walk"], cg.WALK_VARIANTS[name]) == (
+        before[0] + 1, before[1] + 1)
+    want = ts._search_batch(gc, q, **walk, **on_device(g, kw, cuda,
+                                                        twin=True)[1])
+    _assert_bit_equal(got, want)
+    fin = dict(metric_value=METRICS[metric], hashed=VISITED[visited] > 0,
+               rerank=source not in ("rows f32", "rows bf16", "records f32"))
+    _assert_bit_equal(ts.finish_walk(gc, q, *got[:2], **fin),
+                      ts.finish_walk(gc, q, *want[:2], **fin))
+    assert bool((got[2] > 1).all())
+
+
+def test_widening_past_4096_runs_the_kernel(cuda):
+    """A filtered graph search that widens from ef_search = 40 to 5120 (past
+    MAX_WALK_QUEUE) runs every walk in the kernel, none in the twin, and
+    finds the masked exact sweep's answers."""
+    from pg_embedding_tpu_torch.core import search as ts
+    from pg_embedding_tpu_torch.ops import cuda_graph as cg
+    rng = np.random.default_rng(14)
+    pts = rng.normal(size=(5000, 32)).astype(np.float32)
+    qs = rng.normal(size=(8, 32)).astype(np.float32)
+    idx = HnswIndex(HnswConfig(dims=32, m=8, ef_construction=32,
+                               ef_search=40), device=cuda)
+    idx.build(pts)
+    where = np.zeros(5000, bool)
+    where[rng.choice(5000, 12, replace=False)] = True
+    plain, launches = ts.PLAIN_WALKS_ON_CARD, cg.LAUNCHES["beam_walk"]
+    widenings = idx.counters["n_widenings"]
+    d, l, v = idx.search(qs, 10, mode="graph", where=where)
+    assert idx.counters["n_widenings"] - widenings == 7     # 40 -> 5120
+    assert cg.LAUNCHES["beam_walk"] - launches == 8
+    assert ts.PLAIN_WALKS_ON_CARD == plain
+    de, le, ve = idx.search(qs, 10, mode="exact", where=where)
+    assert bool(v.all()) and bool(ve.all())
+    assert (np.sort(l, axis=1) == np.sort(le, axis=1)).all()
+
+
+def test_beam_walk_small_hash_table(cuda, int_graphs):
+    """A 64-slot hash table: ids collide on a slot within a step, entries
+    are overwritten and walks re-expand nodes (their dist_evals leave the
+    dense walk's); bit-equal to the twin on the card, where the highest
+    slot's write wins as it does on the CPU."""
+    from pg_embedding_tpu_torch.core import search as ts
+    from pg_embedding_tpu_torch.ops import cuda_graph as cg
+    for metric in ("l2", "manhattan"):
+        arrays, qs = int_graphs[metric]
+        g = _card_graph(arrays, cuda)
+        q = torch.from_numpy(qs).to(cuda)
+        for width in (1, 4, 8):
+            walk = dict(ef=32, metric_value=METRICS[metric], cand_cap=32,
+                        expand_width=width, visited_slots=64)
+            got, want = _walk_pair(g, q, **walk)
+            _assert_bit_equal(got, want)
+            dense = ts._search_batch(g, q, **dict(walk, visited_slots=-1))
+            assert bool((want[3] != dense[3]).any())
+            cpu = ts._search_batch(on_device(g, {}, "cpu")[0], q.cpu(),
+                                   **walk)
+            _assert_bit_equal([x.cpu() for x in want], cpu)
+
+
+@pytest.mark.parametrize("visited_slots,ef", [(0, 32), (8192, 32),
+                                               (-1, 5120), (0, 5120)])
+def test_beam_walk_chunks_the_visited_sets(cuda, int_graphs, monkeypatch,
+                                           visited_slots, ef):
+    """A batch whose visited sets and wide queues pass SCRATCH_BYTES is
+    walked in chunks of queries, a launch each, with the answers of one
+    launch."""
+    from pg_embedding_tpu_torch.ops import cuda_graph as cg
+    arrays, qs = int_graphs["l2"]
+    g, q, _ = integer_operands(arrays, qs, "rows f32")
+    g, _ = on_device(g, {}, cuda)
+    q = q.to(cuda)
+    walk = dict(ef=ef, metric_value=0, cand_cap=ef, expand_width=4,
+                visited_slots=visited_slots)
+    whole = cg.beam_walk(g, q, **walk)
+    words = cg._walk_wide_words(ef, ef) + (
+        cg._visited_words(g, visited_slots) if visited_slots >= 0 else 0)
+    monkeypatch.setattr(cg, "SCRATCH_BYTES", 4 * words * 10)
+    before = cg.LAUNCHES["beam_walk"]
+    got = cg.beam_walk(g, q, **walk)
+    torch.cuda.synchronize()
+    assert cg.LAUNCHES["beam_walk"] == before + -(-len(qs) // 10)
+    _assert_bit_equal(got, whole)
+
+
+def test_beam_walk_bf16_rows_cosine(cuda, int_graphs):
+    """Cosine over bf16 corpus rows: |p|^2 rounded to bf16 as the twin's
+    _sum_sq rounds it; ids, hops and evals equal on >= 99% of queries,
+    every other one at a near-tie (rsqrt is not the CPU's)."""
+    arrays, _ = int_graphs["l2"]
+    qs = integer_data(seed=10, b=1000)[1]
+    g, q, _ = integer_operands(arrays, qs, "rows bf16")
+    gc, _ = on_device(g, {}, cuda)
+    for width in (1, 8):
+        got, want = _walk_pair(gc, q.to(cuda), ef=64, metric_value=1,
+                               cand_cap=64, expand_width=width)
+        (dk, ik, hk, ek), (dp, ip, hp, ep) = [[x.cpu().numpy() for x in r]
+                                              for r in (got, want)]
+        same = (ik == ip).all(axis=1) & (hk == hp) & (ek == ep)
+        assert same.mean() >= 0.99, same.mean()
+        np.testing.assert_allclose(dk[same], dp[same], rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("width", [1, 4, 8])
@@ -688,30 +831,33 @@ def test_walk_and_prune_refuse_out_of_scope_arguments(cuda, int_graphs):
     g = _card_graph(arrays, cuda)
     q = torch.from_numpy(qs).to(cuda)
     kw = dict(ef=16, metric_value=0, cand_cap=16, expand_width=4)
-    for bad in (dict(ef=5000, cand_cap=5000), dict(expand_width=32),
+    for bad in (dict(ef=cg.MAX_WIDE_QUEUE + 1), dict(expand_width=32),
                 dict(metric_value=3)):
         with pytest.raises(ValueError):
             cg.beam_walk(g, q, **dict(kw, **bad))
     with pytest.raises(ValueError):
         cg.beam_walk(g, q.double(), **kw)
     gb = _card_graph(arrays, cuda)
-    gb.vectors = gb.vectors.to(torch.bfloat16)
+    gb.vectors = gb.vectors.to(torch.float16)
     with pytest.raises(ValueError, match="float32"):
         cg.beam_walk(gb, q, **kw)
     with pytest.raises(ValueError, match="float32"):
         cg.beam_walk(g, q, records=torch.zeros(
-            (g.capacity, g.max_m, D), dtype=torch.bfloat16, device=cuda),
+            (g.capacity, g.max_m, D), dtype=torch.float16, device=cuda),
             **kw)
+    with pytest.raises(ValueError, match="power of 2"):
+        cg.beam_walk(g, q, visited_slots=2, **kw)
     lib = _kernels.load_library()
     smem = cg._walk_smem_bytes(16, 16, 4, g.max_m, D)
     out = torch.empty((len(qs), 16), device=cuda)
     cnt = torch.empty(len(qs), dtype=torch.int32, device=cuda)
     for bad in (smem + 16, smem - 16):
         err = lib.beam_walk(g.links.data_ptr(), g.link_counts.data_ptr(),
-                            g.vectors.data_ptr(), q.data_ptr(),
-                            out.data_ptr(), 0, 1, len(qs), D, g.max_m, 4, 16,
-                            16, 0, bad, out.data_ptr(), out.data_ptr(),
-                            cnt.data_ptr(), cnt.data_ptr(),
+                            g.vectors.data_ptr(), None, None, q.data_ptr(),
+                            out.data_ptr(), None, None, 0, 0, 1, len(qs), D,
+                            g.max_m, 4, 16, 16, 0, 0, -1, 0, bad, 0,
+                            out.data_ptr(), out.data_ptr(), cnt.data_ptr(),
+                            cnt.data_ptr(),
                             torch.cuda.current_stream().cuda_stream)
         with pytest.raises(RuntimeError, match="CUDA error"):
             _kernels.check(lib, err, "beam_walk")

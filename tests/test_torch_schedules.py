@@ -26,6 +26,7 @@ on the CPU to what the kernels replace.
     stamps.
 """
 
+import collections
 import functools
 import os
 import re
@@ -43,8 +44,9 @@ from pg_embedding_tpu_torch.core import build as tb
 from pg_embedding_tpu_torch.core import search as ts
 from pg_embedding_tpu_torch.ops import cuda_graph as cg
 from pg_embedding_tpu_torch.ops.distance import dist_one_to_many
-from test_torch_cuda import (METRICS, integer_graph,
-                             prune_case_adversarial, repeated_links)
+from test_torch_cuda import (METRICS, integer_graph, prune_case_adversarial,
+                             repeated_links)
+from walk_operands import integer_operands
 
 _INF = float("inf")
 
@@ -375,3 +377,339 @@ def test_kernel_sources_take_no_build_option_but_the_clocks():
             text = f.read()
         assert set(re.findall(r"#\s*if(?:n?def)?\s+!?\s*(?:defined\()?(\w+)",
                               text)) == {"PG_PROFILE"}, src
+
+
+# --- the walk's variants: the visited sets and the row sources -------------
+#
+# beam_walk.cu's step under the bitmap and hash visited sets, and its phase
+# 3 for every row source, rendered per query in numpy and held bit for bit
+# to _search_batch (before finish_walk) and, after finish_walk, to the JAX
+# package's walks on the integer fixture, whose int8, bf16 and PQ operands
+# keep every value and every L2 and Manhattan distance exact.
+
+SOURCES = ("rows bf16", "rows int8", "records f32", "records bf16",
+           "records int8", "records pq", "records pq rotated")
+
+
+def _widen_bf16(x):
+    """bf16 values to float32 by the kernel's rule: the 16 bits shifted
+    into the top of a 32-bit word."""
+    bits = x.contiguous().view(torch.int16).numpy().astype(np.uint16)
+    return (bits.astype(np.uint32) << 16).view(np.float32)
+
+
+def _round_bf16(x):
+    """float32 -> bf16 -> float32, to nearest even (__float2bfloat16_rn)."""
+    u = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    u = ((u + 0x7FFF + ((u >> 16) & 1)) >> 16) << 16
+    return u.astype(np.uint32).view(np.float32)
+
+
+class RowRule:
+    """beam_walk.cu's phase 3 row for expansion slot r of popped node p
+    holding id n: the records at (p, r) or the rows at n, each element the
+    float32 the kernel computes (int8: code x scale, one rounding; bf16:
+    widened; PQ: codebook[c / sub, code[c / sub], c % sub])."""
+
+    def __init__(self, graph, kw):
+        self.kw = {k: v for k, v in kw.items() if k != "query_t"}
+        self.vectors = graph.vectors
+        self.records = "pcodes" in kw
+
+    def row(self, p, r, n):
+        kw = self.kw
+        if "pq_codebook" in kw:
+            cb = kw["pq_codebook"].numpy()
+            codes = kw["pcodes"][p, r].numpy().astype(np.int64)
+            g, _, sub = cb.shape
+            e = np.arange(g * sub)
+            return cb[e // sub, codes[e // sub], e % sub]
+        if "pscales" in kw:
+            return (kw["pcodes"][p, r].numpy().astype(np.float32)
+                    * np.float32(kw["pscales"][p, r].item()))
+        if "qvectors" in kw:
+            return (kw["qvectors"][n].numpy().astype(np.float32)
+                    * np.float32(kw["qscale"][n].item()))
+        src = kw["pcodes"][p, r] if self.records else self.vectors[n]
+        if src.dtype == torch.bfloat16:
+            return _widen_bf16(src)
+        return src.numpy()
+
+
+def _distance(q, p, metric, round_pp):
+    """The kernel's distance of one row in float32 (on integer data every
+    sum is exact, so the order does not matter)."""
+    d = (p - q).astype(np.float32)
+    if metric == 0:
+        return np.sqrt(np.float32((d * d).sum(dtype=np.float32)))
+    if metric == 2:
+        return np.float32(np.abs(d).sum(dtype=np.float32))
+    dot = torch.tensor((p * q).sum(dtype=np.float32))
+    pp = np.float32((p * p).sum(dtype=np.float32))
+    pp = torch.tensor(_round_bf16(pp) if round_pp else pp)
+    qq = torch.tensor((q * q).sum(dtype=np.float32))
+    return np.float32(1.0 - dot * torch.rsqrt(torch.clamp(qq * pp,
+                                                           min=1e-30)))
+
+
+def _vis_slot(i, slots):
+    """beam_walk.cu's vis_bucket / vis_slot: the hash set's bucket start
+    and the slot an id writes."""
+    b = (int(i) * 2654435761) & ((slots - 1) & ~3)
+    return b, b + ((((int(i) * 0x9E3779B1) & 0xffffffff)) >> 30)
+
+
+def variant_walk(graph, queries, kw, *, ef, metric_value, cand_cap, t,
+                 visited_slots=-1):
+    """beam_walk.cu's walk for one query at a time with any row source and
+    visited set: the dense dedupe through its tables; the bitmap (words of
+    32 ids, node 0's bit set, processed ids' bits set after every slot has
+    read); the hash set (4-slot buckets, node 0 in slot 0, the hop cap;
+    after every slot has read, warp 0's pass: chunks of 32 slots in order,
+    the highest lane of a chunk writing each table slot).  Returns the
+    walk's (res_d, res_i, hops, evals) before finish_walk, and the number
+    of steps where two processed ids wrote one hash slot."""
+    max_m, tm, cap = graph.max_m, t * graph.max_m, graph.capacity
+    _, held_n, slot_n = cg._walk_layout(ef, cand_cap, t, max_m, graph.dims)
+    rule = RowRule(graph, kw)
+    walk_q = kw.get("query_t", queries).numpy()
+    round_pp = (metric_value == 1 and not rule.records
+                and graph.vectors.dtype == torch.bfloat16)
+    out, collided = [], 0
+    for qi, q in enumerate(queries):
+        wq = walk_q[qi]
+        rd = np.full(ef, _INF, np.float32)
+        ri = np.full(ef, -1, np.int32)
+        cd = np.full(cand_cap, _INF, np.float32)
+        ci = np.full(cand_cap, -1, np.int32)
+        d0 = dist_one_to_many(q[None], graph.vectors[:1][None],
+                              metric_value)[0, 0].item()
+        rd[0] = cd[0] = d0
+        ri[0] = ci[0] = 0
+        words = np.zeros(-(-cap // 32), np.uint32)
+        words[0] = 1
+        table = np.full(max(visited_slots, 1), -1, np.int64)
+        table[0] = 0
+        hops = evals = 0
+        while cd[0] < _INF and not cd[0] > rd[-1]:
+            if visited_slots > 0 and hops >= visited_slots:
+                break
+            lower = rd[-1]
+            slot_id = np.full(tm, -1, np.int32)
+            for j in range(t):
+                p = ci[j]
+                if p < 0 or cd[j] > lower:
+                    continue
+                n = int(graph.link_counts[p])
+                row = graph.links[p].numpy()
+                for r in range(max_m):
+                    if r < n and row[r] >= 0:
+                        slot_id[j * max_m + r] = row[r]
+            if visited_slots < 0:
+                keep, _ = hash_dedupe(slot_id, ci, ri, held_n, slot_n)
+            else:
+                keep, _ = hash_dedupe(slot_id, [], [], held_n, slot_n)
+                for s, i in enumerate(slot_id):
+                    if not keep[s]:
+                        continue
+                    if visited_slots == 0:
+                        keep[s] = not (words[i >> 5] >> (i & 31)) & 1
+                    else:
+                        b, _ = _vis_slot(i, visited_slots)
+                        keep[s] = i not in table[b:b + 4]
+            proc = np.nonzero(keep)[0]
+            if visited_slots == 0:
+                for s in proc:
+                    words[slot_id[s] >> 5] |= np.uint32(1 << (slot_id[s]
+                                                              & 31))
+            elif visited_slots > 0:
+                for c0 in range(0, tm, 32):
+                    chunk = {}                  # table slot: highest lane
+                    for s in proc[(proc >= c0) & (proc < c0 + 32)]:
+                        chunk[_vis_slot(slot_id[s], visited_slots)[1]] = s
+                    for at, s in chunk.items():
+                        table[at] = slot_id[s]
+                collided += any(
+                    v > 1 for v in collections.Counter(
+                        _vis_slot(slot_id[s], visited_slots)[1]
+                        for s in proc).values())
+            d = np.array([_distance(wq, rule.row(ci[s // max_m], s % max_m,
+                                                 slot_id[s]),
+                                    metric_value, round_pp)
+                          for s in proc], np.float32)
+            adm = d < lower
+            new_d, new_s = d[adm], proc[adm]
+            rank = np.lexsort((new_s, new_d))
+            srt_d, srt_i = new_d[rank], slot_id[new_s[rank]]
+            rd, ri = _merge_by_rank(rd, ri, srt_d, srt_i, ef)
+            cd, ci = _merge_by_rank(cd[t:], ci[t:], srt_d, srt_i, cand_cap)
+            hops += 1
+            evals += len(proc)
+        out.append((rd, ri, hops, evals))
+    rd, ri, hops, evals = zip(*out)
+    return (torch.from_numpy(np.stack(rd)), torch.from_numpy(np.stack(ri)),
+            torch.tensor(hops, dtype=torch.int32),
+            torch.tensor(evals, dtype=torch.int32)), collided
+
+
+def _jax_walk(arrays, qs, kw, metric, **walk):
+    """The JAX package's walk on the same graph and operands (its records
+    flat, [cap, maxM * W])."""
+    from pg_embedding_tpu.core import search as js
+    from pg_embedding_tpu.core.graph import GraphState as JaxGraph
+    vec = jnp.asarray(arrays["vectors"])
+    if kw.get("bf16_rows"):
+        vec = vec.astype(jnp.bfloat16)
+    jg = JaxGraph(vec, *(jnp.asarray(arrays[k]) for k in
+                         ("links", "link_counts", "deleted")),
+                  n_nodes=jnp.int32(arrays["n_nodes"]))
+    q = jnp.asarray(qs)
+    walk = dict(walk, metric_value=METRICS[metric])
+
+    def flat(x):
+        x = x.to(torch.float32) if x.dtype == torch.bfloat16 else x
+        out = jnp.asarray(x.reshape(x.shape[0], -1).numpy())
+        return (out.astype(jnp.bfloat16)
+                if kw["pcodes"].dtype == torch.bfloat16 else out)
+    if "pq_codebook" in kw:
+        return js.search_graph_pq(jg, q, flat(kw["pcodes"]),
+                                  jnp.asarray(kw["pq_codebook"].numpy()),
+                                  None if kw.get("rot") is None else
+                                  jnp.asarray(kw["rot"].numpy()), **walk)
+    if "pcodes" in kw:
+        ps = kw.get("pscales")
+        return js.search_graph_packed(
+            jg, q, flat(kw["pcodes"]),
+            None if ps is None else jnp.asarray(ps.numpy()), **walk)
+    if "qvectors" in kw:
+        return js.search_graph_quantized(
+            jg, q, jnp.asarray(kw["qvectors"].numpy()),
+            jnp.asarray(kw["qscale"].numpy()), **walk)
+    return js.search_graph(jg, q, **walk)
+
+
+def _hold_variant(arrays, qs, source, metric, t, visited_slots, ef=32,
+                  cap=48):
+    """The rendered walk against _search_batch (bit for bit, before the
+    tail) and, after finish_walk, against the JAX package's walk."""
+    g, q, kw = integer_operands(arrays, qs, source)
+    walk = dict(ef=ef, metric_value=METRICS[metric], cand_cap=cap)
+    got, collided = variant_walk(g, q, kw, t=t,
+                                 visited_slots=visited_slots, **walk)
+    want = ts._search_batch(g, q, expand_width=t,
+                            visited_slots=visited_slots, **walk, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    fin = dict(metric_value=METRICS[metric], hashed=visited_slots > 0,
+               rerank=source not in ("rows f32", "rows bf16",
+                                     "records f32"))
+    fd, fi = ts.finish_walk(g, q, *got[:2], **fin)
+    jkw = dict(kw, bf16_rows=source == "rows bf16")
+    if source.endswith("rotated"):
+        jkw["rot"] = _rotation_of(kw, q)
+    jd, ji, js_ = _jax_walk(arrays, qs, jkw, metric, ef=ef, cand_cap=cap,
+                            expand_width=t, visited_slots=visited_slots)
+    np.testing.assert_array_equal(fi.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(fd.numpy(), np.asarray(jd))
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(js_.hops))
+    np.testing.assert_array_equal(got[3].numpy(),
+                                  np.asarray(js_.dist_evals))
+    return got, collided
+
+
+def _rotation_of(kw, q):
+    """The signed permutation R of integer_operands, read back from q and
+    q @ R (each column of q @ R is +- one column of q)."""
+    qt = kw["query_t"]
+    rot = torch.zeros((q.shape[1], q.shape[1]))
+    for c in range(q.shape[1]):
+        for r in range(q.shape[1]):
+            for sign in (1.0, -1.0):
+                if torch.equal(qt[:, c], sign * q[:, r]):
+                    rot[r, c] = sign
+                    break
+            if rot[:, c].any():
+                break
+    assert torch.equal(q @ rot, qt)
+    return rot
+
+
+@pytest.fixture(scope="module", params=["l2", "manhattan"])
+def int_fixture(request):
+    arrays, qs = integer_graph(request.param)
+    return request.param, arrays, qs[:12]
+
+
+@pytest.mark.parametrize("t", [1, 4, 8])
+@pytest.mark.parametrize("source", SOURCES)
+def test_row_source_walk_equals_twin_and_jax(int_fixture, source, t):
+    """Each row source's dequantisation (int8 x a power-of-two scale, bf16
+    widened, PQ through an integer codebook, OPQ's rotated query) in the
+    kernel's step: bit for bit the twin's walk and the JAX package's."""
+    metric, arrays, qs = int_fixture
+    got, _ = _hold_variant(arrays, qs, source, metric, t, -1)
+    assert bool((got[2] > 1).all())
+
+
+@pytest.mark.parametrize("t", [1, 4, 8])
+@pytest.mark.parametrize("visited", ["bitmap", "hash"])
+def test_visited_set_walk_equals_twin_and_jax(int_fixture, visited, t):
+    """The bitmap and the hash set (8,192 slots) in the kernel's step: the
+    twin's walk and the JAX package's, bit for bit."""
+    metric, arrays, qs = int_fixture
+    _hold_variant(arrays, qs, "rows f32", metric, t,
+                  0 if visited == "bitmap" else 8192)
+
+
+def _colliding_slot_ids(slots, count, below):
+    """``count`` ids under ``below`` that write one slot of a ``slots``
+    table (the hash set's _vis_slot), as _colliding_ids finds ids of one
+    bucket of the dedupe's tables."""
+    by_slot = collections.defaultdict(list)
+    for i in range(1, below):
+        by_slot[_vis_slot(i, slots)[1]].append(i)
+    return max(by_slot.values(), key=len)[:count]
+
+
+@pytest.mark.parametrize("t", [1, 4, 8])
+def test_hash_highest_slot_wins(int_fixture, t):
+    """Ids that write one slot of a 64-slot table in the same step: node 0
+    links to 8 of them and each links to the others, so every step's
+    writes collide and overwritten ids come back.  The rendered pass (the
+    highest slot of a step wins) is the twin's walk and the JAX package's,
+    bit for bit; collisions did happen."""
+    metric, arrays, qs = int_fixture
+    arrays = dict(arrays)
+    links = arrays["links"].copy()
+    counts = arrays["link_counts"].copy()
+    ids = _colliding_slot_ids(64, 8, int(arrays["n_nodes"]))
+    for node in [0, *ids]:
+        row = [i for i in ids if i != node]
+        links[node, :len(row)] = row
+        counts[node] = max(counts[node], len(row))
+    arrays.update(links=links, link_counts=counts)
+    _, collided = _hold_variant(arrays, qs, "rows f32", metric, t, 64,
+                                ef=16, cap=16)
+    assert collided > 0
+
+
+def test_bf16_rows_cosine_rounds_the_norm():
+    """Cosine over bf16 corpus rows: the twin's _sum_sq rounds |p|^2 to
+    bf16 (the kernel's round_pp), over bf16 records it does not (they are
+    widened first); the rendered walk with that rule is the twin's, bit
+    for bit, on the integer fixture (dot products and norms exact)."""
+    from pg_embedding_tpu_torch.ops.distance import _sum_sq
+    arrays, qs = integer_graph("l2")
+    rows = torch.from_numpy(arrays["vectors"][:500]).to(torch.bfloat16)
+    pp = _sum_sq(rows).to(torch.float32).numpy()
+    exact = (rows.float() ** 2).sum(1).numpy()
+    np.testing.assert_array_equal(pp, _round_bf16(exact))
+    assert (pp != exact).any()
+    for source in ("rows bf16", "records bf16"):
+        g, q, kw = integer_operands(arrays, qs[:12], source)
+        for t in (1, 8):
+            walk = dict(ef=32, metric_value=1, cand_cap=48)
+            got, _ = variant_walk(g, q, kw, t=t, **walk)
+            want = ts._search_batch(g, q, expand_width=t, **walk, **kw)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), source

@@ -337,3 +337,63 @@ def test_knobs(jidx, data):
     assert ti.counters["n_exact_routed"] == len(qs)
     with pytest.raises(ValueError, match="packed_dtype"):
         HnswIndex(HnswConfig(dims=D), device="cpu", packed_dtype="int4")
+
+
+def _inline_tail(graph, queries, res_d, res_i, metric_value, *, use_hash,
+                 qvectors, pcodes):
+    """The end of _search_batch as it was before the tail moved into
+    core/search.finish_walk (kept here verbatim as the reference)."""
+    from pg_embedding_tpu_torch.ops.bruteforce import min_k
+    from pg_embedding_tpu_torch.ops.distance import dist_one_to_many
+    ef, inf = res_i.shape[1], float("inf")
+    if use_hash:
+        order = torch.argsort(res_i, dim=1, stable=True)
+        si = torch.gather(res_i, 1, order)
+        sd = torch.gather(res_d, 1, order)
+        prev = torch.cat([torch.full_like(si[:, :1], -2), si[:, :-1]], dim=1)
+        dupe = (si == prev) & (si >= 0)
+        res_d, sel = min_k(torch.where(dupe, inf, sd), ef)
+        res_i = torch.gather(torch.where(dupe, -1, si), 1, sel)
+    if qvectors is not None or (pcodes is not None
+                                and pcodes.dtype != torch.float32):
+        fvecs = graph.vectors[res_i.clamp(min=0)]
+        rd = torch.where(res_i >= 0,
+                         dist_one_to_many(queries, fvecs, metric_value), inf)
+        res_d, sel = min_k(rd, ef)
+        res_i = torch.gather(res_i, 1, sel)
+    return res_d, res_i
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+@pytest.mark.parametrize("visited_slots", [-1, 0, 64, 8192])
+def test_finish_walk_is_the_inline_tail(jidx, data, variant, visited_slots):
+    """core/search.finish_walk, which both routes now call, gives what the
+    twin's inline tail gave: the same ids and distances on the serving
+    data, for every variant and visited set (the 64-slot hash set leaves
+    duplicates to drop)."""
+    _, qs = data
+    ti = _port(jidx, **VARIANTS[variant])
+    kw = {}
+    if ti.packed_traversal:
+        pc, ps = ti._ensure_packed()
+        kw = dict(pcodes=pc, pscales=ps)
+    elif ti.quantized_traversal:
+        qv, qsc = ti._ensure_quantized()
+        kw = dict(qvectors=qv, qscale=qsc)
+    q = torch.from_numpy(qs)
+    res_d, res_i, _, _ = tsearch._search_batch(
+        ti.graph, q, ef=32, metric_value=0, cand_cap=32, expand_width=4,
+        visited_slots=visited_slots, **kw)
+    got = tsearch.finish_walk(
+        ti.graph, q, res_d, res_i, metric_value=0,
+        hashed=visited_slots > 0,
+        rerank=variant in ("quantized", "packed_int8", "packed_bf16"))
+    want = _inline_tail(ti.graph, q, res_d, res_i, 0,
+                        use_hash=visited_slots > 0,
+                        qvectors=kw.get("qvectors"), pcodes=kw.get("pcodes"))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    if visited_slots == 64:                  # an id held twice somewhere
+        real = res_i >= 0
+        pairs = (res_i.unsqueeze(2) == res_i.unsqueeze(1)) & real.unsqueeze(2)
+        assert bool((pairs.sum((1, 2)) > real.sum(1)).any())

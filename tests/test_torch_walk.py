@@ -18,6 +18,8 @@ its plain twin).
     equals scanning the gathered matrix.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -31,8 +33,8 @@ from pg_embedding_tpu_torch.core import search as ts
 from pg_embedding_tpu_torch.ops import cuda_graph as cg
 # the integer fixture and the prune's candidate sets, shared with the card
 # tests (that file imports no JAX)
-from test_torch_cuda import (METRICS, QUEUES, D, integer_graph,
-                             prune_case)
+from test_torch_cuda import METRICS, QUEUES, D, integer_graph, prune_case
+from walk_operands import integer_operands
 from test_torch_search import _near_tie
 
 
@@ -132,24 +134,46 @@ F32, BF16 = torch.float32, torch.bfloat16
     ("cuda", F32, dict(records_dtype=F32), "kernel"),
     ("cuda", BF16, dict(records_dtype=F32), "kernel"),
     ("cuda", F32, dict(ef=4096, cand_cap=4096), "kernel"),
-    ("cuda", F32, dict(visited_slots=0), "plain"),            # bitmap
-    ("cuda", F32, dict(visited_slots=8192), "plain"),         # hash
-    ("cuda", F32, dict(quantized=True), "plain"),             # int8 rows
+    ("cuda", F32, dict(visited_slots=0), "kernel"),           # bitmap
+    ("cuda", F32, dict(visited_slots=8192), "kernel"),        # hash
+    ("cuda", F32, dict(quantized=True), "kernel"),            # int8 rows
     ("cuda", F32, dict(records_dtype=torch.int8, record_scales=True),
-     "plain"),
-    ("cuda", F32, dict(records_dtype=BF16), "plain"),
-    ("cuda", F32, dict(records_dtype=torch.uint8, pq=True), "plain"),
-    ("cuda", BF16, {}, "plain"),                              # bf16 rows
+     "kernel"),
+    ("cuda", F32, dict(records_dtype=BF16), "kernel"),
+    ("cuda", F32, dict(records_dtype=torch.uint8, pq=True), "kernel"),
+    ("cuda", BF16, {}, "kernel"),                             # bf16 rows
     ("cuda", F32, dict(records_dtype=torch.uint8, pq=True, rotated=True),
-     "plain"),                                                # OPQ
-    ("cuda", F32, dict(ef=8192), "plain"),
-    ("cuda", F32, dict(cand_cap=4097), "plain"),
+     "kernel"),                                               # OPQ
+    ("cuda", F32, dict(ef=8192), "kernel"),          # queues in device memory
+    ("cuda", F32, dict(cand_cap=4097), "kernel"),
     ("cpu", F32, {}, "plain"),
     ("cpu", F32, dict(records_dtype=F32), "plain"),
 ])
 def test_walk_route(device, rows, kw, want):
+    """Every variant on the card goes to the kernel, whatever its queue
+    widths (past MAX_WALK_QUEUE they live in device memory and the kernel
+    still takes them), every walk on the CPU to the twin; the kernel counts
+    each launch under the variant's name."""
     kw = dict(dict(ef=64, cand_cap=64), **kw)
-    assert ts.walk_route(device, rows, **kw) == want
+    ef, cap = kw.pop("ef"), kw.pop("cand_cap")
+    assert ts.walk_route(device) == want
+    assert (cg._walk_wide_words(ef, cap) > 0) == (
+        max(ef, cap) > cg.MAX_WALK_QUEUE)
+    cg._walk_layout(ef, cap, 8, 32, 128)       # a shape the kernel takes
+    kw.pop("record_scales", None)
+    pq = kw.pop("pq", False)
+    name = cg.walk_variant(rows, **kw)
+    source, visited = name.split(", ")
+    assert visited == cg.visited_name(kw.get("visited_slots", -1))
+    dtype = kw.get("records_dtype")
+    if dtype is not None:
+        assert source.startswith("records ") and (
+            ("pq" in source) == pq)
+    else:
+        want_src = "rows int8" if kw.get("quantized") else (
+            "rows bf16" if rows == BF16 else "rows f32")
+        assert source == want_src
+    assert source.endswith(" rotated") == kw.get("rotated", False)
 
 
 def test_cpu_walks_are_not_counted_on_card(fixture):
@@ -162,10 +186,12 @@ def test_cpu_walks_are_not_counted_on_card(fixture):
 
 @pytest.mark.parametrize("ef,cap,t,max_m,dims,tables", [
     (64, 64, 8, 32, 128, True),    # the smoke's main path at T = 8
-    (4096, 4096, 8, 32, 128, True),  # the widest ef the API asks for
+    (4096, 4096, 8, 32, 128, True),  # the widest queues in shared memory
     (1, 1, 1, 1, 1, True),
     (16, 48, 3, 7, 30, True),      # D rounds up to whole float4's
     (4096, 4096, 8, 32, 20_000, False),   # no room for the hash tables
+    (5120, 5120, 8, 32, 128, "wide"),     # the API's widening past 4096
+    (8191, 64, 4, 16, 30, "wide"),
 ])
 def test_walk_smem_bytes(ef, cap, t, max_m, dims, tables):
     query = 4 * 4 * -(-dims // 4)
@@ -177,7 +203,13 @@ def test_walk_smem_bytes(ef, cap, t, max_m, dims, tables):
     base = query + queues + slots + counters
     want = (base + 4 * held + 8 * first, held, first) if tables else (
         base, 0, 0)
+    wide = 0
+    if tables == "wide":
+        # the queues and the held table move to device memory
+        want = (base - queues + 8 * first, held, first)
+        wide = queues // 4 + held
     assert cg._walk_layout(ef, cap, t, max_m, dims) == want
+    assert cg._walk_wide_words(ef, cap) == wide
     assert cg._walk_smem_bytes(ef, cap, t, max_m, dims) == want[0]
     assert want[0] <= cg.SMEM_LIMIT
     assert held >= 2 * (ef + cap) and first >= 2 * t * max_m
@@ -187,6 +219,10 @@ def test_walk_smem_bytes_refuses_past_the_limit():
     assert cg._walk_smem_bytes(4096, 4096, 8, 32, 20_000) <= cg.SMEM_LIMIT
     with pytest.raises(ValueError, match="232448"):
         cg._walk_smem_bytes(4096, 4096, 8, 32, 30_000)
+    # queues in device memory leave the row and the slots in shared memory
+    assert cg._walk_smem_bytes(5120, 5120, 8, 32, 50_000) <= cg.SMEM_LIMIT
+    with pytest.raises(ValueError, match="232448"):
+        cg._walk_smem_bytes(5120, 5120, 8, 32, 60_000)
 
 
 def _gathered_scan(d_s, valid_s, pair_s, do_prune, nn):
@@ -244,3 +280,93 @@ def test_l2_sqrt_is_correctly_rounded():
     p = torch.tensor([[[30.0, 9.0, 3.0, 3.0]]])     # 900 + 81 + 9 + 9 = 999
     assert dist_one_to_many(torch.zeros((1, 4)), p, 0).item() == float(
         np.sqrt(np.float32(999)))
+
+
+@pytest.fixture(scope="module")
+def l2_arrays():
+    return integer_graph("l2")
+
+
+def _operands(arrays, qs, source):
+    """integer_operands' graph, queries and operands under the wrapper's
+    names (records for search_graph's pcodes)."""
+    g, q, kw = integer_operands(arrays, qs, source)
+    return g, q, {("records" if k == "pcodes" else k): v
+                  for k, v in kw.items()}
+
+
+@pytest.mark.parametrize("source,elem", [
+    ("rows f32", 0), ("rows bf16", 2), ("rows int8", 1), ("records f32", 0),
+    ("records bf16", 2), ("records int8", 1), ("records pq", 3),
+    ("records pq rotated", 3)])
+def test_check_walk_args_takes_every_source(l2_arrays, source, elem):
+    """Each row source's operands pass the checks, and name the kernel's
+    element type, the records flag, the walk's query and the variant."""
+    g, q, kw = _operands(*l2_arrays, source)
+    src = cg._check_walk_args(g, q, 32, 32, 4, 0, visited_slots=0, **kw)
+    assert src.elem == elem and src.records == source.startswith("records")
+    assert src.query is kw.get("query_t", q)
+    assert src.variant == f"{source}, bitmap"
+    assert (src.scales is not None) == ("int8" in source)
+    assert (src.codebook is not None) == ("pq" in source)
+
+
+def _faulty(x, fault):
+    if fault == "dtype":
+        return x.to(torch.float64 if x.dtype != torch.float64
+                    else torch.float32)
+    if fault == "shape":
+        return x[:-1]
+    if fault == "device":
+        return x.to("meta")
+    return x.transpose(0, 1).contiguous().transpose(0, 1)   # strided
+
+
+@pytest.mark.parametrize("fault", ["dtype", "shape", "device", "layout"])
+@pytest.mark.parametrize("source,operand", [
+    ("rows int8", "qvectors"), ("rows int8", "qscale"),
+    ("records int8", "records"), ("records int8", "pscales"),
+    ("records bf16", "records"), ("records pq", "records"),
+    ("records pq", "pq_codebook"), ("records pq rotated", "query_t")])
+def test_check_walk_args_refuses_a_wrong_operand(l2_arrays, source, operand,
+                                                 fault):
+    """A wrong dtype, shape, device or layout of any new operand raises
+    ValueError before a launch."""
+    g, q, kw = _operands(*l2_arrays, source)
+    x = kw[operand]
+    if fault == "layout" and x.dim() < 2:
+        x = torch.stack([x, x], 1)[:, 0]                # a strided view
+    else:
+        x = _faulty(x, fault)
+    assert x.dtype != kw[operand].dtype or x.shape != kw[operand].shape or (
+        x.device != kw[operand].device or not x.is_contiguous())
+    kw[operand] = x
+    with pytest.raises(ValueError):
+        cg._check_walk_args(g, q, 32, 32, 4, 0, **kw)
+
+
+def test_check_walk_args_refuses_mismatched_operands(l2_arrays):
+    """Operands that do not go together, and visited sets the kernel does
+    not take, raise ValueError."""
+    g, q, i8 = _operands(*l2_arrays, "records int8")
+    _, _, rows = _operands(*l2_arrays, "rows int8")
+    _, _, pq = _operands(*l2_arrays, "records pq")
+    _, _, bf = _operands(*l2_arrays, "records bf16")
+    bad = [dict(records=i8["records"]),                  # no scales
+           dict(bf, pscales=i8["pscales"]),              # bf16 + scales
+           dict(qvectors=rows["qvectors"]),              # no qscale
+           dict(i8, **rows),                             # records and rows
+           dict(pq_codebook=pq["pq_codebook"]),          # no PQ records
+           dict(records=pq["records"].view(torch.int8),
+                pq_codebook=pq["pq_codebook"])]
+    for kw in bad:
+        with pytest.raises(ValueError):
+            cg._check_walk_args(g, q, 32, 32, 4, 0, **kw)
+    for slots in (2, 48, 3):
+        with pytest.raises(ValueError, match="power of 2"):
+            cg._check_walk_args(g, q, 32, 32, 4, 0, visited_slots=slots)
+    gh = dataclasses.replace(g, vectors=g.vectors.to(torch.float16))
+    with pytest.raises(ValueError, match="float32 or bf16"):
+        cg._check_walk_args(gh, q, 32, 32, 4, 0)
+    with pytest.raises(ValueError):
+        cg._check_walk_args(g, q.double(), 32, 32, 4, 0)
