@@ -11,13 +11,17 @@ exits non-zero):
   1. device: the card's name and power limit, torch/CUDA versions, TF32 off;
   2. build the CUDA kernels from the repository's sources;
   3. the kernel: its compiler report (registers, spills) and the TF32
-     HMMA instructions of each sweep instance (cuobjdump -sass); against its
+     HMMA instructions of each of its 12 sweep instances (cuobjdump -sass;
+     the eight float32 / bf16 ones must report the registers and spills
+     they had before the int8 instance, SWEEP_PTXAS); against its
      plain torch twin: L2 and cosine, D in {30, 100, 128, 960}, k_run from 1
      to 1024 with each query tile's edges (64 / 65, 256 / 257), B not a
      multiple of the tile, with and without n_valid < N and tombstones, one
-     k > n_valid case, up to 1M rows x 1024 queries, for a float32 corpus
-     and a bfloat16 one (aligned and an unaligned view); k_run 1502 and
-     2100 in pages (bruteforce_topk_paged) against the plain twin's one
+     k > n_valid case, up to 1M rows x 1024 queries, for a float32 corpus,
+     a bfloat16 one (aligned and an unaligned view) and an int8 shadow
+     (bruteforce_topk_q8: the build's 1M x 256-row pool of 256, D = 100 /
+     960, QT = 16, pages, a view one byte in); k_run 1502, 2100 and 1500 in
+     pages (bruteforce_topk_paged) against the plain twin's one
      list; at 1M x 128-d,
      B=1024, k_run=12 (CUDA events) each instantiation's time, its bound
      (3 TF32 passes for float32 rows, 2 for bf16, at 495 TFLOP/s) and share
@@ -28,9 +32,11 @@ exits non-zero):
      config 1, bench.py's clustered recipe as utils/io.synthetic_clustered
      draws it, seed 12345): HnswIndex.build,
      graph invariants, search() in auto mode through the kernel, exact and
-     graph QPS, recall@10 of the graph route (>= 0.90 at T=8; T=4's is
-     printed), deletes never surfacing; before it, a small build that must
-     match the same build on the CPU;
+     graph QPS, recall@10 of the graph route (>= 0.90 at T=8, printed
+     beside EARLIER_RECALL; T=4's is printed), deletes never surfacing;
+     every build batch past the first one bruteforce_topk_q8 launch (the
+     build's candidate sweep) and no torch-op sweep on the card; before
+     it, a small build that must match the same build on the CPU;
  4b. right after the main path, on its index: the walk and prune kernels
      (ops/cuda_graph) against their plain twins.  beam_walk at ef=64, T=4
      and T=8 on the 1,024 queries against core/search._search_batch called
@@ -64,17 +70,31 @@ exits non-zero):
      pairs the scan tests) and the share of it reached; torch.profiler
      (CPU and CUDA activity) over one search(mode="graph") at T=4 and T=8
      and over that insert: wall time, device-busy share and device
-     operations; last, each kernel's phases at those shapes from a
+     operations; then each kernel's phases at those shapes from a
      clock64()-stamped build of the same sources
      (pg_embedding_tpu_torch/graph_probe.py, built beside the port's
      library; never launched by the main path), and ptxas's registers
      and spills of every walk and scan instance in phase 3's report;
+     the build's candidate sweep on that add()'s batch (captured by
+     wrapping core/build.sweep_pool): bruteforce_topk_q8's pool against
+     its plain twin (distances within phase 9's cancellation tolerance,
+     ids except float64 near-ties), the final cand_cap after the exact
+     rerank equal on >= 99.9% of rows, its time a call and on the card
+     beside its bound (2 TF32 passes), the twin, the torch-op loop it
+     replaced (loop_pool) and torch.matmul + torch.topk; the same for
+     exact mode (bruteforce_topk over float32 rows, pool cand_cap + 2);
+     two more add()s: one broken down on the host clock (staging, sweep,
+     prune, _connect_batch's rounds, re-prunes and the host's waits on the
+     card) with its peak device memory, one through loop_pool with its
+     peak; then a 200,000-row build through the kernel and again with
+     core/build's sweep swapped for loop_pool: link rows >= 99.9%
+     identical, graph recall@10 within 0.002;
   5. on the same index: tune_exact8_chunk (its cache in a temp dir, not
      saved): the exact8 sweep's ms per 256-row insert batch at chunks of
-     262,144 / 524,288 / 1,048,576 / 2,097,152 rows, and the chunk chosen;
-     beside it, torch.matmul + torch.topk over the same chunk and the
-     sweep's bound; the serving variants at T=8 (quantized, packed
-     int8 / bf16 / float32 records; QPS and recall@10; float32 records give
+     262,144 / 524,288 / 1,048,576 / 2,097,152 rows (one kernel launch
+     that takes no chunk), and the chunk chosen; the serving variants at
+     T=8 (quantized, packed int8 / bf16 / float32 records; QPS and
+     recall@10; float32 records give
      the plain walk's ids and order), the bitmap (the dense walk's ids)
      and hash visited sets; each variant's walk kernel against its twin on
      the card at 1M on every query (variant_vs_twin: recall within 0.002,
@@ -114,7 +134,8 @@ exits non-zero):
      (G=32 held within 0.03 of the plain walk's recall@10, the others
      printed); tune_sweep_pool(0.95) on 256
      queries, then search(mode="sweep_pq") on all (recall@10 >= 0.95,
-     distances equal to a float64 recompute at rtol 1e-5, QPS); save ->
+     distances equal to a float64 recompute at rtol 1e-5, QPS), and its
+     pool (ops/pq_sweep._pq_pool, torch ops) timed beside its bound; save ->
      load (the same codebook bytes, walk and sweep labels);
   9. the sharded index (parallel/sharded.ShardedHnswIndex, 4 shards on the
      card, batches of 256 rows a shard as the single index takes them) on
@@ -150,7 +171,9 @@ exits non-zero):
      float64 oracle, and the pull scan against order_by through the index.
 Phases are timed with utils/profiling's Timer (synchronising the card).
 The last three lines are the card's nvidia-smi line, a JSON line of the
-kernels ("launches" from the main path of phase 4; for prune_scan also
+kernels ("launches" from the main path of phase 4; bruteforce_topk_q8's
+timings are phase 4b's on the add()'s batch, with "loop_ms" (the torch-op
+loop it replaced) and "exact" (exact mode's numbers); for prune_scan also
 "insert_launches" and "reprune_launches", the build's launches at each
 width, and the re-prune shape's "reprune_ms", "reprune_device_ms",
 "reprune_plain_ms" and "reprune_bound_ms"; "ms" is a call's time between
@@ -163,8 +186,9 @@ numbers at ef 5120; "sharded_launches" from
 phase 9, "multiprocess_launches" summed over phase 11's ranks, each
 counted from zero; the main path, phase 9 and phase 11 must each launch
 beam_walk and prune_scan, every walk variant must reach the kernel, and
-no walk of phases 4-11 may run the plain twin on the card: only the
-smoke's own twin calls do, under own_twin_calls), and {"ok": true,
+no walk of phases 4-11 may run the plain twin on the card, nor any
+candidate sweep the torch-op loop: only the smoke's own twin calls do,
+under own_twin_calls), and {"ok": true,
 "device": {...}}.
 
 Needs a CUDA device and nvcc; without a device it exits non-zero before
@@ -213,8 +237,8 @@ SHARD_UNITS = 32
 MP_WORLD = 2
 MP_BUILD_ROWS = 200_000
 MP_TIMEOUT = 420
-LAUNCH_NAMES = ("bruteforce_topk", "bruteforce_topk_bf16", "beam_walk",
-                "prune_scan")
+LAUNCH_NAMES = ("bruteforce_topk", "bruteforce_topk_bf16",
+                "bruteforce_topk_q8", "beam_walk", "prune_scan")
 # phase 4b: the walk kernel's beam and widths at 1M
 WALK_EF = 64
 WALK_TS = (4, 8)
@@ -231,6 +255,27 @@ WALK_VISITED = {"bitmap": 0, "hash": 8192}
 # queues past the 4096 the kernel keeps in shared memory: the API's
 # widening from ef_search = 40 lands on 5120; the integer index's cases
 WIDE_QUEUES = ((5120, 5120), (4097, 64), (64, 8191))
+# ptxas's report of the eight float32 / bf16 sweep instances as they were
+# built before the int8 instance (no stack, no spills): it leaves their code
+# as it was
+SWEEP_PTXAS = {
+    f"sweep_kernel<QT={qt}, {res} queries, {elem}>": (
+        "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        f"Used {regs} registers, used 1 barriers")
+    for (qt, res, elem), regs in {
+        (16, "streamed", "float"): 80, (16, "streamed", "bf16"): 88,
+        (16, "resident", "float"): 94, (16, "resident", "bf16"): 92,
+        (64, "streamed", "float"): 115, (64, "streamed", "bf16"): 117,
+        (64, "resident", "float"): 126, (64, "resident", "bf16"): 119,
+    }.items()}
+# each sweep instance's time at 1M x 128-d, B=1024, k_run=12 when its code
+# last changed (PERF.md, Findings)
+EARLIER_MS = {"bruteforce_topk": 6.604, "bruteforce_topk_bf16": 5.287}
+# phase 4b: the rows of the build built twice (the sweep kernel, then the
+# torch-op loop in its place); the graph recall@10 at 1M, T=8, of the graph
+# the torch-op sweep built (PERF.md, Findings)
+TWIN_BUILD_ROWS = 200_000
+EARLIER_RECALL = 0.9208
 
 
 def check(cond, msg):
@@ -348,23 +393,43 @@ def kernel_phase(torch, cb, dev):
         # past one launch's cap: pages of 751 and of 700
         (L2, 200_000, 128, 64, 1502, 0.9, True, f32),
         (COSINE, 100_000, 100, 40, 2100, 1.0, False, bf16),
+        # the int8 shadow (quantize_rows of the rows): the build's sweep at
+        # 1M (B = 256, pool 2 cand_cap = 256), D % 16 != 0, QT = 16, pages,
+        # and a view that starts one byte in
+        (L2, 1_000_000, 128, 256, 256, 1.0, False, "q8"),
+        (COSINE, 300_000, 100, 65, 130, 0.9, True, "q8"),
+        (L2, 100_000, 960, 17, 1024, 1.0, False, "q8"),
+        (COSINE, 200_000, 128, 63, 257, 0.8, True, "q8"),
+        (L2, 200_000, 128, 64, 1500, 0.9, False, "q8"),
+        (L2, 100_000, 128, 256, 256, 1.0, True, "q8 unaligned"),
     ]
-    max_err = {f32: 0.0, bf16: 0.0}
+    from pg_embedding_tpu_torch.core.build import quantize_rows
+    i8 = torch.int8
+    max_err = {f32: 0.0, bf16: 0.0, i8: 0.0}
     for metric, n, d, b, k_run, frac, tomb, dtype in cases:
         g = torch.Generator(device=dev).manual_seed(SEED + n + d + k_run)
-        unaligned = dtype == "bf16 unaligned"
-        if unaligned:           # rows start 2 bytes in: element loads
+        unaligned = dtype in ("bf16 unaligned", "q8 unaligned")
+        if dtype == "bf16 unaligned":   # rows start 2 bytes in
             dtype = bf16
             pts = torch.randn((n + 1, d), generator=g, device=dev).to(dtype)
             pts = pts.view(-1)[1:1 + n * d].view(n, d)
+        elif dtype in ("q8", "q8 unaligned"):
+            qv, qsc = quantize_rows(torch.randn((n + 1, d), generator=g,
+                                                device=dev))
+            if unaligned:               # rows start 1 byte in
+                qv = qv.view(-1)[1:1 + n * d].view(n, d)
+            corpus, dtype = (qv[:n], qsc[:n]), i8
+            pts = cb.dequantize_rows(*corpus).float()
         else:
             pts = torch.randn((n, d), generator=g, device=dev).to(dtype)
+        if dtype is not i8:
+            corpus = pts
         qs = torch.randn((b, d), generator=g, device=dev)
         n_valid = int(n * frac)
         dead = (torch.rand(n, generator=g, device=dev) < 0.05) if tomb else None
-        got = cb.bruteforce_topk_paged(qs, pts, k_run, metric, n_valid,
+        got = cb.bruteforce_topk_paged(qs, corpus, k_run, metric, n_valid,
                                        dead)
-        want = cb._bruteforce_topk_plain(qs, pts, k_run, metric, n_valid,
+        want = cb._bruteforce_topk_plain(qs, corpus, k_run, metric, n_valid,
                                          dead)
         torch.cuda.synchronize()
         err, n_diff = compare(torch, got, want, qs, pts, metric, n_valid,
@@ -379,7 +444,7 @@ def kernel_phase(torch, cb, dev):
             f"N={n} D={d} B={b} k_run={k_run} n_valid={n_valid} "
             f"tombstones={tomb}: max_abs_err={err:.3g} near-tie id "
             f"swaps={n_diff}")
-        del pts, qs, got, want
+        del pts, qs, got, want, corpus
 
     g = torch.Generator(device=dev).manual_seed(SEED)
     pts = torch.randn((1_000_000, 128), generator=g, device=dev)
@@ -406,21 +471,27 @@ def kernel_phase(torch, cb, dev):
             f"{bound:.3f} ms ({bound_by}; {bound / ms:.1%} of it reached), "
             f"plain {plain_ms:.3f} / {plain_ms2:.3f} ms, library (addmm + "
             f"topk) {lib_ms:.3f} ms")
+        log(f"{name} at 1M: {ms:.3f} ms against its earlier "
+            f"{EARLIER_MS[name]:.3f} ms ({ms - EARLIER_MS[name]:+.3f} ms; "
+            f"the same code, as phase 3's report shows)")
         out[name] = dict(max_abs_err=max_err[corpus.dtype], ms=ms,
                          plain_ms=(plain_ms + plain_ms2) / 2,
                          bound_ms=bound, bound_by=bound_by,
                          library_ms=lib_ms)
+    out["bruteforce_topk_q8"] = dict(max_abs_err=max_err[i8])
     return out
 
 
 def bound_ms(b, n, d, itemsize, k_run):
     """The least time the card could take for one launch: the products on
-    the TF32 tensor cores (3 passes for float32 rows, 2 for bf16 rows, which
-    are exact in TF32) or the bytes (corpus, queries, output lists) at the
-    HBM rate, whichever is larger."""
+    the TF32 tensor cores (3 passes for float32 rows, 2 for bf16 rows and
+    int8 x scale elements, which are bf16 values, exact in TF32) or the
+    bytes (corpus and int8 rows' scales, queries, output lists) at the HBM
+    rate, whichever is larger."""
     passes = 3 if itemsize == 4 else 2
     ops = passes * 2.0 * b * n * d
-    nbytes = n * d * itemsize + b * d * 4 + b * k_run * 8
+    nbytes = (n * (d * itemsize + (4 if itemsize == 1 else 0)) + b * d * 4
+              + b * k_run * 8)
     t_ops, t_bytes = ops / PEAK_TF32, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
@@ -442,12 +513,14 @@ def library_ms(torch, qs, rows, k_run):
 def compiler_report(_kernels):
     """ptxas's registers and spills for each sweep instance, and the TF32
     HMMA count of each in the built library's SASS; fails if an instance
-    issues no TF32 HMMA."""
+    runs no TF32 HMMA, or if one of the eight float32 / bf16 instances
+    reports other registers or spills than before (SWEEP_PTXAS)."""
     def instance(mangled):
-        m = re.search(r"sweep_kernelILi(\d+)ELb([01])E([ft])E", mangled)
+        m = re.search(r"sweep_kernel(?:_q8)?ILi(\d+)ELb([01])E([ft]?)E",
+                      mangled)
         return m and (f"sweep_kernel<QT={m[1]}, "
                       f"{'resident' if m[2] == '1' else 'streamed'} queries, "
-                      f"{'float' if m[3] == 'f' else 'bf16'}>")
+                      f"{dict(f='float', t='bf16').get(m[3], 'int8')}>")
     def graph_instance(mangled):
         m = re.search(r"beam_walk_kernelILi(\d)ELb([01])ELi(\d+)ELb([01])E",
                       mangled)
@@ -464,7 +537,7 @@ def compiler_report(_kernels):
                     f"{'staged' if m[2] == '1' else 'in L2'}>")
         return ("prune_scan_kernel (words in shared memory)"
                 if "prune_scan_kernel" in mangled else None)
-    name, built = None, set()
+    name, built, reports = None, set(), {}
     for line in _kernels.build_log().splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
@@ -475,6 +548,9 @@ def compiler_report(_kernels):
                 name = graph_instance(m[1])
         elif name and ("spill" in line or "Used" in line):
             log(f"ptxas {name}: {line.strip()}")
+            if name in SWEEP_PTXAS:
+                reports.setdefault(name, []).append(
+                    re.sub(r"^ptxas\s+info\s*:\s*", "", line.strip()))
     lib = _kernels.load_library()
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", lib._name], capture_output=True,
@@ -490,8 +566,11 @@ def compiler_report(_kernels):
                                .strip())
     for name in sorted(counts):
         log(f"sass {name}: {counts[name]} TF32 HMMA, e.g. {example[name]}")
-    check(len(built) == 8 and set(counts) == built,
+    check(len(built) == 12 and set(counts) == built,
           f"TF32 HMMA in {len(counts)} of {len(built)} sweep instances")
+    for name, want in SWEEP_PTXAS.items():
+        check(reports.get(name) == list(want),
+              f"ptxas {name}: {reports.get(name)}, earlier {want}")
 
 
 def small_build_matches_cpu(torch, HnswConfig, HnswIndex, dev):
@@ -515,25 +594,30 @@ def small_build_matches_cpu(torch, HnswConfig, HnswIndex, dev):
 
 
 class own_twin_calls:
-    """Around the smoke's own calls of a plain twin on the card: the walk
-    twin's count (core/search.PLAIN_WALKS_ON_CARD) and the kernels' launch
-    counts, by variant too, are put back as they were, so that what a path
-    ran is counted and the comparisons are not."""
+    """Around the smoke's own calls of a plain twin on the card: the twins'
+    counts (core/search.PLAIN_WALKS_ON_CARD, core/build.PLAIN_SWEEPS_ON_CARD)
+    and the kernels' launch counts, by variant too, are put back as they
+    were, so that what a path ran is counted and the comparisons are
+    not."""
 
     def __enter__(self):
+        from pg_embedding_tpu_torch.core import build as core_build
         from pg_embedding_tpu_torch.core import search as core_search
         from pg_embedding_tpu_torch.ops import cuda_bruteforce, cuda_graph
         self.saved = (core_search.PLAIN_WALKS_ON_CARD,
                       dict(cuda_bruteforce.LAUNCHES),
                       dict(cuda_graph.LAUNCHES),
-                      dict(cuda_graph.WALK_VARIANTS))
+                      dict(cuda_graph.WALK_VARIANTS),
+                      core_build.PLAIN_SWEEPS_ON_CARD)
         return self
 
     def __exit__(self, *exc):
+        from pg_embedding_tpu_torch.core import build as core_build
         from pg_embedding_tpu_torch.core import search as core_search
         from pg_embedding_tpu_torch.ops import cuda_bruteforce, cuda_graph
-        plain, bf, graph, variants = self.saved
+        plain, bf, graph, variants, sweeps = self.saved
         core_search.PLAIN_WALKS_ON_CARD = plain
+        core_build.PLAIN_SWEEPS_ON_CARD = sweeps
         cuda_bruteforce.LAUNCHES.update(bf)
         cuda_graph.LAUNCHES.update(graph)
         cuda_graph.WALK_VARIANTS.clear()
@@ -570,13 +654,15 @@ def main_path(torch, cb, HnswConfig, HnswIndex, dev, n, n_queries):
     log(f"data: {n} x {DIMS} SIFT-like clustered, {n_queries} queries "
         f"(seed {SEED}) in {timer.seconds['data']:.1f} s")
 
+    from pg_embedding_tpu_torch.core import build as core_build
     from pg_embedding_tpu_torch.core import search as core_search
     from pg_embedding_tpu_torch.ops import cuda_graph
     reset_launches()
-    # the plain walks that phases 4-11 run on the card (the smoke's own
-    # twin calls excepted): read at the end
+    # the plain walks and torch-op candidate sweeps that phases 4-11 run on
+    # the card (the smoke's own twin calls excepted): read at the end
     cuda_graph.WALK_VARIANTS.clear()
     core_search.PLAIN_WALKS_ON_CARD = 0
+    core_build.PLAIN_SWEEPS_ON_CARD = 0
     # The graph route expands T=8 candidates per step, the setting of the
     # JAX package's own 1M graph measurement (BASELINE.md, "Measured at
     # 1M"): on this data the default T=4 reaches recall@10 0.895 at 1M, a
@@ -591,8 +677,19 @@ def main_path(torch, cb, HnswConfig, HnswIndex, dev, n, n_queries):
     shapes = dict(cuda_graph.PRUNE_SHAPES)          # counted by the wrapper
     check(sum(shapes.values()) == cuda_graph.LAUNCHES["prune_scan"],
           "prune_scan's launches by shape do not sum to its launches")
+    batches = len(core_build.build_schedule(n, idx.max_insert_batch))
+    sweeps = cb.LAUNCHES["bruteforce_topk_q8"]
     log(f"build: {n} vectors in {build_s:.1f} s = {n / build_s:.0f} vec/s; "
-        f"prune_scan launches by (C, nn): {dict(sorted(shapes.items()))}")
+        f"prune_scan launches by (C, nn): {dict(sorted(shapes.items()))}; "
+        f"bruteforce_topk_q8 launches {sweeps} over {batches} batches "
+        f"(exact8 from row 0: the first batch sweeps no rows); torch-op "
+        f"sweeps on the card {core_build.PLAIN_SWEEPS_ON_CARD}")
+    check(sweeps == batches - 1 and sum(cb.LAUNCHES.values()) == sweeps,
+          f"the build's sweep: {dict(cb.LAUNCHES)} launches over {batches} "
+          f"batches, not one bruteforce_topk_q8 launch a batch past the "
+          f"first")
+    check(core_build.PLAIN_SWEEPS_ON_CARD == 0,
+          "the build ran the torch-op sweep on the card")
 
     g = idx.graph
     links = g.links[:n]
@@ -635,7 +732,8 @@ def main_path(torch, cb, HnswConfig, HnswIndex, dev, n, n_queries):
                   recall=rec, build_s=build_s, prune_shapes=shapes)
     log(f"exact_search: {exact_qps:.0f} QPS; search(mode='graph', "
         f"T={GRAPH_T}): {graph_qps:.0f} QPS at recall@10 {rec:.4f} vs the "
-        f"exact route (T=4: recall@10 {recall(gl4, gv4, el):.4f})")
+        f"exact route (the torch-op sweep's graph: {EARLIER_RECALL}; T=4: "
+        f"recall@10 {recall(gl4, gv4, el):.4f})")
     check(rec >= 0.90, f"graph recall {rec} < 0.90")
 
     dead = np.random.default_rng(SEED + 4).choice(
@@ -876,24 +974,27 @@ def walk_kernels_phase(torch, idx, qs, dev, tmp, single, profile_lib):
     # one real 256-row insert batch at 1M: the first prune of each width
     # (the insert's, C = cand_cap, and the first back-link re-prune's, C =
     # maxM + 1)
-    captured = {}
-    real = core_build.prune_scan
+    captured, sweeps = {}, []
+    real, real_sweep = core_build.prune_scan, core_build.sweep_pool
 
     def spy(*args):
         captured.setdefault(args[0].shape[1], tuple(
             a.clone() if hasattr(a, "clone") else a for a in args))
         return real(*args)
-    rows = (qs[:idx.max_insert_batch] + np.random.default_rng(SEED + 7)
-            .normal(scale=0.1, size=(idx.max_insert_batch, DIMS))
-            ).astype(np.float32)
-    core_build.prune_scan = spy
+
+    def sweep_spy(points, rows, *args):
+        # the shadow's rows below base never change: kept, not cloned
+        sweeps.append((points.clone(), rows, *args))
+        return real_sweep(points, rows, *args)
+    rows = add_rows(idx, qs, SEED + 7)
+    core_build.prune_scan, core_build.sweep_pool = spy, sweep_spy
     try:
         log_profile(f"add() of one {len(rows)}-row insert batch at {n} "
                     f"rows", *profile_call(torch, lambda: idx.add(rows),
                                            os.path.join(profiles,
                                                         "insert")))
     finally:
-        core_build.prune_scan = real
+        core_build.prune_scan, core_build.sweep_pool = real, real_sweep
     shutil.rmtree(profiles)
     reprune_c = max_m + 1
     check(reprune_c in captured and len(captured) == 2,
@@ -942,7 +1043,203 @@ def walk_kernels_phase(torch, idx, qs, dev, tmp, single, profile_lib):
                 reprune_plain_ms=plain_ms, reprune_bound_ms=bound,
                 reprune_launches=launches, reprune_shape=[bsz, c, nn])
     phase_breakdown(torch, g, q, captured, profile_lib)
+    check(len(sweeps) == 1, f"the add() ran {len(sweeps)} candidate sweeps")
+    out["bruteforce_topk_q8"] = sweep_phase(torch, idx, sweeps[0])
+    add_phase(torch, idx, qs)
     return out
+
+
+def add_rows(idx, qs, seed):
+    """One insert batch near the main index's queries ``qs``: the first
+    max_insert_batch of them plus noise."""
+    rows = qs[:idx.max_insert_batch]
+    return (rows + np.random.default_rng(seed).normal(
+        scale=0.1, size=rows.shape)).astype(np.float32)
+
+
+def loop_pool(points, rows, keep, metric_value, base):
+    """sweep_pool's torch-op counterpart, the route the card ran before the
+    kernel: core/build's chunk loop (core/build._sweep_loop) at the
+    default chunk of 1,048,576 rows, a [B, chunk] float32 score tile a
+    step.  It counts in PLAIN_SWEEPS_ON_CARD: the smoke calls it inside
+    own_twin_calls."""
+    from pg_embedding_tpu_torch.core import build as core_build
+    scaled = isinstance(rows, tuple)
+    return core_build._sweep_loop(None if scaled else rows, points, base,
+                                  keep, metric_value, core_build.EXACT8_CHUNK,
+                                  *(rows if scaled else ()))
+
+
+def sweep_yardstick_ms(torch, points, rows, keep):
+    """library_ms of the build's sweep: torch.matmul of the batch against
+    ``rows`` (float32; the int8 shadow dequantised before the timing), in
+    full float32, then torch.topk to the pool, a chunk of 1,048,576 rows at
+    a time (CUDA events, median of 5).  The port never calls it."""
+    def batch():
+        for start in range(0, len(rows), 1_048_576):
+            dist = torch.matmul(points, rows[start:start + 1_048_576].T)
+            torch.topk(dist, keep, dim=1, largest=False, sorted=False)
+    return median_ms(torch, batch)
+
+
+def sweep_phase(torch, idx, args):
+    """The build's candidate sweep on the add()'s own batch (``args``:
+    sweep_pool's points, int8 shadow, pool, metric and base): the kernel's
+    pool against its plain twin (_bruteforce_topk_plain) on the card
+    (distances within the cancellation tolerance of phase 9, ids equal
+    except float64 near-ties), the final cand_cap after the exact rerank
+    equal on >= 99.9% of the batch's rows; its time a call and on the card
+    beside the bound, the twin, the torch-op loop it replaced (loop_pool)
+    and torch.matmul + torch.topk; the same for exact mode (float32 rows,
+    pool cand_cap + 2) over the index's rows.  Returns the kernels line's
+    numbers for bruteforce_topk_q8."""
+    from pg_embedding_tpu_torch.graph_probe import device_ms
+    from pg_embedding_tpu_torch.ops import cuda_bruteforce as cb
+    from pg_embedding_tpu_torch.ops.bruteforce import _rerank_exact
+    points, shadow, keep, metric, base = args
+    b, d = points.shape
+    cand_cap = keep // 2
+    vectors = idx.graph.vectors
+    out = {}
+    for mode, rows, pool in (("exact8", shadow, keep),
+                             ("exact", vectors, cand_cap + 2)):
+        scaled = mode == "exact8"
+        dense = (cb.dequantize_rows(shadow[0][:base], shadow[1][:base])
+                 .float() if scaled else vectors[:base])
+
+        def kernel():
+            return cb.sweep_pool(points, rows, pool, metric, base)
+
+        def twin():
+            return cb._bruteforce_topk_plain(points, rows, pool, metric,
+                                             base)
+
+        def loop():
+            return loop_pool(points, rows, pool, metric, base)
+        with own_twin_calls():
+            got, want, old = kernel(), twin(), loop()
+            torch.cuda.synchronize()
+            err, swaps = compare(torch, got, want, points, dense, metric,
+                                 base, None, cancel_units=SHARD_UNITS)
+            final = [_rerank_exact(points, vectors, r[1], k=cand_cap,
+                                   metric_value=metric)[1]
+                     for r in (got, want, old)]
+            same = float((final[0] == final[1]).all(1).float().mean())
+            same_loop = float((final[0] == final[2]).all(1).float().mean())
+            ms = median_ms(torch, kernel)
+            dev_ms = device_ms(kernel)
+            plain_ms = median_ms(torch, twin)
+            loop_ms = median_ms(torch, loop)
+        lib_ms = (sweep_yardstick_ms(torch, points, dense, pool) if scaled
+                  else library_ms(torch, points, dense, pool))
+        bound, bound_by = bound_ms(b, base, d, rows[0].element_size()
+                                   if scaled else 4, pool)
+        name = "bruteforce_topk_q8" if scaled else "bruteforce_topk"
+        log(f"the build's sweep ({mode}: {name}) on the add()'s batch at "
+            f"{base} rows, B={b}, pool {pool}: vs its plain twin "
+            f"max_abs_err {err:.3g}, {swaps} float64 near-tie id swaps; "
+            f"final {cand_cap} candidates after the exact rerank equal on "
+            f"{same:.4f} of rows ({same_loop:.4f} against the torch-op "
+            f"loop's); kernel {ms:.3f} ms a call, {dev_ms:.3f} ms on the "
+            f"card (a CUDA graph of 20 calls); bound {bound:.4f} ms "
+            f"({bound_by}; {bound / dev_ms:.1%} of it reached on the "
+            f"card); plain twin {plain_ms:.3f} ms; the torch-op loop it "
+            f"replaced {loop_ms:.3f} ms; library (torch.matmul + torch.topk)"
+            f" {lib_ms:.3f} ms (median of 5, CUDA events)")
+        # exact mode's pad of 2 leaves the rerank no room for a pool-edge
+        # near-tie (the pool itself is held above); exact8's pool is 2x
+        if scaled:
+            check(same >= 0.999, f"{mode}: final candidates equal on {same}")
+        out[mode] = dict(max_abs_err=err, ms=ms, device_ms=dev_ms,
+                         plain_ms=plain_ms, loop_ms=loop_ms, bound_ms=bound,
+                         bound_by=bound_by, library_ms=lib_ms)
+        del dense
+    return dict(out.pop("exact8"), exact=out["exact"])
+
+
+def add_phase(torch, idx, qs):
+    """Two more 256-row add()s at 1M: one through the kernel, on the host
+    clock, broken down by stage (the int8 shadow's staging, the sweep, the
+    insert's prune, _connect_batch's rounds and their re-prunes, and the
+    host's waits on the card: int() / nonzero() / item()), with its peak
+    device memory; one with core/build's sweep swapped for the torch-op
+    loop (loop_pool, inside own_twin_calls), its peak memory beside."""
+    from pg_embedding_tpu_torch.core import build as core_build
+    spent, calls, stack, patched = {}, {}, [], []
+
+    def wrap(owner, name, key):
+        fn = getattr(owner, name)
+        patched.append((owner, name, vars(owner).get(name)))
+
+        def timed(*a, **kw):
+            k = key() if callable(key) else key
+            stack.append(k)
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                dt = time.perf_counter() - t0
+                stack.pop()
+                spent[k] = spent.get(k, 0.0) + dt
+                calls[k] = calls.get(k, 0) + 1
+                if stack:                   # an inner stage's time is its own
+                    spent[stack[-1]] = spent.get(stack[-1], 0.0) - dt
+        setattr(owner, name, timed)
+
+    def where(what):
+        return lambda: f"{stack[-1] if stack else 'add'}: {what}"
+    wrap(idx, "_stage_shadow", "stage shadow")
+    wrap(core_build, "_exact_candidates", "sweep")
+    wrap(core_build, "_prune_heuristic", lambda: (
+        "prune (re-prune)" if "re-prune" in stack else "prune (insert)"))
+    wrap(core_build, "_connect_batch", "connect")
+    wrap(core_build, "_reprune", "re-prune")
+    for sync in ("__int__", "item", "nonzero"):
+        wrap(torch.Tensor, sync, where(f"{sync.strip('_')}()"))
+    peak = {}
+    try:
+        for name in ("kernel", "twin"):
+            rows = add_rows(idx, qs, SEED + (8 if name == "kernel" else 9))
+            torch.cuda.synchronize()
+            base_mem = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            if name == "kernel":
+                spent.clear()
+                calls.clear()
+                t0 = time.perf_counter()
+                idx.add(rows)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+                parts = dict(spent)
+                counts = dict(calls)
+            else:
+                real = core_build.sweep_pool
+                with own_twin_calls():
+                    core_build.sweep_pool = loop_pool
+                    try:
+                        idx.add(rows)
+                    finally:
+                        core_build.sweep_pool = real
+                torch.cuda.synchronize()
+            peak[name] = (torch.cuda.max_memory_allocated() - base_mem) / 2**20
+    finally:
+        for owner, name, saved in reversed(patched):
+            if saved is None:
+                delattr(owner, name)
+            else:
+                setattr(owner, name, saved)
+    rounds = counts.get("connect: nonzero()", 0) // 2
+    own = ", ".join(f"{k} {v * 1e3:.3f} ms ({counts[k]}x)"
+                    for k, v in sorted(parts.items(), key=lambda kv: -kv[1]))
+    log(f"add() host breakdown (one {len(rows)}-row add at {idx.n_nodes} "
+        f"rows, host clock, each stage's own time, no synchronisation "
+        f"added but the one at the end): wall {wall:.3f} ms; "
+        f"{rounds} back-link rounds; {own}; the rest (insert_batch_core's "
+        f"own ops, the API, the closing synchronisation) "
+        f"{wall - sum(parts.values()) * 1e3:.3f} ms")
+    log(f"add() peak device memory above what was allocated before it: "
+        f"{peak['kernel']:.1f} MiB through the sweep kernel, "
+        f"{peak['twin']:.1f} MiB through the torch-op loop")
 
 
 def phase_breakdown(torch, g, q, captured, profile_lib):
@@ -1392,6 +1689,36 @@ def pq_sweep_phase(torch, idx, qs, el):
         f"relative error {err:.2e}")
     check(rec >= 0.95, f"sweep_pq recall {rec} < 0.95")
     check(err <= 1e-5, f"sweep_pq distances off by {err}")
+    pq_pool_timing(torch, idx, q)
+
+
+def pq_pool_timing(torch, idx, q):
+    """ops/pq_sweep._pq_pool (the JAX package's _pq_pool_impl, still torch
+    ops) at this phase's shape: the tuned pool over every live row's codes,
+    the queries' batch; a call's time (CUDA events, median of 5) beside
+    its bound: the decoded rows are bf16 values, so a kernel could score
+    them in 2 TF32 passes (2 B N D x 2 at 495 TFLOP/s), or the bytes (the
+    codes, the codebook, the queries, the pool) at the HBM rate."""
+    from pg_embedding_tpu_torch.ops.pq_sweep import _pq_pool
+    codes = idx._ensure_pq_codes()
+    n, groups = idx.n_nodes, codes.shape[1]
+    pool = 1 << (max(int(idx.pq_sweep_pool), K) - 1).bit_length()
+    dead = idx.graph.deleted
+
+    def call():
+        return _pq_pool(q, codes, idx._pq_codebook, idx._pq_rot, n, dead,
+                        pool=pool, metric_value=L2, chunk=16384)
+    ms = median_ms(torch, call)
+    b, d = q.shape
+    ops_ms = 2 * 2.0 * b * n * d / PEAK_TF32 * 1e3
+    nbytes = (n * groups + idx._pq_codebook.numel() * 4 + b * d * 4
+              + b * pool * 8)
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    log(f"_pq_pool (torch ops) at {n} rows, G={groups}, B={b}, pool {pool}:"
+        f" {ms:.3f} ms a call (median of 5, CUDA events); bound "
+        f"{max(ops_ms, bytes_ms):.4f} ms "
+        f"({'operations' if ops_ms >= bytes_ms else 'bytes'}: operations "
+        f"{ops_ms:.4f} ms at 2 TF32 passes, bytes {bytes_ms:.4f} ms)")
 
 
 def pq_persistence(torch, HnswIndex, idx, qs, tmp):
@@ -1726,7 +2053,8 @@ def shard_kernel_vs_plain(torch, cb, idx, qs, dev):
 def tuner_phase(idx, tmp):
     """tune_exact8_chunk on the main 1M index (its cache pointed at a temp
     dir, save=False): the tuner prints each chunk's ms per insert batch of
-    the index's max_insert_batch rows; a chunk must be chosen."""
+    the index's max_insert_batch rows; a chunk must be chosen.  The sweep
+    kernel takes no chunk, so the times differ only by noise."""
     os.environ["PG_EMB_TUNE_DIR"] = tmp
     chunks = (262_144, 524_288, 1_048_576, 2_097_152)
     log(f"tune_exact8_chunk on {idx.n_nodes} rows, batches of "
@@ -1737,40 +2065,49 @@ def tuner_phase(idx, tmp):
     check(chunk in chunks and idx.exact8_chunk == chunk,
           f"tune_exact8_chunk chose {chunk}")
     log(f"tune_exact8_chunk chose {chunk} rows a chunk in "
-        f"{time.time() - t0:.1f} s")
-    exact8_yardstick(idx, chunk)
+        f"{time.time() - t0:.1f} s (on the card the sweep is one kernel "
+        f"launch that takes no chunk: every width times the same sweep)")
 
 
-def exact8_yardstick(idx, chunk):
-    """The exact8 sweep's library yardstick and bound at the tuner's
-    shape: one batch of max_insert_batch rows scored against the
-    dequantised int8 shadow by torch.matmul (float32) and cut by
-    torch.topk to its pool (2 cand_cap), a chunk of ``chunk`` rows at a
-    time (CUDA events, median of 5); the bound is the larger of the
-    operations (2 B N D at the float32 rate outside the tensor cores, the
-    sweep's type) and the bytes (the int8 shadow and its scales, the
-    batch, the pool)."""
-    import torch
-    qv, qsc = idx._ensure_quantized()
-    n, dims = idx.n_nodes, idx.config.dims
-    pts = idx.graph.vectors[: idx.max_insert_batch].to(torch.float32)
-    b, keep = pts.shape[0], 4 * idx.config.ef_construction
-    rows = (qv[:n].to(torch.bfloat16) * qsc[:n].to(torch.bfloat16)
-            .unsqueeze(1)).to(torch.float32)
-
-    def batch():
-        for start in range(0, n, chunk):
-            d = torch.matmul(pts, rows[start:start + chunk].T)
-            torch.topk(d, keep, dim=1, largest=False, sorted=False)
-    lib_ms = median_ms(torch, batch)
-    ops_ms = 2 * b * n * dims / PEAK_F32 * 1e3
-    bytes_ms = (n * (dims + 4) + b * dims * 4 + b * keep * 8) / PEAK_BYTES * 1e3
-    log(f"exact8 sweep yardstick at {n} rows, a {b}-row batch, chunks of "
-        f"{chunk}: torch.matmul + torch.topk (pool {keep}) {lib_ms:.3f} ms "
-        f"(median of 5, CUDA events); bound {max(ops_ms, bytes_ms):.4f} ms "
-        f"({'operations' if ops_ms >= bytes_ms else 'bytes'}: operations "
-        f"{ops_ms:.4f} ms at 67 TFLOP/s float32, bytes {bytes_ms:.4f} ms)")
-    del rows
+def twin_build_phase(torch, HnswConfig, HnswIndex, dev, pts, qs):
+    """The first TWIN_BUILD_ROWS rows built twice on the card: through the
+    API (the sweep kernel), and with core/build's sweep swapped for the
+    torch-op loop by the smoke (loop_pool, inside own_twin_calls: no knob
+    of the package).  Link rows >= 99.9% identical, graph recall@10 (T=8,
+    against each index's exact route) within 0.002."""
+    from pg_embedding_tpu_torch.core import build as core_build
+    rows = pts[:TWIN_BUILD_ROWS]
+    n = len(rows)
+    res = {}
+    for name in ("kernel", "twin"):
+        idx = HnswIndex(HnswConfig(dims=DIMS, m=16, ef_construction=64,
+                                   ef_search=64), device=dev,
+                        search_expand_width=GRAPH_T)
+        real = core_build.sweep_pool
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with own_twin_calls():
+            if name == "twin":
+                core_build.sweep_pool = loop_pool
+            try:
+                idx.build(rows)
+            finally:
+                core_build.sweep_pool = real
+            torch.cuda.synchronize()
+            secs = time.time() - t0
+            _, el, _ = idx.exact_search(qs, K)
+            _, gl, gv = idx.search(qs, K, mode="graph")
+        res[name] = (idx.graph.links[:n].cpu(), recall(gl, gv, el), secs)
+        del idx
+        torch.cuda.empty_cache()
+    same = float((res["kernel"][0] == res["twin"][0]).all(1).float().mean())
+    rk, rt = res["kernel"][1], res["twin"][1]
+    log(f"{n}-row build through the sweep kernel ({res['kernel'][2]:.1f} s) "
+        f"and with the torch-op loop in its place ({res['twin'][2]:.1f} s): "
+        f"link rows identical {same:.5f}; graph recall@10 (T={GRAPH_T}) "
+        f"{rk:.4f} / {rt:.4f}")
+    check(same >= 0.999, f"kernel and twin builds: {same} of link rows")
+    check(abs(rk - rt) <= 0.002, f"graph recall {rk} vs the twin's {rt}")
 
 
 def free_port():
@@ -1995,10 +2332,14 @@ def rank_main(args):
     out["build_graph"] = built.search(qs, K, mode="graph")[1]
     counts = launch_counts()
     out["launches"] = np.array([counts[n] for n in LAUNCH_NAMES])
+    from pg_embedding_tpu_torch.core import build as core_build
     from pg_embedding_tpu_torch.core import search as core_search
     check(core_search.PLAIN_WALKS_ON_CARD == 0,
           f"rank {args.rank} ran {core_search.PLAIN_WALKS_ON_CARD} plain "
           f"walks on the card")
+    check(core_build.PLAIN_SWEEPS_ON_CARD == 0,
+          f"rank {args.rank} ran {core_build.PLAIN_SWEEPS_ON_CARD} torch-op "
+          f"sweeps on the card")
     np.savez(os.path.join(w, f"rank{args.rank}.npz"), **out)
     log(f"load {out['load_s']:.1f} s, exact {out['exact_qps']:.0f} QPS, "
         f"graph {out['graph_qps']:.0f} QPS, save {out['save_s']:.1f} s, "
@@ -2040,12 +2381,27 @@ def table_phase(torch, VectorTable, dev):
     t.insert(list(pts))
     insert_s = time.time() - t0
     ops = {"<->": 0, "<=>": 1, "<~>": 2}
-    build_s = {}
+    build_s, sweeps = {}, {}
+    from pg_embedding_tpu_torch.core import build as core_build
+    from pg_embedding_tpu_torch.ops import cuda_bruteforce as cb
     for op in ops:
+        before = (core_build.PLAIN_SWEEPS_ON_CARD,
+                  cb.LAUNCHES["bruteforce_topk_q8"])
         t0 = time.time()
         t.create_index(op, m=16, ef_construction=64, ef_search=64)
         sync(torch.empty(0, device=dev))
         build_s[op] = time.time() - t0
+        sweeps[op] = (core_build.PLAIN_SWEEPS_ON_CARD - before[0],
+                      cb.LAUNCHES["bruteforce_topk_q8"] - before[1])
+    # Manhattan has no matmul form: its index's sweep is the torch-op loop,
+    # counted once a batch; the others launch the kernel a batch past the
+    # first
+    batches = len(core_build.build_schedule(len(pts), 256))
+    check(sweeps == {"<->": (0, batches - 1), "<=>": (0, batches - 1),
+                     "<~>": (batches, 0)},
+          f"the table's index builds swept {sweeps} (torch-op loops, "
+          f"kernel launches), not one kernel launch a batch past the "
+          f"first (Manhattan: one counted loop a batch)")
     rows = torch.as_tensor(pts, device=dev).double()
     seq_ms, idx_ms = {}, {}
     for op, metric in ops.items():
@@ -2083,7 +2439,9 @@ def table_phase(torch, VectorTable, dev):
         + ", ".join(f"{op} {idx_ms[op]:.2f} / {seq_ms[op]:.2f} ms"
                     for op in ops)
         + f"; seq scan equals a float64 oracle on {len(qs)} queries per "
-        f"opclass; pull scan equals order_by on 8")
+        f"opclass; pull scan equals order_by on 8; candidate sweeps of the "
+        f"index builds (torch-op loops, bruteforce_topk_q8 launches): "
+        f"{sweeps}")
 
 
 def main():
@@ -2134,8 +2492,12 @@ def main():
     os.makedirs(os.path.join(REPO, ".kernel_build"), exist_ok=True)
     with tempfile.TemporaryDirectory(
             dir=os.path.join(REPO, ".kernel_build")) as tmp:
+        sweep = timings.pop("bruteforce_topk_q8")
         timings.update(walk_kernels_phase(torch, idx, qs, dev, tmp,
                                           single, profile_lib))
+        timings["bruteforce_topk_q8"]["max_abs_err"] = max(
+            sweep["max_abs_err"], timings["bruteforce_topk_q8"]["max_abs_err"])
+        twin_build_phase(torch, HnswConfig, HnswIndex, dev, pts, qs)
         wide_k_phase(torch, cb, idx, qs)
         serving_variants(torch, idx, qs, walk_variants)
         timings["beam_walk"]["wide_queues"] = wide_queue_phase(torch, idx,
@@ -2162,6 +2524,12 @@ def main():
         torch.cuda.empty_cache()
         pq_serving_phase(torch, HnswConfig, HnswIndex, dev, args.n,
                          args.queries, tmp, walk_variants)
+    # no candidate sweep of phases 4-11 ran the torch-op loop on the card
+    # (the table's Manhattan index, next, runs it by design, counted)
+    from pg_embedding_tpu_torch.core import build as core_build
+    check(core_build.PLAIN_SWEEPS_ON_CARD == 0,
+          f"phases 4-11 ran {core_build.PLAIN_SWEEPS_ON_CARD} torch-op "
+          f"candidate sweeps on the card")
     table_phase(torch, VectorTable, dev)
 
     # every walk variant reached the kernel through its own API path
@@ -2184,6 +2552,9 @@ def main():
     for name, launches, (source, replaces) in (
             ("bruteforce_topk", main_launches, sweep),
             ("bruteforce_topk_bf16", bf16_launches, sweep),
+            ("bruteforce_topk_q8", main_launches,
+             ("pg_embedding_tpu_torch/csrc/bruteforce_topk.cu",
+              "pg_embedding_tpu/core/build.py:287")),
             ("beam_walk", main_launches,
              ("pg_embedding_tpu_torch/csrc/beam_walk.cu",
               "pg_embedding_tpu/core/search.py:80")),
@@ -2197,7 +2568,8 @@ def main():
             "multiprocess_launches": mp_launches[name], **timings[name]})
         if name == "beam_walk":
             kernels[-1]["variants"] = walk_variants
-    for name in ("bruteforce_topk", "beam_walk", "prune_scan"):
+    for name in ("bruteforce_topk", "bruteforce_topk_q8", "beam_walk",
+                 "prune_scan"):
         check(main_launches[name] > 0,
               f"the main path never launched {name}")
         check(sharded_launches[name] > 0,

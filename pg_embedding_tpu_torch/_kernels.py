@@ -54,14 +54,23 @@ def declare_graph(lib) -> None:
     lib.prune_scan.restype = ci
 
 
-def _declare(lib) -> None:
+def declare_sweep(lib) -> None:
+    """The argument types of csrc/bruteforce_topk.cu's entries in ``lib``
+    (the port's library or a probe's build of that source alone)."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.bruteforce_topk, lib.bruteforce_topk_bf16):
         fn.argtypes = [vp, vp, vp, *[ci] * 9, *[vp] * 7]
         fn.restype = ci
-    declare_graph(lib)
+    # the int8-row instance takes the rows' scales after the rows
+    lib.bruteforce_topk_q8.argtypes = [vp, vp, vp, vp, *[ci] * 9, *[vp] * 7]
+    lib.bruteforce_topk_q8.restype = ci
     lib.bruteforce_topk_error_string.argtypes = [ci]
     lib.bruteforce_topk_error_string.restype = ctypes.c_char_p
+
+
+def _declare(lib) -> None:
+    declare_sweep(lib)
+    declare_graph(lib)
 
 
 def _build(srcs, work: str, path: str) -> None:

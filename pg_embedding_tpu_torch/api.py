@@ -611,7 +611,14 @@ class HnswIndex(_IndexBase):
         inherit it (``save=False`` keeps the record in this process).  A
         chunk that runs out of device memory is skipped.  Needs a CUDA
         index (CPU timings say nothing of the card) with rows; returns the
-        chosen chunk."""
+        chosen chunk.
+
+        The knob is the JAX package's surface, kept with its cache file.
+        On the card an L2 or cosine sweep is one launch of the sweep kernel
+        over every live row (ops/cuda_bruteforce.sweep_pool), which takes no
+        chunk: the tuner then times the same sweep at every width, and its
+        choice shapes only the torch-op loop (the CPU's, and Manhattan's on
+        the card)."""
         if self.device.type != "cuda":
             raise RuntimeError(
                 "tune_exact8_chunk needs a CUDA device (the index is on "

@@ -16,10 +16,13 @@ form, not of result:
 
   * the JAX ``lax.fori_loop``/``while_loop`` loops are Python loops, except
     the prune's scan and the beam walk, which run as one kernel launch each
-    on the card (ops/cuda_graph); the graph tensors are updated in place
-    (the API's write lock covers it);
+    on the card (ops/cuda_graph), and the candidate sweep, one launch of
+    the sweep kernel a batch on the card (ops/cuda_bruteforce.sweep_pool);
+    the graph tensors are updated in place (the API's write lock covers
+    it);
   * ``approx_min_k`` in the sweep is an exact top-k (so is the JAX
-    package's on the CPU, where its tests run);
+    package's on the CPU, where its tests run, though its order among
+    equal scores is its own);
   * ``jnp.lexsort`` is two stable sorts, ``lax.top_k`` a stable sort.
 
 Host syncs per inserted batch: one per back-link round plus one per round
@@ -30,17 +33,25 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.bruteforce import merge_min_k, min_k
+from ..config import Metric
+from ..ops.bruteforce import _rerank_exact, merge_min_k
+from ..ops.cuda_bruteforce import dequantize_rows, sweep_pool
 from ..ops.distance import dist_one_to_many, pairwise_dist
 from ..ops.cuda_graph import prune_scan
 from .graph import GraphState
 from .search import search_graph
 
 _INF = float("inf")
-# default rows per exact8 sweep step (the index's exact8_chunk knob, see
-# HnswIndex.tune_exact8_chunk): int8 rows are cheap to score, so the sweep
-# takes few wide steps (a [256, 1M] float32 score tile is 1 GB)
+# default rows per step of the torch-op candidate sweep (the index's
+# exact8_chunk knob, see HnswIndex.tune_exact8_chunk; the card's sweep
+# kernel takes no chunk): int8 rows are cheap to score, so the loop takes
+# few wide steps (a [256, 1M] float32 score tile is 1 GB)
 EXACT8_CHUNK = 1_048_576
+
+# Candidate sweeps run as the torch-op loop on a CUDA tensor: only
+# Manhattan's, which has no matmul form for the kernel.  A run reads it to
+# show that no other sweep left the kernel.
+PLAIN_SWEEPS_ON_CARD = 0
 
 
 def _lexsort2(primary: torch.Tensor, secondary: torch.Tensor) -> torch.Tensor:
@@ -208,35 +219,25 @@ def _connect_batch(vectors, links, link_counts, base: int, kept_i, kept_cnt,
     return links, link_counts
 
 
-def _exact_candidates(vectors, points, base: int, *, cand_cap: int,
-                      metric_value: int, chunk: int = 32768,
-                      qvec=None, qscale=None):
-    """Construction candidates from a full sweep of rows [0, base) instead
-    of the beam walk (HnswIndex(build_candidates="exact"/"exact8")).
-
-    COARSE mode (``qvec``/``qscale`` given, the "exact8" engine) scores the
-    int8 shadow rows dequantized in bf16 — the product ``q.bf16 * s.bf16``
-    rounds exactly as the JAX package's does — against float32 points in a
-    float32 matmul, keeps a 2x-widened pool, and reranks it with the exact
-    float32 difference form.  Plain mode sweeps the float32 rows and keeps
-    cand_cap + 2 before the same rerank.
-
-    Returns (cand_d [B, cand_cap], cand_i [B, cand_cap]) ascending,
-    -1-padded (tombstones stay candidates: deletes filter results, not
-    waypoints, hnswalg.cpp:245)."""
-    b = points.shape[0]
-    dev = points.device
-    coarse = qvec is not None
-    keep = 2 * cand_cap if coarse else cand_cap + 2
-    pts32 = points.to(torch.float32)
+def _sweep_loop(vectors, pts32, base: int, keep: int, metric_value: int,
+                chunk: int, qvec=None, qscale=None):
+    """The candidate pool in torch ops, ``chunk`` rows a step: each chunk
+    scored by pairwise_dist, cut to its ``keep`` smallest, merged into the
+    running pool (the JAX package's fori_loop).  The CPU's route, and
+    Manhattan's on the card (counted in PLAIN_SWEEPS_ON_CARD).  Returns
+    (d f32[B, keep], ids i32[B, keep]) ascending, -1 padded."""
+    global PLAIN_SWEEPS_ON_CARD
+    if pts32.is_cuda:
+        PLAIN_SWEEPS_ON_CARD += 1
+    b = pts32.shape[0]
+    dev = pts32.device
     run_d = torch.full((b, keep), _INF, dtype=torch.float32, device=dev)
     run_i = torch.full((b, keep), -1, dtype=torch.int32, device=dev)
     for start in range(0, base, chunk):
         end = min(start + chunk, base)
-        if coarse:
-            rows = (qvec[start:end].to(torch.bfloat16) *
-                    qscale[start:end].to(torch.bfloat16).unsqueeze(1)
-                    ).to(torch.float32)
+        if qvec is not None:
+            rows = dequantize_rows(qvec[start:end], qscale[start:end]).to(
+                torch.float32)
         else:
             rows = vectors[start:end]
         d = pairwise_dist(pts32, rows, metric_value)               # [B, n]
@@ -250,13 +251,41 @@ def _exact_candidates(vectors, points, base: int, *, cand_cap: int,
             d = torch.gather(d, 1, sel)
             ids = torch.gather(ids, 1, sel)
         run_d, run_i = merge_min_k(run_d, run_i, d, ids, keep)
+    return run_d, run_i
 
+
+def _exact_candidates(vectors, points, base: int, *, cand_cap: int,
+                      metric_value: int, chunk: int = 32768,
+                      qvec=None, qscale=None):
+    """Construction candidates from a full sweep of rows [0, base) instead
+    of the beam walk (HnswIndex(build_candidates="exact"/"exact8")).
+
+    COARSE mode (``qvec``/``qscale`` given, the "exact8" engine) scores the
+    int8 shadow rows dequantized in bf16 — the product ``q.bf16 * s.bf16``
+    rounds exactly as the JAX package's does — against the float32 points,
+    keeps a 2x-widened pool, and reranks it with the exact float32
+    difference form.  Plain mode sweeps the stored rows and keeps
+    cand_cap + 2 before the same rerank.
+
+    The pool: on the card (L2, cosine) one launch of the sweep kernel over
+    [0, base) (ops/cuda_bruteforce.sweep_pool; ``chunk`` is not used);
+    else the torch-op loop, ``chunk`` rows a step (_sweep_loop).
+
+    Returns (cand_d [B, cand_cap], cand_i [B, cand_cap]) ascending,
+    -1-padded (tombstones stay candidates: deletes filter results, not
+    waypoints, hnswalg.cpp:245)."""
+    coarse = qvec is not None
+    keep = 2 * cand_cap if coarse else cand_cap + 2
+    pts32 = points.to(torch.float32).contiguous()
+    if pts32.is_cuda and metric_value != Metric.MANHATTAN.value:
+        _, run_i = sweep_pool(pts32, (qvec, qscale) if coarse else vectors,
+                              keep, metric_value, base)
+    else:
+        _, run_i = _sweep_loop(vectors, pts32, base, keep, metric_value,
+                               chunk, qvec, qscale)
     # exact rerank with the reference's elementwise forms
-    rrows = vectors[run_i.clamp(min=0)].to(torch.float32)
-    rd = dist_one_to_many(pts32, rrows, metric_value)
-    rd = torch.where(run_i >= 0, rd, _INF)
-    vals, sel = min_k(rd, cand_cap)
-    return vals, torch.gather(run_i, 1, sel)
+    return _rerank_exact(pts32, vectors, run_i, k=cand_cap,
+                         metric_value=metric_value)
 
 
 def quantize_rows(points: torch.Tensor):

@@ -12,7 +12,8 @@
 //   results ascend by (score, id): equal scores keep the lower id, as the
 //   TPU kernel's argmin + strict-< admission do;  L2 comes back sqrt'd.
 // The corpus comes at its stored width, float32 or bfloat16 (as the Pallas
-// kernel takes it); queries are always float32.
+// kernel takes it), or as int8 rows with a float32 scale a row; queries are
+// always float32.
 //
 // Precision.  One TF32 pass (10-bit mantissa) moves an L2 distance by up to
 // ~1e-3 relative on clustered data and would reorder true neighbours.  The
@@ -80,6 +81,35 @@
 //    and launch shape), so the pages concatenate to the one long list.
 // Not here yet: wgmma and TMA, a warp-specialised producer, a persistent
 // grid, one launch for k_run > 1024.
+//
+// The int8-row instance (bruteforce_topk_q8) also replaces
+// pg_embedding_tpu/core/build.py::_exact_candidates (its lax.fori_loop over
+// chunks, approx_min_k and running merge; the exact rerank stays torch ops
+// in the port): the build's candidate pool over the int8 shadow (exact8).
+// A row element is bf16(bf16(q) * bf16(scale)), the JAX package's and the
+// port's dequantisation: q is exact in bf16 and q * bf16(scale) exact in
+// float32 (8 x 8 significant bits), so the element is that product rounded
+// once to bf16, to nearest even, by integer ops (no fast-math, no fusion
+// into the TF32 split).  A bf16 value is exact in TF32, so the instance
+// takes the bf16 instance's two passes, q_lo.p + q_hi.p, and its accuracy.
+// The ring lands int8 chunks [128 x 32] (48-byte rows: 16-byte copies when
+// D % 16 == 0 and the base is aligned, else element loads) and, per stage,
+// the tile's 128 scales (4-byte cp.async); each thread widens the elements
+// it feeds to the mma's in registers.  What bounds it (1M x 128-d, one
+// 256-row insert batch, k_run = 2 cand_cap = 256): 2 B N D x 2 passes = 131
+// GFLOP at 495 TFLOP/s = 0.265 ms; the shadow is 132 MB, 0.040 ms.  At
+// k_run = 256 (QT = 64) the lists take 128 KB of shared memory and a block
+// fills an SM alone, and a split admits ~k (1 + ln(rows a split / k)) rows
+// a query (~1,480 at 33 splits of 1M), so the selection leads: an
+// insertion into a 256-entry list in shared memory (8 reads a lane to
+// place it, up to 8 rounds of shifts and barriers) measured ~1,300 cycles.
+// This instance holds a list of up to 256 entries in registers while it
+// takes a tile's rows (insert_in_registers: 8 entries a lane, a warp sum
+// and an in-lane shift an insertion); the float32 / bf16 instances keep
+// the shared-memory insertion, which the exact route's short lists need
+// little of, and their code.  Left for later: wgmma, a bf16 x 3 query
+// split on the bf16 tensor cores (the rows are bf16 values), admitting a
+// tile's rows in one merge.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -101,6 +131,10 @@ constexpr int kMaxSplits = 128;
 constexpr int kMaxK = 1024;
 constexpr int kSmemLimit = 232448;
 constexpr int kMergeWarps = 4;
+// int8 rows (the build's wide pools): lists up to kRegK entries take their
+// insertions in registers, kRegE entries a lane
+constexpr int kRegE = 8;
+constexpr int kRegK = 32 * kRegE;
 constexpr int kMetricL2 = 0;
 constexpr int kMetricCosine = 1;
 constexpr unsigned kFull = 0xffffffffu;
@@ -128,13 +162,21 @@ __host__ __device__ inline int q_res_stride(int D) {
   return kTileD * ((D + kTileD - 1) / kTileD) + 4;
 }
 
-// Shared memory: the ring (each stage a [128 x kPS] corpus chunk, then,
-// when queries stream, a [QT x 36] query chunk), the resident [QT x
-// q_res_stride(D)] queries when they do not, the [QT x 136] score tile,
-// |q|^2, |p|^2, and the [QT x k_run] running lists (score, id).
+// int8 rows carry a float32 scale a row
+template <typename T>
+__host__ __device__ constexpr bool scaled_rows() {
+  return std::is_same<T, int8_t>::value;
+}
+
+// Shared memory: the ring (each stage a [128 x kPS] corpus chunk, for int8
+// rows the tile's 128 scales, then, when queries stream, a [QT x 36] query
+// chunk), the resident [QT x q_res_stride(D)] queries when they do not, the
+// [QT x 136] score tile, |q|^2, |p|^2, and the [QT x k_run] running lists
+// (score, id).
 template <typename T>
 size_t sweep_smem_bytes(int qt, int k_run, int D, bool q_res) {
   const size_t stage = (size_t)kTileN * p_stride<T>() * sizeof(T) +
+                       (scaled_rows<T>() ? kTileN * sizeof(float) : 0) +
                        (q_res ? 0 : (size_t)qt * kQStride * sizeof(float));
   return kStages * stage +
          sizeof(float) * ((q_res ? (size_t)qt * q_res_stride(D) : 0) +
@@ -156,6 +198,20 @@ __device__ __forceinline__ float warp_sum(float v) {
 __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(uint16_t bits) {
   return __uint_as_float((unsigned)bits << 16);
+}
+
+// float32 -> bf16 -> float32, to nearest even (as __float2bfloat16_rn and
+// torch round a finite value): add 0x7fff plus the kept half's lowest bit,
+// clear the low 16 bits.
+__device__ __forceinline__ float round_bf16(float x) {
+  const unsigned u = __float_as_uint(x);
+  return __uint_as_float((u + 0x7fffu + ((u >> 16) & 1u)) & 0xffff0000u);
+}
+
+// An int8 row element: bf16(bf16(q) * s_bf16), s_bf16 the row's scale
+// rounded by round_bf16.  The float32 product is exact, so one rounding.
+__device__ __forceinline__ float widen(int8_t q, float s_bf16) {
+  return round_bf16(__fmul_rn((float)q, s_bf16));
 }
 
 // The split x = hi + lo with hi, lo TF32 values rounded as
@@ -185,6 +241,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
                "l"(src), "r"(full ? 16 : 0));
+}
+
+// 4-byte global -> shared copy; zero-filled when !full
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool full) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(full ? 4 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -224,20 +288,30 @@ __device__ __forceinline__ void load_chunk(const T* __restrict__ src, T* dst,
 }
 
 // Issue the copies of the step at (tile, d0) into ring stage s & 1 (see
-// sweep_kernel); the query chunk only when queries stream.
+// sweep_kernel); the tile's scales (zero past row_end) for int8 rows, the
+// query chunk only when queries stream.
 template <int QT, bool kQRes, int kPBytes, int kStageBytes, typename T>
 __device__ __forceinline__ void load_step(const float* __restrict__ q,
                                           const T* __restrict__ p,
                                           unsigned char* smem, int s, int tile,
                                           int d0, int row_end, int q0, int B,
                                           int D, bool vec_q, bool vec_p,
-                                          int tid) {
+                                          int tid,
+                                          const float* __restrict__ scale) {
+  constexpr int kScaleBytes = scaled_rows<T>() ? kTileN * 4 : 0;
   unsigned char* stage = smem + (s & 1) * kStageBytes;
   load_chunk<kTileN>(p, reinterpret_cast<T*>(stage), p_stride<T>(), tile,
                      row_end, d0, D, vec_p, tid);
+  if constexpr (scaled_rows<T>()) {
+    if (tid < kTileN) {
+      const bool in = tile + tid < row_end;
+      cp_async4(reinterpret_cast<float*>(stage + kPBytes) + tid,
+                in ? scale + tile + tid : scale, in);
+    }
+  }
   if (!kQRes)
-    load_chunk<QT>(q, reinterpret_cast<float*>(stage + kPBytes), kQStride,
-                   q0, B, d0, D, vec_q, tid);
+    load_chunk<QT>(q, reinterpret_cast<float*>(stage + kPBytes + kScaleBytes),
+                   kQStride, q0, B, d0, D, vec_q, tid);
 }
 
 // The score-tile row and the current k-th of local query ql: lane l reads
@@ -253,26 +327,106 @@ __device__ __forceinline__ void read_query(const float* score_s,
   kth = list_d[ql * k_run + k_run - 1];
 }
 
+// Insert the rows of a tile whose scores ``sc`` (lane l: rows l, l + 32,
+// l + 64, l + 96 of the tile at ``tile``) lie below ``kth`` into one
+// query's sorted list (ld, li) of k_run <= kRegK entries, the list held in
+// registers meanwhile: lane l holds entries [kRegE l, kRegE l + kRegE).  An
+// insertion is kRegE compares, a warp sum, two shuffles and a shift inside
+// each lane, where the list in shared memory takes k_run / 32 reads to
+// place an entry and as many rounds of reads, writes and barriers to shift
+// the rest.  Same entries, same order: a new row goes after every entry
+// of its score (rows arrive in ascending id order).
+__device__ __forceinline__ void insert_in_registers(
+    float* ld, int* li, const float (&sc)[kRowsPerLane], float kth, int tile,
+    int k_run, int lane) {
+  float rd[kRegE];
+  int ri[kRegE];
+#pragma unroll
+  for (int e = 0; e < kRegE; ++e) {
+    const int idx = kRegE * lane + e;
+    rd[e] = idx < k_run ? ld[idx] : CUDART_INF_F;
+    ri[e] = idx < k_run ? li[idx] : -1;
+  }
+  const int last_lane = (k_run - 1) / kRegE, last_e = (k_run - 1) % kRegE;
+#pragma unroll
+  for (int j = 0; j < kRowsPerLane; ++j) {
+    unsigned mask = __ballot_sync(kFull, sc[j] < kth);
+    while (mask) {
+      const int src = __ffs(mask) - 1;
+      mask &= mask - 1;
+      const float dv = __shfl_sync(kFull, sc[j], src);
+      if (!(dv < kth)) continue;                         // warp-uniform
+      int below = 0;
+#pragma unroll
+      for (int e = 0; e < kRegE; ++e) below += rd[e] <= dv;
+      const int pos = __reduce_add_sync(kFull, below);
+      const int iv = tile + src + 32 * j;
+      // entries past pos move up one: a lane's first takes the last of
+      // the lane below
+      const float up_d = __shfl_up_sync(kFull, rd[kRegE - 1], 1);
+      const int up_i = __shfl_up_sync(kFull, ri[kRegE - 1], 1);
+#pragma unroll
+      for (int e = kRegE - 1; e > 0; --e) {
+        const int idx = kRegE * lane + e;
+        if (idx > pos) {
+          rd[e] = rd[e - 1];
+          ri[e] = ri[e - 1];
+        } else if (idx == pos) {
+          rd[e] = dv;
+          ri[e] = iv;
+        }
+      }
+      if (kRegE * lane > pos) {
+        rd[0] = up_d;
+        ri[0] = up_i;
+      } else if (kRegE * lane == pos) {
+        rd[0] = dv;
+        ri[0] = iv;
+      }
+      float v = rd[0];
+#pragma unroll
+      for (int e = 1; e < kRegE; ++e)
+        if (e == last_e) v = rd[e];
+      kth = __shfl_sync(kFull, v, last_lane);
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < kRegE; ++e) {
+    const int idx = kRegE * lane + e;
+    if (idx < k_run) {
+      ld[idx] = rd[e];
+      li[idx] = ri[e];
+    }
+  }
+  __syncwarp();
+}
+
 __device__ __forceinline__ float score(float dot, float pn, float qn,
                                        int metric) {
   return metric == kMetricL2 ? fmaxf(pn + qn - 2.f * dot, 0.f)
                              : 1.f - dot * rsqrtf(fmaxf(pn * qn, 1e-30f));
 }
 
+// One block's sweep: queries [blockIdx.x QT, + QT) against split
+// blockIdx.y's rows, the running lists written to part_d / part_i.
+// ``scale``: the int8 rows' scales (null for float32 and bf16 rows).
 template <int QT, bool kQRes, typename T>
-__global__ void __launch_bounds__(kThreads, 2)
-sweep_kernel(const float* __restrict__ q, const T* __restrict__ p,
-             const unsigned char* __restrict__ del, int B, int n_rows, int D,
-             bool vec_q, bool vec_p, int k_run, int metric,
-             int rows_per_split, const float* __restrict__ floor_d,
-             const int* __restrict__ floor_i, float* __restrict__ part_d,
-             int* __restrict__ part_i) {
+__device__ __forceinline__ void sweep_block(
+    const float* __restrict__ q, const T* __restrict__ p,
+    const float* __restrict__ scale, const unsigned char* __restrict__ del,
+    int B, int n_rows, int D, bool vec_q, bool vec_p, int k_run, int metric,
+    int rows_per_split, const float* __restrict__ floor_d,
+    const int* __restrict__ floor_i, float* __restrict__ part_d,
+    int* __restrict__ part_i) {
   using L = Layout<QT>;
   constexpr int kPS = p_stride<T>();
   constexpr int kPBytes = kTileN * kPS * (int)sizeof(T);
-  constexpr bool kExactRows = !std::is_same<T, float>::value;  // bf16
-  constexpr int kStageBytes =
-      kPBytes + (kQRes ? 0 : QT * kQStride * (int)sizeof(float));
+  // bf16 rows and int8 x scale elements are bf16 values: exact in TF32
+  constexpr bool kExactRows = !std::is_same<T, float>::value;
+  constexpr bool kScaled = scaled_rows<T>();
+  constexpr int kScaleBytes = kScaled ? kTileN * 4 : 0;
+  constexpr int kStageBytes = kPBytes + kScaleBytes +
+                              (kQRes ? 0 : QT * kQStride * (int)sizeof(float));
   const int q_all_stride = q_res_stride(D);
 
   extern __shared__ __align__(16) unsigned char smem[];
@@ -332,7 +486,7 @@ sweep_kernel(const float* __restrict__ q, const T* __restrict__ p,
                        c * kTileD, D, vec_q, tid);
     load_step<QT, kQRes, kPBytes, kStageBytes>(q, p, smem, 0, row_begin, 0,
                                                row_end, q0, B, D, vec_q, vec_p,
-                                               tid);
+                                               tid, scale);
   }
   cp_async_commit();
   int tile = row_begin, chunk = 0;                      // step s
@@ -343,24 +497,43 @@ sweep_kernel(const float* __restrict__ q, const T* __restrict__ p,
       load_step<QT, kQRes, kPBytes, kStageBytes>(
           q, p, smem, s + 1, last ? tile + kTileN : tile,
           last ? 0 : (chunk + 1) * kTileD, row_end, q0, B, D, vec_q, vec_p,
-          tid);
+          tid, scale);
     cp_async_commit();
     cp_async_wait<kStages - 1>();
     __syncthreads();
     const T* p_s = reinterpret_cast<const T*>(smem + (s & 1) * kStageBytes);
+    const float* scale_s =
+        reinterpret_cast<const float*>(smem + (s & 1) * kStageBytes + kPBytes);
     const float* q_s =
         kQRes ? q_all + chunk * kTileD
               : reinterpret_cast<const float*>(smem + (s & 1) * kStageBytes +
-                                               kPBytes);
+                                               kPBytes + kScaleBytes);
     const int qs = kQRes ? q_all_stride : kQStride;
 
     {
       const T* pr = p_s + (tid >> 1) * kPS + (tid & 1) * (kTileD / 2);
+      if constexpr (kScaled) {
+        const float sr = round_bf16(scale_s[tid >> 1]);
 #pragma unroll
-      for (int c = 0; c < kTileD / 2; ++c) {
-        const float v = widen(pr[c]);
-        pn_part = fmaf(v, v, pn_part);
+        for (int c = 0; c < kTileD / 2; ++c) {
+          const float v = widen(pr[c], sr);
+          pn_part = fmaf(v, v, pn_part);
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < kTileD / 2; ++c) {
+          const float v = widen(pr[c]);
+          pn_part = fmaf(v, v, pn_part);
+        }
       }
+    }
+
+    // the rounded scale of each row this thread feeds (int8 rows)
+    float sb[kScaled ? L::NT : 1];
+    if constexpr (kScaled) {
+#pragma unroll
+      for (int nt = 0; nt < L::NT; ++nt)
+        sb[nt] = round_bf16(scale_s[n_base + nt * 8 + g]);
     }
 
 #pragma unroll
@@ -377,7 +550,14 @@ sweep_kernel(const float* __restrict__ q, const T* __restrict__ p,
 #pragma unroll
       for (int nt = 0; nt < L::NT; ++nt) {
         const T* pb = p_s + (n_base + nt * 8 + g) * kPS + k0 + t;
-        const float y0 = widen(pb[0]), y1 = widen(pb[4]);
+        float y0, y1;
+        if constexpr (kScaled) {
+          y0 = widen(pb[0], sb[nt]);
+          y1 = widen(pb[4], sb[nt]);
+        } else {
+          y0 = widen(pb[0]);
+          y1 = widen(pb[4]);
+        }
         if constexpr (kExactRows) {
           const uint32_t b0 = __float_as_uint(y0), b1 = __float_as_uint(y1);
 #pragma unroll
@@ -466,6 +646,12 @@ sweep_kernel(const float* __restrict__ q, const T* __restrict__ p,
       if (!__any_sync(kFull, lo < kth)) continue;         // the common case
       float* ld = list_d + ql * k_run;
       int* li = list_i + ql * k_run;
+      if constexpr (kScaled) {
+        if (k_run <= kRegK) {
+          insert_in_registers(ld, li, sc, kth, tile, k_run, lane);
+          continue;
+        }
+      }
 #pragma unroll
       for (int j = 0; j < kRowsPerLane; ++j) {
         unsigned mask = __ballot_sync(kFull, sc[j] < kth);
@@ -518,6 +704,34 @@ sweep_kernel(const float* __restrict__ q, const T* __restrict__ p,
       part_i[base + e] = list_i[ql * k_run + e];
     }
   }
+}
+
+template <int QT, bool kQRes, typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+sweep_kernel(const float* __restrict__ q, const T* __restrict__ p,
+             const unsigned char* __restrict__ del, int B, int n_rows, int D,
+             bool vec_q, bool vec_p, int k_run, int metric,
+             int rows_per_split, const float* __restrict__ floor_d,
+             const int* __restrict__ floor_i, float* __restrict__ part_d,
+             int* __restrict__ part_i) {
+  sweep_block<QT, kQRes>(q, p, nullptr, del, B, n_rows, D, vec_q, vec_p,
+                         k_run, metric, rows_per_split, floor_d, floor_i,
+                         part_d, part_i);
+}
+
+// int8 rows: the same sweep, each element widened with its row's scale
+template <int QT, bool kQRes>
+__global__ void __launch_bounds__(kThreads, 2)
+sweep_kernel_q8(const float* __restrict__ q, const int8_t* __restrict__ p,
+                const float* __restrict__ scale,
+                const unsigned char* __restrict__ del, int B, int n_rows,
+                int D, bool vec_q, bool vec_p, int k_run, int metric,
+                int rows_per_split, const float* __restrict__ floor_d,
+                const int* __restrict__ floor_i, float* __restrict__ part_d,
+                int* __restrict__ part_i) {
+  sweep_block<QT, kQRes>(q, p, scale, del, B, n_rows, D, vec_q, vec_p,
+                         k_run, metric, rows_per_split, floor_d, floor_i,
+                         part_d, part_i);
 }
 
 __global__ void __launch_bounds__(kMergeWarps * 32)
@@ -579,14 +793,18 @@ merge_kernel(const float* __restrict__ part_d, const int* __restrict__ part_i,
 int ceil_div(long long a, long long b) { return (int)((a + b - 1) / b); }
 
 template <int QT, bool kQRes, typename T>
-cudaError_t launch_sweep(const float* q, const T* p,
+cudaError_t launch_sweep(const float* q, const T* p, const float* scale,
                          const unsigned char* del, int B, int n_rows, int D,
                          int k_run, int metric, int S, size_t smem,
                          const float* floor_d, const int* floor_i,
                          float* part_d, int* part_i, cudaStream_t stream) {
+  const void* kernel;
+  if constexpr (scaled_rows<T>())
+    kernel = reinterpret_cast<const void*>(sweep_kernel_q8<QT, kQRes>);
+  else
+    kernel = reinterpret_cast<const void*>(sweep_kernel<QT, kQRes, T>);
   cudaError_t err = cudaFuncSetAttribute(
-      sweep_kernel<QT, kQRes, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int rows_per_split =
       ceil_div(ceil_div(n_rows, S), kTileN) * kTileN;
@@ -596,22 +814,28 @@ cudaError_t launch_sweep(const float* q, const T* p,
   const bool vec_p = (D * sizeof(T)) % 16 == 0 &&
                      reinterpret_cast<uintptr_t>(p) % 16 == 0;
   dim3 grid(ceil_div(B, QT), S);
-  sweep_kernel<QT, kQRes, T><<<grid, kThreads, smem, stream>>>(
-      q, p, del, B, n_rows, D, vec_q, vec_p, k_run, metric, rows_per_split,
-      floor_d, floor_i, part_d, part_i);
+  if constexpr (scaled_rows<T>())
+    sweep_kernel_q8<QT, kQRes><<<grid, kThreads, smem, stream>>>(
+        q, p, scale, del, B, n_rows, D, vec_q, vec_p, k_run, metric,
+        rows_per_split, floor_d, floor_i, part_d, part_i);
+  else
+    sweep_kernel<QT, kQRes, T><<<grid, kThreads, smem, stream>>>(
+        q, p, del, B, n_rows, D, vec_q, vec_p, k_run, metric, rows_per_split,
+        floor_d, floor_i, part_d, part_i);
   return cudaGetLastError();
 }
 
 template <typename T>
-int run_topk(const float* q, const T* p, const unsigned char* del, int B,
-             int n_rows, int D, int k_run, int metric, int qt, int S,
-             int q_res, int smem_bytes, float* part_d, int* part_i,
-             float* out_d, int* out_i, float* floor_d, int* floor_i,
-             void* stream_ptr) {
+int run_topk(const float* q, const T* p, const float* scale,
+             const unsigned char* del, int B, int n_rows, int D, int k_run,
+             int metric, int qt, int S, int q_res, int smem_bytes,
+             float* part_d, int* part_i, float* out_d, int* out_i,
+             float* floor_d, int* floor_i, void* stream_ptr) {
   if (B <= 0 || n_rows < 0 || D <= 0 || k_run < 1 || k_run > kMaxK ||
       S < 1 || S > kMaxSplits || (qt != 64 && qt != 16) ||
       (metric != kMetricL2 && metric != kMetricCosine) ||
-      (floor_d == nullptr) != (floor_i == nullptr))
+      (floor_d == nullptr) != (floor_i == nullptr) ||
+      (scale == nullptr) == scaled_rows<T>())
     return (int)cudaErrorInvalidValue;
   const size_t smem = sweep_smem_bytes<T>(qt, k_run, D, q_res != 0);
   if (smem != (size_t)smem_bytes || smem > (size_t)kSmemLimit)
@@ -619,19 +843,19 @@ int run_topk(const float* q, const T* p, const unsigned char* del, int B,
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   cudaError_t err;
   if (qt == 64)
-    err = q_res ? launch_sweep<64, true, T>(q, p, del, B, n_rows, D, k_run,
-                                            metric, S, smem, floor_d, floor_i,
-                                            part_d, part_i, stream)
-                : launch_sweep<64, false, T>(q, p, del, B, n_rows, D, k_run,
-                                             metric, S, smem, floor_d, floor_i,
-                                             part_d, part_i, stream);
+    err = q_res ? launch_sweep<64, true, T>(q, p, scale, del, B, n_rows, D,
+                                            k_run, metric, S, smem, floor_d,
+                                            floor_i, part_d, part_i, stream)
+                : launch_sweep<64, false, T>(q, p, scale, del, B, n_rows, D,
+                                             k_run, metric, S, smem, floor_d,
+                                             floor_i, part_d, part_i, stream);
   else
-    err = q_res ? launch_sweep<16, true, T>(q, p, del, B, n_rows, D, k_run,
-                                            metric, S, smem, floor_d, floor_i,
-                                            part_d, part_i, stream)
-                : launch_sweep<16, false, T>(q, p, del, B, n_rows, D, k_run,
-                                             metric, S, smem, floor_d, floor_i,
-                                             part_d, part_i, stream);
+    err = q_res ? launch_sweep<16, true, T>(q, p, scale, del, B, n_rows, D,
+                                            k_run, metric, S, smem, floor_d,
+                                            floor_i, part_d, part_i, stream)
+                : launch_sweep<16, false, T>(q, p, scale, del, B, n_rows, D,
+                                             k_run, metric, S, smem, floor_d,
+                                             floor_i, part_d, part_i, stream);
   if (err != cudaSuccess) return (int)err;
   merge_kernel<<<ceil_div(B, kMergeWarps), kMergeWarps * 32, 0, stream>>>(
       part_d, part_i, B, S, k_run, metric, out_d, out_i, floor_d, floor_i);
@@ -659,9 +883,9 @@ int bruteforce_topk(const float* q, const float* p, const unsigned char* del,
                     int S, int q_res, int smem_bytes, float* part_d,
                     int* part_i, float* out_d, int* out_i, float* floor_d,
                     int* floor_i, void* stream_ptr) {
-  return run_topk(q, p, del, B, n_rows, D, k_run, metric, qt, S, q_res,
-                  smem_bytes, part_d, part_i, out_d, out_i, floor_d, floor_i,
-                  stream_ptr);
+  return run_topk(q, p, nullptr, del, B, n_rows, D, k_run, metric, qt, S,
+                  q_res, smem_bytes, part_d, part_i, out_d, out_i, floor_d,
+                  floor_i, stream_ptr);
 }
 
 // The same with p bf16[n_rows.., D] (its raw 16-bit patterns).
@@ -671,8 +895,21 @@ int bruteforce_topk_bf16(const float* q, const void* p,
                          int smem_bytes, float* part_d, int* part_i,
                          float* out_d, int* out_i, float* floor_d,
                          int* floor_i, void* stream_ptr) {
-  return run_topk(q, static_cast<const uint16_t*>(p), del, B, n_rows, D,
-                  k_run, metric, qt, S, q_res, smem_bytes, part_d, part_i,
+  return run_topk(q, static_cast<const uint16_t*>(p), nullptr, del, B,
+                  n_rows, D, k_run, metric, qt, S, q_res, smem_bytes, part_d,
+                  part_i, out_d, out_i, floor_d, floor_i, stream_ptr);
+}
+
+// The same with int8 rows p i8[n_rows.., D] and their scales
+// scale f32[n_rows..]: a row element is bf16(bf16(p) * bf16(scale)).
+int bruteforce_topk_q8(const float* q, const void* p, const float* scale,
+                       const unsigned char* del, int B, int n_rows, int D,
+                       int k_run, int metric, int qt, int S, int q_res,
+                       int smem_bytes, float* part_d, int* part_i,
+                       float* out_d, int* out_i, float* floor_d,
+                       int* floor_i, void* stream_ptr) {
+  return run_topk(q, static_cast<const int8_t*>(p), scale, del, B, n_rows,
+                  D, k_run, metric, qt, S, q_res, smem_bytes, part_d, part_i,
                   out_d, out_i, floor_d, floor_i, stream_ptr);
 }
 

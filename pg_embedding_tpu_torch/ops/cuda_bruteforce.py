@@ -5,9 +5,11 @@ The counterpart of pg_embedding_tpu/ops/pallas_bruteforce.py.  The kernel
 the tensor cores (TF32 ``mma.sync`` with a hi/lo split: three passes for
 float32 rows, two for bf16 rows) and keeps a running per-query top-k on
 chip, so the [B, N] distance matrix is never written out.  Its note says
-what bounds it on the card and how the design answers that.  It has two
-instantiations, one per corpus dtype: ``bruteforce_topk`` (float32 rows)
-and ``bruteforce_topk_bf16`` (bfloat16 rows, exact in TF32).
+what bounds it on the card and how the design answers that.  It has three
+instantiations, one per corpus type: ``bruteforce_topk`` (float32 rows),
+``bruteforce_topk_bf16`` (bfloat16 rows, exact in TF32) and
+``bruteforce_topk_q8`` (int8 rows x a float32 scale a row, each element
+bf16(bf16(q) * bf16(scale)): the build's int8 shadow, exact in TF32 too).
 ``_launch_shape`` chooses each launch's query tile, corpus splits and
 shared memory here, where the CPU tests reach it.
 
@@ -19,7 +21,9 @@ shared memory); ``bruteforce_topk_paged`` takes any k_run in pages of at
 most MAX_K_RUN, each launch admitting only what follows the last entry of
 the page before.  ``fused_exact_search`` is the entry with the contract of
 ``pallas_exact_search``: Manhattan goes to ops/bruteforce, L2 fetches
-k + _RERANK_PAD and reranks with the difference form.
+k + _RERANK_PAD and reranks with the difference form.  ``sweep_pool`` is the
+build's candidate sweep (core/build._exact_candidates, the JAX package's
+device loop there): one launch over rows [0, base) with no tombstone mask.
 """
 
 from __future__ import annotations
@@ -34,7 +38,8 @@ from .distance import _matmul
 
 # Launches of each instantiation since import (or since a caller reset
 # them); a run reads them to show that a path went through the kernel.
-LAUNCHES = {"bruteforce_topk": 0, "bruteforce_topk_bf16": 0}
+LAUNCHES = {"bruteforce_topk": 0, "bruteforce_topk_bf16": 0,
+            "bruteforce_topk_q8": 0}
 
 # Running lists live in shared memory: 8 bytes x k_run x 16 queries fit
 # a block up to here; a longer list takes pages of at most this.
@@ -45,7 +50,8 @@ MAX_K_RUN = 1024
 # corpus tiles streamed in 32-dim chunks through a 2-stage ring, padded row
 # strides (corpus: 32 dims + 16 bytes; streamed query chunks: 36 floats;
 # resident queries: D in whole chunks + 4 floats; scores: 136 floats), the
-# query tile QT by tier of k_run, 8 bytes per list entry.
+# query tile QT by tier of k_run, 8 bytes per list entry; int8 rows (1-byte
+# elements) add each stage's 128 float32 scales.
 SMEM_LIMIT = 232_448                # bytes of shared memory a block can use
 MAX_SPLITS = 128
 _SMEM_PER_SM, _SMEM_PER_BLOCK_RESERVED = 233_472, 1024     # H100
@@ -58,7 +64,23 @@ _PLAIN_CHUNK = 16384
 
 # the kernel instantiation for each corpus dtype
 _KERNELS = {torch.float32: "bruteforce_topk",
-            torch.bfloat16: "bruteforce_topk_bf16"}
+            torch.bfloat16: "bruteforce_topk_bf16",
+            torch.int8: "bruteforce_topk_q8"}
+
+
+def _corpus_rows(points):
+    """(rows, scales or None) of a corpus: a float32 / bf16 [N, D] tensor,
+    or the int8 shadow (qvec i8[N, D], qscale f32[N])."""
+    if isinstance(points, tuple):
+        return points
+    return points, None
+
+
+def dequantize_rows(qvec, qscale) -> torch.Tensor:
+    """The int8 shadow's rows as the sweep scores them, bf16[N, D]:
+    ``qvec.bf16 * qscale.bf16``, the JAX package's dequantisation (each
+    product rounded once to nearest even)."""
+    return qvec.to(torch.bfloat16) * qscale.to(torch.bfloat16).unsqueeze(1)
 
 
 def _scores(queries, rows, metric_value: int) -> torch.Tensor:
@@ -77,9 +99,13 @@ def _bruteforce_topk_plain(queries, points, k_run: int, metric_value: int,
                            n_valid: int, deleted=None, after=None):
     """The kernel's function in plain torch: (d f32[B, k_run], ids
     i32[B, k_run]) ascending by (score, id), masked rows never admitted,
-    L2 sqrt'd; ``after`` as in bruteforce_topk."""
-    d, i = sweep_min_k(queries, points, k_run, min(n_valid, len(points)),
-                       deleted,
+    L2 sqrt'd; ``points`` and ``after`` as in bruteforce_topk (the int8
+    shadow's live rows are dequantised first)."""
+    rows, scale = _corpus_rows(points)
+    n = min(n_valid, len(rows))
+    if scale is not None:
+        rows = dequantize_rows(rows[:n], scale[:n])
+    d, i = sweep_min_k(queries, rows, k_run, n, deleted,
                        lambda q, p: _scores(q, p, metric_value),
                        _PLAIN_CHUNK, after)
     if after is not None:
@@ -92,7 +118,10 @@ def _bruteforce_topk_plain(queries, points, k_run: int, metric_value: int,
 
 def _smem_bytes(qt: int, k_run: int, itemsize: int, dims: int,
                 q_resident: bool) -> int:
-    stage = _TILE_N * (_TILE_D * itemsize + 16)
+    """The C side's sweep_smem_bytes; ``itemsize`` 1 is the int8 instance,
+    whose ring stages also hold the tile's scales."""
+    stage = _TILE_N * (_TILE_D * itemsize + 16) + (4 * _TILE_N
+                                                   if itemsize == 1 else 0)
     if q_resident:
         queries = qt * (_TILE_D * -(-dims // _TILE_D) + 4) * 4
     else:
@@ -106,10 +135,11 @@ def _blocks_per_sm(smem: int) -> int:
 
 
 def _launch_shape(b: int, n_rows: int, k_run: int, sms: int,
-                  itemsize: int = 4, dims: int = 128):
+                  itemsize: int = 4, dims: int = 128, qt: int | None = None):
     """(QT, corpus splits S, resident queries, shared-memory bytes) of a
     sweep launch for ``b`` queries, ``n_rows`` rows of ``dims``
-    ``itemsize``-byte elements and ``k_run`` on a card with ``sms`` SMs.
+    ``itemsize``-byte elements (1: int8 rows and their scales) and
+    ``k_run`` on a card with ``sms`` SMs.
 
     QT is the largest query tile whose running lists fit beside the ring.
     The block keeps its [QT, D] queries in shared memory for its whole
@@ -119,8 +149,9 @@ def _launch_shape(b: int, n_rows: int, k_run: int, sms: int,
     memory allows (QT = 64 at small k_run), so one block's selection
     overlaps the other's mma's.  S fills the SMs' block slots as evenly as
     whole waves allow (the fewest splits on a tie), with no split under
-    2048 rows."""
-    qt = next(qt for k_max, qt in _QT_TIERS if k_run <= k_max)
+    2048 rows.  ``qt`` forces the query tile (a probe's choice)."""
+    if qt is None:
+        qt = next(t for k_max, t in _QT_TIERS if k_run <= k_max)
     streamed = _smem_bytes(qt, k_run, itemsize, dims, False)
     resident = _smem_bytes(qt, k_run, itemsize, dims, True)
     q_res = (resident <= SMEM_LIMIT
@@ -144,16 +175,29 @@ def _check_args(queries, points, k_run, metric_value, deleted,
                          f"{metric_value}")
     if not 1 <= k_run <= MAX_K_RUN:
         raise ValueError(f"k_run={k_run} outside [1, {MAX_K_RUN}]")
+    if isinstance(points, tuple):
+        if len(points) != 2:
+            raise ValueError("the int8 shadow is a (qvec, qscale) pair")
+        points, scale = points
+        if points.dtype != torch.int8:
+            raise ValueError(f"qvec must be int8, got {points.dtype}")
+        if (scale.dtype != torch.float32 or scale.dim() != 1
+                or scale.shape[0] != points.shape[0]):
+            raise ValueError(f"qscale must be float32[{points.shape[0]}], "
+                             f"got {scale.dtype}{list(scale.shape)}")
+        tensors = (("queries", queries), ("qvec", points), ("qscale", scale))
+    else:
+        if points.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"points must be float32 or bfloat16, got "
+                             f"{points.dtype}")
+        tensors = (("queries", queries), ("points", points))
     if queries.dim() != 2 or points.dim() != 2 or (
             queries.shape[1] != points.shape[1]):
         raise ValueError(f"shapes {tuple(queries.shape)} and "
                          f"{tuple(points.shape)} are not [B, D] and [N, D]")
     if queries.dtype != torch.float32:
         raise ValueError(f"queries must be float32, got {queries.dtype}")
-    if points.dtype not in _KERNELS:
-        raise ValueError(f"points must be float32 or bfloat16, got "
-                         f"{points.dtype}")
-    for name, t in (("queries", queries), ("points", points)):
+    for name, t in tensors:
         if t.device != points.device:
             raise ValueError(f"{name} on {t.device}, points on "
                              f"{points.device}")
@@ -177,39 +221,42 @@ def _check_args(queries, points, k_run, metric_value, deleted,
 def bruteforce_topk(queries, points, k_run: int, metric_value: int,
                     n_valid: int, deleted=None, after=None):
     """Exact top-k_run (k_run <= MAX_K_RUN) of queries f32[B, D] against
-    points f32 or bf16 [N, D] rows [0, n_valid), skipping ``deleted`` rows.
-    Returns (d f32[B, k_run], ids i32[B, k_run]), ascending by (score, id),
-    -1/+inf padded, L2 sqrt'd.
+    points f32 or bf16 [N, D], or the int8 shadow (qvec i8[N, D], qscale
+    f32[N]: rows ``dequantize_rows(qvec, qscale)``), rows [0, n_valid),
+    skipping ``deleted`` rows.  Returns (d f32[B, k_run], ids i32[B,
+    k_run]), ascending by (score, id), -1/+inf padded, L2 sqrt'd.
 
     ``after`` (floor_d f32[B], floor_i i32[B]), a page floor: only rows
     that follow (floor_d[q], floor_i[q]) in (score, id) order are admitted
     (scores before the L2 sqrt; id -1 follows every row), and the call
     overwrites it with each query's last entry, the next page's floor."""
     _check_args(queries, points, k_run, metric_value, deleted, after)
-    if points.device.type == "cpu":
+    rows, scale = _corpus_rows(points)
+    if rows.device.type == "cpu":
         return _bruteforce_topk_plain(queries, points, k_run, metric_value,
                                       n_valid, deleted, after)
-    if points.device.type != "cuda":
-        raise ValueError(f"no kernel for device {points.device}")
+    if rows.device.type != "cuda":
+        raise ValueError(f"no kernel for device {rows.device}")
     b, dims = queries.shape
-    n_rows = max(0, min(int(n_valid), points.shape[0]))
-    dev = points.device
+    n_rows = max(0, min(int(n_valid), rows.shape[0]))
+    dev = rows.device
     out_d = torch.empty((b, k_run), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, k_run), dtype=torch.int32, device=dev)
     if b == 0:
         return out_d, out_i
     lib = _kernels.load_library()
-    name = _KERNELS[points.dtype]
+    name = _KERNELS[rows.dtype]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     qt, splits, q_res, smem = _launch_shape(
-        b, n_rows, k_run, sms, points.element_size(), dims)
+        b, n_rows, k_run, sms, rows.element_size(), dims)
     with torch.cuda.device(dev):
         part_d = torch.empty((splits, b, k_run), dtype=torch.float32,
                              device=dev)
         part_i = torch.empty((splits, b, k_run), dtype=torch.int32,
                              device=dev)
         err = getattr(lib, name)(
-            queries.data_ptr(), points.data_ptr(),
+            queries.data_ptr(), rows.data_ptr(),
+            *(() if scale is None else (scale.data_ptr(),)),
             None if deleted is None else deleted.data_ptr(),
             b, n_rows, dims, k_run, metric_value, qt, splits, int(q_res),
             smem, part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(),
@@ -230,7 +277,7 @@ def bruteforce_topk_paged(queries, points, k_run: int, metric_value: int,
     if k_run <= MAX_K_RUN:
         return bruteforce_topk(queries, points, k_run, metric_value, n_valid,
                                deleted)
-    b, dev = queries.shape[0], points.device
+    b, dev = queries.shape[0], queries.device
     size = -(-k_run // -(-k_run // MAX_K_RUN))
     after = (torch.full((b,), -float("inf"), dtype=torch.float32,
                         device=dev),
@@ -240,6 +287,23 @@ def bruteforce_topk_paged(queries, points, k_run: int, metric_value: int,
              for start in range(0, k_run, size)]
     return (torch.cat([d for d, _ in pages], dim=1),
             torch.cat([i for _, i in pages], dim=1))
+
+
+def sweep_pool(points, rows, keep: int, metric_value: int, base: int):
+    """The build's candidate pool (core/build._exact_candidates before its
+    exact rerank): the ``keep`` nearest of rows [0, base) to each insert
+    point of ``points`` f32[B, D] by the kernel's score, with no tombstone
+    mask (deletes filter results, not waypoints, hnswalg.cpp:245).
+    ``rows``: the corpus, f32 or bf16 [cap, D] ("exact"), or the int8
+    shadow (qvec, qscale) ("exact8").  One launch on CUDA tensors (pages
+    past MAX_K_RUN), the plain twin on CPU ones; ``base`` 0 gives the empty
+    pool with none.  Returns (d f32[B, keep], ids i32[B, keep]) ascending
+    by (score, id), -1/+inf padded, L2 sqrt'd."""
+    if base <= 0:
+        b, dev = points.shape[0], points.device
+        return (torch.full((b, keep), float("inf"), device=dev),
+                torch.full((b, keep), -1, dtype=torch.int32, device=dev))
+    return bruteforce_topk_paged(points, rows, keep, metric_value, base)
 
 
 def fused_exact_search(queries, points, k: int, metric=Metric.L2,

@@ -1,6 +1,7 @@
 """The CUDA kernels on the card: ops/cuda_bruteforce.bruteforce_topk
-(float32 and bfloat16 corpus) against its plain twin, and the index's exact
-route through it; ops/cuda_graph.beam_walk and prune_scan against theirs
+(float32, bfloat16 and int8-shadow rows) against its plain twin, the
+index's exact route and the build's candidate sweep (sweep_pool) through
+it; ops/cuda_graph.beam_walk and prune_scan against theirs
 (core/search._search_batch, core/build._prune_scan_plain), and the graph
 route through the walk kernel.  A CUDA kernel has no CPU mode, so every
 test here skips without a CUDA device; run them on the card with
@@ -10,8 +11,9 @@ machine has none); its integer fixture is shared with test_torch_walk.py.
 Tolerances: distances rtol 1e-5; ids equal except where the two sides'
 distances at that rank are within 1e-5 relative (float32 sums in another
 order may swap near-tied rows).  The walk on the integer fixture (every
-L2 and Manhattan distance exact in float32) and the prune scan
-(comparisons of the same values) are held bit for bit."""
+L2 and Manhattan distance exact in float32), the int8 sweep under L2 on
+integer rows at power-of-two scales and the prune scan (comparisons of
+the same values) are held bit for bit."""
 
 import numpy as np
 import pytest
@@ -871,3 +873,194 @@ def test_walk_and_prune_refuse_out_of_scope_arguments(cuda, int_graphs):
         cg.prune_scan(z, z.bool(), order, torch.zeros((4, 8, 8),
                                                       device=cuda),
                       z[:, 0].bool(), 0)
+
+
+# --- the build's candidate sweep: the int8 instance and sweep_pool ---------
+
+def shadow_case(seed, n, d, b, pow2=True):
+    """An int8 shadow (qvec i8[n, d] in [-127, 127], qscale f32[n]) and
+    queries f32[b, d].  With ``pow2`` the scales are powers of two and the
+    queries integers in [-8, 8]: every product and partial sum of a score
+    is then exact in float32 whatever the order, and |p|^2 stays under
+    2^24 units at d = 960; else quantize_rows' scales of normal rows and
+    normal queries."""
+    rng = np.random.default_rng(seed)
+    if pow2:
+        qv = rng.integers(-127, 128, size=(n, d)).astype(np.int8)
+        qs = np.exp2(rng.integers(-3, 4, size=n)).astype(np.float32)
+        pts = rng.integers(-8, 9, size=(b, d)).astype(np.float32)
+        return torch.from_numpy(qv), torch.from_numpy(qs), torch.from_numpy(
+            pts)
+    from pg_embedding_tpu_torch.core.build import quantize_rows
+    qv, qs = quantize_rows(torch.from_numpy(
+        rng.normal(size=(n, d)).astype(np.float32)))
+    return qv, qs, torch.from_numpy(rng.normal(size=(b, d)).astype(
+        np.float32))
+
+
+def _assert_pool_bit_equal(got, want):
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0], want[0])
+
+
+def _assert_pool_near(got, want, rows, pts, metric, rtol):
+    """Distances at ``rtol``; ids equal except where both rows' float64
+    distances lie within 1e-5 relative of each other."""
+    (dk, ik), (dp, ip) = [(d.cpu().numpy(), i.cpu().numpy())
+                          for d, i in (got, want)]
+    np.testing.assert_array_equal(np.isinf(dk), np.isinf(dp))
+    fin = np.isfinite(dp)
+    np.testing.assert_allclose(dk[fin], dp[fin], rtol=rtol, atol=1e-6)
+    diff = ik != ip
+    if diff.any():
+        r = rows.double()
+        q = pts.double().to(r.device)
+
+        def d64(ids):
+            p = r[torch.as_tensor(ids).clamp(min=0).long().to(r.device)]
+            if metric == 0:
+                return torch.sqrt(((p - q[:, None]) ** 2).sum(-1))
+            return 1 - (p * q[:, None]).sum(-1) / torch.sqrt(
+                (p * p).sum(-1) * (q * q).sum(-1)[:, None])
+        a, b = d64(ik).cpu().numpy(), d64(ip).cpu().numpy()
+        assert np.all(np.abs(a[diff] - b[diff]) <= 1e-5 * np.abs(b[diff]))
+
+
+@pytest.mark.parametrize("b", [1, 63, 65, 256])
+@pytest.mark.parametrize("keep", [130, 256, 1024, 1500])
+@pytest.mark.parametrize("base", ["1", "keep-1", "keep", "131075"])
+def test_q8_kernel_bit_equal_on_integers(cuda, b, keep, base):
+    """bruteforce_topk_q8 (through sweep_pool, pages past 1024) against
+    its plain twin on integer rows at power-of-two scales, D = 30 / 960
+    (element loads: D % 16 != 0, and 16-byte copies) and 128, L2 bit for
+    bit.  Cosine's score rounds 1 - dot * rsqrt once (the sweep's shared
+    epilogue contracts it to an FMA) where the twin rounds twice: distances
+    within 1e-6 relative and ids except at float64 near-ties."""
+    n = {"1": 1, "keep-1": keep - 1, "keep": keep, "131075": 131_075}[base]
+    for d in (30, 128, 960):
+        qv, qs, pts = (t.to(cuda) for t in shadow_case(n + d + keep, n + 37,
+                                                      d, b))
+        for metric in (0, 1):
+            before = cb.LAUNCHES["bruteforce_topk_q8"]
+            got = cb.sweep_pool(pts, (qv, qs), keep, metric, n)
+            torch.cuda.synchronize()
+            assert cb.LAUNCHES["bruteforce_topk_q8"] == before + (
+                1 if keep <= cb.MAX_K_RUN else 2)
+            want = cb._bruteforce_topk_plain(pts, (qv, qs), keep, metric, n)
+            live = min(n, keep)
+            assert bool((got[1][:, :live] >= 0).all())
+            assert bool((got[1][:, live:] == -1).all())
+            if metric == 0:
+                _assert_pool_bit_equal(got, want)
+            else:
+                rows = cb.dequantize_rows(qv[:n], qs[:n]).float()
+                _assert_pool_near(got, want, rows, pts, metric, 1e-6)
+
+
+@pytest.mark.parametrize("metric", [0, 1])
+@pytest.mark.parametrize("d,keep", [(128, 256), (100, 130), (960, 256),
+                                    (128, 1500)])
+def test_q8_kernel_real_scales(cuda, metric, d, keep):
+    """Scales that are not powers of two (quantize_rows of normal rows):
+    an element that slipped by one bf16 ulp would move scores far past
+    rtol 1e-6."""
+    qv, qs, pts = (t.to(cuda) for t in shadow_case(d + keep, 131_075, d,
+                                                  256, pow2=False))
+    n = 131_000
+    got = cb.sweep_pool(pts, (qv, qs), keep, metric, n)
+    want = cb._bruteforce_topk_plain(pts, (qv, qs), keep, metric, n)
+    rows = cb.dequantize_rows(qv[:n], qs[:n]).float()
+    _assert_pool_near(got, want, rows, pts, metric, 1e-6)
+
+
+def test_q8_kernel_on_shard_views(cuda):
+    """Each shard's view of a stacked [S, cap, D] shadow, with its own
+    count: a view's base lies s cap D bytes in (not 16-byte aligned at D =
+    24), and a D = 128 view that starts one byte in takes element loads
+    too."""
+    qv, qs, pts = shadow_case(31, 3 * 5003, 24, 65)
+    qv, qs = qv.view(3, 5003, 24).to(cuda), qs.view(3, 5003).to(cuda)
+    pts = pts.to(cuda)
+    for s, n in enumerate((5003, 4000, 17)):
+        got = cb.sweep_pool(pts, (qv[s], qs[s]), 256, 0, n)
+        _assert_pool_bit_equal(got, cb._bruteforce_topk_plain(
+            pts, (qv[s], qs[s]), 256, 0, n))
+    qv, qs, pts = (t.to(cuda) for t in shadow_case(32, 9001, 128, 64))
+    off = qv.view(-1)[1:1 + 9000 * 128].view(9000, 128)
+    got = cb.sweep_pool(pts, (off, qs[:9000]), 256, 0, 8999)
+    _assert_pool_bit_equal(got, cb._bruteforce_topk_plain(
+        pts, (off, qs[:9000]), 256, 0, 8999))
+
+
+def _build_counts(cuda, **kw):
+    """A 3,000-row build on the card in batches of 256: the sweep's
+    launches by instance and the torch-op sweeps on the card."""
+    from pg_embedding_tpu_torch.core import build as core_build
+    rng = np.random.default_rng(41)
+    pts = rng.normal(size=(3000, 32)).astype(np.float32)
+    idx = HnswIndex(HnswConfig(dims=32, m=8, ef_construction=32,
+                               ef_search=32, metric=kw.pop("metric", "l2")),
+                    device=cuda, **kw)
+    before = dict(cb.LAUNCHES), core_build.PLAIN_SWEEPS_ON_CARD
+    idx.build(pts)
+    launches = {k: v - before[0][k] for k, v in cb.LAUNCHES.items()}
+    return idx, pts, launches, core_build.PLAIN_SWEEPS_ON_CARD - before[1]
+
+
+@pytest.mark.parametrize("mode,storage,name", [
+    ("exact8", "float32", "bruteforce_topk_q8"),
+    ("exact", "float32", "bruteforce_topk"),
+    ("exact", "bfloat16", "bruteforce_topk_bf16")])
+@pytest.mark.parametrize("metric", ["l2", "cosine"])
+def test_build_sweep_is_one_launch_a_batch(cuda, mode, storage, name,
+                                           metric):
+    """Every build batch past the first (base 0: the empty pool, no
+    launch) is one launch of its mode's instance, and no sweep runs the
+    torch-op loop on the card; the links match a CPU build's."""
+    idx, pts, launches, plain = _build_counts(
+        cuda, build_candidates=mode, storage_dtype=storage, metric=metric)
+    assert launches[name] == 11 and plain == 0
+    assert sum(launches.values()) == 11
+    cpu = HnswIndex(idx.config, device="cpu", build_candidates=mode,
+                    storage_dtype=storage)
+    cpu.build(pts)
+    same = (idx.graph.links.cpu() == cpu.graph.links).all(dim=1)[:3000]
+    assert float(same.float().mean()) >= 0.95
+
+
+def test_manhattan_build_counts_its_loop(cuda):
+    """Manhattan has no matmul form: its sweep runs the torch-op loop on
+    the card, one counted call a batch (the first's loop sweeps no rows),
+    and no kernel."""
+    from pg_embedding_tpu_torch.core import build as core_build
+    idx, _, launches, plain = _build_counts(cuda, metric="manhattan")
+    assert plain == 12 and not any(launches.values())
+    before = core_build.PLAIN_SWEEPS_ON_CARD
+    core_build._exact_candidates(
+        idx.graph.vectors, idx.graph.vectors[:8], idx.n_nodes, cand_cap=64,
+        metric_value=2)
+    assert core_build.PLAIN_SWEEPS_ON_CARD == before + 1
+
+
+def test_build_sweep_keeps_tombstones(cuda):
+    """Tombstones stay candidates (deletes filter results, not waypoints):
+    an insert point equal to a deleted row finds it at distance 0."""
+    from pg_embedding_tpu_torch.core import build as core_build
+    rng = np.random.default_rng(42)
+    pts = rng.normal(size=(3000, 32)).astype(np.float32)
+    idx = HnswIndex(HnswConfig(dims=32, m=8, ef_construction=32,
+                               ef_search=32), device=cuda)
+    idx.build(pts)
+    dead = np.arange(0, 3000, 7)
+    idx.delete(dead)
+    qv, qs = idx._ensure_quantized()
+    batch = torch.as_tensor(pts[dead[:256]], device=cuda)
+    for kw in (dict(qvec=qv, qscale=qs), {}):
+        before = dict(cb.LAUNCHES)
+        d, i = core_build._exact_candidates(idx.graph.vectors, batch, 3000,
+                                            cand_cap=64, metric_value=0,
+                                            **kw)
+        assert sum(cb.LAUNCHES.values()) == sum(before.values()) + 1
+        assert torch.equal(i[:, 0].cpu(), torch.as_tensor(
+            dead[:256], dtype=torch.int32))
+        assert bool((d[:, 0] == 0).all())

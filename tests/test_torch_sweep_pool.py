@@ -1,0 +1,289 @@
+"""The build's candidate sweep (core/build._exact_candidates) on the CPU:
+the sweep kernel's plain twin (ops/cuda_bruteforce.sweep_pool, the pool
+the card's one launch computes) plus the exact rerank, against the
+torch-op chunk loop that the CPU runs, and both against the JAX package's
+_exact_candidates (jitted, as its insert programs run it) on the same
+numpy inputs; the int8 instance's element rule, launch shape and
+operands; the count of torch-op sweeps on the card.
+
+Tolerances: on random float data (no exact ties) the twin and the loop
+give equal ids and distances; against JAX, distances at rtol 1e-6 (float32
+sums in another order) and ids equal except float32 near-ties, judged in
+float64 (within 1e-5 relative of each other).  On tie-heavy integer data
+only distances are held to JAX (see test_ties_hold_distances_only)."""
+
+import functools
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pg_embedding_tpu.core import build as jb
+from pg_embedding_tpu_torch.core import build as tb
+from pg_embedding_tpu_torch.ops import cuda_bruteforce as cb
+from pg_embedding_tpu_torch.ops.bruteforce import _rerank_exact
+
+L2, COSINE, MANHATTAN = 0, 1, 2
+CAP, D, B, CAND_CAP, CHUNK = 3000, 16, 24, 64, 700
+# base not a multiple of the chunk; under both pools (128 / 66); empty
+BASES = {"ragged": 2345, "under keep": 50, "empty": 0}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """These tensors are small: one intra-op thread runs them faster than
+    many, and test files running side by side do not oversubscribe the
+    cores.  The count is restored for whatever runs next."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _random_inputs(seed=3):
+    rng = np.random.default_rng(seed)
+    rows = rng.normal(size=(CAP, D)).astype(np.float32)
+    pts = rng.normal(size=(B, D)).astype(np.float32)
+    qv, qs = tb.quantize_rows(torch.from_numpy(rows))
+    return rows, pts, qv.numpy(), qs.numpy()
+
+
+def _port(rows, pts, qv, qs, base, metric, coarse, cand_cap=CAND_CAP,
+          chunk=CHUNK):
+    """(the twin's pool + the rerank, the chunk loop) on the CPU."""
+    vectors, points = torch.from_numpy(rows), torch.from_numpy(pts)
+    shadow = dict(qvec=torch.from_numpy(qv), qscale=torch.from_numpy(qs))
+    keep = 2 * cand_cap if coarse else cand_cap + 2
+    src = (shadow["qvec"], shadow["qscale"]) if coarse else vectors
+    _, pool = cb.sweep_pool(points, src, keep, metric, base)
+    twin = _rerank_exact(points, vectors, pool, k=cand_cap,
+                         metric_value=metric)
+    loop = tb._exact_candidates(vectors, points, base, cand_cap=cand_cap,
+                                metric_value=metric, chunk=chunk,
+                                **(shadow if coarse else {}))
+    return twin, loop
+
+
+def _jax(rows, pts, qv, qs, base, metric, coarse, cand_cap=CAND_CAP,
+         chunk=CHUNK):
+    fn = jax.jit(functools.partial(jb._exact_candidates, cand_cap=cand_cap,
+                                   metric_value=metric, chunk=chunk))
+    kw = dict(qvec=jnp.asarray(qv), qscale=jnp.asarray(qs)) if coarse else {}
+    d, i = fn(jnp.asarray(rows), jnp.asarray(pts), jnp.int32(base), **kw)
+    return np.asarray(d), np.asarray(i)
+
+
+def _dist64(rows, pts, ids, metric):
+    """float64 distances of each point to its rows ``ids`` (inf for -1)."""
+    p = rows[np.maximum(ids, 0)].astype(np.float64)
+    q = pts.astype(np.float64)[:, None, :]
+    if metric == L2:
+        d = np.sqrt(((p - q) ** 2).sum(-1))
+    else:
+        d = 1.0 - (p * q).sum(-1) / np.sqrt((p * p).sum(-1) * (q * q).sum(-1))
+    return np.where(ids >= 0, d, np.inf)
+
+
+@pytest.mark.parametrize("base", list(BASES))
+@pytest.mark.parametrize("coarse", [True, False], ids=["exact8", "exact"])
+@pytest.mark.parametrize("metric", [L2, COSINE], ids=["l2", "cosine"])
+def test_twin_pool_equals_chunk_loop_and_jax(metric, coarse, base):
+    rows, pts, qv, qs = _random_inputs()
+    n = BASES[base]
+    (td, ti), (ld, li) = _port(rows, pts, qv, qs, n, metric, coarse)
+    np.testing.assert_array_equal(ti.numpy(), li.numpy())
+    np.testing.assert_array_equal(td.numpy(), ld.numpy())
+    jd, ji = _jax(rows, pts, qv, qs, n, metric, coarse)
+    got_d, got_i = td.numpy(), ti.numpy()
+    np.testing.assert_array_equal(np.isinf(got_d), np.isinf(jd))
+    fin = np.isfinite(jd)
+    np.testing.assert_allclose(got_d[fin], jd[fin], rtol=1e-6, atol=1e-7)
+    assert (got_i[~fin] == -1).all() and (ji[~fin] == -1).all()
+    diff = got_i != ji
+    a, b = _dist64(rows, pts, got_i, metric), _dist64(rows, pts, ji, metric)
+    assert np.all(np.abs(a[diff] - b[diff]) <= 1e-5 * np.abs(b[diff]))
+    if n == 0:
+        assert (got_i == -1).all()
+    else:
+        valid = (got_i >= 0).sum(1)
+        assert (valid == min(n, CAND_CAP)).all()
+        assert (got_i < n).all()
+
+
+@pytest.mark.parametrize("coarse", [True, False], ids=["exact8", "exact"])
+@pytest.mark.parametrize("metric", [L2, COSINE], ids=["l2", "cosine"])
+def test_ties_hold_distances_only(metric, coarse):
+    """6,000 x 16 rows with coordinates in [-2, 2]: the distance at every
+    rank is shared by many rows.  The port keeps the lowest ids among
+    equal scores (every top-k of the port does); JAX's approx_min_k on the
+    CPU keeps its own order among equal values (not the lowest ids), so
+    the chosen members of a tie group differ between the packages.  The
+    distances at every rank must agree, and each side's ids must have the
+    same multiset of true distances: the same tie groups, other members."""
+    rng = np.random.default_rng(21)
+    rows = rng.integers(-2, 3, size=(6000, 16)).astype(np.float32)
+    pts = rng.integers(-2, 3, size=(32, 16)).astype(np.float32)
+    qv, qs = (t.numpy() for t in tb.quantize_rows(torch.from_numpy(rows)))
+    n = 5900
+    (td, ti), (ld, li) = _port(rows, pts, qv, qs, n, metric, coarse,
+                               chunk=2048)
+    jd, ji = _jax(rows, pts, qv, qs, n, metric, coarse, chunk=2048)
+    for d, i in ((td.numpy(), ti.numpy()), (ld.numpy(), li.numpy())):
+        np.testing.assert_allclose(d, jd, rtol=1e-6, atol=1e-7)
+        np.testing.assert_allclose(
+            np.sort(_dist64(rows, pts, i, metric), axis=1),
+            np.sort(_dist64(rows, pts, ji, metric), axis=1),
+            rtol=1e-6, atol=1e-7)
+        assert (i >= 0).all() and (i < n).all()
+
+
+def _bf16_rne(x):
+    """float32 -> bf16 -> float32, to nearest even, by the kernel's integer
+    rule (round_bf16 in csrc/bruteforce_topk.cu)."""
+    u = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    u = (u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000
+    return u.astype(np.uint32).view(np.float32)
+
+
+def test_widening_is_the_bf16_product_bit_for_bit():
+    """The kernel's int8 element, round_bf16(float(q) * round_bf16(s)),
+    rendered in numpy, against dequantize_rows (qvec.bf16 * qscale.bf16)
+    over every int8 value and scales of many magnitudes, including ones
+    whose low 16 bits sit at the rounding midpoint (ties to even) and the
+    scales quantize_rows makes."""
+    rng = np.random.default_rng(4)
+    scales = np.concatenate([
+        np.exp(rng.uniform(-30, 10, 3000)),
+        (rng.integers(1 << 22, 1 << 30, 500).astype(np.uint32)
+         & np.uint32(0xFFFF0000) | np.uint32(0x8000)).view(np.float32),
+        tb.quantize_rows(torch.from_numpy(
+            rng.normal(size=(500, 8)).astype(np.float32) * 3))[1].numpy(),
+    ]).astype(np.float32)
+    scales = scales[np.isfinite(scales) & (scales > 0)]
+    q = np.arange(-128, 128, dtype=np.int8)
+    qv = np.broadcast_to(q, (len(scales), 256)).copy()
+    want = cb.dequantize_rows(torch.from_numpy(qv), torch.from_numpy(scales))
+    got = _bf16_rne(qv.astype(np.float32) * _bf16_rne(scales)[:, None])
+    np.testing.assert_array_equal(got.view(np.uint32),
+                                  want.float().numpy().view(np.uint32))
+    # the float32 product of the two bf16 values is exact: one rounding
+    exact = qv.astype(np.float64) * _bf16_rne(scales)[:, None]
+    assert np.array_equal(exact, qv.astype(np.float32)
+                          * _bf16_rne(scales)[:, None])
+
+
+def _c_smem_bytes(itemsize, qt, k_run, dims, q_res):
+    """sweep_smem_bytes<T> of csrc/bruteforce_topk.cu, term by term: two
+    ring stages of [128 x (32 + 16 / itemsize)] elements (+ 128 float32
+    scales for int8 rows, + a [QT x 36] float32 query chunk when queries
+    stream), the resident [QT x (32 ceil(D / 32) + 4)] queries, the [QT x
+    136] score tile, |q|^2, |p|^2 and the [QT x k_run] (score, id) lists."""
+    stage = (128 * (32 + 16 // itemsize) * itemsize
+             + (128 * 4 if itemsize == 1 else 0)
+             + (0 if q_res else qt * 36 * 4))
+    q_stride = 32 * -(-dims // 32) + 4
+    return (2 * stage + 4 * ((qt * q_stride if q_res else 0) + qt * 136
+                             + qt + 128) + 8 * qt * k_run)
+
+
+@pytest.mark.parametrize("itemsize", [1, 2, 4])
+@pytest.mark.parametrize("dims", [30, 128, 960])
+def test_smem_bytes_match_the_kernel(itemsize, dims):
+    src = open(os.path.join(os.path.dirname(cb.__file__), "..", "csrc",
+                            "bruteforce_topk.cu")).read()
+    assert ("(scaled_rows<T>() ? kTileN * sizeof(float) : 0)" in src
+            and "return std::is_same<T, int8_t>::value;" in src)
+    for qt in (64, 16):
+        for k_run in (1, 130, 256, 1024):
+            for q_res in (True, False):
+                assert cb._smem_bytes(qt, k_run, itemsize, dims, q_res) == (
+                    _c_smem_bytes(itemsize, qt, k_run, dims, q_res))
+        for k_run in range(1, cb.MAX_K_RUN + 1, 7):
+            _, _, _, smem = cb._launch_shape(256, 1_000_000, k_run, 132,
+                                             itemsize, dims)
+            assert smem <= cb.SMEM_LIMIT
+
+
+def test_launch_shape_of_the_build_sweep():
+    """One 256-row insert batch at 1M x 128-d: exact8's pool of 256 (QT =
+    64, queries resident, one block an SM: 33 splits of 4 query tiles fill
+    132 SMs once); exact mode's 130 over float32 rows; 960-d streams."""
+    assert cb._launch_shape(256, 1_000_000, 256, 132, 1, 128) == (
+        64, 33, True, 213_760)
+    assert cb._launch_shape(256, 1_000_000, 130, 132, 4, 128) == (
+        64, 33, True, 172_800)
+    assert not cb._launch_shape(256, 1_000_000, 256, 132, 1, 960)[2]
+    assert cb._launch_shape(256, 1_000_000, 257, 132, 1, 128)[0] == 16
+
+
+def test_sweep_pool_pages_past_one_launch():
+    """keep past MAX_K_RUN (efc > 256) runs in pages that concatenate to
+    the twin's one list, over the int8 shadow too."""
+    rng = np.random.default_rng(6)
+    rows = rng.normal(size=(4000, 12)).astype(np.float32)
+    qv, qs = tb.quantize_rows(torch.from_numpy(rows))
+    pts = torch.from_numpy(rng.normal(size=(5, 12)).astype(np.float32))
+    for src in ((qv, qs), torch.from_numpy(rows)):
+        for metric in (L2, COSINE):
+            got = cb.sweep_pool(pts, src, 1500, metric, 3900)
+            want = cb._bruteforce_topk_plain(pts, src, 1500, metric, 3900)
+            assert torch.equal(got[1], want[1])
+            assert torch.equal(got[0], want[0])
+
+
+def test_wrapper_checks_the_shadow():
+    qv = torch.zeros((100, 8), dtype=torch.int8)
+    qs = torch.ones(100)
+    pts = torch.zeros((2, 8))
+    with pytest.raises(ValueError, match="int8"):
+        cb.bruteforce_topk(pts, (qv.float(), qs), 5, L2, 100)
+    with pytest.raises(ValueError, match="qscale"):
+        cb.bruteforce_topk(pts, (qv, qs[:99]), 5, L2, 100)
+    with pytest.raises(ValueError, match="qscale"):
+        cb.bruteforce_topk(pts, (qv, qs.double()), 5, L2, 100)
+    with pytest.raises(ValueError, match="contiguous"):
+        cb.bruteforce_topk(pts, (torch.zeros((8, 100), dtype=torch.int8).T,
+                                 qs), 5, L2, 100)
+    with pytest.raises(ValueError, match="contiguous"):
+        cb.bruteforce_topk(pts, (qv, torch.ones(200)[::2]), 5, L2, 100)
+    with pytest.raises(ValueError, match="shapes"):
+        cb.bruteforce_topk(torch.zeros((2, 9)), (qv, qs), 5, L2, 100)
+    with pytest.raises(ValueError, match="pair"):
+        cb.bruteforce_topk(pts, (qv, qs, qs), 5, L2, 100)
+    with pytest.raises(ValueError, match="L2 or cosine"):
+        cb.sweep_pool(pts, (qv, qs), 5, MANHATTAN, 100)
+
+
+@pytest.mark.parametrize("metric", [L2, COSINE, MANHATTAN])
+@pytest.mark.parametrize("coarse", [True, False], ids=["exact8", "exact"])
+def test_cpu_sweeps_are_not_counted(metric, coarse):
+    """PLAIN_SWEEPS_ON_CARD counts torch-op sweeps on a CUDA tensor only;
+    the CPU's loop is its route, not a fallback."""
+    rows, pts, qv, qs = _random_inputs()
+    before = tb.PLAIN_SWEEPS_ON_CARD
+    _, loop = _port(rows, pts, qv, qs, 2345, metric, coarse) if (
+        metric != MANHATTAN) else (None, tb._exact_candidates(
+            torch.from_numpy(rows), torch.from_numpy(pts), 2345,
+            cand_cap=CAND_CAP, metric_value=metric, chunk=CHUNK,
+            **(dict(qvec=torch.from_numpy(qv), qscale=torch.from_numpy(qs))
+               if coarse else {})))
+    assert (loop[1] >= 0).all()
+    assert tb.PLAIN_SWEEPS_ON_CARD == before
+
+
+def test_sweep_probe_rewrites_find_their_text():
+    """sweep_probe builds its variants by rewriting the sweep's source:
+    each rewrite still finds its text in the source as it is."""
+    from pg_embedding_tpu_torch import sweep_probe
+    src = open(sweep_probe.SRC).read()
+    got = sweep_probe.variants(src)
+    assert got["kernel"] == src
+    assert got["no-select"].count("#if 0") == 1
+    assert got["loads-only"].count("#if 0") == 2
+    assert "if (0) asm(\"mma.sync" in got["loads-only"]
+    assert "cvt.rna.tf32.f32" in got["cvt-rounding"]
+    assert "if (false) {" in got["smem-lists"]
+    assert len({*got.values()}) == 5
