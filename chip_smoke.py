@@ -11,16 +11,22 @@ exits non-zero):
   1. device: the card's name and power limit, torch/CUDA versions, TF32 off;
   2. build the CUDA kernels from the repository's sources;
   3. the kernel: its compiler report (registers, spills) and the TF32
-     HMMA instructions of each of its 12 sweep instances (cuobjdump -sass;
-     the eight float32 / bf16 ones must report the registers and spills
-     they had before the int8 instance, SWEEP_PTXAS); against its
+     HMMA instructions of each of its 16 sweep instances (cuobjdump -sass;
+     the exact route's eight float32 / bf16 ones must report the registers
+     and spills they had before the int8 instance, SWEEP_PTXAS; the four
+     wide float32 / bf16 ones and the four int8 ones are printed); against
+     its
      plain torch twin: L2 and cosine, D in {30, 100, 128, 960}, k_run from 1
      to 1024 with each query tile's edges (64 / 65, 256 / 257), B not a
      multiple of the tile, with and without n_valid < N and tombstones, one
      k > n_valid case, up to 1M rows x 1024 queries, for a float32 corpus,
      a bfloat16 one (aligned and an unaligned view) and an int8 shadow
      (bruteforce_topk_q8: the build's 1M x 256-row pool of 256, D = 100 /
-     960, QT = 16, pages, a view one byte in); k_run 1502, 2100 and 1500 in
+     960, QT = 16, pages, a view one byte in); k_run from 64 to 256 over
+     float32 / bf16 rows runs the wide instances (bruteforce_topk_wide /
+     _bf16_wide, with exact mode's 1M x 256-row pool of 130 and the exact
+     route's k = 100 at B = 1024);
+     k_run 1502, 2100 and 1500 in
      pages (bruteforce_topk_paged) against the plain twin's one
      list; at 1M x 128-d,
      B=1024, k_run=12 (CUDA events) each instantiation's time, its bound
@@ -36,7 +42,10 @@ exits non-zero):
      beside EARLIER_RECALL; T=4's is printed), deletes never surfacing;
      every build batch past the first one bruteforce_topk_q8 launch (the
      build's candidate sweep) and no torch-op sweep on the card; before
-     it, a small build that must match the same build on the CPU;
+     it, a small build that must match the same build on the CPU, and
+     exact-mode builds of 4,000 rows (float32 and bf16 storage: one launch
+     of the wide instance a batch past the first, link rows >= 95% equal
+     to the CPU's);
  4b. right after the main path, on its index: the walk and prune kernels
      (ops/cuda_graph) against their plain twins.  beam_walk at ef=64, T=4
      and T=8 on the 1,024 queries against core/search._search_batch called
@@ -81,12 +90,15 @@ exits non-zero):
      ids except float64 near-ties), the final cand_cap after the exact
      rerank equal on >= 99.9% of rows, its time a call and on the card
      beside its bound (2 TF32 passes), the twin, the torch-op loop it
-     replaced (loop_pool) and torch.matmul + torch.topk; the same for
-     exact mode (bruteforce_topk over float32 rows, pool cand_cap + 2);
-     two more add()s: one broken down on the host clock (staging, sweep,
-     prune, _connect_batch's rounds, re-prunes and the host's waits on the
-     card) with its peak device memory, one through loop_pool with its
-     peak; then a 200,000-row build through the kernel and again with
+     replaced (loop_pool) and torch.matmul + torch.topk, which the kernel
+     must beat on the card; the same for exact mode (bruteforce_topk_wide
+     over float32 rows and bruteforce_topk_bf16_wide over their bf16
+     values, pool cand_cap + 2, beside addmm + topk); two more add()s:
+     one broken down on the host clock (staging, sweep, prune,
+     _connect_batch's rounds, re-prunes and the host's waits on the card,
+     the wait at int(rank.max()) on a line of its own) with its peak
+     device memory, one through loop_pool with its peak; then a
+     200,000-row build through the kernel and again with
      core/build's sweep swapped for loop_pool: link rows >= 99.9%
      identical, graph recall@10 within 0.002;
   5. on the same index: tune_exact8_chunk (its cache in a temp dir, not
@@ -171,9 +183,10 @@ exits non-zero):
      float64 oracle, and the pull scan against order_by through the index.
 Phases are timed with utils/profiling's Timer (synchronising the card).
 The last three lines are the card's nvidia-smi line, a JSON line of the
-kernels ("launches" from the main path of phase 4; bruteforce_topk_q8's
-timings are phase 4b's on the add()'s batch, with "loop_ms" (the torch-op
-loop it replaced) and "exact" (exact mode's numbers); for prune_scan also
+kernels ("launches" from the main path of phase 4, the wide instances'
+from the exact-mode builds; the build sweep instances' timings are phase
+4b's on the add()'s batch, with "loop_ms" (the torch-op loop each
+replaced); for prune_scan also
 "insert_launches" and "reprune_launches", the build's launches at each
 width, and the re-prune shape's "reprune_ms", "reprune_device_ms",
 "reprune_plain_ms" and "reprune_bound_ms"; "ms" is a call's time between
@@ -238,7 +251,11 @@ MP_WORLD = 2
 MP_BUILD_ROWS = 200_000
 MP_TIMEOUT = 420
 LAUNCH_NAMES = ("bruteforce_topk", "bruteforce_topk_bf16",
-                "bruteforce_topk_q8", "beam_walk", "prune_scan")
+                "bruteforce_topk_q8", "bruteforce_topk_wide",
+                "bruteforce_topk_bf16_wide", "beam_walk", "prune_scan")
+# the sweep's instances of the build's pools (exact8, exact mode)
+BUILD_SWEEPS = ("bruteforce_topk_q8", "bruteforce_topk_wide",
+                "bruteforce_topk_bf16_wide")
 # phase 4b: the walk kernel's beam and widths at 1M
 WALK_EF = 64
 WALK_TS = (4, 8)
@@ -271,6 +288,9 @@ SWEEP_PTXAS = {
 # each sweep instance's time at 1M x 128-d, B=1024, k_run=12 when its code
 # last changed (PERF.md, Findings)
 EARLIER_MS = {"bruteforce_topk": 6.604, "bruteforce_topk_bf16": 5.287}
+# the build's sweep on the card (phase 4b) before the wide selection:
+# bruteforce_topk_q8's and exact mode's (PERF.md, Findings)
+EARLIER_SWEEP_MS = {"exact8": 6.746, "exact": 5.975}
 # phase 4b: the rows of the build built twice (the sweep kernel, then the
 # torch-op loop in its place); the graph recall@10 at 1M, T=8, of the graph
 # the torch-op sweep built (PERF.md, Findings)
@@ -402,10 +422,19 @@ def kernel_phase(torch, cb, dev):
         (COSINE, 200_000, 128, 63, 257, 0.8, True, "q8"),
         (L2, 200_000, 128, 64, 1500, 0.9, False, "q8"),
         (L2, 100_000, 128, 256, 256, 1.0, True, "q8 unaligned"),
+        # the float32 / bf16 wide instances (k_run from WIDE_MIN_K to 256;
+        # the cases above at k_run 64-256 run them too): exact mode's build
+        # sweep at 1M (B = 256, pool cand_cap + 2 = 130), the exact route's
+        # k = 100 at B = 1024 with n_valid < N and tombstones, D % 4 != 0
+        (L2, 1_000_000, 128, 256, 130, 1.0, False, f32),
+        (L2, 300_000, 128, 1024, 102, 0.9, True, f32),
+        (COSINE, 100_000, 30, 17, 64, 0.8, True, f32),
+        (L2, 1_000_000, 128, 256, 130, 1.0, False, bf16),
+        (COSINE, 100_000, 960, 63, 256, 1.0, True, bf16),
     ]
     from pg_embedding_tpu_torch.core.build import quantize_rows
     i8 = torch.int8
-    max_err = {f32: 0.0, bf16: 0.0, i8: 0.0}
+    max_err = dict.fromkeys(cb.LAUNCHES, 0.0)
     for metric, n, d, b, k_run, frac, tomb, dtype in cases:
         g = torch.Generator(device=dev).manual_seed(SEED + n + d + k_run)
         unaligned = dtype in ("bf16 unaligned", "q8 unaligned")
@@ -437,8 +466,9 @@ def kernel_phase(torch, cb, dev):
         live = n_valid - (0 if dead is None else int(dead[:n_valid].sum()))
         if k_run > live:
             check(bool((got[1][:, live:] == -1).all()), "k > n_valid padding")
-        max_err[dtype] = max(max_err[dtype], err)
-        log(f"kernel vs plain: {cb._KERNELS[dtype]}"
+        name = cb._instance(dtype, k_run)[0]
+        max_err[name] = max(max_err[name], err)
+        log(f"kernel vs plain: {name}"
             f"{' (unaligned view)' if unaligned else ''} "
             f"{'l2' if metric == L2 else 'cosine'} "
             f"N={n} D={d} B={b} k_run={k_run} n_valid={n_valid} "
@@ -474,11 +504,12 @@ def kernel_phase(torch, cb, dev):
         log(f"{name} at 1M: {ms:.3f} ms against its earlier "
             f"{EARLIER_MS[name]:.3f} ms ({ms - EARLIER_MS[name]:+.3f} ms; "
             f"the same code, as phase 3's report shows)")
-        out[name] = dict(max_abs_err=max_err[corpus.dtype], ms=ms,
+        out[name] = dict(max_abs_err=max_err[name], ms=ms,
                          plain_ms=(plain_ms + plain_ms2) / 2,
                          bound_ms=bound, bound_by=bound_by,
                          library_ms=lib_ms)
-    out["bruteforce_topk_q8"] = dict(max_abs_err=max_err[i8])
+    for name in BUILD_SWEEPS:
+        out[name] = dict(max_abs_err=max_err[name])
     return out
 
 
@@ -511,16 +542,17 @@ def library_ms(torch, qs, rows, k_run):
 
 
 def compiler_report(_kernels):
-    """ptxas's registers and spills for each sweep instance, and the TF32
-    HMMA count of each in the built library's SASS; fails if an instance
-    runs no TF32 HMMA, or if one of the eight float32 / bf16 instances
-    reports other registers or spills than before (SWEEP_PTXAS)."""
+    """ptxas's registers and spills for each sweep instance (the exact
+    route's eight, the four wide float32 / bf16 ones and the four int8
+    ones), and the TF32 HMMA count of each in the built library's SASS;
+    fails if an instance runs no TF32 HMMA, or if one of the exact route's
+    eight reports other registers or spills than before (SWEEP_PTXAS)."""
     def instance(mangled):
-        m = re.search(r"sweep_kernel(?:_q8)?ILi(\d+)ELb([01])E([ft]?)E",
-                      mangled)
-        return m and (f"sweep_kernel<QT={m[1]}, "
-                      f"{'resident' if m[2] == '1' else 'streamed'} queries, "
-                      f"{dict(f='float', t='bf16').get(m[3], 'int8')}>")
+        m = re.search(r"sweep_kernel(_wide)?(?:_q8)?ILi(\d+)ELb([01])E"
+                      r"([ft]?)E", mangled)
+        return m and (f"sweep_kernel{m[1] or ''}<QT={m[2]}, "
+                      f"{'resident' if m[3] == '1' else 'streamed'} queries, "
+                      f"{dict(f='float', t='bf16').get(m[4], 'int8')}>")
     def graph_instance(mangled):
         m = re.search(r"beam_walk_kernelILi(\d)ELb([01])ELi(\d+)ELb([01])E",
                       mangled)
@@ -566,7 +598,7 @@ def compiler_report(_kernels):
                                .strip())
     for name in sorted(counts):
         log(f"sass {name}: {counts[name]} TF32 HMMA, e.g. {example[name]}")
-    check(len(built) == 12 and set(counts) == built,
+    check(len(built) == 16 and set(counts) == built,
           f"TF32 HMMA in {len(counts)} of {len(built)} sweep instances")
     for name, want in SWEEP_PTXAS.items():
         check(reports.get(name) == list(want),
@@ -591,6 +623,38 @@ def small_build_matches_cpu(torch, HnswConfig, HnswIndex, dev):
         f"{frac:.4f}, graph ids {gsame:.4f}, exact ids {esame:.4f}")
     check(frac >= 0.95 and gsame >= 0.95 and esame >= 0.99,
           "cuda and cpu builds disagree")
+
+
+def exact_mode_builds(torch, cb, HnswConfig, HnswIndex, dev):
+    """The wide float32 / bf16 instances' own path: a 4,000-row build with
+    build_candidates="exact" at each storage dtype, one launch of its wide
+    instance a batch past the first (counted from 0 over the build) and no
+    other sweep, link rows >= 95% equal to the same build on the CPU.
+    Returns {instance: its launches}."""
+    from pg_embedding_tpu_torch.core import build as core_build
+    pts, _ = make_data(SEED + 11, 4000, 1)
+    cfg = HnswConfig(dims=DIMS, m=16, ef_construction=64, ef_search=64)
+    launches = {}
+    for storage, name in (("float32", "bruteforce_topk_wide"),
+                          ("bfloat16", "bruteforce_topk_bf16_wide")):
+        kw = dict(build_candidates="exact", storage_dtype=storage)
+        gpu = HnswIndex(cfg, device=dev, **kw)
+        cpu = HnswIndex(cfg, device="cpu", **kw)
+        before = dict(cb.LAUNCHES)
+        gpu.build(pts)
+        ran = {k: v - before[k] for k, v in cb.LAUNCHES.items()}
+        cpu.build(pts)
+        same = float((gpu.graph.links.cpu() == cpu.graph.links)
+                     .all(dim=1)[:4000].float().mean())
+        batches = len(core_build.build_schedule(len(pts),
+                                                gpu.max_insert_batch))
+        log(f"exact-mode build (4000 x 128-d, {storage} rows) cuda vs cpu: "
+            f"identical link rows {same:.4f}; sweep launches {ran}")
+        check(ran[name] == batches - 1 and sum(ran.values()) == ran[name],
+              f"exact mode, {storage}: {ran} over {batches} batches")
+        check(same >= 0.95, f"exact mode, {storage}: link rows {same}")
+        launches[name] = ran[name]
+    return launches
 
 
 class own_twin_calls:
@@ -1044,7 +1108,7 @@ def walk_kernels_phase(torch, idx, qs, dev, tmp, single, profile_lib):
                 reprune_launches=launches, reprune_shape=[bsz, c, nn])
     phase_breakdown(torch, g, q, captured, profile_lib)
     check(len(sweeps) == 1, f"the add() ran {len(sweeps)} candidate sweeps")
-    out["bruteforce_topk_q8"] = sweep_phase(torch, idx, sweeps[0])
+    out.update(sweep_phase(torch, idx, sweeps[0]))
     add_phase(torch, idx, qs)
     return out
 
@@ -1084,15 +1148,18 @@ def sweep_yardstick_ms(torch, points, rows, keep):
 
 def sweep_phase(torch, idx, args):
     """The build's candidate sweep on the add()'s own batch (``args``:
-    sweep_pool's points, int8 shadow, pool, metric and base): the kernel's
-    pool against its plain twin (_bruteforce_topk_plain) on the card
+    sweep_pool's points, int8 shadow, pool, metric and base), in each mode:
+    exact8 (bruteforce_topk_q8 over the shadow, pool 2 cand_cap) and exact
+    mode (bruteforce_topk_wide over the index's float32 rows and
+    bruteforce_topk_bf16_wide over their bf16 values, pool cand_cap + 2).
+    Each pool against its plain twin (_bruteforce_topk_plain) on the card
     (distances within the cancellation tolerance of phase 9, ids equal
     except float64 near-ties), the final cand_cap after the exact rerank
-    equal on >= 99.9% of the batch's rows; its time a call and on the card
-    beside the bound, the twin, the torch-op loop it replaced (loop_pool)
-    and torch.matmul + torch.topk; the same for exact mode (float32 rows,
-    pool cand_cap + 2) over the index's rows.  Returns the kernels line's
-    numbers for bruteforce_topk_q8."""
+    equal on >= 99.9% of the batch's rows (exact8); its time a call and on
+    the card beside the bound, the twin, the torch-op loop it replaced
+    (loop_pool) and the library call (torch.matmul + torch.topk for exact8,
+    addmm + topk for exact mode), all in this run, which the kernel must
+    beat on the card.  Returns the kernels line's numbers by instance."""
     from pg_embedding_tpu_torch.graph_probe import device_ms
     from pg_embedding_tpu_torch.ops import cuda_bruteforce as cb
     from pg_embedding_tpu_torch.ops.bruteforce import _rerank_exact
@@ -1102,10 +1169,13 @@ def sweep_phase(torch, idx, args):
     vectors = idx.graph.vectors
     out = {}
     for mode, rows, pool in (("exact8", shadow, keep),
-                             ("exact", vectors, cand_cap + 2)):
+                             ("exact", vectors, cand_cap + 2),
+                             ("exact bf16", vectors.to(torch.bfloat16),
+                              cand_cap + 2)):
         scaled = mode == "exact8"
         dense = (cb.dequantize_rows(shadow[0][:base], shadow[1][:base])
-                 .float() if scaled else vectors[:base])
+                 .float() if scaled else rows[:base].float())
+        name = cb._instance(torch.int8 if scaled else rows.dtype, pool)[0]
 
         def kernel():
             return cb.sweep_pool(points, rows, pool, metric, base)
@@ -1132,29 +1202,35 @@ def sweep_phase(torch, idx, args):
             loop_ms = median_ms(torch, loop)
         lib_ms = (sweep_yardstick_ms(torch, points, dense, pool) if scaled
                   else library_ms(torch, points, dense, pool))
-        bound, bound_by = bound_ms(b, base, d, rows[0].element_size()
-                                   if scaled else 4, pool)
-        name = "bruteforce_topk_q8" if scaled else "bruteforce_topk"
+        bound, bound_by = bound_ms(b, base, d, (rows[0] if scaled else rows)
+                                   .element_size(), pool)
+        earlier = EARLIER_SWEEP_MS.get(mode)
+        before = ("" if earlier is None
+                  else f"; {earlier} before the wide selection")
         log(f"the build's sweep ({mode}: {name}) on the add()'s batch at "
             f"{base} rows, B={b}, pool {pool}: vs its plain twin "
             f"max_abs_err {err:.3g}, {swaps} float64 near-tie id swaps; "
             f"final {cand_cap} candidates after the exact rerank equal on "
             f"{same:.4f} of rows ({same_loop:.4f} against the torch-op "
             f"loop's); kernel {ms:.3f} ms a call, {dev_ms:.3f} ms on the "
-            f"card (a CUDA graph of 20 calls); bound {bound:.4f} ms "
-            f"({bound_by}; {bound / dev_ms:.1%} of it reached on the "
-            f"card); plain twin {plain_ms:.3f} ms; the torch-op loop it "
-            f"replaced {loop_ms:.3f} ms; library (torch.matmul + torch.topk)"
-            f" {lib_ms:.3f} ms (median of 5, CUDA events)")
+            f"card (a CUDA graph of 20 calls"
+            f"{before}"
+            f"); bound {bound:.4f} ms ({bound_by}; {bound / dev_ms:.1%} of it "
+            f"reached on the card); plain twin {plain_ms:.3f} ms; the "
+            f"torch-op loop it replaced {loop_ms:.3f} ms; library "
+            f"({'torch.matmul' if scaled else 'torch.addmm'} + torch.topk) "
+            f"{lib_ms:.3f} ms (median of 5, CUDA events)")
+        check(dev_ms < lib_ms, f"{mode}: the kernel's {dev_ms:.3f} ms on the "
+              f"card is not below the library call's {lib_ms:.3f} ms")
         # exact mode's pad of 2 leaves the rerank no room for a pool-edge
         # near-tie (the pool itself is held above); exact8's pool is 2x
         if scaled:
             check(same >= 0.999, f"{mode}: final candidates equal on {same}")
-        out[mode] = dict(max_abs_err=err, ms=ms, device_ms=dev_ms,
+        out[name] = dict(max_abs_err=err, ms=ms, device_ms=dev_ms,
                          plain_ms=plain_ms, loop_ms=loop_ms, bound_ms=bound,
                          bound_by=bound_by, library_ms=lib_ms)
         del dense
-    return dict(out.pop("exact8"), exact=out["exact"])
+    return out
 
 
 def add_phase(torch, idx, qs):
@@ -1237,6 +1313,11 @@ def add_phase(torch, idx, qs):
         f"{rounds} back-link rounds; {own}; the rest (insert_batch_core's "
         f"own ops, the API, the closing synchronisation) "
         f"{wall - sum(parts.values()) * 1e3:.3f} ms")
+    log(f"add() host wait at _connect_batch's int(rank.max()) (the wiring's "
+        f"first synchronisation, where the host waits for the sweep and the "
+        f"prune on the card): "
+        f"{parts.get('connect: int()', 0.0) * 1e3:.3f} ms "
+        f"({counts.get('connect: int()', 0)}x)")
     log(f"add() peak device memory above what was allocated before it: "
         f"{peak['kernel']:.1f} MiB through the sweep kernel, "
         f"{peak['twin']:.1f} MiB through the torch-op loop")
@@ -2487,16 +2568,20 @@ def main():
     timings = kernel_phase(torch, cb, dev)
     walk_variants = {}                 # variant_vs_twin's numbers, by name
     small_build_matches_cpu(torch, HnswConfig, HnswIndex, dev)
+    exact_mode_launches = exact_mode_builds(torch, cb, HnswConfig, HnswIndex,
+                                            dev)
     idx, pts, qs, main_launches, single = main_path(
         torch, cb, HnswConfig, HnswIndex, dev, args.n, args.queries)
     os.makedirs(os.path.join(REPO, ".kernel_build"), exist_ok=True)
     with tempfile.TemporaryDirectory(
             dir=os.path.join(REPO, ".kernel_build")) as tmp:
-        sweep = timings.pop("bruteforce_topk_q8")
+        # the build's sweep instances: phase 3's errors, phase 4b's numbers
+        phase3 = {name: timings.pop(name) for name in BUILD_SWEEPS}
         timings.update(walk_kernels_phase(torch, idx, qs, dev, tmp,
                                           single, profile_lib))
-        timings["bruteforce_topk_q8"]["max_abs_err"] = max(
-            sweep["max_abs_err"], timings["bruteforce_topk_q8"]["max_abs_err"])
+        for name, numbers in phase3.items():
+            timings[name]["max_abs_err"] = max(
+                numbers["max_abs_err"], timings[name]["max_abs_err"])
         twin_build_phase(torch, HnswConfig, HnswIndex, dev, pts, qs)
         wide_k_phase(torch, cb, idx, qs)
         serving_variants(torch, idx, qs, walk_variants)
@@ -2553,6 +2638,13 @@ def main():
             ("bruteforce_topk", main_launches, sweep),
             ("bruteforce_topk_bf16", bf16_launches, sweep),
             ("bruteforce_topk_q8", main_launches,
+             ("pg_embedding_tpu_torch/csrc/bruteforce_topk.cu",
+              "pg_embedding_tpu/core/build.py:287")),
+            # exact mode's build sweep: launches over its own builds
+            ("bruteforce_topk_wide", exact_mode_launches,
+             ("pg_embedding_tpu_torch/csrc/bruteforce_topk.cu",
+              "pg_embedding_tpu/core/build.py:287")),
+            ("bruteforce_topk_bf16_wide", exact_mode_launches,
              ("pg_embedding_tpu_torch/csrc/bruteforce_topk.cu",
               "pg_embedding_tpu/core/build.py:287")),
             ("beam_walk", main_launches,

@@ -61,8 +61,14 @@ def declare_sweep(lib) -> None:
     for fn in (lib.bruteforce_topk, lib.bruteforce_topk_bf16):
         fn.argtypes = [vp, vp, vp, *[ci] * 9, *[vp] * 7]
         fn.restype = ci
+    # the wide selection's entries take the shared bound and its rank
+    # before the stream
+    for fn in (lib.bruteforce_topk_wide, lib.bruteforce_topk_bf16_wide):
+        fn.argtypes = [vp, vp, vp, *[ci] * 9, *[vp] * 7, ci, vp]
+        fn.restype = ci
     # the int8-row instance takes the rows' scales after the rows
-    lib.bruteforce_topk_q8.argtypes = [vp, vp, vp, vp, *[ci] * 9, *[vp] * 7]
+    lib.bruteforce_topk_q8.argtypes = [vp, vp, vp, vp, *[ci] * 9, *[vp] * 7,
+                                       ci, vp]
     lib.bruteforce_topk_q8.restype = ci
     lib.bruteforce_topk_error_string.argtypes = [ci]
     lib.bruteforce_topk_error_string.restype = ctypes.c_char_p

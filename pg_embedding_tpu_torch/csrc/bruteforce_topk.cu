@@ -64,11 +64,12 @@
 //    figure; the launch refuses a figure that differs from sweep_smem_bytes
 //    or exceeds 232,448 bytes.  Blocks that share a split run side by side
 //    (blockIdx.x is fastest), so the corpus comes from HBM about once.
-//  * Selection is unchanged: the accumulators become scores in a [QT x 128]
+//  * Selection: the accumulators become scores in a [QT x 128]
 //    shared-memory tile; after one barrier warp w walks the scores of its
 //    own QT / 8 queries in ascending row order, a ballot against the k-th
 //    finds the rare candidates, and each is inserted into a sorted list of
-//    k_run entries by a warp-parallel count and shift.  Pass 2 merges the S
+//    k_run entries by a warp-parallel count and shift (the exact route's
+//    short lists; the build's wide pools below).  Pass 2 merges the S
 //    sorted partial lists of each query, applies sqrt for L2 and writes
 //    [B, k_run].
 //  * k_run past 1024 (the lists' shared memory) goes in pages: the caller
@@ -97,19 +98,50 @@
 // the tile's 128 scales (4-byte cp.async); each thread widens the elements
 // it feeds to the mma's in registers.  What bounds it (1M x 128-d, one
 // 256-row insert batch, k_run = 2 cand_cap = 256): 2 B N D x 2 passes = 131
-// GFLOP at 495 TFLOP/s = 0.265 ms; the shadow is 132 MB, 0.040 ms.  At
-// k_run = 256 (QT = 64) the lists take 128 KB of shared memory and a block
-// fills an SM alone, and a split admits ~k (1 + ln(rows a split / k)) rows
-// a query (~1,480 at 33 splits of 1M), so the selection leads: an
-// insertion into a 256-entry list in shared memory (8 reads a lane to
-// place it, up to 8 rounds of shifts and barriers) measured ~1,300 cycles.
-// This instance holds a list of up to 256 entries in registers while it
-// takes a tile's rows (insert_in_registers: 8 entries a lane, a warp sum
-// and an in-lane shift an insertion); the float32 / bf16 instances keep
-// the shared-memory insertion, which the exact route's short lists need
-// little of, and their code.  Left for later: wgmma, a bf16 x 3 query
-// split on the bf16 tensor cores (the rows are bf16 values), admitting a
-// tile's rows in one merge.
+// GFLOP at 495 TFLOP/s = 0.265 ms; the shadow is 132 MB, 0.040 ms.
+//
+// The wide selection: lists of k_run <= kRegK = 256 in the int8 instance
+// and in bruteforce_topk_wide / _bf16_wide, which the wrapper takes for
+// k_run 64 to 256 (the build's pools, the exact route's k past 61; QT =
+// 64).  At k_run = 256 a split of ~30,300 rows (33 splits of 1M) that
+// starts from an empty list admits ~k (1 + ln(rows / k)) ~ 1,480 rows a
+// query, where ~256 / 33 reach the merged pool; inserted one by one (a
+// warp-wide dependent round each) they took ~5 of the sweep's 6.7 ms.
+// Two changes cut that work:
+//  * A bound shared across the splits.  The wrapper passes a scratch
+//    f32[B, S] of +inf and a rank j = ceil(k_run / S), so S j >= k_run.
+//    After each tile a split stores its list's j-th score in its slot
+//    (query, split) when it fell; before each tile every warp reads its
+//    queries' S slots and takes their largest, tau, and a row is admitted
+//    only if its score <= tau (and, as before, < the list's own k-th).
+//    Safe: the S slots name S j >= k_run live rows (each split's j best)
+//    that score <= tau, so a row that scores > tau has k_run rows before
+//    it and is not in the top k_run; a row that scores == tau may be, with
+//    a lower id, so that test is <=, never <.  A slot only falls, so a
+//    stale read gives a larger tau, which is still safe: no block waits
+//    for another, the grid need not be co-resident, and the relaxed loads
+//    and stores (device scope, served by L2) need no fence.  A split with
+//    fewer than j live rows leaves +inf, which only turns the filter off.
+//    Every row of the true top k_run is admitted by its split and never
+//    evicted (k_run rows before it would have to exist), so the merged
+//    pool is the true top k_run whatever the timing, and the partial
+//    lists may end with +inf / -1 slots, which the merge sorts last.
+//  * Whole-tile admission.  The list lives in registers while a query
+//    takes a tile (8 entries a lane).  Up to kSerialMax admitted rows go
+//    in one by one (insert_in_registers); more are merged 32 at a time
+//    (merge_tile): staged in order through the query's spent score-tile
+//    row, sorted across the warp by a bitonic network, and merged into
+//    the list by FAISS's WarpSelect step (slot p takes the lesser of
+//    itself and slot 255 - p of the group: the 256 least, bitonic) and a
+//    bitonic merge of the 256.
+// Both keep the (score, id) order: a tile's rows are admitted against the
+// k-th the list had when the tile began, and a row that equals it follows
+// it (rows arrive in ascending id), as the strict < of one by one.  The
+// float32 / bf16 wide instances are new template instances beside the
+// eight of the exact route, whose code is unchanged; lists of 257-1024
+// entries (QT = 16) keep the insertion into shared memory.  Left for
+// later: wgmma, a bf16 x 3 query split on the bf16 tensor cores (the
+// int8 rows are bf16 values).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -131,10 +163,16 @@ constexpr int kMaxSplits = 128;
 constexpr int kMaxK = 1024;
 constexpr int kSmemLimit = 232448;
 constexpr int kMergeWarps = 4;
-// int8 rows (the build's wide pools): lists up to kRegK entries take their
-// insertions in registers, kRegE entries a lane
+// the wide selection (the build's pools): lists up to kRegK entries take
+// a tile in registers, kRegE entries a lane
 constexpr int kRegE = 8;
 constexpr int kRegK = 32 * kRegE;
+// a query's rows admitted from one tile go in one by one up to this many,
+// else sorted and merged 32 at a time
+constexpr int kSerialMax = 2;
+// whether a split reads the bound the splits publish (sweep_probe's
+// no-shared-bound and serial-select variants turn it off)
+constexpr bool kReadBound = true;
 constexpr int kMetricL2 = 0;
 constexpr int kMetricCosine = 1;
 constexpr unsigned kFull = 0xffffffffu;
@@ -327,30 +365,63 @@ __device__ __forceinline__ void read_query(const float* score_s,
   kth = list_d[ql * k_run + k_run - 1];
 }
 
-// Insert the rows of a tile whose scores ``sc`` (lane l: rows l, l + 32,
-// l + 64, l + 96 of the tile at ``tile``) lie below ``kth`` into one
-// query's sorted list (ld, li) of k_run <= kRegK entries, the list held in
-// registers meanwhile: lane l holds entries [kRegE l, kRegE l + kRegE).  An
-// insertion is kRegE compares, a warp sum, two shuffles and a shift inside
-// each lane, where the list in shared memory takes k_run / 32 reads to
-// place an entry and as many rounds of reads, writes and barriers to shift
-// the rest.  Same entries, same order: a new row goes after every entry
-// of its score (rows arrive in ascending id order).
-__device__ __forceinline__ void insert_in_registers(
-    float* ld, int* li, const float (&sc)[kRowsPerLane], float kth, int tile,
-    int k_run, int lane) {
-  float rd[kRegE];
-  int ri[kRegE];
-#pragma unroll
-  for (int e = 0; e < kRegE; ++e) {
-    const int idx = kRegE * lane + e;
-    rd[e] = idx < k_run ? ld[idx] : CUDART_INF_F;
-    ri[e] = idx < k_run ? li[idx] : -1;
+// Relaxed loads and stores of the shared bound at device scope: served by
+// L2 (no stale L1 line), and volatile, so no tile's read is hoisted.
+__device__ __forceinline__ float load_bound(const float* p) {
+  float v;
+  asm volatile("ld.relaxed.gpu.global.f32 %0, [%1];\n" : "=f"(v) : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ void store_bound(float* p, float v) {
+  asm volatile("st.relaxed.gpu.global.f32 [%0], %1;\n" ::"l"(p), "f"(v)
+               : "memory");
+}
+
+// The bound of each of a warp's QPW queries (the first q_first): the
+// largest of the S splits' slots (bound f32[B, S]).  Lane l folds query
+// l % QPW's slots l / QPW, + 32 / QPW, ...; lane i < QPW returns query i's.
+template <int QPW>
+__device__ __forceinline__ float read_bound(const float* bound, int q_first,
+                                            int B, int S, int lane) {
+  const int qi = q_first + lane % QPW;
+  float t = -CUDART_INF_F;
+  if (qi < B) {
+#pragma unroll 4
+    for (int s = lane / QPW; s < S; s += 32 / QPW)
+      t = fmaxf(t, load_bound(bound + (size_t)qi * S + s));
   }
+#pragma unroll
+  for (int o = QPW; o < 32; o <<= 1)
+    t = fmaxf(t, __shfl_xor_sync(kFull, t, o));
+  return t;
+}
+
+// Entry e of a lane's kRegE (e runtime, the registers indexed statically)
+__device__ __forceinline__ float pick(const float (&r)[kRegE], int e) {
+  float v = r[0];
+#pragma unroll
+  for (int x = 1; x < kRegE; ++x)
+    if (x == e) v = r[x];
+  return v;
+}
+
+// Insert the rows of a tile that ``admit`` names (bit l of admit[j]: row
+// tile + l + 32 j, score sc[j] of lane l) into one query's sorted register
+// list (rd, ri) of k_run <= kRegK entries, one by one: an insertion is
+// kRegE compares, a warp sum, two shuffles and a shift inside each lane,
+// where the list in shared memory takes k_run / 32 reads to place an entry
+// and as many rounds of reads, writes and barriers to shift the rest.  A
+// new row goes after every entry of its score (rows arrive in ascending id
+// order), and is skipped once the k-th has fallen to it.
+__device__ __forceinline__ void insert_in_registers(
+    float (&rd)[kRegE], int (&ri)[kRegE], const float (&sc)[kRowsPerLane],
+    const unsigned (&admit)[kRowsPerLane], float kth, int tile, int k_run,
+    int lane) {
   const int last_lane = (k_run - 1) / kRegE, last_e = (k_run - 1) % kRegE;
 #pragma unroll
   for (int j = 0; j < kRowsPerLane; ++j) {
-    unsigned mask = __ballot_sync(kFull, sc[j] < kth);
+    unsigned mask = admit[j];
     while (mask) {
       const int src = __ffs(mask) - 1;
       mask &= mask - 1;
@@ -383,12 +454,129 @@ __device__ __forceinline__ void insert_in_registers(
         rd[0] = dv;
         ri[0] = iv;
       }
-      float v = rd[0];
-#pragma unroll
-      for (int e = 1; e < kRegE; ++e)
-        if (e == last_e) v = rd[e];
-      kth = __shfl_sync(kFull, v, last_lane);
+      kth = __shfl_sync(kFull, pick(rd, last_e), last_lane);
     }
+  }
+}
+
+// (d, id) of the lane and of lane ^ o in a compare-exchange: keep the
+// lesser where ``keep_less``, else the greater
+__device__ __forceinline__ void exchange(float& d, int& id, int o,
+                                         bool keep_less) {
+  const float od = __shfl_xor_sync(kFull, d, o);
+  const int oi = __shfl_xor_sync(kFull, id, o);
+  if (keep_less ? lex_less(od, oi, d, id) : lex_less(d, id, od, oi)) {
+    d = od;
+    id = oi;
+  }
+}
+
+// Merge the ``admitted`` rows of a tile that ``admit`` names into one
+// query's register list (rd, ri) of kRegK slots, 32 rows at a time.  A
+// group is staged in admission order through ``stage`` (64 words of the
+// query's spent score-tile row), so lane r takes its r-th row; a bitonic
+// network sorts the group across the lanes by (score, id); slot p of the
+// list takes the lesser of itself and slot kRegK - 1 - p of the group
+// padded to kRegK (the kRegK least of both, in a bitonic order), and a
+// bitonic merge sorts the slots again: 8 stages of compare-exchanges over
+// a lane's 8 slots, where one-by-one insertion takes a dependent warp
+// round a row.
+__device__ __forceinline__ void merge_tile(
+    float (&rd)[kRegE], int (&ri)[kRegE], const float (&sc)[kRowsPerLane],
+    const unsigned (&admit)[kRowsPerLane], int admitted, int tile, int lane,
+    float* stage) {
+  int* stage_c = reinterpret_cast<int*>(stage + 32);
+  const unsigned lanes_below = (1u << lane) - 1u;
+  for (int g = 0; g < admitted; g += 32) {
+    int rank = -g;
+#pragma unroll
+    for (int j = 0; j < kRowsPerLane; ++j) {
+      const int r = rank + __popc(admit[j] & lanes_below);
+      if (((admit[j] >> lane) & 1u) && r >= 0 && r < 32) {
+        stage[r] = sc[j];
+        stage_c[r] = lane + 32 * j;
+      }
+      rank += __popc(admit[j]);
+    }
+    __syncwarp();
+    float d = CUDART_INF_F;
+    int id = -1;
+    if (lane < admitted - g) {
+      d = stage[lane];
+      id = tile + stage_c[lane];
+    }
+    __syncwarp();
+#pragma unroll
+    for (int k = 2; k <= 32; k <<= 1)
+#pragma unroll
+      for (int o = k >> 1; o > 0; o >>= 1)
+        exchange(d, id, o, ((lane & o) == 0) == ((lane & k) == 0));
+    // slot p meets slot kRegK - 1 - p of the group: lanes 28-31 only
+#pragma unroll
+    for (int e = 0; e < kRegE; ++e) {
+      const int src = kRegK - 1 - kRegE * lane - e;
+      const float od = __shfl_sync(kFull, d, src & 31);
+      const int oi = __shfl_sync(kFull, id, src & 31);
+      if (src < 32 && lex_less(od, oi, rd[e], ri[e])) {
+        rd[e] = od;
+        ri[e] = oi;
+      }
+    }
+    // slots 128, 64, 32, 16, 8 apart: across lanes; 4, 2, 1: in a lane
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+      for (int e = 0; e < kRegE; ++e)
+        exchange(rd[e], ri[e], o, (lane & o) == 0);
+#pragma unroll
+    for (int o = kRegE / 2; o > 0; o >>= 1)
+#pragma unroll
+      for (int e = 0; e < kRegE; ++e)
+        if ((e & o) == 0 && lex_less(rd[e | o], ri[e | o], rd[e], ri[e])) {
+          const float td = rd[e];
+          const int ti = ri[e];
+          rd[e] = rd[e | o];
+          ri[e] = ri[e | o];
+          rd[e | o] = td;
+          ri[e | o] = ti;
+        }
+  }
+}
+
+// One query's selection over a tile in the wide instances: its list (ld,
+// li) of k_run <= kRegK entries into registers (lane l: entries [kRegE l,
+// kRegE l + kRegE), +inf / -1 past k_run); the tile's rows that score
+// under ``kth`` (sc: lane l's rows l + 32 j, masked rows +inf) go in one by
+// one or merged as a tile; then, when its j-th (``bound_rank``) fell, the
+// split's slot ``at`` of ``bound`` takes it; the list goes back.
+__device__ __forceinline__ void select_in_registers(
+    float* ld, int* li, const float (&sc)[kRowsPerLane], float kth, int tile,
+    int k_run, int lane, float* stage, float* bound, int at,
+    int bound_rank) {
+  float rd[kRegE];
+  int ri[kRegE];
+#pragma unroll
+  for (int e = 0; e < kRegE; ++e) {
+    const int idx = kRegE * lane + e;
+    rd[e] = idx < k_run ? ld[idx] : CUDART_INF_F;
+    ri[e] = idx < k_run ? li[idx] : -1;
+  }
+  const int jr = max(bound_rank, 1) - 1;
+  const float jth = pick(rd, jr % kRegE);
+  unsigned admit[kRowsPerLane];
+  int admitted = 0;
+#pragma unroll
+  for (int j = 0; j < kRowsPerLane; ++j) {
+    admit[j] = __ballot_sync(kFull, sc[j] < kth);
+    admitted += __popc(admit[j]);
+  }
+  if (admitted <= kSerialMax)
+    insert_in_registers(rd, ri, sc, admit, kth, tile, k_run, lane);
+  else
+    merge_tile(rd, ri, sc, admit, admitted, tile, lane, stage);
+  if (bound != nullptr && lane == jr / kRegE) {
+    const float now = pick(rd, jr % kRegE);
+    if (now < jth) store_bound(bound + at, now);
   }
 #pragma unroll
   for (int e = 0; e < kRegE; ++e) {
@@ -410,14 +598,17 @@ __device__ __forceinline__ float score(float dot, float pn, float qn,
 // One block's sweep: queries [blockIdx.x QT, + QT) against split
 // blockIdx.y's rows, the running lists written to part_d / part_i.
 // ``scale``: the int8 rows' scales (null for float32 and bf16 rows).
-template <int QT, bool kQRes, typename T>
+// ``kWide``: lists of up to kRegK entries take the wide selection, with
+// the bound f32[B, S] shared across splits at rank ``bound_rank`` (none
+// when null).
+template <int QT, bool kQRes, bool kWide, typename T>
 __device__ __forceinline__ void sweep_block(
     const float* __restrict__ q, const T* __restrict__ p,
     const float* __restrict__ scale, const unsigned char* __restrict__ del,
     int B, int n_rows, int D, bool vec_q, bool vec_p, int k_run, int metric,
     int rows_per_split, const float* __restrict__ floor_d,
     const int* __restrict__ floor_i, float* __restrict__ part_d,
-    int* __restrict__ part_i) {
+    int* __restrict__ part_i, float* bound, int bound_rank) {
   using L = Layout<QT>;
   constexpr int kPS = p_stride<T>();
   constexpr int kPBytes = kTileN * kPS * (int)sizeof(T);
@@ -619,6 +810,12 @@ __device__ __forceinline__ void sweep_block(
       live[j] = row < row_end && (del == nullptr || del[row] == 0);
     }
     const int n_mine = min(L::QPW, B - q0 - warp * L::QPW);   // warp-uniform
+    float tau_mine = CUDART_INF_F;          // the wide selection's bound
+    if constexpr (kWide) {
+      if (kReadBound && bound != nullptr && k_run <= kRegK)
+        tau_mine = read_bound<L::QPW>(bound, q0 + warp * L::QPW, B,
+                                      (int)gridDim.y, lane);
+    }
     float next[kRowsPerLane], next_kth = 0.f;
     if (n_mine > 0) read_query(score_s, list_d, warp * L::QPW, k_run, lane,
                                next, next_kth);
@@ -626,6 +823,8 @@ __device__ __forceinline__ void sweep_block(
       const int ql = warp * L::QPW + i;
       float sc[kRowsPerLane];
       float kth = next_kth;
+      const float tau =
+          kWide ? __shfl_sync(kFull, tau_mine, i) : CUDART_INF_F;
       float lo = CUDART_INF_F;
       // a later page admits only what follows its floor
       float fd = -CUDART_INF_F;
@@ -639,6 +838,9 @@ __device__ __forceinline__ void sweep_block(
         const bool after = floor_d == nullptr ||
                            lex_less(fd, fi, next[j], tile + lane + 32 * j);
         sc[j] = live[j] && after ? next[j] : CUDART_INF_F;
+        if constexpr (kWide) {
+          if (!(sc[j] <= tau)) sc[j] = CUDART_INF_F;
+        }
         lo = fminf(lo, sc[j]);
       }
       if (i + 1 < n_mine)
@@ -646,9 +848,11 @@ __device__ __forceinline__ void sweep_block(
       if (!__any_sync(kFull, lo < kth)) continue;         // the common case
       float* ld = list_d + ql * k_run;
       int* li = list_i + ql * k_run;
-      if constexpr (kScaled) {
+      if constexpr (kWide) {
         if (k_run <= kRegK) {
-          insert_in_registers(ld, li, sc, kth, tile, k_run, lane);
+          select_in_registers(ld, li, sc, kth, tile, k_run, lane,
+                              score_s + ql * kSStride, bound,
+                              (q0 + ql) * (int)gridDim.y + split, bound_rank);
           continue;
         }
       }
@@ -714,12 +918,28 @@ sweep_kernel(const float* __restrict__ q, const T* __restrict__ p,
              int rows_per_split, const float* __restrict__ floor_d,
              const int* __restrict__ floor_i, float* __restrict__ part_d,
              int* __restrict__ part_i) {
-  sweep_block<QT, kQRes>(q, p, nullptr, del, B, n_rows, D, vec_q, vec_p,
-                         k_run, metric, rows_per_split, floor_d, floor_i,
-                         part_d, part_i);
+  sweep_block<QT, kQRes, false>(q, p, nullptr, del, B, n_rows, D, vec_q,
+                                vec_p, k_run, metric, rows_per_split, floor_d,
+                                floor_i, part_d, part_i, nullptr, 0);
 }
 
-// int8 rows: the same sweep, each element widened with its row's scale
+// float32 / bf16 rows under the wide selection (the build's pools)
+template <int QT, bool kQRes, typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+sweep_kernel_wide(const float* __restrict__ q, const T* __restrict__ p,
+                  const unsigned char* __restrict__ del, int B, int n_rows,
+                  int D, bool vec_q, bool vec_p, int k_run, int metric,
+                  int rows_per_split, const float* __restrict__ floor_d,
+                  const int* __restrict__ floor_i,
+                  float* __restrict__ part_d, int* __restrict__ part_i,
+                  float* bound, int bound_rank) {
+  sweep_block<QT, kQRes, true>(q, p, nullptr, del, B, n_rows, D, vec_q,
+                               vec_p, k_run, metric, rows_per_split, floor_d,
+                               floor_i, part_d, part_i, bound, bound_rank);
+}
+
+// int8 rows: the same sweep, each element widened with its row's scale,
+// under the wide selection
 template <int QT, bool kQRes>
 __global__ void __launch_bounds__(kThreads, 2)
 sweep_kernel_q8(const float* __restrict__ q, const int8_t* __restrict__ p,
@@ -728,10 +948,10 @@ sweep_kernel_q8(const float* __restrict__ q, const int8_t* __restrict__ p,
                 int D, bool vec_q, bool vec_p, int k_run, int metric,
                 int rows_per_split, const float* __restrict__ floor_d,
                 const int* __restrict__ floor_i, float* __restrict__ part_d,
-                int* __restrict__ part_i) {
-  sweep_block<QT, kQRes>(q, p, scale, del, B, n_rows, D, vec_q, vec_p,
-                         k_run, metric, rows_per_split, floor_d, floor_i,
-                         part_d, part_i);
+                int* __restrict__ part_i, float* bound, int bound_rank) {
+  sweep_block<QT, kQRes, true>(q, p, scale, del, B, n_rows, D, vec_q, vec_p,
+                               k_run, metric, rows_per_split, floor_d,
+                               floor_i, part_d, part_i, bound, bound_rank);
 }
 
 __global__ void __launch_bounds__(kMergeWarps * 32)
@@ -792,15 +1012,18 @@ merge_kernel(const float* __restrict__ part_d, const int* __restrict__ part_i,
 
 int ceil_div(long long a, long long b) { return (int)((a + b - 1) / b); }
 
-template <int QT, bool kQRes, typename T>
+template <int QT, bool kQRes, bool kWide, typename T>
 cudaError_t launch_sweep(const float* q, const T* p, const float* scale,
                          const unsigned char* del, int B, int n_rows, int D,
                          int k_run, int metric, int S, size_t smem,
                          const float* floor_d, const int* floor_i,
-                         float* part_d, int* part_i, cudaStream_t stream) {
+                         float* part_d, int* part_i, float* bound,
+                         int bound_rank, cudaStream_t stream) {
   const void* kernel;
   if constexpr (scaled_rows<T>())
     kernel = reinterpret_cast<const void*>(sweep_kernel_q8<QT, kQRes>);
+  else if constexpr (kWide)
+    kernel = reinterpret_cast<const void*>(sweep_kernel_wide<QT, kQRes, T>);
   else
     kernel = reinterpret_cast<const void*>(sweep_kernel<QT, kQRes, T>);
   cudaError_t err = cudaFuncSetAttribute(
@@ -817,7 +1040,11 @@ cudaError_t launch_sweep(const float* q, const T* p, const float* scale,
   if constexpr (scaled_rows<T>())
     sweep_kernel_q8<QT, kQRes><<<grid, kThreads, smem, stream>>>(
         q, p, scale, del, B, n_rows, D, vec_q, vec_p, k_run, metric,
-        rows_per_split, floor_d, floor_i, part_d, part_i);
+        rows_per_split, floor_d, floor_i, part_d, part_i, bound, bound_rank);
+  else if constexpr (kWide)
+    sweep_kernel_wide<QT, kQRes, T><<<grid, kThreads, smem, stream>>>(
+        q, p, del, B, n_rows, D, vec_q, vec_p, k_run, metric, rows_per_split,
+        floor_d, floor_i, part_d, part_i, bound, bound_rank);
   else
     sweep_kernel<QT, kQRes, T><<<grid, kThreads, smem, stream>>>(
         q, p, del, B, n_rows, D, vec_q, vec_p, k_run, metric, rows_per_split,
@@ -825,37 +1052,50 @@ cudaError_t launch_sweep(const float* q, const T* p, const float* scale,
   return cudaGetLastError();
 }
 
-template <typename T>
+// ``kWide``: the wide selection (the int8 instances, and the float32 /
+// bf16 wide ones, which exist at QT = 64 for k_run <= kRegK only);
+// ``bound`` (f32[B, S] of +inf, or null) and ``bound_rank`` j as
+// sweep_block takes them, S j >= k_run.
+template <bool kWide, typename T>
 int run_topk(const float* q, const T* p, const float* scale,
              const unsigned char* del, int B, int n_rows, int D, int k_run,
              int metric, int qt, int S, int q_res, int smem_bytes,
              float* part_d, int* part_i, float* out_d, int* out_i,
-             float* floor_d, int* floor_i, void* stream_ptr) {
+             float* floor_d, int* floor_i, float* bound, int bound_rank,
+             void* stream_ptr) {
   if (B <= 0 || n_rows < 0 || D <= 0 || k_run < 1 || k_run > kMaxK ||
       S < 1 || S > kMaxSplits || (qt != 64 && qt != 16) ||
       (metric != kMetricL2 && metric != kMetricCosine) ||
       (floor_d == nullptr) != (floor_i == nullptr) ||
-      (scale == nullptr) == scaled_rows<T>())
+      (scale == nullptr) == scaled_rows<T>() ||
+      (kWide && !scaled_rows<T>() && (qt != 64 || k_run > kRegK)) ||
+      (bound != nullptr &&
+       (!kWide || k_run > kRegK || bound_rank < 1 || bound_rank > k_run ||
+        (long long)S * bound_rank < k_run)))
     return (int)cudaErrorInvalidValue;
   const size_t smem = sweep_smem_bytes<T>(qt, k_run, D, q_res != 0);
   if (smem != (size_t)smem_bytes || smem > (size_t)kSmemLimit)
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  cudaError_t err;
+  cudaError_t err = cudaErrorInvalidValue;
   if (qt == 64)
-    err = q_res ? launch_sweep<64, true, T>(q, p, scale, del, B, n_rows, D,
-                                            k_run, metric, S, smem, floor_d,
-                                            floor_i, part_d, part_i, stream)
-                : launch_sweep<64, false, T>(q, p, scale, del, B, n_rows, D,
-                                             k_run, metric, S, smem, floor_d,
-                                             floor_i, part_d, part_i, stream);
-  else
-    err = q_res ? launch_sweep<16, true, T>(q, p, scale, del, B, n_rows, D,
-                                            k_run, metric, S, smem, floor_d,
-                                            floor_i, part_d, part_i, stream)
-                : launch_sweep<16, false, T>(q, p, scale, del, B, n_rows, D,
-                                             k_run, metric, S, smem, floor_d,
-                                             floor_i, part_d, part_i, stream);
+    err = q_res ? launch_sweep<64, true, kWide>(
+                      q, p, scale, del, B, n_rows, D, k_run, metric, S, smem,
+                      floor_d, floor_i, part_d, part_i, bound, bound_rank,
+                      stream)
+                : launch_sweep<64, false, kWide>(
+                      q, p, scale, del, B, n_rows, D, k_run, metric, S, smem,
+                      floor_d, floor_i, part_d, part_i, bound, bound_rank,
+                      stream);
+  else if constexpr (!kWide || scaled_rows<T>())
+    err = q_res ? launch_sweep<16, true, kWide>(
+                      q, p, scale, del, B, n_rows, D, k_run, metric, S, smem,
+                      floor_d, floor_i, part_d, part_i, bound, bound_rank,
+                      stream)
+                : launch_sweep<16, false, kWide>(
+                      q, p, scale, del, B, n_rows, D, k_run, metric, S, smem,
+                      floor_d, floor_i, part_d, part_i, bound, bound_rank,
+                      stream);
   if (err != cudaSuccess) return (int)err;
   merge_kernel<<<ceil_div(B, kMergeWarps), kMergeWarps * 32, 0, stream>>>(
       part_d, part_i, B, S, k_run, metric, out_d, out_i, floor_d, floor_i);
@@ -883,9 +1123,9 @@ int bruteforce_topk(const float* q, const float* p, const unsigned char* del,
                     int S, int q_res, int smem_bytes, float* part_d,
                     int* part_i, float* out_d, int* out_i, float* floor_d,
                     int* floor_i, void* stream_ptr) {
-  return run_topk(q, p, nullptr, del, B, n_rows, D, k_run, metric, qt, S,
-                  q_res, smem_bytes, part_d, part_i, out_d, out_i, floor_d,
-                  floor_i, stream_ptr);
+  return run_topk<false>(q, p, nullptr, del, B, n_rows, D, k_run, metric, qt,
+                         S, q_res, smem_bytes, part_d, part_i, out_d, out_i,
+                         floor_d, floor_i, nullptr, 0, stream_ptr);
 }
 
 // The same with p bf16[n_rows.., D] (its raw 16-bit patterns).
@@ -895,22 +1135,55 @@ int bruteforce_topk_bf16(const float* q, const void* p,
                          int smem_bytes, float* part_d, int* part_i,
                          float* out_d, int* out_i, float* floor_d,
                          int* floor_i, void* stream_ptr) {
-  return run_topk(q, static_cast<const uint16_t*>(p), nullptr, del, B,
-                  n_rows, D, k_run, metric, qt, S, q_res, smem_bytes, part_d,
-                  part_i, out_d, out_i, floor_d, floor_i, stream_ptr);
+  return run_topk<false>(q, static_cast<const uint16_t*>(p), nullptr, del, B,
+                         n_rows, D, k_run, metric, qt, S, q_res, smem_bytes,
+                         part_d, part_i, out_d, out_i, floor_d, floor_i,
+                         nullptr, 0, stream_ptr);
+}
+
+// The wide selection for the build's pools (k_run <= 256, QT = 64) over
+// float32 / bf16 rows: as bruteforce_topk / _bf16, plus bound f32[B, S]
+// of +inf (or null: no bound shared across splits) and its rank
+// bound_rank = ceil(k_run / S).
+int bruteforce_topk_wide(const float* q, const float* p,
+                         const unsigned char* del, int B, int n_rows, int D,
+                         int k_run, int metric, int qt, int S, int q_res,
+                         int smem_bytes, float* part_d, int* part_i,
+                         float* out_d, int* out_i, float* floor_d,
+                         int* floor_i, float* bound, int bound_rank,
+                         void* stream_ptr) {
+  return run_topk<true>(q, p, nullptr, del, B, n_rows, D, k_run, metric, qt,
+                        S, q_res, smem_bytes, part_d, part_i, out_d, out_i,
+                        floor_d, floor_i, bound, bound_rank, stream_ptr);
+}
+
+int bruteforce_topk_bf16_wide(const float* q, const void* p,
+                              const unsigned char* del, int B, int n_rows,
+                              int D, int k_run, int metric, int qt, int S,
+                              int q_res, int smem_bytes, float* part_d,
+                              int* part_i, float* out_d, int* out_i,
+                              float* floor_d, int* floor_i, float* bound,
+                              int bound_rank, void* stream_ptr) {
+  return run_topk<true>(q, static_cast<const uint16_t*>(p), nullptr, del, B,
+                        n_rows, D, k_run, metric, qt, S, q_res, smem_bytes,
+                        part_d, part_i, out_d, out_i, floor_d, floor_i, bound,
+                        bound_rank, stream_ptr);
 }
 
 // The same with int8 rows p i8[n_rows.., D] and their scales
-// scale f32[n_rows..]: a row element is bf16(bf16(p) * bf16(scale)).
+// scale f32[n_rows..]: a row element is bf16(bf16(p) * bf16(scale)); the
+// wide selection at k_run <= 256 (bound as bruteforce_topk_wide's).
 int bruteforce_topk_q8(const float* q, const void* p, const float* scale,
                        const unsigned char* del, int B, int n_rows, int D,
                        int k_run, int metric, int qt, int S, int q_res,
                        int smem_bytes, float* part_d, int* part_i,
                        float* out_d, int* out_i, float* floor_d,
-                       int* floor_i, void* stream_ptr) {
-  return run_topk(q, static_cast<const int8_t*>(p), scale, del, B, n_rows,
-                  D, k_run, metric, qt, S, q_res, smem_bytes, part_d, part_i,
-                  out_d, out_i, floor_d, floor_i, stream_ptr);
+                       int* floor_i, float* bound, int bound_rank,
+                       void* stream_ptr) {
+  return run_topk<true>(q, static_cast<const int8_t*>(p), scale, del, B,
+                        n_rows, D, k_run, metric, qt, S, q_res, smem_bytes,
+                        part_d, part_i, out_d, out_i, floor_d, floor_i, bound,
+                        bound_rank, stream_ptr);
 }
 
 }  // extern "C"

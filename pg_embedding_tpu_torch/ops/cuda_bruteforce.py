@@ -10,6 +10,12 @@ instantiations, one per corpus type: ``bruteforce_topk`` (float32 rows),
 ``bruteforce_topk_bf16`` (bfloat16 rows, exact in TF32) and
 ``bruteforce_topk_q8`` (int8 rows x a float32 scale a row, each element
 bf16(bf16(q) * bf16(scale)): the build's int8 shadow, exact in TF32 too).
+Lists of WIDE_MIN_K to WIDE_MAX_K entries (the build's pools, the exact
+route's k past 61) run the wide selection, the int8 instance's at every
+k_run up to WIDE_MAX_K, float32 / bf16 rows through ``bruteforce_topk_wide``
+/ ``bruteforce_topk_bf16_wide`` (shorter lists keep the first two): each
+split admits only rows that score at most a bound the splits share
+(``_shared_bound``) and merges a tile's rows into its list at once.
 ``_launch_shape`` chooses each launch's query tile, corpus splits and
 shared memory here, where the CPU tests reach it.
 
@@ -39,11 +45,19 @@ from .distance import _matmul
 # Launches of each instantiation since import (or since a caller reset
 # them); a run reads them to show that a path went through the kernel.
 LAUNCHES = {"bruteforce_topk": 0, "bruteforce_topk_bf16": 0,
-            "bruteforce_topk_q8": 0}
+            "bruteforce_topk_q8": 0, "bruteforce_topk_wide": 0,
+            "bruteforce_topk_bf16_wide": 0}
 
 # Running lists live in shared memory: 8 bytes x k_run x 16 queries fit
 # a block up to here; a longer list takes pages of at most this.
 MAX_K_RUN = 1024
+# The wide selection's lists live in registers (8 entries a lane) up to
+# here, the build's pools (2 cand_cap = 256 at efc 64); longer ones keep
+# the insertion into shared memory.
+WIDE_MAX_K = 256
+# Float32 / bf16 rows take the wide instances from here up (sweep_probe,
+# 1M x 128-d: faster at k_run 64, 102 and 130, slower at 12 and 32).
+WIDE_MIN_K = 64
 
 # The sweep's launch shape, mirrored from csrc/bruteforce_topk.cu (whose
 # launch refuses a shared-memory figure that differs from its own): 128-row
@@ -66,6 +80,8 @@ _PLAIN_CHUNK = 16384
 _KERNELS = {torch.float32: "bruteforce_topk",
             torch.bfloat16: "bruteforce_topk_bf16",
             torch.int8: "bruteforce_topk_q8"}
+_WIDE_KERNELS = {torch.float32: "bruteforce_topk_wide",
+                 torch.bfloat16: "bruteforce_topk_bf16_wide"}
 
 
 def _corpus_rows(points):
@@ -168,6 +184,27 @@ def _launch_shape(b: int, n_rows: int, k_run: int, sms: int,
     return qt, splits, q_res, smem
 
 
+def _instance(dtype, k_run: int):
+    """(the C entry of a launch, whether it takes the shared bound).  The
+    int8 instance runs the wide selection up to WIDE_MAX_K, with a bound;
+    float32 / bf16 rows take the wide instances from WIDE_MIN_K to
+    WIDE_MAX_K, else the exact route's."""
+    if dtype == torch.int8:
+        return _KERNELS[dtype], k_run <= WIDE_MAX_K
+    if WIDE_MIN_K <= k_run <= WIDE_MAX_K:
+        return _WIDE_KERNELS[dtype], True
+    return _KERNELS[dtype], False
+
+
+def _shared_bound(b: int, splits: int, k_run: int):
+    """The bound a wide launch's splits share: (its scratch's shape, the
+    rank j whose score each split publishes).  The scratch is f32[B, S] of
+    +inf (a query's S slots side by side, read in one line); j =
+    ceil(k_run / S), the least with S j >= k_run, so the S published j-th
+    scores name at least k_run rows."""
+    return (b, splits), -(-k_run // splits)
+
+
 def _check_args(queries, points, k_run, metric_value, deleted,
                 after) -> None:
     if metric_value not in (Metric.L2.value, Metric.COSINE.value):
@@ -245,7 +282,7 @@ def bruteforce_topk(queries, points, k_run: int, metric_value: int,
     if b == 0:
         return out_d, out_i
     lib = _kernels.load_library()
-    name = _KERNELS[rows.dtype]
+    name, shared = _instance(rows.dtype, k_run)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     qt, splits, q_res, smem = _launch_shape(
         b, n_rows, k_run, sms, rows.element_size(), dims)
@@ -254,6 +291,13 @@ def bruteforce_topk(queries, points, k_run: int, metric_value: int,
                              device=dev)
         part_i = torch.empty((splits, b, k_run), dtype=torch.int32,
                              device=dev)
+        bound = ()                       # the exact route's entries take none
+        if shared:
+            shape, rank = _shared_bound(b, splits, k_run)
+            scratch = torch.full(shape, float("inf"), device=dev)
+            bound = (scratch.data_ptr(), rank)
+        elif name == _KERNELS[torch.int8]:
+            bound = (None, 0)
         err = getattr(lib, name)(
             queries.data_ptr(), rows.data_ptr(),
             *(() if scale is None else (scale.data_ptr(),)),
@@ -261,7 +305,7 @@ def bruteforce_topk(queries, points, k_run: int, metric_value: int,
             b, n_rows, dims, k_run, metric_value, qt, splits, int(q_res),
             smem, part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(),
             out_i.data_ptr(), None if after is None else after[0].data_ptr(),
-            None if after is None else after[1].data_ptr(),
+            None if after is None else after[1].data_ptr(), *bound,
             torch.cuda.current_stream(dev).cuda_stream)
     _kernels.check(lib, err, name)
     LAUNCHES[name] += 1

@@ -1,24 +1,38 @@
 """Where the exact-sweep kernel's time goes, on one NVIDIA GPU.
 
-  python -m pg_embedding_tpu_torch.sweep_probe [--reps N]
+  python -m pg_embedding_tpu_torch.sweep_probe [--reps N] [--variants a,b]
 
 Builds variants of csrc/bruteforce_topk.cu with one part switched off, each
 into its own library under .kernel_build/probe/ (nvcc, in parallel), and
-times every variant with CUDA events at two shapes over 1M x 128-d random
-rows, L2: the exact route's (B=1024 queries, k_run=12, float32 and bf16
-corpus) and the build sweep's (one 256-row insert batch: the int8 shadow
-of the rows at k_run = 2 cand_cap = 256, and exact mode's float32 rows at
-cand_cap + 2 = 130).  The variants, each against the kernel:
+times every variant with CUDA events at the shapes below over 1M x 128-d
+random rows, L2: the exact route's (B=1024 queries, k_run=12, float32 and
+bf16 corpus; float32 at k_run 12, 32, 64 and 102 (k = 100) through both
+the exact route's instance and the wide one, where the wrapper's
+WIDE_MIN_K comes from) and the build sweep's (one 256-row insert batch:
+the int8 shadow of the rows at k_run = 2 cand_cap = 256, also at the other
+query tile, and exact mode's float32 / bf16 rows at cand_cap + 2 = 130,
+through the wide instances and, float32, the exact route's).  The
+variants, each against the kernel:
   kernel          as built for the port (the launch shape's resident queries)
   streamed-q      the same library, queries streamed through the ring
   no-select       the selection after each tile removed (scores still made)
   loads-only      the mma's, the score tile and the selection removed
   cvt-rounding    the TF32 split by cvt.rna.tf32.f32 instead of integer ops
-  smem-lists      int8 rows: every insertion into the list in shared memory
-                  (the other instances' way), not in registers
-A variant's answers are wrong by design; only the kernel's ids are checked
-(against the plain twin).  Variants are timed in turns, then in reverse
-order, on one card, with its name and power limit printed first.
+  smem-lists      the wide selection's lists in shared memory, every
+                  insertion one by one there (the exact route's way)
+  serial-select   the wide selection as it was before the shared bound:
+                  every admitted row inserted one by one, no bound read
+  no-shared-bound the splits' bound published but never read
+  unused-bound    the bound read before each tile but not applied (its
+                  reads' cost: this minus no-shared-bound)
+The wide shapes also run the count build (the kernel, and serial-select,
+with atomics: the rows each (query, split) admitted at its tiles' starts,
+the rows merged a tile at a time and the tile merges; mean and max beside
+the model k (1 + ln(rows a split / k)) of a split that admits against its
+own k-th alone) and time the merge kernel alone at the launch's partial
+lists.  A variant's answers are wrong by design; only the kernel's ids are
+checked (against the plain twin).  Variants are timed in turns, then in
+reverse order, on one card, with its name and power limit printed first.
 """
 
 from __future__ import annotations
@@ -26,6 +40,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import ctypes
+import math
 import os
 import subprocess
 
@@ -36,18 +51,33 @@ from .core.build import quantize_rows
 from .ops import cuda_bruteforce as cb
 
 N, D, L2 = 1_000_000, 128, 0
-# (corpus, queries B, k_run, forced query tile): the exact route's shape,
-# then the build's (int8 also at the other query tile)
-SHAPES = (("float32", 1024, 12, None), ("bf16", 1024, 12, None),
-          ("int8", 256, 256, None), ("int8", 256, 256, 16),
-          ("float32", 256, 130, None))
+# (corpus, queries B, k_run, forced query tile, wide): the exact route's
+# shapes, then the build's
+SHAPES = (("float32", 1024, 12, None, False), ("bf16", 1024, 12, None, False),
+          ("float32", 1024, 12, None, True),
+          ("float32", 1024, 32, None, False),
+          ("float32", 1024, 32, None, True),
+          ("float32", 1024, 64, None, False),
+          ("float32", 1024, 64, None, True),
+          ("float32", 1024, 102, None, False),
+          ("float32", 1024, 102, None, True),
+          ("int8", 256, 256, None, True), ("int8", 256, 256, 16, True),
+          ("float32", 256, 130, None, False),
+          ("float32", 256, 130, None, True), ("bf16", 256, 130, None, True))
 SRC = os.path.join(_kernels._PKG_DIR, "csrc", "bruteforce_topk.cu")
 OUT = os.path.join(_kernels.BUILD_DIR, "probe")
 
 _SELECTION = "    // selection: warp w alone"
 _EPILOGUE = "    // accumulators -> scores"
 _NEXT_TILE = "    tile += kTileN;\n"
-_REG_LISTS = "        if (k_run <= kRegK) {"
+_REG_LISTS = "        if (k_run <= kRegK) {\n"
+_SERIAL = "constexpr int kSerialMax = 2;"
+_READ_BOUND = "constexpr bool kReadBound = true;"
+_APPLY_BOUND = ("      const float tau =\n"
+                "          kWide ? __shfl_sync(kFull, tau_mine, i) : "
+                "CUDART_INF_F;\n")
+_ADMITTED = "  if (admitted <= kSerialMax)\n"
+_NAMESPACE = "\nnamespace {\n"
 _CVT_SPLIT = (
     "__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,\n"
     "                                           uint32_t& lo) {\n"
@@ -55,6 +85,41 @@ _CVT_SPLIT = (
     '  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(lo)\n'
     '      : "f"(x - __uint_as_float(hi)));\n'
     "}")
+# the count build: per (query, split) slot, (rows admitted, rows merged a
+# tile at a time, tile merges); the entries that read and clear them, and
+# one that launches the merge kernel alone
+_COUNT_SLOTS = 1024 * 128
+_COUNTERS = (
+    f"\n__device__ unsigned g_probe_counts[3][{_COUNT_SLOTS}];\n")
+_COUNT = (
+    "  if (lane == 0) {\n"
+    "    atomicAdd(&g_probe_counts[0][at], (unsigned)admitted);\n"
+    "    if (admitted > kSerialMax) {\n"
+    "      atomicAdd(&g_probe_counts[1][at], (unsigned)admitted);\n"
+    "      atomicAdd(&g_probe_counts[2][at], 1u);\n"
+    "    }\n"
+    "  }\n")
+_COUNT_ENTRIES = """
+extern "C" int probe_counts(void* dst) {
+  void* src = nullptr;
+  cudaError_t err = cudaGetSymbolAddress(&src, g_probe_counts);
+  if (err == cudaSuccess)
+    err = cudaMemcpy(dst, src, sizeof(g_probe_counts),
+                     cudaMemcpyDeviceToDevice);
+  if (err == cudaSuccess) err = cudaMemset(src, 0, sizeof(g_probe_counts));
+  return (int)err;
+}
+
+extern "C" int probe_merge(const float* part_d, const int* part_i, int B,
+                           int S, int k_run, float* out_d, int* out_i,
+                           void* stream) {
+  merge_kernel<<<ceil_div(B, kMergeWarps), kMergeWarps * 32, 0,
+                 static_cast<cudaStream_t>(stream)>>>(
+      part_d, part_i, B, S, k_run, kMetricL2, out_d, out_i, nullptr,
+      nullptr);
+  return (int)cudaGetLastError();
+}
+"""
 
 
 def _cut(src: str, begin: str, end: str) -> str:
@@ -64,15 +129,35 @@ def _cut(src: str, begin: str, end: str) -> str:
     return src[:a] + "#if 0\n" + src[a:b] + "#endif\n" + src[b:]
 
 
+def _once(src: str, old: str, new: str) -> str:
+    """src with its one ``old`` replaced by ``new``."""
+    if src.count(old) != 1:
+        raise ValueError(f"{old!r} appears {src.count(old)} times")
+    return src.replace(old, new)
+
+
+def _counting(src: str) -> str:
+    src = _once(src, _NAMESPACE, _COUNTERS + _NAMESPACE)
+    return _once(src, _ADMITTED, _COUNT + _ADMITTED) + _COUNT_ENTRIES
+
+
 def variants(src: str) -> dict:
     no_select = _cut(src, _SELECTION, _NEXT_TILE)
     no_mma = no_select.replace('  asm("mma.sync', '  if (0) asm("mma.sync')
     loads = _cut(no_mma, _EPILOGUE, "    __syncthreads();\n\n#if 0")
     a = src.index("__device__ __forceinline__ void split_tf32")
     cvt = src[:a] + _CVT_SPLIT + src[src.index("}", a) + 1:]
-    smem_lists = src.replace(_REG_LISTS, "        if (false) {")
+    smem_lists = _once(src, _REG_LISTS, "        if (false) {\n")
+    no_bound = _once(src, _READ_BOUND, "constexpr bool kReadBound = false;")
+    serial = _once(no_bound, _SERIAL, "constexpr int kSerialMax = kRegK;")
+    unused = _once(src, _APPLY_BOUND,
+                   "      const float tau = kWide && isnan(__shfl_sync(kFull, "
+                   "tau_mine, i)) ? 0.f : CUDART_INF_F;\n")
     return {"kernel": src, "no-select": no_select, "loads-only": loads,
-            "cvt-rounding": cvt, "smem-lists": smem_lists}
+            "cvt-rounding": cvt, "smem-lists": smem_lists,
+            "serial-select": serial, "no-shared-bound": no_bound,
+            "unused-bound": unused, "count": _counting(src),
+            "count-serial": _counting(serial)}
 
 
 def build(name: str, src: str):
@@ -102,9 +187,94 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def launcher(lib, corpus, q, k_run: int, force_qt, wide: bool,
+             streamed: bool, sms: int, stream):
+    """A launch over all N rows, L2, of ``lib``'s wide instance for this
+    corpus (``wide``; int8 rows have no other) or the exact route's, the
+    shared bound refilled with +inf before each launch as the wrapper
+    allocates it.  Returns (call, its launch shape and buffers)."""
+    rows_k, scale = corpus if isinstance(corpus, tuple) else (corpus, None)
+    isz, b = rows_k.element_size(), q.shape[0]
+    qt, splits, q_res, smem = cb._launch_shape(b, N, k_run, sms, isz, D,
+                                               force_qt)
+    if streamed:
+        q_res, smem = False, cb._smem_bytes(qt, k_run, isz, D, False)
+    # the shape names its instance: the wide one or the exact route's
+    name = (cb._WIDE_KERNELS[rows_k.dtype] if wide and scale is None
+            else cb._KERNELS[rows_k.dtype])
+    shared = (wide or scale is not None) and k_run <= cb.WIDE_MAX_K
+    part_d = torch.empty((splits, b, k_run), device="cuda")
+    part_i = torch.empty((splits, b, k_run), dtype=torch.int32,
+                         device="cuda")
+    out_d = torch.empty((b, k_run), device="cuda")
+    out_i = torch.empty((b, k_run), dtype=torch.int32, device="cuda")
+    scratch, tail = None, ()
+    if shared:
+        shape, rank = cb._shared_bound(b, splits, k_run)
+        scratch = torch.empty(shape, device="cuda")
+        tail = (scratch.data_ptr(), rank)
+    elif rows_k.dtype == torch.int8:
+        tail = (None, 0)
+    fn = getattr(lib, name)
+    lead = ((q.data_ptr(), rows_k.data_ptr())
+            + (() if scale is None else (scale.data_ptr(),)))
+
+    def call():
+        if scratch is not None:
+            scratch.fill_(float("inf"))
+        err = fn(*lead, None, b, N, D, k_run, L2, qt, splits, int(q_res),
+                 smem, part_d.data_ptr(), part_i.data_ptr(),
+                 out_d.data_ptr(), out_i.data_ptr(), None, None, *tail,
+                 stream)
+        _kernels.check(lib, err, name)
+    return call, dict(name=name, qt=qt, splits=splits, q_res=q_res,
+                      part_d=part_d, part_i=part_i, out_d=out_d, out_i=out_i)
+
+
+def counts(libs, corpus, q, k_run, force_qt, sms, stream) -> None:
+    """The count builds at one wide shape: each (query, split)'s admitted
+    rows, rows merged a tile at a time and tile merges, under the kernel's
+    selection and serial-select's; then the merge kernel alone on the
+    kernel's partial lists."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    b = q.shape[0]
+    got = torch.empty((3, _COUNT_SLOTS), dtype=torch.int32, device="cuda")
+    for name in ("count-serial", "count"):
+        lib = libs[name]
+        lib.probe_counts.argtypes, lib.probe_counts.restype = [vp], ci
+        call, shape = launcher(lib, corpus, q, k_run, force_qt, True, False,
+                               sms, stream)
+        _kernels.check(lib, lib.probe_counts(got.data_ptr()), name)
+        call()
+        _kernels.check(lib, lib.probe_counts(got.data_ptr()), name)
+        s = shape["splits"]
+        adm, merged, merges = got[:, : b * s].view(3, b, s).double()
+        model = k_run * (1 + math.log(N / s / k_run))
+        print(f"{name:15s} B={b} k_run={k_run} QT={shape['qt']} S={s}: a "
+              f"query a split admits {adm.mean():.1f} rows at its tiles' "
+              f"starts (max {adm.max():.0f}; the model without a shared "
+              f"bound {model:.0f}), {merged.mean():.1f} of them merged a "
+              f"tile at a time in {merges.mean():.2f} tile merges (max "
+              f"{merges.max():.0f}), {(adm - merged).mean():.1f} one by one",
+              flush=True)
+    lib = libs["count"]
+    lib.probe_merge.argtypes = [vp, vp, ci, ci, ci, vp, vp, vp]
+    lib.probe_merge.restype = ci
+
+    def merge():
+        _kernels.check(lib, lib.probe_merge(
+            shape["part_d"].data_ptr(), shape["part_i"].data_ptr(), b,
+            shape["splits"], k_run, shape["out_d"].data_ptr(),
+            shape["out_i"].data_ptr(), stream), "merge")
+    print(f"merge_kernel alone at B={b}, S={shape['splits']}, k_run={k_run}:"
+          f" {time_ms(merge, 20):.4f} ms", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--variants", help="comma-separated: time only these "
+                    "(and build only what they and the counts need)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("sweep_probe: no CUDA device")
@@ -112,13 +282,22 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     os.makedirs(OUT, exist_ok=True)
-    with open(SRC) as f:
-        srcs = variants(f.read())
-    with concurrent.futures.ThreadPoolExecutor(len(srcs)) as ex:
-        libs = dict(zip(srcs, ex.map(build, srcs, srcs.values())))
     runs = [("kernel", False), ("streamed-q", True), ("no-select", False),
             ("loads-only", False), ("cvt-rounding", False),
-            ("smem-lists", False)]
+            ("smem-lists", False), ("serial-select", False),
+            ("no-shared-bound", False), ("unused-bound", False)]
+    if args.variants:
+        runs = [r for r in runs if r[0] in args.variants.split(",")]
+    with open(SRC) as f:
+        srcs = variants(f.read())
+    wanted = {"kernel" if name == "streamed-q" else name for name, _ in runs}
+    srcs = {k: v for k, v in srcs.items()
+            if k in wanted | {"count", "count-serial"}}
+    with concurrent.futures.ThreadPoolExecutor(len(srcs)) as ex:
+        libs = dict(zip(srcs, ex.map(build, srcs, srcs.values())))
+    # these differ from the kernel in the wide selection alone
+    wide_only = {"smem-lists", "serial-select", "no-shared-bound",
+                 "unused-bound"}
 
     g = torch.Generator(device="cuda").manual_seed(12345)
     rows = torch.randn((N, D), generator=g, device="cuda")
@@ -127,45 +306,42 @@ def main() -> int:
                "int8": quantize_rows(rows)}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     stream = torch.cuda.current_stream().cuda_stream
+    best = {}
     for order in (runs, runs[::-1]):
         for name, streamed in order:
             lib = libs["kernel" if name == "streamed-q" else name]
-            for kind, b, k_run, force_qt in SHAPES:
-                corpus = corpora[kind]
-                rows_k, scale = (corpus if kind == "int8" else (corpus, None))
-                isz = rows_k.element_size()
+            for kind, b, k_run, force_qt, wide in SHAPES:
+                if name in wide_only and not wide:
+                    continue
                 q = qs[:b]
-                qt, splits, q_res, smem = cb._launch_shape(b, N, k_run, sms,
-                                                           isz, D, force_qt)
-                if streamed:
-                    q_res, smem = False, cb._smem_bytes(qt, k_run, isz, D,
-                                                        False)
-                part_d = torch.empty((splits, b, k_run), device="cuda")
-                part_i = torch.empty((splits, b, k_run), dtype=torch.int32,
-                                     device="cuda")
-                out_d = torch.empty((b, k_run), device="cuda")
-                out_i = torch.empty((b, k_run), dtype=torch.int32,
-                                    device="cuda")
-                fn = getattr(lib, cb._KERNELS[rows_k.dtype])
-                lead = ((q.data_ptr(), rows_k.data_ptr())
-                        + (() if scale is None else (scale.data_ptr(),)))
-
-                def call():
-                    err = fn(*lead, None, b, N, D, k_run, L2, qt, splits,
-                             int(q_res), smem, part_d.data_ptr(),
-                             part_i.data_ptr(), out_d.data_ptr(),
-                             out_i.data_ptr(), None, None, stream)
-                    _kernels.check(lib, err, name)
+                call, shape = launcher(lib, corpora[kind], q, k_run, force_qt,
+                                       wide, streamed, sms, stream)
                 ms = time_ms(call, args.reps)
+                key = (kind, b, k_run, force_qt, wide)
+                best[key, name] = min(ms, best.get((key, name), ms))
                 note = ""
                 if name == "kernel" and order is runs:
-                    want = cb._bruteforce_topk_plain(q, corpus, k_run, L2,
-                                                     N)[1]
+                    want = cb._bruteforce_topk_plain(q, corpora[kind], k_run,
+                                                     L2, N)[1]
                     note = (f"; ids equal to the plain twin's: "
-                            f"{(out_i == want).float().mean().item():.4f}")
-                print(f"{name:13s} {kind:7s} B={b} k_run={k_run} QT={qt} "
-                      f"S={splits} resident queries={q_res}: {ms:.3f} ms"
-                      f"{note}", flush=True)
+                            f"{(shape['out_i'] == want).float().mean():.4f}")
+                print(f"{name:15s} {shape['name']:25s} B={b} k_run={k_run} "
+                      f"QT={shape['qt']} S={shape['splits']} resident "
+                      f"queries={shape['q_res']}: {ms:.3f} ms{note}",
+                      flush=True)
+    for key in dict.fromkeys(k for k, _ in best):
+        kind, b, k_run, force_qt, wide = key
+        if (key, "kernel") not in best or (key, "no-select") not in best:
+            continue
+        sel = best[key, "kernel"] - best[key, "no-select"]
+        print(f"selection share, {kind} B={b} k_run={k_run} QT="
+              f"{force_qt or 'auto'} {'wide' if wide else 'exact route'}: "
+              f"kernel {best[key, 'kernel']:.3f} - no-select "
+              f"{best[key, 'no-select']:.3f} = {sel:.3f} ms (best of two "
+              f"passes)", flush=True)
+    for kind, b, k_run, force_qt, wide in SHAPES:
+        if wide:
+            counts(libs, corpora[kind], qs[:b], k_run, force_qt, sms, stream)
     return 0
 
 

@@ -148,10 +148,12 @@ def test_kernel_matches_plain(cuda, metric, n, d, b, k_run, masked):
     if masked:
         n_valid = n // 30 if k_run == 100 else n - 123
         dead = torch.rand(n, generator=g, device=cuda) < 0.1
-    before = cb.LAUNCHES["bruteforce_topk"]
+    # the exact route's instance, or the wide one from WIDE_MIN_K to 256
+    name = cb._instance(torch.float32, k_run)[0]
+    before = cb.LAUNCHES[name]
     got = cb.bruteforce_topk(qs, pts, k_run, metric, n_valid, dead)
     torch.cuda.synchronize()
-    assert cb.LAUNCHES["bruteforce_topk"] == before + 1
+    assert cb.LAUNCHES[name] == before + 1
     _check(got, cb._bruteforce_topk_plain(qs, pts, k_run, metric, n_valid,
                                           dead))
 
@@ -170,12 +172,12 @@ def test_bf16_kernel_matches_plain(cuda, metric, n, d, b, k_run, masked):
     if masked:
         n_valid = n - 321
         dead = torch.rand(n, generator=g, device=cuda) < 0.1
+    name = cb._instance(torch.bfloat16, k_run)[0]
     before = dict(cb.LAUNCHES)
     got = cb.bruteforce_topk(qs, pts, k_run, metric, n_valid, dead)
     torch.cuda.synchronize()
-    assert cb.LAUNCHES["bruteforce_topk_bf16"] == (
-        before["bruteforce_topk_bf16"] + 1)
-    assert cb.LAUNCHES["bruteforce_topk"] == before["bruteforce_topk"]
+    assert cb.LAUNCHES[name] == before[name] + 1
+    assert sum(cb.LAUNCHES.values()) == sum(before.values()) + 1
     _check(got, cb._bruteforce_topk_plain(qs, pts, k_run, metric, n_valid,
                                           dead))
     # an unaligned corpus view (rows start 2 bytes in) takes element loads
@@ -204,7 +206,7 @@ def test_kernel_tier_edges(cuda, dtype, metric, n, d, b, k_run, masked):
     if masked:
         n_valid = n - 77
         dead = torch.rand(n, generator=g, device=cuda) < 0.1
-    name = cb._KERNELS[dt]
+    name = cb._instance(dt, k_run)[0]
     before = cb.LAUNCHES[name]
     got = cb.bruteforce_topk(qs, pts, k_run, metric, n_valid, dead)
     torch.cuda.synchronize()
@@ -1009,8 +1011,8 @@ def _build_counts(cuda, **kw):
 
 @pytest.mark.parametrize("mode,storage,name", [
     ("exact8", "float32", "bruteforce_topk_q8"),
-    ("exact", "float32", "bruteforce_topk"),
-    ("exact", "bfloat16", "bruteforce_topk_bf16")])
+    ("exact", "float32", "bruteforce_topk_wide"),
+    ("exact", "bfloat16", "bruteforce_topk_bf16_wide")])
 @pytest.mark.parametrize("metric", ["l2", "cosine"])
 def test_build_sweep_is_one_launch_a_batch(cuda, mode, storage, name,
                                            metric):
@@ -1064,3 +1066,166 @@ def test_build_sweep_keeps_tombstones(cuda):
         assert torch.equal(i[:, 0].cpu(), torch.as_tensor(
             dead[:256], dtype=torch.int32))
         assert bool((d[:, 0] == 0).all())
+
+
+# --- the wide selection: the float32 / bf16 wide instances, the shared bound
+
+def integer_rows(seed, n, d, b, dtype, lo=-8, hi=8):
+    """Rows dtype[n, d] and queries f32[b, d] of integers in [lo, hi]:
+    every L2 score is exact in float32 (and the rows exact in bf16), so
+    the kernel and its twin agree bit for bit."""
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(lo, hi + 1, size=(n, d)).astype(np.float32)
+    pts = rng.integers(lo, hi + 1, size=(b, d)).astype(np.float32)
+    return torch.from_numpy(rows).to(dtype), torch.from_numpy(pts)
+
+
+@pytest.mark.parametrize("b", [1, 63, 65, 256])
+@pytest.mark.parametrize("keep", [130, 256])
+@pytest.mark.parametrize("base", ["1", "keep-1", "keep", "131075"])
+def test_wide_kernel_bit_equal_on_integers(cuda, b, keep, base):
+    """bruteforce_topk_wide / _bf16_wide (through sweep_pool) against the
+    plain twin on integer rows, D = 30 / 128 / 960, L2 bit for bit; cosine
+    (one rounding of 1 - dot * rsqrt where the twin rounds twice) within
+    1e-6 relative and ids except at float64 near-ties."""
+    n = {"1": 1, "keep-1": keep - 1, "keep": keep, "131075": 131_075}[base]
+    for d in (30, 128, 960):
+        for dtype in (torch.float32, torch.bfloat16):
+            rows, pts = (t.to(cuda) for t in integer_rows(
+                n + d + keep, n + 37, d, b, dtype))
+            name = cb._WIDE_KERNELS[dtype]
+            for metric in (0, 1):
+                before = cb.LAUNCHES[name]
+                got = cb.sweep_pool(pts, rows, keep, metric, n)
+                torch.cuda.synchronize()
+                assert cb.LAUNCHES[name] == before + 1
+                want = cb._bruteforce_topk_plain(pts, rows, keep, metric, n)
+                live = min(n, keep)
+                assert bool((got[1][:, :live] >= 0).all())
+                assert bool((got[1][:, live:] == -1).all())
+                if metric == 0:
+                    _assert_pool_bit_equal(got, want)
+                else:
+                    _assert_pool_near(got, want, rows[:n].float(), pts,
+                                      metric, 1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("metric", [0, 1])
+def test_wide_kernel_masks_rows(cuda, dtype, metric):
+    """The wide instances with n_valid < N and tombstones (the exact route's
+    masks, which the build's sweep does not use), normal rows."""
+    g = torch.Generator(device=cuda).manual_seed(61 + metric)
+    pts = torch.randn((200_000, 100), generator=g, device=cuda).to(dtype)
+    qs = torch.randn((300, 100), generator=g, device=cuda)
+    dead = torch.rand(200_000, generator=g, device=cuda) < 0.1
+    for k_run in (cb.WIDE_MIN_K, 102, 130, 256):
+        name = cb._WIDE_KERNELS[dtype]
+        before = cb.LAUNCHES[name]
+        got = cb.bruteforce_topk(qs, pts, k_run, metric, 150_000, dead)
+        assert cb.LAUNCHES[name] == before + 1
+        _check(got, cb._bruteforce_topk_plain(qs, pts, k_run, metric,
+                                              150_000, dead))
+        ids = got[1][got[1] >= 0].long()
+        assert bool((ids < 150_000).all()) and not bool(dead[ids].any())
+
+
+def _wide_source(kind, rows):
+    """``rows`` f32[n, d] as the sweep_pool source of ``kind``: the int8
+    shadow of the rounded rows at unit scales, or the rows in float32 /
+    bf16."""
+    if kind == "q8":
+        return (rows.round().clamp(-127, 127).to(torch.int8),
+                torch.ones(len(rows), device=rows.device))
+    return rows.to({"float32": torch.float32, "bf16": torch.bfloat16}[kind])
+
+
+@pytest.mark.parametrize("kind", ["q8", "float32", "bf16"])
+@pytest.mark.parametrize("keep", [130, 256])
+def test_wide_pool_of_equal_rows(cuda, kind, keep):
+    """Every row equal: every score ties, and the pool is rows 0..keep-1
+    in id order (the lowest ids win a tie, whatever split each lies in)."""
+    n, d = 131_075, 128
+    rows = torch.full((n, d), 3.0, device=cuda)
+    pts = torch.from_numpy(np.random.default_rng(keep).integers(
+        -8, 9, size=(256, d)).astype(np.float32)).to(cuda)
+    dist, ids = cb.sweep_pool(pts, _wide_source(kind, rows), keep, 0, n)
+    assert torch.equal(ids, torch.arange(keep, dtype=torch.int32,
+                                         device=cuda).expand(256, -1))
+    assert bool((dist == dist[:, :1]).all())
+
+
+@pytest.mark.parametrize("kind", ["q8", "float32", "bf16"])
+@pytest.mark.parametrize("data", ["normal", "ties"])
+def test_wide_pool_repeats(cuda, kind, data):
+    """Five launches on one input give identical pools: the bound the
+    splits share changes which rows a split admits with the timing, never
+    the merged pool."""
+    n, d, keep = 300_000, 128, 256 if kind == "q8" else 130
+    if data == "normal":
+        g = torch.Generator(device=cuda).manual_seed(71)
+        rows = torch.randn((n, d), generator=g, device=cuda) * 20
+        pts = torch.randn((256, d), generator=g, device=cuda) * 20
+    else:
+        rows, pts = (t.to(cuda) for t in integer_rows(72, n, d, 256,
+                                                       torch.float32, -2, 2))
+    src = _wide_source(kind, rows)
+    pools = [cb.sweep_pool(pts, src, keep, 0, n) for _ in range(5)]
+    for again in pools[1:]:
+        _assert_pool_bit_equal(again, pools[0])
+    want = cb._bruteforce_topk_plain(pts, src, keep, 0, n)
+    if data == "ties":
+        _assert_pool_bit_equal(pools[0], want)
+    else:               # float queries: float32 sums in another order
+        dense = (src[0].float() if kind == "q8" else src.float())
+        _assert_pool_near(pools[0], want, dense, pts, 0, 1e-5)
+
+
+def test_wide_launch_refuses_out_of_scope_arguments(cuda):
+    """The wide entries refuse a bound rank j with S j < k_run, a bound
+    past 256 entries, and a query tile other than 64."""
+    from pg_embedding_tpu_torch import _kernels
+    lib = _kernels.load_library()
+    b, n, d, k_run, splits = 8, 10_000, 32, 100, 4
+    qs = torch.zeros((b, d), device=cuda)
+    pts = torch.zeros((n, d), device=cuda)
+    part = torch.empty((splits, b, 300), device=cuda)
+    out = torch.empty((b, 300), device=cuda)
+    bound = torch.full((b, splits), float("inf"), device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(k, qt, rank):
+        smem = cb._smem_bytes(qt, k, 4, d, True)
+        return lib.bruteforce_topk_wide(
+            qs.data_ptr(), pts.data_ptr(), None, b, n, d, k, 0, qt, splits,
+            1, smem, part.data_ptr(), part.data_ptr(), out.data_ptr(),
+            out.data_ptr(), None, None, bound.data_ptr(), rank, stream)
+    _kernels.check(lib, launch(k_run, 64, 25), "bruteforce_topk_wide")
+    for k, qt, rank in ((k_run, 64, 24), (k_run, 64, 101), (300, 16, 75),
+                        (k_run, 16, 25), (k_run, 64, 0)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            _kernels.check(lib, launch(k, qt, rank), "bruteforce_topk_wide")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [62, 100, 254])
+def test_exact_route_takes_the_wide_instances(cuda, dtype, k):
+    """The exact entry at k_run = k + 2 >= WIDE_MIN_K launches the wide
+    instance once, with n_valid < N and tombstones, and answers as the
+    CPU's exact entry does over the same rows."""
+    from pg_embedding_tpu_torch.ops.cuda_bruteforce import fused_exact_search
+    rng = np.random.default_rng(k)
+    pts = torch.from_numpy(rng.normal(size=(50_000, 64)).astype(np.float32))
+    qs = torch.from_numpy(rng.normal(size=(100, 64)).astype(np.float32))
+    dead = torch.from_numpy(rng.random(50_000) < 0.1)
+    name = cb._WIDE_KERNELS[dtype]
+    before = dict(cb.LAUNCHES)
+    got = fused_exact_search(qs, pts.to(dtype).to(cuda), k, "l2",
+                             n_valid=40_000, deleted=dead.to(cuda))
+    assert cb.LAUNCHES[name] == before[name] + 1
+    assert sum(cb.LAUNCHES.values()) == sum(before.values()) + 1
+    want = fused_exact_search(qs, pts.to(dtype), k, "l2", n_valid=40_000,
+                              deleted=dead)
+    _check(got, want)
+    ids = got[1][got[1] >= 0].long().cpu()
+    assert bool((ids < 40_000).all()) and not bool(dead[ids].any())

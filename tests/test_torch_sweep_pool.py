@@ -13,7 +13,9 @@ float64 (within 1e-5 relative of each other).  On tie-heavy integer data
 only distances are held to JAX (see test_ties_hold_distances_only)."""
 
 import functools
+import math
 import os
+import zlib
 
 import jax
 import jax.numpy as jnp
@@ -192,10 +194,16 @@ def _c_smem_bytes(itemsize, qt, k_run, dims, q_res):
 @pytest.mark.parametrize("itemsize", [1, 2, 4])
 @pytest.mark.parametrize("dims", [30, 128, 960])
 def test_smem_bytes_match_the_kernel(itemsize, dims):
+    """_smem_bytes against sweep_smem_bytes<T>, which every entry (the
+    exact route's, the wide ones and the int8 one) reaches through
+    run_topk, one figure for every instance of a row type."""
     src = open(os.path.join(os.path.dirname(cb.__file__), "..", "csrc",
                             "bruteforce_topk.cu")).read()
     assert ("(scaled_rows<T>() ? kTileN * sizeof(float) : 0)" in src
             and "return std::is_same<T, int8_t>::value;" in src)
+    assert src.count("sweep_smem_bytes<T>(qt, k_run, D, q_res != 0)") == 1
+    entries = src[src.index('extern "C" {'):]
+    assert entries.count("return run_topk<") == 5
     for qt in (64, 16):
         for k_run in (1, 130, 256, 1024):
             for q_res in (True, False):
@@ -286,4 +294,142 @@ def test_sweep_probe_rewrites_find_their_text():
     assert "if (0) asm(\"mma.sync" in got["loads-only"]
     assert "cvt.rna.tf32.f32" in got["cvt-rounding"]
     assert "if (false) {" in got["smem-lists"]
-    assert len({*got.values()}) == 5
+    assert "constexpr bool kReadBound = false;" in got["no-shared-bound"]
+    assert "constexpr int kSerialMax = 2;" in got["no-shared-bound"]
+    assert "constexpr bool kReadBound = false;" in got["serial-select"]
+    assert "constexpr int kSerialMax = kRegK;" in got["serial-select"]
+    for name, base in (("count", src), ("count-serial",
+                                         got["serial-select"])):
+        assert got[name].count("atomicAdd(&g_probe_counts") == 3
+        assert got[name].index("__device__ unsigned g_probe_counts") < (
+            got[name].index("namespace {"))
+        assert 'extern "C" int probe_merge(' in got[name]
+        assert 'extern "C" int probe_counts(' in got[name]
+        assert got[name].startswith(base[:base.index("\nnamespace {")])
+    assert "isnan(__shfl_sync(kFull, tau_mine, i))" in got["unused-bound"]
+    assert len({*got.values()}) == len(got) == 10
+
+
+# --- the wide selection: the bound shared across splits ---------------------
+
+# (rows, k_run, splits, tile) of the split filter's model
+FILTER_SHAPES = [(600, 16, 5, 8), (1000, 64, 33, 4), (2000, 130, 33, 16),
+                 (300, 40, 7, 32)]
+
+
+def _filter_scores(kind, shape, gen):
+    """One query's scores f32[n]: normal; integers in {0, 1, 2}; all
+    equal; {0, 1, 2} with 40% of the rows masked (+inf); all masked but a
+    few rows, fewer than a pool; or "spread": the pool's least S floor(k_run
+    / S) scores floor(k_run / S) at the head of each split, its rest at the
+    tail of split 0 (a rank j with S j < k_run would bound those out)."""
+    n, k_run, splits, tile = shape
+    if kind == "spread":
+        scores = 10 + torch.rand(n, generator=gen)
+        top = torch.sort(torch.rand(k_run, generator=gen)).values
+        per = tile * math.ceil(math.ceil(n / splits) / tile)
+        j0, r = k_run // splits, 0
+        for start in range(0, n, per):
+            scores[start:start + j0] = top[r:r + j0]
+            r += j0
+        scores[per - (k_run - r):per] = top[r:]
+        return scores
+    if kind == "normal":
+        return torch.randn(n, generator=gen)
+    if kind == "all equal":
+        return torch.zeros(n)
+    scores = torch.randint(0, 3, (n,), generator=gen).float()
+    if kind == "masked":
+        scores[torch.rand(n, generator=gen) < 0.4] = float("inf")
+    elif kind == "few live":
+        keep = torch.randperm(n, generator=gen)[:9]
+        scores = torch.full((n,), float("inf")).index_copy(0, keep,
+                                                           scores[keep])
+    return scores
+
+
+@pytest.mark.parametrize("kind", ["normal", "ties 012", "all equal",
+                                  "masked", "few live", "spread"])
+@pytest.mark.parametrize("shape", FILTER_SHAPES,
+                         ids=[f"n{n}-k{k}-s{s}-t{t}"
+                              for n, k, s, t in FILTER_SHAPES])
+def test_split_filter_gives_the_plain_pool(kind, shape):
+    """The wide selection's bound shared across splits, modelled in torch
+    (tests/split_filter.py): under random interleavings of the splits'
+    tiles, bound reads fresh or stale by any number of publications, the
+    merged partial lists equal the plain top k_run, on tie-heavy scores
+    too."""
+    from split_filter import plain_topk, split_filter
+    n, k_run, splits, tile = shape
+    gen = torch.Generator().manual_seed(zlib.crc32(repr((kind, shape))
+                                                   .encode()))
+    for trial in range(6):
+        scores = _filter_scores(kind, shape, gen)
+        want = plain_topk(scores, k_run)
+        got = split_filter(scores, k_run, splits, tile, gen,
+                           max_lag=None if trial % 2 else 0)
+        assert got == want
+
+
+def test_split_filter_needs_the_bound_inclusive():
+    """All rows equal and a pool longer than a tile: once every split has
+    published, the bound equals every score, so a bound test of score <
+    bound (not <=) turns away rows of the true pool.  The model with the
+    kernel's test gives the plain pool on every interleaving; the strict
+    one does not."""
+    from split_filter import plain_topk, split_filter
+    scores = torch.zeros(400)
+    want = plain_topk(scores, 16)
+    assert [i for _, i in want] == list(range(16))
+    gen = torch.Generator().manual_seed(5)
+    wrong = 0
+    for _ in range(10):
+        assert split_filter(scores, 16, 4, 8, gen, max_lag=0) == want
+        wrong += split_filter(scores, 16, 4, 8, gen, strict=True,
+                              max_lag=0) != want
+    assert wrong > 0
+
+
+def test_shared_bound_arithmetic_over_the_launch_shapes():
+    """For every launch _launch_shape makes that takes the bound (the int8
+    instance up to WIDE_MAX_K, the wide float32 / bf16 ones from
+    WIDE_MIN_K): the scratch is f32[B, S], the rank j = ceil(k_run / S) is
+    the least with S j >= k_run (so S published j-th scores name k_run
+    rows) and lies in [1, k_run], and the launch takes the query tile of 64
+    that the wide instances exist at."""
+    dtypes = {1: torch.int8, 2: torch.bfloat16, 4: torch.float32}
+    for itemsize, dtype in dtypes.items():
+        for b in (1, 63, 65, 256, 1024):
+            for n_rows in (1, 2047, 131_075, 1_000_000):
+                for k_run in range(1, cb.WIDE_MAX_K + 1):
+                    qt, splits, _, _ = cb._launch_shape(b, n_rows, k_run, 132,
+                                                        itemsize, 128)
+                    if not cb._instance(dtype, k_run)[1]:
+                        assert dtype != torch.int8 and k_run < cb.WIDE_MIN_K
+                        continue
+                    shape, j = cb._shared_bound(b, splits, k_run)
+                    assert shape == (b, splits)
+                    assert 1 <= j <= k_run
+                    assert splits * j >= k_run > (j - 1) * splits
+                    assert qt == 64
+
+
+def test_wide_instances_serve_the_wide_lists_only():
+    """The wrapper's choice of C entry by k_run: the int8 instance takes
+    the bound up to WIDE_MAX_K (longer lists keep the shared-memory
+    insertion); float32 / bf16 rows take the wide instances from
+    WIDE_MIN_K to WIDE_MAX_K (the build's pools, the exact route's k from
+    62), else the exact route's (its k_run = 12 among them)."""
+    f32, bf16, i8 = torch.float32, torch.bfloat16, torch.int8
+    assert cb._instance(i8, 1) == ("bruteforce_topk_q8", True)
+    assert cb._instance(i8, 256) == ("bruteforce_topk_q8", True)
+    assert cb._instance(i8, 257) == ("bruteforce_topk_q8", False)
+    assert cb._instance(f32, 130) == ("bruteforce_topk_wide", True)
+    assert cb._instance(f32, cb.WIDE_MIN_K) == ("bruteforce_topk_wide", True)
+    assert cb._instance(bf16, 256) == ("bruteforce_topk_bf16_wide", True)
+    assert cb._instance(f32, 12) == ("bruteforce_topk", False)
+    assert cb._instance(bf16, cb.WIDE_MIN_K - 1) == ("bruteforce_topk_bf16",
+                                                     False)
+    assert cb._instance(f32, 257) == ("bruteforce_topk", False)
+    assert set(cb.LAUNCHES) == {*cb._KERNELS.values(),
+                                *cb._WIDE_KERNELS.values()}
