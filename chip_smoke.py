@@ -30,7 +30,8 @@ exits non-zero):
      pages (bruteforce_topk_paged) against the plain twin's one
      list; at 1M x 128-d,
      B=1024, k_run=12 (CUDA events) each instantiation's time, its bound
-     (3 TF32 passes for float32 rows, 2 for bf16, at 495 TFLOP/s) and share
+     (products_s: 3 TF32 passes for float32 rows; for bf16 values the
+     lesser of 2 TF32 passes and 3 bf16 ones) and share
      of it, the plain twin's time, and library_ms: torch.addmm of the L2
      scores in full float32 plus torch.topk (a yardstick the port never
      calls);
@@ -89,7 +90,7 @@ exits non-zero):
      its plain twin (distances within phase 9's cancellation tolerance,
      ids except float64 near-ties), the final cand_cap after the exact
      rerank equal on >= 99.9% of rows, its time a call and on the card
-     beside its bound (2 TF32 passes), the twin, the torch-op loop it
+     beside its bound (products_s), the twin, the torch-op loop it
      replaced (loop_pool) and torch.matmul + torch.topk, which the kernel
      must beat on the card; the same for exact mode (bruteforce_topk_wide
      over float32 rows and bruteforce_topk_bf16_wide over their bf16
@@ -184,9 +185,10 @@ exits non-zero):
 Phases are timed with utils/profiling's Timer (synchronising the card).
 The last three lines are the card's nvidia-smi line, a JSON line of the
 kernels ("launches" from the main path of phase 4, the wide instances'
-from the exact-mode builds; the build sweep instances' timings are phase
-4b's on the add()'s batch, with "loop_ms" (the torch-op loop each
-replaced); for prune_scan also
+from their own path, the exact-mode builds, each counted from 0 just
+before it; the build sweep instances' timings are phase 4b's on the
+add()'s 1M batch, with "loop_ms" (the torch-op loop each replaced); for
+prune_scan also
 "insert_launches" and "reprune_launches", the build's launches at each
 width, and the re-prune shape's "reprune_ms", "reprune_device_ms",
 "reprune_plain_ms" and "reprune_bound_ms"; "ms" is a call's time between
@@ -259,9 +261,10 @@ BUILD_SWEEPS = ("bruteforce_topk_q8", "bruteforce_topk_wide",
 # phase 4b: the walk kernel's beam and widths at 1M
 WALK_EF = 64
 WALK_TS = (4, 8)
-# NVIDIA's H100 SXM data sheet, dense: TF32 tensor cores, float32 outside
-# them, HBM3
+# NVIDIA's H100 SXM data sheet, dense: TF32 and bf16 tensor cores, float32
+# outside them, HBM3
 PEAK_TF32 = 495e12
+PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 # the walk's row sources and visited sets beyond float32 rows under the
@@ -513,17 +516,27 @@ def kernel_phase(torch, cb, dev):
     return out
 
 
+def products_s(b, n, d, bf16_values):
+    """Seconds for the B N D products of a float32 query batch against n
+    rows on the tensor cores: float32 rows in 3 TF32 passes (hi/lo
+    splits); rows that are bf16 values (bf16 rows, int8 x scale elements,
+    PQ-decoded rows) in the lesser of 2 TF32 passes and 3 bf16 passes (the
+    query split into three bf16 parts) at the bf16 rate."""
+    flops = 2.0 * b * n * d
+    if not bf16_values:
+        return 3 * flops / PEAK_TF32
+    return min(2 * flops / PEAK_TF32, 3 * flops / PEAK_BF16)
+
+
 def bound_ms(b, n, d, itemsize, k_run):
-    """The least time the card could take for one launch: the products on
-    the TF32 tensor cores (3 passes for float32 rows, 2 for bf16 rows and
-    int8 x scale elements, which are bf16 values, exact in TF32) or the
+    """The least time the card could take for one launch: the products
+    (products_s; rows of 1- and 2-byte elements are bf16 values) or the
     bytes (corpus and int8 rows' scales, queries, output lists) at the HBM
     rate, whichever is larger."""
-    passes = 3 if itemsize == 4 else 2
-    ops = passes * 2.0 * b * n * d
+    t_ops = products_s(b, n, d, itemsize < 4)
     nbytes = (n * (d * itemsize + (4 if itemsize == 1 else 0)) + b * d * 4
               + b * k_run * 8)
-    t_ops, t_bytes = ops / PEAK_TF32, nbytes / PEAK_BYTES
+    t_bytes = nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -627,10 +640,10 @@ def small_build_matches_cpu(torch, HnswConfig, HnswIndex, dev):
 
 def exact_mode_builds(torch, cb, HnswConfig, HnswIndex, dev):
     """The wide float32 / bf16 instances' own path: a 4,000-row build with
-    build_candidates="exact" at each storage dtype, one launch of its wide
-    instance a batch past the first (counted from 0 over the build) and no
-    other sweep, link rows >= 95% equal to the same build on the CPU.
-    Returns {instance: its launches}."""
+    build_candidates="exact" at each storage dtype, every count set to 0
+    just before it: one launch of its wide instance a batch past the first
+    and no other sweep, link rows >= 95% equal to the same build on the
+    CPU.  Returns {instance: its launches}."""
     from pg_embedding_tpu_torch.core import build as core_build
     pts, _ = make_data(SEED + 11, 4000, 1)
     cfg = HnswConfig(dims=DIMS, m=16, ef_construction=64, ef_search=64)
@@ -640,9 +653,9 @@ def exact_mode_builds(torch, cb, HnswConfig, HnswIndex, dev):
         kw = dict(build_candidates="exact", storage_dtype=storage)
         gpu = HnswIndex(cfg, device=dev, **kw)
         cpu = HnswIndex(cfg, device="cpu", **kw)
-        before = dict(cb.LAUNCHES)
+        reset_launches()
         gpu.build(pts)
-        ran = {k: v - before[k] for k, v in cb.LAUNCHES.items()}
+        ran = dict(cb.LAUNCHES)
         cpu.build(pts)
         same = float((gpu.graph.links.cpu() == cpu.graph.links)
                      .all(dim=1)[:4000].float().mean())
@@ -1778,8 +1791,8 @@ def pq_pool_timing(torch, idx, q):
     ops) at this phase's shape: the tuned pool over every live row's codes,
     the queries' batch; a call's time (CUDA events, median of 5) beside
     its bound: the decoded rows are bf16 values, so a kernel could score
-    them in 2 TF32 passes (2 B N D x 2 at 495 TFLOP/s), or the bytes (the
-    codes, the codebook, the queries, the pool) at the HBM rate."""
+    them as products_s says, or the bytes (the codes, the codebook, the
+    queries, the pool) at the HBM rate."""
     from pg_embedding_tpu_torch.ops.pq_sweep import _pq_pool
     codes = idx._ensure_pq_codes()
     n, groups = idx.n_nodes, codes.shape[1]
@@ -1791,7 +1804,7 @@ def pq_pool_timing(torch, idx, q):
                         pool=pool, metric_value=L2, chunk=16384)
     ms = median_ms(torch, call)
     b, d = q.shape
-    ops_ms = 2 * 2.0 * b * n * d / PEAK_TF32 * 1e3
+    ops_ms = products_s(b, n, d, True) * 1e3
     nbytes = (n * groups + idx._pq_codebook.numel() * 4 + b * d * 4
               + b * pool * 8)
     bytes_ms = nbytes / PEAK_BYTES * 1e3
@@ -1799,7 +1812,7 @@ def pq_pool_timing(torch, idx, q):
         f" {ms:.3f} ms a call (median of 5, CUDA events); bound "
         f"{max(ops_ms, bytes_ms):.4f} ms "
         f"({'operations' if ops_ms >= bytes_ms else 'bytes'}: operations "
-        f"{ops_ms:.4f} ms at 2 TF32 passes, bytes {bytes_ms:.4f} ms)")
+        f"{ops_ms:.4f} ms as bf16 values, bytes {bytes_ms:.4f} ms)")
 
 
 def pq_persistence(torch, HnswIndex, idx, qs, tmp):
@@ -2640,7 +2653,9 @@ def main():
             ("bruteforce_topk_q8", main_launches,
              ("pg_embedding_tpu_torch/csrc/bruteforce_topk.cu",
               "pg_embedding_tpu/core/build.py:287")),
-            # exact mode's build sweep: launches over its own builds
+            # exact mode's build sweep: launches from its own path, the
+            # exact-mode builds (exact_mode_builds); its timings from phase
+            # 4b's 1M batch (sweep_phase)
             ("bruteforce_topk_wide", exact_mode_launches,
              ("pg_embedding_tpu_torch/csrc/bruteforce_topk.cu",
               "pg_embedding_tpu/core/build.py:287")),

@@ -97,8 +97,10 @@
 // D % 16 == 0 and the base is aligned, else element loads) and, per stage,
 // the tile's 128 scales (4-byte cp.async); each thread widens the elements
 // it feeds to the mma's in registers.  What bounds it (1M x 128-d, one
-// 256-row insert batch, k_run = 2 cand_cap = 256): 2 B N D x 2 passes = 131
-// GFLOP at 495 TFLOP/s = 0.265 ms; the shadow is 132 MB, 0.040 ms.
+// 256-row insert batch, k_run = 2 cand_cap = 256): the products, 2 B N D =
+// 65.5 GFLOP, in the lesser of 2 TF32 passes at 495 TFLOP/s (0.265 ms) and
+// 3 bf16 passes (the query split in three bf16 parts) at 989 TFLOP/s
+// (0.199 ms); the shadow is 132 MB, 0.040 ms.
 //
 // The wide selection: lists of k_run <= kRegK = 256 in the int8 instance
 // and in bruteforce_topk_wide / _bf16_wide, which the wrapper takes for
@@ -168,8 +170,10 @@ constexpr int kMergeWarps = 4;
 constexpr int kRegE = 8;
 constexpr int kRegK = 32 * kRegE;
 // a query's rows admitted from one tile go in one by one up to this many,
-// else sorted and merged 32 at a time
-constexpr int kSerialMax = 2;
+// else sorted and merged 32 at a time (sweep_probe's bound-serial,
+// bound-merge and serial-max-N: either path alone is slower; 8 is as fast
+// as 12 and beats 1, 2, 4, 16 and 32 at the build's pools and k_run 102)
+constexpr int kSerialMax = 8;
 // whether a split reads the bound the splits publish (sweep_probe's
 // no-shared-bound and serial-select variants turn it off)
 constexpr bool kReadBound = true;

@@ -15,7 +15,8 @@ route's k past 61) run the wide selection, the int8 instance's at every
 k_run up to WIDE_MAX_K, float32 / bf16 rows through ``bruteforce_topk_wide``
 / ``bruteforce_topk_bf16_wide`` (shorter lists keep the first two): each
 split admits only rows that score at most a bound the splits share
-(``_shared_bound``) and merges a tile's rows into its list at once.
+(``_shared_bound``; ``_entry`` allocates it) and merges a tile's rows into
+its list at once.
 ``_launch_shape`` chooses each launch's query tile, corpus splits and
 shared memory here, where the CPU tests reach it.
 
@@ -184,14 +185,17 @@ def _launch_shape(b: int, n_rows: int, k_run: int, sms: int,
     return qt, splits, q_res, smem
 
 
-def _instance(dtype, k_run: int):
+def _instance(dtype, k_run: int, wide: bool | None = None):
     """(the C entry of a launch, whether it takes the shared bound).  The
     int8 instance runs the wide selection up to WIDE_MAX_K, with a bound;
     float32 / bf16 rows take the wide instances from WIDE_MIN_K to
-    WIDE_MAX_K, else the exact route's."""
+    WIDE_MAX_K, else the exact route's; ``wide`` forces their choice (a
+    probe's)."""
     if dtype == torch.int8:
         return _KERNELS[dtype], k_run <= WIDE_MAX_K
-    if WIDE_MIN_K <= k_run <= WIDE_MAX_K:
+    if wide is None:
+        wide = WIDE_MIN_K <= k_run <= WIDE_MAX_K
+    if wide:
         return _WIDE_KERNELS[dtype], True
     return _KERNELS[dtype], False
 
@@ -203,6 +207,20 @@ def _shared_bound(b: int, splits: int, k_run: int):
     ceil(k_run / S), the least with S j >= k_run, so the S published j-th
     scores name at least k_run rows."""
     return (b, splits), -(-k_run // splits)
+
+
+def _entry(dtype, k_run: int, b: int, splits: int, device,
+           wide: bool | None = None):
+    """A launch's C entry (``_instance``), its shared bound's scratch
+    (f32[B, S] of +inf, or None) and the arguments the entry takes for the
+    bound before the stream: (scratch, rank j); (None, 0) for the int8
+    entry past WIDE_MAX_K; none for the exact route's entries."""
+    name, shared = _instance(dtype, k_run, wide)
+    if shared:
+        shape, rank = _shared_bound(b, splits, k_run)
+        scratch = torch.full(shape, float("inf"), device=device)
+        return name, scratch, (scratch.data_ptr(), rank)
+    return name, None, (None, 0) if dtype == torch.int8 else ()
 
 
 def _check_args(queries, points, k_run, metric_value, deleted,
@@ -282,7 +300,6 @@ def bruteforce_topk(queries, points, k_run: int, metric_value: int,
     if b == 0:
         return out_d, out_i
     lib = _kernels.load_library()
-    name, shared = _instance(rows.dtype, k_run)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     qt, splits, q_res, smem = _launch_shape(
         b, n_rows, k_run, sms, rows.element_size(), dims)
@@ -291,13 +308,8 @@ def bruteforce_topk(queries, points, k_run: int, metric_value: int,
                              device=dev)
         part_i = torch.empty((splits, b, k_run), dtype=torch.int32,
                              device=dev)
-        bound = ()                       # the exact route's entries take none
-        if shared:
-            shape, rank = _shared_bound(b, splits, k_run)
-            scratch = torch.full(shape, float("inf"), device=dev)
-            bound = (scratch.data_ptr(), rank)
-        elif name == _KERNELS[torch.int8]:
-            bound = (None, 0)
+        # the scratch is held until the launch is queued
+        name, scratch, bound = _entry(rows.dtype, k_run, b, splits, dev)
         err = getattr(lib, name)(
             queries.data_ptr(), rows.data_ptr(),
             *(() if scale is None else (scale.data_ptr(),)),

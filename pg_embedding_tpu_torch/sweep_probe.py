@@ -23,6 +23,12 @@ variants, each against the kernel:
   serial-select   the wide selection as it was before the shared bound:
                   every admitted row inserted one by one, no bound read
   no-shared-bound the splits' bound published but never read
+  bound-serial    the shared bound read, every admitted row inserted one
+                  by one (no tile merge)
+  bound-merge     the shared bound read, every tile's admitted rows merged
+                  at once (no one-by-one insertion)
+  serial-max-N    the shared bound read, up to N of a tile's admitted rows
+                  one by one, more merged (the kernel's cut-off is 8)
   unused-bound    the bound read before each tile but not applied (its
                   reads' cost: this minus no-shared-bound)
 The wide shapes also run the count build (the kernel, and serial-select,
@@ -30,9 +36,12 @@ with atomics: the rows each (query, split) admitted at its tiles' starts,
 the rows merged a tile at a time and the tile merges; mean and max beside
 the model k (1 + ln(rows a split / k)) of a split that admits against its
 own k-th alone) and time the merge kernel alone at the launch's partial
-lists.  A variant's answers are wrong by design; only the kernel's ids are
-checked (against the plain twin).  Variants are timed in turns, then in
-reverse order, on one card, with its name and power limit printed first.
+lists.  A variant's answers are wrong by design but for bound-serial's,
+bound-merge's and serial-max-N's; those and the kernel's ids are checked
+(against the plain twin).  Variants are timed in turns, then in
+reverse order (--passes of them, every other reversed), on one card, with
+its name and power limit printed first; each variant's best and worst pass
+close the run.
 """
 
 from __future__ import annotations
@@ -71,13 +80,19 @@ _SELECTION = "    // selection: warp w alone"
 _EPILOGUE = "    // accumulators -> scores"
 _NEXT_TILE = "    tile += kTileN;\n"
 _REG_LISTS = "        if (k_run <= kRegK) {\n"
-_SERIAL = "constexpr int kSerialMax = 2;"
+_SERIAL = "constexpr int kSerialMax = "
 _READ_BOUND = "constexpr bool kReadBound = true;"
 _APPLY_BOUND = ("      const float tau =\n"
                 "          kWide ? __shfl_sync(kFull, tau_mine, i) : "
                 "CUDART_INF_F;\n")
 _ADMITTED = "  if (admitted <= kSerialMax)\n"
 _NAMESPACE = "\nnamespace {\n"
+# the cut-offs between one-by-one insertion and a tile merge that
+# serial-max-N tries beside the kernel's
+SERIAL_MAX_TRIED = (2, 4, 16)
+# the variants whose answers are the kernel's
+_EXACT = ("kernel", "bound-serial", "bound-merge",
+          *(f"serial-max-{n}" for n in SERIAL_MAX_TRIED))
 _CVT_SPLIT = (
     "__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,\n"
     "                                           uint32_t& lo) {\n"
@@ -141,6 +156,14 @@ def _counting(src: str) -> str:
     return _once(src, _ADMITTED, _COUNT + _ADMITTED) + _COUNT_ENTRIES
 
 
+def _serial_max(src: str, n) -> str:
+    """src with the cut-off kSerialMax set to ``n``."""
+    if src.count(_SERIAL) != 1:
+        raise ValueError(f"{_SERIAL!r} appears {src.count(_SERIAL)} times")
+    a = src.index(_SERIAL) + len(_SERIAL)
+    return src[:a] + str(n) + src[src.index(";", a):]
+
+
 def variants(src: str) -> dict:
     no_select = _cut(src, _SELECTION, _NEXT_TILE)
     no_mma = no_select.replace('  asm("mma.sync', '  if (0) asm("mma.sync')
@@ -149,15 +172,20 @@ def variants(src: str) -> dict:
     cvt = src[:a] + _CVT_SPLIT + src[src.index("}", a) + 1:]
     smem_lists = _once(src, _REG_LISTS, "        if (false) {\n")
     no_bound = _once(src, _READ_BOUND, "constexpr bool kReadBound = false;")
-    serial = _once(no_bound, _SERIAL, "constexpr int kSerialMax = kRegK;")
+    serial = _serial_max(no_bound, "kRegK")
+    bound_serial = _serial_max(src, "kRegK")
+    bound_merge = _serial_max(src, 0)
     unused = _once(src, _APPLY_BOUND,
                    "      const float tau = kWide && isnan(__shfl_sync(kFull, "
                    "tau_mine, i)) ? 0.f : CUDART_INF_F;\n")
+    cut_offs = {f"serial-max-{n}": _serial_max(src, n)
+                for n in SERIAL_MAX_TRIED}
     return {"kernel": src, "no-select": no_select, "loads-only": loads,
             "cvt-rounding": cvt, "smem-lists": smem_lists,
             "serial-select": serial, "no-shared-bound": no_bound,
+            "bound-serial": bound_serial, "bound-merge": bound_merge,
             "unused-bound": unused, "count": _counting(src),
-            "count-serial": _counting(serial)}
+            "count-serial": _counting(serial), **cut_offs}
 
 
 def build(name: str, src: str):
@@ -191,30 +219,22 @@ def launcher(lib, corpus, q, k_run: int, force_qt, wide: bool,
              streamed: bool, sms: int, stream):
     """A launch over all N rows, L2, of ``lib``'s wide instance for this
     corpus (``wide``; int8 rows have no other) or the exact route's, the
-    shared bound refilled with +inf before each launch as the wrapper
-    allocates it.  Returns (call, its launch shape and buffers)."""
+    entry and its shared bound as the wrapper's ``_entry`` makes them, the
+    bound refilled with +inf before each launch.  Returns (call, its launch
+    shape and buffers)."""
     rows_k, scale = corpus if isinstance(corpus, tuple) else (corpus, None)
     isz, b = rows_k.element_size(), q.shape[0]
     qt, splits, q_res, smem = cb._launch_shape(b, N, k_run, sms, isz, D,
                                                force_qt)
     if streamed:
         q_res, smem = False, cb._smem_bytes(qt, k_run, isz, D, False)
-    # the shape names its instance: the wide one or the exact route's
-    name = (cb._WIDE_KERNELS[rows_k.dtype] if wide and scale is None
-            else cb._KERNELS[rows_k.dtype])
-    shared = (wide or scale is not None) and k_run <= cb.WIDE_MAX_K
     part_d = torch.empty((splits, b, k_run), device="cuda")
     part_i = torch.empty((splits, b, k_run), dtype=torch.int32,
                          device="cuda")
     out_d = torch.empty((b, k_run), device="cuda")
     out_i = torch.empty((b, k_run), dtype=torch.int32, device="cuda")
-    scratch, tail = None, ()
-    if shared:
-        shape, rank = cb._shared_bound(b, splits, k_run)
-        scratch = torch.empty(shape, device="cuda")
-        tail = (scratch.data_ptr(), rank)
-    elif rows_k.dtype == torch.int8:
-        tail = (None, 0)
+    name, scratch, tail = cb._entry(rows_k.dtype, k_run, b, splits, "cuda",
+                                    wide)
     fn = getattr(lib, name)
     lead = ((q.data_ptr(), rows_k.data_ptr())
             + (() if scale is None else (scale.data_ptr(),)))
@@ -273,6 +293,8 @@ def counts(libs, corpus, q, k_run, force_qt, sms, stream) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--passes", type=int, default=2,
+                    help="passes over the variants, every other reversed")
     ap.add_argument("--variants", help="comma-separated: time only these "
                     "(and build only what they and the counts need)")
     args = ap.parse_args()
@@ -285,7 +307,9 @@ def main() -> int:
     runs = [("kernel", False), ("streamed-q", True), ("no-select", False),
             ("loads-only", False), ("cvt-rounding", False),
             ("smem-lists", False), ("serial-select", False),
-            ("no-shared-bound", False), ("unused-bound", False)]
+            ("no-shared-bound", False), ("bound-serial", False),
+            ("bound-merge", False), ("unused-bound", False),
+            *((f"serial-max-{n}", False) for n in SERIAL_MAX_TRIED)]
     if args.variants:
         runs = [r for r in runs if r[0] in args.variants.split(",")]
     with open(SRC) as f:
@@ -297,7 +321,8 @@ def main() -> int:
         libs = dict(zip(srcs, ex.map(build, srcs, srcs.values())))
     # these differ from the kernel in the wide selection alone
     wide_only = {"smem-lists", "serial-select", "no-shared-bound",
-                 "unused-bound"}
+                 "bound-serial", "bound-merge", "unused-bound",
+                 *(f"serial-max-{n}" for n in SERIAL_MAX_TRIED)}
 
     g = torch.Generator(device="cuda").manual_seed(12345)
     rows = torch.randn((N, D), generator=g, device="cuda")
@@ -306,8 +331,9 @@ def main() -> int:
                "int8": quantize_rows(rows)}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     stream = torch.cuda.current_stream().cuda_stream
-    best = {}
-    for order in (runs, runs[::-1]):
+    best, worst = {}, {}
+    for p in range(args.passes):
+        order = runs[::-1] if p % 2 else runs
         for name, streamed in order:
             lib = libs["kernel" if name == "streamed-q" else name]
             for kind, b, k_run, force_qt, wide in SHAPES:
@@ -319,8 +345,9 @@ def main() -> int:
                 ms = time_ms(call, args.reps)
                 key = (kind, b, k_run, force_qt, wide)
                 best[key, name] = min(ms, best.get((key, name), ms))
+                worst[key, name] = max(ms, worst.get((key, name), ms))
                 note = ""
-                if name == "kernel" and order is runs:
+                if name in _EXACT and p == 0:
                     want = cb._bruteforce_topk_plain(q, corpora[kind], k_run,
                                                      L2, N)[1]
                     note = (f"; ids equal to the plain twin's: "
@@ -337,8 +364,15 @@ def main() -> int:
         print(f"selection share, {kind} B={b} k_run={k_run} QT="
               f"{force_qt or 'auto'} {'wide' if wide else 'exact route'}: "
               f"kernel {best[key, 'kernel']:.3f} - no-select "
-              f"{best[key, 'no-select']:.3f} = {sel:.3f} ms (best of two "
-              f"passes)", flush=True)
+              f"{best[key, 'no-select']:.3f} = {sel:.3f} ms (best of "
+              f"{args.passes} passes)", flush=True)
+    # each variant's best and worst pass: the run-to-run spread
+    for (key, name), ms in best.items():
+        kind, b, k_run, force_qt, wide = key
+        print(f"passes, {name:15s} {kind} B={b} k_run={k_run} QT="
+              f"{force_qt or 'auto'} {'wide' if wide else 'exact route'}: "
+              f"best {ms:.3f} ms, worst {worst[key, name]:.3f} ms",
+              flush=True)
     for kind, b, k_run, force_qt, wide in SHAPES:
         if wide:
             counts(libs, corpora[kind], qs[:b], k_run, force_qt, sms, stream)

@@ -295,7 +295,7 @@ def test_sweep_probe_rewrites_find_their_text():
     assert "cvt.rna.tf32.f32" in got["cvt-rounding"]
     assert "if (false) {" in got["smem-lists"]
     assert "constexpr bool kReadBound = false;" in got["no-shared-bound"]
-    assert "constexpr int kSerialMax = 2;" in got["no-shared-bound"]
+    assert "constexpr int kSerialMax = 8;" in got["no-shared-bound"]
     assert "constexpr bool kReadBound = false;" in got["serial-select"]
     assert "constexpr int kSerialMax = kRegK;" in got["serial-select"]
     for name, base in (("count", src), ("count-serial",
@@ -307,7 +307,13 @@ def test_sweep_probe_rewrites_find_their_text():
         assert 'extern "C" int probe_counts(' in got[name]
         assert got[name].startswith(base[:base.index("\nnamespace {")])
     assert "isnan(__shfl_sync(kFull, tau_mine, i))" in got["unused-bound"]
-    assert len({*got.values()}) == len(got) == 10
+    for name, serial_max in (("bound-serial", "kRegK"), ("bound-merge", "0"),
+                             *((f"serial-max-{n}", n)
+                               for n in sweep_probe.SERIAL_MAX_TRIED)):
+        assert "constexpr bool kReadBound = true;" in got[name]
+        assert f"constexpr int kSerialMax = {serial_max};" in got[name]
+    assert len({*got.values()}) == len(got) == (
+        12 + len(sweep_probe.SERIAL_MAX_TRIED))
 
 
 # --- the wide selection: the bound shared across splits ---------------------
@@ -433,3 +439,29 @@ def test_wide_instances_serve_the_wide_lists_only():
     assert cb._instance(f32, 257) == ("bruteforce_topk", False)
     assert set(cb.LAUNCHES) == {*cb._KERNELS.values(),
                                 *cb._WIDE_KERNELS.values()}
+    # a probe forces the float32 / bf16 choice; the int8 entry has one
+    assert cb._instance(f32, 12, wide=True) == ("bruteforce_topk_wide", True)
+    assert cb._instance(f32, 130, wide=False) == ("bruteforce_topk", False)
+    assert cb._instance(i8, 256, wide=False) == ("bruteforce_topk_q8", True)
+
+
+@pytest.mark.parametrize("dtype,k_run,tail", [
+    (torch.int8, 256, "bound"), (torch.int8, 257, "none given"),
+    (torch.float32, 130, "bound"), (torch.bfloat16, 64, "bound"),
+    (torch.float32, 12, "no bound"), (torch.bfloat16, 300, "no bound")])
+def test_entry_passes_the_bound_its_entry_takes(dtype, k_run, tail):
+    """_entry, the one place that says which C entry a launch calls and
+    what it passes for the shared bound: the scratch f32[B, S] of +inf and
+    its rank where the entry shares one, (None, 0) for the int8 entry past
+    WIDE_MAX_K, nothing for the exact route's entries (as
+    _kernels.declare_sweep types them)."""
+    b, splits = 5, 33
+    name, scratch, args = cb._entry(dtype, k_run, b, splits, "cpu")
+    assert name == cb._instance(dtype, k_run)[0]
+    if tail == "bound":
+        assert scratch.shape == (b, splits) and scratch.dtype == torch.float32
+        assert bool(torch.isinf(scratch).all()) and bool((scratch > 0).all())
+        assert args == (scratch.data_ptr(), -(-k_run // splits))
+    else:
+        assert scratch is None
+        assert args == ((None, 0) if tail == "none given" else ())
