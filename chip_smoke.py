@@ -42,7 +42,10 @@ exits non-zero):
      graph QPS, recall@10 of the graph route (>= 0.90 at T=8, printed
      beside EARLIER_RECALL; T=4's is printed), deletes never surfacing;
      every build batch past the first one bruteforce_topk_q8 launch (the
-     build's candidate sweep) and no torch-op sweep on the card; before
+     build's candidate sweep) and no torch-op sweep on the card, every
+     batch one connect_batch launch (the wiring: back-links and their
+     re-prunes) and no plain wiring on the card (PLAIN_CONNECTS_ON_CARD),
+     prune_scan only at the insert's width; before
      it, a small build that must match the same build on the CPU, and
      exact-mode builds of 4,000 rows (float32 and bf16 storage: one launch
      of the wide instance a batch past the first, link rows >= 95% equal
@@ -66,11 +69,12 @@ exits non-zero):
      every row source and set, (4097, 64) and (64, 8191) for float32
      rows);
      prune_scan bit-equal to core/build._prune_scan_plain on the candidate
-     sets of one real 256-row insert batch (an add() to the index, whose
-     first prune of each width is captured: the insert's, C = 128, nn =
-     16, and the first back-link re-prune's, C = maxM + 1 = 33, nn = 32),
-     with the main path's build's prune_scan launches counted at each
-     width (by the wrapper, ops/cuda_graph.PRUNE_SHAPES).  Times of each
+     sets of one real 256-row insert batch (an add() to the index: its
+     insert prune, C = 128, nn = 16, and the first back-link re-prune, C =
+     maxM + 1 = 33, nn = 32, of the plain twin's wiring of the same batch:
+     the index's own re-prunes run inside connect_batch), with the main
+     path's build's prune_scan launches counted at each width (by the
+     wrapper, ops/cuda_graph.PRUNE_SHAPES; 0 at the re-prune's).  Times of each
      kernel a call (CUDA events around one call, median of 5, as for each
      twin: the JSON's "ms") and on the card (20 calls
      captured in a CUDA graph, replayed between CUDA events: the host's
@@ -94,14 +98,22 @@ exits non-zero):
      replaced (loop_pool) and torch.matmul + torch.topk, which the kernel
      must beat on the card; the same for exact mode (bruteforce_topk_wide
      over float32 rows and bruteforce_topk_bf16_wide over their bf16
-     values, pool cand_cap + 2, beside addmm + topk); two more add()s:
-     one broken down on the host clock (staging, sweep, prune,
-     _connect_batch's rounds, re-prunes and the host's waits on the card,
-     the wait at int(rank.max()) on a line of its own) with its peak
-     device memory, one through loop_pool with its peak; then a
-     200,000-row build through the kernel and again with
-     core/build's sweep swapped for loop_pool: link rows >= 99.9%
-     identical, graph recall@10 within 0.002;
+     values, pool cand_cap + 2, beside addmm + topk); the wiring of that
+     add()'s batch (captured by wrapping core/build._connect_batch):
+     connect_batch against its plain twin (core/build._replay_chains) on
+     copies of the links, the touched rows equal on >= 99% of targets, its
+     counters (chains, re-prunes), its time a call and on the card beside
+     its bound (connect_bound_ms) and the twin's, and bit-equal to the
+     twin on integer rows for every metric, float32 / bf16 rows and each
+     shared-memory tier (connect_integer_cases); eight more add()s, each
+     broken down on the host clock (staging, the sweep's launch, the
+     prune, the wiring, the closing wait: median / min / max), the host
+     syncs inside them counted (none allowed), re-prunes a batch from the
+     kernel's counters, peak device memory, and one through loop_pool with
+     its peak; then a 200,000-row build through the kernels and again with
+     core/build's sweep swapped for loop_pool and its wiring for
+     _connect_batch_plain: link rows >= 99.9% identical, graph recall@10
+     within 0.002;
   5. on the same index: tune_exact8_chunk (its cache in a temp dir, not
      saved): the exact8 sweep's ms per 256-row insert batch at chunks of
      262,144 / 524,288 / 1,048,576 / 2,097,152 rows (one kernel launch
@@ -191,7 +203,9 @@ add()'s 1M batch, with "loop_ms" (the torch-op loop each replaced); for
 prune_scan also
 "insert_launches" and "reprune_launches", the build's launches at each
 width, and the re-prune shape's "reprune_ms", "reprune_device_ms",
-"reprune_plain_ms" and "reprune_bound_ms"; "ms" is a call's time between
+"reprune_plain_ms" and "reprune_bound_ms"; for connect_batch its
+counters on the add()'s batch, "rows_equal" to the twin there and "add",
+the eight add()s' breakdown; "ms" is a call's time between
 CUDA events, host share included, for every kernel, and
 the walk and the scan also give "device_ms", the card's time from the CUDA
 graph; the walk's "variants": each variant's launches over its own API
@@ -200,10 +214,11 @@ its "wide_queues": the widening search's launches and variant_vs_twin's
 numbers at ef 5120; "sharded_launches" from
 phase 9, "multiprocess_launches" summed over phase 11's ranks, each
 counted from zero; the main path, phase 9 and phase 11 must each launch
-beam_walk and prune_scan, every walk variant must reach the kernel, and
-no walk of phases 4-11 may run the plain twin on the card, nor any
-candidate sweep the torch-op loop: only the smoke's own twin calls do,
-under own_twin_calls), and {"ok": true,
+beam_walk, prune_scan and connect_batch, every walk variant must reach the
+kernel, and no walk of phases 4-11 may run the plain twin on the card, nor
+any candidate sweep the torch-op loop, nor any wiring the plain twin
+(phase 10 included): only the smoke's own twin calls do, under
+own_twin_calls), and {"ok": true,
 "device": {...}}.
 
 Needs a CUDA device and nvcc; without a device it exits non-zero before
@@ -254,7 +269,8 @@ MP_BUILD_ROWS = 200_000
 MP_TIMEOUT = 420
 LAUNCH_NAMES = ("bruteforce_topk", "bruteforce_topk_bf16",
                 "bruteforce_topk_q8", "bruteforce_topk_wide",
-                "bruteforce_topk_bf16_wide", "beam_walk", "prune_scan")
+                "bruteforce_topk_bf16_wide", "beam_walk", "prune_scan",
+                "connect_batch")
 # the sweep's instances of the build's pools (exact8, exact mode)
 BUILD_SWEEPS = ("bruteforce_topk_q8", "bruteforce_topk_wide",
                 "bruteforce_topk_bf16_wide")
@@ -557,8 +573,8 @@ def library_ms(torch, qs, rows, k_run):
 def compiler_report(_kernels):
     """ptxas's registers and spills for each sweep instance (the exact
     route's eight, the four wide float32 / bf16 ones and the four int8
-    ones), and the TF32 HMMA count of each in the built library's SASS;
-    fails if an instance runs no TF32 HMMA, or if one of the exact route's
+    ones) and each walk, scan and wiring instance, and the TF32 HMMA count
+    of each sweep instance in the built library's SASS; fails if an instance runs no TF32 HMMA, or if one of the exact route's
     eight reports other registers or spills than before (SWEEP_PTXAS)."""
     def instance(mangled):
         m = re.search(r"sweep_kernel(_wide)?(?:_q8)?ILi(\d+)ELb([01])E"
@@ -580,6 +596,10 @@ def compiler_report(_kernels):
         if m:
             return (f"prune_scan_regs<{m[1]} words, pair block "
                     f"{'staged' if m[2] == '1' else 'in L2'}>")
+        m = re.search(r"connect_kernelINS_\d+(F32|BF16)ELb([01])E", mangled)
+        if m:
+            return (f"connect_kernel<{'float32' if m[1] == 'F32' else 'bf16'}"
+                    f" rows, rows {'staged' if m[2] == '1' else 'in L2'}>")
         return ("prune_scan_kernel (words in shared memory)"
                 if "prune_scan_kernel" in mangled else None)
     name, built, reports = None, set(), {}
@@ -672,10 +692,10 @@ def exact_mode_builds(torch, cb, HnswConfig, HnswIndex, dev):
 
 class own_twin_calls:
     """Around the smoke's own calls of a plain twin on the card: the twins'
-    counts (core/search.PLAIN_WALKS_ON_CARD, core/build.PLAIN_SWEEPS_ON_CARD)
-    and the kernels' launch counts, by variant too, are put back as they
-    were, so that what a path ran is counted and the comparisons are
-    not."""
+    counts (core/search.PLAIN_WALKS_ON_CARD, core/build.PLAIN_SWEEPS_ON_CARD
+    and PLAIN_CONNECTS_ON_CARD) and the kernels' launch counts, by variant
+    too, are put back as they were, so that what a path ran is counted and
+    the comparisons are not."""
 
     def __enter__(self):
         from pg_embedding_tpu_torch.core import build as core_build
@@ -685,16 +705,18 @@ class own_twin_calls:
                       dict(cuda_bruteforce.LAUNCHES),
                       dict(cuda_graph.LAUNCHES),
                       dict(cuda_graph.WALK_VARIANTS),
-                      core_build.PLAIN_SWEEPS_ON_CARD)
+                      core_build.PLAIN_SWEEPS_ON_CARD,
+                      core_build.PLAIN_CONNECTS_ON_CARD)
         return self
 
     def __exit__(self, *exc):
         from pg_embedding_tpu_torch.core import build as core_build
         from pg_embedding_tpu_torch.core import search as core_search
         from pg_embedding_tpu_torch.ops import cuda_bruteforce, cuda_graph
-        plain, bf, graph, variants, sweeps = self.saved
+        plain, bf, graph, variants, sweeps, connects = self.saved
         core_search.PLAIN_WALKS_ON_CARD = plain
         core_build.PLAIN_SWEEPS_ON_CARD = sweeps
+        core_build.PLAIN_CONNECTS_ON_CARD = connects
         cuda_bruteforce.LAUNCHES.update(bf)
         cuda_graph.LAUNCHES.update(graph)
         cuda_graph.WALK_VARIANTS.clear()
@@ -735,11 +757,13 @@ def main_path(torch, cb, HnswConfig, HnswIndex, dev, n, n_queries):
     from pg_embedding_tpu_torch.core import search as core_search
     from pg_embedding_tpu_torch.ops import cuda_graph
     reset_launches()
-    # the plain walks and torch-op candidate sweeps that phases 4-11 run on
-    # the card (the smoke's own twin calls excepted): read at the end
+    # the plain walks, torch-op candidate sweeps and plain wirings that
+    # phases 4-11 run on the card (the smoke's own twin calls excepted):
+    # read at the end
     cuda_graph.WALK_VARIANTS.clear()
     core_search.PLAIN_WALKS_ON_CARD = 0
     core_build.PLAIN_SWEEPS_ON_CARD = 0
+    core_build.PLAIN_CONNECTS_ON_CARD = 0
     # The graph route expands T=8 candidates per step, the setting of the
     # JAX package's own 1M graph measurement (BASELINE.md, "Measured at
     # 1M"): on this data the default T=4 reaches recall@10 0.895 at 1M, a
@@ -756,17 +780,28 @@ def main_path(torch, cb, HnswConfig, HnswIndex, dev, n, n_queries):
           "prune_scan's launches by shape do not sum to its launches")
     batches = len(core_build.build_schedule(n, idx.max_insert_batch))
     sweeps = cb.LAUNCHES["bruteforce_topk_q8"]
+    connects = cuda_graph.LAUNCHES["connect_batch"]
     log(f"build: {n} vectors in {build_s:.1f} s = {n / build_s:.0f} vec/s; "
         f"prune_scan launches by (C, nn): {dict(sorted(shapes.items()))}; "
         f"bruteforce_topk_q8 launches {sweeps} over {batches} batches "
-        f"(exact8 from row 0: the first batch sweeps no rows); torch-op "
-        f"sweeps on the card {core_build.PLAIN_SWEEPS_ON_CARD}")
+        f"(exact8 from row 0: the first batch sweeps no rows); "
+        f"connect_batch launches {connects}; torch-op sweeps on the card "
+        f"{core_build.PLAIN_SWEEPS_ON_CARD}, plain wirings "
+        f"{core_build.PLAIN_CONNECTS_ON_CARD}")
     check(sweeps == batches - 1 and sum(cb.LAUNCHES.values()) == sweeps,
           f"the build's sweep: {dict(cb.LAUNCHES)} launches over {batches} "
           f"batches, not one bruteforce_topk_q8 launch a batch past the "
           f"first")
     check(core_build.PLAIN_SWEEPS_ON_CARD == 0,
           "the build ran the torch-op sweep on the card")
+    check(connects == batches and core_build.PLAIN_CONNECTS_ON_CARD == 0,
+          f"the build's wiring: {connects} connect_batch launches and "
+          f"{core_build.PLAIN_CONNECTS_ON_CARD} plain wirings over {batches} "
+          f"batches, not one launch a batch")
+    check(list(shapes) == [(idx.config.ef_construction * 2,
+                            idx.config.m)],
+          f"prune_scan ran at {sorted(shapes)}, not only the insert's "
+          f"width (the re-prunes run inside connect_batch)")
 
     g = idx.graph
     links = g.links[:n]
@@ -1048,11 +1083,12 @@ def walk_kernels_phase(torch, idx, qs, dev, tmp, single, profile_lib):
                                   os.path.join(profiles, f"walk_t{t}")))
     idx.search_expand_width = GRAPH_T
 
-    # one real 256-row insert batch at 1M: the first prune of each width
-    # (the insert's, C = cand_cap, and the first back-link re-prune's, C =
-    # maxM + 1)
-    captured, sweeps = {}, []
+    # one real 256-row insert batch at 1M: its insert prune's scan (C =
+    # cand_cap), its sweep and its wiring's inputs (the graph's links and
+    # counts as they were before it)
+    captured, sweeps, wirings = {}, [], []
     real, real_sweep = core_build.prune_scan, core_build.sweep_pool
+    real_connect = core_build._connect_batch
 
     def spy(*args):
         captured.setdefault(args[0].shape[1], tuple(
@@ -1063,8 +1099,16 @@ def walk_kernels_phase(torch, idx, qs, dev, tmp, single, profile_lib):
         # the shadow's rows below base never change: kept, not cloned
         sweeps.append((points.clone(), rows, *args))
         return real_sweep(points, rows, *args)
+
+    def connect_spy(vectors, links, counts, base, kept_i, kept_cnt,
+                    n_insert, **kw):
+        wirings.append((vectors, links.clone(), counts.clone(), base,
+                        kept_i.clone(), kept_cnt.clone(), n_insert, kw))
+        return real_connect(vectors, links, counts, base, kept_i, kept_cnt,
+                            n_insert, **kw)
     rows = add_rows(idx, qs, SEED + 7)
     core_build.prune_scan, core_build.sweep_pool = spy, sweep_spy
+    core_build._connect_batch = connect_spy
     try:
         log_profile(f"add() of one {len(rows)}-row insert batch at {n} "
                     f"rows", *profile_call(torch, lambda: idx.add(rows),
@@ -1072,11 +1116,28 @@ def walk_kernels_phase(torch, idx, qs, dev, tmp, single, profile_lib):
                                                         "insert")))
     finally:
         core_build.prune_scan, core_build.sweep_pool = real, real_sweep
+        core_build._connect_batch = real_connect
     shutil.rmtree(profiles)
     reprune_c = max_m + 1
-    check(reprune_c in captured and len(captured) == 2,
-          f"the add() ran prune widths {sorted(captured)}, not an insert's "
-          f"and a re-prune's ({reprune_c})")
+    check(list(captured) == [idx.config.ef_construction * 2]
+          and len(wirings) == 1,
+          f"the add() ran prune widths {sorted(captured)} and "
+          f"{len(wirings)} wirings, not only the insert's prune and one "
+          f"wiring (its re-prunes run inside connect_batch)")
+    # the first re-prune's scan (C = maxM + 1), from the plain twin's
+    # wiring of the same batch, whose re-prunes run prune_scan
+    vectors, links0, counts0, base, kept_i, kept_cnt, n_insert, kw = \
+        wirings[0]
+    core_build.prune_scan = spy
+    try:
+        with own_twin_calls():
+            core_build._connect_batch_plain(
+                vectors, links0.clone(), counts0.clone(), base, kept_i,
+                kept_cnt, n_insert, **kw)
+    finally:
+        core_build.prune_scan = real
+    check(reprune_c in captured,
+          f"the twin's wiring ran no re-prune of width {reprune_c}")
     shapes = single["prune_shapes"]
     for c, sargs in sorted(captured.items(), reverse=True):
         d_s, valid_s, order, pair, do_prune, nn = sargs
@@ -1122,7 +1183,9 @@ def walk_kernels_phase(torch, idx, qs, dev, tmp, single, profile_lib):
     phase_breakdown(torch, g, q, captured, profile_lib)
     check(len(sweeps) == 1, f"the add() ran {len(sweeps)} candidate sweeps")
     out.update(sweep_phase(torch, idx, sweeps[0]))
-    add_phase(torch, idx, qs)
+    out["connect_batch"] = connect_phase(torch, wirings[0])
+    del wirings
+    out["connect_batch"]["add"] = add_phase(torch, idx, qs)
     return out
 
 
@@ -1246,15 +1309,168 @@ def sweep_phase(torch, idx, args):
     return out
 
 
-def add_phase(torch, idx, qs):
-    """Two more 256-row add()s at 1M: one through the kernel, on the host
-    clock, broken down by stage (the int8 shadow's staging, the sweep, the
-    insert's prune, _connect_batch's rounds and their re-prunes, and the
-    host's waits on the card: int() / nonzero() / item()), with its peak
-    device memory; one with core/build's sweep swapped for the torch-op
-    loop (loop_pool, inside own_twin_calls), its peak memory beside."""
+def connect_bound_ms(stats, bm, max_m, dims, itemsize):
+    """The least time of one wiring on the card, from the kernel's counters
+    for these inputs (stats: chains, ops, re-prunes, pruned re-prunes,
+    pairs turned into masks, valid candidates): the bytes it must move (the
+    sorted ops' keys and indices; each chain's row and count read and
+    written once; each re-prune's target row and valid candidates' rows
+    read once) over the memory rate, or its float32 operations (a D-wide
+    dot product or difference sum, 2 D, per pair and per candidate) over
+    the float32 rate, whichever is larger.  Returns (ms, "bytes" or
+    "operations")."""
+    chains, _, reprunes, _, pairs, valid = (int(x) for x in stats[:6])
+    nbytes = (bm * 12 + chains * (8 * max_m + 8)
+              + (valid + reprunes) * dims * itemsize)
+    ops = 2 * dims * (pairs + valid)
+    by_bytes, by_ops = nbytes / PEAK_BYTES, ops / PEAK_F32
+    return (max(by_bytes, by_ops) * 1e3,
+            "bytes" if by_bytes >= by_ops else "operations")
+
+
+def connect_integer_cases(torch, dev):
+    """connect_batch bit-equal to its plain twin on the card on integer
+    rows (tests/connect_operands.py: every sum exact), every metric,
+    float32 and bf16 rows, each shared-memory tier: the main path's maxM
+    32 at D = 128 (rows and masks staged), maxM 200 (the default m = 100)
+    at D = 8 (staged) and D = 400 (masks only), maxM 1400 (masks in device
+    memory).  Returns the number of cases."""
+    from connect_operands import kernel_and_twin, wiring_case
+    from pg_embedding_tpu_torch.ops import cuda_graph as cg
+    matmul = torch.backends.cuda.matmul
+    saved = matmul.allow_bf16_reduced_precision_reduction
+    # the twin's bf16 cosine dot accumulated in float32 and rounded once
+    matmul.allow_bf16_reduced_precision_reduction = False
+    cases = 0
+    try:
+        for max_m, dims, b, base in ((32, 128, 32, 300), (200, 8, 16, 300),
+                                     (200, 400, 16, 300),
+                                     (1400, 8, 4, 1500)):
+            tier = cg._connect_layout(max_m + 1, dims)[1:]
+            for metric in (0, 1, 2):
+                for dtype in (torch.float32, torch.bfloat16):
+                    arrays, meta = wiring_case(max_m + dims + metric, max_m,
+                                               b=b, n_insert=b - 3,
+                                               base=base, dims=dims)
+                    with own_twin_calls():
+                        (kl, kc), (pl, pc), launches = kernel_and_twin(
+                            arrays, meta, metric, dev, dtype)
+                    check(launches == 1 and torch.equal(kl, pl)
+                          and torch.equal(kc, pc),
+                          f"connect_batch differs from its twin on integer "
+                          f"rows: maxM {max_m}, D {dims}, metric {metric}, "
+                          f"{dtype} (tier {tier})")
+                    cases += 1
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = saved
+    return cases
+
+
+def connect_phase(torch, wiring):
+    """The wiring of the add()'s own batch (``wiring``: _connect_batch's
+    inputs as the add() passed them, links and counts as they were before
+    it) on copies of the graph's links: one connect_batch launch against
+    its plain twin (core/build._replay_chains, the rounds of
+    _connect_batch_plain) on the card.  The rows the batch touches must be
+    equal on >= 99% of targets (the kernel sums in another order than
+    torch's reductions and cuBLAS, so float32 near-ties may break
+    otherwise) and the counts with them; the kernel's counters (chains,
+    ops, re-prunes); its time a call (CUDA events, median of 5, the touched
+    rows restored before each call outside the timing) and on the card (a
+    CUDA graph of 20 restores and launches, less one of the 20 restores
+    alone) beside its bound (connect_bound_ms) and the twin's time a call;
+    then connect_integer_cases.  Returns the kernels line's numbers."""
     from pg_embedding_tpu_torch.core import build as core_build
-    spent, calls, stack, patched = {}, {}, [], []
+    from pg_embedding_tpu_torch.graph_probe import device_ms
+    from pg_embedding_tpu_torch.ops import cuda_graph as cg
+    vectors, links0, counts0, base, kept_i, kept_cnt, n_insert, kw = wiring
+    max_m, dims, dev = kw["max_m"], vectors.shape[1], vectors.device
+    links, counts = links0.clone(), counts0.clone()
+    tgt = core_build._forward_links(links, counts, base, kept_i, kept_cnt,
+                                    n_insert, m=kw["m"], max_m=max_m)
+    keys, perm = core_build._chain_order(tgt)
+    touched = torch.unique(keys[keys != core_build.NO_TARGET]).long()
+    start_rows, start_counts = links[touched].clone(), counts[touched].clone()
+    bm = keys.numel()
+
+    def restore():
+        links[touched] = start_rows
+        counts[touched] = start_counts
+
+    def kernel():
+        cg.connect_batch(vectors, links, counts, keys, perm, base=base, **kw)
+
+    def twin():
+        core_build._replay_chains(vectors, links, counts, keys, perm,
+                                  base=base, **kw)
+
+    def timed(fn):
+        times = []
+        for _ in range(6):
+            restore()
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            stop.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(stop))
+        return float(np.median(times[1:]))
+
+    stats = torch.zeros(8, dtype=torch.int64, device=dev)
+    with own_twin_calls():
+        cg.CONNECT_STATS = stats
+        try:
+            kernel()
+        finally:
+            cg.CONNECT_STATS = None
+        got = links[touched].clone(), counts[touched].clone()
+        restore()
+        twin()
+        want = links[touched].clone(), counts[touched].clone()
+        ms, plain_ms = timed(kernel), timed(twin)
+        dev_ms = (device_ms(lambda: (restore(), kernel()))
+                  - device_ms(restore))
+    rows_equal = int((got[0] == want[0]).all(dim=1).sum()) / len(touched)
+    counts_equal = int((got[1] == want[1]).sum()) / len(touched)
+    st = stats.tolist()
+    bound, bound_by = connect_bound_ms(st, bm, max_m, dims,
+                                       vectors.element_size())
+    cases = connect_integer_cases(torch, dev)
+    log(f"connect_batch vs its plain twin on the add()'s batch ({bm} ops, "
+        f"maxM {max_m}, D {dims}): {st[0]} chains (longest {st[6]}), "
+        f"{st[2]} re-prunes ({st[3]} pruned, {st[4]} pairs into masks); "
+        f"rows of the {len(touched)} targets equal {rows_equal:.5f}, counts "
+        f"{counts_equal:.5f}; kernel {ms:.4f} ms a call (median of 5, CUDA "
+        f"events), {dev_ms:.4f} ms on the card (a CUDA graph of 20 restores "
+        f"and launches less 20 restores); bound {bound:.5f} ms ({bound_by};"
+        f" {bound / dev_ms:.1%} of it reached on the card); plain twin "
+        f"{plain_ms:.3f} ms a call; bit-equal to the twin on {cases} "
+        f"integer-row cases (every metric, float32 / bf16, each tier)")
+    check(rows_equal >= 0.99 and counts_equal >= 0.99,
+          f"connect_batch and its twin: rows {rows_equal}, counts "
+          f"{counts_equal} equal")
+    return dict(max_abs_err=0.0, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=bound_by, library_ms=None,
+                rows_equal=rows_equal, reprunes=st[2], ops=st[1],
+                chains=st[0])
+
+
+def add_phase(torch, idx, qs, n_adds=8):
+    """``n_adds`` more 256-row add()s at 1M through the kernels, on the host
+    clock, each broken down by stage (the int8 shadow's staging, the
+    sweep's launch, the insert's prune, the wiring) with the host's
+    synchronising calls on CUDA tensors counted (int() / bool() / float()
+    / item() / nonzero() / tolist() / cpu(): none is allowed) and the one
+    wait left, the closing synchronisation, timed; the wiring's counters
+    (ops/cuda_graph.CONNECT_STATS: re-prunes a batch) and the peak device
+    memory; then one add() with core/build's sweep swapped for the
+    torch-op loop (loop_pool, inside own_twin_calls), its peak memory
+    beside.  Returns the numbers printed."""
+    from pg_embedding_tpu_torch.core import build as core_build
+    from pg_embedding_tpu_torch.ops import cuda_graph as cg
+    spent, syncs, stack, patched = {}, {}, [], []
 
     def wrap(owner, name, key):
         fn = getattr(owner, name)
@@ -1270,70 +1486,95 @@ def add_phase(torch, idx, qs):
                 dt = time.perf_counter() - t0
                 stack.pop()
                 spent[k] = spent.get(k, 0.0) + dt
-                calls[k] = calls.get(k, 0) + 1
                 if stack:                   # an inner stage's time is its own
                     spent[stack[-1]] = spent.get(stack[-1], 0.0) - dt
         setattr(owner, name, timed)
 
-    def where(what):
-        return lambda: f"{stack[-1] if stack else 'add'}: {what}"
+    def count_sync(name):
+        fn = getattr(torch.Tensor, name)
+        patched.append((torch.Tensor, name, vars(torch.Tensor).get(name)))
+
+        def counted(self, *a, **kw):
+            if self.is_cuda:
+                k = f"{stack[-1] if stack else 'add'}: {name.strip('_')}()"
+                syncs[k] = syncs.get(k, 0) + 1
+            return fn(self, *a, **kw)
+        setattr(torch.Tensor, name, counted)
     wrap(idx, "_stage_shadow", "stage shadow")
     wrap(core_build, "_exact_candidates", "sweep")
-    wrap(core_build, "_prune_heuristic", lambda: (
-        "prune (re-prune)" if "re-prune" in stack else "prune (insert)"))
+    wrap(core_build, "_prune_heuristic", "prune")
     wrap(core_build, "_connect_batch", "connect")
-    wrap(core_build, "_reprune", "re-prune")
-    for sync in ("__int__", "item", "nonzero"):
-        wrap(torch.Tensor, sync, where(f"{sync.strip('_')}()"))
-    peak = {}
+    for sync in ("__int__", "__bool__", "__float__", "item", "nonzero",
+                 "tolist", "cpu"):
+        count_sync(sync)
+    stats = torch.zeros(8, dtype=torch.int64, device=idx.device)
+    runs, peak = [], {}
     try:
-        for name in ("kernel", "twin"):
-            rows = add_rows(idx, qs, SEED + (8 if name == "kernel" else 9))
+        cg.CONNECT_STATS = stats
+        torch.cuda.synchronize()
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(n_adds):
+            rows = add_rows(idx, qs, SEED + 20 + i)
             torch.cuda.synchronize()
-            base_mem = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            if name == "kernel":
-                spent.clear()
-                calls.clear()
-                t0 = time.perf_counter()
+            spent.clear()
+            t0 = time.perf_counter()
+            idx.add(rows)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            runs.append(dict(wall=(t2 - t0) * 1e3, wait=(t2 - t1) * 1e3,
+                             **{k: v * 1e3 for k, v in spent.items()}))
+        cg.CONNECT_STATS = None
+        counted = dict(syncs)
+        peak["kernel"] = (torch.cuda.max_memory_allocated() - base_mem) / 2**20
+        rows = add_rows(idx, qs, SEED + 9)
+        torch.cuda.synchronize()
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        real = core_build.sweep_pool
+        with own_twin_calls():
+            core_build.sweep_pool = loop_pool
+            try:
                 idx.add(rows)
-                torch.cuda.synchronize()
-                wall = (time.perf_counter() - t0) * 1e3
-                parts = dict(spent)
-                counts = dict(calls)
-            else:
-                real = core_build.sweep_pool
-                with own_twin_calls():
-                    core_build.sweep_pool = loop_pool
-                    try:
-                        idx.add(rows)
-                    finally:
-                        core_build.sweep_pool = real
-                torch.cuda.synchronize()
-            peak[name] = (torch.cuda.max_memory_allocated() - base_mem) / 2**20
+            finally:
+                core_build.sweep_pool = real
+        torch.cuda.synchronize()
+        peak["twin"] = (torch.cuda.max_memory_allocated() - base_mem) / 2**20
     finally:
+        cg.CONNECT_STATS = None
         for owner, name, saved in reversed(patched):
             if saved is None:
                 delattr(owner, name)
             else:
                 setattr(owner, name, saved)
-    rounds = counts.get("connect: nonzero()", 0) // 2
-    own = ", ".join(f"{k} {v * 1e3:.3f} ms ({counts[k]}x)"
-                    for k, v in sorted(parts.items(), key=lambda kv: -kv[1]))
-    log(f"add() host breakdown (one {len(rows)}-row add at {idx.n_nodes} "
-        f"rows, host clock, each stage's own time, no synchronisation "
-        f"added but the one at the end): wall {wall:.3f} ms; "
-        f"{rounds} back-link rounds; {own}; the rest (insert_batch_core's "
-        f"own ops, the API, the closing synchronisation) "
-        f"{wall - sum(parts.values()) * 1e3:.3f} ms")
-    log(f"add() host wait at _connect_batch's int(rank.max()) (the wiring's "
-        f"first synchronisation, where the host waits for the sweep and the "
-        f"prune on the card): "
-        f"{parts.get('connect: int()', 0.0) * 1e3:.3f} ms "
-        f"({counts.get('connect: int()', 0)}x)")
-    log(f"add() peak device memory above what was allocated before it: "
-        f"{peak['kernel']:.1f} MiB through the sweep kernel, "
-        f"{peak['twin']:.1f} MiB through the torch-op loop")
+
+    def spread(key):
+        v = [r.get(key, 0.0) for r in runs]
+        return float(np.median(v)), float(min(v)), float(max(v))
+    keys = ("wall", "stage shadow", "sweep", "prune", "connect", "wait")
+    parts = {k: spread(k) for k in keys}
+    st = stats.tolist()
+    reprunes = st[2] / n_adds
+    log(f"add() host breakdown over {n_adds} {len(rows)}-row adds at "
+        f"{idx.n_nodes} rows (host clock, each stage's own time, median / "
+        f"min / max ms; no synchronisation added but the closing one): "
+        + "; ".join(f"{k} {a:.3f} / {b:.3f} / {c:.3f}"
+                    for k, (a, b, c) in parts.items())
+        + f"; the rest (the API, insert_batch_core's own ops) "
+        f"{parts['wall'][0] - sum(parts[k][0] for k in keys[1:]):.3f} "
+        f"(medians); host syncs inside the adds: {counted or 'none'}")
+    log(f"add() wiring counters over the {n_adds} adds: {reprunes:.1f} "
+        f"re-prunes a batch ({st[3]} pruned of {st[2]}), {st[1] / n_adds:.0f}"
+        f" back-link ops and {st[0] / n_adds:.0f} chains a batch, longest "
+        f"chain {st[6]}; peak device memory above what was allocated "
+        f"before them: {peak['kernel']:.1f} MiB through the kernels, "
+        f"{peak['twin']:.1f} MiB through the torch-op sweep")
+    check(not counted, f"the adds synchronised with the card: {counted}")
+    return dict(n_adds=n_adds, reprunes_a_batch=reprunes,
+                **{f"{k.replace(' ', '_')}_ms": list(v)
+                   for k, v in parts.items()},
+                peak_mib=peak["kernel"], host_syncs=sum(counted.values()))
 
 
 def phase_breakdown(torch, g, q, captured, profile_lib):
@@ -2165,9 +2406,10 @@ def tuner_phase(idx, tmp):
 
 def twin_build_phase(torch, HnswConfig, HnswIndex, dev, pts, qs):
     """The first TWIN_BUILD_ROWS rows built twice on the card: through the
-    API (the sweep kernel), and with core/build's sweep swapped for the
-    torch-op loop by the smoke (loop_pool, inside own_twin_calls: no knob
-    of the package).  Link rows >= 99.9% identical, graph recall@10 (T=8,
+    API (the sweep and wiring kernels), and with core/build's sweep swapped
+    for the torch-op loop (loop_pool) and its wiring for the plain twin
+    (_connect_batch_plain) by the smoke, inside own_twin_calls (no knob of
+    the package).  Link rows >= 99.9% identical, graph recall@10 (T=8,
     against each index's exact route) within 0.002."""
     from pg_embedding_tpu_torch.core import build as core_build
     rows = pts[:TWIN_BUILD_ROWS]
@@ -2177,16 +2419,17 @@ def twin_build_phase(torch, HnswConfig, HnswIndex, dev, pts, qs):
         idx = HnswIndex(HnswConfig(dims=DIMS, m=16, ef_construction=64,
                                    ef_search=64), device=dev,
                         search_expand_width=GRAPH_T)
-        real = core_build.sweep_pool
+        real = core_build.sweep_pool, core_build._connect_batch
         torch.cuda.synchronize()
         t0 = time.time()
         with own_twin_calls():
             if name == "twin":
                 core_build.sweep_pool = loop_pool
+                core_build._connect_batch = core_build._connect_batch_plain
             try:
                 idx.build(rows)
             finally:
-                core_build.sweep_pool = real
+                core_build.sweep_pool, core_build._connect_batch = real
             torch.cuda.synchronize()
             secs = time.time() - t0
             _, el, _ = idx.exact_search(qs, K)
@@ -2196,8 +2439,9 @@ def twin_build_phase(torch, HnswConfig, HnswIndex, dev, pts, qs):
         torch.cuda.empty_cache()
     same = float((res["kernel"][0] == res["twin"][0]).all(1).float().mean())
     rk, rt = res["kernel"][1], res["twin"][1]
-    log(f"{n}-row build through the sweep kernel ({res['kernel'][2]:.1f} s) "
-        f"and with the torch-op loop in its place ({res['twin'][2]:.1f} s): "
+    log(f"{n}-row build through the sweep and wiring kernels "
+        f"({res['kernel'][2]:.1f} s) and with the torch-op loop and the "
+        f"plain wiring in their place ({res['twin'][2]:.1f} s): "
         f"link rows identical {same:.5f}; graph recall@10 (T={GRAPH_T}) "
         f"{rk:.4f} / {rt:.4f}")
     check(same >= 0.999, f"kernel and twin builds: {same} of link rows")
@@ -2434,6 +2678,9 @@ def rank_main(args):
     check(core_build.PLAIN_SWEEPS_ON_CARD == 0,
           f"rank {args.rank} ran {core_build.PLAIN_SWEEPS_ON_CARD} torch-op "
           f"sweeps on the card")
+    check(core_build.PLAIN_CONNECTS_ON_CARD == 0,
+          f"rank {args.rank} ran {core_build.PLAIN_CONNECTS_ON_CARD} plain "
+          f"wirings on the card")
     np.savez(os.path.join(w, f"rank{args.rank}.npz"), **out)
     log(f"load {out['load_s']:.1f} s, exact {out['exact_qps']:.0f} QPS, "
         f"graph {out['graph_qps']:.0f} QPS, save {out['save_s']:.1f} s, "
@@ -2629,6 +2876,10 @@ def main():
           f"phases 4-11 ran {core_build.PLAIN_SWEEPS_ON_CARD} torch-op "
           f"candidate sweeps on the card")
     table_phase(torch, VectorTable, dev)
+    # no wiring of phases 4-11 and the table ran the plain twin on the card
+    check(core_build.PLAIN_CONNECTS_ON_CARD == 0,
+          f"the smoke's paths ran {core_build.PLAIN_CONNECTS_ON_CARD} plain "
+          f"wirings on the card")
 
     # every walk variant reached the kernel through its own API path
     # (variant_vs_twin checks each path's count), and no walk of phases
@@ -2667,7 +2918,10 @@ def main():
               "pg_embedding_tpu/core/search.py:80")),
             ("prune_scan", main_launches,
              ("pg_embedding_tpu_torch/csrc/prune_scan.cu",
-              "pg_embedding_tpu/core/build.py:44"))):
+              "pg_embedding_tpu/core/build.py:44")),
+            ("connect_batch", main_launches,
+             ("pg_embedding_tpu_torch/csrc/connect_batch.cu",
+              "pg_embedding_tpu/core/build.py:172"))):
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
@@ -2676,7 +2930,7 @@ def main():
         if name == "beam_walk":
             kernels[-1]["variants"] = walk_variants
     for name in ("bruteforce_topk", "bruteforce_topk_q8", "beam_walk",
-                 "prune_scan"):
+                 "prune_scan", "connect_batch"):
         check(main_launches[name] > 0,
               f"the main path never launched {name}")
         check(sharded_launches[name] > 0,

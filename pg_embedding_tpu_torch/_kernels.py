@@ -22,7 +22,8 @@ import tempfile
 import threading
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
-_SOURCES = ("bruteforce_topk.cu", "beam_walk.cu", "prune_scan.cu")
+_SOURCES = ("bruteforce_topk.cu", "beam_walk.cu", "prune_scan.cu",
+            "connect_batch.cu")
 # no --use_fast_math: the walk's sqrtf must stay correctly rounded
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -54,6 +55,13 @@ def declare_graph(lib) -> None:
     lib.prune_scan.restype = ci
 
 
+def declare_connect(lib) -> None:
+    """The argument types of csrc/connect_batch.cu's entry in ``lib``."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.connect_batch.argtypes = [vp, ci, *[vp] * 4, *[ci] * 8, *[vp] * 3]
+    lib.connect_batch.restype = ci
+
+
 def declare_sweep(lib) -> None:
     """The argument types of csrc/bruteforce_topk.cu's entries in ``lib``
     (the port's library or a probe's build of that source alone)."""
@@ -77,6 +85,7 @@ def declare_sweep(lib) -> None:
 def _declare(lib) -> None:
     declare_sweep(lib)
     declare_graph(lib)
+    declare_connect(lib)
 
 
 def _build(srcs, work: str, path: str) -> None:

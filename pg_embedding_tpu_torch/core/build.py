@@ -15,18 +15,22 @@ replays the serial back-link order per target in rounds.  Differences of
 form, not of result:
 
   * the JAX ``lax.fori_loop``/``while_loop`` loops are Python loops, except
-    the prune's scan and the beam walk, which run as one kernel launch each
-    on the card (ops/cuda_graph), and the candidate sweep, one launch of
-    the sweep kernel a batch on the card (ops/cuda_bruteforce.sweep_pool);
-    the graph tensors are updated in place (the API's write lock covers
-    it);
+    the prune's scan, the beam walk and the wiring's back-link rounds,
+    which run as one kernel launch each on the card (ops/cuda_graph), and
+    the candidate sweep, one launch of the sweep kernel a batch on the
+    card (ops/cuda_bruteforce.sweep_pool); the graph tensors are updated in
+    place (the API's write lock covers it);
+  * the wiring's rounds follow a stable sort of the back-link targets
+    instead of the JAX package's [bm, bm] occurrence-rank matrix (the same
+    per-target order);
   * ``approx_min_k`` in the sweep is an exact top-k (so is the JAX
     package's on the CPU, where its tests run, though its order among
     equal scores is its own);
   * ``jnp.lexsort`` is two stable sorts, ``lax.top_k`` a stable sort.
 
-Host syncs per inserted batch: one per back-link round plus one per round
-with overflowing targets, and one for the round count (see PERF.md).
+Host syncs per inserted batch on the card: none in the wiring (one kernel
+launch); the CPU's rounds sync once a round, once a round with
+overflowing targets and once for the round count (see PERF.md).
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ from ..config import Metric
 from ..ops.bruteforce import _rerank_exact, merge_min_k
 from ..ops.cuda_bruteforce import dequantize_rows, sweep_pool
 from ..ops.distance import dist_one_to_many, pairwise_dist
-from ..ops.cuda_graph import prune_scan
+from ..ops.cuda_graph import connect_batch, prune_scan
 from .graph import GraphState
 from .search import search_graph
 
@@ -52,6 +56,12 @@ EXACT8_CHUNK = 1_048_576
 # Manhattan's, which has no matmul form for the kernel.  A run reads it to
 # show that no other sweep left the kernel.
 PLAIN_SWEEPS_ON_CARD = 0
+# Back-link replays run in torch ops on a CUDA tensor (_replay_chains): none
+# on the main path, which launches ops/cuda_graph.connect_batch; a run reads
+# it to show that no wiring left the kernel.
+PLAIN_CONNECTS_ON_CARD = 0
+# the chain order's sort key of an invalid back-link op (after every node)
+NO_TARGET = torch.iinfo(torch.int32).max
 
 
 def _lexsort2(primary: torch.Tensor, secondary: torch.Tensor) -> torch.Tensor:
@@ -161,49 +171,63 @@ def _reprune(vectors, rows, targets, cur, *, max_m: int, metric_value: int):
     return _prune_heuristic(d, cand_ids, pair, max_m)
 
 
-def _connect_batch(vectors, links, link_counts, base: int, kept_i, kept_cnt,
-                   n_insert: int, *, m: int, max_m: int, metric_value: int):
-    """Wire a whole batch: the result of running mutuallyConnectNewElement
-    (hnswalg.cpp:155-223) serially over the batch, updating ``links`` and
-    ``link_counts`` in place.
-
-    Back-link state depends only on the sequence of operations applied to
-    each target, so the serial schedule splits into per-target chains:
-    forward rows commit at once, then round r applies every target's r-th
-    back-link op (targets within a round are distinct)."""
+def _forward_links(links, link_counts, base: int, kept_i, kept_cnt,
+                   n_insert: int, *, m: int, max_m: int) -> torch.Tensor:
+    """Commit every member's forward row (hnswalg.cpp:168-181) in place and
+    return the batch's back-link targets i32[b * m]: op ``member * m +
+    slot`` targets kept_i[member, slot], -1 where the op is invalid (slot
+    past the kept count, no id, or member at or past n_insert)."""
     b = kept_i.shape[0]
     dev = kept_i.device
-    bm = b * m
-    member = torch.arange(b, device=dev)
-    enable = member < n_insert
+    enable = torch.arange(b, device=dev) < n_insert
     kept_cnt = torch.where(enable, kept_cnt, 0)
-
-    # --- 1. forward links (hnswalg.cpp:168-181) ---------------------------
     valid_f = ((torch.arange(m, device=dev) < kept_cnt.unsqueeze(1)) &
                (kept_i >= 0))                                   # [b, m]
     fwd = torch.full((b, max_m), -1, dtype=torch.int32, device=dev)
     fwd[:, :m] = torch.where(valid_f, kept_i, -1)
     links[base:base + n_insert] = fwd[:n_insert]
     link_counts[base:base + n_insert] = kept_cnt[:n_insert]
+    return torch.where(valid_f, kept_i, -1).reshape(b * m)
 
-    # --- 2. back-link ops, rounds by per-target occurrence rank ----------
-    tgt = torch.where(valid_f, kept_i, -1).reshape(bm)
-    cur = (base + member).to(torch.int32).repeat_interleave(m)
-    valid = tgt >= 0
-    op = torch.arange(bm, device=dev)
-    same_earlier = ((tgt.unsqueeze(0) == tgt.unsqueeze(1)) &
-                    valid.unsqueeze(0) & (op.unsqueeze(0) < op.unsqueeze(1)))
-    rank = torch.where(valid, same_earlier.sum(dim=1), -1)
-    n_rounds = int(rank.max()) + 1 if bm else 0
-    slot_mm = torch.arange(max_m, device=dev)
 
+def _chain_order(tgt: torch.Tensor):
+    """The back-link ops grouped into per-target chains in op order: a
+    stable sort of the targets, invalid ops (-1) last at NO_TARGET.
+    Returns (keys i32[bm] sorted, perm i64[bm], the ops' indices)."""
+    keys = torch.where(tgt >= 0, tgt, NO_TARGET)
+    return torch.sort(keys, stable=True)
+
+
+def _chain_rank(keys: torch.Tensor) -> torch.Tensor:
+    """Each sorted op's place in its chain (0 at the chain's head), -1 for
+    invalid ops: the JAX package's per-target occurrence rank, read off the
+    sorted keys."""
+    pos = torch.arange(keys.shape[0], device=keys.device)
+    head = torch.searchsorted(keys, keys)                # leftmost equal key
+    return torch.where(keys != NO_TARGET, pos - head, -1)
+
+
+def _replay_chains(vectors, links, link_counts, keys, perm, *, base: int,
+                   m: int, max_m: int, metric_value: int):
+    """Apply the sorted back-link ops (_chain_order) to ``links`` and
+    ``link_counts`` in place, each target's in op order: append where the
+    target has room (hnswalg.cpp:193-195), else re-prune it (_reprune).
+    The plain twin of ops/cuda_graph.connect_batch: round r applies every
+    chain's r-th op (targets within a round are distinct), with a host
+    sync a round and one for the round count."""
+    global PLAIN_CONNECTS_ON_CARD
+    if links.is_cuda:
+        PLAIN_CONNECTS_ON_CARD += 1
+    rank = _chain_rank(keys)
+    n_rounds = int(rank.max()) + 1 if keys.numel() else 0
+    cur = (base + torch.div(perm, m, rounding_mode="floor")).to(torch.int32)
+    slot_mm = torch.arange(max_m, device=keys.device)
     for r in range(n_rounds):
         lanes = (rank == r).nonzero().squeeze(1)
-        t = tgt[lanes]
+        t = keys[lanes]
         c = cur[lanes]
         rows = links[t]
         cnts = link_counts[t]
-        # append path (hnswalg.cpp:193-195)
         new_rows = torch.where(slot_mm == cnts.unsqueeze(1), c.unsqueeze(1),
                                rows)
         new_cnts = cnts + 1
@@ -217,6 +241,40 @@ def _connect_batch(vectors, links, link_counts, base: int, kept_i, kept_cnt,
         links[t] = new_rows
         link_counts[t] = new_cnts
     return links, link_counts
+
+
+def _connect_batch_plain(vectors, links, link_counts, base: int, kept_i,
+                         kept_cnt, n_insert: int, *, m: int, max_m: int,
+                         metric_value: int):
+    """_connect_batch in torch ops: the forward rows, the chain order and
+    the rounds of _replay_chains.  The CPU's route; on the card only the
+    smoke's and the tests' comparisons call it (counted in
+    PLAIN_CONNECTS_ON_CARD)."""
+    tgt = _forward_links(links, link_counts, base, kept_i, kept_cnt,
+                         n_insert, m=m, max_m=max_m)
+    keys, perm = _chain_order(tgt)
+    return _replay_chains(vectors, links, link_counts, keys, perm, base=base,
+                          m=m, max_m=max_m, metric_value=metric_value)
+
+
+def _connect_batch(vectors, links, link_counts, base: int, kept_i, kept_cnt,
+                   n_insert: int, *, m: int, max_m: int, metric_value: int):
+    """Wire a whole batch: the result of running mutuallyConnectNewElement
+    (hnswalg.cpp:155-223) serially over the batch, updating ``links`` and
+    ``link_counts`` in place.
+
+    Back-link state depends only on the sequence of operations applied to
+    each target, so the serial schedule splits into per-target chains:
+    forward rows commit at once (a member's row exists before a later
+    member's back-link can target it), then each target replays its own
+    back-link ops in op order.  On the card the replay is one launch of
+    ops/cuda_graph.connect_batch and the batch makes no host sync; on the
+    CPU it is _replay_chains (the route of _connect_batch_plain)."""
+    tgt = _forward_links(links, link_counts, base, kept_i, kept_cnt,
+                         n_insert, m=m, max_m=max_m)
+    keys, perm = _chain_order(tgt)
+    return connect_batch(vectors, links, link_counts, keys, perm, base=base,
+                         m=m, max_m=max_m, metric_value=metric_value)
 
 
 def _sweep_loop(vectors, pts32, base: int, keep: int, metric_value: int,

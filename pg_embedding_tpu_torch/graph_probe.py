@@ -34,7 +34,8 @@ The probe builds an index of ``--n`` rows x 128-d on the card
 1,024 queries at ef = 64, T = 4 and 8 (float32 rows; and int8 rows, the
 quantized traversal, for the kernel and widen-at-load), and captures the candidate sets of
 one 256-row add(): its insert prune (B = 256, C = 128, nn = 16) and its
-first back-link re-prune (C = maxM + 1 = 33, nn = 32).  Every variant's
+first back-link re-prune (C = maxM + 1 = 33, nn = 32; that add() wires
+through the plain twin, whose re-prunes run the scan kernel).  Every variant's
 answers are checked against the kernel's (walk: ids, hops and evals; scan:
 the kept masks).  Times are the card's (device_ms: ``--reps`` calls in a
 CUDA graph, replayed between CUDA events), so a small kernel is not timed
@@ -285,19 +286,25 @@ def device_ms(fn, reps: int = 20) -> float:
 
 def capture_prunes(idx, rows) -> dict:
     """The inputs of the first prune_scan of each candidate width during
-    ``idx.add(rows)``: {C: (d_s, valid_s, order, pair_d, do_prune, nn)}."""
+    ``idx.add(rows)``: {C: (d_s, valid_s, order, pair_d, do_prune, nn)}.
+    The add() wires through the plain twin (core/build's
+    _connect_batch_plain), whose re-prunes run prune_scan; the index's own
+    wiring re-prunes inside connect_batch."""
     from .core import build as core_build
     real, seen = core_build.prune_scan, {}
+    wiring = core_build._connect_batch
 
     def spy(*args):
         seen.setdefault(args[0].shape[1], tuple(
             a.clone() if hasattr(a, "clone") else a for a in args))
         return real(*args)
     core_build.prune_scan = spy
+    core_build._connect_batch = core_build._connect_batch_plain
     try:
         idx.add(rows)
     finally:
         core_build.prune_scan = real
+        core_build._connect_batch = wiring
     return seen
 
 

@@ -1,12 +1,14 @@
-"""The graph walk and the prune scan: hand-written CUDA kernels and their
-plain twins.
+"""The graph walk, the prune scan and the build's wiring: hand-written CUDA
+kernels and their plain twins.
 
-The JAX package compiles two loops into device programs: the beam walk
+The JAX package compiles three loops into device programs: the beam walk
 (``core/search.py::_search_one``, a ``lax.while_loop`` vmapped over the
-batch) and the diversity prune's keep/reject scan
-(``core/build.py::_prune_heuristic``, a ``lax.fori_loop``).  Run as torch
-ops, each step of either is a handful of small launches driven from the
-host.  Here each loop is one launch:
+batch), the diversity prune's keep/reject scan
+(``core/build.py::_prune_heuristic``, a ``lax.fori_loop``) and the
+wiring's back-link rounds (``core/build.py::_connect_batch``, two nested
+``lax.while_loop`` loops).  Run as torch ops, each step of any of them is a
+handful of small launches driven from the host.  Here each loop is one
+launch:
 
   * ``beam_walk`` (``csrc/beam_walk.cu``): the whole walk of a query batch,
     one thread block per query.  Its plain twin is core/search's
@@ -22,6 +24,11 @@ host.  Here each loop is one launch:
     candidate sets, one warp per set and one round per kept neighbour,
     reading the pairwise distances through the sort order.  Its plain
     twin is core/build's ``_prune_scan_plain``.
+  * ``connect_batch`` (``csrc/connect_batch.cu``): the build's wiring of
+    an insert batch (the JAX package's ``_connect_batch`` while_loops):
+    every target's back-link ops replayed in op order, appended or
+    re-pruned by the diversity heuristic, a block per chain.  Its plain
+    twin is core/build's ``_replay_chains``.
 
 Each wrapper runs the plain twin on a CPU tensor and launches its kernel on
 a CUDA tensor or raises.  The sources' notes say what bounds each kernel on
@@ -40,7 +47,7 @@ from .distance import dist_one_to_many
 
 # Launches of each kernel since import (or since a caller reset them); a run
 # reads them to show that a path went through the kernel.
-LAUNCHES = {"beam_walk": 0, "prune_scan": 0}
+LAUNCHES = {"beam_walk": 0, "prune_scan": 0, "connect_batch": 0}
 # beam_walk's launches by variant (walk_variant's names), and prune_scan's
 # by candidate-set shape (C, nn), counted beside LAUNCHES
 WALK_VARIANTS: dict = {}
@@ -56,6 +63,11 @@ SMEM_LIMIT = 232_448                # bytes of shared memory a block can use
 # queues; larger batches are walked in chunks of queries, a launch each
 SCRATCH_BYTES = 1 << 30
 _METRICS = (Metric.L2.value, Metric.COSINE.value, Metric.MANHATTAN.value)
+# When an int64[8] tensor on the card, every connect_batch launch adds its
+# counts to it: chains, back-link ops, re-prunes, pruned re-prunes, pairs
+# turned into masks, valid re-prune candidates, the longest chain (a max).
+# None on the main path; a measurement sets it.
+CONNECT_STATS: Optional[torch.Tensor] = None
 # the kernel's row sources by element type (csrc/beam_walk.cu kElem*)
 _ELEMS = {torch.float32: 0, torch.int8: 1, torch.bfloat16: 2, torch.uint8: 3}
 _DTYPE_NAMES = {torch.float32: "f32", torch.int8: "int8",
@@ -398,3 +410,98 @@ def _launch_prune(lib, d_s, valid_s, order, pair_d, do_prune, nn):
             torch.cuda.current_stream(dev).cuda_stream)
     _kernels.check(lib, err, "prune_scan")
     return kept_mask, kept_count
+
+
+def _connect_layout(c: int, dims: int) -> tuple:
+    """Shared memory of one connect_batch block for sets of ``c`` = maxM + 1
+    candidates of ``dims``, as csrc/connect_batch.cu lays it out: (bytes,
+    masks in shared memory, rows staged).  Ids, distances, two norms and
+    the scan order (4 bytes a candidate each), the kept words and their
+    prefix counts (4 bytes a 32 candidates each) and 8 scalars; the bit
+    masks [c, ceil(c / 32)] words where they fit (else a scratch in device
+    memory); the candidates' rows as float32 [c, dims | 1] where those fit
+    too.  Raises ValueError past SMEM_LIMIT."""
+    w = -(-c // 32)
+    base = 4 * (5 * c + 2 * w + 8)
+    if base > SMEM_LIMIT:
+        raise ValueError(f"a re-prune of {c} candidates needs {base} bytes "
+                         f"of shared memory; the limit is {SMEM_LIMIT}")
+    masks, rows = 4 * c * w, 4 * c * (dims | 1)
+    in_smem = base + masks <= SMEM_LIMIT
+    stage = in_smem and base + masks + rows <= SMEM_LIMIT
+    return (base + (masks if in_smem else 0) + (rows if stage else 0),
+            in_smem, stage)
+
+
+def _connect_blocks(bm: int, c: int, in_smem: bool, sms: int) -> int:
+    """connect_batch's grid: four blocks an SM (a grid-stride loop over the
+    bm sorted ops), fewer where the masks take SCRATCH_BYTES of device
+    memory (c * ceil(c / 32) words a block)."""
+    blocks = min(bm, 4 * sms)
+    if not in_smem:
+        blocks = min(blocks, max(1, SCRATCH_BYTES // (4 * c * -(-c // 32))))
+    return max(blocks, 1)
+
+
+def connect_batch(vectors: torch.Tensor, links: torch.Tensor,
+                  link_counts: torch.Tensor, keys: torch.Tensor,
+                  perm: torch.Tensor, *, base: int, m: int, max_m: int,
+                  metric_value: int):
+    """Replay an insert batch's back-link ops on ``links`` i32[cap, maxM]
+    and ``link_counts`` i32[cap] in place: keys i32[bm] (the ops' targets
+    stably sorted, invalid ops at core/build.NO_TARGET) and perm i64[bm]
+    (their op indices, op = member * m + slot, carrying node base +
+    member), core/build._chain_order's; vectors f32 or bf16 [cap, D].
+    Returns (links, link_counts).  One launch, no host sync."""
+    if vectors.device.type == "cpu":
+        from ..core.build import _replay_chains
+        return _replay_chains(vectors, links, link_counts, keys, perm,
+                              base=base, m=m, max_m=max_m,
+                              metric_value=metric_value)
+    if vectors.device.type != "cuda":
+        raise ValueError(f"no kernel for device {vectors.device}")
+    if metric_value not in _METRICS:
+        raise ValueError(f"unknown metric {metric_value}")
+    if vectors.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"the connect kernel reads float32 or bf16 rows, "
+                         f"not {vectors.dtype}")
+    if vectors.dim() != 2 or keys.dim() != 1:
+        raise ValueError(f"vectors {tuple(vectors.shape)} and keys "
+                         f"{tuple(keys.shape)} are not [cap, D] and [bm]")
+    if not 1 <= m <= max_m:
+        raise ValueError(f"m={m} outside [1, max_m={max_m}]")
+    (cap, dims), bm, dev = vectors.shape, keys.shape[0], vectors.device
+    if bm % m or not 0 <= base <= cap:
+        raise ValueError(f"{bm} ops are not a batch of m={m} at base {base} "
+                         f"of {cap} rows")
+    _want("vectors", vectors, vectors.dtype, (cap, dims), dev)
+    _want("links", links, torch.int32, (cap, max_m), dev)
+    _want("link_counts", link_counts, torch.int32, (cap,), dev)
+    _want("keys", keys, torch.int32, (bm,), dev)
+    _want("perm", perm, torch.int64, (bm,), dev)
+    smem, in_smem, _ = _connect_layout(max_m + 1, dims)
+    if bm == 0:                                          # no op: no launch
+        return links, link_counts
+    lib = _kernels.load_library()
+    c = max_m + 1
+    blocks = _connect_blocks(
+        bm, c, in_smem, torch.cuda.get_device_properties(dev)
+        .multi_processor_count)
+    # the masks' scratch in device memory where they do not fit shared
+    # memory: a block's slice each
+    masks = (None if in_smem else torch.empty(
+        (blocks, c * -(-c // 32)), dtype=torch.int32, device=dev))
+    stats = CONNECT_STATS
+    if stats is not None:
+        _want("CONNECT_STATS", stats, torch.int64, (8,), dev)
+    with torch.cuda.device(dev):
+        err = lib.connect_batch(
+            vectors.data_ptr(), _ELEMS[vectors.dtype], links.data_ptr(),
+            link_counts.data_ptr(), keys.data_ptr(), perm.data_ptr(), bm, m,
+            base, max_m, dims, metric_value, smem, blocks,
+            None if masks is None else masks.data_ptr(),
+            None if stats is None else stats.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _kernels.check(lib, err, "connect_batch")
+    LAUNCHES["connect_batch"] += 1
+    return links, link_counts

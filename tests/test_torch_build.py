@@ -18,6 +18,8 @@ from pg_embedding_tpu import HnswIndex as JaxIndex
 from pg_embedding_tpu.core import build as jb
 from pg_embedding_tpu_torch.convert import graph_from_numpy
 from pg_embedding_tpu_torch.core import build as tb
+# the wiring's synthetic state, shared with the card tests and the smoke
+from connect_operands import wiring_case
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -94,31 +96,124 @@ def _torch_graph(idx):
                             idx.n_nodes, device="cpu")
 
 
-def test_connect_batch(jax_graph):
-    """Back-links with many per-target collisions and full targets."""
-    cfg = jax_graph.config
-    rng = np.random.default_rng(10)
-    b, n_insert, base = 32, 29, jax_graph.n_nodes
-    g = jax_graph.graph
-    vectors = np.asarray(g.vectors).copy()
-    vectors[base:base + b] = rng.normal(size=(b, cfg.dims))
-    hubs = rng.choice(base, 12, replace=False)
-    kept = np.stack([rng.choice(hubs, cfg.m, replace=False)
-                     for _ in range(b)]).astype(np.int32)
-    cnt = rng.integers(0, cfg.m + 1, b).astype(np.int32)
+METRICS = {"l2": 0, "cosine": 1, "manhattan": 2}
+
+
+# cosine's rows are continuous: XLA's float32 rsqrt on the CPU is an
+# approximation within an ulp of the correctly rounded one, torch's is
+# 1 / sqrt (they differ on ~36% of inputs), and integer rows make exact
+# cosine ties between different expressions, which that ulp breaks
+# differently on the two sides
+WIRING_CASES = [("graph", "l2", "float32", 8)] + [
+    ("normal" if metric == "cosine" else "integer", metric, dtype, max_m)
+    for max_m in (8, 200) for dtype in ("float32", "bfloat16")
+    for metric in METRICS]
+
+
+@pytest.mark.parametrize("rows,metric,dtype,max_m", WIRING_CASES)
+def test_connect_batch(jax_graph, rows, metric, dtype, max_m):
+    """The wiring (_connect_batch_plain, the CPU's route of _connect_batch)
+    against the JAX _connect_batch, bit for bit: back-links with many
+    per-target collisions and full targets, every metric, float32 and bf16
+    rows, maxM 8 and the default width (m = 100: re-prunes of C = 201).
+    "graph": the 600-node JAX graph and its normal rows; "integer":
+    wiring_case's state; "normal": that state with normal rows."""
+    if rows == "graph":
+        cfg = jax_graph.config
+        rng = np.random.default_rng(10)
+        b, n_insert, base = 32, 29, jax_graph.n_nodes
+        g = jax_graph.graph
+        vectors = np.asarray(g.vectors).copy()
+        vectors[base:base + b] = rng.normal(size=(b, cfg.dims))
+        hubs = rng.choice(base, 12, replace=False)
+        kept = np.stack([rng.choice(hubs, cfg.m, replace=False)
+                         for _ in range(b)]).astype(np.int32)
+        cnt = rng.integers(0, cfg.m + 1, b).astype(np.int32)
+        links, counts = np.asarray(g.links), np.asarray(g.link_counts)
+        m = cfg.m
+    else:
+        (vectors, links, counts, kept, cnt), (base, n_insert, m) = \
+            wiring_case(max_m * 7 + METRICS[metric], max_m, rows=rows)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    kw = dict(m=m, max_m=max_m, metric_value=METRICS[metric])
     jl, jc = jb._connect_batch(
-        jnp.asarray(vectors), g.links, g.link_counts, jnp.int32(base),
-        jnp.asarray(kept), jnp.asarray(cnt), jnp.int32(n_insert),
-        m=cfg.m, max_m=cfg.max_m, metric_value=cfg.metric.value)
-    tl = torch.from_numpy(np.asarray(g.links).copy())
-    tc = torch.from_numpy(np.asarray(g.link_counts).copy())
-    tb._connect_batch(torch.from_numpy(vectors), tl, tc, base,
-                      torch.from_numpy(kept), torch.from_numpy(cnt),
-                      n_insert, m=cfg.m, max_m=cfg.max_m,
-                      metric_value=cfg.metric.value)
-    assert (np.asarray(jc)[hubs] == cfg.max_m).any()   # re-prunes ran
+        jnp.asarray(vectors, jdt), jnp.asarray(links), jnp.asarray(counts),
+        jnp.int32(base), jnp.asarray(kept), jnp.asarray(cnt),
+        jnp.int32(n_insert), **kw)
+    tl = torch.from_numpy(links.copy())
+    tc = torch.from_numpy(counts.copy())
+    tb._connect_batch_plain(torch.from_numpy(vectors).to(tdt), tl, tc, base,
+                            torch.from_numpy(kept), torch.from_numpy(cnt),
+                            n_insert, **kw)
+    full = counts == max_m
+    assert (np.asarray(jc)[full] <= max_m).all()
+    # re-prunes ran, and some pruned a target below maxM
+    assert (np.asarray(jl)[full] != links[full]).any()
     np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
     np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
+    # the routing function takes the same route on the CPU
+    rl = torch.from_numpy(links.copy())
+    rc = torch.from_numpy(counts.copy())
+    tb._connect_batch(torch.from_numpy(vectors).to(tdt), rl, rc, base,
+                      torch.from_numpy(kept), torch.from_numpy(cnt),
+                      n_insert, **kw)
+    assert torch.equal(rl, tl) and torch.equal(rc, tc)
+
+
+def _jax_rank(tgt):
+    """The JAX _connect_batch's per-target occurrence rank of each op
+    (same_earlier), -1 for invalid ops."""
+    tgt = jnp.asarray(tgt)
+    valid = tgt >= 0
+    op = jnp.arange(tgt.shape[0])
+    same_earlier = ((tgt[None, :] == tgt[:, None]) & valid[None, :] &
+                    valid[:, None] & (op[None, :] < op[:, None]))
+    return np.asarray(jnp.where(valid, jnp.sum(same_earlier, axis=1), -1))
+
+
+@pytest.mark.parametrize("case", ["collisions", "invalid", "ragged",
+                                  "none valid", "first batch"])
+def test_chain_order_is_the_jax_rank(case):
+    """The stable sort of the targets (_chain_order, the kernel's input)
+    puts each target's ops in op order, and each sorted op's place in its
+    chain (_chain_rank) is the JAX package's occurrence rank: on batches
+    with many collisions, invalid ops, n_insert < b, no valid op at all,
+    and node 0's first batch (no candidates)."""
+    rng = np.random.default_rng(["collisions", "invalid", "ragged",
+                                 "none valid", "first batch"].index(case))
+    b, m, base, max_m = 64, 8, 40, 16
+    kept = np.stack([rng.choice(12, m, replace=False)
+                     for _ in range(b)]).astype(np.int32)
+    cnt = np.full(b, m, np.int32)
+    n_insert = b
+    if case == "invalid":
+        kept[rng.random((b, m)) < 0.3] = -1
+        cnt = rng.integers(0, m + 1, b).astype(np.int32)
+    elif case == "ragged":
+        n_insert = 37
+    elif case == "none valid":
+        kept[:] = -1
+    elif case == "first batch":
+        base, cnt[:] = 0, 0
+    links = torch.full((base + b, max_m), -1, dtype=torch.int32)
+    counts = torch.zeros(base + b, dtype=torch.int32)
+    tgt = tb._forward_links(links, counts, base, torch.from_numpy(kept),
+                            torch.from_numpy(cnt), n_insert, m=m,
+                            max_m=max_m)
+    keys, perm = tb._chain_order(tgt)
+    rank = torch.empty_like(perm)
+    rank[perm] = tb._chain_rank(keys)
+    np.testing.assert_array_equal(rank.numpy(), _jax_rank(tgt.numpy()))
+    valid = keys != tb.NO_TARGET
+    # within a chain, ops in op order; invalid ops after every chain
+    same = keys[1:] == keys[:-1]
+    assert bool((perm[1:][same] > perm[:-1][same]).all())
+    assert bool(valid[: int(valid.sum())].all())
+    if case in ("none valid", "first batch"):
+        assert not bool(valid.any())
+    else:
+        assert int(rank.max()) >= 3                  # long chains
 
 
 @pytest.mark.parametrize("mode", ["beam", "exact8", "exact"])

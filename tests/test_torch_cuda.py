@@ -3,8 +3,10 @@
 index's exact route and the build's candidate sweep (sweep_pool) through
 it; ops/cuda_graph.beam_walk and prune_scan against theirs
 (core/search._search_batch, core/build._prune_scan_plain), and the graph
-route through the walk kernel.  A CUDA kernel has no CPU mode, so every
-test here skips without a CUDA device; run them on the card with
+route through the walk kernel; ops/cuda_graph.connect_batch, the build's
+wiring, against core/build._connect_batch_plain.  A CUDA kernel has no
+CPU mode, so every test here skips without a CUDA device; run them on the
+card with
 ``python -m pytest tests/ -m cuda``.  This file imports no JAX (the card's
 machine has none); its integer fixture is shared with test_torch_walk.py.
 
@@ -12,8 +14,8 @@ Tolerances: distances rtol 1e-5; ids equal except where the two sides'
 distances at that rank are within 1e-5 relative (float32 sums in another
 order may swap near-tied rows).  The walk on the integer fixture (every
 L2 and Manhattan distance exact in float32), the int8 sweep under L2 on
-integer rows at power-of-two scales and the prune scan (comparisons of
-the same values) are held bit for bit."""
+integer rows at power-of-two scales, the prune scan (comparisons of
+the same values) and the wiring on integer rows are held bit for bit."""
 
 import numpy as np
 import pytest
@@ -1229,3 +1231,263 @@ def test_exact_route_takes_the_wide_instances(cuda, dtype, k):
     _check(got, want)
     ids = got[1][got[1] >= 0].long().cpu()
     assert bool((ids < 40_000).all()) and not bool(dead[ids].any())
+
+
+# --- the build's wiring: connect_batch ---------------------------------------
+
+# (maxM, D, b, base) of each shared-memory tier of csrc/connect_batch.cu:
+# rows and masks staged (maxM 8; the main path's maxM 32; the default
+# m = 100), masks only (rows too wide to stage), neither (masks in device
+# memory)
+CONNECT_TIERS = {"staged 8": (8, 8, 16, 300), "staged 32": (32, 8, 32, 300),
+                 "staged 200": (200, 8, 16, 300),
+                 "masks only": (200, 400, 16, 300),
+                 "device masks": (1400, 8, 4, 1500)}
+
+
+@pytest.fixture
+def exact_bf16_matmul():
+    """bf16 matmuls that accumulate in float32 and round once (the twin's
+    cosine dot): without this cuBLAS may round partial sums to bf16."""
+    saved = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    yield
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = saved
+
+
+@pytest.mark.parametrize("tier", list(CONNECT_TIERS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("metric", list(METRICS))
+def test_connect_batch_bit_equal_on_integers(cuda, exact_bf16_matmul, tier,
+                                             dtype, metric):
+    """One connect_batch launch wires the batch exactly as the plain twin
+    (core/build._connect_batch_plain) does on the card, on integer rows
+    (every sum exact): links and counts bit for bit, for every metric,
+    float32 and bf16 rows and each shared-memory tier, with chains whose
+    target is a member of the batch, members past n_insert, invalid kept
+    slots and -1 slots inside full rows."""
+    from connect_operands import kernel_and_twin, wiring_case
+    from pg_embedding_tpu_torch.ops import cuda_graph as cg
+    max_m, dims, b, base = CONNECT_TIERS[tier]
+    _, in_smem, stage = cg._connect_layout(max_m + 1, dims)
+    assert (in_smem, stage) == {"masks only": (True, False),
+                                "device masks": (False, False)}.get(
+                                    tier, (True, True))
+    arrays, meta = wiring_case(max_m + dims + METRICS[metric], max_m, b=b,
+                               n_insert=b - 3, base=base, dims=dims)
+    (kl, kc), (pl, pc), launches = kernel_and_twin(
+        arrays, meta, METRICS[metric], cuda, dtype)
+    assert launches == 1
+    assert torch.equal(kc, pc)
+    assert torch.equal(kl, pl)
+    full = torch.from_numpy(arrays[2] == max_m)
+    assert bool((pc.cpu()[full] < max_m).any())         # re-prunes pruned
+
+
+@pytest.mark.parametrize("case", ["no valid op", "first batch",
+                                  "nothing inserted", "one member"])
+def test_connect_batch_edges(cuda, case):
+    """Batches with nothing to wire still make one launch that changes only
+    the forward rows, as the twin's: no valid op, node 0's first batch, no
+    member inserted; and a batch of one member."""
+    from connect_operands import kernel_and_twin, wiring_case
+    arrays, (base, n_insert, m) = wiring_case(3, 8, b=8, n_insert=8)
+    vectors, links, counts, kept, cnt = arrays
+    if case == "no valid op":
+        kept[:] = -1
+    elif case == "first batch":
+        base, counts[:], links[:] = 0, 0, -1
+        cnt[:] = 0
+    elif case == "nothing inserted":
+        n_insert = 0
+    else:
+        kept, cnt, n_insert = kept[:1], cnt[:1], 1
+    (kl, kc), (pl, pc), launches = kernel_and_twin(
+        (vectors, links, counts, kept, cnt), (base, n_insert, m), 0, cuda)
+    assert launches == 1
+    assert torch.equal(kc, pc) and torch.equal(kl, pl)
+
+
+def test_connect_batch_makes_no_host_sync(cuda):
+    """core/build._connect_batch on the card, the wiring of
+    insert_batch_core, under torch.cuda.set_sync_debug_mode("error"): the
+    forward rows, the chain sort and the launch make no host sync."""
+    from connect_operands import wiring_case, wiring_tensors
+    from pg_embedding_tpu_torch import _kernels
+    from pg_embedding_tpu_torch.core import build as core_build
+    _kernels.load_library()
+    arrays, (base, n_insert, m) = wiring_case(5, 32, b=32)
+    vectors, links, counts, kept, cnt = wiring_tensors(arrays, cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        core_build._connect_batch(vectors, links, counts, base, kept, cnt,
+                                  n_insert, m=m, max_m=32, metric_value=0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+def test_builds_wire_in_the_kernel(cuda, storage):
+    """A build on the card wires every batch in one connect_batch launch
+    (the first, node 0's, too) and never runs the plain twin
+    (PLAIN_CONNECTS_ON_CARD); the sharded index's batches too, a launch a
+    shard's batch."""
+    from pg_embedding_tpu_torch import ShardedHnswIndex
+    from pg_embedding_tpu_torch.core import build as core_build
+    from pg_embedding_tpu_torch.ops import cuda_graph as cg
+    rng = np.random.default_rng(17)
+    pts = rng.normal(size=(3000, 32)).astype(np.float32)
+    cfg = HnswConfig(dims=32, m=8, ef_construction=32, ef_search=32)
+    plain, before = core_build.PLAIN_CONNECTS_ON_CARD, \
+        cg.LAUNCHES["connect_batch"]
+    idx = HnswIndex(cfg, device=cuda, storage_dtype=storage)
+    idx.build(pts)
+    batches = len(core_build.build_schedule(3000, idx.max_insert_batch))
+    assert cg.LAUNCHES["connect_batch"] == before + batches
+    s = ShardedHnswIndex(cfg, n_shards=4, device=cuda)
+    s.build(pts)
+    assert cg.LAUNCHES["connect_batch"] > before + batches
+    assert core_build.PLAIN_CONNECTS_ON_CARD == plain
+    cpu = HnswIndex(cfg, device="cpu", storage_dtype=storage)
+    cpu.build(pts)
+    same = (idx.graph.links.cpu() == cpu.graph.links).all(dim=1)[:3000]
+    assert float(same.float().mean()) >= 0.95
+
+
+def test_connect_batch_refuses_out_of_scope_arguments(cuda):
+    """What the kernel does not take raises ValueError on the card, and the
+    C side refuses a shared-memory figure other than its own."""
+    from connect_operands import wiring_case, wiring_tensors
+    from pg_embedding_tpu_torch import _kernels
+    from pg_embedding_tpu_torch.core import build as core_build
+    from pg_embedding_tpu_torch.ops import cuda_graph as cg
+    arrays, (base, n_insert, m) = wiring_case(6, 8)
+    vectors, links, counts, kept, cnt = wiring_tensors(arrays, cuda)
+    tgt = core_build._forward_links(links, counts, base, kept, cnt,
+                                    n_insert, m=m, max_m=8)
+    keys, perm = core_build._chain_order(tgt)
+    kw = dict(base=base, m=m, max_m=8, metric_value=0)
+    bad = [((vectors.half(), links, counts, keys, perm), kw),
+           ((vectors, links.long(), counts, keys, perm), kw),
+           ((vectors, links, counts[:-1], keys, perm), kw),
+           ((vectors, links, counts, keys.long(), perm), kw),
+           ((vectors, links, counts, keys, perm.int()), kw),
+           ((vectors, links.t().contiguous().t(), counts, keys, perm), kw),
+           ((vectors, links, counts, keys[:-1], perm[:-1]), kw),
+           ((vectors, links, counts, keys, perm), dict(kw, metric_value=3)),
+           ((vectors, links, counts, keys, perm), dict(kw, m=9)),
+           ((vectors, links, counts, keys, perm), dict(kw, base=-1))]
+    for args, kwargs in bad:
+        with pytest.raises(ValueError):
+            cg.connect_batch(*args, **kwargs)
+    lib = _kernels.load_library()
+    smem = cg._connect_layout(9, vectors.shape[1])[0]
+    for wrong in (smem + 4, smem - 4):
+        err = lib.connect_batch(
+            vectors.data_ptr(), 0, links.data_ptr(), counts.data_ptr(),
+            keys.data_ptr(), perm.data_ptr(), keys.numel(), m, base, 8,
+            vectors.shape[1], 0, wrong, 4, None, None,
+            torch.cuda.current_stream().cuda_stream)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            _kernels.check(lib, err, "connect_batch")
+
+
+def test_connect_batch_fills_rows_then_reprunes(cuda):
+    """Targets one slot short of full, each hit by several ops: the first
+    op of a chain appends (the count reaches maxM), the next re-prunes.
+    Repeated launches on fresh copies equal the twin every time (the
+    block decides append or re-prune from one read of the count)."""
+    from connect_operands import kernel_and_twin, wiring_case
+    for rep in range(20):
+        arrays, (base, n_insert, m) = wiring_case(40 + rep, 32, b=64,
+                                                  n_insert=64)
+        vectors, links, counts, kept, cnt = arrays
+        rng = np.random.default_rng(rep)
+        for i in range(base):
+            links[i] = -1
+            links[i, :31] = rng.choice(np.delete(np.arange(base), i), 31,
+                                       replace=False)
+        counts[:base] = 31
+        hubs = rng.choice(base, 40, replace=False)
+        kept[:] = np.stack([rng.choice(hubs, m, replace=False)
+                            for _ in range(64)])
+        cnt[:] = m
+        (kl, kc), (pl, pc), launches = kernel_and_twin(
+            (vectors, links, counts, kept, cnt), (base, n_insert, m), 0,
+            cuda)
+        assert launches == 1
+        assert torch.equal(kc, pc) and torch.equal(kl, pl)
+
+
+def test_connect_batch_widest_config(cuda, exact_bf16_matmul):
+    """The widest sets a config admits (m = MAX_M: maxM 8,192, C = 8,193,
+    the masks in device memory) on integer rows: three full targets
+    re-pruned among 4,096 back-links of one member, equal to the twin."""
+    from connect_operands import kernel_and_twin
+    from pg_embedding_tpu_torch.config import MAX_M
+    from pg_embedding_tpu_torch.ops import cuda_graph as cg
+    max_m, m, dims, base = 2 * MAX_M, MAX_M, 8, 8300
+    assert cg._connect_layout(max_m + 1, dims)[1:] == (False, False)
+    rng = np.random.default_rng(29)
+    vectors = rng.integers(-2, 3, size=(base + 6, dims)).astype(np.float32)
+    links = np.full((base + 6, max_m), -1, np.int32)
+    counts = np.zeros(base + 6, np.int32)
+    full = rng.choice(base, 3, replace=False)
+    for i in full:
+        links[i] = rng.choice(np.delete(np.arange(base), i), max_m,
+                              replace=False)
+        counts[i] = max_m
+    kept = np.full((2, m), -1, np.int32)
+    kept[0] = np.concatenate([full, rng.choice(
+        np.setdiff1d(np.arange(base), full), m - 3, replace=False)])
+    cnt = np.array([m, 0], np.int32)
+    for metric in METRICS.values():
+        for dtype in (torch.float32, torch.bfloat16):
+            (kl, kc), (pl, pc), launches = kernel_and_twin(
+                (vectors, links, counts, kept, cnt), (base, 2, m), metric,
+                cuda, dtype)
+            assert launches == 1
+            assert torch.equal(kc, pc) and torch.equal(kl, pl)
+            assert bool((pc.cpu()[full] < max_m).all())
+
+
+def test_connect_batch_counters(cuda):
+    """ops/cuda_graph.CONNECT_STATS, when set, collects a launch's counts:
+    chains, ops, re-prunes and the longest chain equal what a replay on
+    the CPU counts, pruned re-prunes are among them, pairs and valid
+    candidates follow; unset, the launch counts nothing."""
+    from connect_operands import wiring_case, wiring_tensors
+    from pg_embedding_tpu_torch.core import build as core_build
+    from pg_embedding_tpu_torch.ops import cuda_graph as cg
+    arrays, (base, n_insert, m) = wiring_case(9, 32, b=32)
+    vectors, links, counts, kept, cnt = wiring_tensors(arrays, "cpu")
+    tgt = core_build._forward_links(links, counts, base, kept, cnt,
+                                    n_insert, m=m, max_m=32)
+    keys, perm = core_build._chain_order(tgt)
+    ops = keys[keys != core_build.NO_TARGET]
+    reprunes = 0
+    for q, t in enumerate(ops.tolist()):
+        if int(counts[t]) >= 32:
+            reprunes += 1
+        core_build._replay_chains(vectors, links, counts, keys[q:q + 1],
+                                  perm[q:q + 1], base=base, m=m, max_m=32,
+                                  metric_value=0)
+    _, chain_len = torch.unique_consecutive(ops, return_counts=True)
+    stats = torch.zeros(8, dtype=torch.int64, device=cuda)
+    vectors, links, counts, kept, cnt = wiring_tensors(arrays, cuda)
+    cg.CONNECT_STATS = stats
+    try:
+        core_build._connect_batch(vectors, links, counts, base, kept, cnt,
+                                  n_insert, m=m, max_m=32, metric_value=0)
+    finally:
+        cg.CONNECT_STATS = None
+    got = stats.tolist()
+    assert got[:3] == [len(chain_len), len(ops), reprunes] and reprunes
+    assert got[6] == int(chain_len.max())
+    assert 0 < got[3] <= got[2] and got[4] > 0 and got[5] >= 32 * got[3]
+    core_build._connect_batch(*wiring_tensors(arrays, cuda)[:3], base,
+                              kept, cnt, n_insert, m=m, max_m=32,
+                              metric_value=0)
+    assert stats.tolist() == got
