@@ -70,11 +70,10 @@ exits non-zero):
      rows);
      prune_scan bit-equal to core/build._prune_scan_plain on the candidate
      sets of one real 256-row insert batch (an add() to the index: its
-     insert prune, C = 128, nn = 16, and the first back-link re-prune, C =
-     maxM + 1 = 33, nn = 32, of the plain twin's wiring of the same batch:
-     the index's own re-prunes run inside connect_batch), with the main
-     path's build's prune_scan launches counted at each width (by the
-     wrapper, ops/cuda_graph.PRUNE_SHAPES; 0 at the re-prune's).  Times of each
+     insert prune, C = 128, nn = 16; its re-prunes run inside
+     connect_batch), with the main path's build's prune_scan launches
+     counted at each width (by the wrapper, ops/cuda_graph.PRUNE_SHAPES; 0
+     at the re-prune's, C = maxM + 1 = 33).  Times of each
      kernel a call (CUDA events around one call, median of 5, as for each
      twin: the JSON's "ms") and on the card (20 calls
      captured in a CUDA graph, replayed between CUDA events: the host's
@@ -101,8 +100,9 @@ exits non-zero):
      values, pool cand_cap + 2, beside addmm + topk); the wiring of that
      add()'s batch (captured by wrapping core/build._connect_batch):
      connect_batch against its plain twin (core/build._replay_chains) on
-     copies of the links, the touched rows equal on >= 99% of targets, its
-     counters (chains, re-prunes), its time a call and on the card beside
+     copies of the links (every target that only appends equal, >= 99%
+     of the re-pruned ones; the share that differs is its max_abs_err),
+     its counters (chains, re-prunes), its time a call and on the card beside
      its bound (connect_bound_ms) and the twin's, and bit-equal to the
      twin on integer rows for every metric, float32 / bf16 rows and each
      shared-memory tier (connect_integer_cases); eight more add()s, each
@@ -201,11 +201,12 @@ from their own path, the exact-mode builds, each counted from 0 just
 before it; the build sweep instances' timings are phase 4b's on the
 add()'s 1M batch, with "loop_ms" (the torch-op loop each replaced); for
 prune_scan also
-"insert_launches" and "reprune_launches", the build's launches at each
-width, and the re-prune shape's "reprune_ms", "reprune_device_ms",
-"reprune_plain_ms" and "reprune_bound_ms"; for connect_batch its
-counters on the add()'s batch, "rows_equal" to the twin there and "add",
-the eight add()s' breakdown; "ms" is a call's time between
+"insert_launches" and "reprune_launches", the build's launches at the
+insert's width and at the re-prune's (0: the re-prunes run inside
+connect_batch); for connect_batch its counters on the add()'s batch,
+"rows_equal" and "reprune_rows_equal" to the twin there (its
+"max_abs_err" is the share of re-pruned targets whose row differs) and
+"add", the eight add()s' breakdown; "ms" is a call's time between
 CUDA events, host share included, for every kernel, and
 the walk and the scan also give "device_ms", the card's time from the CUDA
 graph; the walk's "variants": each variant's launches over its own API
@@ -592,10 +593,9 @@ def compiler_report(_kernels):
             queues = ", queues in device memory" if m[4] == "1" else ""
             return (f"beam_walk_kernel<{elem} rows, {dedupe}, {m[3]} "
                     f"threads{queues}>")
-        m = re.search(r"prune_scan_regsILi(\d+)ELb([01])E", mangled)
+        m = re.search(r"prune_scan_regsILi(\d+)EE", mangled)
         if m:
-            return (f"prune_scan_regs<{m[1]} words, pair block "
-                    f"{'staged' if m[2] == '1' else 'in L2'}>")
+            return f"prune_scan_regs<{m[1]} words>"
         m = re.search(r"connect_kernelINS_\d+(F32|BF16)ELb([01])E", mangled)
         if m:
             return (f"connect_kernel<{'float32' if m[1] == 'F32' else 'bf16'}"
@@ -1118,68 +1118,48 @@ def walk_kernels_phase(torch, idx, qs, dev, tmp, single, profile_lib):
         core_build.prune_scan, core_build.sweep_pool = real, real_sweep
         core_build._connect_batch = real_connect
     shutil.rmtree(profiles)
-    reprune_c = max_m + 1
-    check(list(captured) == [idx.config.ef_construction * 2]
-          and len(wirings) == 1,
+    c = idx.config.ef_construction * 2
+    check(list(captured) == [c] and len(wirings) == 1,
           f"the add() ran prune widths {sorted(captured)} and "
           f"{len(wirings)} wirings, not only the insert's prune and one "
           f"wiring (its re-prunes run inside connect_batch)")
-    # the first re-prune's scan (C = maxM + 1), from the plain twin's
-    # wiring of the same batch, whose re-prunes run prune_scan
-    vectors, links0, counts0, base, kept_i, kept_cnt, n_insert, kw = \
-        wirings[0]
-    core_build.prune_scan = spy
-    try:
-        with own_twin_calls():
-            core_build._connect_batch_plain(
-                vectors, links0.clone(), counts0.clone(), base, kept_i,
-                kept_cnt, n_insert, **kw)
-    finally:
-        core_build.prune_scan = real
-    check(reprune_c in captured,
-          f"the twin's wiring ran no re-prune of width {reprune_c}")
     shapes = single["prune_shapes"]
-    for c, sargs in sorted(captured.items(), reverse=True):
-        d_s, valid_s, order, pair, do_prune, nn = sargs
-        bsz = d_s.shape[0]
-        got = cg.prune_scan(d_s, valid_s, order, pair, do_prune, nn)
-        want = core_build._prune_scan_plain(d_s, valid_s, order, pair,
-                                            do_prune, nn)
-        what = "re-prune" if c == reprune_c else "insert"
-        check(all(torch.equal(x, y) for x, y in zip(got, want)),
-              f"prune_scan differs from the plain twin at the {what} shape")
-        with own_twin_calls():
-            dev_ms = device_ms(lambda: cg.prune_scan(d_s, valid_s, order,
-                                                     pair, do_prune, nn))
-            ms = median_ms(torch, lambda: cg.prune_scan(
-                d_s, valid_s, order, pair, do_prune, nn))
-            plain_ms = median_ms(torch, lambda: core_build._prune_scan_plain(
-                d_s, valid_s, order, pair, do_prune, nn))
-        kept = got[0].int()
-        before = torch.cumsum(kept, dim=1) - kept      # kept before each j
-        tested = valid_s & (before < nn) & do_prune.unsqueeze(1)
-        pairs = int((before * tested).sum())
-        nbytes = pairs * 4 + bsz * c * (4 + 1 + 8 + 1) + bsz * (1 + 4)
-        bound = nbytes / PEAK_BYTES * 1e3
-        launches = sum(v for (sc, _), v in shapes.items() if sc == c)
-        log(f"prune_scan vs plain at the {what} shape at {n} rows (B={bsz}, "
-            f"C={c}, nn={nn}, {int(do_prune.sum())} sets pruned, {pairs} "
-            f"pairs tested; {launches} launches of this width in the main "
-            f"path's build): bit-equal; kernel {ms:.4f} ms a call, plain "
-            f"{plain_ms:.3f} ms (median of 5, CUDA events); kernel "
-            f"{dev_ms:.4f} ms on the card (a CUDA graph of 20 calls); bound "
-            f"{bound:.5f} ms (bytes; {bound / dev_ms:.1%} of it reached on "
-            f"the card)")
-        if what == "insert":
-            out["prune_scan"] = dict(max_abs_err=0.0, ms=ms, device_ms=dev_ms,
-                                     plain_ms=plain_ms, bound_ms=bound,
-                                     bound_by="bytes", library_ms=None,
-                                     insert_launches=launches)
-        else:
-            out["prune_scan"].update(
-                reprune_ms=ms, reprune_device_ms=dev_ms,
-                reprune_plain_ms=plain_ms, reprune_bound_ms=bound,
-                reprune_launches=launches, reprune_shape=[bsz, c, nn])
+    d_s, valid_s, order, pair, do_prune, nn = captured[c]
+    bsz = d_s.shape[0]
+    got = cg.prune_scan(d_s, valid_s, order, pair, do_prune, nn)
+    want = core_build._prune_scan_plain(d_s, valid_s, order, pair, do_prune,
+                                        nn)
+    check(all(torch.equal(x, y) for x, y in zip(got, want)),
+          "prune_scan differs from the plain twin at the insert shape")
+    with own_twin_calls():
+        dev_ms = device_ms(lambda: cg.prune_scan(d_s, valid_s, order, pair,
+                                                 do_prune, nn))
+        ms = median_ms(torch, lambda: cg.prune_scan(d_s, valid_s, order,
+                                                    pair, do_prune, nn))
+        plain_ms = median_ms(torch, lambda: core_build._prune_scan_plain(
+            d_s, valid_s, order, pair, do_prune, nn))
+    kept = got[0].int()
+    before = torch.cumsum(kept, dim=1) - kept          # kept before each j
+    tested = valid_s & (before < nn) & do_prune.unsqueeze(1)
+    pairs = int((before * tested).sum())
+    nbytes = pairs * 4 + bsz * c * (4 + 1 + 8 + 1) + bsz * (1 + 4)
+    bound = nbytes / PEAK_BYTES * 1e3
+    launches = sum(v for (sc, _), v in shapes.items() if sc == c)
+    reprune_launches = sum(v for (sc, _), v in shapes.items()
+                           if sc == max_m + 1)
+    log(f"prune_scan vs plain at the insert shape at {n} rows (B={bsz}, "
+        f"C={c}, nn={nn}, {int(do_prune.sum())} sets pruned, {pairs} pairs "
+        f"tested; {launches} launches of this width and {reprune_launches} "
+        f"of the re-prune's, C = {max_m + 1}, in the main path's build): "
+        f"bit-equal; kernel {ms:.4f} ms a call, plain {plain_ms:.3f} ms "
+        f"(median of 5, CUDA events); kernel {dev_ms:.4f} ms on the card (a "
+        f"CUDA graph of 20 calls); bound {bound:.5f} ms (bytes; "
+        f"{bound / dev_ms:.1%} of it reached on the card)")
+    out["prune_scan"] = dict(max_abs_err=0.0, ms=ms, device_ms=dev_ms,
+                             plain_ms=plain_ms, bound_ms=bound,
+                             bound_by="bytes", library_ms=None,
+                             insert_launches=launches,
+                             reprune_launches=reprune_launches)
     phase_breakdown(torch, g, q, captured, profile_lib)
     check(len(sweeps) == 1, f"the add() ran {len(sweeps)} candidate sweeps")
     out.update(sweep_phase(torch, idx, sweeps[0]))
@@ -1371,15 +1351,19 @@ def connect_phase(torch, wiring):
     inputs as the add() passed them, links and counts as they were before
     it) on copies of the graph's links: one connect_batch launch against
     its plain twin (core/build._replay_chains, the rounds of
-    _connect_batch_plain) on the card.  The rows the batch touches must be
-    equal on >= 99% of targets (the kernel sums in another order than
-    torch's reductions and cuBLAS, so float32 near-ties may break
-    otherwise) and the counts with them; the kernel's counters (chains,
+    _connect_batch_plain) on the card.  A target whose chain only appends
+    (its count plus its chain's length at most maxM) must get the twin's
+    row and count exactly; of the targets re-pruned at least once, >= 99%
+    must (the kernel sums in another order than torch's reductions and
+    cuBLAS, so float32 near-ties may break otherwise; every reading so far
+    was 1), and the share that differs is the kernels line's
+    "max_abs_err"; the kernel's counters (chains,
     ops, re-prunes); its time a call (CUDA events, median of 5, the touched
     rows restored before each call outside the timing) and on the card (a
     CUDA graph of 20 restores and launches, less one of the 20 restores
     alone) beside its bound (connect_bound_ms) and the twin's time a call;
     then connect_integer_cases.  Returns the kernels line's numbers."""
+    from connect_operands import chain_targets
     from pg_embedding_tpu_torch.core import build as core_build
     from pg_embedding_tpu_torch.graph_probe import device_ms
     from pg_embedding_tpu_torch.ops import cuda_graph as cg
@@ -1389,7 +1373,7 @@ def connect_phase(torch, wiring):
     tgt = core_build._forward_links(links, counts, base, kept_i, kept_cnt,
                                     n_insert, m=kw["m"], max_m=max_m)
     keys, perm = core_build._chain_order(tgt)
-    touched = torch.unique(keys[keys != core_build.NO_TARGET]).long()
+    touched, repruned = chain_targets(keys, counts, max_m)
     start_rows, start_counts = links[touched].clone(), counts[touched].clone()
     bm = keys.numel()
 
@@ -1432,28 +1416,38 @@ def connect_phase(torch, wiring):
         ms, plain_ms = timed(kernel), timed(twin)
         dev_ms = (device_ms(lambda: (restore(), kernel()))
                   - device_ms(restore))
-    rows_equal = int((got[0] == want[0]).all(dim=1).sum()) / len(touched)
-    counts_equal = int((got[1] == want[1]).sum()) / len(touched)
+    same = (got[0] == want[0]).all(dim=1) & (got[1] == want[1])
+    n_re = int(repruned.sum())
+    rows_equal = int(same.sum()) / len(touched)
+    appends_equal = bool(same[~repruned].all())
+    reprune_rows_equal = int(same[repruned].sum()) / max(n_re, 1)
     st = stats.tolist()
     bound, bound_by = connect_bound_ms(st, bm, max_m, dims,
                                        vectors.element_size())
     cases = connect_integer_cases(torch, dev)
-    log(f"connect_batch vs its plain twin on the add()'s batch ({bm} ops, "
-        f"maxM {max_m}, D {dims}): {st[0]} chains (longest {st[6]}), "
+    log(f"connect_batch vs its plain twin on the add()'s batch ({st[1]} "
+        f"valid ops of bm = {bm}, maxM {max_m}, D {dims}): {st[0]} chains (longest {st[6]}), "
         f"{st[2]} re-prunes ({st[3]} pruned, {st[4]} pairs into masks); "
-        f"rows of the {len(touched)} targets equal {rows_equal:.5f}, counts "
-        f"{counts_equal:.5f}; kernel {ms:.4f} ms a call (median of 5, CUDA "
+        f"rows and counts of the {len(touched)} targets equal "
+        f"{rows_equal:.5f}: the {len(touched) - n_re} that only append "
+        f"{'all' if appends_equal else 'NOT all'} equal, the {n_re} "
+        f"re-pruned {reprune_rows_equal:.5f} (limit 0.99); kernel {ms:.4f} "
+        f"ms a call (median of 5, CUDA "
         f"events), {dev_ms:.4f} ms on the card (a CUDA graph of 20 restores "
         f"and launches less 20 restores); bound {bound:.5f} ms ({bound_by};"
         f" {bound / dev_ms:.1%} of it reached on the card); plain twin "
         f"{plain_ms:.3f} ms a call; bit-equal to the twin on {cases} "
         f"integer-row cases (every metric, float32 / bf16, each tier)")
-    check(rows_equal >= 0.99 and counts_equal >= 0.99,
-          f"connect_batch and its twin: rows {rows_equal}, counts "
-          f"{counts_equal} equal")
-    return dict(max_abs_err=0.0, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                bound_ms=bound, bound_by=bound_by, library_ms=None,
-                rows_equal=rows_equal, reprunes=st[2], ops=st[1],
+    check(0 < n_re <= st[2],
+          f"{n_re} re-pruned targets for the kernel's {st[2]} re-prunes")
+    check(appends_equal and reprune_rows_equal >= 0.99,
+          f"connect_batch and its twin: targets that only append all equal "
+          f"{appends_equal}, re-pruned targets equal {reprune_rows_equal}")
+    return dict(max_abs_err=1.0 - reprune_rows_equal, ms=ms,
+                device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=bound_by, library_ms=None, rows_equal=rows_equal,
+                reprune_rows_equal=reprune_rows_equal,
+                reprune_targets=n_re, reprunes=st[2], ops=st[1],
                 chains=st[0])
 
 
@@ -1601,8 +1595,8 @@ def phase_breakdown(torch, g, q, captured, profile_lib):
             f"({graph_probe.prune_smem_bytes(c)} bytes of shared memory a "
             f"block; {r['pruned']} of "
             f"{r['sets']} sets pruned, {r['rounds']:.2f} rounds a pruned "
-            f"set; cycles: init and write a set, stage and masks a pruned "
-            f"set, search and reject a round): "
+            f"set; cycles: init and write a set, search and reject a "
+            f"round): "
             f"{graph_probe.format_cycles(r['cycles'])}")
 
 

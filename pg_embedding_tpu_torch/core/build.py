@@ -35,6 +35,8 @@ overflowing targets and once for the round count (see PERF.md).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..config import Metric
@@ -243,22 +245,9 @@ def _replay_chains(vectors, links, link_counts, keys, perm, *, base: int,
     return links, link_counts
 
 
-def _connect_batch_plain(vectors, links, link_counts, base: int, kept_i,
-                         kept_cnt, n_insert: int, *, m: int, max_m: int,
-                         metric_value: int):
-    """_connect_batch in torch ops: the forward rows, the chain order and
-    the rounds of _replay_chains.  The CPU's route; on the card only the
-    smoke's and the tests' comparisons call it (counted in
-    PLAIN_CONNECTS_ON_CARD)."""
-    tgt = _forward_links(links, link_counts, base, kept_i, kept_cnt,
-                         n_insert, m=m, max_m=max_m)
-    keys, perm = _chain_order(tgt)
-    return _replay_chains(vectors, links, link_counts, keys, perm, base=base,
-                          m=m, max_m=max_m, metric_value=metric_value)
-
-
 def _connect_batch(vectors, links, link_counts, base: int, kept_i, kept_cnt,
-                   n_insert: int, *, m: int, max_m: int, metric_value: int):
+                   n_insert: int, *, m: int, max_m: int, metric_value: int,
+                   replay=connect_batch):
     """Wire a whole batch: the result of running mutuallyConnectNewElement
     (hnswalg.cpp:155-223) serially over the batch, updating ``links`` and
     ``link_counts`` in place.
@@ -269,12 +258,21 @@ def _connect_batch(vectors, links, link_counts, base: int, kept_i, kept_cnt,
     member's back-link can target it), then each target replays its own
     back-link ops in op order.  On the card the replay is one launch of
     ops/cuda_graph.connect_batch and the batch makes no host sync; on the
-    CPU it is _replay_chains (the route of _connect_batch_plain)."""
+    CPU it is _replay_chains.  ``replay`` is the step after the forward
+    rows and the chain order: the wrapper, or _replay_chains for the twin
+    (_connect_batch_plain)."""
     tgt = _forward_links(links, link_counts, base, kept_i, kept_cnt,
                          n_insert, m=m, max_m=max_m)
     keys, perm = _chain_order(tgt)
-    return connect_batch(vectors, links, link_counts, keys, perm, base=base,
-                         m=m, max_m=max_m, metric_value=metric_value)
+    return replay(vectors, links, link_counts, keys, perm, base=base, m=m,
+                  max_m=max_m, metric_value=metric_value)
+
+
+# _connect_batch in torch ops: the forward rows, the chain order and the
+# rounds of _replay_chains.  The CPU's route; on the card only the smoke's
+# and the tests' comparisons call it (counted in PLAIN_CONNECTS_ON_CARD).
+_connect_batch_plain = functools.partial(_connect_batch,
+                                         replay=_replay_chains)
 
 
 def _sweep_loop(vectors, pts32, base: int, keep: int, metric_value: int,

@@ -36,20 +36,14 @@
 // candidates' order and d_s in registers, so a round is a few ALU ops, one
 // shuffle (the keeper's original position) and the keeper's column loads;
 // wider sets keep the words in shared memory and read order and d_s
-// through L1.  Small sets (C <= kStageMaxC: the back-link re-prunes, C =
-// maxM + 1 = 33, where nearly every candidate is kept, so keeper rounds
-// save little) first copy their whole [C, C] block into shared memory with
-// coalesced loads (rows padded to an odd stride, so a column read hits 32
-// banks); each lane turns its candidates' rows into bit masks (bit r of
-// candidate i: pair[order[i], order[r]] < d_s[i]), and the scan runs over
-// the bits in registers, one candidate a step as the twin's loop does, a
-// few ALU operations each.  Sets that are not pruned take their first nn
-// valid candidates from the bits, with no round at all.  Two warps a block
-// spread B = 256 sets over 128 SMs.
+// through L1.  Sets that are not pruned take their first nn valid
+// candidates from the bits, with no round at all.  Two warps a block
+// spread B = 256 sets over 128 SMs.  (The back-link re-prunes, C = maxM +
+// 1, run inside csrc/connect_batch.cu; here they reach this kernel only
+// through the plain twin's wiring.)
 //
-// What holds it back now: each round of an unstaged set still waits on one
-// L2 latency for the keeper's column, and a set's rounds are a chain; a
-// staged set waits on its block's copy.
+// What holds it back now: each round still waits on one L2 latency for
+// the keeper's column, and a set's rounds are a chain.
 
 #include <cuda_runtime.h>
 
@@ -61,15 +55,11 @@ namespace {
 constexpr int kWarpsPerBlock = 2;
 constexpr int kSmemLimit = 232448;
 constexpr int kWordsPerPass = 8;     // candidate words tested per load pass
-// Sets of at most this many candidates stage their pair block in shared
-// memory (chosen by measurement: PERF.md; graph_probe.py).
-constexpr int kStageMaxC = 64;
 constexpr unsigned kFull = 0xffffffffu;
 
 // Phase clocks of the instrumented build (-DPG_PROFILE): lane 0 of each
 // warp sums its laps and adds them to g_prune_prof at the end.
-enum { kLapInit, kLapStage, kLapMasks, kLapSearch, kLapReject, kLapWrite,
-       kLaps };
+enum { kLapInit, kLapSearch, kLapReject, kLapWrite, kLaps };
 #ifdef PG_PROFILE
 // the laps' cycles, then rounds, sets, pruned sets
 __device__ unsigned long long g_prune_prof[kLaps + 3];
@@ -124,13 +114,9 @@ __device__ __forceinline__ int next_alive(const unsigned* alive, int W,
   return -1;
 }
 
-// Shared memory a warp: its alive and kept words; staged, its pair block.
+// Shared memory a warp: its alive and kept words.
 __host__ __device__ size_t words_bytes(int C) {
   return 8 * (size_t)((C + 31) / 32);
-}
-
-__host__ __device__ size_t stage_bytes(int C) {
-  return 4 * (size_t)C * (C | 1);
 }
 
 // The lowest r set bits of m.
@@ -140,34 +126,11 @@ __device__ __forceinline__ unsigned first_bits(unsigned m, int r) {
   return m ^ rest;
 }
 
-// The set's [C, C] pair block into shared memory with rows of an odd
-// stride (C | 1), 16 loads a lane in flight.
-__device__ __forceinline__ void stage_block(const float* __restrict__ pb,
-                                            float* pair_s, int C, int lane) {
-  constexpr int kInFlight = 16;
-  const int n = C * C;
-  for (int i0 = 0; i0 < n; i0 += 32 * kInFlight) {
-    float v[kInFlight];
-#pragma unroll
-    for (int u = 0; u < kInFlight; ++u) {
-      const int i = i0 + u * 32 + lane;
-      v[u] = i < n ? __ldg(pb + i) : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < kInFlight; ++u) {
-      const int i = i0 + u * 32 + lane;
-      if (i < n) pair_s[(C & 1) ? i : i + i / C] = v[u];
-    }
-  }
-  __syncwarp();
-}
-
 // Sets of up to 32 kWords candidates (C <= 256): every lane holds the
 // set's alive and kept words (warp-uniform) and, for its own candidates j
 // = 32 u + lane, order[j] and d_s[j], all in registers, so a round is a
-// shuffle (the keeper's original position) and the keeper's column loads;
-// staged, a bit test of masks made once from the staged block.
-template <int kWords, bool kStaged>
+// shuffle (the keeper's original position) and the keeper's column loads.
+template <int kWords>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 prune_scan_regs(const float* __restrict__ d_s,
                 const unsigned char* __restrict__ valid_s,
@@ -176,14 +139,11 @@ prune_scan_regs(const float* __restrict__ d_s,
                 const unsigned char* __restrict__ do_prune, int B, int C,
                 int nn, unsigned char* __restrict__ kept_mask,
                 int* __restrict__ kept_count) {
-  extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int b = blockIdx.x * kWarpsPerBlock + warp;
   if (b >= B) return;                    // a whole warp; no block barrier
   Laps laps;
   laps.start();
-  const int Cp = C | 1;
-  float* pair_s = reinterpret_cast<float*>(smem) + (size_t)warp * C * Cp;
   const bool prune = do_prune[b] != 0;
   const size_t row0 = (size_t)b * C;
   const float* pb = pair + row0 * C;
@@ -211,86 +171,44 @@ prune_scan_regs(const float* __restrict__ d_s,
       k += min(c, nn - k);
     }
   } else {
-    if (kStaged) {
-      // closer[u][w] bit l: pair[order[i], order[r]] < d_s[i] for this
-      // lane's candidate i = 32 u + lane and r = 32 w + l
-      stage_block(pb, pair_s, C, lane);
-      laps.lap(kLapStage);
-      unsigned closer[kWords][kWords];
+    int pos = -1;
+    while (k < nn) {
+      // the next keeper: the lowest alive bit after pos
+      int j = -1;
 #pragma unroll
-      for (int w = 0; w < kWords; ++w) {
-#pragma unroll
-        for (int u = 0; u < kWords; ++u) closer[u][w] = 0u;
-        const int n_r = min(32, C - 32 * w);        // warp-uniform
-#pragma unroll 8
-        for (int l = 0; l < n_r; ++l) {
-          const int o_r = __shfl_sync(kFull, o[w], l);
-#pragma unroll
-          for (int u = 0; u < kWords; ++u)
-            closer[u][w] |= (unsigned)(pair_s[o[u] * Cp + o_r] < d[u]) << l;
-        }
+      for (int u = kWords - 1; u >= 0; --u) {
+        const int sh = pos - 32 * u;   // bits of word u at or below pos
+        const unsigned after =
+            sh < 0 ? ~0u : (sh >= 31 ? 0u : ~0u << (sh + 1));
+        const unsigned m = alive[u] & after;
+        if (m) j = 32 * u + __ffs(m) - 1;
       }
-      laps.lap(kLapMasks);
-      // the scan itself, one candidate a step in registers: j is kept iff
-      // valid, no kept r has its bit in j's row, and fewer than nn are kept
-      // (the twin's loop; the rows' shuffles do not wait on it)
+      laps.lap(kLapSearch);
+      if (j < 0) break;
+      int oj = 0;
 #pragma unroll
       for (int u = 0; u < kWords; ++u) {
-#pragma unroll 8
-        for (int l = 0; l < 32; ++l) {
-          bool conflict = false;
-#pragma unroll
-          for (int w = 0; w < kWords; ++w)
-            conflict |= (__shfl_sync(kFull, closer[u][w], l) & kept[w]) != 0u;
-          if (32 * u + l < C && ((alive[u] >> l) & 1u) && !conflict &&
-              k < nn) {
-            kept[u] |= 1u << l;
-            ++k;
-          }
+        if (u == (j >> 5)) {
+          kept[u] |= 1u << (j & 31);
+          oj = o[u];
         }
       }
-      rounds = k;
+      pos = j;
+      ++rounds;
+      if (++k == nn) break;
+      // reject every alive candidate after j that keeper j is closer to
+      const int ok = __shfl_sync(kFull, oj, j & 31);
+      float pv[kWords];
+#pragma unroll
+      for (int u = 0; u < kWords; ++u) {
+        pv[u] = kInf;
+        if (((alive[u] >> lane) & 1u) && 32 * u + lane > j)
+          pv[u] = __ldg(pb + (size_t)o[u] * C + ok);
+      }
+#pragma unroll
+      for (int u = 0; u < kWords; ++u)
+        alive[u] &= ~__ballot_sync(kFull, pv[u] < d[u]);
       laps.lap(kLapReject);
-    } else {
-      int pos = -1;
-      while (k < nn) {
-        // the next keeper: the lowest alive bit after pos
-        int j = -1;
-#pragma unroll
-        for (int u = kWords - 1; u >= 0; --u) {
-          const int sh = pos - 32 * u;   // bits of word u at or below pos
-          const unsigned after =
-              sh < 0 ? ~0u : (sh >= 31 ? 0u : ~0u << (sh + 1));
-          const unsigned m = alive[u] & after;
-          if (m) j = 32 * u + __ffs(m) - 1;
-        }
-        laps.lap(kLapSearch);
-        if (j < 0) break;
-        int oj = 0;
-#pragma unroll
-        for (int u = 0; u < kWords; ++u) {
-          if (u == (j >> 5)) {
-            kept[u] |= 1u << (j & 31);
-            oj = o[u];
-          }
-        }
-        pos = j;
-        ++rounds;
-        if (++k == nn) break;
-        // reject every alive candidate after j that keeper j is closer to
-        const int ok = __shfl_sync(kFull, oj, j & 31);
-        float pv[kWords];
-#pragma unroll
-        for (int u = 0; u < kWords; ++u) {
-          pv[u] = kInf;
-          if (((alive[u] >> lane) & 1u) && 32 * u + lane > j)
-            pv[u] = __ldg(pb + (size_t)o[u] * C + ok);
-        }
-#pragma unroll
-        for (int u = 0; u < kWords; ++u)
-          alive[u] &= ~__ballot_sync(kFull, pv[u] < d[u]);
-        laps.lap(kLapReject);
-      }
     }
   }
 #pragma unroll
@@ -304,7 +222,7 @@ prune_scan_regs(const float* __restrict__ d_s,
 }
 
 // Sets of more than 256 candidates: the alive and kept words in shared
-// memory, order and d_s read through L1 (a staged block would not fit).
+// memory, order and d_s read through L1.
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 prune_scan_kernel(const float* __restrict__ d_s,
                   const unsigned char* __restrict__ valid_s,
@@ -399,22 +317,14 @@ prune_scan_kernel(const float* __restrict__ d_s,
 }
 
 // The kernel for sets of W words: in registers up to kMaxRegWords words
-// (rounded up to a power of two), else in shared memory, never staged.
+// (rounded up to a power of two), else in shared memory.
 constexpr int kMaxRegWords = 8;
 
-// A staged instance exists only for the widths kStageMaxC reaches.
-template <int kWords>
-const void* regs_kernel(bool staged) {
-  if constexpr (32 * (kWords / 2) < kStageMaxC)
-    if (staged) return (const void*)prune_scan_regs<kWords, true>;
-  return (const void*)prune_scan_regs<kWords, false>;
-}
-
-const void* pick_kernel(int W, bool staged) {
-  if (W <= 1) return regs_kernel<1>(staged);
-  if (W <= 2) return regs_kernel<2>(staged);
-  if (W <= 4) return regs_kernel<4>(staged);
-  if (W <= kMaxRegWords) return regs_kernel<8>(staged);
+const void* pick_kernel(int W) {
+  if (W <= 1) return (const void*)prune_scan_regs<1>;
+  if (W <= 2) return (const void*)prune_scan_regs<2>;
+  if (W <= 4) return (const void*)prune_scan_regs<4>;
+  if (W <= kMaxRegWords) return (const void*)prune_scan_regs<8>;
   return (const void*)prune_scan_kernel;
 }
 
@@ -431,13 +341,10 @@ int prune_scan(const float* d_s, const unsigned char* valid_s,
                unsigned char* kept_mask, int* kept_count, void* stream_ptr) {
   if (B <= 0 || C <= 0 || nn <= 0) return (int)cudaErrorInvalidValue;
   const int W = (C + 31) / 32;
-  const bool regs = W <= kMaxRegWords;
-  const size_t staged = kWarpsPerBlock * stage_bytes(C);
-  const bool use_stage = regs && C <= kStageMaxC && staged <= kSmemLimit;
   const size_t smem =
-      use_stage ? staged : regs ? 0 : kWarpsPerBlock * words_bytes(C);
+      W <= kMaxRegWords ? 0 : kWarpsPerBlock * words_bytes(C);
   if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
-  const void* fn = pick_kernel(W, use_stage);
+  const void* fn = pick_kernel(W);
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

@@ -24,20 +24,16 @@ its own library under .kernel_build/graph_probe/, all side by side:
   widen-at-load each neighbour row widened to float32 right behind its
                 load (int8 x its scale, bf16, PQ), not after all of a
                 warp's rows are loaded
-  stage-never / stage-always   the scan's pair blocks read from L2 at every
-                width, or staged in shared memory wherever two sets' blocks
-                fit (up to 169 candidates), instead of up to 64; each also
-                with clock stamps (profile-stage-never, profile-stage-always)
 
 The probe builds an index of ``--n`` rows x 128-d on the card
 (utils/io.synthetic_clustered, chip_smoke.py's recipe and seed), walks its
 1,024 queries at ef = 64, T = 4 and 8 (float32 rows; and int8 rows, the
-quantized traversal, for the kernel and widen-at-load), and captures the candidate sets of
-one 256-row add(): its insert prune (B = 256, C = 128, nn = 16) and its
-first back-link re-prune (C = maxM + 1 = 33, nn = 32; that add() wires
-through the plain twin, whose re-prunes run the scan kernel).  Every variant's
-answers are checked against the kernel's (walk: ids, hops and evals; scan:
-the kept masks).  Times are the card's (device_ms: ``--reps`` calls in a
+quantized traversal, for the kernel and widen-at-load), and captures the
+candidate sets of one 256-row add()'s insert prune (B = 256, C = 128, nn =
+16; its back-link re-prunes run inside csrc/connect_batch.cu, not the
+scan).  Every walk variant's answers are checked against the kernel's
+(ids, hops and evals); the scan is timed and its profile build's phases
+printed.  Times are the card's (device_ms: ``--reps`` calls in a
 CUDA graph, replayed between CUDA events), so a small kernel is not timed
 by the host's launch overhead; variants are timed in turns, then in
 reverse order, and the card's name and power limit are printed first.
@@ -65,12 +61,10 @@ WALK, SCAN = "beam_walk.cu", "prune_scan.cu"
 SOURCES = (WALK, SCAN)
 WALK_PHASES = ("setup + output", "links + inserts", "dedupe", "rows",
                "rank", "merge")
-PRUNE_PHASES = ("init", "stage", "masks", "search", "reject", "write")
+PRUNE_PHASES = ("init", "search", "reject", "write")
 PROFILE = ("-DPG_PROFILE",)
 _RANK = ("      int g = 1;\n"
          "      while (g < 32 && 2 * g * n_new <= kThreads) g *= 2;\n")
-_NEVER = ((SCAN, "kStageMaxC = 64;", "kStageMaxC = 0;"),)
-_ALWAYS = ((SCAN, "kStageMaxC = 64;", "kStageMaxC = 256;"),)
 _WIDEN_AT_LOAD = (
     "#pragma unroll\n"
     "        for (int u = 0; u < R; ++u) {\n"
@@ -117,25 +111,19 @@ VARIANTS = {
                            " : vis_set;\n",
                            "  const int vis_mode = vis_set;\n"),)),
     "widen-at-load": ((), ((WALK, *_WIDEN_AT_LOAD),)),
-    "stage-never": ((), _NEVER),
-    "stage-always": ((), _ALWAYS),
-    "profile-stage-never": (PROFILE, _NEVER),
-    "profile-stage-always": (PROFILE, _ALWAYS),
 }
 WALK_RUNS = ("kernel", "dense", "rank1", "rank32", "rows4", "rows16",
              "threads128", "threads256", "blocks8", "blocks3",
              "sets-runtime", "widen-at-load")
 # the variants timed on the int8 rows (quantized traversal) too
 INT8_RUNS = ("kernel", "widen-at-load")
-SCAN_RUNS = ("kernel", "stage-never", "stage-always")
 
 
 def prune_smem_bytes(c: int) -> int:
     """Shared memory of a scan block of two sets of ``c`` candidates, as
-    csrc/prune_scan.cu's launch sizes it: the pair blocks staged up to 64
-    candidates, the alive and kept words past 256."""
-    words = 0 if c <= 256 else 2 * 8 * -(-c // 32)
-    return words + (2 * 4 * c * (c | 1) if c <= 64 else 0)
+    csrc/prune_scan.cu's launch sizes it: the alive and kept words past
+    256 candidates, none below."""
+    return 0 if c <= 256 else 2 * 8 * -(-c // 32)
 
 
 def variant_sources(name: str) -> dict:
@@ -248,8 +236,6 @@ def prune_phases(lib, args, nn) -> dict:
     phases = {p: c[i] / max(sets, 1) for i, p in enumerate(PRUNE_PHASES)}
     for p in ("search", "reject"):
         phases[p] = c[PRUNE_PHASES.index(p)] / max(rounds, 1)
-    for p in ("stage", "masks"):
-        phases[p] = c[PRUNE_PHASES.index(p)] / max(pruned, 1)
     return {"cycles": phases, "rounds": rounds / max(pruned, 1),
             "pruned": pruned, "sets": sets, "out": got}
 
@@ -286,25 +272,19 @@ def device_ms(fn, reps: int = 20) -> float:
 
 def capture_prunes(idx, rows) -> dict:
     """The inputs of the first prune_scan of each candidate width during
-    ``idx.add(rows)``: {C: (d_s, valid_s, order, pair_d, do_prune, nn)}.
-    The add() wires through the plain twin (core/build's
-    _connect_batch_plain), whose re-prunes run prune_scan; the index's own
-    wiring re-prunes inside connect_batch."""
+    ``idx.add(rows)``: {C: (d_s, valid_s, order, pair_d, do_prune, nn)}."""
     from .core import build as core_build
     real, seen = core_build.prune_scan, {}
-    wiring = core_build._connect_batch
 
     def spy(*args):
         seen.setdefault(args[0].shape[1], tuple(
             a.clone() if hasattr(a, "clone") else a for a in args))
         return real(*args)
     core_build.prune_scan = spy
-    core_build._connect_batch = core_build._connect_batch_plain
     try:
         idx.add(rows)
     finally:
         core_build.prune_scan = real
-        core_build._connect_batch = wiring
     return seen
 
 
@@ -373,25 +353,14 @@ def main() -> int:
               f"{format_cycles(r['cycles'])}", flush=True)
     for c, sargs in sorted(sets.items()):
         *tensors, nn = sargs
-        want = prune(libs["kernel"], tensors, nn)
-        for n in SCAN_RUNS:
-            got = prune(libs[n], tensors, nn)
-            assert all(torch.equal(a, b) for a, b in zip(got, want)), (n, c)
-        ms = {n: [] for n in SCAN_RUNS}
-        for n in SCAN_RUNS + SCAN_RUNS[::-1]:
-            ms[n].append(device_ms(lambda: prune(libs[n], tensors, nn),
-                                   args.reps))
-        b = tensors[0].shape[0]
-        for n in SCAN_RUNS:
-            print(f"prune B={b} C={c} nn={nn} {n}: "
-                  + " / ".join(f"{x:.4f}" for x in ms[n]) + " ms", flush=True)
-        for n in ("profile-stage-never", "profile-stage-always"):
-            r = prune_phases(libs[n], tensors, nn)
-            print(f"prune C={c} {n} cycles ({r['pruned']} of "
-                  f"{r['sets']} sets pruned, {r['rounds']:.2f} rounds a "
-                  f"pruned set; init, write a set; stage, masks a pruned set; "
-                  f"search, reject a round): {format_cycles(r['cycles'])}",
-                  flush=True)
+        ms = device_ms(lambda: prune(libs["kernel"], tensors, nn), args.reps)
+        print(f"prune B={tensors[0].shape[0]} C={c} nn={nn}: {ms:.4f} ms",
+              flush=True)
+        r = prune_phases(libs["profile"], tensors, nn)
+        print(f"prune C={c} profile cycles ({r['pruned']} of {r['sets']} "
+              f"sets pruned, {r['rounds']:.2f} rounds a pruned set; init, "
+              f"write a set; search, reject a round): "
+              f"{format_cycles(r['cycles'])}", flush=True)
     return 0
 
 

@@ -78,3 +78,18 @@ def kernel_and_twin(arrays, meta, metric, device, dtype=torch.float32):
                     cuda_graph.LAUNCHES["connect_batch"] - before))
     (kl, kc, launches), (pl, pc, _) = out
     return (kl, kc), (pl, pc), launches
+
+
+def chain_targets(keys, counts, max_m):
+    """The targets of a wiring's sorted back-link ops (core/build's
+    _chain_order keys, invalid ops at NO_TARGET) and which of them
+    re-prune at least once, read before the replay from ``counts`` (the
+    counts after the forward rows): appends alone raise a count by one an
+    op until it reaches maxM, so a chain re-prunes iff its target's count
+    plus its length passes maxM.  Returns (targets i64[T] ascending,
+    repruned bool[T])."""
+    from pg_embedding_tpu_torch.core.build import NO_TARGET
+    targets, length = torch.unique(keys[keys != NO_TARGET],
+                                   return_counts=True)
+    targets = targets.long()
+    return targets, counts[targets].long() + length > max_m

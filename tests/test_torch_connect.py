@@ -20,7 +20,7 @@ from pg_embedding_tpu_torch.core import build as tb
 from pg_embedding_tpu_torch.ops import cuda_graph as cg
 from pg_embedding_tpu_torch.ops.distance import (dist_one_to_many,
                                                  pairwise_dist)
-from connect_operands import wiring_case, wiring_tensors
+from connect_operands import chain_targets, wiring_case, wiring_tensors
 
 METRICS = {"l2": 0, "cosine": 1, "manhattan": 2}
 ROWS_PER_TASK = 4                     # csrc/connect_batch.cu kRowsPerTask
@@ -267,3 +267,26 @@ def test_connect_batch_edges_on_cpu(case):
     tgt = tb._forward_links(links, counts, base, kept, cnt, n_insert, m=m,
                             max_m=8)
     assert bool((tb._chain_order(tgt)[0] == tb.NO_TARGET).all())
+
+
+@pytest.mark.parametrize("seed,max_m", [(0, 8), (1, 8), (2, 32), (3, 200)])
+def test_chain_targets_name_the_repruned(monkeypatch, seed, max_m):
+    """chain_targets (chip_smoke.py's split of a wiring's targets into
+    those that only append and those that re-prune) names exactly the
+    targets the plain twin re-prunes, from the counts before the replay."""
+    arrays, (base, n_insert, m) = wiring_case(seed, max_m)
+    vectors, links, counts, kept, cnt = wiring_tensors(arrays, "cpu")
+    tgt = tb._forward_links(links, counts, base, kept, cnt, n_insert, m=m,
+                            max_m=max_m)
+    keys, perm = tb._chain_order(tgt)
+    targets, repruned = chain_targets(keys, counts, max_m)
+    seen, real = set(), tb._reprune
+
+    def spy(vectors, rows, t, cur, **kw):
+        seen.update(t.tolist())
+        return real(vectors, rows, t, cur, **kw)
+    monkeypatch.setattr(tb, "_reprune", spy)
+    tb._replay_chains(vectors, links, counts, keys, perm, base=base, m=m,
+                      max_m=max_m, metric_value=0)
+    assert seen == set(targets[repruned].tolist())
+    assert seen and not bool(repruned.all())

@@ -10,8 +10,8 @@ on the CPU to what the kernels replace.
     repeated ids, invalid entries, sets too small to prune (do_prune
     false), nn = 1, C not a multiple of 32 (1, 31, 33, 129), the re-prune
     shape (C = 33, nn = 32), and a pair matrix that is not symmetric.
-  * The kernel's word arithmetic: the first-r-bits trick of unpruned sets
-    and the staged block's odd row stride.
+  * The kernels' word arithmetic: the first-r-bits trick of prune_scan's
+    unpruned sets and the odd row stride of connect_batch's staged rows.
   * The hash-plus-minimum-slot dedupe: the held ids (both queues, the
     popped ones included) and each expansion id's smallest slot in
     open-addressed tables with the kernel's hash, sizes and linear probing
@@ -142,12 +142,18 @@ def test_first_bits_and_the_staged_stride():
         bits = [i for i in range(32) if m >> i & 1]
         for r in range(0, 33):
             assert _first_bits(m, r) == sum(1 << i for i in bits[:r])
-    # the staged block: flat index i = r * C + c goes to r * (C | 1) + c
-    for c in (1, 2, 32, 33, 64, 65):
-        cp = c | 1
-        for i in range(c * c):
-            at = i if c & 1 else i + i // c
-            assert at == (i // c) * cp + i % c
+    # connect_batch.cu's staged rows [C, D | 1]: 32 lanes reading one
+    # column of 32 rows (a warp task's keepers) whose indices differ mod 32
+    # hit 32 banks, at every D
+    for d in (1, 2, 8, 32, 33, 128, 400):
+        for rows in ([*range(32)], [*range(40, 72)],
+                     [int(r + 32 * rng.integers(0, 32))
+                      for r in rng.permutation(32)]):
+            for k in (0, d - 1):
+                assert len({(r * (d | 1) + k) % 32 for r in rows}) == 32
+        # where D is even, a stride of D itself would not
+        if d % 2 == 0:
+            assert len({r * d % 32 for r in range(32)}) < 32
 
 
 # --- the walk's dedupe ------------------------------------------------------
