@@ -99,13 +99,17 @@ exits non-zero):
      over float32 rows and bruteforce_topk_bf16_wide over their bf16
      values, pool cand_cap + 2, beside addmm + topk); the wiring of that
      add()'s batch (captured by wrapping core/build._connect_batch):
-     connect_batch against its plain twin (core/build._replay_chains) on
-     copies of the links (every target that only appends equal, >= 99%
-     of the re-pruned ones; the share that differs is its max_abs_err),
-     its counters (chains, re-prunes), its time a call and on the card beside
-     its bound (connect_bound_ms) and the twin's, and bit-equal to the
-     twin on integer rows for every metric, float32 / bf16 rows and each
-     shared-memory tier (connect_integer_cases); eight more add()s, each
+     connect_batch against its plain twin (core/build._connect_sorted_plain:
+     the forward rows, then _replay_chains) on copies of the links (every
+     member's row and every target that only appends equal, >= 99% of the
+     re-pruned ones; the share that differs is its max_abs_err), its
+     launch shape, its counters (chains, re-prunes), its time a call and on
+     the card beside its bound (connect_bound_ms) and the twin's, and
+     bit-equal to the twin on integer rows for every metric, float32 /
+     bf16 rows and each tier (the warp tier to its widest set, C = 64, and
+     at rows of no whole 16-byte chunks; the block tier from C = 65; masks
+     only; masks in device memory: connect_integer_cases); eight more
+     add()s, each
      broken down on the host clock (staging, the sweep's launch, the
      prune, the wiring, the closing wait: median / min / max), the host
      syncs inside them counted (none allowed), re-prunes a batch from the
@@ -596,6 +600,10 @@ def compiler_report(_kernels):
         m = re.search(r"prune_scan_regsILi(\d+)EE", mangled)
         if m:
             return f"prune_scan_regs<{m[1]} words>"
+        m = re.search(r"connect_warp_kernelINS_\d+(F32|BF16)E", mangled)
+        if m:
+            return (f"connect_warp_kernel<"
+                    f"{'float32' if m[1] == 'F32' else 'bf16'} rows>")
         m = re.search(r"connect_kernelINS_\d+(F32|BF16)ELb([01])E", mangled)
         if m:
             return (f"connect_kernel<{'float32' if m[1] == 'F32' else 'bf16'}"
@@ -1289,18 +1297,21 @@ def sweep_phase(torch, idx, args):
     return out
 
 
-def connect_bound_ms(stats, bm, max_m, dims, itemsize):
+def connect_bound_ms(stats, bm, b, n_insert, max_m, dims, itemsize):
     """The least time of one wiring on the card, from the kernel's counters
     for these inputs (stats: chains, ops, re-prunes, pruned re-prunes,
     pairs turned into masks, valid candidates): the bytes it must move (the
-    sorted ops' keys and indices; each chain's row and count read and
-    written once; each re-prune's target row and valid candidates' rows
-    read once) over the memory rate, or its float32 operations (a D-wide
-    dot product or difference sum, 2 D, per pair and per candidate) over
-    the float32 rate, whichever is larger.  Returns (ms, "bytes" or
+    sorted ops' keys and indices; the members' kept lists and counts read
+    and the n_insert forward rows and counts written; each chain's row and
+    count read and written once; each re-prune's target row and valid
+    candidates' rows read once) over the memory rate, or its float32
+    operations (a D-wide dot product or difference sum, 2 D, per pair and
+    per candidate) over the float32 rate, whichever is larger.  ``b``
+    members of m = bm / b slots.  Returns (ms, "bytes" or
     "operations")."""
     chains, _, reprunes, _, pairs, valid = (int(x) for x in stats[:6])
-    nbytes = (bm * 12 + chains * (8 * max_m + 8)
+    nbytes = (bm * 12 + (bm + b) * 4 + n_insert * (4 * max_m + 4)
+              + chains * (8 * max_m + 8)
               + (valid + reprunes) * dims * itemsize)
     ops = 2 * dims * (pairs + valid)
     by_bytes, by_ops = nbytes / PEAK_BYTES, ops / PEAK_F32
@@ -1308,14 +1319,25 @@ def connect_bound_ms(stats, bm, max_m, dims, itemsize):
             "bytes" if by_bytes >= by_ops else "operations")
 
 
+# (maxM, D, b, base) of the integer-row cases: the warp tier at the main
+# path's maxM 32 and D = 128, at its widest set (C = 64) and at rows of 7
+# elements (no whole 16-byte chunks); the block tier one past it (C = 65)
+# and at the default m = 100, staged (D = 8) and masks only (D = 400);
+# masks in device memory (maxM 1400)
+CONNECT_INTEGER_SHAPES = ((32, 128, 32, 300), (63, 8, 16, 300),
+                          (32, 7, 32, 300), (64, 8, 16, 300),
+                          (200, 8, 16, 300), (200, 400, 16, 300),
+                          (1400, 8, 4, 1500))
+
+
 def connect_integer_cases(torch, dev):
     """connect_batch bit-equal to its plain twin on the card on integer
     rows (tests/connect_operands.py: every sum exact), every metric,
-    float32 and bf16 rows, each shared-memory tier: the main path's maxM
-    32 at D = 128 (rows and masks staged), maxM 200 (the default m = 100)
-    at D = 8 (staged) and D = 400 (masks only), maxM 1400 (masks in device
-    memory).  Returns the number of cases."""
-    from connect_operands import kernel_and_twin, wiring_case
+    float32 and bf16 rows, each tier (CONNECT_INTEGER_SHAPES), and chains
+    of more than 32 ops that re-prune again and again (long_chain_case).
+    Returns the number of cases."""
+    from connect_operands import (kernel_and_twin, long_chain_case,
+                                  wiring_case)
     from pg_embedding_tpu_torch.ops import cuda_graph as cg
     matmul = torch.backends.cuda.matmul
     saved = matmul.allow_bf16_reduced_precision_reduction
@@ -1323,23 +1345,26 @@ def connect_integer_cases(torch, dev):
     matmul.allow_bf16_reduced_precision_reduction = False
     cases = 0
     try:
-        for max_m, dims, b, base in ((32, 128, 32, 300), (200, 8, 16, 300),
-                                     (200, 400, 16, 300),
-                                     (1400, 8, 4, 1500)):
-            tier = cg._connect_layout(max_m + 1, dims)[1:]
+        for shape in (*CONNECT_INTEGER_SHAPES, "long chains"):
             for metric in (0, 1, 2):
                 for dtype in (torch.float32, torch.bfloat16):
-                    arrays, meta = wiring_case(max_m + dims + metric, max_m,
-                                               b=b, n_insert=b - 3,
-                                               base=base, dims=dims)
+                    if shape == "long chains":
+                        arrays, meta = long_chain_case(metric)
+                        what = "chains past 32 ops (maxM 32, D 8)"
+                    else:
+                        max_m, dims, b, base = shape
+                        arrays, meta = wiring_case(
+                            max_m + dims + metric, max_m, b=b,
+                            n_insert=b - 3, base=base, dims=dims)
+                        what = f"maxM {max_m}, D {dims}"
                     with own_twin_calls():
                         (kl, kc), (pl, pc), launches = kernel_and_twin(
                             arrays, meta, metric, dev, dtype)
+                    what += f" ({cg.LAST_CONNECT_LAUNCH.tier} tier)"
                     check(launches == 1 and torch.equal(kl, pl)
                           and torch.equal(kc, pc),
                           f"connect_batch differs from its twin on integer "
-                          f"rows: maxM {max_m}, D {dims}, metric {metric}, "
-                          f"{dtype} (tier {tier})")
+                          f"rows: {what}, metric {metric}, {dtype}")
                     cases += 1
     finally:
         matmul.allow_bf16_reduced_precision_reduction = saved
@@ -1350,43 +1375,60 @@ def connect_phase(torch, wiring):
     """The wiring of the add()'s own batch (``wiring``: _connect_batch's
     inputs as the add() passed them, links and counts as they were before
     it) on copies of the graph's links: one connect_batch launch against
-    its plain twin (core/build._replay_chains, the rounds of
-    _connect_batch_plain) on the card.  A target whose chain only appends
-    (its count plus its chain's length at most maxM) must get the twin's
-    row and count exactly; of the targets re-pruned at least once, >= 99%
-    must (the kernel sums in another order than torch's reductions and
-    cuBLAS, so float32 near-ties may break otherwise; every reading so far
-    was 1), and the share that differs is the kernels line's
-    "max_abs_err"; the kernel's counters (chains,
-    ops, re-prunes); its time a call (CUDA events, median of 5, the touched
-    rows restored before each call outside the timing) and on the card (a
-    CUDA graph of 20 restores and launches, less one of the 20 restores
-    alone) beside its bound (connect_bound_ms) and the twin's time a call;
-    then connect_integer_cases.  Returns the kernels line's numbers."""
-    from connect_operands import chain_targets
+    its plain twin (core/build._connect_sorted_plain: _forward_links, then
+    the rounds of _replay_chains) on the card, both from the card route's
+    operands (_back_link_targets, _chain_order).  Every member's row and
+    every target whose chain only appends (its count after the forward
+    rows plus its chain's length at most maxM) must get the twin's row and
+    count exactly; of the targets re-pruned at least once, >= 99% must
+    (the kernel sums in another order than torch's reductions and cuBLAS,
+    so float32 near-ties may break otherwise; every reading so far was 1),
+    and the share that differs is the kernels line's "max_abs_err"; the
+    kernel's launch shape and counters (chains, ops, re-prunes); its time
+    a call (CUDA events, median of 5, the touched rows restored before
+    each call outside the timing) and on the card (a CUDA graph of 20
+    restores and launches, less one of the 20 restores alone) beside its
+    bound (connect_bound_ms) and the twin's time a call; for each re-pruned
+    row that differs, tests/connect_operands.reprune_witness's margin at
+    its first diverging keep/reject (pair - d in float32 ulps of d, in the
+    twin's float32 and in float64) and whether the float64 replay sides
+    with the kernel or the twin, and over every re-pruned row how often
+    each equals the float64 replay; then connect_integer_cases.  Returns
+    the kernels line's numbers."""
+    from connect_operands import chain_targets, reprune_witness
     from pg_embedding_tpu_torch.core import build as core_build
     from pg_embedding_tpu_torch.graph_probe import device_ms
     from pg_embedding_tpu_torch.ops import cuda_graph as cg
     vectors, links0, counts0, base, kept_i, kept_cnt, n_insert, kw = wiring
-    max_m, dims, dev = kw["max_m"], vectors.shape[1], vectors.device
+    max_m, m, dims, dev = kw["max_m"], kw["m"], vectors.shape[1], \
+        vectors.device
     links, counts = links0.clone(), counts0.clone()
-    tgt = core_build._forward_links(links, counts, base, kept_i, kept_cnt,
-                                    n_insert, m=kw["m"], max_m=max_m)
-    keys, perm = core_build._chain_order(tgt)
-    touched, repruned = chain_targets(keys, counts, max_m)
+    keys, perm = core_build._chain_order(core_build._back_link_targets(
+        kept_i, kept_cnt, n_insert, m=m))
+    # the counts each chain starts from (a member's: its forward row's)
+    fwd_links, fwd_counts = links0.clone(), counts0.clone()
+    core_build._forward_links(fwd_links, fwd_counts, base, kept_i, kept_cnt,
+                              n_insert, m=m, max_m=max_m)
+    targets, repruned = chain_targets(keys, fwd_counts, max_m)
+    members = torch.arange(base, base + n_insert, device=dev)
+    touched = torch.unique(torch.cat([targets, members]))
+    repruned_t = torch.zeros(len(touched), dtype=torch.bool, device=dev)
+    repruned_t[torch.searchsorted(touched, targets[repruned])] = True
     start_rows, start_counts = links[touched].clone(), counts[touched].clone()
-    bm = keys.numel()
+    bm, b = keys.numel(), kept_i.shape[0]
+    args = (keys, perm, kept_i, kept_cnt)
+    kwargs = dict(kw, base=base, n_insert=n_insert)
 
     def restore():
         links[touched] = start_rows
         counts[touched] = start_counts
 
     def kernel():
-        cg.connect_batch(vectors, links, counts, keys, perm, base=base, **kw)
+        cg.connect_batch(vectors, links, counts, *args, **kwargs)
 
     def twin():
-        core_build._replay_chains(vectors, links, counts, keys, perm,
-                                  base=base, **kw)
+        core_build._connect_sorted_plain(vectors, links, counts, *args,
+                                         **kwargs)
 
     def timed(fn):
         times = []
@@ -1409,6 +1451,7 @@ def connect_phase(torch, wiring):
             kernel()
         finally:
             cg.CONNECT_STATS = None
+        shape = cg.LAST_CONNECT_LAUNCH
         got = links[touched].clone(), counts[touched].clone()
         restore()
         twin()
@@ -1417,32 +1460,75 @@ def connect_phase(torch, wiring):
         dev_ms = (device_ms(lambda: (restore(), kernel()))
                   - device_ms(restore))
     same = (got[0] == want[0]).all(dim=1) & (got[1] == want[1])
-    n_re = int(repruned.sum())
+    n_re = int(repruned_t.sum())
     rows_equal = int(same.sum()) / len(touched)
-    appends_equal = bool(same[~repruned].all())
-    reprune_rows_equal = int(same[repruned].sum()) / max(n_re, 1)
+    others_equal = bool(same[~repruned_t].all())
+    reprune_rows_equal = int(same[repruned_t].sum()) / max(n_re, 1)
     st = stats.tolist()
-    bound, bound_by = connect_bound_ms(st, bm, max_m, dims,
+    bound, bound_by = connect_bound_ms(st, bm, b, n_insert, max_m, dims,
                                        vectors.element_size())
+    # the re-pruned rows against a float64 replay, and the margin where a
+    # row differs from the twin's
+    rep = repruned_t.nonzero().squeeze(1)
+    with own_twin_calls():
+        witness = reprune_witness(
+            vectors, fwd_links, fwd_counts, keys, perm, touched[rep],
+            got[0][rep], got[1][rep], base=base, m=m, max_m=max_m,
+            metric=kw["metric_value"])
+    kernel_f64 = sum(w["kernel_row"] == w["f64_row"] for w in witness)
+    twin_f64 = sum(w["twin_row"] == w["f64_row"] for w in witness)
+    # the witness's own float32 replay, a chain at a time, against the
+    # twin's rows (its rounds batch the re-prunes)
+    replayed = sum(w["twin_row"] == want[0][i, :int(want[1][i])].tolist()
+                   for w, i in zip(witness, rep.tolist()))
+    log(f"connect_batch's re-pruned rows against a float64 replay "
+        f"(difference forms, float64 sums): the kernel's equal it on "
+        f"{kernel_f64} of {len(witness)}, the twin's on {twin_f64}; the "
+        f"witness's float32 replay a chain at a time gives the twin's row "
+        f"on {replayed}")
+    for w in witness:
+        if w["kernel_row"] == w["twin_row"]:
+            continue
+        if w["kind"] == "tie":
+            at = (f"the same candidates in another order from slot "
+                  f"{w['position']}: d of the kernel's candidate there less "
+                  f"the twin's {w['margin_ulps']} ulps in the twin's float32"
+                  f", {w['f64_margin_ulps']} in float64")
+        else:
+            at = (f"first diverging keep/reject at scan position "
+                  f"{w['position']}, decided by {w['kind']}; pair - d "
+                  f"{w['margin_ulps']} ulps of d in the twin's float32, "
+                  f"{w['f64_margin_ulps']} in float64; d's nearest "
+                  f"neighbour in the scan {w['gap_ulps']} ulps away")
+        log(f"  re-pruned row {w['target']} differs ({w['reprunes']} "
+            f"re-prunes): {at}; the float64 row equals the kernel's "
+            f"{w['f64_row'] == w['kernel_row']}, the twin's "
+            f"{w['f64_row'] == w['twin_row']}")
     cases = connect_integer_cases(torch, dev)
     log(f"connect_batch vs its plain twin on the add()'s batch ({st[1]} "
-        f"valid ops of bm = {bm}, maxM {max_m}, D {dims}): {st[0]} chains (longest {st[6]}), "
-        f"{st[2]} re-prunes ({st[3]} pruned, {st[4]} pairs into masks); "
-        f"rows and counts of the {len(touched)} targets equal "
-        f"{rows_equal:.5f}: the {len(touched) - n_re} that only append "
-        f"{'all' if appends_equal else 'NOT all'} equal, the {n_re} "
+        f"valid ops of bm = {bm}, {n_insert} members, maxM {max_m}, D "
+        f"{dims}; launched as the {shape.tier} tier, {shape.blocks} blocks "
+        f"of {shape.threads} threads, {shape.smem} bytes of shared memory a "
+        f"block): {st[0]} chains "
+        f"(longest {st[6]}), {st[2]} re-prunes ({st[3]} pruned, {st[4]} "
+        f"pairs into masks); rows and counts of the {len(touched)} touched "
+        f"rows equal {rows_equal:.5f}: the {len(touched) - n_re} members "
+        f"and targets that only append "
+        f"{'all' if others_equal else 'NOT all'} equal, the {n_re} "
         f"re-pruned {reprune_rows_equal:.5f} (limit 0.99); kernel {ms:.4f} "
         f"ms a call (median of 5, CUDA "
         f"events), {dev_ms:.4f} ms on the card (a CUDA graph of 20 restores "
         f"and launches less 20 restores); bound {bound:.5f} ms ({bound_by};"
         f" {bound / dev_ms:.1%} of it reached on the card); plain twin "
         f"{plain_ms:.3f} ms a call; bit-equal to the twin on {cases} "
-        f"integer-row cases (every metric, float32 / bf16, each tier)")
+        f"integer-row cases (every metric, float32 / bf16, each tier, long "
+        f"chains)")
     check(0 < n_re <= st[2],
           f"{n_re} re-pruned targets for the kernel's {st[2]} re-prunes")
-    check(appends_equal and reprune_rows_equal >= 0.99,
-          f"connect_batch and its twin: targets that only append all equal "
-          f"{appends_equal}, re-pruned targets equal {reprune_rows_equal}")
+    check(others_equal and reprune_rows_equal >= 0.99,
+          f"connect_batch and its twin: members and targets that only "
+          f"append all equal {others_equal}, re-pruned targets equal "
+          f"{reprune_rows_equal}")
     return dict(max_abs_err=1.0 - reprune_rows_equal, ms=ms,
                 device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by=bound_by, library_ms=None, rows_equal=rows_equal,

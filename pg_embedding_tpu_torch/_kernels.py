@@ -58,7 +58,7 @@ def declare_graph(lib) -> None:
 def declare_connect(lib) -> None:
     """The argument types of csrc/connect_batch.cu's entry in ``lib``."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.connect_batch.argtypes = [vp, ci, *[vp] * 4, *[ci] * 8, *[vp] * 3]
+    lib.connect_batch.argtypes = [vp, ci, *[vp] * 6, *[ci] * 9, *[vp] * 3]
     lib.connect_batch.restype = ci
 
 

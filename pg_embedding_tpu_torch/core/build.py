@@ -173,23 +173,37 @@ def _reprune(vectors, rows, targets, cur, *, max_m: int, metric_value: int):
     return _prune_heuristic(d, cand_ids, pair, max_m)
 
 
-def _forward_links(links, link_counts, base: int, kept_i, kept_cnt,
-                   n_insert: int, *, m: int, max_m: int) -> torch.Tensor:
-    """Commit every member's forward row (hnswalg.cpp:168-181) in place and
-    return the batch's back-link targets i32[b * m]: op ``member * m +
-    slot`` targets kept_i[member, slot], -1 where the op is invalid (slot
-    past the kept count, no id, or member at or past n_insert)."""
+def _forward_valid(kept_i, kept_cnt, n_insert: int, *, m: int):
+    """(valid_f bool[b, m], kept_cnt i32[b]): which kept slots hold a link
+    (slot below the kept count, an id, member before n_insert) and the kept
+    counts with members at or past n_insert at 0."""
     b = kept_i.shape[0]
     dev = kept_i.device
-    enable = torch.arange(b, device=dev) < n_insert
-    kept_cnt = torch.where(enable, kept_cnt, 0)
+    kept_cnt = torch.where(torch.arange(b, device=dev) < n_insert, kept_cnt,
+                           0)
     valid_f = ((torch.arange(m, device=dev) < kept_cnt.unsqueeze(1)) &
-               (kept_i >= 0))                                   # [b, m]
-    fwd = torch.full((b, max_m), -1, dtype=torch.int32, device=dev)
+               (kept_i >= 0))
+    return valid_f, kept_cnt
+
+
+def _back_link_targets(kept_i, kept_cnt, n_insert: int, *,
+                       m: int) -> torch.Tensor:
+    """The batch's back-link targets i32[b * m]: op ``member * m + slot``
+    targets kept_i[member, slot], -1 where the op is invalid (slot past the
+    kept count, no id, or member at or past n_insert).  Writes nothing."""
+    valid_f, _ = _forward_valid(kept_i, kept_cnt, n_insert, m=m)
+    return torch.where(valid_f, kept_i, -1).reshape(-1)
+
+
+def _forward_links(links, link_counts, base: int, kept_i, kept_cnt,
+                   n_insert: int, *, m: int, max_m: int) -> None:
+    """Commit every member's forward row (hnswalg.cpp:168-181) in place."""
+    valid_f, kept_cnt = _forward_valid(kept_i, kept_cnt, n_insert, m=m)
+    fwd = torch.full((kept_i.shape[0], max_m), -1, dtype=torch.int32,
+                     device=kept_i.device)
     fwd[:, :m] = torch.where(valid_f, kept_i, -1)
     links[base:base + n_insert] = fwd[:n_insert]
     link_counts[base:base + n_insert] = kept_cnt[:n_insert]
-    return torch.where(valid_f, kept_i, -1).reshape(b * m)
 
 
 def _chain_order(tgt: torch.Tensor):
@@ -214,7 +228,8 @@ def _replay_chains(vectors, links, link_counts, keys, perm, *, base: int,
     """Apply the sorted back-link ops (_chain_order) to ``links`` and
     ``link_counts`` in place, each target's in op order: append where the
     target has room (hnswalg.cpp:193-195), else re-prune it (_reprune).
-    The plain twin of ops/cuda_graph.connect_batch: round r applies every
+    The chains of ops/cuda_graph.connect_batch's plain twin
+    (_connect_sorted_plain, after the forward rows): round r applies every
     chain's r-th op (targets within a round are distinct), with a host
     sync a round and one for the round count."""
     global PLAIN_CONNECTS_ON_CARD
@@ -245,6 +260,18 @@ def _replay_chains(vectors, links, link_counts, keys, perm, *, base: int,
     return links, link_counts
 
 
+def _connect_sorted_plain(vectors, links, link_counts, keys, perm, kept_i,
+                          kept_cnt, *, base: int, n_insert: int, m: int,
+                          max_m: int, metric_value: int):
+    """The plain twin of ops/cuda_graph.connect_batch, on its operands: the
+    forward rows (_forward_links), then the sorted back-link ops
+    (_replay_chains)."""
+    _forward_links(links, link_counts, base, kept_i, kept_cnt, n_insert, m=m,
+                   max_m=max_m)
+    return _replay_chains(vectors, links, link_counts, keys, perm, base=base,
+                          m=m, max_m=max_m, metric_value=metric_value)
+
+
 def _connect_batch(vectors, links, link_counts, base: int, kept_i, kept_cnt,
                    n_insert: int, *, m: int, max_m: int, metric_value: int,
                    replay=connect_batch):
@@ -256,23 +283,23 @@ def _connect_batch(vectors, links, link_counts, base: int, kept_i, kept_cnt,
     each target, so the serial schedule splits into per-target chains:
     forward rows commit at once (a member's row exists before a later
     member's back-link can target it), then each target replays its own
-    back-link ops in op order.  On the card the replay is one launch of
+    back-link ops in op order.  Here the back-link targets and their chain
+    order are torch ops that write nothing; ``replay`` writes the forward
+    rows and replays the chains.  On the card that is one launch of
     ops/cuda_graph.connect_batch and the batch makes no host sync; on the
-    CPU it is _replay_chains.  ``replay`` is the step after the forward
-    rows and the chain order: the wrapper, or _replay_chains for the twin
-    (_connect_batch_plain)."""
-    tgt = _forward_links(links, link_counts, base, kept_i, kept_cnt,
-                         n_insert, m=m, max_m=max_m)
-    keys, perm = _chain_order(tgt)
-    return replay(vectors, links, link_counts, keys, perm, base=base, m=m,
-                  max_m=max_m, metric_value=metric_value)
+    CPU, and for the twin (_connect_batch_plain), _connect_sorted_plain."""
+    keys, perm = _chain_order(_back_link_targets(kept_i, kept_cnt, n_insert,
+                                                 m=m))
+    return replay(vectors, links, link_counts, keys, perm, kept_i, kept_cnt,
+                  base=base, n_insert=n_insert, m=m, max_m=max_m,
+                  metric_value=metric_value)
 
 
-# _connect_batch in torch ops: the forward rows, the chain order and the
+# _connect_batch in torch ops: the chain order, the forward rows and the
 # rounds of _replay_chains.  The CPU's route; on the card only the smoke's
 # and the tests' comparisons call it (counted in PLAIN_CONNECTS_ON_CARD).
 _connect_batch_plain = functools.partial(_connect_batch,
-                                         replay=_replay_chains)
+                                         replay=_connect_sorted_plain)
 
 
 def _sweep_loop(vectors, pts32, base: int, keep: int, metric_value: int,

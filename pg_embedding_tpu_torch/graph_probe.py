@@ -1,6 +1,7 @@
-"""Where the walk and prune kernels' time goes, on one NVIDIA GPU.
+"""Where the walk, prune and wiring kernels' time goes, on one NVIDIA GPU.
 
   python -m pg_embedding_tpu_torch.graph_probe [--n ROWS] [--reps N]
+  python -m pg_embedding_tpu_torch.graph_probe --mode wiring [--n ROWS]
 
 Builds csrc/beam_walk.cu and csrc/prune_scan.cu in variants, each a rewrite
 of the sources' text (as sweep_probe.py builds its variants) compiled into
@@ -39,6 +40,32 @@ by the host's launch overhead; variants are timed in turns, then in
 reverse order, and the card's name and power limit are printed first.
 chip_smoke.py prints the profile build's breakdown at the same shapes
 (``walk_phases``, ``prune_phases``).
+
+``--mode wiring`` builds csrc/connect_batch.cu in its own variants
+(WIRING_VARIANTS):
+  kernel        the source as it is: a warp per sorted op
+  profile       the source with clock64() laps (-DPG_PROFILE): lane 0 of
+                each warp that heads a chain sums the cycles of each phase
+                (head: the ops, the count and an appends-only chain's
+                store; row; a re-prune's stage, d, ranks, masks and scan;
+                the row's write) and the longest chain's total
+  profile-near-rows   the profile build staging rows 0 .. 63 of the table
+                (id mod 64: 32 KB, one page) in place of the candidates'
+                scattered rows; its stage lap against the profile's says
+                what the rows' spread over the table costs (its rows and
+                counts differ)
+  no-masks      the masks left empty (every valid candidate kept, up to
+                maxM): its time against the kernel's is what the masks
+                cost the launch (rows differ)
+  no-copy       the re-prunes' rows not copied (the warp computes on what
+                its slice holds): what the copies cost (rows differ)
+builds the same index, captures one add()'s wiring (core/build's
+_connect_batch operands) and times both variants on the card (device_ms,
+in turns, then reversed) on that batch and on an appends-only one (the
+same ops, every non-member target's count at 0: no re-prune) and on a
+re-prunes-only one (only the chains that re-prune), each variant's rows
+checked against the kernel's; then the profile build's
+laps on both batches.
 """
 
 from __future__ import annotations
@@ -57,11 +84,14 @@ from .ops import cuda_graph as cg
 
 OUT = os.path.join(_kernels.BUILD_DIR, "graph_probe")
 CSRC = os.path.join(_kernels._PKG_DIR, "csrc")
-WALK, SCAN = "beam_walk.cu", "prune_scan.cu"
+WALK, SCAN, WIRE = "beam_walk.cu", "prune_scan.cu", "connect_batch.cu"
 SOURCES = (WALK, SCAN)
+WIRING_SOURCES = (WIRE,)
 WALK_PHASES = ("setup + output", "links + inserts", "dedupe", "rows",
                "rank", "merge")
 PRUNE_PHASES = ("init", "search", "reject", "write")
+WIRING_PHASES = ("head", "row", "stage", "d", "ranks", "masks", "scan",
+                 "write")
 PROFILE = ("-DPG_PROFILE",)
 _RANK = ("      int g = 1;\n"
          "      while (g < 32 && 2 * g * n_new <= kThreads) g *= 2;\n")
@@ -112,6 +142,20 @@ VARIANTS = {
                            "  const int vis_mode = vis_set;\n"),)),
     "widen-at-load": ((), ((WALK, *_WIDEN_AT_LOAD),)),
 }
+# name: (nvcc flags, rewrites (source, text, replacement))
+WIRING_VARIANTS = {
+    "kernel": ((), ()),
+    "profile": (PROFILE, ()),
+    "profile-near-rows": (PROFILE, ((WIRE, "vectors + (size_t)id * D,",
+                                     "vectors + (size_t)(id & 63) * D,"),)),
+    "no-masks": ((), ((WIRE, "  warp_masks(s, nv, metric, lane);\n",
+                       "  for (int j = lane; j < nv; j += 32) s.masks[j] = 0;"
+                       "\n  __syncwarp();\n"),)),
+    "no-copy": ((), ((WIRE, "      if (id >= 0)\n        bulk_copy(",
+                      "      if (id >= 0 && false)\n        bulk_copy("),
+                     (WIRE, "    if (lane == 0) mbar_expect(s.bar, rows * row_bytes);",
+                      "    if (lane == 0) mbar_expect(s.bar, 0);"))),
+}
 WALK_RUNS = ("kernel", "dense", "rank1", "rank32", "rows4", "rows16",
              "threads128", "threads256", "blocks8", "blocks3",
              "sets-runtime", "widen-at-load")
@@ -126,15 +170,17 @@ def prune_smem_bytes(c: int) -> int:
     return 0 if c <= 256 else 2 * 8 * -(-c // 32)
 
 
-def variant_sources(name: str) -> dict:
-    """{source: text} of variant ``name``: the sources with its rewrites
-    applied; raises ValueError where a rewrite's text is not in its source
-    exactly once."""
+def variant_sources(name: str, wiring: bool = False) -> dict:
+    """{source: text} of variant ``name`` (of WIRING_VARIANTS where
+    ``wiring``, else of VARIANTS): the sources with its rewrites applied;
+    raises ValueError where a rewrite's text is not in its source exactly
+    once."""
+    variants = WIRING_VARIANTS if wiring else VARIANTS
     out = {}
-    for src in SOURCES:
+    for src in WIRING_SOURCES if wiring else SOURCES:
         with open(os.path.join(CSRC, src)) as f:
             text = f.read()
-        for where, old, new in VARIANTS[name][1]:
+        for where, old, new in variants[name][1]:
             if where != src:
                 continue
             if text.count(old) != 1:
@@ -144,17 +190,19 @@ def variant_sources(name: str) -> dict:
     return out
 
 
-def build(name: str):
-    """Variant ``name``'s library: its sources compiled with its flags
-    added to nvcc's; returns it loaded and declared."""
-    flags = VARIANTS[name][0]
+def build(name: str, wiring: bool = False):
+    """Variant ``name``'s library (of WIRING_VARIANTS where ``wiring``):
+    its sources compiled with its flags added to nvcc's; returns it loaded
+    and declared."""
+    flags = (WIRING_VARIANTS if wiring else VARIANTS)[name][0]
     os.makedirs(OUT, exist_ok=True)
     srcs = []
-    for src, text in variant_sources(name).items():
-        srcs.append(os.path.join(OUT, f"{name}_{src}"))
+    tag = f"wiring_{name}" if wiring else name
+    for src, text in variant_sources(name, wiring).items():
+        srcs.append(os.path.join(OUT, f"{tag}_{src}"))
         with open(srcs[-1], "w") as f:
             f.write(text)
-    so = os.path.join(OUT, name + ".so")
+    so = os.path.join(OUT, tag + ".so")
     proc = subprocess.run(
         [_kernels._nvcc(), *_kernels._NVCC_FLAGS, *flags, "-shared", "-o", so,
          *srcs], capture_output=True, text=True)
@@ -163,19 +211,23 @@ def build(name: str):
     with open(so + ".log", "w") as f:
         f.write(proc.stderr)
     lib = ctypes.CDLL(so)
-    _kernels.declare_graph(lib)
+    if wiring:
+        _kernels.declare_connect(lib)
+    else:
+        _kernels.declare_graph(lib)
     lib.bruteforce_topk_error_string = _kernels.load_library(
     ).bruteforce_topk_error_string
     if "-DPG_PROFILE" in flags:
-        for fn in (lib.beam_walk_profile, lib.prune_scan_profile):
+        for fn in ((lib.connect_batch_profile,) if wiring else
+                   (lib.beam_walk_profile, lib.prune_scan_profile)):
             fn.argtypes = [ctypes.c_void_p]
             fn.restype = ctypes.c_int
     return lib
 
 
-def build_all(names=tuple(VARIANTS)) -> dict:
+def build_all(names=tuple(VARIANTS), wiring: bool = False) -> dict:
     with concurrent.futures.ThreadPoolExecutor(len(names)) as ex:
-        futs = {n: ex.submit(build, n) for n in names}
+        futs = {n: ex.submit(build, n, wiring) for n in names}
         return {n: f.result() for n, f in futs.items()}
 
 
@@ -240,6 +292,151 @@ def prune_phases(lib, args, nn) -> dict:
             "pruned": pruned, "sets": sets, "out": got}
 
 
+def capture_wiring(idx, rows) -> tuple:
+    """The operands of the wiring of ``idx.add(rows)``: (vectors, links,
+    counts as they were before it, base, kept_i, kept_cnt, n_insert, the
+    keyword arguments of core/build._connect_batch)."""
+    from .core import build as core_build
+    real, seen = core_build._connect_batch, []
+
+    def spy(vectors, links, counts, base, kept_i, kept_cnt, n_insert, **kw):
+        seen.append((vectors, links.clone(), counts.clone(), base,
+                     kept_i.clone(), kept_cnt.clone(), n_insert, kw))
+        return real(vectors, links, counts, base, kept_i, kept_cnt,
+                    n_insert, **kw)
+    core_build._connect_batch = spy
+    try:
+        idx.add(rows)
+    finally:
+        core_build._connect_batch = real
+    return seen[0]
+
+
+def wiring_batches(wiring) -> dict:
+    """{name: (links, counts, operands, touched rows)}: the add()'s batch
+    as captured; an appends-only one (the same ops with every non-member
+    target's count at 0, so no chain re-prunes); and a re-prunes-only one
+    (the ops of the chains that re-prune, the rest invalid: the same
+    re-prunes with no other chain beside them)."""
+    from .core import build as core_build
+    vectors, links, counts, base, kept_i, kept_cnt, n_insert, kw = wiring
+    keys, perm = core_build._chain_order(core_build._back_link_targets(
+        kept_i, kept_cnt, n_insert, m=kw["m"]))
+    members = torch.arange(base, base + n_insert, device=keys.device)
+    targets = torch.unique(keys[keys != core_build.NO_TARGET]).long()
+    touched = torch.unique(torch.cat([targets, members]))
+    appends = counts.clone()
+    appends[targets[(targets < base) | (targets >= base + n_insert)]] = 0
+    ops = (vectors, keys, perm, kept_i, kept_cnt,
+           dict(kw, base=base, n_insert=n_insert))
+    # the counts the chains start from (a member's: its forward row's)
+    fwd = counts.clone()
+    core_build._forward_links(links.clone(), fwd, base, kept_i, kept_cnt,
+                              n_insert, m=kw["m"], max_m=kw["max_m"])
+    heavy, length = torch.unique(keys[keys != core_build.NO_TARGET],
+                                 return_counts=True)
+    heavy = heavy[fwd[heavy.long()] + length > kw["max_m"]]
+    only = torch.where(torch.isin(keys, heavy), keys, core_build.NO_TARGET)
+    only, order = torch.sort(only, stable=True)
+    reprunes = (vectors, only, perm[order], kept_i, kept_cnt,
+                dict(kw, base=base, n_insert=n_insert))
+    return {"add()": (links, counts, ops, touched),
+            "appends only": (links, appends, ops, touched),
+            "re-prunes only": (links, counts, reprunes, touched)}
+
+
+def wire(lib, links, counts, ops):
+    """One launch of ``lib``'s connect_batch on ``links`` / ``counts`` (in
+    place) with the captured operands ``ops``."""
+    vectors, keys, perm, kept_i, kept_cnt, kw = ops
+    cg._launch_connect(lib, vectors, links, counts, keys, perm, kept_i,
+                       kept_cnt, **kw)
+
+
+def wiring_phases(lib, links, counts, ops, restore) -> dict:
+    """The profile build's warp-tier laps on one launch on ``links`` /
+    ``counts`` after ``restore()`` (a first launch warms the caches as the
+    timed launches find them): each phase's mean cycles a chain (head, row,
+    write) or a re-prune (stage, d, ranks, masks, scan), the chains and
+    re-prunes, the longest chain's cycles."""
+    restore()
+    wire(lib, links, counts, ops)
+    restore()
+    torch.cuda.synchronize()
+    _read(lib.connect_batch_profile, len(WIRING_PHASES) + 3)   # zero them
+    wire(lib, links, counts, ops)
+    torch.cuda.synchronize()
+    c = _read(lib.connect_batch_profile, len(WIRING_PHASES) + 3)
+    chains, reprunes, longest = c[-3], c[-2], c[-1]
+    per = {p: c[i] / max(reprunes if 2 <= i <= 6 else chains, 1)
+           for i, p in enumerate(WIRING_PHASES)}
+    return {"cycles": per, "chains": chains, "reprunes": reprunes,
+            "longest": longest}
+
+
+def wiring_main(args) -> int:
+    """--mode wiring: the wiring variants on one add()'s batch and an
+    appends-only one (see the module's note)."""
+    from . import HnswConfig, HnswIndex
+    from .utils.io import synthetic_clustered
+    libs = build_all(tuple(WIRING_VARIANTS), wiring=True)
+    for name in libs:
+        with open(os.path.join(OUT, f"wiring_{name}.so.log")) as f:
+            for line in f:
+                if "Compiling entry" in line or "Used" in line \
+                        or "spill" in line:
+                    print(f"ptxas wiring {name}: {line.strip()}")
+    pts, qs = synthetic_clustered(args.n, 128, 1_000, seed=12345,
+                                  n_queries=1024)
+    idx = HnswIndex(HnswConfig(dims=128, m=16, ef_construction=64,
+                               ef_search=64), device="cuda")
+    idx.build(pts)
+    rng = np.random.default_rng(12352)
+    rows = (qs[:idx.max_insert_batch] + rng.normal(
+        scale=0.1, size=(idx.max_insert_batch, 128))).astype(np.float32)
+    batches = wiring_batches(capture_wiring(idx, rows))
+    for bname, (links, counts, ops, touched) in batches.items():
+        timed = ("kernel", "no-masks", "no-copy")
+        start_rows, start_counts = links[touched].clone(), counts[touched]
+        work_links, work_counts = links.clone(), counts.clone()
+
+        def restore():
+            work_links[touched] = start_rows
+            work_counts[touched] = start_counts
+        want = None
+        for name in timed:
+            restore()
+            wire(libs[name], work_links, work_counts, ops)
+            got = work_links[touched].clone(), work_counts[touched].clone()
+            want = want or got
+            same = all(torch.equal(a, b) for a, b in zip(got, want))
+            print(f"wiring {bname} {name}: rows and counts equal to the "
+                  f"kernel's: {same}")
+        ms = {n: [] for n in timed}
+        for name in (*timed, *reversed(timed)):
+            ms[name].append(
+                device_ms(lambda: (restore(), wire(libs[name], work_links,
+                                                   work_counts, ops)),
+                          args.reps)
+                - device_ms(restore, args.reps))
+        shape = cg.LAST_CONNECT_LAUNCH
+        for name in timed:
+            print(f"wiring {bname} {name} ({shape.tier} tier, "
+                  f"{shape.blocks} blocks of {shape.threads} threads, "
+                  f"{shape.smem} bytes of shared memory a block; ms on the "
+                  f"card, in turns): "
+                  + " / ".join(f"{m:.4f}" for m in ms[name]), flush=True)
+        for name in ("profile", "profile-near-rows"):
+            r = wiring_phases(libs[name], work_links, work_counts, ops,
+                              restore)
+            print(f"wiring {bname} {name} ({r['chains']} chains, "
+                  f"{r['reprunes']} re-prunes; cycles a chain: head, row, "
+                  f"write; a re-prune: stage, d, ranks, masks, scan; the "
+                  f"longest chain {r['longest']:,} cycles): "
+                  f"{format_cycles(r['cycles'])}", flush=True)
+    return 0
+
+
 def format_cycles(cycles: dict) -> str:
     return ", ".join(f"{k} {v:,.0f}" for k, v in cycles.items())
 
@@ -292,6 +489,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=1_000_000)
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--mode", choices=("walk", "wiring"), default="walk")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("graph_probe: no CUDA device")
@@ -300,6 +498,8 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
+    if args.mode == "wiring":
+        return wiring_main(args)
     libs = build_all()
     for name in libs:
         with open(os.path.join(OUT, name + ".so.log")) as f:

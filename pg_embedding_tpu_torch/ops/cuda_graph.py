@@ -25,10 +25,12 @@ launch:
     reading the pairwise distances through the sort order.  Its plain
     twin is core/build's ``_prune_scan_plain``.
   * ``connect_batch`` (``csrc/connect_batch.cu``): the build's wiring of
-    an insert batch (the JAX package's ``_connect_batch`` while_loops):
+    an insert batch (the JAX package's ``_connect_batch``: the forward
+    rows' scatter and its while_loops): every member's forward row, and
     every target's back-link ops replayed in op order, appended or
-    re-pruned by the diversity heuristic, a block per chain.  Its plain
-    twin is core/build's ``_replay_chains``.
+    re-pruned by the diversity heuristic, a warp per chain (a block past
+    64 candidates).  Its plain twin is core/build's
+    ``_connect_sorted_plain`` (``_forward_links``, ``_replay_chains``).
 
 Each wrapper runs the plain twin on a CPU tensor and launches its kernel on
 a CUDA tensor or raises.  The sources' notes say what bounds each kernel on
@@ -37,6 +39,7 @@ the card and what the design does about it.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -412,52 +415,113 @@ def _launch_prune(lib, d_s, valid_s, order, pair_d, do_prune, nn):
     return kept_mask, kept_count
 
 
-def _connect_layout(c: int, dims: int) -> tuple:
-    """Shared memory of one connect_batch block for sets of ``c`` = maxM + 1
-    candidates of ``dims``, as csrc/connect_batch.cu lays it out: (bytes,
-    masks in shared memory, rows staged).  Ids, distances, two norms and
-    the scan order (4 bytes a candidate each), the kept words and their
-    prefix counts (4 bytes a 32 candidates each) and 8 scalars; the bit
-    masks [c, ceil(c / 32)] words where they fit (else a scratch in device
-    memory); the candidates' rows as float32 [c, dims | 1] where those fit
-    too.  Raises ValueError past SMEM_LIMIT."""
+class ConnectLayout(NamedTuple):
+    """One connect_batch launch's shape, as csrc/connect_batch.cu picks it:
+    the tier ("warp", or the block tier's "staged", "masks only", "device
+    masks"), the bytes of shared memory a block and the threads a
+    block."""
+    tier: str
+    smem: int
+    threads: int
+
+
+# the warp tier: sets of up to CONNECT_WARP_MAX_C candidates (two a lane),
+# CONNECT_WARPS warps a block where their shared memory fits
+CONNECT_WARP_MAX_C = 64
+CONNECT_WARPS = 4
+_CONNECT_THREADS = 256              # a block of the block tier
+
+
+def _connect_warp_bytes(c: int, dims: int, itemsize: int) -> int:
+    """Shared memory of one warp of connect_batch's warp tier, as
+    csrc/connect_batch.cu lays it out: the staging's barrier (16 bytes), the
+    masks (8 bytes a candidate), the chain's row, d, two norms and the scan
+    order (4 bytes a candidate each), rounded up to 16 bytes; then the c
+    candidates' rows and the target's in their own dtype, each at a stride
+    of 16-byte chunks rounded up to a multiple of 8."""
+    chunks = -(-dims * itemsize // 16)
+    return 16 + -(-28 * c // 16) * 16 + (c + 1) * -(-chunks // 8) * 8 * 16
+
+
+def _connect_layout(c: int, dims: int, itemsize: int = 4) -> ConnectLayout:
+    """connect_batch's launch shape for sets of ``c`` = maxM + 1 candidates
+    of ``dims`` elements of ``itemsize`` bytes.  The warp tier where c <=
+    CONNECT_WARP_MAX_C and a warp's slice (_connect_warp_bytes) fits:
+    CONNECT_WARPS warps a block, fewer where only fewer fit.  Else a block
+    of 256 threads: ids, distances, two norms and the scan order (4 bytes a
+    candidate each), the kept words and their prefix counts (4 bytes a 32
+    candidates each) and 8 scalars; the bit masks [c, ceil(c / 32)] words
+    where they fit (else a scratch in device memory); the candidates' rows
+    as float32 [c, dims | 1] where those fit too.  Raises ValueError past
+    SMEM_LIMIT."""
+    if c <= CONNECT_WARP_MAX_C:
+        per = _connect_warp_bytes(c, dims, itemsize)
+        warps = min(CONNECT_WARPS, SMEM_LIMIT // per)
+        if warps:
+            return ConnectLayout("warp", warps * per, 32 * warps)
     w = -(-c // 32)
     base = 4 * (5 * c + 2 * w + 8)
     if base > SMEM_LIMIT:
         raise ValueError(f"a re-prune of {c} candidates needs {base} bytes "
                          f"of shared memory; the limit is {SMEM_LIMIT}")
     masks, rows = 4 * c * w, 4 * c * (dims | 1)
-    in_smem = base + masks <= SMEM_LIMIT
-    stage = in_smem and base + masks + rows <= SMEM_LIMIT
-    return (base + (masks if in_smem else 0) + (rows if stage else 0),
-            in_smem, stage)
+    if base + masks + rows <= SMEM_LIMIT:
+        return ConnectLayout("staged", base + masks + rows, _CONNECT_THREADS)
+    if base + masks <= SMEM_LIMIT:
+        return ConnectLayout("masks only", base + masks, _CONNECT_THREADS)
+    return ConnectLayout("device masks", base, _CONNECT_THREADS)
 
 
-def _connect_blocks(bm: int, c: int, in_smem: bool, sms: int) -> int:
-    """connect_batch's grid: four blocks an SM (a grid-stride loop over the
-    bm sorted ops), fewer where the masks take SCRATCH_BYTES of device
-    memory (c * ceil(c / 32) words a block)."""
+class ConnectLaunch(NamedTuple):
+    """The shape a connect_batch launch was given: its tier, blocks,
+    threads a block and bytes of shared memory a block."""
+    tier: str
+    blocks: int
+    threads: int
+    smem: int
+
+
+# the shape of the last connect_batch launch, as _launch_connect passed it
+LAST_CONNECT_LAUNCH: Optional[ConnectLaunch] = None
+
+
+def _connect_blocks(bm: int, c: int, layout: ConnectLayout, sms: int) -> int:
+    """connect_batch's grid.  The warp tier: a warp a sorted op (bm warps).
+    The block tier: four blocks an SM (a grid-stride loop over the bm
+    sorted ops), fewer where the masks take SCRATCH_BYTES of device memory
+    (c * ceil(c / 32) words a block)."""
+    if layout.tier == "warp":
+        return max(-(-bm // (layout.threads // 32)), 1)
     blocks = min(bm, 4 * sms)
-    if not in_smem:
+    if layout.tier == "device masks":
         blocks = min(blocks, max(1, SCRATCH_BYTES // (4 * c * -(-c // 32))))
     return max(blocks, 1)
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def connect_batch(vectors: torch.Tensor, links: torch.Tensor,
                   link_counts: torch.Tensor, keys: torch.Tensor,
-                  perm: torch.Tensor, *, base: int, m: int, max_m: int,
-                  metric_value: int):
-    """Replay an insert batch's back-link ops on ``links`` i32[cap, maxM]
-    and ``link_counts`` i32[cap] in place: keys i32[bm] (the ops' targets
-    stably sorted, invalid ops at core/build.NO_TARGET) and perm i64[bm]
-    (their op indices, op = member * m + slot, carrying node base +
-    member), core/build._chain_order's; vectors f32 or bf16 [cap, D].
+                  perm: torch.Tensor, kept_i: torch.Tensor,
+                  kept_cnt: torch.Tensor, *, base: int, n_insert: int,
+                  m: int, max_m: int, metric_value: int):
+    """Wire an insert batch on ``links`` i32[cap, maxM] and ``link_counts``
+    i32[cap] in place: the members' forward rows (kept_i i32[b, m],
+    kept_cnt i32[b]: member u < n_insert is node base + u) and the
+    back-link ops, keys i32[bm] (their targets stably sorted, invalid ops
+    at core/build.NO_TARGET) and perm i64[bm] (their op indices, op =
+    member * m + slot, carrying node base + member), core/build's
+    _back_link_targets and _chain_order; vectors f32 or bf16 [cap, D].
     Returns (links, link_counts).  One launch, no host sync."""
     if vectors.device.type == "cpu":
-        from ..core.build import _replay_chains
-        return _replay_chains(vectors, links, link_counts, keys, perm,
-                              base=base, m=m, max_m=max_m,
-                              metric_value=metric_value)
+        from ..core.build import _connect_sorted_plain
+        return _connect_sorted_plain(
+            vectors, links, link_counts, keys, perm, kept_i, kept_cnt,
+            base=base, n_insert=n_insert, m=m, max_m=max_m,
+            metric_value=metric_value)
     if vectors.device.type != "cuda":
         raise ValueError(f"no kernel for device {vectors.device}")
     if metric_value not in _METRICS:
@@ -465,43 +529,65 @@ def connect_batch(vectors: torch.Tensor, links: torch.Tensor,
     if vectors.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"the connect kernel reads float32 or bf16 rows, "
                          f"not {vectors.dtype}")
-    if vectors.dim() != 2 or keys.dim() != 1:
-        raise ValueError(f"vectors {tuple(vectors.shape)} and keys "
-                         f"{tuple(keys.shape)} are not [cap, D] and [bm]")
+    if vectors.dim() != 2 or keys.dim() != 1 or kept_i.dim() != 2:
+        raise ValueError(f"vectors {tuple(vectors.shape)}, keys "
+                         f"{tuple(keys.shape)} and kept_i "
+                         f"{tuple(kept_i.shape)} are not [cap, D], [bm] "
+                         f"and [b, m]")
     if not 1 <= m <= max_m:
         raise ValueError(f"m={m} outside [1, max_m={max_m}]")
-    (cap, dims), bm, dev = vectors.shape, keys.shape[0], vectors.device
-    if bm % m or not 0 <= base <= cap:
-        raise ValueError(f"{bm} ops are not a batch of m={m} at base {base} "
-                         f"of {cap} rows")
+    (cap, dims), dev = vectors.shape, vectors.device
+    b, bm = kept_i.shape[0], keys.shape[0]
+    if bm != b * m or not (0 <= n_insert <= b and 0 <= base
+                           and base + n_insert <= cap):
+        raise ValueError(f"{bm} ops are not a batch of {b} x m={m} with "
+                         f"{n_insert} members at base {base} of {cap} rows")
     _want("vectors", vectors, vectors.dtype, (cap, dims), dev)
     _want("links", links, torch.int32, (cap, max_m), dev)
     _want("link_counts", link_counts, torch.int32, (cap,), dev)
     _want("keys", keys, torch.int32, (bm,), dev)
     _want("perm", perm, torch.int64, (bm,), dev)
-    smem, in_smem, _ = _connect_layout(max_m + 1, dims)
+    _want("kept_i", kept_i, torch.int32, (b, m), dev)
+    _want("kept_cnt", kept_cnt, torch.int32, (b,), dev)
+    _connect_layout(max_m + 1, dims, vectors.element_size())  # or raises
     if bm == 0:                                          # no op: no launch
         return links, link_counts
-    lib = _kernels.load_library()
-    c = max_m + 1
-    blocks = _connect_blocks(
-        bm, c, in_smem, torch.cuda.get_device_properties(dev)
-        .multi_processor_count)
-    # the masks' scratch in device memory where they do not fit shared
+    _launch_connect(_kernels.load_library(), vectors, links, link_counts,
+                    keys, perm, kept_i, kept_cnt, base=base,
+                    n_insert=n_insert, m=m, max_m=max_m,
+                    metric_value=metric_value)
+    LAUNCHES["connect_batch"] += 1
+    return links, link_counts
+
+
+def _launch_connect(lib, vectors, links, link_counts, keys, perm, kept_i,
+                    kept_cnt, *, base, n_insert, m, max_m, metric_value):
+    """One launch of ``lib``'s connect_batch on checked arguments (the
+    wrapper's library, or a probe's build of the same source), on
+    _connect_blocks' grid; the shape it passes is left in
+    LAST_CONNECT_LAUNCH."""
+    global LAST_CONNECT_LAUNCH
+    dev, dims, c = vectors.device, vectors.shape[1], max_m + 1
+    b, bm = kept_i.shape[0], keys.shape[0]
+    layout = _connect_layout(c, dims, vectors.element_size())
+    blocks = _connect_blocks(bm, c, layout, _sm_count(dev))
+    # the block tier's masks in device memory where they do not fit shared
     # memory: a block's slice each
-    masks = (None if in_smem else torch.empty(
-        (blocks, c * -(-c // 32)), dtype=torch.int32, device=dev))
+    masks = (torch.empty((blocks, c * -(-c // 32)), dtype=torch.int32,
+                         device=dev)
+             if layout.tier == "device masks" else None)
     stats = CONNECT_STATS
     if stats is not None:
         _want("CONNECT_STATS", stats, torch.int64, (8,), dev)
     with torch.cuda.device(dev):
         err = lib.connect_batch(
             vectors.data_ptr(), _ELEMS[vectors.dtype], links.data_ptr(),
-            link_counts.data_ptr(), keys.data_ptr(), perm.data_ptr(), bm, m,
-            base, max_m, dims, metric_value, smem, blocks,
+            link_counts.data_ptr(), keys.data_ptr(), perm.data_ptr(),
+            kept_i.data_ptr(), kept_cnt.data_ptr(), b, m, base, n_insert,
+            max_m, dims, metric_value, layout.smem, blocks,
             None if masks is None else masks.data_ptr(),
             None if stats is None else stats.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     _kernels.check(lib, err, "connect_batch")
-    LAUNCHES["connect_batch"] += 1
-    return links, link_counts
+    LAST_CONNECT_LAUNCH = ConnectLaunch(layout.tier, blocks, layout.threads,
+                                        layout.smem)

@@ -198,9 +198,10 @@ def test_chain_order_is_the_jax_rank(case):
         base, cnt[:] = 0, 0
     links = torch.full((base + b, max_m), -1, dtype=torch.int32)
     counts = torch.zeros(base + b, dtype=torch.int32)
-    tgt = tb._forward_links(links, counts, base, torch.from_numpy(kept),
-                            torch.from_numpy(cnt), n_insert, m=m,
-                            max_m=max_m)
+    kept, cnt = torch.from_numpy(kept), torch.from_numpy(cnt)
+    tb._forward_links(links, counts, base, kept, cnt, n_insert, m=m,
+                      max_m=max_m)
+    tgt = tb._back_link_targets(kept, cnt, n_insert, m=m)
     keys, perm = tb._chain_order(tgt)
     rank = torch.empty_like(perm)
     rank[perm] = tb._chain_rank(keys)

@@ -1216,11 +1216,17 @@ def test_exact_route_takes_the_wide_instances(cuda, dtype, k):
 
 # --- the build's wiring: connect_batch ---------------------------------------
 
-# (maxM, D, b, base) of each shared-memory tier of csrc/connect_batch.cu:
-# rows and masks staged (maxM 8; the main path's maxM 32; the default
-# m = 100), masks only (rows too wide to stage), neither (masks in device
-# memory)
-CONNECT_TIERS = {"staged 8": (8, 8, 16, 300), "staged 32": (32, 8, 32, 300),
+# (maxM, D, b, base) of each tier of csrc/connect_batch.cu: the warp tier
+# (maxM 8; the main path's maxM 32 at D 8 and 128; its widest set, C = 64;
+# rows of 7 elements, no multiple of 16 bytes: copied an element a lane);
+# the block tier one past it (C = 65) and at the default m = 100, rows and
+# masks staged; masks only (rows too wide to stage); neither (masks in
+# device memory)
+CONNECT_TIERS = {"warp 8": (8, 8, 16, 300), "warp 32": (32, 8, 32, 300),
+                 "warp 32 D128": (32, 128, 32, 300),
+                 "warp widest": (63, 8, 16, 300),
+                 "warp unaligned": (32, 7, 32, 300),
+                 "staged 64": (64, 8, 16, 300),
                  "staged 200": (200, 8, 16, 300),
                  "masks only": (200, 400, 16, 300),
                  "device masks": (1400, 8, 4, 1500)}
@@ -1244,33 +1250,43 @@ def test_connect_batch_bit_equal_on_integers(cuda, exact_bf16_matmul, tier,
     """One connect_batch launch wires the batch exactly as the plain twin
     (core/build._connect_batch_plain) does on the card, on integer rows
     (every sum exact): links and counts bit for bit, for every metric,
-    float32 and bf16 rows and each shared-memory tier, with chains whose
-    target is a member of the batch, members past n_insert, invalid kept
-    slots and -1 slots inside full rows."""
+    float32 and bf16 rows and each tier (the warp tier to its widest set
+    and the block tier from one past it), with chains whose target is a
+    member of the batch, members no chain targets, members past n_insert,
+    invalid kept slots and -1 slots inside full rows."""
     from connect_operands import kernel_and_twin, wiring_case
+    from pg_embedding_tpu_torch.core import build as core_build
     from pg_embedding_tpu_torch.ops import cuda_graph as cg
     max_m, dims, b, base = CONNECT_TIERS[tier]
-    _, in_smem, stage = cg._connect_layout(max_m + 1, dims)
-    assert (in_smem, stage) == {"masks only": (True, False),
-                                "device masks": (False, False)}.get(
-                                    tier, (True, True))
+    want = tier.split()[0] if tier.startswith(("warp", "staged")) else tier
+    assert cg._connect_layout(max_m + 1, dims,
+                              dtype.itemsize).tier == want
     arrays, meta = wiring_case(max_m + dims + METRICS[metric], max_m, b=b,
                                n_insert=b - 3, base=base, dims=dims)
     (kl, kc), (pl, pc), launches = kernel_and_twin(
         arrays, meta, METRICS[metric], cuda, dtype)
-    assert launches == 1
+    assert launches == 1 and cg.LAST_CONNECT_LAUNCH.tier == want
     assert torch.equal(kc, pc)
     assert torch.equal(kl, pl)
     full = torch.from_numpy(arrays[2] == max_m)
     assert bool((pc.cpu()[full] < max_m).any())         # re-prunes pruned
+    base, n_insert, m = meta
+    tgt = core_build._back_link_targets(torch.from_numpy(arrays[3]),
+                                        torch.from_numpy(arrays[4]),
+                                        n_insert, m=m)
+    members, targets = set(range(base, base + n_insert)), set(tgt.tolist())
+    assert members - targets
+    assert n_insert < 8 or members & targets
 
 
 @pytest.mark.parametrize("case", ["no valid op", "first batch",
-                                  "nothing inserted", "one member"])
+                                  "nothing inserted", "one member",
+                                  "ragged"])
 def test_connect_batch_edges(cuda, case):
     """Batches with nothing to wire still make one launch that changes only
     the forward rows, as the twin's: no valid op, node 0's first batch, no
-    member inserted; and a batch of one member."""
+    member inserted; a batch of one member; and n_insert < b with every
+    member's ops valid (the members past n_insert wire nothing)."""
     from connect_operands import kernel_and_twin, wiring_case
     arrays, (base, n_insert, m) = wiring_case(3, 8, b=8, n_insert=8)
     vectors, links, counts, kept, cnt = arrays
@@ -1281,8 +1297,10 @@ def test_connect_batch_edges(cuda, case):
         cnt[:] = 0
     elif case == "nothing inserted":
         n_insert = 0
-    else:
+    elif case == "one member":
         kept, cnt, n_insert = kept[:1], cnt[:1], 1
+    else:
+        cnt[:], n_insert = kept.shape[1], 5
     (kl, kc), (pl, pc), launches = kernel_and_twin(
         (vectors, links, counts, kept, cnt), (base, n_insert, m), 0, cuda)
     assert launches == 1
@@ -1338,41 +1356,87 @@ def test_builds_wire_in_the_kernel(cuda, storage):
 
 
 def test_connect_batch_refuses_out_of_scope_arguments(cuda):
-    """What the kernel does not take raises ValueError on the card, and the
-    C side refuses a shared-memory figure other than its own."""
+    """What the kernel does not take raises ValueError on the card (the
+    rows, links, counts, keys and perm, and the members' kept_i and
+    kept_cnt: their type, shape, layout, and an n_insert or base outside
+    the batch), and the C side refuses a shared-memory figure other than
+    its own, for the warp tier and the block tier."""
     from connect_operands import wiring_case, wiring_tensors
     from pg_embedding_tpu_torch import _kernels
     from pg_embedding_tpu_torch.core import build as core_build
     from pg_embedding_tpu_torch.ops import cuda_graph as cg
     arrays, (base, n_insert, m) = wiring_case(6, 8)
     vectors, links, counts, kept, cnt = wiring_tensors(arrays, cuda)
-    tgt = core_build._forward_links(links, counts, base, kept, cnt,
-                                    n_insert, m=m, max_m=8)
-    keys, perm = core_build._chain_order(tgt)
-    kw = dict(base=base, m=m, max_m=8, metric_value=0)
-    bad = [((vectors.half(), links, counts, keys, perm), kw),
-           ((vectors, links.long(), counts, keys, perm), kw),
-           ((vectors, links, counts[:-1], keys, perm), kw),
-           ((vectors, links, counts, keys.long(), perm), kw),
-           ((vectors, links, counts, keys, perm.int()), kw),
-           ((vectors, links.t().contiguous().t(), counts, keys, perm), kw),
-           ((vectors, links, counts, keys[:-1], perm[:-1]), kw),
-           ((vectors, links, counts, keys, perm), dict(kw, metric_value=3)),
-           ((vectors, links, counts, keys, perm), dict(kw, m=9)),
-           ((vectors, links, counts, keys, perm), dict(kw, base=-1))]
+    keys, perm = core_build._chain_order(core_build._back_link_targets(
+        kept, cnt, n_insert, m=m))
+    kw = dict(base=base, n_insert=n_insert, m=m, max_m=8, metric_value=0)
+    ok = (vectors, links, counts, keys, perm, kept, cnt)
+
+    def swap(i, x):
+        return tuple(x if j == i else a for j, a in enumerate(ok))
+    bad = [(swap(0, vectors.half()), kw), (swap(1, links.long()), kw),
+           (swap(2, counts[:-1]), kw), (swap(3, keys.long()), kw),
+           (swap(4, perm.int()), kw),
+           (swap(1, links.t().contiguous().t()), kw),
+           ((vectors, links, counts, keys[:-1], perm[:-1], kept, cnt), kw),
+           (swap(5, kept.long()), kw), (swap(5, kept[:, :-1].contiguous()),
+                                        kw),
+           (swap(5, kept.t().contiguous().t()), kw),
+           (swap(6, cnt.long()), kw), (swap(6, cnt[:-1]), kw),
+           (swap(6, cnt.cpu()), kw),
+           ((vectors, links, counts, keys[:-m], perm[:-m], kept[:-1], cnt),
+            kw),
+           (ok, dict(kw, metric_value=3)), (ok, dict(kw, m=9)),
+           (ok, dict(kw, base=-1)), (ok, dict(kw, n_insert=-1)),
+           (ok, dict(kw, n_insert=kept.shape[0] + 1)),
+           (ok, dict(kw, base=vectors.shape[0] - n_insert + 1))]
     for args, kwargs in bad:
         with pytest.raises(ValueError):
             cg.connect_batch(*args, **kwargs)
     lib = _kernels.load_library()
-    smem = cg._connect_layout(9, vectors.shape[1])[0]
-    for wrong in (smem + 4, smem - 4):
-        err = lib.connect_batch(
-            vectors.data_ptr(), 0, links.data_ptr(), counts.data_ptr(),
-            keys.data_ptr(), perm.data_ptr(), keys.numel(), m, base, 8,
-            vectors.shape[1], 0, wrong, 4, None, None,
-            torch.cuda.current_stream().cuda_stream)
-        with pytest.raises(RuntimeError, match="CUDA error"):
-            _kernels.check(lib, err, "connect_batch")
+    for max_m in (8, 200):                       # the warp and block tiers
+        lay = cg._connect_layout(max_m + 1, vectors.shape[1])
+        assert lay.tier == ("warp" if max_m == 8 else "staged")
+        wide = torch.full((vectors.shape[0], max_m), -1, dtype=torch.int32,
+                          device=cuda)
+        for wrong in (lay.smem + 16, lay.smem - 16):
+            err = lib.connect_batch(
+                vectors.data_ptr(), 0, wide.data_ptr(), counts.data_ptr(),
+                keys.data_ptr(), perm.data_ptr(), kept.data_ptr(),
+                cnt.data_ptr(), kept.shape[0], m, base, n_insert, max_m,
+                vectors.shape[1], 0, wrong, 4, None, None,
+                torch.cuda.current_stream().cuda_stream)
+            with pytest.raises(RuntimeError, match="CUDA error"):
+                _kernels.check(lib, err, "connect_batch")
+
+
+def test_connect_batch_allocates_nothing_on_the_warp_tier(cuda):
+    """The warp tier's launch allocates no device memory (the block tier's
+    masks in device memory are its only scratch), and repeated launches on
+    fresh copies give the same rows."""
+    from connect_operands import wiring_case, wiring_tensors
+    from pg_embedding_tpu_torch import _kernels
+    from pg_embedding_tpu_torch.core import build as core_build
+    from pg_embedding_tpu_torch.ops import cuda_graph as cg
+    _kernels.load_library()
+    arrays, (base, n_insert, m) = wiring_case(7, 32, b=32)
+    vectors, links, counts, kept, cnt = wiring_tensors(arrays, cuda)
+    keys, perm = core_build._chain_order(core_build._back_link_targets(
+        kept, cnt, n_insert, m=m))
+    kw = dict(base=base, n_insert=n_insert, m=m, max_m=32, metric_value=0)
+    assert cg._connect_layout(33, vectors.shape[1]).tier == "warp"
+    start_links, start_counts = links.clone(), counts.clone()
+    cg.connect_batch(vectors, links, counts, keys, perm, kept, cnt, **kw)
+    want = links.clone(), counts.clone()
+    for _ in range(3):
+        links.copy_(start_links)
+        counts.copy_(start_counts)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_stats()["allocation.all.allocated"]
+        cg.connect_batch(vectors, links, counts, keys, perm, kept, cnt, **kw)
+        after = torch.cuda.memory_stats()["allocation.all.allocated"]
+        assert after == before
+        assert torch.equal(links, want[0]) and torch.equal(counts, want[1])
 
 
 def test_connect_batch_fills_rows_then_reprunes(cuda):
@@ -1402,6 +1466,20 @@ def test_connect_batch_fills_rows_then_reprunes(cuda):
         assert torch.equal(kc, pc) and torch.equal(kl, pl)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("metric", list(METRICS))
+def test_connect_batch_long_chains(cuda, exact_bf16_matmul, metric, dtype):
+    """Chains of more than 32 ops (a warp reads its chain 32 ops at a
+    time) that append, re-prune, append where a re-prune left room and
+    re-prune again: bit-equal to the twin on integer rows."""
+    from connect_operands import kernel_and_twin, long_chain_case
+    arrays, meta = long_chain_case(METRICS[metric])
+    (kl, kc), (pl, pc), launches = kernel_and_twin(
+        arrays, meta, METRICS[metric], cuda, dtype)
+    assert launches == 1
+    assert torch.equal(kc, pc) and torch.equal(kl, pl)
+
+
 def test_connect_batch_widest_config(cuda, exact_bf16_matmul):
     """The widest sets a config admits (m = MAX_M: maxM 8,192, C = 8,193,
     the masks in device memory) on integer rows: three full targets
@@ -1410,7 +1488,7 @@ def test_connect_batch_widest_config(cuda, exact_bf16_matmul):
     from pg_embedding_tpu_torch.config import MAX_M
     from pg_embedding_tpu_torch.ops import cuda_graph as cg
     max_m, m, dims, base = 2 * MAX_M, MAX_M, 8, 8300
-    assert cg._connect_layout(max_m + 1, dims)[1:] == (False, False)
+    assert cg._connect_layout(max_m + 1, dims).tier == "device masks"
     rng = np.random.default_rng(29)
     vectors = rng.integers(-2, 3, size=(base + 6, dims)).astype(np.float32)
     links = np.full((base + 6, max_m), -1, np.int32)
@@ -1444,9 +1522,10 @@ def test_connect_batch_counters(cuda):
     from pg_embedding_tpu_torch.ops import cuda_graph as cg
     arrays, (base, n_insert, m) = wiring_case(9, 32, b=32)
     vectors, links, counts, kept, cnt = wiring_tensors(arrays, "cpu")
-    tgt = core_build._forward_links(links, counts, base, kept, cnt,
-                                    n_insert, m=m, max_m=32)
-    keys, perm = core_build._chain_order(tgt)
+    core_build._forward_links(links, counts, base, kept, cnt, n_insert, m=m,
+                              max_m=32)
+    keys, perm = core_build._chain_order(core_build._back_link_targets(
+        kept, cnt, n_insert, m=m))
     ops = keys[keys != core_build.NO_TARGET]
     reprunes = 0
     for q, t in enumerate(ops.tolist()):

@@ -154,6 +154,27 @@ def test_first_bits_and_the_staged_stride():
         # where D is even, a stride of D itself would not
         if d % 2 == 0:
             assert len({r * d % 32 for r in range(32)}) < 32
+    # the warp tier's rows (_connect_warp_bytes): a stride of 16-byte chunks
+    # rounded up to a multiple of 8, each lane reading a row's chunks from
+    # its own column (lane mod chunks) on: the 8 lanes of a quarter-warp
+    # reading any 8 rows hit the 8 groups of four banks where the chunks
+    # are a multiple of 8 (D = 128: 32 float32 or 16 bf16 chunks); a
+    # stride of an odd number of chunks would not
+    for d, itemsize in ((128, 4), (128, 2), (64, 4), (256, 2)):
+        chunks = d * itemsize // 16
+        stride = -(-chunks // 8) * 8
+        assert cg._connect_warp_bytes(33, d, itemsize) == (
+            16 + -(-33 * 28 // 16) * 16 + 34 * stride * 16)
+        for c in (0, 5, chunks - 1):
+            for rows in ([*range(8)], [int(r) for r in rng.choice(33, 8)]):
+                for q in range(4):
+                    lanes = range(8 * q, 8 * q + 8)
+                    groups = {(rows[lane % 8] * stride
+                               + (c + lane) % chunks) % 8 for lane in lanes}
+                    assert len(groups) == 8
+        odd = chunks | 1
+        assert len({(r * odd + c) % 8 for r in (0, 8, 16, 24, 1, 9, 17,
+                                                 25)}) < 8
 
 
 # --- the walk's dedupe ------------------------------------------------------
@@ -375,10 +396,23 @@ def test_probe_variants_rewrite_the_sources(name):
         assert (got[src] != text) == any(w == src for w, _, _ in rewrites)
 
 
+@pytest.mark.parametrize("name", sorted(graph_probe.WIRING_VARIANTS))
+def test_probe_wiring_variants_rewrite_the_source(name):
+    """graph_probe's wiring variants rewrite csrc/connect_batch.cu alone,
+    each rewrite finding its text exactly once (the variants without one
+    leave it as it is)."""
+    got = graph_probe.variant_sources(name, wiring=True)
+    assert sorted(got) == sorted(graph_probe.WIRING_SOURCES)
+    with open(os.path.join(graph_probe.CSRC, graph_probe.WIRE)) as f:
+        text = f.read()
+    assert (got[graph_probe.WIRE] != text) == bool(
+        graph_probe.WIRING_VARIANTS[name][1])
+
+
 def test_kernel_sources_take_no_build_option_but_the_clocks():
-    """The walk and the scan are built one way for the port; only the
-    probe's clock-stamped build (-DPG_PROFILE) sets a macro."""
-    for src in graph_probe.SOURCES:
+    """The walk, the scan and the wiring are built one way for the port;
+    only the probe's clock-stamped build (-DPG_PROFILE) sets a macro."""
+    for src in graph_probe.SOURCES + graph_probe.WIRING_SOURCES:
         with open(os.path.join(graph_probe.CSRC, src)) as f:
             text = f.read()
         assert set(re.findall(r"#\s*if(?:n?def)?\s+!?\s*(?:defined\()?(\w+)",
