@@ -11,10 +11,11 @@ exits non-zero):
   1. device: the card's name and power limit, torch/CUDA versions, TF32 off;
   2. build the CUDA kernels from the repository's sources;
   3. the kernel: its compiler report (registers, spills) and the TF32
-     HMMA instructions of each of its 16 sweep instances (cuobjdump -sass;
+     HMMA instructions of each of its 20 sweep instances (cuobjdump -sass;
      the exact route's eight float32 / bf16 ones must report the registers
      and spills they had before the int8 instance, SWEEP_PTXAS; the four
-     wide float32 / bf16 ones and the four int8 ones are printed); against
+     wide float32 / bf16 ones, the four int8 ones and the four PQ ones are
+     printed); against
      its
      plain torch twin: L2 and cosine, D in {30, 100, 128, 960}, k_run from 1
      to 1024 with each query tile's edges (64 / 65, 256 / 257), B not a
@@ -163,9 +164,16 @@ exits non-zero):
      (G=32 held within 0.03 of the plain walk's recall@10, the others
      printed); tune_sweep_pool(0.95) on 256
      queries, then search(mode="sweep_pq") on all (recall@10 >= 0.95,
-     distances equal to a float64 recompute at rtol 1e-5, QPS), and its
-     pool (ops/pq_sweep._pq_pool, torch ops) timed beside its bound; save ->
-     load (the same codebook bytes, walk and sweep labels);
+     distances equal to a float64 recompute at rtol 1e-5, QPS), every
+     count set to 0 before the tuner: only bruteforce_topk_pq launches; its
+     pool (ops/pq_sweep._pq_pool: one bruteforce_topk_pq launch, the codes
+     decoded through the codebook in the kernel) against its twin
+     _pq_pool_plain on all queries (ids on >= 99.9% of slots, every other
+     a float64 near-tie; distances rtol 1e-5), timed a call, on the card,
+     beside its bound, the twin and library_ms (pq_decode + torch.matmul +
+     torch.topk), and its Manhattan sum against the twin on 128 queries
+     (the same bar); save -> load (the same codebook bytes, walk and sweep
+     labels);
   9. the sharded index (parallel/sharded.ShardedHnswIndex, 4 shards on the
      card, batches of 256 rows a shard as the single index takes them) on
      the main index's rows and queries, built from scratch: build
@@ -201,10 +209,10 @@ exits non-zero):
 Phases are timed with utils/profiling's Timer (synchronising the card).
 The last three lines are the card's nvidia-smi line, a JSON line of the
 kernels ("launches" from the main path of phase 4, the wide instances'
-from their own path, the exact-mode builds, each counted from 0 just
-before it; the build sweep instances' timings are phase 4b's on the
-add()'s 1M batch, with "loop_ms" (the torch-op loop each replaced); for
-prune_scan also
+from their own path, the exact-mode builds, and the PQ instance's from
+phase 8's sweep_pq, each counted from 0 just before it; the build sweep
+instances' timings are phase 4b's on the add()'s 1M batch, with "loop_ms"
+(the torch-op loop each replaced); for prune_scan also
 "insert_launches" and "reprune_launches", the build's launches at the
 insert's width and at the re-prune's (0: the re-prunes run inside
 connect_batch); for connect_batch its counters on the add()'s batch,
@@ -221,8 +229,8 @@ phase 9, "multiprocess_launches" summed over phase 11's ranks, each
 counted from zero; the main path, phase 9 and phase 11 must each launch
 beam_walk, prune_scan and connect_batch, every walk variant must reach the
 kernel, and no walk of phases 4-11 may run the plain twin on the card, nor
-any candidate sweep the torch-op loop, nor any wiring the plain twin
-(phase 10 included): only the smoke's own twin calls do, under
+any candidate sweep the torch-op loop, nor any wiring or PQ pool the plain
+twin (phase 10 included): only the smoke's own twin calls do, under
 own_twin_calls), and {"ok": true,
 "device": {...}}.
 
@@ -249,7 +257,7 @@ sys.path.insert(0, REPO)
 # the integer walk operands the card tests build too (tests/walk_operands.py)
 sys.path.insert(1, os.path.join(REPO, "tests"))
 
-L2, COSINE = 0, 1
+L2, COSINE, MANHATTAN = 0, 1, 2
 SEED = 12345
 N_CENTERS = 1_000
 # The PQ index's data: benchmarks/bench_pq.py's recipe, where the JAX
@@ -274,8 +282,8 @@ MP_BUILD_ROWS = 200_000
 MP_TIMEOUT = 420
 LAUNCH_NAMES = ("bruteforce_topk", "bruteforce_topk_bf16",
                 "bruteforce_topk_q8", "bruteforce_topk_wide",
-                "bruteforce_topk_bf16_wide", "beam_walk", "prune_scan",
-                "connect_batch")
+                "bruteforce_topk_bf16_wide", "bruteforce_topk_pq",
+                "beam_walk", "prune_scan", "connect_batch")
 # the sweep's instances of the build's pools (exact8, exact mode)
 BUILD_SWEEPS = ("bruteforce_topk_q8", "bruteforce_topk_wide",
                 "bruteforce_topk_bf16_wide")
@@ -345,6 +353,8 @@ def true_dist(torch, qs, pts, ids, metric):
     p = pts[ids.clamp(min=0).long()].double()
     if metric == L2:
         return torch.sqrt(((p - q) ** 2).sum(-1))
+    if metric == MANHATTAN:
+        return (p - q).abs().sum(-1)
     dot = (p * q).sum(-1)
     return 1.0 - dot / torch.sqrt((p * p).sum(-1) * (q * q).sum(-1))
 
@@ -582,11 +592,12 @@ def compiler_report(_kernels):
     of each sweep instance in the built library's SASS; fails if an instance runs no TF32 HMMA, or if one of the exact route's
     eight reports other registers or spills than before (SWEEP_PTXAS)."""
     def instance(mangled):
-        m = re.search(r"sweep_kernel(_wide)?(?:_q8)?ILi(\d+)ELb([01])E"
+        m = re.search(r"sweep_kernel(_wide)?(_q8|_pq)?ILi(\d+)ELb([01])E"
                       r"([ft]?)E", mangled)
-        return m and (f"sweep_kernel{m[1] or ''}<QT={m[2]}, "
-                      f"{'resident' if m[3] == '1' else 'streamed'} queries, "
-                      f"{dict(f='float', t='bf16').get(m[4], 'int8')}>")
+        elem = {"_q8": "int8", "_pq": "pq codes"}.get(m and m[2])
+        return m and (f"sweep_kernel{m[1] or ''}<QT={m[3]}, "
+                      f"{'resident' if m[4] == '1' else 'streamed'} queries, "
+                      f"{elem or dict(f='float', t='bf16')[m[5]]}>")
     def graph_instance(mangled):
         m = re.search(r"beam_walk_kernelILi(\d)ELb([01])ELi(\d+)ELb([01])E",
                       mangled)
@@ -639,7 +650,7 @@ def compiler_report(_kernels):
                                .strip())
     for name in sorted(counts):
         log(f"sass {name}: {counts[name]} TF32 HMMA, e.g. {example[name]}")
-    check(len(built) == 16 and set(counts) == built,
+    check(len(built) == 20 and set(counts) == built,
           f"TF32 HMMA in {len(counts)} of {len(built)} sweep instances")
     for name, want in SWEEP_PTXAS.items():
         check(reports.get(name) == list(want),
@@ -2080,7 +2091,14 @@ def codes_card_vs_cpu(torch, idx, rows=100_000):
 
 def pq_sweep_phase(torch, idx, qs, el):
     """tune_sweep_pool(0.95) on 256 queries, then sweep_pq on all: recall@10
-    >= 0.95 vs the exact route, distances equal to a float64 recompute."""
+    >= 0.95 vs the exact route, distances equal to a float64 recompute;
+    every launch count set to 0 just before the tuner and read after the
+    searches (the PQ instance's own path: one launch a call, beside the
+    tuner's one exact-route oracle).  Returns the
+    kernels line's numbers of bruteforce_topk_pq (pq_pool_timing's and
+    its launches)."""
+    from pg_embedding_tpu_torch.ops import cuda_bruteforce as cb
+    reset_launches()
     t0 = time.time()
     res = idx.tune_sweep_pool(qs[:256], 0.95)
     tune_s = time.time() - t0
@@ -2090,6 +2108,13 @@ def pq_sweep_phase(torch, idx, qs, el):
     for _ in range(reps):
         d, l, v = idx.search(qs, K, mode="sweep_pq")
     qps = reps * len(qs) / (time.time() - t0)
+    ran = dict(cb.LAUNCHES)
+    log(f"sweep_pq's path (the tuner's exact oracle, its probes and "
+        f"{reps + 1} searches): launches {ran}")
+    check(ran["bruteforce_topk_pq"] > reps + 1
+          and ran["bruteforce_topk"] == 1
+          and sum(ran.values()) == ran["bruteforce_topk_pq"] + 1,
+          f"sweep_pq's path launched {ran}")
     rec = recall(l, v, el)
     check(bool(v.all()), "sweep_pq: fewer than k results")
     rows = idx.graph.vectors[:idx.n_nodes]
@@ -2104,36 +2129,94 @@ def pq_sweep_phase(torch, idx, qs, el):
         f"relative error {err:.2e}")
     check(rec >= 0.95, f"sweep_pq recall {rec} < 0.95")
     check(err <= 1e-5, f"sweep_pq distances off by {err}")
-    pq_pool_timing(torch, idx, q)
+    return dict(launches=ran["bruteforce_topk_pq"],
+                **pq_pool_timing(torch, idx, q))
 
 
 def pq_pool_timing(torch, idx, q):
-    """ops/pq_sweep._pq_pool (the JAX package's _pq_pool_impl, still torch
-    ops) at this phase's shape: the tuned pool over every live row's codes,
-    the queries' batch; a call's time (CUDA events, median of 5) beside
-    its bound: the decoded rows are bf16 values, so a kernel could score
-    them as products_s says, or the bytes (the codes, the codebook, the
-    queries, the pool) at the HBM rate."""
-    from pg_embedding_tpu_torch.ops.pq_sweep import _pq_pool
+    """ops/pq_sweep._pq_pool (the JAX package's _pq_pool_impl: one launch
+    of bruteforce_topk_pq) at this phase's shape, the tuned pool over every
+    live row's codes, all the queries: against its twin _pq_pool_plain on
+    the card (ids equal on >= 99.9% of slots, every other slot a float64
+    near-tie over the decoded bf16 rows: compare's rule; distances rtol
+    1e-5); a call's time (CUDA events, median of 5), the card's (a CUDA
+    graph of 20 calls), the twin's, library_ms (pq_decode of every live
+    row to bf16, then torch.matmul in float32 + torch.topk to the pool over
+    one 1,048,576-row chunk; the port never calls it) and the bound: the
+    decoded rows are bf16 values, so the products as products_s says, or
+    the bytes (the codes, the codebook, the queries, the pool) at the HBM
+    rate, whichever is larger.  Returns the kernels line's numbers."""
+    from pg_embedding_tpu_torch.graph_probe import device_ms
+    from pg_embedding_tpu_torch.ops.distance import _matmul
+    from pg_embedding_tpu_torch.ops.pq import pq_decode
+    from pg_embedding_tpu_torch.ops.pq_sweep import _pq_pool, _pq_pool_plain
     codes = idx._ensure_pq_codes()
+    book, rot = idx._pq_codebook, idx._pq_rot
     n, groups = idx.n_nodes, codes.shape[1]
     pool = 1 << (max(int(idx.pq_sweep_pool), K) - 1).bit_length()
     dead = idx.graph.deleted
+    kw = dict(pool=pool, metric_value=L2, chunk=16384)
 
     def call():
-        return _pq_pool(q, codes, idx._pq_codebook, idx._pq_rot, n, dead,
-                        pool=pool, metric_value=L2, chunk=16384)
-    ms = median_ms(torch, call)
+        return _pq_pool(q, codes, book, rot, n, dead, **kw)
+
+    def twin():
+        return _pq_pool_plain(q, codes, book, rot, n, dead, **kw)
+
+    def library():
+        rows = pq_decode(codes[:n], book).to(torch.bfloat16).float()
+        dist = torch.matmul(q, rows.T)
+        torch.topk(dist, pool, dim=1, largest=False, sorted=False)
+    with own_twin_calls():
+        got, want = call(), twin()
+        torch.cuda.synchronize()
+        rows = pq_decode(codes[:n], book).to(torch.bfloat16).float()
+        qr = q if rot is None else _matmul(q, rot)
+        err, n_diff = compare(torch, got, want, qr, rows, L2, n, dead)
+        del rows
+        same = 1.0 - n_diff / got[1].numel()
+        ms = median_ms(torch, call)
+        dev_ms = device_ms(call)
+        plain_ms = median_ms(torch, twin, 3)
+    lib_ms = median_ms(torch, library)
     b, d = q.shape
     ops_ms = products_s(b, n, d, True) * 1e3
-    nbytes = (n * groups + idx._pq_codebook.numel() * 4 + b * d * 4
-              + b * pool * 8)
+    nbytes = (n * groups + book.numel() * 4 + b * d * 4 + b * pool * 8)
     bytes_ms = nbytes / PEAK_BYTES * 1e3
-    log(f"_pq_pool (torch ops) at {n} rows, G={groups}, B={b}, pool {pool}:"
-        f" {ms:.3f} ms a call (median of 5, CUDA events); bound "
-        f"{max(ops_ms, bytes_ms):.4f} ms "
-        f"({'operations' if ops_ms >= bytes_ms else 'bytes'}: operations "
-        f"{ops_ms:.4f} ms as bf16 values, bytes {bytes_ms:.4f} ms)")
+    bound, bound_by = max(ops_ms, bytes_ms), ("operations" if ops_ms
+                                             >= bytes_ms else "bytes")
+    log(f"_pq_pool (bruteforce_topk_pq) at {n} rows, G={groups}, B={b}, pool "
+        f"{pool}: vs its twin ids equal on {same:.5f} of slots ({n_diff} "
+        f"float64 near-ties), max_abs_err {err:.3g}; {ms:.3f} ms a call "
+        f"(median of 5, CUDA events), {dev_ms:.3f} ms on the card (a CUDA "
+        f"graph of 20 calls; {bound / dev_ms:.1%} of the bound); bound "
+        f"{bound:.4f} ms ({bound_by}: operations {ops_ms:.4f} ms as bf16 "
+        f"values, bytes {bytes_ms:.4f} ms); twin {plain_ms:.3f} ms; library "
+        f"(pq_decode + torch.matmul + torch.topk) {lib_ms:.3f} ms")
+    check(same >= 0.999, f"_pq_pool ids equal on {same} of slots")
+    # Manhattan, the instance's CUDA-core sum, on the first 128 queries
+    mkw = dict(kw, metric_value=MANHATTAN)
+    qm = q[:128]
+    with own_twin_calls():
+        got = _pq_pool(qm, codes, book, rot, n, dead, **mkw)
+        want = _pq_pool_plain(qm, codes, book, rot, n, dead, **mkw)
+        rows = pq_decode(codes[:n], book).to(torch.bfloat16).float()
+        qr = qm if rot is None else _matmul(qm, rot)
+        m_err, m_diff = compare(torch, got, want, qr, rows, MANHATTAN, n,
+                                dead)
+        del rows
+        m_same = 1.0 - m_diff / got[1].numel()
+        m_ms = median_ms(torch, lambda: _pq_pool(qm, codes, book, rot, n,
+                                                 dead, **mkw))
+        m_plain = median_ms(torch, lambda: _pq_pool_plain(
+            qm, codes, book, rot, n, dead, **mkw), 3)
+    log(f"_pq_pool, Manhattan (bruteforce_topk_pq's CUDA-core sum), "
+        f"{len(qm)} queries, pool {pool}: vs its twin ids equal on "
+        f"{m_same:.5f} of slots ({m_diff} float64 near-ties), max_abs_err "
+        f"{m_err:.3g}; {m_ms:.3f} ms a call, twin {m_plain:.3f} ms")
+    check(m_same >= 0.999, f"Manhattan _pq_pool ids equal on {m_same}")
+    return dict(max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=bound_by, library_ms=lib_ms)
 
 
 def pq_persistence(torch, HnswIndex, idx, qs, tmp):
@@ -2199,7 +2282,8 @@ def pq_serving_phase(torch, HnswConfig, HnswIndex, dev, n, n_queries, tmp,
     """PQ where the JAX package measured it serving (bench_pq.py's
     50,000-centre recipe): G=16, OPQ G=32 (its walk kernel against its
     twin) and G=32 walks (G=32 held within 0.03 of the plain walk's
-    recall), the tuned sweep, save -> load."""
+    recall), the tuned sweep, save -> load.  Returns the kernels line's
+    numbers of bruteforce_topk_pq."""
     from pg_embedding_tpu_torch.ops.distance import _matmul
     from pg_embedding_tpu_torch.utils.profiling import Timer
     pts, qs = make_data(SEED + 3, n, n_queries, PQ_CENTERS)
@@ -2228,8 +2312,9 @@ def pq_serving_phase(torch, HnswConfig, HnswIndex, dev, n, n_queries, tmp,
     rec = pq_walk(torch, idx, qs, el, 32, False)
     check(rec >= plain - 0.03,
           f"PQ G=32 walk recall {rec} vs the plain walk's {plain}")
-    pq_sweep_phase(torch, idx, qs, el)
+    pq_pool = pq_sweep_phase(torch, idx, qs, el)
     pq_persistence(torch, HnswIndex, idx, qs, tmp)
+    return pq_pool
 
 
 def bf16_phase(torch, cb, idx, qs, results):
@@ -2903,6 +2988,10 @@ def main():
     profile_lib = pool.submit(graph_probe.build, "profile")
     _kernels.load_library()
     log(f"kernel build: {time.time() - t0:.1f} s (nvcc, sm_90a)")
+    for var in _kernels.NVCC_ENV_FLAGS:
+        if var in os.environ:
+            log(f"kernel build: {var}={os.environ[var]!r} left out of "
+                f"nvcc's environment")
     compiler_report(_kernels)
 
     timings = kernel_phase(torch, cb, dev)
@@ -2947,8 +3036,8 @@ def main():
             os.remove(os.path.join(tmp, f))
         del pts
         torch.cuda.empty_cache()
-        pq_serving_phase(torch, HnswConfig, HnswIndex, dev, args.n,
-                         args.queries, tmp, walk_variants)
+        pq_pool = pq_serving_phase(torch, HnswConfig, HnswIndex, dev,
+                                   args.n, args.queries, tmp, walk_variants)
     # no candidate sweep of phases 4-11 ran the torch-op loop on the card
     # (the table's Manhattan index, next, runs it by design, counted)
     from pg_embedding_tpu_torch.core import build as core_build
@@ -3001,12 +3090,19 @@ def main():
               "pg_embedding_tpu/core/build.py:44")),
             ("connect_batch", main_launches,
              ("pg_embedding_tpu_torch/csrc/connect_batch.cu",
-              "pg_embedding_tpu/core/build.py:172"))):
+              "pg_embedding_tpu/core/build.py:172")),
+            # the compressed sweep's pool: launches from its own path,
+            # phase 8's sweep_pq (pq_sweep_phase), as its timings
+            ("bruteforce_topk_pq", {"bruteforce_topk_pq":
+                                    pq_pool.pop("launches")},
+             ("pg_embedding_tpu_torch/csrc/bruteforce_topk.cu",
+              "pg_embedding_tpu/ops/pq_sweep.py:36"))):
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "sharded_launches": sharded_launches[name],
-            "multiprocess_launches": mp_launches[name], **timings[name]})
+            "multiprocess_launches": mp_launches[name],
+            **(pq_pool if name == "bruteforce_topk_pq" else timings[name])})
         if name == "beam_walk":
             kernels[-1]["variants"] = walk_variants
     for name in ("bruteforce_topk", "bruteforce_topk_q8", "beam_walk",

@@ -6,7 +6,10 @@ one ``nvcc`` per source, all started together, and links the objects into
 one shared library under ``.kernel_build/`` at the repository root, keyed
 by a hash of the sources and flags, and loads it with ``ctypes``.
 The compiler's report (``-Xptxas -v``: registers, shared memory and spills
-of each kernel) is kept beside it; :func:`build_log` returns it.
+of each kernel) is kept beside it; :func:`build_log` returns it.  nvcc runs
+with ``NVCC_PREPEND_FLAGS`` / ``NVCC_APPEND_FLAGS`` taken out of its
+environment, so the library is built with the flags its key names and
+nothing else (``-lineinfo`` from there alone moves ptxas's registers).
 Importing this module builds nothing.  A failed build raises: there is no
 fallback to a plain version on a CUDA tensor.
 """
@@ -28,6 +31,8 @@ _SOURCES = ("bruteforce_topk.cu", "beam_walk.cu", "prune_scan.cu",
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), ".kernel_build")
+# the variables through which nvcc takes flags from its environment
+NVCC_ENV_FLAGS = ("NVCC_PREPEND_FLAGS", "NVCC_APPEND_FLAGS")
 
 _lock = threading.Lock()
 _lib = None
@@ -43,6 +48,11 @@ def _nvcc() -> str:
         return os.path.join(CUDA_HOME, "bin", "nvcc")
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
                        "(set CUDA_HOME or put nvcc on PATH)")
+
+
+def nvcc_env() -> dict:
+    """The environment nvcc runs in: the caller's without NVCC_ENV_FLAGS."""
+    return {k: v for k, v in os.environ.items() if k not in NVCC_ENV_FLAGS}
 
 
 def declare_graph(lib) -> None:
@@ -78,6 +88,11 @@ def declare_sweep(lib) -> None:
     lib.bruteforce_topk_q8.argtypes = [vp, vp, vp, vp, *[ci] * 9, *[vp] * 7,
                                        ci, vp]
     lib.bruteforce_topk_q8.restype = ci
+    # the PQ instance takes the codebook's table after the codes and the
+    # groups G after D
+    lib.bruteforce_topk_pq.argtypes = [vp, vp, vp, vp, *[ci] * 10,
+                                       *[vp] * 7, ci, vp]
+    lib.bruteforce_topk_pq.restype = ci
     lib.bruteforce_topk_error_string.argtypes = [ci]
     lib.bruteforce_topk_error_string.restype = ctypes.c_char_p
 
@@ -92,11 +107,12 @@ def _build(srcs, work: str, path: str) -> None:
     """Compile each source to an object in ``work`` (one nvcc each, side
     by side), link them into the library at ``path`` and keep the
     compilers' reports in ``path``.log."""
-    nvcc = _nvcc()
+    nvcc, env = _nvcc(), nvcc_env()
     objs = [os.path.join(work, os.path.basename(s) + ".o") for s in srcs]
     procs = [subprocess.Popen([nvcc, *_NVCC_FLAGS, "-c", "-o", o, s],
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                              text=True) for s, o in zip(srcs, objs)]
+                              text=True, env=env)
+             for s, o in zip(srcs, objs)]
     reports = [p.communicate() for p in procs]
     failed = [(s, p.returncode, err) for s, p, (_, err)
               in zip(srcs, procs, reports) if p.returncode != 0]
@@ -105,7 +121,7 @@ def _build(srcs, work: str, path: str) -> None:
             f"{os.path.basename(s)} ({rc}):\n{err}" for s, rc, err in failed))
     tmp = os.path.join(work, "lib.so")
     link = subprocess.run([nvcc, *_NVCC_FLAGS[:2], "-shared", "-o", tmp,
-                           *objs], capture_output=True, text=True)
+                           *objs], capture_output=True, text=True, env=env)
     if link.returncode != 0:
         raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
                            f"{link.stderr}")

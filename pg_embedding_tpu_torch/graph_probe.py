@@ -205,7 +205,7 @@ def build(name: str, wiring: bool = False):
     so = os.path.join(OUT, tag + ".so")
     proc = subprocess.run(
         [_kernels._nvcc(), *_kernels._NVCC_FLAGS, *flags, "-shared", "-o", so,
-         *srcs], capture_output=True, text=True)
+         *srcs], capture_output=True, text=True, env=_kernels.nvcc_env())
     if proc.returncode:
         raise RuntimeError(f"{name}: nvcc failed\n{proc.stderr}")
     with open(so + ".log", "w") as f:

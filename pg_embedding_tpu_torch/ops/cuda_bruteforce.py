@@ -5,11 +5,15 @@ The counterpart of pg_embedding_tpu/ops/pallas_bruteforce.py.  The kernel
 the tensor cores (TF32 ``mma.sync`` with a hi/lo split: three passes for
 float32 rows, two for bf16 rows) and keeps a running per-query top-k on
 chip, so the [B, N] distance matrix is never written out.  Its note says
-what bounds it on the card and how the design answers that.  It has three
+what bounds it on the card and how the design answers that.  It has four
 instantiations, one per corpus type: ``bruteforce_topk`` (float32 rows),
 ``bruteforce_topk_bf16`` (bfloat16 rows, exact in TF32) and
 ``bruteforce_topk_q8`` (int8 rows x a float32 scale a row, each element
-bf16(bf16(q) * bf16(scale)): the build's int8 shadow, exact in TF32 too).
+bf16(bf16(q) * bf16(scale)): the build's int8 shadow, exact in TF32 too),
+and ``bruteforce_topk_pq`` for the compressed sweep's coarse pool
+(ops/pq_sweep): rows are PQ codes u8[N, G], each element decoded in the
+block from the codebook rounded to bf16 (``pq_table``), exact in TF32; it
+alone also takes Manhattan, summed on the CUDA cores.
 Lists of WIDE_MIN_K to WIDE_MAX_K entries (the build's pools, the exact
 route's k past 61) run the wide selection, the int8 instance's at every
 k_run up to WIDE_MAX_K, float32 / bf16 rows through ``bruteforce_topk_wide``
@@ -26,7 +30,8 @@ tensor it launches the instantiation for the corpus dtype or raises.  One
 launch keeps at most MAX_K_RUN entries per query (its running lists live in
 shared memory); ``bruteforce_topk_paged`` takes any k_run in pages of at
 most MAX_K_RUN, each launch admitting only what follows the last entry of
-the page before.  ``fused_exact_search`` is the entry with the contract of
+the page before (``pq_topk`` / ``pq_topk_paged`` the same over PQ codes,
+CUDA tensors only).  ``fused_exact_search`` is the entry with the contract of
 ``pallas_exact_search``: Manhattan goes to ops/bruteforce, L2 fetches
 k + _RERANK_PAD and reranks with the difference form.  ``sweep_pool`` is the
 build's candidate sweep (core/build._exact_candidates, the JAX package's
@@ -47,7 +52,7 @@ from .distance import _matmul
 # them); a run reads them to show that a path went through the kernel.
 LAUNCHES = {"bruteforce_topk": 0, "bruteforce_topk_bf16": 0,
             "bruteforce_topk_q8": 0, "bruteforce_topk_wide": 0,
-            "bruteforce_topk_bf16_wide": 0}
+            "bruteforce_topk_bf16_wide": 0, "bruteforce_topk_pq": 0}
 
 # Running lists live in shared memory: 8 bytes x k_run x 16 queries fit
 # a block up to here; a longer list takes pages of at most this.
@@ -66,21 +71,28 @@ WIDE_MIN_K = 64
 # strides (corpus: 32 dims + 16 bytes; streamed query chunks: 36 floats;
 # resident queries: D in whole chunks + 4 floats; scores: 136 floats), the
 # query tile QT by tier of k_run, 8 bytes per list entry; int8 rows (1-byte
-# elements) add each stage's 128 float32 scales.
+# elements) add each stage's 128 float32 scales, PQ codes (1-byte elements)
+# the chunk's 16 rows of the codebook's table of bf16 pairs (256 codes a
+# row, 4 bytes a code) and the 32 dims' offsets in a staged code row, and
+# their score tile holds at least a step's decoded bf16 [128 x 40] tile.
 SMEM_LIMIT = 232_448                # bytes of shared memory a block can use
 MAX_SPLITS = 128
 _SMEM_PER_SM, _SMEM_PER_BLOCK_RESERVED = 233_472, 1024     # H100
 _TILE_N, _TILE_D, _STAGES = 128, 32, 2
+_PQ_CODES = 256
 _Q_STRIDE, _SCORE_STRIDE = 36, 136
 _MIN_ROWS_PER_SPLIT = 2048
 _QT_TIERS = ((256, 64), (MAX_K_RUN, 16))               # (k_run <=, QT)
 
 _PLAIN_CHUNK = 16384
 
-# the kernel instantiation for each corpus dtype
+# the kernel instantiation for each corpus dtype (uint8: PQ codes)
 _KERNELS = {torch.float32: "bruteforce_topk",
             torch.bfloat16: "bruteforce_topk_bf16",
-            torch.int8: "bruteforce_topk_q8"}
+            torch.int8: "bruteforce_topk_q8",
+            torch.uint8: "bruteforce_topk_pq"}
+# the instances that run the wide selection at every k_run up to WIDE_MAX_K
+_EVERY_TILE = (torch.int8, torch.uint8)
 _WIDE_KERNELS = {torch.float32: "bruteforce_topk_wide",
                  torch.bfloat16: "bruteforce_topk_bf16_wide"}
 
@@ -134,17 +146,26 @@ def _bruteforce_topk_plain(queries, points, k_run: int, metric_value: int,
 
 
 def _smem_bytes(qt: int, k_run: int, itemsize: int, dims: int,
-                q_resident: bool) -> int:
+                q_resident: bool, pq: bool = False) -> int:
     """The C side's sweep_smem_bytes; ``itemsize`` 1 is the int8 instance,
-    whose ring stages also hold the tile's scales."""
-    stage = _TILE_N * (_TILE_D * itemsize + 16) + (4 * _TILE_N
-                                                   if itemsize == 1 else 0)
+    whose ring stages also hold the tile's scales, or with ``pq`` the PQ
+    instance, whose stages hold the codebook table's chunk and the dims'
+    offsets and whose score tile holds the decoded tile too."""
+    stage = _TILE_N * (_TILE_D * itemsize + 16)
+    if pq:
+        stage += _TILE_D * _PQ_CODES * 2 + _TILE_D
+    elif itemsize == 1:
+        stage += 4 * _TILE_N
     if q_resident:
         queries = qt * (_TILE_D * -(-dims // _TILE_D) + 4) * 4
     else:
         stage, queries = stage + qt * _Q_STRIDE * 4, 0
-    return (_STAGES * stage + queries
-            + 4 * (qt * _SCORE_STRIDE + qt + _TILE_N) + 8 * qt * k_run)
+    # PQ's score tile also holds a step's decoded bf16 [128 x 40] tile
+    scores = qt * _SCORE_STRIDE
+    if pq:
+        scores = max(scores, _TILE_N * (_TILE_D + 8) // 2)
+    return (_STAGES * stage + queries + 4 * (scores + qt + _TILE_N)
+            + 8 * qt * k_run)
 
 
 def _blocks_per_sm(smem: int) -> int:
@@ -152,11 +173,12 @@ def _blocks_per_sm(smem: int) -> int:
 
 
 def _launch_shape(b: int, n_rows: int, k_run: int, sms: int,
-                  itemsize: int = 4, dims: int = 128, qt: int | None = None):
+                  itemsize: int = 4, dims: int = 128, qt: int | None = None,
+                  pq: bool = False):
     """(QT, corpus splits S, resident queries, shared-memory bytes) of a
     sweep launch for ``b`` queries, ``n_rows`` rows of ``dims``
-    ``itemsize``-byte elements (1: int8 rows and their scales) and
-    ``k_run`` on a card with ``sms`` SMs.
+    ``itemsize``-byte elements (1: int8 rows and their scales, or with
+    ``pq`` PQ codes) and ``k_run`` on a card with ``sms`` SMs.
 
     QT is the largest query tile whose running lists fit beside the ring.
     The block keeps its [QT, D] queries in shared memory for its whole
@@ -169,8 +191,8 @@ def _launch_shape(b: int, n_rows: int, k_run: int, sms: int,
     2048 rows.  ``qt`` forces the query tile (a probe's choice)."""
     if qt is None:
         qt = next(t for k_max, t in _QT_TIERS if k_run <= k_max)
-    streamed = _smem_bytes(qt, k_run, itemsize, dims, False)
-    resident = _smem_bytes(qt, k_run, itemsize, dims, True)
+    streamed = _smem_bytes(qt, k_run, itemsize, dims, False, pq)
+    resident = _smem_bytes(qt, k_run, itemsize, dims, True, pq)
     q_res = (resident <= SMEM_LIMIT
              and _blocks_per_sm(resident) >= _blocks_per_sm(streamed))
     smem = resident if q_res else streamed
@@ -187,10 +209,14 @@ def _launch_shape(b: int, n_rows: int, k_run: int, sms: int,
 
 def _instance(dtype, k_run: int, wide: bool | None = None):
     """(the C entry of a launch, whether it takes the shared bound).  The
-    int8 instance runs the wide selection up to WIDE_MAX_K, with a bound;
-    float32 / bf16 rows take the wide instances from WIDE_MIN_K to
-    WIDE_MAX_K, else the exact route's; ``wide`` forces their choice (a
-    probe's)."""
+    int8 and PQ instances run the wide selection up to WIDE_MAX_K, the
+    int8 one with a bound up to there, the PQ one at every k_run (its
+    insertion into shared memory past WIDE_MAX_K reads and publishes the
+    bound too: the tuner's pools reach 1024); float32 / bf16 rows take the
+    wide instances from WIDE_MIN_K to WIDE_MAX_K, else the exact route's;
+    ``wide`` forces their choice (a probe's)."""
+    if dtype == torch.uint8:
+        return _KERNELS[dtype], True
     if dtype == torch.int8:
         return _KERNELS[dtype], k_run <= WIDE_MAX_K
     if wide is None:
@@ -220,16 +246,43 @@ def _entry(dtype, k_run: int, b: int, splits: int, device,
         shape, rank = _shared_bound(b, splits, k_run)
         scratch = torch.full(shape, float("inf"), device=device)
         return name, scratch, (scratch.data_ptr(), rank)
-    return name, None, (None, 0) if dtype == torch.int8 else ()
+    return name, None, (None, 0) if dtype in _EVERY_TILE else ()
+
+
+def _check_scope(k_run, metric_value, manhattan: bool = False) -> None:
+    """k_run within one launch; L2 or cosine, or with ``manhattan`` (the
+    PQ instance) Manhattan too."""
+    ok = (Metric.L2.value, Metric.COSINE.value) + (
+        (Metric.MANHATTAN.value,) if manhattan else ())
+    if metric_value not in ok:
+        raise ValueError(f"the fused kernel takes L2 or cosine"
+                         f"{' or Manhattan' if manhattan else ''}, not "
+                         f"metric {metric_value}")
+    if not 1 <= k_run <= MAX_K_RUN:
+        raise ValueError(f"k_run={k_run} outside [1, {MAX_K_RUN}]")
+
+
+def _check_mask_and_floor(queries, rows, deleted, after) -> None:
+    """``deleted`` a contiguous bool[N] of ``rows``' length, ``after`` the
+    contiguous (f32[B], i32[B]) floor, both on ``rows``' device."""
+    if deleted is not None:
+        if (deleted.dtype != torch.bool or deleted.shape != rows.shape[:1]
+                or deleted.device != rows.device
+                or not deleted.is_contiguous()):
+            raise ValueError("deleted must be a contiguous bool[N] tensor "
+                             "on the rows' device")
+    if after is not None:
+        fd, fi = after
+        for t, dt in ((fd, torch.float32), (fi, torch.int32)):
+            if (t.dtype != dt or t.shape != queries.shape[:1]
+                    or t.device != rows.device or not t.is_contiguous()):
+                raise ValueError("after must be contiguous (f32[B], i32[B]) "
+                                 "tensors on the rows' device")
 
 
 def _check_args(queries, points, k_run, metric_value, deleted,
                 after) -> None:
-    if metric_value not in (Metric.L2.value, Metric.COSINE.value):
-        raise ValueError(f"the fused kernel takes L2 or cosine, not metric "
-                         f"{metric_value}")
-    if not 1 <= k_run <= MAX_K_RUN:
-        raise ValueError(f"k_run={k_run} outside [1, {MAX_K_RUN}]")
+    _check_scope(k_run, metric_value)
     if isinstance(points, tuple):
         if len(points) != 2:
             raise ValueError("the int8 shadow is a (qvec, qscale) pair")
@@ -258,19 +311,7 @@ def _check_args(queries, points, k_run, metric_value, deleted,
                              f"{points.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if deleted is not None:
-        if (deleted.dtype != torch.bool or deleted.shape != points.shape[:1]
-                or deleted.device != points.device
-                or not deleted.is_contiguous()):
-            raise ValueError("deleted must be a contiguous bool[N] tensor "
-                             "on the points' device")
-    if after is not None:
-        fd, fi = after
-        for t, dt in ((fd, torch.float32), (fi, torch.int32)):
-            if (t.dtype != dt or t.shape != queries.shape[:1]
-                    or t.device != points.device or not t.is_contiguous()):
-                raise ValueError("after must be contiguous (f32[B], i32[B]) "
-                                 "tensors on the points' device")
+    _check_mask_and_floor(queries, points, deleted, after)
 
 
 def bruteforce_topk(queries, points, k_run: int, metric_value: int,
@@ -292,9 +333,22 @@ def bruteforce_topk(queries, points, k_run: int, metric_value: int,
                                       n_valid, deleted, after)
     if rows.device.type != "cuda":
         raise ValueError(f"no kernel for device {rows.device}")
+    row_ptrs = (rows.data_ptr(),) + (() if scale is None
+                                     else (scale.data_ptr(),))
+    return _launch(queries, rows.dtype, row_ptrs, (queries.shape[1],),
+                   rows.element_size(), n_valid, rows.shape[0], k_run,
+                   metric_value, deleted, after)
+
+
+def _launch(queries, dtype, row_ptrs, dims_args, itemsize: int, n_valid,
+            n_stored: int, k_run: int, metric_value: int, deleted, after):
+    """One launch of the instance for ``dtype`` (its C entry takes the
+    queries, ``row_ptrs``, the mask, B, the row count, ``dims_args`` (D,
+    and G for PQ codes), then the launch shape, the lists, the floor and
+    the bound), counted in LAUNCHES; raises on a CUDA error."""
     b, dims = queries.shape
-    n_rows = max(0, min(int(n_valid), rows.shape[0]))
-    dev = rows.device
+    n_rows = max(0, min(int(n_valid), n_stored))
+    dev = queries.device
     out_d = torch.empty((b, k_run), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, k_run), dtype=torch.int32, device=dev)
     if b == 0:
@@ -302,21 +356,21 @@ def bruteforce_topk(queries, points, k_run: int, metric_value: int,
     lib = _kernels.load_library()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     qt, splits, q_res, smem = _launch_shape(
-        b, n_rows, k_run, sms, rows.element_size(), dims)
+        b, n_rows, k_run, sms, itemsize, dims, pq=dtype == torch.uint8)
     with torch.cuda.device(dev):
         part_d = torch.empty((splits, b, k_run), dtype=torch.float32,
                              device=dev)
         part_i = torch.empty((splits, b, k_run), dtype=torch.int32,
                              device=dev)
         # the scratch is held until the launch is queued
-        name, scratch, bound = _entry(rows.dtype, k_run, b, splits, dev)
+        name, scratch, bound = _entry(dtype, k_run, b, splits, dev)
         err = getattr(lib, name)(
-            queries.data_ptr(), rows.data_ptr(),
-            *(() if scale is None else (scale.data_ptr(),)),
+            queries.data_ptr(), *row_ptrs,
             None if deleted is None else deleted.data_ptr(),
-            b, n_rows, dims, k_run, metric_value, qt, splits, int(q_res),
-            smem, part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(),
-            out_i.data_ptr(), None if after is None else after[0].data_ptr(),
+            b, n_rows, *dims_args, k_run, metric_value, qt, splits,
+            int(q_res), smem, part_d.data_ptr(), part_i.data_ptr(),
+            out_d.data_ptr(), out_i.data_ptr(),
+            None if after is None else after[0].data_ptr(),
             None if after is None else after[1].data_ptr(), *bound,
             torch.cuda.current_stream(dev).cuda_stream)
     _kernels.check(lib, err, name)
@@ -324,25 +378,102 @@ def bruteforce_topk(queries, points, k_run: int, metric_value: int,
     return out_d, out_i
 
 
-def bruteforce_topk_paged(queries, points, k_run: int, metric_value: int,
-                          n_valid: int, deleted=None):
-    """bruteforce_topk for any k_run >= 1: one call up to MAX_K_RUN, else
-    equal pages of at most MAX_K_RUN, each a call whose floor is the last
-    entry of the page before.  A score depends on its query and row alone,
-    so the pages concatenate to the single ascending list."""
+def _paged(topk, queries, k_run: int):
+    """``topk(k, after)`` for any k_run >= 1: one call up to MAX_K_RUN,
+    else equal pages of at most MAX_K_RUN, each a call whose floor is the
+    last entry of the page before.  A score depends on its query and row
+    alone, so the pages concatenate to the single ascending list."""
     if k_run <= MAX_K_RUN:
-        return bruteforce_topk(queries, points, k_run, metric_value, n_valid,
-                               deleted)
+        return topk(k_run, None)
     b, dev = queries.shape[0], queries.device
     size = -(-k_run // -(-k_run // MAX_K_RUN))
     after = (torch.full((b,), -float("inf"), dtype=torch.float32,
                         device=dev),
              torch.full((b,), -1, dtype=torch.int32, device=dev))
-    pages = [bruteforce_topk(queries, points, min(size, k_run - start),
-                             metric_value, n_valid, deleted, after)
+    pages = [topk(min(size, k_run - start), after)
              for start in range(0, k_run, size)]
     return (torch.cat([d for d, _ in pages], dim=1),
             torch.cat([i for _, i in pages], dim=1))
+
+
+def bruteforce_topk_paged(queries, points, k_run: int, metric_value: int,
+                          n_valid: int, deleted=None):
+    """bruteforce_topk for any k_run >= 1, in pages past MAX_K_RUN
+    (_paged)."""
+    return _paged(lambda k, after: bruteforce_topk(
+        queries, points, k, metric_value, n_valid, deleted, after),
+        queries, k_run)
+
+
+def pq_table(codebook) -> torch.Tensor:
+    """The PQ instance's codebook in bf16 pairs, bf16[ceil(D / 2), 256, 2]:
+    entry (j, code) holds dims 2j and 2j + 1 (0 past D) of ``code``'s
+    decoded row, bf16(codebook[d // sub, code, d % sub]) (each value
+    rounded once to nearest even, as ``pq_decode(...).to(bfloat16)``
+    rounds it), from codebook f32[G, 256, sub]; the kernel reads an entry
+    as one 32-bit word."""
+    groups, codes, sub = codebook.shape
+    dims = groups * sub
+    rows = codebook.to(torch.bfloat16).permute(0, 2, 1).reshape(dims, codes)
+    rows = torch.nn.functional.pad(rows, (0, 0, 0, dims % 2))
+    return rows.view(-(-dims // 2), 2, codes).transpose(1, 2).contiguous()
+
+
+def _check_pq_args(queries, codes, table, k_run, metric_value, deleted,
+                   after) -> None:
+    _check_scope(k_run, metric_value, manhattan=True)
+    if queries.dtype != torch.float32 or queries.dim() != 2:
+        raise ValueError(f"queries must be float32 [B, D], got "
+                         f"{queries.dtype}{list(queries.shape)}")
+    dims = queries.shape[1]
+    if codes.dtype != torch.uint8 or codes.dim() != 2:
+        raise ValueError(f"codes must be uint8 [N, G], got "
+                         f"{codes.dtype}{list(codes.shape)}")
+    groups = codes.shape[1]
+    if not 1 <= groups <= dims or dims % groups:
+        raise ValueError(f"{groups} code groups do not divide D = {dims}")
+    shape = (-(-dims // 2), _PQ_CODES, 2)
+    if (table.dtype != torch.bfloat16 or tuple(table.shape) != shape
+            or table.data_ptr() % 16):
+        raise ValueError(f"table must be a 16-byte aligned bfloat16"
+                         f"{list(shape)}, got {table.dtype}"
+                         f"{list(table.shape)}")
+    for name, t in (("queries", queries), ("codes", codes),
+                    ("table", table)):
+        if t.device != codes.device:
+            raise ValueError(f"{name} on {t.device}, codes on "
+                             f"{codes.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    _check_mask_and_floor(queries, codes, deleted, after)
+
+
+def pq_topk(queries, codes, table, k_run: int, metric_value: int,
+            n_valid: int, deleted=None, after=None):
+    """The compressed sweep's coarse top-k_run (k_run <= MAX_K_RUN) in one
+    launch of ``bruteforce_topk_pq``: queries f32[B, D] (already rotated
+    under OPQ) against the rows whose PQ codes are ``codes`` u8[N, G], each
+    row decoded in the kernel through ``table`` (pq_table of the codebook),
+    rows [0, n_valid), skipping ``deleted`` rows.  Returns (d f32[B,
+    k_run], ids i32[B, k_run]) ascending by (score, id), -1/+inf padded, L2
+    sqrt'd; ``after`` as in bruteforce_topk.  CUDA tensors only: the CPU's
+    route is ops/pq_sweep._pq_pool_plain."""
+    _check_pq_args(queries, codes, table, k_run, metric_value, deleted,
+                   after)
+    if codes.device.type != "cuda":
+        raise ValueError(f"no kernel for device {codes.device}")
+    return _launch(queries, torch.uint8, (codes.data_ptr(),
+                                          table.data_ptr()),
+                   (queries.shape[1], codes.shape[1]), 1, n_valid,
+                   codes.shape[0], k_run, metric_value, deleted, after)
+
+
+def pq_topk_paged(queries, codes, table, k_run: int, metric_value: int,
+                  n_valid: int, deleted=None):
+    """pq_topk for any k_run >= 1, in pages past MAX_K_RUN (_paged)."""
+    return _paged(lambda k, after: pq_topk(
+        queries, codes, table, k, metric_value, n_valid, deleted, after),
+        queries, k_run)
 
 
 def sweep_pool(points, rows, keep: int, metric_value: int, base: int):

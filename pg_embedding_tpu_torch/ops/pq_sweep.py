@@ -13,6 +13,13 @@ As in the JAX package, the decoded rows are rounded to bf16 before they
 are scored; the score then follows the JAX package's CPU semantics
 (ops/distance.pairwise_dist upcasts bf16 rows to float32).  Ties keep the
 lower id, which is what ``lax.top_k`` over incumbents + chunk gives.
+
+The pool (the JAX package's ``_pq_pool_impl``) is ``_pq_pool``: on a CUDA
+tensor one launch of the sweep kernel's PQ instance for every metric
+(ops/cuda_bruteforce.pq_topk_paged: the codes decoded through the
+codebook inside the kernel, pages past 1024; Manhattan summed on the CUDA
+cores), on a CPU tensor its plain twin ``_pq_pool_plain`` (a chunk loop of
+pq_decode, pairwise_dist and merges).
 """
 
 from __future__ import annotations
@@ -21,16 +28,17 @@ import torch
 
 from ..config import Metric, resolve_metric
 from .bruteforce import _rerank_exact, sweep_min_k
+from .cuda_bruteforce import pq_table, pq_topk_paged
 from .distance import _matmul, pairwise_dist
 from .pq import pq_decode
 
 
-def _pq_pool(queries, codes, codebook, rotation, n_valid: int, deleted, *,
-             pool: int, metric_value: int, chunk: int):
-    """Chunked coarse sweep over codes u8[N, G]: (dists f32[B, pool], ids
-    i32[B, pool]) ascending by the decoded distance, rows >= n_valid and
-    ``deleted`` rows skipped.  ``queries`` are in the original space and
-    rotated here under OPQ."""
+def _pq_pool_plain(queries, codes, codebook, rotation, n_valid: int,
+                   deleted, *, pool: int, metric_value: int, chunk: int):
+    """The pool in torch ops, ``chunk`` code rows a step: each chunk
+    decoded (pq_decode, rounded to bf16), scored by pairwise_dist and
+    merged into the running top-``pool``.  The CPU's route; the kernel's
+    plain twin."""
     q = queries if rotation is None else _matmul(queries, rotation)
 
     def score(qq, cblk):
@@ -38,6 +46,25 @@ def _pq_pool(queries, codes, codebook, rotation, n_valid: int, deleted, *,
         return pairwise_dist(qq, rows, metric_value)
 
     return sweep_min_k(q, codes, pool, n_valid, deleted, score, chunk)
+
+
+def _pq_pool(queries, codes, codebook, rotation, n_valid: int, deleted, *,
+             pool: int, metric_value: int, chunk: int):
+    """Coarse sweep over codes u8[N, G]: (dists f32[B, pool], ids i32[B,
+    pool]) ascending by the decoded distance (L2 sqrt'd), rows >= n_valid
+    and ``deleted`` rows skipped.  ``queries`` are in the original space and
+    rotated here under OPQ.  CPU tensors run _pq_pool_plain (``chunk`` rows
+    a step); CUDA tensors one kernel launch a page, every metric (the
+    kernel takes no chunk); any other device raises."""
+    if codes.device.type == "cpu":
+        return _pq_pool_plain(queries, codes, codebook, rotation, n_valid,
+                              deleted, pool=pool, metric_value=metric_value,
+                              chunk=chunk)
+    if codes.device.type != "cuda":
+        raise ValueError(f"no kernel for device {codes.device}")
+    q = queries if rotation is None else _matmul(queries, rotation)
+    return pq_topk_paged(q.contiguous(), codes, pq_table(codebook), pool,
+                         metric_value, n_valid, deleted)
 
 
 def pq_sweep_search(queries, codes, codebook, rotation, points, k: int,

@@ -11,15 +11,19 @@ the exact route's instance and the wide one, where the wrapper's
 WIDE_MIN_K comes from) and the build sweep's (one 256-row insert batch:
 the int8 shadow of the rows at k_run = 2 cand_cap = 256, also at the other
 query tile, and exact mode's float32 / bf16 rows at cand_cap + 2 = 130,
-through the wide instances and, float32, the exact route's).  The
-variants, each against the kernel:
+through the wide instances and, float32, the exact route's), and the
+compressed sweep's pool (ops/pq_sweep._pq_pool: PQ codes of G = 32 bytes
+a row through a normal codebook, B=1024, pools 32 and 256; at the end
+pools 32 to 1024 beside the twin and the library call, and Manhattan:
+pq_pools).  The variants, each against the kernel:
   kernel          as built for the port (the launch shape's resident queries)
   streamed-q      the same library, queries streamed through the ring
   no-select       the selection after each tile removed (scores still made)
   loads-only      the mma's, the score tile and the selection removed
   cvt-rounding    the TF32 split by cvt.rna.tf32.f32 instead of integer ops
   smem-lists      the wide selection's lists in shared memory, every
-                  insertion one by one there (the exact route's way)
+                  insertion one by one there (the exact route's way,
+                  reading and publishing the shared bound)
   serial-select   the wide selection as it was before the shared bound:
                   every admitted row inserted one by one, no bound read
   no-shared-bound the splits' bound published but never read
@@ -31,6 +35,12 @@ variants, each against the kernel:
                   one by one, more merged (the kernel's cut-off is 8)
   unused-bound    the bound read before each tile but not applied (its
                   reads' cost: this minus no-shared-bound)
+  pq-element-reads PQ shapes only: the decoded tile read a code and a table
+                  word for each element, not one a pair of dims
+  pq-no-decode    PQ shapes only: an element is its code's bits, no
+                  table read (the gathers' cost)
+  pq-no-table-copy PQ shapes only: the ring stages no table chunk (its
+                  copies' cost; elements read a stale stage)
 The wide shapes also run the count build (the kernel, and serial-select,
 with atomics: the rows each (query, split) admitted at its tiles' starts,
 the rows merged a tile at a time and the tile merges; mean and max beside
@@ -58,6 +68,7 @@ import torch
 from . import _kernels
 from .core.build import quantize_rows
 from .ops import cuda_bruteforce as cb
+from .ops import pq_sweep
 
 N, D, L2 = 1_000_000, 128, 0
 # (corpus, queries B, k_run, forced query tile, wide): the exact route's
@@ -72,7 +83,10 @@ SHAPES = (("float32", 1024, 12, None, False), ("bf16", 1024, 12, None, False),
           ("float32", 1024, 102, None, True),
           ("int8", 256, 256, None, True), ("int8", 256, 256, 16, True),
           ("float32", 256, 130, None, False),
-          ("float32", 256, 130, None, True), ("bf16", 256, 130, None, True))
+          ("float32", 256, 130, None, True), ("bf16", 256, 130, None, True),
+          ("pq", 1024, 32, None, True), ("pq", 1024, 256, None, True))
+# the PQ shapes' codes a row
+PQ_GROUPS = 32
 SRC = os.path.join(_kernels._PKG_DIR, "csrc", "bruteforce_topk.cu")
 OUT = os.path.join(_kernels.BUILD_DIR, "probe")
 
@@ -87,6 +101,9 @@ _APPLY_BOUND = ("      const float tau =\n"
                 "CUDART_INF_F;\n")
 _ADMITTED = "  if (admitted <= kSerialMax)\n"
 _NAMESPACE = "\nnamespace {\n"
+_PQ_GATHER = "  return tab[(dl >> 1) * kCodes + code];\n"
+_PQ_PAIR = "        if (offset_s[dl] != offset_s[dl + 1])\n"
+_PQ_COPY = "  for (int e = tid; e < kTileD / 2 * kSegs; e += kThreads) {\n"
 # the cut-offs between one-by-one insertion and a tile merge that
 # serial-max-N tries beside the kernel's
 SERIAL_MAX_TRIED = (2, 4, 16)
@@ -180,12 +197,17 @@ def variants(src: str) -> dict:
                    "tau_mine, i)) ? 0.f : CUDART_INF_F;\n")
     cut_offs = {f"serial-max-{n}": _serial_max(src, n)
                 for n in SERIAL_MAX_TRIED}
+    pq = {"pq-no-decode": _once(src, _PQ_GATHER, "  return code;\n"),
+          "pq-element-reads": _once(src, _PQ_PAIR, "        if (true)\n"),
+          "pq-no-table-copy": _once(
+              src, _PQ_COPY,
+              "  for (int e = tid; e < 0; e += kThreads) {\n")}
     return {"kernel": src, "no-select": no_select, "loads-only": loads,
             "cvt-rounding": cvt, "smem-lists": smem_lists,
             "serial-select": serial, "no-shared-bound": no_bound,
             "bound-serial": bound_serial, "bound-merge": bound_merge,
             "unused-bound": unused, "count": _counting(src),
-            "count-serial": _counting(serial), **cut_offs}
+            "count-serial": _counting(serial), **cut_offs, **pq}
 
 
 def build(name: str, src: str):
@@ -194,7 +216,7 @@ def build(name: str, src: str):
         f.write(src)
     proc = subprocess.run([_kernels._nvcc(), *_kernels._NVCC_FLAGS,
                            "-shared", "-o", so, cu], capture_output=True,
-                          text=True)
+                          text=True, env=_kernels.nvcc_env())
     if proc.returncode:
         raise RuntimeError(f"{name}: nvcc failed\n{proc.stderr}")
     lib = ctypes.CDLL(so)
@@ -216,18 +238,21 @@ def time_ms(fn, reps: int) -> float:
 
 
 def launcher(lib, corpus, q, k_run: int, force_qt, wide: bool,
-             streamed: bool, sms: int, stream):
-    """A launch over all N rows, L2, of ``lib``'s wide instance for this
-    corpus (``wide``; int8 rows have no other) or the exact route's, the
-    entry and its shared bound as the wrapper's ``_entry`` makes them, the
-    bound refilled with +inf before each launch.  Returns (call, its launch
-    shape and buffers)."""
+             streamed: bool, sms: int, stream, metric: int = L2):
+    """A launch over all N rows (``metric``, L2 by default) of ``lib``'s wide instance for this
+    corpus (``wide``; int8 rows and PQ codes have no other) or the exact
+    route's, the entry and its shared bound as the wrapper's ``_entry``
+    makes them, the bound refilled with +inf before each launch.  A corpus
+    is float32 / bf16 rows, the int8 shadow (qvec, qscale) or PQ codes and
+    the codebook's table (codes, table).  Returns (call, its launch shape
+    and buffers)."""
     rows_k, scale = corpus if isinstance(corpus, tuple) else (corpus, None)
     isz, b = rows_k.element_size(), q.shape[0]
+    pq = rows_k.dtype == torch.uint8
     qt, splits, q_res, smem = cb._launch_shape(b, N, k_run, sms, isz, D,
-                                               force_qt)
+                                               force_qt, pq)
     if streamed:
-        q_res, smem = False, cb._smem_bytes(qt, k_run, isz, D, False)
+        q_res, smem = False, cb._smem_bytes(qt, k_run, isz, D, False, pq)
     part_d = torch.empty((splits, b, k_run), device="cuda")
     part_i = torch.empty((splits, b, k_run), dtype=torch.int32,
                          device="cuda")
@@ -239,10 +264,13 @@ def launcher(lib, corpus, q, k_run: int, force_qt, wide: bool,
     lead = ((q.data_ptr(), rows_k.data_ptr())
             + (() if scale is None else (scale.data_ptr(),)))
 
+    dims = (D, rows_k.shape[1]) if pq else (D,)
+
     def call():
         if scratch is not None:
             scratch.fill_(float("inf"))
-        err = fn(*lead, None, b, N, D, k_run, L2, qt, splits, int(q_res),
+        err = fn(*lead, None, b, N, *dims, k_run, metric, qt, splits,
+                 int(q_res),
                  smem, part_d.data_ptr(), part_i.data_ptr(),
                  out_d.data_ptr(), out_i.data_ptr(), None, None, *tail,
                  stream)
@@ -290,6 +318,49 @@ def counts(libs, corpus, q, k_run, force_qt, sms, stream) -> None:
           f" {time_ms(merge, 20):.4f} ms", flush=True)
 
 
+def pq_pools(libs, codes, book, qs, sms, stream) -> None:
+    """The PQ pool at every tier the tuner can choose (pools 32 and 256:
+    the wide selection, QT = 64; 512 and 1024: the insertion into shared
+    memory, QT = 16) over the PQ shapes' codes, B=1024, L2: the kernel,
+    no-select (where built), the twin _pq_pool_plain and the library call
+    (pq_decode of every row to bf16, then torch.matmul in float32 +
+    torch.topk to the pool); then Manhattan at pool 32, the kernel (the
+    CUDA cores' sum) against the twin, ids compared.  Each a call between
+    CUDA events after a warm-up call."""
+    from .ops.pq import pq_decode
+    corpus = (codes, cb.pq_table(book))
+
+    def library(pool):
+        rows = pq_decode(codes, book).to(torch.bfloat16).float()
+        torch.topk(torch.matmul(qs, rows.T), pool, dim=1, largest=False,
+                   sorted=False)
+
+    def twin(pool, metric=L2):
+        return pq_sweep._pq_pool_plain(qs, codes, book, None, N, None,
+                                       pool=pool, metric_value=metric,
+                                       chunk=16384)
+    for pool in (32, 256, 512, 1024):
+        got = {}
+        for name in ("kernel", "no-select"):
+            if name in libs:
+                call, shape = launcher(libs[name], corpus, qs, pool, None,
+                                       True, False, sms, stream)
+                got[name] = time_ms(call, 5)
+        got["twin"] = time_ms(lambda: twin(pool), 1)
+        got["library"] = time_ms(lambda: library(pool), 3)
+        print(f"pq pool {pool} (QT={shape['qt']} S={shape['splits']}), "
+              f"B={qs.shape[0]}, G={codes.shape[1]}: " + ", ".join(
+                  f"{k} {v:.3f} ms" for k, v in got.items()), flush=True)
+    call, shape = launcher(libs["kernel"], corpus, qs, 32, None, True, False,
+                           sms, stream, metric=2)
+    ms = time_ms(call, 5)
+    want = twin(32, 2)
+    same = (shape["out_i"] == want[1]).float().mean()
+    print(f"pq pool 32, Manhattan: kernel {ms:.3f} ms, twin "
+          f"{time_ms(lambda: twin(32, 2), 1):.3f} ms; ids equal to the "
+          f"twin's: {same:.5f}", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=10)
@@ -309,7 +380,9 @@ def main() -> int:
             ("smem-lists", False), ("serial-select", False),
             ("no-shared-bound", False), ("bound-serial", False),
             ("bound-merge", False), ("unused-bound", False),
-            *((f"serial-max-{n}", False) for n in SERIAL_MAX_TRIED)]
+            *((f"serial-max-{n}", False) for n in SERIAL_MAX_TRIED),
+            ("pq-element-reads", False), ("pq-no-decode", False),
+            ("pq-no-table-copy", False)]
     if args.variants:
         runs = [r for r in runs if r[0] in args.variants.split(",")]
     with open(SRC) as f:
@@ -323,12 +396,18 @@ def main() -> int:
     wide_only = {"smem-lists", "serial-select", "no-shared-bound",
                  "bound-serial", "bound-merge", "unused-bound",
                  *(f"serial-max-{n}" for n in SERIAL_MAX_TRIED)}
+    pq_only = {"pq-element-reads", "pq-no-decode", "pq-no-table-copy"}
 
     g = torch.Generator(device="cuda").manual_seed(12345)
     rows = torch.randn((N, D), generator=g, device="cuda")
     qs = torch.randn((1024, D), generator=g, device="cuda")
+    book = torch.randn((PQ_GROUPS, 256, D // PQ_GROUPS), generator=g,
+                       device="cuda")
+    codes = torch.randint(0, 256, (N, PQ_GROUPS), generator=g,
+                          device="cuda", dtype=torch.uint8)
     corpora = {"float32": rows, "bf16": rows.to(torch.bfloat16),
-               "int8": quantize_rows(rows)}
+               "int8": quantize_rows(rows),
+               "pq": (codes, cb.pq_table(book))}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     stream = torch.cuda.current_stream().cuda_stream
     best, worst = {}, {}
@@ -337,7 +416,8 @@ def main() -> int:
         for name, streamed in order:
             lib = libs["kernel" if name == "streamed-q" else name]
             for kind, b, k_run, force_qt, wide in SHAPES:
-                if name in wide_only and not wide:
+                if ((name in wide_only and not wide)
+                        or (name in pq_only and kind != "pq")):
                     continue
                 q = qs[:b]
                 call, shape = launcher(lib, corpora[kind], q, k_run, force_qt,
@@ -347,9 +427,12 @@ def main() -> int:
                 best[key, name] = min(ms, best.get((key, name), ms))
                 worst[key, name] = max(ms, worst.get((key, name), ms))
                 note = ""
-                if name in _EXACT and p == 0:
-                    want = cb._bruteforce_topk_plain(q, corpora[kind], k_run,
-                                                     L2, N)[1]
+                if name in _EXACT + ("pq-element-reads",) and p == 0:
+                    want = (pq_sweep._pq_pool_plain(
+                        q, codes, book, None, N, None, pool=k_run,
+                        metric_value=L2, chunk=16384)[1] if kind == "pq"
+                        else cb._bruteforce_topk_plain(
+                            q, corpora[kind], k_run, L2, N)[1])
                     note = (f"; ids equal to the plain twin's: "
                             f"{(shape['out_i'] == want).float().mean():.4f}")
                 print(f"{name:15s} {shape['name']:25s} B={b} k_run={k_run} "
@@ -376,6 +459,8 @@ def main() -> int:
     for kind, b, k_run, force_qt, wide in SHAPES:
         if wide:
             counts(libs, corpora[kind], qs[:b], k_run, force_qt, sms, stream)
+    if "kernel" in libs:
+        pq_pools(libs, codes, book, qs, sms, stream)
     return 0
 
 

@@ -905,6 +905,8 @@ def _assert_pool_near(got, want, rows, pts, metric, rtol):
             p = r[torch.as_tensor(ids).clamp(min=0).long().to(r.device)]
             if metric == 0:
                 return torch.sqrt(((p - q[:, None]) ** 2).sum(-1))
+            if metric == 2:
+                return (p - q[:, None]).abs().sum(-1)
             return 1 - (p * q[:, None]).sum(-1) / torch.sqrt(
                 (p * p).sum(-1) * (q * q).sum(-1)[:, None])
         a, b = d64(ik).cpu().numpy(), d64(ip).cpu().numpy()
@@ -1551,3 +1553,184 @@ def test_connect_batch_counters(cuda):
                               kept, cnt, n_insert, m=m, max_m=32,
                               metric_value=0)
     assert stats.tolist() == got
+
+
+# --- the compressed sweep's pool: the PQ instance --------------------------
+
+def pq_case(seed, n, d, groups, b, integer=True):
+    """Codes u8[n, G], a codebook f32[G, 256, d / G] and queries f32[b, d].
+    With ``integer`` the codebook and the queries are integers in [-4, 4]:
+    every product and partial sum of a score is exact in float32 whatever
+    the order (|p|^2, |q|^2 <= 16 d), and equal distances are frequent;
+    else normal values."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 256, size=(n, groups)).astype(np.uint8)
+    shape = (groups, 256, d // groups)
+    if integer:
+        book = rng.integers(-4, 5, size=shape).astype(np.float32)
+        qs = rng.integers(-4, 5, size=(b, d)).astype(np.float32)
+    else:
+        book = rng.normal(size=shape).astype(np.float32)
+        qs = rng.normal(size=(b, d)).astype(np.float32)
+    return tuple(torch.from_numpy(a) for a in (codes, book, qs))
+
+
+def _pq_pools(cuda, codes, book, qs, rotation, n_valid, dead, pool,
+              metric):
+    """The kernel's pool (_pq_pool on the card, its launches counted) and
+    the twin's (_pq_pool_plain on the card)."""
+    from pg_embedding_tpu_torch.ops import pq_sweep
+    kw = dict(pool=pool, metric_value=metric, chunk=4096)
+    before = cb.LAUNCHES["bruteforce_topk_pq"]
+    got = pq_sweep._pq_pool(qs, codes, book, rotation, n_valid, dead, **kw)
+    torch.cuda.synchronize()
+    assert cb.LAUNCHES["bruteforce_topk_pq"] == before + (
+        1 if pool <= cb.MAX_K_RUN else 2)
+    want = pq_sweep._pq_pool_plain(qs, codes, book, rotation, n_valid, dead,
+                                   **kw)
+    return got, want
+
+
+# (D, G): sub = D / G of 12, 8, 6 and 3 dims (12, 6 and 3 do not divide
+# the 32-dim chunk), G = 32 at D = 128 (the smoke's), and G % 4 != 0 with
+# D % 32 != 0 (byte loads of the code rows, a chunk past D)
+PQ_SHAPES = [(96, 8), (96, 12), (96, 16), (96, 32), (128, 32), (30, 6)]
+
+
+@pytest.mark.parametrize("d,groups", PQ_SHAPES)
+@pytest.mark.parametrize("pool", [16, 64, 256, 1024, 1500])
+def test_pq_kernel_bit_equal_on_integers(cuda, d, groups, pool):
+    """bruteforce_topk_pq (through _pq_pool: one launch, two pages past
+    1024) against its twin _pq_pool_plain on integer codebooks and queries:
+    every pool tier (the wide selection to 256, the insertion into shared
+    memory past it, pages), tombstones, n_valid not a multiple of 128; ids
+    and distances bit for bit, L2 and cosine (the PQ instance rounds its
+    score's every operation as the twin's torch ops do) and Manhattan (the
+    CUDA cores' sum: every partial sum an exact integer)."""
+    codes, book, qs = (t.to(cuda) for t in pq_case(d + groups + pool,
+                                                   20_000, d, groups, 65))
+    g = torch.Generator().manual_seed(pool)
+    dead = (torch.rand(20_000, generator=g) < 0.05).to(cuda)
+    for metric in (0, 1, 2):
+        got, want = _pq_pools(cuda, codes, book, qs, None, 19_937, dead,
+                              pool, metric)
+        assert bool((got[1] >= 0).all())
+        _assert_pool_bit_equal(got, want)
+
+
+@pytest.mark.parametrize("metric", [0, 1, 2])
+@pytest.mark.parametrize("d,groups,pool,rotate", [
+    (128, 32, 32, False), (128, 16, 256, True), (96, 12, 1024, False),
+    (960, 32, 64, False), (100, 25, 130, True)])
+def test_pq_kernel_float_codebooks(cuda, metric, d, groups, pool, rotate):
+    """Normal codebooks and queries, OPQ's rotation in two cases: the
+    kernel's pool against the twin's, distances at rtol 1e-5 and ids
+    except float64 near-ties over the decoded bf16 rows."""
+    from pg_embedding_tpu_torch.ops.distance import _matmul
+    from pg_embedding_tpu_torch.ops.pq import pq_decode
+    n = 30_000
+    codes, book, qs = (t.to(cuda) for t in pq_case(d + pool, n, d, groups,
+                                                   300, integer=False))
+    rotation = None
+    if rotate:
+        g = torch.Generator().manual_seed(d)
+        rotation = torch.linalg.qr(torch.randn((d, d), generator=g))[0]
+        rotation = rotation.to(cuda)
+    got, want = _pq_pools(cuda, codes, book, qs, rotation, n - 3, None,
+                          pool, metric)
+    rows = pq_decode(codes[:n - 3], book).to(torch.bfloat16).float()
+    q = qs if rotation is None else _matmul(qs, rotation)
+    _assert_pool_near(got, want, rows, q, metric, 1e-5)
+
+
+def test_pq_pool_routes_counts_and_refuses(cuda):
+    """Manhattan launches the kernel on the card, once, counted under its
+    name and nothing else; out-of-scope arguments (a metric past
+    Manhattan's among them) raise in the wrapper, a wrong shared-memory
+    figure or an unaligned table in the C launch."""
+    from pg_embedding_tpu_torch import _kernels
+    from pg_embedding_tpu_torch.ops import pq_sweep
+    codes, book, qs = (t.to(cuda) for t in pq_case(5, 3000, 32, 8, 16))
+    before = dict(cb.LAUNCHES)
+    d, i = pq_sweep._pq_pool(qs, codes, book, None, 3000, None, pool=64,
+                             metric_value=2, chunk=1024)
+    torch.cuda.synchronize()
+    before["bruteforce_topk_pq"] += 1
+    assert cb.LAUNCHES == before and i.shape == (16, 64)
+    table = cb.pq_table(book)
+    # rows 2 bytes past a 16-byte boundary
+    unaligned = torch.empty(32 * 256 + 1, dtype=torch.bfloat16,
+                            device=cuda)[1:].view(16, 256, 2)
+    unaligned.copy_(table)
+    ok = dict(queries=qs, codes=codes, table=table, k_run=10,
+              metric_value=0, n_valid=3000)
+    cb.pq_topk(**ok)
+    for bad in (dict(k_run=0), dict(k_run=1025), dict(metric_value=3),
+                dict(table=table[:, :128].contiguous()),
+                dict(table=table.float()),
+                dict(table=unaligned), dict(codes=codes[:, :6].contiguous()),
+                dict(codes=codes.to(torch.int8)),
+                dict(codes=codes.t().contiguous().t()),
+                dict(queries=qs.double()),
+                dict(deleted=torch.zeros(10, dtype=torch.bool, device=cuda))):
+        with pytest.raises(ValueError):
+            cb.pq_topk(**{**ok, **bad})
+    lib = _kernels.load_library()
+    part = torch.empty((1, 16, 10), device=cuda)
+    out = torch.empty((16, 10), device=cuda)
+    qt, splits, q_res, smem = cb._launch_shape(16, 3000, 10, 132, 1, 32,
+                                               pq=True)
+    stream = torch.cuda.current_stream().cuda_stream
+    for tab, fig in ((table, smem + 16), (table, smem - 16),
+                     (unaligned, smem)):
+        err = lib.bruteforce_topk_pq(
+            qs.data_ptr(), codes.data_ptr(), tab.data_ptr(), None, 16, 3000,
+            32, 8, 10, 0, qt, 1, int(q_res), fig, part.data_ptr(),
+            part.data_ptr(), out.data_ptr(), out.data_ptr(), None, None,
+            None, 0, stream)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            _kernels.check(lib, err, "bruteforce_topk_pq")
+    # the C launch takes no metric past Manhattan's
+    err = lib.bruteforce_topk_pq(
+        qs.data_ptr(), codes.data_ptr(), table.data_ptr(), None, 16, 3000,
+        32, 8, 10, 3, qt, 1, int(q_res), smem, part.data_ptr(),
+        part.data_ptr(), out.data_ptr(), out.data_ptr(), None, None, None, 0,
+        stream)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _kernels.check(lib, err, "bruteforce_topk_pq")
+
+
+@pytest.mark.parametrize("metric", ["l2", "manhattan"])
+def test_sweep_pq_search_launches_the_pq_instance(cuda, metric):
+    """search(mode="sweep_pq") on the card, L2 and Manhattan: one
+    bruteforce_topk_pq launch a call and no other kernel, and the CPU
+    index's labels except float64 near-ties; the sharded index launches it
+    once a shard."""
+    from pg_embedding_tpu_torch import ShardedHnswIndex
+    rng = np.random.default_rng(17)
+    pts = rng.normal(size=(6000, 32)).astype(np.float32)
+    qs = rng.normal(size=(40, 32)).astype(np.float32)
+    cfg = HnswConfig(dims=32, m=8, ef_construction=32, ef_search=32,
+                     metric=metric)
+    kw = dict(pq_groups=8)
+    gpu = HnswIndex(cfg, device=cuda, **kw)
+    cpu = HnswIndex(cfg, device="cpu", **kw)
+    for idx in (gpu, cpu):
+        idx.build(pts)
+    # the CPU's codebook and codes on both: the pools then differ only at
+    # float32 near-ties
+    gpu._pq_codebook = cpu._ensure_pq_codebook().to(cuda)
+    gpu._pq_codes = cpu._ensure_pq_codes().to(cuda)
+    before = dict(cb.LAUNCHES)
+    dg, lg, _ = gpu.search(qs, 10, mode="sweep_pq")
+    before["bruteforce_topk_pq"] += 1
+    assert cb.LAUNCHES == before
+    dc, lc, _ = cpu.search(qs, 10, mode="sweep_pq")
+    same = lg == lc
+    assert same.mean() >= 0.99
+    np.testing.assert_allclose(dg[same], dc[same], rtol=1e-5, atol=1e-6)
+    sharded = ShardedHnswIndex(cfg, 4, device=cuda, **kw)
+    sharded.build(pts)
+    before = cb.LAUNCHES["bruteforce_topk_pq"]
+    sharded.search(qs, 10, mode="sweep_pq")
+    assert cb.LAUNCHES["bruteforce_topk_pq"] == before + 4

@@ -195,15 +195,17 @@ def _c_smem_bytes(itemsize, qt, k_run, dims, q_res):
 @pytest.mark.parametrize("dims", [30, 128, 960])
 def test_smem_bytes_match_the_kernel(itemsize, dims):
     """_smem_bytes against sweep_smem_bytes<T>, which every entry (the
-    exact route's, the wide ones and the int8 one) reaches through
-    run_topk, one figure for every instance of a row type."""
+    exact route's, the wide ones, the int8 one and the PQ one) reaches
+    through run_topk, one figure for every instance of a row type (the PQ
+    instance's: tests/test_torch_pq_pool.py)."""
     src = open(os.path.join(os.path.dirname(cb.__file__), "..", "csrc",
                             "bruteforce_topk.cu")).read()
-    assert ("(scaled_rows<T>() ? kTileN * sizeof(float) : 0)" in src
+    assert ("stage_extra_bytes<T>() +" in src
+            and "return scaled_rows<T>() ? kTileN * 4" in src
             and "return std::is_same<T, int8_t>::value;" in src)
     assert src.count("sweep_smem_bytes<T>(qt, k_run, D, q_res != 0)") == 1
     entries = src[src.index('extern "C" {'):]
-    assert entries.count("return run_topk<") == 5
+    assert entries.count("return run_topk<") == 6
     for qt in (64, 16):
         for k_run in (1, 130, 256, 1024):
             for q_res in (True, False):
@@ -298,6 +300,10 @@ def test_sweep_probe_rewrites_find_their_text():
     assert "constexpr int kSerialMax = 8;" in got["no-shared-bound"]
     assert "constexpr bool kReadBound = false;" in got["serial-select"]
     assert "constexpr int kSerialMax = kRegK;" in got["serial-select"]
+    assert "        if (true)\n" in got["pq-element-reads"]
+    assert "  return code;\n" in got["pq-no-decode"]
+    assert "  for (int e = tid; e < 0; e += kThreads) {\n" in got[
+        "pq-no-table-copy"]
     for name, base in (("count", src), ("count-serial",
                                          got["serial-select"])):
         assert got[name].count("atomicAdd(&g_probe_counts") == 3
@@ -313,7 +319,7 @@ def test_sweep_probe_rewrites_find_their_text():
         assert "constexpr bool kReadBound = true;" in got[name]
         assert f"constexpr int kSerialMax = {serial_max};" in got[name]
     assert len({*got.values()}) == len(got) == (
-        12 + len(sweep_probe.SERIAL_MAX_TRIED))
+        15 + len(sweep_probe.SERIAL_MAX_TRIED))
 
 
 # --- the wide selection: the bound shared across splits ---------------------
