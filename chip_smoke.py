@@ -10,14 +10,17 @@ Phases, each printing one line (no failure is caught; any failed check
 exits non-zero):
   1. device: the card's name and power limit, torch/CUDA versions, TF32 off;
   2. build the CUDA kernels from the repository's sources;
-  3. the kernel: its compiler report (registers, spills) and the TF32
-     HMMA instructions of each of its 20 sweep instances (cuobjdump -sass;
-     the exact route's eight float32 / bf16 ones must report the registers
-     and spills they had before the int8 instance, SWEEP_PTXAS; the four
-     wide float32 / bf16 ones, the four int8 ones and the four PQ ones are
-     printed); against
-     its
-     plain torch twin: L2 and cosine, D in {30, 100, 128, 960}, k_run from 1
+  3. the kernel: its compiler report (registers, spills) and the HMMA
+     instructions of each of its 28 row sweep instances and the PQ
+     kernel's (cuobjdump -sass: TF32 in every row instance but the twelve
+     Manhattan ones, which run none; bf16 in the PQ sweep; the exact
+     route's eight float32 / bf16 ones must report the registers and
+     spills they had before the int8 instance, SWEEP_PTXAS; the four wide
+     float32 / bf16 ones, the four int8 ones, the twelve Manhattan ones
+     and the PQ sweeps and select are printed); against its plain torch
+     twin: L2 and cosine, and Manhattan (the exact route's k = 10, the
+     build's pool of 256 over the int8 shadow, QT = 16, pages, bf16 rows
+     aligned and not), D in {30, 100, 128, 960}, k_run from 1
      to 1024 with each query tile's edges (64 / 65, 256 / 257), B not a
      multiple of the tile, with and without n_valid < N and tombstones, one
      k > n_valid case, up to 1M rows x 1024 queries, for a float32 corpus,
@@ -98,7 +101,10 @@ exits non-zero):
      replaced (loop_pool) and torch.matmul + torch.topk, which the kernel
      must beat on the card; the same for exact mode (bruteforce_topk_wide
      over float32 rows and bruteforce_topk_bf16_wide over their bf16
-     values, pool cand_cap + 2, beside addmm + topk); the wiring of that
+     values, pool cand_cap + 2, beside addmm + topk) and for Manhattan over
+     the shadow (bruteforce_topk_q8_l1 beside its twin, the torch-op loop
+     and torch.cdist(p=1) + topk, its bound 2 B N D float32 operations);
+     the wiring of that
      add()'s batch (captured by wrapping core/build._connect_batch):
      connect_batch against its plain twin (core/build._connect_sorted_plain:
      the forward rows, then _replay_chains) on copies of the links (every
@@ -166,14 +172,24 @@ exits non-zero):
      queries, then search(mode="sweep_pq") on all (recall@10 >= 0.95,
      distances equal to a float64 recompute at rtol 1e-5, QPS), every
      count set to 0 before the tuner: only bruteforce_topk_pq launches; its
-     pool (ops/pq_sweep._pq_pool: one bruteforce_topk_pq launch, the codes
-     decoded through the codebook in the kernel) against its twin
-     _pq_pool_plain on all queries (ids on >= 99.9% of slots, every other
-     a float64 near-tie; distances rtol 1e-5), timed a call, on the card,
-     beside its bound, the twin and library_ms (pq_decode + torch.matmul +
-     torch.topk), and its Manhattan sum against the twin on 128 queries
-     (the same bar); save -> load (the same codebook bytes, walk and sweep
-     labels);
+     pool (ops/pq_sweep._pq_pool: one bruteforce_topk_pq call, the codes
+     decoded through the codebook in the kernel, csrc/pq_topk.cu) against
+     its twin _pq_pool_plain on all queries (ids on >= 99.9% of slots,
+     every other a float64 near-tie; distances rtol 1e-5), timed a call,
+     on the card, beside its bound, the twin and library_ms (pq_decode +
+     torch.matmul + torch.topk), the same at pools 32, 256, 512 and 1024,
+     and its Manhattan sum against the twin on 128 queries (the same bar);
+     save -> load (the same codebook bytes, walk and sweep labels);
+  8b. (run after phase 7, before phase 9) a Manhattan index of config 1's
+     shape on the main path's rows (m=16, efc=64, exact8), every count set
+     to 0 before its build: one bruteforce_topk_q8_l1 launch a batch past
+     the first and no torch-op sweep; its exact route (one
+     bruteforce_topk_l1 launch) against a float64 oracle over every row
+     and against its twin on all queries; its graph route's recall@10
+     against its exact route, printed; the exact route at 1M, B=1024,
+     k=10 over float32 rows and their bf16 values (bruteforce_topk_bf16_l1
+     through fused_exact_search), each timed beside its twin, its bound
+     and torch.cdist(p=1) + topk;
   9. the sharded index (parallel/sharded.ShardedHnswIndex, 4 shards on the
      card, batches of 256 rows a shard as the single index takes them) on
      the main index's rows and queries, built from scratch: build
@@ -203,16 +219,20 @@ exits non-zero):
      equal on both routes except explained near-ties; per-rank load / save
      / build seconds, QPS and launches printed;
  10. VectorTable on the card: the knn.sql replay (3-d), then a 20,000 x
-     128-d table with <->, <=> and <~> indexes: the seq scan
-     (order_by(use_index=False), through the exact entry) against a
-     float64 oracle, and the pull scan against order_by through the index.
+     128-d table with <->, <=> and <~> indexes, each built with one kernel
+     launch a batch past the first (bruteforce_topk_q8, and _q8_l1 for
+     <~>) and no torch-op sweep: the seq scan (order_by(use_index=False),
+     through the exact entry) against a float64 oracle, and the pull scan
+     against order_by through the index.
 Phases are timed with utils/profiling's Timer (synchronising the card).
 The last three lines are the card's nvidia-smi line, a JSON line of the
 kernels ("launches" from the main path of phase 4, the wide instances'
-from their own path, the exact-mode builds, and the PQ instance's from
-phase 8's sweep_pq, each counted from 0 just before it; the build sweep
-instances' timings are phase 4b's on the add()'s 1M batch, with "loop_ms"
-(the torch-op loop each replaced); for prune_scan also
+from their own path, the exact-mode builds, the Manhattan instances' from
+phase 8b's index and the PQ kernel's from phase 8's sweep_pq, each counted
+from 0 just before it; the build sweep instances' timings (Manhattan's
+exact8 one too) are phase 4b's on the add()'s 1M batch, with "loop_ms"
+(the torch-op loop each replaced), the Manhattan exact route's phase 8b's;
+the PQ kernel's "pools" and "manhattan" phase 8's; for prune_scan also
 "insert_launches" and "reprune_launches", the build's launches at the
 insert's width and at the re-prune's (0: the re-prunes run inside
 connect_batch); for connect_batch its counters on the add()'s batch,
@@ -230,8 +250,8 @@ counted from zero; the main path, phase 9 and phase 11 must each launch
 beam_walk, prune_scan and connect_batch, every walk variant must reach the
 kernel, and no walk of phases 4-11 may run the plain twin on the card, nor
 any candidate sweep the torch-op loop, nor any wiring or PQ pool the plain
-twin (phase 10 included): only the smoke's own twin calls do, under
-own_twin_calls), and {"ok": true,
+twin (phase 10 included, its Manhattan index too): only the smoke's own
+twin calls do, under own_twin_calls), and {"ok": true,
 "device": {...}}.
 
 Needs a CUDA device and nvcc; without a device it exits non-zero before
@@ -282,8 +302,16 @@ MP_BUILD_ROWS = 200_000
 MP_TIMEOUT = 420
 LAUNCH_NAMES = ("bruteforce_topk", "bruteforce_topk_bf16",
                 "bruteforce_topk_q8", "bruteforce_topk_wide",
-                "bruteforce_topk_bf16_wide", "bruteforce_topk_pq",
-                "beam_walk", "prune_scan", "connect_batch")
+                "bruteforce_topk_bf16_wide", "bruteforce_topk_l1",
+                "bruteforce_topk_bf16_l1", "bruteforce_topk_q8_l1",
+                "bruteforce_topk_pq", "beam_walk", "prune_scan",
+                "connect_batch")
+# the Manhattan instances (the CUDA cores' sum, no tensor-core product)
+L1_SWEEPS = ("bruteforce_topk_l1", "bruteforce_topk_bf16_l1",
+             "bruteforce_topk_q8_l1")
+# phase 8: the PQ pools timed beside the twin and the library call (the
+# tuner's choices reach 1024)
+PQ_POOLS = (32, 256, 512, 1024)
 # the sweep's instances of the build's pools (exact8, exact mode)
 BUILD_SWEEPS = ("bruteforce_topk_q8", "bruteforce_topk_wide",
                 "bruteforce_topk_bf16_wide")
@@ -394,6 +422,23 @@ def compare(torch, got, want, qs, pts, metric, n_valid, dead,
     return err, int(diff.sum())
 
 
+def f64_errors(torch, got, want, qs, pts, metric):
+    """Kernel and plain against float64 over the rows they returned: the
+    mean and largest |d - d64| of each, and the largest kernel-plain
+    difference over compare's tolerance (1e-5 d + 1e-6; past 1 it
+    fails).  Returns a phrase for the log."""
+    out = []
+    for d, ids in (got, want):
+        fin = torch.isfinite(d)
+        e = (d.double() - true_dist(torch, qs, pts, ids, metric))[fin].abs()
+        out.append(f"mean {float(e.mean()):.3g}, largest {float(e.max()):.3g}")
+    fin = torch.isfinite(want[0])
+    ratio = ((got[0] - want[0]).abs() / (1e-5 * want[0].double().abs()
+                                          + 1e-6))[fin].max()
+    return (f"vs float64 kernel {out[0]}, plain {out[1]}; largest "
+            f"difference {float(ratio):.3f} of the tolerance")
+
+
 def time_ms(torch, fn, reps):
     fn()
     torch.cuda.synchronize()
@@ -465,6 +510,16 @@ def kernel_phase(torch, cb, dev):
         (COSINE, 100_000, 30, 17, 64, 0.8, True, f32),
         (L2, 1_000_000, 128, 256, 130, 1.0, False, bf16),
         (COSINE, 100_000, 960, 63, 256, 1.0, True, bf16),
+        # Manhattan's instances (the CUDA cores' sum): the exact route's
+        # k = 10 at B = 1024, the build's pool of 256 over the int8
+        # shadow, QT = 16, pages, D % 4 != 0, tombstones
+        (MANHATTAN, 300_000, 128, 1024, 10, 0.9, True, f32),
+        (MANHATTAN, 200_000, 100, 300, 257, 1.0, False, f32),
+        (MANHATTAN, 100_000, 30, 65, 1500, 0.8, True, f32),
+        (MANHATTAN, 300_000, 128, 1024, 10, 1.0, True, bf16),
+        (MANHATTAN, 100_000, 960, 17, 130, 0.9, False, "bf16 unaligned"),
+        (MANHATTAN, 300_000, 128, 256, 256, 1.0, False, "q8"),
+        (MANHATTAN, 100_000, 100, 63, 1024, 0.9, True, "q8"),
     ]
     from pg_embedding_tpu_torch.core.build import quantize_rows
     i8 = torch.int8
@@ -500,11 +555,11 @@ def kernel_phase(torch, cb, dev):
         live = n_valid - (0 if dead is None else int(dead[:n_valid].sum()))
         if k_run > live:
             check(bool((got[1][:, live:] == -1).all()), "k > n_valid padding")
-        name = cb._instance(dtype, k_run)[0]
+        name = cb._instance(dtype, k_run, manhattan=metric == MANHATTAN)[0]
         max_err[name] = max(max_err[name], err)
         log(f"kernel vs plain: {name}"
             f"{' (unaligned view)' if unaligned else ''} "
-            f"{'l2' if metric == L2 else 'cosine'} "
+            f"{('l2', 'cosine', 'manhattan')[metric]} "
             f"N={n} D={d} B={b} k_run={k_run} n_valid={n_valid} "
             f"tombstones={tomb}: max_abs_err={err:.3g} near-tie id "
             f"swaps={n_diff}")
@@ -542,7 +597,7 @@ def kernel_phase(torch, cb, dev):
                          plain_ms=(plain_ms + plain_ms2) / 2,
                          bound_ms=bound, bound_by=bound_by,
                          library_ms=lib_ms)
-    for name in BUILD_SWEEPS:
+    for name in BUILD_SWEEPS + L1_SWEEPS:
         out[name] = dict(max_abs_err=max_err[name])
     return out
 
@@ -557,6 +612,13 @@ def products_s(b, n, d, bf16_values):
     if not bf16_values:
         return 3 * flops / PEAK_TF32
     return min(2 * flops / PEAK_TF32, 3 * flops / PEAK_BF16)
+
+
+def l1_bound_ms(b, n, d):
+    """The least time of a Manhattan sweep: 2 B N D float32 operations (a
+    subtraction and an addition a term) on the CUDA cores at the float32
+    rate (the bytes are far less).  Returns (ms, "operations")."""
+    return 2.0 * b * n * d / PEAK_F32 * 1e3, "operations"
 
 
 def bound_ms(b, n, d, itemsize, k_run):
@@ -586,18 +648,28 @@ def library_ms(torch, qs, rows, k_run):
 
 
 def compiler_report(_kernels):
-    """ptxas's registers and spills for each sweep instance (the exact
-    route's eight, the four wide float32 / bf16 ones and the four int8
-    ones) and each walk, scan and wiring instance, and the TF32 HMMA count
-    of each sweep instance in the built library's SASS; fails if an instance runs no TF32 HMMA, or if one of the exact route's
-    eight reports other registers or spills than before (SWEEP_PTXAS)."""
+    """ptxas's registers and spills for each row sweep instance (the exact
+    route's eight, the four wide float32 / bf16 ones, the four int8 ones
+    and the twelve Manhattan ones), the PQ kernel's sweep (L2 / cosine and
+    Manhattan) and select, and each walk, scan and wiring instance, and the
+    HMMA count of each sweep in the built library's SASS; fails if a row
+    instance but Manhattan's runs no TF32 HMMA, if a Manhattan instance
+    runs any, if the PQ sweep runs no bf16 HMMA (or any TF32 one, or its
+    Manhattan sweep any), or if one of the exact route's eight reports
+    other registers or spills than before (SWEEP_PTXAS)."""
     def instance(mangled):
-        m = re.search(r"sweep_kernel(_wide)?(_q8|_pq)?ILi(\d+)ELb([01])E"
-                      r"([ft]?)E", mangled)
-        elem = {"_q8": "int8", "_pq": "pq codes"}.get(m and m[2])
-        return m and (f"sweep_kernel{m[1] or ''}<QT={m[3]}, "
-                      f"{'resident' if m[4] == '1' else 'streamed'} queries, "
-                      f"{elem or dict(f='float', t='bf16')[m[5]]}>")
+        m = re.search(r"sweep_kernel(_wide|_q8|_l1)?ILi(\d+)ELb([01])E"
+                      r"([fta]?)E", mangled)
+        if m:
+            elem = dict(f="float", t="bf16", a="int8").get(m[4], "int8")
+            return (f"sweep_kernel{m[1] or ''}<QT={m[2]}, "
+                    f"{'resident' if m[3] == '1' else 'streamed'} queries, "
+                    f"{elem}>")
+        m = re.search(r"pq_sweep_kernelILb([01])E", mangled)
+        if m:
+            return (f"pq_sweep_kernel<"
+                    f"{'Manhattan' if m[1] == '1' else 'L2 / cosine'}>")
+        return "pq_select_kernel" if "pq_select_kernel" in mangled else None
     def graph_instance(mangled):
         m = re.search(r"beam_walk_kernelILi(\d)ELb([01])ELi(\d+)ELb([01])E",
                       mangled)
@@ -644,14 +716,24 @@ def compiler_report(_kernels):
         m = re.search(r"Function : (\w+)", line)
         if m:
             name = instance(m[1])
-        elif name and "HMMA" in line and "TF32" in line:
-            counts[name] = counts.get(name, 0) + 1
-            example.setdefault(name, line.split(";")[0].split("*/")[-1]
-                               .strip())
-    for name in sorted(counts):
-        log(f"sass {name}: {counts[name]} TF32 HMMA, e.g. {example[name]}")
-    check(len(built) == 20 and set(counts) == built,
-          f"TF32 HMMA in {len(counts)} of {len(built)} sweep instances")
+        elif name and "HMMA" in line:
+            kind = ("TF32" if "TF32" in line else "BF16" if "BF16" in line
+                    else "other")
+            counts[name, kind] = counts.get((name, kind), 0) + 1
+            example.setdefault((name, kind), line.split(";")[0]
+                               .split("*/")[-1].strip())
+    for name, kind in sorted(counts):
+        log(f"sass {name}: {counts[name, kind]} {kind} HMMA, e.g. "
+            f"{example[name, kind]}")
+    rows = {n for n in built if n.startswith("sweep_kernel")}
+    l1 = {n for n in rows if n.startswith("sweep_kernel_l1")}
+    tf32 = {n for n, k in counts if k == "TF32"}
+    check(len(rows) == 28 and len(l1) == 12 and tf32 == rows - l1,
+          f"TF32 HMMA in {len(tf32)} of {len(rows)} row sweep instances "
+          f"({len(l1)} Manhattan ones, which run none)")
+    check(set(counts) == {*((n, "TF32") for n in rows - l1),
+                          ("pq_sweep_kernel<L2 / cosine>", "BF16")},
+          f"HMMA by kind: {sorted(counts)}")
     for name, want in SWEEP_PTXAS.items():
         check(reports.get(name) == list(want),
               f"ptxas {name}: {reports.get(name)}, earlier {want}")
@@ -1234,7 +1316,11 @@ def sweep_phase(torch, idx, args):
     the card beside the bound, the twin, the torch-op loop it replaced
     (loop_pool) and the library call (torch.matmul + torch.topk for exact8,
     addmm + topk for exact mode), all in this run, which the kernel must
-    beat on the card.  Returns the kernels line's numbers by instance."""
+    beat on the card.  Then Manhattan's exact8 sweep on the same batch and
+    shadow (bruteforce_topk_q8_l1, the CUDA cores' sum; the library call
+    torch.cdist(p=1) + torch.topk over the dequantised rows, its bound the
+    2 B N D float32 operations at 67 TFLOP/s).  Returns the kernels line's
+    numbers by instance."""
     from pg_embedding_tpu_torch.graph_probe import device_ms
     from pg_embedding_tpu_torch.ops import cuda_bruteforce as cb
     from pg_embedding_tpu_torch.ops.bruteforce import _rerank_exact
@@ -1246,11 +1332,15 @@ def sweep_phase(torch, idx, args):
     for mode, rows, pool in (("exact8", shadow, keep),
                              ("exact", vectors, cand_cap + 2),
                              ("exact bf16", vectors.to(torch.bfloat16),
-                              cand_cap + 2)):
-        scaled = mode == "exact8"
+                              cand_cap + 2),
+                             ("exact8 manhattan", shadow, keep)):
+        scaled = mode.startswith("exact8")
+        if mode == "exact8 manhattan":
+            metric = MANHATTAN
         dense = (cb.dequantize_rows(shadow[0][:base], shadow[1][:base])
                  .float() if scaled else rows[:base].float())
-        name = cb._instance(torch.int8 if scaled else rows.dtype, pool)[0]
+        name = cb._instance(torch.int8 if scaled else rows.dtype, pool,
+                            manhattan=metric == MANHATTAN)[0]
 
         def kernel():
             return cb.sweep_pool(points, rows, pool, metric, base)
@@ -1265,7 +1355,8 @@ def sweep_phase(torch, idx, args):
             got, want, old = kernel(), twin(), loop()
             torch.cuda.synchronize()
             err, swaps = compare(torch, got, want, points, dense, metric,
-                                 base, None, cancel_units=SHARD_UNITS)
+                                 base, None, cancel_units=SHARD_UNITS
+                                 if metric != MANHATTAN else 0)
             final = [_rerank_exact(points, vectors, r[1], k=cand_cap,
                                    metric_value=metric)[1]
                      for r in (got, want, old)]
@@ -1275,10 +1366,17 @@ def sweep_phase(torch, idx, args):
             dev_ms = device_ms(kernel)
             plain_ms = median_ms(torch, twin)
             loop_ms = median_ms(torch, loop)
-        lib_ms = (sweep_yardstick_ms(torch, points, dense, pool) if scaled
-                  else library_ms(torch, points, dense, pool))
-        bound, bound_by = bound_ms(b, base, d, (rows[0] if scaled else rows)
-                                   .element_size(), pool)
+        if metric == MANHATTAN:
+            lib_ms = median_ms(torch, lambda: torch.topk(
+                torch.cdist(points, dense, p=1.0), pool, dim=1,
+                largest=False, sorted=False))
+            bound, bound_by = l1_bound_ms(b, base, d)
+        else:
+            lib_ms = (sweep_yardstick_ms(torch, points, dense, pool)
+                      if scaled else library_ms(torch, points, dense, pool))
+            bound, bound_by = bound_ms(b, base, d,
+                                       (rows[0] if scaled else rows)
+                                       .element_size(), pool)
         earlier = EARLIER_SWEEP_MS.get(mode)
         before = ("" if earlier is None
                   else f"; {earlier} before the wide selection")
@@ -1293,10 +1391,11 @@ def sweep_phase(torch, idx, args):
             f"); bound {bound:.4f} ms ({bound_by}; {bound / dev_ms:.1%} of it "
             f"reached on the card); plain twin {plain_ms:.3f} ms; the "
             f"torch-op loop it replaced {loop_ms:.3f} ms; library "
-            f"({'torch.matmul' if scaled else 'torch.addmm'} + torch.topk) "
+            f"({'torch.cdist' if metric == MANHATTAN else 'torch.matmul' if scaled else 'torch.addmm'} + torch.topk) "
             f"{lib_ms:.3f} ms (median of 5, CUDA events)")
-        check(dev_ms < lib_ms, f"{mode}: the kernel's {dev_ms:.3f} ms on the "
-              f"card is not below the library call's {lib_ms:.3f} ms")
+        if metric != MANHATTAN:
+            check(dev_ms < lib_ms, f"{mode}: the kernel's {dev_ms:.3f} ms on "
+                  f"the card is not below the library call's {lib_ms:.3f} ms")
         # exact mode's pad of 2 leaves the rerank no room for a pool-edge
         # near-tie (the pool itself is held above); exact8's pool is 2x
         if scaled:
@@ -2089,11 +2188,125 @@ def codes_card_vs_cpu(torch, idx, rows=100_000):
     check(worst < 1e-5, f"a differing code is not a near-tie ({worst})")
 
 
+def l1_oracle(torch, qs, rows, k, chunk=65_536):
+    """The k least float64 Manhattan distances and their ids from each
+    query to ``rows`` (torch.cdist in float64, a chunk of rows at a time,
+    ties by the lower id)."""
+    q = qs.double()
+    best_d = torch.full((len(q), k), float("inf"), dtype=torch.float64,
+                        device=q.device)
+    best_i = torch.full((len(q), k), -1, dtype=torch.int64, device=q.device)
+    for start in range(0, len(rows), chunk):
+        d = torch.cdist(q, rows[start:start + chunk].double(), p=1.0)
+        ids = torch.arange(start, start + d.shape[1], device=q.device)
+        d = torch.cat([best_d, d], 1)
+        i = torch.cat([best_i, ids.expand(len(q), -1)], 1)
+        order = torch.sort(d, dim=1, stable=True).indices[:, :k]
+        best_d, best_i = d.gather(1, order), i.gather(1, order)
+    return best_d, best_i
+
+
+def manhattan_phase(torch, cb, HnswConfig, HnswIndex, dev, pts, qs):
+    """A Manhattan index of config 1's shape (the main path's rows, m=16,
+    efc=64, the default exact8 candidates) built on the card, every launch
+    count set to 0 just before the build and read after: the build's sweep
+    is one bruteforce_topk_q8_l1 launch a batch past the first and no
+    torch-op loop; its exact route (one bruteforce_topk_l1 launch) against
+    a float64 oracle over every row (distances rtol 1e-5, ids but float64
+    near-ties) and against its twin on all the queries; its graph route's
+    recall@10 against its own exact route, printed; then the exact route
+    at 1M, B=1024, k=10 over float32 rows and their bf16 values (one
+    bruteforce_topk_bf16_l1 launch, counted on the same path), each timed
+    beside its twin, its bound (2 B N D float32 operations at 67 TFLOP/s)
+    and the library call (torch.cdist(p=1) + torch.topk over one 1M
+    chunk).  Returns (the launches on this path, the kernels line's
+    numbers of bruteforce_topk_l1 and _bf16_l1)."""
+    from pg_embedding_tpu_torch.core import build as core_build
+    from pg_embedding_tpu_torch.graph_probe import device_ms
+    reset_launches()
+    idx = HnswIndex(HnswConfig(dims=DIMS, m=16, ef_construction=64,
+                               ef_search=64, metric="manhattan"),
+                    device=dev, search_expand_width=GRAPH_T)
+    sweeps = core_build.PLAIN_SWEEPS_ON_CARD
+    t0 = time.time()
+    idx.build(pts)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    batches = len(core_build.build_schedule(len(pts), idx.max_insert_batch))
+    built = launch_counts()
+    check(built["bruteforce_topk_q8_l1"] == batches - 1
+          and core_build.PLAIN_SWEEPS_ON_CARD == sweeps,
+          f"the Manhattan build swept {built} over {batches} batches "
+          f"(torch-op loops {core_build.PLAIN_SWEEPS_ON_CARD - sweeps})")
+    de, le, ve = idx.exact_search(qs, K)
+    dg, lg, vg = idx.search(qs, K, mode="graph")
+    ran = launch_counts()
+    check(ran["bruteforce_topk_l1"] == 1, f"the exact route launched {ran}")
+    rec = recall(lg, vg, le)
+    rows = idx.graph.vectors[:idx.n_nodes]
+    q = torch.as_tensor(qs, device=dev)
+    od, oi = l1_oracle(torch, q, rows, K)
+    got = (torch.as_tensor(de, device=dev), torch.as_tensor(
+        le.astype(np.int64), device=dev))
+    err, n_diff = compare(torch, got, (od.float(), oi), q, rows, MANHATTAN,
+                          idx.n_nodes, None)
+    with own_twin_calls():
+        twin = cb._bruteforce_topk_plain(q, rows, K, MANHATTAN, idx.n_nodes)
+        t_err, t_diff = compare(torch, (got[0], got[1].int()), twin, q, rows,
+                                MANHATTAN, idx.n_nodes, None)
+    log(f"Manhattan index (1M x {DIMS}-d, m=16, efc=64, exact8) built on the "
+        f"card in {build_s:.1f} s: {built['bruteforce_topk_q8_l1']} "
+        f"bruteforce_topk_q8_l1 launches over {batches} batches, no torch-op "
+        f"sweep; exact route vs a float64 oracle on {len(qs)} queries: "
+        f"max_abs_err {err:.3g}, {n_diff} near-tie id swaps; vs its twin "
+        f"max_abs_err {t_err:.3g}, {t_diff} near-tie id swaps; graph route "
+        f"(T={GRAPH_T}, ef 64) recall@10 vs its exact route {rec:.4f}")
+    out = {}
+    n, d = rows.shape
+    for name, corpus in (("bruteforce_topk_l1", rows),
+                         ("bruteforce_topk_bf16_l1",
+                          rows.to(torch.bfloat16))):
+        if corpus.dtype == torch.bfloat16:
+            before = cb.LAUNCHES[name]
+            cb.fused_exact_search(q, corpus, K, "manhattan")
+            check(cb.LAUNCHES[name] == before + 1,
+                  f"the bf16 exact route launched {cb.LAUNCHES}")
+        dense = corpus.float()
+
+        def kernel():
+            return cb.bruteforce_topk(q, corpus, K, MANHATTAN, n)
+
+        def plain():
+            return cb._bruteforce_topk_plain(q, corpus, K, MANHATTAN, n)
+        with own_twin_calls():
+            k_err, k_diff = compare(torch, kernel(), plain(), q, dense,
+                                    MANHATTAN, n, None)
+            ms = median_ms(torch, kernel)
+            dev_ms = device_ms(kernel)
+            plain_ms = median_ms(torch, plain, 3)
+        lib_ms = median_ms(torch, lambda: torch.topk(
+            torch.cdist(q, dense, p=1.0), K, dim=1, largest=False), 3)
+        bound, bound_by = l1_bound_ms(len(q), n, d)
+        log(f"{name} (the exact route, Manhattan) at {n} x {d}-d, B="
+            f"{len(q)}, k={K}: vs its twin max_abs_err {k_err:.3g}, {k_diff} "
+            f"near-tie id swaps; {ms:.3f} ms a call, {dev_ms:.3f} ms on the "
+            f"card; bound {bound:.3f} ms ({bound_by}; {bound / dev_ms:.1%} of "
+            f"it reached); twin {plain_ms:.3f} ms; library (torch.cdist + "
+            f"torch.topk) {lib_ms:.3f} ms")
+        out[name] = dict(max_abs_err=max(k_err, err if corpus is rows else 0),
+                         ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                         bound_ms=bound, bound_by=bound_by, library_ms=lib_ms)
+        del dense
+    launches = launch_counts()
+    del idx
+    return launches, out
+
+
 def pq_sweep_phase(torch, idx, qs, el):
     """tune_sweep_pool(0.95) on 256 queries, then sweep_pq on all: recall@10
     >= 0.95 vs the exact route, distances equal to a float64 recompute;
     every launch count set to 0 just before the tuner and read after the
-    searches (the PQ instance's own path: one launch a call, beside the
+    searches (the PQ kernel's own path: one call a search, beside the
     tuner's one exact-route oracle).  Returns the
     kernels line's numbers of bruteforce_topk_pq (pq_pool_timing's and
     its launches)."""
@@ -2133,20 +2346,60 @@ def pq_sweep_phase(torch, idx, qs, el):
                 **pq_pool_timing(torch, idx, q))
 
 
+def pq_kernel_call(torch, q, codes, table, n, dead, pool, metric):
+    """One call of bruteforce_topk_pq as pq_topk makes it (its launch
+    shape and buffers, the bound refilled with +inf) but for the overflow
+    check, which synchronises: a call a CUDA graph can capture, for its
+    time on the card.  Returns (call, counts, cap) for the caller to check
+    that no segment overflowed."""
+    from pg_embedding_tpu_torch import _kernels
+    from pg_embedding_tpu_torch.ops import cuda_bruteforce as cb
+    lib = _kernels.load_library()
+    b, d = q.shape
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    splits, rank, cap, _ = cb._pq_launch_shape(b, n, pool, sms)
+    buf = torch.empty((b, splits, cap, 2), dtype=torch.int32, device=q.device)
+    counts = torch.empty((b, splits), dtype=torch.int32, device=q.device)
+    bound = torch.full((b, splits), float("inf"), device=q.device)
+    out_d = torch.empty((b, pool), device=q.device)
+    out_i = torch.empty((b, pool), dtype=torch.int32, device=q.device)
+
+    def call():
+        bound.fill_(float("inf"))
+        err = lib.bruteforce_topk_pq(
+            q.data_ptr(), codes.data_ptr(), table.data_ptr(),
+            None if dead is None else dead.data_ptr(), b, n, d,
+            codes.shape[1], pool, metric, splits, cb.PQ_SMEM, buf.data_ptr(),
+            cap, counts.data_ptr(), bound.data_ptr() if rank else None, rank,
+            out_d.data_ptr(), out_i.data_ptr(), None, None, None, None,
+            torch.cuda.current_stream().cuda_stream)
+        _kernels.check(lib, err, "bruteforce_topk_pq")
+    return call, counts, cap
+
+
 def pq_pool_timing(torch, idx, q):
-    """ops/pq_sweep._pq_pool (the JAX package's _pq_pool_impl: one launch
+    """ops/pq_sweep._pq_pool (the JAX package's _pq_pool_impl: one call
     of bruteforce_topk_pq) at this phase's shape, the tuned pool over every
     live row's codes, all the queries: against its twin _pq_pool_plain on
     the card (ids equal on >= 99.9% of slots, every other slot a float64
     near-tie over the decoded bf16 rows: compare's rule; distances rtol
     1e-5); a call's time (CUDA events, median of 5), the card's (a CUDA
-    graph of 20 calls), the twin's, library_ms (pq_decode of every live
-    row to bf16, then torch.matmul in float32 + torch.topk to the pool over
+    graph of 20 calls of the kernel's C entry, pq_kernel_call: the
+    wrapper's overflow check synchronises), the twin's, library_ms
+    (pq_decode of every live row to bf16, then torch.matmul in float32 +
+    torch.topk to the pool over
     one 1,048,576-row chunk; the port never calls it) and the bound: the
     decoded rows are bf16 values, so the products as products_s says, or
     the bytes (the codes, the codebook, the queries, the pool) at the HBM
-    rate, whichever is larger.  Returns the kernels line's numbers."""
+    rate, whichever is larger.  Then the pools PQ_POOLS, each against the
+    twin (every slot whose id differs a float64 near-tie, compare's rule;
+    the share of equal ids printed: deep pools over this clustered data
+    hold many near-ties, and past pool 256 the share falls under 0.999
+    whichever of two float32 sums is the closer to float64) and timed
+    beside it and the library call.  Returns the kernels line's
+    numbers."""
     from pg_embedding_tpu_torch.graph_probe import device_ms
+    from pg_embedding_tpu_torch.ops import cuda_bruteforce as cb
     from pg_embedding_tpu_torch.ops.distance import _matmul
     from pg_embedding_tpu_torch.ops.pq import pq_decode
     from pg_embedding_tpu_torch.ops.pq_sweep import _pq_pool, _pq_pool_plain
@@ -2172,11 +2425,20 @@ def pq_pool_timing(torch, idx, q):
         torch.cuda.synchronize()
         rows = pq_decode(codes[:n], book).to(torch.bfloat16).float()
         qr = q if rot is None else _matmul(q, rot)
+        errs = f64_errors(torch, got, want, qr, rows, L2)
+        log(f"_pq_pool at the tuned pool {pool}: {errs}")
         err, n_diff = compare(torch, got, want, qr, rows, L2, n, dead)
         del rows
         same = 1.0 - n_diff / got[1].numel()
         ms = median_ms(torch, call)
-        dev_ms = device_ms(call)
+        qr = q if rot is None else _matmul(q, rot)
+        raw, counts, cap = pq_kernel_call(torch, qr.contiguous(), codes,
+                                          cb.pq_table(book), n, dead, pool,
+                                          L2)
+        dev_ms = device_ms(raw)
+        check(int(counts.max()) <= cap,
+              f"a segment overflowed in the timed calls ({int(counts.max())}"
+              f" > {cap})")
         plain_ms = median_ms(torch, twin, 3)
     lib_ms = median_ms(torch, library)
     b, d = q.shape
@@ -2194,7 +2456,39 @@ def pq_pool_timing(torch, idx, q):
         f"values, bytes {bytes_ms:.4f} ms); twin {plain_ms:.3f} ms; library "
         f"(pq_decode + torch.matmul + torch.topk) {lib_ms:.3f} ms")
     check(same >= 0.999, f"_pq_pool ids equal on {same} of slots")
-    # Manhattan, the instance's CUDA-core sum, on the first 128 queries
+    # the pools the tuner can choose, each against the twin and timed
+    pools = {}
+    for size in PQ_POOLS:
+        pkw = dict(kw, pool=size)
+        with own_twin_calls():
+            got = _pq_pool(q, codes, book, rot, n, dead, **pkw)
+            want = _pq_pool_plain(q, codes, book, rot, n, dead, **pkw)
+            torch.cuda.synchronize()
+            rows = pq_decode(codes[:n], book).to(torch.bfloat16).float()
+            qr = q if rot is None else _matmul(q, rot)
+            p_errs = f64_errors(torch, got, want, qr, rows, L2)
+            log(f"_pq_pool at pool {size}: {p_errs}")
+            p_err, p_diff = compare(torch, got, want, qr, rows, L2, n, dead)
+            del rows
+            p_ms = median_ms(torch, lambda: _pq_pool(q, codes, book, rot, n,
+                                                     dead, **pkw))
+            p_plain = median_ms(torch, lambda: _pq_pool_plain(
+                q, codes, book, rot, n, dead, **pkw), 3)
+
+        def lib_call():
+            rows = pq_decode(codes[:n], book).to(torch.bfloat16).float()
+            torch.topk(torch.matmul(q, rows.T), size, dim=1, largest=False,
+                       sorted=False)
+        p_lib = median_ms(torch, lib_call)
+        p_same = 1.0 - p_diff / got[1].numel()
+        pools[size] = dict(ms=p_ms, plain_ms=p_plain, library_ms=p_lib,
+                           max_abs_err=p_err, ids_equal=p_same)
+        log(f"_pq_pool at pool {size}: vs its twin ids equal on "
+            f"{p_same:.5f} of slots ({p_diff} float64 near-ties), "
+            f"max_abs_err {p_err:.3g}; {p_ms:.3f} ms a call (median of 5, "
+            f"CUDA events); bound {bound:.4f} ms; twin {p_plain:.3f} ms; "
+            f"library {p_lib:.3f} ms")
+    # Manhattan, the kernel's CUDA-core sum, on the first 128 queries
     mkw = dict(kw, metric_value=MANHATTAN)
     qm = q[:128]
     with own_twin_calls():
@@ -2216,7 +2510,10 @@ def pq_pool_timing(torch, idx, q):
         f"{m_err:.3g}; {m_ms:.3f} ms a call, twin {m_plain:.3f} ms")
     check(m_same >= 0.999, f"Manhattan _pq_pool ids equal on {m_same}")
     return dict(max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                bound_ms=bound, bound_by=bound_by, library_ms=lib_ms)
+                bound_ms=bound, bound_by=bound_by, library_ms=lib_ms,
+                pools=pools, manhattan=dict(queries=len(qm), ms=m_ms,
+                                            plain_ms=m_plain,
+                                            ids_equal=m_same))
 
 
 def pq_persistence(torch, HnswIndex, idx, qs, tmp):
@@ -2891,23 +3188,21 @@ def table_phase(torch, VectorTable, dev):
     from pg_embedding_tpu_torch.core import build as core_build
     from pg_embedding_tpu_torch.ops import cuda_bruteforce as cb
     for op in ops:
-        before = (core_build.PLAIN_SWEEPS_ON_CARD,
-                  cb.LAUNCHES["bruteforce_topk_q8"])
+        name = "bruteforce_topk_q8_l1" if op == "<~>" else "bruteforce_topk_q8"
+        before = (core_build.PLAIN_SWEEPS_ON_CARD, cb.LAUNCHES[name])
         t0 = time.time()
         t.create_index(op, m=16, ef_construction=64, ef_search=64)
         sync(torch.empty(0, device=dev))
         build_s[op] = time.time() - t0
         sweeps[op] = (core_build.PLAIN_SWEEPS_ON_CARD - before[0],
-                      cb.LAUNCHES["bruteforce_topk_q8"] - before[1])
-    # Manhattan has no matmul form: its index's sweep is the torch-op loop,
-    # counted once a batch; the others launch the kernel a batch past the
-    # first
+                      cb.LAUNCHES[name] - before[1])
+    # every operator's index sweeps in the kernel, a launch a batch past
+    # the first (Manhattan's own instance), and no torch-op loop
     batches = len(core_build.build_schedule(len(pts), 256))
-    check(sweeps == {"<->": (0, batches - 1), "<=>": (0, batches - 1),
-                     "<~>": (batches, 0)},
+    check(sweeps == dict.fromkeys(ops, (0, batches - 1)),
           f"the table's index builds swept {sweeps} (torch-op loops, "
           f"kernel launches), not one kernel launch a batch past the "
-          f"first (Manhattan: one counted loop a batch)")
+          f"first")
     rows = torch.as_tensor(pts, device=dev).double()
     seq_ms, idx_ms = {}, {}
     for op, metric in ops.items():
@@ -2946,8 +3241,8 @@ def table_phase(torch, VectorTable, dev):
                     for op in ops)
         + f"; seq scan equals a float64 oracle on {len(qs)} queries per "
         f"opclass; pull scan equals order_by on 8; candidate sweeps of the "
-        f"index builds (torch-op loops, bruteforce_topk_q8 launches): "
-        f"{sweeps}")
+        f"index builds (torch-op loops, bruteforce_topk_q8 / _q8_l1 "
+        f"launches): {sweeps}")
 
 
 def main():
@@ -3004,13 +3299,12 @@ def main():
     os.makedirs(os.path.join(REPO, ".kernel_build"), exist_ok=True)
     with tempfile.TemporaryDirectory(
             dir=os.path.join(REPO, ".kernel_build")) as tmp:
-        # the build's sweep instances: phase 3's errors, phase 4b's numbers
-        phase3 = {name: timings.pop(name) for name in BUILD_SWEEPS}
+        # the build's sweep instances: phase 3's errors, phase 4b's
+        # numbers (Manhattan's exact route: the Manhattan phase's)
+        phase3 = {name: timings.pop(name)["max_abs_err"]
+                  for name in BUILD_SWEEPS + L1_SWEEPS}
         timings.update(walk_kernels_phase(torch, idx, qs, dev, tmp,
                                           single, profile_lib))
-        for name, numbers in phase3.items():
-            timings[name]["max_abs_err"] = max(
-                numbers["max_abs_err"], timings[name]["max_abs_err"])
         twin_build_phase(torch, HnswConfig, HnswIndex, dev, pts, qs)
         wide_k_phase(torch, cb, idx, qs)
         serving_variants(torch, idx, qs, walk_variants)
@@ -3026,6 +3320,13 @@ def main():
         pq_after_downcast(idx, qs, shadows)
         del idx
         torch.cuda.empty_cache()
+        l1_launches, l1_timings = manhattan_phase(torch, cb, HnswConfig,
+                                                  HnswIndex, dev, pts, qs)
+        timings.update(l1_timings)
+        for name, err in phase3.items():
+            timings[name]["max_abs_err"] = max(
+                err, timings[name]["max_abs_err"])
+        torch.cuda.empty_cache()
         sharded_launches = sharded_phase(torch, cb, HnswConfig,
                                          ShardedHnswIndex, dev, pts, qs,
                                          single, tmp)
@@ -3039,12 +3340,15 @@ def main():
         pq_pool = pq_serving_phase(torch, HnswConfig, HnswIndex, dev,
                                    args.n, args.queries, tmp, walk_variants)
     # no candidate sweep of phases 4-11 ran the torch-op loop on the card
-    # (the table's Manhattan index, next, runs it by design, counted)
     from pg_embedding_tpu_torch.core import build as core_build
     check(core_build.PLAIN_SWEEPS_ON_CARD == 0,
           f"phases 4-11 ran {core_build.PLAIN_SWEEPS_ON_CARD} torch-op "
           f"candidate sweeps on the card")
     table_phase(torch, VectorTable, dev)
+    # nor the table's, its Manhattan index included
+    check(core_build.PLAIN_SWEEPS_ON_CARD == 0,
+          f"the table ran {core_build.PLAIN_SWEEPS_ON_CARD} torch-op "
+          f"candidate sweeps on the card")
     # no wiring of phases 4-11 and the table ran the plain twin on the card
     check(core_build.PLAIN_CONNECTS_ON_CARD == 0,
           f"the smoke's paths ran {core_build.PLAIN_CONNECTS_ON_CARD} plain "
@@ -3082,6 +3386,18 @@ def main():
             ("bruteforce_topk_bf16_wide", exact_mode_launches,
              ("pg_embedding_tpu_torch/csrc/bruteforce_topk.cu",
               "pg_embedding_tpu/core/build.py:287")),
+            # Manhattan's instances: launches from the Manhattan index's
+            # path (manhattan_phase); the build's sweep timed at phase 4b's
+            # batch, the exact route at 1M
+            ("bruteforce_topk_l1", l1_launches,
+             ("pg_embedding_tpu_torch/csrc/bruteforce_topk.cu",
+              "pg_embedding_tpu/ops/bruteforce.py:87")),
+            ("bruteforce_topk_bf16_l1", l1_launches,
+             ("pg_embedding_tpu_torch/csrc/bruteforce_topk.cu",
+              "pg_embedding_tpu/ops/bruteforce.py:87")),
+            ("bruteforce_topk_q8_l1", l1_launches,
+             ("pg_embedding_tpu_torch/csrc/bruteforce_topk.cu",
+              "pg_embedding_tpu/core/build.py:287")),
             ("beam_walk", main_launches,
              ("pg_embedding_tpu_torch/csrc/beam_walk.cu",
               "pg_embedding_tpu/core/search.py:80")),
@@ -3095,7 +3411,7 @@ def main():
             # phase 8's sweep_pq (pq_sweep_phase), as its timings
             ("bruteforce_topk_pq", {"bruteforce_topk_pq":
                                     pq_pool.pop("launches")},
-             ("pg_embedding_tpu_torch/csrc/bruteforce_topk.cu",
+             ("pg_embedding_tpu_torch/csrc/pq_topk.cu",
               "pg_embedding_tpu/ops/pq_sweep.py:36"))):
         kernels.append({
             "name": name, "route": "cuda", "source": source,
@@ -3105,6 +3421,9 @@ def main():
             **(pq_pool if name == "bruteforce_topk_pq" else timings[name])})
         if name == "beam_walk":
             kernels[-1]["variants"] = walk_variants
+    for name in L1_SWEEPS:
+        check(l1_launches[name] > 0,
+              f"the Manhattan path never launched {name}")
     for name in ("bruteforce_topk", "bruteforce_topk_q8", "beam_walk",
                  "prune_scan", "connect_batch"):
         check(main_launches[name] > 0,

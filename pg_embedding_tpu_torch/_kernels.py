@@ -25,8 +25,8 @@ import tempfile
 import threading
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
-_SOURCES = ("bruteforce_topk.cu", "beam_walk.cu", "prune_scan.cu",
-            "connect_batch.cu")
+_SOURCES = ("bruteforce_topk.cu", "pq_topk.cu", "beam_walk.cu",
+            "prune_scan.cu", "connect_batch.cu")
 # no --use_fast_math: the walk's sqrtf must stay correctly rounded
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -79,26 +79,34 @@ def declare_sweep(lib) -> None:
     for fn in (lib.bruteforce_topk, lib.bruteforce_topk_bf16):
         fn.argtypes = [vp, vp, vp, *[ci] * 9, *[vp] * 7]
         fn.restype = ci
-    # the wide selection's entries take the shared bound and its rank
-    # before the stream
-    for fn in (lib.bruteforce_topk_wide, lib.bruteforce_topk_bf16_wide):
+    # the wide selection's entries (and Manhattan's) take the shared bound
+    # and its rank before the stream
+    for fn in (lib.bruteforce_topk_wide, lib.bruteforce_topk_bf16_wide,
+               lib.bruteforce_topk_l1, lib.bruteforce_topk_bf16_l1):
         fn.argtypes = [vp, vp, vp, *[ci] * 9, *[vp] * 7, ci, vp]
         fn.restype = ci
-    # the int8-row instance takes the rows' scales after the rows
-    lib.bruteforce_topk_q8.argtypes = [vp, vp, vp, vp, *[ci] * 9, *[vp] * 7,
-                                       ci, vp]
-    lib.bruteforce_topk_q8.restype = ci
-    # the PQ instance takes the codebook's table after the codes and the
-    # groups G after D
-    lib.bruteforce_topk_pq.argtypes = [vp, vp, vp, vp, *[ci] * 10,
-                                       *[vp] * 7, ci, vp]
-    lib.bruteforce_topk_pq.restype = ci
+    # the int8-row instances take the rows' scales after the rows
+    for fn in (lib.bruteforce_topk_q8, lib.bruteforce_topk_q8_l1):
+        fn.argtypes = [vp, vp, vp, vp, *[ci] * 9, *[vp] * 7, ci, vp]
+        fn.restype = ci
     lib.bruteforce_topk_error_string.argtypes = [ci]
     lib.bruteforce_topk_error_string.restype = ctypes.c_char_p
 
 
+def declare_pq(lib) -> None:
+    """The argument types of csrc/pq_topk.cu's entries in ``lib`` (the
+    port's library or a probe's build of that source alone)."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.bruteforce_topk_pq.argtypes = [vp, vp, vp, vp, *[ci] * 8, vp, ci, vp,
+                                       vp, ci, *[vp] * 7]
+    lib.bruteforce_topk_pq.restype = ci
+    lib.pq_topk_smem_bytes.argtypes = []
+    lib.pq_topk_smem_bytes.restype = ci
+
+
 def _declare(lib) -> None:
     declare_sweep(lib)
+    declare_pq(lib)
     declare_graph(lib)
     declare_connect(lib)
 

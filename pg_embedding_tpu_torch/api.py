@@ -614,11 +614,10 @@ class HnswIndex(_IndexBase):
         chosen chunk.
 
         The knob is the JAX package's surface, kept with its cache file.
-        On the card an L2 or cosine sweep is one launch of the sweep kernel
+        On the card a sweep of any metric is one launch of the sweep kernel
         over every live row (ops/cuda_bruteforce.sweep_pool), which takes no
         chunk: the tuner then times the same sweep at every width, and its
-        choice shapes only the torch-op loop (the CPU's, and Manhattan's on
-        the card)."""
+        choice shapes only the torch-op loop (the CPU's)."""
         if self.device.type != "cuda":
             raise RuntimeError(
                 "tune_exact8_chunk needs a CUDA device (the index is on "
@@ -922,7 +921,7 @@ class HnswIndex(_IndexBase):
         truth (embedding.c:1022-1038).
 
         ``engine``: "auto" and "pallas" take the fused entry
-        (ops/cuda_bruteforce.fused_exact_search: on CUDA, L2 and cosine run
+        (ops/cuda_bruteforce.fused_exact_search: on CUDA every metric runs
         the kernel at the corpus's storage dtype), "jnp" the chunked torch
         top-k (ops/bruteforce.exact_search); the names are the JAX
         package's.  ``excluded`` is an optional bool[cap] device mask of

@@ -39,7 +39,6 @@ import functools
 
 import torch
 
-from ..config import Metric
 from ..ops.bruteforce import _rerank_exact, merge_min_k
 from ..ops.cuda_bruteforce import dequantize_rows, sweep_pool
 from ..ops.distance import dist_one_to_many, pairwise_dist
@@ -54,9 +53,9 @@ _INF = float("inf")
 # few wide steps (a [256, 1M] float32 score tile is 1 GB)
 EXACT8_CHUNK = 1_048_576
 
-# Candidate sweeps run as the torch-op loop on a CUDA tensor: only
-# Manhattan's, which has no matmul form for the kernel.  A run reads it to
-# show that no other sweep left the kernel.
+# Candidate sweeps run as the torch-op loop on a CUDA tensor: none on the
+# main path, which launches the sweep kernel for every metric; a run reads
+# it to show that no sweep left the kernel.
 PLAIN_SWEEPS_ON_CARD = 0
 # Back-link replays run in torch ops on a CUDA tensor (_replay_chains): none
 # on the main path, which launches ops/cuda_graph.connect_batch; a run reads
@@ -306,9 +305,10 @@ def _sweep_loop(vectors, pts32, base: int, keep: int, metric_value: int,
                 chunk: int, qvec=None, qscale=None):
     """The candidate pool in torch ops, ``chunk`` rows a step: each chunk
     scored by pairwise_dist, cut to its ``keep`` smallest, merged into the
-    running pool (the JAX package's fori_loop).  The CPU's route, and
-    Manhattan's on the card (counted in PLAIN_SWEEPS_ON_CARD).  Returns
-    (d f32[B, keep], ids i32[B, keep]) ascending, -1 padded."""
+    running pool (the JAX package's fori_loop).  The CPU's route and the
+    sweep kernel's twin; on the card only comparisons call it (counted in
+    PLAIN_SWEEPS_ON_CARD).  Returns (d f32[B, keep], ids i32[B, keep])
+    ascending, -1 padded."""
     global PLAIN_SWEEPS_ON_CARD
     if pts32.is_cuda:
         PLAIN_SWEEPS_ON_CARD += 1
@@ -350,9 +350,10 @@ def _exact_candidates(vectors, points, base: int, *, cand_cap: int,
     difference form.  Plain mode sweeps the stored rows and keeps
     cand_cap + 2 before the same rerank.
 
-    The pool: on the card (L2, cosine) one launch of the sweep kernel over
-    [0, base) (ops/cuda_bruteforce.sweep_pool; ``chunk`` is not used);
-    else the torch-op loop, ``chunk`` rows a step (_sweep_loop).
+    The pool: on the card one launch of the sweep kernel over [0, base),
+    every metric (ops/cuda_bruteforce.sweep_pool; Manhattan summed on the
+    CUDA cores; ``chunk`` is not used); on the CPU the torch-op loop,
+    ``chunk`` rows a step (_sweep_loop).
 
     Returns (cand_d [B, cand_cap], cand_i [B, cand_cap]) ascending,
     -1-padded (tombstones stay candidates: deletes filter results, not
@@ -360,12 +361,12 @@ def _exact_candidates(vectors, points, base: int, *, cand_cap: int,
     coarse = qvec is not None
     keep = 2 * cand_cap if coarse else cand_cap + 2
     pts32 = points.to(torch.float32).contiguous()
-    if pts32.is_cuda and metric_value != Metric.MANHATTAN.value:
-        _, run_i = sweep_pool(pts32, (qvec, qscale) if coarse else vectors,
-                              keep, metric_value, base)
-    else:
+    if pts32.device.type == "cpu":
         _, run_i = _sweep_loop(vectors, pts32, base, keep, metric_value,
                                chunk, qvec, qscale)
+    else:
+        _, run_i = sweep_pool(pts32, (qvec, qscale) if coarse else vectors,
+                              keep, metric_value, base)
     # exact rerank with the reference's elementwise forms
     return _rerank_exact(pts32, vectors, run_i, k=cand_cap,
                          metric_value=metric_value)

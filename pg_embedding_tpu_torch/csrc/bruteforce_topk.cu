@@ -63,8 +63,7 @@
 //    (ops/cuda_bruteforce._launch_shape) and passes its shared-memory
 //    figure; the launch refuses a figure that differs from sweep_smem_bytes
 //    or exceeds 232,448 bytes.  Blocks that share a split run side by side
-//    (blockIdx.x is fastest), so the corpus comes from HBM about once
-//    (PQ pools past 256 the other way round: split_major).
+//    (blockIdx.x is fastest), so the corpus comes from HBM about once.
 //  * Selection: the accumulators become scores in a [QT x 128]
 //    shared-memory tile; after one barrier warp w walks the scores of its
 //    own QT / 8 queries in ascending row order, a ballot against the k-th
@@ -142,43 +141,28 @@
 // it (rows arrive in ascending id), as the strict < of one by one.  The
 // float32 / bf16 wide instances are new template instances beside the
 // eight of the exact route, whose code is unchanged; lists of 257-1024
-// entries (QT = 16) keep the insertion into shared memory, which under
-// the PQ instance reads and publishes the shared bound too (the tuner's
-// pools reach 1024: without it a split admitted ~4,500 rows a query).  Left for
+// entries (QT = 16) keep the insertion into shared memory.  Left for
 // later: wgmma, a bf16 x 3 query split on the bf16 tensor cores (the
 // int8 rows are bf16 values).
 //
-// The PQ instance (bruteforce_topk_pq) replaces
-// pg_embedding_tpu/ops/pq_sweep.py::_pq_pool_impl (its lax.fori_loop over
-// chunks of decoded rows and its running top_k): the compressed sweep's
-// coarse pool, read from the rows' PQ codes (u8[N, G], G bytes a row where
-// float32 rows take 4 D).  A row element is bf16(codebook[d / sub, code[r,
-// d / sub], d % sub]), sub = D / G, the JAX package's and the port's
-// decode rounded once to bf16; the wrapper rounds the codebook once a call
-// into a table of bf16 pairs [ceil(D / 2), 256] (entry (j, code): dims 2j
-// and 2j + 1 for that code, in one 32-bit word).  A bf16 value is exact in
-// TF32, so the instance takes the bf16 instance's two passes, and its
-// score rounds as the port's pairwise_dist does (no FMA contraction in the
-// epilogue).  The ring carries, for each
-// step (tile, 32-dim chunk), the codes of the groups the chunk's dims fall
-// in (4-byte cp.async from the row's word that holds the first of them when
-// G % 4 == 0, else byte loads: sub need not divide 32), the table's 16 pair
-// rows of the chunk (16 KB, 16-byte cp.async, zero past D) and each dim's
-// byte offset in the staged code row.  After a step's copies land, each
-// thread decodes 16 elements of one row a pair at a time, by two
-// shared-memory reads a pair (the code, then the table at (pair, code);
-// two more where a pair straddles two groups), into a bf16 [128 x 40]
-// tile that lives in the score tile (idle from a tile's selection to its
-// last mma's), summing their squares for |p|^2; one more barrier, and the mma's
-// read the tile as the bf16 instance reads its rows.  Decoded rows never
-// reach device memory.  Its selection is the int8 instance's: the wide one
-// with the shared bound up to 256 entries, the insertion into shared
-// memory past it, pages past 1024.  What bounds it (1M x 128-d, B = 1024):
-// the products, as the bf16 instance's (0.795 ms in 3 bf16 passes); the
-// codes are 32 MB at G = 32.  Manhattan, which has no matmul form, is this
-// instance's alone: the same ring, decoded tile and selection, the mma's
-// replaced by |q - p| summed on the CUDA cores into the same accumulators
-// (l1_chunk; 2 B N D float32 operations, not the tensor cores').
+// The Manhattan instances (bruteforce_topk_l1, _bf16_l1, _q8_l1) replace
+// the JAX package's Manhattan sweeps: pg_embedding_tpu/ops/bruteforce.py's
+// chunk loop (exact_search, reached from pallas_exact_search for
+// Manhattan) and core/build.py::_exact_candidates under Manhattan (the
+// same fori_loop as L2's).  Manhattan has no matmul form: each thread
+// sums |q - p| on the CUDA cores over the ring's staged row chunk into
+// the (query, row) slots of its mma accumulators (l1_chunk), dims
+// ascending, each difference and sum rounded on its own; an int8 row
+// element is the L2 path's, widen(p, bf16(scale)).  No |p|^2, no split
+// passes; the accumulators are the score.  They are compile-time
+// instances (kL1) beside the exact route's eight, whose code is
+// unchanged, and take the int8 instance's selection at every k_run: the
+// wide one with the shared bound up to 256, the insertion into shared
+// memory past it, pages past 1024.  What bounds them: 2 B N D float32
+// operations (a subtraction and an addition a term) at 67 TFLOP/s, 4.0
+// ms at 1M x 128-d, B = 1024.
+//
+// The compressed sweep's PQ pool has its own kernel (csrc/pq_topk.cu).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -214,18 +198,8 @@ constexpr int kSerialMax = 8;
 constexpr bool kReadBound = true;
 constexpr int kMetricL2 = 0;
 constexpr int kMetricCosine = 1;
-constexpr int kMetricManhattan = 2;           // the PQ instance's only
+constexpr int kMetricManhattan = 2;           // the kL1 instances' only
 constexpr unsigned kFull = 0xffffffffu;
-
-// the PQ row source: the codebook's table holds a bf16 pair of dims for
-// each of 256 codes, and the ring stages a chunk's 16 pair rows of it
-// (kTableBytes) and the 32 dims' byte offsets in the staged code rows.
-// Each step's [128 x 32] elements are decoded once into a bf16 tile (in
-// the score tile, idle until a tile's last mma's), which the mma's read as
-// the bf16 instance reads its rows
-constexpr int kCodes = 256;
-constexpr int kTableBytes = kTileD * kCodes * 2;
-constexpr int kOffsetBytes = kTileD;
 
 // corpus chunk row stride in elements: 32 dims + 16 bytes of padding
 template <typename T>
@@ -256,31 +230,15 @@ __host__ __device__ constexpr bool scaled_rows() {
   return std::is_same<T, int8_t>::value;
 }
 
-// PQ codes (uint8 rows of G bytes) decode through the codebook's table
-template <typename T>
-__host__ __device__ constexpr bool pq_rows() {
-  return std::is_same<T, uint8_t>::value;
-}
-
-// floats of the score tile: PQ's also holds a step's decoded bf16 tile
-template <typename T>
-__host__ __device__ constexpr int score_floats(int qt) {
-  return pq_rows<T>() && qt * kSStride < kTileN * (kTileD + 8) / 2
-             ? kTileN * (kTileD + 8) / 2
-             : qt * kSStride;
-}
-
-// a ring stage's bytes beside the corpus chunk: int8 rows' scales; PQ's
-// table chunk and dim offsets
+// a ring stage's bytes beside the corpus chunk: int8 rows' scales
 template <typename T>
 __host__ __device__ constexpr int stage_extra_bytes() {
-  return scaled_rows<T>() ? kTileN * 4
-                          : pq_rows<T>() ? kTableBytes + kOffsetBytes : 0;
+  return scaled_rows<T>() ? kTileN * 4 : 0;
 }
 
 // Shared memory: the ring (each stage a [128 x kPS] corpus chunk, for int8
-// rows the tile's 128 scales, for PQ codes the table chunk and the dim
-// offsets, then, when queries stream, a [QT x 36] query chunk), the
+// rows the tile's 128 scales, then, when queries stream, a [QT x 36]
+// query chunk), the
 // resident [QT x q_res_stride(D)] queries when they do not, the
 // [QT x 136] score tile, |q|^2, |p|^2, and the [QT x k_run] running lists
 // (score, id).
@@ -291,20 +249,8 @@ size_t sweep_smem_bytes(int qt, int k_run, int D, bool q_res) {
                        (q_res ? 0 : (size_t)qt * kQStride * sizeof(float));
   return kStages * stage +
          sizeof(float) * ((q_res ? (size_t)qt * q_res_stride(D) : 0) +
-                          score_floats<T>(qt) + qt + kTileN) +
+                          (size_t)qt * kSStride + qt + kTileN) +
          (sizeof(float) + sizeof(int)) * (size_t)qt * k_run;
-}
-
-// Whether a launch's grid is split-major (blockIdx.x the split,
-// blockIdx.y the query tile): PQ pools past kRegK, so that a query tile's
-// S splits run side by side and the bound they share (the largest of
-// their S slots, +inf until each has published) tightens from their first
-// tiles; query-tile-major, ~2 splits of 33 ran at a time and no split of
-// pool 1024 read a finite bound.  The codes are small, so reading them
-// once a co-resident query tile costs little.  (gridDim.y <= 65535.)
-template <typename T>
-__host__ __device__ inline bool split_major(int B, int qt, int k_run) {
-  return pq_rows<T>() && k_run > kRegK && (B + qt - 1) / qt <= 65535;
 }
 
 // (d, id) order; id -1 (an empty slot) sorts after every real id
@@ -329,18 +275,6 @@ __device__ __forceinline__ float widen(uint16_t bits) {
 __device__ __forceinline__ float round_bf16(float x) {
   const unsigned u = __float_as_uint(x);
   return __uint_as_float((u + 0x7fffu + ((u >> 16) & 1u)) & 0xffff0000u);
-}
-
-// The PQ table's pair word (dims dl & ~1 and dl | 1 of the staged chunk,
-// the low half the even dim) for the code that dim dl of code row ``row``
-// takes: the code at the dim's offset in the staged row, then the staged
-// table chunk ``tab`` at (pair, code).
-__device__ __forceinline__ unsigned pq_pair(const uint8_t* codes_s,
-                                           const uint32_t* tab,
-                                           const unsigned char* offset_s,
-                                           int row, int dl) {
-  const int code = codes_s[row * p_stride<uint8_t>() + offset_s[dl]];
-  return tab[(dl >> 1) * kCodes + code];
 }
 
 // An int8 row element: bf16(bf16(q) * s_bf16), s_bf16 the row's scale
@@ -422,55 +356,9 @@ __device__ __forceinline__ void load_chunk(const T* __restrict__ src, T* dst,
   }
 }
 
-// The PQ step at (tile, d0): each row's codes of the groups that dims
-// [d0, d0 + 32) fall in, bytes [w0, g_end) of the row with w0 = d0 / sub
-// rounded down to a whole word (at most 35 bytes; zero past row_end), by
-// 4-byte cp.async when ``vec`` (G % 4 == 0, aligned base), else by bytes;
-// the table's pair rows d0 / 2 .. d0 / 2 + 15 (zero past D); and each
-// dim's offset d / sub - w0 in the staged code row (0 past D, where the
-// table is 0).
-__device__ __forceinline__ void load_codes(const uint8_t* __restrict__ codes,
-                                           const uint32_t* __restrict__ table,
-                                           unsigned char* stage, int tile,
-                                           int row_end, int d0, int D, int G,
-                                           bool vec, int tid) {
-  constexpr int kCS = p_stride<uint8_t>();
-  uint8_t* codes_s = stage;
-  uint32_t* table_s = reinterpret_cast<uint32_t*>(stage + kTileN * kCS);
-  unsigned char* offset_s = stage + kTileN * kCS + kTableBytes;
-  const int sub = D / G;
-  const int w0 = (d0 / sub) & ~3;
-  const int nb = min(G, (min(d0 + kTileD, D) - 1) / sub + 1) - w0;
-  if (vec) {
-    const int nw = (nb + 3) >> 2;
-    for (int e = tid; e < kTileN * nw; e += kThreads) {
-      const int r = e / nw, c = 4 * (e - r * nw);
-      const bool in = tile + r < row_end;
-      cp_async4(codes_s + r * kCS + c,
-                in ? codes + (size_t)(tile + r) * G + w0 + c : codes, in);
-    }
-  } else {
-    for (int e = tid; e < kTileN * nb; e += kThreads) {
-      const int r = e / nb, c = e - r * nb;
-      codes_s[r * kCS + c] =
-          tile + r < row_end ? codes[(size_t)(tile + r) * G + w0 + c] : 0;
-    }
-  }
-  constexpr int kSegs = kCodes * 4 / 16;
-  for (int e = tid; e < kTileD / 2 * kSegs; e += kThreads) {
-    const int pr = e / kSegs, c = 4 * (e % kSegs);
-    const bool in = d0 + 2 * pr < D;
-    cp_async16(table_s + pr * kCodes + c,
-               in ? table + (size_t)(d0 / 2 + pr) * kCodes + c : table, in);
-  }
-  if (tid < kTileD)
-    offset_s[tid] = d0 + tid < D ? (unsigned char)((d0 + tid) / sub - w0) : 0;
-}
-
 // Issue the copies of the step at (tile, d0) into ring stage s & 1 (see
 // sweep_kernel); the tile's scales (zero past row_end) for int8 rows, the
-// codes, table chunk and offsets for PQ codes (``table``, G), the query
-// chunk only when queries stream.
+// query chunk only when queries stream.
 template <int QT, bool kQRes, int kPBytes, int kStageBytes, typename T>
 __device__ __forceinline__ void load_step(const float* __restrict__ q,
                                           const T* __restrict__ p,
@@ -478,16 +366,11 @@ __device__ __forceinline__ void load_step(const float* __restrict__ q,
                                           int d0, int row_end, int q0, int B,
                                           int D, bool vec_q, bool vec_p,
                                           int tid,
-                                          const float* __restrict__ scale,
-                                          const uint32_t* __restrict__ table,
-                                          int G) {
+                                          const float* __restrict__ scale) {
   constexpr int kExtraBytes = stage_extra_bytes<T>();
   unsigned char* stage = smem + (s & 1) * kStageBytes;
-  if constexpr (pq_rows<T>())
-    load_codes(p, table, stage, tile, row_end, d0, D, G, vec_p, tid);
-  else
-    load_chunk<kTileN>(p, reinterpret_cast<T*>(stage), p_stride<T>(), tile,
-                       row_end, d0, D, vec_p, tid);
+  load_chunk<kTileN>(p, reinterpret_cast<T*>(stage), p_stride<T>(), tile,
+                     row_end, d0, D, vec_p, tid);
   if constexpr (scaled_rows<T>()) {
     if (tid < kTileN) {
       const bool in = tile + tid < row_end;
@@ -737,17 +620,27 @@ __device__ __forceinline__ void select_in_registers(
   __syncwarp();
 }
 
-// Manhattan over PQ codes: the scores have no matmul form, so each thread
-// sums |q - p| over a step's 32 dims on the CUDA cores for the (query, row)
-// pairs of its mma accumulators (C fragment (g, 2t), (g, 2t + 1), (g + 8,
-// 2t), (g + 8, 2t + 1) of each m16 x n8 tile), reading the decoded bf16
-// tile; dims ascend and every difference and sum is rounded on its own.
-template <int QT>
+// Manhattan (the kL1 instances): the scores have no matmul form, so each
+// thread sums |q - p| over a step's 32 dims on the CUDA cores for the
+// (query, row) pairs of its mma accumulators (C fragment (g, 2t), (g, 2t +
+// 1), (g + 8, 2t), (g + 8, 2t + 1) of each m16 x n8 tile), reading the
+// staged row chunk p_s (row stride kPS; int8 rows widened with their
+// rows' scales as the mma's widen them); dims ascend and every difference
+// and sum is rounded on its own.
+template <int QT, typename T>
 __device__ __forceinline__ void l1_chunk(
-    const float* q_s, int qs, const uint16_t* dec_s, int m_base, int n_base,
-    int g, int t, float (&acc)[Layout<QT>::MT][Layout<QT>::NT][4]) {
+    const float* q_s, int qs, const T* p_s, const float* scale_s, int m_base,
+    int n_base, int g, int t, float (&acc)[Layout<QT>::MT][Layout<QT>::NT][4]) {
   using L = Layout<QT>;
-  constexpr int kDS = p_stride<uint16_t>();
+  constexpr int kPS = p_stride<T>();
+  float sr[scaled_rows<T>() ? L::NT : 1][2];
+  if constexpr (scaled_rows<T>()) {
+#pragma unroll
+    for (int nt = 0; nt < L::NT; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        sr[nt][h] = round_bf16(scale_s[n_base + nt * 8 + 2 * t + h]);
+  }
 #pragma unroll 4
   for (int k = 0; k < kTileD; ++k) {
     float qv[L::MT][2];
@@ -759,8 +652,15 @@ __device__ __forceinline__ void l1_chunk(
     }
 #pragma unroll
     for (int nt = 0; nt < L::NT; ++nt) {
-      const uint16_t* pb = dec_s + (n_base + nt * 8 + 2 * t) * kDS + k;
-      const float p[2] = {widen(pb[0]), widen(pb[kDS])};
+      const T* pb = p_s + (n_base + nt * 8 + 2 * t) * kPS + k;
+      float p[2];
+      if constexpr (scaled_rows<T>()) {
+        p[0] = widen(pb[0], sr[nt][0]);
+        p[1] = widen(pb[kPS], sr[nt][1]);
+      } else {
+        p[0] = widen(pb[0]);
+        p[1] = widen(pb[kPS]);
+      }
 #pragma unroll
       for (int mt = 0; mt < L::MT; ++mt)
 #pragma unroll
@@ -777,42 +677,26 @@ __device__ __forceinline__ float score(float dot, float pn, float qn,
                              : 1.f - dot * rsqrtf(fmaxf(pn * qn, 1e-30f));
 }
 
-// The same score with each operation rounded on its own, as the port's
-// pairwise_dist (torch ops) rounds it: the PQ instance's, whose Manhattan
-// accumulators are already the score
-__device__ __forceinline__ float score_rn(float dot, float pn, float qn,
-                                          int metric) {
-  if (metric == kMetricManhattan) return dot;
-  return metric == kMetricL2
-             ? fmaxf(__fsub_rn(__fadd_rn(pn, qn), __fmul_rn(2.f, dot)), 0.f)
-             : __fsub_rn(1.f, __fmul_rn(dot, rsqrtf(fmaxf(__fmul_rn(pn, qn),
-                                                          1e-30f))));
-}
-
 // One block's sweep: queries [blockIdx.x QT, + QT) against split
-// blockIdx.y's rows (the other way round when split_major), the running
-// lists written to part_d / part_i.
+// blockIdx.y's rows, the running lists written to part_d / part_i.
 // ``scale``: the int8 rows' scales (null for float32 and bf16 rows).
-// ``table`` and G: PQ codes' bf16 table [D, 256] and groups (p: u8[N, G]).
 // ``kWide``: lists of up to kRegK entries take the wide selection, with
 // the bound f32[B, S] shared across splits at rank ``bound_rank`` (none
-// when null).
-template <int QT, bool kQRes, bool kWide, typename T>
+// when null).  ``kL1``: Manhattan, summed on the CUDA cores (l1_chunk).
+template <int QT, bool kQRes, bool kWide, typename T, bool kL1 = false>
 __device__ __forceinline__ void sweep_block(
     const float* __restrict__ q, const T* __restrict__ p,
     const float* __restrict__ scale, const unsigned char* __restrict__ del,
     int B, int n_rows, int D, bool vec_q, bool vec_p, int k_run, int metric,
     int rows_per_split, const float* __restrict__ floor_d,
     const int* __restrict__ floor_i, float* __restrict__ part_d,
-    int* __restrict__ part_i, float* bound, int bound_rank,
-    const uint32_t* __restrict__ table = nullptr, int G = 0) {
+    int* __restrict__ part_i, float* bound, int bound_rank) {
   using L = Layout<QT>;
   constexpr int kPS = p_stride<T>();
   constexpr int kPBytes = kTileN * kPS * (int)sizeof(T);
   // bf16 rows and int8 x scale elements are bf16 values: exact in TF32
   constexpr bool kExactRows = !std::is_same<T, float>::value;
   constexpr bool kScaled = scaled_rows<T>();
-  constexpr bool kPq = pq_rows<T>();
   constexpr int kExtraBytes = stage_extra_bytes<T>();
   constexpr int kStageBytes = kPBytes + kExtraBytes +
                               (kQRes ? 0 : QT * kQStride * (int)sizeof(float));
@@ -821,7 +705,7 @@ __device__ __forceinline__ void sweep_block(
   extern __shared__ __align__(16) unsigned char smem[];
   float* q_all = reinterpret_cast<float*>(smem + kStages * kStageBytes);
   float* score_s = q_all + (kQRes ? QT * q_all_stride : 0);
-  float* qn_s = score_s + score_floats<T>(QT);          // [QT]
+  float* qn_s = score_s + QT * kSStride;                // [QT]
   float* pn_s = qn_s + QT;                              // [kTileN]
   float* list_d = pn_s + kTileN;                        // [QT][k_run]
   int* list_i = reinterpret_cast<int*>(list_d + QT * k_run);
@@ -830,10 +714,9 @@ __device__ __forceinline__ void sweep_block(
   const int g = lane >> 2, t = lane & 3;
   const int m_base = (warp / L::WN) * (QT / L::WM);
   const int n_base = (warp % L::WN) * (kTileN / L::WN);
-  const bool by_split = split_major<T>(B, QT, k_run);
-  const int q0 = (by_split ? blockIdx.y : blockIdx.x) * QT;
-  const int split = by_split ? blockIdx.x : blockIdx.y;
-  const int n_splits = by_split ? gridDim.x : gridDim.y;
+  const int q0 = blockIdx.x * QT;
+  const int split = blockIdx.y;
+  const int n_splits = gridDim.y;
   const int row_begin = split * rows_per_split;
   const int row_end = min(n_rows, row_begin + rows_per_split);
 
@@ -841,7 +724,7 @@ __device__ __forceinline__ void sweep_block(
     list_d[e] = CUDART_INF_F;
     list_i[e] = -1;
   }
-  for (int i = 0; i < L::QPW; ++i) {
+  for (int i = 0; i < (kL1 ? 0 : L::QPW); ++i) {         // |q|^2
     const int qi = q0 + warp * L::QPW + i;
     float s = 0.f;
     if (qi < B)
@@ -877,7 +760,7 @@ __device__ __forceinline__ void sweep_block(
                        c * kTileD, D, vec_q, tid);
     load_step<QT, kQRes, kPBytes, kStageBytes>(q, p, smem, 0, row_begin, 0,
                                                row_end, q0, B, D, vec_q, vec_p,
-                                               tid, scale, table, G);
+                                               tid, scale);
   }
   cp_async_commit();
   int tile = row_begin, chunk = 0;                      // step s
@@ -888,7 +771,7 @@ __device__ __forceinline__ void sweep_block(
       load_step<QT, kQRes, kPBytes, kStageBytes>(
           q, p, smem, s + 1, last ? tile + kTileN : tile,
           last ? 0 : (chunk + 1) * kTileD, row_end, q0, B, D, vec_q, vec_p,
-          tid, scale, table, G);
+          tid, scale);
     cp_async_commit();
     cp_async_wait<kStages - 1>();
     __syncthreads();
@@ -900,39 +783,7 @@ __device__ __forceinline__ void sweep_block(
               : reinterpret_cast<const float*>(smem + (s & 1) * kStageBytes +
                                                kPBytes + kExtraBytes);
     const int qs = kQRes ? q_all_stride : kQStride;
-    // PQ: the staged codes, the table chunk and the dims' offsets in a
-    // staged code row
-    const uint8_t* codes_s = reinterpret_cast<const uint8_t*>(p_s);
-    const uint32_t* tab = reinterpret_cast<const uint32_t*>(
-        smem + (s & 1) * kStageBytes + kPBytes);
-    const unsigned char* offset_s =
-        smem + (s & 1) * kStageBytes + kPBytes + kTableBytes;
-    constexpr int kDS = p_stride<uint16_t>();      // the decoded tile's stride
-    const uint16_t* dec_s = reinterpret_cast<const uint16_t*>(score_s);
-    if constexpr (kPq) {
-      // thread tid decodes the 16 dims of half tid & 1 of row tid >> 1 a
-      // pair at a time (one table read when both dims take one code, two
-      // when the pair straddles groups) and sums their squares for |p|^2
-      uint32_t* out = reinterpret_cast<uint32_t*>(score_s) +
-                      (tid >> 1) * (kDS / 2) + (tid & 1) * (kTileD / 4);
-#pragma unroll
-      for (int c = 0; c < kTileD / 4; ++c) {
-        const int dl = (tid & 1) * (kTileD / 2) + 2 * c;
-        unsigned pair = pq_pair(codes_s, tab, offset_s, tid >> 1, dl);
-        if (offset_s[dl] != offset_s[dl + 1])
-          pair = (pair & 0xffffu) |
-                 (pq_pair(codes_s, tab, offset_s, tid >> 1, dl + 1) &
-                  0xffff0000u);
-        const float v0 = widen((uint16_t)pair),
-                    v1 = widen((uint16_t)(pair >> 16));
-        pn_part = fmaf(v0, v0, pn_part);
-        pn_part = fmaf(v1, v1, pn_part);
-        out[c] = pair;
-      }
-      __syncthreads();
-    }
-
-    {
+    if constexpr (!kL1) {
       const T* pr = p_s + (tid >> 1) * kPS + (tid & 1) * (kTileD / 2);
       if constexpr (kScaled) {
         const float sr = round_bf16(scale_s[tid >> 1]);
@@ -941,7 +792,7 @@ __device__ __forceinline__ void sweep_block(
           const float v = widen(pr[c], sr);
           pn_part = fmaf(v, v, pn_part);
         }
-      } else if constexpr (!kPq) {
+      } else {
 #pragma unroll
         for (int c = 0; c < kTileD / 2; ++c) {
           const float v = widen(pr[c]);
@@ -950,21 +801,17 @@ __device__ __forceinline__ void sweep_block(
       }
     }
 
-    // the rounded scale of each row this thread feeds (int8 rows)
-    float sb[kScaled ? L::NT : 1];
-    if constexpr (kScaled) {
+    if constexpr (kL1) {
+      // Manhattan has no matmul form: the CUDA cores sum it
+      l1_chunk<QT>(q_s, qs, p_s, scale_s, m_base, n_base, g, t, acc);
+    } else {
+      // the rounded scale of each row this thread feeds (int8 rows)
+      float sb[kScaled ? L::NT : 1];
+      if constexpr (kScaled) {
 #pragma unroll
-      for (int nt = 0; nt < L::NT; ++nt)
-        sb[nt] = round_bf16(scale_s[n_base + nt * 8 + g]);
-    }
-
-    // Manhattan (PQ codes only) has no matmul form: the CUDA cores sum it
-    bool l1 = false;
-    if constexpr (kPq) {
-      l1 = metric == kMetricManhattan;
-      if (l1) l1_chunk<QT>(q_s, qs, dec_s, m_base, n_base, g, t, acc);
-    }
-    if (!l1) {
+        for (int nt = 0; nt < L::NT; ++nt)
+          sb[nt] = round_bf16(scale_s[n_base + nt * 8 + g]);
+      }
 #pragma unroll
       for (int k0 = 0; k0 < kTileD; k0 += 8) {
         uint32_t ah[L::MT][4], al[L::MT][4];
@@ -983,11 +830,6 @@ __device__ __forceinline__ void sweep_block(
           if constexpr (kScaled) {
             y0 = widen(pb[0], sb[nt]);
             y1 = widen(pb[4], sb[nt]);
-          } else if constexpr (kPq) {
-            const uint16_t* db =
-                dec_s + (n_base + nt * 8 + g) * kDS + k0 + t;
-            y0 = widen(db[0]);
-            y1 = widen(db[4]);
           } else {
             y0 = widen(pb[0]);
             y1 = widen(pb[4]);
@@ -1036,11 +878,9 @@ __device__ __forceinline__ void sweep_block(
           const int ql = m_base + mt * 16 + g + 8 * h;
           const int r = n_base + nt * 8 + 2 * t;
           const float qn = qn_s[ql];
-          if constexpr (kPq)
+          if constexpr (kL1)         // the accumulators are the score
             *reinterpret_cast<float2*>(&score_s[ql * kSStride + r]) =
-                make_float2(
-                    score_rn(acc[mt][nt][2 * h], pn_s[r], qn, metric),
-                    score_rn(acc[mt][nt][2 * h + 1], pn_s[r + 1], qn, metric));
+                make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
           else
             *reinterpret_cast<float2*>(&score_s[ql * kSStride + r]) =
                 make_float2(score(acc[mt][nt][2 * h], pn_s[r], qn, metric),
@@ -1109,8 +949,8 @@ __device__ __forceinline__ void sweep_block(
           continue;
         }
       }
-      // past kRegK (PQ pools of 257-1024) the list in shared memory also
-      // publishes its j-th score when it fell
+      // past kRegK the list in shared memory also publishes its j-th
+      // score when it fell (where a bound is given)
       const float jth = bound != nullptr ? ld[jr] : 0.f;
 #pragma unroll
       for (int j = 0; j < kRowsPerLane; ++j) {
@@ -1212,21 +1052,20 @@ sweep_kernel_q8(const float* __restrict__ q, const int8_t* __restrict__ p,
                                floor_i, part_d, part_i, bound, bound_rank);
 }
 
-// PQ codes u8[N, G] through the bf16 table [D, 256], under the wide
-// selection
-template <int QT, bool kQRes>
+// Manhattan over float32, bf16 or int8 rows (``scale`` null but for
+// int8), the CUDA cores' sum, under the wide selection
+template <int QT, bool kQRes, typename T>
 __global__ void __launch_bounds__(kThreads, 2)
-sweep_kernel_pq(const float* __restrict__ q, const uint8_t* __restrict__ p,
-                const uint32_t* __restrict__ table,
+sweep_kernel_l1(const float* __restrict__ q, const T* __restrict__ p,
+                const float* __restrict__ scale,
                 const unsigned char* __restrict__ del, int B, int n_rows,
-                int D, int G, bool vec_q, bool vec_p, int k_run, int metric,
+                int D, bool vec_q, bool vec_p, int k_run, int metric,
                 int rows_per_split, const float* __restrict__ floor_d,
                 const int* __restrict__ floor_i, float* __restrict__ part_d,
                 int* __restrict__ part_i, float* bound, int bound_rank) {
-  sweep_block<QT, kQRes, true>(q, p, nullptr, del, B, n_rows, D, vec_q, vec_p,
-                               k_run, metric, rows_per_split, floor_d,
-                               floor_i, part_d, part_i, bound, bound_rank,
-                               table, G);
+  sweep_block<QT, kQRes, true, T, true>(
+      q, p, scale, del, B, n_rows, D, vec_q, vec_p, k_run, metric,
+      rows_per_split, floor_d, floor_i, part_d, part_i, bound, bound_rank);
 }
 
 __global__ void __launch_bounds__(kMergeWarps * 32)
@@ -1287,16 +1126,16 @@ merge_kernel(const float* __restrict__ part_d, const int* __restrict__ part_i,
 
 int ceil_div(long long a, long long b) { return (int)((a + b - 1) / b); }
 
-template <int QT, bool kQRes, bool kWide, typename T>
+template <int QT, bool kQRes, bool kWide, bool kL1, typename T>
 cudaError_t launch_sweep(const float* q, const T* p, const float* scale,
-                         const uint32_t* table, const unsigned char* del,
-                         int B, int n_rows, int D, int G, int k_run,
-                         int metric, int S, size_t smem, const float* floor_d,
-                         const int* floor_i, float* part_d, int* part_i,
-                         float* bound, int bound_rank, cudaStream_t stream) {
+                         const unsigned char* del, int B, int n_rows, int D,
+                         int k_run, int metric, int S, size_t smem,
+                         const float* floor_d, const int* floor_i,
+                         float* part_d, int* part_i, float* bound,
+                         int bound_rank, cudaStream_t stream) {
   const void* kernel;
-  if constexpr (pq_rows<T>())
-    kernel = reinterpret_cast<const void*>(sweep_kernel_pq<QT, kQRes>);
+  if constexpr (kL1)
+    kernel = reinterpret_cast<const void*>(sweep_kernel_l1<QT, kQRes, T>);
   else if constexpr (scaled_rows<T>())
     kernel = reinterpret_cast<const void*>(sweep_kernel_q8<QT, kQRes>);
   else if constexpr (kWide)
@@ -1311,16 +1150,12 @@ cudaError_t launch_sweep(const float* q, const T* p, const float* scale,
   // 16-byte copies need 16-byte rows and a 16-byte aligned base
   const bool vec_q = (D * sizeof(float)) % 16 == 0 &&
                      reinterpret_cast<uintptr_t>(q) % 16 == 0;
-  // (PQ codes: 4-byte copies need G % 4 == 0 and a 4-byte aligned base)
-  const bool vec_p =
-      pq_rows<T>() ? G % 4 == 0 && reinterpret_cast<uintptr_t>(p) % 4 == 0
-                   : (D * sizeof(T)) % 16 == 0 &&
-                         reinterpret_cast<uintptr_t>(p) % 16 == 0;
-  const dim3 grid = split_major<T>(B, QT, k_run) ? dim3(S, ceil_div(B, QT))
-                                                 : dim3(ceil_div(B, QT), S);
-  if constexpr (pq_rows<T>())
-    sweep_kernel_pq<QT, kQRes><<<grid, kThreads, smem, stream>>>(
-        q, p, table, del, B, n_rows, D, G, vec_q, vec_p, k_run, metric,
+  const bool vec_p = (D * sizeof(T)) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  const dim3 grid(ceil_div(B, QT), S);
+  if constexpr (kL1)
+    sweep_kernel_l1<QT, kQRes, T><<<grid, kThreads, smem, stream>>>(
+        q, p, scale, del, B, n_rows, D, vec_q, vec_p, k_run, metric,
         rows_per_split, floor_d, floor_i, part_d, part_i, bound, bound_rank);
   else if constexpr (scaled_rows<T>())
     sweep_kernel_q8<QT, kQRes><<<grid, kThreads, smem, stream>>>(
@@ -1337,27 +1172,25 @@ cudaError_t launch_sweep(const float* q, const T* p, const float* scale,
   return cudaGetLastError();
 }
 
-// ``kWide``: the wide selection (the int8 and PQ instances, and the
-// float32 / bf16 wide ones, which exist at QT = 64 for k_run <= kRegK
-// only); ``bound`` (f32[B, S] of +inf, or null) and ``bound_rank`` j as
-// sweep_block takes them, S j >= k_run; ``table`` and G only for PQ codes.
-template <bool kWide, typename T>
+// ``kWide``: the wide selection (the int8 and Manhattan instances at every
+// k_run, and the float32 / bf16 wide ones, which exist at QT = 64 for
+// k_run <= kRegK only); ``bound`` (f32[B, S] of +inf, or null) and
+// ``bound_rank`` j as sweep_block takes them, S j >= k_run; ``kL1``: the
+// Manhattan instances (metric Manhattan only, the others L2 or cosine).
+template <bool kWide, bool kL1, typename T>
 int run_topk(const float* q, const T* p, const float* scale,
-             const uint32_t* table, const unsigned char* del, int B,
-             int n_rows, int D, int G, int k_run, int metric, int qt, int S,
-             int q_res, int smem_bytes, float* part_d, int* part_i,
-             float* out_d, int* out_i, float* floor_d, int* floor_i,
-             float* bound, int bound_rank, void* stream_ptr) {
-  constexpr bool kEveryTile = scaled_rows<T>() || pq_rows<T>();
+             const unsigned char* del, int B, int n_rows, int D, int k_run,
+             int metric, int qt, int S, int q_res, int smem_bytes,
+             float* part_d, int* part_i, float* out_d, int* out_i,
+             float* floor_d, int* floor_i, float* bound, int bound_rank,
+             void* stream_ptr) {
+  constexpr bool kEveryTile = scaled_rows<T>() || kL1;
   if (B <= 0 || n_rows < 0 || D <= 0 || k_run < 1 || k_run > kMaxK ||
       S < 1 || S > kMaxSplits || (qt != 64 && qt != 16) ||
-      (metric != kMetricL2 && metric != kMetricCosine &&
-       !(pq_rows<T>() && metric == kMetricManhattan)) ||
+      (kL1 ? metric != kMetricManhattan
+           : metric != kMetricL2 && metric != kMetricCosine) ||
       (floor_d == nullptr) != (floor_i == nullptr) ||
       (scale == nullptr) == scaled_rows<T>() ||
-      (table == nullptr) == pq_rows<T>() ||
-      (pq_rows<T>() && (G < 1 || G > D || D % G != 0 ||
-                        reinterpret_cast<uintptr_t>(table) % 16 != 0)) ||
       (kWide && !kEveryTile && (qt != 64 || k_run > kRegK)) ||
       (bound != nullptr &&
        (!kWide || bound_rank < 1 || bound_rank > k_run ||
@@ -1369,25 +1202,21 @@ int run_topk(const float* q, const T* p, const float* scale,
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   cudaError_t err = cudaErrorInvalidValue;
   if (qt == 64)
-    err = q_res ? launch_sweep<64, true, kWide>(
-                      q, p, scale, table, del, B, n_rows, D, G, k_run, metric,
-                      S, smem,
+    err = q_res ? launch_sweep<64, true, kWide, kL1>(
+                      q, p, scale, del, B, n_rows, D, k_run, metric, S, smem,
                       floor_d, floor_i, part_d, part_i, bound, bound_rank,
                       stream)
-                : launch_sweep<64, false, kWide>(
-                      q, p, scale, table, del, B, n_rows, D, G, k_run, metric,
-                      S, smem,
+                : launch_sweep<64, false, kWide, kL1>(
+                      q, p, scale, del, B, n_rows, D, k_run, metric, S, smem,
                       floor_d, floor_i, part_d, part_i, bound, bound_rank,
                       stream);
   else if constexpr (!kWide || kEveryTile)
-    err = q_res ? launch_sweep<16, true, kWide>(
-                      q, p, scale, table, del, B, n_rows, D, G, k_run, metric,
-                      S, smem,
+    err = q_res ? launch_sweep<16, true, kWide, kL1>(
+                      q, p, scale, del, B, n_rows, D, k_run, metric, S, smem,
                       floor_d, floor_i, part_d, part_i, bound, bound_rank,
                       stream)
-                : launch_sweep<16, false, kWide>(
-                      q, p, scale, table, del, B, n_rows, D, G, k_run, metric,
-                      S, smem,
+                : launch_sweep<16, false, kWide, kL1>(
+                      q, p, scale, del, B, n_rows, D, k_run, metric, S, smem,
                       floor_d, floor_i, part_d, part_i, bound, bound_rank,
                       stream);
   if (err != cudaSuccess) return (int)err;
@@ -1417,10 +1246,10 @@ int bruteforce_topk(const float* q, const float* p, const unsigned char* del,
                     int S, int q_res, int smem_bytes, float* part_d,
                     int* part_i, float* out_d, int* out_i, float* floor_d,
                     int* floor_i, void* stream_ptr) {
-  return run_topk<false>(q, p, nullptr, nullptr, del, B, n_rows, D, 0, k_run,
-                         metric, qt, S, q_res, smem_bytes, part_d, part_i,
-                         out_d, out_i, floor_d, floor_i, nullptr, 0,
-                         stream_ptr);
+  return run_topk<false, false>(q, p, nullptr, del, B, n_rows, D, k_run,
+                                metric, qt, S, q_res, smem_bytes, part_d,
+                                part_i, out_d, out_i, floor_d, floor_i,
+                                nullptr, 0, stream_ptr);
 }
 
 // The same with p bf16[n_rows.., D] (its raw 16-bit patterns).
@@ -1430,10 +1259,11 @@ int bruteforce_topk_bf16(const float* q, const void* p,
                          int smem_bytes, float* part_d, int* part_i,
                          float* out_d, int* out_i, float* floor_d,
                          int* floor_i, void* stream_ptr) {
-  return run_topk<false>(q, static_cast<const uint16_t*>(p), nullptr, nullptr,
-                         del, B, n_rows, D, 0, k_run, metric, qt, S, q_res,
-                         smem_bytes, part_d, part_i, out_d, out_i, floor_d,
-                         floor_i, nullptr, 0, stream_ptr);
+  return run_topk<false, false>(q,
+                                static_cast<const uint16_t*>(p), nullptr, del,
+                                B, n_rows, D, k_run, metric, qt, S, q_res,
+                                smem_bytes, part_d, part_i, out_d, out_i,
+                                floor_d, floor_i, nullptr, 0, stream_ptr);
 }
 
 // The wide selection for the build's pools (k_run <= 256, QT = 64) over
@@ -1447,10 +1277,10 @@ int bruteforce_topk_wide(const float* q, const float* p,
                          float* out_d, int* out_i, float* floor_d,
                          int* floor_i, float* bound, int bound_rank,
                          void* stream_ptr) {
-  return run_topk<true>(q, p, nullptr, nullptr, del, B, n_rows, D, 0, k_run,
-                        metric, qt, S, q_res, smem_bytes, part_d, part_i,
-                        out_d, out_i, floor_d, floor_i, bound, bound_rank,
-                        stream_ptr);
+  return run_topk<true, false>(q, p, nullptr, del, B, n_rows, D, k_run,
+                               metric, qt, S, q_res, smem_bytes, part_d,
+                               part_i, out_d, out_i, floor_d, floor_i, bound,
+                               bound_rank, stream_ptr);
 }
 
 int bruteforce_topk_bf16_wide(const float* q, const void* p,
@@ -1460,10 +1290,11 @@ int bruteforce_topk_bf16_wide(const float* q, const void* p,
                               int* part_i, float* out_d, int* out_i,
                               float* floor_d, int* floor_i, float* bound,
                               int bound_rank, void* stream_ptr) {
-  return run_topk<true>(q, static_cast<const uint16_t*>(p), nullptr, nullptr,
-                        del, B, n_rows, D, 0, k_run, metric, qt, S, q_res,
-                        smem_bytes, part_d, part_i, out_d, out_i, floor_d,
-                        floor_i, bound, bound_rank, stream_ptr);
+  return run_topk<true, false>(q, static_cast<const uint16_t*>(p), nullptr,
+                               del, B, n_rows, D, k_run, metric, qt, S, q_res,
+                               smem_bytes, part_d, part_i, out_d, out_i,
+                               floor_d, floor_i, bound, bound_rank,
+                               stream_ptr);
 }
 
 // The same with int8 rows p i8[n_rows.., D] and their scales
@@ -1476,30 +1307,56 @@ int bruteforce_topk_q8(const float* q, const void* p, const float* scale,
                        float* out_d, int* out_i, float* floor_d,
                        int* floor_i, float* bound, int bound_rank,
                        void* stream_ptr) {
-  return run_topk<true>(q, static_cast<const int8_t*>(p), scale, nullptr,
-                        del, B, n_rows, D, 0, k_run, metric, qt, S, q_res,
-                        smem_bytes, part_d, part_i, out_d, out_i, floor_d,
-                        floor_i, bound, bound_rank, stream_ptr);
+  return run_topk<true, false>(q, static_cast<const int8_t*>(p), scale, del,
+                               B, n_rows, D, k_run, metric, qt, S, q_res,
+                               smem_bytes, part_d, part_i, out_d, out_i,
+                               floor_d, floor_i, bound, bound_rank,
+                               stream_ptr);
 }
 
-// The compressed sweep's coarse pool: rows are PQ codes u8[n_rows.., G]
-// (D % G == 0), a row element bf16(codebook[d / sub, code, d % sub]) read
-// from table bf16[ceil(D / 2), 256, 2] (16-byte aligned; entry (j, code)
-// holds dims 2j and 2j + 1 for that code, zero past D); the rest as
-// bruteforce_topk_q8 (the wide selection at k_run
-// <= 256, bound as bruteforce_topk_wide's; floors for pages).
-int bruteforce_topk_pq(const float* q, const void* codes, const void* table,
+// Manhattan (metric 2 only) over float32, bf16 and int8 rows: arguments as
+// bruteforce_topk_wide's (the int8 entry's as bruteforce_topk_q8's), the
+// wide selection at every k_run up to 256 (bound as bruteforce_topk_wide's)
+// and the insertion into shared memory past it (QT = 16).
+int bruteforce_topk_l1(const float* q, const float* p,
                        const unsigned char* del, int B, int n_rows, int D,
-                       int G, int k_run, int metric, int qt, int S, int q_res,
+                       int k_run, int metric, int qt, int S, int q_res,
                        int smem_bytes, float* part_d, int* part_i,
                        float* out_d, int* out_i, float* floor_d,
                        int* floor_i, float* bound, int bound_rank,
                        void* stream_ptr) {
-  return run_topk<true>(q, static_cast<const uint8_t*>(codes), nullptr,
-                        static_cast<const uint32_t*>(table), del, B, n_rows,
-                        D, G, k_run, metric, qt, S, q_res, smem_bytes, part_d,
-                        part_i, out_d, out_i, floor_d, floor_i, bound,
-                        bound_rank, stream_ptr);
+  return run_topk<true, true>(q, p, nullptr, del, B, n_rows, D, k_run,
+                              metric, qt, S, q_res, smem_bytes, part_d,
+                              part_i, out_d, out_i, floor_d, floor_i, bound,
+                              bound_rank, stream_ptr);
+}
+
+int bruteforce_topk_bf16_l1(const float* q, const void* p,
+                            const unsigned char* del, int B, int n_rows,
+                            int D, int k_run, int metric, int qt, int S,
+                            int q_res, int smem_bytes, float* part_d,
+                            int* part_i, float* out_d, int* out_i,
+                            float* floor_d, int* floor_i, float* bound,
+                            int bound_rank, void* stream_ptr) {
+  return run_topk<true, true>(q, static_cast<const uint16_t*>(p), nullptr,
+                              del, B, n_rows, D, k_run, metric, qt, S, q_res,
+                              smem_bytes, part_d, part_i, out_d, out_i,
+                              floor_d, floor_i, bound, bound_rank,
+                              stream_ptr);
+}
+
+int bruteforce_topk_q8_l1(const float* q, const void* p, const float* scale,
+                          const unsigned char* del, int B, int n_rows, int D,
+                          int k_run, int metric, int qt, int S, int q_res,
+                          int smem_bytes, float* part_d, int* part_i,
+                          float* out_d, int* out_i, float* floor_d,
+                          int* floor_i, float* bound, int bound_rank,
+                          void* stream_ptr) {
+  return run_topk<true, true>(q, static_cast<const int8_t*>(p), scale, del,
+                              B, n_rows, D, k_run, metric, qt, S, q_res,
+                              smem_bytes, part_d, part_i, out_d, out_i,
+                              floor_d, floor_i, bound, bound_rank,
+                              stream_ptr);
 }
 
 }  // extern "C"

@@ -4,8 +4,8 @@ In the reference, exact ordering comes from a sequential scan + Sort using
 the row-at-a-time distance operators (embedding.c:1022-1062).  Here it is a
 chunked distance-matrix sweep with a running top-k merge, in plain torch
 ops.  It is (a) the recall oracle for every ANN test, (b) the Manhattan
-route of the exact entry (ops/cuda_bruteforce.fused_exact_search), which
-has no matmul form for the hand kernel.
+route of the exact entry (ops/cuda_bruteforce.fused_exact_search) on CPU
+tensors, and the twin of the sweep kernel's Manhattan instances.
 
 Ordering contract, shared by every top-k in the package: results ascend by
 (distance, position), i.e. ties keep the lower id / the incumbent.  The JAX

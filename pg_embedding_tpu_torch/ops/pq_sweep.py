@@ -15,11 +15,12 @@ are scored; the score then follows the JAX package's CPU semantics
 lower id, which is what ``lax.top_k`` over incumbents + chunk gives.
 
 The pool (the JAX package's ``_pq_pool_impl``) is ``_pq_pool``: on a CUDA
-tensor one launch of the sweep kernel's PQ instance for every metric
-(ops/cuda_bruteforce.pq_topk_paged: the codes decoded through the
-codebook inside the kernel, pages past 1024; Manhattan summed on the CUDA
-cores), on a CPU tensor its plain twin ``_pq_pool_plain`` (a chunk loop of
-pq_decode, pairwise_dist and merges).
+tensor one call of the PQ kernel for every metric
+(ops/cuda_bruteforce.pq_topk_paged, csrc/pq_topk.cu: the codes decoded
+through the codebook inside the kernel, scored on the bf16 tensor cores or,
+Manhattan, summed on the CUDA cores, filtered against a bound the splits
+share, then selected; pages past 1024), on a CPU tensor its plain twin
+``_pq_pool_plain`` (a chunk loop of pq_decode, pairwise_dist and merges).
 """
 
 from __future__ import annotations
@@ -54,8 +55,8 @@ def _pq_pool(queries, codes, codebook, rotation, n_valid: int, deleted, *,
     pool]) ascending by the decoded distance (L2 sqrt'd), rows >= n_valid
     and ``deleted`` rows skipped.  ``queries`` are in the original space and
     rotated here under OPQ.  CPU tensors run _pq_pool_plain (``chunk`` rows
-    a step); CUDA tensors one kernel launch a page, every metric (the
-    kernel takes no chunk); any other device raises."""
+    a step); CUDA tensors one kernel call a page, every metric (the kernel
+    takes no chunk); any other device raises."""
     if codes.device.type == "cpu":
         return _pq_pool_plain(queries, codes, codebook, rotation, n_valid,
                               deleted, pool=pool, metric_value=metric_value,

@@ -11,11 +11,24 @@ the exact route's instance and the wide one, where the wrapper's
 WIDE_MIN_K comes from) and the build sweep's (one 256-row insert batch:
 the int8 shadow of the rows at k_run = 2 cand_cap = 256, also at the other
 query tile, and exact mode's float32 / bf16 rows at cand_cap + 2 = 130,
-through the wide instances and, float32, the exact route's), and the
-compressed sweep's pool (ops/pq_sweep._pq_pool: PQ codes of G = 32 bytes
-a row through a normal codebook, B=1024, pools 32 and 256; at the end
-pools 32 to 1024 beside the twin and the library call, and Manhattan:
-pq_pools).  The variants, each against the kernel:
+through the wide instances and, float32, the exact route's).  Then the
+Manhattan instances at the exact route's shape (float32 rows, B=1024,
+k=10) and the build's (the int8 shadow, B=256, pool 256) beside their
+twin and the library call (torch.cdist(p=1) + torch.topk over one chunk):
+l1_shapes.  Then the compressed sweep's pool (csrc/pq_topk.cu, PQ codes of
+G = 32 bytes a row through a normal codebook, B=1024) built in its own
+variants (pq-kernel as built; pq-no-select: the scores made but no row
+admitted, no bound kept, the select over empty segments; pq-no-decode: an
+element is its code's bits, no table read; pq-loads-only: the copies and
+the code reads alone; pq-profile: the kernel with its phase clocks,
+-DPG_PROFILE; pq-profile-conflicts: the same with the table read as PR
+15's layout banked it, code % 32; pq-one-sum: no partial sum a step,
+every mma adding into the tile's sums), first held to float64 on
+clustered rows at pool 32 beside the twin (pq_error), then timed at pools
+32 to 1024 beside the twin and the library call, with the candidate
+segments' counts and the phase clocks; and Manhattan at pool 32 against
+the twin: pq_pools.  The row sweep's
+variants, each against the kernel:
   kernel          as built for the port (the launch shape's resident queries)
   streamed-q      the same library, queries streamed through the ring
   no-select       the selection after each tile removed (scores still made)
@@ -35,12 +48,6 @@ pq_pools).  The variants, each against the kernel:
                   one by one, more merged (the kernel's cut-off is 8)
   unused-bound    the bound read before each tile but not applied (its
                   reads' cost: this minus no-shared-bound)
-  pq-element-reads PQ shapes only: the decoded tile read a code and a table
-                  word for each element, not one a pair of dims
-  pq-no-decode    PQ shapes only: an element is its code's bits, no
-                  table read (the gathers' cost)
-  pq-no-table-copy PQ shapes only: the ring stages no table chunk (its
-                  copies' cost; elements read a stale stage)
 The wide shapes also run the count build (the kernel, and serial-select,
 with atomics: the rows each (query, split) admitted at its tiles' starts,
 the rows merged a tile at a time and the tile merges; mean and max beside
@@ -48,7 +55,7 @@ the model k (1 + ln(rows a split / k)) of a split that admits against its
 own k-th alone) and time the merge kernel alone at the launch's partial
 lists.  A variant's answers are wrong by design but for bound-serial's,
 bound-merge's and serial-max-N's; those and the kernel's ids are checked
-(against the plain twin).  Variants are timed in turns, then in
+(against the plain twin); the PQ kernel's pool at 32 too.  Variants are timed in turns, then in
 reverse order (--passes of them, every other reversed), on one card, with
 its name and power limit printed first; each variant's best and worst pass
 close the run.
@@ -83,11 +90,12 @@ SHAPES = (("float32", 1024, 12, None, False), ("bf16", 1024, 12, None, False),
           ("float32", 1024, 102, None, True),
           ("int8", 256, 256, None, True), ("int8", 256, 256, 16, True),
           ("float32", 256, 130, None, False),
-          ("float32", 256, 130, None, True), ("bf16", 256, 130, None, True),
-          ("pq", 1024, 32, None, True), ("pq", 1024, 256, None, True))
-# the PQ shapes' codes a row
+          ("float32", 256, 130, None, True), ("bf16", 256, 130, None, True))
+# the PQ pool's codes a row and its pools
 PQ_GROUPS = 32
+PQ_POOLS = (32, 256, 512, 1024)
 SRC = os.path.join(_kernels._PKG_DIR, "csrc", "bruteforce_topk.cu")
+PQ_SRC = os.path.join(_kernels._PKG_DIR, "csrc", "pq_topk.cu")
 OUT = os.path.join(_kernels.BUILD_DIR, "probe")
 
 _SELECTION = "    // selection: warp w alone"
@@ -101,9 +109,20 @@ _APPLY_BOUND = ("      const float tau =\n"
                 "CUDART_INF_F;\n")
 _ADMITTED = "  if (admitted <= kSerialMax)\n"
 _NAMESPACE = "\nnamespace {\n"
-_PQ_GATHER = "  return tab[(dl >> 1) * kCodes + code];\n"
-_PQ_PAIR = "        if (offset_s[dl] != offset_s[dl + 1])\n"
-_PQ_COPY = "  for (int e = tid; e < kTileD / 2 * kSegs; e += kThreads) {\n"
+# the PQ kernel's filter's bound, its bound phase, its table reads, its
+# mma's, its laps
+_PQ_TAU = ("          const float qn = qn_s[ql], tau = tau_s[ql], "
+           "fd = fld_s[ql];\n")
+_PQ_BOUND = "      if (bound != nullptr || own) {\n"
+# tiles between the shared slots' reads that pq-refresh-N tries (the
+# kernel's is 8), and the seeding launch's tiles that pq-seed-N tries
+# (the kernel's is 2; 0: no seeding)
+PQ_REFRESH_TRIED = (1, 32)
+PQ_SEED_TRIED = (0, 8)
+_PQ_GATHER = ("        uint32_t w = tab[codes_s[r * kCS + o0] * kPairs + "
+              "lane];\n")
+_PQ_STRADDLE = "        if (o1 != o0)\n"
+_PQ_MMA = '  asm("mma.sync.aligned.m16n8k16'
 # the cut-offs between one-by-one insertion and a tile merge that
 # serial-max-N tries beside the kernel's
 SERIAL_MAX_TRIED = (2, 4, 16)
@@ -197,20 +216,67 @@ def variants(src: str) -> dict:
                    "tau_mine, i)) ? 0.f : CUDART_INF_F;\n")
     cut_offs = {f"serial-max-{n}": _serial_max(src, n)
                 for n in SERIAL_MAX_TRIED}
-    pq = {"pq-no-decode": _once(src, _PQ_GATHER, "  return code;\n"),
-          "pq-element-reads": _once(src, _PQ_PAIR, "        if (true)\n"),
-          "pq-no-table-copy": _once(
-              src, _PQ_COPY,
-              "  for (int e = tid; e < 0; e += kThreads) {\n")}
     return {"kernel": src, "no-select": no_select, "loads-only": loads,
             "cvt-rounding": cvt, "smem-lists": smem_lists,
             "serial-select": serial, "no-shared-bound": no_bound,
             "bound-serial": bound_serial, "bound-merge": bound_merge,
             "unused-bound": unused, "count": _counting(src),
-            "count-serial": _counting(serial), **cut_offs, **pq}
+            "count-serial": _counting(serial), **cut_offs}
 
 
-def build(name: str, src: str):
+def pq_variants(src: str) -> dict:
+    """csrc/pq_topk.cu and its rewrites: pq-no-select (every query's bound
+    NaN, so no row is admitted, though the compiler cannot tell: the
+    scores made, nothing appended, no bound kept), pq-no-decode (an
+    element is its code's bits: no table read, no straddling pair),
+    pq-loads-only (no-select and no-decode with the mma's off),
+    pq-profile (the kernel with PG_PROFILE defined: phase clocks),
+    pq-profile-conflicts (the same reading the table as PR 15's layout
+    banked it, code % 32: the decode's clock against the kernel's),
+    pq-one-sum (no partial sum a step: every mma adds into the tile's
+    sums)."""
+    no_select = _once(_once(src, _PQ_TAU, _PQ_TAU.replace(
+        "tau = tau_s[ql]", "tau = 0.f * tau_s[ql] - CUDART_INF_F")),
+                      _PQ_BOUND, "      if (false) {\n")
+    no_decode = _once(_once(src, _PQ_GATHER,
+                            "        uint32_t w = codes_s[r * kCS + o0];\n"),
+                      _PQ_STRADDLE, "        if (false)\n")
+    loads = _once(_once(_once(no_select, _PQ_GATHER,
+                              "        uint32_t w = codes_s[r * kCS + o0];\n"),
+                        _PQ_STRADDLE, "        if (false)\n"),
+                  _PQ_MMA, '  if (0) asm("mma.sync.aligned.m16n8k16')
+    refresh = {f"pq-refresh-{n}": _once(src, "constexpr int kRefresh = 8;",
+                                        f"constexpr int kRefresh = {n};")
+               for n in PQ_REFRESH_TRIED}
+    seed = {f"pq-seed-{n}": _once(src, "constexpr int kSeedTiles = 2;",
+                                  f"constexpr int kSeedTiles = {n};")
+            for n in PQ_SEED_TRIED}
+    # PR 15's table layout, entry (pair, code) at word 256 pair + code:
+    # bank code % 32, so random codes collide (the values read are wrong;
+    # only the decode's phase clock means anything)
+    conflicts = _once(_once(
+        src, "tab[codes_s[r * kCS + o0] * kPairs + lane]",
+        "tab[lane * kCodes + codes_s[r * kCS + o0]]"),
+        "tab[codes_s[r * kCS + o1] * kPairs + lane]",
+        "tab[lane * kCodes + codes_s[r * kCS + o1]]")
+    # the step's products summed straight into the tile's sums, with no
+    # partial sum a step (the accumulation of the redesign's first draft)
+    one_sum = _once(_once(_once(
+        src, "mma_bf16(part[nt], a0, b0, b1);",
+        "mma_bf16(acc[mt][nt], a0, b0, b1);"),
+        "if (pass == 0) mma_bf16(part[nt], a1, b0, b1);",
+        "if (pass == 0) mma_bf16(acc[mt][nt], a1, b0, b1);"),
+        "acc[mt][nt][c] = __fadd_rn(acc[mt][nt][c], part[nt][c]);",
+        "(void)part[nt][c];")
+    return {"pq-kernel": src, "pq-one-sum": one_sum,
+            "pq-no-select": no_select,
+            "pq-no-decode": no_decode, "pq-loads-only": loads,
+            "pq-profile": "#define PG_PROFILE\n" + src,
+            "pq-profile-conflicts": "#define PG_PROFILE\n" + conflicts,
+            **refresh, **seed}
+
+
+def build(name: str, src: str, declare=_kernels.declare_sweep):
     cu, so = os.path.join(OUT, name + ".cu"), os.path.join(OUT, name + ".so")
     with open(cu, "w") as f:
         f.write(src)
@@ -220,7 +286,7 @@ def build(name: str, src: str):
     if proc.returncode:
         raise RuntimeError(f"{name}: nvcc failed\n{proc.stderr}")
     lib = ctypes.CDLL(so)
-    _kernels.declare_sweep(lib)
+    declare(lib)
     return lib
 
 
@@ -239,37 +305,34 @@ def time_ms(fn, reps: int) -> float:
 
 def launcher(lib, corpus, q, k_run: int, force_qt, wide: bool,
              streamed: bool, sms: int, stream, metric: int = L2):
-    """A launch over all N rows (``metric``, L2 by default) of ``lib``'s wide instance for this
-    corpus (``wide``; int8 rows and PQ codes have no other) or the exact
-    route's, the entry and its shared bound as the wrapper's ``_entry``
-    makes them, the bound refilled with +inf before each launch.  A corpus
-    is float32 / bf16 rows, the int8 shadow (qvec, qscale) or PQ codes and
-    the codebook's table (codes, table).  Returns (call, its launch shape
-    and buffers)."""
+    """A launch over all N rows (``metric``, L2 by default) of ``lib``'s
+    wide instance for this corpus (``wide``; int8 rows have no other) or
+    the exact route's (Manhattan's instance under metric 2), the entry and
+    its shared bound as the wrapper's ``_entry`` makes them, the bound
+    refilled with +inf before each launch.  A corpus is float32 / bf16 rows
+    or the int8 shadow (qvec, qscale).  Returns (call, its launch shape and
+    buffers)."""
     rows_k, scale = corpus if isinstance(corpus, tuple) else (corpus, None)
     isz, b = rows_k.element_size(), q.shape[0]
-    pq = rows_k.dtype == torch.uint8
     qt, splits, q_res, smem = cb._launch_shape(b, N, k_run, sms, isz, D,
-                                               force_qt, pq)
+                                               force_qt)
     if streamed:
-        q_res, smem = False, cb._smem_bytes(qt, k_run, isz, D, False, pq)
+        q_res, smem = False, cb._smem_bytes(qt, k_run, isz, D, False)
     part_d = torch.empty((splits, b, k_run), device="cuda")
     part_i = torch.empty((splits, b, k_run), dtype=torch.int32,
                          device="cuda")
     out_d = torch.empty((b, k_run), device="cuda")
     out_i = torch.empty((b, k_run), dtype=torch.int32, device="cuda")
     name, scratch, tail = cb._entry(rows_k.dtype, k_run, b, splits, "cuda",
-                                    wide)
+                                    wide, manhattan=metric == 2)
     fn = getattr(lib, name)
     lead = ((q.data_ptr(), rows_k.data_ptr())
             + (() if scale is None else (scale.data_ptr(),)))
 
-    dims = (D, rows_k.shape[1]) if pq else (D,)
-
     def call():
         if scratch is not None:
             scratch.fill_(float("inf"))
-        err = fn(*lead, None, b, N, *dims, k_run, metric, qt, splits,
+        err = fn(*lead, None, b, N, D, k_run, metric, qt, splits,
                  int(q_res),
                  smem, part_d.data_ptr(), part_i.data_ptr(),
                  out_d.data_ptr(), out_i.data_ptr(), None, None, *tail,
@@ -318,17 +381,121 @@ def counts(libs, corpus, q, k_run, force_qt, sms, stream) -> None:
           f" {time_ms(merge, 20):.4f} ms", flush=True)
 
 
-def pq_pools(libs, codes, book, qs, sms, stream) -> None:
-    """The PQ pool at every tier the tuner can choose (pools 32 and 256:
-    the wide selection, QT = 64; 512 and 1024: the insertion into shared
-    memory, QT = 16) over the PQ shapes' codes, B=1024, L2: the kernel,
-    no-select (where built), the twin _pq_pool_plain and the library call
-    (pq_decode of every row to bf16, then torch.matmul in float32 +
-    torch.topk to the pool); then Manhattan at pool 32, the kernel (the
-    CUDA cores' sum) against the twin, ids compared.  Each a call between
-    CUDA events after a warm-up call."""
+def l1_shapes(lib, rows, qs, sms, stream) -> None:
+    """The Manhattan instances at the exact route's shape (float32 rows,
+    B=1024, k_run = k = 10) and the build's (the int8 shadow of the rows,
+    one 256-row insert batch, k_run = 2 cand_cap = 256): the kernel, the
+    twin (_bruteforce_topk_plain: sweep_min_k over torch.cdist chunks) and
+    the library call (torch.cdist(p=1) over one 1M chunk + torch.topk);
+    ids against the twin's.  Each a call between CUDA events after a
+    warm-up call."""
+    for kind, b, k_run in (("float32", 1024, 10), ("int8", 256, 256)):
+        corpus = rows if kind == "float32" else quantize_rows(rows)
+        q = qs[:b]
+        call, shape = launcher(lib, corpus, q, k_run, None, True, False, sms,
+                               stream, metric=2)
+        ms = time_ms(call, 5)
+        want = cb._bruteforce_topk_plain(q, corpus, k_run, 2, N)
+        twin = time_ms(lambda: cb._bruteforce_topk_plain(q, corpus, k_run, 2,
+                                                         N), 1)
+        dense = (rows if kind == "float32"
+                 else cb.dequantize_rows(*corpus).float())
+        library = time_ms(lambda: torch.topk(
+            torch.cdist(q, dense, p=1.0), k_run, dim=1, largest=False), 3)
+        same = (shape["out_i"] == want[1]).float().mean()
+        print(f"manhattan {shape['name']} B={b} k_run={k_run} "
+              f"QT={shape['qt']} S={shape['splits']}: kernel {ms:.3f} ms, "
+              f"twin {twin:.3f} ms, library {library:.3f} ms; ids equal to "
+              f"the twin's: {same:.5f}", flush=True)
+
+
+def pq_call(lib, codes, table, qs, pool: int, sms: int, stream,
+            metric: int = L2):
+    """One sweep and select of ``lib``'s bruteforce_topk_pq over all N
+    rows, shaped as the wrapper's _pq_launch_shape shapes it (the bound
+    refilled with +inf before each call; no rerun of an overflowed
+    segment).  Returns (call, shape and buffers)."""
+    b = qs.shape[0]
+    splits, rank, cap, per = cb._pq_launch_shape(b, N, pool, sms)
+    buf = torch.empty((b, splits, cap, 2), dtype=torch.int32, device="cuda")
+    counts = torch.empty((b, splits), dtype=torch.int32, device="cuda")
+    bound = torch.full((b, splits), float("inf"), device="cuda")
+    out_d = torch.empty((b, pool), device="cuda")
+    out_i = torch.empty((b, pool), dtype=torch.int32, device="cuda")
+
+    def call():
+        bound.fill_(float("inf"))
+        err = lib.bruteforce_topk_pq(
+            qs.data_ptr(), codes.data_ptr(), table.data_ptr(), None, b, N, D,
+            codes.shape[1], pool, metric, splits, cb.PQ_SMEM, buf.data_ptr(),
+            cap, counts.data_ptr(), bound.data_ptr() if rank else None, rank,
+            out_d.data_ptr(), out_i.data_ptr(), None, None, None, None,
+            stream)
+        if err:
+            raise RuntimeError(f"bruteforce_topk_pq: CUDA error {err}")
+    return call, dict(splits=splits, rank=rank, cap=cap, counts=counts,
+                      out_d=out_d, out_i=out_i)
+
+
+def pq_error(pq_libs, sms, stream) -> None:
+    """The PQ pool's distances against float64 on clustered rows (the
+    smoke's phase 8 recipe: utils.io.synthetic_clustered, 1M x 128-d,
+    50,000 centres, 1024 queries of the mixture; a G=32 codebook by
+    ops/pq.train_pq on 65,536 of the rows), pool 32, L2: for pq-kernel,
+    pq-one-sum and the twin, the mean and largest |d - d64| over the
+    returned (query, row) pairs (d64 over the decoded bf16 rows), and for
+    the variants the largest |d - twin's d| at equal ranks over the
+    smoke's tolerance, 1e-5 d + 1e-6 (past 1, chip_smoke's parity check
+    fails)."""
+    from .ops.pq import pq_decode, pq_encode, train_pq
+    from .utils.io import synthetic_clustered
+    pts, qs = synthetic_clustered(N, D, 50_000, seed=12348, n_queries=1024)
+    rows = torch.as_tensor(pts, device="cuda")
+    qs = torch.as_tensor(qs, device="cuda")
+    book = train_pq(rows[:65536], groups=PQ_GROUPS)
+    codes = pq_encode(rows, book)
+    del rows
+    table = cb.pq_table(book)
+    q64 = qs.double()
+
+    def err64(d, ids):
+        dec = pq_decode(codes[ids.long()].view(-1, PQ_GROUPS), book)
+        p = dec.to(torch.bfloat16).double().view(*ids.shape, D)
+        e = (d.double() - torch.sqrt(((p - q64[:, None]) ** 2).sum(-1))).abs()
+        return f"mean {e.mean():.3g}, largest {e.max():.3g}"
+    want = pq_sweep._pq_pool_plain(qs, codes, book, None, N, None, pool=32,
+                                   metric_value=L2, chunk=16384)
+    line = [f"twin {err64(*want)}"]
+    for name in ("pq-kernel", "pq-one-sum"):
+        if name not in pq_libs:
+            continue
+        call, shape = pq_call(pq_libs[name], codes, table, qs, 32, sms,
+                              stream)
+        call()
+        got = shape["out_d"], shape["out_i"]
+        ratio = ((got[0] - want[0]).abs()
+                 / (1e-5 * want[0].abs() + 1e-6)).max()
+        line.append(f"{name} {err64(*got)}, worst difference from the "
+                    f"twin {ratio:.3f} of the tolerance, ids equal "
+                    f"{(got[1] == want[1]).float().mean():.5f}")
+    print("pq pool 32 vs float64 on clustered rows: " + "; ".join(line),
+          flush=True)
+
+
+def pq_pools(pq_libs, codes, book, qs, sms, stream, reps: int) -> None:
+    """The PQ pool at pools 32 to 1024 over the PQ codes, B=1024, L2: each
+    variant of csrc/pq_topk.cu (its sweep and select), the kernel also
+    through the wrapper (pq_topk: reruns of overflowed segments
+    included), the twin _pq_pool_plain and the library call (pq_decode of
+    every row to bf16, then torch.matmul in float32 + torch.topk to the
+    pool); the kernel's segment counts (mean and largest, rows a query,
+    queries that overflowed) and its ids against the twin's at pool 32;
+    the profile build's phase clocks (a sweep block's cycles a tile in
+    each phase, a select block's cycles); then Manhattan at pool 32, the
+    kernel against the twin.  Each a call between CUDA events after a
+    warm-up call."""
     from .ops.pq import pq_decode
-    corpus = (codes, cb.pq_table(book))
+    table = cb.pq_table(book)
 
     def library(pool):
         rows = pq_decode(codes, book).to(torch.bfloat16).float()
@@ -339,23 +506,55 @@ def pq_pools(libs, codes, book, qs, sms, stream) -> None:
         return pq_sweep._pq_pool_plain(qs, codes, book, None, N, None,
                                        pool=pool, metric_value=metric,
                                        chunk=16384)
-    for pool in (32, 256, 512, 1024):
+    for pool in PQ_POOLS:
         got = {}
-        for name in ("kernel", "no-select"):
-            if name in libs:
-                call, shape = launcher(libs[name], corpus, qs, pool, None,
-                                       True, False, sms, stream)
-                got[name] = time_ms(call, 5)
+        for name, lib in pq_libs.items():
+            call, shape = pq_call(lib, codes, table, qs, pool, sms, stream)
+            if name.startswith("pq-profile"):
+                prof = torch.zeros(10, dtype=torch.int64, device="cuda")
+                call()
+                torch.cuda.synchronize()
+                _kernels.check(lib, lib.pq_topk_profile(prof.data_ptr()),
+                               name)
+                call()
+                _kernels.check(lib, lib.pq_topk_profile(prof.data_ptr()),
+                               name)
+                p = prof.tolist()
+                laps = ("copies", "decode", "mma", "filter", "bound",
+                        "closing barrier")
+                print(f"pq pool {pool} {name} phase clocks (a sweep block's "
+                      f"cycles a tile, thread 0): " + ", ".join(
+                          f"{k} {v / max(p[6], 1):.0f}"
+                          for k, v in zip(laps, p[:6]))
+                      + f"; {p[6]} tiles over {p[7]} blocks; a select "
+                      f"block {p[8] / max(p[9], 1):.0f} cycles over "
+                      f"{p[9]} blocks", flush=True)
+                continue
+            got[name] = time_ms(call, reps)
+            if name == "pq-kernel" or name.startswith(("pq-refresh",
+                                                        "pq-seed")):
+                c = shape["counts"].double()
+                over = int((c > shape["cap"]).any(dim=1).sum())
+                print(f"pq pool {pool} {name} segments (S={shape['splits']}, rank "
+                      f"{shape['rank']}, cap {shape['cap']}): mean "
+                      f"{c.mean():.1f} rows, largest {c.max():.0f}, "
+                      f"{c.sum(1).mean():.0f} rows a query, {over} of "
+                      f"{qs.shape[0]} queries overflowed", flush=True)
+                if pool == 32:
+                    same = (shape["out_i"] == twin(pool)[1]).float().mean()
+                    print(f"pq pool 32 ids equal to the twin's: {same:.5f}",
+                          flush=True)
+        got["wrapper"] = time_ms(lambda: cb.pq_topk(qs, codes, table, pool,
+                                                    L2, N), reps)
         got["twin"] = time_ms(lambda: twin(pool), 1)
         got["library"] = time_ms(lambda: library(pool), 3)
-        print(f"pq pool {pool} (QT={shape['qt']} S={shape['splits']}), "
-              f"B={qs.shape[0]}, G={codes.shape[1]}: " + ", ".join(
-                  f"{k} {v:.3f} ms" for k, v in got.items()), flush=True)
-    call, shape = launcher(libs["kernel"], corpus, qs, 32, None, True, False,
-                           sms, stream, metric=2)
-    ms = time_ms(call, 5)
+        print(f"pq pool {pool}, B={qs.shape[0]}, G={codes.shape[1]}: "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in got.items()),
+              flush=True)
+    ms = time_ms(lambda: cb.pq_topk(qs, codes, table, 32, 2, N), reps)
+    got = cb.pq_topk(qs, codes, table, 32, 2, N)
     want = twin(32, 2)
-    same = (shape["out_i"] == want[1]).float().mean()
+    same = (got[1] == want[1]).float().mean()
     print(f"pq pool 32, Manhattan: kernel {ms:.3f} ms, twin "
           f"{time_ms(lambda: twin(32, 2), 1):.3f} ms; ids equal to the "
           f"twin's: {same:.5f}", flush=True)
@@ -380,23 +579,38 @@ def main() -> int:
             ("smem-lists", False), ("serial-select", False),
             ("no-shared-bound", False), ("bound-serial", False),
             ("bound-merge", False), ("unused-bound", False),
-            *((f"serial-max-{n}", False) for n in SERIAL_MAX_TRIED),
-            ("pq-element-reads", False), ("pq-no-decode", False),
-            ("pq-no-table-copy", False)]
+            *((f"serial-max-{n}", False) for n in SERIAL_MAX_TRIED)]
+    pq_runs = ["pq-kernel", "pq-one-sum", "pq-no-select", "pq-no-decode", "pq-loads-only",
+               "pq-profile", "pq-profile-conflicts",
+               *(f"pq-refresh-{n}" for n in PQ_REFRESH_TRIED),
+               *(f"pq-seed-{n}" for n in PQ_SEED_TRIED)]
     if args.variants:
         runs = [r for r in runs if r[0] in args.variants.split(",")]
+        pq_runs = [r for r in pq_runs if r in args.variants.split(",")]
     with open(SRC) as f:
         srcs = variants(f.read())
+    with open(PQ_SRC) as f:
+        pq_srcs = {k: v for k, v in pq_variants(f.read()).items()
+                   if k in pq_runs}
     wanted = {"kernel" if name == "streamed-q" else name for name, _ in runs}
+    # the count builds go with the row sweep's variants
     srcs = {k: v for k, v in srcs.items()
-            if k in wanted | {"count", "count-serial"}}
-    with concurrent.futures.ThreadPoolExecutor(len(srcs)) as ex:
-        libs = dict(zip(srcs, ex.map(build, srcs, srcs.values())))
+            if k in wanted | ({"count", "count-serial"} if wanted else set())}
+    jobs = [(k, v, _kernels.declare_sweep) for k, v in srcs.items()] + [
+        (k, v, _kernels.declare_pq) for k, v in pq_srcs.items()]
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as ex:
+        built = dict(zip([j[0] for j in jobs],
+                         ex.map(lambda j: build(*j), jobs)))
+    libs = {k: built[k] for k in srcs}
+    pq_libs = {k: built[k] for k in pq_srcs}
+    for lib in pq_libs.values():
+        if hasattr(lib, "pq_topk_profile"):
+            lib.pq_topk_profile.argtypes = [ctypes.c_void_p]
+            lib.pq_topk_profile.restype = ctypes.c_int
     # these differ from the kernel in the wide selection alone
     wide_only = {"smem-lists", "serial-select", "no-shared-bound",
                  "bound-serial", "bound-merge", "unused-bound",
                  *(f"serial-max-{n}" for n in SERIAL_MAX_TRIED)}
-    pq_only = {"pq-element-reads", "pq-no-decode", "pq-no-table-copy"}
 
     g = torch.Generator(device="cuda").manual_seed(12345)
     rows = torch.randn((N, D), generator=g, device="cuda")
@@ -406,8 +620,7 @@ def main() -> int:
     codes = torch.randint(0, 256, (N, PQ_GROUPS), generator=g,
                           device="cuda", dtype=torch.uint8)
     corpora = {"float32": rows, "bf16": rows.to(torch.bfloat16),
-               "int8": quantize_rows(rows),
-               "pq": (codes, cb.pq_table(book))}
+               "int8": quantize_rows(rows)}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     stream = torch.cuda.current_stream().cuda_stream
     best, worst = {}, {}
@@ -416,8 +629,7 @@ def main() -> int:
         for name, streamed in order:
             lib = libs["kernel" if name == "streamed-q" else name]
             for kind, b, k_run, force_qt, wide in SHAPES:
-                if ((name in wide_only and not wide)
-                        or (name in pq_only and kind != "pq")):
+                if name in wide_only and not wide:
                     continue
                 q = qs[:b]
                 call, shape = launcher(lib, corpora[kind], q, k_run, force_qt,
@@ -427,12 +639,9 @@ def main() -> int:
                 best[key, name] = min(ms, best.get((key, name), ms))
                 worst[key, name] = max(ms, worst.get((key, name), ms))
                 note = ""
-                if name in _EXACT + ("pq-element-reads",) and p == 0:
-                    want = (pq_sweep._pq_pool_plain(
-                        q, codes, book, None, N, None, pool=k_run,
-                        metric_value=L2, chunk=16384)[1] if kind == "pq"
-                        else cb._bruteforce_topk_plain(
-                            q, corpora[kind], k_run, L2, N)[1])
+                if name in _EXACT and p == 0:
+                    want = cb._bruteforce_topk_plain(q, corpora[kind], k_run,
+                                                     L2, N)[1]
                     note = (f"; ids equal to the plain twin's: "
                             f"{(shape['out_i'] == want).float().mean():.4f}")
                 print(f"{name:15s} {shape['name']:25s} B={b} k_run={k_run} "
@@ -457,10 +666,13 @@ def main() -> int:
               f"best {ms:.3f} ms, worst {worst[key, name]:.3f} ms",
               flush=True)
     for kind, b, k_run, force_qt, wide in SHAPES:
-        if wide:
+        if wide and "count" in libs:
             counts(libs, corpora[kind], qs[:b], k_run, force_qt, sms, stream)
     if "kernel" in libs:
-        pq_pools(libs, codes, book, qs, sms, stream)
+        l1_shapes(libs["kernel"], rows, qs, sms, stream)
+    if pq_libs:
+        pq_error(pq_libs, sms, stream)
+        pq_pools(pq_libs, codes, book, qs, sms, stream, args.reps)
     return 0
 
 

@@ -178,8 +178,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         bruteforce_topk(qs, pts.double(), 5, L2, 100)
     with pytest.raises(ValueError, match="contiguous"):
         bruteforce_topk(qs, torch.zeros((8, 100)).T, 5, L2, 100)
-    with pytest.raises(ValueError, match="L2 or cosine"):
-        bruteforce_topk(qs, pts, 5, MANHATTAN, 100)
+    with pytest.raises(ValueError, match="L2, cosine or Manhattan"):
+        bruteforce_topk(qs, pts, 5, 3, 100)
     with pytest.raises(ValueError, match="deleted"):
         bruteforce_topk(qs, pts, 5, L2, 100, torch.zeros(99, dtype=torch.bool))
 

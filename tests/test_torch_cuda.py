@@ -998,12 +998,17 @@ def _build_counts(cuda, **kw):
     ("exact8", "float32", "bruteforce_topk_q8"),
     ("exact", "float32", "bruteforce_topk_wide"),
     ("exact", "bfloat16", "bruteforce_topk_bf16_wide")])
-@pytest.mark.parametrize("metric", ["l2", "cosine"])
+@pytest.mark.parametrize("metric", ["l2", "cosine", "manhattan"])
 def test_build_sweep_is_one_launch_a_batch(cuda, mode, storage, name,
                                            metric):
     """Every build batch past the first (base 0: the empty pool, no
-    launch) is one launch of its mode's instance, and no sweep runs the
-    torch-op loop on the card; the links match a CPU build's."""
+    launch) is one launch of its mode's instance (Manhattan's own:
+    bruteforce_topk_q8_l1, _l1, _bf16_l1), and no sweep runs the torch-op
+    loop on the card; the links match a CPU build's."""
+    if metric == "manhattan":
+        name = {"bruteforce_topk_q8": "bruteforce_topk_q8_l1",
+                "bruteforce_topk_wide": "bruteforce_topk_l1",
+                "bruteforce_topk_bf16_wide": "bruteforce_topk_bf16_l1"}[name]
     idx, pts, launches, plain = _build_counts(
         cuda, build_candidates=mode, storage_dtype=storage, metric=metric)
     assert launches[name] == 11 and plain == 0
@@ -1016,17 +1021,119 @@ def test_build_sweep_is_one_launch_a_batch(cuda, mode, storage, name,
 
 
 def test_manhattan_build_counts_its_loop(cuda):
-    """Manhattan has no matmul form: its sweep runs the torch-op loop on
-    the card, one counted call a batch (the first's loop sweeps no rows),
-    and no kernel."""
+    """Manhattan's sweep on the card is the kernel's (the CUDA cores' sum):
+    no torch-op loop counted in the build (the default exact8: one
+    bruteforce_topk_q8_l1 launch a batch past the first) nor in a direct
+    call over the stored rows (one bruteforce_topk_l1 launch)."""
     from pg_embedding_tpu_torch.core import build as core_build
     idx, _, launches, plain = _build_counts(cuda, metric="manhattan")
-    assert plain == 12 and not any(launches.values())
-    before = core_build.PLAIN_SWEEPS_ON_CARD
+    assert plain == 0 and launches["bruteforce_topk_q8_l1"] == 11
+    assert sum(launches.values()) == 11
+    before = core_build.PLAIN_SWEEPS_ON_CARD, cb.LAUNCHES["bruteforce_topk_l1"]
     core_build._exact_candidates(
         idx.graph.vectors, idx.graph.vectors[:8], idx.n_nodes, cand_cap=64,
         metric_value=2)
-    assert core_build.PLAIN_SWEEPS_ON_CARD == before + 1
+    assert core_build.PLAIN_SWEEPS_ON_CARD == before[0]
+    assert cb.LAUNCHES["bruteforce_topk_l1"] == before[1] + 1
+
+
+# the Manhattan instances' row types and the pools they are held at
+L1_KINDS = ["float32", "bfloat16", "int8"]
+
+
+def _l1_corpus(kind, seed, n, d, b, cuda):
+    """Integer rows (int8: at power-of-two scales) and queries in [-8, 8]:
+    every partial sum of a Manhattan score is exact in float32."""
+    if kind == "int8":
+        qv, qs, pts = (t.to(cuda) for t in shadow_case(seed, n, d, b))
+        return (qv, qs), pts
+    rows, qs = integer_data(seed, n, b)
+    rows, qs = torch.from_numpy(rows), torch.from_numpy(qs)
+    if d != rows.shape[1]:
+        rng = np.random.default_rng(seed)
+        rows = torch.from_numpy(rng.integers(-8, 9, size=(n, d)).astype(
+            np.float32))
+        qs = torch.from_numpy(rng.integers(-8, 9, size=(b, d)).astype(
+            np.float32))
+    return rows.to(getattr(torch, kind)).to(cuda), qs.to(cuda)
+
+
+@pytest.mark.parametrize("kind", L1_KINDS)
+@pytest.mark.parametrize("k_run", [1, 12, 130, 256, 257, 1024])
+def test_l1_kernels_bit_equal_on_integers(cuda, kind, k_run):
+    """bruteforce_topk_l1 / _bf16_l1 / _q8_l1 against their plain twin on
+    integer rows: the wide selection with the shared bound to 256, the
+    insertion into shared memory past it (QT = 16), tombstones and n_valid
+    past the live rows' tiles, D = 30 (element loads) and 128; ids and
+    distances bit for bit, one launch of the instance."""
+    name = cb._L1_KERNELS[getattr(torch, kind) if kind != "int8"
+                          else torch.int8]
+    for d in (30, 128):
+        corpus, qs = _l1_corpus(kind, k_run + d, 20_000, d, 65, cuda)
+        g = torch.Generator().manual_seed(k_run)
+        dead = (torch.rand(20_000, generator=g) < 0.05).to(cuda)
+        before = dict(cb.LAUNCHES)
+        got = cb.bruteforce_topk(qs, corpus, k_run, 2, 19_937, dead)
+        torch.cuda.synchronize()
+        before[name] += 1
+        assert cb.LAUNCHES == before
+        want = cb._bruteforce_topk_plain(qs, corpus, k_run, 2, 19_937, dead)
+        _assert_pool_bit_equal(got, want)
+        assert not bool(dead[got[1][got[1] >= 0].long()].any())
+
+
+@pytest.mark.parametrize("kind", L1_KINDS)
+def test_l1_kernels_pages_after_the_floor(cuda, kind):
+    """k_run 1500: two pages, the second launch admitting only rows after
+    the first page's floor (the after floor), and the exact route's
+    fused_exact_search at k = 1500 under Manhattan; bit for bit against
+    the twin, which has the whole list at once."""
+    corpus, qs = _l1_corpus(kind, 77, 9000, 32, 40, cuda)
+    got = cb.bruteforce_topk_paged(qs, corpus, 1500, 2, 9000)
+    want = cb._bruteforce_topk_plain(qs, corpus, 1500, 2, 9000)
+    _assert_pool_bit_equal(got, want)
+    if kind != "int8":
+        fd, fi = cb.fused_exact_search(qs, corpus, 1500, "manhattan")
+        _assert_pool_bit_equal((fd, fi), want)
+
+
+def test_manhattan_exact_route_uses_the_kernel(cuda):
+    """The index's exact route, search(mode="exact"), the sharded index
+    (one launch a shard) and the table's <~> seq scan under Manhattan:
+    every call launches the Manhattan instance, no torch-op loop runs, and
+    the labels equal a CPU index's but at float64 near-ties."""
+    from pg_embedding_tpu_torch import ShardedHnswIndex
+    from pg_embedding_tpu_torch.ops import bruteforce as bf
+    rng = np.random.default_rng(5)
+    pts = rng.normal(size=(3000, 32)).astype(np.float32)
+    qs = rng.normal(size=(64, 32)).astype(np.float32)
+    cfg = HnswConfig(dims=32, m=8, ef_construction=32, ef_search=32,
+                     metric="manhattan")
+    gpu, cpu = HnswIndex(cfg, device=cuda), HnswIndex(cfg, device="cpu")
+    gpu.build(pts)
+    cpu.build(pts)
+    # the CPU's answer first: its route is the torch-op loop
+    dc, lc, _ = cpu.exact_search(qs, 10)
+    calls = []
+    orig = bf.sweep_min_k
+    bf.sweep_min_k = lambda *a, **k: calls.append(1) or orig(*a, **k)
+    try:
+        before = dict(cb.LAUNCHES)
+        dg, lg, _ = gpu.exact_search(qs, 10)
+        before["bruteforce_topk_l1"] += 1
+        assert cb.LAUNCHES == before and not calls
+        same = lg == lc
+        assert same.mean() >= 0.99
+        np.testing.assert_allclose(dg, dc, rtol=1e-5, atol=1e-5)
+        sharded = ShardedHnswIndex(cfg, 4, device=cuda)
+        sharded.build(pts)
+        before = cb.LAUNCHES["bruteforce_topk_l1"]
+        ds, ls, _ = sharded.exact_search(qs, 10)
+        assert cb.LAUNCHES["bruteforce_topk_l1"] == before + 4
+        np.testing.assert_allclose(ds, dc, rtol=1e-5, atol=1e-5)
+        assert not calls
+    finally:
+        bf.sweep_min_k = orig
 
 
 def test_build_sweep_keeps_tombstones(cuda):
@@ -1555,7 +1662,7 @@ def test_connect_batch_counters(cuda):
     assert stats.tolist() == got
 
 
-# --- the compressed sweep's pool: the PQ instance --------------------------
+# --- the compressed sweep's pool: the PQ kernel ----------------------------
 
 def pq_case(seed, n, d, groups, b, integer=True):
     """Codes u8[n, G], a codebook f32[G, 256, d / G] and queries f32[b, d].
@@ -1577,36 +1684,38 @@ def pq_case(seed, n, d, groups, b, integer=True):
 
 def _pq_pools(cuda, codes, book, qs, rotation, n_valid, dead, pool,
               metric):
-    """The kernel's pool (_pq_pool on the card, its launches counted) and
+    """The kernel's pool (_pq_pool on the card, its calls counted: one a
+    page, and one more for a page whose candidate segments overflowed) and
     the twin's (_pq_pool_plain on the card)."""
     from pg_embedding_tpu_torch.ops import pq_sweep
     kw = dict(pool=pool, metric_value=metric, chunk=4096)
     before = cb.LAUNCHES["bruteforce_topk_pq"]
     got = pq_sweep._pq_pool(qs, codes, book, rotation, n_valid, dead, **kw)
     torch.cuda.synchronize()
-    assert cb.LAUNCHES["bruteforce_topk_pq"] == before + (
-        1 if pool <= cb.MAX_K_RUN else 2)
+    pages = 1 if pool <= cb.MAX_K_RUN else 2
+    assert pages <= cb.LAUNCHES["bruteforce_topk_pq"] - before <= 2 * pages
     want = pq_sweep._pq_pool_plain(qs, codes, book, rotation, n_valid, dead,
                                    **kw)
     return got, want
 
 
 # (D, G): sub = D / G of 12, 8, 6 and 3 dims (12, 6 and 3 do not divide
-# the 32-dim chunk), G = 32 at D = 128 (the smoke's), and G % 4 != 0 with
-# D % 32 != 0 (byte loads of the code rows, a chunk past D)
+# the 64-dim step), G = 32 at D = 128 (the smoke's), and G % 4 != 0 with
+# D % 64 != 0 (byte loads of the code rows, a step past D)
 PQ_SHAPES = [(96, 8), (96, 12), (96, 16), (96, 32), (128, 32), (30, 6)]
 
 
 @pytest.mark.parametrize("d,groups", PQ_SHAPES)
-@pytest.mark.parametrize("pool", [16, 64, 256, 1024, 1500])
+@pytest.mark.parametrize("pool", [1, 32, 256, 257, 512, 1024, 1500])
 def test_pq_kernel_bit_equal_on_integers(cuda, d, groups, pool):
-    """bruteforce_topk_pq (through _pq_pool: one launch, two pages past
+    """bruteforce_topk_pq (through _pq_pool: one call, two pages past
     1024) against its twin _pq_pool_plain on integer codebooks and queries:
-    every pool tier (the wide selection to 256, the insertion into shared
-    memory past it, pages), tombstones, n_valid not a multiple of 128; ids
-    and distances bit for bit, L2 and cosine (the PQ instance rounds its
-    score's every operation as the twin's torch ops do) and Manhattan (the
-    CUDA cores' sum: every partial sum an exact integer)."""
+    pools with the own list's bound (to 32) and the shared one, pages,
+    tombstones, n_valid not a multiple of 128, B = 65 (not a multiple of
+    the query tile); ids and distances bit for bit, L2 and cosine (the
+    kernel rounds its score's every operation as the twin's torch ops do)
+    and Manhattan (the CUDA cores' sum: every partial sum an exact
+    integer)."""
     codes, book, qs = (t.to(cuda) for t in pq_case(d + groups + pool,
                                                    20_000, d, groups, 65))
     g = torch.Generator().manual_seed(pool)
@@ -1644,10 +1753,11 @@ def test_pq_kernel_float_codebooks(cuda, metric, d, groups, pool, rotate):
 
 
 def test_pq_pool_routes_counts_and_refuses(cuda):
-    """Manhattan launches the kernel on the card, once, counted under its
-    name and nothing else; out-of-scope arguments (a metric past
+    """Manhattan launches the kernel on the card, one call, counted under
+    its name and nothing else; out-of-scope arguments (a metric past
     Manhattan's among them) raise in the wrapper, a wrong shared-memory
-    figure or an unaligned table in the C launch."""
+    figure, an unaligned table, a bound rank past 32 or S j < k_run in the
+    C call."""
     from pg_embedding_tpu_torch import _kernels
     from pg_embedding_tpu_torch.ops import pq_sweep
     codes, book, qs = (t.to(cuda) for t in pq_case(5, 3000, 32, 8, 16))
@@ -1659,8 +1769,8 @@ def test_pq_pool_routes_counts_and_refuses(cuda):
     assert cb.LAUNCHES == before and i.shape == (16, 64)
     table = cb.pq_table(book)
     # rows 2 bytes past a 16-byte boundary
-    unaligned = torch.empty(32 * 256 + 1, dtype=torch.bfloat16,
-                            device=cuda)[1:].view(16, 256, 2)
+    unaligned = torch.empty(table.numel() + 1, dtype=torch.bfloat16,
+                            device=cuda)[1:].view(table.shape)
     unaligned.copy_(table)
     ok = dict(queries=qs, codes=codes, table=table, k_run=10,
               metric_value=0, n_valid=3000)
@@ -1676,28 +1786,50 @@ def test_pq_pool_routes_counts_and_refuses(cuda):
         with pytest.raises(ValueError):
             cb.pq_topk(**{**ok, **bad})
     lib = _kernels.load_library()
-    part = torch.empty((1, 16, 10), device=cuda)
+    assert lib.pq_topk_smem_bytes() == cb.PQ_SMEM
+    buf = torch.empty((16, 1, 512, 2), dtype=torch.int32, device=cuda)
+    counts = torch.empty((16, 1), dtype=torch.int32, device=cuda)
+    bound = torch.full((16, 1), float("inf"), device=cuda)
     out = torch.empty((16, 10), device=cuda)
-    qt, splits, q_res, smem = cb._launch_shape(16, 3000, 10, 132, 1, 32,
-                                               pq=True)
     stream = torch.cuda.current_stream().cuda_stream
-    for tab, fig in ((table, smem + 16), (table, smem - 16),
-                     (unaligned, smem)):
-        err = lib.bruteforce_topk_pq(
+
+    def call(tab=table, fig=cb.PQ_SMEM, metric=0, rank=10, k=10, s=1):
+        return lib.bruteforce_topk_pq(
             qs.data_ptr(), codes.data_ptr(), tab.data_ptr(), None, 16, 3000,
-            32, 8, 10, 0, qt, 1, int(q_res), fig, part.data_ptr(),
-            part.data_ptr(), out.data_ptr(), out.data_ptr(), None, None,
-            None, 0, stream)
+            32, 8, k, metric, s, fig, buf.data_ptr(), 512,
+            counts.data_ptr(), bound.data_ptr(), rank, out.data_ptr(),
+            out.data_ptr(), None, None, None, None, stream)
+    assert call() == 0
+    for bad in (dict(fig=cb.PQ_SMEM + 16), dict(fig=cb.PQ_SMEM - 16),
+                dict(tab=unaligned), dict(metric=3), dict(rank=33, k=33),
+                dict(rank=4, k=10, s=2), dict(rank=0)):
+        err = call(**bad)
         with pytest.raises(RuntimeError, match="CUDA error"):
             _kernels.check(lib, err, "bruteforce_topk_pq")
-    # the C launch takes no metric past Manhattan's
-    err = lib.bruteforce_topk_pq(
-        qs.data_ptr(), codes.data_ptr(), table.data_ptr(), None, 16, 3000,
-        32, 8, 10, 3, qt, 1, int(q_res), smem, part.data_ptr(),
-        part.data_ptr(), out.data_ptr(), out.data_ptr(), None, None, None, 0,
-        stream)
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        _kernels.check(lib, err, "bruteforce_topk_pq")
+
+
+@pytest.mark.parametrize("metric", [0, 1, 2])
+def test_pq_overflow_reruns_the_query(cuda, monkeypatch, metric):
+    """A codebook whose every entry is 1: every row scores the same, so a
+    split admits each of its live rows (each equals the bound) and its
+    segment, forced to 64 entries, overflows on every query: the call runs
+    again with segments of a split's rows, a second counted call, and the
+    pool stays the twin's bit for bit (the lowest live ids)."""
+    monkeypatch.setattr(cb, "_PQ_CAP_MIN", 64)
+    codes, book, qs = (t.to(cuda) for t in pq_case(9, 20_000, 96, 12, 65))
+    book = torch.ones_like(book)
+    g = torch.Generator().manual_seed(9)
+    dead = (torch.rand(20_000, generator=g) < 0.05).to(cuda)
+    splits, _, cap, per = cb._pq_launch_shape(65, 19_990, 16, 132)
+    assert cap == 64 < 128 <= per
+    before = cb.LAUNCHES["bruteforce_topk_pq"]
+    got = cb.pq_topk(qs, codes, cb.pq_table(book), 16, metric, 19_990, dead)
+    torch.cuda.synchronize()
+    assert cb.LAUNCHES["bruteforce_topk_pq"] == before + 2
+    from pg_embedding_tpu_torch.ops import pq_sweep
+    want = pq_sweep._pq_pool_plain(qs, codes, book, None, 19_990, dead,
+                                   pool=16, metric_value=metric, chunk=4096)
+    _assert_pool_bit_equal(got, want)
 
 
 @pytest.mark.parametrize("metric", ["l2", "manhattan"])

@@ -1,9 +1,12 @@
 """The compressed sweep's coarse pool (ops/pq_sweep._pq_pool, the JAX
 package's _pq_pool_impl) on the CPU: the kernel's plain twin
 _pq_pool_plain against the JAX function at the pool level, before any
-rerank; the PQ instance's element rule and its staged code windows
-rendered in torch, and its Manhattan sum's order; the instance's shared
-memory and launch shape; the wrapper's routing by device and metric.
+rerank; the PQ kernel's (csrc/pq_topk.cu) element rule and its staged
+code windows rendered in torch, and its Manhattan sum's order; its shared
+memory and launch shape (one query tile at every pool); its filter
+(tests/pq_filter.py) and select (the radix select rendered in Python, and
+the plain select) against the plain pool, a segment's overflow and the
+rerun of its query; the wrapper's routing by device and metric.
 
 Data: integer codebooks whose 256 centroids in a group are signed
 permutations of 1 .. sub, so every decoded row has the same norm, and
@@ -11,6 +14,9 @@ integer queries (OPQ: a signed permutation).  Every score is then exact
 in float32 in both packages, rows with equal products tie exactly (the
 lower id first in both), and unequal cosines lie ~1e-4 apart, far past
 either package's rsqrt: ids are held equal, distances at rtol 1e-5."""
+
+import math
+import zlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -27,7 +33,7 @@ N, B = 3000, 16
 # divide N
 N_VALID, CHUNK = N - 37, 1024
 METRICS = {"l2": 0, "cosine": 1, "manhattan": 2}
-# (G, D): sub = 16, 8 and 6 (6 does not divide the kernel's 32-dim chunk)
+# (G, D): sub = 16, 8 and 6 (6 does not divide the kernel's 64-dim step)
 GROUPS = {4: 64, 8: 64, 12: 72}
 
 
@@ -90,23 +96,26 @@ def test_pool_plain_matches_jax(metric, groups, pool):
     assert (ti.numpy() >= 0).all() and live[ti.numpy()].all()
 
 
-# (D, G) of the element rule and the staged windows: sub dividing 32 or
-# not, G % 4 != 0 (byte loads), D % 32 != 0 (a chunk past D), sub = 1
+# (D, G) of the element rule and the staged windows: sub dividing 64 or
+# not, G % 4 != 0 (byte loads), D % 64 != 0 (a step past D), sub = 1
 RENDER_SHAPES = [(128, 32), (128, 16), (96, 12), (96, 32), (72, 12),
                  (30, 6), (960, 32), (64, 64), (100, 25), (45, 9)]
+# the kernel's code window stride (bytes), dims a step, pairs a step
+CODE_STRIDE, STEP_D, PAIRS = 80, 64, 32
 
 
 @pytest.mark.parametrize("dims,groups", RENDER_SHAPES)
 def test_element_rule_is_the_bf16_decode(dims, groups):
     """The kernel's element (r, d): the codebook table (pq_table, rounded
-    once to bf16, in pairs) at pair d // 2, the code of group d // sub,
-    half d % 2; rendered as the kernel stages it, a 32-dim chunk at a
-    time: the row's code bytes [w0, g_end) with w0 = d0 // sub rounded
-    down to a word (at most 36 bytes in whole words, inside the 48-byte
-    stage row and, when G % 4 == 0, inside the row), each dim's offset d //
-    sub - w0.  Equals
-    pq_decode(codes, codebook).to(bfloat16) bit for bit, on a normal
-    codebook (ties to even included)."""
+    once to bf16, in pairs, [step][code][pair]) at step d // 64, the code
+    of group d // sub, pair (d % 64) // 2, half d % 2; rendered as the
+    kernel stages and decodes it, a 64-dim step at a time: the row's code
+    bytes [w0, g_end) with w0 = d0 // sub rounded down to a word (at most
+    68 bytes, in whole words inside the 80-byte stage row and, when G % 4
+    == 0, inside the row), lane p taking the low half from the code at
+    dim 2p's offset and the high half from the code at dim 2p + 1's.
+    Equals pq_decode(codes, codebook).to(bfloat16) bit for bit, on a
+    normal codebook (ties to even included); the table is 0 past D."""
     rng = np.random.default_rng(dims + groups)
     n, sub = 300, dims // groups
     book = torch.from_numpy(rng.normal(size=(groups, 256, sub))
@@ -114,36 +123,44 @@ def test_element_rule_is_the_bf16_decode(dims, groups):
     codes = torch.from_numpy(rng.integers(0, 256, size=(n, groups))
                              .astype(np.uint8))
     table = cb.pq_table(book)
+    steps = -(-dims // STEP_D)
     assert table.dtype == torch.bfloat16
-    assert table.shape == (-(-dims // 2), 256, 2)
-    if dims % 2:
-        assert not table[-1, :, 1].any()
+    assert table.shape == (steps, 256, PAIRS, 2)
+    by_dim = table.permute(0, 2, 3, 1).reshape(steps * STEP_D, 256)
+    assert not by_dim[dims:].any()
     rendered = torch.zeros((n, dims), dtype=torch.bfloat16)
-    for d0 in range(0, dims, 32):
+    for d0 in range(0, dims, STEP_D):
         w0 = (d0 // sub) & ~3
-        g_end = min(groups, (min(d0 + 32, dims) - 1) // sub + 1)
-        assert 1 <= g_end - w0 <= 35
+        g_end = min(groups, (min(d0 + STEP_D, dims) - 1) // sub + 1)
+        nb = g_end - w0
+        assert 1 <= nb <= 68 and 4 * -(-nb // 4) <= CODE_STRIDE
         if groups % 4 == 0:
-            assert w0 + 4 * -(-(g_end - w0) // 4) <= groups
+            assert w0 + 4 * -(-nb // 4) <= groups
         window = codes[:, w0:g_end].long()
-        for dl in range(min(32, dims - d0)):
-            offset = (d0 + dl) // sub - w0
-            assert 0 <= offset < g_end - w0
-            d = d0 + dl
-            rendered[:, d] = table[d // 2, window[:, offset], d % 2]
+        offsets = [(d0 + dl) // sub - w0 if d0 + dl < dims else 0
+                   for dl in range(STEP_D)]
+        assert all(0 <= o < nb for o in offsets)
+        chunk = table[d0 // STEP_D]
+        for p in range(PAIRS):
+            for h in range(2):
+                d = d0 + 2 * p + h
+                if d < dims:
+                    rendered[:, d] = chunk[window[:, offsets[2 * p + h]], p,
+                                           h]
     want = pq_decode(codes, book).to(torch.bfloat16)
     assert torch.equal(rendered.view(torch.int16), want.view(torch.int16))
 
 
 def _l1_schedule(qs, rows, n_valid, dead, pool):
-    """The PQ instance's Manhattan pool rendered in torch: every (query,
+    """The PQ kernel's Manhattan pool rendered in torch: every (query,
     row) score summed over the dims in ascending order in float32, each
-    difference and sum rounded on its own (l1_chunk, a 32-dim step at a
-    time, dims past D zero on both sides), over the decoded bf16 rows;
+    difference and sum rounded on its own (a 64-dim step at a time, a pair
+    of dims at once, dims past D zero on both sides), over the decoded
+    bf16 rows;
     rows >= n_valid and tombstones +inf; the ``pool`` least by (score,
     id)."""
     dims = qs.shape[1]
-    width = 32 * -(-dims // 32)
+    width = STEP_D * -(-dims // STEP_D)
     q = torch.nn.functional.pad(qs, (0, width - dims))
     p = torch.nn.functional.pad(rows.float(), (0, width - dims))
     acc = torch.zeros((q.shape[0], p.shape[0]), dtype=torch.float32)
@@ -191,63 +208,298 @@ def test_manhattan_schedule_matches_the_twin(dims, groups):
     assert bool(((a - b).abs() <= 1e-5 * b).all())
 
 
-def _c_pq_smem_bytes(qt, k_run, dims, q_res):
-    """sweep_smem_bytes<uint8_t> of csrc/bruteforce_topk.cu for PQ codes,
-    term by term: two ring stages of [128 x 48] code bytes, the table's
-    [16 x 256] chunk of bf16 pairs and 32 offset bytes (+ a [QT x 36]
-    float32 query chunk when queries stream), the resident [QT x (32
-    ceil(D / 32) + 4)] queries, the score tile ([QT x 136] floats, at least the decoded bf16
-    [128 x 40] tile), |q|^2, |p|^2 and the [QT x k_run] (score, id)
-    lists."""
-    stage = 128 * 48 + 32 * 256 * 2 + 32 + (0 if q_res else qt * 36 * 4)
-    q_stride = 32 * -(-dims // 32) + 4
-    scores = max(qt * 136, 128 * 40 // 2)
-    return (2 * stage + 4 * ((qt * q_stride if q_res else 0) + scores + qt
-                             + 128) + 8 * qt * k_run)
+def _c_pq_smem_bytes():
+    """kSmemBytes of csrc/pq_topk.cu, term by term: two ring stages of
+    [128 x 80] code bytes, 64 offset bytes, the table's [256 x 32] chunk of
+    bf16 pairs and the [128 x 72] float32 query chunk; the decoded [128 x
+    36] word tile; the [128 x 32] bound lists and their staged scores;
+    nine words a query and two a row."""
+    stage = 128 * 80 + 64 + 256 * 32 * 4 + 128 * 72 * 4
+    return (2 * stage + 128 * 36 * 4 + 2 * 128 * 32 * 4 + 9 * 128 * 4
+            + 2 * 128 * 4)
+
+
+def _pq_src():
+    return open(cb.__file__.replace("ops/cuda_bruteforce.py",
+                                    "csrc/pq_topk.cu")).read()
 
 
 @pytest.mark.parametrize("dims", [64, 128, 960])
 def test_pq_smem_bytes_and_launch_shape(dims):
-    """_smem_bytes(pq=True) against the C formula, and _launch_shape's
-    figure within SMEM_LIMIT at every pool tier (the wide selection's QT =
-    64 up to 256, QT = 16 to 1024); at phase 8's pool of 32 and D = 128
-    two blocks share an SM, with the queries streamed."""
-    src = open(cb.__file__.replace("ops/cuda_bruteforce.py",
-                                   "csrc/bruteforce_topk.cu")).read()
-    assert "return std::is_same<T, uint8_t>::value;" in src
-    assert ": pq_rows<T>() ? kTableBytes + kOffsetBytes : 0;" in src
-    for qt in (64, 16):
-        for k_run in (1, 32, 256, 1024):
-            for q_res in (True, False):
-                assert cb._smem_bytes(qt, k_run, 1, dims, q_res, True) == (
-                    _c_pq_smem_bytes(qt, k_run, dims, q_res))
-    for k_run in (1, 16, 32, 64, 256, 257, 512, 1024):
-        qt, splits, q_res, smem = cb._launch_shape(1024, 1_000_000, k_run,
-                                                   132, 1, dims, pq=True)
-        assert qt == (64 if k_run <= 256 else 16) and 1 <= splits <= 128
-        assert smem == cb._smem_bytes(qt, k_run, 1, dims, q_res, True)
-        assert smem <= cb.SMEM_LIMIT
-    if dims == 128:
-        qt, _, q_res, smem = cb._launch_shape(1024, 1_000_000, 32, 132, 1,
-                                              128, pq=True)
-        assert (qt, q_res) == (64, False) and cb._blocks_per_sm(smem) == 2
+    """PQ_SMEM against the C formula (one figure for every D and pool, one
+    block an SM), and _pq_launch_shape at every pool from 1 to 1024 over
+    1M rows at B = 1024: one query tile of 128 (the C side has no other),
+    S splits and the bound's rank j <= 32, whose P = ceil(k_run / j) folds
+    are at most half the F = min(S, 32) lanes' where j < 32 (at most all
+    of them at j = 32), segments of max(512, 2 k_run) entries, never more
+    than a split's rows; at phase 8's pool of 32, 33 splits of 8 query
+    tiles fill 132 SMs twice."""
+    src = _pq_src()
+    for line in ("constexpr int kQT = 128;", "constexpr int kStepD = 64;",
+                 "constexpr int kCS = 80;", "constexpr int kJ = 32;",
+                 "constexpr int kSmemBytes = kStages * kStageBytes + "
+                 "kTileN * kDW * 4 +"):
+        assert line in src
+    assert cb.PQ_SMEM == _c_pq_smem_bytes() <= cb.SMEM_LIMIT
+    assert cb._blocks_per_sm(cb.PQ_SMEM) == 1 and cb.PQ_QT == 128
+    assert tuple(cb.pq_table(torch.zeros((dims // 4, 256, 4))).shape) == (
+        -(-dims // 64), 256, 32, 2)
+    for k_run in range(1, cb.MAX_K_RUN + 1):
+        splits, rank, cap, per = cb._pq_launch_shape(1024, 1_000_000, k_run,
+                                                     132)
+        folds = min(splits, 32)
+        assert 1 <= splits <= cb.MAX_SPLITS and 1 <= rank <= min(32, k_run)
+        assert -(-k_run // rank) <= (folds if rank == 32 else -(-folds // 2))
+        assert rank == 1 or -(-k_run // (rank - 1)) > -(-folds // 2)
+        assert cap == min(per, max(512, 2 * k_run))
+        assert per == 128 * -(-(-(-1_000_000 // splits)) // 128)
+    assert cb._pq_launch_shape(1024, 1_000_000, 32, 132)[:2] == (33, 2)
+    assert cb._pq_launch_shape(1024, 1_000_000, 1024, 132)[:2] == (33, 32)
+
+
+def test_pq_launch_shape_without_a_bound():
+    """Rows too few for S >= k_run / 32 splits of 2048: no bound, and
+    segments that hold a split's every row, so none overflows (at a pool
+    of 256 the same rows take the bound); no rows at all: one split,
+    segments of one entry."""
+    splits, rank, cap, per = cb._pq_launch_shape(65, 20_000, 1024, 132)
+    assert (splits, rank) == (10, 0) and cap == per == 2048
+    assert cb._pq_launch_shape(65, 20_000, 256, 132) == (10, 32, 512, 2048)
+    assert cb._pq_launch_shape(5, 0, 10, 132) == (1, 10, 1, 0)
 
 
 def test_pq_entry_and_instance():
-    """uint8 codes take bruteforce_topk_pq with the shared bound at every
-    pool (the wide selection up to WIDE_MAX_K, the insertion into shared
-    memory past it); its launches are counted under its name."""
-    u8 = torch.uint8
-    assert cb._instance(u8, 32) == ("bruteforce_topk_pq", True)
-    assert cb._instance(u8, 256) == ("bruteforce_topk_pq", True)
-    assert cb._instance(u8, 257) == ("bruteforce_topk_pq", True)
-    assert cb._instance(u8, 1024) == ("bruteforce_topk_pq", True)
-    name, scratch, args = cb._entry(u8, 64, 5, 33, "cpu")
-    assert name == "bruteforce_topk_pq" and scratch.shape == (5, 33)
-    assert args == (scratch.data_ptr(), 2)
-    name, scratch, args = cb._entry(u8, 1024, 5, 33, "cpu")
-    assert scratch.shape == (5, 33) and args == (scratch.data_ptr(), 32)
+    """The PQ pool is its own kernel (csrc/pq_topk.cu), no instance of the
+    row sweep's template: bruteforce_topk.cu holds no PQ entry, _instance
+    takes no uint8 rows, and the PQ kernel's calls are counted under its
+    name."""
+    rows_src = open(cb.__file__.replace("ops/cuda_bruteforce.py",
+                                        "csrc/bruteforce_topk.cu")).read()
+    assert "bruteforce_topk_pq" not in rows_src and "pq_rows" not in rows_src
+    assert "int bruteforce_topk_pq(" in _pq_src()
+    with pytest.raises(KeyError):
+        cb._instance(torch.uint8, 32)
     assert "bruteforce_topk_pq" in cb.LAUNCHES
+
+
+# (rows, k_run, splits, tile, cap) of the filter's model
+FILTER_SHAPES = [(600, 16, 5, 8, 600), (1000, 64, 33, 4, 40),
+                 (2000, 130, 33, 16, 80), (300, 40, 7, 32, 64),
+                 (700, 200, 3, 16, 700)]
+
+
+def _scores(kind, n, gen):
+    """One query's scores f32[n]: normal; integers in {0, 1, 2}; all
+    equal; {0, 1, 2} with 40% of the rows masked (+inf)."""
+    if kind == "normal":
+        return torch.randn(n, generator=gen)
+    if kind == "all equal":
+        return torch.zeros(n)
+    scores = torch.randint(0, 3, (n,), generator=gen).float()
+    if kind == "masked":
+        scores[torch.rand(n, generator=gen) < 0.4] = float("inf")
+    return scores
+
+
+@pytest.mark.parametrize("kind", ["normal", "ties 012", "all equal",
+                                  "masked"])
+@pytest.mark.parametrize("shape", FILTER_SHAPES,
+                         ids=[f"n{n}-k{k}-s{s}-t{t}-c{c}"
+                              for n, k, s, t, c in FILTER_SHAPES])
+def test_filter_then_select_gives_the_plain_pool(kind, shape):
+    """The PQ kernel's sweep modelled in torch (tests/pq_filter.py: each
+    split's 32-score list fed by its staged rows, its own k_run-th when
+    k_run <= 32, the bound the P-th least of the slots' 32 folds, read
+    fresh or stale under random interleavings, before every tile or every
+    8, with and without the seeding pass), then the select (the
+    stored rows at or under the final bound, the k_run least): the plain
+    top k_run whenever no segment overflowed, on tie-heavy scores too; the
+    same through _pq_select_plain on the segments as the kernel lays them
+    out."""
+    from pq_filter import pq_filter, select
+    from split_filter import plain_topk
+    n, k_run, splits, tile, cap = shape
+    gen = torch.Generator().manual_seed(zlib.crc32(repr((kind, shape))
+                                                   .encode()))
+    for trial in range(6):
+        scores = _scores(kind, n, gen)
+        want = plain_topk(scores, k_run)
+        rank = cb._pq_rank(splits, k_run)
+        segs, counts, slots = pq_filter(scores, k_run, splits, tile, cap,
+                                        rank, gen,
+                                        max_lag=None if trial % 2 else 0,
+                                        refresh=(1, 8)[trial % 3 == 2],
+                                        seed=(0, 2)[trial // 3])
+        if max(counts) > cap:
+            continue
+        assert select(segs, slots, k_run, rank) == want
+        buf = torch.zeros((1, splits, cap, 2), dtype=torch.int32)
+        for s, seg in enumerate(segs):
+            for e, (v, r) in enumerate(seg):
+                buf[0, s, e, 0] = torch.tensor(v).view(torch.int32)
+                buf[0, s, e, 1] = r
+        d, i, floor = cb._pq_select_plain(
+            buf, torch.tensor([counts], dtype=torch.int32), cap,
+            None if slots is None else torch.tensor([slots]), rank, k_run,
+            METRICS["cosine"])
+        assert list(zip(d[0].tolist(), i[0].tolist())) == want
+        assert (floor[0].item(), floor[1].item()) == want[-1]
+
+
+def _fkey(v):
+    """The kernel's ordered bits of a float32 (fkey)."""
+    u = int(np.float32(v).view(np.uint32))
+    return (~u & 0xFFFFFFFF) if u & 0x80000000 else u | 0x80000000
+
+
+def _radix_threshold(keys, k_run):
+    """pq_select_kernel's threshold over 64-bit keys (unique), rendered in
+    Python: eight 8-bit passes from the top, each a histogram of the next
+    byte among the keys that share the prefix, the bin where the count
+    reaches the rows still needed; done once a bin holds exactly them."""
+    if len(keys) <= k_run:
+        return (1 << 64) - 1, 0
+    prefix, need = 0, k_run
+    for n_pass, shift in enumerate(range(56, -1, -8), 1):
+        hist = [0] * 256
+        for key in keys:
+            if shift == 56 or ((key ^ prefix) >> (shift + 8)) == 0:
+                hist[(key >> shift) & 255] += 1
+        below, b = 0, 0
+        while below + hist[b] < need:
+            below += hist[b]
+            b += 1
+        prefix |= b << shift
+        need -= below
+        thresh = prefix | ((1 << shift) - 1)
+        if hist[b] == need:
+            return thresh, n_pass
+    return thresh, 8
+
+
+@pytest.mark.parametrize("kind", ["normal", "ties 012", "all equal",
+                                  "signed"])
+def test_select_radix_schedule(kind):
+    """The select's radix threshold takes exactly the k_run least (score,
+    id) keys, whatever the ties: normal scores end in the score's bytes
+    (at most 4 passes), equal scores pass into the id's; signed scores
+    (cosine's can round below 0) keep their order under fkey."""
+    gen = torch.Generator().manual_seed(zlib.crc32(kind.encode()))
+    for n, k_run in ((50, 64), (700, 1), (700, 32), (3000, 1024),
+                     (2000, 257)):
+        scores = (_scores("normal" if kind == "signed" else kind, n, gen)
+                  .tolist())
+        if kind == "signed":
+            scores = [v * 1e-6 for v in scores]
+        ids = torch.randperm(10 * n, generator=gen)[:n].tolist()
+        keys = [(_fkey(v) << 32) | i for v, i in zip(scores, ids)]
+        thresh, passes = _radix_threshold(keys, k_run)
+        got = sorted(k for k in keys if k <= thresh)
+        want = sorted((np.float32(v), i) for v, i in zip(scores, ids))
+        want = [(_fkey(v) << 32) | i for v, i in want][:k_run]
+        assert got == want
+        if kind == "normal" and n > k_run:
+            assert passes <= 4
+
+
+def _plain_launch(scores, k_run, splits, tile, gen, calls):
+    """A ``launch(rows, entries)`` for _filter_select over queries whose
+    rows score ``scores`` f32[B, n]: the filter's model, then
+    _pq_select_plain, each call recorded in ``calls``."""
+    from pq_filter import pq_filter
+    rank = cb._pq_rank(splits, k_run)
+
+    def launch(rows, entries):
+        idx = range(scores.shape[0]) if rows is None else rows.tolist()
+        calls.append((None if rows is None else list(idx), entries))
+        buf = torch.zeros((len(idx), splits, entries, 2), dtype=torch.int32)
+        counts = torch.zeros((len(idx), splits), dtype=torch.int32)
+        bound = torch.zeros((len(idx), splits)) if rank else None
+        for a, q in enumerate(idx):
+            segs, cnt, slots = pq_filter(scores[q], k_run, splits, tile,
+                                         entries, rank, gen)
+            counts[a] = torch.tensor(cnt)
+            if rank:
+                bound[a] = torch.tensor(slots)
+            for s, seg in enumerate(segs):
+                for e, (v, r) in enumerate(seg):
+                    buf[a, s, e, 0] = torch.tensor(v).view(torch.int32)
+                    buf[a, s, e, 1] = r
+        d, i, floor = cb._pq_select_plain(buf, counts, entries, bound, rank,
+                                          k_run, METRICS["manhattan"])
+        return d, i, counts, floor
+    return launch
+
+
+def test_overflow_reruns_its_queries():
+    """Segments too small for the first tiles (every row of a tile
+    appended before any bound exists) overflow: _filter_select runs the
+    queries that overflowed again, in one call with segments of a split's
+    every row, and the pool equals the plain one on every query; with
+    segments that hold a split's rows, or where none overflowed, there is
+    one call."""
+    from split_filter import plain_topk
+    gen = torch.Generator().manual_seed(11)
+    n, k_run, splits, tile = 800, 24, 4, 32
+    per = tile * math.ceil(n / splits / tile)
+    scores = torch.randn((6, n), generator=gen)
+    scores[2] = torch.arange(n, 0, -1).float()   # every tile improves
+    calls = []
+    launch = _plain_launch(scores, k_run, splits, tile, gen, calls)
+    d, i, floor = cb._filter_select(launch, 40, per, splits)
+    assert calls[0] == (None, 40) and len(calls) == 2
+    assert calls[1][1] == per and 2 in calls[1][0]
+    for q in range(6):
+        want = plain_topk(scores[q], k_run)
+        assert list(zip(d[q].tolist(), i[q].tolist())) == want
+        assert (floor[0][q].item(), floor[1][q].item()) == want[-1]
+    calls.clear()
+    cb._filter_select(launch, per, per, splits)
+    assert calls == [(None, per)]
+    # segments that can overflow but did not: one call, no empty rerun
+    calls.clear()
+    launch = _plain_launch(scores[:2], k_run, splits, tile, gen, calls)
+    d, i, _ = cb._filter_select(launch, 200, per, splits)
+    assert calls == [(None, 200)]
+    for q in range(2):
+        want = plain_topk(scores[q], k_run)
+        assert list(zip(d[q].tolist(), i[q].tolist())) == want
+
+
+def test_pq_select_plain_is_the_twin():
+    """With every live row of every split in its segment (no bound), the
+    plain select gives _pq_pool_plain's pool bit for bit, every metric, on
+    the equal-norm integer case (ties by id), pools past the rows too."""
+    codes, book, qs, _, dead = equal_norm_case(3, 8, 64, n=700, b=6)
+    tc, tb, tq = (torch.from_numpy(a) for a in (codes, book, qs))
+    rows = pq_decode(tc, tb).to(torch.bfloat16).float()
+    n_valid, splits = 650, 3
+    per = 128 * math.ceil(n_valid / splits / 128)
+    for metric, value in METRICS.items():
+        score = {"l2": lambda: torch.clamp(
+            (tq * tq).sum(1, keepdim=True) + (rows * rows).sum(1)
+            - 2 * tq @ rows.T, min=0),
+                 "cosine": lambda: 1 - tq @ rows.T * torch.rsqrt(
+                     (tq * tq).sum(1, keepdim=True) * (rows * rows).sum(1)),
+                 "manhattan": lambda: torch.cdist(tq, rows, p=1)}[metric]()
+        buf = torch.zeros((6, splits, per, 2), dtype=torch.int32)
+        counts = torch.zeros((6, splits), dtype=torch.int32)
+        for r in range(n_valid):
+            if dead[r]:
+                continue
+            s = r // per
+            at = counts[:, s].clone()
+            for q in range(6):
+                buf[q, s, at[q], 0] = score[q, r].view(torch.int32)
+                buf[q, s, at[q], 1] = r
+            counts[:, s] += 1
+        for pool in (16, 1024):
+            got = cb._pq_select_plain(buf, counts, per, None, 0, pool, value)
+            want = pq_sweep._pq_pool_plain(tq, tc, tb, None, n_valid,
+                                           torch.from_numpy(dead), pool=pool,
+                                           metric_value=value, chunk=256)
+            assert torch.equal(got[1], want[1])
+            assert torch.equal(got[0], want[0])
 
 
 @pytest.mark.parametrize("metric", sorted(METRICS))

@@ -84,6 +84,8 @@ def _dist64(rows, pts, ids, metric):
     q = pts.astype(np.float64)[:, None, :]
     if metric == L2:
         d = np.sqrt(((p - q) ** 2).sum(-1))
+    elif metric == MANHATTAN:
+        d = np.abs(p - q).sum(-1)
     else:
         d = 1.0 - (p * q).sum(-1) / np.sqrt((p * p).sum(-1) * (q * q).sum(-1))
     return np.where(ids >= 0, d, np.inf)
@@ -91,7 +93,8 @@ def _dist64(rows, pts, ids, metric):
 
 @pytest.mark.parametrize("base", list(BASES))
 @pytest.mark.parametrize("coarse", [True, False], ids=["exact8", "exact"])
-@pytest.mark.parametrize("metric", [L2, COSINE], ids=["l2", "cosine"])
+@pytest.mark.parametrize("metric", [L2, COSINE, MANHATTAN],
+                         ids=["l2", "cosine", "manhattan"])
 def test_twin_pool_equals_chunk_loop_and_jax(metric, coarse, base):
     rows, pts, qv, qs = _random_inputs()
     n = BASES[base]
@@ -116,7 +119,8 @@ def test_twin_pool_equals_chunk_loop_and_jax(metric, coarse, base):
 
 
 @pytest.mark.parametrize("coarse", [True, False], ids=["exact8", "exact"])
-@pytest.mark.parametrize("metric", [L2, COSINE], ids=["l2", "cosine"])
+@pytest.mark.parametrize("metric", [L2, COSINE, MANHATTAN],
+                         ids=["l2", "cosine", "manhattan"])
 def test_ties_hold_distances_only(metric, coarse):
     """6,000 x 16 rows with coordinates in [-2, 2]: the distance at every
     rank is shared by many rows.  The port keeps the lowest ids among
@@ -195,9 +199,9 @@ def _c_smem_bytes(itemsize, qt, k_run, dims, q_res):
 @pytest.mark.parametrize("dims", [30, 128, 960])
 def test_smem_bytes_match_the_kernel(itemsize, dims):
     """_smem_bytes against sweep_smem_bytes<T>, which every entry (the
-    exact route's, the wide ones, the int8 one and the PQ one) reaches
-    through run_topk, one figure for every instance of a row type (the PQ
-    instance's: tests/test_torch_pq_pool.py)."""
+    exact route's, the wide ones, the int8 one and the three Manhattan
+    ones) reaches through run_topk, one figure for every instance of a row
+    type (the PQ kernel's own: tests/test_torch_pq_pool.py)."""
     src = open(os.path.join(os.path.dirname(cb.__file__), "..", "csrc",
                             "bruteforce_topk.cu")).read()
     assert ("stage_extra_bytes<T>() +" in src
@@ -205,7 +209,7 @@ def test_smem_bytes_match_the_kernel(itemsize, dims):
             and "return std::is_same<T, int8_t>::value;" in src)
     assert src.count("sweep_smem_bytes<T>(qt, k_run, D, q_res != 0)") == 1
     entries = src[src.index('extern "C" {'):]
-    assert entries.count("return run_topk<") == 6
+    assert entries.count("return run_topk<") == 8
     for qt in (64, 16):
         for k_run in (1, 130, 256, 1024):
             for q_res in (True, False):
@@ -263,8 +267,8 @@ def test_wrapper_checks_the_shadow():
         cb.bruteforce_topk(torch.zeros((2, 9)), (qv, qs), 5, L2, 100)
     with pytest.raises(ValueError, match="pair"):
         cb.bruteforce_topk(pts, (qv, qs, qs), 5, L2, 100)
-    with pytest.raises(ValueError, match="L2 or cosine"):
-        cb.sweep_pool(pts, (qv, qs), 5, MANHATTAN, 100)
+    with pytest.raises(ValueError, match="L2, cosine or Manhattan"):
+        cb.sweep_pool(pts, (qv, qs), 5, 3, 100)
 
 
 @pytest.mark.parametrize("metric", [L2, COSINE, MANHATTAN])
@@ -300,10 +304,6 @@ def test_sweep_probe_rewrites_find_their_text():
     assert "constexpr int kSerialMax = 8;" in got["no-shared-bound"]
     assert "constexpr bool kReadBound = false;" in got["serial-select"]
     assert "constexpr int kSerialMax = kRegK;" in got["serial-select"]
-    assert "        if (true)\n" in got["pq-element-reads"]
-    assert "  return code;\n" in got["pq-no-decode"]
-    assert "  for (int e = tid; e < 0; e += kThreads) {\n" in got[
-        "pq-no-table-copy"]
     for name, base in (("count", src), ("count-serial",
                                          got["serial-select"])):
         assert got[name].count("atomicAdd(&g_probe_counts") == 3
@@ -319,7 +319,27 @@ def test_sweep_probe_rewrites_find_their_text():
         assert "constexpr bool kReadBound = true;" in got[name]
         assert f"constexpr int kSerialMax = {serial_max};" in got[name]
     assert len({*got.values()}) == len(got) == (
-        15 + len(sweep_probe.SERIAL_MAX_TRIED))
+        12 + len(sweep_probe.SERIAL_MAX_TRIED))
+    # the PQ kernel's own variants
+    pq_src = open(sweep_probe.PQ_SRC).read()
+    pq = sweep_probe.pq_variants(pq_src)
+    assert pq["pq-kernel"] == pq_src and len({*pq.values()}) == len(pq) == (
+        7 + len(sweep_probe.PQ_REFRESH_TRIED) + len(sweep_probe.PQ_SEED_TRIED))
+    assert "mma_bf16(part" not in pq["pq-one-sum"]
+    assert pq["pq-one-sum"].count("mma_bf16(acc[mt][nt], a") == 2
+    assert "tab[lane * kCodes + codes_s[r * kCS + o1]]" in pq[
+        "pq-profile-conflicts"]
+    for n in sweep_probe.PQ_SEED_TRIED:
+        assert f"constexpr int kSeedTiles = {n};" in pq[f"pq-seed-{n}"]
+    for n in sweep_probe.PQ_REFRESH_TRIED:
+        assert f"constexpr int kRefresh = {n};" in pq[f"pq-refresh-{n}"]
+    assert pq["pq-no-select"].count("if (false) {") == 1
+    assert "tau = 0.f * tau_s[ql] - CUDART_INF_F" in pq["pq-no-select"]
+    assert pq["pq-profile"] == "#define PG_PROFILE\n" + pq_src
+    assert "uint32_t w = codes_s[r * kCS + o0];" in pq["pq-no-decode"]
+    assert "if (0) asm(\"mma.sync" in pq["pq-loads-only"]
+    assert "uint32_t w = codes_s[r * kCS + o0];" in pq["pq-loads-only"]
+    assert pq["pq-loads-only"].count("if (false) {") == 1
 
 
 # --- the wide selection: the bound shared across splits ---------------------
@@ -444,7 +464,9 @@ def test_wide_instances_serve_the_wide_lists_only():
                                                      False)
     assert cb._instance(f32, 257) == ("bruteforce_topk", False)
     assert set(cb.LAUNCHES) == {*cb._KERNELS.values(),
-                                *cb._WIDE_KERNELS.values()}
+                                *cb._WIDE_KERNELS.values(),
+                                *cb._L1_KERNELS.values(),
+                                "bruteforce_topk_pq"}
     # a probe forces the float32 / bf16 choice; the int8 entry has one
     assert cb._instance(f32, 12, wide=True) == ("bruteforce_topk_wide", True)
     assert cb._instance(f32, 130, wide=False) == ("bruteforce_topk", False)
