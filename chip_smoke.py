@@ -17,7 +17,8 @@ exits non-zero):
      route's eight float32 / bf16 ones must report the registers and
      spills they had before the int8 instance, SWEEP_PTXAS; the four wide
      float32 / bf16 ones, the four int8 ones, the twelve Manhattan ones
-     and the PQ sweeps and select are printed); against its plain torch
+     and the PQ sweeps and select are printed; the Manhattan ones also
+     their FADDs and 16-byte shared loads); against its plain torch
      twin: L2 and cosine, and Manhattan (the exact route's k = 10, the
      build's pool of 256 over the int8 shadow, QT = 16, pages, bf16 rows
      aligned and not), D in {30, 100, 128, 960}, k_run from 1
@@ -103,7 +104,9 @@ exits non-zero):
      over float32 rows and bruteforce_topk_bf16_wide over their bf16
      values, pool cand_cap + 2, beside addmm + topk) and for Manhattan over
      the shadow (bruteforce_topk_q8_l1 beside its twin, the torch-op loop
-     and torch.cdist(p=1) + topk, its bound 2 B N D float32 operations);
+     and torch.cdist(p=1) + topk, its bound 2 B N D float32 operations
+     and, beside it, its FADD ceiling: 2 B N D FADDs at the SMs' 128
+     lanes and the card's max SM clock, l1_ceiling_ms);
      the wiring of that
      add()'s batch (captured by wrapping core/build._connect_batch):
      connect_batch against its plain twin (core/build._connect_sorted_plain:
@@ -186,10 +189,13 @@ exits non-zero):
      the first and no torch-op sweep; its exact route (one
      bruteforce_topk_l1 launch) against a float64 oracle over every row
      and against its twin on all queries; its graph route's recall@10
-     against its exact route, printed; the exact route at 1M, B=1024,
-     k=10 over float32 rows and their bf16 values (bruteforce_topk_bf16_l1
-     through fused_exact_search), each timed beside its twin, its bound
-     and torch.cdist(p=1) + topk;
+     against its exact route, within 0.002 of its value before the
+     register-tile redesign (EARLIER_L1_RECALL, at 1M); its build's
+     seconds beside the main path's L2 build's; the exact route at 1M,
+     B=1024, k=10 over float32 rows and their bf16 values
+     (bruteforce_topk_bf16_l1 through fused_exact_search), each timed
+     beside its twin, its bound, its FADD ceiling and torch.cdist(p=1) +
+     topk;
   9. the sharded index (parallel/sharded.ShardedHnswIndex, 4 shards on the
      card, batches of 256 rows a shard as the single index takes them) on
      the main index's rows and queries, built from scratch: build
@@ -232,7 +238,8 @@ phase 8b's index and the PQ kernel's from phase 8's sweep_pq, each counted
 from 0 just before it; the build sweep instances' timings (Manhattan's
 exact8 one too) are phase 4b's on the add()'s 1M batch, with "loop_ms"
 (the torch-op loop each replaced), the Manhattan exact route's phase 8b's;
-the PQ kernel's "pools" and "manhattan" phase 8's; for prune_scan also
+the PQ kernel's "pools" and "manhattan" phase 8's; the Manhattan
+instances' also "ceiling_ms" (l1_ceiling_ms); for prune_scan also
 "insert_launches" and "reprune_launches", the build's launches at the
 insert's width and at the re-prune's (0: the re-prunes run inside
 connect_batch); for connect_batch its counters on the add()'s batch,
@@ -356,6 +363,10 @@ EARLIER_SWEEP_MS = {"exact8": 6.746, "exact": 5.975}
 # the torch-op sweep built (PERF.md, Findings)
 TWIN_BUILD_ROWS = 200_000
 EARLIER_RECALL = 0.9208
+# phase 8b: the Manhattan index's graph recall@10 at T=8 before the
+# register-tile redesign of its sweep (PR 16's run); every score is the
+# same since, so the graph and its recall are too
+EARLIER_L1_RECALL = 0.9367
 
 
 def check(cond, msg):
@@ -621,6 +632,17 @@ def l1_bound_ms(b, n, d):
     return 2.0 * b * n * d / PEAK_F32 * 1e3, "operations"
 
 
+def l1_ceiling_ms(torch, b, n, d):
+    """Beside l1_bound_ms, the floor a Manhattan sweep can reach: the 67
+    TFLOP/s count an FMA as two operations, but a subtraction and an
+    addition are two FADDs that cannot fuse, so 2 B N D FADDs at the SMs'
+    128 lanes and the card's max SM clock (nvidia-smi)."""
+    from pg_embedding_tpu_torch.sweep_probe import (fadd_ceiling_ms,
+                                                    max_sm_clock_hz)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return fadd_ceiling_ms(b, n, d, sms, max_sm_clock_hz())
+
+
 def bound_ms(b, n, d, itemsize, k_run):
     """The least time the card could take for one launch: the products
     (products_s; rows of 1- and 2-byte elements are bf16 values) or the
@@ -725,6 +747,13 @@ def compiler_report(_kernels):
     for name, kind in sorted(counts):
         log(f"sass {name}: {counts[name, kind]} {kind} HMMA, e.g. "
             f"{example[name, kind]}")
+    # the Manhattan register tile: a 4-dim step is 8 RQ RN FADDs against
+    # RQ + RN 16-byte shared loads (256 against 12 at QT = 64)
+    from pg_embedding_tpu_torch.sweep_probe import sass_report
+    for fn, (regs, stack, fadd, lds, total) in sorted(
+            sass_report(lib).items()):
+        log(f"sass {instance(fn)}: {regs} registers, {stack} bytes stack, "
+            f"{fadd} FADD, {lds} LDS.128 of {total} instructions")
     rows = {n for n in built if n.startswith("sweep_kernel")}
     l1 = {n for n in rows if n.startswith("sweep_kernel_l1")}
     tf32 = {n for n, k in counts if k == "TF32"}
@@ -1366,11 +1395,15 @@ def sweep_phase(torch, idx, args):
             dev_ms = device_ms(kernel)
             plain_ms = median_ms(torch, twin)
             loop_ms = median_ms(torch, loop)
+        ceiling = ""
         if metric == MANHATTAN:
             lib_ms = median_ms(torch, lambda: torch.topk(
                 torch.cdist(points, dense, p=1.0), pool, dim=1,
                 largest=False, sorted=False))
             bound, bound_by = l1_bound_ms(b, base, d)
+            ceiling_ms = l1_ceiling_ms(torch, b, base, d)
+            ceiling = (f"; FADD ceiling {ceiling_ms:.4f} ms ("
+                       f"{ceiling_ms / dev_ms:.1%} of it reached)")
         else:
             lib_ms = (sweep_yardstick_ms(torch, points, dense, pool)
                       if scaled else library_ms(torch, points, dense, pool))
@@ -1389,8 +1422,8 @@ def sweep_phase(torch, idx, args):
             f"card (a CUDA graph of 20 calls"
             f"{before}"
             f"); bound {bound:.4f} ms ({bound_by}; {bound / dev_ms:.1%} of it "
-            f"reached on the card); plain twin {plain_ms:.3f} ms; the "
-            f"torch-op loop it replaced {loop_ms:.3f} ms; library "
+            f"reached on the card){ceiling}; plain twin {plain_ms:.3f} ms; "
+            f"the torch-op loop it replaced {loop_ms:.3f} ms; library "
             f"({'torch.cdist' if metric == MANHATTAN else 'torch.matmul' if scaled else 'torch.addmm'} + torch.topk) "
             f"{lib_ms:.3f} ms (median of 5, CUDA events)")
         if metric != MANHATTAN:
@@ -1403,6 +1436,8 @@ def sweep_phase(torch, idx, args):
         out[name] = dict(max_abs_err=err, ms=ms, device_ms=dev_ms,
                          plain_ms=plain_ms, loop_ms=loop_ms, bound_ms=bound,
                          bound_by=bound_by, library_ms=lib_ms)
+        if metric == MANHATTAN:
+            out[name]["ceiling_ms"] = ceiling_ms
         del dense
     return out
 
@@ -2206,7 +2241,8 @@ def l1_oracle(torch, qs, rows, k, chunk=65_536):
     return best_d, best_i
 
 
-def manhattan_phase(torch, cb, HnswConfig, HnswIndex, dev, pts, qs):
+def manhattan_phase(torch, cb, HnswConfig, HnswIndex, dev, pts, qs,
+                    l2_build_s):
     """A Manhattan index of config 1's shape (the main path's rows, m=16,
     efc=64, the default exact8 candidates) built on the card, every launch
     count set to 0 just before the build and read after: the build's sweep
@@ -2214,13 +2250,15 @@ def manhattan_phase(torch, cb, HnswConfig, HnswIndex, dev, pts, qs):
     torch-op loop; its exact route (one bruteforce_topk_l1 launch) against
     a float64 oracle over every row (distances rtol 1e-5, ids but float64
     near-ties) and against its twin on all the queries; its graph route's
-    recall@10 against its own exact route, printed; then the exact route
+    recall@10 against its own exact route, within 0.002 of
+    EARLIER_L1_RECALL; its build's seconds beside the L2 index's
+    (``l2_build_s``); then the exact route
     at 1M, B=1024, k=10 over float32 rows and their bf16 values (one
     bruteforce_topk_bf16_l1 launch, counted on the same path), each timed
-    beside its twin, its bound (2 B N D float32 operations at 67 TFLOP/s)
-    and the library call (torch.cdist(p=1) + torch.topk over one 1M
-    chunk).  Returns (the launches on this path, the kernels line's
-    numbers of bruteforce_topk_l1 and _bf16_l1)."""
+    beside its twin, its bound (2 B N D float32 operations at 67 TFLOP/s),
+    its FADD ceiling (l1_ceiling_ms) and the library call (torch.cdist(p=1)
+    + torch.topk over one 1M chunk).  Returns (the launches on this path,
+    the kernels line's numbers of bruteforce_topk_l1 and _bf16_l1)."""
     from pg_embedding_tpu_torch.core import build as core_build
     from pg_embedding_tpu_torch.graph_probe import device_ms
     reset_launches()
@@ -2260,7 +2298,14 @@ def manhattan_phase(torch, cb, HnswConfig, HnswIndex, dev, pts, qs):
         f"sweep; exact route vs a float64 oracle on {len(qs)} queries: "
         f"max_abs_err {err:.3g}, {n_diff} near-tie id swaps; vs its twin "
         f"max_abs_err {t_err:.3g}, {t_diff} near-tie id swaps; graph route "
-        f"(T={GRAPH_T}, ef 64) recall@10 vs its exact route {rec:.4f}")
+        f"(T={GRAPH_T}, ef 64) recall@10 vs its exact route {rec:.4f} "
+        f"({EARLIER_L1_RECALL} before the register tile)")
+    log(f"1M builds on the card: Manhattan {build_s:.1f} s, L2 (the main "
+        f"path's) {l2_build_s:.1f} s")
+    # the earlier figure is the 1M index's (--n cuts the rows)
+    check(len(pts) != 1_000_000 or abs(rec - EARLIER_L1_RECALL) <= 0.002,
+          f"the Manhattan graph's recall@10 {rec:.4f} is not within 0.002 "
+          f"of its earlier {EARLIER_L1_RECALL}")
     out = {}
     n, d = rows.shape
     for name, corpus in (("bruteforce_topk_l1", rows),
@@ -2287,15 +2332,19 @@ def manhattan_phase(torch, cb, HnswConfig, HnswIndex, dev, pts, qs):
         lib_ms = median_ms(torch, lambda: torch.topk(
             torch.cdist(q, dense, p=1.0), K, dim=1, largest=False), 3)
         bound, bound_by = l1_bound_ms(len(q), n, d)
+        ceiling = l1_ceiling_ms(torch, len(q), n, d)
         log(f"{name} (the exact route, Manhattan) at {n} x {d}-d, B="
             f"{len(q)}, k={K}: vs its twin max_abs_err {k_err:.3g}, {k_diff} "
             f"near-tie id swaps; {ms:.3f} ms a call, {dev_ms:.3f} ms on the "
             f"card; bound {bound:.3f} ms ({bound_by}; {bound / dev_ms:.1%} of "
-            f"it reached); twin {plain_ms:.3f} ms; library (torch.cdist + "
+            f"it reached); FADD ceiling {ceiling:.3f} ms "
+            f"({ceiling / dev_ms:.1%} of it reached); twin {plain_ms:.3f} ms; "
+            f"library (torch.cdist + "
             f"torch.topk) {lib_ms:.3f} ms")
         out[name] = dict(max_abs_err=max(k_err, err if corpus is rows else 0),
                          ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                         bound_ms=bound, bound_by=bound_by, library_ms=lib_ms)
+                         bound_ms=bound, bound_by=bound_by, library_ms=lib_ms,
+                         ceiling_ms=ceiling)
         del dense
     launches = launch_counts()
     del idx
@@ -3320,8 +3369,8 @@ def main():
         pq_after_downcast(idx, qs, shadows)
         del idx
         torch.cuda.empty_cache()
-        l1_launches, l1_timings = manhattan_phase(torch, cb, HnswConfig,
-                                                  HnswIndex, dev, pts, qs)
+        l1_launches, l1_timings = manhattan_phase(
+            torch, cb, HnswConfig, HnswIndex, dev, pts, qs, single["build_s"])
         timings.update(l1_timings)
         for name, err in phase3.items():
             timings[name]["max_abs_err"] = max(

@@ -149,19 +149,48 @@
 // the JAX package's Manhattan sweeps: pg_embedding_tpu/ops/bruteforce.py's
 // chunk loop (exact_search, reached from pallas_exact_search for
 // Manhattan) and core/build.py::_exact_candidates under Manhattan (the
-// same fori_loop as L2's).  Manhattan has no matmul form: each thread
-// sums |q - p| on the CUDA cores over the ring's staged row chunk into
-// the (query, row) slots of its mma accumulators (l1_chunk), dims
-// ascending, each difference and sum rounded on its own; an int8 row
-// element is the L2 path's, widen(p, bf16(scale)).  No |p|^2, no split
-// passes; the accumulators are the score.  They are compile-time
+// same fori_loop as L2's).  Manhattan has no matmul form: the CUDA cores
+// sum |q - p| over the ring's staged row chunk, dims ascending, one
+// accumulator a (query, row), each difference and sum rounded on its own;
+// an int8 row element is the L2 path's, widen(p, bf16(scale)).  No |p|^2,
+// no split passes; the sums are the score.  They are compile-time
 // instances (kL1) beside the exact route's eight, whose code is
 // unchanged, and take the int8 instance's selection at every k_run: the
 // wide one with the shared bound up to 256, the insertion into shared
-// memory past it, pages past 1024.  What bounds them: 2 B N D float32
-// operations (a subtraction and an addition a term) at 67 TFLOP/s, 4.0
-// ms at 1M x 128-d, B = 1024.
-//
+// memory past it, pages past 1024.
+// What bounds them: 2 B N D float32 operations (a subtraction and an
+// |.|-addition a term), 3.91 ms at 1M x 128-d, B = 1024, at the published
+// 67 TFLOP/s.  That rate counts an FMA as two operations; a subtraction
+// and an addition are two FADD instructions that cannot fuse, so no
+// kernel of this arithmetic passes half of that bound: the reachable floor
+// is 2 B N D FADDs at 132 SMs x 128 lanes x the SM clock, 7.83 ms at 1.98
+// GHz (the build's 256-row batch: 1.96 ms).
+// A warp scheduler issues one instruction a cycle and a warp's FADD takes
+// that cycle, so every other instruction in the inner loop (loads,
+// conversions, address arithmetic) costs FADD issue.  The design:
+//  * Each staged element widened once.  When a ring stage lands, the
+//    block writes its [128 x 32] row chunk as float32 into one [128 x 36]
+//    buffer (16 elements a thread: int8 rows times their round_bf16 scale,
+//    bf16 rows shifted), then one barrier; float32 rows are read from the
+//    ring as they land.  All three instances share one inner loop.
+//  * A register tile shaped for FADD, not the mma fragment (l1_tile): a
+//    thread sums RQ queries x RN rows (4 x 8 at QT = 64, 2 x 4 at QT =
+//    16), query qg + QG i and row rg + RG j, the eight lanes of a quarter
+//    warp on one query (a broadcast) and eight consecutive rows (144-byte
+//    strides: eight bank quads).  A 4-dim step reads each operand as one
+//    16-byte load: RQ + RN LDS.128 against 8 RQ RN FADDs (12 against 256
+//    at QT = 64), where the mma fragment's layout took 12 scalar loads and
+//    8 widenings against 64.
+//  * The queries' dim pairs swapped as they land (swap_dim_pairs; resident
+//    queries once a block): a 16-byte load fills four consecutive
+//    registers, so a query's dim and a row's would share a register bank
+//    and every subtraction would wait on it.
+//  * The sums go to the score tile at (query, row), where the selection
+//    reads them; the selection, the pages and the merge are the int8
+//    instance's.
+// What it leaves (sweep_probe's l1-* variants): the selection, the ring's
+// copies not hidden at QT = 64, and, for the int8 instance at the
+// build's pool (232,192 bytes), one block an SM.
 // The compressed sweep's PQ pool has its own kernel (csrc/pq_topk.cu).
 
 #include <cuda_runtime.h>
@@ -180,6 +209,7 @@ constexpr int kTileD = 32;                  // dims per ring chunk
 constexpr int kStages = 2;
 constexpr int kQStride = kTileD + 4;        // query chunk row stride (floats)
 constexpr int kSStride = kTileN + 8;        // score tile row stride (floats)
+constexpr int kWStride = kTileD + 4;        // widened chunk stride (floats)
 constexpr int kMaxSplits = 128;
 constexpr int kMaxK = 1024;
 constexpr int kSmemLimit = 232448;
@@ -236,18 +266,26 @@ __host__ __device__ constexpr int stage_extra_bytes() {
   return scaled_rows<T>() ? kTileN * 4 : 0;
 }
 
+// The Manhattan instances' widened row chunk (bf16 and int8 rows): [128 x
+// kWStride] float32, read as the ring's float32 chunks are (row stride 36)
+template <typename T, bool kL1>
+__host__ __device__ constexpr int widened_bytes() {
+  return kL1 && !std::is_same<T, float>::value ? kTileN * kWStride * 4 : 0;
+}
+
 // Shared memory: the ring (each stage a [128 x kPS] corpus chunk, for int8
 // rows the tile's 128 scales, then, when queries stream, a [QT x 36]
-// query chunk), the
+// query chunk), the Manhattan instances' widened chunk (bf16 and int8
+// rows), the
 // resident [QT x q_res_stride(D)] queries when they do not, the
 // [QT x 136] score tile, |q|^2, |p|^2, and the [QT x k_run] running lists
 // (score, id).
-template <typename T>
+template <typename T, bool kL1>
 size_t sweep_smem_bytes(int qt, int k_run, int D, bool q_res) {
   const size_t stage = (size_t)kTileN * p_stride<T>() * sizeof(T) +
                        stage_extra_bytes<T>() +
                        (q_res ? 0 : (size_t)qt * kQStride * sizeof(float));
-  return kStages * stage +
+  return kStages * stage + widened_bytes<T, kL1>() +
          sizeof(float) * ((q_res ? (size_t)qt * q_res_stride(D) : 0) +
                           (size_t)qt * kSStride + qt + kTileN) +
          (sizeof(float) + sizeof(int)) * (size_t)qt * k_run;
@@ -620,53 +658,132 @@ __device__ __forceinline__ void select_in_registers(
   __syncwarp();
 }
 
-// Manhattan (the kL1 instances): the scores have no matmul form, so each
-// thread sums |q - p| over a step's 32 dims on the CUDA cores for the
-// (query, row) pairs of its mma accumulators (C fragment (g, 2t), (g, 2t +
-// 1), (g + 8, 2t), (g + 8, 2t + 1) of each m16 x n8 tile), reading the
-// staged row chunk p_s (row stride kPS; int8 rows widened with their
-// rows' scales as the mma's widen them); dims ascend and every difference
-// and sum is rounded on its own.
-template <int QT, typename T>
-__device__ __forceinline__ void l1_chunk(
-    const float* q_s, int qs, const T* p_s, const float* scale_s, int m_base,
-    int n_base, int g, int t, float (&acc)[Layout<QT>::MT][Layout<QT>::NT][4]) {
-  using L = Layout<QT>;
-  constexpr int kPS = p_stride<T>();
-  float sr[scaled_rows<T>() ? L::NT : 1][2];
-  if constexpr (scaled_rows<T>()) {
-#pragma unroll
-    for (int nt = 0; nt < L::NT; ++nt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        sr[nt][h] = round_bf16(scale_s[n_base + nt * 8 + 2 * t + h]);
+// Manhattan's register tile (the kL1 instances) of a QT x 128 block tile:
+// RG row groups x QG query groups, one a thread; thread (qg, rg) sums the
+// queries qg + QG i (i < RQ) against the rows rg + RG j (j < RN).  Lane l
+// of warp w has rg = l % 8 + 8 (w % (RG / 8)) and qg = l / 8 + 4 (w / (RG /
+// 8)): a quarter warp's eight lanes read one query (a broadcast) and eight
+// consecutive rows, 144 bytes apart (eight bank quads), and a warp writes
+// its 32 scores of a (i, j) to 32 banks.
+template <int QT>
+struct L1Tile {
+  static constexpr int RG = QT >= 64 ? 16 : 32;
+  static constexpr int QG = kThreads / RG;
+  static constexpr int RQ = QT / QG;
+  static constexpr int RN = kTileN / RG;
+  static_assert(QG * RQ == QT && RG * RN == kTileN && RG % 8 == 0 &&
+                    QG == 4 * kWarps / (RG / 8),
+                "a quarter warp's lanes take one query and 8 rows");
+  static_assert(p_stride<float>() == kWStride,
+                "float32 rows are read from the ring as widened ones");
+};
+
+__device__ __forceinline__ float part(const float4& v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
+
+// Each pair of dims of ``rows`` x ``cols`` floats (row stride ``stride``,
+// both even) swapped in place: Manhattan's queries as l1_tile reads them.
+// A 16-byte load fills four consecutive registers, so a query's dim and a
+// row's same dim would sit in registers of the same parity, one register
+// bank: every subtraction would wait a cycle on the bank.  With the
+// query's pairs swapped, dim d of the query is in component d ^ 1.
+__device__ __forceinline__ void swap_dim_pairs(float* x, int stride,
+                                               int rows, int cols, int tid) {
+  const int pairs = cols / 2;
+  for (int e = tid; e < rows * pairs; e += kThreads) {
+    float2* v = reinterpret_cast<float2*>(x + (e / pairs) * stride +
+                                          2 * (e % pairs));
+    const float2 w = *v;
+    *v = make_float2(w.y, w.x);
   }
-#pragma unroll 4
-  for (int k = 0; k < kTileD; ++k) {
-    float qv[L::MT][2];
+}
+
+// The operands of four dims from k0 of a thread's register tile: its
+// queries from q_s (row stride qs floats, its first query at row 0), its
+// float32 rows from p_f (row stride kWStride, its first row at row 0),
+// each one 16-byte load.
+template <int QT>
+__device__ __forceinline__ void l1_load(const float* q_s, int qs,
+                                        const float* p_f, int k0,
+                                        float4 (&qv)[L1Tile<QT>::RQ],
+                                        float4 (&pv)[L1Tile<QT>::RN]) {
+  using L = L1Tile<QT>;
 #pragma unroll
-    for (int mt = 0; mt < L::MT; ++mt) {
-      const float* qa = q_s + (m_base + mt * 16 + g) * qs + k;
-      qv[mt][0] = qa[0];
-      qv[mt][1] = qa[8 * qs];
-    }
+  for (int i = 0; i < L::RQ; ++i)
+    qv[i] = *reinterpret_cast<const float4*>(q_s + i * L::QG * qs + k0);
 #pragma unroll
-    for (int nt = 0; nt < L::NT; ++nt) {
-      const T* pb = p_s + (n_base + nt * 8 + 2 * t) * kPS + k;
-      float p[2];
-      if constexpr (scaled_rows<T>()) {
-        p[0] = widen(pb[0], sr[nt][0]);
-        p[1] = widen(pb[kPS], sr[nt][1]);
-      } else {
-        p[0] = widen(pb[0]);
-        p[1] = widen(pb[kPS]);
-      }
+  for (int j = 0; j < L::RN; ++j)
+    pv[j] = *reinterpret_cast<const float4*>(p_f + j * L::RG * kWStride + k0);
+}
+
+// Four dims of |q - p| into the tile's sums, dims ascending, every
+// difference and sum rounded on its own (the query's dim d in component
+// d ^ 1: swap_dim_pairs).
+template <int QT>
+__device__ __forceinline__ void l1_step(
+    const float4 (&qv)[L1Tile<QT>::RQ], const float4 (&pv)[L1Tile<QT>::RN],
+    float (&acc)[L1Tile<QT>::RQ][L1Tile<QT>::RN]) {
+  using L = L1Tile<QT>;
 #pragma unroll
-      for (int mt = 0; mt < L::MT; ++mt)
+  for (int c = 0; c < 4; ++c)
 #pragma unroll
-        for (int c = 0; c < 4; ++c)
-          acc[mt][nt][c] = __fadd_rn(
-              acc[mt][nt][c], fabsf(__fsub_rn(qv[mt][c >> 1], p[c & 1])));
+    for (int i = 0; i < L::RQ; ++i)
+#pragma unroll
+      for (int j = 0; j < L::RN; ++j)
+        acc[i][j] = __fadd_rn(acc[i][j], fabsf(__fsub_rn(part(qv[i], c ^ 1),
+                                                         part(pv[j], c))));
+}
+
+// One ring step's 32 dims of Manhattan into the tile's sums ``acc``
+// (queries and rows as l1_load reads them), four dims at a time.
+template <int QT>
+__device__ __forceinline__ void l1_tile(
+    const float* q_s, int qs, const float* p_f,
+    float (&acc)[L1Tile<QT>::RQ][L1Tile<QT>::RN]) {
+  float4 qv[L1Tile<QT>::RQ], pv[L1Tile<QT>::RN];
+#pragma unroll 1
+  for (int k0 = 0; k0 < kTileD; k0 += 4) {
+    l1_load<QT>(q_s, qs, p_f, k0, qv, pv);
+    l1_step<QT>(qv, pv, acc);
+  }
+}
+
+// The landed row chunk of a Manhattan instance over bf16 or int8 rows as
+// float32 into p_f ([128 x kWStride]): thread t widens row t / 2, dims
+// 16 (t % 2) to + 16, from one or two 16-byte reads to four 16-byte
+// writes; an int8 element is widen(p, round_bf16(scale)), a bf16 one its
+// high half.
+template <typename T>
+__device__ __forceinline__ void widen_chunk(const T* p_s,
+                                            const float* scale_s, float* p_f,
+                                            int tid) {
+  constexpr int kPS = p_stride<T>();
+  const int r = tid >> 1, c0 = (tid & 1) * (kTileD / 2);
+  float4* dst = reinterpret_cast<float4*>(p_f + r * kWStride + c0);
+  if constexpr (scaled_rows<T>()) {
+    const float sr = round_bf16(scale_s[r]);
+    const int4 raw = *reinterpret_cast<const int4*>(p_s + r * kPS + c0);
+    const int w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+    for (int v = 0; v < 4; ++v)
+      dst[v] = make_float4(widen((int8_t)(w[v]), sr),
+                           widen((int8_t)(w[v] >> 8), sr),
+                           widen((int8_t)(w[v] >> 16), sr),
+                           widen((int8_t)(w[v] >> 24), sr));
+  } else {
+    const uint4* src = reinterpret_cast<const uint4*>(p_s + r * kPS + c0);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint4 raw = src[h];
+      const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+      for (int v = 0; v < 2; ++v)
+        dst[2 * h + v] = make_float4(
+            __uint_as_float(w[2 * v] << 16),
+            __uint_as_float(w[2 * v] & 0xffff0000u),
+            __uint_as_float(w[2 * v + 1] << 16),
+            __uint_as_float(w[2 * v + 1] & 0xffff0000u));
     }
   }
 }
@@ -682,7 +799,7 @@ __device__ __forceinline__ float score(float dot, float pn, float qn,
 // ``scale``: the int8 rows' scales (null for float32 and bf16 rows).
 // ``kWide``: lists of up to kRegK entries take the wide selection, with
 // the bound f32[B, S] shared across splits at rank ``bound_rank`` (none
-// when null).  ``kL1``: Manhattan, summed on the CUDA cores (l1_chunk).
+// when null).  ``kL1``: Manhattan, summed on the CUDA cores (l1_tile).
 template <int QT, bool kQRes, bool kWide, typename T, bool kL1 = false>
 __device__ __forceinline__ void sweep_block(
     const float* __restrict__ q, const T* __restrict__ p,
@@ -701,9 +818,13 @@ __device__ __forceinline__ void sweep_block(
   constexpr int kStageBytes = kPBytes + kExtraBytes +
                               (kQRes ? 0 : QT * kQStride * (int)sizeof(float));
   const int q_all_stride = q_res_stride(D);
+  // Manhattan over bf16 / int8 rows widens each landed chunk once
+  constexpr bool kWiden = widened_bytes<T, kL1>() > 0;
 
   extern __shared__ __align__(16) unsigned char smem[];
-  float* q_all = reinterpret_cast<float*>(smem + kStages * kStageBytes);
+  float* p_wide = reinterpret_cast<float*>(smem + kStages * kStageBytes);
+  float* q_all = reinterpret_cast<float*>(smem + kStages * kStageBytes +
+                                          widened_bytes<T, kL1>());
   float* score_s = q_all + (kQRes ? QT * q_all_stride : 0);
   float* qn_s = score_s + QT * kSStride;                // [QT]
   float* pn_s = qn_s + QT;                              // [kTileN]
@@ -751,6 +872,15 @@ __device__ __forceinline__ void sweep_block(
     for (int nt = 0; nt < L::NT; ++nt)
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[mt][nt][c] = 0.f;
+  // Manhattan's sums and the thread's query and row groups (L1Tile)
+  using T1 = L1Tile<QT>;
+  float l1_acc[T1::RQ][T1::RN];
+#pragma unroll
+  for (int i = 0; i < T1::RQ; ++i)
+#pragma unroll
+    for (int j = 0; j < T1::RN; ++j) l1_acc[i][j] = 0.f;
+  const int l1_rg = (lane & 7) + 8 * (warp % (T1::RG / 8));
+  const int l1_qg = (lane >> 3) + 4 * (warp / (T1::RG / 8));
   float pn_part = 0.f;              // |p|^2 of row tid/2, half tid%2
 
   if (total > 0) {
@@ -802,8 +932,21 @@ __device__ __forceinline__ void sweep_block(
     }
 
     if constexpr (kL1) {
-      // Manhattan has no matmul form: the CUDA cores sum it
-      l1_chunk<QT>(q_s, qs, p_s, scale_s, m_base, n_base, g, t, acc);
+      // Manhattan has no matmul form: the CUDA cores sum it, over rows
+      // widened once (float32 rows as they landed) and queries whose dim
+      // pairs are swapped as they land (resident: once, at step 0)
+      const float* p_f = reinterpret_cast<const float*>(p_s);
+      if (!kQRes || s == 0) {
+        swap_dim_pairs(const_cast<float*>(kQRes ? q_all : q_s),
+                       kQRes ? q_all_stride : kQStride, QT,
+                       kQRes ? n_chunks * kTileD : kTileD, tid);
+      }
+      if constexpr (kWiden) {
+        widen_chunk(p_s, scale_s, p_wide, tid);
+        p_f = p_wide;
+      }
+      if (kWiden || !kQRes || s == 0) __syncthreads();
+      l1_tile<QT>(q_s + l1_qg * qs, qs, p_f + l1_rg * kWStride, l1_acc);
     } else {
       // the rounded scale of each row this thread feeds (int8 rows)
       float sb[kScaled ? L::NT : 1];
@@ -868,26 +1011,33 @@ __device__ __forceinline__ void sweep_block(
     }
 
     // accumulators -> scores: C fragment (g, 2t), (g, 2t+1), (g+8, 2t),
-    // (g+8, 2t+1) of each m16 x n8 tile
+    // (g+8, 2t+1) of each m16 x n8 tile; Manhattan's sums are the scores
+    if constexpr (kL1) {
 #pragma unroll
-    for (int mt = 0; mt < L::MT; ++mt)
+      for (int i = 0; i < T1::RQ; ++i)
 #pragma unroll
-      for (int nt = 0; nt < L::NT; ++nt)
+        for (int j = 0; j < T1::RN; ++j) {
+          score_s[(l1_qg + T1::QG * i) * kSStride + l1_rg + T1::RG * j] =
+              l1_acc[i][j];
+          l1_acc[i][j] = 0.f;
+        }
+    } else {
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int ql = m_base + mt * 16 + g + 8 * h;
-          const int r = n_base + nt * 8 + 2 * t;
-          const float qn = qn_s[ql];
-          if constexpr (kL1)         // the accumulators are the score
-            *reinterpret_cast<float2*>(&score_s[ql * kSStride + r]) =
-                make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
-          else
+      for (int mt = 0; mt < L::MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < L::NT; ++nt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int ql = m_base + mt * 16 + g + 8 * h;
+            const int r = n_base + nt * 8 + 2 * t;
+            const float qn = qn_s[ql];
             *reinterpret_cast<float2*>(&score_s[ql * kSStride + r]) =
                 make_float2(score(acc[mt][nt][2 * h], pn_s[r], qn, metric),
                             score(acc[mt][nt][2 * h + 1], pn_s[r + 1], qn,
                                   metric));
-          acc[mt][nt][2 * h] = acc[mt][nt][2 * h + 1] = 0.f;
-        }
+            acc[mt][nt][2 * h] = acc[mt][nt][2 * h + 1] = 0.f;
+          }
+    }
     __syncthreads();
 
     // selection: warp w alone touches the lists of its own queries.  The
@@ -1196,7 +1346,7 @@ int run_topk(const float* q, const T* p, const float* scale,
        (!kWide || bound_rank < 1 || bound_rank > k_run ||
         (long long)S * bound_rank < k_run)))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = sweep_smem_bytes<T>(qt, k_run, D, q_res != 0);
+  const size_t smem = sweep_smem_bytes<T, kL1>(qt, k_run, D, q_res != 0);
   if (smem != (size_t)smem_bytes || smem > (size_t)kSmemLimit)
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);

@@ -80,12 +80,14 @@ WIDE_MIN_K = 64
 # strides (corpus: 32 dims + 16 bytes; streamed query chunks: 36 floats;
 # resident queries: D in whole chunks + 4 floats; scores: 136 floats), the
 # query tile QT by tier of k_run, 8 bytes per list entry; int8 rows (1-byte
-# elements) add each stage's 128 float32 scales.
+# elements) add each stage's 128 float32 scales; Manhattan over bf16 or
+# int8 rows adds the [128 x 36] float32 chunk each landed stage is widened
+# into.
 SMEM_LIMIT = 232_448                # bytes of shared memory a block can use
 MAX_SPLITS = 128
 _SMEM_PER_SM, _SMEM_PER_BLOCK_RESERVED = 233_472, 1024     # H100
 _TILE_N, _TILE_D, _STAGES = 128, 32, 2
-_Q_STRIDE, _SCORE_STRIDE = 36, 136
+_Q_STRIDE, _SCORE_STRIDE, _WIDE_STRIDE = 36, 136, 36
 _MIN_ROWS_PER_SPLIT = 2048
 _QT_TIERS = ((256, 64), (MAX_K_RUN, 16))               # (k_run <=, QT)
 
@@ -156,9 +158,10 @@ def _bruteforce_topk_plain(queries, points, k_run: int, metric_value: int,
 
 
 def _smem_bytes(qt: int, k_run: int, itemsize: int, dims: int,
-                q_resident: bool) -> int:
+                q_resident: bool, manhattan: bool = False) -> int:
     """The C side's sweep_smem_bytes; ``itemsize`` 1 is the int8 instance,
-    whose ring stages also hold the tile's scales."""
+    whose ring stages also hold the tile's scales; ``manhattan`` the kL1
+    instances, which widen bf16 and int8 rows into a float32 chunk."""
     stage = _TILE_N * (_TILE_D * itemsize + 16)
     if itemsize == 1:
         stage += 4 * _TILE_N
@@ -166,8 +169,9 @@ def _smem_bytes(qt: int, k_run: int, itemsize: int, dims: int,
         queries = qt * (_TILE_D * -(-dims // _TILE_D) + 4) * 4
     else:
         stage, queries = stage + qt * _Q_STRIDE * 4, 0
-    return (_STAGES * stage + queries + 4 * (qt * _SCORE_STRIDE + qt
-                                             + _TILE_N) + 8 * qt * k_run)
+    widened = _TILE_N * _WIDE_STRIDE * 4 if manhattan and itemsize < 4 else 0
+    return (_STAGES * stage + widened + queries
+            + 4 * (qt * _SCORE_STRIDE + qt + _TILE_N) + 8 * qt * k_run)
 
 
 def _blocks_per_sm(smem: int) -> int:
@@ -175,11 +179,13 @@ def _blocks_per_sm(smem: int) -> int:
 
 
 def _launch_shape(b: int, n_rows: int, k_run: int, sms: int,
-                  itemsize: int = 4, dims: int = 128, qt: int | None = None):
+                  itemsize: int = 4, dims: int = 128, qt: int | None = None,
+                  manhattan: bool = False):
     """(QT, corpus splits S, resident queries, shared-memory bytes) of a
     sweep launch for ``b`` queries, ``n_rows`` rows of ``dims``
     ``itemsize``-byte elements (1: int8 rows and their scales) and
-    ``k_run`` on a card with ``sms`` SMs.
+    ``k_run`` on a card with ``sms`` SMs (``manhattan``: a kL1 instance's
+    shared memory).
 
     QT is the largest query tile whose running lists fit beside the ring.
     The block keeps its [QT, D] queries in shared memory for its whole
@@ -192,8 +198,8 @@ def _launch_shape(b: int, n_rows: int, k_run: int, sms: int,
     2048 rows.  ``qt`` forces the query tile (a probe's choice)."""
     if qt is None:
         qt = next(t for k_max, t in _QT_TIERS if k_run <= k_max)
-    streamed = _smem_bytes(qt, k_run, itemsize, dims, False)
-    resident = _smem_bytes(qt, k_run, itemsize, dims, True)
+    streamed = _smem_bytes(qt, k_run, itemsize, dims, False, manhattan)
+    resident = _smem_bytes(qt, k_run, itemsize, dims, True, manhattan)
     q_res = (resident <= SMEM_LIMIT
              and _blocks_per_sm(resident) >= _blocks_per_sm(streamed))
     smem = resident if q_res else streamed
@@ -354,17 +360,17 @@ def _launch(queries, dtype, row_ptrs, itemsize: int, n_valid,
         return out_d, out_i
     lib = _kernels.load_library()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    manhattan = metric_value == Metric.MANHATTAN.value
     qt, splits, q_res, smem = _launch_shape(b, n_rows, k_run, sms, itemsize,
-                                            dims)
+                                            dims, manhattan=manhattan)
     with torch.cuda.device(dev):
         part_d = torch.empty((splits, b, k_run), dtype=torch.float32,
                              device=dev)
         part_i = torch.empty((splits, b, k_run), dtype=torch.int32,
                              device=dev)
         # the scratch is held until the launch is queued
-        name, scratch, bound = _entry(
-            dtype, k_run, b, splits, dev,
-            manhattan=metric_value == Metric.MANHATTAN.value)
+        name, scratch, bound = _entry(dtype, k_run, b, splits, dev,
+                                      manhattan=manhattan)
         err = getattr(lib, name)(
             queries.data_ptr(), *row_ptrs,
             None if deleted is None else deleted.data_ptr(),

@@ -12,12 +12,19 @@ WIDE_MIN_K comes from) and the build sweep's (one 256-row insert batch:
 the int8 shadow of the rows at k_run = 2 cand_cap = 256, also at the other
 query tile, and exact mode's float32 / bf16 rows at cand_cap + 2 = 130,
 through the wide instances and, float32, the exact route's).  Then the
-Manhattan instances at the exact route's shape (float32 rows, B=1024,
-k=10) and the build's (the int8 shadow, B=256, pool 256) beside their
-twin and the library call (torch.cdist(p=1) + torch.topk over one chunk):
-l1_shapes.  Then the compressed sweep's pool (csrc/pq_topk.cu, PQ codes of
-G = 32 bytes a row through a normal codebook, B=1024) built in its own
-variants (pq-kernel as built; pq-no-select: the scores made but no row
+Manhattan instances at the exact route's shape (float32 and bf16 rows,
+B=1024, k=10) and the build's (the int8 shadow, B=256, pool 256), in the
+L1 variants and, with ``--before FILE`` (an earlier tree's
+csrc/bruteforce_topk.cu, built as "before" and timed at every shape, the
+L2 ones too, launched with that tree's shared-memory figure), against it
+in turns, beside their twin, the library call (torch.cdist(p=1) +
+torch.topk over one chunk), the bound (2 B N D at 67 TFLOP/s) and the
+FADD ceiling (2 B N D FADDs at the SMs' 128 lanes and the card's max SM
+clock), with each build's registers, stack, FADDs and 16-byte shared
+loads by Manhattan instance (cuobjdump): l1_shapes.  Then the
+compressed sweep's pool (csrc/pq_topk.cu, PQ codes of G = 32 bytes a row
+through a normal codebook, B=1024) built in its own variants (pq-kernel
+as built; pq-no-select: the scores made but no row
 admitted, no bound kept, the select over empty segments; pq-no-decode: an
 element is its code's bits, no table read; pq-loads-only: the copies and
 the code reads alone; pq-profile: the kernel with its phase clocks,
@@ -48,6 +55,22 @@ variants, each against the kernel:
                   one by one, more merged (the kernel's cut-off is 8)
   unused-bound    the bound read before each tile but not applied (its
                   reads' cost: this minus no-shared-bound)
+and Manhattan's, timed at l1_shapes only:
+  l1-no-select    the scores made, the selection removed (no-select's text)
+  l1-loads-only   the staging and widening alone: no selection and no
+                  register tile (no FADD)
+  l1-tile-8x4     a thread's register tile 8 queries x 4 rows at QT = 64
+                  (the kernel's: 4 x 8)
+  l1-no-swap      a query's dim read from the component of the row's (its
+                  pairs still swapped: wrong sums), so both operands of each
+                  subtraction sit in one register bank
+  l1-pipe         the next four dims' operands loaded before this four's
+                  FADDs (two register sets in turn), the launch bounds at
+                  one block an SM (255 registers)
+  l1-compute      no-select with the ring's copies after the first step
+                  skipped (stale chunks): the register tile, the widening
+                  and the barriers alone
+  l1-compute-no-barrier  the same without the step loop's barriers
 The wide shapes also run the count build (the kernel, and serial-select,
 with atomics: the rows each (query, split) admitted at its tiles' starts,
 the rows merged a tile at a time and the tile merges; mean and max beside
@@ -68,6 +91,8 @@ import concurrent.futures
 import ctypes
 import math
 import os
+import re
+import shutil
 import subprocess
 
 import torch
@@ -109,6 +134,40 @@ _APPLY_BOUND = ("      const float tau =\n"
                 "CUDART_INF_F;\n")
 _ADMITTED = "  if (admitted <= kSerialMax)\n"
 _NAMESPACE = "\nnamespace {\n"
+# Manhattan's register tile: its call and its 4-dim step loop
+_L1_CALL = "      l1_tile<QT>(q_s + l1_qg * qs"
+# the register tile's row groups at QT = 64 (l1-tile-8x4: 32, a thread 8
+# queries x 4 rows)
+_L1_GROUPS = "  static constexpr int RG = QT >= 64 ? 16 : 32;"
+# the tile's step loop and the Manhattan instances' launch bounds
+# (l1-pipe: the next four dims' operands loaded before this four's FADDs,
+# two register sets in turn, at one block an SM: 255 registers)
+_L1_LOOP = """  float4 qv[L1Tile<QT>::RQ], pv[L1Tile<QT>::RN];
+#pragma unroll 1
+  for (int k0 = 0; k0 < kTileD; k0 += 4) {
+    l1_load<QT>(q_s, qs, p_f, k0, qv, pv);
+    l1_step<QT>(qv, pv, acc);
+  }
+"""
+_L1_PIPE = """  float4 qa[L1Tile<QT>::RQ], pa[L1Tile<QT>::RN];
+  float4 qb[L1Tile<QT>::RQ], pb[L1Tile<QT>::RN];
+  l1_load<QT>(q_s, qs, p_f, 0, qa, pa);
+#pragma unroll 1
+  for (int k0 = 0; k0 < kTileD; k0 += 8) {
+    l1_load<QT>(q_s, qs, p_f, k0 + 4, qb, pb);
+    l1_step<QT>(qa, pa, acc);
+    if (k0 + 8 < kTileD) l1_load<QT>(q_s, qs, p_f, k0 + 8, qa, pa);
+    l1_step<QT>(qb, pb, acc);
+  }
+"""
+_L1_BOUNDS = "__global__ void __launch_bounds__(kThreads, 2)\nsweep_kernel_l1("
+# the Manhattan instances' shapes: (corpus, queries B, k_run): the exact
+# route's, then the build's
+L1_SHAPES = (("float32", 1024, 10), ("bf16", 1024, 10), ("int8", 256, 256))
+# H100 SXM: float32 outside the tensor cores (the data sheet's, an FMA
+# counted as two), and the FP32 lanes of an SM
+PEAK_F32 = 67e12
+FP32_LANES = 128
 # the PQ kernel's filter's bound, its bound phase, its table reads, its
 # mma's, its laps
 _PQ_TAU = ("          const float qn = qn_s[ql], tau = tau_s[ql], "
@@ -216,7 +275,29 @@ def variants(src: str) -> dict:
                    "tau_mine, i)) ? 0.f : CUDART_INF_F;\n")
     cut_offs = {f"serial-max-{n}": _serial_max(src, n)
                 for n in SERIAL_MAX_TRIED}
+    l1_loads = _once(no_select, _L1_CALL, "      if (false) " + _L1_CALL[6:])
+    tile_8x4 = _once(src, _L1_GROUPS, "  static constexpr int RG = 32;")
+    no_swap = _once(src, "part(qv[i], c ^ 1)", "part(qv[i], c)")
+    pipe = _once(_once(src, _L1_LOOP, _L1_PIPE), _L1_BOUNDS,
+                 _L1_BOUNDS.replace(", 2)", ", 1)"))
+    # the ring's copies after the first step skipped (the sums of stale
+    # chunks), with no selection: the register tile, the widening and the
+    # barriers alone; then without the step loop's barriers either
+    compute = _once(
+        no_select, "    if (s + 1 < total)\n      load_step",
+        "    if (s + 1 < total && (!kL1 || s < 1))\n      load_step")
+    no_bar = _once(_once(_once(
+        compute, "    cp_async_wait<kStages - 1>();\n    __syncthreads();",
+        "    cp_async_wait<kStages - 1>();\n    if (!kL1) __syncthreads();"),
+        "      if (kWiden || !kQRes || s == 0) __syncthreads();",
+        "      if (false) __syncthreads();"),
+        "    __syncthreads();\n    if (!last) {",
+        "    if (!kL1) __syncthreads();\n    if (!last) {")
     return {"kernel": src, "no-select": no_select, "loads-only": loads,
+            "l1-no-select": no_select, "l1-loads-only": l1_loads,
+            "l1-tile-8x4": tile_8x4, "l1-no-swap": no_swap,
+            "l1-pipe": pipe, "l1-compute": compute,
+            "l1-compute-no-barrier": no_bar,
             "cvt-rounding": cvt, "smem-lists": smem_lists,
             "serial-select": serial, "no-shared-bound": no_bound,
             "bound-serial": bound_serial, "bound-merge": bound_merge,
@@ -304,20 +385,23 @@ def time_ms(fn, reps: int) -> float:
 
 
 def launcher(lib, corpus, q, k_run: int, force_qt, wide: bool,
-             streamed: bool, sms: int, stream, metric: int = L2):
+             streamed: bool, sms: int, stream, metric: int = L2,
+             widened: bool = True):
     """A launch over all N rows (``metric``, L2 by default) of ``lib``'s
     wide instance for this corpus (``wide``; int8 rows have no other) or
     the exact route's (Manhattan's instance under metric 2), the entry and
     its shared bound as the wrapper's ``_entry`` makes them, the bound
     refilled with +inf before each launch.  A corpus is float32 / bf16 rows
-    or the int8 shadow (qvec, qscale).  Returns (call, its launch shape and
-    buffers)."""
+    or the int8 shadow (qvec, qscale).  ``widened`` False sizes a
+    Manhattan launch without the widened chunk (a tree before it).
+    Returns (call, its launch shape and buffers)."""
     rows_k, scale = corpus if isinstance(corpus, tuple) else (corpus, None)
     isz, b = rows_k.element_size(), q.shape[0]
+    l1 = metric == 2 and widened
     qt, splits, q_res, smem = cb._launch_shape(b, N, k_run, sms, isz, D,
-                                               force_qt)
+                                               force_qt, manhattan=l1)
     if streamed:
-        q_res, smem = False, cb._smem_bytes(qt, k_run, isz, D, False)
+        q_res, smem = False, cb._smem_bytes(qt, k_run, isz, D, False, l1)
     part_d = torch.empty((splits, b, k_run), device="cuda")
     part_i = torch.empty((splits, b, k_run), dtype=torch.int32,
                          device="cuda")
@@ -381,32 +465,156 @@ def counts(libs, corpus, q, k_run, force_qt, sms, stream) -> None:
           f" {time_ms(merge, 20):.4f} ms", flush=True)
 
 
-def l1_shapes(lib, rows, qs, sms, stream) -> None:
-    """The Manhattan instances at the exact route's shape (float32 rows,
-    B=1024, k_run = k = 10) and the build's (the int8 shadow of the rows,
-    one 256-row insert batch, k_run = 2 cand_cap = 256): the kernel, the
-    twin (_bruteforce_topk_plain: sweep_min_k over torch.cdist chunks) and
-    the library call (torch.cdist(p=1) over one 1M chunk + torch.topk);
-    ids against the twin's.  Each a call between CUDA events after a
-    warm-up call."""
-    for kind, b, k_run in (("float32", 1024, 10), ("int8", 256, 256)):
-        corpus = rows if kind == "float32" else quantize_rows(rows)
+def max_sm_clock_hz() -> float:
+    """The card's max SM clock (nvidia-smi's clocks.max.sm), in Hz."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout
+    return float(out.split()[0]) * 1e6
+
+
+def l1_bound_ms(b: int, n: int, d: int) -> float:
+    """A Manhattan sweep's bound: 2 B N D float32 operations (a
+    subtraction and an |.|-addition a term) at the published 67 TFLOP/s."""
+    return 2.0 * b * n * d / PEAK_F32 * 1e3
+
+
+def fadd_ceiling_ms(b: int, n: int, d: int, sms: int, clock_hz: float):
+    """A Manhattan sweep's reachable floor: its 2 B N D operations are
+    FADDs that cannot fuse (the published rate counts an FMA as two), one
+    a lane a cycle on ``sms`` SMs of FP32_LANES at ``clock_hz``."""
+    return 2.0 * b * n * d / (sms * FP32_LANES * clock_hz) * 1e3
+
+
+def _cuobjdump(lib, flag: str) -> str:
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    return subprocess.run([tool, flag, lib._name], capture_output=True,
+                          text=True, check=True).stdout
+
+
+def res_usage(lib) -> dict:
+    """{function: (registers, stack bytes)} of a built library
+    (cuobjdump -res-usage)."""
+    out, name = {}, None
+    for line in _cuobjdump(lib, "-res-usage").splitlines():
+        m = re.search(r"Function ([^\s:]+)", line)
+        if m:
+            name = m[1]
+        m = re.search(r"REG:(\d+)\s+STACK:(\d+)", line)
+        if m and name:
+            out[name], name = (int(m[1]), int(m[2])), None
+    return out
+
+
+def _by_name(usage: dict) -> dict:
+    """``usage`` keyed by the mangled names without the anonymous
+    namespace (its mangling differs between two source files)."""
+    out = {}
+    for fn, v in usage.items():
+        m = re.match(r"_ZN(\d+)_GLOBAL__N_", fn)
+        out[fn[3 + len(m[1]) + int(m[1]):] if m else fn] = v
+    return out
+
+
+def sass_report(lib) -> dict:
+    """Per Manhattan row instance (sweep_kernel_l1) of a built library:
+    (registers, stack bytes, FADDs, 16-byte shared loads, instructions)
+    from cuobjdump's -res-usage and -sass."""
+    out, name = {}, None
+    for fn, (regs, stack) in res_usage(lib).items():
+        if "sweep_kernel_l1" in fn:
+            out[fn] = [regs, stack, 0, 0, 0]
+    for line in _cuobjdump(lib, "-sass").splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            name = m[1] if m[1] in out else None
+        elif name and re.search(r"/\*[0-9a-f]{4,}\*/", line):
+            op = line.split("*/")[1].strip().split(" ")
+            op = op[1] if op[0].startswith("@") else op[0]
+            out[name][2] += op.startswith("FADD")
+            out[name][3] += op == "LDS.128"
+            out[name][4] += 1
+    return out
+
+
+def _instance_label(mangled: str) -> str:
+    m = re.search(r"sweep_kernel_l1ILi(\d+)ELb([01])E([fta])E", mangled)
+    if not m:
+        return mangled
+    return (f"QT={m[1]}, {'resident' if m[2] == '1' else 'streamed'} "
+            f"queries, {dict(f='float32', t='bf16', a='int8')[m[3]]} rows")
+
+
+def l1_shapes(libs, corpora, qs, sms, stream, passes: int) -> None:
+    """The Manhattan instances at the exact route's shape (float32 and
+    bf16 rows, B=1024, k_run = k = 10) and the build's (the int8 shadow of
+    the rows, one 256-row insert batch, k_run = 2 cand_cap = 256): each of
+    ``libs`` (the kernel, the l1-* variants and an earlier tree's
+    "before", launched with its own shared-memory figure), in ``passes``
+    turns, every other reversed, each a call between CUDA events after a
+    warm-up call; beside them the twin (_bruteforce_topk_plain: sweep_min_k
+    over torch.cdist chunks), the library call (torch.cdist(p=1) over one
+    1M chunk + torch.topk), the bound and the FADD ceiling; ids of the
+    kernel and "before" against the twin's.  Then each build's registers,
+    stack, FADDs and 16-byte shared loads by Manhattan instance."""
+    clock = max_sm_clock_hz()
+    best, worst = {}, {}
+    order = list(libs)
+    for p in range(passes):
+        for name in (order[::-1] if p % 2 else order):
+            for kind, b, k_run in L1_SHAPES:
+                call, shape = launcher(libs[name], corpora[kind], qs[:b],
+                                       k_run, None, True, False, sms, stream,
+                                       metric=2, widened=name != "before")
+                ms = time_ms(call, 5)
+                key = kind, name
+                best[key] = min(ms, best.get(key, ms))
+                worst[key] = max(ms, worst.get(key, ms))
+                note = ""
+                if name in ("kernel", "before") and p == 0:
+                    want = cb._bruteforce_topk_plain(qs[:b], corpora[kind],
+                                                     k_run, 2, N)
+                    same = (shape["out_i"] == want[1]).float().mean()
+                    bits = torch.equal(shape["out_d"], want[0])
+                    note = (f"; ids equal to the twin's: {same:.5f}, "
+                            f"distances bit-equal: {bits}")
+                print(f"manhattan {name:15s} {shape['name']:25s} B={b} "
+                      f"k_run={k_run} QT={shape['qt']} S={shape['splits']}: "
+                      f"{ms:.3f} ms{note}", flush=True)
+    for kind, b, k_run in L1_SHAPES:
+        corpus = corpora[kind]
         q = qs[:b]
-        call, shape = launcher(lib, corpus, q, k_run, None, True, False, sms,
-                               stream, metric=2)
-        ms = time_ms(call, 5)
-        want = cb._bruteforce_topk_plain(q, corpus, k_run, 2, N)
         twin = time_ms(lambda: cb._bruteforce_topk_plain(q, corpus, k_run, 2,
                                                          N), 1)
-        dense = (rows if kind == "float32"
-                 else cb.dequantize_rows(*corpus).float())
+        dense = (cb.dequantize_rows(*corpus).float() if kind == "int8"
+                 else corpus.float())
         library = time_ms(lambda: torch.topk(
             torch.cdist(q, dense, p=1.0), k_run, dim=1, largest=False), 3)
-        same = (shape["out_i"] == want[1]).float().mean()
-        print(f"manhattan {shape['name']} B={b} k_run={k_run} "
-              f"QT={shape['qt']} S={shape['splits']}: kernel {ms:.3f} ms, "
-              f"twin {twin:.3f} ms, library {library:.3f} ms; ids equal to "
-              f"the twin's: {same:.5f}", flush=True)
+        del dense
+        times = ", ".join(f"{name} {best[kind, name]:.3f} (worst "
+                          f"{worst[kind, name]:.3f})" for name in order)
+        print(f"manhattan {kind} B={b} k_run={k_run}, best of {passes} "
+              f"passes: {times} ms; twin {twin:.3f} ms, library "
+              f"(torch.cdist + topk) {library:.3f} ms; bound "
+              f"{l1_bound_ms(b, N, D):.3f} ms (2 B N D at 67 TFLOP/s), FADD "
+              f"ceiling {fadd_ceiling_ms(b, N, D, sms, clock):.3f} ms ({sms} "
+              f"SMs x {FP32_LANES} lanes at {clock / 1e9:.3f} GHz)",
+              flush=True)
+    if "before" in libs:
+        # every other function's registers and stack as the earlier tree's
+        now, then = (_by_name(res_usage(libs[k])) for k in ("kernel",
+                                                             "before"))
+        moved = {fn: (then.get(fn), use) for fn, use in now.items()
+                 if "sweep_kernel_l1" not in fn and then.get(fn) != use}
+        print(f"registers and stack of the {len(now)} functions but the "
+              f"Manhattan sweeps, against the earlier tree: "
+              f"{moved or 'all the same'}", flush=True)
+    for name in order:
+        for fn, (regs, stack, fadd, lds, total) in sorted(
+                sass_report(libs[name]).items()):
+            print(f"sass {name:15s} sweep_kernel_l1<{_instance_label(fn)}>: "
+                  f"{regs} registers, {stack} bytes stack, {fadd} FADD, "
+                  f"{lds} LDS.128 of {total} instructions", flush=True)
 
 
 def pq_call(lib, codes, table, qs, pool: int, sms: int, stream,
@@ -567,6 +775,8 @@ def main() -> int:
                     help="passes over the variants, every other reversed")
     ap.add_argument("--variants", help="comma-separated: time only these "
                     "(and build only what they and the counts need)")
+    ap.add_argument("--before", help="an earlier tree's bruteforce_topk.cu, "
+                    "built and timed beside the kernel at every shape")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("sweep_probe: no CUDA device")
@@ -574,6 +784,9 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     os.makedirs(OUT, exist_ok=True)
+    with open(SRC) as f:
+        srcs = variants(f.read())
+    l1_runs = ["kernel", *(k for k in srcs if k.startswith("l1-"))]
     runs = [("kernel", False), ("streamed-q", True), ("no-select", False),
             ("loads-only", False), ("cvt-rounding", False),
             ("smem-lists", False), ("serial-select", False),
@@ -587,15 +800,20 @@ def main() -> int:
     if args.variants:
         runs = [r for r in runs if r[0] in args.variants.split(",")]
         pq_runs = [r for r in pq_runs if r in args.variants.split(",")]
-    with open(SRC) as f:
-        srcs = variants(f.read())
+        l1_runs = [r for r in l1_runs if r in args.variants.split(",")]
+    if args.before:
+        with open(args.before) as f:
+            srcs["before"] = f.read()
+        runs.append(("before", False))
+        l1_runs.append("before")
     with open(PQ_SRC) as f:
         pq_srcs = {k: v for k, v in pq_variants(f.read()).items()
                    if k in pq_runs}
     wanted = {"kernel" if name == "streamed-q" else name for name, _ in runs}
     # the count builds go with the row sweep's variants
+    counted = {"count", "count-serial"} if wanted - {"before"} else set()
     srcs = {k: v for k, v in srcs.items()
-            if k in wanted | ({"count", "count-serial"} if wanted else set())}
+            if k in wanted | set(l1_runs) | counted}
     jobs = [(k, v, _kernels.declare_sweep) for k, v in srcs.items()] + [
         (k, v, _kernels.declare_pq) for k, v in pq_srcs.items()]
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as ex:
@@ -668,8 +886,9 @@ def main() -> int:
     for kind, b, k_run, force_qt, wide in SHAPES:
         if wide and "count" in libs:
             counts(libs, corpora[kind], qs[:b], k_run, force_qt, sms, stream)
-    if "kernel" in libs:
-        l1_shapes(libs["kernel"], rows, qs, sms, stream)
+    if l1_runs:
+        l1_shapes({k: libs[k] for k in l1_runs}, corpora, qs, sms, stream,
+                  args.passes)
     if pq_libs:
         pq_error(pq_libs, sms, stream)
         pq_pools(pq_libs, codes, book, qs, sms, stream, args.reps)

@@ -1097,6 +1097,25 @@ def test_l1_kernels_pages_after_the_floor(cuda, kind):
         _assert_pool_bit_equal((fd, fi), want)
 
 
+@pytest.mark.parametrize("kind", L1_KINDS)
+@pytest.mark.parametrize("d", [1, 31, 33, 127])
+def test_l1_kernels_at_the_edges(cuda, kind, d):
+    """The register tile at the shapes' edges (tests/test_torch_manhattan
+    .py models its schedule on the CPU): D 1, 31, 33 and 127 (element
+    loads, a part step, one past a step); 1, 127 and 129 rows and 3,000;
+    B 1, 63 and 65; tombstones; k_run 1, 12, 256 (the shared bound), 257
+    (QT = 16) and 1500 (two pages, the second after the first's floor);
+    bit for bit against the twin on integer rows."""
+    for n, b in ((1, 1), (127, 63), (129, 65), (3000, 65)):
+        corpus, qs = _l1_corpus(kind, n + d, n, d, b, cuda)
+        g = torch.Generator().manual_seed(n + d)
+        dead = (torch.rand(n, generator=g) < 0.05).to(cuda)
+        for k_run in (1, 12, 256, 257, 1500):
+            got = cb.bruteforce_topk_paged(qs, corpus, k_run, 2, n, dead)
+            want = cb._bruteforce_topk_plain(qs, corpus, k_run, 2, n, dead)
+            _assert_pool_bit_equal(got, want)
+
+
 def test_manhattan_exact_route_uses_the_kernel(cuda):
     """The index's exact route, search(mode="exact"), the sharded index
     (one launch a shard) and the table's <~> seq scan under Manhattan:
@@ -1866,3 +1885,31 @@ def test_sweep_pq_search_launches_the_pq_instance(cuda, metric):
     before = cb.LAUNCHES["bruteforce_topk_pq"]
     sharded.search(qs, 10, mode="sweep_pq")
     assert cb.LAUNCHES["bruteforce_topk_pq"] == before + 4
+
+
+def test_rerank_pad_on_the_card(cuda):
+    """The exact route's rerank pad against cancellation on the card
+    (tests/rerank_band.band_case; the CPU's routes and the JAX package's:
+    tests/test_torch_rerank_pad.py): fused_exact_search under L2 answers
+    with the exact rerank of the kernel's own k + 2 pool (one
+    bruteforce_topk launch for it), its distances the float64 oracle's at
+    rtol 1e-5, every oracle row it loses a band row outside that pool, as
+    the reference's routes lose them."""
+    from rerank_band import BAND, K, band_case, lost_rows, oracle, pool_rerank
+    pts, qs = band_case()
+    d64, want = oracle(pts, qs)
+    p, q = torch.from_numpy(pts).to(cuda), torch.from_numpy(qs).to(cuda)
+    before = dict(cb.LAUNCHES)
+    d, ids = cb.fused_exact_search(q, p, K, "l2")
+    before["bruteforce_topk"] += 1
+    assert cb.LAUNCHES == before
+    pool = cb.bruteforce_topk(q, p, K + 2, 0, len(pts))[1].cpu().numpy()
+    d, ids = d.cpu().numpy(), ids.cpu().numpy()
+    np.testing.assert_allclose(
+        d, np.take_along_axis(d64, ids.astype(np.int64), axis=1), rtol=1e-5)
+    rerank = pool_rerank(d64, pool.astype(np.int64))
+    for j, (g, r) in enumerate(zip(ids, rerank)):
+        assert set(g) == set(r), j
+    for j, rows in enumerate(lost_rows(ids, want)):
+        band = set(range(30 * j + K - 1, 30 * j + K - 1 + BAND))
+        assert rows <= band and not rows & set(pool[j]), j

@@ -99,18 +99,76 @@ def test_exact_route_matches_pallas(n, d, k, n_valid, dead, dtype):
         assert not np.isin(got[1].numpy(), np.nonzero(deleted)[0]).any()
 
 
-def _l1_schedule(qs, rows):
-    """The kernel's Manhattan sum rendered in torch: every (query, row)
-    score summed over the dims in ascending order in float32, each
-    difference and sum rounded on its own (l1_chunk, a 32-dim chunk at a
-    time; dims past D zero on both sides add +0)."""
-    width = 32 * -(-qs.shape[1] // 32)
-    q = torch.nn.functional.pad(qs, (0, width - qs.shape[1]))
-    p = torch.nn.functional.pad(rows.float(), (0, width - rows.shape[1]))
-    acc = torch.zeros((q.shape[0], p.shape[0]), dtype=torch.float32)
-    for d in range(width):
-        acc = acc + (q[:, d, None] - p[None, :, d]).abs()
-    return acc
+def _l1_tile(qt):
+    """L1Tile<QT> of csrc/bruteforce_topk.cu: (row groups RG, query groups
+    QG, queries a thread RQ, rows a thread RN) of a QT x 128 block tile of
+    256 threads."""
+    rg = 16 if qt >= 64 else 32
+    qg = 256 // rg
+    return rg, qg, qt // qg, 128 // rg
+
+
+def _tile_pairs(qt):
+    """The (query, row) of each thread's sums in a QT x 128 block tile,
+    each [256, RQ, RN]: lane l of warp w takes rg = l % 8 + 8 (w % (RG /
+    8)) and qg = l / 8 + 4 (w / (RG / 8)), then queries qg + QG i and rows
+    rg + RG j."""
+    rgs, qgs, rq, rn = _l1_tile(qt)
+    tid = torch.arange(256)
+    warp, lane = tid // 32, tid % 32
+    rg = lane % 8 + 8 * (warp % (rgs // 8))
+    qg = lane // 8 + 4 * (warp // (rgs // 8))
+    q = qg[:, None, None] + qgs * torch.arange(rq)[None, :, None]
+    r = rg[:, None, None] + rgs * torch.arange(rn)[None, None, :]
+    return q.expand(-1, rq, rn), r.expand(-1, rq, rn)
+
+
+def _widen_elements():
+    """(row, dim) of the elements each thread widens in a landed 128 x 32
+    chunk (widen_chunk: row t / 2, dims 16 (t % 2) to + 16), [256, 16]."""
+    tid = torch.arange(256)
+    return ((tid // 2)[:, None].expand(-1, 16),
+            16 * (tid % 2)[:, None] + torch.arange(16)[None, :])
+
+
+def _l1_schedule(qs, rows, qt=64):
+    """The kernel's Manhattan sums rendered in torch: the block tiles of
+    QT queries x 128 rows, each (query, row) summed by the thread whose
+    register tile holds it (_tile_pairs: each pair of a tile once), over
+    32-dim steps, four dims at a time (l1_tile), so dims ascend; the
+    queries' dim pairs swapped where they land (swap_dim_pairs), dim d
+    read back from d ^ 1; every difference and sum rounded on its own in
+    float32, dims and rows past the edges zero (+0 added)."""
+    b, d = qs.shape
+    width = 32 * -(-d // 32)
+    order = [c + k0 + j for c in range(0, width, 32) for k0 in range(0, 32, 4)
+             for j in range(4)]
+    assert order == list(range(width))
+    q_pad, n_pad = qt * -(-b // qt), 128 * -(-len(rows) // 128)
+    q = torch.zeros((q_pad, width))
+    q[:b, :d] = qs
+    q = q.view(q_pad, -1, 2).flip(-1).reshape(q_pad, width)
+    p = torch.zeros((n_pad, width))
+    p[:len(rows), :d] = rows.float()
+    tq, tr = (t.reshape(-1) for t in _tile_pairs(qt))
+    cover = torch.zeros((qt, 128), dtype=torch.int64)
+    cover.index_put_((tq, tr), torch.ones_like(tq), accumulate=True)
+    assert (cover == 1).all()
+    er, ed = (t.reshape(-1) for t in _widen_elements())
+    cover = torch.zeros((128, 32), dtype=torch.int64)
+    cover.index_put_((er, ed), torch.ones_like(er), accumulate=True)
+    assert (cover == 1).all()
+    # every block tile's pairs, by the thread that sums them
+    q0 = torch.arange(0, q_pad, qt)[:, None, None]
+    r0 = torch.arange(0, n_pad, 128)[None, :, None]
+    qi, ri = (q0 + tq).expand(-1, n_pad // 128, -1), (r0 + tr).expand(
+        q_pad // qt, -1, -1)
+    acc = torch.zeros(qi.shape, dtype=torch.float32)
+    for k in order:
+        acc = acc + (q[qi, k ^ 1] - p[ri, k]).abs()
+    out = torch.empty((q_pad, n_pad), dtype=torch.float32)
+    out[qi, ri] = acc
+    return out[:b, :len(rows)]
 
 
 @pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8"])
@@ -148,6 +206,41 @@ def test_summation_order_against_the_twin(kind):
               (twin[0].numpy(), twin[1].numpy()), r, qs)
 
 
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("d", [1, 31, 33, 127])
+def test_tile_schedule_at_the_edges(kind, d):
+    """The register tile's schedule (_l1_schedule: each pair of a tile
+    once, dims ascending) at both query tiles against the twin's scores at
+    the shapes' edges: D 1, 31, 33 and 127 (a part step, one past a step);
+    1, 127 and 129 rows (a part tile, one past a tile); B 1, 63 and 65
+    (one past QT = 64, part tiles of QT = 16); bit for bit on integer
+    rows, rtol 1e-5 on normal ones."""
+    rng = np.random.default_rng(d)
+    for n, b in ((1, 1), (127, 63), (129, 65)):
+        for integer in (True, False):
+            if integer:
+                pts = rng.integers(-8, 9, size=(n, d)).astype(np.float32)
+                qs = rng.integers(-8, 9, size=(b, d)).astype(np.float32)
+            else:
+                pts = rng.normal(size=(n, d)).astype(np.float32)
+                qs = rng.normal(size=(b, d)).astype(np.float32)
+            tp, tq = torch.from_numpy(pts), torch.from_numpy(qs)
+            if kind == "int8":
+                corpus = ((tp.to(torch.int8), torch.ones(n)) if integer
+                          else tb.quantize_rows(tp))
+                rows = cb.dequantize_rows(*corpus)
+            else:
+                rows = tp.to(getattr(torch, kind))
+            want = cb._scores(tq, rows, MANHATTAN)
+            for qt in (64, 16):
+                got = _l1_schedule(tq, rows, qt)
+                if integer:
+                    assert torch.equal(got, want)
+                else:
+                    np.testing.assert_allclose(got.numpy(), want.numpy(),
+                                               rtol=1e-5)
+
+
 def test_instances_and_their_bound():
     """Manhattan takes its own entry for each row type, the wide selection
     with the shared bound up to WIDE_MAX_K (the int8 instance's way) and
@@ -174,6 +267,15 @@ def test_instances_and_their_bound():
     assert "sweep_block<QT, kQRes, true, T, true>(" in src
     assert "sweep_block<QT, kQRes, false>(q, p, nullptr, del" in src
     assert "bool kL1 = false>" in src
+    # the body: bf16 / int8 chunks widened once, then the register tile
+    # (_l1_schedule's model), its sums stored at (query, row)
+    assert "widen_chunk(p_s, scale_s, p_wide, tid);" in src
+    assert ("l1_tile<QT>(q_s + l1_qg * qs, qs, p_f + l1_rg * kWStride, "
+            "l1_acc);") in src
+    assert "part(qv[i], c ^ 1)," in src and "swap_dim_pairs(" in src
+    assert ("score_s[(l1_qg + T1::QG * i) * kSStride + l1_rg + T1::RG * j] ="
+            in src)
+    assert "l1_chunk" not in src
 
 
 def _no_loops(monkeypatch):

@@ -181,44 +181,57 @@ def test_widening_is_the_bf16_product_bit_for_bit():
                           * _bf16_rne(scales)[:, None])
 
 
-def _c_smem_bytes(itemsize, qt, k_run, dims, q_res):
-    """sweep_smem_bytes<T> of csrc/bruteforce_topk.cu, term by term: two
-    ring stages of [128 x (32 + 16 / itemsize)] elements (+ 128 float32
-    scales for int8 rows, + a [QT x 36] float32 query chunk when queries
-    stream), the resident [QT x (32 ceil(D / 32) + 4)] queries, the [QT x
-    136] score tile, |q|^2, |p|^2 and the [QT x k_run] (score, id) lists."""
+def _c_smem_bytes(itemsize, qt, k_run, dims, q_res, manhattan=False):
+    """sweep_smem_bytes<T, kL1> of csrc/bruteforce_topk.cu, term by term:
+    two ring stages of [128 x (32 + 16 / itemsize)] elements (+ 128
+    float32 scales for int8 rows, + a [QT x 36] float32 query chunk when
+    queries stream), the Manhattan instances' widened [128 x 36] float32
+    chunk over bf16 and int8 rows (widened_bytes<T, kL1>), the resident [QT
+    x (32 ceil(D / 32) + 4)] queries, the [QT x 136] score tile, |q|^2,
+    |p|^2 and the [QT x k_run] (score, id) lists."""
     stage = (128 * (32 + 16 // itemsize) * itemsize
              + (128 * 4 if itemsize == 1 else 0)
              + (0 if q_res else qt * 36 * 4))
+    widened = 128 * 36 * 4 if manhattan and itemsize < 4 else 0
     q_stride = 32 * -(-dims // 32) + 4
-    return (2 * stage + 4 * ((qt * q_stride if q_res else 0) + qt * 136
-                             + qt + 128) + 8 * qt * k_run)
+    return (2 * stage + widened
+            + 4 * ((qt * q_stride if q_res else 0) + qt * 136 + qt + 128)
+            + 8 * qt * k_run)
 
 
 @pytest.mark.parametrize("itemsize", [1, 2, 4])
 @pytest.mark.parametrize("dims", [30, 128, 960])
 def test_smem_bytes_match_the_kernel(itemsize, dims):
-    """_smem_bytes against sweep_smem_bytes<T>, which every entry (the
+    """_smem_bytes against sweep_smem_bytes<T, kL1>, which every entry (the
     exact route's, the wide ones, the int8 one and the three Manhattan
-    ones) reaches through run_topk, one figure for every instance of a row
-    type (the PQ kernel's own: tests/test_torch_pq_pool.py)."""
+    ones) reaches through run_topk: one figure for every L2 / cosine
+    instance of a row type, and the Manhattan ones' (kL1) with the widened
+    chunk over bf16 and int8 rows (the PQ kernel's own:
+    tests/test_torch_pq_pool.py)."""
     src = open(os.path.join(os.path.dirname(cb.__file__), "..", "csrc",
                             "bruteforce_topk.cu")).read()
     assert ("stage_extra_bytes<T>() +" in src
             and "return scaled_rows<T>() ? kTileN * 4" in src
-            and "return std::is_same<T, int8_t>::value;" in src)
-    assert src.count("sweep_smem_bytes<T>(qt, k_run, D, q_res != 0)") == 1
+            and "return std::is_same<T, int8_t>::value;" in src
+            and "return kStages * stage + widened_bytes<T, kL1>() +" in src
+            and "return kL1 && !std::is_same<T, float>::value ? "
+                "kTileN * kWStride * 4 : 0;" in src
+            and "constexpr int kWStride = kTileD + 4;" in src)
+    assert src.count("sweep_smem_bytes<T, kL1>(qt, k_run, D, q_res != 0)") == 1
     entries = src[src.index('extern "C" {'):]
     assert entries.count("return run_topk<") == 8
-    for qt in (64, 16):
-        for k_run in (1, 130, 256, 1024):
-            for q_res in (True, False):
-                assert cb._smem_bytes(qt, k_run, itemsize, dims, q_res) == (
-                    _c_smem_bytes(itemsize, qt, k_run, dims, q_res))
-        for k_run in range(1, cb.MAX_K_RUN + 1, 7):
-            _, _, _, smem = cb._launch_shape(256, 1_000_000, k_run, 132,
-                                             itemsize, dims)
-            assert smem <= cb.SMEM_LIMIT
+    for manhattan in (False, True):
+        for qt in (64, 16):
+            for k_run in (1, 130, 256, 1024):
+                for q_res in (True, False):
+                    assert cb._smem_bytes(qt, k_run, itemsize, dims, q_res,
+                                          manhattan) == _c_smem_bytes(
+                        itemsize, qt, k_run, dims, q_res, manhattan)
+            for k_run in range(1, cb.MAX_K_RUN + 1, 7):
+                _, _, _, smem = cb._launch_shape(256, 1_000_000, k_run, 132,
+                                                 itemsize, dims,
+                                                 manhattan=manhattan)
+                assert smem <= cb.SMEM_LIMIT
 
 
 def test_launch_shape_of_the_build_sweep():
@@ -231,6 +244,11 @@ def test_launch_shape_of_the_build_sweep():
         64, 33, True, 172_800)
     assert not cb._launch_shape(256, 1_000_000, 256, 132, 1, 960)[2]
     assert cb._launch_shape(256, 1_000_000, 257, 132, 1, 128)[0] == 16
+    # Manhattan's over the shadow: the widened chunk still fits beside
+    # the resident queries, one block an SM
+    assert cb._launch_shape(256, 1_000_000, 256, 132, 1, 128,
+                            manhattan=True) == (64, 33, True, 232_192)
+    assert cb._blocks_per_sm(232_192) == 1
 
 
 def test_sweep_pool_pages_past_one_launch():
@@ -318,8 +336,20 @@ def test_sweep_probe_rewrites_find_their_text():
                                for n in sweep_probe.SERIAL_MAX_TRIED)):
         assert "constexpr bool kReadBound = true;" in got[name]
         assert f"constexpr int kSerialMax = {serial_max};" in got[name]
-    assert len({*got.values()}) == len(got) == (
-        12 + len(sweep_probe.SERIAL_MAX_TRIED))
+    # Manhattan's: l1-no-select is no-select's text, timed at its shapes
+    assert got["l1-no-select"] == got["no-select"]
+    assert got["l1-loads-only"].count("#if 0") == 1
+    assert "      if (false) l1_tile<QT>(" in got["l1-loads-only"]
+    assert "  static constexpr int RG = 32;" in got["l1-tile-8x4"]
+    assert "part(qv[i], c)," in got["l1-no-swap"]
+    assert ("l1_load<QT>(q_s, qs, p_f, k0 + 4, qb, pb);" in got["l1-pipe"]
+            and "__launch_bounds__(kThreads, 1)\nsweep_kernel_l1("
+            in got["l1-pipe"])
+    assert "(!kL1 || s < 1))\n      load_step" in got["l1-compute"]
+    assert got["l1-compute"].count("#if 0") == 1
+    assert got["l1-compute-no-barrier"].count("if (!kL1) __syncthreads();") == 2
+    assert len({*got.values()}) + 1 == len(got) == (
+        19 + len(sweep_probe.SERIAL_MAX_TRIED))
     # the PQ kernel's own variants
     pq_src = open(sweep_probe.PQ_SRC).read()
     pq = sweep_probe.pq_variants(pq_src)
