@@ -69,10 +69,12 @@ exits non-zero):
      at power-of-two scales; f32 and bf16 records; PQ records through an
      integer codebook, with and without OPQ's signed-permutation rotation)
      and the bitmap and hash visited sets at T in {1, 4, 8}, (ef,
-     cand_cap) in {(16, 16), (64, 128)}, and queues wider than the 4096
-     the kernel keeps in shared memory (in device memory: (5120, 5120) for
-     every row source and set, (4097, 64) and (64, 8191) for float32
-     rows);
+     cand_cap) in {(16, 16), (64, 128)}, and queues wider than the 320
+     of the kernel's table instances (the wide instances: (5120, 5120) for
+     every row source and set, (4097, 64), (64, 8191), (8191, 8191) and
+     (16384, 16384), whose queues leave shared memory, for float32 rows
+     under every set); the ptxas report of the main path's two walk
+     instances must equal WALK_PTXAS;
      prune_scan bit-equal to core/build._prune_scan_plain on the candidate
      sets of one real 256-row insert batch (an add() to the index: its
      insert prune, C = 128, nn = 16; its re-prunes run inside
@@ -140,10 +142,11 @@ exits non-zero):
      ids on >= 98% of queries, hops and dist_evals within 1%) and timed
      beside its bound, each variant's launches counted from 0 over its own
      API calls; a filtered graph search that widens from ef_search 40 to
-     5120 (queues in device memory): 8 kernel launches, no plain walk,
-     only allowed rows, >= 0.9 of them the masked exact route's; its last
-     walk, unfiltered, against the twin as each variant is (64 queries)
-     and timed beside its bound;
+     5120: 8 kernel launches, the last four (ef 640 to 5120) through the
+     wide instances, no plain walk, only allowed rows, >= 0.9 of them the
+     masked exact route's; each walk of that ladder timed on the card (64
+     queries); its last walk, unfiltered, against the twin as each variant
+     is (64 queries) and timed beside its bound, and timed at B = 1024;
      save -> load onto the card (same answers, clean integrity, vacuum);
      WAL crash recovery (snapshot, 10,000 adds + 1,000 deletes, no save,
      load with the log: the live index's state); a scan cursor against
@@ -250,8 +253,10 @@ CUDA events, host share included, for every kernel, and
 the walk and the scan also give "device_ms", the card's time from the CUDA
 graph; the walk's "variants": each variant's launches over its own API
 path (counted from 0 just before it) and variant_vs_twin's numbers, and
-its "wide_queues": the widening search's launches and variant_vs_twin's
-numbers at ef 5120; "sharded_launches" from
+its "wide_queues": variant_vs_twin's numbers at ef 5120, the widening
+search's launches of the wide instances ("launches", 1) and theirs by phase
+("launches_by_phase"), the ladder's card times and the B = 1024 time and
+bound; "sharded_launches" from
 phase 9, "multiprocess_launches" summed over phase 11's ranks, each
 counted from zero; the main path, phase 9 and phase 11 must each launch
 beam_walk, prune_scan and connect_batch, every walk variant must reach the
@@ -336,9 +341,11 @@ PEAK_BYTES = 3.35e12
 WALK_SOURCES = ("rows bf16", "rows int8", "records f32", "records bf16",
                 "records int8", "records pq", "records pq rotated")
 WALK_VISITED = {"bitmap": 0, "hash": 8192}
-# queues past the 4096 the kernel keeps in shared memory: the API's
-# widening from ef_search = 40 lands on 5120; the integer index's cases
-WIDE_QUEUES = ((5120, 5120), (4097, 64), (64, 8191))
+# queues past the 320 of the walk's table instances (the wide instances):
+# the API's widening from ef_search = 40 lands on 5120, and reaches 8,191;
+# past ~13,850 the queues leave shared memory; the integer index's cases
+WIDE_QUEUES = ((5120, 5120), (4097, 64), (64, 8191), (8191, 8191),
+               (16384, 16384))
 # ptxas's report of the eight float32 / bf16 sweep instances as they were
 # built before the int8 instance (no stack, no spills): it leaves their code
 # as it was
@@ -352,6 +359,22 @@ SWEEP_PTXAS = {
         (64, "streamed", "float"): 115, (64, "streamed", "bf16"): 117,
         (64, "resident", "float"): 126, (64, "resident", "bf16"): 119,
     }.items()}
+# ptxas's report of the main path's walk instances (float32 rows, dense
+# dedupe; T = 4: 128 threads, T = 8: 256) before the wide instances'
+# redesign: it leaves their code as it was
+WALK_PTXAS = {
+    "beam_walk_kernel<float32 rows, dense, 128 threads>": (
+        "40 bytes stack frame, 68 bytes spill stores, 108 bytes spill loads",
+        "Used 96 registers, used 1 barriers, 40 bytes cumulative stack size"),
+    "beam_walk_kernel<float32 rows, dense, 256 threads>": (
+        "176 bytes stack frame, 632 bytes spill stores, 1100 bytes spill "
+        "loads",
+        "Used 64 registers, used 1 barriers, 176 bytes cumulative stack "
+        "size"),
+}
+# the walks of the API's widening from ef_search 40 (cand_cap = ef): those
+# past 320 (640 to 5120) run the wide instances
+WIDENING_EFS = (40, 80, 160, 320, 640, 1280, 2560, 5120)
 # each sweep instance's time at 1M x 128-d, B=1024, k_run=12 when its code
 # last changed (PERF.md, Findings)
 EARLIER_MS = {"bruteforce_topk": 6.604, "bruteforce_topk_bf16": 5.287}
@@ -677,8 +700,9 @@ def compiler_report(_kernels):
     HMMA count of each sweep in the built library's SASS; fails if a row
     instance but Manhattan's runs no TF32 HMMA, if a Manhattan instance
     runs any, if the PQ sweep runs no bf16 HMMA (or any TF32 one, or its
-    Manhattan sweep any), or if one of the exact route's eight reports
-    other registers or spills than before (SWEEP_PTXAS)."""
+    Manhattan sweep any), or if one of the exact route's eight or the main
+    path's two walk instances reports other registers or spills than
+    before (SWEEP_PTXAS, WALK_PTXAS)."""
     def instance(mangled):
         m = re.search(r"sweep_kernel(_wide|_q8|_l1)?ILi(\d+)ELb([01])E"
                       r"([fta]?)E", mangled)
@@ -693,15 +717,17 @@ def compiler_report(_kernels):
                     f"{'Manhattan' if m[1] == '1' else 'L2 / cosine'}>")
         return "pq_select_kernel" if "pq_select_kernel" in mangled else None
     def graph_instance(mangled):
-        m = re.search(r"beam_walk_kernelILi(\d)ELb([01])ELi(\d+)ELb([01])E",
+        elems = ("float32", "int8", "bf16", "pq")
+        m = re.search(r"beam_walk_kernelILi(\d)ELb([01])ELi(\d+)EE",
                       mangled)
         if m:
-            elem = ("float32", "int8", "bf16", "pq")[int(m[1])]
-            dedupe = ("dense" if m[2] == "1" else "any visited set"
-                      if m[4] == "1" else "bitmap / hash")
-            queues = ", queues in device memory" if m[4] == "1" else ""
-            return (f"beam_walk_kernel<{elem} rows, {dedupe}, {m[3]} "
-                    f"threads{queues}>")
+            dedupe = "dense" if m[2] == "1" else "bitmap / hash"
+            return (f"beam_walk_kernel<{elems[int(m[1])]} rows, {dedupe}, "
+                    f"{m[3]} threads>")
+        m = re.search(r"beam_walk_wide_kernelILi(\d)EE", mangled)
+        if m:
+            return (f"beam_walk_wide_kernel<{elems[int(m[1])]} rows, any "
+                    f"visited set, 256 threads>")
         m = re.search(r"prune_scan_regsILi(\d+)EE", mangled)
         if m:
             return f"prune_scan_regs<{m[1]} words>"
@@ -726,7 +752,7 @@ def compiler_report(_kernels):
                 name = graph_instance(m[1])
         elif name and ("spill" in line or "Used" in line):
             log(f"ptxas {name}: {line.strip()}")
-            if name in SWEEP_PTXAS:
+            if name in SWEEP_PTXAS or name in WALK_PTXAS:
                 reports.setdefault(name, []).append(
                     re.sub(r"^ptxas\s+info\s*:\s*", "", line.strip()))
     lib = _kernels.load_library()
@@ -763,9 +789,11 @@ def compiler_report(_kernels):
     check(set(counts) == {*((n, "TF32") for n in rows - l1),
                           ("pq_sweep_kernel<L2 / cosine>", "BF16")},
           f"HMMA by kind: {sorted(counts)}")
-    for name, want in SWEEP_PTXAS.items():
+    for name, want in {**SWEEP_PTXAS, **WALK_PTXAS}.items():
         check(reports.get(name) == list(want),
               f"ptxas {name}: {reports.get(name)}, earlier {want}")
+    log(f"ptxas: the main path's walk instances keep their registers and "
+        f"spills ({', '.join(WALK_PTXAS)})")
 
 
 def small_build_matches_cpu(torch, HnswConfig, HnswIndex, dev):
@@ -1076,9 +1104,10 @@ def integer_walks(torch, cg, core_search, dev):
     the card): L2 and Manhattan, T in {1, 4, 8}, four (ef, cand_cap) over
     float32 rows; then every other row source (dense dedupe) and the
     bitmap and hash sets (float32 rows) at T in {1, 4, 8} and (ef,
-    cand_cap) in {(16, 16), (64, 128)}; then queues past the 4096 kept in
-    shared memory (WIDE_QUEUES: every row source and visited set at (5120,
-    5120), float32 rows at the other two, T=4, 64 queries)."""
+    cand_cap) in {(16, 16), (64, 128)}; then the wide instances
+    (WIDE_QUEUES: every row source and visited set at (5120, 5120), float32
+    rows under every visited set at the others, T=4, 64 queries).  Returns
+    the wide instances' launches."""
     from pg_embedding_tpu_torch import HnswConfig, HnswIndex
     from pg_embedding_tpu_torch.convert import to_numpy
     from walk_operands import integer_operands, on_device
@@ -1087,6 +1116,7 @@ def integer_walks(torch, cg, core_search, dev):
     qs = rng.integers(-8, 9, size=(256, 32)).astype(np.float32)
     q = torch.as_tensor(qs, device=dev)
     cases = variant_cases = wide_cases = 0
+    wide0 = cg.WIDE_WALKS
     for name, metric in (("l2", L2), ("manhattan", 2)):
         idx = HnswIndex(HnswConfig(dims=32, m=8, ef_construction=32,
                                    ef_search=32, metric=name), device=dev)
@@ -1112,7 +1142,7 @@ def integer_walks(torch, cg, core_search, dev):
                       for ef, cap in ((16, 16), (64, 128))
                       if (source, vs) != ("rows f32", -1)]
             wide = [(4, ef, cap) for ef, cap in WIDE_QUEUES
-                    if source == "rows f32" or ef == cap]
+                    if source == "rows f32" or (ef, cap) == (5120, 5120)]
             for t, ef, cap in shapes + wide:
                 walk = dict(ef=ef, metric_value=metric, cand_cap=cap,
                             expand_width=t, visited_slots=vs)
@@ -1133,13 +1163,15 @@ def integer_walks(torch, cg, core_search, dev):
                     variant_cases += 1
                 else:
                     wide_cases += 1
+    wide_launches = cg.WIDE_WALKS - wide0
     log(f"beam_walk vs plain on the integer index: bit-equal in all {cases} "
         f"float32 cases (L2, Manhattan; T 1 / 4 / 8; four (ef, cand_cap)), "
         f"all {variant_cases} cases of the other row sources "
         f"({', '.join(WALK_SOURCES)}) and visited sets (bitmap, hash; T 1 / "
-        f"4 / 8; (16, 16), (64, 128)) and all {wide_cases} cases of queues "
-        f"in device memory ({', '.join(map(str, WIDE_QUEUES))}); ids, "
-        f"distances, hops and dist_evals")
+        f"4 / 8; (16, 16), (64, 128)) and all {wide_cases} cases of the "
+        f"wide instances ({', '.join(map(str, WIDE_QUEUES))}; "
+        f"{wide_launches} launches); ids, distances, hops and dist_evals")
+    return wide_launches
 
 
 def walk_kernels_phase(torch, idx, qs, dev, tmp, single, profile_lib):
@@ -1201,7 +1233,8 @@ def walk_kernels_phase(torch, idx, qs, dev, tmp, single, profile_lib):
                                     bound_ms=bound, bound_by="bytes",
                                     library_ms=None)
     with own_twin_calls():
-        integer_walks(torch, cg, core_search, dev)
+        out["beam_walk"]["integer_wide_launches"] = integer_walks(
+            torch, cg, core_search, dev)
 
     profiles = os.path.join(tmp, "profiles")
     for t in WALK_TS:
@@ -2005,17 +2038,24 @@ def serving_variants(torch, idx, qs, results):
                         visited_slots=slots)
 
 
-def wide_queue_phase(torch, idx, qs):
-    """A filtered graph search on the 1M index that widens past the 4096
-    the walk keeps in shared memory: ef_search 40 doubles to 5120 (7
-    widenings, 8 walks, all launches of the kernel, none of the twin), 64
-    queries allowed only 0.2% of the rows, at random (2,000 at 1M).  Every
-    returned label is allowed, and the walk's answers are the masked exact
-    route's nearest (>= 0.9 of them).  Then that walk, unfiltered, against
-    its twin (variant_vs_twin at ef 5120); returns its numbers, the
-    launches those of this path."""
+def wide_queue_phase(torch, idx, qs, integer_launches):
+    """A filtered graph search on the 1M index that widens past 4096:
+    ef_search 40 doubles to 5120 (7 widenings, 8 walks, all launches of
+    the kernel, none of the twin, the four past the table instances' 320
+    through the wide instances), 64 queries allowed
+    only 0.2% of the rows, at random (2,000 at 1M).  Every returned label
+    is allowed, and the walk's answers are the masked exact route's
+    nearest (>= 0.9 of them).  Then each walk of that ladder (WIDENING_EFS,
+    cand_cap = ef, unfiltered) timed on the card on the same 64 queries;
+    the widest against its twin (variant_vs_twin at ef 5120) and timed at B
+    = 1024 beside its bound.  Returns the widest walk's numbers: the
+    launches those of the widening search's wide walks (4), then the wide
+    instances' launches by phase (``integer_launches``: integer_walks' wide
+    cases)."""
     from pg_embedding_tpu_torch.core import search as core_search
-    n = idx.n_nodes
+    from pg_embedding_tpu_torch.graph_probe import device_ms
+    from pg_embedding_tpu_torch.ops import cuda_graph as cg
+    n, g = idx.n_nodes, idx.graph
     where = np.zeros(n, bool)
     where[np.random.default_rng(SEED + 9).choice(n, n // 500,
                                                  replace=False)] = True
@@ -2024,11 +2064,13 @@ def wide_queue_phase(torch, idx, qs):
     plain = core_search.PLAIN_WALKS_ON_CARD
     widenings = idx.counters["n_widenings"]
     counts = walk_counts()
+    wide0 = cg.WIDE_WALKS
     t0 = time.time()
     _, gl, gv = idx.search(qs[:64], K, mode="graph", where=where)
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = dict(counts)
+    search_wide = cg.WIDE_WALKS - wide0
     idx.set_ef_search(ef_search)
     widened = idx.counters["n_widenings"] - widenings
     _, el, ev = idx.search(qs[:64], K, mode="exact", where=where)
@@ -2037,12 +2079,15 @@ def wide_queue_phase(torch, idx, qs):
               for i in range(64))
     log(f"widening past 4096: a filtered graph search (64 queries, "
         f"{n // 500} allowed rows) from ef_search 40 widened {widened} "
-        f"times to 5120 in {wall:.2f} s; walk launches {launches}; {found} results, "
-        f"{hit / max(found, 1):.4f} of them among the masked exact route's "
-        f"{K}")
+        f"times to 5120 in {wall:.3f} s; walk launches {launches}, "
+        f"{search_wide} of them through the wide instances; {found} "
+        f"results, {hit / max(found, 1):.4f} of them among the masked "
+        f"exact route's {K}")
     check(widened == 7, f"widened {widened} times, not 40 -> 5120")
     check(launches == {"rows f32, dense": 8},
           f"the widening's walks: {launches}")
+    check(search_wide == sum(ef > cg.MAX_WALK_QUEUE for ef in WIDENING_EFS),
+          f"the widening ran {search_wide} wide walks")
     check(core_search.PLAIN_WALKS_ON_CARD == plain,
           "the widening ran a plain walk on the card")
     allowed = np.nonzero(where)[0].astype(np.uint64)
@@ -2051,9 +2096,42 @@ def wide_queue_phase(torch, idx, qs):
     check(found > 0 and hit >= 0.9 * found,
           f"the widened walk's results: {hit} of {found} among the exact "
           f"route's")
+    q64 = torch.as_tensor(qs[:64], device=g.vectors.device)
+    t = idx.search_expand_width
+    ladder = {}
+    for ef in WIDENING_EFS:
+        kw = dict(ef=ef, metric_value=L2, cand_cap=ef, expand_width=t)
+        ladder[ef] = device_ms(lambda: cg.beam_walk(g, q64, **kw))
+    log(f"the widening's walks on the card (64 queries, T={t}, cand_cap = "
+        f"ef; a CUDA graph of 20 calls each): "
+        + ", ".join(f"ef {ef} {ms:.3f} ms" for ef, ms in ladder.items())
+        + f"; {sum(ladder.values()):.3f} ms in all")
     wide = {}
-    variant_vs_twin(torch, idx.graph, qs[:64], {}, wide, launches, ef=5120)
-    return wide["rows f32, dense"]
+    wide0 = cg.WIDE_WALKS
+    variant_vs_twin(torch, g, qs[:64], {}, wide, launches, ef=5120)
+    twin_wide = cg.WIDE_WALKS - wide0
+    q = torch.as_tensor(qs, device=g.vectors.device)
+    kw = dict(ef=5120, metric_value=L2, cand_cap=5120, expand_width=GRAPH_T)
+    wide0 = cg.WIDE_WALKS
+    _, _, kh, ke = cg.beam_walk(g, q, **kw)
+    big_ms = device_ms(lambda: cg.beam_walk(g, q, **kw))
+    big_wide = cg.WIDE_WALKS - wide0
+    big_bound = walk_bound_ms(kh, ke, len(qs), g.dims, GRAPH_T, g.max_m)
+    log(f"beam_walk rows f32, dense at ef = cand_cap = 5120, T={GRAPH_T}, "
+        f"{len(qs)} queries: {big_ms:.3f} ms on the card (a CUDA graph of "
+        f"20 calls), mean hops {float(kh.float().mean()):.2f}, dist_evals "
+        f"{float(ke.float().mean()):.1f}; bound {big_bound:.4f} ms (bytes; "
+        f"{big_bound / big_ms:.1%} of it reached)")
+    out = wide["rows f32, dense"]
+    out.update(launches=search_wide, launches_by_phase={
+        "the widening search": search_wide,
+        "integer checks (every row source and visited set)":
+            integer_launches,
+        "the 1M twin check and its timing (B = 64)": twin_wide,
+        "timed at B = 1024": big_wide},
+        ladder_device_ms={str(ef): ms for ef, ms in ladder.items()},
+        b1024_device_ms=big_ms, b1024_bound_ms=big_bound)
+    return out
 
 
 def answers(idx, qs):
@@ -3357,8 +3435,8 @@ def main():
         twin_build_phase(torch, HnswConfig, HnswIndex, dev, pts, qs)
         wide_k_phase(torch, cb, idx, qs)
         serving_variants(torch, idx, qs, walk_variants)
-        timings["beam_walk"]["wide_queues"] = wide_queue_phase(torch, idx,
-                                                               qs)
+        timings["beam_walk"]["wide_queues"] = wide_queue_phase(
+            torch, idx, qs, timings["beam_walk"].pop("integer_wide_launches"))
         tuner_phase(idx, tmp)
         persistence(torch, HnswIndex, idx, qs, tmp)
         wal_recovery(torch, HnswIndex, idx, pts, qs, tmp)

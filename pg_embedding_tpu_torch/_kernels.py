@@ -59,7 +59,7 @@ def declare_graph(lib) -> None:
     """The argument types of csrc/beam_walk.cu's and csrc/prune_scan.cu's
     entries in ``lib`` (the port's library or a probe's build)."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.beam_walk.argtypes = [*[vp] * 9, *[ci] * 15, *[vp] * 5]
+    lib.beam_walk.argtypes = [*[vp] * 9, *[ci] * 16, *[vp] * 5]
     lib.beam_walk.restype = ci
     lib.prune_scan.argtypes = [*[vp] * 5, *[ci] * 3, *[vp] * 3]
     lib.prune_scan.restype = ci

@@ -109,15 +109,45 @@
 // <= 128 (T <= 4 at maxM = 32), else 256; an SM holds 5 blocks of 128 (96
 // registers a thread) or 4 of 256 (64): shapes chosen by measurement
 // (PERF.md; graph_probe.py).  Where the tables do not fit beside the
-// queues (very wide D at ef = cand_cap = 4096) the dedupe compares each
-// slot with the queues and earlier slots instead (the same answer).
-// Queues wider than 4096 (the API's widening reaches up to 8,191 on its
-// last doubling) do not fit in shared memory: they and the held table
-// live in device memory the wrapper allocates, with the same code over
-// them (four more instances, a row source each, 256 threads, the visited
-// set a runtime branch: twenty in all).  Python computes the
-// shared-memory figure (ops/cuda_graph._walk_layout) and the launch
-// refuses another one or one above 232,448 bytes.
+// queues (very wide D or T) the dedupe compares each slot with the queues
+// and earlier slots instead (the same answer).
+//
+// The wide instances (ef or cand_cap above kMaxQueue = 320: the API's
+// widening from ef_search 40 passes it at 640 and reaches up to 8,191 on
+// its last doubling, and a caller may pass up to 2^20): rebuilding a held
+// table of 2 (ef + cand_cap) slots every step, to test the step's T * maxM
+// slots against it, costs more than the rest of the step from ~512
+// entries a queue (graph_probe --mode wide's crossover, PERF.md), so
+// beam_walk_wide_kernel keeps the membership from step to step instead.
+// Per query, two bits an id in device memory ("held": in the result
+// queue, in the candidate queue; (rows + 15) / 16 words a query, zeroed
+// by the wrapper before each launch, node 0's set at the start): each
+// slot reads its id's word (issued as its link arrives, so the read
+// overlaps the slot table's inserts) and the step updates the bits after
+// every slot has read them: the popped ids leave the candidate queue
+// (phase 3), the incumbents pushed past ef or cand_cap clear theirs as the
+// merge moves them, the admitted that land set theirs (the held lap).
+// The membership changes only that way, so the dense rule's answer, and
+// dist_evals, are the same.  The queues are one buffer each, in shared
+// memory where they fit (up to ef = cand_cap = 8,191 at D = 128), else in
+// device memory after the held bits, the same code through a pointer:
+//   * the candidate queue is a ring of cand_cap rounded up to a multiple
+//     of T: the pop advances its head by T (the popped T entries are
+//     always contiguous), and the places of the next pop past the queue's
+//     length are emptied after the merge;
+//   * the merge is in place: the admitted's places come first (a binary
+//     search of each queue), then the incumbents they displace, a suffix,
+//     move down tail first in rounds of kMoveRun entries a thread (each
+//     round reads, meets a barrier, writes: an incumbent only moves down,
+//     so a round never overwrites what a later round reads), then the
+//     admitted land; an incumbent pushed past the queue's width clears
+//     its held bit instead.
+// Four wide instances, a row source each, 256 threads, the visited set a
+// runtime branch (the bitmap and hash sets keep no held bits), two blocks
+// an SM (128 registers).  Python computes the shared-memory figure and
+// the device memory a query (ops/cuda_graph._walk_layout,
+// _walk_wide_words) and the launch refuses other ones, or shared memory
+// above 232,448 bytes.
 //
 // What holds it back now: each step still waits on two dependent global
 // latencies (the links, then the rows; a PQ row three: links, codes,
@@ -126,6 +156,9 @@
 // registers (T = 8) the kernel spills (ptxas).  Records read slower than
 // rows of the same type (PERF.md); they span maxM times the rows'
 // bytes (16.6 GB at 1M float32), and why that costs is not yet measured.
+// A wide step adds the held word's read to the links' latency, and its
+// in-place merge shifts both queues' suffixes every step, a barrier a
+// round: at ef = cand_cap = 5120 the move is ~46% of a step (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -145,11 +178,20 @@ static_assert(kRowsPerWarp >= 1 && kRowsPerWarp <= 32 &&
 template <int kThreads>
 constexpr int kMinBlocks = kThreads == 128 ? 5 : 4;
 constexpr int kSmemLimit = 232448;
-// ef and cand_cap up to kMaxQueue: the queues in shared memory; wider (the
-// API's widening passes 4096 on its last doubling, up to 8,191), up to
-// kMaxWideQueue: the queues and the held table in device memory
-constexpr int kMaxQueue = 4096;
+// ef and cand_cap up to kMaxQueue: the instances that rebuild a held
+// table each step; wider (the API's widening from ef_search 40 passes it
+// at 640, and reaches up to 8,191), up to kMaxWideQueue: the wide
+// instances (the crossover measured by graph_probe --mode wide)
+constexpr int kMaxQueue = 320;
 constexpr int kMaxWideQueue = 1 << 20;
+// the wide instances: a block's threads, the blocks an SM must hold (128
+// registers a thread), the incumbents each thread moves a merge round
+constexpr int kWideThreads = 256;
+constexpr int kWideMinBlocks = 2;
+constexpr int kMoveRun = 4;
+// an id's two held bits (bits 2 (id % 16) and up of word id / 16)
+constexpr unsigned kInRes = 1u;
+constexpr unsigned kInCand = 2u;
 constexpr int kMetricL2 = 0;
 constexpr int kMetricCosine = 1;
 constexpr int kMetricManhattan = 2;
@@ -171,8 +213,9 @@ constexpr unsigned kSlotHash = 0x9E3779B1u;
 // Phase clocks of the instrumented build (-DPG_PROFILE): thread 0 of each
 // block sums its laps (each phase ends at a block barrier, so a lap is the
 // block's time in it) and adds them to g_walk_prof at the end.
+// (the wide instances: merge is the admitted's places, then move and held)
 enum { kLapSetup, kLapLinks, kLapDedupe, kLapRows, kLapRank, kLapMerge,
-       kLaps };
+       kLapMove, kLapHeld, kLaps };
 #ifdef PG_PROFILE
 // the laps' cycles, then steps, blocks
 __device__ unsigned long long g_walk_prof[kLaps + 2];
@@ -193,12 +236,15 @@ struct Laps {
     atomicAdd(&g_walk_prof[kLaps], (unsigned long long)steps);
     atomicAdd(&g_walk_prof[kLaps + 1], 1ull);
   }
+  // a barrier of the instrumented build alone, where a lap needs one
+  __device__ void barrier() { __syncthreads(); }
 };
 #else
 struct Laps {
   __device__ void start() {}
   __device__ void lap(int) {}
   __device__ void flush(int) {}
+  __device__ void barrier() {}
 };
 #endif
 
@@ -213,27 +259,38 @@ size_t pow2_at_least(size_t n) {
 // processed slots, the admitted (d, slot) and their ranked (d, id), 8
 // counters, then the held table (held_n ids) and the slot table (slot_n
 // ids and slot_n smallest slots); both tables are left out (0) where they
-// do not fit.  Queues wider than kMaxQueue move, with the held table, to
-// device memory: ``words`` int32 a query (0 where all is shared).
+// do not fit.  The wide instances (ef or cap above kMaxQueue): the query
+// row, the slot arrays, the counters, the slot table, then each queue
+// once (d, id; the candidate ring of ``ring`` entries) where they fit;
+// device memory, ``words`` int32 a query: the held bits (``held_words``,
+// two bits an id of ``rows``: the dense dedupe only), then the queues
+// where they do not fit in shared memory.
 struct WalkLayout {
   size_t smem;
-  int held_n, slot_n;
-  size_t words;
+  int held_n, slot_n, ring;
+  size_t held_words, words;
 };
 
-WalkLayout walk_layout(int ef, int cap, int T, int maxM, int D) {
+WalkLayout walk_layout(int ef, int cap, int T, int maxM, int D, int rows,
+                       bool dense) {
   const size_t tm = (size_t)T * maxM;
   const size_t row = 4 * (size_t)((D + 3) / 4 * 4);
-  const size_t held = pow2_at_least(2 * ((size_t)ef + cap));
   const size_t slots = pow2_at_least(2 * tm);
-  if (ef > kMaxQueue || cap > kMaxQueue)
-    return {row + 24 * tm + 32 + 8 * slots, (int)held, (int)slots,
-            4 * ((size_t)ef + cap) + held};
+  if (ef > kMaxQueue || cap > kMaxQueue) {
+    const size_t ring = ((size_t)cap + T - 1) / T * T;
+    const size_t fixed = row + 24 * tm + 32 + 8 * slots;
+    const size_t queues = 8 * ((size_t)ef + ring);
+    const size_t held = dense ? ((size_t)rows + 15) / 16 : 0;
+    if (fixed + queues <= (size_t)kSmemLimit)
+      return {fixed + queues, 0, (int)slots, (int)ring, held, held};
+    return {fixed, 0, (int)slots, (int)ring, held, held + queues / 4};
+  }
+  const size_t held = pow2_at_least(2 * ((size_t)ef + cap));
   const size_t base = row + 16 * ((size_t)ef + cap) + 24 * tm + 32;
   const size_t tables = 4 * held + 8 * slots;
   if (base + tables <= (size_t)kSmemLimit)
-    return {base + tables, (int)held, (int)slots, 0};
-  return {base, 0, 0, 0};
+    return {base + tables, (int)held, (int)slots, 0, 0, 0};
+  return {base, 0, 0, 0, 0, 0};
 }
 
 int walk_threads(int T, int maxM) {
@@ -494,6 +551,93 @@ __device__ __forceinline__ int count_at_or_below(const float* v, int n,
   return lo;
 }
 
+// Entry x of a queue kept as a ring of ``ring`` entries from ``head``
+// (head < ring, x < ring).
+__device__ __forceinline__ int ring_at(int head, int ring, int x) {
+  const int p = head + x;
+  return p >= ring ? p - ring : p;
+}
+
+// Count of the ring queue's sorted entries [0, n) from ``head`` at or
+// below x (upper bound).
+__device__ __forceinline__ int ring_count_at_or_below(const float* v,
+                                                      int head, int ring,
+                                                      int n, float x) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (v[ring_at(head, ring, mid)] <= x) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// Phase 4: the n_new admitted new_ds (d, slot bits) ranked by (d, slot)
+// into srt_d / srt_i (the slot's id).  g lanes an entry (a power of two up
+// to 32, as many as the block has threads to spare), each counting a g-th
+// of the entries below it, then a shuffle sum over the g.
+template <int kThreads>
+__device__ __forceinline__ void rank_admitted(const float2* new_ds, int n_new,
+                                              const int* slot_id,
+                                              float* srt_d, int* srt_i,
+                                              int tid) {
+  int g = 1;
+  while (g < 32 && 2 * g * n_new <= kThreads) g *= 2;
+  for (int t0 = 0; t0 < n_new * g; t0 += kThreads) {   // uniform
+    const int e = (t0 + tid) / g, q = (t0 + tid) % g;
+    float2 me = make_float2(0.f, 0.f);
+    int below = 0;
+    if (e < n_new) {
+      me = new_ds[e];
+      const int s = __float_as_int(me.y);
+#pragma unroll 8
+      for (int f = q; f < n_new; f += g) {
+        const float2 o = new_ds[f];
+        below += o.x < me.x || (o.x == me.x && __float_as_int(o.y) < s);
+      }
+    }
+    for (int o = g / 2; o > 0; o >>= 1)
+      below += __shfl_xor_sync(kFull, below, o);
+    if (e < n_new && q == 0) {
+      srt_d[below] = me.x;
+      srt_i[below] = slot_id[__float_as_int(me.y)];
+    }
+  }
+}
+
+// Phase 3's visited-set writes, once every slot has read the set: the
+// bitmap's processed ids set their bits (atomicOr), or warp 0 writes the
+// hash table's slots in 32-slot chunks in slot order, a match among the
+// chunk's lanes leaving the highest slot of each table slot to write it
+// (proc_bits: the processed slots, a word a 32-slot chunk).
+template <int kThreads>
+__device__ __forceinline__ void record_visits(int vis_mode, int* vis,
+                                              int vis_n, const int* proc,
+                                              int n_proc, const int* slot_id,
+                                              const unsigned* proc_bits,
+                                              int tm, int tid, int warp,
+                                              int lane) {
+  if (vis_mode == kVisBitmap) {
+    for (int e = tid; e < n_proc; e += kThreads) {
+      const int id = slot_id[proc[e]];
+      atomicOr(reinterpret_cast<unsigned*>(vis) + (id >> 5),
+               1u << (id & 31));
+    }
+  } else if (vis_mode == kVisHash && warp == 0) {
+    // in slot order, a chunk of 32 slots at a time: of the chunk's slots
+    // that write one table slot the highest writes, and a later chunk's
+    // write lands after (__syncwarp orders them)
+    for (int c = 0; c * 32 < tm; ++c) {
+      const int s = c * 32 + lane;
+      const bool mine = (proc_bits[c] >> lane) & 1u;
+      const int id = mine ? slot_id[s] : 0;
+      const int at = mine ? vis_slot(id, vis_n) : -1 - lane;
+      const unsigned peers = __match_any_sync(kFull, at);
+      if (mine && lane == 31 - __clz(peers)) vis[at] = id;
+      __syncwarp();
+    }
+  }
+}
+
 // Phase 3's distances: each warp scores kRowsPerWarp processed slots at a
 // time (their row loads issued together), and appends those below lower to
 // new_ds (d, slot bits) with one atomic a warp.
@@ -589,12 +733,11 @@ __device__ __forceinline__ void score_rows(
   }
 }
 
-template <int kElem, bool kDense, int kThreads, bool kWide>
+template <int kElem, bool kDense, int kThreads>
 __global__ void __launch_bounds__(kThreads, kMinBlocks<kThreads>)
 beam_walk_kernel(const int* __restrict__ links, const int* __restrict__ counts,
                  const RowSource src, const float* __restrict__ queries,
                  const float* __restrict__ entry_d, int* visited,
-                 int* wide_mem, size_t wide_words,
                  int has_nodes, int D, int maxM, int T, int ef, int cap,
                  int metric, int vis_set, int vis_n, int held_n, int slot_n,
                  float* __restrict__ out_d, int* __restrict__ out_i,
@@ -612,9 +755,7 @@ beam_walk_kernel(const int* __restrict__ links, const int* __restrict__ counts,
   Laps laps;
   laps.start();
   float* q_s = reinterpret_cast<float*>(smem);
-  // the queues: after the query row, or (kWide) this query's device memory
-  float* rd = kWide ? reinterpret_cast<float*>(wide_mem + b * wide_words)
-                    : q_s + Dp;
+  float* rd = q_s + Dp;
   float* rd_n = rd + ef;
   float* cd = rd_n + ef;
   float* cd_n = cd + cap;
@@ -622,15 +763,14 @@ beam_walk_kernel(const int* __restrict__ links, const int* __restrict__ counts,
   int* ri_n = ri + ef;
   int* ci = ri_n + ef;
   int* ci_n = ci + cap;
-  int* slot_id = kWide ? reinterpret_cast<int*>(q_s + Dp) : ci_n + cap;
+  int* slot_id = ci_n + cap;
   int* proc = slot_id + tm;
   float2* new_ds = reinterpret_cast<float2*>(proc + tm);   // 8-aligned
   float* srt_d = reinterpret_cast<float*>(new_ds + tm);
   int* srt_i = reinterpret_cast<int*>(srt_d + tm);
   int* ctr = srt_i + tm;         // [processed, admitted] x step parity, |q|^2
-  // the held table: after the counters, or (kWide) after the queues
-  int* held = kWide ? ci_n + cap : ctr + 8;
-  int* slot_key = kWide ? ctr + 8 : held + held_n;
+  int* held = ctr + 8;
+  int* slot_key = held + held_n;
   int* slot_min = slot_key + slot_n;
   // the hash set's processed slots, a word a 32-slot chunk, from phase 2 to
   // phase 3's writes (srt_i is next written in phase 4)
@@ -745,26 +885,8 @@ beam_walk_kernel(const int* __restrict__ links, const int* __restrict__ counts,
     }
     // every slot has read the visited set: the processed ids enter it (the
     // next step reads it after two barriers)
-    if (vis_mode == kVisBitmap) {
-      for (int e = tid; e < n_proc; e += kThreads) {
-        const int id = slot_id[proc[e]];
-        atomicOr(reinterpret_cast<unsigned*>(vis) + (id >> 5),
-                 1u << (id & 31));
-      }
-    } else if (vis_mode == kVisHash && warp == 0) {
-      // in slot order, a chunk of 32 slots at a time: of the chunk's slots
-      // that write one table slot the highest writes, and a later chunk's
-      // write lands after (__syncwarp orders them)
-      for (int c = 0; c * 32 < tm; ++c) {
-        const int s = c * 32 + lane;
-        const bool mine = (proc_bits[c] >> lane) & 1u;
-        const int id = mine ? slot_id[s] : 0;
-        const int at = mine ? vis_slot(id, vis_n) : -1 - lane;
-        const unsigned peers = __match_any_sync(kFull, at);
-        if (mine && lane == 31 - __clz(peers)) vis[at] = id;
-        __syncwarp();
-      }
-    }
+    record_visits<kThreads>(vis_mode, vis, vis_n, proc, n_proc, slot_id,
+                            proc_bits, tm, tid, warp, lane);
     // distances, kRowsPerWarp neighbours a warp at a time; admit
     if (metric == kMetricL2)
       score_rows<kMetricL2, kElem, kWarps>(src, q_s, D, maxM, qq, lower,
@@ -786,31 +908,8 @@ beam_walk_kernel(const int* __restrict__ links, const int* __restrict__ counts,
     if (n_new > 0) {
       const int rest = cap - T;          // incumbents after the pop
       // the admitted ranked by (d, slot) into srt, then each queue merged
-      // by binary searches.  g lanes an entry (a power of two up to 32, as
-      // many as the block has threads to spare), each counting a g-th of
-      // the entries below it, then a shuffle sum over the g
-      int g = 1;
-      while (g < 32 && 2 * g * n_new <= kThreads) g *= 2;
-      for (int t0 = 0; t0 < n_new * g; t0 += kThreads) {   // uniform
-        const int e = (t0 + tid) / g, q = (t0 + tid) % g;
-        float2 me = make_float2(0.f, 0.f);
-        int below = 0;
-        if (e < n_new) {
-          me = new_ds[e];
-          const int s = __float_as_int(me.y);
-#pragma unroll 8
-          for (int f = q; f < n_new; f += g) {
-            const float2 o = new_ds[f];
-            below += o.x < me.x || (o.x == me.x && __float_as_int(o.y) < s);
-          }
-        }
-        for (int o = g / 2; o > 0; o >>= 1)
-          below += __shfl_xor_sync(kFull, below, o);
-        if (e < n_new && q == 0) {
-          srt_d[below] = me.x;
-          srt_i[below] = slot_id[__float_as_int(me.y)];
-        }
-      }
+      // by binary searches
+      rank_admitted<kThreads>(new_ds, n_new, slot_id, srt_d, srt_i, tid);
       __syncthreads();
       if (tid == 0) laps.lap(kLapRank);
       for (int p = tid; p < ef; p += kThreads) {
@@ -861,6 +960,290 @@ beam_walk_kernel(const int* __restrict__ links, const int* __restrict__ counts,
   }
 }
 
+// The wide instances (ef or cap above kMaxQueue; the design note at the
+// top): the same step and the same answers, with a held set kept from step
+// to step in device memory (``held``, two bits an id: the dense dedupe),
+// each queue once, the candidate queue a ring of ``ring`` entries popped by
+// its head, and the merge in place.  The queues are in shared memory after
+// the slot table where ``queues_shared``, else in device memory after the
+// held bits.  Logical entry x of the candidate queue is ring entry
+// ring_at(head, ring, x); n_res and n_cand count each queue's entries (the
+// rest is padding, and so are the next pop's places past n_cand).
+template <int kElem>
+__global__ void __launch_bounds__(kWideThreads, kWideMinBlocks)
+beam_walk_wide_kernel(const int* __restrict__ links,
+                      const int* __restrict__ counts, const RowSource src,
+                      const float* __restrict__ queries,
+                      const float* __restrict__ entry_d, int* visited,
+                      int* wide_mem, size_t wide_words, size_t held_words,
+                      int queues_shared, int has_nodes, int D, int maxM,
+                      int T, int ef, int cap, int ring, int metric,
+                      int vis_mode, int vis_n, int slot_n,
+                      float* __restrict__ out_d, int* __restrict__ out_i,
+                      int* __restrict__ out_hops,
+                      int* __restrict__ out_evals) {
+  constexpr int kThreads = kWideThreads, kWarps = kThreads / 32;
+  constexpr int kChunk = kMoveRun * kThreads;    // incumbents a round
+  extern __shared__ __align__(16) unsigned char smem[];
+  const float kInf = __int_as_float(0x7f800000);
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int tm = T * maxM;
+  const int Dp = (D + 3) / 4 * 4;
+  const bool dense = vis_mode == kVisDense;
+  Laps laps;
+  laps.start();
+  float* q_s = reinterpret_cast<float*>(smem);
+  int* slot_id = reinterpret_cast<int*>(q_s + Dp);
+  int* proc = slot_id + tm;
+  float2* new_ds = reinterpret_cast<float2*>(proc + tm);   // 8-aligned
+  float* srt_d = reinterpret_cast<float*>(new_ds + tm);
+  int* srt_i = reinterpret_cast<int*>(srt_d + tm);
+  int* ctr = srt_i + tm;         // [processed, admitted] x step parity, |q|^2
+  int* slot_key = ctr + 8;
+  int* slot_min = slot_key + slot_n;
+  int* mine = wide_words ? wide_mem + b * wide_words : nullptr;
+  unsigned* held = reinterpret_cast<unsigned*>(mine);
+  float* rd = queues_shared ? reinterpret_cast<float*>(slot_min + slot_n)
+                            : reinterpret_cast<float*>(mine + held_words);
+  float* cd = rd + ef;
+  int* ri = reinterpret_cast<int*>(cd + ring);
+  int* ci = ri + ef;
+  // from the rank on (the slots' ids and processed slots read): each
+  // admitted entry's place in either queue
+  int* at_r = proc;
+  int* at_c = slot_id;
+  unsigned* proc_bits = reinterpret_cast<unsigned*>(srt_i);
+  int* vis = dense ? nullptr : visited + (size_t)b * vis_n;
+
+  const float* q = queries + (size_t)b * D;
+  for (int i = tid; i < Dp; i += kThreads) q_s[i] = i < D ? q[i] : 0.f;
+  for (int i = tid; i < ef; i += kThreads) { rd[i] = kInf; ri[i] = -1; }
+  for (int i = tid; i < ring; i += kThreads) { cd[i] = kInf; ci[i] = -1; }
+  for (int i = tid; i < slot_n; i += kThreads) {
+    slot_key[i] = kEmpty;
+    slot_min[i] = INT_MAX;
+  }
+  if (tid < 4) ctr[tid] = 0;
+  __syncthreads();
+  if (tid == 0 && has_nodes) {
+    rd[0] = cd[0] = entry_d[b];
+    ri[0] = ci[0] = 0;
+    if (dense) held[0] = kInRes | kInCand;   // node 0's bits (zeroed words)
+  }
+  if (metric == kMetricCosine && warp == 0) {
+    float s = 0.f;
+    for (int i = lane; i < D; i += 32)
+      s = __fadd_rn(s, __fmul_rn(q_s[i], q_s[i]));
+    s = warp_sum(s);
+    if (lane == 0) ctr[4] = __float_as_int(s);
+  }
+  __syncthreads();
+  const float qq = __int_as_float(ctr[4]);
+  int hops = 0, evals = 0;
+  int head = 0, n_res = has_nodes ? 1 : 0, n_cand = n_res;   // uniform
+  if (tid == 0) laps.lap(kLapSetup);
+
+  while (true) {
+    const float* pop_d = cd + head;       // the pop: T entries in a row
+    const int* pop_i = ci + head;
+    const float c0 = pop_d[0], lower = rd[ef - 1];
+    if (!(c0 < kInf && !(c0 > lower))) break;   // uniform: shared reads
+    if (vis_mode == kVisHash && hops >= vis_n) break;
+    int* cnt = ctr + 2 * (hops & 1);
+    if (tid == 0) ctr[2 - 2 * (hops & 1)] = ctr[3 - 2 * (hops & 1)] = 0;
+
+    // --- 1. the popped rows' links; the slot table; each slot's held word
+    // (slot tid's in a register till phase 2), read as its link arrives
+    unsigned word = 0;
+    for (int s = tid; s < tm; s += kThreads) {
+      const int j = s / maxM, r = s - j * maxM;
+      const int p = pop_i[j];
+      int id = -1;
+      if (p >= 0 && !(pop_d[j] > lower)) {
+        const int left = __ldg(counts + p) - r;
+        const int link = __ldg(links + (size_t)p * maxM + r);
+        if (left > 0 && link >= 0) id = link;
+      }
+      slot_id[s] = id;
+      if (id >= 0) {
+        if (dense && s == tid) word = __ldcg(held + (id >> 4));
+        slot_insert(slot_key, slot_min, slot_n, id, s);
+      }
+    }
+    __syncthreads();
+    if (tid == 0) laps.lap(kLapLinks);
+
+    // --- 2. dedupe: its id's first slot, and not held (or unvisited by
+    // the set); compact the processed slots, an atomic a warp
+    for (int s0 = warp * 32; s0 < tm; s0 += kThreads) {
+      const int s = s0 + lane;
+      const int id = s < tm ? slot_id[s] : -1;
+      bool keep = id >= 0 && slot_first(slot_key, slot_min, slot_n, id) == s;
+      if (keep && dense) {
+        const unsigned w = s == tid ? word : __ldcg(held + (id >> 4));
+        keep = !((w >> (2 * (id & 15))) & (kInRes | kInCand));
+      } else if (keep) {
+        keep = !vis_has(vis, vis_mode, vis_n, id);
+      }
+      const unsigned m = __ballot_sync(kFull, keep);
+      if (vis_mode == kVisHash && lane == 0) proc_bits[s0 >> 5] = m;
+      int at = 0;
+      if (lane == 0 && m) at = atomicAdd(&cnt[0], __popc(m));
+      at = __shfl_sync(kFull, at, 0);
+      if (keep) proc[at + __popc(m & ((1u << lane) - 1u))] = s;
+    }
+    __syncthreads();
+    const int n_proc = cnt[0];
+    if (tid == 0) laps.lap(kLapDedupe);
+
+    // --- 3. the slot table's last reader is done: clear it; the visited
+    // set's writes; the popped ids leave the candidate queue's bits (every
+    // slot has read them); distances; admit
+    for (int i = tid; i < slot_n; i += kThreads) {
+      slot_key[i] = kEmpty;
+      slot_min[i] = INT_MAX;
+    }
+    record_visits<kThreads>(vis_mode, vis, vis_n, proc, n_proc, slot_id,
+                            proc_bits, tm, tid, warp, lane);
+    for (int j = tid; dense && j < min(T, n_cand); j += kThreads)
+      atomicAnd(held + (pop_i[j] >> 4),
+                ~(kInCand << (2 * (pop_i[j] & 15))));
+    if (metric == kMetricL2)
+      score_rows<kMetricL2, kElem, kWarps>(src, q_s, D, maxM, qq, lower,
+                                           proc, n_proc, slot_id, pop_i,
+                                           cnt + 1, new_ds, warp, lane);
+    else if (metric == kMetricCosine)
+      score_rows<kMetricCosine, kElem, kWarps>(src, q_s, D, maxM, qq, lower,
+                                               proc, n_proc, slot_id, pop_i,
+                                               cnt + 1, new_ds, warp, lane);
+    else
+      score_rows<kMetricManhattan, kElem, kWarps>(
+          src, q_s, D, maxM, qq, lower, proc, n_proc, slot_id, pop_i,
+          cnt + 1, new_ds, warp, lane);
+    __syncthreads();
+    const int n_new = cnt[1];
+    if (tid == 0) laps.lap(kLapRows);
+
+    // the candidate queue after the pop: its incumbents from the new head
+    const int rest = max(n_cand - T, 0);
+    const int head2 = head + T == ring ? 0 : head + T;
+    int n_cand2 = rest;
+    if (n_new > 0) {
+      // --- 4. rank the admitted by (d, slot)
+      rank_admitted<kThreads>(new_ds, n_new, slot_id, srt_d, srt_i, tid);
+      __syncthreads();
+      if (tid == 0) laps.lap(kLapRank);
+      // --- 5. each admitted entry's place in either queue (the incumbents
+      // at or below it, before any moves)
+      for (int e = tid; e < n_new; e += kThreads) {
+        const float d = srt_d[e];
+        at_r[e] = e + count_at_or_below(rd, n_res, d);
+        at_c[e] = e + ring_count_at_or_below(cd, head2, ring, rest, d);
+      }
+      __syncthreads();
+      if (tid == 0) laps.lap(kLapMerge);
+      // the incumbents from the first admitted entry's place on move down
+      // by the admitted strictly below them: tail first, a round reading
+      // kChunk of each queue before a barrier and writing them after it
+      const int from_r = at_r[0], from_c = at_c[0];
+      for (int hi_r = n_res, hi_c = rest; hi_r > from_r || hi_c > from_c;
+           hi_r = max(from_r, hi_r - kChunk),
+               hi_c = max(from_c, hi_c - kChunk)) {   // uniform
+        float vd_r[kMoveRun], vd_c[kMoveRun];
+        int vi_r[kMoveRun], vi_c[kMoveRun], vo_r[kMoveRun], vo_c[kMoveRun];
+#pragma unroll
+        for (int u = 0; u < kMoveRun; ++u) {
+          const int p = hi_r - 1 - (u * kThreads + tid);
+          vo_r[u] = -1;
+          if (p >= from_r) {
+            vd_r[u] = rd[p];
+            vi_r[u] = ri[p];
+            vo_r[u] = p + count_below(srt_d, n_new, vd_r[u]);
+          }
+          const int x = hi_c - 1 - (u * kThreads + tid);
+          vo_c[u] = -1;
+          if (x >= from_c) {
+            const int at = ring_at(head2, ring, x);
+            vd_c[u] = cd[at];
+            vi_c[u] = ci[at];
+            vo_c[u] = x + count_below(srt_d, n_new, vd_c[u]);
+          }
+        }
+        __syncthreads();
+        // each incumbent lands, or, pushed past the width, leaves the
+        // queue's held bit (read no more this step)
+#pragma unroll
+        for (int u = 0; u < kMoveRun; ++u) {
+          if (vo_r[u] >= 0 && vo_r[u] < ef) {
+            rd[vo_r[u]] = vd_r[u];
+            ri[vo_r[u]] = vi_r[u];
+          } else if (vo_r[u] >= ef && dense) {
+            atomicAnd(held + (vi_r[u] >> 4),
+                      ~(kInRes << (2 * (vi_r[u] & 15))));
+          }
+          if (vo_c[u] >= 0 && vo_c[u] < cap) {
+            const int at = ring_at(head2, ring, vo_c[u]);
+            cd[at] = vd_c[u];
+            ci[at] = vi_c[u];
+          } else if (vo_c[u] >= cap && dense) {
+            atomicAnd(held + (vi_c[u] >> 4),
+                      ~(kInCand << (2 * (vi_c[u] & 15))));
+          }
+        }
+      }
+      // the admitted land (every incumbent was read before the last
+      // barrier; their places differ)
+      for (int e = tid; e < n_new; e += kThreads) {
+        if (at_r[e] < ef) {
+          rd[at_r[e]] = srt_d[e];
+          ri[at_r[e]] = srt_i[e];
+        }
+        if (at_c[e] < cap) {
+          const int at = ring_at(head2, ring, at_c[e]);
+          cd[at] = srt_d[e];
+          ci[at] = srt_i[e];
+        }
+      }
+      n_res = min(ef, n_res + n_new);
+      n_cand2 = min(cap, rest + n_new);
+      if (tid == 0) laps.lap(kLapMove);
+      laps.barrier();
+      // the admitted that landed set their held bits (each id's bits are
+      // its own; words are shared, hence the atomics)
+      for (int e = tid; dense && e < n_new; e += kThreads) {
+        const int id = srt_i[e];
+        const unsigned bits = (at_r[e] < ef ? kInRes : 0u) |
+                              (at_c[e] < cap ? kInCand : 0u);
+        if (bits) atomicOr(held + (id >> 4), bits << (2 * (id & 15)));
+      }
+    }
+    // the next pop's places past the queue hold padding
+    for (int x = n_cand2 + tid; x < T; x += kThreads) {
+      const int at = ring_at(head2, ring, x);
+      cd[at] = kInf;
+      ci[at] = -1;
+    }
+    head = head2;
+    n_cand = n_cand2;
+    ++hops;
+    evals += n_proc;
+    __syncthreads();
+    if (tid == 0) laps.lap(n_new > 0 ? kLapHeld : kLapMerge);
+  }
+
+  for (int p = tid; p < ef; p += kThreads) {
+    out_d[(size_t)b * ef + p] = rd[p];
+    out_i[(size_t)b * ef + p] = ri[p];
+  }
+  if (tid == 0) {
+    out_hops[b] = hops;
+    out_evals[b] = evals;
+    laps.lap(kLapSetup);
+    laps.flush(hops);
+  }
+}
+
 // The launch's arguments, bundled for the dispatch over instances.
 struct WalkArgs {
   const int* links;
@@ -877,27 +1260,41 @@ struct WalkArgs {
   int* evals;
 };
 
-template <int kElem, bool kDense, int kThreads, bool kWide = false>
+template <int kElem, bool kDense, int kThreads>
 cudaError_t launch(const WalkArgs& a, WalkLayout lay, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      beam_walk_kernel<kElem, kDense, kThreads, kWide>,
+      beam_walk_kernel<kElem, kDense, kThreads>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.smem);
   if (err != cudaSuccess) return err;
-  beam_walk_kernel<kElem, kDense, kThreads, kWide>
-      <<<a.B, kThreads, lay.smem, stream>>>(
+  beam_walk_kernel<kElem, kDense, kThreads><<<a.B, kThreads, lay.smem,
+                                              stream>>>(
+      a.links, a.counts, a.src, a.queries, a.entry_d, a.visited,
+      a.has_nodes, a.D, a.maxM, a.T, a.ef, a.cap, a.metric, a.vis_mode,
+      a.vis_n, lay.held_n, lay.slot_n, a.out_d, a.out_i, a.hops, a.evals);
+  return cudaGetLastError();
+}
+
+template <int kElem>
+cudaError_t launch_wide(const WalkArgs& a, WalkLayout lay,
+                        cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      beam_walk_wide_kernel<kElem>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.smem);
+  if (err != cudaSuccess) return err;
+  beam_walk_wide_kernel<kElem><<<a.B, kWideThreads, lay.smem, stream>>>(
       a.links, a.counts, a.src, a.queries, a.entry_d, a.visited, a.wide_mem,
-      lay.words, a.has_nodes, a.D, a.maxM, a.T, a.ef, a.cap, a.metric,
-      a.vis_mode, a.vis_n, lay.held_n, lay.slot_n, a.out_d, a.out_i, a.hops,
-      a.evals);
+      lay.words, lay.held_words, lay.words == lay.held_words, a.has_nodes,
+      a.D, a.maxM, a.T, a.ef, a.cap, lay.ring, a.metric, a.vis_mode,
+      a.vis_n, lay.slot_n, a.out_d, a.out_i, a.hops, a.evals);
   return cudaGetLastError();
 }
 
 template <int kElem>
 cudaError_t launch_elem(const WalkArgs& a, WalkLayout lay,
                         cudaStream_t stream) {
-  // queues in device memory: one instance a row source, the visited set a
+  // queues past kMaxQueue: one instance a row source, the visited set a
   // runtime branch (a rare, wide walk)
-  if (lay.words) return launch<kElem, false, 256, true>(a, lay, stream);
+  if (lay.ring) return launch_wide<kElem>(a, lay, stream);
   const bool wide = walk_threads(a.T, a.maxM) > 128;
   if (a.vis_mode == kVisDense)
     return wide ? launch<kElem, true, 256>(a, lay, stream)
@@ -924,22 +1321,24 @@ extern "C" {
 // the dense dedupe (``visited`` unread), 0 the bitmap (``visited``
 // i32[B, vis_n] words, vis_n >= cap / 32, zeroed but node 0's bit), 2^s
 // >= 4 the hash set (``visited`` i32[B, 2^s], vis_n = 2^s, -1 but slot 0 =
-// node 0); the kernel updates it.  ``wide_mem`` i32[B, wide_words]: the
-// queues and held table of a walk with ef or cap above 4096 (the kernel
-// initialises it; unread otherwise).  All contiguous; T <= cap, ef and cap
-// <= 2^20; smem_bytes and wide_words from ops/cuda_graph._walk_layout and
-// _walk_wide_words.  Writes out_d f32[B, ef], out_i i32[B, ef], hops
-// i32[B], evals i32[B].  Returns the launch's CUDA error (0 on success).
+// node 0); the kernel updates it.  ``wide_mem`` i32[B, wide_words], a
+// walk with ef or cap above 320: zeroed by the caller; the held bits of
+// the dense dedupe over ``n_rows`` ids (the links' rows), then the queues
+// where they do not fit in shared memory (unread otherwise).  All
+// contiguous; T <= cap, ef and cap <= 2^20; smem_bytes and wide_words from
+// ops/cuda_graph._walk_layout and _walk_wide_words.  Writes out_d f32[B,
+// ef], out_i i32[B, ef], hops i32[B], evals i32[B].  Returns the launch's
+// CUDA error (0 on success).
 int beam_walk(const int* links, const int* counts, const void* rows,
               const float* scales, const float* codebook,
               const float* queries, const float* entry_d, int* visited,
               int* wide_mem, int elem, int records, int has_nodes, int B,
               int D, int maxM, int T, int ef, int cap, int metric, int groups,
-              int visited_slots, int vis_n, int smem_bytes, int wide_words,
-              float* out_d, int* out_i, int* hops, int* evals,
-              void* stream_ptr) {
+              int visited_slots, int vis_n, int n_rows, int smem_bytes,
+              int wide_words, float* out_d, int* out_i, int* hops,
+              int* evals, void* stream_ptr) {
   if (B <= 0 || D <= 0 || maxM <= 0 || T <= 0 || ef <= 0 || cap <= 0 ||
-      T > cap || ef > kMaxWideQueue || cap > kMaxWideQueue ||
+      n_rows <= 0 || T > cap || ef > kMaxWideQueue || cap > kMaxWideQueue ||
       (metric != kMetricL2 && metric != kMetricCosine &&
        metric != kMetricManhattan))
     return (int)cudaErrorInvalidValue;
@@ -956,7 +1355,8 @@ int beam_walk(const int* links, const int* counts, const void* rows,
       (visited_slots < 4 || (visited_slots & (visited_slots - 1)) ||
        vis_n != visited_slots))
     return (int)cudaErrorInvalidValue;
-  const WalkLayout lay = walk_layout(ef, cap, T, maxM, D);
+  const WalkLayout lay = walk_layout(ef, cap, T, maxM, D, n_rows,
+                                     vis_mode == kVisDense);
   if (lay.smem != (size_t)smem_bytes || lay.smem > (size_t)kSmemLimit ||
       lay.words != (size_t)wide_words || (lay.words && !wide_mem))
     return (int)cudaErrorInvalidValue;

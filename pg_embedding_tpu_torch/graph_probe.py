@@ -2,6 +2,8 @@
 
   python -m pg_embedding_tpu_torch.graph_probe [--n ROWS] [--reps N]
   python -m pg_embedding_tpu_torch.graph_probe --mode wiring [--n ROWS]
+  python -m pg_embedding_tpu_torch.graph_probe --mode wide [--n ROWS]
+      [--before FILE]
 
 Builds csrc/beam_walk.cu and csrc/prune_scan.cu in variants, each a rewrite
 of the sources' text (as sweep_probe.py builds its variants) compiled into
@@ -25,6 +27,14 @@ its own library under .kernel_build/graph_probe/, all side by side:
   widen-at-load each neighbour row widened to float32 right behind its
                 load (int8 x its scale, bf16, PQ), not after all of a
                 warp's rows are loaded
+  wide-from-256 / tables-to-4096   the wide instances (the held set kept
+                from step to step, the merge in place) from queues past
+                256, or past 4096, instead of past 320
+  move-run-2 / move-run-8   the wide instances' merge moving 2 or 8
+                incumbents a thread a round instead of 4
+  one-block     the wide instances at one block an SM (255 registers; the
+                launch asks ONE_BLOCK_PAD more bytes of shared memory than
+                it uses) instead of two
 
 The probe builds an index of ``--n`` rows x 128-d on the card
 (utils/io.synthetic_clustered, chip_smoke.py's recipe and seed), walks its
@@ -40,6 +50,20 @@ by the host's launch overhead; variants are timed in turns, then in
 reverse order, and the card's name and power limit are printed first.
 chip_smoke.py prints the profile build's breakdown at the same shapes
 (``walk_phases``, ``prune_phases``).
+
+``--mode wide`` times the walk's wide instances on the same 1M index at
+T = 8, (ef, cand_cap) in WIDE_SHAPES, on the first 64 and all 1,024
+queries: kernel, one-block, move-run-2 and move-run-8 (at (5120, 5120))
+and, with ``--before FILE`` (an earlier tree's csrc/beam_walk.cu,
+launched with that tree's layout and arguments: its wide queues and held
+table in device memory, rebuilt each step), "before", in turns, each
+checked against the kernel (ids, distances, hops, evals), then the
+profile build's laps a block-step (merge: the admitted's places; move:
+the displaced incumbents, and the held bits of those pushed out; held
+set: the admitted's held bits); then the crossover: ef = cand_cap in
+CROSSOVER through the kernel and through the other scheme (wide-from-256
+up to 320, tables-to-4096 past it).  Times are device_ms (``--reps``
+calls, 3 by default in this mode).
 
 ``--mode wiring`` builds csrc/connect_batch.cu in its own variants
 (WIRING_VARIANTS):
@@ -81,6 +105,7 @@ import torch
 
 from . import _kernels
 from .ops import cuda_graph as cg
+from .ops.distance import dist_one_to_many
 
 OUT = os.path.join(_kernels.BUILD_DIR, "graph_probe")
 CSRC = os.path.join(_kernels._PKG_DIR, "csrc")
@@ -88,13 +113,13 @@ WALK, SCAN, WIRE = "beam_walk.cu", "prune_scan.cu", "connect_batch.cu"
 SOURCES = (WALK, SCAN)
 WIRING_SOURCES = (WIRE,)
 WALK_PHASES = ("setup + output", "links + inserts", "dedupe", "rows",
-               "rank", "merge")
+               "rank", "merge", "move", "held set")
 PRUNE_PHASES = ("init", "search", "reject", "write")
 WIRING_PHASES = ("head", "row", "stage", "d", "ranks", "masks", "scan",
                  "write")
 PROFILE = ("-DPG_PROFILE",)
-_RANK = ("      int g = 1;\n"
-         "      while (g < 32 && 2 * g * n_new <= kThreads) g *= 2;\n")
+_RANK = ("  int g = 1;\n"
+         "  while (g < 32 && 2 * g * n_new <= kThreads) g *= 2;\n")
 _WIDEN_AT_LOAD = (
     "#pragma unroll\n"
     "        for (int u = 0; u < R; ++u) {\n"
@@ -125,8 +150,8 @@ VARIANTS = {
     "profile": (PROFILE, ()),
     "dense": ((), ((WALK, "  if (base + tables <= (size_t)kSmemLimit)\n",
                     "  if (false)\n"),)),
-    "rank1": ((), ((WALK, _RANK, "      int g = 1;\n"),)),
-    "rank32": ((), ((WALK, _RANK, "      int g = 32;\n"),)),
+    "rank1": ((), ((WALK, _RANK, "  int g = 1;\n"),)),
+    "rank32": ((), ((WALK, _RANK, "  int g = 32;\n"),)),
     "rows4": ((), ((WALK, "kRowsPerWarp = 8;", "kRowsPerWarp = 4;"),)),
     "rows16": ((), ((WALK, "kRowsPerWarp = 8;", "kRowsPerWarp = 16;"),)),
     "threads128": ((), ((WALK, "  return T * maxM <= 128 ? 128 : 256;\n",
@@ -141,6 +166,20 @@ VARIANTS = {
                            " : vis_set;\n",
                            "  const int vis_mode = vis_set;\n"),)),
     "widen-at-load": ((), ((WALK, *_WIDEN_AT_LOAD),)),
+    "wide-from-256": ((), ((WALK, "constexpr int kMaxQueue = 320;",
+                            "constexpr int kMaxQueue = 256;"),)),
+    "tables-to-4096": ((), ((WALK, "constexpr int kMaxQueue = 320;",
+                             "constexpr int kMaxQueue = 4096;"),)),
+    "move-run-2": ((), ((WALK, "constexpr int kMoveRun = 4;",
+                         "constexpr int kMoveRun = 2;"),)),
+    "move-run-8": ((), ((WALK, "constexpr int kMoveRun = 4;",
+                         "constexpr int kMoveRun = 8;"),)),
+    "one-block": ((), ((WALK, "constexpr int kWideMinBlocks = 2;",
+                        "constexpr int kWideMinBlocks = 1;"),
+                       (WALK, "      return {fixed + queues, 0, (int)slots, "
+                        "(int)ring, held, held};\n",
+                        "      return {fixed + queues + 120000, 0, "
+                        "(int)slots, (int)ring, held, held};\n"))),
 }
 # name: (nvcc flags, rewrites (source, text, replacement))
 WIRING_VARIANTS = {
@@ -159,6 +198,18 @@ WIRING_VARIANTS = {
 WALK_RUNS = ("kernel", "dense", "rank1", "rank32", "rows4", "rows16",
              "threads128", "threads256", "blocks8", "blocks3",
              "sets-runtime", "widen-at-load")
+# --mode wide: its builds, shapes (ef, cand_cap), batches, the crossover's
+# widths, and the bytes one-block adds to its launches' shared memory (two
+# blocks' worth then pass an SM's 233,472)
+WIDE_BUILDS = ("kernel", "profile", "wide-from-256", "tables-to-4096",
+               "one-block", "move-run-2", "move-run-8")
+WIDE_SHAPES = ((2560, 2560), (4096, 4096), (4097, 64), (64, 8191),
+               (5120, 5120), (8191, 8191))
+WIDE_BATCHES = (64, 1024)
+CROSSOVER = (320, 512, 640, 1024, 2560, 4096)
+# the widest queues of each variant's table instances (its kMaxQueue)
+MAX_QUEUE = {"wide-from-256": 256, "tables-to-4096": 4096}
+ONE_BLOCK_PAD = 120_000
 # the variants timed on the int8 rows (quantized traversal) too
 INT8_RUNS = ("kernel", "widen-at-load")
 
@@ -190,15 +241,17 @@ def variant_sources(name: str, wiring: bool = False) -> dict:
     return out
 
 
-def build(name: str, wiring: bool = False):
-    """Variant ``name``'s library (of WIRING_VARIANTS where ``wiring``):
-    its sources compiled with its flags added to nvcc's; returns it loaded
-    and declared."""
-    flags = (WIRING_VARIANTS if wiring else VARIANTS)[name][0]
+def build(name: str, wiring: bool = False, sources=None):
+    """Variant ``name``'s library (of WIRING_VARIANTS where ``wiring``,
+    else of VARIANTS; or, given ``sources``, those texts by file name,
+    built as they are): its sources compiled with its flags added to
+    nvcc's; returns it loaded and declared."""
+    flags = () if sources else (
+        WIRING_VARIANTS if wiring else VARIANTS)[name][0]
     os.makedirs(OUT, exist_ok=True)
     srcs = []
     tag = f"wiring_{name}" if wiring else name
-    for src, text in variant_sources(name, wiring).items():
+    for src, text in (sources or variant_sources(name, wiring)).items():
         srcs.append(os.path.join(OUT, f"{tag}_{src}"))
         with open(srcs[-1], "w") as f:
             f.write(text)
@@ -213,7 +266,7 @@ def build(name: str, wiring: bool = False):
     lib = ctypes.CDLL(so)
     if wiring:
         _kernels.declare_connect(lib)
-    else:
+    elif not sources:
         _kernels.declare_graph(lib)
     lib.bruteforce_topk_error_string = _kernels.load_library(
     ).bruteforce_topk_error_string
@@ -236,15 +289,67 @@ def walk(lib, graph, queries, *, ef, cand_cap, t, metric_value,
     """One launch of ``lib``'s walk (the shared-memory figure of its
     variant) over float32 rows or the row source ``operands`` give
     (ops/cuda_graph.beam_walk's)."""
-    smem, held, slots = cg._walk_layout(ef, cand_cap, t, graph.max_m,
-                                        graph.dims)
-    if variant == "dense":
-        smem -= 4 * held + 8 * slots
-    src = cg._check_walk_args(graph, queries, ef, cand_cap, t, metric_value,
-                              **operands)
-    return cg._launch_walk(lib, graph, queries, src, ef=ef,
-                           cand_cap=cand_cap, t=t, metric_value=metric_value,
-                           smem=smem)
+    widest = cg.MAX_WALK_QUEUE
+    cg.MAX_WALK_QUEUE = MAX_QUEUE.get(variant, widest)  # its source's layout
+    try:
+        smem, held, slots = cg._walk_layout(ef, cand_cap, t, graph.max_m,
+                                            graph.dims)
+        if variant == "dense":
+            smem -= 4 * held + 8 * slots
+        if variant == "one-block" and max(ef, cand_cap) > widest:
+            smem += ONE_BLOCK_PAD
+        src = cg._check_walk_args(graph, queries, ef, cand_cap, t,
+                                  metric_value, **operands)
+        return cg._launch_walk(lib, graph, queries, src, ef=ef,
+                               cand_cap=cand_cap, t=t,
+                               metric_value=metric_value, smem=smem)
+    finally:
+        cg.MAX_WALK_QUEUE = widest
+
+
+def before_layout(ef: int, cand_cap: int, t: int, max_m: int,
+                  dims: int) -> tuple:
+    """(shared bytes, device words a query) of the walk before its wide
+    instances kept the held set (an earlier csrc/beam_walk.cu): past 4096
+    the queues twice over and a held table of a power of two of at least
+    2 (ef + cand_cap) ids in device memory, rebuilt each step."""
+    tm, row = t * max_m, 4 * (-(-dims // 4) * 4)
+    held = cg._pow2_at_least(2 * (ef + cand_cap))
+    slots = cg._pow2_at_least(2 * tm)
+    if max(ef, cand_cap) > 4096:
+        return row + 24 * tm + 32 + 8 * slots, 4 * (ef + cand_cap) + held
+    base = row + 16 * (ef + cand_cap) + 24 * tm + 32
+    tables = 4 * held + 8 * slots
+    return (base + tables if base + tables <= cg.SMEM_LIMIT else base), 0
+
+
+def walk_before(lib, graph, queries, *, ef, cand_cap, t, metric_value):
+    """One launch of the earlier tree's beam_walk (``lib``, built from its
+    source) over float32 rows, dense dedupe, with its layout and its
+    arguments (no row count)."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.beam_walk.argtypes = [*[vp] * 9, *[ci] * 15, *[vp] * 5]
+    lib.beam_walk.restype = ci
+    b, dims = queries.shape
+    dev = queries.device
+    smem, words = before_layout(ef, cand_cap, t, graph.max_m, dims)
+    out_d = torch.empty((b, ef), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, ef), dtype=torch.int32, device=dev)
+    hops = torch.empty(b, dtype=torch.int32, device=dev)
+    evals = torch.empty(b, dtype=torch.int32, device=dev)
+    entry = dist_one_to_many(queries, graph.vectors[:1].expand(b, 1, dims),
+                             metric_value)[:, 0].contiguous()
+    wide = (torch.empty((b, words), dtype=torch.int32, device=dev)
+            if words else None)
+    err = lib.beam_walk(
+        graph.links.data_ptr(), graph.link_counts.data_ptr(),
+        graph.vectors.data_ptr(), None, None, queries.data_ptr(),
+        entry.data_ptr(), None, None if wide is None else wide.data_ptr(),
+        0, 0, 1, b, dims, graph.max_m, t, ef, cand_cap, metric_value, 0, -1,
+        0, smem, words, out_d.data_ptr(), out_i.data_ptr(), hops.data_ptr(),
+        evals.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _kernels.check(lib, err, "beam_walk (before)")
+    return out_d, out_i, hops, evals
 
 
 def prune(lib, args, nn):
@@ -437,6 +542,80 @@ def wiring_main(args) -> int:
     return 0
 
 
+def wide_main(args) -> int:
+    """--mode wide: the walk's wide instances against the earlier tree's
+    and at one block an SM, then the crossover (see the module's note)."""
+    from . import HnswConfig, HnswIndex
+    from .utils.io import synthetic_clustered
+    libs = build_all(WIDE_BUILDS)
+    if args.before:
+        with open(args.before) as f:
+            text = f.read()
+        with open(os.path.join(CSRC, SCAN)) as f:
+            libs["before"] = build("before", sources={WALK: text,
+                                                      SCAN: f.read()})
+    for name in libs:
+        with open(os.path.join(OUT, name + ".so.log")) as f:
+            fn = None
+            for line in f:
+                if "Compiling entry" in line:
+                    fn = line.split("'")[1]
+                elif fn and "beam_walk" in fn and ("Used" in line
+                                                   or "spill" in line):
+                    print(f"ptxas {name} {fn}: {line.strip()}")
+    pts, qs = synthetic_clustered(args.n, 128, 1_000, seed=12345,
+                                  n_queries=1024)
+    idx = HnswIndex(HnswConfig(dims=128, m=16, ef_construction=64,
+                               ef_search=64), device="cuda")
+    idx.build(pts)
+    g, q_all = idx.graph, torch.as_tensor(qs, device="cuda")
+
+    def run(name, q, kw):
+        if name == "before":
+            return walk_before(libs[name], g, q, **kw)
+        return walk(libs[name], g, q, variant=name, **kw)
+
+    def timed(names, q, kw, label):
+        want = run("kernel", q, kw)
+        for name in names:
+            got = run(name, q, kw)
+            same = all(torch.equal(a, b) for a, b in zip(got, want))
+            print(f"{label} {name}: ids, distances, hops and evals equal to "
+                  f"the kernel's: {same}", flush=True)
+        ms = {n: [] for n in names}
+        for name in (*names, *names[::-1]):
+            ms[name].append(device_ms(lambda: run(name, q, kw), args.reps))
+        hops = float(want[2].float().mean())
+        for name in names:
+            print(f"{label} {name} ({hops:.1f} hops a query; ms on the "
+                  f"card, in turns): "
+                  + " / ".join(f"{m:.3f}" for m in ms[name]), flush=True)
+
+    for b in WIDE_BATCHES:
+        q = q_all[:b]
+        for ef, cap in WIDE_SHAPES:
+            kw = dict(ef=ef, cand_cap=cap, t=8, metric_value=0)
+            names = ["kernel", *(["before"] if "before" in libs else []),
+                     *(["one-block", "move-run-2", "move-run-8"]
+                       if (ef, cap) == (5120, 5120) else [])]
+            smem = cg._walk_smem_bytes(ef, cap, 8, g.max_m, g.dims)
+            label = (f"wide B={b} ef={ef} cand_cap={cap} T=8 ({smem} bytes "
+                     f"of shared memory a block)")
+            timed(names, q, kw, label)
+            r = walk_phases(libs["profile"], g, q, **kw)
+            print(f"{label} profile cycles a block-step "
+                  f"({r['steps']:.2f} steps a block): "
+                  f"{format_cycles(r['cycles'])}", flush=True)
+    for b in WIDE_BATCHES:
+        for ef in CROSSOVER:
+            kw = dict(ef=ef, cand_cap=ef, t=8, metric_value=0)
+            other = ("wide-from-256" if ef <= cg.MAX_WALK_QUEUE
+                     else "tables-to-4096")
+            timed(["kernel", other], q_all[:b], kw,
+                  f"crossover B={b} ef=cand_cap={ef} T=8")
+    return 0
+
+
 def format_cycles(cycles: dict) -> str:
     return ", ".join(f"{k} {v:,.0f}" for k, v in cycles.items())
 
@@ -488,9 +667,15 @@ def capture_prunes(idx, rows) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=1_000_000)
-    ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--mode", choices=("walk", "wiring"), default="walk")
+    ap.add_argument("--reps", type=int, default=None,
+                    help="calls a CUDA graph replays (20; --mode wide 3)")
+    ap.add_argument("--mode", choices=("walk", "wiring", "wide"),
+                    default="walk")
+    ap.add_argument("--before", help="--mode wide: an earlier tree's "
+                    "csrc/beam_walk.cu, timed beside the kernel")
     args = ap.parse_args()
+    if args.reps is None:
+        args.reps = 3 if args.mode == "wide" else 20
     if not torch.cuda.is_available():
         raise SystemExit("graph_probe: no CUDA device")
     from . import HnswConfig, HnswIndex
@@ -500,7 +685,10 @@ def main() -> int:
                          text=True, check=True).stdout.strip(), flush=True)
     if args.mode == "wiring":
         return wiring_main(args)
-    libs = build_all()
+    if args.mode == "wide":
+        return wide_main(args)
+    libs = build_all(tuple(n for n in VARIANTS if n not in WIDE_BUILDS
+                           or n in ("kernel", "profile")))
     for name in libs:
         with open(os.path.join(OUT, name + ".so.log")) as f:
             for line in f:

@@ -18,8 +18,9 @@ launch:
     scales) packed records or PQ records through a codebook (with OPQ's
     rotated query), the dense dedupe or the bitmap or hash visited set,
     any metric and T, and ef and cand_cap up to MAX_WIDE_QUEUE (queues
-    wider than MAX_WALK_QUEUE in device memory; core/search.walk_route
-    sends every walk on the card here).
+    wider than MAX_WALK_QUEUE in the wide instances, which keep the held
+    set from step to step; core/search.walk_route sends every walk on the
+    card here).
   * ``prune_scan`` (``csrc/prune_scan.cu``): the scan of a batch of sorted
     candidate sets, one warp per set and one round per kept neighbour,
     reading the pairwise distances through the sort order.  Its plain
@@ -55,11 +56,18 @@ LAUNCHES = {"beam_walk": 0, "prune_scan": 0, "connect_batch": 0}
 # by candidate-set shape (C, nn), counted beside LAUNCHES
 WALK_VARIANTS: dict = {}
 PRUNE_SHAPES: dict = {}
+# beam_walk's launches of its wide instances (queues past MAX_WALK_QUEUE),
+# counted beside LAUNCHES
+WIDE_WALKS = 0
 
-# Widest result and candidate queue the walk kernel keeps in shared memory;
-# wider ones (the API's widening doubles ef past max_widen_ef = 4096 once,
-# to at most 8,191) live in device memory, up to MAX_WIDE_QUEUE.
-MAX_WALK_QUEUE = 4096
+# Widest result and candidate queue of the walk instances that rebuild a
+# held table each step (csrc/beam_walk.cu's kMaxQueue: past it the wide
+# instances are faster, graph_probe --mode wide); wider ones (the API's
+# widening from ef_search 40 passes it at 640 and may reach 8,191), up to
+# MAX_WIDE_QUEUE, take the wide instances: the held set kept in device
+# memory, the queues in shared memory where they fit, else in device
+# memory.
+MAX_WALK_QUEUE = 320
 MAX_WIDE_QUEUE = 1 << 20
 SMEM_LIMIT = 232_448                # bytes of shared memory a block can use
 # device memory a launch may take for its queries' visited sets and wide
@@ -92,18 +100,23 @@ def _walk_layout(ef: int, cand_cap: int, t: int, max_m: int,
     at least 2 (ef + cand_cap) slots) and the expansion's ids with their
     smallest slot (8 bytes a slot, at least 2 T maxM).  Where the tables do
     not fit, the kernel dedupes by comparison and they take 0.  Queues
-    wider than MAX_WALK_QUEUE and the held table live in device memory
-    instead (_walk_wide_words); the slot table stays.  Raises ValueError
+    wider than MAX_WALK_QUEUE take the wide instances: the row, the slot
+    arrays, the counters and the slot table (_walk_fixed), then each queue
+    once (d, id; the candidate ring of _walk_ring entries) where that fits
+    SMEM_LIMIT, else the queues move to device memory; no held table (the
+    held set is in device memory, _walk_wide_words).  Raises ValueError
     past SMEM_LIMIT."""
     tm = t * max_m
-    held, slots = _pow2_at_least(2 * (ef + cand_cap)), _pow2_at_least(2 * tm)
-    if _walk_wide_words(ef, cand_cap):
-        base = 4 * (-(-dims // 4) * 4) + 24 * tm + 32 + 8 * slots
-        if base > SMEM_LIMIT:
+    if max(ef, cand_cap) > MAX_WALK_QUEUE:
+        fixed = _walk_fixed(t, max_m, dims)
+        if fixed > SMEM_LIMIT:
             raise ValueError(
-                f"the walk needs {base} bytes of shared memory a block "
+                f"the walk needs {fixed} bytes of shared memory a block "
                 f"(T={t}, maxM={max_m}, D={dims}); the limit is {SMEM_LIMIT}")
-        return base, held, slots
+        queues = 8 * (ef + _walk_ring(cand_cap, t))
+        return (fixed + queues if fixed + queues <= SMEM_LIMIT else fixed,
+                0, _pow2_at_least(2 * tm))
+    held, slots = _pow2_at_least(2 * (ef + cand_cap)), _pow2_at_least(2 * tm)
     base = 4 * (-(-dims // 4) * 4) + 16 * (ef + cand_cap) + 24 * tm + 32
     tables = 4 * held + 8 * slots
     if base + tables <= SMEM_LIMIT:
@@ -116,14 +129,36 @@ def _walk_layout(ef: int, cand_cap: int, t: int, max_m: int,
     return base, 0, 0
 
 
-def _walk_wide_words(ef: int, cand_cap: int) -> int:
-    """int32 words of device memory one query's walk takes for its queues
-    and held table, as csrc/beam_walk.cu lays them out: 0 where both queues
-    fit MAX_WALK_QUEUE (all in shared memory), else the two queues twice
-    over (d, id) and the held table."""
+def _walk_fixed(t: int, max_m: int, dims: int) -> int:
+    """Bytes of a wide walk block before its queues: the query row (D
+    rounded up to 4 floats), 24 bytes per expansion slot, 8 counters and
+    the slot table (8 bytes a slot, a power of two of at least 2 T
+    maxM)."""
+    tm = t * max_m
+    return 4 * (-(-dims // 4) * 4) + 24 * tm + 32 + 8 * _pow2_at_least(
+        2 * tm)
+
+
+def _walk_ring(cand_cap: int, t: int) -> int:
+    """Entries of a wide walk's candidate ring: cand_cap rounded up to a
+    multiple of T, so that a pop of T never wraps."""
+    return -(-cand_cap // t) * t
+
+
+def _walk_wide_words(ef: int, cand_cap: int, t: int, max_m: int, dims: int,
+                     capacity: int, dense: bool) -> int:
+    """int32 words of device memory one query's walk takes, as
+    csrc/beam_walk.cu lays them out: 0 where both queues fit
+    MAX_WALK_QUEUE; else the held set of the dense dedupe (two bits an id
+    of ``capacity``: its queues' membership, kept from step to step), then
+    the queues (d, id) where they do not fit in shared memory."""
     if max(ef, cand_cap) <= MAX_WALK_QUEUE:
         return 0
-    return 4 * (ef + cand_cap) + _pow2_at_least(2 * (ef + cand_cap))
+    held = -(-capacity // 16) if dense else 0
+    queues = 2 * (ef + _walk_ring(cand_cap, t))
+    if _walk_fixed(t, max_m, dims) + 4 * queues <= SMEM_LIMIT:
+        return held
+    return held + queues
 
 
 def _walk_smem_bytes(ef: int, cand_cap: int, t: int, max_m: int,
@@ -265,9 +300,10 @@ def beam_walk(graph, queries: torch.Tensor, *, ef: int, metric_value: int,
     The entry distance (to node 0) is the twin's own torch op on the
     original queries and corpus row, so both walks start from the same
     bits (and the records, which hold no row of the entry, need none).
-    The bitmap and hash sets, and queues wider than MAX_WALK_QUEUE, live
-    in device memory, SCRATCH_BYTES at most a launch: a larger batch is
-    walked in chunks."""
+    The bitmap and hash sets, and the wide walks' held set and queues
+    that do not fit in shared memory, live in device memory, SCRATCH_BYTES
+    at most a launch: a larger batch is walked in chunks."""
+    global WIDE_WALKS
     if queries.device.type == "cpu":
         from ..core.search import _search_batch
         return _search_batch(graph, queries, ef=ef, metric_value=metric_value,
@@ -288,7 +324,9 @@ def beam_walk(graph, queries: torch.Tensor, *, ef: int, metric_value: int,
     lib = _kernels.load_library()
     smem = _walk_smem_bytes(ef, cand_cap, t, graph.max_m, queries.shape[1])
     b = queries.shape[0]
-    words = (_walk_wide_words(ef, cand_cap)
+    words = (_walk_wide_words(ef, cand_cap, t, graph.max_m,
+                              queries.shape[1], graph.capacity,
+                              visited_slots < 0)
              + (_visited_words(graph, visited_slots)
                 if visited_slots >= 0 else 0))
     step = max(1, SCRATCH_BYTES // (4 * words)) if words else b
@@ -303,6 +341,7 @@ def beam_walk(graph, queries: torch.Tensor, *, ef: int, metric_value: int,
             LAUNCHES["beam_walk"] += 1
             WALK_VARIANTS[src.variant] = WALK_VARIANTS.get(src.variant,
                                                            0) + 1
+            WIDE_WALKS += max(ef, cand_cap) > MAX_WALK_QUEUE
     if len(outs) == 1:
         return outs[0]
     return tuple(torch.cat(parts) for parts in zip(*outs))
@@ -319,8 +358,9 @@ def _launch_walk(lib, graph, queries, src: WalkSource, *, ef, cand_cap, t,
     """One launch of ``lib``'s beam_walk on checked arguments (the
     wrapper's library, or a probe's build of the same source).  The
     bitmap starts zeroed and the hash table empty (-1), each holding node
-    0 when the graph has nodes, as the twin's do; queues wider than
-    MAX_WALK_QUEUE get their device memory here (the kernel fills it)."""
+    0 when the graph has nodes, as the twin's do; a walk with queues
+    wider than MAX_WALK_QUEUE gets its device memory here, zeroed (the
+    held set starts empty; the kernel fills the queues)."""
     b, dims = queries.shape
     dev = queries.device
     out_d = torch.empty((b, ef), dtype=torch.float32, device=dev)
@@ -343,8 +383,9 @@ def _launch_walk(lib, graph, queries, src: WalkSource, *, ef, cand_cap, t,
                              device=dev)
         if has_nodes:
             visited[:, 0] = 1 if visited_slots == 0 else 0
-    wide_words = _walk_wide_words(ef, cand_cap)
-    wide = (torch.empty((b, wide_words), dtype=torch.int32, device=dev)
+    wide_words = _walk_wide_words(ef, cand_cap, t, graph.max_m, dims,
+                                  graph.capacity, visited_slots < 0)
+    wide = (torch.zeros((b, wide_words), dtype=torch.int32, device=dev)
             if wide_words else None)
 
     def ptr(x):
@@ -356,8 +397,9 @@ def _launch_walk(lib, graph, queries, src: WalkSource, *, ef, cand_cap, t,
             src.rows.data_ptr(), ptr(src.scales), ptr(src.codebook),
             src.query.data_ptr(), entry.data_ptr(), ptr(visited), ptr(wide),
             src.elem, int(src.records), int(has_nodes), b, dims, graph.max_m,
-            t, ef, cand_cap, metric_value, groups, visited_slots, vis_n, smem,
-            wide_words, out_d.data_ptr(), out_i.data_ptr(), hops.data_ptr(),
+            t, ef, cand_cap, metric_value, groups, visited_slots, vis_n,
+            graph.capacity, smem, wide_words, out_d.data_ptr(),
+            out_i.data_ptr(), hops.data_ptr(),
             evals.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _kernels.check(lib, err, "beam_walk")
     return out_d, out_i, hops, evals

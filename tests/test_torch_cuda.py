@@ -509,18 +509,22 @@ def test_beam_walk_bit_equal_on_integers(cuda, int_graphs, metric, width, ef,
 
 
 @pytest.mark.parametrize("case", ["B=1", "B=1000", "empty", "one node",
-                                  "ef=4096", "ef=4097", "cap=8191",
-                                  "ef=cap=8191"])
+                                  "ef=320", "ef=321", "ef=4096",
+                                  "ef=4097", "cap=8191", "ef=cap=8191",
+                                  "ef=cap=5120 B=1000", "ef=cap=16384"])
 def test_beam_walk_edges(cuda, int_graphs, case):
-    """Batch sizes, an empty and a one-node graph, the widest queues in
-    shared memory and queues past them (one or both in device memory, up
-    to the widest the API's widening reaches): bit-equal to the twin."""
+    """Batch sizes, an empty and a one-node graph, the widest queues of the
+    table scheme and queues past them in the wide instances (one or both
+    wide, up to the widest the API's widening reaches, in shared memory;
+    the widening's landing width over 1,000 queries; ef = cand_cap =
+    16,384, whose queues leave shared memory for device memory):
+    bit-equal to the twin."""
     arrays, qs = int_graphs["l2"]
     arrays = dict(arrays)
     ef = cap = 64
     if case == "B=1":
         qs = qs[:1]
-    elif case == "B=1000":
+    elif case.endswith("B=1000"):
         qs = integer_data(seed=9, b=1000)[1]
     elif case == "empty":
         arrays["n_nodes"] = 0
@@ -531,9 +535,15 @@ def test_beam_walk_edges(cuda, int_graphs, case):
         arrays["links"] = np.full_like(arrays["links"], -1)
         arrays["link_counts"] = np.zeros_like(arrays["link_counts"])
     else:
-        ef, cap = {"ef=4096": (4096, 4096), "ef=4097": (4097, 64),
-                   "cap=8191": (64, 8191),
-                   "ef=cap=8191": (8191, 8191)}[case]
+        ef, cap = {"ef=320": (320, 320), "ef=321": (321, 64),
+                   "ef=4096": (4096, 4096), "ef=4097": (4097, 64),
+                   "cap=8191": (64, 8191), "ef=cap=8191": (8191, 8191),
+                   "ef=cap=5120 B=1000": (5120, 5120),
+                   "ef=cap=16384": (16384, 16384)}[case]
+        from pg_embedding_tpu_torch.ops import cuda_graph as cg
+        in_device = cg._walk_wide_words(ef, cap, 4, arrays["links"].shape[1],
+                                        D, 64, False) > 0
+        assert in_device == (ef == 16384)
     g = _card_graph(arrays, cuda)
     got, want = _walk_pair(g, torch.from_numpy(qs).to(cuda), ef=ef,
                            metric_value=0, cand_cap=cap, expand_width=4)
@@ -547,18 +557,22 @@ def test_beam_walk_edges(cuda, int_graphs, case):
 
 @pytest.mark.parametrize("metric", ["l2", "manhattan"])
 @pytest.mark.parametrize("width,ef,cap", [(16, 64, 64), (16, 32, 128),
-                                          (8, 64, 64), (64, 4096, 4096)])
+                                          (8, 64, 64), (320, 320, 320),
+                                          (64, 4096, 4096)])
 def test_beam_walk_repeated_links(cuda, int_graphs, metric, width, ef, cap):
     """Links that repeat within a popped row and across the rows of a
-    step, at T = 16 (up to 256 slots, the 256-thread block) and at T = 64
-    with ef = cand_cap = 4096, where the dedupe tables do not fit and the
-    kernel compares instead: bit-equal to the twin."""
+    step, at T = 16 (up to 256 slots, the 256-thread block), at T = 320
+    with ef = cand_cap = 320 (5,120 slots), where the dedupe tables do
+    not fit and the kernel compares instead, and at T = 64 with ef =
+    cand_cap = 4096 in the wide instances (1,024 slots, four a thread):
+    bit-equal to the twin."""
     from pg_embedding_tpu_torch.ops import cuda_graph as cg
     arrays, qs = int_graphs[metric]
     arrays = repeated_links(arrays)
     g = _card_graph(arrays, cuda)
     held = cg._walk_layout(ef, cap, width, g.max_m, D)[1]
-    assert (held == 0) == (ef == 4096)
+    assert (held == 0) == (ef >= cg.MAX_WALK_QUEUE)
+    assert (width == 320) == (held == 0 and ef <= cg.MAX_WALK_QUEUE)
     got, want = _walk_pair(g, torch.from_numpy(qs).to(cuda), ef=ef,
                            metric_value=METRICS[metric], cand_cap=cap,
                            expand_width=width)
@@ -602,6 +616,22 @@ def test_beam_walk_variants_bit_equal(cuda, int_graphs, source, visited,
     _assert_bit_equal(ts.finish_walk(gc, q, *got[:2], **fin),
                       ts.finish_walk(gc, q, *want[:2], **fin))
     assert bool((got[2] > 1).all())
+
+
+@pytest.mark.parametrize("visited", list(VISITED))
+def test_wide_walks_in_a_row(cuda, int_graphs, visited):
+    """Two wide walks in a row at (5120, 5120) on other queries, then the
+    first again (the wrapper zeroes each launch's held set): every walk is
+    bit-equal to the twin."""
+    arrays, _ = int_graphs["l2"]
+    g = _card_graph(arrays, cuda)
+    walk = dict(ef=5120, metric_value=0, cand_cap=5120, expand_width=8,
+                visited_slots=VISITED[visited])
+    for seed in (11, 12, 11):
+        q = torch.from_numpy(integer_data(seed=seed, b=96)[1]).to(cuda)
+        got, want = _walk_pair(g, q, **walk)
+        _assert_bit_equal(got, want)
+        assert bool((got[2] > 1).all())
 
 
 def test_widening_past_4096_runs_the_kernel(cuda):
@@ -667,7 +697,8 @@ def test_beam_walk_chunks_the_visited_sets(cuda, int_graphs, monkeypatch,
     walk = dict(ef=ef, metric_value=0, cand_cap=ef, expand_width=4,
                 visited_slots=visited_slots)
     whole = cg.beam_walk(g, q, **walk)
-    words = cg._walk_wide_words(ef, ef) + (
+    words = cg._walk_wide_words(ef, ef, 4, g.max_m, D, g.capacity,
+                                visited_slots < 0) + (
         cg._visited_words(g, visited_slots) if visited_slots >= 0 else 0)
     monkeypatch.setattr(cg, "SCRATCH_BYTES", 4 * words * 10)
     before = cg.LAUNCHES["beam_walk"]
@@ -842,7 +873,8 @@ def test_walk_and_prune_refuse_out_of_scope_arguments(cuda, int_graphs):
         err = lib.beam_walk(g.links.data_ptr(), g.link_counts.data_ptr(),
                             g.vectors.data_ptr(), None, None, q.data_ptr(),
                             out.data_ptr(), None, None, 0, 0, 1, len(qs), D,
-                            g.max_m, 4, 16, 16, 0, 0, -1, 0, bad, 0,
+                            g.max_m, 4, 16, 16, 0, 0, -1, 0, g.capacity,
+                            bad, 0,
                             out.data_ptr(), out.data_ptr(), cnt.data_ptr(),
                             cnt.data_ptr(),
                             torch.cuda.current_stream().cuda_stream)

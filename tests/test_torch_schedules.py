@@ -21,6 +21,14 @@ on the CPU to what the kernels replace.
     table); and a whole walk on that schedule (hash dedupe, admitted
     ranked by (d, slot), both queues merged by rank) held bit for bit to
     _search_batch on the integer fixture.
+  * The wide instances' schedule (queues past MAX_WALK_QUEUE): the held
+    set kept from step to step as two bits an id (admissions that land
+    set theirs, evictions and pops clear theirs), the result queue one
+    buffer, the candidate queue a ring popped by its head, the in-place
+    merge in tail-first rounds; held bit for bit to _search_batch on the
+    integer fixture at queues that evict (rounds of 3 entries) and at the
+    wide widths (the kernel's rounds), the held bits checked against the
+    queues after every step.
   * graph_probe's variants: rewrites of the kernels' text that apply to
     the sources as they are, which take no build option but the clock
     stamps.
@@ -378,6 +386,224 @@ def test_schedule_walk_equals_the_twin(metric, t, ef, cap, links):
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     assert bool((got[2] > 1).all())
+
+
+# --- the wide instances: the held set kept, the in-place merge, the ring ---
+
+def _kernel_constant(name):
+    """An integer constexpr of csrc/beam_walk.cu."""
+    with open(os.path.join(graph_probe.CSRC, graph_probe.WALK)) as f:
+        return int(re.search(rf"constexpr int {name} = (\d+);",
+                             f.read())[1])
+
+
+# incumbents a merge round moves: kMoveRun a thread of kWideThreads
+WIDE_ROUND = _kernel_constant("kMoveRun") * _kernel_constant("kWideThreads")
+_IN_RES, _IN_CAND = 1, 2
+
+
+def _bits(held, i):
+    return int(held[i >> 4] >> np.uint32(2 * (i & 15))) & 3
+
+
+def _set(held, i, bits):
+    held[i >> 4] |= np.uint32(bits << (2 * (i & 15)))
+
+
+def _clear(held, i, bits):
+    held[i >> 4] &= ~np.uint32(bits << (2 * (i & 15)))
+
+
+def wide_schedule_walk(graph, queries, *, ef, metric_value, cand_cap, t,
+                       round_size=WIDE_ROUND):
+    """beam_walk_wide_kernel's walk for one query at a time: the held set
+    as two bits an id (node 0's set at the start), read by each slot and
+    updated after the dedupe: the popped ids clear their candidate bit,
+    the admitted that land set theirs, the incumbents pushed past ef or
+    cand_cap clear theirs; the result queue one buffer, the candidate
+    queue a ring of cand_cap rounded up to a multiple of T popped by
+    advancing its head (the next pop's places past the queue padded, the
+    rest of the ring left stale); the merge in place: the admitted's
+    places first, then the displaced suffix tail first in rounds of
+    ``round_size`` entries (each round read whole, then written), then the
+    admitted.  Returns the walk's (res_d, res_i, hops, evals) and counts
+    of the events the schedule must get right."""
+    max_m = graph.max_m
+    tm, ring = t * max_m, cg._walk_ring(cand_cap, t)
+    words = -(-graph.capacity // 16)
+    seen = collections.Counter()
+    out = []
+    for q in queries:
+        held = np.zeros(words, np.uint32)
+        rd = np.full(ef, _INF, np.float32)
+        ri = np.full(ef, -1, np.int32)
+        cd = np.full(ring, _INF, np.float32)
+        ci = np.full(ring, -1, np.int32)
+        rd[0] = cd[0] = dist_one_to_many(q[None], graph.vectors[:1][None],
+                                         metric_value)[0, 0].item()
+        ri[0] = ci[0] = 0
+        _set(held, 0, _IN_RES | _IN_CAND)
+        head, n_res, n_cand = 0, 1, 1
+        hops = evals = 0
+        while cd[head] < _INF and not cd[head] > rd[-1]:
+            lower = rd[-1]
+            pop = [(cd[head + j], ci[head + j]) for j in range(t)]
+            slot_id = np.full(tm, -1, np.int32)
+            for j, (pd, p) in enumerate(pop):
+                if p < 0 or pd > lower:
+                    continue
+                n = int(graph.link_counts[p])
+                row = graph.links[p].numpy()
+                for r in range(max_m):
+                    if r < n and row[r] >= 0:
+                        slot_id[j * max_m + r] = row[r]
+            first, keep = {}, np.zeros(tm, bool)
+            for s_, i in enumerate(slot_id):
+                if i >= 0:
+                    first.setdefault(int(i), s_)
+            popped = {int(p) for _, p in pop[:min(t, n_cand)]}
+            for s_, i in enumerate(slot_id):
+                if i >= 0 and first[int(i)] == s_:
+                    keep[s_] = _bits(held, i) == 0
+                    seen["popped id met"] += int(i) in popped
+            for _, p in pop[:min(t, n_cand)]:
+                _clear(held, p, _IN_CAND)
+            proc = np.nonzero(keep)[0]
+            d = dist_one_to_many(
+                q[None], graph.vectors[torch.from_numpy(slot_id[proc])
+                                       .long()][None],
+                metric_value)[0].numpy()
+            adm = d < lower
+            rank = np.lexsort((proc[adm], d[adm]))
+            srt_d, srt_i = d[adm][rank], slot_id[proc[adm]][rank]
+            n_new = len(srt_d)
+            rest = max(n_cand - t, 0)
+            head2 = (head + t) % ring
+            cand = (head2 + np.arange(ring)) % ring     # logical -> ring
+            n_cand2 = rest
+            if n_new:
+                at_r = np.arange(n_new) + np.searchsorted(rd[:n_res], srt_d,
+                                                          "right")
+                inc_c = cd[cand[:rest]]
+                at_c = np.arange(n_new) + np.searchsorted(inc_c, srt_d,
+                                                          "right")
+                seen["ties"] += int(np.isin(srt_d, rd[:n_res]).sum()
+                                    + np.isin(srt_d, inc_c).sum())
+                gone = []
+                for d_q, i_q, at, n_inc, width, bit, frm in (
+                        (rd, ri, np.arange(ef), n_res, ef, _IN_RES, at_r[0]),
+                        (cd, ci, cand, rest, cand_cap, _IN_CAND, at_c[0])):
+                    hi = n_inc
+                    while hi > frm:
+                        lo = max(frm, hi - round_size)
+                        idx = at[lo:hi]
+                        vd, vi = d_q[idx].copy(), i_q[idx].copy()
+                        vo = np.arange(lo, hi) + np.searchsorted(srt_d, vd,
+                                                                 "left")
+                        stay = vo < width
+                        d_q[at[vo[stay]]], i_q[at[vo[stay]]] = (vd[stay],
+                                                                vi[stay])
+                        gone += [(int(i), bit) for i in vi[~stay]]
+                        seen["rounds"] += 1
+                        hi = lo
+                for e in range(n_new):
+                    bits = 0
+                    if at_r[e] < ef:
+                        rd[at_r[e]], ri[at_r[e]] = srt_d[e], srt_i[e]
+                        bits |= _IN_RES
+                    if at_c[e] < cand_cap:
+                        c = cand[at_c[e]]
+                        cd[c], ci[c] = srt_d[e], srt_i[e]
+                        bits |= _IN_CAND
+                    seen["admitted, pushed out"] += bits != (_IN_RES
+                                                             | _IN_CAND)
+                    _set(held, srt_i[e], bits)
+                for i, bit in gone:
+                    _clear(held, i, bit)
+                seen["evicted"] += len(gone)
+                n_res = min(ef, n_res + n_new)
+                n_cand2 = min(cand_cap, rest + n_new)
+            for x in range(n_cand2, t):
+                cd[cand[x]], ci[cand[x]] = _INF, -1
+            head, n_cand = head2, n_cand2
+            seen["wraps"] += head == 0
+            hops += 1
+            evals += len(proc)
+            # the held bits are the queues' membership
+            live_c = ci[(head + np.arange(n_cand)) % ring]
+            assert (ri[n_res:] == -1).all() and (live_c >= 0).all()
+            want = np.zeros(words, np.uint32)
+            for ids, bit in ((ri[:n_res], _IN_RES), (live_c, _IN_CAND)):
+                np.bitwise_or.at(want, ids >> 4, (bit << (2 * (ids & 15)))
+                                 .astype(np.uint32))
+            assert np.array_equal(held, want)
+        out.append((rd, ri, hops, evals))
+    rd, ri, hops, evals = zip(*out)
+    return (torch.from_numpy(np.stack(rd)), torch.from_numpy(np.stack(ri)),
+            torch.tensor(hops, dtype=torch.int32),
+            torch.tensor(evals, dtype=torch.int32)), seen
+
+
+def _holes(arrays, seed=17):
+    """repeated_links with a tenth of the slots inside each row's count set
+    to -1 (slots the kernel must skip)."""
+    arrays = repeated_links(arrays, seed)
+    rng = np.random.default_rng(seed)
+    links = arrays["links"].copy()
+    inside = np.arange(links.shape[1]) < arrays["link_counts"][:, None]
+    links[inside & (rng.random(links.shape) < 0.1)] = -1
+    return dict(arrays, links=links)
+
+
+@functools.lru_cache(maxsize=None)
+def _integer_graph(metric):
+    """integer_graph, built once a metric (its arrays are copied before
+    any change)."""
+    return integer_graph(metric)
+
+
+def _hold_wide(metric, t, ef, cap, links, n_queries, round_size):
+    arrays, qs = _integer_graph(metric)
+    arrays = repeated_links(arrays) if links == "repeated" else _holes(arrays)
+    g = graph_from_numpy(arrays["vectors"], arrays["links"],
+                         arrays["link_counts"], arrays["deleted"],
+                         arrays["n_nodes"], device="cpu")
+    q = torch.from_numpy(qs[:n_queries])
+    kw = dict(ef=ef, metric_value=METRICS[metric], cand_cap=cap)
+    want = ts._search_batch(g, q, expand_width=t, **kw)
+    got, seen = wide_schedule_walk(g, q, t=t, round_size=round_size, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert bool((got[2] > 1).all())
+    return seen
+
+
+@pytest.mark.parametrize("metric", ["l2", "manhattan"])
+@pytest.mark.parametrize("t,ef,cap", [(t, ef, cap) for t in (1, 4, 8)
+                                      for ef, cap in ((16, 16), (64, 128),
+                                                      (128, 64))])
+@pytest.mark.parametrize("links", ["repeated", "holes"])
+def test_wide_schedule_walk_equals_the_twin(metric, t, ef, cap, links):
+    """The wide instances' schedule at queues narrow enough that both
+    evict, with rounds of 3 entries (many rounds a merge), over links
+    repeated within and across popped rows (and -1 slots): bit for bit the
+    twin's walk; ids admitted and pushed out in one step, popped ids met
+    again in their own step, ties with incumbents and evictions happened
+    (and, at cand_cap 16, the ring wrapped)."""
+    seen = _hold_wide(metric, t, ef, cap, links, 8, 3)
+    assert seen["admitted, pushed out"] and seen["evicted"]
+    assert seen["ties"] and seen["rounds"]
+    assert seen["wraps"] or cap > 16
+    if links == "repeated":
+        assert seen["popped id met"]
+
+
+@pytest.mark.parametrize("t", [1, 4, 8])
+@pytest.mark.parametrize("ef,cap", [(4097, 64), (64, 8191), (5120, 5120)])
+def test_wide_schedule_walk_at_wide_queues(t, ef, cap):
+    """The same schedule at the wide instances' own widths, with the
+    kernel's rounds (WIDE_ROUND): bit for bit the twin's walk."""
+    _hold_wide("l2", t, ef, cap, "repeated", 4, WIDE_ROUND)
 
 
 # --- graph_probe's variants -------------------------------------------------

@@ -11,9 +11,11 @@ its plain twin).
     held as tests/test_torch_search.py holds it (>= 99% of queries equal,
     every other one at a near-tie).
   * core/search.walk_route: which walks go to the kernel.
-  * ops/cuda_graph._walk_layout: the walk block's shared memory and the
-    sizes of its dedupe tables (tests/test_torch_schedules.py holds the
-    tables' rule).
+  * ops/cuda_graph._walk_layout / _walk_wide_words: the walk block's
+    shared memory, the sizes of its dedupe tables, and the wide walks'
+    device memory a query (the held bits, the queues where they leave
+    shared memory) (tests/test_torch_schedules.py holds the tables' rule
+    and the wide schedule).
   * core/build._prune_scan_plain: reading pair_d through the sort order
     equals scanning the gathered matrix.
 """
@@ -157,7 +159,7 @@ def test_walk_route(device, rows, kw, want):
     kw = dict(dict(ef=64, cand_cap=64), **kw)
     ef, cap = kw.pop("ef"), kw.pop("cand_cap")
     assert ts.walk_route(device) == want
-    assert (cg._walk_wide_words(ef, cap) > 0) == (
+    assert (cg._walk_wide_words(ef, cap, 8, 32, 128, 10**6, True) > 0) == (
         max(ef, cap) > cg.MAX_WALK_QUEUE)
     cg._walk_layout(ef, cap, 8, 32, 128)       # a shape the kernel takes
     kw.pop("record_scales", None)
@@ -186,12 +188,18 @@ def test_cpu_walks_are_not_counted_on_card(fixture):
 
 @pytest.mark.parametrize("ef,cap,t,max_m,dims,tables", [
     (64, 64, 8, 32, 128, True),    # the smoke's main path at T = 8
-    (4096, 4096, 8, 32, 128, True),  # the widest queues in shared memory
+    (320, 320, 8, 32, 128, True),  # the widest queues of the table scheme
     (1, 1, 1, 1, 1, True),
     (16, 48, 3, 7, 30, True),      # D rounds up to whole float4's
-    (4096, 4096, 8, 32, 20_000, False),   # no room for the hash tables
+    (320, 320, 8, 32, 52_000, False),     # no room for the hash tables
+    (321, 64, 8, 32, 128, "wide"),        # the narrowest wide queues
+    (4096, 4096, 8, 32, 128, "wide"),
     (5120, 5120, 8, 32, 128, "wide"),     # the API's widening past 4096
     (8191, 64, 4, 16, 30, "wide"),
+    (8191, 8191, 8, 32, 128, "wide"),     # the widest the widening reaches
+    (13852, 13852, 8, 32, 128, "wide"),   # the widest queues in shared memory
+    (13854, 13854, 8, 32, 128, "device"),  # past them: in device memory
+    (16384, 16384, 8, 32, 128, "device"),
 ])
 def test_walk_smem_bytes(ef, cap, t, max_m, dims, tables):
     query = 4 * 4 * -(-dims // 4)
@@ -203,24 +211,37 @@ def test_walk_smem_bytes(ef, cap, t, max_m, dims, tables):
     base = query + queues + slots + counters
     want = (base + 4 * held + 8 * first, held, first) if tables else (
         base, 0, 0)
-    wide = 0
-    if tables == "wide":
-        # the queues and the held table move to device memory
-        want = (base - queues + 8 * first, held, first)
-        wide = queues // 4 + held
+    rows = 1_000_003
+    wide = {True: 0, False: 0}                       # by dense dedupe
+    if tables in ("wide", "device"):
+        # one buffer a queue, the candidate ring a multiple of T; no held
+        # table: the held set is two bits an id in device memory (dense)
+        ring = -(-cap // t) * t
+        assert ring % t == 0 and cap <= ring < cap + t
+        one = (ef + ring) * (4 + 4)
+        fixed = query + slots + counters + 8 * first
+        want = (fixed + one if tables == "wide" else fixed, 0, first)
+        assert (fixed + one <= cg.SMEM_LIMIT) == (tables == "wide")
+        queue_words = 0 if tables == "wide" else one // 4
+        wide = {True: -(-rows // 16) + queue_words, False: queue_words}
     assert cg._walk_layout(ef, cap, t, max_m, dims) == want
-    assert cg._walk_wide_words(ef, cap) == wide
+    for dense, words in wide.items():
+        assert cg._walk_wide_words(ef, cap, t, max_m, dims, rows,
+                                   dense) == words
     assert cg._walk_smem_bytes(ef, cap, t, max_m, dims) == want[0]
     assert want[0] <= cg.SMEM_LIMIT
     assert held >= 2 * (ef + cap) and first >= 2 * t * max_m
 
 
 def test_walk_smem_bytes_refuses_past_the_limit():
-    assert cg._walk_smem_bytes(4096, 4096, 8, 32, 20_000) <= cg.SMEM_LIMIT
+    assert cg._walk_smem_bytes(320, 320, 8, 32, 52_000) <= cg.SMEM_LIMIT
     with pytest.raises(ValueError, match="232448"):
-        cg._walk_smem_bytes(4096, 4096, 8, 32, 30_000)
-    # queues in device memory leave the row and the slots in shared memory
+        cg._walk_smem_bytes(320, 320, 8, 32, 55_000)
+    # wide queues that do not fit move to device memory, leaving the row
+    # and the slots in shared memory
     assert cg._walk_smem_bytes(5120, 5120, 8, 32, 50_000) <= cg.SMEM_LIMIT
+    assert cg._walk_wide_words(5120, 5120, 8, 32, 50_000, 64, False) == (
+        2 * (5120 + 5120))
     with pytest.raises(ValueError, match="232448"):
         cg._walk_smem_bytes(5120, 5120, 8, 32, 60_000)
 
