@@ -67,7 +67,9 @@ exits non-zero):
      and (ef, cand_cap) in {(16, 16), (64, 64), (64, 128), (128, 64)},
      and in every other row source (bf16 rows; int8 rows and int8 records
      at power-of-two scales; f32 and bf16 records; PQ records through an
-     integer codebook, with and without OPQ's signed-permutation rotation)
+     integer codebook, with and without OPQ's signed-permutation rotation,
+     read through the query's distance table, at G 8 and also at G 4, 16
+     and 32 at T=8 (64, 128) and T=4 (5120, 5120))
      and the bitmap and hash visited sets at T in {1, 4, 8}, (ef,
      cand_cap) in {(16, 16), (64, 128)}, and queues wider than the 320
      of the kernel's table instances (the wide instances: (5120, 5120) for
@@ -346,6 +348,13 @@ WALK_VISITED = {"bitmap": 0, "hash": 8192}
 # past ~13,850 the queues leave shared memory; the integer index's cases
 WIDE_QUEUES = ((5120, 5120), (4097, 64), (64, 8191), (8191, 8191),
                (16384, 16384))
+# the PQ walk's integer cases beside G = 8, (D, G): D = 32 at G = 2 (16
+# elements a group, each record's codes copied byte by byte), 4, 16 and 32
+# (2 and 1 element: the table's build reads the codebook an element at a
+# time), and the index's first 24 dims at G = 3; in a table instance and
+# the wide one
+PQ_INTEGER_GROUPS = ((32, 2), (32, 4), (32, 16), (32, 32), (24, 3))
+PQ_INTEGER_SHAPES = ((8, 64, 128), (4, 5120, 5120))
 # ptxas's report of the eight float32 / bf16 sweep instances as they were
 # built before the int8 instance (no stack, no spills): it leaves their code
 # as it was
@@ -717,14 +726,14 @@ def compiler_report(_kernels):
                     f"{'Manhattan' if m[1] == '1' else 'L2 / cosine'}>")
         return "pq_select_kernel" if "pq_select_kernel" in mangled else None
     def graph_instance(mangled):
-        elems = ("float32", "int8", "bf16", "pq")
-        m = re.search(r"beam_walk_kernelILi(\d)ELb([01])ELi(\d+)EE",
+        elems = ("float32", "int8", "bf16", "pq", "pq unstaged")
+        m = re.search(r"beam_walk_kernelILi(\d)ELb([01])ELi(\d+)E",
                       mangled)
         if m:
             dedupe = "dense" if m[2] == "1" else "bitmap / hash"
             return (f"beam_walk_kernel<{elems[int(m[1])]} rows, {dedupe}, "
                     f"{m[3]} threads>")
-        m = re.search(r"beam_walk_wide_kernelILi(\d)EE", mangled)
+        m = re.search(r"beam_walk_wide_kernelILi(\d)E", mangled)
         if m:
             return (f"beam_walk_wide_kernel<{elems[int(m[1])]} rows, any "
                     f"visited set, 256 threads>")
@@ -752,7 +761,8 @@ def compiler_report(_kernels):
                 name = graph_instance(m[1])
         elif name and ("spill" in line or "Used" in line):
             log(f"ptxas {name}: {line.strip()}")
-            if name in SWEEP_PTXAS or name in WALK_PTXAS:
+            if (name in SWEEP_PTXAS or name in WALK_PTXAS
+                    or name.startswith("beam_walk") and "<pq" in name):
                 reports.setdefault(name, []).append(
                     re.sub(r"^ptxas\s+info\s*:\s*", "", line.strip()))
     lib = _kernels.load_library()
@@ -794,6 +804,12 @@ def compiler_report(_kernels):
               f"ptxas {name}: {reports.get(name)}, earlier {want}")
     log(f"ptxas: the main path's walk instances keep their registers and "
         f"spills ({', '.join(WALK_PTXAS)})")
+    # the PQ walk's instances (the distance table's row source: the codes
+    # staged, and unstaged where the table and codes do not both fit)
+    pq = {n: r for n, r in reports.items() if "<pq" in n}
+    check(len(pq) == 10, f"PQ walk instances reported: {sorted(pq)}")
+    for name, lines in sorted(pq.items()):
+        log(f"ptxas PQ walk {name}: {'; '.join(lines)}")
 
 
 def small_build_matches_cpu(torch, HnswConfig, HnswIndex, dev):
@@ -1104,10 +1120,13 @@ def integer_walks(torch, cg, core_search, dev):
     the card): L2 and Manhattan, T in {1, 4, 8}, four (ef, cand_cap) over
     float32 rows; then every other row source (dense dedupe) and the
     bitmap and hash sets (float32 rows) at T in {1, 4, 8} and (ef,
-    cand_cap) in {(16, 16), (64, 128)}; then the wide instances
-    (WIDE_QUEUES: every row source and visited set at (5120, 5120), float32
-    rows under every visited set at the others, T=4, 64 queries).  Returns
-    the wide instances' launches."""
+    cand_cap) in {(16, 16), (64, 128)}, PQ records (and OPQ's) also at
+    (D, G) in PQ_INTEGER_GROUPS (the distance table at every group width)
+    at PQ_INTEGER_SHAPES; then the wide instances (WIDE_QUEUES: every row
+    source and visited set at (5120, 5120), float32 rows under every
+    visited set at the others, T=4, 64 queries); then PQ walks at 1536-d
+    whose table and codes do not both fit a block (pq_wide_row_walks).
+    Returns the wide instances' launches."""
     from pg_embedding_tpu_torch import HnswConfig, HnswIndex
     from pg_embedding_tpu_torch.convert import to_numpy
     from walk_operands import integer_operands, on_device
@@ -1116,6 +1135,7 @@ def integer_walks(torch, cg, core_search, dev):
     qs = rng.integers(-8, 9, size=(256, 32)).astype(np.float32)
     q = torch.as_tensor(qs, device=dev)
     cases = variant_cases = wide_cases = 0
+    pq_groups_seen = {"8 (D=32)"}
     wide0 = cg.WIDE_WALKS
     for name, metric in (("l2", L2), ("manhattan", 2)):
         idx = HnswIndex(HnswConfig(dims=32, m=8, ef_construction=32,
@@ -1143,14 +1163,26 @@ def integer_walks(torch, cg, core_search, dev):
                       if (source, vs) != ("rows f32", -1)]
             wide = [(4, ef, cap) for ef, cap in WIDE_QUEUES
                     if source == "rows f32" or (ef, cap) == (5120, 5120)]
-            for t, ef, cap in shapes + wide:
+            runs = [(g, kw, q, shape) for shape in shapes + wide]
+            if source.startswith("records pq"):
+                # the PQ table at the other group widths
+                for dims, groups in PQ_INTEGER_GROUPS:
+                    cut = dict(arrays, vectors=np.ascontiguousarray(
+                        arrays["vectors"][:, :dims]))
+                    qd = np.ascontiguousarray(qs[:, :dims])
+                    gg, kwg = on_device(*integer_operands(
+                        cut, qd, source, groups=groups)[::2], dev)
+                    runs += [(gg, kwg, torch.as_tensor(qd, device=dev),
+                              shape) for shape in PQ_INTEGER_SHAPES]
+                    pq_groups_seen.add(f"{groups} (D={dims})")
+            for g, kw, q_run, (t, ef, cap) in runs:
                 walk = dict(ef=ef, metric_value=metric, cand_cap=cap,
                             expand_width=t, visited_slots=vs)
                 # the wide cases walk the first 64 queries (and OPQ's
                 # rotated rows of them)
-                qw, kww = q, kw
+                qw, kww = q_run, kw
                 if max(ef, cap) > 128:
-                    qw = q[:64]
+                    qw = q_run[:64]
                     kww = {k: v[:64] if k == "query_t" else v
                            for k, v in kw.items()}
                 got = cg.beam_walk(g, qw, **walk, **kww)
@@ -1167,11 +1199,57 @@ def integer_walks(torch, cg, core_search, dev):
     log(f"beam_walk vs plain on the integer index: bit-equal in all {cases} "
         f"float32 cases (L2, Manhattan; T 1 / 4 / 8; four (ef, cand_cap)), "
         f"all {variant_cases} cases of the other row sources "
-        f"({', '.join(WALK_SOURCES)}) and visited sets (bitmap, hash; T 1 / "
-        f"4 / 8; (16, 16), (64, 128)) and all {wide_cases} cases of the "
+        f"({', '.join(WALK_SOURCES)}; PQ at G "
+        f"{' / '.join(sorted(pq_groups_seen))}) and visited sets "
+        f"(bitmap, hash; T 1 / 4 / 8; (16, 16), (64, 128)) and all "
+        f"{wide_cases} cases of the "
         f"wide instances ({', '.join(map(str, WIDE_QUEUES))}; "
         f"{wide_launches} launches); ids, distances, hops and dist_evals")
+    pq_wide_row_walks(torch, cg, core_search, dev)
     return wide_launches
+
+
+def pq_wide_row_walks(torch, cg, core_search, dev):
+    """PQ walks at 1536-d (T 8, maxM 32, 3,000 integer rows with random
+    links, integer codebooks: walk_operands.wide_row_operands) whose table
+    and staged codes do not both fit a block: cosine at G 96 and L2 at G
+    192 read the codes from the records beside a shared table, cosine at
+    G 192 and L2 at G 384 build the table in device memory; at ef =
+    cand_cap = 64 and 5120 (the wide instance).  L2 is bit-equal to the
+    twin; cosine's rsqrt is not torch's, so its ids, hops and evals equal
+    the twin's on >= 98% of queries, every other one at a near-tie."""
+    from walk_operands import WIDE_ROW_PQ, on_device, wide_row_operands
+
+    def near_tie(row):
+        d = np.sort(row[np.isfinite(row)])
+        return bool(np.any(np.diff(d) <= 1e-5 * np.abs(d[1:])))
+    done = []
+    for (metric, groups), where in WIDE_ROW_PQ.items():
+        m = {"l2": L2, "cosine": 1}[metric]
+        g, q_all, kw = wide_row_operands(groups)
+        g, kw = on_device(g, kw, dev)
+        for ef in (64, 5120):
+            q = q_all[:128 if ef == 64 else 32].to(dev)
+            walk = dict(ef=ef, metric_value=m, cand_cap=ef, expand_width=8)
+            got = cg.beam_walk(g, q, **walk, **kw)
+            want = twin(core_search, g, q, kw, walk)
+            label = f"PQ walk at 1536-d {metric} G={groups} ef={ef}"
+            if metric == "l2":
+                check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                      f"{label}: the kernel differs from the plain twin")
+            else:
+                (dk, ik, hk, ek), (dp, ip, hp, ep) = [
+                    [x.cpu().numpy() for x in r] for r in (got, want)]
+                same = (ik == ip).all(axis=1) & (hk == hp) & (ek == ep)
+                check(same.mean() >= 0.98 and all(
+                    near_tie(dk[i]) or near_tie(dp[i])
+                    for i in np.nonzero(~same)[0]),
+                    f"{label}: ids equal on {same.mean():.3f} of queries, "
+                    f"or a difference not at a near-tie")
+            done.append(f"{metric} G={groups} ({where} table) ef={ef}")
+    log(f"beam_walk vs plain, PQ at 1536-d where the table and codes do "
+        f"not both fit a block: {'; '.join(done)}: L2 bit-equal, cosine "
+        f"within the near-tie bar")
 
 
 def walk_kernels_phase(torch, idx, qs, dev, tmp, single, profile_lib):
@@ -1847,7 +1925,7 @@ def phase_breakdown(torch, g, q, captured, profile_lib):
         kw = dict(ef=WALK_EF, cand_cap=WALK_EF, t=t, metric_value=L2)
         r = graph_probe.walk_phases(lib, g, q, **kw)
         smem, held, slots = cg._walk_layout(WALK_EF, WALK_EF, t, g.max_m,
-                                            g.dims)
+                                            g.dims, None)
         log(f"beam_walk phases at T={t} (cycles a block-step, "
             f"{r['steps']:.2f} steps a block; setup + output: a block; "
             f"{smem} bytes of shared memory a block, tables of {held} and "

@@ -52,7 +52,16 @@
 //     _sum_sq of a bf16 operand does (records are widened first: no);
 //   * PQ records u8[cap, maxM, G] through the codebook f32[G, 256, D / G]:
 //     element c is codebook[c / sub, code[c / sub], c % sub] (ops/pq
-//     pq_decode), read through the read-only cache.
+//     pq_decode).  The row is never decoded: the metric's sum splits by
+//     group, so each block first builds its query's distance table in
+//     shared memory (device memory where it does not fit: pq_place; entry
+//     (k, g) at k G + g, the group minor: L2 sum (c - q)^2, Manhattan sum
+//     |c - q|, cosine (sum c q, sum c^2) as a float2,
+//     each summed as accum sums a row, from 0 in element order), and a
+//     row's lane partial is the sum of its groups' entries, lane g holding
+//     groups g, g + 32, ...  At D / G = 4 that is the partial the decoded
+//     row's lane c = g would sum, bit for bit (ops/cuda_graph
+//     pq_walk_table_plain and pq_walk_score_plain are its plain form).
 // The exact rerank of approximate sources and the hash mode's duplicate
 // drop stay torch ops after the walk (core/search.finish_walk), on both
 // routes.
@@ -62,7 +71,9 @@
 //   + B * D * 4,
 // row_bytes = 4 D for float32 rows, 2 D for bf16, D + 4 for int8 and its
 // scale, G for PQ codes (plus, for the bitmap and hash sets, the words
-// each processed id reads and writes, and the tables' initialisation);
+// each processed id reads and writes, and the tables' initialisation; the
+// PQ codebook, 1 KB a group, is read from device memory once a launch and
+// from L2 by each block's table build);
 // about 0.36 ms at 3.35 TB/s for 1,024 queries at 1M x 128-d float32
 // rows (ef = 64, T = 8, ~2,240 processed neighbours a query).  A walk is a
 // chain of dependent steps (mean 17 at T = 8, up to 38), so the design
@@ -72,7 +83,9 @@
 // Design.  A step has five phases, each ended by one block barrier (the
 // earlier design's step had six, and serial loops in three of them):
 //   1. links: a thread a slot loads the popped row's count and link
-//      together (in flight while the thread inserts the queues' ids), and
+//      together (in flight while the thread inserts the queues' ids; PQ
+//      records: and copies the slot's code bytes to shared memory, whose
+//      place is known before the link arrives: stage_pq_codes), and
 //      inserts each valid slot's id into a shared hash table keyed by id
 //      whose value is the smallest slot holding it (atomicMin); the ids of
 //      both queues, the popped ones included, go into a second table (the
@@ -102,11 +115,11 @@
 //      strictly below it, an admitted entry by the incumbents at or below
 //      it: binary searches), into its second buffer.
 // Each row source and visited-set kind (the dense dedupe, or a set in
-// device memory) is one instance: 4 x 2, by 128 or 256 threads: sixteen
-// (the dense instances compile the sets' branches away; graph_probe's
-// sets-runtime variant keeps them); the records / rows choice and bitmap
-// / hash are uniform runtime branches.  128 threads a block where T * maxM
-// <= 128 (T <= 4 at maxM = 32), else 256; an SM holds 5 blocks of 128 (96
+// device memory) is one instance: 5 x 2 (PQ twice: kElemPQ, kElemPQFar),
+// by 128 or 256 threads: twenty (the dense instances compile the sets'
+// branches away; graph_probe's sets-runtime variant keeps them); the
+// records / rows choice and bitmap / hash are uniform runtime branches.
+// 128 threads a block where T * maxM <= 128 (T <= 4 at maxM = 32), else 256; an SM holds 5 blocks of 128 (96
 // registers a thread) or 4 of 256 (64): shapes chosen by measurement
 // (PERF.md; graph_probe.py).  Where the tables do not fit beside the
 // queues (very wide D or T) the dedupe compares each slot with the queues
@@ -142,7 +155,7 @@
 //     so a round never overwrites what a later round reads), then the
 //     admitted land; an incumbent pushed past the queue's width clears
 //     its held bit instead.
-// Four wide instances, a row source each, 256 threads, the visited set a
+// Five wide instances, a row source each, 256 threads, the visited set a
 // runtime branch (the bitmap and hash sets keep no held bits), two blocks
 // an SM (128 registers).  Python computes the shared-memory figure and
 // the device memory a query (ops/cuda_graph._walk_layout,
@@ -150,12 +163,24 @@
 // above 232,448 bytes.
 //
 // What holds it back now: each step still waits on two dependent global
-// latencies (the links, then the rows; a PQ row three: links, codes,
-// centroids) plus one for each further round of 8 rows a warp, and the
-// block's five barriers make every phase wait for its slowest warp; at 64
-// registers (T = 8) the kernel spills (ptxas).  Records read slower than
-// rows of the same type (PERF.md); they span maxM times the rows'
-// bytes (16.6 GB at 1M float32), and why that costs is not yet measured.
+// latencies (the links, then the rows) plus one for each further round of
+// 8 rows a warp, and the block's five barriers make every phase wait for
+// its slowest warp; at 64 registers (T = 8) the kernel spills (ptxas).  A
+// PQ step waits on the links alone: its codes are copied to shared memory
+// beside them (phase 1), and its rows lap is shared reads (~5,900 cycles a
+// step at G = 32 against ~28,800 when each round loaded its codes, then
+// the centroids); its table's build at the walk's start, every resident
+// block at once, is bound by L2's bandwidth (~8% of a block's cycles at G
+// = 32), and the table costs residency: 1 KB a group (2 KB under cosine)
+// beside the queues, so G = 32 under cosine or G = 64 leave 2 blocks an
+// SM.  Where the table and the codes do not both fit a block (wide rows:
+// cosine at G = 96 on 1536-d), each row's codes are read from the records
+// in phase 3 (a dependent latency again); where the table alone does not
+// (cosine past G ~ 100, L2 past ~ 200), it is built in the query's
+// device scratch and read through L1 and L2 (pq_place).  Records
+// read slower than rows of the same type (PERF.md); they span maxM times
+// the rows' bytes (16.6 GB at 1M float32), and why that costs is not yet
+// measured.
 // A wide step adds the held word's read to the links' latency, and its
 // in-place merge shifts both queues' suffixes every step, a barrier a
 // round: at ef = cand_cap = 5120 the move is ~46% of a step (PERF.md).
@@ -202,6 +227,14 @@ constexpr int kElemF32 = 0;              // float32
 constexpr int kElemI8 = 1;               // int8 x a float32 scale a row
 constexpr int kElemBF16 = 2;             // bfloat16
 constexpr int kElemPQ = 3;               // uint8 PQ codes x the codebook
+// PQ codes whose table and step's codes do not both fit a block
+// (pq_place): each row's codes read from the records, the table in shared
+// or device memory.  An instance of its own, so that kElemPQ's lookups
+// stay shared loads with no runtime choice of memory in their way.
+constexpr int kElemPQFar = 4;
+__host__ __device__ constexpr bool is_pq(int elem) {
+  return elem == kElemPQ || elem == kElemPQFar;
+}
 // the visited sets (the API's visited_slots: -1, 0, 2^s)
 constexpr int kVisDense = 0;
 constexpr int kVisBitmap = 1;
@@ -254,43 +287,98 @@ size_t pow2_at_least(size_t n) {
   return p;
 }
 
+// Where a PQ source keeps its distance table and its step's codes, given
+// ``used``, the shared bytes of the block's least layout (the room is what
+// is left of kSmemLimit):
+// the table (256 codes x G groups, a float each, a float2 under cosine:
+// the dot product and the centroid's sum of squares) and the staged codes
+// (T maxM slots x G bytes, rounded up to 8) in shared memory where both
+// fit; else the table alone, each row's codes read from the records; else
+// the table in device memory, ``words`` int32 a query after every query's
+// own scratch (8-aligned), the codes from the records.  All 0 for the
+// other sources (groups = 0).
+struct PqPlace {
+  size_t smem;     // shared bytes: the table where shared, staged codes
+  size_t words;    // device words a query: the table where not shared
+  int staged;      // the step's codes copied to shared memory after it
+};
+
+__host__ __device__ __forceinline__ size_t pq_table_bytes(int groups,
+                                                          int metric) {
+  return (size_t)256 * groups * (metric == kMetricCosine ? 8 : 4);
+}
+
+__host__ __device__ __forceinline__ size_t pq_code_bytes(int groups, int T,
+                                                         int maxM) {
+  return ((size_t)T * maxM * groups + 7) / 8 * 8;
+}
+
+PqPlace pq_place(int groups, int metric, int T, int maxM, size_t used) {
+  if (groups <= 0) return {0, 0, 0};
+  const size_t room = used < (size_t)kSmemLimit ? kSmemLimit - used : 0;
+  const size_t table = pq_table_bytes(groups, metric);
+  const size_t codes = pq_code_bytes(groups, T, maxM);
+  if (table + codes <= room) return {table + codes, 0, 1};
+  if (table <= room) return {table, 0, 0};
+  return {0, table / 4, 0};
+}
+
 // Shared memory: the query row (D rounded up to 4 floats), the result and
 // candidate queues twice (d, id), per expansion slot its id, the compacted
 // processed slots, the admitted (d, slot) and their ranked (d, id), 8
 // counters, then the held table (held_n ids) and the slot table (slot_n
-// ids and slot_n smallest slots); both tables are left out (0) where they
-// do not fit.  The wide instances (ef or cap above kMaxQueue): the query
-// row, the slot arrays, the counters, the slot table, then each queue
-// once (d, id; the candidate ring of ``ring`` entries) where they fit;
-// device memory, ``words`` int32 a query: the held bits (``held_words``,
-// two bits an id of ``rows``: the dense dedupe only), then the queues
-// where they do not fit in shared memory.
+// ids and slot_n smallest slots), then a PQ source's table and staged
+// codes (pq_place, placed first: the tables take what it leaves, and are
+// left out (0) where they do not fit).  The wide instances (ef or cap
+// above kMaxQueue): the query row, the slot arrays, the counters, the slot
+// table, the PQ table and codes, then each queue once (d, id; the
+// candidate ring of ``ring`` entries) where they fit; device memory,
+// ``words`` int32 a query: the held bits (``held_words``, two bits an id
+// of ``rows``: the dense dedupe only), then the queues where they do not
+// fit in shared memory; a PQ table that does not fit there takes pq.words
+// more, laid out after every query's own words (a table a query:
+// RowSource::pq_tables).
 struct WalkLayout {
   size_t smem;
   int held_n, slot_n, ring;
   size_t held_words, words;
+  int queues_shared;
+  PqPlace pq;
 };
 
+// The device words a query: ``words`` of the walk's own, then the PQ
+// table's (the own words rounded up to 2 first, so that the tables, after
+// all the queries' own words, are 8-aligned).
+size_t with_pq_words(size_t words, const PqPlace& pq) {
+  return pq.words ? (words + 1) / 2 * 2 + pq.words : words;
+}
+
 WalkLayout walk_layout(int ef, int cap, int T, int maxM, int D, int rows,
-                       bool dense) {
+                       bool dense, int groups, int metric) {
   const size_t tm = (size_t)T * maxM;
   const size_t row = 4 * (size_t)((D + 3) / 4 * 4);
   const size_t slots = pow2_at_least(2 * tm);
   if (ef > kMaxQueue || cap > kMaxQueue) {
     const size_t ring = ((size_t)cap + T - 1) / T * T;
-    const size_t fixed = row + 24 * tm + 32 + 8 * slots;
+    size_t fixed = row + 24 * tm + 32 + 8 * slots;
+    const PqPlace pq = pq_place(groups, metric, T, maxM, fixed);
+    fixed += pq.smem;
     const size_t queues = 8 * ((size_t)ef + ring);
     const size_t held = dense ? ((size_t)rows + 15) / 16 : 0;
     if (fixed + queues <= (size_t)kSmemLimit)
-      return {fixed + queues, 0, (int)slots, (int)ring, held, held};
-    return {fixed, 0, (int)slots, (int)ring, held, held + queues / 4};
+      return {fixed + queues, 0, (int)slots, (int)ring, held,
+              with_pq_words(held, pq), 1, pq};
+    return {fixed, 0, (int)slots, (int)ring, held,
+            with_pq_words(held + queues / 4, pq), 0, pq};
   }
   const size_t held = pow2_at_least(2 * ((size_t)ef + cap));
-  const size_t base = row + 16 * ((size_t)ef + cap) + 24 * tm + 32;
+  size_t base = row + 16 * ((size_t)ef + cap) + 24 * tm + 32;
+  const PqPlace pq = pq_place(groups, metric, T, maxM, base);
+  base += pq.smem;
   const size_t tables = 4 * held + 8 * slots;
   if (base + tables <= (size_t)kSmemLimit)
-    return {base + tables, (int)held, (int)slots, 0, 0, 0};
-  return {base, 0, 0, 0, 0, 0};
+    return {base + tables, (int)held, (int)slots, 0, 0, pq.words, 1, pq};
+  return {base, 0, 0, 0, 0, pq.words, 1, pq};
 }
 
 int walk_threads(int T, int maxM) {
@@ -359,14 +447,22 @@ __device__ __forceinline__ bool vis_has(const int* vis, int mode, int n,
 
 // Where phase 3 reads a neighbour's row: the rows or records of one element
 // type, each element widened to the float32 value the twin computes.
+// PQ records leave the int8 scales unused and take their tables' place in
+// that field (pq_place): the layout, and so the kernels' parameters, are
+// those of every other source.
 struct RowSource {
   const void* rows;       // [cap, D] rows or [cap, maxM, D] records (PQ: G)
-  const float* scales;    // int8: f32[cap] or f32[cap, maxM]
+  union {
+    const float* scales;  // int8: f32[cap] or f32[cap, maxM]
+    float* pq_tables;     // PQ: the queries' tables in device memory, a
+                          // table a query, or null: in shared memory
+  };
   const float* codebook;  // PQ: f32[G, 256, sub]
   int groups, sub;        // PQ: G and D / G
   int records;            // read at the popped row's slot, not at the id
   int round_pp;           // bf16 corpus rows under cosine: |p|^2 to bf16
-  int vec;                // 4-element loads (alignment and D allow them)
+  int vec;                // 4-element loads (alignment and D allow them;
+                          // PQ: of the codebook, in the table's build)
 };
 
 __device__ __forceinline__ float bf16_lo(unsigned w) {
@@ -383,13 +479,11 @@ __device__ __forceinline__ float i8_at(int w, int k, float sc) {
 }
 
 // The raw bits of 4 elements (the vector path: a float4, 4 int8 in 32
-// bits, 4 bf16 in 64 bits, or 4 elements of a PQ group's centroid) and of
-// one (the scalar path).  A warp's rows are loaded raw, all in flight
-// together, and widened only after: a widening right behind its load
-// would wait on it before the next row's load is issued (graph_probe's
-// widen-at-load variant).  A PQ element's centroid load waits on its
-// code's, inside load4: loading all a warp's codes first holds 8 more
-// registers, which spill at 256 threads.
+// bits, 4 bf16 in 64 bits) and of one (the scalar path).  A warp's rows
+// are loaded raw, all in flight together, and widened only after: a
+// widening right behind its load would wait on it before the next row's
+// load is issued (graph_probe's widen-at-load variant).  PQ rows are not
+// loaded this way: their codes index the query's table (score_rows).
 template <int kElem>
 struct Raw {
   using Vec = float4;
@@ -406,30 +500,19 @@ struct Raw<kElemBF16> {
   using One = unsigned;
 };
 
-// The PQ code of row ``at``'s group holding element e.
-__device__ __forceinline__ int pq_code(const RowSource& src, size_t at,
-                                       int e) {
-  return __ldg(reinterpret_cast<const unsigned char*>(src.rows) +
-               at * src.groups + e / src.sub);
-}
-
 // Elements [4c, 4c + 4) of row ``at``, raw.
 template <int kElem>
 __device__ __forceinline__ typename Raw<kElem>::Vec load4(
     const RowSource& src, size_t at, int c, int D) {
+  static_assert(!is_pq(kElem), "PQ rows are read through the table");
   if constexpr (kElem == kElemF32) {
     return __ldg(reinterpret_cast<const float4*>(src.rows) + at * (D / 4) +
                  c);
   } else if constexpr (kElem == kElemI8) {
     return __ldg(reinterpret_cast<const int*>(src.rows) + at * (D / 4) + c);
-  } else if constexpr (kElem == kElemBF16) {
+  } else {
     return __ldg(reinterpret_cast<const uint2*>(src.rows) + at * (D / 4) +
                  c);
-  } else {
-    const int e = 4 * c, g = e / src.sub;
-    const int code = pq_code(src, at, e);
-    return __ldg(reinterpret_cast<const float4*>(
-        src.codebook + ((size_t)g * 256 + code) * src.sub + (e - g * src.sub)));
   }
 }
 
@@ -437,18 +520,14 @@ __device__ __forceinline__ typename Raw<kElem>::Vec load4(
 template <int kElem>
 __device__ __forceinline__ typename Raw<kElem>::One load1(
     const RowSource& src, size_t at, int e, int D) {
+  static_assert(!is_pq(kElem), "PQ rows are read through the table");
   if constexpr (kElem == kElemF32) {
     return __ldg(reinterpret_cast<const float*>(src.rows) + at * D + e);
   } else if constexpr (kElem == kElemI8) {
     return __ldg(reinterpret_cast<const signed char*>(src.rows) + at * D + e);
-  } else if constexpr (kElem == kElemBF16) {
+  } else {
     return __ldg(reinterpret_cast<const unsigned short*>(src.rows) + at * D +
                  e);
-  } else {
-    const int g = e / src.sub;
-    return __ldg(src.codebook + ((size_t)g * 256 + pq_code(src, at, e)) *
-                                    src.sub +
-                 (e - g * src.sub));
   }
 }
 
@@ -497,6 +576,141 @@ __device__ __forceinline__ void accum(float p, float q, float& a, float& pp) {
   } else {
     a = __fadd_rn(a, fabsf(__fsub_rn(p, q)));
   }
+}
+
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
+                 "l"(src));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+                 "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// A PQ walk's table and staged codes (pq_place): kElemPQ's both in the
+// block's PQ region ``region`` in shared memory, the codes after the
+// table; kElemPQFar's table there too, or in device memory
+// (src.pq_tables, a table a query), and no staged codes (null: each row's
+// codes read from the records).
+struct PqTable {
+  float* tab;
+  unsigned char* staged;
+};
+
+template <int kElem>
+__device__ __forceinline__ PqTable pq_table(const RowSource& src, int metric,
+                                            unsigned char* region, int b) {
+  const size_t table = pq_table_bytes(src.groups, metric);
+  if constexpr (kElem == kElemPQ) {
+    return {reinterpret_cast<float*>(region), region + table};
+  } else {
+    if (src.pq_tables) return {src.pq_tables + b * (table / 4), nullptr};
+    return {reinterpret_cast<float*>(region), nullptr};
+  }
+}
+
+// The shared bytes of a PQ walk's region (pq_place's choice, as the
+// instance and src.pq_tables carry it).
+template <int kElem>
+__device__ __forceinline__ size_t pq_region_bytes(const RowSource& src,
+                                                  int metric, int T,
+                                                  int maxM) {
+  const size_t table = pq_table_bytes(src.groups, metric);
+  if constexpr (kElem == kElemPQ)
+    return table + pq_code_bytes(src.groups, T, maxM);
+  else
+    return src.pq_tables ? 0 : table;
+}
+
+// Phase 1 (PQ): the step's codes, copied to shared memory beside the links'
+// loads.  Slot s of popped row j (record p = pop_i[j], slot r) holds the
+// code of links[p, r]: where it lies is known before the link arrives, so
+// the copy needs no dependent latency; phase 3 reads a slot's G bytes at
+// staged + s G (waited for before phase 2's barrier: cp_async_wait_all).
+// 8- or 4-byte copies where G and the records' alignment allow, else byte
+// by byte.
+template <int kThreads>
+__device__ __forceinline__ void stage_pq_codes(const RowSource& src,
+                                               const int* pop_i,
+                                               const float* pop_d,
+                                               float lower, int maxM, int tm,
+                                               unsigned char* staged,
+                                               int tid) {
+  const int G = src.groups;
+  const unsigned char* rec = reinterpret_cast<const unsigned char*>(src.rows);
+  const uintptr_t base = reinterpret_cast<uintptr_t>(rec);
+  const int chunk = G % 8 == 0 && base % 8 == 0   ? 8
+                    : G % 4 == 0 && base % 4 == 0 ? 4
+                                                  : 1;
+  for (int s = tid; s < tm; s += kThreads) {
+    const int j = s / maxM, p = pop_i[j];
+    if (p < 0 || pop_d[j] > lower) continue;
+    const unsigned char* from = rec + ((size_t)p * maxM + (s - j * maxM)) * G;
+    unsigned char* to = staged + (size_t)s * G;
+    if (chunk > 1) {
+      for (int i = 0; i < G; i += chunk) cp_async(to + i, from + i, chunk);
+    } else {
+      for (int i = 0; i < G; ++i) to[i] = __ldg(from + i);
+    }
+  }
+}
+
+// The query's PQ distance table, built once a walk by the whole block:
+// entry (k, g) at k * G + g (the group minor: a warp's lanes, one group
+// each, read 32 banks) is accum's sums over group g's elements of centroid
+// k against the query, from 0 in element order, each operation rounded:
+// L2 sum (c - q)^2, Manhattan sum |c - q|, cosine (sum c q, sum c^2) as a
+// float2.  Consecutive threads take consecutive entries, so the stores
+// are conflict-free; the centroids come from L2 (the codebook is read
+// from device memory once a launch).  The blocks that start together
+// build at once, bound by L2's bandwidth: a thread's entries one at a
+// time (two or four with their loads in flight spill, and gain 1% at
+// best: PERF.md).
+template <int kMetric, int kThreads>
+__device__ __forceinline__ void build_pq_table_m(const RowSource& src,
+                                                 const float* q_s,
+                                                 float* tab, int tid) {
+  const int G = src.groups, sub = src.sub;
+  for (int i = tid; i < 256 * G; i += kThreads) {
+    const int k = i / G, g = i - k * G;
+    const float* c = src.codebook + ((size_t)g * 256 + k) * sub;
+    const float* q = q_s + g * sub;
+    float a = 0.f, pp = 0.f;
+    if (src.vec) {
+      for (int j = 0; j < sub; j += 4) {
+        const float4 cv = __ldg(reinterpret_cast<const float4*>(c + j));
+        const float4 qv = *reinterpret_cast<const float4*>(q + j);
+        accum<kMetric>(cv.x, qv.x, a, pp);
+        accum<kMetric>(cv.y, qv.y, a, pp);
+        accum<kMetric>(cv.z, qv.z, a, pp);
+        accum<kMetric>(cv.w, qv.w, a, pp);
+      }
+    } else {
+      for (int j = 0; j < sub; ++j) accum<kMetric>(__ldg(c + j), q[j], a, pp);
+    }
+    if (kMetric == kMetricCosine)
+      reinterpret_cast<float2*>(tab)[i] = make_float2(a, pp);
+    else
+      tab[i] = a;
+  }
+}
+
+template <int kThreads>
+__device__ __forceinline__ void build_pq_table(const RowSource& src,
+                                               int metric, const float* q_s,
+                                               float* tab, int tid) {
+  if (metric == kMetricL2)
+    build_pq_table_m<kMetricL2, kThreads>(src, q_s, tab, tid);
+  else if (metric == kMetricCosine)
+    build_pq_table_m<kMetricCosine, kThreads>(src, q_s, tab, tid);
+  else
+    build_pq_table_m<kMetricManhattan, kThreads>(src, q_s, tab, tid);
 }
 
 // The butterfly levels (offsets O, O/2, ...) that also halve the rows a
@@ -640,12 +854,16 @@ __device__ __forceinline__ void record_visits(int vis_mode, int* vis,
 
 // Phase 3's distances: each warp scores kRowsPerWarp processed slots at a
 // time (their row loads issued together), and appends those below lower to
-// new_ds (d, slot bits) with one atomic a warp.
+// new_ds (d, slot bits) with one atomic a warp.  PQ rows: each lane reads
+// its groups' code bytes of the warp's rows (staged in shared memory by
+// phase 1, or from the records), then adds their entries of the query's
+// table ``pq.tab`` (build_pq_table) into its partials.
 template <int kMetric, int kElem, int kWarps>
 __device__ __forceinline__ void score_rows(
-    const RowSource& src, const float* q_s, int D, int maxM, float qq,
-    float lower, const int* proc, int n_proc, const int* slot_id,
-    const int* ci, int* n_new, float2* new_ds, int warp, int lane) {
+    const RowSource& src, const float* q_s, const PqTable& pq, int D,
+    int maxM, float qq, float lower, const int* proc, int n_proc,
+    const int* slot_id, const int* ci, int* n_new, float2* new_ds, int warp,
+    int lane) {
   constexpr int R = kRowsPerWarp, kLanesPerRow = 32 / R;
   const float4* q4 = reinterpret_cast<const float4*>(q_s);
   for (int e0 = warp * R; e0 < n_proc; e0 += kWarps * R) {
@@ -659,13 +877,40 @@ __device__ __forceinline__ void score_rows(
       at[u] = -1;
       if (e0 + u < n_proc) {
         const int s = proc[e0 + u];
-        at[u] = src.records ? ci[s / maxM] * maxM + s % maxM : slot_id[s];
+        // (PQ: the slot, whose codes phase 1 staged, or the record)
+        at[u] = kElem == kElemPQ ? s
+                : src.records    ? ci[s / maxM] * maxM + s % maxM
+                                 : slot_id[s];
       }
     }
     // per chunk of a row: every row's raw elements and int8 scale, then
     // the widening and the sums
     float sc[R];
-    if (src.vec) {
+    if constexpr (is_pq(kElem)) {
+      const int G = src.groups;
+      const float* tab = pq.tab;
+      const unsigned char* rec = static_cast<const unsigned char*>(src.rows);
+      for (int g = lane; g < G; g += 32) {
+        int code[R];
+#pragma unroll
+        for (int u = 0; u < R; ++u)
+          code[u] = at[u] < 0 ? 0
+                    : kElem == kElemPQ ? pq.staged[at[u] * G + g]
+                                       : __ldg(rec + (size_t)at[u] * G + g);
+#pragma unroll
+        for (int u = 0; u < R; ++u) {
+          if (at[u] < 0) continue;
+          if (kMetric == kMetricCosine) {
+            const float2 t =
+                reinterpret_cast<const float2*>(tab)[code[u] * G + g];
+            a[u] = __fadd_rn(a[u], t.x);
+            pp[u] = __fadd_rn(pp[u], t.y);
+          } else {
+            a[u] = __fadd_rn(a[u], tab[code[u] * G + g]);
+          }
+        }
+      }
+    } else if (src.vec) {
       for (int c = lane; c < D / 4; c += 32) {
         const float4 qv = q4[c];
         typename Raw<kElem>::Vec raw[R];
@@ -772,6 +1017,11 @@ beam_walk_kernel(const int* __restrict__ links, const int* __restrict__ counts,
   int* held = ctr + 8;
   int* slot_key = held + held_n;
   int* slot_min = slot_key + slot_n;
+  // a PQ source's distance table and staged codes (pq_table; shared memory
+  // 8-aligned: every offset before it is), or its table in device memory
+  unsigned char* region = reinterpret_cast<unsigned char*>(slot_min + slot_n);
+  PqTable pq{nullptr, nullptr};
+  if constexpr (is_pq(kElem)) pq = pq_table<kElem>(src, metric, region, b);
   // the hash set's processed slots, a word a 32-slot chunk, from phase 2 to
   // phase 3's writes (srt_i is next written in phase 4)
   unsigned* proc_bits = reinterpret_cast<unsigned*>(srt_i);
@@ -800,6 +1050,8 @@ beam_walk_kernel(const int* __restrict__ links, const int* __restrict__ counts,
     s = warp_sum(s);
     if (lane == 0) ctr[4] = __float_as_int(s);
   }
+  if constexpr (is_pq(kElem))
+    build_pq_table<kThreads>(src, metric, q_s, pq.tab, tid);
   __syncthreads();
   const float qq = __int_as_float(ctr[4]);
   int hops = 0, evals = 0;
@@ -830,6 +1082,8 @@ beam_walk_kernel(const int* __restrict__ links, const int* __restrict__ counts,
     };
     int left = 0, link = -1;
     if (tid < tm) load_slot(tid, left, link);   // in flight over the inserts
+    if constexpr (kElem == kElemPQ)
+      stage_pq_codes<kThreads>(src, ci, cd, lower, maxM, tm, pq.staged, tid);
     if (hashed && vis_mode == kVisDense) {
       for (int i = tid; i < cap + ef; i += kThreads) {
         const int id = i < cap ? ci[i] : ri[i - cap];
@@ -873,6 +1127,8 @@ beam_walk_kernel(const int* __restrict__ links, const int* __restrict__ counts,
       at = __shfl_sync(kFull, at, 0);
       if (keep) proc[at + __popc(m & ((1u << lane) - 1u))] = s;
     }
+    // the staged PQ codes have landed (phase 3 reads them)
+    if constexpr (kElem == kElemPQ) cp_async_wait_all();
     __syncthreads();
     const int n_proc = cnt[0];
     if (tid == 0) laps.lap(kLapDedupe);
@@ -889,17 +1145,18 @@ beam_walk_kernel(const int* __restrict__ links, const int* __restrict__ counts,
                             proc_bits, tm, tid, warp, lane);
     // distances, kRowsPerWarp neighbours a warp at a time; admit
     if (metric == kMetricL2)
-      score_rows<kMetricL2, kElem, kWarps>(src, q_s, D, maxM, qq, lower,
-                                           proc, n_proc, slot_id, ci,
+      score_rows<kMetricL2, kElem, kWarps>(src, q_s, pq, D, maxM, qq,
+                                           lower, proc, n_proc, slot_id, ci,
                                            cnt + 1, new_ds, warp, lane);
     else if (metric == kMetricCosine)
-      score_rows<kMetricCosine, kElem, kWarps>(src, q_s, D, maxM, qq, lower,
-                                               proc, n_proc, slot_id, ci,
-                                               cnt + 1, new_ds, warp, lane);
+      score_rows<kMetricCosine, kElem, kWarps>(src, q_s, pq, D, maxM, qq,
+                                               lower, proc, n_proc, slot_id,
+                                               ci, cnt + 1, new_ds, warp,
+                                               lane);
     else
       score_rows<kMetricManhattan, kElem, kWarps>(
-          src, q_s, D, maxM, qq, lower, proc, n_proc, slot_id, ci, cnt + 1,
-          new_ds, warp, lane);
+          src, q_s, pq, D, maxM, qq, lower, proc, n_proc, slot_id, ci,
+          cnt + 1, new_ds, warp, lane);
     __syncthreads();
     const int n_new = cnt[1];
     if (tid == 0) laps.lap(kLapRows);
@@ -1004,7 +1261,16 @@ beam_walk_wide_kernel(const int* __restrict__ links,
   int* slot_min = slot_key + slot_n;
   int* mine = wide_words ? wide_mem + b * wide_words : nullptr;
   unsigned* held = reinterpret_cast<unsigned*>(mine);
-  float* rd = queues_shared ? reinterpret_cast<float*>(slot_min + slot_n)
+  // a PQ source's distance table and staged codes after the slot table (or
+  // its table in device memory: pq_table), then the queues where they are
+  // in shared memory
+  unsigned char* region = reinterpret_cast<unsigned char*>(slot_min + slot_n);
+  PqTable pq{nullptr, nullptr};
+  if constexpr (is_pq(kElem)) pq = pq_table<kElem>(src, metric, region, b);
+  size_t pq_bytes = 0;
+  if constexpr (is_pq(kElem))
+    pq_bytes = pq_region_bytes<kElem>(src, metric, T, maxM);
+  float* rd = queues_shared ? reinterpret_cast<float*>(region + pq_bytes)
                             : reinterpret_cast<float*>(mine + held_words);
   float* cd = rd + ef;
   int* ri = reinterpret_cast<int*>(cd + ring);
@@ -1038,6 +1304,8 @@ beam_walk_wide_kernel(const int* __restrict__ links,
     s = warp_sum(s);
     if (lane == 0) ctr[4] = __float_as_int(s);
   }
+  if constexpr (is_pq(kElem))
+    build_pq_table<kThreads>(src, metric, q_s, pq.tab, tid);
   __syncthreads();
   const float qq = __int_as_float(ctr[4]);
   int hops = 0, evals = 0;
@@ -1055,6 +1323,9 @@ beam_walk_wide_kernel(const int* __restrict__ links,
 
     // --- 1. the popped rows' links; the slot table; each slot's held word
     // (slot tid's in a register till phase 2), read as its link arrives
+    if constexpr (kElem == kElemPQ)
+      stage_pq_codes<kThreads>(src, pop_i, pop_d, lower, maxM, tm, pq.staged,
+                               tid);
     unsigned word = 0;
     for (int s = tid; s < tm; s += kThreads) {
       const int j = s / maxM, r = s - j * maxM;
@@ -1093,6 +1364,8 @@ beam_walk_wide_kernel(const int* __restrict__ links,
       at = __shfl_sync(kFull, at, 0);
       if (keep) proc[at + __popc(m & ((1u << lane) - 1u))] = s;
     }
+    // the staged PQ codes have landed (phase 3 reads them)
+    if constexpr (kElem == kElemPQ) cp_async_wait_all();
     __syncthreads();
     const int n_proc = cnt[0];
     if (tid == 0) laps.lap(kLapDedupe);
@@ -1110,16 +1383,18 @@ beam_walk_wide_kernel(const int* __restrict__ links,
       atomicAnd(held + (pop_i[j] >> 4),
                 ~(kInCand << (2 * (pop_i[j] & 15))));
     if (metric == kMetricL2)
-      score_rows<kMetricL2, kElem, kWarps>(src, q_s, D, maxM, qq, lower,
-                                           proc, n_proc, slot_id, pop_i,
-                                           cnt + 1, new_ds, warp, lane);
+      score_rows<kMetricL2, kElem, kWarps>(src, q_s, pq, D, maxM, qq,
+                                           lower, proc, n_proc, slot_id,
+                                           pop_i, cnt + 1, new_ds, warp,
+                                           lane);
     else if (metric == kMetricCosine)
-      score_rows<kMetricCosine, kElem, kWarps>(src, q_s, D, maxM, qq, lower,
-                                               proc, n_proc, slot_id, pop_i,
-                                               cnt + 1, new_ds, warp, lane);
+      score_rows<kMetricCosine, kElem, kWarps>(src, q_s, pq, D, maxM, qq,
+                                               lower, proc, n_proc, slot_id,
+                                               pop_i, cnt + 1, new_ds, warp,
+                                               lane);
     else
       score_rows<kMetricManhattan, kElem, kWarps>(
-          src, q_s, D, maxM, qq, lower, proc, n_proc, slot_id, pop_i,
+          src, q_s, pq, D, maxM, qq, lower, proc, n_proc, slot_id, pop_i,
           cnt + 1, new_ds, warp, lane);
     __syncthreads();
     const int n_new = cnt[1];
@@ -1274,6 +1549,9 @@ cudaError_t launch(const WalkArgs& a, WalkLayout lay, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// The wide instances' device memory a query, ``wide_words`` to the kernel:
+// the walk's own words (a PQ table in device memory lies after all the
+// queries' own words: WalkArgs::src.pq_tables).
 template <int kElem>
 cudaError_t launch_wide(const WalkArgs& a, WalkLayout lay,
                         cudaStream_t stream) {
@@ -1283,9 +1561,9 @@ cudaError_t launch_wide(const WalkArgs& a, WalkLayout lay,
   if (err != cudaSuccess) return err;
   beam_walk_wide_kernel<kElem><<<a.B, kWideThreads, lay.smem, stream>>>(
       a.links, a.counts, a.src, a.queries, a.entry_d, a.visited, a.wide_mem,
-      lay.words, lay.held_words, lay.words == lay.held_words, a.has_nodes,
-      a.D, a.maxM, a.T, a.ef, a.cap, lay.ring, a.metric, a.vis_mode,
-      a.vis_n, lay.slot_n, a.out_d, a.out_i, a.hops, a.evals);
+      lay.words - lay.pq.words, lay.held_words, lay.queues_shared,
+      a.has_nodes, a.D, a.maxM, a.T, a.ef, a.cap, lay.ring, a.metric,
+      a.vis_mode, a.vis_n, lay.slot_n, a.out_d, a.out_i, a.hops, a.evals);
   return cudaGetLastError();
 }
 
@@ -1316,15 +1594,19 @@ extern "C" {
 // the neighbour's id (records = 0) or [cap, maxM, D] records read at the
 // popped row's slot (records = 1; PQ: [cap, maxM, groups], records only);
 // int8: ``scales`` f32[cap] or f32[cap, maxM] beside them; PQ:
-// ``codebook`` f32[groups, 256, D / groups].  queries f32[B, D] (the walk's
-// query), entry_d f32[B] (read only when has_nodes).  visited_slots: -1
-// the dense dedupe (``visited`` unread), 0 the bitmap (``visited``
-// i32[B, vis_n] words, vis_n >= cap / 32, zeroed but node 0's bit), 2^s
-// >= 4 the hash set (``visited`` i32[B, 2^s], vis_n = 2^s, -1 but slot 0 =
-// node 0); the kernel updates it.  ``wide_mem`` i32[B, wide_words], a
-// walk with ef or cap above 320: zeroed by the caller; the held bits of
-// the dense dedupe over ``n_rows`` ids (the links' rows), then the queues
-// where they do not fit in shared memory (unread otherwise).  All
+// ``codebook`` f32[groups, 256, D / groups], whose distance table a block
+// builds in shared memory, with the step's codes beside it where they fit,
+// else in device memory (pq_place, counted in smem_bytes and wide_words).
+// queries f32[B, D] (the walk's query), entry_d f32[B] (read only when
+// has_nodes).  visited_slots: -1 the dense dedupe (``visited`` unread), 0
+// the bitmap (``visited`` i32[B, vis_n] words, vis_n >= cap / 32, zeroed
+// but node 0's bit), 2^s >= 4 the hash set (``visited`` i32[B, 2^s], vis_n
+// = 2^s, -1 but slot 0 = node 0); the kernel updates it.  ``wide_mem``
+// i32[B, wide_words] (wide_words 0: unread): for a walk with ef or cap
+// above 320, zeroed by the caller, the held bits of the dense dedupe over
+// ``n_rows`` ids (the links' rows), then the queues where they do not fit
+// in shared memory; then, after every query's words of those, a PQ table a
+// query where it does not fit there.  All
 // contiguous; T <= cap, ef and cap <= 2^20; smem_bytes and wide_words from
 // ops/cuda_graph._walk_layout and _walk_wide_words.  Writes out_d f32[B,
 // ef], out_i i32[B, ef], hops i32[B], evals i32[B].  Returns the launch's
@@ -1355,8 +1637,9 @@ int beam_walk(const int* links, const int* counts, const void* rows,
       (visited_slots < 4 || (visited_slots & (visited_slots - 1)) ||
        vis_n != visited_slots))
     return (int)cudaErrorInvalidValue;
-  const WalkLayout lay = walk_layout(ef, cap, T, maxM, D, n_rows,
-                                     vis_mode == kVisDense);
+  const WalkLayout lay =
+      walk_layout(ef, cap, T, maxM, D, n_rows, vis_mode == kVisDense,
+                  elem == kElemPQ ? groups : 0, metric);
   if (lay.smem != (size_t)smem_bytes || lay.smem > (size_t)kSmemLimit ||
       lay.words != (size_t)wide_words || (lay.words && !wide_mem))
     return (int)cudaErrorInvalidValue;
@@ -1371,6 +1654,12 @@ int beam_walk(const int* links, const int* counts, const void* rows,
     src.vec = D % 4 == 0 && aligned(rows, 8);
   else
     src.vec = src.sub % 4 == 0 && aligned(codebook, 16);
+  if (elem == kElemPQ) {
+    src.pq_tables = lay.pq.words ? reinterpret_cast<float*>(
+                                       wide_mem + (size_t)B * (lay.words -
+                                                               lay.pq.words))
+                                 : nullptr;
+  }
   const WalkArgs a{links,  counts, src,  queries, entry_d, visited, wide_mem,
                    has_nodes, B, D, maxM, T, ef, cap, metric, vis_mode,
                    vis_n,  out_d,  out_i, hops,   evals};
@@ -1380,7 +1669,10 @@ int beam_walk(const int* links, const int* counts, const void* rows,
     case kElemF32: err = launch_elem<kElemF32>(a, lay, stream); break;
     case kElemI8: err = launch_elem<kElemI8>(a, lay, stream); break;
     case kElemBF16: err = launch_elem<kElemBF16>(a, lay, stream); break;
-    default: err = launch_elem<kElemPQ>(a, lay, stream); break;
+    default:
+      err = lay.pq.staged ? launch_elem<kElemPQ>(a, lay, stream)
+                          : launch_elem<kElemPQFar>(a, lay, stream);
+      break;
   }
   return (int)err;
 }

@@ -4,6 +4,8 @@
   python -m pg_embedding_tpu_torch.graph_probe --mode wiring [--n ROWS]
   python -m pg_embedding_tpu_torch.graph_probe --mode wide [--n ROWS]
       [--before FILE]
+  python -m pg_embedding_tpu_torch.graph_probe --mode pq [--n ROWS]
+      [--before FILE]
 
 Builds csrc/beam_walk.cu and csrc/prune_scan.cu in variants, each a rewrite
 of the sources' text (as sweep_probe.py builds its variants) compiled into
@@ -65,6 +67,23 @@ CROSSOVER through the kernel and through the other scheme (wide-from-256
 up to 320, tables-to-4096 past it).  Times are device_ms (``--reps``
 calls, 3 by default in this mode).
 
+``--mode pq`` times the PQ walk (the table instances' PQ row source: the
+query's distance table in shared memory) on the same 1M index at T = 8,
+ef = 64, PQ trained by the index (HnswIndex._ensure_pq_codebook) at
+PQ_CASES: G = 16, 32 and 64 under L2, OPQ at G = 32 and cosine at G = 32;
+with ``--before FILE`` (an earlier tree's csrc/beam_walk.cu, its row
+source the codebook read through the read-only cache, launched without
+the table's bytes) against it, in turns (kernel, before, before, kernel),
+beside the float32 rows' walks at T = 4 and 8 (the main path's instances,
+which the table leaves as they were).  Each case's answers are checked:
+against the earlier tree's bit for bit (ids, distances, hops, evals) at G
+= 32, and against the plain twin (core/search._search_batch on the card)
+by chip_smoke.py's bar at every G (recall@10 after finish_walk against the
+exact route under the walk's metric within 0.002, ids on >= 98% of
+queries, mean hops and dist_evals within 1%).  Then the profile builds'
+laps a block-step, the kernel's and the earlier tree's (setup: the
+table's build, once a block), and the PQ instances' ptxas reports.
+
 ``--mode wiring`` builds csrc/connect_batch.cu in its own variants
 (WIRING_VARIANTS):
   kernel        the source as it is: a warp per sorted op
@@ -98,6 +117,7 @@ import argparse
 import concurrent.futures
 import ctypes
 import os
+import re
 import subprocess
 
 import numpy as np
@@ -177,9 +197,9 @@ VARIANTS = {
     "one-block": ((), ((WALK, "constexpr int kWideMinBlocks = 2;",
                         "constexpr int kWideMinBlocks = 1;"),
                        (WALK, "      return {fixed + queues, 0, (int)slots, "
-                        "(int)ring, held, held};\n",
+                        "(int)ring, held,\n",
                         "      return {fixed + queues + 120000, 0, "
-                        "(int)slots, (int)ring, held, held};\n"))),
+                        "(int)slots, (int)ring, held,\n"))),
 }
 # name: (nvcc flags, rewrites (source, text, replacement))
 WIRING_VARIANTS = {
@@ -212,6 +232,9 @@ MAX_QUEUE = {"wide-from-256": 256, "tables-to-4096": 4096}
 ONE_BLOCK_PAD = 120_000
 # the variants timed on the int8 rows (quantized traversal) too
 INT8_RUNS = ("kernel", "widen-at-load")
+# --mode pq: (G, the walk's metric, OPQ) of each PQ walk timed
+PQ_CASES = ((16, 0, False), (32, 0, False), (64, 0, False), (32, 0, True),
+            (32, 1, False))
 
 
 def prune_smem_bytes(c: int) -> int:
@@ -241,13 +264,14 @@ def variant_sources(name: str, wiring: bool = False) -> dict:
     return out
 
 
-def build(name: str, wiring: bool = False, sources=None):
+def build(name: str, wiring: bool = False, sources=None, flags=None):
     """Variant ``name``'s library (of WIRING_VARIANTS where ``wiring``,
     else of VARIANTS; or, given ``sources``, those texts by file name,
-    built as they are): its sources compiled with its flags added to
-    nvcc's; returns it loaded and declared."""
-    flags = () if sources else (
-        WIRING_VARIANTS if wiring else VARIANTS)[name][0]
+    built as they are, with ``flags`` if given): its sources compiled with
+    its flags added to nvcc's; returns it loaded and declared."""
+    if flags is None:
+        flags = () if sources else (
+            WIRING_VARIANTS if wiring else VARIANTS)[name][0]
     os.makedirs(OUT, exist_ok=True)
     srcs = []
     tag = f"wiring_{name}" if wiring else name
@@ -285,21 +309,24 @@ def build_all(names=tuple(VARIANTS), wiring: bool = False) -> dict:
 
 
 def walk(lib, graph, queries, *, ef, cand_cap, t, metric_value,
-         variant="kernel", **operands):
+         variant="kernel", pq_table=True, **operands):
     """One launch of ``lib``'s walk (the shared-memory figure of its
     variant) over float32 rows or the row source ``operands`` give
-    (ops/cuda_graph.beam_walk's)."""
+    (ops/cuda_graph.beam_walk's); ``pq_table`` False: a tree whose PQ
+    source takes no table, laid out as the other sources are."""
     widest = cg.MAX_WALK_QUEUE
     cg.MAX_WALK_QUEUE = MAX_QUEUE.get(variant, widest)  # its source's layout
     try:
+        src = cg._check_walk_args(graph, queries, ef, cand_cap, t,
+                                  metric_value, **operands)
+        if not pq_table:
+            src = src._replace(pq=None)
         smem, held, slots = cg._walk_layout(ef, cand_cap, t, graph.max_m,
-                                            graph.dims)
+                                            graph.dims, src.pq)
         if variant == "dense":
             smem -= 4 * held + 8 * slots
         if variant == "one-block" and max(ef, cand_cap) > widest:
             smem += ONE_BLOCK_PAD
-        src = cg._check_walk_args(graph, queries, ef, cand_cap, t,
-                                  metric_value, **operands)
         return cg._launch_walk(lib, graph, queries, src, ef=ef,
                                cand_cap=cand_cap, t=t,
                                metric_value=metric_value, smem=smem)
@@ -598,7 +625,7 @@ def wide_main(args) -> int:
             names = ["kernel", *(["before"] if "before" in libs else []),
                      *(["one-block", "move-run-2", "move-run-8"]
                        if (ef, cap) == (5120, 5120) else [])]
-            smem = cg._walk_smem_bytes(ef, cap, 8, g.max_m, g.dims)
+            smem = cg._walk_smem_bytes(ef, cap, 8, g.max_m, g.dims, None)
             label = (f"wide B={b} ef={ef} cand_cap={cap} T=8 ({smem} bytes "
                      f"of shared memory a block)")
             timed(names, q, kw, label)
@@ -614,6 +641,146 @@ def wide_main(args) -> int:
             timed(["kernel", other], q_all[:b], kw,
                   f"crossover B={b} ef=cand_cap={ef} T=8")
     return 0
+
+
+def pq_libs(args) -> dict:
+    """--mode pq's builds: the kernel and its profile build, and with
+    ``--before`` the earlier tree's source built both ways (this tree's
+    scan beside it); each library's PQ instances' ptxas lines printed."""
+    builds = {n: (build, (n,), {}) for n in ("kernel", "profile")}
+    if args.before:
+        with open(args.before) as f:
+            text = f.read()
+        with open(os.path.join(CSRC, SCAN)) as f:
+            sources = {WALK: text, SCAN: f.read()}
+        builds["before"] = (build, ("before",), dict(sources=sources))
+        builds["before-profile"] = (build, ("before-profile",), dict(
+            sources=sources, flags=PROFILE))
+    with concurrent.futures.ThreadPoolExecutor(len(builds)) as ex:
+        futs = {n: ex.submit(fn, *a, **kw) for n, (fn, a, kw)
+                in builds.items()}
+        libs = {n: f.result() for n, f in futs.items()}
+    for name, lib in libs.items():
+        if name.startswith("before"):
+            _kernels.declare_graph(lib)
+        with open(os.path.join(OUT, name + ".so.log")) as f:
+            fn = None
+            for line in f:
+                if "Compiling entry" in line:
+                    fn = line.split("'")[1]
+                elif (fn and re.search(r"beam_walk(_wide)?_kernelILi[34]E",
+                                       fn)
+                      and ("Used" in line or "spill" in line)):
+                    print(f"ptxas {name} {fn}: {line.strip()}", flush=True)
+    return libs
+
+
+def twin_bar(got, want, graph, queries, metric_value, rerank, truth):
+    """chip_smoke.py's bar of a walk against its twin: (recall@10 of each
+    after finish_walk against ``truth``, queries whose ids differ, mean
+    hops and dist_evals of each) and whether it holds (recall within
+    0.002, ids on >= 98% of queries, hops and evals within 1%)."""
+    from .core import search as core_search
+    fin = dict(metric_value=metric_value, hashed=False, rerank=rerank)
+    ki = core_search.finish_walk(graph, queries, *got[:2], **fin)[1]
+    pi = core_search.finish_walk(graph, queries, *want[:2], **fin)[1]
+
+    def recall(ids):
+        ids = ids[:, :truth.shape[1]].cpu().numpy()
+        return float(np.mean([len(set(a) & set(b)) / truth.shape[1]
+                              for a, b in zip(ids, truth)]))
+    rk, rp = recall(ki), recall(pi)
+    n_diff = int((~(ki == pi).all(dim=1)).sum())
+    hk, hp = (float(x[2].float().mean()) for x in (got, want))
+    ek, ep = (float(x[3].float().mean()) for x in (got, want))
+    held = (abs(rk - rp) <= 0.002 and n_diff <= 0.02 * len(ki)
+            and abs(hk - hp) <= 0.01 * hp and abs(ek - ep) <= 0.01 * ep)
+    return (rk, rp, n_diff, hk, hp, ek, ep), held
+
+
+def pq_main(args) -> int:
+    """--mode pq: the PQ walk's instances against the earlier tree's, the
+    twin and the float32 rows' walks (see the module's note)."""
+    from . import HnswConfig, HnswIndex
+    from .core import search as core_search
+    from .ops.cuda_bruteforce import fused_exact_search
+    from .ops.distance import _matmul
+    from .utils.io import synthetic_clustered
+    libs = pq_libs(args)
+    before = "before" in libs
+    pts, qs = synthetic_clustered(args.n, 128, 1_000, seed=12345,
+                                  n_queries=1024)
+    idx = HnswIndex(HnswConfig(dims=128, m=16, ef_construction=64,
+                               ef_search=64), device="cuda")
+    idx.build(pts)
+    del pts
+    g, q = idx.graph, torch.as_tensor(qs, device="cuda")
+    ok = True
+
+    def timed(label, kw, names):
+        ms = {n: [] for n in names}
+        for name in (*names, *names[::-1]):
+            ms[name].append(device_ms(lambda: walk(
+                libs[name], g, q, **kw, pq_table=name != "before"),
+                args.reps))
+        for name in names:
+            print(f"{label} {name} (ms on the card, in turns): "
+                  + " / ".join(f"{m:.4f}" for m in ms[name]), flush=True)
+
+    for t in (4, 8):
+        kw = dict(ef=64, cand_cap=64, t=t, metric_value=0)
+        timed(f"f32 rows T={t}", kw, ["kernel", *(["before"] * before)])
+    truths = {}
+    for groups, metric, opq in PQ_CASES:
+        if (groups, opq) != (idx.pq_groups, idx.pq_opq) or \
+                idx._pq_codebook is None:
+            idx.pq_groups, idx.pq_opq = groups, opq
+            idx._pq_codebook = idx._pq_rot = idx._pq_codes = None
+            idx._pcodes = None
+            idx.packed_traversal, idx.packed_dtype = True, "pq"
+            idx._ensure_pq_codebook()
+            idx._ensure_pq_codes()
+            idx._ensure_packed()
+        ops = dict(records=idx._pcodes, pq_codebook=idx._pq_codebook)
+        if opq:
+            ops["query_t"] = _matmul(q, idx._pq_rot)
+        kw = dict(ef=64, cand_cap=64, t=8, metric_value=metric, **ops)
+        smem = cg._walk_smem_bytes(64, 64, 8, g.max_m, g.dims,
+                                   cg.PqTable(groups, metric))
+        label = (f"pq G={groups}{' OPQ' if opq else ''} "
+                 f"{('L2', 'cosine', 'Manhattan')[metric]} T=8 ef=64 "
+                 f"({smem} bytes of shared memory a block)")
+        got = walk(libs["kernel"], g, q, **kw)
+        if before:
+            old = walk(libs["before"], g, q, pq_table=False, **kw)
+            same = all(torch.equal(a, b) for a, b in zip(got, old))
+            print(f"{label}: ids, distances, hops and evals equal to the "
+                  f"earlier tree's: {same}", flush=True)
+            ok &= same or groups != 32
+        if metric not in truths:
+            truths[metric] = fused_exact_search(
+                q, g.vectors, 10, metric=metric,
+                n_valid=g.n_nodes)[1].cpu().numpy()
+        want = core_search._search_batch(
+            g, q, ef=64, metric_value=metric, cand_cap=64, expand_width=8,
+            pcodes=ops["records"], pq_codebook=ops["pq_codebook"],
+            query_t=ops.get("query_t"))
+        (rk, rp, n_diff, hk, hp, ek, ep), held = twin_bar(
+            got, want, g, q, metric, True, truths[metric])
+        print(f"{label} vs the twin: recall@10 {rk:.4f} / {rp:.4f}; ids "
+              f"differ on {n_diff} of {len(q)} queries; hops {hk:.2f} / "
+              f"{hp:.2f}, dist_evals {ek:.1f} / {ep:.1f}; the bar holds: "
+              f"{held}", flush=True)
+        ok &= held
+        timed(label, kw, ["kernel", *(["before"] * before)])
+        for name in ("profile", *(["before-profile"] * before)):
+            r = walk_phases(libs[name], g, q, **kw,
+                            pq_table=name != "before-profile")
+            print(f"{label} {name} cycles a block-step "
+                  f"({r['steps']:.2f} steps a block; setup: a block): "
+                  f"{format_cycles(r['cycles'])}", flush=True)
+    print(f"pq: every check held: {ok}", flush=True)
+    return 0 if ok else 1
 
 
 def format_cycles(cycles: dict) -> str:
@@ -669,9 +836,9 @@ def main() -> int:
     ap.add_argument("--n", type=int, default=1_000_000)
     ap.add_argument("--reps", type=int, default=None,
                     help="calls a CUDA graph replays (20; --mode wide 3)")
-    ap.add_argument("--mode", choices=("walk", "wiring", "wide"),
+    ap.add_argument("--mode", choices=("walk", "wiring", "wide", "pq"),
                     default="walk")
-    ap.add_argument("--before", help="--mode wide: an earlier tree's "
+    ap.add_argument("--before", help="--mode wide / pq: an earlier tree's "
                     "csrc/beam_walk.cu, timed beside the kernel")
     args = ap.parse_args()
     if args.reps is None:
@@ -687,6 +854,8 @@ def main() -> int:
         return wiring_main(args)
     if args.mode == "wide":
         return wide_main(args)
+    if args.mode == "pq":
+        return pq_main(args)
     libs = build_all(tuple(n for n in VARIANTS if n not in WIDE_BUILDS
                            or n in ("kernel", "profile")))
     for name in libs:

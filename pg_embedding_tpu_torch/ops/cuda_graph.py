@@ -16,8 +16,10 @@ launch:
     package's walk: neighbour rows from the float32 or bf16 corpus rows,
     int8 rows x scales (quantized traversal), float32 / bf16 / int8 (x
     scales) packed records or PQ records through a codebook (with OPQ's
-    rotated query), the dense dedupe or the bitmap or hash visited set,
-    any metric and T, and ef and cand_cap up to MAX_WIDE_QUEUE (queues
+    rotated query; the codes read through a per-query distance table in
+    shared memory, whose plain form is pq_walk_table_plain and
+    pq_walk_score_plain), the dense dedupe or the bitmap or hash visited
+    set, any metric and T, and ef and cand_cap up to MAX_WIDE_QUEUE (queues
     wider than MAX_WALK_QUEUE in the wide instances, which keep the held
     set from step to step; core/search.walk_route sends every walk on the
     card here).
@@ -47,7 +49,7 @@ import torch
 
 from .. import _kernels
 from ..config import Metric
-from .distance import dist_one_to_many
+from .distance import _sqrt, dist_one_to_many
 
 # Launches of each kernel since import (or since a caller reset them); a run
 # reads them to show that a path went through the kernel.
@@ -89,51 +91,115 @@ def _pow2_at_least(n: int) -> int:
     return 1 << max(n - 1, 0).bit_length()
 
 
-def _walk_layout(ef: int, cand_cap: int, t: int, max_m: int,
-                 dims: int) -> tuple:
-    """Shared memory of one walk block, as csrc/beam_walk.cu lays it out:
-    (bytes, held-table slots, slot-table slots).  The query row (D rounded
-    up to 4 floats), the result and candidate queues twice over (d, id),
-    24 bytes per expansion slot (its id, the compacted processed slots, the
-    admitted (d, slot) and their ranked (d, id)) and 8 counters; then the
-    dedupe's hash tables: the held ids (4 bytes a slot, a power of two of
-    at least 2 (ef + cand_cap) slots) and the expansion's ids with their
-    smallest slot (8 bytes a slot, at least 2 T maxM).  Where the tables do
-    not fit, the kernel dedupes by comparison and they take 0.  Queues
-    wider than MAX_WALK_QUEUE take the wide instances: the row, the slot
-    arrays, the counters and the slot table (_walk_fixed), then each queue
+class PqTable(NamedTuple):
+    """A PQ walk's distance table, as the walk's layout sees it: its groups
+    G and its metric (cosine holds a float2 an entry)."""
+    groups: int
+    metric_value: int
+
+
+def _pq_place(pq: Optional[PqTable], t: int, max_m: int,
+              used: int) -> tuple:
+    """Where a PQ source keeps its distance table and its step's codes
+    (csrc/beam_walk.cu's pq_place), given ``used``, the shared bytes of the
+    block's least layout (the room is what is left of SMEM_LIMIT):
+    (shared bytes, device words a query, staged).  The table (256 codes x
+    G groups, a float each, a float2 under cosine) and the staged codes (T
+    maxM slots x G bytes, rounded up to 8) in shared memory where both
+    fit; else the table alone, each row's codes read from the records;
+    else the table in the query's device scratch.  (0, 0, False) for the
+    other sources (None)."""
+    if pq is None:
+        return 0, 0, False
+    room = max(SMEM_LIMIT - used, 0)
+    table = 256 * pq.groups * (8 if pq.metric_value == Metric.COSINE.value
+                               else 4)
+    codes = -(-t * max_m * pq.groups // 8) * 8
+    if table + codes <= room:
+        return table + codes, 0, True
+    if table <= room:
+        return table, 0, False
+    return 0, table // 4, False
+
+
+def _walk_plan(ef: int, cand_cap: int, t: int, max_m: int, dims: int,
+               pq: Optional[PqTable], capacity: int, dense: bool) -> tuple:
+    """One walk block's memory, as csrc/beam_walk.cu's walk_layout lays it
+    out: (shared bytes, held-table slots, slot-table slots, int32 words of
+    device memory a query).
+
+    Shared memory: the query row (D rounded up to 4 floats), the result
+    and candidate queues twice over (d, id), 24 bytes per expansion slot
+    (its id, the compacted processed slots, the admitted (d, slot) and
+    their ranked (d, id)) and 8 counters; then the dedupe's hash tables:
+    the held ids (4 bytes a slot, a power of two of at least 2 (ef +
+    cand_cap) slots) and the expansion's ids with their smallest slot (8
+    bytes a slot, at least 2 T maxM); then a PQ source's table and staged
+    codes (_pq_place: placed before the hash tables, which take what it
+    leaves; where they do not fit, the kernel dedupes by comparison and
+    they take 0).  Queues wider than MAX_WALK_QUEUE take the wide
+    instances: the least part (_walk_fixed), the PQ part, then each queue
     once (d, id; the candidate ring of _walk_ring entries) where that fits
-    SMEM_LIMIT, else the queues move to device memory; no held table (the
-    held set is in device memory, _walk_wide_words).  Raises ValueError
-    past SMEM_LIMIT."""
+    SMEM_LIMIT; no held table.  Device memory a query: 0 where both queues
+    fit MAX_WALK_QUEUE, else the held set of the dense dedupe (two bits an
+    id of ``capacity``, kept from step to step), then the queues where they
+    are not in shared memory; and a PQ table's words where it is not (the
+    walk's own words rounded up to 2: the kernel lays the tables out after
+    every query's own words, 8-aligned).  Raises ValueError where
+    the least part is past SMEM_LIMIT, as for every source: a PQ table
+    never refuses a walk."""
     tm = t * max_m
     if max(ef, cand_cap) > MAX_WALK_QUEUE:
         fixed = _walk_fixed(t, max_m, dims)
         if fixed > SMEM_LIMIT:
             raise ValueError(
                 f"the walk needs {fixed} bytes of shared memory a block "
-                f"(T={t}, maxM={max_m}, D={dims}); the limit is {SMEM_LIMIT}")
+                f"(T={t}, maxM={max_m}, D={dims}); the limit is "
+                f"{SMEM_LIMIT}")
+        pq_smem, pq_words, _ = _pq_place(pq, t, max_m, fixed)
+        fixed += pq_smem
+        held = -(-capacity // 16) if dense else 0
         queues = 8 * (ef + _walk_ring(cand_cap, t))
-        return (fixed + queues if fixed + queues <= SMEM_LIMIT else fixed,
-                0, _pow2_at_least(2 * tm))
+        slots = _pow2_at_least(2 * tm)
+        if fixed + queues <= SMEM_LIMIT:
+            return (fixed + queues, 0, slots,
+                    _with_pq_words(held, pq_words))
+        return fixed, 0, slots, _with_pq_words(held + queues // 4, pq_words)
     held, slots = _pow2_at_least(2 * (ef + cand_cap)), _pow2_at_least(2 * tm)
     base = 4 * (-(-dims // 4) * 4) + 16 * (ef + cand_cap) + 24 * tm + 32
-    tables = 4 * held + 8 * slots
-    if base + tables <= SMEM_LIMIT:
-        return base + tables, held, slots
     if base > SMEM_LIMIT:
         raise ValueError(
             f"the walk needs {base} bytes of shared memory a block "
             f"(ef={ef}, cand_cap={cand_cap}, T={t}, maxM={max_m}, D={dims});"
             f" the limit is {SMEM_LIMIT}")
-    return base, 0, 0
+    pq_smem, pq_words, _ = _pq_place(pq, t, max_m, base)
+    base += pq_smem
+    tables = 4 * held + 8 * slots
+    if base + tables <= SMEM_LIMIT:
+        return base + tables, held, slots, pq_words
+    return base, 0, 0, pq_words
+
+
+def _with_pq_words(words: int, pq_words: int) -> int:
+    """A query's device words: the walk's own and a PQ table's (the walk's
+    rounded up to 2 first, so that the tables, after every query's own
+    words, are 8-aligned)."""
+    return -(-words // 2) * 2 + pq_words if pq_words else words
+
+
+def _walk_layout(ef: int, cand_cap: int, t: int, max_m: int, dims: int,
+                 pq: Optional[PqTable]) -> tuple:
+    """Shared memory of one walk block (_walk_plan): (bytes, held-table
+    slots, slot-table slots).  ``pq``: a PQ source's table (None for the
+    other sources)."""
+    return _walk_plan(ef, cand_cap, t, max_m, dims, pq, 0, False)[:3]
 
 
 def _walk_fixed(t: int, max_m: int, dims: int) -> int:
-    """Bytes of a wide walk block before its queues: the query row (D
-    rounded up to 4 floats), 24 bytes per expansion slot, 8 counters and
-    the slot table (8 bytes a slot, a power of two of at least 2 T
-    maxM)."""
+    """Bytes of a wide walk block before a PQ source's part and the
+    queues: the query row (D rounded up to 4 floats), 24 bytes per
+    expansion slot, 8 counters and the slot table (8 bytes a slot, a power
+    of two of at least 2 T maxM)."""
     tm = t * max_m
     return 4 * (-(-dims // 4) * 4) + 24 * tm + 32 + 8 * _pow2_at_least(
         2 * tm)
@@ -146,26 +212,100 @@ def _walk_ring(cand_cap: int, t: int) -> int:
 
 
 def _walk_wide_words(ef: int, cand_cap: int, t: int, max_m: int, dims: int,
-                     capacity: int, dense: bool) -> int:
-    """int32 words of device memory one query's walk takes, as
-    csrc/beam_walk.cu lays them out: 0 where both queues fit
-    MAX_WALK_QUEUE; else the held set of the dense dedupe (two bits an id
-    of ``capacity``: its queues' membership, kept from step to step), then
-    the queues (d, id) where they do not fit in shared memory."""
-    if max(ef, cand_cap) <= MAX_WALK_QUEUE:
-        return 0
-    held = -(-capacity // 16) if dense else 0
-    queues = 2 * (ef + _walk_ring(cand_cap, t))
-    if _walk_fixed(t, max_m, dims) + 4 * queues <= SMEM_LIMIT:
-        return held
-    return held + queues
+                     capacity: int, dense: bool,
+                     pq: Optional[PqTable]) -> int:
+    """int32 words of device memory one query's walk takes (_walk_plan):
+    the wide walks' held set and the queues that are not in shared memory,
+    then a PQ table that is not."""
+    return _walk_plan(ef, cand_cap, t, max_m, dims, pq, capacity, dense)[3]
 
 
 def _walk_smem_bytes(ef: int, cand_cap: int, t: int, max_m: int,
-                     dims: int) -> int:
+                     dims: int, pq: Optional[PqTable]) -> int:
     """The bytes of _walk_layout: what the launch passes and the C side
     checks."""
-    return _walk_layout(ef, cand_cap, t, max_m, dims)[0]
+    return _walk_layout(ef, cand_cap, t, max_m, dims, pq)[0]
+
+
+def _lane_tree_sum(x: torch.Tensor) -> torch.Tensor:
+    """The kernel's sum of a warp's lane partials over the last axis:
+    lane l sums elements l, l + 32, ... in order from 0, then the lanes
+    meet in a butterfly (xor 16, 8, 4, 2, 1; rows_sum and warp_sum's tree
+    of additions), each addition rounded."""
+    n = x.shape[-1]
+    lanes = torch.zeros((*x.shape[:-1], 32), dtype=torch.float32,
+                        device=x.device)
+    for start in range(0, n, 32):
+        part = x[..., start:start + 32]
+        lanes[..., :part.shape[-1]] = lanes[..., :part.shape[-1]] + part
+    for o in (16, 8, 4, 2, 1):
+        lanes = lanes[..., :o] + lanes[..., o:2 * o]
+    return lanes[..., 0]
+
+
+def pq_walk_table_plain(query_t: torch.Tensor, codebook: torch.Tensor,
+                        metric_value: int) -> torch.Tensor:
+    """The PQ walk's per-query distance table, as csrc/beam_walk.cu's
+    build_pq_table computes it: the walk's queries f32[B, D] (OPQ: q @ R)
+    against codebook f32[G, 256, D / G].  Entry [b, k, g] is the metric's
+    sum over group g's elements of centroid k against query b, from 0 in
+    element order, each operation rounded on its own: L2 sum (c - q)^2,
+    Manhattan sum |c - q|; cosine has a last axis of 2, (sum c q, sum
+    c^2).  Returns f32[B, 256, G] (cosine f32[B, 256, G, 2]): the kernel's
+    layout, the group minor.  The tests' plain form: nothing on the card's
+    path calls it."""
+    groups, n_codes, sub = codebook.shape
+    q = query_t.to(torch.float32).reshape(-1, groups, sub)
+    cb = codebook.to(torch.float32).transpose(0, 1)          # [256, G, sub]
+    a = torch.zeros((q.shape[0], n_codes, groups), dtype=torch.float32,
+                    device=q.device)
+    pp = torch.zeros_like(a)
+    cosine = metric_value == Metric.COSINE.value
+    for j in range(sub):
+        c, x = cb[None, :, :, j], q[:, None, :, j]
+        if metric_value == Metric.L2.value:
+            t = c - x
+            a = a + t * t
+        elif cosine:
+            a = a + c * x
+            pp = pp + c * c
+        elif metric_value == Metric.MANHATTAN.value:
+            a = a + torch.abs(c - x)
+        else:
+            raise ValueError(f"unknown metric {metric_value}")
+    return torch.stack([a, pp], dim=-1) if cosine else a
+
+
+def pq_walk_score_plain(table: torch.Tensor, codes: torch.Tensor,
+                        metric_value: int,
+                        query_t: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """The PQ walk's distances by lookups, as csrc/beam_walk.cu's
+    score_rows computes them: ``table`` from pq_walk_table_plain, codes
+    u8[B, N, G] (each query's rows).  Lane g's partial sums the entries of
+    groups g, g + 32, ... from 0; the lanes meet in the kernel's butterfly
+    (_lane_tree_sum); then the verdict: L2 sqrt, Manhattan the sum, cosine
+    1 - dot rsqrt(max(|q|^2 sum c^2, 1e-30)) with |q|^2 summed in the
+    kernel's order from ``query_t`` (needed for cosine only).  Returns
+    f32[B, N].  The tests' plain form: nothing on the card's path calls
+    it."""
+    idx = codes.long()
+    if metric_value == Metric.COSINE.value:
+        if query_t is None:
+            raise ValueError("cosine scores need the walk's queries")
+        got = torch.gather(table, 1, idx.unsqueeze(-1).expand(
+            *idx.shape, 2))
+        dot = _lane_tree_sum(got[..., 0])
+        cc = _lane_tree_sum(got[..., 1])
+        q = query_t.to(torch.float32)
+        qq = _lane_tree_sum(q * q).unsqueeze(1)
+        return 1.0 - dot * torch.rsqrt(torch.clamp(qq * cc, min=1e-30))
+    s = _lane_tree_sum(torch.gather(table, 1, idx))
+    if metric_value == Metric.L2.value:
+        return _sqrt(s)
+    if metric_value == Metric.MANHATTAN.value:
+        return s
+    raise ValueError(f"unknown metric {metric_value}")
 
 
 class WalkSource(NamedTuple):
@@ -177,6 +317,7 @@ class WalkSource(NamedTuple):
     codebook: Optional[torch.Tensor]  # PQ: f32[G, 256, D / G]
     query: torch.Tensor           # the walk's query rows (OPQ: q @ R)
     variant: str                  # walk_variant's name
+    pq: Optional[PqTable]         # PQ: its distance table, else None
 
 
 def visited_name(visited_slots: int) -> str:
@@ -281,9 +422,11 @@ def _check_walk_args(graph, queries, ef, cand_cap, t, metric_value, *,
                            quantized=qvectors is not None,
                            rotated=query_t is not None,
                            visited_slots=visited_slots)
+    pq = (PqTable(rows.shape[-1], metric_value) if codebook is not None
+          else None)
     return WalkSource(rows, _ELEMS[rows.dtype], records is not None, scales,
                       codebook, queries if query_t is None else query_t,
-                      variant)
+                      variant, pq)
 
 
 def beam_walk(graph, queries: torch.Tensor, *, ef: int, metric_value: int,
@@ -302,7 +445,11 @@ def beam_walk(graph, queries: torch.Tensor, *, ef: int, metric_value: int,
     bits (and the records, which hold no row of the entry, need none).
     The bitmap and hash sets, and the wide walks' held set and queues
     that do not fit in shared memory, live in device memory, SCRATCH_BYTES
-    at most a launch: a larger batch is walked in chunks."""
+    at most a launch: a larger batch is walked in chunks.  A PQ walk's
+    blocks each build the query's distance table in shared memory and
+    stage each step's codes beside it, or, where they do not fit a block,
+    read the codes from the records, or keep the table in device memory
+    too (_pq_place)."""
     global WIDE_WALKS
     if queries.device.type == "cpu":
         from ..core.search import _search_batch
@@ -322,11 +469,12 @@ def beam_walk(graph, queries: torch.Tensor, *, ef: int, metric_value: int,
                            pq_codebook=pq_codebook, query_t=query_t,
                            visited_slots=visited_slots)
     lib = _kernels.load_library()
-    smem = _walk_smem_bytes(ef, cand_cap, t, graph.max_m, queries.shape[1])
+    smem = _walk_smem_bytes(ef, cand_cap, t, graph.max_m, queries.shape[1],
+                            src.pq)
     b = queries.shape[0]
     words = (_walk_wide_words(ef, cand_cap, t, graph.max_m,
                               queries.shape[1], graph.capacity,
-                              visited_slots < 0)
+                              visited_slots < 0, src.pq)
              + (_visited_words(graph, visited_slots)
                 if visited_slots >= 0 else 0))
     step = max(1, SCRATCH_BYTES // (4 * words)) if words else b
@@ -359,8 +507,9 @@ def _launch_walk(lib, graph, queries, src: WalkSource, *, ef, cand_cap, t,
     wrapper's library, or a probe's build of the same source).  The
     bitmap starts zeroed and the hash table empty (-1), each holding node
     0 when the graph has nodes, as the twin's do; a walk with queues
-    wider than MAX_WALK_QUEUE gets its device memory here, zeroed (the
-    held set starts empty; the kernel fills the queues)."""
+    wider than MAX_WALK_QUEUE, or a PQ table that does not fit a block,
+    gets its device memory here, zeroed (the held set starts empty; the
+    kernel fills the queues and builds the table)."""
     b, dims = queries.shape
     dev = queries.device
     out_d = torch.empty((b, ef), dtype=torch.float32, device=dev)
@@ -384,7 +533,8 @@ def _launch_walk(lib, graph, queries, src: WalkSource, *, ef, cand_cap, t,
         if has_nodes:
             visited[:, 0] = 1 if visited_slots == 0 else 0
     wide_words = _walk_wide_words(ef, cand_cap, t, graph.max_m, dims,
-                                  graph.capacity, visited_slots < 0)
+                                  graph.capacity, visited_slots < 0,
+                                  src.pq)
     wide = (torch.zeros((b, wide_words), dtype=torch.int32, device=dev)
             if wide_words else None)
 

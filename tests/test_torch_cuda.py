@@ -25,7 +25,8 @@ from pg_embedding_tpu_torch import HnswConfig, HnswIndex
 from pg_embedding_tpu_torch.convert import graph_from_numpy, to_numpy
 from pg_embedding_tpu_torch.ops import cuda_bruteforce as cb
 # the walk's operands by row source, shared with chip_smoke.py
-from walk_operands import integer_operands, on_device
+from walk_operands import (WIDE_ROW_PQ, integer_operands, on_device,
+                            wide_row_operands)
 
 pytestmark = pytest.mark.cuda
 
@@ -542,7 +543,7 @@ def test_beam_walk_edges(cuda, int_graphs, case):
                    "ef=cap=16384": (16384, 16384)}[case]
         from pg_embedding_tpu_torch.ops import cuda_graph as cg
         in_device = cg._walk_wide_words(ef, cap, 4, arrays["links"].shape[1],
-                                        D, 64, False) > 0
+                                        D, 64, False, None) > 0
         assert in_device == (ef == 16384)
     g = _card_graph(arrays, cuda)
     got, want = _walk_pair(g, torch.from_numpy(qs).to(cuda), ef=ef,
@@ -570,7 +571,7 @@ def test_beam_walk_repeated_links(cuda, int_graphs, metric, width, ef, cap):
     arrays, qs = int_graphs[metric]
     arrays = repeated_links(arrays)
     g = _card_graph(arrays, cuda)
-    held = cg._walk_layout(ef, cap, width, g.max_m, D)[1]
+    held = cg._walk_layout(ef, cap, width, g.max_m, D, None)[1]
     assert (held == 0) == (ef >= cg.MAX_WALK_QUEUE)
     assert (width == 320) == (held == 0 and ef <= cg.MAX_WALK_QUEUE)
     got, want = _walk_pair(g, torch.from_numpy(qs).to(cuda), ef=ef,
@@ -616,6 +617,115 @@ def test_beam_walk_variants_bit_equal(cuda, int_graphs, source, visited,
     _assert_bit_equal(ts.finish_walk(gc, q, *got[:2], **fin),
                       ts.finish_walk(gc, q, *want[:2], **fin))
     assert bool((got[2] > 1).all())
+
+
+@pytest.mark.parametrize("dims,groups", [(32, 2), (32, 4), (32, 16),
+                                         (32, 32), (24, 3)])
+@pytest.mark.parametrize("source", ["records pq", "records pq rotated"])
+@pytest.mark.parametrize("metric", ["l2", "manhattan"])
+@pytest.mark.parametrize("width,ef,cap", [(8, 64, 128), (4, 5120, 5120)])
+def test_pq_walk_table_bit_equal_by_groups(cuda, int_graphs, dims, groups,
+                                           source, metric, width, ef, cap):
+    """The PQ walk reads each row's codes through the query's distance
+    table in shared memory, at the group widths beside G = 8's (which
+    test_beam_walk_variants_bit_equal walks): D = 32 at G = 2 (16
+    elements a group, each record's codes copied byte by byte), 4 (8), 16
+    (2: the table's build reads the codebook an element at a time) and 32
+    (1), and D = 24 (the fixture's first 24 dims) at G = 3, with and
+    without OPQ's signed permutation, in a table instance and the wide one
+    (5120, 5120): on integer codebooks its ids, distances, hops and
+    dist_evals equal the twin's decode-then-distance walk."""
+    from pg_embedding_tpu_torch.core import search as ts
+    from pg_embedding_tpu_torch.ops import cuda_graph as cg
+    arrays, qs = int_graphs[metric]
+    arrays = dict(arrays, vectors=np.ascontiguousarray(
+        arrays["vectors"][:, :dims]))
+    qs = np.ascontiguousarray(qs[:, :dims])
+    g, q, kw = integer_operands(arrays, qs, source, groups=groups)
+    assert kw["pq_codebook"].shape == (groups, 256, dims // groups)
+    walk = dict(ef=ef, metric_value=METRICS[metric], cand_cap=cap,
+                expand_width=width)
+    gc, kc = on_device(g, kw, cuda)
+    q = q.to(cuda)
+    got = cg.beam_walk(gc, q, **walk, **kc)
+    torch.cuda.synchronize()
+    want = ts._search_batch(gc, q, **walk, **on_device(g, kw, cuda,
+                                                        twin=True)[1])
+    _assert_bit_equal(got, want)
+    assert bool((got[2] > 1).all())
+
+
+@pytest.mark.parametrize("groups", [8, 32])
+@pytest.mark.parametrize("width,ef,cap", [(8, 64, 64), (4, 5120, 5120)])
+def test_pq_walk_table_cosine(cuda, int_graphs, groups, width, ef, cap):
+    """Cosine through the PQ table (a float2 an entry: the dot product and
+    the centroid's sum of squares): rsqrt is not the CPU's, so ids, hops
+    and evals equal the twin's on >= 99% of queries, every other one at a
+    near-tie, as for the float32 rows."""
+    from pg_embedding_tpu_torch.core import search as ts
+    from pg_embedding_tpu_torch.ops import cuda_graph as cg
+    arrays, _ = int_graphs["l2"]
+    qs = integer_data(seed=10, b=256)[1]
+    g, q, kw = integer_operands(arrays, qs, "records pq", groups=groups)
+    walk = dict(ef=ef, metric_value=1, cand_cap=cap, expand_width=width)
+    gc, kc = on_device(g, kw, cuda)
+    q = q.to(cuda)
+    got = cg.beam_walk(gc, q, **walk, **kc)
+    want = ts._search_batch(gc, q, **walk, **on_device(g, kw, cuda,
+                                                        twin=True)[1])
+    (dk, ik, hk, ek), (dp, ip, hp, ep) = [[x.cpu().numpy() for x in r]
+                                          for r in (got, want)]
+    same = (ik == ip).all(axis=1) & (hk == hp) & (ek == ep)
+    assert same.mean() >= 0.99, same.mean()
+
+    def near_tie(row):
+        d = np.sort(row[np.isfinite(row)])
+        return bool(np.any(np.diff(d) <= 1e-5 * np.abs(d[1:])))
+    for i in np.nonzero(~same)[0]:
+        assert near_tie(dk[i]) or near_tie(dp[i]), i
+    np.testing.assert_allclose(dk[same], dp[same], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("metric,groups", list(WIDE_ROW_PQ))
+@pytest.mark.parametrize("ef", [64, 5120])
+def test_pq_walk_at_wide_rows(cuda, metric, groups, ef):
+    """PQ walks whose table and staged codes do not both fit a block
+    (1536-d, T = 8, maxM = 32): cosine at G = 96 and L2 at G = 192 keep the
+    table in shared memory and read each row's codes from the records;
+    cosine at G = 192 and L2 at G = 384 build the table in the query's
+    device memory; in a table instance (ef = cand_cap = 64) and the wide
+    one (5120).  On integer codebooks the L2 walk's ids, distances, hops
+    and dist_evals equal the twin's; cosine's rsqrt is not the CPU's, so
+    its ids, hops and evals equal the twin's on >= 98% of queries, every
+    other one at a near-tie."""
+    from pg_embedding_tpu_torch.ops import cuda_graph as cg
+    m = METRICS[metric]
+    g, q, kw = wide_row_operands(groups, b=128 if ef == 64 else 32)
+    words = [cg._walk_wide_words(ef, ef, 8, g.max_m, g.dims, g.capacity,
+                                 True, pq)
+             for pq in (None, cg.PqTable(groups, m))]
+    table_words = 256 * groups * (2 if metric == "cosine" else 1)
+    assert (words[1] - words[0] >= table_words) == (
+        WIDE_ROW_PQ[metric, groups] == "device")
+    walk = dict(ef=ef, metric_value=m, cand_cap=ef, expand_width=8)
+    gc, kc = on_device(g, kw, cuda)
+    q = q.to(cuda)
+    got, want = _walk_pair(gc, q, **walk, **kc)
+    if metric == "l2":
+        _assert_bit_equal(got, want)
+        assert bool((got[2] > 1).all())
+        return
+    (dk, ik, hk, ek), (dp, ip, hp, ep) = [[x.cpu().numpy() for x in r]
+                                          for r in (got, want)]
+    same = (ik == ip).all(axis=1) & (hk == hp) & (ek == ep)
+    assert same.mean() >= 0.98, same.mean()
+
+    def near_tie(row):
+        d = np.sort(row[np.isfinite(row)])
+        return bool(np.any(np.diff(d) <= 1e-5 * np.abs(d[1:])))
+    for i in np.nonzero(~same)[0]:
+        assert near_tie(dk[i]) or near_tie(dp[i]), i
+    np.testing.assert_allclose(dk[same], dp[same], rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("visited", list(VISITED))
@@ -698,7 +808,7 @@ def test_beam_walk_chunks_the_visited_sets(cuda, int_graphs, monkeypatch,
                 visited_slots=visited_slots)
     whole = cg.beam_walk(g, q, **walk)
     words = cg._walk_wide_words(ef, ef, 4, g.max_m, D, g.capacity,
-                                visited_slots < 0) + (
+                                visited_slots < 0, None) + (
         cg._visited_words(g, visited_slots) if visited_slots >= 0 else 0)
     monkeypatch.setattr(cg, "SCRATCH_BYTES", 4 * words * 10)
     before = cg.LAUNCHES["beam_walk"]
@@ -866,7 +976,7 @@ def test_walk_and_prune_refuse_out_of_scope_arguments(cuda, int_graphs):
     with pytest.raises(ValueError, match="power of 2"):
         cg.beam_walk(g, q, visited_slots=2, **kw)
     lib = _kernels.load_library()
-    smem = cg._walk_smem_bytes(16, 16, 4, g.max_m, D)
+    smem = cg._walk_smem_bytes(16, 16, 4, g.max_m, D, None)
     out = torch.empty((len(qs), 16), device=cuda)
     cnt = torch.empty(len(qs), dtype=torch.int32, device=cuda)
     for bad in (smem + 16, smem - 16):

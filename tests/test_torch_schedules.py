@@ -272,7 +272,7 @@ def _colliding_ids(n, count, bucket=0):
                                             (4, 4, 4, 5)])
 @pytest.mark.parametrize("pool", ["small", "colliding"])
 def test_hash_dedupe_equals_the_dense_rule(ef, cap, t, max_m, pool):
-    _, held_n, slot_n = cg._walk_layout(ef, cap, t, max_m, 128)
+    _, held_n, slot_n = cg._walk_layout(ef, cap, t, max_m, 128, None)
     assert held_n >= 2 * (ef + cap) and slot_n >= 2 * t * max_m
     rng = np.random.default_rng(ef + cap + t + max_m)
     b, tm = 40, t * max_m
@@ -309,7 +309,7 @@ def schedule_walk(graph, queries, *, ef, metric_value, cand_cap, t):
     max_m = graph.max_m
     tm = t * max_m
     _, held_n, slot_n = cg._walk_layout(ef, cand_cap, t, max_m,
-                                        graph.dims)
+                                        graph.dims, None)
     out = []
     for q in queries:
         rd = np.full(ef, _INF, np.float32)
@@ -736,7 +736,8 @@ def variant_walk(graph, queries, kw, *, ef, metric_value, cand_cap, t,
     walk's (res_d, res_i, hops, evals) before finish_walk, and the number
     of steps where two processed ids wrote one hash slot."""
     max_m, tm, cap = graph.max_m, t * graph.max_m, graph.capacity
-    _, held_n, slot_n = cg._walk_layout(ef, cand_cap, t, max_m, graph.dims)
+    _, held_n, slot_n = cg._walk_layout(ef, cand_cap, t, max_m,
+                                        graph.dims, None)
     rule = RowRule(graph, kw)
     walk_q = kw.get("query_t", queries).numpy()
     round_pp = (metric_value == 1 and not rule.records

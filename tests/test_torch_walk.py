@@ -159,9 +159,10 @@ def test_walk_route(device, rows, kw, want):
     kw = dict(dict(ef=64, cand_cap=64), **kw)
     ef, cap = kw.pop("ef"), kw.pop("cand_cap")
     assert ts.walk_route(device) == want
-    assert (cg._walk_wide_words(ef, cap, 8, 32, 128, 10**6, True) > 0) == (
+    assert (cg._walk_wide_words(ef, cap, 8, 32, 128, 10**6, True,
+                                None) > 0) == (
         max(ef, cap) > cg.MAX_WALK_QUEUE)
-    cg._walk_layout(ef, cap, 8, 32, 128)       # a shape the kernel takes
+    cg._walk_layout(ef, cap, 8, 32, 128, None)   # a shape the kernel takes
     kw.pop("record_scales", None)
     pq = kw.pop("pq", False)
     name = cg.walk_variant(rows, **kw)
@@ -224,26 +225,30 @@ def test_walk_smem_bytes(ef, cap, t, max_m, dims, tables):
         assert (fixed + one <= cg.SMEM_LIMIT) == (tables == "wide")
         queue_words = 0 if tables == "wide" else one // 4
         wide = {True: -(-rows // 16) + queue_words, False: queue_words}
-    assert cg._walk_layout(ef, cap, t, max_m, dims) == want
+    assert cg._walk_layout(ef, cap, t, max_m, dims, None) == want
     for dense, words in wide.items():
         assert cg._walk_wide_words(ef, cap, t, max_m, dims, rows,
-                                   dense) == words
-    assert cg._walk_smem_bytes(ef, cap, t, max_m, dims) == want[0]
+                                   dense, None) == words
+    assert cg._walk_smem_bytes(ef, cap, t, max_m, dims,
+                               None) == want[0]
     assert want[0] <= cg.SMEM_LIMIT
     assert held >= 2 * (ef + cap) and first >= 2 * t * max_m
 
 
 def test_walk_smem_bytes_refuses_past_the_limit():
-    assert cg._walk_smem_bytes(320, 320, 8, 32, 52_000) <= cg.SMEM_LIMIT
+    assert cg._walk_smem_bytes(320, 320, 8, 32, 52_000,
+                               None) <= cg.SMEM_LIMIT
     with pytest.raises(ValueError, match="232448"):
-        cg._walk_smem_bytes(320, 320, 8, 32, 55_000)
+        cg._walk_smem_bytes(320, 320, 8, 32, 55_000, None)
     # wide queues that do not fit move to device memory, leaving the row
     # and the slots in shared memory
-    assert cg._walk_smem_bytes(5120, 5120, 8, 32, 50_000) <= cg.SMEM_LIMIT
-    assert cg._walk_wide_words(5120, 5120, 8, 32, 50_000, 64, False) == (
+    assert cg._walk_smem_bytes(5120, 5120, 8, 32, 50_000,
+                               None) <= cg.SMEM_LIMIT
+    assert cg._walk_wide_words(5120, 5120, 8, 32, 50_000, 64, False,
+                               None) == (
         2 * (5120 + 5120))
     with pytest.raises(ValueError, match="232448"):
-        cg._walk_smem_bytes(5120, 5120, 8, 32, 60_000)
+        cg._walk_smem_bytes(5120, 5120, 8, 32, 60_000, None)
 
 
 def _gathered_scan(d_s, valid_s, pair_s, do_prune, nn):
