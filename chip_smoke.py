@@ -66,7 +66,9 @@ exits non-zero):
      and Manhattan distance exact in float32) bit-equal at T in {1, 4, 8}
      and (ef, cand_cap) in {(16, 16), (64, 64), (64, 128), (128, 64)},
      and in every other row source (bf16 rows; int8 rows and int8 records
-     at power-of-two scales; f32 and bf16 records; PQ records through an
+     at power-of-two scales; f32 and bf16 records, the int8 and bf16 ones
+     staged in shared memory, and read from the records at T = 256,
+     (256, 256), where they do not fit; PQ records through an
      integer codebook, with and without OPQ's signed-permutation rotation,
      read through the query's distance table, at G 8 and also at G 4, 16
      and 32 at T=8 (64, 128) and T=4 (5120, 5120))
@@ -142,8 +144,13 @@ exits non-zero):
      and hash visited sets; each variant's walk kernel against its twin on
      the card at 1M on every query (variant_vs_twin: recall within 0.002,
      ids on >= 98% of queries, hops and dist_evals within 1%) and timed
-     beside its bound, each variant's launches counted from 0 over its own
-     API calls; a filtered graph search that widens from ef_search 40 to
+     beside its bound (the int8 / bf16 records walks at T=8 and at the
+     API's default T=4, each also printing its placement, staged bytes,
+     instance's ptxas registers and spills and the blocks an SM of each
+     placement, the runtime's occupancy, which must bear out the placement
+     rule: records_placement), each variant's launches counted
+     from 0 over its own API calls; a filtered graph search that widens
+     from ef_search 40 to
      5120: 8 kernel launches, the last four (ef 640 to 5120) through the
      wide instances, no plain walk, only allowed rows, >= 0.9 of them the
      masked exact route's; each walk of that ladder timed on the card (64
@@ -254,7 +261,9 @@ connect_batch); for connect_batch its counters on the add()'s batch,
 CUDA events, host share included, for every kernel, and
 the walk and the scan also give "device_ms", the card's time from the CUDA
 graph; the walk's "variants": each variant's launches over its own API
-path (counted from 0 just before it) and variant_vs_twin's numbers, and
+path (counted from 0 just before it) and variant_vs_twin's numbers (the
+int8 / bf16 records walks' also at T=4, keyed "... T=4", and each with its
+"placement" and "blocks_per_sm", the runtime's occupancy), and
 its "wide_queues": variant_vs_twin's numbers at ef 5120, the widening
 search's launches of the wide instances ("launches", 1) and theirs by phase
 ("launches_by_phase"), the ladder's card times and the B = 1024 time and
@@ -302,6 +311,11 @@ PQ_CENTERS = 50_000
 DIMS = 128
 K = 10
 GRAPH_T = 8
+# the API's default search_expand_width (HnswIndex): the int8 and bf16
+# records walks (serving_variants' names) are held to their twin at this T
+# too
+API_T = 4
+RECORDS_AT_API_T = ("packed int8", "packed bfloat16")
 SHARDS = 4
 # rows a shard takes per insert batch: the single index's batch, not the
 # sharded default of 128, whose 7,812 host-bound batches cost the smoke
@@ -355,6 +369,11 @@ WIDE_QUEUES = ((5120, 5120), (4097, 64), (64, 8191), (8191, 8191),
 # the wide one
 PQ_INTEGER_GROUPS = ((32, 2), (32, 4), (32, 16), (32, 32), (24, 3))
 PQ_INTEGER_SHAPES = ((8, 64, 128), (4, 5120, 5120))
+# the int8 / bf16 records sources, staged in shared memory at every
+# integer shape but (T, ef, cand_cap) = RECORDS_UNSTAGED, whose T = 256
+# popped records do not fit a block beside its queues and tables
+STAGED_SOURCES = ("records int8", "records bf16")
+RECORDS_UNSTAGED = (256, 256, 256)
 # ptxas's report of the eight float32 / bf16 sweep instances as they were
 # built before the int8 instance (no stack, no spills): it leaves their code
 # as it was
@@ -381,6 +400,9 @@ WALK_PTXAS = {
         "Used 64 registers, used 1 barriers, 176 bytes cumulative stack "
         "size"),
 }
+# ptxas's report of every walk instance by name (compiler_report's), read
+# by variant_vs_twin for the records walks' instances
+WALK_REPORTS = {}
 # the walks of the API's widening from ef_search 40 (cand_cap = ef): those
 # past 320 (640 to 5120) run the wide instances
 WIDENING_EFS = (40, 80, 160, 320, 640, 1280, 2560, 5120)
@@ -726,7 +748,8 @@ def compiler_report(_kernels):
                     f"{'Manhattan' if m[1] == '1' else 'L2 / cosine'}>")
         return "pq_select_kernel" if "pq_select_kernel" in mangled else None
     def graph_instance(mangled):
-        elems = ("float32", "int8", "bf16", "pq", "pq unstaged")
+        elems = ("float32", "int8", "bf16", "pq", "pq unstaged",
+                 "int8 staged", "bf16 staged")
         m = re.search(r"beam_walk_kernelILi(\d)ELb([01])ELi(\d+)E",
                       mangled)
         if m:
@@ -761,8 +784,7 @@ def compiler_report(_kernels):
                 name = graph_instance(m[1])
         elif name and ("spill" in line or "Used" in line):
             log(f"ptxas {name}: {line.strip()}")
-            if (name in SWEEP_PTXAS or name in WALK_PTXAS
-                    or name.startswith("beam_walk") and "<pq" in name):
+            if (name in SWEEP_PTXAS or name.startswith("beam_walk")):
                 reports.setdefault(name, []).append(
                     re.sub(r"^ptxas\s+info\s*:\s*", "", line.strip()))
     lib = _kernels.load_library()
@@ -810,6 +832,13 @@ def compiler_report(_kernels):
     check(len(pq) == 10, f"PQ walk instances reported: {sorted(pq)}")
     for name, lines in sorted(pq.items()):
         log(f"ptxas PQ walk {name}: {'; '.join(lines)}")
+    # the staged int8 / bf16 records instances (variant_vs_twin prints the
+    # one each records walk takes)
+    staged = [n for n in reports if " staged rows" in n]
+    check(len(staged) == 10, f"staged records instances reported: "
+          f"{sorted(staged)}")
+    WALK_REPORTS.update(
+        {n: r for n, r in reports.items() if n.startswith("beam_walk")})
 
 
 def small_build_matches_cpu(torch, HnswConfig, HnswIndex, dev):
@@ -1135,6 +1164,7 @@ def integer_walks(torch, cg, core_search, dev):
     qs = rng.integers(-8, 9, size=(256, 32)).astype(np.float32)
     q = torch.as_tensor(qs, device=dev)
     cases = variant_cases = wide_cases = 0
+    staged_cases = {True: 0, False: 0}
     pq_groups_seen = {"8 (D=32)"}
     wide0 = cg.WIDE_WALKS
     for name, metric in (("l2", L2), ("manhattan", 2)):
@@ -1164,6 +1194,8 @@ def integer_walks(torch, cg, core_search, dev):
             wide = [(4, ef, cap) for ef, cap in WIDE_QUEUES
                     if source == "rows f32" or (ef, cap) == (5120, 5120)]
             runs = [(g, kw, q, shape) for shape in shapes + wide]
+            if source in STAGED_SOURCES and vs == -1:
+                runs.append((g, kw, q, RECORDS_UNSTAGED))
             if source.startswith("records pq"):
                 # the PQ table at the other group widths
                 for dims, groups in PQ_INTEGER_GROUPS:
@@ -1191,9 +1223,19 @@ def integer_walks(torch, cg, core_search, dev):
                       f"integer walk {name} {source} visited_slots={vs} "
                       f"T={t} ef={ef} cap={cap}: the kernel differs from "
                       f"the plain twin")
+                if source in STAGED_SOURCES:
+                    stage = cg._check_walk_args(
+                        g, qw, ef, cap, t, metric, visited_slots=vs,
+                        **kww).stage
+                    staged = cg.records_staging(ef, cap, t, g.max_m,
+                                                g.dims, stage) > 0
+                    check(staged == ((t, ef, cap) != RECORDS_UNSTAGED),
+                          f"integer walk {source} T={t} ef={ef} cap={cap}: "
+                          f"staged {staged}")
+                    staged_cases[staged] += 1
                 if max(ef, cap) <= 128:
                     variant_cases += 1
-                else:
+                elif max(ef, cap) > cg.MAX_WALK_QUEUE:
                     wide_cases += 1
     wide_launches = cg.WIDE_WALKS - wide0
     log(f"beam_walk vs plain on the integer index: bit-equal in all {cases} "
@@ -1204,7 +1246,11 @@ def integer_walks(torch, cg, core_search, dev):
         f"(bitmap, hash; T 1 / 4 / 8; (16, 16), (64, 128)) and all "
         f"{wide_cases} cases of the "
         f"wide instances ({', '.join(map(str, WIDE_QUEUES))}; "
-        f"{wide_launches} launches); ids, distances, hops and dist_evals")
+        f"{wide_launches} launches); ids, distances, hops and dist_evals; "
+        f"the int8 / bf16 records staged in shared memory in "
+        f"{staged_cases[True]} of those cases, read from the records in "
+        f"{staged_cases[False]} more at (T, ef, cand_cap) = "
+        f"{RECORDS_UNSTAGED}, bit-equal too")
     pq_wide_row_walks(torch, cg, core_search, dev)
     return wide_launches
 
@@ -1951,10 +1997,10 @@ def row_bytes(graph, kw):
 
 
 def variant_vs_twin(torch, graph, qs, kw, results, launches, *,
-                    visited_slots=-1, ef=WALK_EF):
+                    visited_slots=-1, ef=WALK_EF, t=GRAPH_T):
     """One walk variant on a 1M index at T=8, ef=64 (the main path's
-    shape; ``ef`` = cand_cap another width), with the walk's operands
-    ``kw``: the kernel against the plain
+    shape; ``ef`` = cand_cap another width, ``t`` another T), with the
+    walk's operands ``kw``: the kernel against the plain
     twin on the card on every query: recall@10 after finish_walk (vs the
     exact route over the stored rows) within 0.002 of the twin's, ids equal
     on >= 98% of queries, mean hops and dist_evals within 1%; then a call's
@@ -1962,13 +2008,13 @@ def variant_vs_twin(torch, graph, qs, kw, results, launches, *,
     and the bound.  ``launches``: the walk launches by variant of the API
     path just before, counted from 0 (walk_counts); the path must have
     launched this variant.  Stores the numbers in ``results`` under the
-    variant's name."""
+    variant's name (with " T=t" where ``t`` is not T=8)."""
     from pg_embedding_tpu_torch.core import search as core_search
     from pg_embedding_tpu_torch.graph_probe import device_ms
     from pg_embedding_tpu_torch.ops import cuda_graph as cg
     from pg_embedding_tpu_torch.ops.cuda_bruteforce import fused_exact_search
     q = torch.as_tensor(qs, device=graph.vectors.device)
-    walk = dict(ef=ef, metric_value=L2, cand_cap=ef, expand_width=GRAPH_T,
+    walk = dict(ef=ef, metric_value=L2, cand_cap=ef, expand_width=t,
                 visited_slots=visited_slots)
     records = kw.get("records")
     name = cg.walk_variant(graph.vectors.dtype,
@@ -2009,25 +2055,84 @@ def variant_vs_twin(torch, graph, qs, kw, results, launches, *,
     visited = None if visited_slots < 0 else (
         -(-graph.capacity // 32) if visited_slots == 0 else visited_slots,
         visited_slots)
-    bound = walk_bound_ms(kh, ke, len(qs), graph.dims, GRAPH_T, graph.max_m,
+    bound = walk_bound_ms(kh, ke, len(qs), graph.dims, t, graph.max_m,
                           row_bytes(graph, kw), visited)
+    staging = records_placement(cg, graph, q, kw, kh, ef, t)
     log(f"beam_walk {name} vs plain at {graph.n_nodes} rows, {b} queries, "
-        f"ef={ef}, T={GRAPH_T} ({launches[name]} launches on its API path): "
+        f"ef={ef}, T={t} ({launches[name]} launches on its API path): "
         f"recall@10 {rec_k:.4f} / {rec_p:.4f} vs the exact route; ids "
         f"differ on {n_diff} of {b} queries; mean hops {hk:.2f} / {hp:.2f}, "
         f"dist_evals {ek:.1f} / {ep:.1f}; max_abs_err {err:.3g} where ids "
         f"agree; on {len(qs)} queries kernel {ms:.3f} ms a call, plain "
         f"{plain_ms:.3f} ms (median of 5, CUDA events), kernel "
         f"{dev_ms:.3f} ms on the card (a CUDA graph of 20 calls); bound "
-        f"{bound:.4f} ms (bytes; {bound / dev_ms:.1%} of it reached)")
+        f"{bound:.4f} ms (bytes; {bound / dev_ms:.1%} of it reached)"
+        + (f"; {staging[0]}" if staging else ""))
     check(abs(rec_k - rec_p) <= 0.002,
           f"{name}: walk recall {rec_k} vs the twin's {rec_p}")
     check(n_diff <= 0.02 * b, f"{name}: ids differ on {n_diff} queries")
     check(abs(hk - hp) <= 0.01 * hp and abs(ek - ep) <= 0.01 * ep,
           f"{name}: hops {hk} / {hp}, evals {ek} / {ep}")
-    results[name] = dict(launches=launches[name], max_abs_err=err, ms=ms,
-                         device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound,
-                         bound_by="bytes", recall=rec_k, plain_recall=rec_p)
+    key = name if t == GRAPH_T else f"{name} T={t}"
+    results[key] = dict(launches=launches[name], max_abs_err=err, ms=ms,
+                        device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound,
+                        bound_by="bytes", recall=rec_k, plain_recall=rec_p)
+    if staging:
+        results[key].update(placement=staging[1], blocks_per_sm=staging[2])
+
+
+def records_placement(cg, graph, q, kw, hops, ef, t):
+    """Where an int8 or bf16 records walk at T = ``t``, ef = cand_cap =
+    ``ef`` (a table instance) keeps its records
+    (ops/cuda_graph._records_place: staged in shared memory, or read from
+    the records), and the blocks an SM holds of each placement's instance
+    at its shared bytes, the runtime's occupancy (graph_probe.walk_blocks):
+    the walk stages exactly where an SM then holds as many blocks as
+    unstaged, up to the instance's register-bound residency
+    (WALK_MIN_BLOCKS).  Returns (the log line, with the layout's bytes,
+    the instance's ptxas registers and spills (WALK_REPORTS) and, staged,
+    the bytes the staging reads at most, each step's T popped records from
+    the kernel's ``hops``; the placement; the blocks an SM of the instance
+    it takes), or None for the other sources."""
+    import torch
+    from pg_embedding_tpu_torch import _kernels
+    from pg_embedding_tpu_torch.graph_probe import walk_blocks
+    records = kw.get("records")
+    if records is None or records.dtype not in (torch.int8, torch.bfloat16):
+        return None
+    stage = cg._check_walk_args(graph, q, ef, ef, t, L2, **kw).stage
+    staged = cg.records_staging(ef, ef, t, graph.max_m, graph.dims, stage)
+    plain = cg._walk_smem_bytes(ef, ef, t, graph.max_m, graph.dims, None)
+    rec, _ = cg._records_place(stage, t, graph.max_m, graph.dims, plain, 0)
+    lib, elem = _kernels.load_library(), cg._ELEMS[records.dtype]
+    threads = cg._walk_threads(t, graph.max_m)
+    blocks = {False: walk_blocks(lib, elem, False, t, graph.max_m, plain)}
+    if rec:
+        blocks[True] = walk_blocks(lib, elem, True, t, graph.max_m,
+                                   plain + rec)
+        keeps = blocks[True] >= min(blocks[False],
+                                    cg.WALK_MIN_BLOCKS[threads])
+        check(keeps == (staged > 0),
+              f"records {records.dtype} T={t}: staged {staged} B, but an SM "
+              f"holds {blocks[True]} blocks staged against {blocks[False]}")
+    name = "int8" if records.dtype == torch.int8 else "bf16"
+    inst = (f"beam_walk_kernel<{name}{' staged' if staged else ''} rows, "
+            f"dense, {threads} threads>")
+    spill, used = WALK_REPORTS[inst]
+    regs = int(re.search(r"Used (\d+) registers", used)[1])
+    record = graph.max_m * graph.dims * records.element_size() + (
+        4 * graph.max_m if "pscales" in kw else 0)
+    read = int(hops.sum()) * t * record if staged else 0
+    line = (f"placement {'staged' if staged else 'read from the records'}"
+            f" ({staged} staged bytes of {plain + staged} a block; {inst}: "
+            f"{regs} registers, {spill}; {blocks[staged > 0]} blocks an SM"
+            + (f", {blocks[False]} unstaged at {plain} B" if staged else
+               f", {blocks[True]} staged at {plain + rec} B" if rec else "")
+            + ", the runtime's occupancy)"
+            + (f"; the staging reads at most {read:,} B "
+               f"({read / PEAK_BYTES * 1e3:.4f} ms at the HBM rate)"
+               if staged else ""))
+    return line, "staged" if staged else "records", blocks[staged > 0]
 
 
 def walk_counts():
@@ -2042,7 +2147,8 @@ def serving_variants(torch, idx, qs, results):
     """Quantized and packed walks on the 1M index at T=8 through the API:
     QPS and recall@10 against the exact route, each within 0.005 of the
     plain walk's recall; float32 records must give the plain walk's ids and
-    order; each variant's kernel against its plain twin (variant_vs_twin);
+    order; each variant's kernel against its plain twin (variant_vs_twin;
+    the int8 and bf16 records walks also at API_T);
     then the bitmap and hash visited sets: the dense walk's ids through the
     API, and each kernel against its twin.  Each variant's launches are
     counted over its own API calls."""
@@ -2091,6 +2197,16 @@ def serving_variants(torch, idx, qs, results):
         else:
             kw = dict(qvectors=idx._qvec, qscale=idx._qscale)
         variant_vs_twin(torch, idx.graph, qs, kw, results, launches)
+        if name in RECORDS_AT_API_T:
+            # the API's default search_expand_width: each records walk
+            # at T=4 too (staged at both types), its launches counted
+            # over one API call
+            idx.search_expand_width = API_T
+            counts = walk_counts()
+            idx.search_ids(qs)
+            variant_vs_twin(torch, idx.graph, qs, kw, results, dict(counts),
+                            t=API_T)
+            idx.search_expand_width = GRAPH_T
         idx.quantized_traversal = idx.packed_traversal = False
     log("packed float32 walk: ids and order equal the plain walk's on all "
         f"{len(qs)} queries")
@@ -3566,7 +3682,8 @@ def main():
     log(f"beam_walk launches by variant, each over its own API path (the "
         f"smoke's comparisons not counted): "
         f"{ {k: v['launches'] for k, v in walk_variants.items()} }")
-    check(len(walk_variants) == len(WALK_SOURCES) + len(WALK_VISITED),
+    check(len(walk_variants) == len(WALK_SOURCES) + len(WALK_VISITED)
+          + len(RECORDS_AT_API_T),
           f"variants held to their twin at 1M: {sorted(walk_variants)}")
     check(core_search.PLAIN_WALKS_ON_CARD == 0,
           f"phases 4-11 ran {core_search.PLAIN_WALKS_ON_CARD} plain walks "

@@ -61,6 +61,9 @@ def declare_graph(lib) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.beam_walk.argtypes = [*[vp] * 9, *[ci] * 16, *[vp] * 5]
     lib.beam_walk.restype = ci
+    if hasattr(lib, "beam_walk_blocks"):  # (an earlier tree's build: none)
+        lib.beam_walk_blocks.argtypes = [ci] * 7
+        lib.beam_walk_blocks.restype = ci
     lib.prune_scan.argtypes = [*[vp] * 5, *[ci] * 3, *[vp] * 3]
     lib.prune_scan.restype = ci
 

@@ -50,6 +50,11 @@
 //   * bf16 corpus rows or records, widened exactly; with cosine over bf16
 //     corpus rows, |p|^2 is rounded to bf16 and back, as the twin's
 //     _sum_sq of a bf16 operand does (records are widened first: no);
+//   * int8 and bf16 records are staged where the launch asks for it:
+//     phase 1 copies each popped row's whole record (and its scales) to
+//     shared memory, and phase 3 reads slot s's row there (kElemI8Staged,
+//     kElemBF16Staged), the same values in the same order, so the same
+//     walk;
 //   * PQ records u8[cap, maxM, G] through the codebook f32[G, 256, D / G]:
 //     element c is codebook[c / sub, code[c / sub], c % sub] (ops/pq
 //     pq_decode).  The row is never decoded: the metric's sum splits by
@@ -85,7 +90,9 @@
 //   1. links: a thread a slot loads the popped row's count and link
 //      together (in flight while the thread inserts the queues' ids; PQ
 //      records: and copies the slot's code bytes to shared memory, whose
-//      place is known before the link arrives: stage_pq_codes), and
+//      place is known before the link arrives: stage_pq_codes; staged
+//      int8 / bf16 records: thread j has the copy engine copy popped row
+//      j's whole record to shared memory, stage_records), and
 //      inserts each valid slot's id into a shared hash table keyed by id
 //      whose value is the smallest slot holding it (atomicMin); the ids of
 //      both queues, the popped ones included, go into a second table (the
@@ -115,10 +122,11 @@
 //      strictly below it, an admitted entry by the incumbents at or below
 //      it: binary searches), into its second buffer.
 // Each row source and visited-set kind (the dense dedupe, or a set in
-// device memory) is one instance: 5 x 2 (PQ twice: kElemPQ, kElemPQFar),
-// by 128 or 256 threads: twenty (the dense instances compile the sets'
-// branches away; graph_probe's sets-runtime variant keeps them); the
-// records / rows choice and bitmap / hash are uniform runtime branches.
+// device memory) is one instance: 7 x 2 (PQ twice: kElemPQ, kElemPQFar;
+// int8 and bf16 staged records beside them), by 128 or 256 threads:
+// twenty-eight (the dense instances compile the sets' branches away;
+// graph_probe's sets-runtime variant keeps them); the records / rows
+// choice and bitmap / hash are uniform runtime branches.
 // 128 threads a block where T * maxM <= 128 (T <= 4 at maxM = 32), else 256; an SM holds 5 blocks of 128 (96
 // registers a thread) or 4 of 256 (64): shapes chosen by measurement
 // (PERF.md; graph_probe.py).  Where the tables do not fit beside the
@@ -155,7 +163,7 @@
 //     so a round never overwrites what a later round reads), then the
 //     admitted land; an incumbent pushed past the queue's width clears
 //     its held bit instead.
-// Five wide instances, a row source each, 256 threads, the visited set a
+// Seven wide instances, a row source each, 256 threads, the visited set a
 // runtime branch (the bitmap and hash sets keep no held bits), two blocks
 // an SM (128 registers).  Python computes the shared-memory figure and
 // the device memory a query (ops/cuda_graph._walk_layout,
@@ -177,10 +185,20 @@
 // cosine at G = 96 on 1536-d), each row's codes are read from the records
 // in phase 3 (a dependent latency again); where the table alone does not
 // (cosine past G ~ 100, L2 past ~ 200), it is built in the query's
-// device scratch and read through L1 and L2 (pq_place).  Records
-// read slower than rows of the same type (PERF.md); they span maxM times
-// the rows' bytes (16.6 GB at 1M float32), and why that costs is not yet
-// measured.
+// device scratch and read through L1 and L2 (pq_place).  Records read
+// from device memory wait on the rows' load after the links' in every
+// round (int8 records 0.853 ms at T = 8 against int8 rows' 0.706: the
+// rows lap ~16,600 cycles a step against ~12,700 for float32 rows).  A
+// staged int8 / bf16 records step waits on the links alone: the copy
+// engine brings each popped row's record while phase 1 inserts the ids,
+// and the rows lap is shared reads (int8 T = 8: ~8,400 cycles a step,
+// 0.654 ms; the links lap grows ~4,300 -> ~6,300 cycles with the copies'
+// issue).  The staged records cost residency, T maxM D elements a block
+// (64 KB for bf16 at T = 8: 2 blocks an SM, slower than reading the
+// records at 4), so the launch stages only where an SM keeps its blocks
+// (ops/cuda_graph._records_place).  16-byte cp.async copies spread over
+// the block instead of one bulk copy a record: 0.761 against 0.654 ms
+// (graph_probe --mode records; PERF.md).
 // A wide step adds the held word's read to the links' latency, and its
 // in-place merge shifts both queues' suffixes every step, a barrier a
 // round: at ef = cand_cap = 5120 the move is ~46% of a step (PERF.md).
@@ -232,8 +250,23 @@ constexpr int kElemPQ = 3;               // uint8 PQ codes x the codebook
 // or device memory.  An instance of its own, so that kElemPQ's lookups
 // stay shared loads with no runtime choice of memory in their way.
 constexpr int kElemPQFar = 4;
+// int8 and bf16 records whose popped rows' records phase 1 copies whole to
+// shared memory (records_place): instances of their own, so that their
+// reads are shared loads with no runtime choice of memory in their way;
+// kElemI8 / kElemBF16 read the records where they are not staged.
+constexpr int kElemI8Staged = 5;
+constexpr int kElemBF16Staged = 6;
 __host__ __device__ constexpr bool is_pq(int elem) {
   return elem == kElemPQ || elem == kElemPQFar;
+}
+__host__ __device__ constexpr bool is_staged(int elem) {
+  return elem == kElemI8Staged || elem == kElemBF16Staged;
+}
+// the element type an instance's rows hold
+__host__ __device__ constexpr int elem_type(int elem) {
+  return elem == kElemI8Staged     ? kElemI8
+         : elem == kElemBF16Staged ? kElemBF16
+                                   : elem;
 }
 // the visited sets (the API's visited_slots: -1, 0, 2^s)
 constexpr int kVisDense = 0;
@@ -323,16 +356,67 @@ PqPlace pq_place(int groups, int metric, int T, int maxM, size_t used) {
   return {0, table / 4, 0};
 }
 
+// Where an int8 or bf16 records source can keep each step's records
+// (kElemI8Staged / kElemBF16Staged): the T popped rows' whole records (T
+// maxM D elements of ``elem_bytes``), then an int8 source's T maxM scales,
+// each rounded up to 16 bytes, in shared memory at offset ``at`` (the
+// block's region, after every other part), where
+//   * the bulk copy's 16-byte alignment holds: a record's bytes, an int8
+//     record's scales, the region and both tensors' bases (``aligned``);
+//   * they fit beside the ``used`` bytes of the rest of the layout.
+// Else none (0 bytes): each slot read from the records in phase 3.
+// Nothing else of the layout moves.  Whether a walk that can stage does is
+// the caller's choice (ops/cuda_graph._records_place holds the rule: an SM
+// keeps its blocks), told by the shared bytes it passes (beam_walk).
+struct RecPlace {
+  size_t smem;     // shared bytes: the staged records and scales
+  int staged;
+};
+
+int walk_threads(int T, int maxM) {
+  return T * maxM <= 128 ? 128 : 256;
+}
+
+__host__ __device__ __forceinline__ size_t round16(size_t n) {
+  return (n + 15) / 16 * 16;
+}
+
+__host__ __device__ __forceinline__ size_t rec_rows_bytes(int elem_bytes,
+                                                          int T, int maxM,
+                                                          int D) {
+  return round16((size_t)T * maxM * D * elem_bytes);
+}
+
+// The staged records' bytes and, with ``scales``, their int8 scales'.
+__host__ __device__ __forceinline__ size_t rec_stage_bytes(int elem_bytes,
+                                                           bool scales, int T,
+                                                           int maxM, int D) {
+  return rec_rows_bytes(elem_bytes, T, maxM, D) +
+         (scales ? round16((size_t)T * maxM * 4) : 0);
+}
+
+RecPlace records_place(int elem_bytes, int scales, int aligned, int T,
+                       int maxM, int D, size_t at, size_t used) {
+  if (elem_bytes <= 0 || !aligned) return {0, 0};
+  const size_t record = (size_t)maxM * D * elem_bytes;
+  if (record % 16 || (scales && maxM * 4 % 16) || at % 16) return {0, 0};
+  const size_t bytes = rec_stage_bytes(elem_bytes, scales, T, maxM, D);
+  if (used + bytes > (size_t)kSmemLimit) return {0, 0};
+  return {bytes, 1};
+}
+
 // Shared memory: the query row (D rounded up to 4 floats), the result and
 // candidate queues twice (d, id), per expansion slot its id, the compacted
 // processed slots, the admitted (d, slot) and their ranked (d, id), 8
 // counters, then the held table (held_n ids) and the slot table (slot_n
 // ids and slot_n smallest slots), then a PQ source's table and staged
 // codes (pq_place, placed first: the tables take what it leaves, and are
-// left out (0) where they do not fit).  The wide instances (ef or cap
-// above kMaxQueue): the query row, the slot arrays, the counters, the slot
-// table, the PQ table and codes, then each queue once (d, id; the
-// candidate ring of ``ring`` entries) where they fit; device memory,
+// left out (0) where they do not fit) or an int8 / bf16 records source's
+// staged records (records_place, placed last: nothing else moves).  The
+// wide instances (ef or cap above kMaxQueue): the query row, the slot
+// arrays, the counters, the slot table, the PQ table and codes or the
+// staged records, then each queue once (d, id; the candidate ring of
+// ``ring`` entries) where they fit; device memory,
 // ``words`` int32 a query: the held bits (``held_words``, two bits an id
 // of ``rows``: the dense dedupe only), then the queues where they do not
 // fit in shared memory; a PQ table that does not fit there takes pq.words
@@ -344,6 +428,7 @@ struct WalkLayout {
   size_t held_words, words;
   int queues_shared;
   PqPlace pq;
+  RecPlace rec;
 };
 
 // The device words a query: ``words`` of the walk's own, then the PQ
@@ -354,7 +439,8 @@ size_t with_pq_words(size_t words, const PqPlace& pq) {
 }
 
 WalkLayout walk_layout(int ef, int cap, int T, int maxM, int D, int rows,
-                       bool dense, int groups, int metric) {
+                       bool dense, int groups, int metric, int rec_elem,
+                       int rec_scales, int rec_aligned) {
   const size_t tm = (size_t)T * maxM;
   const size_t row = 4 * (size_t)((D + 3) / 4 * 4);
   const size_t slots = pow2_at_least(2 * tm);
@@ -365,24 +451,32 @@ WalkLayout walk_layout(int ef, int cap, int T, int maxM, int D, int rows,
     fixed += pq.smem;
     const size_t queues = 8 * ((size_t)ef + ring);
     const size_t held = dense ? ((size_t)rows + 15) / 16 : 0;
-    if (fixed + queues <= (size_t)kSmemLimit)
-      return {fixed + queues, 0, (int)slots, (int)ring, held,
-              with_pq_words(held, pq), 1, pq};
-    return {fixed, 0, (int)slots, (int)ring, held,
-            with_pq_words(held + queues / 4, pq), 0, pq};
+    if (fixed + queues <= (size_t)kSmemLimit) {
+      const RecPlace rec = records_place(rec_elem, rec_scales, rec_aligned,
+                                         T, maxM, D, fixed, fixed + queues);
+      return {fixed + rec.smem + queues, 0, (int)slots, (int)ring, held,
+              with_pq_words(held, pq), 1, pq, rec};
+    }
+    const RecPlace rec = records_place(rec_elem, rec_scales, rec_aligned, T,
+                                       maxM, D, fixed, fixed);
+    return {fixed + rec.smem, 0, (int)slots, (int)ring, held,
+            with_pq_words(held + queues / 4, pq), 0, pq, rec};
   }
   const size_t held = pow2_at_least(2 * ((size_t)ef + cap));
   size_t base = row + 16 * ((size_t)ef + cap) + 24 * tm + 32;
   const PqPlace pq = pq_place(groups, metric, T, maxM, base);
   base += pq.smem;
   const size_t tables = 4 * held + 8 * slots;
-  if (base + tables <= (size_t)kSmemLimit)
-    return {base + tables, (int)held, (int)slots, 0, 0, pq.words, 1, pq};
-  return {base, 0, 0, 0, 0, pq.words, 1, pq};
-}
-
-int walk_threads(int T, int maxM) {
-  return T * maxM <= 128 ? 128 : 256;
+  if (base + tables <= (size_t)kSmemLimit) {
+    const size_t used = base + tables;
+    const RecPlace rec = records_place(rec_elem, rec_scales, rec_aligned, T,
+                                       maxM, D, used, used);
+    return {used + rec.smem, (int)held, (int)slots, 0, 0, pq.words, 1, pq,
+            rec};
+  }
+  const RecPlace rec = records_place(rec_elem, rec_scales, rec_aligned, T,
+                                     maxM, D, base, base);
+  return {base + rec.smem, 0, 0, 0, 0, pq.words, 1, pq, rec};
 }
 
 __device__ __forceinline__ unsigned hash_id(int id, int n) {
@@ -465,6 +559,16 @@ struct RowSource {
                           // PQ: of the codebook, in the table's build)
 };
 
+// A staged records source's region (records_place): popped row j's record
+// at rows + j maxM D elements, so slot s's row at rows + s D; an int8
+// source's scales after them, slot s's at scales[s]; the step's copies
+// complete on ``bar``.  All null for the other sources.
+struct RecStage {
+  unsigned char* rows;
+  float* scales;
+  unsigned long long* bar;
+};
+
 __device__ __forceinline__ float bf16_lo(unsigned w) {
   return __uint_as_float(w << 16);
 }
@@ -500,12 +604,22 @@ struct Raw<kElemBF16> {
   using One = unsigned;
 };
 
-// Elements [4c, 4c + 4) of row ``at``, raw.
+template <>
+struct Raw<kElemI8Staged> : Raw<kElemI8> {};
+template <>
+struct Raw<kElemBF16Staged> : Raw<kElemBF16> {};
+
+// Elements [4c, 4c + 4) of row ``at``, raw (staged: slot ``at``'s row in
+// shared memory).
 template <int kElem>
 __device__ __forceinline__ typename Raw<kElem>::Vec load4(
-    const RowSource& src, size_t at, int c, int D) {
+    const RowSource& src, const RecStage& rs, size_t at, int c, int D) {
   static_assert(!is_pq(kElem), "PQ rows are read through the table");
-  if constexpr (kElem == kElemF32) {
+  if constexpr (kElem == kElemI8Staged) {
+    return reinterpret_cast<const int*>(rs.rows)[(int)at * (D / 4) + c];
+  } else if constexpr (kElem == kElemBF16Staged) {
+    return reinterpret_cast<const uint2*>(rs.rows)[(int)at * (D / 4) + c];
+  } else if constexpr (kElem == kElemF32) {
     return __ldg(reinterpret_cast<const float4*>(src.rows) + at * (D / 4) +
                  c);
   } else if constexpr (kElem == kElemI8) {
@@ -519,9 +633,13 @@ __device__ __forceinline__ typename Raw<kElem>::Vec load4(
 // Element e of row ``at`` (the scalar path, any D), raw.
 template <int kElem>
 __device__ __forceinline__ typename Raw<kElem>::One load1(
-    const RowSource& src, size_t at, int e, int D) {
+    const RowSource& src, const RecStage& rs, size_t at, int e, int D) {
   static_assert(!is_pq(kElem), "PQ rows are read through the table");
-  if constexpr (kElem == kElemF32) {
+  if constexpr (kElem == kElemI8Staged) {
+    return reinterpret_cast<const signed char*>(rs.rows)[(int)at * D + e];
+  } else if constexpr (kElem == kElemBF16Staged) {
+    return reinterpret_cast<const unsigned short*>(rs.rows)[(int)at * D + e];
+  } else if constexpr (kElem == kElemF32) {
     return __ldg(reinterpret_cast<const float*>(src.rows) + at * D + e);
   } else if constexpr (kElem == kElemI8) {
     return __ldg(reinterpret_cast<const signed char*>(src.rows) + at * D + e);
@@ -529,6 +647,16 @@ __device__ __forceinline__ typename Raw<kElem>::One load1(
     return __ldg(reinterpret_cast<const unsigned short*>(src.rows) + at * D +
                  e);
   }
+}
+
+// Row ``at``'s int8 scale (staged: slot ``at``'s, in shared memory).
+template <int kElem>
+__device__ __forceinline__ float scale_at(const RowSource& src,
+                                          const RecStage& rs, int at) {
+  if constexpr (is_staged(kElem))
+    return rs.scales[at];
+  else
+    return __ldg(src.scales + at);
 }
 
 // The float32 values of raw elements (int8: times the row's scale ``sc``).
@@ -591,6 +719,126 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src,
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// The staged records' mbarrier: ``count`` arrivals a phase (one a popped
+// row), each adding the bytes its copies complete on it.
+__device__ __forceinline__ void mbar_init(unsigned long long* bar,
+                                          unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect(unsigned long long* bar,
+                                                   unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Waits for the barrier's phase of parity ``phase`` to end.  A copy that is
+// only delayed is waited for; one that has not landed after 10 s of the
+// global timer traps, a launch error in place of a card that never answers.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned phase) {
+  unsigned long long start = 0;
+  for (;;) {
+    unsigned done;
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(phase)
+        : "memory");
+    if (done) return;
+    unsigned long long now;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+    if (start == 0)
+      start = now;
+    else if (now - start > 10000000000ull)
+      __trap();
+  }
+}
+
+template <int kElem>
+__device__ __forceinline__ RecStage rec_stage(unsigned char* region,
+                                              int* ctr, int T, int maxM,
+                                              int D) {
+  if constexpr (is_staged(kElem)) {
+    constexpr int kBytes = elem_type(kElem) == kElemI8 ? 1 : 2;
+    return {region,
+            elem_type(kElem) == kElemI8
+                ? reinterpret_cast<float*>(
+                      region + rec_rows_bytes(kBytes, T, maxM, D))
+                : nullptr,
+            // counters 6 and 7 (8-aligned: ctr is)
+            reinterpret_cast<unsigned long long*>(ctr + 6)};
+  } else {
+    return {nullptr, nullptr, nullptr};
+  }
+}
+
+// Phase 1 (int8 / bf16 records, staged): each popped row's whole record,
+// and an int8 record's scales, copied to shared memory as soon as the pop
+// is read.  Record p holds the rows of links[p, 0 .. maxM), so where a
+// slot's row lies is known before its link arrives: the copies need no
+// dependent latency, and phase 3 reads shared memory.  Thread j issues
+// popped row j's copies (the copy engine's cp.async.bulk: one for the
+// record, one for its scales), or none where the row does not expand, and
+// arrives on the barrier with their bytes (T arrivals a phase); the block
+// waits before phase 2's barrier (wait_records).
+template <int kElem, int kThreads>
+__device__ __forceinline__ void stage_records(const RowSource& src,
+                                              const int* pop_i,
+                                              const float* pop_d,
+                                              float lower, int T, int maxM,
+                                              int D, const RecStage& rs,
+                                              int tid) {
+  constexpr bool kI8 = elem_type(kElem) == kElemI8;
+  const unsigned record = (unsigned)maxM * D * (kI8 ? 1 : 2);
+  const unsigned scales = kI8 ? (unsigned)maxM * 4 : 0u;
+  const unsigned char* rec = static_cast<const unsigned char*>(src.rows);
+  for (int j = tid; j < T; j += kThreads) {
+    const int p = pop_i[j];
+    const bool go = p >= 0 && !(pop_d[j] > lower);
+    // the region's earlier readers are done (two block barriers ago)
+    // before the copy engine writes it
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    mbar_arrive_expect(rs.bar, go ? record + scales : 0u);
+    if (go) {
+      bulk_copy(rs.rows + (size_t)j * record, rec + (size_t)p * record,
+                record, rs.bar);
+      if (kI8)
+        bulk_copy(rs.scales + (size_t)j * maxM, src.scales + (size_t)p * maxM,
+                  scales, rs.bar);
+    }
+  }
+}
+
+// The step's staged records have landed (phase 3 reads them): each thread
+// waits for the barrier's phase of the step (``step`` parity).
+__device__ __forceinline__ void wait_records(const RecStage& rs, int step) {
+  mbar_wait(rs.bar, (unsigned)step & 1u);
 }
 
 // A PQ walk's table and staged codes (pq_place): kElemPQ's both in the
@@ -857,14 +1105,17 @@ __device__ __forceinline__ void record_visits(int vis_mode, int* vis,
 // new_ds (d, slot bits) with one atomic a warp.  PQ rows: each lane reads
 // its groups' code bytes of the warp's rows (staged in shared memory by
 // phase 1, or from the records), then adds their entries of the query's
-// table ``pq.tab`` (build_pq_table) into its partials.
+// table ``pq.tab`` (build_pq_table) into its partials.  Staged records:
+// each slot's row and scale from ``rs`` in shared memory (stage_records),
+// widened and summed as the records' are.
 template <int kMetric, int kElem, int kWarps>
 __device__ __forceinline__ void score_rows(
-    const RowSource& src, const float* q_s, const PqTable& pq, int D,
-    int maxM, float qq, float lower, const int* proc, int n_proc,
-    const int* slot_id, const int* ci, int* n_new, float2* new_ds, int warp,
-    int lane) {
+    const RowSource& src, const float* q_s, const PqTable& pq,
+    const RecStage& rs, int D, int maxM, float qq, float lower,
+    const int* proc, int n_proc, const int* slot_id, const int* ci,
+    int* n_new, float2* new_ds, int warp, int lane) {
   constexpr int R = kRowsPerWarp, kLanesPerRow = 32 / R;
+  constexpr int kType = elem_type(kElem);     // the rows' element type
   const float4* q4 = reinterpret_cast<const float4*>(q_s);
   for (int e0 = warp * R; e0 < n_proc; e0 += kWarps * R) {
     // each row's index in the rows or records (-1: none), 32 bits to spare
@@ -877,10 +1128,11 @@ __device__ __forceinline__ void score_rows(
       at[u] = -1;
       if (e0 + u < n_proc) {
         const int s = proc[e0 + u];
-        // (PQ: the slot, whose codes phase 1 staged, or the record)
-        at[u] = kElem == kElemPQ ? s
-                : src.records    ? ci[s / maxM] * maxM + s % maxM
-                                 : slot_id[s];
+        // (PQ and staged records: the slot, whose codes or row phase 1
+        // staged; else the record or the row)
+        at[u] = kElem == kElemPQ || is_staged(kElem) ? s
+                : src.records ? ci[s / maxM] * maxM + s % maxM
+                              : slot_id[s];
       }
     }
     // per chunk of a row: every row's raw elements and int8 scale, then
@@ -917,14 +1169,14 @@ __device__ __forceinline__ void score_rows(
 #pragma unroll
         for (int u = 0; u < R; ++u) {
           if (at[u] < 0) continue;
-          raw[u] = load4<kElem>(src, at[u], c, D);
-          if (kElem == kElemI8) sc[u] = __ldg(src.scales + at[u]);
+          raw[u] = load4<kElem>(src, rs, at[u], c, D);
+          if (kType == kElemI8) sc[u] = scale_at<kElem>(src, rs, at[u]);
         }
 #pragma unroll
         for (int u = 0; u < R; ++u) {
           if (at[u] < 0) continue;
           const float4 pv =
-              widen4<kElem>(raw[u], kElem == kElemI8 ? sc[u] : 1.f);
+              widen4<kType>(raw[u], kType == kElemI8 ? sc[u] : 1.f);
           accum<kMetric>(pv.x, qv.x, a[u], pp[u]);
           accum<kMetric>(pv.y, qv.y, a[u], pp[u]);
           accum<kMetric>(pv.z, qv.z, a[u], pp[u]);
@@ -938,14 +1190,14 @@ __device__ __forceinline__ void score_rows(
 #pragma unroll
         for (int u = 0; u < R; ++u) {
           if (at[u] < 0) continue;
-          raw[u] = load1<kElem>(src, at[u], c, D);
-          if (kElem == kElemI8) sc[u] = __ldg(src.scales + at[u]);
+          raw[u] = load1<kElem>(src, rs, at[u], c, D);
+          if (kType == kElemI8) sc[u] = scale_at<kElem>(src, rs, at[u]);
         }
 #pragma unroll
         for (int u = 0; u < R; ++u)
           if (at[u] >= 0)
             accum<kMetric>(
-                widen1<kElem>(raw[u], kElem == kElemI8 ? sc[u] : 1.f), qv,
+                widen1<kType>(raw[u], kType == kElemI8 ? sc[u] : 1.f), qv,
                 a[u], pp[u]);
       }
     }
@@ -1022,6 +1274,13 @@ beam_walk_kernel(const int* __restrict__ links, const int* __restrict__ counts,
   unsigned char* region = reinterpret_cast<unsigned char*>(slot_min + slot_n);
   PqTable pq{nullptr, nullptr};
   if constexpr (is_pq(kElem)) pq = pq_table<kElem>(src, metric, region, b);
+  // a staged records source's records and scales there (16-aligned:
+  // records_place), their barrier in the counters (set only in its
+  // instances: a stage built in the others, though unused, renumbers the
+  // float32 instances' registers and moves their ptxas spills)
+  RecStage rs{nullptr, nullptr, nullptr};
+  if constexpr (is_staged(kElem))
+    rs = rec_stage<kElem>(region, ctr, T, maxM, D);
   // the hash set's processed slots, a word a 32-slot chunk, from phase 2 to
   // phase 3's writes (srt_i is next written in phase 4)
   unsigned* proc_bits = reinterpret_cast<unsigned*>(srt_i);
@@ -1038,6 +1297,8 @@ beam_walk_kernel(const int* __restrict__ links, const int* __restrict__ counts,
     slot_min[i] = INT_MAX;
   }
   if (tid < 4) ctr[tid] = 0;
+  if constexpr (is_staged(kElem))
+    if (tid == 0) mbar_init(rs.bar, T);
   __syncthreads();
   if (tid == 0 && has_nodes) {
     rd[0] = cd[0] = entry_d[b];
@@ -1084,6 +1345,8 @@ beam_walk_kernel(const int* __restrict__ links, const int* __restrict__ counts,
     if (tid < tm) load_slot(tid, left, link);   // in flight over the inserts
     if constexpr (kElem == kElemPQ)
       stage_pq_codes<kThreads>(src, ci, cd, lower, maxM, tm, pq.staged, tid);
+    if constexpr (is_staged(kElem))
+      stage_records<kElem, kThreads>(src, ci, cd, lower, T, maxM, D, rs, tid);
     if (hashed && vis_mode == kVisDense) {
       for (int i = tid; i < cap + ef; i += kThreads) {
         const int id = i < cap ? ci[i] : ri[i - cap];
@@ -1127,8 +1390,9 @@ beam_walk_kernel(const int* __restrict__ links, const int* __restrict__ counts,
       at = __shfl_sync(kFull, at, 0);
       if (keep) proc[at + __popc(m & ((1u << lane) - 1u))] = s;
     }
-    // the staged PQ codes have landed (phase 3 reads them)
+    // the staged PQ codes or records have landed (phase 3 reads them)
     if constexpr (kElem == kElemPQ) cp_async_wait_all();
+    if constexpr (is_staged(kElem)) wait_records(rs, hops);
     __syncthreads();
     const int n_proc = cnt[0];
     if (tid == 0) laps.lap(kLapDedupe);
@@ -1145,17 +1409,17 @@ beam_walk_kernel(const int* __restrict__ links, const int* __restrict__ counts,
                             proc_bits, tm, tid, warp, lane);
     // distances, kRowsPerWarp neighbours a warp at a time; admit
     if (metric == kMetricL2)
-      score_rows<kMetricL2, kElem, kWarps>(src, q_s, pq, D, maxM, qq,
+      score_rows<kMetricL2, kElem, kWarps>(src, q_s, pq, rs, D, maxM, qq,
                                            lower, proc, n_proc, slot_id, ci,
                                            cnt + 1, new_ds, warp, lane);
     else if (metric == kMetricCosine)
-      score_rows<kMetricCosine, kElem, kWarps>(src, q_s, pq, D, maxM, qq,
-                                               lower, proc, n_proc, slot_id,
-                                               ci, cnt + 1, new_ds, warp,
-                                               lane);
+      score_rows<kMetricCosine, kElem, kWarps>(src, q_s, pq, rs, D, maxM,
+                                               qq, lower, proc, n_proc,
+                                               slot_id, ci, cnt + 1, new_ds,
+                                               warp, lane);
     else
       score_rows<kMetricManhattan, kElem, kWarps>(
-          src, q_s, pq, D, maxM, qq, lower, proc, n_proc, slot_id, ci,
+          src, q_s, pq, rs, D, maxM, qq, lower, proc, n_proc, slot_id, ci,
           cnt + 1, new_ds, warp, lane);
     __syncthreads();
     const int n_new = cnt[1];
@@ -1262,15 +1526,22 @@ beam_walk_wide_kernel(const int* __restrict__ links,
   int* mine = wide_words ? wide_mem + b * wide_words : nullptr;
   unsigned* held = reinterpret_cast<unsigned*>(mine);
   // a PQ source's distance table and staged codes after the slot table (or
-  // its table in device memory: pq_table), then the queues where they are
-  // in shared memory
+  // its table in device memory: pq_table), or a staged records source's
+  // records and scales (records_place), then the queues where they are in
+  // shared memory
   unsigned char* region = reinterpret_cast<unsigned char*>(slot_min + slot_n);
   PqTable pq{nullptr, nullptr};
   if constexpr (is_pq(kElem)) pq = pq_table<kElem>(src, metric, region, b);
-  size_t pq_bytes = 0;
+  size_t region_bytes = 0;
   if constexpr (is_pq(kElem))
-    pq_bytes = pq_region_bytes<kElem>(src, metric, T, maxM);
-  float* rd = queues_shared ? reinterpret_cast<float*>(region + pq_bytes)
+    region_bytes = pq_region_bytes<kElem>(src, metric, T, maxM);
+  RecStage rs{nullptr, nullptr, nullptr};
+  if constexpr (is_staged(kElem)) {
+    constexpr bool kI8 = elem_type(kElem) == kElemI8;
+    rs = rec_stage<kElem>(region, ctr, T, maxM, D);
+    region_bytes = rec_stage_bytes(kI8 ? 1 : 2, kI8, T, maxM, D);
+  }
+  float* rd = queues_shared ? reinterpret_cast<float*>(region + region_bytes)
                             : reinterpret_cast<float*>(mine + held_words);
   float* cd = rd + ef;
   int* ri = reinterpret_cast<int*>(cd + ring);
@@ -1291,6 +1562,8 @@ beam_walk_wide_kernel(const int* __restrict__ links,
     slot_min[i] = INT_MAX;
   }
   if (tid < 4) ctr[tid] = 0;
+  if constexpr (is_staged(kElem))
+    if (tid == 0) mbar_init(rs.bar, T);
   __syncthreads();
   if (tid == 0 && has_nodes) {
     rd[0] = cd[0] = entry_d[b];
@@ -1326,6 +1599,9 @@ beam_walk_wide_kernel(const int* __restrict__ links,
     if constexpr (kElem == kElemPQ)
       stage_pq_codes<kThreads>(src, pop_i, pop_d, lower, maxM, tm, pq.staged,
                                tid);
+    if constexpr (is_staged(kElem))
+      stage_records<kElem, kThreads>(src, pop_i, pop_d, lower, T, maxM, D,
+                                     rs, tid);
     unsigned word = 0;
     for (int s = tid; s < tm; s += kThreads) {
       const int j = s / maxM, r = s - j * maxM;
@@ -1364,8 +1640,9 @@ beam_walk_wide_kernel(const int* __restrict__ links,
       at = __shfl_sync(kFull, at, 0);
       if (keep) proc[at + __popc(m & ((1u << lane) - 1u))] = s;
     }
-    // the staged PQ codes have landed (phase 3 reads them)
+    // the staged PQ codes or records have landed (phase 3 reads them)
     if constexpr (kElem == kElemPQ) cp_async_wait_all();
+    if constexpr (is_staged(kElem)) wait_records(rs, hops);
     __syncthreads();
     const int n_proc = cnt[0];
     if (tid == 0) laps.lap(kLapDedupe);
@@ -1383,18 +1660,18 @@ beam_walk_wide_kernel(const int* __restrict__ links,
       atomicAnd(held + (pop_i[j] >> 4),
                 ~(kInCand << (2 * (pop_i[j] & 15))));
     if (metric == kMetricL2)
-      score_rows<kMetricL2, kElem, kWarps>(src, q_s, pq, D, maxM, qq,
+      score_rows<kMetricL2, kElem, kWarps>(src, q_s, pq, rs, D, maxM, qq,
                                            lower, proc, n_proc, slot_id,
                                            pop_i, cnt + 1, new_ds, warp,
                                            lane);
     else if (metric == kMetricCosine)
-      score_rows<kMetricCosine, kElem, kWarps>(src, q_s, pq, D, maxM, qq,
-                                               lower, proc, n_proc, slot_id,
-                                               pop_i, cnt + 1, new_ds, warp,
-                                               lane);
+      score_rows<kMetricCosine, kElem, kWarps>(src, q_s, pq, rs, D, maxM,
+                                               qq, lower, proc, n_proc,
+                                               slot_id, pop_i, cnt + 1,
+                                               new_ds, warp, lane);
     else
       score_rows<kMetricManhattan, kElem, kWarps>(
-          src, q_s, pq, D, maxM, qq, lower, proc, n_proc, slot_id, pop_i,
+          src, q_s, pq, rs, D, maxM, qq, lower, proc, n_proc, slot_id, pop_i,
           cnt + 1, new_ds, warp, lane);
     __syncthreads();
     const int n_new = cnt[1];
@@ -1581,6 +1858,32 @@ cudaError_t launch_elem(const WalkArgs& a, WalkLayout lay,
               : launch<kElem, false, 128>(a, lay, stream);
 }
 
+// Blocks of ``kernel`` an SM holds at ``threads`` and ``smem`` bytes a block
+// (the runtime's occupancy; -1 on an error).
+template <typename Kernel>
+int occupancy(Kernel kernel, int threads, size_t smem) {
+  int n = 0;
+  if (cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads,
+                                                    smem) != cudaSuccess)
+    return -1;
+  return n;
+}
+
+// The occupancy of the instance launch_elem<kElem> takes.
+template <int kElem>
+int instance_blocks(int dense, int wide, int T, int maxM, size_t smem) {
+  if (wide) return occupancy(beam_walk_wide_kernel<kElem>, kWideThreads, smem);
+  const bool w = walk_threads(T, maxM) > 128;
+  if (dense)
+    return w ? occupancy(beam_walk_kernel<kElem, true, 256>, 256, smem)
+             : occupancy(beam_walk_kernel<kElem, true, 128>, 128, smem);
+  return w ? occupancy(beam_walk_kernel<kElem, false, 256>, 256, smem)
+           : occupancy(beam_walk_kernel<kElem, false, 128>, 128, smem);
+}
+
 bool aligned(const void* p, size_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
@@ -1596,7 +1899,12 @@ extern "C" {
 // int8: ``scales`` f32[cap] or f32[cap, maxM] beside them; PQ:
 // ``codebook`` f32[groups, 256, D / groups], whose distance table a block
 // builds in shared memory, with the step's codes beside it where they fit,
-// else in device memory (pq_place, counted in smem_bytes and wide_words).
+// else in device memory (pq_place, counted in smem_bytes and wide_words);
+// int8 / bf16 records: each step's popped records staged in shared memory
+// where records_place can stage them (the alignment it checks includes the
+// bases of ``rows`` and ``scales``) and smem_bytes count them (the
+// caller's choice: ops/cuda_graph._records_place), else read from the
+// records.
 // queries f32[B, D] (the walk's query), entry_d f32[B] (read only when
 // has_nodes).  visited_slots: -1 the dense dedupe (``visited`` unread), 0
 // the bitmap (``visited`` i32[B, vis_n] words, vis_n >= cap / 32, zeroed
@@ -1637,9 +1945,18 @@ int beam_walk(const int* links, const int* counts, const void* rows,
       (visited_slots < 4 || (visited_slots & (visited_slots - 1)) ||
        vis_n != visited_slots))
     return (int)cudaErrorInvalidValue;
-  const WalkLayout lay =
-      walk_layout(ef, cap, T, maxM, D, n_rows, vis_mode == kVisDense,
-                  elem == kElemPQ ? groups : 0, metric);
+  // int8 / bf16 records: staged where records_place can stage them and
+  // the caller chose to (its smem_bytes count the staged records)
+  const bool rec_src = records && (elem == kElemI8 || elem == kElemBF16);
+  auto layout = [&](bool stage) {
+    return walk_layout(
+        ef, cap, T, maxM, D, n_rows, vis_mode == kVisDense,
+        elem == kElemPQ ? groups : 0, metric,
+        stage && rec_src ? (elem == kElemI8 ? 1 : 2) : 0, elem == kElemI8,
+        aligned(rows, 16) && (elem != kElemI8 || aligned(scales, 16)));
+  };
+  WalkLayout lay = layout(true);
+  if (lay.rec.staged && lay.smem != (size_t)smem_bytes) lay = layout(false);
   if (lay.smem != (size_t)smem_bytes || lay.smem > (size_t)kSmemLimit ||
       lay.words != (size_t)wide_words || (lay.words && !wide_mem))
     return (int)cudaErrorInvalidValue;
@@ -1667,14 +1984,42 @@ int beam_walk(const int* links, const int* counts, const void* rows,
   cudaError_t err;
   switch (elem) {
     case kElemF32: err = launch_elem<kElemF32>(a, lay, stream); break;
-    case kElemI8: err = launch_elem<kElemI8>(a, lay, stream); break;
-    case kElemBF16: err = launch_elem<kElemBF16>(a, lay, stream); break;
+    case kElemI8:
+      err = lay.rec.staged ? launch_elem<kElemI8Staged>(a, lay, stream)
+                           : launch_elem<kElemI8>(a, lay, stream);
+      break;
+    case kElemBF16:
+      err = lay.rec.staged ? launch_elem<kElemBF16Staged>(a, lay, stream)
+                           : launch_elem<kElemBF16>(a, lay, stream);
+      break;
     default:
       err = lay.pq.staged ? launch_elem<kElemPQ>(a, lay, stream)
                           : launch_elem<kElemPQFar>(a, lay, stream);
       break;
   }
   return (int)err;
+}
+
+// Blocks an SM holds at once of the walk instance that a launch of element
+// type ``elem`` (0 float32, 1 int8, 2 bfloat16), its records ``staged``
+// or not, with the dense dedupe or a set, T and maxM takes, table or
+// ``wide``, at smem_bytes a block: the runtime's occupancy of the built
+// kernel.  -1 on an error.
+int beam_walk_blocks(int elem, int staged, int dense, int wide, int T,
+                     int maxM, int smem_bytes) {
+  if (smem_bytes < 0 || smem_bytes > kSmemLimit) return -1;
+  const size_t smem = (size_t)smem_bytes;
+  switch (elem) {
+    case kElemF32: return instance_blocks<kElemF32>(dense, wide, T, maxM, smem);
+    case kElemI8:
+      return staged ? instance_blocks<kElemI8Staged>(dense, wide, T, maxM, smem)
+                    : instance_blocks<kElemI8>(dense, wide, T, maxM, smem);
+    case kElemBF16:
+      return staged
+                 ? instance_blocks<kElemBF16Staged>(dense, wide, T, maxM, smem)
+                 : instance_blocks<kElemBF16>(dense, wide, T, maxM, smem);
+    default: return -1;
+  }
 }
 
 #ifdef PG_PROFILE

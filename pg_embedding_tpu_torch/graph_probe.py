@@ -6,6 +6,8 @@
       [--before FILE]
   python -m pg_embedding_tpu_torch.graph_probe --mode pq [--n ROWS]
       [--before FILE]
+  python -m pg_embedding_tpu_torch.graph_probe --mode records [--n ROWS]
+      [--before FILE]
 
 Builds csrc/beam_walk.cu and csrc/prune_scan.cu in variants, each a rewrite
 of the sources' text (as sweep_probe.py builds its variants) compiled into
@@ -37,6 +39,12 @@ its own library under .kernel_build/graph_probe/, all side by side:
   one-block     the wide instances at one block an SM (255 registers; the
                 launch asks ONE_BLOCK_PAD more bytes of shared memory than
                 it uses) instead of two
+  records-cp-async   int8 / bf16 records staged by 16-byte cp.async.cg
+                copies spread over the block's threads instead of the copy
+                engine's bulk copy a record (_CP_ASYNC_STAGE)
+  records-prefetch   the table instances' phase 1 asks L2 for each popped
+                row's int8 / bf16 record (cp.async.bulk.prefetch.L2), for
+                the walks launched unstaged (_PREFETCH)
 
 The probe builds an index of ``--n`` rows x 128-d on the card
 (utils/io.synthetic_clustered, chip_smoke.py's recipe and seed), walks its
@@ -83,6 +91,24 @@ exact route under the walk's metric within 0.002, ids on >= 98% of
 queries, mean hops and dist_evals within 1%).  Then the profile builds'
 laps a block-step, the kernel's and the earlier tree's (setup: the
 table's build, once a block), and the PQ instances' ptxas reports.
+
+``--mode records`` times the int8 and bf16 records walks (the API's
+packed_dtype "int8" and "bfloat16") on the same 1M index at ef = 64, T
+= 4 and 8, each placement the launch can ask for (RECORDS_RUNS): staged
+by the bulk copy (the kernel's), staged by cp.async (records-cp-async),
+read from the records (the kernel's unstaged instance), read from the
+records after an L2 prefetch (records-prefetch) and, with ``--before
+FILE`` (an earlier tree's csrc/beam_walk.cu, laid out with no staging),
+"before", in turns (in order, then reversed), each checked against the
+placement ops/cuda_graph._records_place chooses bit for bit (ids,
+distances, hops, evals) and that one against the plain twin by
+chip_smoke.py's bar; beside them the float32 rows' walks at T = 4 and 8
+(the main path's instances) against "before".  Each case prints its
+shared memory a block, staged and unstaged, and the blocks an SM of
+each (walk_blocks: the runtime's occupancy), then the profile builds'
+laps a block-step (the kernel's, at the chosen placement; the earlier
+tree's), and the records instances' ptxas reports; exits 1 if a check
+fails.
 
 ``--mode wiring`` builds csrc/connect_batch.cu in its own variants
 (WIRING_VARIANTS):
@@ -144,32 +170,91 @@ _WIDEN_AT_LOAD = (
     "#pragma unroll\n"
     "        for (int u = 0; u < R; ++u) {\n"
     "          if (at[u] < 0) continue;\n"
-    "          raw[u] = load4<kElem>(src, at[u], c, D);\n"
-    "          if (kElem == kElemI8) sc[u] = __ldg(src.scales + at[u]);\n"
+    "          raw[u] = load4<kElem>(src, rs, at[u], c, D);\n"
+    "          if (kType == kElemI8) sc[u] = scale_at<kElem>(src, rs, at[u]);"
+    "\n"
     "        }\n"
     "#pragma unroll\n"
     "        for (int u = 0; u < R; ++u) {\n"
     "          if (at[u] < 0) continue;\n"
     "          const float4 pv =\n"
-    "              widen4<kElem>(raw[u], kElem == kElemI8 ? sc[u] : 1.f);\n",
+    "              widen4<kType>(raw[u], kType == kElemI8 ? sc[u] : 1.f);\n",
     "        float4 pvs[R];\n"
     "#pragma unroll\n"
     "        for (int u = 0; u < R; ++u) {\n"
     "          if (at[u] < 0) continue;\n"
-    "          if (kElem == kElemI8) sc[u] = __ldg(src.scales + at[u]);\n"
-    "          pvs[u] = widen4<kElem>(load4<kElem>(src, at[u], c, D),\n"
-    "                                 kElem == kElemI8 ? sc[u] : 1.f);\n"
+    "          if (kType == kElemI8) sc[u] = scale_at<kElem>(src, rs, at[u]);"
+    "\n"
+    "          pvs[u] = widen4<kType>(load4<kElem>(src, rs, at[u], c, D),\n"
+    "                                 kType == kElemI8 ? sc[u] : 1.f);\n"
     "        }\n"
     "#pragma unroll\n"
     "        for (int u = 0; u < R; ++u) {\n"
     "          if (at[u] < 0) continue;\n"
     "          const float4 pv = pvs[u];\n")
+# stage_records's bulk copies, and the same copies as 16-byte cp.async.cg
+# chunks spread over the block's threads (then cp.async.wait_all in place
+# of the barrier's wait)
+_BULK_STAGE = (
+    "  for (int j = tid; j < T; j += kThreads) {\n"
+    "    const int p = pop_i[j];\n"
+    "    const bool go = p >= 0 && !(pop_d[j] > lower);\n")
+_CP_ASYNC_STAGE = (
+    "  const int chunks = (int)((record + scales) / 16);\n"
+    "  for (int i = tid; i < T * chunks; i += kThreads) {\n"
+    "    const int j = i / chunks, k = i - j * chunks;\n"
+    "    const int p = pop_i[j];\n"
+    "    if (p < 0 || pop_d[j] > lower) continue;\n"
+    "    const unsigned char* from =\n"
+    "        k * 16u < record\n"
+    "            ? rec + (size_t)p * record + k * 16\n"
+    "            : reinterpret_cast<const unsigned char*>(src.scales) +\n"
+    "                  (size_t)p * scales + (k * 16 - record);\n"
+    "    unsigned char* to =\n"
+    "        k * 16u < record\n"
+    "            ? rs.rows + (size_t)j * record + k * 16\n"
+    "            : reinterpret_cast<unsigned char*>(rs.scales) +\n"
+    "                  (size_t)j * scales + (k * 16 - record);\n"
+    "    asm volatile(\"cp.async.cg.shared.global [%0], [%1], 16;\\n\" ::\n"
+    "                 \"r\"(smem_addr(to)), \"l\"(from) : \"memory\");\n"
+    "  }\n"
+    "  if (false)\n" + _BULK_STAGE)
+# the table instances' phase 1, after the stage: an L2 prefetch of each
+# popped row's int8 / bf16 record (and an int8 record's scales) where the
+# walk reads the records
+_STAGE_CALL = ("      stage_records<kElem, kThreads>(src, ci, cd, lower, T, "
+               "maxM, D, rs, tid);\n")
+_PREFETCH = _STAGE_CALL + (
+    "    if constexpr (kElem == kElemI8 || kElem == kElemBF16) {\n"
+    "      const unsigned record = (unsigned)maxM * D * "
+    "(kElem == kElemI8 ? 1 : 2);\n"
+    "      const unsigned char* rec =\n"
+    "          static_cast<const unsigned char*>(src.rows);\n"
+    "      const bool ok = src.records && record % 16 == 0 &&\n"
+    "                      reinterpret_cast<uintptr_t>(rec) % 16 == 0;\n"
+    "      const bool sc =\n"
+    "          kElem == kElemI8 && maxM % 4 == 0 &&\n"
+    "          reinterpret_cast<uintptr_t>(src.scales) % 16 == 0;\n"
+    "      for (int j = tid; ok && j < T; j += kThreads) {\n"
+    "        const int p = ci[j];\n"
+    "        if (p < 0 || cd[j] > lower) continue;\n"
+    "        asm volatile(\n"
+    "            \"cp.async.bulk.prefetch.L2.global [%0], %1;\\n\" ::\n"
+    "            \"l\"(rec + (size_t)p * record), \"r\"(record)\n"
+    "            : \"memory\");\n"
+    "        if (sc)\n"
+    "          asm volatile(\n"
+    "              \"cp.async.bulk.prefetch.L2.global [%0], %1;\\n\" ::\n"
+    "              \"l\"(src.scales + (size_t)p * maxM),\n"
+    "              \"r\"((unsigned)maxM * 4) : \"memory\");\n"
+    "      }\n"
+    "    }\n")
 # name: (nvcc flags, rewrites (source, text, replacement))
 VARIANTS = {
     "kernel": ((), ()),
     "profile": (PROFILE, ()),
-    "dense": ((), ((WALK, "  if (base + tables <= (size_t)kSmemLimit)\n",
-                    "  if (false)\n"),)),
+    "dense": ((), ((WALK, "  if (base + tables <= (size_t)kSmemLimit) {\n",
+                    "  if (false) {\n"),)),
     "rank1": ((), ((WALK, _RANK, "  int g = 1;\n"),)),
     "rank32": ((), ((WALK, _RANK, "  int g = 32;\n"),)),
     "rows4": ((), ((WALK, "kRowsPerWarp = 8;", "kRowsPerWarp = 4;"),)),
@@ -194,11 +279,16 @@ VARIANTS = {
                          "constexpr int kMoveRun = 2;"),)),
     "move-run-8": ((), ((WALK, "constexpr int kMoveRun = 4;",
                          "constexpr int kMoveRun = 8;"),)),
+    "records-cp-async": ((), (
+        (WALK, _BULK_STAGE, _CP_ASYNC_STAGE),
+        (WALK, "  mbar_wait(rs.bar, (unsigned)step & 1u);\n",
+         "  cp_async_wait_all();\n"))),
+    "records-prefetch": ((), ((WALK, _STAGE_CALL, _PREFETCH),)),
     "one-block": ((), ((WALK, "constexpr int kWideMinBlocks = 2;",
                         "constexpr int kWideMinBlocks = 1;"),
-                       (WALK, "      return {fixed + queues, 0, (int)slots, "
-                        "(int)ring, held,\n",
-                        "      return {fixed + queues + 120000, 0, "
+                       (WALK, "      return {fixed + rec.smem + queues, 0, "
+                        "(int)slots, (int)ring, held,\n",
+                        "      return {fixed + rec.smem + queues + 120000, 0, "
                         "(int)slots, (int)ring, held,\n"))),
 }
 # name: (nvcc flags, rewrites (source, text, replacement))
@@ -235,6 +325,18 @@ INT8_RUNS = ("kernel", "widen-at-load")
 # --mode pq: (G, the walk's metric, OPQ) of each PQ walk timed
 PQ_CASES = ((16, 0, False), (32, 0, False), (64, 0, False), (32, 0, True),
             (32, 1, False))
+# --mode records: the variants built, each placement timed (beside
+# "before"): its build and what the launch asks for (walk's ``staged``:
+# "forced" stages wherever records_place can, False reads the records),
+# the records' element types (the API's packed_dtype) and the widths T
+RECORDS_BUILDS = ("kernel", "profile", "records-cp-async", "records-prefetch")
+RECORDS_RUNS = {"bulk copy": ("kernel", "forced"),
+                "cp.async": ("records-cp-async", "forced"),
+                "unstaged": ("kernel", False),
+                "prefetch": ("records-prefetch", False),
+                "before": ("before", False)}
+RECORDS_DTYPES = ("int8", "bfloat16")
+RECORDS_TS = (4, 8)
 
 
 def prune_smem_bytes(c: int) -> int:
@@ -309,20 +411,28 @@ def build_all(names=tuple(VARIANTS), wiring: bool = False) -> dict:
 
 
 def walk(lib, graph, queries, *, ef, cand_cap, t, metric_value,
-         variant="kernel", pq_table=True, **operands):
+         variant="kernel", pq_table=True, staged=True, **operands):
     """One launch of ``lib``'s walk (the shared-memory figure of its
     variant) over float32 rows or the row source ``operands`` give
     (ops/cuda_graph.beam_walk's); ``pq_table`` False: a tree whose PQ
-    source takes no table, laid out as the other sources are."""
+    source takes no table, laid out as the other sources are; ``staged``
+    False: int8 / bf16 records read from the records (a tree that stages
+    none), "forced": staged wherever they fit, whatever an SM then holds
+    (True: as ops/cuda_graph._records_place chooses)."""
     widest = cg.MAX_WALK_QUEUE
     cg.MAX_WALK_QUEUE = MAX_QUEUE.get(variant, widest)  # its source's layout
+    blocks = cg.WALK_MIN_BLOCKS, cg.WIDE_MIN_BLOCKS
+    if staged == "forced":          # no residency to keep
+        cg.WALK_MIN_BLOCKS, cg.WIDE_MIN_BLOCKS = {128: 0, 256: 0}, 0
     try:
         src = cg._check_walk_args(graph, queries, ef, cand_cap, t,
                                   metric_value, **operands)
         if not pq_table:
             src = src._replace(pq=None)
+        if not staged:
+            src = src._replace(stage=None)
         smem, held, slots = cg._walk_layout(ef, cand_cap, t, graph.max_m,
-                                            graph.dims, src.pq)
+                                            graph.dims, src.pq, src.stage)
         if variant == "dense":
             smem -= 4 * held + 8 * slots
         if variant == "one-block" and max(ef, cand_cap) > widest:
@@ -332,6 +442,7 @@ def walk(lib, graph, queries, *, ef, cand_cap, t, metric_value,
                                metric_value=metric_value, smem=smem)
     finally:
         cg.MAX_WALK_QUEUE = widest
+        cg.WALK_MIN_BLOCKS, cg.WIDE_MIN_BLOCKS = blocks
 
 
 def before_layout(ef: int, cand_cap: int, t: int, max_m: int,
@@ -783,6 +894,157 @@ def pq_main(args) -> int:
     return 0 if ok else 1
 
 
+def walk_blocks(lib, elem: int, staged: bool, t: int, max_m: int,
+                smem: int, dense: bool = True, wide: bool = False) -> int:
+    """Blocks an SM holds at once of the walk instance ``lib`` launches
+    for rows of element type ``elem`` (ops/cuda_graph's codes; int8 / bf16
+    records ``staged`` or not) at T = ``t`` and ``smem`` bytes a block:
+    the runtime's occupancy of the built kernel (beam_walk_blocks)."""
+    n = lib.beam_walk_blocks(elem, int(staged), int(dense), int(wide), t,
+                             max_m, smem)
+    if n < 0:
+        raise RuntimeError(f"beam_walk_blocks failed for elem {elem}, "
+                           f"T={t}, {smem} bytes")
+    return n
+
+
+def ptxas_reports(log: str) -> dict:
+    """{mangled kernel name: (registers, ptxas's spill line)} from a build's
+    compiler report."""
+    out, fn, spill = {}, None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = m[1]
+        elif fn and "spill" in line:
+            spill = re.sub(r"^ptxas\s+info\s*:\s*", "", line.strip())
+        elif fn and "Used" in line:
+            out[fn] = (int(re.search(r"Used (\d+) registers", line)[1]), spill)
+            fn, spill = None, ""
+    return out
+
+
+def records_libs(args) -> dict:
+    """--mode records' builds: RECORDS_BUILDS and, with ``--before``, the
+    earlier tree's source built as it is and profiled (this tree's scan
+    beside it)."""
+    builds = {n: (build, (n,), {}) for n in RECORDS_BUILDS}
+    if args.before:
+        with open(args.before) as f:
+            text = f.read()
+        with open(os.path.join(CSRC, SCAN)) as f:
+            sources = {WALK: text, SCAN: f.read()}
+        builds["before"] = (build, ("before",), dict(sources=sources))
+        builds["before-profile"] = (build, ("before-profile",), dict(
+            sources=sources, flags=PROFILE))
+    with concurrent.futures.ThreadPoolExecutor(len(builds)) as ex:
+        futs = {n: ex.submit(fn, *a, **kw) for n, (fn, a, kw)
+                in builds.items()}
+        libs = {n: f.result() for n, f in futs.items()}
+    for name in libs:
+        if name.startswith("before"):
+            _kernels.declare_graph(libs[name])
+    return libs
+
+
+def records_main(args) -> int:
+    """--mode records: the int8 and bf16 records walks' placements against
+    the earlier tree's, the twin and the float32 rows' walks (see the
+    module's note)."""
+    from . import HnswConfig, HnswIndex
+    from .core import search as core_search
+    from .ops.cuda_bruteforce import fused_exact_search
+    from .utils.io import synthetic_clustered
+    libs = records_libs(args)
+    before = "before" in libs
+    reports = {}
+    for name in libs:
+        with open(os.path.join(OUT, name + ".so.log")) as f:
+            reports[name] = ptxas_reports(f.read())
+        for fn, (regs, spill) in sorted(reports[name].items()):
+            # the int8 / bf16 instances, staged (5, 6) or not (1, 2)
+            if re.search(r"beam_walk(_wide)?_kernelILi[1256]E", fn):
+                print(f"ptxas {name} {fn}: {regs} registers; {spill}",
+                      flush=True)
+    pts, qs = synthetic_clustered(args.n, 128, 1_000, seed=12345,
+                                  n_queries=1024)
+    idx = HnswIndex(HnswConfig(dims=128, m=16, ef_construction=64,
+                               ef_search=64), device="cuda")
+    idx.build(pts)
+    del pts
+    g, q = idx.graph, torch.as_tensor(qs, device="cuda")
+    truth = fused_exact_search(q, g.vectors, 10, metric=0,
+                               n_valid=g.n_nodes)[1].cpu().numpy()
+    ok = True
+
+    def run(name, kw):
+        """Placement ``name`` of RECORDS_RUNS, or "kernel": the kernel's
+        build at the placement _records_place chooses."""
+        lib, staged = RECORDS_RUNS.get(name, ("kernel", True))
+        return walk(libs[lib], g, q, **kw, staged=staged)
+
+    def timed(label, kw, names):
+        ms = {n: [] for n in names}
+        for name in (*names, *names[::-1]):
+            ms[name].append(device_ms(lambda: run(name, kw), args.reps))
+        for name in names:
+            print(f"{label} {name} (ms on the card, in turns): "
+                  + " / ".join(f"{m:.4f}" for m in ms[name]), flush=True)
+
+    for t in RECORDS_TS:
+        kw = dict(ef=64, cand_cap=64, t=t, metric_value=0)
+        timed(f"f32 rows T={t}", kw, ["kernel", *(["before"] * before)])
+    names = [n for n in RECORDS_RUNS if before or n != "before"]
+    for dtype in RECORDS_DTYPES:
+        idx.packed_traversal, idx.packed_dtype = True, dtype
+        records, scales = idx._ensure_packed()
+        ops = dict(records=records)
+        if scales is not None:
+            ops["pscales"] = scales
+        elem = cg._ELEMS[records.dtype]
+        for t in RECORDS_TS:
+            kw = dict(ef=64, cand_cap=64, t=t, metric_value=0, **ops)
+            stage = cg._check_walk_args(g, q, 64, 64, t, 0, **ops).stage
+            staged = cg.records_staging(64, 64, t, g.max_m, g.dims, stage)
+            plain = cg._walk_smem_bytes(64, 64, t, g.max_m, g.dims, None)
+            rec, _ = cg._records_place(stage, t, g.max_m, g.dims, plain, 0)
+            blocks = [walk_blocks(libs["kernel"], elem, on, t, g.max_m,
+                                  plain + rec * on) for on in (True, False)]
+            label = (f"records {dtype} T={t} ef=64 (staged: {plain + rec} "
+                     f"bytes of shared memory a block, {rec} of them the "
+                     f"records, {blocks[0]} blocks an SM; unstaged: {plain} "
+                     f"bytes, {blocks[1]} blocks an SM; the kernel takes "
+                     f"{'staged' if staged else 'unstaged'})")
+            got = run("kernel", kw)
+            for name in names:
+                same = all(torch.equal(a, b)
+                           for a, b in zip(run(name, kw), got))
+                print(f"{label} {name}: ids, distances, hops and evals "
+                      f"equal to the kernel's: {same}", flush=True)
+                ok &= same
+            want = core_search._search_batch(
+                g, q, ef=64, metric_value=0, cand_cap=64, expand_width=t,
+                pcodes=records, pscales=scales)
+            (rk, rp, n_diff, hk, hp, ek, ep), held = twin_bar(
+                got, want, g, q, 0, True, truth)
+            print(f"{label} vs the twin: recall@10 {rk:.4f} / {rp:.4f}; "
+                  f"ids differ on {n_diff} of {len(q)} queries; hops "
+                  f"{hk:.2f} / {hp:.2f}, dist_evals {ek:.1f} / {ep:.1f}; "
+                  f"the bar holds: {held}", flush=True)
+            ok &= held
+            timed(label, kw, names)
+            for name in ("profile", *(["before-profile"] * before)):
+                r = walk_phases(libs[name], g, q, **kw,
+                                staged=name != "before-profile")
+                print(f"{label} {name} cycles a block-step "
+                      f"({r['steps']:.2f} steps a block; setup: a block): "
+                      f"{format_cycles(r['cycles'])}", flush=True)
+        idx._pcodes = idx._pscales = None
+        idx.packed_traversal = False
+    print(f"records: every check held: {ok}", flush=True)
+    return 0 if ok else 1
+
+
 def format_cycles(cycles: dict) -> str:
     return ", ".join(f"{k} {v:,.0f}" for k, v in cycles.items())
 
@@ -836,10 +1098,11 @@ def main() -> int:
     ap.add_argument("--n", type=int, default=1_000_000)
     ap.add_argument("--reps", type=int, default=None,
                     help="calls a CUDA graph replays (20; --mode wide 3)")
-    ap.add_argument("--mode", choices=("walk", "wiring", "wide", "pq"),
-                    default="walk")
-    ap.add_argument("--before", help="--mode wide / pq: an earlier tree's "
-                    "csrc/beam_walk.cu, timed beside the kernel")
+    ap.add_argument("--mode", choices=("walk", "wiring", "wide", "pq",
+                                       "records"), default="walk")
+    ap.add_argument("--before", help="--mode wide / pq / records: an "
+                    "earlier tree's csrc/beam_walk.cu, timed beside the "
+                    "kernel")
     args = ap.parse_args()
     if args.reps is None:
         args.reps = 3 if args.mode == "wide" else 20
@@ -856,7 +1119,10 @@ def main() -> int:
         return wide_main(args)
     if args.mode == "pq":
         return pq_main(args)
-    libs = build_all(tuple(n for n in VARIANTS if n not in WIDE_BUILDS
+    if args.mode == "records":
+        return records_main(args)
+    libs = build_all(tuple(n for n in VARIANTS
+                           if n not in WIDE_BUILDS + RECORDS_BUILDS
                            or n in ("kernel", "profile")))
     for name in libs:
         with open(os.path.join(OUT, name + ".so.log")) as f:

@@ -15,14 +15,15 @@ launch:
     ``_search_batch``; it takes every traversal variant of the JAX
     package's walk: neighbour rows from the float32 or bf16 corpus rows,
     int8 rows x scales (quantized traversal), float32 / bf16 / int8 (x
-    scales) packed records or PQ records through a codebook (with OPQ's
-    rotated query; the codes read through a per-query distance table in
-    shared memory, whose plain form is pq_walk_table_plain and
-    pq_walk_score_plain), the dense dedupe or the bitmap or hash visited
-    set, any metric and T, and ef and cand_cap up to MAX_WIDE_QUEUE (queues
-    wider than MAX_WALK_QUEUE in the wide instances, which keep the held
-    set from step to step; core/search.walk_route sends every walk on the
-    card here).
+    scales) packed records (int8 and bf16 ones staged in shared memory a
+    step at a time where they fit, _records_place) or PQ records through a
+    codebook (with OPQ's rotated query; the codes read through a
+    per-query distance table in shared memory, whose plain form is
+    pq_walk_table_plain and pq_walk_score_plain), the dense dedupe or the
+    bitmap or hash visited set, any metric and T, and ef and cand_cap up
+    to MAX_WIDE_QUEUE (queues wider than MAX_WALK_QUEUE in the wide
+    instances, which keep the held set from step to step;
+    core/search.walk_route sends every walk on the card here).
   * ``prune_scan`` (``csrc/prune_scan.cu``): the scan of a batch of sorted
     candidate sets, one warp per set and one round per kept neighbour,
     reading the pairwise distances through the sort order.  Its plain
@@ -72,6 +73,14 @@ WIDE_WALKS = 0
 MAX_WALK_QUEUE = 320
 MAX_WIDE_QUEUE = 1 << 20
 SMEM_LIMIT = 232_448                # bytes of shared memory a block can use
+# an SM's shared memory (H100) and the bytes each resident block reserves
+# beside its own; the blocks an SM must hold of a walk instance (its
+# registers' residency: csrc/beam_walk.cu's __launch_bounds__, kMinBlocks
+# by block size, kWideMinBlocks).  _records_place's rule alone reads them;
+# the smoke holds it to the runtime's occupancy on the card.
+SM_SMEM, BLOCK_RESERVED = 233_472, 1_024
+WALK_MIN_BLOCKS = {128: 5, 256: 4}
+WIDE_MIN_BLOCKS = 2
 # device memory a launch may take for its queries' visited sets and wide
 # queues; larger batches are walked in chunks of queries, a launch each
 SCRATCH_BYTES = 1 << 30
@@ -122,8 +131,65 @@ def _pq_place(pq: Optional[PqTable], t: int, max_m: int,
     return 0, table // 4, False
 
 
+class RecordsStage(NamedTuple):
+    """An int8 or bf16 records source, as the walk's layout sees it: the
+    bytes of an element, whether int8 scales go with the records, and
+    whether the records' and the scales' bases are 16-byte aligned (the
+    bulk copy's alignment)."""
+    itemsize: int
+    scales: bool
+    aligned: bool
+
+
+def _blocks_by_smem(smem: int) -> int:
+    """Blocks of ``smem`` bytes of shared memory an SM holds."""
+    return SM_SMEM // (smem + BLOCK_RESERVED)
+
+
+def _records_place(stage: Optional[RecordsStage], t: int, max_m: int,
+                   dims: int, used: int, min_blocks: int,
+                   at: Optional[int] = None) -> tuple:
+    """Where an int8 or bf16 records source keeps each step's records,
+    given ``used``, the shared bytes
+    of the rest of the block's layout, ``min_blocks``, the blocks an SM
+    holds of the instance by its registers, and ``at``, the offset of the
+    region they would take (``used`` by default): (shared bytes, staged).
+    The T popped rows' whole records (T maxM D elements), then an int8
+    source's T maxM float32 scales, each rounded up to 16 bytes, where
+    the bulk copy's 16-byte alignment holds (a record's bytes, an int8
+    record's scales, ``at`` and the tensors' bases), they fit beside
+    ``used`` within SMEM_LIMIT, and an SM still holds as many blocks as
+    without them (up to ``min_blocks``); else (0, False): each slot is
+    read from the records.  (0, False) for the other sources (None).
+    csrc/beam_walk.cu's records_place checks the alignment and the fit
+    again, and launches the staged instance where the shared bytes passed
+    count the staged records: the residency rule lives here alone.
+
+    The residency rule is measured (graph_probe --mode records, 1M x
+    128-d, ef 64, NVIDIA H100 80GB HBM3 at 700 W): staged walks that keep
+    their blocks win (int8 T = 4 / 8 0.652 / 0.654 ms against 0.910 /
+    0.853 reading the records; bf16 T = 4 0.644 against 0.912); bf16 at
+    T = 8 (79,392 B a block: 2 blocks an SM, not 4) loses, 0.831 against
+    0.799, so it reads the records (an L2 prefetch of them: 0.821)."""
+    if stage is None or not stage.aligned:
+        return 0, False
+    at = used if at is None else at
+    record = max_m * dims * stage.itemsize
+    if record % 16 or (stage.scales and max_m * 4 % 16) or at % 16:
+        return 0, False
+    nbytes = -(-t * record // 16) * 16
+    if stage.scales:
+        nbytes += -(-t * max_m * 4 // 16) * 16
+    keep = min(min_blocks, _blocks_by_smem(used))
+    if (used + nbytes > SMEM_LIMIT
+            or _blocks_by_smem(used + nbytes) < keep):
+        return 0, False
+    return nbytes, True
+
+
 def _walk_plan(ef: int, cand_cap: int, t: int, max_m: int, dims: int,
-               pq: Optional[PqTable], capacity: int, dense: bool) -> tuple:
+               pq: Optional[PqTable], capacity: int, dense: bool,
+               stage: Optional[RecordsStage] = None) -> tuple:
     """One walk block's memory, as csrc/beam_walk.cu's walk_layout lays it
     out: (shared bytes, held-table slots, slot-table slots, int32 words of
     device memory a query).
@@ -137,10 +203,13 @@ def _walk_plan(ef: int, cand_cap: int, t: int, max_m: int, dims: int,
     bytes a slot, at least 2 T maxM); then a PQ source's table and staged
     codes (_pq_place: placed before the hash tables, which take what it
     leaves; where they do not fit, the kernel dedupes by comparison and
-    they take 0).  Queues wider than MAX_WALK_QUEUE take the wide
-    instances: the least part (_walk_fixed), the PQ part, then each queue
-    once (d, id; the candidate ring of _walk_ring entries) where that fits
-    SMEM_LIMIT; no held table.  Device memory a query: 0 where both queues
+    they take 0); then an int8 or bf16 records source's staged records
+    (``stage``, _records_place: after every other part, where they fit
+    beside it, so nothing else moves).  Queues wider than MAX_WALK_QUEUE
+    take the wide instances: the least part (_walk_fixed), the PQ part or
+    the staged records, then each queue once (d, id; the candidate ring of
+    _walk_ring entries) where that fits SMEM_LIMIT; no held table.  Device
+    memory a query: 0 where both queues
     fit MAX_WALK_QUEUE, else the held set of the dense dedupe (two bits an
     id of ``capacity``, kept from step to step), then the queues where they
     are not in shared memory; and a PQ table's words where it is not (the
@@ -162,9 +231,14 @@ def _walk_plan(ef: int, cand_cap: int, t: int, max_m: int, dims: int,
         queues = 8 * (ef + _walk_ring(cand_cap, t))
         slots = _pow2_at_least(2 * tm)
         if fixed + queues <= SMEM_LIMIT:
-            return (fixed + queues, 0, slots,
+            rec, _ = _records_place(stage, t, max_m, dims, fixed + queues,
+                                    WIDE_MIN_BLOCKS, fixed)
+            return (fixed + rec + queues, 0, slots,
                     _with_pq_words(held, pq_words))
-        return fixed, 0, slots, _with_pq_words(held + queues // 4, pq_words)
+        rec, _ = _records_place(stage, t, max_m, dims, fixed,
+                                WIDE_MIN_BLOCKS)
+        return (fixed + rec, 0, slots,
+                _with_pq_words(held + queues // 4, pq_words))
     held, slots = _pow2_at_least(2 * (ef + cand_cap)), _pow2_at_least(2 * tm)
     base = 4 * (-(-dims // 4) * 4) + 16 * (ef + cand_cap) + 24 * tm + 32
     if base > SMEM_LIMIT:
@@ -175,9 +249,17 @@ def _walk_plan(ef: int, cand_cap: int, t: int, max_m: int, dims: int,
     pq_smem, pq_words, _ = _pq_place(pq, t, max_m, base)
     base += pq_smem
     tables = 4 * held + 8 * slots
-    if base + tables <= SMEM_LIMIT:
-        return base + tables, held, slots, pq_words
-    return base, 0, 0, pq_words
+    if base + tables > SMEM_LIMIT:
+        held = slots = tables = 0
+    rec, _ = _records_place(stage, t, max_m, dims, base + tables,
+                            WALK_MIN_BLOCKS[_walk_threads(t, max_m)])
+    return base + tables + rec, held, slots, pq_words
+
+
+def _walk_threads(t: int, max_m: int) -> int:
+    """Threads of a table instance's block (csrc/beam_walk.cu's
+    walk_threads): 128 where T maxM <= 128, else 256."""
+    return 128 if t * max_m <= 128 else 256
 
 
 def _with_pq_words(words: int, pq_words: int) -> int:
@@ -188,11 +270,13 @@ def _with_pq_words(words: int, pq_words: int) -> int:
 
 
 def _walk_layout(ef: int, cand_cap: int, t: int, max_m: int, dims: int,
-                 pq: Optional[PqTable]) -> tuple:
+                 pq: Optional[PqTable],
+                 stage: Optional[RecordsStage] = None) -> tuple:
     """Shared memory of one walk block (_walk_plan): (bytes, held-table
     slots, slot-table slots).  ``pq``: a PQ source's table (None for the
-    other sources)."""
-    return _walk_plan(ef, cand_cap, t, max_m, dims, pq, 0, False)[:3]
+    other sources); ``stage``: an int8 or bf16 records source's."""
+    return _walk_plan(ef, cand_cap, t, max_m, dims, pq, 0, False,
+                      stage)[:3]
 
 
 def _walk_fixed(t: int, max_m: int, dims: int) -> int:
@@ -221,10 +305,19 @@ def _walk_wide_words(ef: int, cand_cap: int, t: int, max_m: int, dims: int,
 
 
 def _walk_smem_bytes(ef: int, cand_cap: int, t: int, max_m: int,
-                     dims: int, pq: Optional[PqTable]) -> int:
+                     dims: int, pq: Optional[PqTable],
+                     stage: Optional[RecordsStage] = None) -> int:
     """The bytes of _walk_layout: what the launch passes and the C side
     checks."""
-    return _walk_layout(ef, cand_cap, t, max_m, dims, pq)[0]
+    return _walk_layout(ef, cand_cap, t, max_m, dims, pq, stage)[0]
+
+
+def records_staging(ef: int, cand_cap: int, t: int, max_m: int, dims: int,
+                    stage: Optional[RecordsStage]) -> int:
+    """The shared bytes a walk block gives its staged records (_walk_plan;
+    0: the walk reads each slot from the records)."""
+    return (_walk_smem_bytes(ef, cand_cap, t, max_m, dims, None, stage)
+            - _walk_smem_bytes(ef, cand_cap, t, max_m, dims, None))
 
 
 def _lane_tree_sum(x: torch.Tensor) -> torch.Tensor:
@@ -318,6 +411,7 @@ class WalkSource(NamedTuple):
     query: torch.Tensor           # the walk's query rows (OPQ: q @ R)
     variant: str                  # walk_variant's name
     pq: Optional[PqTable]         # PQ: its distance table, else None
+    stage: Optional[RecordsStage]  # int8 / bf16 records, else None
 
 
 def visited_name(visited_slots: int) -> str:
@@ -424,9 +518,14 @@ def _check_walk_args(graph, queries, ef, cand_cap, t, metric_value, *,
                            visited_slots=visited_slots)
     pq = (PqTable(rows.shape[-1], metric_value) if codebook is not None
           else None)
+    stage = None
+    if records is not None and records.dtype in (torch.int8, torch.bfloat16):
+        bases = [x.data_ptr() for x in (records, scales) if x is not None]
+        stage = RecordsStage(records.element_size(), scales is not None,
+                             all(p % 16 == 0 for p in bases))
     return WalkSource(rows, _ELEMS[rows.dtype], records is not None, scales,
                       codebook, queries if query_t is None else query_t,
-                      variant, pq)
+                      variant, pq, stage)
 
 
 def beam_walk(graph, queries: torch.Tensor, *, ef: int, metric_value: int,
@@ -449,7 +548,9 @@ def beam_walk(graph, queries: torch.Tensor, *, ef: int, metric_value: int,
     blocks each build the query's distance table in shared memory and
     stage each step's codes beside it, or, where they do not fit a block,
     read the codes from the records, or keep the table in device memory
-    too (_pq_place)."""
+    too (_pq_place).  An int8 or bf16 records walk's blocks copy each
+    step's popped records to shared memory where they fit and an SM keeps
+    its blocks, else read them from the records (_records_place)."""
     global WIDE_WALKS
     if queries.device.type == "cpu":
         from ..core.search import _search_batch
@@ -470,7 +571,7 @@ def beam_walk(graph, queries: torch.Tensor, *, ef: int, metric_value: int,
                            visited_slots=visited_slots)
     lib = _kernels.load_library()
     smem = _walk_smem_bytes(ef, cand_cap, t, graph.max_m, queries.shape[1],
-                            src.pq)
+                            src.pq, src.stage)
     b = queries.shape[0]
     words = (_walk_wide_words(ef, cand_cap, t, graph.max_m,
                               queries.shape[1], graph.capacity,

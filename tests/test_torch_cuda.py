@@ -619,6 +619,74 @@ def test_beam_walk_variants_bit_equal(cuda, int_graphs, source, visited,
     assert bool((got[2] > 1).all())
 
 
+@pytest.mark.parametrize("source", ["records int8", "records bf16"])
+@pytest.mark.parametrize("case", ["T=1", "T=8", "wide", "past the room",
+                                  "unaligned base"])
+def test_records_staging_placements(cuda, int_graphs, source, case):
+    """The int8 and bf16 records walks where phase 1 stages each popped
+    row's record in shared memory (T 1 and 8 at (64, 128), the wide
+    instance at (5120, 5120)) and where it does not: T = 256 at (256, 256),
+    whose popped records do not fit beside the block's queues and tables,
+    and records whose base is 8 bytes off 16 (the bulk copy's alignment),
+    read from the records as before.  Each is bit-equal to the twin (ids,
+    distances, hops, dist_evals) under L2."""
+    from pg_embedding_tpu_torch.ops import cuda_graph as cg
+    arrays, qs = int_graphs["l2"]
+    g, q, kw = integer_operands(arrays, qs, source)
+    width, ef, cap = {"T=1": (1, 64, 128), "T=8": (8, 64, 128),
+                      "wide": (4, 5120, 5120), "past the room": (256, 256,
+                                                                 256),
+                      "unaligned base": (8, 64, 128)}[case]
+    gc, kc = on_device(g, kw, cuda)
+    if case == "unaligned base":
+        rec = kc["records"]
+        pad = 8 // rec.element_size()
+        buf = torch.empty(rec.numel() + pad, dtype=rec.dtype, device=cuda)
+        kc["records"] = buf[pad:].view(rec.shape)
+        kc["records"].copy_(rec)
+        assert kc["records"].data_ptr() % 16 == 8
+    walk = dict(ef=ef, metric_value=0, cand_cap=cap, expand_width=width)
+    stage = cg._check_walk_args(gc, q.to(cuda), ef, cap, width, 0,
+                                **kc).stage
+    staged = cg.records_staging(ef, cap, width, gc.max_m, gc.dims, stage)
+    assert (staged > 0) == (case not in ("past the room", "unaligned base"))
+    got, want = _walk_pair(gc, q.to(cuda)[:64], **walk, **kc)
+    _assert_bit_equal(got, want)
+    assert bool((got[2] > 1).all())
+
+
+@pytest.mark.parametrize("source", ["records int8", "records bf16"])
+def test_records_walk_takes_the_launchs_placement(cuda, int_graphs, source):
+    """A records walk that can stage is staged or not as the shared bytes
+    the launch passes say (ops/cuda_graph._records_place's choice): both
+    bit-equal to the twin, an SM holds a positive number of blocks of each
+    instance (the runtime's occupancy, beam_walk_blocks), and a figure
+    that is neither layout is refused."""
+    from pg_embedding_tpu_torch import _kernels
+    from pg_embedding_tpu_torch.graph_probe import walk, walk_blocks
+    from pg_embedding_tpu_torch.ops import cuda_graph as cg
+    arrays, qs = int_graphs["l2"]
+    g, q, kw = integer_operands(arrays, qs, source)
+    gc, kc = on_device(g, kw, cuda)
+    qc = q.to(cuda)[:64]
+    lib = _kernels.load_library()
+    shape = dict(ef=64, cand_cap=128, t=8, metric_value=0)
+    _, want = _walk_pair(gc, qc, ef=64, metric_value=0, cand_cap=128,
+                         expand_width=8, **kc)
+    stage = cg._check_walk_args(gc, qc, 64, 128, 8, 0, **kc).stage
+    plain = cg._walk_smem_bytes(64, 128, 8, gc.max_m, gc.dims, None)
+    rec = cg.records_staging(64, 128, 8, gc.max_m, gc.dims, stage)
+    assert rec > 0
+    elem = cg._ELEMS[kc["records"].dtype]
+    for staged, smem in ((True, plain + rec), (False, plain)):
+        _assert_bit_equal(walk(lib, gc, qc, **shape, staged=staged, **kc),
+                          want)
+        assert walk_blocks(lib, elem, staged, 8, gc.max_m, smem) > 0
+    src = cg._check_walk_args(gc, qc, 64, 128, 8, 0, **kc)
+    with pytest.raises(RuntimeError):
+        cg._launch_walk(lib, gc, qc, src, **shape, smem=plain + rec + 16)
+
+
 @pytest.mark.parametrize("dims,groups", [(32, 2), (32, 4), (32, 16),
                                          (32, 32), (24, 3)])
 @pytest.mark.parametrize("source", ["records pq", "records pq rotated"])

@@ -1,0 +1,238 @@
+"""The int8 and bf16 records walks' staging (csrc/beam_walk.cu's
+records_place, ops/cuda_graph._records_place): each popped row's whole
+record, and an int8 record's scales, copied to shared memory in phase 1.
+On the CPU: the bytes it takes, where it does not stage (alignment, room,
+residency), the walk block's layout with and without it (every other
+source's bytes as before), the constants it shares with the C side and
+the row source each walk's operands give.  Nothing here needs the card:
+the staged walks themselves are held to the twin bit for bit in
+tests/test_torch_cuda.py and chip_smoke.py."""
+
+import os
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from pg_embedding_tpu_torch.convert import graph_from_numpy
+from pg_embedding_tpu_torch.core.graph import pack_records
+from pg_embedding_tpu_torch.ops import cuda_graph as cg
+
+INT8 = cg.RecordsStage(1, True, True)
+BF16 = cg.RecordsStage(2, False, True)
+# the f32 rows' layout at the smoke's shapes (ef = cand_cap = 64, maxM 32,
+# D 128): (bytes, held-table slots, slot-table slots) at T = 4 and 8
+F32_LAYOUT = {4: (8736, 256, 256), 8: (13856, 256, 512)}
+
+
+def _old_walk_plan(ef, cand_cap, t, max_m, dims, pq, capacity, dense):
+    """The walk block's layout before the records' staging (the tree of the
+    PQ table), for every source: (shared bytes, held-table slots,
+    slot-table slots, device words a query)."""
+    tm = t * max_m
+    if max(ef, cand_cap) > cg.MAX_WALK_QUEUE:
+        fixed = cg._walk_fixed(t, max_m, dims)
+        pq_smem, pq_words, _ = cg._pq_place(pq, t, max_m, fixed)
+        fixed += pq_smem
+        held = -(-capacity // 16) if dense else 0
+        queues = 8 * (ef + cg._walk_ring(cand_cap, t))
+        slots = cg._pow2_at_least(2 * tm)
+        if fixed + queues <= cg.SMEM_LIMIT:
+            return (fixed + queues, 0, slots,
+                    cg._with_pq_words(held, pq_words))
+        return fixed, 0, slots, cg._with_pq_words(held + queues // 4,
+                                                  pq_words)
+    held, slots = (cg._pow2_at_least(2 * (ef + cand_cap)),
+                   cg._pow2_at_least(2 * tm))
+    base = 4 * (-(-dims // 4) * 4) + 16 * (ef + cand_cap) + 24 * tm + 32
+    pq_smem, pq_words, _ = cg._pq_place(pq, t, max_m, base)
+    base += pq_smem
+    tables = 4 * held + 8 * slots
+    if base + tables <= cg.SMEM_LIMIT:
+        return base + tables, held, slots, pq_words
+    return base, 0, 0, pq_words
+
+
+@pytest.mark.parametrize("t,max_m,dims,stage,want", [
+    (8, 32, 128, INT8, 32768 + 1024),    # the smoke's int8 records at T = 8
+    (4, 32, 128, INT8, 16384 + 512),
+    (4, 32, 128, BF16, 32768),
+    (1, 16, 32, INT8, 512 + 64),         # the integer fixture's
+    (8, 16, 32, BF16, 8192),
+    (3, 8, 6, BF16, 288),                # 96 B a record
+    (5, 4, 4, INT8, 80 + 80),            # 16 B a record and its scales
+    (7, 4, 12, cg.RecordsStage(1, False, True), 7 * 48),
+])
+def test_records_place_takes_exactly_the_records(t, max_m, dims, stage,
+                                                 want):
+    """T maxM D elements of the records, plus an int8 source's T maxM
+    float32 scales, each rounded up to 16 bytes (already whole 16-byte
+    chunks where the alignment holds), where there is room."""
+    rows = -(-t * max_m * dims * stage.itemsize // 16) * 16
+    scales = -(-t * max_m * 4 // 16) * 16 if stage.scales else 0
+    assert rows + scales == want
+    assert cg._records_place(stage, t, max_m, dims, 0, 1) == (want, True)
+
+
+@pytest.mark.parametrize("case", [
+    "maxM 6, D 5, int8", "maxM 6, D 5, bf16", "int8 scales of 24 B",
+    "region at 8", "unaligned bases", "past the room", "no source",
+])
+def test_records_place_refuses(case):
+    """Where the bulk copy's 16-byte alignment fails (a record's bytes, an
+    int8 record's scales, the region, the tensors' bases), past the room a
+    block has, and for the other sources: no staging, no bytes."""
+    args = {"maxM 6, D 5, int8": (INT8, 8, 6, 5, 0),
+            "maxM 6, D 5, bf16": (BF16, 8, 6, 5, 0),
+            "int8 scales of 24 B": (INT8, 8, 6, 16, 0),
+            "region at 8": (INT8, 8, 32, 128, 0),
+            "unaligned bases": (cg.RecordsStage(1, True, False), 8, 32, 128,
+                                0),
+            "past the room": (BF16, 8, 32, 128, cg.SMEM_LIMIT - 65535),
+            "no source": (None, 8, 32, 128, 0)}[case]
+    stage, t, max_m, dims, used = args
+    at = 8 if case == "region at 8" else None
+    assert cg._records_place(stage, t, max_m, dims, used, 1, at) == (0,
+                                                                     False)
+    if case == "region at 8":
+        assert cg._records_place(stage, t, max_m, dims, used, 1, 16)[1]
+
+
+def test_records_place_keeps_the_blocks_an_sm():
+    """The staging never lowers the blocks an SM holds below what the
+    layout without it holds (up to the instance's register-bound
+    residency): bf16 at T = 8 beside config 1's 13,856 B would leave 2
+    blocks an SM of 4, and is not staged; int8 keeps 4, bf16 at T = 4
+    keeps 5.  Where the rest of the layout already holds fewer blocks,
+    staging that keeps that count is taken."""
+    assert cg._blocks_by_smem(13856 + 65536) == 2
+    assert cg._records_place(BF16, 8, 32, 128, 13856, 4) == (0, False)
+    assert cg._records_place(BF16, 8, 32, 128, 13856, 2) == (65536, True)
+    assert cg._records_place(INT8, 8, 32, 128, 13856, 4) == (33792, True)
+    assert cg._blocks_by_smem(13856 + 33792) == 4
+    assert cg._records_place(BF16, 4, 32, 128, 8736, 5) == (32768, True)
+    assert cg._blocks_by_smem(8736 + 32768) == 5
+    # a block the SM holds once already: anything that still fits
+    assert cg._blocks_by_smem(150_000) == 1
+    assert cg._records_place(BF16, 8, 32, 128, 150_000, 4) == (65536, True)
+
+
+@pytest.mark.parametrize("t", [4, 8])
+def test_smoke_and_card_shapes(t):
+    """Config 1's walks (ef = cand_cap = 64, maxM 32, D 128): int8 records
+    are staged at T = 4 and 8 (25,632 and 47,648 B a block: 13,856 +
+    32,768 + 1,024 at T = 8, still 4 blocks an SM), bf16 at T = 4 (41,504
+    B, 5 blocks an SM) but not at T = 8 (it would hold 2): its block is
+    the f32 rows' 13,856 B.  No device memory either way."""
+    smem, held, slots = F32_LAYOUT[t]
+    assert cg._walk_layout(64, 64, t, 32, 128, None) == F32_LAYOUT[t]
+    want = {(4, INT8): 16384 + 512, (8, INT8): 32768 + 1024,
+            (4, BF16): 32768, (8, BF16): 0}
+    for stage in (INT8, BF16):
+        staged = want[t, stage]
+        assert cg.records_staging(64, 64, t, 32, 128, stage) == staged
+        assert cg._walk_layout(64, 64, t, 32, 128, None, stage) == (
+            smem + staged, held, slots)
+        assert cg._walk_wide_words(64, 64, t, 32, 128, 10**6, True,
+                                   None) == 0
+    assert F32_LAYOUT[8][0] + want[8, INT8] == 13856 + 32768 + 1024 == 47648
+    assert cg._blocks_by_smem(47648) == 4
+    assert cg._blocks_by_smem(8736 + 32768) == 5
+
+
+def test_integer_fixture_shapes():
+    """The integer fixture's walks (maxM 16, D 32) stage both records
+    sources at T 1 / 4 / 8 and (ef, cand_cap) (16, 16) and (64, 128), and
+    in the wide instance at (5120, 5120), T = 4 (the card tests' and the
+    smoke's cases); at T = 256, (256, 256) the 256 popped records do not
+    fit beside the queues and tables, and the walk reads the records."""
+    for stage in (INT8, BF16):
+        for t in (1, 4, 8):
+            for ef, cap in ((16, 16), (64, 128)):
+                assert cg.records_staging(ef, cap, t, 16, 32, stage) > 0
+        assert cg.records_staging(5120, 5120, 4, 16, 32, stage) == (
+            4 * 16 * 32 * stage.itemsize + (256 if stage.scales else 0))
+        assert cg.records_staging(256, 256, 256, 16, 32, stage) == 0
+
+
+@pytest.mark.parametrize("ef,cap,t,max_m,dims", [
+    (64, 64, 8, 32, 128), (64, 64, 4, 32, 128), (16, 16, 1, 16, 32),
+    (320, 320, 8, 32, 128), (320, 320, 8, 32, 52_000), (16, 48, 3, 7, 30),
+    (321, 64, 8, 32, 128), (5120, 5120, 8, 32, 128), (5120, 5120, 4, 16, 32),
+    (8191, 8191, 8, 32, 128), (13854, 13854, 8, 32, 128),
+    (16384, 16384, 8, 32, 128), (256, 256, 256, 16, 32),
+])
+@pytest.mark.parametrize("source", ["f32", "pq l2", "pq cosine", "int8",
+                                    "bf16"])
+def test_other_sources_keep_their_layout(ef, cap, t, max_m, dims, source):
+    """Every source's layout without staging is the layout before it, byte
+    for byte (shared memory, tables, device words); a staged source's
+    differs only by its staged bytes, after everything else."""
+    pq = {"pq l2": cg.PqTable(16, 0), "pq cosine": cg.PqTable(16, 1)}.get(
+        source) if dims % 16 == 0 else None
+    stage = {"int8": INT8, "bf16": BF16}.get(source)
+    rows = 1_000_003
+    for dense in (True, False):
+        old = _old_walk_plan(ef, cap, t, max_m, dims, pq, rows, dense)
+        assert cg._walk_plan(ef, cap, t, max_m, dims, pq, rows,
+                             dense) == old
+        got = cg._walk_plan(ef, cap, t, max_m, dims, pq, rows, dense, stage)
+        staged = cg.records_staging(ef, cap, t, max_m, dims, stage)
+        assert got == (old[0] + staged, *old[1:])
+        assert got[0] <= cg.SMEM_LIMIT
+
+
+def test_constants_match_the_kernel():
+    """The figures _records_place shares with csrc/beam_walk.cu are the
+    kernel's: a block's shared-memory limit, the blocks an SM each table
+    instance (by block size) and the wide instances must hold, and the
+    block size by T maxM."""
+    path = os.path.join(os.path.dirname(cg.__file__), "..", "csrc",
+                        "beam_walk.cu")
+    with open(path) as f:
+        src = f.read()
+
+    def const(name):
+        return int(re.search(rf"constexpr \w+ {name} = (\d+);", src)[1])
+    assert const("kWideMinBlocks") == cg.WIDE_MIN_BLOCKS
+    assert const("kSmemLimit") == cg.SMEM_LIMIT
+    m = re.search(r"kMinBlocks = kThreads == 128 \? (\d+) : (\d+);", src)
+    assert {128: int(m[1]), 256: int(m[2])} == cg.WALK_MIN_BLOCKS
+    assert "return T * maxM <= 128 ? 128 : 256;" in src
+    assert cg._walk_threads(4, 32) == 128 and cg._walk_threads(5, 32) == 256
+
+
+def _graph(n=40, d=32, max_m=4, seed=3):
+    rng = np.random.default_rng(seed)
+    return graph_from_numpy(
+        rng.integers(-8, 9, size=(n, d)).astype(np.float32),
+        rng.integers(-1, n, size=(n, max_m)).astype(np.int32),
+        np.full(n, max_m, np.int32), np.zeros(n, bool), n, device="cpu")
+
+
+def test_walk_source_carries_the_stage():
+    """_check_walk_args gives int8 and bf16 records their staging
+    (element bytes, int8 scales, the bases' alignment) and every other
+    source none; a records view whose base is 8 bytes off 16 is not
+    aligned."""
+    g = _graph()
+    q = torch.zeros((3, 32))
+    walk = (q, 16, 16, 4, 0)
+    n, max_m = g.capacity, g.max_m
+    assert cg._check_walk_args(g, *walk).stage is None
+    i8 = pack_records(g.vectors.to(torch.int8), g.links)
+    sc = torch.ones((n, max_m))
+    src = cg._check_walk_args(g, *walk, records=i8, pscales=sc)
+    assert src.stage == cg.RecordsStage(1, True, True)
+    bf = pack_records(g.vectors, g.links, torch.bfloat16)
+    assert cg._check_walk_args(g, *walk, records=bf).stage == BF16
+    f32 = pack_records(g.vectors, g.links, torch.float32)
+    assert cg._check_walk_args(g, *walk, records=f32).stage is None
+    qv = g.vectors.to(torch.int8)
+    assert cg._check_walk_args(g, *walk, qvectors=qv,
+                               qscale=torch.ones(n)).stage is None
+    buf = torch.zeros(bf.numel() + 4, dtype=torch.bfloat16)
+    off = buf[4:].view(bf.shape)
+    assert off.data_ptr() % 16 == 8 and off.is_contiguous()
+    assert not cg._check_walk_args(g, *walk, records=off).stage.aligned
