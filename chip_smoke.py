@@ -66,9 +66,10 @@ exits non-zero):
      and Manhattan distance exact in float32) bit-equal at T in {1, 4, 8}
      and (ef, cand_cap) in {(16, 16), (64, 64), (64, 128), (128, 64)},
      and in every other row source (bf16 rows; int8 rows and int8 records
-     at power-of-two scales; f32 and bf16 records, the int8 and bf16 ones
-     staged in shared memory, and read from the records at T = 256,
-     (256, 256), where they do not fit; PQ records through an
+     at power-of-two scales; f32 and bf16 records; the int8 and bf16 rows
+     and records staged in shared memory, and read from the rows or
+     records at T = 256, (256, 256), where they do not fit; PQ records
+     through an
      integer codebook, with and without OPQ's signed-permutation rotation,
      read through the query's distance table, at G 8 and also at G 4, 16
      and 32 at T=8 (64, 128) and T=4 (5120, 5120))
@@ -144,11 +145,12 @@ exits non-zero):
      and hash visited sets; each variant's walk kernel against its twin on
      the card at 1M on every query (variant_vs_twin: recall within 0.002,
      ids on >= 98% of queries, hops and dist_evals within 1%) and timed
-     beside its bound (the int8 / bf16 records walks at T=8 and at the
-     API's default T=4, each also printing its placement, staged bytes,
-     instance's ptxas registers and spills and the blocks an SM of each
-     placement, the runtime's occupancy, which must bear out the placement
-     rule: records_placement), each variant's launches counted
+     beside its bound (the int8 rows and int8 / bf16 records walks at T=8
+     and at the API's default T=4, each also printing its placement,
+     staged bytes, instance's ptxas registers and spills and the blocks an
+     SM of each placement, the runtime's occupancy, which must bear out
+     the placement rule: staging_placement), each variant's launches
+     counted
      from 0 over its own API calls; a filtered graph search that widens
      from ef_search 40 to
      5120: 8 kernel launches, the last four (ef 640 to 5120) through the
@@ -175,8 +177,9 @@ exits non-zero):
      returns within the kernel check's near-tie tolerance of the oracle's
      10th distance.  Its recall@10 against the float32 route is printed,
      not held: bf16 rounding of the rows reorders near-ties at rank 10.
-     Then the graph route over the bf16 rows, and that walk kernel against
-     its twin.
+     Then the graph route over the bf16 rows at T=8 and at the API's
+     T=4, and that walk kernel against its twin at each (with its
+     placement: staging_placement).
      The PQ shadows must be the same tensors after the cast, and the PQ
      walk must still answer;
   8. PQ serving on a second 1M x 128-d index of benchmarks/bench_pq.py's
@@ -311,11 +314,11 @@ PQ_CENTERS = 50_000
 DIMS = 128
 K = 10
 GRAPH_T = 8
-# the API's default search_expand_width (HnswIndex): the int8 and bf16
-# records walks (serving_variants' names) are held to their twin at this T
-# too
+# the API's default search_expand_width (HnswIndex): the int8 rows and the
+# int8 and bf16 records walks (serving_variants' names) are held to their
+# twin at this T too (and the bf16 rows walk, bf16_phase)
 API_T = 4
-RECORDS_AT_API_T = ("packed int8", "packed bfloat16")
+RECORDS_AT_API_T = ("quantized", "packed int8", "packed bfloat16")
 SHARDS = 4
 # rows a shard takes per insert batch: the single index's batch, not the
 # sharded default of 128, whose 7,812 host-bound batches cost the smoke
@@ -369,10 +372,11 @@ WIDE_QUEUES = ((5120, 5120), (4097, 64), (64, 8191), (8191, 8191),
 # the wide one
 PQ_INTEGER_GROUPS = ((32, 2), (32, 4), (32, 16), (32, 32), (24, 3))
 PQ_INTEGER_SHAPES = ((8, 64, 128), (4, 5120, 5120))
-# the int8 / bf16 records sources, staged in shared memory at every
-# integer shape but (T, ef, cand_cap) = RECORDS_UNSTAGED, whose T = 256
-# popped records do not fit a block beside its queues and tables
-STAGED_SOURCES = ("records int8", "records bf16")
+# the int8 / bf16 records and rows sources, staged in shared memory at
+# every integer shape but (T, ef, cand_cap) = RECORDS_UNSTAGED, whose T =
+# 256 popped rows' records or slots' rows do not fit a block beside its
+# queues and tables
+STAGED_SOURCES = ("records int8", "records bf16", "rows int8", "rows bf16")
 RECORDS_UNSTAGED = (256, 256, 256)
 # ptxas's report of the eight float32 / bf16 sweep instances as they were
 # built before the int8 instance (no stack, no spills): it leaves their code
@@ -1247,9 +1251,9 @@ def integer_walks(torch, cg, core_search, dev):
         f"{wide_cases} cases of the "
         f"wide instances ({', '.join(map(str, WIDE_QUEUES))}; "
         f"{wide_launches} launches); ids, distances, hops and dist_evals; "
-        f"the int8 / bf16 records staged in shared memory in "
-        f"{staged_cases[True]} of those cases, read from the records in "
-        f"{staged_cases[False]} more at (T, ef, cand_cap) = "
+        f"the int8 / bf16 records and rows staged in shared memory in "
+        f"{staged_cases[True]} of those cases, read from the records or "
+        f"rows in {staged_cases[False]} more at (T, ef, cand_cap) = "
         f"{RECORDS_UNSTAGED}, bit-equal too")
     pq_wide_row_walks(torch, cg, core_search, dev)
     return wide_launches
@@ -2057,7 +2061,20 @@ def variant_vs_twin(torch, graph, qs, kw, results, launches, *,
         visited_slots)
     bound = walk_bound_ms(kh, ke, len(qs), graph.dims, t, graph.max_m,
                           row_bytes(graph, kw), visited)
-    staging = records_placement(cg, graph, q, kw, kh, ef, t)
+    staging = staging_placement(cg, graph, q, kw, kh, ef, t)
+    if staging and staging[1] == "staged":
+        # the staged walk against the same launch reading its rows or
+        # records, bit for bit
+        from pg_embedding_tpu_torch import _kernels
+        from pg_embedding_tpu_torch.graph_probe import walk as probe_walk
+        unstaged = probe_walk(_kernels.load_library(), graph, q, ef=ef,
+                              cand_cap=ef, t=t, metric_value=L2,
+                              staged=False, **kw)
+        same_walk = all(torch.equal(a, b) for a, b in zip(got, unstaged))
+        check(same_walk, f"{name} T={t}: the staged walk differs from the "
+              f"unstaged one")
+        staging = (staging[0] + "; ids, distances, hops and dist_evals "
+                   "equal to the unstaged walk's", *staging[1:])
     log(f"beam_walk {name} vs plain at {graph.n_nodes} rows, {b} queries, "
         f"ef={ef}, T={t} ({launches[name]} launches on its API path): "
         f"recall@10 {rec_k:.4f} / {rec_p:.4f} vs the exact route; ids "
@@ -2081,49 +2098,54 @@ def variant_vs_twin(torch, graph, qs, kw, results, launches, *,
         results[key].update(placement=staging[1], blocks_per_sm=staging[2])
 
 
-def records_placement(cg, graph, q, kw, hops, ef, t):
-    """Where an int8 or bf16 records walk at T = ``t``, ef = cand_cap =
-    ``ef`` (a table instance) keeps its records
+def staging_placement(cg, graph, q, kw, hops, ef, t):
+    """Where an int8 or bf16 records or rows walk at T = ``t``, ef =
+    cand_cap = ``ef`` (a table instance) keeps each step's rows
     (ops/cuda_graph._records_place: staged in shared memory, or read from
-    the records), and the blocks an SM holds of each placement's instance
-    at its shared bytes, the runtime's occupancy (graph_probe.walk_blocks):
-    the walk stages exactly where an SM then holds as many blocks as
-    unstaged, up to the instance's register-bound residency
-    (WALK_MIN_BLOCKS).  Returns (the log line, with the layout's bytes,
-    the instance's ptxas registers and spills (WALK_REPORTS) and, staged,
-    the bytes the staging reads at most, each step's T popped records from
-    the kernel's ``hops``; the placement; the blocks an SM of the instance
-    it takes), or None for the other sources."""
-    import torch
+    the records or rows), and the blocks an SM holds of each placement's
+    instance at its shared bytes, the runtime's occupancy
+    (graph_probe.walk_blocks): the walk stages exactly where an SM then
+    holds as many blocks as unstaged, up to the instance's register-bound
+    residency (WALK_MIN_BLOCKS).  Returns (the log line, with the layout's
+    bytes, the instance's ptxas registers and spills (WALK_REPORTS) and,
+    staged, the bytes the staging reads at most: each step's T popped
+    records, or T maxM slots' rows, from the kernel's ``hops``; the
+    placement; the blocks an SM of the instance it takes), or None for the
+    other sources."""
     from pg_embedding_tpu_torch import _kernels
     from pg_embedding_tpu_torch.graph_probe import walk_blocks
-    records = kw.get("records")
-    if records is None or records.dtype not in (torch.int8, torch.bfloat16):
+    src = cg._check_walk_args(graph, q, ef, ef, t, L2, **kw)
+    stage = src.stage
+    if stage is None:
         return None
-    stage = cg._check_walk_args(graph, q, ef, ef, t, L2, **kw).stage
     staged = cg.records_staging(ef, ef, t, graph.max_m, graph.dims, stage)
     plain = cg._walk_smem_bytes(ef, ef, t, graph.max_m, graph.dims, None)
     rec, _ = cg._records_place(stage, t, graph.max_m, graph.dims, plain, 0)
-    lib, elem = _kernels.load_library(), cg._ELEMS[records.dtype]
+    lib = _kernels.load_library()
     threads = cg._walk_threads(t, graph.max_m)
-    blocks = {False: walk_blocks(lib, elem, False, t, graph.max_m, plain)}
+    blocks = {False: walk_blocks(lib, src.elem, False, t, graph.max_m,
+                                 plain)}
+    source = "rows" if stage.rows else "records"
     if rec:
-        blocks[True] = walk_blocks(lib, elem, True, t, graph.max_m,
+        blocks[True] = walk_blocks(lib, src.elem, True, t, graph.max_m,
                                    plain + rec)
         keeps = blocks[True] >= min(blocks[False],
                                     cg.WALK_MIN_BLOCKS[threads])
         check(keeps == (staged > 0),
-              f"records {records.dtype} T={t}: staged {staged} B, but an SM "
-              f"holds {blocks[True]} blocks staged against {blocks[False]}")
-    name = "int8" if records.dtype == torch.int8 else "bf16"
+              f"{source} {src.rows.dtype} T={t}: staged {staged} B, but an "
+              f"SM holds {blocks[True]} blocks staged against "
+              f"{blocks[False]}")
+    name = "int8" if stage.itemsize == 1 else "bf16"
     inst = (f"beam_walk_kernel<{name}{' staged' if staged else ''} rows, "
             f"dense, {threads} threads>")
     spill, used = WALK_REPORTS[inst]
     regs = int(re.search(r"Used (\d+) registers", used)[1])
-    record = graph.max_m * graph.dims * records.element_size() + (
-        4 * graph.max_m if "pscales" in kw else 0)
-    read = int(hops.sum()) * t * record if staged else 0
-    line = (f"placement {'staged' if staged else 'read from the records'}"
+    # what one step copies at most: T records, or T maxM rows (and scales)
+    step = t * graph.max_m * (graph.dims * stage.itemsize
+                              + (4 if stage.scales else 0))
+    read = int(hops.sum()) * step if staged else 0
+    where = "staged" if staged else source
+    line = (f"placement {'staged' if staged else 'read from the ' + source}"
             f" ({staged} staged bytes of {plain + staged} a block; {inst}: "
             f"{regs} registers, {spill}; {blocks[staged > 0]} blocks an SM"
             + (f", {blocks[False]} unstaged at {plain} B" if staged else
@@ -2132,7 +2154,7 @@ def records_placement(cg, graph, q, kw, hops, ef, t):
             + (f"; the staging reads at most {read:,} B "
                f"({read / PEAK_BYTES * 1e3:.4f} ms at the HBM rate)"
                if staged else ""))
-    return line, "staged" if staged else "records", blocks[staged > 0]
+    return line, where, blocks[staged > 0]
 
 
 def walk_counts():
@@ -2198,9 +2220,9 @@ def serving_variants(torch, idx, qs, results):
             kw = dict(qvectors=idx._qvec, qscale=idx._qscale)
         variant_vs_twin(torch, idx.graph, qs, kw, results, launches)
         if name in RECORDS_AT_API_T:
-            # the API's default search_expand_width: each records walk
-            # at T=4 too (staged at both types), its launches counted
-            # over one API call
+            # the API's default search_expand_width: the int8 rows and
+            # each records walk at T=4 too (staged at every type), its
+            # launches counted over one API call
             idx.search_expand_width = API_T
             counts = walk_counts()
             idx.search_ids(qs)
@@ -2981,13 +3003,19 @@ def bf16_phase(torch, cb, idx, qs, results):
     check(bool((got_d <= kth * (1 + 1e-5) + 1e-6).all()),
           f"bf16 route returned a row past the oracle's 10th ({excess})")
     packed, idx.packed_traversal = idx.packed_traversal, False
-    counts = walk_counts()
-    _, gl, gv = idx.search(qs, K, mode="graph")
-    walks = dict(counts)
+    t_was = idx.search_expand_width
+    # the graph's T, then the API's default (staged at T=4 only: bf16 rows
+    # at T=8 would hold 2 blocks an SM of 4)
+    for t in (GRAPH_T, API_T):
+        idx.search_expand_width = t
+        counts = walk_counts()
+        _, gl, gv = idx.search(qs, K, mode="graph")
+        walks = dict(counts)
+        log(f"search(mode='graph') over the bf16 rows, T={t}: recall@10 "
+            f"{recall(gl, gv, oracle):.4f} vs the float64 oracle over them")
+        variant_vs_twin(torch, idx.graph, qs, {}, results, walks, t=t)
+    idx.search_expand_width = t_was
     idx.packed_traversal = packed
-    log(f"search(mode='graph') over the bf16 rows: recall@10 "
-        f"{recall(gl, gv, oracle):.4f} vs the float64 oracle over them")
-    variant_vs_twin(torch, idx.graph, qs, {}, results, walks)
     return launches
 
 
@@ -3682,8 +3710,9 @@ def main():
     log(f"beam_walk launches by variant, each over its own API path (the "
         f"smoke's comparisons not counted): "
         f"{ {k: v['launches'] for k, v in walk_variants.items()} }")
+    # (and the bf16 rows walk at API_T, bf16_phase)
     check(len(walk_variants) == len(WALK_SOURCES) + len(WALK_VISITED)
-          + len(RECORDS_AT_API_T),
+          + len(RECORDS_AT_API_T) + 1,
           f"variants held to their twin at 1M: {sorted(walk_variants)}")
     check(core_search.PLAIN_WALKS_ON_CARD == 0,
           f"phases 4-11 ran {core_search.PLAIN_WALKS_ON_CARD} plain walks "

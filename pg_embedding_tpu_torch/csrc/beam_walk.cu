@@ -50,9 +50,10 @@
 //   * bf16 corpus rows or records, widened exactly; with cosine over bf16
 //     corpus rows, |p|^2 is rounded to bf16 and back, as the twin's
 //     _sum_sq of a bf16 operand does (records are widened first: no);
-//   * int8 and bf16 records are staged where the launch asks for it:
-//     phase 1 copies each popped row's whole record (and its scales) to
-//     shared memory, and phase 3 reads slot s's row there (kElemI8Staged,
+//   * int8 and bf16 records and rows are staged where the launch asks for
+//     it: phase 1 copies each popped row's whole record (and its scales),
+//     or phase 2 each processed slot's row (and its scale), to shared
+//     memory, and phase 3 reads slot s's row there (kElemI8Staged,
 //     kElemBF16Staged), the same values in the same order, so the same
 //     walk;
 //   * PQ records u8[cap, maxM, G] through the codebook f32[G, 256, D / G]:
@@ -103,7 +104,9 @@
 //      dedupe's answer, so dist_evals do not change.  Under the bitmap or
 //      hash set the held table stays empty and the slot reads the set's
 //      global words instead (a uniform branch).  Processed slots are
-//      compacted with one shared atomic a warp;
+//      compacted with one shared atomic a warp (staged int8 / bf16 rows:
+//      the copy engine copies each processed slot's row to shared
+//      memory as the dedupe keeps it, stage_row);
 //   3. rows: each warp scores kRowsPerWarp = 8 neighbours at a time, their
 //      row loads issued together; the metric is a template parameter (no
 //      branch per element) and the 8 sums go through one butterfly that
@@ -123,10 +126,10 @@
 //      it: binary searches), into its second buffer.
 // Each row source and visited-set kind (the dense dedupe, or a set in
 // device memory) is one instance: 7 x 2 (PQ twice: kElemPQ, kElemPQFar;
-// int8 and bf16 staged records beside them), by 128 or 256 threads:
-// twenty-eight (the dense instances compile the sets' branches away;
-// graph_probe's sets-runtime variant keeps them); the records / rows
-// choice and bitmap / hash are uniform runtime branches.
+// int8 and bf16 staged records or rows beside them), by 128 or 256
+// threads: twenty-eight (the dense instances compile the sets' branches
+// away; graph_probe's sets-runtime variant keeps them); the records /
+// rows choice and bitmap / hash are uniform runtime branches.
 // 128 threads a block where T * maxM <= 128 (T <= 4 at maxM = 32), else 256; an SM holds 5 blocks of 128 (96
 // registers a thread) or 4 of 256 (64): shapes chosen by measurement
 // (PERF.md; graph_probe.py).  Where the tables do not fit beside the
@@ -198,7 +201,16 @@
 // records at 4), so the launch stages only where an SM keeps its blocks
 // (ops/cuda_graph._records_place).  16-byte cp.async copies spread over
 // the block instead of one bulk copy a record: 0.761 against 0.654 ms
-// (graph_probe --mode records; PERF.md).
+// (graph_probe --mode records; PERF.md).  Staged int8 / bf16 rows wait
+// on no row load in phase 3 either, but a row's place is its link, so its
+// copy waits on the link and lands within the step: the rows lap falls
+// (int8 T = 8: ~11,200 -> ~8,600 cycles a step) and the wait moves into
+// phase 2 (dedupe ~4,100 -> ~6,200; issued in phase 1 instead, links
+// ~4,300 -> ~6,000), so the walk gains 2-4% (graph_probe --mode rows).
+// Read from shared memory or device memory, a step at T = 8 is now bound
+// by issue: four resident blocks of 8 warps share an SM's schedulers, and
+// the rows lap's widening and sums (every operation rounded on its own)
+// take ~8,500 cycles a step for staged rows and records alike.
 // A wide step adds the held word's read to the links' latency, and its
 // in-place merge shifts both queues' suffixes every step, a barrier a
 // round: at ef = cand_cap = 5120 the move is ~46% of a step (PERF.md).
@@ -356,20 +368,24 @@ PqPlace pq_place(int groups, int metric, int T, int maxM, size_t used) {
   return {0, table / 4, 0};
 }
 
-// Where an int8 or bf16 records source can keep each step's records
-// (kElemI8Staged / kElemBF16Staged): the T popped rows' whole records (T
-// maxM D elements of ``elem_bytes``), then an int8 source's T maxM scales,
-// each rounded up to 16 bytes, in shared memory at offset ``at`` (the
-// block's region, after every other part), where
-//   * the bulk copy's 16-byte alignment holds: a record's bytes, an int8
-//     record's scales, the region and both tensors' bases (``aligned``);
+// Where an int8 or bf16 records or rows source can keep each step's rows
+// (kElemI8Staged / kElemBF16Staged): the T popped rows' whole records, or
+// the T maxM slots' rows (T maxM D elements of ``elem_bytes`` either
+// way), then an int8 source's T maxM scales, each rounded up to 16 bytes,
+// in shared memory at offset ``at`` (the block's region, after every
+// other part), where
+//   * the bulk copy's 16-byte alignment holds: the bytes of what one copy
+//     moves (a record, or with ``rows`` a row), an int8 record's scales,
+//     the region and the tensors' bases (``aligned``: a rows source's
+//     scales are copied 4 bytes at a time);
 //   * they fit beside the ``used`` bytes of the rest of the layout.
-// Else none (0 bytes): each slot read from the records in phase 3.
-// Nothing else of the layout moves.  Whether a walk that can stage does is
-// the caller's choice (ops/cuda_graph._records_place holds the rule: an SM
-// keeps its blocks), told by the shared bytes it passes (beam_walk).
+// Else none (0 bytes): each slot read from the records or rows in phase
+// 3.  Nothing else of the layout moves.  Whether a walk that can stage
+// does is the caller's choice (ops/cuda_graph._records_place holds the
+// rule: an SM keeps its blocks), told by the shared bytes it passes
+// (beam_walk).
 struct RecPlace {
-  size_t smem;     // shared bytes: the staged records and scales
+  size_t smem;     // shared bytes: the staged records or rows and scales
   int staged;
 };
 
@@ -387,7 +403,8 @@ __host__ __device__ __forceinline__ size_t rec_rows_bytes(int elem_bytes,
   return round16((size_t)T * maxM * D * elem_bytes);
 }
 
-// The staged records' bytes and, with ``scales``, their int8 scales'.
+// The staged records' or rows' bytes and, with ``scales``, their int8
+// scales'.
 __host__ __device__ __forceinline__ size_t rec_stage_bytes(int elem_bytes,
                                                            bool scales, int T,
                                                            int maxM, int D) {
@@ -395,11 +412,13 @@ __host__ __device__ __forceinline__ size_t rec_stage_bytes(int elem_bytes,
          (scales ? round16((size_t)T * maxM * 4) : 0);
 }
 
-RecPlace records_place(int elem_bytes, int scales, int aligned, int T,
-                       int maxM, int D, size_t at, size_t used) {
+RecPlace records_place(int elem_bytes, int scales, int rows, int aligned,
+                       int T, int maxM, int D, size_t at, size_t used) {
   if (elem_bytes <= 0 || !aligned) return {0, 0};
-  const size_t record = (size_t)maxM * D * elem_bytes;
-  if (record % 16 || (scales && maxM * 4 % 16) || at % 16) return {0, 0};
+  // what one bulk copy moves: a slot's row, or a popped row's record
+  const size_t unit = (size_t)(rows ? 1 : maxM) * D * elem_bytes;
+  if (unit % 16 || (scales && !rows && maxM * 4 % 16) || at % 16)
+    return {0, 0};
   const size_t bytes = rec_stage_bytes(elem_bytes, scales, T, maxM, D);
   if (used + bytes > (size_t)kSmemLimit) return {0, 0};
   return {bytes, 1};
@@ -411,11 +430,11 @@ RecPlace records_place(int elem_bytes, int scales, int aligned, int T,
 // counters, then the held table (held_n ids) and the slot table (slot_n
 // ids and slot_n smallest slots), then a PQ source's table and staged
 // codes (pq_place, placed first: the tables take what it leaves, and are
-// left out (0) where they do not fit) or an int8 / bf16 records source's
-// staged records (records_place, placed last: nothing else moves).  The
-// wide instances (ef or cap above kMaxQueue): the query row, the slot
+// left out (0) where they do not fit) or an int8 / bf16 records or rows
+// source's staged rows (records_place, placed last: nothing else moves).
+// The wide instances (ef or cap above kMaxQueue): the query row, the slot
 // arrays, the counters, the slot table, the PQ table and codes or the
-// staged records, then each queue once (d, id; the candidate ring of
+// staged rows, then each queue once (d, id; the candidate ring of
 // ``ring`` entries) where they fit; device memory,
 // ``words`` int32 a query: the held bits (``held_words``, two bits an id
 // of ``rows``: the dense dedupe only), then the queues where they do not
@@ -440,7 +459,7 @@ size_t with_pq_words(size_t words, const PqPlace& pq) {
 
 WalkLayout walk_layout(int ef, int cap, int T, int maxM, int D, int rows,
                        bool dense, int groups, int metric, int rec_elem,
-                       int rec_scales, int rec_aligned) {
+                       int rec_scales, int rec_rows, int rec_aligned) {
   const size_t tm = (size_t)T * maxM;
   const size_t row = 4 * (size_t)((D + 3) / 4 * 4);
   const size_t slots = pow2_at_least(2 * tm);
@@ -452,13 +471,14 @@ WalkLayout walk_layout(int ef, int cap, int T, int maxM, int D, int rows,
     const size_t queues = 8 * ((size_t)ef + ring);
     const size_t held = dense ? ((size_t)rows + 15) / 16 : 0;
     if (fixed + queues <= (size_t)kSmemLimit) {
-      const RecPlace rec = records_place(rec_elem, rec_scales, rec_aligned,
-                                         T, maxM, D, fixed, fixed + queues);
+      const RecPlace rec =
+          records_place(rec_elem, rec_scales, rec_rows, rec_aligned, T, maxM,
+                        D, fixed, fixed + queues);
       return {fixed + rec.smem + queues, 0, (int)slots, (int)ring, held,
               with_pq_words(held, pq), 1, pq, rec};
     }
-    const RecPlace rec = records_place(rec_elem, rec_scales, rec_aligned, T,
-                                       maxM, D, fixed, fixed);
+    const RecPlace rec = records_place(rec_elem, rec_scales, rec_rows,
+                                       rec_aligned, T, maxM, D, fixed, fixed);
     return {fixed + rec.smem, 0, (int)slots, (int)ring, held,
             with_pq_words(held + queues / 4, pq), 0, pq, rec};
   }
@@ -469,13 +489,13 @@ WalkLayout walk_layout(int ef, int cap, int T, int maxM, int D, int rows,
   const size_t tables = 4 * held + 8 * slots;
   if (base + tables <= (size_t)kSmemLimit) {
     const size_t used = base + tables;
-    const RecPlace rec = records_place(rec_elem, rec_scales, rec_aligned, T,
-                                       maxM, D, used, used);
+    const RecPlace rec = records_place(rec_elem, rec_scales, rec_rows,
+                                       rec_aligned, T, maxM, D, used, used);
     return {used + rec.smem, (int)held, (int)slots, 0, 0, pq.words, 1, pq,
             rec};
   }
-  const RecPlace rec = records_place(rec_elem, rec_scales, rec_aligned, T,
-                                     maxM, D, base, base);
+  const RecPlace rec = records_place(rec_elem, rec_scales, rec_rows,
+                                     rec_aligned, T, maxM, D, base, base);
   return {base + rec.smem, 0, 0, 0, 0, pq.words, 1, pq, rec};
 }
 
@@ -559,10 +579,11 @@ struct RowSource {
                           // PQ: of the codebook, in the table's build)
 };
 
-// A staged records source's region (records_place): popped row j's record
-// at rows + j maxM D elements, so slot s's row at rows + s D; an int8
-// source's scales after them, slot s's at scales[s]; the step's copies
-// complete on ``bar``.  All null for the other sources.
+// A staged records or rows source's region (records_place): popped row
+// j's record at rows + j maxM D elements, so slot s's row at rows + s D
+// (a rows source copies slot s's row there); an int8 source's scales
+// after them, slot s's at scales[s]; the step's bulk copies complete on
+// ``bar``.  All null for the other sources.
 struct RecStage {
   unsigned char* rows;
   float* scales;
@@ -725,8 +746,9 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-// The staged records' mbarrier: ``count`` arrivals a phase (one a popped
-// row), each adding the bytes its copies complete on it.
+// The staged records' or rows' mbarrier: ``count`` arrivals a phase (one
+// a popped row, or one a slot), each adding the bytes its copies complete
+// on it.
 __device__ __forceinline__ void mbar_init(unsigned long long* bar,
                                           unsigned count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
@@ -806,7 +828,8 @@ __device__ __forceinline__ RecStage rec_stage(unsigned char* region,
 // popped row j's copies (the copy engine's cp.async.bulk: one for the
 // record, one for its scales), or none where the row does not expand, and
 // arrives on the barrier with their bytes (T arrivals a phase); the block
-// waits before phase 2's barrier (wait_records).
+// waits before phase 2's barrier (wait_records).  A rows source stages its
+// slots' rows instead (stage_row).
 template <int kElem, int kThreads>
 __device__ __forceinline__ void stage_records(const RowSource& src,
                                               const int* pop_i,
@@ -815,6 +838,7 @@ __device__ __forceinline__ void stage_records(const RowSource& src,
                                               int D, const RecStage& rs,
                                               int tid) {
   constexpr bool kI8 = elem_type(kElem) == kElemI8;
+  if (!src.records) return;
   const unsigned record = (unsigned)maxM * D * (kI8 ? 1 : 2);
   const unsigned scales = kI8 ? (unsigned)maxM * 4 : 0u;
   const unsigned char* rec = static_cast<const unsigned char*>(src.rows);
@@ -833,6 +857,44 @@ __device__ __forceinline__ void stage_records(const RowSource& src,
                   scales, rs.bar);
     }
   }
+}
+
+// Phase 2 (int8 / bf16 rows, staged): slot s's row, and an int8 row's
+// scale, copied to shared memory as the dedupe finds the slot processed
+// (``id``; -1: not processed).  A row's place is its link's value, so its
+// copy can start no earlier than phase 1; copying every valid slot there,
+// as its link lands, overlapped more but moved ~twice the rows (dedupe
+// drops about half the slots at T = 8) and ran no faster (graph_probe
+// --mode rows' rows-phase-1).  The slot's thread arrives on the barrier
+// with the row's bytes, 0 for a slot not processed (T maxM arrivals a
+// phase), and has the copy engine copy the row (cp.async.bulk) to rows +
+// s D, where a staged record puts slot s's row; the scale, 4 bytes (below
+// the bulk copy's 16), goes to scales[s] by a cp.async that its thread
+// waits for before phase 2's barrier (cp_async_wait_all).  Phase 3 reads
+// them as it reads staged records.
+template <int kElem>
+__device__ __forceinline__ void stage_row(const RowSource& src,
+                                          const RecStage& rs, int s, int id,
+                                          int D) {
+  constexpr bool kI8 = elem_type(kElem) == kElemI8;
+  const unsigned row = (unsigned)D * (kI8 ? 1 : 2);
+  mbar_arrive_expect(rs.bar, id >= 0 ? row : 0u);
+  if (id >= 0) {
+    // the region's earlier readers are done (two block barriers ago)
+    // before the copy engine writes it
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    bulk_copy(rs.rows + (size_t)s * row,
+              static_cast<const unsigned char*>(src.rows) + (size_t)id * row,
+              row, rs.bar);
+    if (kI8) cp_async(rs.scales + s, src.scales + id, 4);
+  }
+}
+
+// The arrivals a phase of a staged source's barrier: one a popped row
+// (records, stage_records), one a slot (rows, stage_row).
+__device__ __forceinline__ unsigned stage_arrivals(const RowSource& src,
+                                                  int T, int tm) {
+  return src.records ? T : tm;
 }
 
 // The step's staged records have landed (phase 3 reads them): each thread
@@ -1105,9 +1167,9 @@ __device__ __forceinline__ void record_visits(int vis_mode, int* vis,
 // new_ds (d, slot bits) with one atomic a warp.  PQ rows: each lane reads
 // its groups' code bytes of the warp's rows (staged in shared memory by
 // phase 1, or from the records), then adds their entries of the query's
-// table ``pq.tab`` (build_pq_table) into its partials.  Staged records:
-// each slot's row and scale from ``rs`` in shared memory (stage_records),
-// widened and summed as the records' are.
+// table ``pq.tab`` (build_pq_table) into its partials.  Staged records
+// or rows: each slot's row and scale from ``rs`` in shared memory
+// (stage_records, stage_row), widened and summed as the records' are.
 template <int kMetric, int kElem, int kWarps>
 __device__ __forceinline__ void score_rows(
     const RowSource& src, const float* q_s, const PqTable& pq,
@@ -1128,8 +1190,8 @@ __device__ __forceinline__ void score_rows(
       at[u] = -1;
       if (e0 + u < n_proc) {
         const int s = proc[e0 + u];
-        // (PQ and staged records: the slot, whose codes or row phase 1
-        // staged; else the record or the row)
+        // (PQ and staged records or rows: the slot, whose codes or row
+        // phase 1 staged; else the record or the row)
         at[u] = kElem == kElemPQ || is_staged(kElem) ? s
                 : src.records ? ci[s / maxM] * maxM + s % maxM
                               : slot_id[s];
@@ -1210,7 +1272,7 @@ __device__ __forceinline__ void score_rows(
       d = sqrtf(s_a);
     } else if (kMetric == kMetricCosine) {
       float s_pp = rows_sum<R>(pp, lane);
-      if (kElem == kElemBF16 && src.round_pp)
+      if (kType == kElemBF16 && src.round_pp)
         s_pp = __bfloat162float(__float2bfloat16_rn(s_pp));
       d = __fsub_rn(1.f, __fmul_rn(s_a, rsqrtf(fmaxf(__fmul_rn(qq, s_pp),
                                                       1e-30f))));
@@ -1274,7 +1336,7 @@ beam_walk_kernel(const int* __restrict__ links, const int* __restrict__ counts,
   unsigned char* region = reinterpret_cast<unsigned char*>(slot_min + slot_n);
   PqTable pq{nullptr, nullptr};
   if constexpr (is_pq(kElem)) pq = pq_table<kElem>(src, metric, region, b);
-  // a staged records source's records and scales there (16-aligned:
+  // a staged records or rows source's rows and scales there (16-aligned:
   // records_place), their barrier in the counters (set only in its
   // instances: a stage built in the others, though unused, renumbers the
   // float32 instances' registers and moves their ptxas spills)
@@ -1298,7 +1360,7 @@ beam_walk_kernel(const int* __restrict__ links, const int* __restrict__ counts,
   }
   if (tid < 4) ctr[tid] = 0;
   if constexpr (is_staged(kElem))
-    if (tid == 0) mbar_init(rs.bar, T);
+    if (tid == 0) mbar_init(rs.bar, stage_arrivals(src, T, tm));
   __syncthreads();
   if (tid == 0 && has_nodes) {
     rd[0] = cd[0] = entry_d[b];
@@ -1384,14 +1446,21 @@ beam_walk_kernel(const int* __restrict__ links, const int* __restrict__ counts,
         keep = keep && !vis_has(vis, vis_mode, vis_n, id);
       }
       const unsigned m = __ballot_sync(kFull, keep);
+      // a staged rows source: each processed slot's row copied as the
+      // dedupe keeps it (stage_row)
+      if constexpr (is_staged(kElem))
+        if (!src.records && s < tm)
+          stage_row<kElem>(src, rs, s, keep ? id : -1, D);
       if (vis_mode == kVisHash && lane == 0) proc_bits[s0 >> 5] = m;
       int at = 0;
       if (lane == 0 && m) at = atomicAdd(&cnt[0], __popc(m));
       at = __shfl_sync(kFull, at, 0);
       if (keep) proc[at + __popc(m & ((1u << lane) - 1u))] = s;
     }
-    // the staged PQ codes or records have landed (phase 3 reads them)
-    if constexpr (kElem == kElemPQ) cp_async_wait_all();
+    // the staged PQ codes, records or rows and scales have landed (phase 3
+    // reads them)
+    if constexpr (kElem == kElemPQ || kElem == kElemI8Staged)
+      cp_async_wait_all();
     if constexpr (is_staged(kElem)) wait_records(rs, hops);
     __syncthreads();
     const int n_proc = cnt[0];
@@ -1526,9 +1595,9 @@ beam_walk_wide_kernel(const int* __restrict__ links,
   int* mine = wide_words ? wide_mem + b * wide_words : nullptr;
   unsigned* held = reinterpret_cast<unsigned*>(mine);
   // a PQ source's distance table and staged codes after the slot table (or
-  // its table in device memory: pq_table), or a staged records source's
-  // records and scales (records_place), then the queues where they are in
-  // shared memory
+  // its table in device memory: pq_table), or a staged records or rows
+  // source's rows and scales (records_place), then the queues where they
+  // are in shared memory
   unsigned char* region = reinterpret_cast<unsigned char*>(slot_min + slot_n);
   PqTable pq{nullptr, nullptr};
   if constexpr (is_pq(kElem)) pq = pq_table<kElem>(src, metric, region, b);
@@ -1563,7 +1632,7 @@ beam_walk_wide_kernel(const int* __restrict__ links,
   }
   if (tid < 4) ctr[tid] = 0;
   if constexpr (is_staged(kElem))
-    if (tid == 0) mbar_init(rs.bar, T);
+    if (tid == 0) mbar_init(rs.bar, stage_arrivals(src, T, tm));
   __syncthreads();
   if (tid == 0 && has_nodes) {
     rd[0] = cd[0] = entry_d[b];
@@ -1634,14 +1703,21 @@ beam_walk_wide_kernel(const int* __restrict__ links,
         keep = !vis_has(vis, vis_mode, vis_n, id);
       }
       const unsigned m = __ballot_sync(kFull, keep);
+      // a staged rows source: each processed slot's row copied as the
+      // dedupe keeps it (stage_row)
+      if constexpr (is_staged(kElem))
+        if (!src.records && s < tm)
+          stage_row<kElem>(src, rs, s, keep ? id : -1, D);
       if (vis_mode == kVisHash && lane == 0) proc_bits[s0 >> 5] = m;
       int at = 0;
       if (lane == 0 && m) at = atomicAdd(&cnt[0], __popc(m));
       at = __shfl_sync(kFull, at, 0);
       if (keep) proc[at + __popc(m & ((1u << lane) - 1u))] = s;
     }
-    // the staged PQ codes or records have landed (phase 3 reads them)
-    if constexpr (kElem == kElemPQ) cp_async_wait_all();
+    // the staged PQ codes, records or rows and scales have landed (phase 3
+    // reads them)
+    if constexpr (kElem == kElemPQ || kElem == kElemI8Staged)
+      cp_async_wait_all();
     if constexpr (is_staged(kElem)) wait_records(rs, hops);
     __syncthreads();
     const int n_proc = cnt[0];
@@ -1900,11 +1976,11 @@ extern "C" {
 // ``codebook`` f32[groups, 256, D / groups], whose distance table a block
 // builds in shared memory, with the step's codes beside it where they fit,
 // else in device memory (pq_place, counted in smem_bytes and wide_words);
-// int8 / bf16 records: each step's popped records staged in shared memory
-// where records_place can stage them (the alignment it checks includes the
-// bases of ``rows`` and ``scales``) and smem_bytes count them (the
-// caller's choice: ops/cuda_graph._records_place), else read from the
-// records.
+// int8 / bf16 records or rows: each step's popped records, or its valid
+// slots' rows, staged in shared memory where records_place can stage them
+// (the alignment it checks includes the base of ``rows`` and, for records,
+// of ``scales``) and smem_bytes count them (the caller's choice:
+// ops/cuda_graph._records_place), else read from the records or rows.
 // queries f32[B, D] (the walk's query), entry_d f32[B] (read only when
 // has_nodes).  visited_slots: -1 the dense dedupe (``visited`` unread), 0
 // the bitmap (``visited`` i32[B, vis_n] words, vis_n >= cap / 32, zeroed
@@ -1945,15 +2021,17 @@ int beam_walk(const int* links, const int* counts, const void* rows,
       (visited_slots < 4 || (visited_slots & (visited_slots - 1)) ||
        vis_n != visited_slots))
     return (int)cudaErrorInvalidValue;
-  // int8 / bf16 records: staged where records_place can stage them and
-  // the caller chose to (its smem_bytes count the staged records)
-  const bool rec_src = records && (elem == kElemI8 || elem == kElemBF16);
+  // int8 / bf16 records or rows: staged where records_place can stage them
+  // and the caller chose to (its smem_bytes count the staged rows)
+  const bool stage_src = elem == kElemI8 || elem == kElemBF16;
   auto layout = [&](bool stage) {
     return walk_layout(
         ef, cap, T, maxM, D, n_rows, vis_mode == kVisDense,
         elem == kElemPQ ? groups : 0, metric,
-        stage && rec_src ? (elem == kElemI8 ? 1 : 2) : 0, elem == kElemI8,
-        aligned(rows, 16) && (elem != kElemI8 || aligned(scales, 16)));
+        stage && stage_src ? (elem == kElemI8 ? 1 : 2) : 0, elem == kElemI8,
+        !records,
+        aligned(rows, 16) &&
+            (elem != kElemI8 || !records || aligned(scales, 16)));
   };
   WalkLayout lay = layout(true);
   if (lay.rec.staged && lay.smem != (size_t)smem_bytes) lay = layout(false);
@@ -2001,8 +2079,8 @@ int beam_walk(const int* links, const int* counts, const void* rows,
 }
 
 // Blocks an SM holds at once of the walk instance that a launch of element
-// type ``elem`` (0 float32, 1 int8, 2 bfloat16), its records ``staged``
-// or not, with the dense dedupe or a set, T and maxM takes, table or
+// type ``elem`` (0 float32, 1 int8, 2 bfloat16), its records or rows
+// ``staged`` or not, with the dense dedupe or a set, T and maxM takes, table or
 // ``wide``, at smem_bytes a block: the runtime's occupancy of the built
 // kernel.  -1 on an error.
 int beam_walk_blocks(int elem, int staged, int dense, int wide, int T,

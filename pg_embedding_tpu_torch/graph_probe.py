@@ -8,6 +8,8 @@
       [--before FILE]
   python -m pg_embedding_tpu_torch.graph_probe --mode records [--n ROWS]
       [--before FILE]
+  python -m pg_embedding_tpu_torch.graph_probe --mode rows [--n ROWS]
+      [--before FILE]
 
 Builds csrc/beam_walk.cu and csrc/prune_scan.cu in variants, each a rewrite
 of the sources' text (as sweep_probe.py builds its variants) compiled into
@@ -45,6 +47,15 @@ its own library under .kernel_build/graph_probe/, all side by side:
   records-prefetch   the table instances' phase 1 asks L2 for each popped
                 row's int8 / bf16 record (cp.async.bulk.prefetch.L2), for
                 the walks launched unstaged (_PREFETCH)
+  rows-phase-1  staged int8 / bf16 rows copied for every valid slot as its
+                link lands in phase 1 (the table instances), instead of
+                for the processed slots as phase 2's dedupe keeps them;
+                rows-phase-1-profile is its profile build
+  rows-warp / rows-phase-1-warp   either schedule with one arrival a
+                warp's slots on the barrier (their summed bytes) instead
+                of one a slot
+  rows-no-fence the staged rows' copies without the proxy fence before
+                each (a diagnostic: it measures the fence)
 
 The probe builds an index of ``--n`` rows x 128-d on the card
 (utils/io.synthetic_clustered, chip_smoke.py's recipe and seed), walks its
@@ -109,6 +120,19 @@ each (walk_blocks: the runtime's occupancy), then the profile builds'
 laps a block-step (the kernel's, at the chosen placement; the earlier
 tree's), and the records instances' ptxas reports; exits 1 if a check
 fails.
+
+``--mode rows`` does the same for the int8 rows (the quantized traversal:
+HnswIndex._ensure_quantized's rows x scales) and the bf16 corpus rows (the
+index's rows cast to bf16, as downcast_corpus stores them), at T = 4 and
+8, in each placement of ROWS_RUNS: staged by a bulk copy a processed slot
+in phase 2 (the kernel's), by one a valid slot as its link lands in phase
+1 (rows-phase-1), either with one arrival a warp (rows-warp,
+rows-phase-1-warp), without the proxy fence (rows-no-fence), read from
+the rows (the kernel's unstaged instance) and, with ``--before FILE``,
+the earlier tree's walk (which read the rows), each checked against the
+placement _records_place chooses bit for bit and that one against the
+plain twin; then the laps of the profile builds (the kernel's at its
+placement, rows-phase-1's, the earlier tree's).
 
 ``--mode wiring`` builds csrc/connect_batch.cu in its own variants
 (WIRING_VARIANTS):
@@ -249,6 +273,74 @@ _PREFETCH = _STAGE_CALL + (
     "              \"r\"((unsigned)maxM * 4) : \"memory\");\n"
     "      }\n"
     "    }\n")
+# the staged rows' copies: the kernel's, a processed slot's as phase 2's
+# dedupe keeps it (after each kernel's ballot), or a valid slot's as its
+# link lands in phase 1 (the table instances' loop)
+_TABLE_BALLOT = (
+    "        keep = keep && !vis_has(vis, vis_mode, vis_n, id);\n"
+    "      }\n"
+    "      const unsigned m = __ballot_sync(kFull, keep);\n")
+_WIDE_BALLOT = (
+    "        keep = !vis_has(vis, vis_mode, vis_n, id);\n"
+    "      }\n"
+    "      const unsigned m = __ballot_sync(kFull, keep);\n")
+_PROCESSED_CALL = (
+    "      // a staged rows source: each processed slot's row copied as the\n"
+    "      // dedupe keeps it (stage_row)\n"
+    "      if constexpr (is_staged(kElem))\n"
+    "        if (!src.records && s < tm)\n"
+    "          stage_row<kElem>(src, rs, s, keep ? id : -1, D);\n")
+_LINK_ID = "      const int id = left > 0 && link >= 0 ? link : -1;\n"
+_PHASE1_CALL = (
+    "      if constexpr (is_staged(kElem))\n"
+    "        if (!src.records) stage_row<kElem>(src, rs, s, id, D);\n")
+# the staged rows' arrivals one a warp's slots, the first lane of ``mask``
+# (the warp's lanes at the call) carrying their summed bytes, instead of
+# one a slot: (T maxM + 31) / 32 a phase, a warp's 32 slots at once
+_STAGE_WARP = (
+    "template <int kElem>\n"
+    "__device__ __forceinline__ void stage_rows_warp(const RowSource& src,\n"
+    "    const RecStage& rs, int s, int id, int D, unsigned mask) {\n"
+    "  constexpr bool kI8 = elem_type(kElem) == kElemI8;\n"
+    "  const unsigned row = (unsigned)D * (kI8 ? 1 : 2);\n"
+    "  const unsigned n = __popc(__ballot_sync(mask, id >= 0));\n"
+    "  if ((threadIdx.x & 31) == __ffs(mask) - 1)\n"
+    "    mbar_arrive_expect(rs.bar, n * row);\n"
+    "  __syncwarp(mask);\n"
+    "  if (id >= 0) {\n"
+    "    asm volatile(\"fence.proxy.async.shared::cta;\\n\" ::: \"memory\");\n"
+    "    bulk_copy(rs.rows + (size_t)s * row,\n"
+    "              static_cast<const unsigned char*>(src.rows) +\n"
+    "                  (size_t)id * row, row, rs.bar);\n"
+    "    if (kI8) cp_async(rs.scales + s, src.scales + id, 4);\n"
+    "  }\n"
+    "}\n\n")
+_WARP_CALL = (
+    "      if constexpr (is_staged(kElem))\n"
+    "        if (!src.records)\n"
+    "          stage_rows_warp<kElem>(src, rs, s, keep ? id : -1, D, "
+    "kFull);\n")
+# phase 1's loop: a warp's lanes at one slot s are a prefix of the warp
+_PHASE1_WARP_CALL = (
+    "      if constexpr (is_staged(kElem))\n"
+    "        if (!src.records)\n"
+    "          stage_rows_warp<kElem>(src, rs, s, id, D,\n"
+    "              tm - (s - (tid & 31)) >= 32\n"
+    "                  ? kFull : (1u << (tm - (s - (tid & 31)))) - 1u);\n")
+_WARP_COMMON = (
+    (WALK, "// The arrivals a phase of a staged source's barrier",
+     _STAGE_WARP + "// The arrivals a phase of a staged source's barrier"),
+    (WALK, "  return src.records ? T : tm;\n",
+     "  return src.records ? T : (tm + 31) / 32;\n"),
+    (WALK, _WIDE_BALLOT + _PROCESSED_CALL, _WIDE_BALLOT + _WARP_CALL))
+_ROWS_PHASE1 = (
+    (WALK, _TABLE_BALLOT + _PROCESSED_CALL, _TABLE_BALLOT),
+    (WALK, _LINK_ID, _LINK_ID + _PHASE1_CALL))
+_ROWS_WARP = _WARP_COMMON + (
+    (WALK, _TABLE_BALLOT + _PROCESSED_CALL, _TABLE_BALLOT + _WARP_CALL),)
+_ROWS_PHASE1_WARP = _WARP_COMMON + (
+    (WALK, _TABLE_BALLOT + _PROCESSED_CALL, _TABLE_BALLOT),
+    (WALK, _LINK_ID, _LINK_ID + _PHASE1_WARP_CALL))
 # name: (nvcc flags, rewrites (source, text, replacement))
 VARIANTS = {
     "kernel": ((), ()),
@@ -284,6 +376,14 @@ VARIANTS = {
         (WALK, "  mbar_wait(rs.bar, (unsigned)step & 1u);\n",
          "  cp_async_wait_all();\n"))),
     "records-prefetch": ((), ((WALK, _STAGE_CALL, _PREFETCH),)),
+    "rows-phase-1": ((), _ROWS_PHASE1),
+    "rows-phase-1-profile": (PROFILE, _ROWS_PHASE1),
+    "rows-warp": ((), _ROWS_WARP),
+    "rows-phase-1-warp": ((), _ROWS_PHASE1_WARP),
+    "rows-no-fence": ((), ((
+        WALK, "    asm volatile(\"fence.proxy.async.shared::cta;\\n\" ::: "
+        "\"memory\");\n    bulk_copy(rs.rows + (size_t)s * row,",
+        "    bulk_copy(rs.rows + (size_t)s * row,"),)),
     "one-block": ((), ((WALK, "constexpr int kWideMinBlocks = 2;",
                         "constexpr int kWideMinBlocks = 1;"),
                        (WALK, "      return {fixed + rec.smem + queues, 0, "
@@ -337,6 +437,16 @@ RECORDS_RUNS = {"bulk copy": ("kernel", "forced"),
                 "before": ("before", False)}
 RECORDS_DTYPES = ("int8", "bfloat16")
 RECORDS_TS = (4, 8)
+# --mode rows: the variants built and each placement timed, as above
+ROWS_BUILDS = ("kernel", "profile", "rows-phase-1", "rows-phase-1-profile",
+               "rows-warp", "rows-phase-1-warp", "rows-no-fence")
+ROWS_RUNS = {"processed copies": ("kernel", "forced"),
+             "phase-1 copies": ("rows-phase-1", "forced"),
+             "processed, warp arrivals": ("rows-warp", "forced"),
+             "phase-1, warp arrivals": ("rows-phase-1-warp", "forced"),
+             "processed, no proxy fence": ("rows-no-fence", "forced"),
+             "unstaged": ("kernel", False),
+             "before": ("before", False)}
 
 
 def prune_smem_bytes(c: int) -> int:
@@ -924,11 +1034,11 @@ def ptxas_reports(log: str) -> dict:
     return out
 
 
-def records_libs(args) -> dict:
-    """--mode records' builds: RECORDS_BUILDS and, with ``--before``, the
-    earlier tree's source built as it is and profiled (this tree's scan
-    beside it)."""
-    builds = {n: (build, (n,), {}) for n in RECORDS_BUILDS}
+def placement_libs(args, names) -> dict:
+    """--mode records' or rows' builds: ``names`` and, with ``--before``,
+    the earlier tree's source built as it is and profiled (this tree's
+    scan beside it)."""
+    builds = {n: (build, (n,), {}) for n in names}
     if args.before:
         with open(args.before) as f:
             text = f.read()
@@ -947,15 +1057,42 @@ def records_libs(args) -> dict:
     return libs
 
 
-def records_main(args) -> int:
-    """--mode records: the int8 and bf16 records walks' placements against
-    the earlier tree's, the twin and the float32 rows' walks (see the
-    module's note)."""
+def _records_cases(idx, g):
+    """--mode records' walks: (label, graph, the wrapper's operands, the
+    twin's, rerank) of each records type, packed by the index."""
+    for dtype in RECORDS_DTYPES:
+        idx.packed_traversal, idx.packed_dtype = True, dtype
+        records, scales = idx._ensure_packed()
+        ops = dict(records=records)
+        if scales is not None:
+            ops["pscales"] = scales
+        yield (f"records {dtype}", g, ops,
+               dict(pcodes=records, pscales=scales), True)
+        idx._pcodes = idx._pscales = None
+        idx.packed_traversal = False
+
+
+def _rows_cases(idx, g):
+    """--mode rows' walks: the int8 rows x scales of the quantized
+    traversal, then the index's rows as bf16 (downcast_corpus's)."""
+    import dataclasses
+    qv, qsc = idx._ensure_quantized()
+    ops = dict(qvectors=qv, qscale=qsc)
+    yield "rows int8", g, ops, ops, True
+    gb = dataclasses.replace(g, vectors=g.vectors.to(torch.bfloat16))
+    yield "rows bf16", gb, {}, {}, False
+
+
+def placements_main(args, rows: bool) -> int:
+    """--mode records or rows: the int8 and bf16 records (or rows) walks'
+    placements against the earlier tree's, the twin and the float32 rows'
+    walks (see the module's note)."""
     from . import HnswConfig, HnswIndex
     from .core import search as core_search
     from .ops.cuda_bruteforce import fused_exact_search
     from .utils.io import synthetic_clustered
-    libs = records_libs(args)
+    runs = ROWS_RUNS if rows else RECORDS_RUNS
+    libs = placement_libs(args, ROWS_BUILDS if rows else RECORDS_BUILDS)
     before = "before" in libs
     reports = {}
     for name in libs:
@@ -977,71 +1114,70 @@ def records_main(args) -> int:
                                n_valid=g.n_nodes)[1].cpu().numpy()
     ok = True
 
-    def run(name, kw):
-        """Placement ``name`` of RECORDS_RUNS, or "kernel": the kernel's
-        build at the placement _records_place chooses."""
-        lib, staged = RECORDS_RUNS.get(name, ("kernel", True))
-        return walk(libs[lib], g, q, **kw, staged=staged)
+    def run(name, graph, kw):
+        """Placement ``name`` of the mode's runs, or "kernel": the
+        kernel's build at the placement _records_place chooses."""
+        lib, staged = runs.get(name, ("kernel", True))
+        return walk(libs[lib], graph, q, **kw, staged=staged)
 
-    def timed(label, kw, names):
+    def timed(label, graph, kw, names):
         ms = {n: [] for n in names}
         for name in (*names, *names[::-1]):
-            ms[name].append(device_ms(lambda: run(name, kw), args.reps))
+            ms[name].append(device_ms(lambda: run(name, graph, kw),
+                                      args.reps))
         for name in names:
             print(f"{label} {name} (ms on the card, in turns): "
                   + " / ".join(f"{m:.4f}" for m in ms[name]), flush=True)
 
     for t in RECORDS_TS:
         kw = dict(ef=64, cand_cap=64, t=t, metric_value=0)
-        timed(f"f32 rows T={t}", kw, ["kernel", *(["before"] * before)])
-    names = [n for n in RECORDS_RUNS if before or n != "before"]
-    for dtype in RECORDS_DTYPES:
-        idx.packed_traversal, idx.packed_dtype = True, dtype
-        records, scales = idx._ensure_packed()
-        ops = dict(records=records)
-        if scales is not None:
-            ops["pscales"] = scales
-        elem = cg._ELEMS[records.dtype]
+        timed(f"f32 rows T={t}", g, kw, ["kernel", *(["before"] * before)])
+    names = [n for n in runs if before or n != "before"]
+    profiles = ["profile", *(["rows-phase-1-profile"] * rows),
+                *(["before-profile"] * before)]
+    cases = _rows_cases(idx, g) if rows else _records_cases(idx, g)
+    for source, graph, ops, twin_ops, rerank in cases:
         for t in RECORDS_TS:
             kw = dict(ef=64, cand_cap=64, t=t, metric_value=0, **ops)
-            stage = cg._check_walk_args(g, q, 64, 64, t, 0, **ops).stage
+            src = cg._check_walk_args(graph, q, 64, 64, t, 0, **ops)
+            stage, elem = src.stage, src.elem
             staged = cg.records_staging(64, 64, t, g.max_m, g.dims, stage)
             plain = cg._walk_smem_bytes(64, 64, t, g.max_m, g.dims, None)
             rec, _ = cg._records_place(stage, t, g.max_m, g.dims, plain, 0)
             blocks = [walk_blocks(libs["kernel"], elem, on, t, g.max_m,
                                   plain + rec * on) for on in (True, False)]
-            label = (f"records {dtype} T={t} ef=64 (staged: {plain + rec} "
-                     f"bytes of shared memory a block, {rec} of them the "
-                     f"records, {blocks[0]} blocks an SM; unstaged: {plain} "
-                     f"bytes, {blocks[1]} blocks an SM; the kernel takes "
+            label = (f"{source} T={t} ef=64 (staged: {plain + rec} bytes "
+                     f"of shared memory a block, {rec} of them the rows, "
+                     f"{blocks[0]} blocks an SM; unstaged: {plain} bytes, "
+                     f"{blocks[1]} blocks an SM; the kernel takes "
                      f"{'staged' if staged else 'unstaged'})")
-            got = run("kernel", kw)
+            got = run("kernel", graph, kw)
             for name in names:
                 same = all(torch.equal(a, b)
-                           for a, b in zip(run(name, kw), got))
+                           for a, b in zip(run(name, graph, kw), got))
                 print(f"{label} {name}: ids, distances, hops and evals "
                       f"equal to the kernel's: {same}", flush=True)
                 ok &= same
             want = core_search._search_batch(
-                g, q, ef=64, metric_value=0, cand_cap=64, expand_width=t,
-                pcodes=records, pscales=scales)
+                graph, q, ef=64, metric_value=0, cand_cap=64,
+                expand_width=t, **twin_ops)
             (rk, rp, n_diff, hk, hp, ek, ep), held = twin_bar(
-                got, want, g, q, 0, True, truth)
+                got, want, graph, q, 0, rerank, truth)
             print(f"{label} vs the twin: recall@10 {rk:.4f} / {rp:.4f}; "
                   f"ids differ on {n_diff} of {len(q)} queries; hops "
                   f"{hk:.2f} / {hp:.2f}, dist_evals {ek:.1f} / {ep:.1f}; "
                   f"the bar holds: {held}", flush=True)
             ok &= held
-            timed(label, kw, names)
-            for name in ("profile", *(["before-profile"] * before)):
-                r = walk_phases(libs[name], g, q, **kw,
-                                staged=name != "before-profile")
+            timed(label, graph, kw, names)
+            for name in profiles:
+                r = walk_phases(libs[name], graph, q, **kw,
+                                staged="forced" if name.startswith("rows")
+                                else name != "before-profile")
                 print(f"{label} {name} cycles a block-step "
                       f"({r['steps']:.2f} steps a block; setup: a block): "
                       f"{format_cycles(r['cycles'])}", flush=True)
-        idx._pcodes = idx._pscales = None
-        idx.packed_traversal = False
-    print(f"records: every check held: {ok}", flush=True)
+    print(f"{'rows' if rows else 'records'}: every check held: {ok}",
+          flush=True)
     return 0 if ok else 1
 
 
@@ -1099,8 +1235,8 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=None,
                     help="calls a CUDA graph replays (20; --mode wide 3)")
     ap.add_argument("--mode", choices=("walk", "wiring", "wide", "pq",
-                                       "records"), default="walk")
-    ap.add_argument("--before", help="--mode wide / pq / records: an "
+                                       "records", "rows"), default="walk")
+    ap.add_argument("--before", help="--mode wide / pq / records / rows: an "
                     "earlier tree's csrc/beam_walk.cu, timed beside the "
                     "kernel")
     args = ap.parse_args()
@@ -1119,11 +1255,11 @@ def main() -> int:
         return wide_main(args)
     if args.mode == "pq":
         return pq_main(args)
-    if args.mode == "records":
-        return records_main(args)
+    if args.mode in ("records", "rows"):
+        return placements_main(args, args.mode == "rows")
     libs = build_all(tuple(n for n in VARIANTS
                            if n not in WIDE_BUILDS + RECORDS_BUILDS
-                           or n in ("kernel", "profile")))
+                           + ROWS_BUILDS or n in ("kernel", "profile")))
     for name in libs:
         with open(os.path.join(OUT, name + ".so.log")) as f:
             for line in f:

@@ -15,8 +15,9 @@ launch:
     ``_search_batch``; it takes every traversal variant of the JAX
     package's walk: neighbour rows from the float32 or bf16 corpus rows,
     int8 rows x scales (quantized traversal), float32 / bf16 / int8 (x
-    scales) packed records (int8 and bf16 ones staged in shared memory a
-    step at a time where they fit, _records_place) or PQ records through a
+    scales) packed records (int8 and bf16 records and rows staged in
+    shared memory a step at a time where they fit, _records_place) or PQ
+    records through a
     codebook (with OPQ's rotated query; the codes read through a
     per-query distance table in shared memory, whose plain form is
     pq_walk_table_plain and pq_walk_score_plain), the dense dedupe or the
@@ -132,13 +133,16 @@ def _pq_place(pq: Optional[PqTable], t: int, max_m: int,
 
 
 class RecordsStage(NamedTuple):
-    """An int8 or bf16 records source, as the walk's layout sees it: the
-    bytes of an element, whether int8 scales go with the records, and
-    whether the records' and the scales' bases are 16-byte aligned (the
-    bulk copy's alignment)."""
+    """An int8 or bf16 records or rows source, as the walk's layout sees
+    it: the bytes of an element, whether int8 scales go with them, whether
+    the bases the bulk copy reads are 16-byte aligned (the records' and
+    their scales', or the rows': a rows source's scales are copied 4
+    bytes at a time), and whether it is rows (a bulk copy a slot's row)
+    or records (one a popped row's record)."""
     itemsize: int
     scales: bool
     aligned: bool
+    rows: bool = False
 
 
 def _blocks_by_smem(smem: int) -> int:
@@ -149,35 +153,42 @@ def _blocks_by_smem(smem: int) -> int:
 def _records_place(stage: Optional[RecordsStage], t: int, max_m: int,
                    dims: int, used: int, min_blocks: int,
                    at: Optional[int] = None) -> tuple:
-    """Where an int8 or bf16 records source keeps each step's records,
-    given ``used``, the shared bytes
+    """Where an int8 or bf16 records or rows source keeps each step's
+    rows, given ``used``, the shared bytes
     of the rest of the block's layout, ``min_blocks``, the blocks an SM
     holds of the instance by its registers, and ``at``, the offset of the
     region they would take (``used`` by default): (shared bytes, staged).
-    The T popped rows' whole records (T maxM D elements), then an int8
-    source's T maxM float32 scales, each rounded up to 16 bytes, where
-    the bulk copy's 16-byte alignment holds (a record's bytes, an int8
-    record's scales, ``at`` and the tensors' bases), they fit beside
+    The T popped rows' whole records, or the T maxM slots' rows (T maxM D
+    elements either way), then an int8 source's T maxM float32 scales,
+    each rounded up to 16 bytes, where the bulk copy's 16-byte alignment
+    holds (the bytes of what one copy moves: a record, or a rows source's
+    row; an int8 record's scales, ``at`` and the bases), they fit beside
     ``used`` within SMEM_LIMIT, and an SM still holds as many blocks as
     without them (up to ``min_blocks``); else (0, False): each slot is
-    read from the records.  (0, False) for the other sources (None).
-    csrc/beam_walk.cu's records_place checks the alignment and the fit
-    again, and launches the staged instance where the shared bytes passed
-    count the staged records: the residency rule lives here alone.
+    read from the records or rows.  (0, False) for the other sources
+    (None).  csrc/beam_walk.cu's records_place checks the alignment and
+    the fit again, and launches the staged instance where the shared
+    bytes passed count the staged rows: the residency rule lives here
+    alone.
 
     The residency rule is measured (graph_probe --mode records, 1M x
     128-d, ef 64, NVIDIA H100 80GB HBM3 at 700 W): staged walks that keep
     their blocks win (int8 T = 4 / 8 0.652 / 0.654 ms against 0.910 /
     0.853 reading the records; bf16 T = 4 0.644 against 0.912); bf16 at
     T = 8 (79,392 B a block: 2 blocks an SM, not 4) loses, 0.831 against
-    0.799, so it reads the records (an L2 prefetch of them: 0.821)."""
+    0.799, so it reads the records (an L2 prefetch of them: 0.821).  Rows
+    the same (graph_probe --mode rows): int8 T = 4 / 8 0.713 / 0.704 ms
+    staged against 0.733 / 0.718 read from the rows, bf16 T = 4 0.707
+    against 0.732; bf16 T = 8 staged 0.908 against 0.662, so it reads the
+    rows."""
     if stage is None or not stage.aligned:
         return 0, False
     at = used if at is None else at
-    record = max_m * dims * stage.itemsize
-    if record % 16 or (stage.scales and max_m * 4 % 16) or at % 16:
+    unit = (1 if stage.rows else max_m) * dims * stage.itemsize
+    if (unit % 16 or (stage.scales and not stage.rows and max_m * 4 % 16)
+            or at % 16):
         return 0, False
-    nbytes = -(-t * record // 16) * 16
+    nbytes = -(-t * max_m * dims * stage.itemsize // 16) * 16
     if stage.scales:
         nbytes += -(-t * max_m * 4 // 16) * 16
     keep = min(min_blocks, _blocks_by_smem(used))
@@ -203,12 +214,13 @@ def _walk_plan(ef: int, cand_cap: int, t: int, max_m: int, dims: int,
     bytes a slot, at least 2 T maxM); then a PQ source's table and staged
     codes (_pq_place: placed before the hash tables, which take what it
     leaves; where they do not fit, the kernel dedupes by comparison and
-    they take 0); then an int8 or bf16 records source's staged records
-    (``stage``, _records_place: after every other part, where they fit
-    beside it, so nothing else moves).  Queues wider than MAX_WALK_QUEUE
-    take the wide instances: the least part (_walk_fixed), the PQ part or
-    the staged records, then each queue once (d, id; the candidate ring of
-    _walk_ring entries) where that fits SMEM_LIMIT; no held table.  Device
+    they take 0); then an int8 or bf16 records or rows source's staged
+    rows (``stage``, _records_place: after every other part, where they
+    fit beside it, so nothing else moves).  Queues wider than
+    MAX_WALK_QUEUE take the wide instances: the least part (_walk_fixed),
+    the PQ part or the staged rows, then each queue once (d, id; the
+    candidate ring of _walk_ring entries) where that fits SMEM_LIMIT; no
+    held table.  Device
     memory a query: 0 where both queues
     fit MAX_WALK_QUEUE, else the held set of the dense dedupe (two bits an
     id of ``capacity``, kept from step to step), then the queues where they
@@ -274,7 +286,8 @@ def _walk_layout(ef: int, cand_cap: int, t: int, max_m: int, dims: int,
                  stage: Optional[RecordsStage] = None) -> tuple:
     """Shared memory of one walk block (_walk_plan): (bytes, held-table
     slots, slot-table slots).  ``pq``: a PQ source's table (None for the
-    other sources); ``stage``: an int8 or bf16 records source's."""
+    other sources); ``stage``: an int8 or bf16 records or rows
+    source's."""
     return _walk_plan(ef, cand_cap, t, max_m, dims, pq, 0, False,
                       stage)[:3]
 
@@ -314,8 +327,9 @@ def _walk_smem_bytes(ef: int, cand_cap: int, t: int, max_m: int,
 
 def records_staging(ef: int, cand_cap: int, t: int, max_m: int, dims: int,
                     stage: Optional[RecordsStage]) -> int:
-    """The shared bytes a walk block gives its staged records (_walk_plan;
-    0: the walk reads each slot from the records)."""
+    """The shared bytes a walk block gives its staged records or rows
+    (_walk_plan; 0: the walk reads each slot from the records or
+    rows)."""
     return (_walk_smem_bytes(ef, cand_cap, t, max_m, dims, None, stage)
             - _walk_smem_bytes(ef, cand_cap, t, max_m, dims, None))
 
@@ -411,7 +425,7 @@ class WalkSource(NamedTuple):
     query: torch.Tensor           # the walk's query rows (OPQ: q @ R)
     variant: str                  # walk_variant's name
     pq: Optional[PqTable]         # PQ: its distance table, else None
-    stage: Optional[RecordsStage]  # int8 / bf16 records, else None
+    stage: Optional[RecordsStage]  # int8 / bf16 records or rows, else None
 
 
 def visited_name(visited_slots: int) -> str:
@@ -519,10 +533,14 @@ def _check_walk_args(graph, queries, ef, cand_cap, t, metric_value, *,
     pq = (PqTable(rows.shape[-1], metric_value) if codebook is not None
           else None)
     stage = None
-    if records is not None and records.dtype in (torch.int8, torch.bfloat16):
-        bases = [x.data_ptr() for x in (records, scales) if x is not None]
-        stage = RecordsStage(records.element_size(), scales is not None,
-                             all(p % 16 == 0 for p in bases))
+    if rows.dtype in (torch.int8, torch.bfloat16):
+        # the bases the bulk copy reads: the records' and their scales', or
+        # the rows' alone (a rows source's scales go 4 bytes at a time)
+        bulk = (rows,) if records is None else (rows, scales)
+        stage = RecordsStage(rows.element_size(), scales is not None,
+                             all(x.data_ptr() % 16 == 0 for x in bulk
+                                 if x is not None),
+                             records is None)
     return WalkSource(rows, _ELEMS[rows.dtype], records is not None, scales,
                       codebook, queries if query_t is None else query_t,
                       variant, pq, stage)
@@ -549,8 +567,10 @@ def beam_walk(graph, queries: torch.Tensor, *, ef: int, metric_value: int,
     stage each step's codes beside it, or, where they do not fit a block,
     read the codes from the records, or keep the table in device memory
     too (_pq_place).  An int8 or bf16 records walk's blocks copy each
-    step's popped records to shared memory where they fit and an SM keeps
-    its blocks, else read them from the records (_records_place)."""
+    step's popped records to shared memory, an int8 or bf16 rows walk's
+    each processed slot's row as the dedupe keeps it, where they fit and
+    an SM keeps its blocks, else read them from the records or rows
+    (_records_place)."""
     global WIDE_WALKS
     if queries.device.type == "cpu":
         from ..core.search import _search_batch

@@ -655,13 +655,64 @@ def test_records_staging_placements(cuda, int_graphs, source, case):
     assert bool((got[2] > 1).all())
 
 
-@pytest.mark.parametrize("source", ["records int8", "records bf16"])
+# the int8 / bf16 rows walks' placements on the integer fixture: (T, ef,
+# cand_cap) staged in a table instance and the wide one, past the room (T =
+# 256 popped rows' slots do not fit beside the queues and tables), and
+# rows whose base is 8 bytes off 16 (read from the rows)
+ROW_PLACEMENTS = {"T=4": (4, 64, 128), "T=8": (8, 64, 128),
+                  "wide": (4, 5120, 5120), "past the room": (256, 256, 256),
+                  "unaligned base T=4": (4, 64, 128),
+                  "unaligned base T=8": (8, 64, 128)}
+
+
+@pytest.mark.parametrize("source", ["rows int8", "rows bf16"])
+@pytest.mark.parametrize("metric", list(METRICS))
+@pytest.mark.parametrize("case", list(ROW_PLACEMENTS))
+def test_rows_staging_placements(cuda, int_graphs, source, metric, case):
+    """The int8 rows (x scales) and bf16 corpus rows walks where phase 2
+    stages each processed slot's row in shared memory as the dedupe keeps
+    it (T 4 and 8 at (64, 128), the wide instance at (5120, 5120)) and
+    where it does not (T = 256 at (256, 256); rows whose base is 8 bytes
+    off 16, at T 4 and 8), under L2, cosine (bf16 rows: |p|^2 rounded to bf16, the
+    staged instance's round_pp) and Manhattan: each bit-equal to the twin
+    (ids, distances, hops, dist_evals)."""
+    import dataclasses
+    from pg_embedding_tpu_torch.ops import cuda_graph as cg
+    arrays, qs = int_graphs["manhattan" if metric == "manhattan" else "l2"]
+    g, q, kw = integer_operands(arrays, qs, source)
+    width, ef, cap = ROW_PLACEMENTS[case]
+    gc, kc = on_device(g, kw, cuda)
+    if case.startswith("unaligned base"):
+        rows = kc["qvectors"] if source == "rows int8" else gc.vectors
+        pad = 8 // rows.element_size()
+        buf = torch.empty(rows.numel() + pad, dtype=rows.dtype, device=cuda)
+        off = buf[pad:].view(rows.shape)
+        off.copy_(rows)
+        assert off.data_ptr() % 16 == 8
+        if source == "rows int8":
+            kc["qvectors"] = off
+        else:
+            gc = dataclasses.replace(gc, vectors=off)
+    qc = q.to(cuda)[:64]
+    stage = cg._check_walk_args(gc, qc, ef, cap, width, METRICS[metric],
+                                **kc).stage
+    assert stage.rows
+    staged = cg.records_staging(ef, cap, width, gc.max_m, gc.dims, stage)
+    assert (staged > 0) == (case in ("T=4", "T=8", "wide"))
+    got, want = _walk_pair(gc, qc, ef=ef, metric_value=METRICS[metric],
+                           cand_cap=cap, expand_width=width, **kc)
+    _assert_bit_equal(got, want)
+    assert bool((got[2] > 1).all())
+
+
+@pytest.mark.parametrize("source", ["records int8", "records bf16",
+                                    "rows int8", "rows bf16"])
 def test_records_walk_takes_the_launchs_placement(cuda, int_graphs, source):
-    """A records walk that can stage is staged or not as the shared bytes
-    the launch passes say (ops/cuda_graph._records_place's choice): both
-    bit-equal to the twin, an SM holds a positive number of blocks of each
-    instance (the runtime's occupancy, beam_walk_blocks), and a figure
-    that is neither layout is refused."""
+    """A records or rows walk that can stage is staged or not as the
+    shared bytes the launch passes say (ops/cuda_graph._records_place's
+    choice): both bit-equal to the twin, an SM holds a positive number of
+    blocks of each instance (the runtime's occupancy, beam_walk_blocks),
+    and a figure that is neither layout is refused."""
     from pg_embedding_tpu_torch import _kernels
     from pg_embedding_tpu_torch.graph_probe import walk, walk_blocks
     from pg_embedding_tpu_torch.ops import cuda_graph as cg
@@ -673,16 +724,14 @@ def test_records_walk_takes_the_launchs_placement(cuda, int_graphs, source):
     shape = dict(ef=64, cand_cap=128, t=8, metric_value=0)
     _, want = _walk_pair(gc, qc, ef=64, metric_value=0, cand_cap=128,
                          expand_width=8, **kc)
-    stage = cg._check_walk_args(gc, qc, 64, 128, 8, 0, **kc).stage
+    src = cg._check_walk_args(gc, qc, 64, 128, 8, 0, **kc)
     plain = cg._walk_smem_bytes(64, 128, 8, gc.max_m, gc.dims, None)
-    rec = cg.records_staging(64, 128, 8, gc.max_m, gc.dims, stage)
+    rec = cg.records_staging(64, 128, 8, gc.max_m, gc.dims, src.stage)
     assert rec > 0
-    elem = cg._ELEMS[kc["records"].dtype]
     for staged, smem in ((True, plain + rec), (False, plain)):
         _assert_bit_equal(walk(lib, gc, qc, **shape, staged=staged, **kc),
                           want)
-        assert walk_blocks(lib, elem, staged, 8, gc.max_m, smem) > 0
-    src = cg._check_walk_args(gc, qc, 64, 128, 8, 0, **kc)
+        assert walk_blocks(lib, src.elem, staged, 8, gc.max_m, smem) > 0
     with pytest.raises(RuntimeError):
         cg._launch_walk(lib, gc, qc, src, **shape, smem=plain + rec + 16)
 

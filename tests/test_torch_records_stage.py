@@ -1,13 +1,15 @@
-"""The int8 and bf16 records walks' staging (csrc/beam_walk.cu's
+"""The int8 and bf16 records and rows walks' staging (csrc/beam_walk.cu's
 records_place, ops/cuda_graph._records_place): each popped row's whole
-record, and an int8 record's scales, copied to shared memory in phase 1.
-On the CPU: the bytes it takes, where it does not stage (alignment, room,
+record, and an int8 record's scales, copied to shared memory in phase 1,
+or each processed slot's row, and an int8 row's scale, in phase 2.  On
+the CPU: the bytes it takes, where it does not stage (alignment, room,
 residency), the walk block's layout with and without it (every other
 source's bytes as before), the constants it shares with the C side and
 the row source each walk's operands give.  Nothing here needs the card:
 the staged walks themselves are held to the twin bit for bit in
 tests/test_torch_cuda.py and chip_smoke.py."""
 
+import dataclasses
 import os
 import re
 
@@ -21,6 +23,9 @@ from pg_embedding_tpu_torch.ops import cuda_graph as cg
 
 INT8 = cg.RecordsStage(1, True, True)
 BF16 = cg.RecordsStage(2, False, True)
+# the quantized traversal's int8 rows x scales, and bf16 corpus rows
+INT8_ROWS = cg.RecordsStage(1, True, True, True)
+BF16_ROWS = cg.RecordsStage(2, False, True, True)
 # the f32 rows' layout at the smoke's shapes (ef = cand_cap = 64, maxM 32,
 # D 128): (bytes, held-table slots, slot-table slots) at T = 4 and 8
 F32_LAYOUT = {4: (8736, 256, 256), 8: (13856, 256, 512)}
@@ -63,12 +68,17 @@ def _old_walk_plan(ef, cand_cap, t, max_m, dims, pq, capacity, dense):
     (3, 8, 6, BF16, 288),                # 96 B a record
     (5, 4, 4, INT8, 80 + 80),            # 16 B a record and its scales
     (7, 4, 12, cg.RecordsStage(1, False, True), 7 * 48),
+    (8, 32, 128, INT8_ROWS, 32768 + 1024),   # config 1's rows: a record's
+    (4, 32, 128, INT8_ROWS, 16384 + 512),    # bytes at the same shape
+    (4, 32, 128, BF16_ROWS, 32768),
+    (8, 32, 128, BF16_ROWS, 65536),
 ])
 def test_records_place_takes_exactly_the_records(t, max_m, dims, stage,
                                                  want):
-    """T maxM D elements of the records, plus an int8 source's T maxM
-    float32 scales, each rounded up to 16 bytes (already whole 16-byte
-    chunks where the alignment holds), where there is room."""
+    """T maxM D elements of the records (or of T maxM slots' rows), plus
+    an int8 source's T maxM float32 scales, each rounded up to 16 bytes
+    (already whole 16-byte chunks where the alignment holds), where there
+    is room."""
     rows = -(-t * max_m * dims * stage.itemsize // 16) * 16
     scales = -(-t * max_m * 4 // 16) * 16 if stage.scales else 0
     assert rows + scales == want
@@ -78,25 +88,41 @@ def test_records_place_takes_exactly_the_records(t, max_m, dims, stage,
 @pytest.mark.parametrize("case", [
     "maxM 6, D 5, int8", "maxM 6, D 5, bf16", "int8 scales of 24 B",
     "region at 8", "unaligned bases", "past the room", "no source",
+    "rows of D 100 int8", "rows of D 4 bf16", "rows region at 8",
+    "rows unaligned base", "bf16 rows at T=8 beside 13,856 B",
 ])
 def test_records_place_refuses(case):
     """Where the bulk copy's 16-byte alignment fails (a record's bytes, an
-    int8 record's scales, the region, the tensors' bases), past the room a
-    block has, and for the other sources: no staging, no bytes."""
-    args = {"maxM 6, D 5, int8": (INT8, 8, 6, 5, 0),
-            "maxM 6, D 5, bf16": (BF16, 8, 6, 5, 0),
-            "int8 scales of 24 B": (INT8, 8, 6, 16, 0),
-            "region at 8": (INT8, 8, 32, 128, 0),
+    int8 record's scales, a rows source's row bytes, the region, the
+    tensors' bases), past the room a block has, where an SM would hold
+    fewer blocks (bf16 rows at T = 8 beside config 1's 13,856 B: 2 of 4),
+    and for the other sources: no staging, no bytes.  A row of D = 100
+    int8 or D = 4 bf16 is no whole 16-byte chunk, though records of 32
+    such rows are."""
+    args = {"maxM 6, D 5, int8": (INT8, 8, 6, 5, 0, 1),
+            "maxM 6, D 5, bf16": (BF16, 8, 6, 5, 0, 1),
+            "int8 scales of 24 B": (INT8, 8, 6, 16, 0, 1),
+            "region at 8": (INT8, 8, 32, 128, 0, 1),
             "unaligned bases": (cg.RecordsStage(1, True, False), 8, 32, 128,
-                                0),
-            "past the room": (BF16, 8, 32, 128, cg.SMEM_LIMIT - 65535),
-            "no source": (None, 8, 32, 128, 0)}[case]
-    stage, t, max_m, dims, used = args
-    at = 8 if case == "region at 8" else None
-    assert cg._records_place(stage, t, max_m, dims, used, 1, at) == (0,
-                                                                     False)
-    if case == "region at 8":
+                                0, 1),
+            "past the room": (BF16, 8, 32, 128, cg.SMEM_LIMIT - 65535, 1),
+            "no source": (None, 8, 32, 128, 0, 1),
+            "rows of D 100 int8": (INT8_ROWS, 8, 32, 100, 0, 1),
+            "rows of D 4 bf16": (BF16_ROWS, 8, 32, 4, 0, 1),
+            "rows region at 8": (INT8_ROWS, 8, 32, 128, 0, 1),
+            "rows unaligned base": (cg.RecordsStage(1, True, False, True), 8,
+                                    32, 128, 0, 1),
+            "bf16 rows at T=8 beside 13,856 B": (BF16_ROWS, 8, 32, 128,
+                                                 13856, 4)}[case]
+    stage, t, max_m, dims, used, blocks = args
+    at = 8 if case.endswith("region at 8") else None
+    assert cg._records_place(stage, t, max_m, dims, used, blocks, at) == (
+        0, False)
+    if case.endswith("region at 8"):
         assert cg._records_place(stage, t, max_m, dims, used, 1, 16)[1]
+    if case.startswith("rows of"):
+        assert cg._records_place(stage._replace(rows=False), t, max_m, dims,
+                                 used, blocks)[1]
 
 
 def test_records_place_keeps_the_blocks_an_sm():
@@ -121,33 +147,34 @@ def test_records_place_keeps_the_blocks_an_sm():
 @pytest.mark.parametrize("t", [4, 8])
 def test_smoke_and_card_shapes(t):
     """Config 1's walks (ef = cand_cap = 64, maxM 32, D 128): int8 records
-    are staged at T = 4 and 8 (25,632 and 47,648 B a block: 13,856 +
-    32,768 + 1,024 at T = 8, still 4 blocks an SM), bf16 at T = 4 (41,504
-    B, 5 blocks an SM) but not at T = 8 (it would hold 2): its block is
-    the f32 rows' 13,856 B.  No device memory either way."""
+    and rows are staged at T = 4 and 8 (25,632 and 47,648 B a block:
+    13,856 + 32,768 + 1,024 at T = 8, still 4 blocks an SM), bf16 at T = 4
+    (41,504 B, 5 blocks an SM) but not at T = 8 (it would hold 2): its
+    block is the f32 rows' 13,856 B.  No device memory either way."""
     smem, held, slots = F32_LAYOUT[t]
     assert cg._walk_layout(64, 64, t, 32, 128, None) == F32_LAYOUT[t]
-    want = {(4, INT8): 16384 + 512, (8, INT8): 32768 + 1024,
-            (4, BF16): 32768, (8, BF16): 0}
-    for stage in (INT8, BF16):
-        staged = want[t, stage]
+    want = {(4, 1): 16384 + 512, (8, 1): 32768 + 1024, (4, 2): 32768,
+            (8, 2): 0}
+    for stage in (INT8, BF16, INT8_ROWS, BF16_ROWS):
+        staged = want[t, stage.itemsize]
         assert cg.records_staging(64, 64, t, 32, 128, stage) == staged
         assert cg._walk_layout(64, 64, t, 32, 128, None, stage) == (
             smem + staged, held, slots)
         assert cg._walk_wide_words(64, 64, t, 32, 128, 10**6, True,
                                    None) == 0
-    assert F32_LAYOUT[8][0] + want[8, INT8] == 13856 + 32768 + 1024 == 47648
+    assert F32_LAYOUT[8][0] + want[8, 1] == 13856 + 32768 + 1024 == 47648
     assert cg._blocks_by_smem(47648) == 4
     assert cg._blocks_by_smem(8736 + 32768) == 5
 
 
 def test_integer_fixture_shapes():
     """The integer fixture's walks (maxM 16, D 32) stage both records
-    sources at T 1 / 4 / 8 and (ef, cand_cap) (16, 16) and (64, 128), and
-    in the wide instance at (5120, 5120), T = 4 (the card tests' and the
-    smoke's cases); at T = 256, (256, 256) the 256 popped records do not
-    fit beside the queues and tables, and the walk reads the records."""
-    for stage in (INT8, BF16):
+    sources and both rows sources at T 1 / 4 / 8 and (ef, cand_cap) (16,
+    16) and (64, 128), and in the wide instance at (5120, 5120), T = 4
+    (the card tests' and the smoke's cases); at T = 256, (256, 256) the
+    256 popped records or 4,096 slots' rows do not fit beside the queues
+    and tables, and the walk reads the records or rows."""
+    for stage in (INT8, BF16, INT8_ROWS, BF16_ROWS):
         for t in (1, 4, 8):
             for ef, cap in ((16, 16), (64, 128)):
                 assert cg.records_staging(ef, cap, t, 16, 32, stage) > 0
@@ -164,14 +191,16 @@ def test_integer_fixture_shapes():
     (16384, 16384, 8, 32, 128), (256, 256, 256, 16, 32),
 ])
 @pytest.mark.parametrize("source", ["f32", "pq l2", "pq cosine", "int8",
-                                    "bf16"])
+                                    "bf16", "int8 rows", "bf16 rows"])
 def test_other_sources_keep_their_layout(ef, cap, t, max_m, dims, source):
     """Every source's layout without staging is the layout before it, byte
     for byte (shared memory, tables, device words); a staged source's
-    differs only by its staged bytes, after everything else."""
+    (int8 / bf16 records or rows) differs only by its staged bytes, after
+    everything else."""
     pq = {"pq l2": cg.PqTable(16, 0), "pq cosine": cg.PqTable(16, 1)}.get(
         source) if dims % 16 == 0 else None
-    stage = {"int8": INT8, "bf16": BF16}.get(source)
+    stage = {"int8": INT8, "bf16": BF16, "int8 rows": INT8_ROWS,
+             "bf16 rows": BF16_ROWS}.get(source)
     rows = 1_000_003
     for dense in (True, False):
         old = _old_walk_plan(ef, cap, t, max_m, dims, pq, rows, dense)
@@ -186,8 +215,9 @@ def test_other_sources_keep_their_layout(ef, cap, t, max_m, dims, source):
 def test_constants_match_the_kernel():
     """The figures _records_place shares with csrc/beam_walk.cu are the
     kernel's: a block's shared-memory limit, the blocks an SM each table
-    instance (by block size) and the wide instances must hold, and the
-    block size by T maxM."""
+    instance (by block size) and the wide instances must hold, the block
+    size by T maxM, and records_place's unit of alignment (a row for a
+    rows source, a record else; a record's scales only for records)."""
     path = os.path.join(os.path.dirname(cg.__file__), "..", "csrc",
                         "beam_walk.cu")
     with open(path) as f:
@@ -201,6 +231,14 @@ def test_constants_match_the_kernel():
     assert {128: int(m[1]), 256: int(m[2])} == cg.WALK_MIN_BLOCKS
     assert "return T * maxM <= 128 ? 128 : 256;" in src
     assert cg._walk_threads(4, 32) == 128 and cg._walk_threads(5, 32) == 256
+    assert "const size_t unit = (size_t)(rows ? 1 : maxM) * D * elem_bytes;" \
+        in src
+    assert "if (unit % 16 || (scales && !rows && maxM * 4 % 16) || at % 16)" \
+        in src
+    for rows in (True, False):
+        for dims, ok in ((16, True), (100, rows is False), (4, not rows)):
+            stage = cg.RecordsStage(1, True, True, rows)
+            assert cg._records_place(stage, 1, 4, dims, 0, 1)[1] == ok
 
 
 def _graph(n=40, d=32, max_m=4, seed=3):
@@ -212,10 +250,11 @@ def _graph(n=40, d=32, max_m=4, seed=3):
 
 
 def test_walk_source_carries_the_stage():
-    """_check_walk_args gives int8 and bf16 records their staging
-    (element bytes, int8 scales, the bases' alignment) and every other
-    source none; a records view whose base is 8 bytes off 16 is not
-    aligned."""
+    """_check_walk_args gives int8 and bf16 records and rows their staging
+    (element bytes, int8 scales, the bases' alignment, records or rows)
+    and every other source none; a records or rows view whose base is 8
+    bytes off 16 is not aligned; a rows source's scales need no
+    16-byte base (they are copied 4 bytes at a time)."""
     g = _graph()
     q = torch.zeros((3, 32))
     walk = (q, 16, 16, 4, 0)
@@ -231,7 +270,19 @@ def test_walk_source_carries_the_stage():
     assert cg._check_walk_args(g, *walk, records=f32).stage is None
     qv = g.vectors.to(torch.int8)
     assert cg._check_walk_args(g, *walk, qvectors=qv,
-                               qscale=torch.ones(n)).stage is None
+                               qscale=torch.ones(n)).stage == INT8_ROWS
+    sc = torch.ones(n + 1)[1:]
+    assert sc.data_ptr() % 16 == 4
+    assert cg._check_walk_args(g, *walk, qvectors=qv,
+                               qscale=sc).stage == INT8_ROWS
+    qbuf = torch.zeros(qv.numel() + 8, dtype=torch.int8)
+    qoff = qbuf[8:].view(qv.shape)
+    assert qoff.data_ptr() % 16 == 8
+    assert not cg._check_walk_args(g, *walk, qvectors=qoff,
+                                   qscale=torch.ones(n)).stage.aligned
+    gb = dataclasses.replace(g, vectors=g.vectors.to(torch.bfloat16))
+    assert cg._check_walk_args(gb, *walk).stage == BF16_ROWS
+    assert cg._check_walk_args(gb, *walk, records=f32).stage is None
     buf = torch.zeros(bf.numel() + 4, dtype=torch.bfloat16)
     off = buf[4:].view(bf.shape)
     assert off.data_ptr() % 16 == 8 and off.is_contiguous()
