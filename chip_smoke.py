@@ -74,7 +74,9 @@ exits non-zero):
      read through the query's distance table, at G 8 and also at G 4, 16
      and 32 at T=8 (64, 128) and T=4 (5120, 5120))
      and the bitmap and hash visited sets at T in {1, 4, 8}, (ef,
-     cand_cap) in {(16, 16), (64, 128)}, and queues wider than the 320
+     cand_cap) in {(16, 16), (64, 128)} (each set in the block's shared
+     memory, where the placement rule keeps it, and forced into device
+     memory), and queues wider than the 320
      of the kernel's table instances (the wide instances: (5120, 5120) for
      every row source and set, (4097, 64), (64, 8191), (8191, 8191) and
      (16384, 16384), whose queues leave shared memory, for float32 rows
@@ -149,8 +151,12 @@ exits non-zero):
      and at the API's default T=4, each also printing its placement,
      staged bytes, instance's ptxas registers and spills and the blocks an
      SM of each placement, the runtime's occupancy, which must bear out
-     the placement rule: staging_placement), each variant's launches
-     counted
+     the placement rule: staging_placement; the bitmap and hash sets at
+     T=8 and T=4, each printing where its set lives, shared or device
+     memory, the blocks an SM with it and without it, which must bear out
+     that rule too, the wrapper's fill of a device set timed on its own
+     and the bound without the set's words: visited_placement), each
+     variant's launches counted
      from 0 over its own API calls; a filtered graph search that widens
      from ef_search 40 to
      5120: 8 kernel launches, the last four (ef 640 to 5120) through the
@@ -265,8 +271,12 @@ CUDA events, host share included, for every kernel, and
 the walk and the scan also give "device_ms", the card's time from the CUDA
 graph; the walk's "variants": each variant's launches over its own API
 path (counted from 0 just before it) and variant_vs_twin's numbers (the
-int8 / bf16 records walks' also at T=4, keyed "... T=4", and each with its
-"placement" and "blocks_per_sm", the runtime's occupancy), and
+int8 / bf16 records walks' and the visited sets' also at T=4, keyed "...
+T=4", and each with its "placement" and "blocks_per_sm", the runtime's
+occupancy; the sets' also "fill_ms", the wrapper's fill of a device set,
+null where the set is shared, "bound_without_set_ms" and
+"bound_with_set_ms": a shared set's "bound_ms" is the bound without the
+set's words, a device set's the bound with them), and
 its "wide_queues": variant_vs_twin's numbers at ef 5120, the widening
 search's launches of the wide instances ("launches", 1) and theirs by phase
 ("launches_by_phase"), the ladder's card times and the B = 1024 time and
@@ -1147,12 +1157,40 @@ def twin(core_search, graph, q, kw, walk):
         return core_search._search_batch(graph, q, **walk, **twin_kw)
 
 
+class sets_placed:
+    """Inside it, every walk keeps its visited set where ``place`` says:
+    None, where the placement rule (ops/cuda_graph._visited_place) keeps
+    it; "device", in device memory (the rule refuses shared memory);
+    "shared", in a table instance's shared memory wherever it fits,
+    whatever an SM then holds (the rule with no residency to keep).  The
+    other placement's walks, held to the twin as the rule's are."""
+
+    def __init__(self, cg, place=None):
+        self.cg, self.place = cg, place
+
+    def __enter__(self):
+        self.rule = rule = self.cg._visited_place
+        if self.place == "device":
+            self.cg._visited_place = lambda words, used, min_blocks: (0,
+                                                                       False)
+        elif self.place == "shared":
+            self.cg._visited_place = lambda words, used, min_blocks: rule(
+                words, used, 0)
+        return self
+
+    def __exit__(self, *exc):
+        self.cg._visited_place = self.rule
+        return False
+
+
 def integer_walks(torch, cg, core_search, dev):
     """beam_walk against the plain twin on the card, bit for bit, on
     integer-coordinate indexes (3,000 x 32, integers in [-8, 8], built on
     the card): L2 and Manhattan, T in {1, 4, 8}, four (ef, cand_cap) over
     float32 rows; then every other row source (dense dedupe) and the
-    bitmap and hash sets (float32 rows) at T in {1, 4, 8} and (ef,
+    bitmap and hash sets (float32 rows; each set where the rule keeps it
+    and forced into the other placement: sets_placed) at T in {1, 4, 8}
+    and (ef,
     cand_cap) in {(16, 16), (64, 128)}, PQ records (and OPQ's) also at
     (D, G) in PQ_INTEGER_GROUPS (the distance table at every group width)
     at PQ_INTEGER_SHAPES; then the wide instances (WIDE_QUEUES: every row
@@ -1169,6 +1207,7 @@ def integer_walks(torch, cg, core_search, dev):
     q = torch.as_tensor(qs, device=dev)
     cases = variant_cases = wide_cases = 0
     staged_cases = {True: 0, False: 0}
+    set_cases = {True: 0, False: 0}
     pq_groups_seen = {"8 (D=32)"}
     wide0 = cg.WIDE_WALKS
     for name, metric in (("l2", L2), ("manhattan", 2)):
@@ -1221,12 +1260,34 @@ def integer_walks(torch, cg, core_search, dev):
                     qw = q_run[:64]
                     kww = {k: v[:64] if k == "query_t" else v
                            for k, v in kw.items()}
-                got = cg.beam_walk(g, qw, **walk, **kww)
-                want = twin(core_search, g, qw, kww, walk)
-                check(all(torch.equal(a, b) for a, b in zip(got, want)),
-                      f"integer walk {name} {source} visited_slots={vs} "
-                      f"T={t} ef={ef} cap={cap}: the kernel differs from "
-                      f"the plain twin")
+                # a set in a table instance: where the rule keeps it, then
+                # forced into the other placement
+                table_set = vs >= 0 and max(ef, cap) <= cg.MAX_WALK_QUEUE
+                places = [None]
+                if table_set:
+                    src = cg._check_walk_args(g, qw, ef, cap, t, metric,
+                                              visited_slots=vs, **kww)
+                    places.append("device" if cg._walk_launch(
+                        g, src, ef, cap, t, vs).visited_shared else "shared")
+                for place in places:
+                    with sets_placed(cg, place):
+                        src = cg._check_walk_args(
+                            g, qw, ef, cap, t, metric, visited_slots=vs,
+                            **kww)
+                        shared = cg._walk_launch(g, src, ef, cap, t,
+                                                 vs).visited_shared
+                        got = cg.beam_walk(g, qw, **walk, **kww)
+                    want = twin(core_search, g, qw, kww, walk)
+                    check(place is None or shared == (place == "shared"),
+                          f"integer walk {source} visited_slots={vs} T={t} "
+                          f"ef={ef} cap={cap}: the set shared {shared}, "
+                          f"forced {place}")
+                    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                          f"integer walk {name} {source} visited_slots={vs} "
+                          f"T={t} ef={ef} cap={cap}"
+                          f"{f' (set forced {place})' if place else ''}: "
+                          f"the kernel differs from the plain twin")
+                    set_cases[shared] += vs >= 0
                 if source in STAGED_SOURCES:
                     stage = cg._check_walk_args(
                         g, qw, ef, cap, t, metric, visited_slots=vs,
@@ -1254,7 +1315,10 @@ def integer_walks(torch, cg, core_search, dev):
         f"the int8 / bf16 records and rows staged in shared memory in "
         f"{staged_cases[True]} of those cases, read from the records or "
         f"rows in {staged_cases[False]} more at (T, ef, cand_cap) = "
-        f"{RECORDS_UNSTAGED}, bit-equal too")
+        f"{RECORDS_UNSTAGED}, bit-equal too; the visited sets in shared "
+        f"memory in {set_cases[True]} cases and in device memory in "
+        f"{set_cases[False]} (each table shape in both, one forced, and "
+        f"the wide instances'), bit-equal too")
     pq_wide_row_walks(torch, cg, core_search, dev)
     return wide_launches
 
@@ -2062,6 +2126,18 @@ def variant_vs_twin(torch, graph, qs, kw, results, launches, *,
     bound = walk_bound_ms(kh, ke, len(qs), graph.dims, t, graph.max_m,
                           row_bytes(graph, kw), visited)
     staging = staging_placement(cg, graph, q, kw, kh, ef, t)
+    if visited is not None:
+        staging = visited_placement(torch, cg, graph, q, kh, ke, ef, t,
+                                    visited_slots)
+        # a set in shared memory moves none of its words through device
+        # memory: its walk's bound is the bound without them; the bound
+        # with them (the sets' yardstick while they lived in device
+        # memory) is kept beside it
+        staging[3]["bound_with_set_ms"] = bound
+        staging = (staging[0] + f"; bound with the set's words "
+                   f"{bound:.4f} ms", *staging[1:])
+        if staging[1] == "shared":
+            bound = staging[3]["bound_without_set_ms"]
     if staging and staging[1] == "staged":
         # the staged walk against the same launch reading its rows or
         # records, bit for bit
@@ -2096,6 +2172,8 @@ def variant_vs_twin(torch, graph, qs, kw, results, launches, *,
                         bound_by="bytes", recall=rec_k, plain_recall=rec_p)
     if staging:
         results[key].update(placement=staging[1], blocks_per_sm=staging[2])
+    if visited is not None:
+        results[key].update(staging[3])
 
 
 def staging_placement(cg, graph, q, kw, hops, ef, t):
@@ -2155,6 +2233,76 @@ def staging_placement(cg, graph, q, kw, hops, ef, t):
                f"({read / PEAK_BYTES * 1e3:.4f} ms at the HBM rate)"
                if staged else ""))
     return line, where, blocks[staged > 0]
+
+
+def visited_placement(torch, cg, graph, q, hops, evals, ef, t,
+                      visited_slots):
+    """Where a float32 rows walk under the bitmap or hash set
+    ``visited_slots`` at T = ``t``, ef = cand_cap = ``ef`` keeps the
+    query's set (ops/cuda_graph._visited_place: the block's shared memory,
+    or device memory, filled by the wrapper), and the blocks an SM holds
+    of the set instance at its shared bytes with the set and without it,
+    the runtime's occupancy (graph_probe.walk_blocks): a table instance
+    keeps the set shared exactly where an SM then holds as many blocks as
+    without it, up to WALK_MIN_BLOCKS.  Returns (the log line, with the
+    instance's ptxas registers and spills, the wrapper's fill of a device
+    set timed on its own (a CUDA graph of 20 calls; a shared set has none)
+    and the walk's bound without the set's words; the placement; the
+    blocks an SM of the instance at its shared bytes; the numbers for the
+    kernels line)."""
+    from pg_embedding_tpu_torch import _kernels
+    from pg_embedding_tpu_torch.graph_probe import device_ms, walk_blocks
+    src = cg._check_walk_args(graph, q, ef, ef, t, L2,
+                              visited_slots=visited_slots)
+    plan = cg._walk_launch(graph, src, ef, ef, t, visited_slots)
+    words = cg._visited_words(graph, visited_slots)
+    plain = cg._walk_smem_bytes(ef, ef, t, graph.max_m, graph.dims, None)
+    # the set's bytes where it fits the block, whatever an SM then holds
+    room = cg._visited_place(words, plain, 0)[0]
+    threads = cg._walk_threads(t, graph.max_m)
+    lib = _kernels.load_library()
+    blocks = {False: walk_blocks(lib, 0, False, t, graph.max_m, plain,
+                                 dense=False)}
+    kept = min(blocks[False], cg.WALK_MIN_BLOCKS[threads])
+    an_sm = kept * (plain + room + cg.BLOCK_RESERVED)
+    if room:
+        blocks[True] = walk_blocks(lib, 0, False, t, graph.max_m,
+                                   plain + room, dense=False)
+        keeps = blocks[True] >= kept
+        check((keeps and an_sm <= cg.SET_SM_SMEM) == plan.visited_shared,
+              f"visited_slots={visited_slots} T={t}: shared "
+              f"{plan.visited_shared}, but an SM holds {blocks[True]} blocks "
+              f"with the set against {blocks[False]}, {an_sm} B of its "
+              f"shared memory (at most {cg.SET_SM_SMEM})")
+    check(plan.smem == plain + (room if plan.visited_shared else 0),
+          f"visited_slots={visited_slots} T={t}: {plan.smem} bytes a block")
+    inst = f"beam_walk_kernel<float32 rows, bitmap / hash, {threads} threads>"
+    spill, used = WALK_REPORTS[inst]
+    regs = int(re.search(r"Used (\d+) registers", used)[1])
+    fill = None
+    if not plan.visited_shared:
+        fill = device_ms(lambda: cg._device_visited(len(q), words,
+                                                    visited_slots, True,
+                                                    q.device))
+    bare = walk_bound_ms(hops, evals, len(q), graph.dims, t, graph.max_m)
+    where = "shared" if plan.visited_shared else "device memory"
+    line = (f"placement: the set ({words} words a query) in {where} "
+            f"({plan.smem} bytes of shared memory a block; {inst}: {regs} "
+            f"registers, {spill}; {blocks[plan.visited_shared]} blocks an SM"
+            + (f", {blocks[False]} without the set at {plain} B"
+               if plan.visited_shared else
+               f", {blocks[True]} with it at {plain + room} B" if room
+               else "") + ", the runtime's occupancy"
+            + (f"; {an_sm:,} B of an SM's shared memory with the set, at "
+               f"most {cg.SET_SM_SMEM:,} for a shared one" if room else "")
+            + "); "
+            + ("no device set, the blocks fill their own" if fill is None
+               else f"the wrapper's fill of the device set {fill:.4f} ms "
+                    f"on the card, on its own")
+            + f"; bound without the set's words {bare:.4f} ms")
+    return line, where, blocks[plan.visited_shared], dict(
+        placement=where, blocks_per_sm=blocks[plan.visited_shared],
+        fill_ms=fill, bound_without_set_ms=bare)
 
 
 def walk_counts():
@@ -2252,6 +2400,15 @@ def serving_variants(torch, idx, qs, results):
               f"visited_mode={mode!r} ids differ from the dense walk's")
         variant_vs_twin(torch, idx.graph, qs, {}, results, launches,
                         visited_slots=slots)
+        # the API's default search_expand_width, its launches counted over
+        # one API call
+        idx.visited_mode, idx.search_expand_width = mode, API_T
+        counts = walk_counts()
+        idx.search_ids(qs)
+        launches = dict(counts)
+        idx.visited_mode, idx.search_expand_width = "dense", GRAPH_T
+        variant_vs_twin(torch, idx.graph, qs, {}, results, launches,
+                        visited_slots=slots, t=API_T)
 
 
 def wide_queue_phase(torch, idx, qs, integer_launches):
@@ -3710,8 +3867,9 @@ def main():
     log(f"beam_walk launches by variant, each over its own API path (the "
         f"smoke's comparisons not counted): "
         f"{ {k: v['launches'] for k, v in walk_variants.items()} }")
-    # (and the bf16 rows walk at API_T, bf16_phase)
-    check(len(walk_variants) == len(WALK_SOURCES) + len(WALK_VISITED)
+    # (and the bf16 rows walk at API_T, bf16_phase; each visited set at
+    # GRAPH_T and API_T)
+    check(len(walk_variants) == len(WALK_SOURCES) + 2 * len(WALK_VISITED)
           + len(RECORDS_AT_API_T) + 1,
           f"variants held to their twin at 1M: {sorted(walk_variants)}")
     check(core_search.PLAIN_WALKS_ON_CARD == 0,

@@ -24,13 +24,16 @@
 //       dense (the default): not held by the candidate queue after the
 //         pop, the result queue or the T popped ids;
 //       bitmap: its bit is clear in the query's bit set over the ids
-//         (global memory, zeroed by the wrapper, node 0's bit set); the
-//         processed ids set theirs after every slot has read;
-//       hash: no slot of its 4-slot bucket of the query's table (global
-//         memory, -1 empty, node 0 in slot 0) holds it; bucket and slot
-//         are the twin's uint32 hashes; after every slot has read, each
-//         processed id writes its slot, the highest expansion slot winning
-//         where two choose one (the twin's index_put on the CPU);
+//         (zeroed, node 0's bit set); the processed ids set theirs after
+//         every slot has read;
+//       hash: no slot of its 4-slot bucket of the query's table (-1
+//         empty, node 0 in slot 0) holds it; bucket and slot are the
+//         twin's uint32 hashes; after every slot has read, each processed
+//         id writes its slot, the highest expansion slot winning where two
+//         choose one (the twin's index_put on the CPU);
+//       either set lives in the block's shared memory where a table
+//       instance has room for it (the block fills it) and an SM keeps its
+//       blocks, else in device memory (the wrapper fills it: vis_place);
 //   * dist_evals += processed slots; admit d < lower; results keep the ef
 //     and candidates the cand_cap smallest of incumbents + admitted, ties
 //     to the incumbents, then to the lower slot (merge_min_k after the
@@ -76,8 +79,9 @@
 //   sum_q (dist_evals_q * row_bytes + hops_q * T * (maxM + 1) * 4)
 //   + B * D * 4,
 // row_bytes = 4 D for float32 rows, 2 D for bf16, D + 4 for int8 and its
-// scale, G for PQ codes (plus, for the bitmap and hash sets, the words
-// each processed id reads and writes, and the tables' initialisation; the
+// scale, G for PQ codes (plus, for the bitmap and hash sets in device
+// memory, the words each processed id reads and writes, and the sets'
+// initialisation; the
 // PQ codebook, 1 KB a group, is read from device memory once a launch and
 // from L2 by each block's table build);
 // about 0.36 ms at 3.35 TB/s for 1,024 queries at 1M x 128-d float32
@@ -98,12 +102,16 @@
 //      whose value is the smallest slot holding it (atomicMin); the ids of
 //      both queues, the popped ones included, go into a second table (the
 //      "held" set).  Both tables are open-addressed with linear probing,
-//      sized to a power of two of at least twice their keys;
+//      sized to a power of two of at least twice their keys.  Under the
+//      bitmap or hash set the held table stays empty, and each slot's set
+//      words (vis_word: the bitmap's word, or the hash bucket's 16 bytes)
+//      are read as its link lands, before its insert, into registers;
 //   2. dedupe: each slot probes both tables once: it is processed iff its
 //      id is not held and it is its id's smallest slot.  That is the dense
-//      dedupe's answer, so dist_evals do not change.  Under the bitmap or
-//      hash set the held table stays empty and the slot reads the set's
-//      global words instead (a uniform branch).  Processed slots are
+//      dedupe's answer, so dist_evals do not change.  Under a set the slot
+//      tests the words it read in phase 1 instead (a uniform branch; the
+//      set changes only in phase 3, and two block barriers stand between
+//      one step's writes and the next step's reads).  Processed slots are
 //      compacted with one shared atomic a warp (staged int8 / bf16 rows:
 //      the copy engine copies each processed slot's row to shared
 //      memory as the dedupe keeps it, stage_row);
@@ -114,8 +122,9 @@
 //      same additions, so the same bits), leaving each lane group one
 //      row's distance; the admitted (d < lower) are appended with one
 //      atomic a warp; the tables are cleared for the next step.  First the
-//      bitmap's processed ids set their bits (atomicOr), or warp 0 writes
-//      the hash table's slots in 32-slot chunks in slot order, a match
+//      bitmap's processed ids set their bits (atomicOr), or the last warp
+//      writes the hash table's slots in 32-slot chunks in slot order, a
+//      match
 //      among the chunk's lanes leaving the highest slot of each table slot
 //      to write it;
 //   4. rank: the admitted are ranked by (d, slot): g lanes an entry (a
@@ -124,12 +133,13 @@
 //   5. merge: each queue by rank (an incumbent moves down by the admitted
 //      strictly below it, an admitted entry by the incumbents at or below
 //      it: binary searches), into its second buffer.
-// Each row source and visited-set kind (the dense dedupe, or a set in
-// device memory) is one instance: 7 x 2 (PQ twice: kElemPQ, kElemPQFar;
+// Each row source and visited-set kind (the dense dedupe, or a set) is one
+// instance: 7 x 2 (PQ twice: kElemPQ, kElemPQFar;
 // int8 and bf16 staged records or rows beside them), by 128 or 256
 // threads: twenty-eight (the dense instances compile the sets' branches
 // away; graph_probe's sets-runtime variant keeps them); the records /
-// rows choice and bitmap / hash are uniform runtime branches.
+// rows choice and bitmap / hash are uniform runtime branches, and a set in
+// shared or device memory is the same code through a pointer.
 // 128 threads a block where T * maxM <= 128 (T <= 4 at maxM = 32), else 256; an SM holds 5 blocks of 128 (96
 // registers a thread) or 4 of 256 (64): shapes chosen by measurement
 // (PERF.md; graph_probe.py).  Where the tables do not fit beside the
@@ -167,7 +177,9 @@
 //     admitted land; an incumbent pushed past the queue's width clears
 //     its held bit instead.
 // Seven wide instances, a row source each, 256 threads, the visited set a
-// runtime branch (the bitmap and hash sets keep no held bits), two blocks
+// runtime branch (the bitmap and hash sets keep no held bits, and stay in
+// device memory: at ef 5,120 the API's hash set is 2^20 slots; their
+// words are read in phase 1 as the held word is), two blocks
 // an SM (128 registers).  Python computes the shared-memory figure and
 // the device memory a query (ops/cuda_graph._walk_layout,
 // _walk_wide_words) and the launch refuses other ones, or shared memory
@@ -214,6 +226,13 @@
 // A wide step adds the held word's read to the links' latency, and its
 // in-place merge shifts both queues' suffixes every step, a barrier a
 // round: at ef = cand_cap = 5120 the move is ~46% of a step (PERF.md).
+// The bitmap and hash sets' words, read in phase 2 after the links'
+// barrier, were a third dependent latency a step (dedupe ~5,900-6,400
+// cycles at T = 8); read as each link lands they are ~3,300-4,200, and a
+// set in device memory costs the walk 0-5% over the same set shared
+// (graph_probe --mode sets).  The hash set's ordered writes sat behind
+// warp 0's share of the rows (rows lap ~14,200 cycles at T = 8); by the
+// last warp, each chunk read a chunk ahead, ~10,900.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -424,6 +443,29 @@ RecPlace records_place(int elem_bytes, int scales, int rows, int aligned,
   return {bytes, 1};
 }
 
+// Where a table instance can keep the query's bitmap or hash visited set
+// of ``words`` int32 (the bitmap's ceil(rows / 32), the hash table's
+// slots; 0: no set): in shared memory after every other part of the
+// layout (``used`` bytes), from the next 16-byte boundary (a hash bucket
+// is one 16-byte load), where it fits within kSmemLimit; else none (0
+// bytes): the set stays in device memory.  Nothing else of the layout
+// moves.  Whether a walk that can keep it there does is the caller's
+// choice (ops/cuda_graph._visited_place holds the rule: an SM keeps its
+// blocks), told by the shared bytes it passes and a null ``visited``
+// (beam_walk).
+struct VisPlace {
+  size_t smem;     // shared bytes: the padding to 16, then the set
+  int shared;
+};
+
+VisPlace vis_place(size_t words, size_t used) {
+  if (words == 0) return {0, 0};
+  const size_t at = round16(used);
+  const size_t bytes = at - used + round16(4 * words);
+  if (used + bytes > (size_t)kSmemLimit) return {0, 0};
+  return {bytes, 1};
+}
+
 // Shared memory: the query row (D rounded up to 4 floats), the result and
 // candidate queues twice (d, id), per expansion slot its id, the compacted
 // processed slots, the admitted (d, slot) and their ranked (d, id), 8
@@ -431,7 +473,9 @@ RecPlace records_place(int elem_bytes, int scales, int rows, int aligned,
 // ids and slot_n smallest slots), then a PQ source's table and staged
 // codes (pq_place, placed first: the tables take what it leaves, and are
 // left out (0) where they do not fit) or an int8 / bf16 records or rows
-// source's staged rows (records_place, placed last: nothing else moves).
+// source's staged rows (records_place, placed after the rest: nothing else
+// moves), then a bitmap or hash visited set of ``vis_words`` where it is
+// asked for and fits (vis_place, placed last).
 // The wide instances (ef or cap above kMaxQueue): the query row, the slot
 // arrays, the counters, the slot table, the PQ table and codes or the
 // staged rows, then each queue once (d, id; the candidate ring of
@@ -440,7 +484,7 @@ RecPlace records_place(int elem_bytes, int scales, int rows, int aligned,
 // of ``rows``: the dense dedupe only), then the queues where they do not
 // fit in shared memory; a PQ table that does not fit there takes pq.words
 // more, laid out after every query's own words (a table a query:
-// RowSource::pq_tables).
+// RowSource::pq_tables).  Their visited sets stay in device memory.
 struct WalkLayout {
   size_t smem;
   int held_n, slot_n, ring;
@@ -448,6 +492,7 @@ struct WalkLayout {
   int queues_shared;
   PqPlace pq;
   RecPlace rec;
+  VisPlace vis;
 };
 
 // The device words a query: ``words`` of the walk's own, then the PQ
@@ -459,7 +504,8 @@ size_t with_pq_words(size_t words, const PqPlace& pq) {
 
 WalkLayout walk_layout(int ef, int cap, int T, int maxM, int D, int rows,
                        bool dense, int groups, int metric, int rec_elem,
-                       int rec_scales, int rec_rows, int rec_aligned) {
+                       int rec_scales, int rec_rows, int rec_aligned,
+                       size_t vis_words) {
   const size_t tm = (size_t)T * maxM;
   const size_t row = 4 * (size_t)((D + 3) / 4 * 4);
   const size_t slots = pow2_at_least(2 * tm);
@@ -475,12 +521,12 @@ WalkLayout walk_layout(int ef, int cap, int T, int maxM, int D, int rows,
           records_place(rec_elem, rec_scales, rec_rows, rec_aligned, T, maxM,
                         D, fixed, fixed + queues);
       return {fixed + rec.smem + queues, 0, (int)slots, (int)ring, held,
-              with_pq_words(held, pq), 1, pq, rec};
+              with_pq_words(held, pq), 1, pq, rec, {0, 0}};
     }
     const RecPlace rec = records_place(rec_elem, rec_scales, rec_rows,
                                        rec_aligned, T, maxM, D, fixed, fixed);
     return {fixed + rec.smem, 0, (int)slots, (int)ring, held,
-            with_pq_words(held + queues / 4, pq), 0, pq, rec};
+            with_pq_words(held + queues / 4, pq), 0, pq, rec, {0, 0}};
   }
   const size_t held = pow2_at_least(2 * ((size_t)ef + cap));
   size_t base = row + 16 * ((size_t)ef + cap) + 24 * tm + 32;
@@ -491,12 +537,15 @@ WalkLayout walk_layout(int ef, int cap, int T, int maxM, int D, int rows,
     const size_t used = base + tables;
     const RecPlace rec = records_place(rec_elem, rec_scales, rec_rows,
                                        rec_aligned, T, maxM, D, used, used);
-    return {used + rec.smem, (int)held, (int)slots, 0, 0, pq.words, 1, pq,
-            rec};
+    const VisPlace vis = vis_place(vis_words, used + rec.smem);
+    return {used + rec.smem + vis.smem, (int)held, (int)slots, 0, 0,
+            pq.words, 1, pq, rec, vis};
   }
   const RecPlace rec = records_place(rec_elem, rec_scales, rec_rows,
                                      rec_aligned, T, maxM, D, base, base);
-  return {base + rec.smem, 0, 0, 0, 0, pq.words, 1, pq, rec};
+  const VisPlace vis = vis_place(vis_words, base + rec.smem);
+  return {base + rec.smem + vis.smem, 0, 0, 0, 0, pq.words, 1, pq, rec,
+          vis};
 }
 
 __device__ __forceinline__ unsigned hash_id(int id, int n) {
@@ -549,14 +598,21 @@ __device__ __forceinline__ int vis_slot(int id, int slots) {
   return vis_bucket(id, slots) + (int)(((unsigned)id * kSlotHash) >> 30);
 }
 
-// Whether the query's visited set (bitmap words or hash table) holds id.
-__device__ __forceinline__ bool vis_has(const int* vis, int mode, int n,
-                                        int id) {
-  if (mode == kVisBitmap)
-    return ((unsigned)vis[id >> 5] >> (id & 31)) & 1u;
-  const int h = vis_bucket(id, n);
-  return vis[h] == id || vis[h + 1] == id || vis[h + 2] == id ||
-         vis[h + 3] == id;
+// The words of the query's visited set (bitmap words or hash table, in
+// shared or device memory) that say whether it holds id: the bitmap's word
+// id / 32 (in .x), or the hash set's 4-slot bucket, one 16-byte load (a
+// bucket starts at a multiple of 4 slots, and a query's table at a
+// multiple of 16 bytes).
+__device__ __forceinline__ int4 vis_word(const int* vis, int mode, int n,
+                                         int id) {
+  if (mode == kVisBitmap) return make_int4(vis[id >> 5], 0, 0, 0);
+  return *reinterpret_cast<const int4*>(vis + vis_bucket(id, n));
+}
+
+// Whether those words hold id.
+__device__ __forceinline__ bool vis_holds(int4 w, int mode, int id) {
+  if (mode == kVisBitmap) return ((unsigned)w.x >> (id & 31)) & 1u;
+  return w.x == id || w.y == id || w.z == id || w.w == id;
 }
 
 // Where phase 3 reads a neighbour's row: the rows or records of one element
@@ -1129,10 +1185,12 @@ __device__ __forceinline__ void rank_admitted(const float2* new_ds, int n_new,
 }
 
 // Phase 3's visited-set writes, once every slot has read the set: the
-// bitmap's processed ids set their bits (atomicOr), or warp 0 writes the
-// hash table's slots in 32-slot chunks in slot order, a match among the
+// bitmap's processed ids set their bits (atomicOr), or the last warp
+// writes the hash table's slots in 32-slot chunks in slot order, a match
+// among the
 // chunk's lanes leaving the highest slot of each table slot to write it
-// (proc_bits: the processed slots, a word a 32-slot chunk).
+// (proc_bits: the processed slots, a word a 32-slot chunk).  ``vis`` is
+// the set in shared or device memory, the same code through a pointer.
 template <int kThreads>
 __device__ __forceinline__ void record_visits(int vis_mode, int* vis,
                                               int vis_n, const int* proc,
@@ -1146,18 +1204,28 @@ __device__ __forceinline__ void record_visits(int vis_mode, int* vis,
       atomicOr(reinterpret_cast<unsigned*>(vis) + (id >> 5),
                1u << (id & 31));
     }
-  } else if (vis_mode == kVisHash && warp == 0) {
+  } else if (vis_mode == kVisHash && warp == kThreads / 32 - 1) {
     // in slot order, a chunk of 32 slots at a time: of the chunk's slots
     // that write one table slot the highest writes, and a later chunk's
-    // write lands after (__syncwarp orders them)
+    // write lands after (__syncwarp orders them).  The last warp writes
+    // (phase 3's rows fall to the first warps first), and reads each
+    // chunk's processed bits and ids a chunk ahead, so the reads do not
+    // wait behind the writes; a chunk with none processed is skipped.
+    unsigned bits = proc_bits[0];
+    int id = lane < tm ? slot_id[lane] : 0;
     for (int c = 0; c * 32 < tm; ++c) {
-      const int s = c * 32 + lane;
-      const bool mine = (proc_bits[c] >> lane) & 1u;
-      const int id = mine ? slot_id[s] : 0;
-      const int at = mine ? vis_slot(id, vis_n) : -1 - lane;
-      const unsigned peers = __match_any_sync(kFull, at);
-      if (mine && lane == 31 - __clz(peers)) vis[at] = id;
-      __syncwarp();
+      const int next = (c + 1) * 32 + lane;
+      const unsigned next_bits = next - lane < tm ? proc_bits[c + 1] : 0u;
+      const int next_id = next < tm ? slot_id[next] : 0;
+      if (bits) {                                   // uniform
+        const bool mine = (bits >> lane) & 1u;
+        const int at = mine ? vis_slot(id, vis_n) : -1 - lane;
+        const unsigned peers = __match_any_sync(kFull, at);
+        if (mine && lane == 31 - __clz(peers)) vis[at] = id;
+        __syncwarp();
+      }
+      bits = next_bits;
+      id = next_id;
     }
   }
 }
@@ -1346,8 +1414,26 @@ beam_walk_kernel(const int* __restrict__ links, const int* __restrict__ counts,
   // the hash set's processed slots, a word a 32-slot chunk, from phase 2 to
   // phase 3's writes (srt_i is next written in phase 4)
   unsigned* proc_bits = reinterpret_cast<unsigned*>(srt_i);
-  // this query's visited set: bitmap words or hash-table slots
-  int* vis = vis_mode == kVisDense ? nullptr : visited + (size_t)b * vis_n;
+  // this query's visited set, bitmap words or hash-table slots: in device
+  // memory, or, where the launch keeps it in shared memory (vis_place:
+  // ``visited`` null), after every other part from a 16-byte boundary (the
+  // offset is the layout's: a set found at the end of the dynamic shared
+  // memory instead, by %dynamic_smem_size, moved the 256-thread instance's
+  // spill loads from 928 to 1,092 B and cost its walks 6%)
+  int* vis = nullptr;
+  if constexpr (!kDense) {
+    if (visited) {
+      vis = visited + (size_t)b * vis_n;
+    } else {
+      size_t at = region - smem;
+      if constexpr (is_pq(kElem))
+        at += pq_region_bytes<kElem>(src, metric, T, maxM);
+      if constexpr (is_staged(kElem))
+        at += rec_stage_bytes(elem_type(kElem) == kElemI8 ? 1 : 2,
+                              elem_type(kElem) == kElemI8, T, maxM, D);
+      vis = reinterpret_cast<int*>(smem + round16(at));
+    }
+  }
 
   const float* q = queries + (size_t)b * D;
   for (int i = tid; i < Dp; i += kThreads) q_s[i] = i < D ? q[i] : 0.f;
@@ -1358,6 +1444,12 @@ beam_walk_kernel(const int* __restrict__ links, const int* __restrict__ counts,
     slot_key[i] = kEmpty;
     slot_min[i] = INT_MAX;
   }
+  // a set in shared memory starts empty: the bitmap zeroed, the hash table
+  // -1 (the wrapper fills one in device memory so)
+  if constexpr (!kDense)
+    if (!visited)
+      for (int i = tid; i < vis_n; i += kThreads)
+        vis[i] = vis_mode == kVisHash ? kEmpty : 0;
   if (tid < 4) ctr[tid] = 0;
   if constexpr (is_staged(kElem))
     if (tid == 0) mbar_init(rs.bar, stage_arrivals(src, T, tm));
@@ -1365,6 +1457,9 @@ beam_walk_kernel(const int* __restrict__ links, const int* __restrict__ counts,
   if (tid == 0 && has_nodes) {
     rd[0] = cd[0] = entry_d[b];
     ri[0] = ci[0] = 0;
+    // node 0 visited: its bit, or slot 0 of its bucket
+    if constexpr (!kDense)
+      if (!visited) vis[0] = vis_mode == kVisHash ? 0 : 1;
   }
   if (metric == kMetricCosine && warp == 0) {
     float s = 0.f;
@@ -1415,10 +1510,16 @@ beam_walk_kernel(const int* __restrict__ links, const int* __restrict__ counts,
         if (id >= 0) held_insert(held, held_n, id);
       }
     }
+    // a visited set: slot tid's set words (vis_word), read as its link
+    // lands and held in registers till phase 2 (the set changes only in
+    // phase 3, two barriers before the next step's reads)
+    int4 pre = make_int4(0, 0, 0, 0);
     for (int s = tid; s < tm; s += kThreads) {
       if (s != tid) load_slot(s, left, link);
       const int id = left > 0 && link >= 0 ? link : -1;
       slot_id[s] = id;
+      if constexpr (!kDense)
+        if (s == tid && id >= 0) pre = vis_word(vis, vis_mode, vis_n, id);
       if (hashed && id >= 0) slot_insert(slot_key, slot_min, slot_n, id, s);
     }
     __syncthreads();
@@ -1437,13 +1538,16 @@ beam_walk_kernel(const int* __restrict__ links, const int* __restrict__ counts,
         for (int k = 0; keep && k < ef; ++k) keep = ri[k] != id;
         for (int k = 0; keep && k < s; ++k) keep = slot_id[k] != id;
       } else if (keep) {
-        // the first slot of its id, then unvisited by the set
+        // the first slot of its id, then unvisited by the set (slot tid's
+        // words read in phase 1, a later slot's here)
         if (hashed) {
           keep = slot_first(slot_key, slot_min, slot_n, id) == s;
         } else {
           for (int k = 0; keep && k < s; ++k) keep = slot_id[k] != id;
         }
-        keep = keep && !vis_has(vis, vis_mode, vis_n, id);
+        keep = keep && !vis_holds(s == tid ? pre
+                                           : vis_word(vis, vis_mode, vis_n, id),
+                                  vis_mode, id);
       }
       const unsigned m = __ballot_sync(kFull, keep);
       // a staged rows source: each processed slot's row copied as the
@@ -1664,14 +1768,15 @@ beam_walk_wide_kernel(const int* __restrict__ links,
     if (tid == 0) ctr[2 - 2 * (hops & 1)] = ctr[3 - 2 * (hops & 1)] = 0;
 
     // --- 1. the popped rows' links; the slot table; each slot's held word
-    // (slot tid's in a register till phase 2), read as its link arrives
+    // or visited-set words (slot tid's in registers till phase 2), read as
+    // its link arrives
     if constexpr (kElem == kElemPQ)
       stage_pq_codes<kThreads>(src, pop_i, pop_d, lower, maxM, tm, pq.staged,
                                tid);
     if constexpr (is_staged(kElem))
       stage_records<kElem, kThreads>(src, pop_i, pop_d, lower, T, maxM, D,
                                      rs, tid);
-    unsigned word = 0;
+    int4 pre = make_int4(0, 0, 0, 0);       // the held word in .x
     for (int s = tid; s < tm; s += kThreads) {
       const int j = s / maxM, r = s - j * maxM;
       const int p = pop_i[j];
@@ -1683,7 +1788,9 @@ beam_walk_wide_kernel(const int* __restrict__ links,
       }
       slot_id[s] = id;
       if (id >= 0) {
-        if (dense && s == tid) word = __ldcg(held + (id >> 4));
+        if (s == tid)
+          pre = dense ? make_int4((int)__ldcg(held + (id >> 4)), 0, 0, 0)
+                      : vis_word(vis, vis_mode, vis_n, id);
         slot_insert(slot_key, slot_min, slot_n, id, s);
       }
     }
@@ -1697,10 +1804,13 @@ beam_walk_wide_kernel(const int* __restrict__ links,
       const int id = s < tm ? slot_id[s] : -1;
       bool keep = id >= 0 && slot_first(slot_key, slot_min, slot_n, id) == s;
       if (keep && dense) {
-        const unsigned w = s == tid ? word : __ldcg(held + (id >> 4));
+        const unsigned w =
+            s == tid ? (unsigned)pre.x : __ldcg(held + (id >> 4));
         keep = !((w >> (2 * (id & 15))) & (kInRes | kInCand));
       } else if (keep) {
-        keep = !vis_has(vis, vis_mode, vis_n, id);
+        keep = !vis_holds(
+            s == tid ? pre : vis_word(vis, vis_mode, vis_n, id), vis_mode,
+            id);
       }
       const unsigned m = __ballot_sync(kFull, keep);
       // a staged rows source: each processed slot's row copied as the
@@ -1985,7 +2095,10 @@ extern "C" {
 // has_nodes).  visited_slots: -1 the dense dedupe (``visited`` unread), 0
 // the bitmap (``visited`` i32[B, vis_n] words, vis_n >= cap / 32, zeroed
 // but node 0's bit), 2^s >= 4 the hash set (``visited`` i32[B, 2^s], vis_n
-// = 2^s, -1 but slot 0 = node 0); the kernel updates it.  ``wide_mem``
+// = 2^s, -1 but slot 0 = node 0); the kernel updates it; ``visited`` null:
+// each block keeps its query's set in shared memory, filled so by the
+// block (a table instance, where vis_place fits it and smem_bytes count
+// it: ops/cuda_graph._visited_place).  ``wide_mem``
 // i32[B, wide_words] (wide_words 0: unread): for a walk with ef or cap
 // above 320, zeroed by the caller, the held bits of the dense dedupe over
 // ``n_rows`` ids (the links' rows), then the queues where they do not fit
@@ -2015,15 +2128,17 @@ int beam_walk(const int* links, const int* counts, const void* rows,
   const int vis_mode = visited_slots < 0    ? kVisDense
                        : visited_slots == 0 ? kVisBitmap
                                             : kVisHash;
-  if (vis_mode != kVisDense && (!visited || vis_n <= 0))
-    return (int)cudaErrorInvalidValue;
+  if (vis_mode != kVisDense && vis_n <= 0) return (int)cudaErrorInvalidValue;
   if (vis_mode == kVisHash &&
       (visited_slots < 4 || (visited_slots & (visited_slots - 1)) ||
        vis_n != visited_slots))
     return (int)cudaErrorInvalidValue;
   // int8 / bf16 records or rows: staged where records_place can stage them
-  // and the caller chose to (its smem_bytes count the staged rows)
+  // and the caller chose to (its smem_bytes count the staged rows); a
+  // visited set in shared memory where the caller passes no ``visited``
+  // (its smem_bytes count the set: vis_place)
   const bool stage_src = elem == kElemI8 || elem == kElemBF16;
+  const bool vis_shared = vis_mode != kVisDense && !visited;
   auto layout = [&](bool stage) {
     return walk_layout(
         ef, cap, T, maxM, D, n_rows, vis_mode == kVisDense,
@@ -2031,12 +2146,14 @@ int beam_walk(const int* links, const int* counts, const void* rows,
         stage && stage_src ? (elem == kElemI8 ? 1 : 2) : 0, elem == kElemI8,
         !records,
         aligned(rows, 16) &&
-            (elem != kElemI8 || !records || aligned(scales, 16)));
+            (elem != kElemI8 || !records || aligned(scales, 16)),
+        vis_shared ? (size_t)vis_n : 0);
   };
   WalkLayout lay = layout(true);
   if (lay.rec.staged && lay.smem != (size_t)smem_bytes) lay = layout(false);
   if (lay.smem != (size_t)smem_bytes || lay.smem > (size_t)kSmemLimit ||
-      lay.words != (size_t)wide_words || (lay.words && !wide_mem))
+      lay.words != (size_t)wide_words || (lay.words && !wide_mem) ||
+      lay.vis.shared != (int)vis_shared)
     return (int)cudaErrorInvalidValue;
   RowSource src{rows, scales, codebook, groups, groups > 0 ? D / groups : 0,
                 records, 0, 0};

@@ -10,6 +10,8 @@
       [--before FILE]
   python -m pg_embedding_tpu_torch.graph_probe --mode rows [--n ROWS]
       [--before FILE]
+  python -m pg_embedding_tpu_torch.graph_probe --mode sets [--n ROWS]
+      [--before FILE]
 
 Builds csrc/beam_walk.cu and csrc/prune_scan.cu in variants, each a rewrite
 of the sources' text (as sweep_probe.py builds its variants) compiled into
@@ -56,6 +58,21 @@ its own library under .kernel_build/graph_probe/, all side by side:
                 of one a slot
   rows-no-fence the staged rows' copies without the proxy fence before
                 each (a diagnostic: it measures the fence)
+  sets-phase-2  the bitmap and hash sets' words read in phase 2, after the
+                links' barrier, as the tree before read them (the table
+                and wide instances); sets-phase-2-profile is its profile
+                build
+  sets-warp-0   the hash set's ordered writes by warp 0, each chunk read
+                after the one before has written, as the tree before wrote
+                them, instead of by the last warp reading a chunk ahead;
+                sets-warp-0-profile is its profile build
+  sets-dyn-end  a shared set found at the end of the block's dynamic
+                shared memory (%dynamic_smem_size) instead of by the
+                layout's offset
+  sets-padded   the C side takes a device set beside shared bytes that
+                count the set (walk's visited_shared="padded": the block
+                padded to the shared set's bytes, the set in device
+                memory; a diagnostic: it measures what the bytes cost)
 
 The probe builds an index of ``--n`` rows x 128-d on the card
 (utils/io.synthetic_clustered, chip_smoke.py's recipe and seed), walks its
@@ -133,6 +150,30 @@ the earlier tree's walk (which read the rows), each checked against the
 placement _records_place chooses bit for bit and that one against the
 plain twin; then the laps of the profile builds (the kernel's at its
 placement, rows-phase-1's, the earlier tree's).
+
+``--mode sets`` times the bitmap and hash visited sets' walks over float32
+rows (``visited_slots`` 0 and 2^s) on the same 1M index: the hash set at
+8,192 slots (the API's at ef 64) at T = 4 and 8 and at 16,384 (ef 128) at
+T = 8, the bitmap at T = 4 and 8, and both sets in the wide instances at
+ef = cand_cap = 5,120 on 64 queries; then the bitmap at T = 4 and 8 on a
+second index of SETS_SMALL_N rows (100,000: its bitmap fits a block).
+Each in turns (in order, then reversed; ``--turns N`` rounds of that,
+1 by default): the kernel at the placement
+ops/cuda_graph._visited_place chooses, sets-phase-2 (the words read in
+phase 2), sets-warp-0 (the hash set's writes as before), the other
+placement where a table instance can take it (the
+set forced to device memory, or into shared memory whatever an SM then
+holds), there sets-padded's device set in a block padded to the shared
+set's bytes, sets-dyn-end at the kernel's placement (the table cases)
+and, with ``--before FILE`` (an earlier tree's csrc/beam_walk.cu,
+its sets in device memory), "before"; each checked against the kernel
+bit for bit (ids, distances, hops, evals), the kernel against the plain
+twin on the card at T = 8 on 1,024 queries (ids, hops and evals per
+query); beside them the wrapper's fill of a device set alone and the
+dense float32 rows' walks at T = 4 and 8 against "before"; then the
+laps of the profile builds (the kernel's, sets-phase-2's, sets-warp-0's,
+the earlier tree's), after the float32 instances' ptxas reports; exits 1
+if a check fails.
 
 ``--mode wiring`` builds csrc/connect_batch.cu in its own variants
 (WIRING_VARIANTS):
@@ -277,11 +318,11 @@ _PREFETCH = _STAGE_CALL + (
 # dedupe keeps it (after each kernel's ballot), or a valid slot's as its
 # link lands in phase 1 (the table instances' loop)
 _TABLE_BALLOT = (
-    "        keep = keep && !vis_has(vis, vis_mode, vis_n, id);\n"
+    "                                  vis_mode, id);\n"
     "      }\n"
     "      const unsigned m = __ballot_sync(kFull, keep);\n")
 _WIDE_BALLOT = (
-    "        keep = !vis_has(vis, vis_mode, vis_n, id);\n"
+    "            id);\n"
     "      }\n"
     "      const unsigned m = __ballot_sync(kFull, keep);\n")
 _PROCESSED_CALL = (
@@ -341,6 +382,68 @@ _ROWS_WARP = _WARP_COMMON + (
 _ROWS_PHASE1_WARP = _WARP_COMMON + (
     (WALK, _TABLE_BALLOT + _PROCESSED_CALL, _TABLE_BALLOT),
     (WALK, _LINK_ID, _LINK_ID + _PHASE1_WARP_CALL))
+# the visited sets' words read in phase 2, after the barrier (the tree
+# before: each slot's read a dependent latency of its own), in the table
+# instances and the wide ones
+_SETS_PHASE_2 = (
+    (WALK, "      if constexpr (!kDense)\n"
+     "        if (s == tid && id >= 0) pre = vis_word(vis, vis_mode, vis_n, "
+     "id);\n", ""),
+    (WALK, "        keep = keep && !vis_holds(s == tid ? pre\n"
+     "                                           : vis_word(vis, vis_mode, "
+     "vis_n, id),\n"
+     "                                  vis_mode, id);\n",
+     "        keep = keep && !vis_holds(vis_word(vis, vis_mode, vis_n, id),\n"
+     "                                  vis_mode, id);\n"),
+    (WALK, "          pre = dense ? make_int4((int)__ldcg(held + (id >> 4)), "
+     "0, 0, 0)\n"
+     "                      : vis_word(vis, vis_mode, vis_n, id);\n",
+     "          if (dense) pre = make_int4((int)__ldcg(held + (id >> 4)), 0, "
+     "0, 0);\n"),
+    (WALK, "        keep = !vis_holds(\n"
+     "            s == tid ? pre : vis_word(vis, vis_mode, vis_n, id), "
+     "vis_mode,\n"
+     "            id);\n",
+     "        keep = !vis_holds(vis_word(vis, vis_mode, vis_n, id), vis_mode,"
+     "\n            id);\n"))
+# the hash set's ordered writes by warp 0, each chunk's bits and ids read
+# after the chunk before has written (the tree before), in place of the
+# last warp's, read a chunk ahead
+# sets-dyn-end: a shared set found at the end of the block's dynamic
+# shared memory (%dynamic_smem_size) instead of by the layout's offset
+_SETS_DYN_END = ((WALK, """      size_t at = region - smem;
+      if constexpr (is_pq(kElem))
+        at += pq_region_bytes<kElem>(src, metric, T, maxM);
+      if constexpr (is_staged(kElem))
+        at += rec_stage_bytes(elem_type(kElem) == kElemI8 ? 1 : 2,
+                              elem_type(kElem) == kElemI8, T, maxM, D);
+      vis = reinterpret_cast<int*>(smem + round16(at));
+""", """      unsigned dyn;
+      asm("mov.u32 %0, %%dynamic_smem_size;" : "=r"(dyn));
+      vis = reinterpret_cast<int*>(smem + dyn - round16(4 * (size_t)vis_n));
+"""),)
+# sets-padded: the layout counts a table instance's set wherever it fits,
+# and a launch may pass a device set beside those bytes (walk's
+# visited_shared="padded": the set in device memory, the block padded to
+# the shared one's bytes)
+_SETS_PADDED = (
+    (WALK, "vis_shared ? (size_t)vis_n : 0);",
+     "vis_mode != kVisDense ? (size_t)vis_n : 0);"),
+    (WALK, "      lay.vis.shared != (int)vis_shared)", "      !lay.vis.shared)"))
+_SETS_WARP_0 = (
+    (WALK, "  } else if (vis_mode == kVisHash && warp == kThreads / 32 - 1) "
+     "{\n",
+     "  } else if (vis_mode == kVisHash && warp == 0) {\n"
+     "    for (int c = 0; c * 32 < tm; ++c) {\n"
+     "      const int s = c * 32 + lane;\n"
+     "      const bool mine = (proc_bits[c] >> lane) & 1u;\n"
+     "      const int id = mine ? slot_id[s] : 0;\n"
+     "      const int at = mine ? vis_slot(id, vis_n) : -1 - lane;\n"
+     "      const unsigned peers = __match_any_sync(kFull, at);\n"
+     "      if (mine && lane == 31 - __clz(peers)) vis[at] = id;\n"
+     "      __syncwarp();\n"
+     "    }\n"
+     "  } else if (false) {\n"),)
 # name: (nvcc flags, rewrites (source, text, replacement))
 VARIANTS = {
     "kernel": ((), ()),
@@ -384,6 +487,12 @@ VARIANTS = {
         WALK, "    asm volatile(\"fence.proxy.async.shared::cta;\\n\" ::: "
         "\"memory\");\n    bulk_copy(rs.rows + (size_t)s * row,",
         "    bulk_copy(rs.rows + (size_t)s * row,"),)),
+    "sets-phase-2": ((), _SETS_PHASE_2),
+    "sets-phase-2-profile": (PROFILE, _SETS_PHASE_2),
+    "sets-warp-0": ((), _SETS_WARP_0),
+    "sets-warp-0-profile": (PROFILE, _SETS_WARP_0),
+    "sets-dyn-end": ((), _SETS_DYN_END),
+    "sets-padded": ((), _SETS_PADDED),
     "one-block": ((), ((WALK, "constexpr int kWideMinBlocks = 2;",
                         "constexpr int kWideMinBlocks = 1;"),
                        (WALK, "      return {fixed + rec.smem + queues, 0, "
@@ -447,6 +556,14 @@ ROWS_RUNS = {"processed copies": ("kernel", "forced"),
              "processed, no proxy fence": ("rows-no-fence", "forced"),
              "unstaged": ("kernel", False),
              "before": ("before", False)}
+# --mode sets: the variants built, the profile builds whose laps are
+# printed, and the rows of the second index (the bitmap in shared memory)
+SETS_BUILDS = ("kernel", "profile", "sets-phase-2", "sets-phase-2-profile",
+               "sets-warp-0", "sets-warp-0-profile", "sets-dyn-end",
+               "sets-padded")
+SETS_PROFILES = ("profile", "sets-phase-2-profile", "sets-warp-0-profile",
+                 "before-profile")
+SETS_SMALL_N = 100_000
 
 
 def prune_smem_bytes(c: int) -> int:
@@ -521,35 +638,50 @@ def build_all(names=tuple(VARIANTS), wiring: bool = False) -> dict:
 
 
 def walk(lib, graph, queries, *, ef, cand_cap, t, metric_value,
-         variant="kernel", pq_table=True, staged=True, **operands):
+         variant="kernel", pq_table=True, staged=True, visited_slots=-1,
+         visited_shared=True, **operands):
     """One launch of ``lib``'s walk (the shared-memory figure of its
     variant) over float32 rows or the row source ``operands`` give
-    (ops/cuda_graph.beam_walk's); ``pq_table`` False: a tree whose PQ
+    (ops/cuda_graph.beam_walk's), under the dense dedupe or the visited
+    set ``visited_slots``; ``pq_table`` False: a tree whose PQ
     source takes no table, laid out as the other sources are; ``staged``
     False: int8 / bf16 records read from the records (a tree that stages
     none), "forced": staged wherever they fit, whatever an SM then holds
-    (True: as ops/cuda_graph._records_place chooses)."""
+    (True: as ops/cuda_graph._records_place chooses); ``visited_shared``
+    the same for a visited set (False: in device memory, as a tree before
+    the sets' placement keeps it; True: as _visited_place chooses;
+    "padded": in device memory, the block's shared bytes counting the set
+    wherever it fits, for the sets-padded build)."""
     widest = cg.MAX_WALK_QUEUE
     cg.MAX_WALK_QUEUE = MAX_QUEUE.get(variant, widest)  # its source's layout
     blocks = cg.WALK_MIN_BLOCKS, cg.WIDE_MIN_BLOCKS
-    if staged == "forced":          # no residency to keep
+    if "forced" in (staged, visited_shared) or visited_shared == "padded":
+        # no residency to keep
         cg.WALK_MIN_BLOCKS, cg.WIDE_MIN_BLOCKS = {128: 0, 256: 0}, 0
     try:
         src = cg._check_walk_args(graph, queries, ef, cand_cap, t,
-                                  metric_value, **operands)
+                                  metric_value, visited_slots=visited_slots,
+                                  **operands)
         if not pq_table:
             src = src._replace(pq=None)
         if not staged:
             src = src._replace(stage=None)
-        smem, held, slots = cg._walk_layout(ef, cand_cap, t, graph.max_m,
-                                            graph.dims, src.pq, src.stage)
+        vis = (cg._visited_words(graph, visited_slots)
+               if visited_slots >= 0 else 0)
+        smem, held, slots, wide, shared = cg._walk_plan(
+            ef, cand_cap, t, graph.max_m, graph.dims, src.pq, graph.capacity,
+            visited_slots < 0, src.stage, vis if visited_shared else 0)
         if variant == "dense":
             smem -= 4 * held + 8 * slots
         if variant == "one-block" and max(ef, cand_cap) > widest:
             smem += ONE_BLOCK_PAD
+        if visited_shared == "padded":
+            shared = False
+        plan = cg.WalkLaunch(smem, shared, wide, 0 if shared else vis)
         return cg._launch_walk(lib, graph, queries, src, ef=ef,
                                cand_cap=cand_cap, t=t,
-                               metric_value=metric_value, smem=smem)
+                               metric_value=metric_value, plan=plan,
+                               visited_slots=visited_slots)
     finally:
         cg.MAX_WALK_QUEUE = widest
         cg.WALK_MIN_BLOCKS, cg.WIDE_MIN_BLOCKS = blocks
@@ -1181,6 +1313,149 @@ def placements_main(args, rows: bool) -> int:
     return 0 if ok else 1
 
 
+def sets_cases(n: int, small: bool):
+    """--mode sets' walks on an index of ``n`` rows: (label, visited_slots,
+    ef = cand_cap, T, queries) of each timed walk.  On the main index: the
+    hash set at 8,192 slots (the API's at ef 64) and 16,384 (at ef 128)
+    and the bitmap, at T = 4 and 8 (16,384 at T = 8), then both sets in
+    the wide instances at ef 5,120 on 64 queries; on the small index, the
+    bitmap at T = 4 and 8."""
+    if small:
+        for t in (4, 8):
+            yield f"bitmap, {n} rows, T={t}", 0, 64, t, 1024
+        return
+    for t in (4, 8):
+        yield f"hash 8192, T={t}", 8192, 64, t, 1024
+    yield "hash 16384, ef=128, T=8", 16384, 128, 8, 1024
+    for t in (4, 8):
+        yield f"bitmap, {n} rows, T={t}", 0, 64, t, 1024
+    for slots in (0, 8192):
+        yield (f"{'hash 8192' if slots else 'bitmap'} wide, ef=5120, T=8",
+               slots, 5120, 8, 64)
+
+
+def sets_main(args) -> int:
+    """--mode sets: the bitmap and hash sets' walks against the earlier
+    tree's, the twin and the dense float32 rows' walks (see the module's
+    note)."""
+    from . import HnswConfig, HnswIndex
+    from .core import search as core_search
+    from .utils.io import synthetic_clustered
+    libs = placement_libs(args, SETS_BUILDS)
+    before = "before" in libs
+    for name in libs:
+        with open(os.path.join(OUT, name + ".so.log")) as f:
+            reports = ptxas_reports(f.read())
+        for fn, (regs, spill) in sorted(reports.items()):
+            # the float32 rows' instances: dense (Lb1E), the sets' (Lb0E),
+            # the wide one
+            if re.search(r"beam_walk(_kernelILi0ELb[01]E|_wide_kernelILi0E)",
+                         fn):
+                print(f"ptxas {name} {fn}: {regs} registers; {spill}",
+                      flush=True)
+    ok = True
+    for n, small in ((args.n, False), (SETS_SMALL_N, True)):
+        pts, qs = synthetic_clustered(n, 128, 1_000, seed=12345,
+                                      n_queries=1024)
+        idx = HnswIndex(HnswConfig(dims=128, m=16, ef_construction=64,
+                                   ef_search=64), device="cuda")
+        idx.build(pts)
+        del pts
+        g, q_all = idx.graph, torch.as_tensor(qs, device="cuda")
+        if not small:
+            for t in (4, 8):
+                kw = dict(ef=64, cand_cap=64, t=t, metric_value=0)
+                names = ["kernel", *(["before"] * before)]
+                ms = {m: [] for m in names}
+                for m in (*names, *names[::-1]):
+                    ms[m].append(device_ms(lambda: walk(libs[m], g, q_all,
+                                                        **kw), args.reps))
+                for m in names:
+                    print(f"f32 rows dense T={t} {m} (ms on the card, in "
+                          f"turns): " + " / ".join(f"{x:.4f}" for x in ms[m]),
+                          flush=True)
+        for label, slots, ef, t, b in sets_cases(n, small):
+            q = q_all[:b]
+            kw = dict(ef=ef, cand_cap=ef, t=t, metric_value=0,
+                      visited_slots=slots)
+            words = cg._visited_words(g, slots)
+            shared = cg._walk_plan(ef, ef, t, g.max_m, g.dims, None,
+                                   g.capacity, False, None, words)[4]
+            plain = cg._walk_smem_bytes(ef, ef, t, g.max_m, g.dims, None)
+            wide = ef > cg.MAX_WALK_QUEUE
+            # the set's bytes where it fits a table instance's block,
+            # whatever an SM then holds
+            room = 0 if wide else cg._visited_place(words, plain, 0)[0]
+            # each run: (library, visited_shared)
+            runs = {"kernel": ("kernel", True),
+                    "phase-2 reads": ("sets-phase-2", True)}
+            if slots:
+                runs["warp-0 writes"] = ("sets-warp-0", True)
+            if shared:
+                runs["device forced"] = ("kernel", False)
+            elif room:
+                runs["shared forced"] = ("kernel", "forced")
+            if room:
+                runs["device, padded"] = ("sets-padded", "padded")
+            if not wide:
+                runs["end of dynamic smem"] = ("sets-dyn-end", shared)
+            if before:
+                runs["before"] = ("before", False)
+            blocks = {
+                s: walk_blocks(libs["kernel"], 0, False, t, g.max_m, smem,
+                               dense=False, wide=wide)
+                for s, smem in ((True, plain + room), (False, plain))}
+            where = "shared" if shared else "device memory"
+            label = (f"{label} ({words} words a query, kept in {where}; "
+                     f"{plain} bytes of shared memory a block without the "
+                     f"set, {blocks[False]} blocks an SM"
+                     + (f"; {plain + room} with it, {blocks[True]}"
+                        if room else "") + ")")
+            got = {m: walk(libs[lib], g, q, **kw, visited_shared=vs)
+                   for m, (lib, vs) in runs.items()}
+            for m, out in got.items():
+                same = all(torch.equal(a, c)
+                           for a, c in zip(out, got["kernel"]))
+                print(f"{label} {m}: ids, distances, hops and evals equal to "
+                      f"the kernel's: {same}", flush=True)
+                ok &= same
+            if b == 1024 and t == 8:
+                want = core_search._search_batch(
+                    g, q, ef=ef, metric_value=0, cand_cap=ef, expand_width=t,
+                    visited_slots=slots)
+                same = ((got["kernel"][1] == want[1]).all(dim=1)
+                        & (got["kernel"][2] == want[2])
+                        & (got["kernel"][3] == want[3]))
+                print(f"{label} vs the twin: ids, hops and evals equal on "
+                      f"{int(same.sum())} of {b} queries", flush=True)
+            fill = device_ms(lambda: cg._device_visited(
+                b, words, slots, True, q.device), args.reps)
+            print(f"{label}: the wrapper's fill of a device set "
+                  f"{fill:.4f} ms on the card", flush=True)
+            ms = {m: [] for m in runs}
+            for m in (*runs, *list(runs)[::-1]) * args.turns:
+                lib, vs = runs[m]
+                ms[m].append(device_ms(lambda: walk(
+                    libs[lib], g, q, **kw, visited_shared=vs), args.reps))
+            hops = float(got["kernel"][2].float().mean())
+            for m in runs:
+                print(f"{label} {m} ({hops:.2f} hops a query; ms on the "
+                      f"card, in turns): "
+                      + " / ".join(f"{x:.4f}" for x in ms[m]), flush=True)
+            for name in SETS_PROFILES:
+                if name not in libs:
+                    continue
+                r = walk_phases(libs[name], g, q, **kw,
+                                visited_shared=name != "before-profile")
+                print(f"{label} {name} cycles a block-step "
+                      f"({r['steps']:.2f} steps a block; setup: a block): "
+                      f"{format_cycles(r['cycles'])}", flush=True)
+        del idx, g, q_all
+        torch.cuda.empty_cache()
+    print(f"sets: every check held: {ok}", flush=True)
+    return 0 if ok else 1
+
+
 def format_cycles(cycles: dict) -> str:
     return ", ".join(f"{k} {v:,.0f}" for k, v in cycles.items())
 
@@ -1235,10 +1510,15 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=None,
                     help="calls a CUDA graph replays (20; --mode wide 3)")
     ap.add_argument("--mode", choices=("walk", "wiring", "wide", "pq",
-                                       "records", "rows"), default="walk")
-    ap.add_argument("--before", help="--mode wide / pq / records / rows: an "
+                                       "records", "rows", "sets"),
+                    default="walk")
+    ap.add_argument("--before", help="--mode wide / pq / records / rows / "
+                    "sets: an "
                     "earlier tree's csrc/beam_walk.cu, timed beside the "
                     "kernel")
+    ap.add_argument("--turns", type=int, default=1,
+                    help="--mode sets: rounds of timings in turns (each in "
+                    "order, then reversed)")
     args = ap.parse_args()
     if args.reps is None:
         args.reps = 3 if args.mode == "wide" else 20
@@ -1257,9 +1537,12 @@ def main() -> int:
         return pq_main(args)
     if args.mode in ("records", "rows"):
         return placements_main(args, args.mode == "rows")
+    if args.mode == "sets":
+        return sets_main(args)
     libs = build_all(tuple(n for n in VARIANTS
                            if n not in WIDE_BUILDS + RECORDS_BUILDS
-                           + ROWS_BUILDS or n in ("kernel", "profile")))
+                           + ROWS_BUILDS + SETS_BUILDS
+                           or n in ("kernel", "profile")))
     for name in libs:
         with open(os.path.join(OUT, name + ".so.log")) as f:
             for line in f:

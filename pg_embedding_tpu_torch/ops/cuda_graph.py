@@ -21,7 +21,8 @@ launch:
     codebook (with OPQ's rotated query; the codes read through a
     per-query distance table in shared memory, whose plain form is
     pq_walk_table_plain and pq_walk_score_plain), the dense dedupe or the
-    bitmap or hash visited set, any metric and T, and ef and cand_cap up
+    bitmap or hash visited set (in the block's shared memory where it
+    fits, _visited_place), any metric and T, and ef and cand_cap up
     to MAX_WIDE_QUEUE (queues wider than MAX_WALK_QUEUE in the wide
     instances, which keep the held set from step to step;
     core/search.walk_route sends every walk on the card here).
@@ -82,6 +83,11 @@ SMEM_LIMIT = 232_448                # bytes of shared memory a block can use
 SM_SMEM, BLOCK_RESERVED = 233_472, 1_024
 WALK_MIN_BLOCKS = {128: 5, 256: 4}
 WIDE_MIN_BLOCKS = 2
+# the most shared memory an SM's blocks may take in all where a walk keeps
+# its visited set there: 196 KB, the carveout one step below the largest
+# (228 KB), so that the SM keeps 60 of its 256 KB as L1 for the rows and
+# links the walk reads (_visited_place's rule alone reads it)
+SET_SM_SMEM = 200_704
 # device memory a launch may take for its queries' visited sets and wide
 # queues; larger batches are walked in chunks of queries, a launch each
 SCRATCH_BYTES = 1 << 30
@@ -150,6 +156,15 @@ def _blocks_by_smem(smem: int) -> int:
     return SM_SMEM // (smem + BLOCK_RESERVED)
 
 
+def _keeps_blocks(used: int, nbytes: int, min_blocks: int) -> bool:
+    """Whether ``nbytes`` more beside ``used`` fit SMEM_LIMIT and leave an
+    SM as many blocks as ``used`` alone does, up to ``min_blocks`` (the
+    blocks it holds of the instance by its registers)."""
+    keep = min(min_blocks, _blocks_by_smem(used))
+    return (used + nbytes <= SMEM_LIMIT
+            and _blocks_by_smem(used + nbytes) >= keep)
+
+
 def _records_place(stage: Optional[RecordsStage], t: int, max_m: int,
                    dims: int, used: int, min_blocks: int,
                    at: Optional[int] = None) -> tuple:
@@ -191,19 +206,68 @@ def _records_place(stage: Optional[RecordsStage], t: int, max_m: int,
     nbytes = -(-t * max_m * dims * stage.itemsize // 16) * 16
     if stage.scales:
         nbytes += -(-t * max_m * 4 // 16) * 16
-    keep = min(min_blocks, _blocks_by_smem(used))
-    if (used + nbytes > SMEM_LIMIT
-            or _blocks_by_smem(used + nbytes) < keep):
+    if not _keeps_blocks(used, nbytes, min_blocks):
+        return 0, False
+    return nbytes, True
+
+
+def _visited_place(words: int, used: int, min_blocks: int) -> tuple:
+    """Where a table instance keeps the query's bitmap or hash visited set
+    of ``words`` int32 (0: none), given ``used``, the shared bytes of the
+    rest of the block's layout, and ``min_blocks``, the blocks an SM holds
+    of the instance by its registers: (shared bytes, shared).  In shared
+    memory after every other part, from the next 16-byte boundary (a hash
+    bucket is one 16-byte load), where it fits beside ``used`` within
+    SMEM_LIMIT, an SM still holds as many blocks as without it (up to
+    ``min_blocks``: the rule _records_place applies to staged rows), and
+    those blocks take at most SET_SM_SMEM of the SM's shared memory with
+    it, leaving the SM 60 KB of L1; else (0, False): the set stays in
+    device memory, filled by the wrapper.  ``min_blocks`` 0: wherever it
+    fits (a probe's or a test's forced placement).  csrc/beam_walk.cu's
+    vis_place checks the fit again, and the launch keeps the set there
+    where the shared bytes passed count it and no device set is passed:
+    the residency rule lives here alone.
+
+    At config 1's shapes (ef 64, maxM 32, D 128, f32 rows) the API's hash
+    set of 8,192 slots (32,768 B) is shared at T = 1 and 8 (T = 8: 46,624
+    B a block, 4 blocks an SM as without it, 190,592 B an SM with their
+    reserve), in device memory at T = 4 (41,504 B a block, 5 blocks: 212,640
+    B an SM, past SET_SM_SMEM); at ef 128 its 16,384 slots would leave 2
+    blocks an SM of 4 at T = 8, so they stay in device memory.  The
+    bitmap, a bit an id of the graph's capacity, is shared for a 100k-row
+    index (3,133 words at its capacity: 12,544 B); a 1M-row index's
+    (31,680 words, 126,720 B) would leave 1 block an SM.
+
+    The rule is measured (graph_probe --mode sets, ef 64, float32 rows,
+    NVIDIA H100 80GB HBM3 at 700 W, each comparison in turns in one call):
+    a shared set that costs no block and leaves the L1 wins (the hash set
+    at T = 8 0.710-0.713 ms against 0.729-0.733 in device memory; the
+    100k-row bitmap at T = 4 / 8 0.296-0.300 / 0.291-0.294 against
+    0.305-0.308 / 0.307-0.308); the hash set at T = 4 loses (0.670-0.677
+    against 0.670-0.674 in device memory, behind in 10 of 12 pairs over
+    two calls): the device set in a block padded to the shared one's bytes
+    runs 0.720-0.723, so the sets' 160 KB an SM, which leave it 28 KB of
+    L1, cost the walk about what the shared set saves; a set that costs
+    blocks loses (the 16,384-slot hash set at ef 128, T = 8, 2 blocks an
+    SM: 1.380-1.383 against 1.186-1.192; the 1M-row bitmap, 1 block:
+    1.564-1.567 against 0.709-0.715 at T = 8)."""
+    if words <= 0:
+        return 0, False
+    nbytes = -(-used // 16) * 16 - used + -(-4 * words // 16) * 16
+    blocks = min(min_blocks, _blocks_by_smem(used))
+    if (not _keeps_blocks(used, nbytes, min_blocks)
+            or blocks * (used + nbytes + BLOCK_RESERVED) > SET_SM_SMEM):
         return 0, False
     return nbytes, True
 
 
 def _walk_plan(ef: int, cand_cap: int, t: int, max_m: int, dims: int,
                pq: Optional[PqTable], capacity: int, dense: bool,
-               stage: Optional[RecordsStage] = None) -> tuple:
+               stage: Optional[RecordsStage] = None,
+               visited: int = 0) -> tuple:
     """One walk block's memory, as csrc/beam_walk.cu's walk_layout lays it
     out: (shared bytes, held-table slots, slot-table slots, int32 words of
-    device memory a query).
+    device memory a query, whether the visited set is in shared memory).
 
     Shared memory: the query row (D rounded up to 4 floats), the result
     and candidate queues twice over (d, id), 24 bytes per expansion slot
@@ -216,11 +280,15 @@ def _walk_plan(ef: int, cand_cap: int, t: int, max_m: int, dims: int,
     leaves; where they do not fit, the kernel dedupes by comparison and
     they take 0); then an int8 or bf16 records or rows source's staged
     rows (``stage``, _records_place: after every other part, where they
-    fit beside it, so nothing else moves).  Queues wider than
+    fit beside it, so nothing else moves); then a bitmap or hash visited
+    set of ``visited`` words (0: none) where _visited_place keeps it there
+    (else it is in device memory, its words not counted here:
+    _walk_launch).
+    Queues wider than
     MAX_WALK_QUEUE take the wide instances: the least part (_walk_fixed),
     the PQ part or the staged rows, then each queue once (d, id; the
     candidate ring of _walk_ring entries) where that fits SMEM_LIMIT; no
-    held table.  Device
+    held table, and the visited set in device memory.  Device
     memory a query: 0 where both queues
     fit MAX_WALK_QUEUE, else the held set of the dense dedupe (two bits an
     id of ``capacity``, kept from step to step), then the queues where they
@@ -246,11 +314,11 @@ def _walk_plan(ef: int, cand_cap: int, t: int, max_m: int, dims: int,
             rec, _ = _records_place(stage, t, max_m, dims, fixed + queues,
                                     WIDE_MIN_BLOCKS, fixed)
             return (fixed + rec + queues, 0, slots,
-                    _with_pq_words(held, pq_words))
+                    _with_pq_words(held, pq_words), False)
         rec, _ = _records_place(stage, t, max_m, dims, fixed,
                                 WIDE_MIN_BLOCKS)
         return (fixed + rec, 0, slots,
-                _with_pq_words(held + queues // 4, pq_words))
+                _with_pq_words(held + queues // 4, pq_words), False)
     held, slots = _pow2_at_least(2 * (ef + cand_cap)), _pow2_at_least(2 * tm)
     base = 4 * (-(-dims // 4) * 4) + 16 * (ef + cand_cap) + 24 * tm + 32
     if base > SMEM_LIMIT:
@@ -263,9 +331,10 @@ def _walk_plan(ef: int, cand_cap: int, t: int, max_m: int, dims: int,
     tables = 4 * held + 8 * slots
     if base + tables > SMEM_LIMIT:
         held = slots = tables = 0
-    rec, _ = _records_place(stage, t, max_m, dims, base + tables,
-                            WALK_MIN_BLOCKS[_walk_threads(t, max_m)])
-    return base + tables + rec, held, slots, pq_words
+    min_blocks = WALK_MIN_BLOCKS[_walk_threads(t, max_m)]
+    rec, _ = _records_place(stage, t, max_m, dims, base + tables, min_blocks)
+    vis, shared = _visited_place(visited, base + tables + rec, min_blocks)
+    return base + tables + rec + vis, held, slots, pq_words, shared
 
 
 def _walk_threads(t: int, max_m: int) -> int:
@@ -283,13 +352,14 @@ def _with_pq_words(words: int, pq_words: int) -> int:
 
 def _walk_layout(ef: int, cand_cap: int, t: int, max_m: int, dims: int,
                  pq: Optional[PqTable],
-                 stage: Optional[RecordsStage] = None) -> tuple:
+                 stage: Optional[RecordsStage] = None,
+                 visited: int = 0) -> tuple:
     """Shared memory of one walk block (_walk_plan): (bytes, held-table
     slots, slot-table slots).  ``pq``: a PQ source's table (None for the
     other sources); ``stage``: an int8 or bf16 records or rows
-    source's."""
+    source's; ``visited``: a bitmap or hash set's words."""
     return _walk_plan(ef, cand_cap, t, max_m, dims, pq, 0, False,
-                      stage)[:3]
+                      stage, visited)[:3]
 
 
 def _walk_fixed(t: int, max_m: int, dims: int) -> int:
@@ -319,10 +389,41 @@ def _walk_wide_words(ef: int, cand_cap: int, t: int, max_m: int, dims: int,
 
 def _walk_smem_bytes(ef: int, cand_cap: int, t: int, max_m: int,
                      dims: int, pq: Optional[PqTable],
-                     stage: Optional[RecordsStage] = None) -> int:
+                     stage: Optional[RecordsStage] = None,
+                     visited: int = 0) -> int:
     """The bytes of _walk_layout: what the launch passes and the C side
     checks."""
-    return _walk_layout(ef, cand_cap, t, max_m, dims, pq, stage)[0]
+    return _walk_layout(ef, cand_cap, t, max_m, dims, pq, stage,
+                        visited)[0]
+
+
+class WalkLaunch(NamedTuple):
+    """One beam_walk launch's plan (_walk_plan): its shared bytes a block,
+    whether a bitmap or hash visited set is in them (each block fills its
+    own, and no device set is passed), the walk's own device words a
+    query (the wide walks' held set and queues, a PQ table: the kernel's
+    wide_words) and a visited set's where it is in device memory (filled
+    by the wrapper).  ``words`` is what SCRATCH_BYTES chunks a batch by."""
+    smem: int
+    visited_shared: bool
+    wide_words: int
+    set_words: int
+
+    @property
+    def words(self) -> int:
+        return self.wide_words + self.set_words
+
+
+def _walk_launch(graph, src: "WalkSource", ef: int, cand_cap: int, t: int,
+                 visited_slots: int) -> WalkLaunch:
+    """The launch _walk_plan lays out for a walk of ``src`` over
+    ``graph`` under the visited set ``visited_slots`` (-1: the dense
+    dedupe)."""
+    vis = _visited_words(graph, visited_slots) if visited_slots >= 0 else 0
+    smem, _, _, wide, shared = _walk_plan(
+        ef, cand_cap, t, graph.max_m, src.query.shape[1], src.pq,
+        graph.capacity, visited_slots < 0, src.stage, vis)
+    return WalkLaunch(smem, shared, wide, 0 if shared else vis)
 
 
 def records_staging(ef: int, cand_cap: int, t: int, max_m: int, dims: int,
@@ -560,9 +661,12 @@ def beam_walk(graph, queries: torch.Tensor, *, ef: int, metric_value: int,
     The entry distance (to node 0) is the twin's own torch op on the
     original queries and corpus row, so both walks start from the same
     bits (and the records, which hold no row of the entry, need none).
-    The bitmap and hash sets, and the wide walks' held set and queues
-    that do not fit in shared memory, live in device memory, SCRATCH_BYTES
-    at most a launch: a larger batch is walked in chunks.  A PQ walk's
+    The bitmap and hash sets live in each block's shared memory where a
+    table instance has room for them and an SM keeps its blocks
+    (_visited_place), else in device memory; those, and the wide walks'
+    held set and queues that do not fit in shared memory, take
+    SCRATCH_BYTES at most a launch: a larger batch is walked in chunks
+    (_walk_launch).  A PQ walk's
     blocks each build the query's distance table in shared memory and
     stage each step's codes beside it, or, where they do not fit a block,
     read the codes from the records, or keep the table in device memory
@@ -590,22 +694,16 @@ def beam_walk(graph, queries: torch.Tensor, *, ef: int, metric_value: int,
                            pq_codebook=pq_codebook, query_t=query_t,
                            visited_slots=visited_slots)
     lib = _kernels.load_library()
-    smem = _walk_smem_bytes(ef, cand_cap, t, graph.max_m, queries.shape[1],
-                            src.pq, src.stage)
+    plan = _walk_launch(graph, src, ef, cand_cap, t, visited_slots)
     b = queries.shape[0]
-    words = (_walk_wide_words(ef, cand_cap, t, graph.max_m,
-                              queries.shape[1], graph.capacity,
-                              visited_slots < 0, src.pq)
-             + (_visited_words(graph, visited_slots)
-                if visited_slots >= 0 else 0))
-    step = max(1, SCRATCH_BYTES // (4 * words)) if words else b
+    step = max(1, SCRATCH_BYTES // (4 * plan.words)) if plan.words else b
     outs = []
     for lo in range(0, max(b, 1), step):
         hi = min(lo + step, b)
         outs.append(_launch_walk(
             lib, graph, queries[lo:hi], src._replace(query=src.query[lo:hi]),
             ef=ef, cand_cap=cand_cap, t=t, metric_value=metric_value,
-            smem=smem, visited_slots=visited_slots))
+            plan=plan, visited_slots=visited_slots))
         if hi > lo:                                     # b = 0: no launch
             LAUNCHES["beam_walk"] += 1
             WALK_VARIANTS[src.variant] = WALK_VARIANTS.get(src.variant,
@@ -622,12 +720,26 @@ def _visited_words(graph, visited_slots: int) -> int:
     return -(-graph.capacity // 32) if visited_slots == 0 else visited_slots
 
 
+def _device_visited(b: int, words: int, visited_slots: int, has_nodes: bool,
+                    dev) -> torch.Tensor:
+    """``b`` queries' visited sets of ``words`` in device memory, as the
+    twin starts them: the bitmap zeroed, the hash table -1, node 0 held
+    (its bit; slot 0 of its bucket) when the graph has nodes."""
+    visited = torch.full((b, words), 0 if visited_slots == 0 else -1,
+                         dtype=torch.int32, device=dev)
+    if has_nodes:
+        visited[:, 0] = 1 if visited_slots == 0 else 0
+    return visited
+
+
 def _launch_walk(lib, graph, queries, src: WalkSource, *, ef, cand_cap, t,
-                 metric_value, smem, visited_slots=-1):
+                 metric_value, plan: WalkLaunch, visited_slots=-1):
     """One launch of ``lib``'s beam_walk on checked arguments (the
-    wrapper's library, or a probe's build of the same source).  The
-    bitmap starts zeroed and the hash table empty (-1), each holding node
-    0 when the graph has nodes, as the twin's do; a walk with queues
+    wrapper's library, or a probe's build of the same source) as ``plan``
+    lays it out (_walk_launch).  The bitmap starts zeroed and the hash
+    table empty (-1), each holding node 0 when the graph has nodes, as the
+    twin's do: filled here in device memory where the plan has a device
+    set, else by each block in its shared memory; a walk with queues
     wider than MAX_WALK_QUEUE, or a PQ table that does not fit a block,
     gets its device memory here, zeroed (the held set starts empty; the
     kernel fills the queues and builds the table)."""
@@ -645,19 +757,11 @@ def _launch_walk(lib, graph, queries, src: WalkSource, *, ef, cand_cap, t,
                                  metric_value)[:, 0].contiguous()
     else:
         entry = out_d[:, 0]                 # never read
-    visited, vis_n = None, 0
-    if visited_slots >= 0:
-        vis_n = _visited_words(graph, visited_slots)
-        empty = 0 if visited_slots == 0 else -1
-        visited = torch.full((b, vis_n), empty, dtype=torch.int32,
-                             device=dev)
-        if has_nodes:
-            visited[:, 0] = 1 if visited_slots == 0 else 0
-    wide_words = _walk_wide_words(ef, cand_cap, t, graph.max_m, dims,
-                                  graph.capacity, visited_slots < 0,
-                                  src.pq)
-    wide = (torch.zeros((b, wide_words), dtype=torch.int32, device=dev)
-            if wide_words else None)
+    vis_n = _visited_words(graph, visited_slots) if visited_slots >= 0 else 0
+    visited = (_device_visited(b, plan.set_words, visited_slots, has_nodes,
+                               dev) if plan.set_words else None)
+    wide = (torch.zeros((b, plan.wide_words), dtype=torch.int32, device=dev)
+            if plan.wide_words else None)
 
     def ptr(x):
         return None if x is None else x.data_ptr()
@@ -669,7 +773,7 @@ def _launch_walk(lib, graph, queries, src: WalkSource, *, ef, cand_cap, t,
             src.query.data_ptr(), entry.data_ptr(), ptr(visited), ptr(wide),
             src.elem, int(src.records), int(has_nodes), b, dims, graph.max_m,
             t, ef, cand_cap, metric_value, groups, visited_slots, vis_n,
-            graph.capacity, smem, wide_words, out_d.data_ptr(),
+            graph.capacity, plan.smem, plan.wide_words, out_d.data_ptr(),
             out_i.data_ptr(), hops.data_ptr(),
             evals.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _kernels.check(lib, err, "beam_walk")

@@ -101,6 +101,27 @@ SOURCES = ("rows f32", "rows bf16", "rows int8", "records f32",
 VISITED = {"dense": -1, "bitmap": 0, "hash": 8192}
 
 
+def sets_in_device_memory(monkeypatch):
+    """Every walk from here on keeps its visited set in device memory: the
+    placement rule (ops/cuda_graph._visited_place) refuses shared memory.
+    The integer fixture's sets under float32 rows fit every table
+    instance's block (its bitmap is 94 words), so this is how its tests
+    reach the other placement."""
+    from pg_embedding_tpu_torch.ops import cuda_graph as cg
+    monkeypatch.setattr(cg, "_visited_place",
+                        lambda words, used, min_blocks: (0, False))
+
+
+def sets_in_shared_memory(monkeypatch):
+    """Every walk from here on keeps its visited set in a table instance's
+    shared memory wherever it fits, whatever an SM then holds (the rule
+    with no residency to keep)."""
+    from pg_embedding_tpu_torch.ops import cuda_graph as cg
+    rule = cg._visited_place
+    monkeypatch.setattr(cg, "_visited_place",
+                        lambda words, used, min_blocks: rule(words, used, 0))
+
+
 def repeated_links(arrays, seed=13):
     """The integer graph with heavily repeated links: each row's slots
     draw from its first four links and a small shared pool, so ids repeat
@@ -586,15 +607,19 @@ def test_beam_walk_repeated_links(cuda, int_graphs, metric, width, ef, cap):
 @pytest.mark.parametrize("metric", ["l2", "manhattan"])
 @pytest.mark.parametrize("width,ef,cap", [(1, 16, 16), (4, 64, 128),
                                           (8, 64, 128), (4, 5120, 5120)])
-def test_beam_walk_variants_bit_equal(cuda, int_graphs, source, visited,
-                                      metric, width, ef, cap):
+def test_beam_walk_variants_bit_equal(cuda, int_graphs, monkeypatch, source,
+                                      visited, metric, width, ef, cap):
     """Every row source under every visited set on the integer fixture:
     the kernel's ids, distances, hops and dist_evals equal the twin's on
     the card on the same operands (the twin writes the hash set's colliding
     ids deterministically, the highest slot winning), before and after
     finish_walk; the launch is counted under the variant's name.  At ef =
     cand_cap = 5120 (where the API's widening from ef_search 40 lands) the
-    queues live in device memory."""
+    queues live in device memory.  A set in a table instance is walked in
+    the placement the rule takes (shared memory, or device memory where
+    it would cost an SM a block: the hash set beside a PQ table or staged
+    rows at T = 8) and again in the other one, forced: the same answers;
+    the wide instances keep it in device memory."""
     from pg_embedding_tpu_torch.core import search as ts
     from pg_embedding_tpu_torch.ops import cuda_graph as cg
     arrays, qs = int_graphs[metric]
@@ -604,6 +629,19 @@ def test_beam_walk_variants_bit_equal(cuda, int_graphs, source, visited,
     gc, kc = on_device(g, kw, cuda)
     q = q.to(cuda)
     name = f"{source}, {visited}"
+    src = cg._check_walk_args(gc, q, ef, cap, width, METRICS[metric],
+                              visited_slots=VISITED[visited], **kc)
+    table_set = visited != "dense" and ef <= cg.MAX_WALK_QUEUE
+    shared = cg._walk_launch(gc, src, ef, cap, width,
+                             VISITED[visited]).visited_shared
+    assert shared == (table_set and cg._walk_plan(
+        ef, cap, width, gc.max_m, D, src.pq, gc.capacity, False, src.stage,
+        cg._visited_words(gc, VISITED[visited]))[4])
+    # float32 rows: every set is shared but the 8,192-slot hash set at
+    # (64, 128) and T = 4 or 8, whose 5 blocks an SM would take more than
+    # SET_SM_SMEM with it
+    assert shared or not table_set or source != "rows f32" or (
+        visited == "hash" and cap == 128 and width > 1)
     before = (cg.LAUNCHES["beam_walk"], cg.WALK_VARIANTS.get(name, 0))
     got = cg.beam_walk(gc, q, **walk, **kc)
     torch.cuda.synchronize()
@@ -617,6 +655,14 @@ def test_beam_walk_variants_bit_equal(cuda, int_graphs, source, visited,
     _assert_bit_equal(ts.finish_walk(gc, q, *got[:2], **fin),
                       ts.finish_walk(gc, q, *want[:2], **fin))
     assert bool((got[2] > 1).all())
+    if table_set:
+        if shared:
+            sets_in_device_memory(monkeypatch)
+        else:
+            sets_in_shared_memory(monkeypatch)
+        assert cg._walk_launch(gc, src, ef, cap, width,
+                               VISITED[visited]).visited_shared != shared
+        _assert_bit_equal(cg.beam_walk(gc, q, **walk, **kc), want)
 
 
 @pytest.mark.parametrize("source", ["records int8", "records bf16"])
@@ -733,7 +779,8 @@ def test_records_walk_takes_the_launchs_placement(cuda, int_graphs, source):
                           want)
         assert walk_blocks(lib, src.elem, staged, 8, gc.max_m, smem) > 0
     with pytest.raises(RuntimeError):
-        cg._launch_walk(lib, gc, qc, src, **shape, smem=plain + rec + 16)
+        cg._launch_walk(lib, gc, qc, src, **shape,
+                        plan=cg.WalkLaunch(plain + rec + 16, False, 0, 0))
 
 
 @pytest.mark.parametrize("dims,groups", [(32, 2), (32, 4), (32, 16),
@@ -886,36 +933,48 @@ def test_widening_past_4096_runs_the_kernel(cuda):
     assert (np.sort(l, axis=1) == np.sort(le, axis=1)).all()
 
 
-def test_beam_walk_small_hash_table(cuda, int_graphs):
+def test_beam_walk_small_hash_table(cuda, int_graphs, monkeypatch):
     """A 64-slot hash table: ids collide on a slot within a step, entries
     are overwritten and walks re-expand nodes (their dist_evals leave the
     dense walk's); bit-equal to the twin on the card, where the highest
-    slot's write wins as it does on the CPU."""
+    slot's write wins as it does on the CPU, with the table in the block's
+    shared memory (the rule's placement: 256 bytes) and forced into device
+    memory."""
     from pg_embedding_tpu_torch.core import search as ts
     from pg_embedding_tpu_torch.ops import cuda_graph as cg
-    for metric in ("l2", "manhattan"):
-        arrays, qs = int_graphs[metric]
-        g = _card_graph(arrays, cuda)
-        q = torch.from_numpy(qs).to(cuda)
-        for width in (1, 4, 8):
-            walk = dict(ef=32, metric_value=METRICS[metric], cand_cap=32,
-                        expand_width=width, visited_slots=64)
-            got, want = _walk_pair(g, q, **walk)
-            _assert_bit_equal(got, want)
-            dense = ts._search_batch(g, q, **dict(walk, visited_slots=-1))
-            assert bool((want[3] != dense[3]).any())
-            cpu = ts._search_batch(on_device(g, {}, "cpu")[0], q.cpu(),
-                                   **walk)
-            _assert_bit_equal([x.cpu() for x in want], cpu)
+    for device in (False, True):
+        if device:
+            sets_in_device_memory(monkeypatch)
+        for metric in ("l2", "manhattan"):
+            arrays, qs = int_graphs[metric]
+            g = _card_graph(arrays, cuda)
+            q = torch.from_numpy(qs).to(cuda)
+            for width in (1, 4, 8):
+                walk = dict(ef=32, metric_value=METRICS[metric],
+                            cand_cap=32, expand_width=width,
+                            visited_slots=64)
+                src = cg._check_walk_args(g, q, 32, 32, width,
+                                          METRICS[metric], visited_slots=64)
+                assert cg._walk_launch(g, src, 32, 32, width,
+                                       64).visited_shared != device
+                got, want = _walk_pair(g, q, **walk)
+                _assert_bit_equal(got, want)
+                dense = ts._search_batch(g, q, **dict(walk,
+                                                      visited_slots=-1))
+                assert bool((want[3] != dense[3]).any())
+                cpu = ts._search_batch(on_device(g, {}, "cpu")[0], q.cpu(),
+                                       **walk)
+                _assert_bit_equal([x.cpu() for x in want], cpu)
 
 
 @pytest.mark.parametrize("visited_slots,ef", [(0, 32), (8192, 32),
                                                (-1, 5120), (0, 5120)])
 def test_beam_walk_chunks_the_visited_sets(cuda, int_graphs, monkeypatch,
                                            visited_slots, ef):
-    """A batch whose visited sets and wide queues pass SCRATCH_BYTES is
-    walked in chunks of queries, a launch each, with the answers of one
-    launch."""
+    """A batch whose visited sets in device memory and wide queues pass
+    SCRATCH_BYTES is walked in chunks of queries, a launch each, with the
+    answers of one launch.  The fixture's sets at ef 32 fit the block's
+    shared memory, so those cases force them into device memory."""
     from pg_embedding_tpu_torch.ops import cuda_graph as cg
     arrays, qs = int_graphs["l2"]
     g, q, _ = integer_operands(arrays, qs, "rows f32")
@@ -923,16 +982,67 @@ def test_beam_walk_chunks_the_visited_sets(cuda, int_graphs, monkeypatch,
     q = q.to(cuda)
     walk = dict(ef=ef, metric_value=0, cand_cap=ef, expand_width=4,
                 visited_slots=visited_slots)
+    if visited_slots >= 0 and ef <= cg.MAX_WALK_QUEUE:
+        sets_in_device_memory(monkeypatch)
     whole = cg.beam_walk(g, q, **walk)
     words = cg._walk_wide_words(ef, ef, 4, g.max_m, D, g.capacity,
                                 visited_slots < 0, None) + (
         cg._visited_words(g, visited_slots) if visited_slots >= 0 else 0)
+    src = cg._check_walk_args(g, q, ef, ef, 4, 0, visited_slots=visited_slots)
+    assert cg._walk_launch(g, src, ef, ef, 4, visited_slots).words == words
     monkeypatch.setattr(cg, "SCRATCH_BYTES", 4 * words * 10)
     before = cg.LAUNCHES["beam_walk"]
     got = cg.beam_walk(g, q, **walk)
     torch.cuda.synchronize()
     assert cg.LAUNCHES["beam_walk"] == before + -(-len(qs) // 10)
     _assert_bit_equal(got, whole)
+
+
+@pytest.mark.parametrize("visited_slots", [0, 8192])
+def test_shared_set_takes_no_device_set(cuda, int_graphs, monkeypatch,
+                                        visited_slots):
+    """A walk whose visited set is in the block's shared memory allocates
+    no device set (the blocks fill their own); one forced into device
+    memory has the wrapper fill one a launch.  Both bit-equal to the twin;
+    a launch that names the other placement (shared bytes counting the set
+    beside a device set, or a device layout without one) is refused.  At
+    (ef, cand_cap) = (16, 16), T = 8 the rule keeps both sets shared (at
+    (64, 128) the 8,192-slot one would take more than SET_SM_SMEM an
+    SM)."""
+    from pg_embedding_tpu_torch import _kernels
+    from pg_embedding_tpu_torch.ops import cuda_graph as cg
+    arrays, qs = int_graphs["l2"]
+    g = _card_graph(arrays, cuda)
+    q = torch.from_numpy(qs).to(cuda)
+    fills = []
+    fill = cg._device_visited
+    monkeypatch.setattr(cg, "_device_visited",
+                        lambda *a: fills.append(a) or fill(*a))
+    walk = dict(ef=16, metric_value=0, cand_cap=16, expand_width=8,
+                visited_slots=visited_slots)
+    got, want = _walk_pair(g, q, **walk)
+    _assert_bit_equal(got, want)
+    assert fills == []
+    src = cg._check_walk_args(g, q, 16, 16, 8, 0,
+                              visited_slots=visited_slots)
+    plan = cg._walk_launch(g, src, 16, 16, 8, visited_slots)
+    assert plan.visited_shared and plan.words == 0
+    lib = _kernels.load_library()
+    shape = dict(ef=16, cand_cap=16, t=8, metric_value=0,
+                 visited_slots=visited_slots)
+    plain = cg._walk_smem_bytes(16, 16, 8, g.max_m, D, None)
+    words = cg._visited_words(g, visited_slots)
+    for wrong in (cg.WalkLaunch(plan.smem, False, 0, words),
+                  cg.WalkLaunch(plain, True, 0, 0)):
+        with pytest.raises(RuntimeError):
+            cg._launch_walk(lib, g, q, src, plan=wrong, **shape)
+    assert len(fills) == 1
+    sets_in_device_memory(monkeypatch)
+    got = cg.beam_walk(g, q, **walk)
+    _assert_bit_equal(got, want)
+    assert len(fills) == 2 and fills[-1][:2] == (len(q),
+                                                 cg._visited_words(
+                                                     g, visited_slots))
 
 
 def test_beam_walk_bf16_rows_cosine(cuda, int_graphs):

@@ -204,11 +204,12 @@ def test_other_sources_keep_their_layout(ef, cap, t, max_m, dims, source):
     rows = 1_000_003
     for dense in (True, False):
         old = _old_walk_plan(ef, cap, t, max_m, dims, pq, rows, dense)
+        # the fifth figure: no visited set in shared memory (none asked)
         assert cg._walk_plan(ef, cap, t, max_m, dims, pq, rows,
-                             dense) == old
+                             dense) == (*old, False)
         got = cg._walk_plan(ef, cap, t, max_m, dims, pq, rows, dense, stage)
         staged = cg.records_staging(ef, cap, t, max_m, dims, stage)
-        assert got == (old[0] + staged, *old[1:])
+        assert got == (old[0] + staged, *old[1:], False)
         assert got[0] <= cg.SMEM_LIMIT
 
 
@@ -239,6 +240,32 @@ def test_constants_match_the_kernel():
         for dims, ok in ((16, True), (100, rows is False), (4, not rows)):
             stage = cg.RecordsStage(1, True, True, rows)
             assert cg._records_place(stage, 1, 4, dims, 0, 1)[1] == ok
+    # vis_place: a visited set after every other part, from the next
+    # 16-byte boundary, its words rounded up to 16 bytes, within the limit
+    # (_visited_place's figures), placed after the staged rows
+    assert "  const size_t at = round16(used);\n" \
+        "  const size_t bytes = at - used + round16(4 * words);\n" \
+        "  if (used + bytes > (size_t)kSmemLimit) return {0, 0};\n" in src
+    assert "const VisPlace vis = vis_place(vis_words, used + rec.smem);" \
+        in src
+    assert "const VisPlace vis = vis_place(vis_words, base + rec.smem);" \
+        in src
+    # the kernel finds a shared set after the layout's other parts: past
+    # the slot table, a PQ source's part and the staged rows, from a
+    # 16-byte boundary, as vis_place lays it out
+    assert "      size_t at = region - smem;\n" \
+        "      if constexpr (is_pq(kElem))\n" \
+        "        at += pq_region_bytes<kElem>(src, metric, T, maxM);\n" \
+        "      if constexpr (is_staged(kElem))\n" \
+        "        at += rec_stage_bytes(elem_type(kElem) == kElemI8 ? 1 : 2,\n" \
+        "                              elem_type(kElem) == kElemI8, T, maxM, " \
+        "D);\n" \
+        "      vis = reinterpret_cast<int*>(smem + round16(at));\n" in src
+    for used in (13856, 13860, cg.SMEM_LIMIT - 32):
+        pad = -(-used // 16) * 16 - used
+        want = (pad + 32, True) if used + pad + 32 <= cg.SMEM_LIMIT else (
+            0, False)
+        assert cg._visited_place(7, used, 0) == want
 
 
 def _graph(n=40, d=32, max_m=4, seed=3):
