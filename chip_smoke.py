@@ -68,7 +68,9 @@ exits non-zero):
      and in every other row source (bf16 rows; int8 rows and int8 records
      at power-of-two scales; f32 and bf16 records; the int8 and bf16 rows
      and records staged in shared memory, and read from the rows or
-     records at T = 256, (256, 256), where they do not fit; PQ records
+     records at T = 256, (256, 256), where they do not fit; the f32
+     records through their ring at every table shape, read from the
+     records in the wide instances; PQ records
      through an
      integer codebook, with and without OPQ's signed-permutation rotation,
      read through the query's distance table, at G 8 and also at G 4, 16
@@ -147,11 +149,15 @@ exits non-zero):
      and hash visited sets; each variant's walk kernel against its twin on
      the card at 1M on every query (variant_vs_twin: recall within 0.002,
      ids on >= 98% of queries, hops and dist_evals within 1%) and timed
-     beside its bound (the int8 rows and int8 / bf16 records walks at T=8
-     and at the API's default T=4, each also printing its placement,
-     staged bytes, instance's ptxas registers and spills and the blocks an
-     SM of each placement, the runtime's occupancy, which must bear out
-     the placement rule: staging_placement; the bitmap and hash sets at
+     beside its bound (the int8 rows and int8 / bf16 / f32 records walks
+     at T=8 and at the API's default T=4, each also printing its
+     placement, staged bytes, instance's ptxas registers and spills and
+     the blocks an SM of each placement, the runtime's occupancy, which
+     must bear out the placement rule: staging_placement; the f32 records
+     walks also their ring's rows K, the blocks an SM at K + 1 (one fewer:
+     K is the most), the ring instance's launches over their API path
+     (ops/cuda_graph.RING_WALKS) and the twin's ids, hops and dist_evals
+     on every query; the bitmap and hash sets at
      T=8 and T=4, each printing where its set lives, shared or device
      memory, the blocks an SM with it and without it, which must bear out
      that rule too, the wrapper's fill of a device set timed on its own
@@ -325,10 +331,11 @@ DIMS = 128
 K = 10
 GRAPH_T = 8
 # the API's default search_expand_width (HnswIndex): the int8 rows and the
-# int8 and bf16 records walks (serving_variants' names) are held to their
-# twin at this T too (and the bf16 rows walk, bf16_phase)
+# int8, bf16 and float32 records walks (serving_variants' names) are held
+# to their twin at this T too (and the bf16 rows walk, bf16_phase)
 API_T = 4
-RECORDS_AT_API_T = ("quantized", "packed int8", "packed bfloat16")
+RECORDS_AT_API_T = ("quantized", "packed int8", "packed bfloat16",
+                    "packed float32")
 SHARDS = 4
 # rows a shard takes per insert batch: the single index's batch, not the
 # sharded default of 128, whose 7,812 host-bound batches cost the smoke
@@ -763,7 +770,7 @@ def compiler_report(_kernels):
         return "pq_select_kernel" if "pq_select_kernel" in mangled else None
     def graph_instance(mangled):
         elems = ("float32", "int8", "bf16", "pq", "pq unstaged",
-                 "int8 staged", "bf16 staged")
+                 "int8 staged", "bf16 staged", "float32 ring")
         m = re.search(r"beam_walk_kernelILi(\d)ELb([01])ELi(\d+)E",
                       mangled)
         if m:
@@ -851,6 +858,12 @@ def compiler_report(_kernels):
     staged = [n for n in reports if " staged rows" in n]
     check(len(staged) == 10, f"staged records instances reported: "
           f"{sorted(staged)}")
+    # the float32 records ring's instances (table instances only: dense or
+    # a set, 128 or 256 threads)
+    ring = {n: r for n, r in reports.items() if "<float32 ring" in n}
+    check(len(ring) == 4, f"float32 ring instances reported: {sorted(ring)}")
+    for name, lines in sorted(ring.items()):
+        log(f"ptxas float32 records ring {name}: {'; '.join(lines)}")
     WALK_REPORTS.update(
         {n: r for n, r in reports.items() if n.startswith("beam_walk")})
 
@@ -1207,6 +1220,7 @@ def integer_walks(torch, cg, core_search, dev):
     q = torch.as_tensor(qs, device=dev)
     cases = variant_cases = wide_cases = 0
     staged_cases = {True: 0, False: 0}
+    ring_cases = {True: 0, False: 0}
     set_cases = {True: 0, False: 0}
     pq_groups_seen = {"8 (D=32)"}
     wide0 = cg.WIDE_WALKS
@@ -1298,6 +1312,18 @@ def integer_walks(torch, cg, core_search, dev):
                           f"integer walk {source} T={t} ef={ef} cap={cap}: "
                           f"staged {staged}")
                     staged_cases[staged] += 1
+                if source == "records f32":
+                    # the ring at every table shape (every set), none in
+                    # the wide instances
+                    stage = cg._check_walk_args(
+                        g, qw, ef, cap, t, metric, visited_slots=vs,
+                        **kww).stage
+                    ringed = cg.records_staging(ef, cap, t, g.max_m, g.dims,
+                                                stage) > 0
+                    check(ringed == (max(ef, cap) <= cg.MAX_WALK_QUEUE),
+                          f"integer walk records f32 T={t} ef={ef} "
+                          f"cap={cap}: a ring {ringed}")
+                    ring_cases[ringed] += 1
                 if max(ef, cap) <= 128:
                     variant_cases += 1
                 elif max(ef, cap) > cg.MAX_WALK_QUEUE:
@@ -1315,7 +1341,10 @@ def integer_walks(torch, cg, core_search, dev):
         f"the int8 / bf16 records and rows staged in shared memory in "
         f"{staged_cases[True]} of those cases, read from the records or "
         f"rows in {staged_cases[False]} more at (T, ef, cand_cap) = "
-        f"{RECORDS_UNSTAGED}, bit-equal too; the visited sets in shared "
+        f"{RECORDS_UNSTAGED}, bit-equal too; the f32 records through "
+        f"their ring in {ring_cases[True]} cases, read from the records "
+        f"in {ring_cases[False]} (the wide instances); the visited sets in "
+        f"shared "
         f"memory in {set_cases[True]} cases and in device memory in "
         f"{set_cases[False]} (each table shape in both, one forced, and "
         f"the wide instances'), bit-equal too")
@@ -2065,7 +2094,8 @@ def row_bytes(graph, kw):
 
 
 def variant_vs_twin(torch, graph, qs, kw, results, launches, *,
-                    visited_slots=-1, ef=WALK_EF, t=GRAPH_T):
+                    visited_slots=-1, ef=WALK_EF, t=GRAPH_T,
+                    ring_launches=None):
     """One walk variant on a 1M index at T=8, ef=64 (the main path's
     shape; ``ef`` = cand_cap another width, ``t`` another T), with the
     walk's operands ``kw``: the kernel against the plain
@@ -2075,8 +2105,12 @@ def variant_vs_twin(torch, graph, qs, kw, results, launches, *,
     time (CUDA events), the card's (a CUDA graph of 20 calls), the twin's
     and the bound.  ``launches``: the walk launches by variant of the API
     path just before, counted from 0 (walk_counts); the path must have
-    launched this variant.  Stores the numbers in ``results`` under the
-    variant's name (with " T=t" where ``t`` is not T=8)."""
+    launched this variant; ``ring_launches``: its launches of the float32
+    records ring instance (ops/cuda_graph.RING_WALKS over that path), which
+    must be positive where the rule places a ring and 0 elsewhere.  Float32 records must
+    give the twin's ids, hops and dist_evals on every query.  Stores the
+    numbers in ``results`` under the variant's name (with " T=t" where
+    ``t`` is not T=8)."""
     from pg_embedding_tpu_torch.core import search as core_search
     from pg_embedding_tpu_torch.graph_probe import device_ms
     from pg_embedding_tpu_torch.ops import cuda_graph as cg
@@ -2125,7 +2159,7 @@ def variant_vs_twin(torch, graph, qs, kw, results, launches, *,
         visited_slots)
     bound = walk_bound_ms(kh, ke, len(qs), graph.dims, t, graph.max_m,
                           row_bytes(graph, kw), visited)
-    staging = staging_placement(cg, graph, q, kw, kh, ef, t)
+    staging = staging_placement(cg, graph, q, kw, kh, ke, ef, t)
     if visited is not None:
         staging = visited_placement(torch, cg, graph, q, kh, ke, ef, t,
                                     visited_slots)
@@ -2138,7 +2172,19 @@ def variant_vs_twin(torch, graph, qs, kw, results, launches, *,
                    f"{bound:.4f} ms", *staging[1:])
         if staging[1] == "shared":
             bound = staging[3]["bound_without_set_ms"]
-    if staging and staging[1] == "staged":
+    if ring_launches is not None:
+        # the ring instance launched on the API path exactly where the
+        # rule places a ring
+        ringed = bool(staging) and staging[1] == "ring"
+        check((ring_launches > 0) == ringed,
+              f"{name} T={t}: the API path launched the ring instance "
+              f"{ring_launches} times, the rule's placement "
+              f"{staging[1] if staging else None}")
+        if staging:
+            staging[3]["ring_launches"] = ring_launches
+            staging = (staging[0] + f"; {ring_launches} launches of the "
+                       f"ring instance on its API path", *staging[1:])
+    if staging and staging[1] in ("staged", "ring"):
         # the staged walk against the same launch reading its rows or
         # records, bit for bit
         from pg_embedding_tpu_torch import _kernels
@@ -2166,30 +2212,41 @@ def variant_vs_twin(torch, graph, qs, kw, results, launches, *,
     check(n_diff <= 0.02 * b, f"{name}: ids differ on {n_diff} queries")
     check(abs(hk - hp) <= 0.01 * hp and abs(ek - ep) <= 0.01 * ep,
           f"{name}: hops {hk} / {hp}, evals {ek} / {ep}")
+    if records is not None and records.dtype == torch.float32:
+        # the strict-parity walk: the twin's walk on every query
+        same_walk = int((same & (got[2] == want[2])
+                         & (got[3] == want[3])).sum())
+        log(f"beam_walk {name} T={t}: ids, hops and dist_evals equal to the "
+            f"twin's on {same_walk} of {b} queries")
+        check(same_walk == b, f"{name} T={t}: the twin's walk on "
+              f"{same_walk} of {b} queries")
     key = name if t == GRAPH_T else f"{name} T={t}"
     results[key] = dict(launches=launches[name], max_abs_err=err, ms=ms,
                         device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound,
                         bound_by="bytes", recall=rec_k, plain_recall=rec_p)
     if staging:
         results[key].update(placement=staging[1], blocks_per_sm=staging[2])
-    if visited is not None:
         results[key].update(staging[3])
 
 
-def staging_placement(cg, graph, q, kw, hops, ef, t):
-    """Where an int8 or bf16 records or rows walk at T = ``t``, ef =
-    cand_cap = ``ef`` (a table instance) keeps each step's rows
-    (ops/cuda_graph._records_place: staged in shared memory, or read from
-    the records or rows), and the blocks an SM holds of each placement's
-    instance at its shared bytes, the runtime's occupancy
-    (graph_probe.walk_blocks): the walk stages exactly where an SM then
-    holds as many blocks as unstaged, up to the instance's register-bound
-    residency (WALK_MIN_BLOCKS).  Returns (the log line, with the layout's
-    bytes, the instance's ptxas registers and spills (WALK_REPORTS) and,
-    staged, the bytes the staging reads at most: each step's T popped
-    records, or T maxM slots' rows, from the kernel's ``hops``; the
-    placement; the blocks an SM of the instance it takes), or None for the
-    other sources."""
+def staging_placement(cg, graph, q, kw, hops, evals, ef, t):
+    """Where an int8 or bf16 records or rows walk, or a float32 records
+    walk, at T = ``t``, ef = cand_cap = ``ef`` (a table instance) keeps
+    each step's rows (ops/cuda_graph._records_place: staged in shared
+    memory, float32 records in a ring of K rows, or read from the records
+    or rows), and the blocks an SM holds of each placement's instance at
+    its shared bytes, the runtime's occupancy (graph_probe.walk_blocks):
+    the walk stages exactly where an SM then holds as many blocks as
+    unstaged, up to the instance's register-bound residency
+    (WALK_MIN_BLOCKS), and a ring of K + 1 rows would hold fewer (K is the
+    most, where K is below T maxM).  Returns (the log line, with the
+    layout's bytes, the instance's ptxas registers and spills
+    (WALK_REPORTS) and, staged, the bytes the staging reads at most: each
+    step's T popped records, or T maxM slots' rows, or min(K, the step's
+    processed) ring rows, from the kernel's ``hops``; the placement
+    ("staged", "ring", "records" or "rows"); the blocks an SM of the
+    instance it takes; the kernels line's numbers: the instance's name,
+    and a ring's rows), or None for the other sources."""
     from pg_embedding_tpu_torch import _kernels
     from pg_embedding_tpu_torch.graph_probe import walk_blocks
     src = cg._check_walk_args(graph, q, ef, ef, t, L2, **kw)
@@ -2199,40 +2256,66 @@ def staging_placement(cg, graph, q, kw, hops, ef, t):
     staged = cg.records_staging(ef, ef, t, graph.max_m, graph.dims, stage)
     plain = cg._walk_smem_bytes(ef, ef, t, graph.max_m, graph.dims, None)
     rec, _ = cg._records_place(stage, t, graph.max_m, graph.dims, plain, 0)
+    row = graph.dims * stage.itemsize
+    ring = staged // row if stage.ring else 0
+    if ring:
+        rec = staged                    # the ring at the rule's K
     lib = _kernels.load_library()
     threads = cg._walk_threads(t, graph.max_m)
     blocks = {False: walk_blocks(lib, src.elem, False, t, graph.max_m,
                                  plain)}
     source = "rows" if stage.rows else "records"
+    kept = min(blocks[False], cg.WALK_MIN_BLOCKS[threads])
+    more = None
     if rec:
         blocks[True] = walk_blocks(lib, src.elem, True, t, graph.max_m,
                                    plain + rec)
-        keeps = blocks[True] >= min(blocks[False],
-                                    cg.WALK_MIN_BLOCKS[threads])
+        keeps = blocks[True] >= kept
         check(keeps == (staged > 0),
               f"{source} {src.rows.dtype} T={t}: staged {staged} B, but an "
               f"SM holds {blocks[True]} blocks staged against "
               f"{blocks[False]}")
-    name = "int8" if stage.itemsize == 1 else "bf16"
-    inst = (f"beam_walk_kernel<{name}{' staged' if staged else ''} rows, "
-            f"dense, {threads} threads>")
+    if ring and ring < stage.ring:
+        # K is the most rows that keep the blocks: one more costs one
+        more = walk_blocks(lib, src.elem, True, t, graph.max_m,
+                           plain + rec + row)
+        check(more < kept, f"records float32 T={t}: a ring of {ring + 1} "
+              f"rows still holds {more} blocks an SM (K = {ring} is not "
+              f"the most)")
+    name = {1: "int8", 2: "bf16", 4: "float32"}[stage.itemsize]
+    kind = " ring" if ring else " staged" if staged else ""
+    inst = (f"beam_walk_kernel<{name}{kind} rows, dense, {threads} "
+            f"threads>")
     spill, used = WALK_REPORTS[inst]
     regs = int(re.search(r"Used (\d+) registers", used)[1])
-    # what one step copies at most: T records, or T maxM rows (and scales)
-    step = t * graph.max_m * (graph.dims * stage.itemsize
-                              + (4 if stage.scales else 0))
-    read = int(hops.sum()) * step if staged else 0
-    where = "staged" if staged else source
-    line = (f"placement {'staged' if staged else 'read from the ' + source}"
-            f" ({staged} staged bytes of {plain + staged} a block; {inst}: "
+    if ring:
+        # what the ring copies at most: min(K, the step's processed) rows
+        # a step, so at most min(K hops, dist_evals) rows a query
+        read = int((hops * ring).minimum(evals).sum()) * row
+        where = "ring"
+    else:
+        # what one step copies at most: T records, or T maxM rows (and
+        # scales)
+        step = t * graph.max_m * (graph.dims * stage.itemsize
+                                  + (4 if stage.scales else 0))
+        read = int(hops.sum()) * step if staged else 0
+        where = "staged" if staged else source
+    how = (f"a ring of {ring} rows" if ring else "staged" if staged
+           else f"read from the {source}")
+    line = (f"placement {how} ({staged} staged bytes of {plain + staged} a block; {inst}: "
             f"{regs} registers, {spill}; {blocks[staged > 0]} blocks an SM"
             + (f", {blocks[False]} unstaged at {plain} B" if staged else
                f", {blocks[True]} staged at {plain + rec} B" if rec else "")
+            + (f", {more} with a ring of {ring + 1} rows" if more is not None
+               else "")
             + ", the runtime's occupancy)"
             + (f"; the staging reads at most {read:,} B "
                f"({read / PEAK_BYTES * 1e3:.4f} ms at the HBM rate)"
                if staged else ""))
-    return line, where, blocks[staged > 0]
+    extra = dict(instance=inst)
+    if ring:
+        extra.update(ring_rows=ring, blocks_per_sm_one_row_more=more)
+    return line, where, blocks[staged > 0], extra
 
 
 def visited_placement(torch, cg, graph, q, hops, evals, ef, t,
@@ -2306,10 +2389,13 @@ def visited_placement(torch, cg, graph, q, hops, evals, ef, t,
 
 
 def walk_counts():
-    """Set the walk kernel's launch counts by variant to 0 before a path's
-    API calls; read them after it with dict(cuda_graph.WALK_VARIANTS)."""
+    """Set the walk kernel's launch counts by variant, and its ring
+    instance's (cuda_graph.RING_WALKS), to 0 before a path's API calls;
+    read them after it with dict(cuda_graph.WALK_VARIANTS) and
+    cuda_graph.RING_WALKS."""
     from pg_embedding_tpu_torch.ops import cuda_graph
     cuda_graph.WALK_VARIANTS.clear()
+    cuda_graph.RING_WALKS = 0
     return cuda_graph.WALK_VARIANTS
 
 
@@ -2322,6 +2408,7 @@ def serving_variants(torch, idx, qs, results):
     then the bitmap and hash visited sets: the dense walk's ids through the
     API, and each kernel against its twin.  Each variant's launches are
     counted over its own API calls."""
+    from pg_embedding_tpu_torch.ops import cuda_graph as cg
     _, el, _ = idx.exact_search(qs, K)
     _, plain_ids = idx.search_ids(qs)
     _, pl, pv = idx.search(qs, K, mode="graph")
@@ -2349,6 +2436,7 @@ def serving_variants(torch, idx, qs, results):
             _, gl, gv = idx.search(qs, K, mode="graph")
         qps = reps * len(qs) / (time.time() - t0)
         launches = dict(counts)
+        ring = cg.RING_WALKS
         size = (idx._pcodes if idx.packed_traversal else idx._qvec)
         gb = size.numel() * size.element_size() / 1e9
         rec = recall(gl, gv, el)
@@ -2366,16 +2454,18 @@ def serving_variants(torch, idx, qs, results):
                 kw["pscales"] = idx._pscales
         else:
             kw = dict(qvectors=idx._qvec, qscale=idx._qscale)
-        variant_vs_twin(torch, idx.graph, qs, kw, results, launches)
+        variant_vs_twin(torch, idx.graph, qs, kw, results, launches,
+                        ring_launches=ring)
         if name in RECORDS_AT_API_T:
             # the API's default search_expand_width: the int8 rows and
-            # each records walk at T=4 too (staged at every type), its
-            # launches counted over one API call
+            # each records walk at T=4 too (staged at every type, float32
+            # records through their ring), its launches counted over one
+            # API call
             idx.search_expand_width = API_T
             counts = walk_counts()
             idx.search_ids(qs)
             variant_vs_twin(torch, idx.graph, qs, kw, results, dict(counts),
-                            t=API_T)
+                            t=API_T, ring_launches=cg.RING_WALKS)
             idx.search_expand_width = GRAPH_T
         idx.quantized_traversal = idx.packed_traversal = False
     log("packed float32 walk: ids and order equal the plain walk's on all "

@@ -59,6 +59,11 @@
 //     memory, and phase 3 reads slot s's row there (kElemI8Staged,
 //     kElemBF16Staged), the same values in the same order, so the same
 //     walk;
+//   * float32 records keep a ring of K rows where the launch asks for it:
+//     phase 2 copies the rows of the first K processed slots, in the order
+//     the dedupe compacts them (kElemF32Staged), and phase 3 reads the
+//     entries past K from the records, then entry e < K's row in the ring:
+//     the same values, so the same walk;
 //   * PQ records u8[cap, maxM, G] through the codebook f32[G, 256, D / G]:
 //     element c is codebook[c / sub, code[c / sub], c % sub] (ops/pq
 //     pq_decode).  The row is never decoded: the metric's sum splits by
@@ -114,7 +119,9 @@
 //      one step's writes and the next step's reads).  Processed slots are
 //      compacted with one shared atomic a warp (staged int8 / bf16 rows:
 //      the copy engine copies each processed slot's row to shared
-//      memory as the dedupe keeps it, stage_row);
+//      memory as the dedupe keeps it, stage_row; float32 records in a
+//      ring: each of the first K processed slots' record row to its
+//      compacted entry, stage_ring_row);
 //   3. rows: each warp scores kRowsPerWarp = 8 neighbours at a time, their
 //      row loads issued together; the metric is a template parameter (no
 //      branch per element) and the 8 sums go through one butterfly that
@@ -134,9 +141,10 @@
 //      strictly below it, an admitted entry by the incumbents at or below
 //      it: binary searches), into its second buffer.
 // Each row source and visited-set kind (the dense dedupe, or a set) is one
-// instance: 7 x 2 (PQ twice: kElemPQ, kElemPQFar;
-// int8 and bf16 staged records or rows beside them), by 128 or 256
-// threads: twenty-eight (the dense instances compile the sets' branches
+// instance: 8 x 2 (PQ twice: kElemPQ, kElemPQFar;
+// int8 and bf16 staged records or rows beside them; float32 records in a
+// ring beside float32 rows and records), by 128 or 256
+// threads: thirty-two (the dense instances compile the sets' branches
 // away; graph_probe's sets-runtime variant keeps them); the records /
 // rows choice and bitmap / hash are uniform runtime branches, and a set in
 // shared or device memory is the same code through a pointer.
@@ -233,6 +241,20 @@
 // (graph_probe --mode sets).  The hash set's ordered writes sat behind
 // warp 0's share of the rows (rows lap ~14,200 cycles at T = 8); by the
 // last warp, each chunk read a chunk ahead, ~10,900.
+// Float32 records read from device memory wait on their rows as int8
+// records did: each record row is read once, from HBM, 8 rows a warp a
+// round (rows lap ~12,900 cycles a step at T = 4 against ~8,200 for float32
+// rows).  Staged whole, as int8 records are, they would take 128 KB a
+// block at T = 8, so a ring holds the processed slots' rows alone, K of
+// them, K the most that keep an SM's blocks (71 at T = 4 at config 1's
+// shapes: ops/cuda_graph._records_place): the rows lap falls to ~7,500,
+// dedupe grows ~3,700 -> ~5,900 as it starts the copies, and the walk
+// gains 15% (graph_probe --mode records).  The 256-thread instances (T
+// maxM > 128) spill ~170 B a thread at 64 registers, and their blocks'
+// stacks live in the L1 that the ring's shared bytes take: there the
+// ring lost at every K tried (0.91-1.10 ms against 0.90 at T = 8, at 128
+// threads and at 3 blocks an SM too), so the placement rule keeps it to
+// the 128-thread blocks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -287,16 +309,25 @@ constexpr int kElemPQFar = 4;
 // kElemI8 / kElemBF16 read the records where they are not staged.
 constexpr int kElemI8Staged = 5;
 constexpr int kElemBF16Staged = 6;
+// float32 records whose processed slots' rows phase 2 copies to a ring of
+// K rows in shared memory (records_place's ring), the rest read from the
+// records: an instance of its own (table instances only), so that kElemF32
+// keeps its code
+constexpr int kElemF32Staged = 7;
 __host__ __device__ constexpr bool is_pq(int elem) {
   return elem == kElemPQ || elem == kElemPQFar;
 }
 __host__ __device__ constexpr bool is_staged(int elem) {
   return elem == kElemI8Staged || elem == kElemBF16Staged;
 }
+__host__ __device__ constexpr bool is_ring(int elem) {
+  return elem == kElemF32Staged;
+}
 // the element type an instance's rows hold
 __host__ __device__ constexpr int elem_type(int elem) {
   return elem == kElemI8Staged     ? kElemI8
          : elem == kElemBF16Staged ? kElemBF16
+         : elem == kElemF32Staged  ? kElemF32
                                    : elem;
 }
 // the visited sets (the API's visited_slots: -1, 0, 2^s)
@@ -402,10 +433,15 @@ PqPlace pq_place(int groups, int metric, int T, int maxM, size_t used) {
 // 3.  Nothing else of the layout moves.  Whether a walk that can stage
 // does is the caller's choice (ops/cuda_graph._records_place holds the
 // rule: an SM keeps its blocks), told by the shared bytes it passes
-// (beam_walk).
+// (beam_walk).  Float32 records keep a ring of ``ring`` rows of D floats
+// instead (kElemF32Staged: the first ``ring`` processed slots' rows a
+// step), where a row is whole 16-byte chunks and the base and region are
+// 16-aligned; its rows are the caller's figure, read from the shared
+// bytes it passes.
 struct RecPlace {
   size_t smem;     // shared bytes: the staged records or rows and scales
   int staged;
+  int ring;        // float32 records: the ring's rows (0: none)
 };
 
 int walk_threads(int T, int maxM) {
@@ -432,15 +468,18 @@ __host__ __device__ __forceinline__ size_t rec_stage_bytes(int elem_bytes,
 }
 
 RecPlace records_place(int elem_bytes, int scales, int rows, int aligned,
-                       int T, int maxM, int D, size_t at, size_t used) {
-  if (elem_bytes <= 0 || !aligned) return {0, 0};
-  // what one bulk copy moves: a slot's row, or a popped row's record
-  const size_t unit = (size_t)(rows ? 1 : maxM) * D * elem_bytes;
+                       int T, int maxM, int D, size_t at, size_t used,
+                       int ring = 0) {
+  if (elem_bytes <= 0 || !aligned) return {0, 0, 0};
+  // what one bulk copy moves: a slot's row (a rows source's, a ring's), or
+  // a popped row's record
+  const size_t unit = (size_t)(rows || ring ? 1 : maxM) * D * elem_bytes;
   if (unit % 16 || (scales && !rows && maxM * 4 % 16) || at % 16)
-    return {0, 0};
-  const size_t bytes = rec_stage_bytes(elem_bytes, scales, T, maxM, D);
-  if (used + bytes > (size_t)kSmemLimit) return {0, 0};
-  return {bytes, 1};
+    return {0, 0, 0};
+  const size_t bytes = ring ? (size_t)ring * unit
+                            : rec_stage_bytes(elem_bytes, scales, T, maxM, D);
+  if (used + bytes > (size_t)kSmemLimit) return {0, 0, 0};
+  return {bytes, 1, ring};
 }
 
 // Where a table instance can keep the query's bitmap or hash visited set
@@ -473,9 +512,10 @@ VisPlace vis_place(size_t words, size_t used) {
 // ids and slot_n smallest slots), then a PQ source's table and staged
 // codes (pq_place, placed first: the tables take what it leaves, and are
 // left out (0) where they do not fit) or an int8 / bf16 records or rows
-// source's staged rows (records_place, placed after the rest: nothing else
-// moves), then a bitmap or hash visited set of ``vis_words`` where it is
-// asked for and fits (vis_place, placed last).
+// source's staged rows, or a float32 records ring of ``rec_ring`` rows
+// (records_place, placed after the rest: nothing else moves), then a
+// bitmap or hash visited set of ``vis_words`` where it is asked for and
+// fits (vis_place, placed last).
 // The wide instances (ef or cap above kMaxQueue): the query row, the slot
 // arrays, the counters, the slot table, the PQ table and codes or the
 // staged rows, then each queue once (d, id; the candidate ring of
@@ -505,11 +545,13 @@ size_t with_pq_words(size_t words, const PqPlace& pq) {
 WalkLayout walk_layout(int ef, int cap, int T, int maxM, int D, int rows,
                        bool dense, int groups, int metric, int rec_elem,
                        int rec_scales, int rec_rows, int rec_aligned,
-                       size_t vis_words) {
+                       size_t vis_words, int rec_ring = 0) {
   const size_t tm = (size_t)T * maxM;
   const size_t row = 4 * (size_t)((D + 3) / 4 * 4);
   const size_t slots = pow2_at_least(2 * tm);
   if (ef > kMaxQueue || cap > kMaxQueue) {
+    // the wide instances keep no ring: float32 records read the records
+    if (rec_ring) rec_elem = 0;
     const size_t ring = ((size_t)cap + T - 1) / T * T;
     size_t fixed = row + 24 * tm + 32 + 8 * slots;
     const PqPlace pq = pq_place(groups, metric, T, maxM, fixed);
@@ -536,13 +578,15 @@ WalkLayout walk_layout(int ef, int cap, int T, int maxM, int D, int rows,
   if (base + tables <= (size_t)kSmemLimit) {
     const size_t used = base + tables;
     const RecPlace rec = records_place(rec_elem, rec_scales, rec_rows,
-                                       rec_aligned, T, maxM, D, used, used);
+                                       rec_aligned, T, maxM, D, used, used,
+                                       rec_ring);
     const VisPlace vis = vis_place(vis_words, used + rec.smem);
     return {used + rec.smem + vis.smem, (int)held, (int)slots, 0, 0,
             pq.words, 1, pq, rec, vis};
   }
   const RecPlace rec = records_place(rec_elem, rec_scales, rec_rows,
-                                     rec_aligned, T, maxM, D, base, base);
+                                     rec_aligned, T, maxM, D, base, base,
+                                     rec_ring);
   const VisPlace vis = vis_place(vis_words, base + rec.smem);
   return {base + rec.smem + vis.smem, 0, 0, 0, 0, pq.words, 1, pq, rec,
           vis};
@@ -618,7 +662,8 @@ __device__ __forceinline__ bool vis_holds(int4 w, int mode, int id) {
 // Where phase 3 reads a neighbour's row: the rows or records of one element
 // type, each element widened to the float32 value the twin computes.
 // PQ records leave the int8 scales unused and take their tables' place in
-// that field (pq_place): the layout, and so the kernels' parameters, are
+// that field (pq_place), and a float32 records ring's rows take the PQ
+// groups' (records_place): the layout, and so the kernels' parameters, are
 // those of every other source.
 struct RowSource {
   const void* rows;       // [cap, D] rows or [cap, maxM, D] records (PQ: G)
@@ -628,7 +673,11 @@ struct RowSource {
                           // table a query, or null: in shared memory
   };
   const float* codebook;  // PQ: f32[G, 256, sub]
-  int groups, sub;        // PQ: G and D / G
+  union {
+    int groups;           // PQ: G
+    int ring;             // float32 records in a ring (kElemF32Staged): K
+  };
+  int sub;                // PQ: D / G
   int records;            // read at the popped row's slot, not at the id
   int round_pp;           // bf16 corpus rows under cosine: |p|^2 to bf16
   int vec;                // 4-element loads (alignment and D allow them;
@@ -638,8 +687,9 @@ struct RowSource {
 // A staged records or rows source's region (records_place): popped row
 // j's record at rows + j maxM D elements, so slot s's row at rows + s D
 // (a rows source copies slot s's row there); an int8 source's scales
-// after them, slot s's at scales[s]; the step's bulk copies complete on
-// ``bar``.  All null for the other sources.
+// after them, slot s's at scales[s]; a float32 ring's processed entry e <
+// K at rows + e D; the step's bulk copies complete on ``bar``.  All null
+// for the other sources.
 struct RecStage {
   unsigned char* rows;
   float* scales;
@@ -687,12 +737,14 @@ template <>
 struct Raw<kElemBF16Staged> : Raw<kElemBF16> {};
 
 // Elements [4c, 4c + 4) of row ``at``, raw (staged: slot ``at``'s row in
-// shared memory).
+// shared memory; a ring: ring row ``at``).
 template <int kElem>
 __device__ __forceinline__ typename Raw<kElem>::Vec load4(
     const RowSource& src, const RecStage& rs, size_t at, int c, int D) {
   static_assert(!is_pq(kElem), "PQ rows are read through the table");
-  if constexpr (kElem == kElemI8Staged) {
+  if constexpr (kElem == kElemF32Staged) {
+    return reinterpret_cast<const float4*>(rs.rows)[(int)at * (D / 4) + c];
+  } else if constexpr (kElem == kElemI8Staged) {
     return reinterpret_cast<const int*>(rs.rows)[(int)at * (D / 4) + c];
   } else if constexpr (kElem == kElemBF16Staged) {
     return reinterpret_cast<const uint2*>(rs.rows)[(int)at * (D / 4) + c];
@@ -712,7 +764,9 @@ template <int kElem>
 __device__ __forceinline__ typename Raw<kElem>::One load1(
     const RowSource& src, const RecStage& rs, size_t at, int e, int D) {
   static_assert(!is_pq(kElem), "PQ rows are read through the table");
-  if constexpr (kElem == kElemI8Staged) {
+  if constexpr (kElem == kElemF32Staged) {
+    return reinterpret_cast<const float*>(rs.rows)[(int)at * D + e];
+  } else if constexpr (kElem == kElemI8Staged) {
     return reinterpret_cast<const signed char*>(rs.rows)[(int)at * D + e];
   } else if constexpr (kElem == kElemBF16Staged) {
     return reinterpret_cast<const unsigned short*>(rs.rows)[(int)at * D + e];
@@ -871,6 +925,8 @@ __device__ __forceinline__ RecStage rec_stage(unsigned char* region,
                 : nullptr,
             // counters 6 and 7 (8-aligned: ctr is)
             reinterpret_cast<unsigned long long*>(ctr + 6)};
+  } else if constexpr (is_ring(kElem)) {
+    return {region, nullptr, reinterpret_cast<unsigned long long*>(ctr + 6)};
   } else {
     return {nullptr, nullptr, nullptr};
   }
@@ -944,6 +1000,35 @@ __device__ __forceinline__ void stage_row(const RowSource& src,
               row, rs.bar);
     if (kI8) cp_async(rs.scales + s, src.scales + id, 4);
   }
+}
+
+// Phase 2 (float32 records, a ring of K rows): the row of processed slot
+// s (record pop_i[s / maxM], row s % maxM), compacted to entry ``e`` (-1:
+// not processed), copied by the copy engine to ring row e where e < K;
+// past K phase 3 reads it from the records (an L2 prefetch of those rows
+// here measured 0.3% slower at T = 4: graph_probe's ring-prefetch).
+// A records row's place follows from the pop, not from its link, but the
+// dedupe decides which slots need one: ring rows go to the processed
+// slots alone, every byte of them the walk's bound, in the order phase 3
+// scores them.  The slot's thread arrives on the barrier with the row's
+// bytes, 0 for a slot not copied (T maxM arrivals a phase, as
+// stage_row's).
+__device__ __forceinline__ void stage_ring_row(const RowSource& src,
+                                               const RecStage& rs,
+                                               const int* pop_i, int s,
+                                               int e, int maxM, int D) {
+  const unsigned row = (unsigned)D * 4;
+  const bool copy = e >= 0 && e < src.ring;
+  mbar_arrive_expect(rs.bar, copy ? row : 0u);
+  if (!copy) return;
+  const int j = s / maxM;
+  const unsigned char* from =
+      static_cast<const unsigned char*>(src.rows) +
+      ((size_t)pop_i[j] * maxM + (s - j * maxM)) * row;
+  // the ring's earlier readers are done (two block barriers ago) before the
+  // copy engine writes it
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  bulk_copy(rs.rows + (size_t)e * row, from, row, rs.bar);
 }
 
 // The arrivals a phase of a staged source's barrier: one a popped row
@@ -1259,10 +1344,15 @@ __device__ __forceinline__ void score_rows(
       if (e0 + u < n_proc) {
         const int s = proc[e0 + u];
         // (PQ and staged records or rows: the slot, whose codes or row
-        // phase 1 staged; else the record or the row)
-        at[u] = kElem == kElemPQ || is_staged(kElem) ? s
-                : src.records ? ci[s / maxM] * maxM + s % maxM
-                              : slot_id[s];
+        // phase 1 staged; a ring: the entry, whose row phase 2 copied to
+        // that ring row; else the record or the row)
+        if constexpr (is_ring(kElem)) {
+          at[u] = e0 + u;
+        } else {
+          at[u] = kElem == kElemPQ || is_staged(kElem) ? s
+                  : src.records ? ci[s / maxM] * maxM + s % maxM
+                                : slot_id[s];
+        }
       }
     }
     // per chunk of a row: every row's raw elements and int8 scale, then
@@ -1360,6 +1450,50 @@ __device__ __forceinline__ void score_rows(
   }
 }
 
+// Phase 3 of a float32 records ring: the entries past the ring first, from
+// the records, while the ring's copies land (waiting first measured 1.2%
+// slower at T = 4: graph_probe's ring-wait-first), then, once the step's
+// barrier phase has ended, the first min(K, n_proc) entries from the
+// ring.  Each pass is score_rows over one
+// source (the records' kElemF32, the ring's shared reads): no choice of
+// memory per row, and no more live registers than either.  The admitted
+// go to new_ds in another order; the rank orders them by (d, slot), so
+// the walk is the same.
+template <int kWarps>
+__device__ __forceinline__ void score_ring(
+    const RowSource& src, const float* q_s, const PqTable& pq,
+    const RecStage& rs, int D, int maxM, float qq, float lower,
+    const int* proc, int n_proc, const int* slot_id, const int* ci,
+    int* n_new, float2* new_ds, int warp, int lane, int metric, int step) {
+  const int k = min(src.ring, n_proc);
+  if (metric == kMetricL2)
+    score_rows<kMetricL2, kElemF32, kWarps>(src, q_s, pq, rs, D, maxM, qq,
+                                            lower, proc + k, n_proc - k,
+                                            slot_id, ci, n_new, new_ds, warp,
+                                            lane);
+  else if (metric == kMetricCosine)
+    score_rows<kMetricCosine, kElemF32, kWarps>(
+        src, q_s, pq, rs, D, maxM, qq, lower, proc + k, n_proc - k, slot_id,
+        ci, n_new, new_ds, warp, lane);
+  else
+    score_rows<kMetricManhattan, kElemF32, kWarps>(
+        src, q_s, pq, rs, D, maxM, qq, lower, proc + k, n_proc - k, slot_id,
+        ci, n_new, new_ds, warp, lane);
+  wait_records(rs, step);
+  if (metric == kMetricL2)
+    score_rows<kMetricL2, kElemF32Staged, kWarps>(
+        src, q_s, pq, rs, D, maxM, qq, lower, proc, k, slot_id, ci, n_new,
+        new_ds, warp, lane);
+  else if (metric == kMetricCosine)
+    score_rows<kMetricCosine, kElemF32Staged, kWarps>(
+        src, q_s, pq, rs, D, maxM, qq, lower, proc, k, slot_id, ci, n_new,
+        new_ds, warp, lane);
+  else
+    score_rows<kMetricManhattan, kElemF32Staged, kWarps>(
+        src, q_s, pq, rs, D, maxM, qq, lower, proc, k, slot_id, ci, n_new,
+        new_ds, warp, lane);
+}
+
 template <int kElem, bool kDense, int kThreads>
 __global__ void __launch_bounds__(kThreads, kMinBlocks<kThreads>)
 beam_walk_kernel(const int* __restrict__ links, const int* __restrict__ counts,
@@ -1409,7 +1543,7 @@ beam_walk_kernel(const int* __restrict__ links, const int* __restrict__ counts,
   // instances: a stage built in the others, though unused, renumbers the
   // float32 instances' registers and moves their ptxas spills)
   RecStage rs{nullptr, nullptr, nullptr};
-  if constexpr (is_staged(kElem))
+  if constexpr (is_staged(kElem) || is_ring(kElem))
     rs = rec_stage<kElem>(region, ctr, T, maxM, D);
   // the hash set's processed slots, a word a 32-slot chunk, from phase 2 to
   // phase 3's writes (srt_i is next written in phase 4)
@@ -1431,6 +1565,7 @@ beam_walk_kernel(const int* __restrict__ links, const int* __restrict__ counts,
       if constexpr (is_staged(kElem))
         at += rec_stage_bytes(elem_type(kElem) == kElemI8 ? 1 : 2,
                               elem_type(kElem) == kElemI8, T, maxM, D);
+      if constexpr (is_ring(kElem)) at += (size_t)src.ring * D * 4;
       vis = reinterpret_cast<int*>(smem + round16(at));
     }
   }
@@ -1453,6 +1588,8 @@ beam_walk_kernel(const int* __restrict__ links, const int* __restrict__ counts,
   if (tid < 4) ctr[tid] = 0;
   if constexpr (is_staged(kElem))
     if (tid == 0) mbar_init(rs.bar, stage_arrivals(src, T, tm));
+  if constexpr (is_ring(kElem))
+    if (tid == 0) mbar_init(rs.bar, tm);       // stage_ring_row: one a slot
   __syncthreads();
   if (tid == 0 && has_nodes) {
     rd[0] = cd[0] = entry_d[b];
@@ -1560,6 +1697,13 @@ beam_walk_kernel(const int* __restrict__ links, const int* __restrict__ counts,
       if (lane == 0 && m) at = atomicAdd(&cnt[0], __popc(m));
       at = __shfl_sync(kFull, at, 0);
       if (keep) proc[at + __popc(m & ((1u << lane) - 1u))] = s;
+      // float32 records in a ring: each processed slot's row copied to its
+      // compacted entry below K (stage_ring_row)
+      if constexpr (is_ring(kElem))
+        if (s < tm)
+          stage_ring_row(src, rs, ci, s,
+                         keep ? at + __popc(m & ((1u << lane) - 1u)) : -1,
+                         maxM, D);
     }
     // the staged PQ codes, records or rows and scales have landed (phase 3
     // reads them)
@@ -1581,19 +1725,24 @@ beam_walk_kernel(const int* __restrict__ links, const int* __restrict__ counts,
     record_visits<kThreads>(vis_mode, vis, vis_n, proc, n_proc, slot_id,
                             proc_bits, tm, tid, warp, lane);
     // distances, kRowsPerWarp neighbours a warp at a time; admit
-    if (metric == kMetricL2)
+    if constexpr (is_ring(kElem)) {
+      score_ring<kWarps>(src, q_s, pq, rs, D, maxM, qq, lower, proc, n_proc,
+                         slot_id, ci, cnt + 1, new_ds, warp, lane, metric,
+                         hops);
+    } else if (metric == kMetricL2) {
       score_rows<kMetricL2, kElem, kWarps>(src, q_s, pq, rs, D, maxM, qq,
                                            lower, proc, n_proc, slot_id, ci,
                                            cnt + 1, new_ds, warp, lane);
-    else if (metric == kMetricCosine)
+    } else if (metric == kMetricCosine) {
       score_rows<kMetricCosine, kElem, kWarps>(src, q_s, pq, rs, D, maxM,
                                                qq, lower, proc, n_proc,
                                                slot_id, ci, cnt + 1, new_ds,
                                                warp, lane);
-    else
+    } else {
       score_rows<kMetricManhattan, kElem, kWarps>(
           src, q_s, pq, rs, D, maxM, qq, lower, proc, n_proc, slot_id, ci,
           cnt + 1, new_ds, warp, lane);
+    }
     __syncthreads();
     const int n_new = cnt[1];
     if (tid == 0) laps.lap(kLapRows);
@@ -2034,8 +2183,10 @@ template <int kElem>
 cudaError_t launch_elem(const WalkArgs& a, WalkLayout lay,
                         cudaStream_t stream) {
   // queues past kMaxQueue: one instance a row source, the visited set a
-  // runtime branch (a rare, wide walk)
-  if (lay.ring) return launch_wide<kElem>(a, lay, stream);
+  // runtime branch (a rare, wide walk; a float32 ring has none: its
+  // layout places no ring there)
+  if constexpr (!is_ring(kElem))
+    if (lay.ring) return launch_wide<kElem>(a, lay, stream);
   const bool wide = walk_threads(a.T, a.maxM) > 128;
   if (a.vis_mode == kVisDense)
     return wide ? launch<kElem, true, 256>(a, lay, stream)
@@ -2061,7 +2212,9 @@ int occupancy(Kernel kernel, int threads, size_t smem) {
 // The occupancy of the instance launch_elem<kElem> takes.
 template <int kElem>
 int instance_blocks(int dense, int wide, int T, int maxM, size_t smem) {
-  if (wide) return occupancy(beam_walk_wide_kernel<kElem>, kWideThreads, smem);
+  if (wide)
+    return occupancy(beam_walk_wide_kernel<is_ring(kElem) ? kElemF32 : kElem>,
+                     kWideThreads, smem);
   const bool w = walk_threads(T, maxM) > 128;
   if (dense)
     return w ? occupancy(beam_walk_kernel<kElem, true, 256>, 256, smem)
@@ -2090,7 +2243,10 @@ extern "C" {
 // slots' rows, staged in shared memory where records_place can stage them
 // (the alignment it checks includes the base of ``rows`` and, for records,
 // of ``scales``) and smem_bytes count them (the caller's choice:
-// ops/cuda_graph._records_place), else read from the records or rows.
+// ops/cuda_graph._records_place), else read from the records or rows;
+// float32 records: a ring of the rows that smem_bytes count past the
+// unstaged layout (whole rows of D floats, 16-byte ones, a 16-aligned
+// base), else read from the records.
 // queries f32[B, D] (the walk's query), entry_d f32[B] (read only when
 // has_nodes).  visited_slots: -1 the dense dedupe (``visited`` unread), 0
 // the bitmap (``visited`` i32[B, vis_n] words, vis_n >= cap / 32, zeroed
@@ -2134,23 +2290,32 @@ int beam_walk(const int* links, const int* counts, const void* rows,
        vis_n != visited_slots))
     return (int)cudaErrorInvalidValue;
   // int8 / bf16 records or rows: staged where records_place can stage them
-  // and the caller chose to (its smem_bytes count the staged rows); a
-  // visited set in shared memory where the caller passes no ``visited``
-  // (its smem_bytes count the set: vis_place)
+  // and the caller chose to (its smem_bytes count the staged rows); float32
+  // records: a ring of as many rows as the bytes smem_bytes count past the
+  // unstaged layout (at least one, whole rows); a visited set in shared
+  // memory where the caller passes no ``visited`` (its smem_bytes count the
+  // set: vis_place)
   const bool stage_src = elem == kElemI8 || elem == kElemBF16;
+  const bool ring_src = elem == kElemF32 && records;
   const bool vis_shared = vis_mode != kVisDense && !visited;
-  auto layout = [&](bool stage) {
+  auto layout = [&](bool stage, int ring) {
     return walk_layout(
         ef, cap, T, maxM, D, n_rows, vis_mode == kVisDense,
         elem == kElemPQ ? groups : 0, metric,
-        stage && stage_src ? (elem == kElemI8 ? 1 : 2) : 0, elem == kElemI8,
-        !records,
+        stage && stage_src ? (elem == kElemI8 ? 1 : 2) : ring ? 4 : 0,
+        elem == kElemI8, !records,
         aligned(rows, 16) &&
             (elem != kElemI8 || !records || aligned(scales, 16)),
-        vis_shared ? (size_t)vis_n : 0);
+        vis_shared ? (size_t)vis_n : 0, ring);
   };
-  WalkLayout lay = layout(true);
-  if (lay.rec.staged && lay.smem != (size_t)smem_bytes) lay = layout(false);
+  WalkLayout lay = layout(true, 0);
+  if (lay.rec.staged && lay.smem != (size_t)smem_bytes) lay = layout(false, 0);
+  if (ring_src && (size_t)smem_bytes > lay.smem) {
+    // the ring's rows, from the bytes past the unstaged layout (the ring is
+    // 16-aligned whole rows, so a set after it moves by its bytes alone)
+    const size_t ring = ((size_t)smem_bytes - lay.smem) / ((size_t)D * 4);
+    if (ring >= 1 && ring <= (size_t)kSmemLimit) lay = layout(false, (int)ring);
+  }
   if (lay.smem != (size_t)smem_bytes || lay.smem > (size_t)kSmemLimit ||
       lay.words != (size_t)wide_words || (lay.words && !wide_mem) ||
       lay.vis.shared != (int)vis_shared)
@@ -2172,13 +2337,17 @@ int beam_walk(const int* links, const int* counts, const void* rows,
                                                                lay.pq.words))
                                  : nullptr;
   }
+  if (lay.rec.ring) src.ring = lay.rec.ring;
   const WalkArgs a{links,  counts, src,  queries, entry_d, visited, wide_mem,
                    has_nodes, B, D, maxM, T, ef, cap, metric, vis_mode,
                    vis_n,  out_d,  out_i, hops,   evals};
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   cudaError_t err;
   switch (elem) {
-    case kElemF32: err = launch_elem<kElemF32>(a, lay, stream); break;
+    case kElemF32:
+      err = lay.rec.ring ? launch_elem<kElemF32Staged>(a, lay, stream)
+                         : launch_elem<kElemF32>(a, lay, stream);
+      break;
     case kElemI8:
       err = lay.rec.staged ? launch_elem<kElemI8Staged>(a, lay, stream)
                            : launch_elem<kElemI8>(a, lay, stream);
@@ -2197,7 +2366,8 @@ int beam_walk(const int* links, const int* counts, const void* rows,
 
 // Blocks an SM holds at once of the walk instance that a launch of element
 // type ``elem`` (0 float32, 1 int8, 2 bfloat16), its records or rows
-// ``staged`` or not, with the dense dedupe or a set, T and maxM takes, table or
+// ``staged`` or not (float32: its records in a ring, table instances
+// only), with the dense dedupe or a set, T and maxM takes, table or
 // ``wide``, at smem_bytes a block: the runtime's occupancy of the built
 // kernel.  -1 on an error.
 int beam_walk_blocks(int elem, int staged, int dense, int wide, int T,
@@ -2205,7 +2375,10 @@ int beam_walk_blocks(int elem, int staged, int dense, int wide, int T,
   if (smem_bytes < 0 || smem_bytes > kSmemLimit) return -1;
   const size_t smem = (size_t)smem_bytes;
   switch (elem) {
-    case kElemF32: return instance_blocks<kElemF32>(dense, wide, T, maxM, smem);
+    case kElemF32:
+      return staged && !wide
+                 ? instance_blocks<kElemF32Staged>(dense, wide, T, maxM, smem)
+                 : instance_blocks<kElemF32>(dense, wide, T, maxM, smem);
     case kElemI8:
       return staged ? instance_blocks<kElemI8Staged>(dense, wide, T, maxM, smem)
                     : instance_blocks<kElemI8>(dense, wide, T, maxM, smem);

@@ -49,6 +49,21 @@ its own library under .kernel_build/graph_probe/, all side by side:
   records-prefetch   the table instances' phase 1 asks L2 for each popped
                 row's int8 / bf16 record (cp.async.bulk.prefetch.L2), for
                 the walks launched unstaged (_PREFETCH)
+  ring-prefetch the float32 records ring with an L2 prefetch of the rows
+                past K in phase 2 (cp.async.bulk.prefetch.L2), which phase
+                3 reads from the records (_RING_PREFETCH)
+  ring-wait-first    the float32 records ring's phase 3 waits for the
+                ring before it scores the rows past K (no overlap of the
+                two)
+  ring-threads128    the float32 records ring's instances at 128 threads
+                for every T (96 registers; at T maxM > 128 a thread takes
+                two slots)
+  ring-blocks3  the float32 records ring's 256-thread instances at 3 blocks
+                an SM (80 registers) instead of 4
+  rows-prefetch the float32 records walk with no ring: phase 2 asks L2
+                for each processed slot's record row as the dedupe keeps
+                it (every block and all of L1 kept), for the walks
+                launched unstaged (_ROWS_PREFETCH)
   rows-phase-1  staged int8 / bf16 rows copied for every valid slot as its
                 link lands in phase 1 (the table instances), instead of
                 for the processed slots as phase 2's dedupe keeps them;
@@ -120,23 +135,30 @@ queries, mean hops and dist_evals within 1%).  Then the profile builds'
 laps a block-step, the kernel's and the earlier tree's (setup: the
 table's build, once a block), and the PQ instances' ptxas reports.
 
-``--mode records`` times the int8 and bf16 records walks (the API's
-packed_dtype "int8" and "bfloat16") on the same 1M index at ef = 64, T
-= 4 and 8, each placement the launch can ask for (RECORDS_RUNS): staged
-by the bulk copy (the kernel's), staged by cp.async (records-cp-async),
-read from the records (the kernel's unstaged instance), read from the
-records after an L2 prefetch (records-prefetch) and, with ``--before
-FILE`` (an earlier tree's csrc/beam_walk.cu, laid out with no staging),
-"before", in turns (in order, then reversed), each checked against the
-placement ops/cuda_graph._records_place chooses bit for bit (ids,
-distances, hops, evals) and that one against the plain twin by
-chip_smoke.py's bar; beside them the float32 rows' walks at T = 4 and 8
-(the main path's instances) against "before".  Each case prints its
-shared memory a block, staged and unstaged, and the blocks an SM of
-each (walk_blocks: the runtime's occupancy), then the profile builds'
-laps a block-step (the kernel's, at the chosen placement; the earlier
-tree's), and the records instances' ptxas reports; exits 1 if a check
-fails.
+``--mode records`` times the int8, bf16 and float32 records walks (the
+API's packed_dtype "int8", "bfloat16" and "float32") on the same 1M index
+at ef = 64, T = 4 and 8, each placement the launch can ask for
+(RECORDS_RUNS; float32's FLOAT32_RUNS): int8 / bf16 staged by the bulk
+copy (the kernel's), staged by cp.async (records-cp-async), read from the
+records (the kernel's unstaged instance), read from the records after an
+L2 prefetch (records-prefetch); float32 through the ring at its largest K
+(the kernel's), at K = 64 and 32, with an L2 prefetch of the rows past K
+(ring-prefetch), waited for before the rows past K are scored
+(ring-wait-first), with no ring but each processed row asked of L2
+(rows-prefetch), read from the records (and at T = 2 the ring, unstaged
+and before alone); and, with ``--before FILE`` (an
+earlier tree's csrc/beam_walk.cu, laid out with no staging), "before",
+in turns (in order, then reversed; ``--turns N`` rounds of that), each
+checked against the placement ops/cuda_graph._records_place chooses bit
+for bit (ids, distances, hops, evals) and that one against the plain
+twin by chip_smoke.py's bar (float32: ids, hops and evals equal on every
+query); beside them the float32 rows' walks at T = 4 and 8 (the main
+path's instances) against "before", with the profile builds' laps.
+Each case prints its shared memory a block, staged and unstaged, and the
+blocks an SM of each (walk_blocks: the runtime's occupancy), then the
+profile builds' laps a block-step (the kernel's, at the chosen
+placement; the earlier tree's), and the records instances' ptxas
+reports; exits 1 if a check fails.
 
 ``--mode rows`` does the same for the int8 rows (the quantized traversal:
 HnswIndex._ensure_quantized's rows x scales) and the bf16 corpus rows (the
@@ -284,6 +306,38 @@ _CP_ASYNC_STAGE = (
     "                 \"r\"(smem_addr(to)), \"l\"(from) : \"memory\");\n"
     "  }\n"
     "  if (false)\n" + _BULK_STAGE)
+# the float32 records ring's phase 2 asking L2 for each processed slot's
+# row past K
+_RING_TAIL = ("  if (!copy) return;\n"
+              "  const int j = s / maxM;\n"
+              "  const unsigned char* from =\n"
+              "      static_cast<const unsigned char*>(src.rows) +\n"
+              "      ((size_t)pop_i[j] * maxM + (s - j * maxM)) * row;\n")
+_RING_PREFETCH = (
+    "  if (e < 0) return;\n"
+    "  const int j = s / maxM;\n"
+    "  const unsigned char* from =\n"
+    "      static_cast<const unsigned char*>(src.rows) +\n"
+    "      ((size_t)pop_i[j] * maxM + (s - j * maxM)) * row;\n"
+    "  if (!copy) {\n"
+    "    asm volatile(\"cp.async.bulk.prefetch.L2.global [%0], %1;\\n\" ::\n"
+    "                 \"l\"(from), \"r\"(row) : \"memory\");\n"
+    "    return;\n"
+    "  }\n")
+# float32 records with no ring: phase 2's dedupe asks L2 for each processed
+# slot's record row as it keeps it (where the ring's copies would go)
+_RING_CALL = ("      // float32 records in a ring: each processed slot's row "
+              "copied to its\n")
+_ROWS_PREFETCH = (
+    "      if constexpr (kElem == kElemF32)\n"
+    "        if (src.records && keep && D % 4 == 0) {\n"
+    "          const int j = s / maxM;\n"
+    "          asm volatile(\n"
+    "              \"cp.async.bulk.prefetch.L2.global [%0], %1;\\n\" ::\n"
+    "              \"l\"(static_cast<const float*>(src.rows) +\n"
+    "                  ((size_t)ci[j] * maxM + (s - j * maxM)) * D),\n"
+    "              \"r\"((unsigned)D * 4) : \"memory\");\n"
+    "        }\n" + _RING_CALL)
 # the table instances' phase 1, after the stage: an L2 prefetch of each
 # popped row's int8 / bf16 record (and an int8 record's scales) where the
 # walk reads the records
@@ -417,6 +471,7 @@ _SETS_DYN_END = ((WALK, """      size_t at = region - smem;
       if constexpr (is_staged(kElem))
         at += rec_stage_bytes(elem_type(kElem) == kElemI8 ? 1 : 2,
                               elem_type(kElem) == kElemI8, T, maxM, D);
+      if constexpr (is_ring(kElem)) at += (size_t)src.ring * D * 4;
       vis = reinterpret_cast<int*>(smem + round16(at));
 """, """      unsigned dyn;
       asm("mov.u32 %0, %%dynamic_smem_size;" : "=r"(dyn));
@@ -427,8 +482,8 @@ _SETS_DYN_END = ((WALK, """      size_t at = region - smem;
 # visited_shared="padded": the set in device memory, the block padded to
 # the shared one's bytes)
 _SETS_PADDED = (
-    (WALK, "vis_shared ? (size_t)vis_n : 0);",
-     "vis_mode != kVisDense ? (size_t)vis_n : 0);"),
+    (WALK, "vis_shared ? (size_t)vis_n : 0, ring);",
+     "vis_mode != kVisDense ? (size_t)vis_n : 0, ring);"),
     (WALK, "      lay.vis.shared != (int)vis_shared)", "      !lay.vis.shared)"))
 _SETS_WARP_0 = (
     (WALK, "  } else if (vis_mode == kVisHash && warp == kThreads / 32 - 1) "
@@ -479,6 +534,26 @@ VARIANTS = {
         (WALK, "  mbar_wait(rs.bar, (unsigned)step & 1u);\n",
          "  cp_async_wait_all();\n"))),
     "records-prefetch": ((), ((WALK, _STAGE_CALL, _PREFETCH),)),
+    "ring-prefetch": ((), ((WALK, _RING_TAIL, _RING_PREFETCH),)),
+    "ring-threads128": ((), (
+        (WALK, "  const bool wide = walk_threads(a.T, a.maxM) > 128;\n",
+         "  const bool wide = !is_ring(kElem) && walk_threads(a.T, a.maxM) > "
+         "128;\n"),
+        (WALK, "  const bool w = walk_threads(T, maxM) > 128;\n",
+         "  const bool w = !is_ring(kElem) && walk_threads(T, maxM) > 128;\n"),
+    )),
+    "ring-blocks3": ((), ((
+        WALK, "__launch_bounds__(kThreads, kMinBlocks<kThreads>)\n"
+        "beam_walk_kernel(",
+        "__launch_bounds__(kThreads, is_ring(kElem) && kThreads == 256 ? 3\n"
+        "                                : kMinBlocks<kThreads>)\n"
+        "beam_walk_kernel("),)),
+    "ring-wait-first": ((), (
+        (WALK, "  wait_records(rs, step);\n", ""),
+        (WALK, "  const int k = min(src.ring, n_proc);\n",
+         "  const int k = min(src.ring, n_proc);\n  wait_records(rs, step);\n"),
+    )),
+    "rows-prefetch": ((), ((WALK, _RING_CALL, _ROWS_PREFETCH),)),
     "rows-phase-1": ((), _ROWS_PHASE1),
     "rows-phase-1-profile": (PROFILE, _ROWS_PHASE1),
     "rows-warp": ((), _ROWS_WARP),
@@ -538,14 +613,36 @@ PQ_CASES = ((16, 0, False), (32, 0, False), (64, 0, False), (32, 0, True),
 # "before"): its build and what the launch asks for (walk's ``staged``:
 # "forced" stages wherever records_place can, False reads the records),
 # the records' element types (the API's packed_dtype) and the widths T
-RECORDS_BUILDS = ("kernel", "profile", "records-cp-async", "records-prefetch")
+RECORDS_BUILDS = ("kernel", "profile", "records-cp-async", "records-prefetch",
+                  "ring-prefetch", "ring-wait-first", "ring-threads128",
+                  "ring-blocks3", "rows-prefetch")
 RECORDS_RUNS = {"bulk copy": ("kernel", "forced"),
                 "cp.async": ("records-cp-async", "forced"),
                 "unstaged": ("kernel", False),
                 "prefetch": ("records-prefetch", False),
                 "before": ("before", False)}
-RECORDS_DTYPES = ("int8", "bfloat16")
+# float32 records: (build, staged, the ring's rows: None, the rule's K; an
+# int; or ("most", B), the most that keep B blocks an SM (None: the
+# instance's WALK_MIN_BLOCKS), placed whatever the block's threads)
+MOST = ("most", None)
+FLOAT32_RUNS = {"kernel": ("kernel", True, None),
+                "ring, most rows": ("kernel", "forced", MOST),
+                "ring K=64": ("kernel", "forced", 64),
+                "ring K=32": ("kernel", "forced", 32),
+                "ring, L2 prefetch past K": ("ring-prefetch", "forced", MOST),
+                "ring, waited first": ("ring-wait-first", "forced", MOST),
+                "ring, 128 threads": ("ring-threads128", "forced", MOST),
+                "ring K=61, 128 threads": ("ring-threads128", "forced", 61),
+                "ring, 3 blocks an SM": ("ring-blocks3", "forced",
+                                         ("most", 3)),
+                "L2 prefetch, no ring": ("rows-prefetch", False, None),
+                "unstaged": ("kernel", False, None),
+                "before": ("before", False, None)}
+RECORDS_DTYPES = ("int8", "bfloat16", "float32")
 RECORDS_TS = (4, 8)
+# float32 records also at T = 2 (a 128-thread block, as T = 4): the
+# kernel, unstaged and before alone, no laps
+FLOAT32_TS, FLOAT32_T2_RUNS = (4, 8, 2), ("kernel", "unstaged", "before")
 # --mode rows: the variants built and each placement timed, as above
 ROWS_BUILDS = ("kernel", "profile", "rows-phase-1", "rows-phase-1-profile",
                "rows-warp", "rows-phase-1-warp", "rows-no-fence")
@@ -639,7 +736,7 @@ def build_all(names=tuple(VARIANTS), wiring: bool = False) -> dict:
 
 def walk(lib, graph, queries, *, ef, cand_cap, t, metric_value,
          variant="kernel", pq_table=True, staged=True, visited_slots=-1,
-         visited_shared=True, **operands):
+         visited_shared=True, ring=None, **operands):
     """One launch of ``lib``'s walk (the shared-memory figure of its
     variant) over float32 rows or the row source ``operands`` give
     (ops/cuda_graph.beam_walk's), under the dense dedupe or the visited
@@ -647,7 +744,9 @@ def walk(lib, graph, queries, *, ef, cand_cap, t, metric_value,
     source takes no table, laid out as the other sources are; ``staged``
     False: int8 / bf16 records read from the records (a tree that stages
     none), "forced": staged wherever they fit, whatever an SM then holds
-    (True: as ops/cuda_graph._records_place chooses); ``visited_shared``
+    (True: as ops/cuda_graph._records_place chooses); ``ring``: a float32
+    records ring of at most that many rows (None: the rule's);
+    ``visited_shared``
     the same for a visited set (False: in device memory, as a tree before
     the sets' placement keeps it; True: as _visited_place chooses;
     "padded": in device memory, the block's shared bytes counting the set
@@ -666,6 +765,8 @@ def walk(lib, graph, queries, *, ef, cand_cap, t, metric_value,
             src = src._replace(pq=None)
         if not staged:
             src = src._replace(stage=None)
+        elif ring is not None and src.stage is not None and src.stage.ring:
+            src = src._replace(stage=src.stage._replace(ring=ring))
         vis = (cg._visited_words(graph, visited_slots)
                if visited_slots >= 0 else 0)
         smem, held, slots, wide, shared = cg._walk_plan(
@@ -1223,7 +1324,6 @@ def placements_main(args, rows: bool) -> int:
     from .core import search as core_search
     from .ops.cuda_bruteforce import fused_exact_search
     from .utils.io import synthetic_clustered
-    runs = ROWS_RUNS if rows else RECORDS_RUNS
     libs = placement_libs(args, ROWS_BUILDS if rows else RECORDS_BUILDS)
     before = "before" in libs
     reports = {}
@@ -1231,8 +1331,9 @@ def placements_main(args, rows: bool) -> int:
         with open(os.path.join(OUT, name + ".so.log")) as f:
             reports[name] = ptxas_reports(f.read())
         for fn, (regs, spill) in sorted(reports[name].items()):
-            # the int8 / bf16 instances, staged (5, 6) or not (1, 2)
-            if re.search(r"beam_walk(_wide)?_kernelILi[1256]E", fn):
+            # the int8 / bf16 instances, staged (5, 6) or not (1, 2), the
+            # float32 ones (0) and the ring's (7)
+            if re.search(r"beam_walk(_wide)?_kernelILi[012567]E", fn):
                 print(f"ptxas {name} {fn}: {regs} registers; {spill}",
                       flush=True)
     pts, qs = synthetic_clustered(args.n, 128, 1_000, seed=12345,
@@ -1246,42 +1347,68 @@ def placements_main(args, rows: bool) -> int:
                                n_valid=g.n_nodes)[1].cpu().numpy()
     ok = True
 
+    runs = ROWS_RUNS if rows else RECORDS_RUNS
+
     def run(name, graph, kw):
         """Placement ``name`` of the mode's runs, or "kernel": the
         kernel's build at the placement _records_place chooses."""
-        lib, staged = runs.get(name, ("kernel", True))
-        return walk(libs[lib], graph, q, **kw, staged=staged)
+        lib, staged, *ring = runs.get(name, ("kernel", True))
+        ring = ring[0] if ring else None
+        if isinstance(ring, tuple):
+            ring = most_rows(kw["t"], ring[1])
+        return walk(libs[lib], graph, q, **kw, staged=staged, ring=ring)
+
+    def most_rows(t, blocks):
+        """The most rows a float32 records ring keeps at T = ``t`` with
+        ``blocks`` blocks an SM (None: the instance's WALK_MIN_BLOCKS),
+        whatever the block's threads."""
+        return cg._ring_rows(
+            cg.RecordsStage(4, False, True, False, t * g.max_m), g.dims,
+            cg._walk_smem_bytes(64, 64, t, g.max_m, g.dims, None),
+            blocks or cg.WALK_MIN_BLOCKS[cg._walk_threads(t, g.max_m)])
 
     def timed(label, graph, kw, names):
         ms = {n: [] for n in names}
-        for name in (*names, *names[::-1]):
+        for name in (*names, *names[::-1]) * args.turns:
             ms[name].append(device_ms(lambda: run(name, graph, kw),
                                       args.reps))
         for name in names:
             print(f"{label} {name} (ms on the card, in turns): "
                   + " / ".join(f"{m:.4f}" for m in ms[name]), flush=True)
 
+    profiles = ["profile", *(["rows-phase-1-profile"] * rows),
+                *(["before-profile"] * before)]
     for t in RECORDS_TS:
         kw = dict(ef=64, cand_cap=64, t=t, metric_value=0)
         timed(f"f32 rows T={t}", g, kw, ["kernel", *(["before"] * before)])
-    names = [n for n in runs if before or n != "before"]
-    profiles = ["profile", *(["rows-phase-1-profile"] * rows),
-                *(["before-profile"] * before)]
+        for name in ("profile", *(["before-profile"] * before)):
+            r = walk_phases(libs[name], g, q, **kw)
+            print(f"f32 rows T={t} {name} cycles a block-step "
+                  f"({r['steps']:.2f} steps a block; setup: a block): "
+                  f"{format_cycles(r['cycles'])}", flush=True)
     cases = _rows_cases(idx, g) if rows else _records_cases(idx, g)
     for source, graph, ops, twin_ops, rerank in cases:
-        for t in RECORDS_TS:
+        f32 = source == "records float32"
+        runs = FLOAT32_RUNS if f32 else (ROWS_RUNS if rows else RECORDS_RUNS)
+        for t in FLOAT32_TS if f32 else RECORDS_TS:
+            names = [n for n in runs if (before or n != "before") and (
+                t in RECORDS_TS or n in FLOAT32_T2_RUNS)]
             kw = dict(ef=64, cand_cap=64, t=t, metric_value=0, **ops)
             src = cg._check_walk_args(graph, q, 64, 64, t, 0, **ops)
             stage, elem = src.stage, src.elem
             staged = cg.records_staging(64, 64, t, g.max_m, g.dims, stage)
             plain = cg._walk_smem_bytes(64, 64, t, g.max_m, g.dims, None)
             rec, _ = cg._records_place(stage, t, g.max_m, g.dims, plain, 0)
+            if staged and stage.ring:
+                rec = staged                # the ring at the rule's K
             blocks = [walk_blocks(libs["kernel"], elem, on, t, g.max_m,
                                   plain + rec * on) for on in (True, False)]
+            ring = (f", a ring of {rec // (4 * g.dims)} rows"
+                    if stage is not None and stage.ring else "")
             label = (f"{source} T={t} ef=64 (staged: {plain + rec} bytes "
-                     f"of shared memory a block, {rec} of them the rows, "
-                     f"{blocks[0]} blocks an SM; unstaged: {plain} bytes, "
-                     f"{blocks[1]} blocks an SM; the kernel takes "
+                     f"of shared memory a block, {rec} of them the rows"
+                     f"{ring}, {blocks[0]} blocks an SM; unstaged: {plain} "
+                     f"bytes, {blocks[1]} blocks an SM; the kernel takes "
                      f"{'staged' if staged else 'unstaged'})")
             got = run("kernel", graph, kw)
             for name in names:
@@ -1300,12 +1427,26 @@ def placements_main(args, rows: bool) -> int:
                   f"{hk:.2f} / {hp:.2f}, dist_evals {ek:.1f} / {ep:.1f}; "
                   f"the bar holds: {held}", flush=True)
             ok &= held
+            if not rerank and not rows:
+                # float32 records: the twin's walk on every query
+                same = ((got[1] == want[1]).all(dim=1) & (got[2] == want[2])
+                        & (got[3] == want[3]))
+                print(f"{label} vs the twin: ids, hops and evals equal on "
+                      f"{int(same.sum())} of {len(q)} queries", flush=True)
+                ok &= bool(same.all())
             timed(label, graph, kw, names)
-            for name in profiles:
-                r = walk_phases(libs[name], graph, q, **kw,
-                                staged="forced" if name.startswith("rows")
-                                else name != "before-profile")
-                print(f"{label} {name} cycles a block-step "
+            laps = [(name, dict(staged="forced" if name.startswith("rows")
+                                else name != "before-profile"))
+                    for name in profiles * (t in RECORDS_TS)]
+            if f32 and t in RECORDS_TS and not staged:
+                # the ring the rule declines, forced at its most rows
+                laps.append(("profile", dict(staged="forced",
+                                             ring=most_rows(t, None))))
+            for name, place in laps:
+                r = walk_phases(libs[name], graph, q, **kw, **place)
+                forced = (f" (a ring of {place['ring']} rows forced)"
+                          if "ring" in place else "")
+                print(f"{label} {name}{forced} cycles a block-step "
                       f"({r['steps']:.2f} steps a block; setup: a block): "
                       f"{format_cycles(r['cycles'])}", flush=True)
     print(f"{'rows' if rows else 'records'}: every check held: {ok}",
@@ -1517,8 +1658,8 @@ def main() -> int:
                     "earlier tree's csrc/beam_walk.cu, timed beside the "
                     "kernel")
     ap.add_argument("--turns", type=int, default=1,
-                    help="--mode sets: rounds of timings in turns (each in "
-                    "order, then reversed)")
+                    help="--mode sets / records / rows: rounds of timings "
+                    "in turns (each in order, then reversed)")
     args = ap.parse_args()
     if args.reps is None:
         args.reps = 3 if args.mode == "wide" else 20

@@ -16,7 +16,8 @@ launch:
     package's walk: neighbour rows from the float32 or bf16 corpus rows,
     int8 rows x scales (quantized traversal), float32 / bf16 / int8 (x
     scales) packed records (int8 and bf16 records and rows staged in
-    shared memory a step at a time where they fit, _records_place) or PQ
+    shared memory a step at a time where they fit, float32 records' first
+    processed rows a step in a ring there, _records_place) or PQ
     records through a
     codebook (with OPQ's rotated query; the codes read through a
     per-query distance table in shared memory, whose plain form is
@@ -62,8 +63,10 @@ LAUNCHES = {"beam_walk": 0, "prune_scan": 0, "connect_batch": 0}
 WALK_VARIANTS: dict = {}
 PRUNE_SHAPES: dict = {}
 # beam_walk's launches of its wide instances (queues past MAX_WALK_QUEUE),
-# counted beside LAUNCHES
+# and of its float32 records ring instances (kElemF32Staged), counted
+# beside LAUNCHES
 WIDE_WALKS = 0
+RING_WALKS = 0
 
 # Widest result and candidate queue of the walk instances that rebuild a
 # held table each step (csrc/beam_walk.cu's kMaxQueue: past it the wide
@@ -75,12 +78,13 @@ WIDE_WALKS = 0
 MAX_WALK_QUEUE = 320
 MAX_WIDE_QUEUE = 1 << 20
 SMEM_LIMIT = 232_448                # bytes of shared memory a block can use
-# an SM's shared memory (H100) and the bytes each resident block reserves
-# beside its own; the blocks an SM must hold of a walk instance (its
-# registers' residency: csrc/beam_walk.cu's __launch_bounds__, kMinBlocks
-# by block size, kWideMinBlocks).  _records_place's rule alone reads them;
-# the smoke holds it to the runtime's occupancy on the card.
-SM_SMEM, BLOCK_RESERVED = 233_472, 1_024
+# an SM's shared memory (H100), the bytes each resident block reserves
+# beside its own and the unit the runtime allocates a block's bytes in; the
+# blocks an SM must hold of a walk instance (its registers' residency:
+# csrc/beam_walk.cu's __launch_bounds__, kMinBlocks by block size,
+# kWideMinBlocks).  _records_place's rule alone reads them; the smoke holds
+# it to the runtime's occupancy on the card.
+SM_SMEM, BLOCK_RESERVED, SMEM_UNIT = 233_472, 1_024, 128
 WALK_MIN_BLOCKS = {128: 5, 256: 4}
 WIDE_MIN_BLOCKS = 2
 # the most shared memory an SM's blocks may take in all where a walk keeps
@@ -139,21 +143,26 @@ def _pq_place(pq: Optional[PqTable], t: int, max_m: int,
 
 
 class RecordsStage(NamedTuple):
-    """An int8 or bf16 records or rows source, as the walk's layout sees
-    it: the bytes of an element, whether int8 scales go with them, whether
-    the bases the bulk copy reads are 16-byte aligned (the records' and
-    their scales', or the rows': a rows source's scales are copied 4
-    bytes at a time), and whether it is rows (a bulk copy a slot's row)
-    or records (one a popped row's record)."""
+    """An int8 or bf16 records or rows source, or float32 records, as the
+    walk's layout sees it: the bytes of an element, whether int8 scales go
+    with them, whether the bases the bulk copy reads are 16-byte aligned
+    (the records' and their scales', or the rows': a rows source's scales
+    are copied 4 bytes at a time), whether it is rows (a bulk copy a
+    slot's row) or records (one a popped row's record), and for float32
+    records the most rows their ring may hold (``ring``: a bulk copy a
+    processed slot's row, T maxM at most a step; 0 for the others)."""
     itemsize: int
     scales: bool
     aligned: bool
     rows: bool = False
+    ring: int = 0
 
 
 def _blocks_by_smem(smem: int) -> int:
-    """Blocks of ``smem`` bytes of shared memory an SM holds."""
-    return SM_SMEM // (smem + BLOCK_RESERVED)
+    """Blocks of ``smem`` bytes of shared memory an SM holds: each takes
+    its bytes and the reserve, rounded up to the allocation unit (45,600 B
+    a block: 46,720, so 4 an SM, not 5)."""
+    return SM_SMEM // (-(-(smem + BLOCK_RESERVED) // SMEM_UNIT) * SMEM_UNIT)
 
 
 def _keeps_blocks(used: int, nbytes: int, min_blocks: int) -> bool:
@@ -169,22 +178,25 @@ def _records_place(stage: Optional[RecordsStage], t: int, max_m: int,
                    dims: int, used: int, min_blocks: int,
                    at: Optional[int] = None) -> tuple:
     """Where an int8 or bf16 records or rows source keeps each step's
-    rows, given ``used``, the shared bytes
+    rows, or float32 records their ring, given ``used``, the shared bytes
     of the rest of the block's layout, ``min_blocks``, the blocks an SM
     holds of the instance by its registers, and ``at``, the offset of the
     region they would take (``used`` by default): (shared bytes, staged).
     The T popped rows' whole records, or the T maxM slots' rows (T maxM D
     elements either way), then an int8 source's T maxM float32 scales,
-    each rounded up to 16 bytes, where the bulk copy's 16-byte alignment
+    each rounded up to 16 bytes; for float32 records (``stage.ring``) a
+    ring of K rows of D floats, K the most up to ``stage.ring`` that fit,
+    in a 128-thread block (T maxM <= 128) alone: where the bulk copy's
+    16-byte alignment
     holds (the bytes of what one copy moves: a record, or a rows source's
-    row; an int8 record's scales, ``at`` and the bases), they fit beside
-    ``used`` within SMEM_LIMIT, and an SM still holds as many blocks as
-    without them (up to ``min_blocks``); else (0, False): each slot is
-    read from the records or rows.  (0, False) for the other sources
-    (None).  csrc/beam_walk.cu's records_place checks the alignment and
-    the fit again, and launches the staged instance where the shared
-    bytes passed count the staged rows: the residency rule lives here
-    alone.
+    or a ring's row; an int8 record's scales, ``at`` and the bases), they
+    fit beside ``used`` within SMEM_LIMIT, and an SM still holds as many
+    blocks as without them (up to ``min_blocks``); else (0, False): each
+    slot is read from the records or rows.  (0, False) for the other
+    sources (None).  csrc/beam_walk.cu's records_place checks the
+    alignment and the fit again, and launches the staged instance where
+    the shared bytes passed count the staged rows (a ring: as many rows
+    as they count): the residency rule lives here alone.
 
     The residency rule is measured (graph_probe --mode records, 1M x
     128-d, ef 64, NVIDIA H100 80GB HBM3 at 700 W): staged walks that keep
@@ -195,20 +207,53 @@ def _records_place(stage: Optional[RecordsStage], t: int, max_m: int,
     the same (graph_probe --mode rows): int8 T = 4 / 8 0.713 / 0.704 ms
     staged against 0.733 / 0.718 read from the rows, bf16 T = 4 0.707
     against 0.732; bf16 T = 8 staged 0.908 against 0.662, so it reads the
-    rows."""
+    rows.
+
+    The ring's rule is measured too (the same probe and card, each
+    comparison in turns in one call): at config 1's T = 4 a ring of 71
+    rows (36,352 B beside 8,736: 5 blocks an SM) takes 0.772-0.776 ms
+    against 0.909-0.913 reading the records; 64 rows tie with 71, 32 lose
+    (0.850-0.853); at T = 2 a ring of the step's 64 rows 1.095-1.099
+    against 1.290-1.292.  At T = 8 (256 threads, 64 registers, a ~170 B
+    spill stack a thread that lives in the L1 the ring's bytes take)
+    every ring lost: 84 rows (the most at 4 blocks) 1.092-1.096, 64
+    1.005-1.008, 32 0.935-0.938, 122 at 3 blocks an SM 0.907-0.911, 61 at
+    128 threads 0.914-0.916, against 0.899-0.903 reading the records; so
+    a 256-thread block reads them.  ``min_blocks`` 0 (a forced placement)
+    places a ring there all the same."""
     if stage is None or not stage.aligned:
         return 0, False
     at = used if at is None else at
-    unit = (1 if stage.rows else max_m) * dims * stage.itemsize
+    unit = (1 if stage.rows or stage.ring else max_m) * dims * stage.itemsize
     if (unit % 16 or (stage.scales and not stage.rows and max_m * 4 % 16)
             or at % 16):
         return 0, False
+    if stage.ring:
+        if min_blocks and _walk_threads(t, max_m) > 128:
+            return 0, False
+        rows = _ring_rows(stage, dims, used, min_blocks)
+        return (rows * unit, True) if rows > 0 else (0, False)
     nbytes = -(-t * max_m * dims * stage.itemsize // 16) * 16
     if stage.scales:
         nbytes += -(-t * max_m * 4 // 16) * 16
     if not _keeps_blocks(used, nbytes, min_blocks):
         return 0, False
     return nbytes, True
+
+
+def _ring_rows(stage: RecordsStage, dims: int, used: int,
+               min_blocks: int) -> int:
+    """The most rows of ``dims`` floats, up to ``stage.ring``, that a
+    float32 records ring holds beside ``used`` bytes within SMEM_LIMIT
+    with an SM still holding as many blocks as without it (up to
+    ``min_blocks``; 0: wherever they fit).  _records_place's count, before
+    its condition on the block's threads."""
+    keep = min(min_blocks, _blocks_by_smem(used))
+    room = SMEM_LIMIT - used
+    if keep:
+        room = min(room, SM_SMEM // keep // SMEM_UNIT * SMEM_UNIT
+                   - BLOCK_RESERVED - used)
+    return min(stage.ring, max(room, 0) // (4 * dims))
 
 
 def _visited_place(words: int, used: int, min_blocks: int) -> tuple:
@@ -279,14 +324,15 @@ def _walk_plan(ef: int, cand_cap: int, t: int, max_m: int, dims: int,
     codes (_pq_place: placed before the hash tables, which take what it
     leaves; where they do not fit, the kernel dedupes by comparison and
     they take 0); then an int8 or bf16 records or rows source's staged
-    rows (``stage``, _records_place: after every other part, where they
-    fit beside it, so nothing else moves); then a bitmap or hash visited
+    rows, or a float32 records source's ring (``stage``, _records_place:
+    after every other part, where they fit beside it, so nothing else
+    moves); then a bitmap or hash visited
     set of ``visited`` words (0: none) where _visited_place keeps it there
     (else it is in device memory, its words not counted here:
     _walk_launch).
     Queues wider than
     MAX_WALK_QUEUE take the wide instances: the least part (_walk_fixed),
-    the PQ part or the staged rows, then each queue once (d, id; the
+    the PQ part or the staged rows (no ring), then each queue once (d, id; the
     candidate ring of _walk_ring entries) where that fits SMEM_LIMIT; no
     held table, and the visited set in device memory.  Device
     memory a query: 0 where both queues
@@ -310,6 +356,8 @@ def _walk_plan(ef: int, cand_cap: int, t: int, max_m: int, dims: int,
         held = -(-capacity // 16) if dense else 0
         queues = 8 * (ef + _walk_ring(cand_cap, t))
         slots = _pow2_at_least(2 * tm)
+        if stage is not None and stage.ring:
+            stage = None            # the wide instances keep no ring
         if fixed + queues <= SMEM_LIMIT:
             rec, _ = _records_place(stage, t, max_m, dims, fixed + queues,
                                     WIDE_MIN_BLOCKS, fixed)
@@ -526,7 +574,8 @@ class WalkSource(NamedTuple):
     query: torch.Tensor           # the walk's query rows (OPQ: q @ R)
     variant: str                  # walk_variant's name
     pq: Optional[PqTable]         # PQ: its distance table, else None
-    stage: Optional[RecordsStage]  # int8 / bf16 records or rows, else None
+    stage: Optional[RecordsStage]  # int8 / bf16 records or rows, float32
+                                   # records (a ring), else None
 
 
 def visited_name(visited_slots: int) -> str:
@@ -642,6 +691,10 @@ def _check_walk_args(graph, queries, ef, cand_cap, t, metric_value, *,
                              all(x.data_ptr() % 16 == 0 for x in bulk
                                  if x is not None),
                              records is None)
+    elif records is not None and rows.dtype == torch.float32:
+        # float32 records: a ring of at most a step's T maxM slots' rows
+        stage = RecordsStage(4, False, rows.data_ptr() % 16 == 0, False,
+                             t * max_m)
     return WalkSource(rows, _ELEMS[rows.dtype], records is not None, scales,
                       codebook, queries if query_t is None else query_t,
                       variant, pq, stage)
@@ -672,10 +725,11 @@ def beam_walk(graph, queries: torch.Tensor, *, ef: int, metric_value: int,
     read the codes from the records, or keep the table in device memory
     too (_pq_place).  An int8 or bf16 records walk's blocks copy each
     step's popped records to shared memory, an int8 or bf16 rows walk's
-    each processed slot's row as the dedupe keeps it, where they fit and
-    an SM keeps its blocks, else read them from the records or rows
-    (_records_place)."""
-    global WIDE_WALKS
+    each processed slot's row as the dedupe keeps it, a float32 records
+    walk's the first K processed slots' rows into a ring (the rest read
+    from the records), where they fit and an SM keeps its blocks, else
+    read them from the records or rows (_records_place)."""
+    global WIDE_WALKS, RING_WALKS
     if queries.device.type == "cpu":
         from ..core.search import _search_batch
         return _search_batch(graph, queries, ef=ef, metric_value=metric_value,
@@ -695,6 +749,9 @@ def beam_walk(graph, queries: torch.Tensor, *, ef: int, metric_value: int,
                            visited_slots=visited_slots)
     lib = _kernels.load_library()
     plan = _walk_launch(graph, src, ef, cand_cap, t, visited_slots)
+    ring = (src.stage is not None and src.stage.ring > 0
+            and records_staging(ef, cand_cap, t, graph.max_m,
+                                queries.shape[1], src.stage) > 0)
     b = queries.shape[0]
     step = max(1, SCRATCH_BYTES // (4 * plan.words)) if plan.words else b
     outs = []
@@ -709,6 +766,7 @@ def beam_walk(graph, queries: torch.Tensor, *, ef: int, metric_value: int,
             WALK_VARIANTS[src.variant] = WALK_VARIANTS.get(src.variant,
                                                            0) + 1
             WIDE_WALKS += max(ef, cand_cap) > MAX_WALK_QUEUE
+            RING_WALKS += ring
     if len(outs) == 1:
         return outs[0]
     return tuple(torch.cat(parts) for parts in zip(*outs))

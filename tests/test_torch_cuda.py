@@ -752,7 +752,7 @@ def test_rows_staging_placements(cuda, int_graphs, source, metric, case):
 
 
 @pytest.mark.parametrize("source", ["records int8", "records bf16",
-                                    "rows int8", "rows bf16"])
+                                    "rows int8", "rows bf16", "records f32"])
 def test_records_walk_takes_the_launchs_placement(cuda, int_graphs, source):
     """A records or rows walk that can stage is staged or not as the
     shared bytes the launch passes say (ops/cuda_graph._records_place's
@@ -781,6 +781,105 @@ def test_records_walk_takes_the_launchs_placement(cuda, int_graphs, source):
     with pytest.raises(RuntimeError):
         cg._launch_walk(lib, gc, qc, src, **shape,
                         plan=cg.WalkLaunch(plain + rec + 16, False, 0, 0))
+
+
+# the float32 records ring on the integer fixture (maxM 16, D 32): the
+# rule's ring, T maxM rows, which holds every step's processed rows, and a
+# ring of RING_SMALL rows (graph_probe.walk's ``ring``: a launch of fewer
+# shared bytes), which steps that process more rows overflow
+RING_SMALL = 4
+
+
+@pytest.mark.parametrize("metric", list(METRICS))
+@pytest.mark.parametrize("visited", list(VISITED))
+@pytest.mark.parametrize("width", [4, 8])
+@pytest.mark.parametrize("ring", ["holds every step", "overflows"])
+def test_float32_records_ring_bit_equal(cuda, int_graphs, metric, visited,
+                                        width, ring):
+    """The float32 records walk through its ring (kElemF32Staged: phase 2
+    copies the first K processed slots' record rows to shared memory, L2
+    is asked for the rest, phase 3 reads the ring below K and the records
+    past it) under L2, cosine and Manhattan, the dense dedupe and the
+    bitmap and hash sets, at T 4 and 8, at ef = 64, cand_cap = 128: its
+    ids, distances, hops and dist_evals equal the twin's on the card.  The
+    rule's ring (through the wrapper, counted under its variant) holds T
+    maxM rows (its launch counted in RING_WALKS); the small one is
+    overflowed by some query's steps (its dist_evals a hop pass
+    RING_SMALL)."""
+    from pg_embedding_tpu_torch import _kernels
+    from pg_embedding_tpu_torch.core import search as ts
+    from pg_embedding_tpu_torch.graph_probe import walk
+    from pg_embedding_tpu_torch.ops import cuda_graph as cg
+    arrays, qs = int_graphs["manhattan" if metric == "manhattan" else "l2"]
+    g, q, kw = integer_operands(arrays, qs, "records f32")
+    gc, kc = on_device(g, kw, cuda)
+    qc = q.to(cuda)
+    slots = VISITED[visited]
+    shape = dict(ef=64, metric_value=METRICS[metric], cand_cap=128,
+                 visited_slots=slots)
+    src = cg._check_walk_args(gc, qc, 64, 128, width, METRICS[metric],
+                              visited_slots=slots, **kc)
+    tm = width * gc.max_m
+    assert src.stage == cg.RecordsStage(4, False, True, False, tm)
+    assert cg.records_staging(64, 128, width, gc.max_m, gc.dims,
+                              src.stage) == tm * 4 * gc.dims
+    if ring == "overflows":
+        got = walk(_kernels.load_library(), gc, qc, t=width,
+                   ring=RING_SMALL, **shape, **kc)
+    else:
+        name = f"records f32, {visited}"
+        before = cg.WALK_VARIANTS.get(name, 0), cg.RING_WALKS
+        got = cg.beam_walk(gc, qc, expand_width=width, **shape, **kc)
+        assert (cg.WALK_VARIANTS[name], cg.RING_WALKS) == (
+            before[0] + 1, before[1] + 1)
+    want = ts._search_batch(gc, qc, expand_width=width, **shape,
+                            **on_device(g, kw, cuda, twin=True)[1])
+    _assert_bit_equal(got, want)
+    assert bool((got[2] > 1).all())
+    per_hop = got[3].float() / got[2].float()
+    if ring == "overflows":
+        assert bool((per_hop > RING_SMALL).any())
+
+
+@pytest.mark.parametrize("case", ["wide", "unaligned base", "256 threads"])
+def test_float32_records_without_a_ring(cuda, int_graphs, case):
+    """Float32 records read from the records where no ring is placed: the
+    wide instances (ef = cand_cap = 5120), records whose base is 8 bytes
+    off 16 (the bulk copy's alignment) and a 256-thread block (T = 16 at
+    maxM 16), where the rule keeps no ring: bit-equal to the twin.  The
+    256-thread ring instance, reached by a forced placement (graph_probe
+    walk's "forced": a whole step's rows, and 8 rows, which steps
+    overflow), is bit-equal too."""
+    from pg_embedding_tpu_torch import _kernels
+    from pg_embedding_tpu_torch.graph_probe import walk
+    from pg_embedding_tpu_torch.ops import cuda_graph as cg
+    arrays, qs = int_graphs["l2"]
+    g, q, kw = integer_operands(arrays, qs, "records f32")
+    gc, kc = on_device(g, kw, cuda)
+    width, ef, cap = {"wide": (4, 5120, 5120), "unaligned base": (8, 64, 128),
+                      "256 threads": (16, 64, 128)}[case]
+    if case == "unaligned base":
+        rec = kc["records"]
+        buf = torch.empty(rec.numel() + 2, dtype=rec.dtype, device=cuda)
+        kc["records"] = buf[2:].view(rec.shape)
+        kc["records"].copy_(rec)
+        assert kc["records"].data_ptr() % 16 == 8
+    qc = q.to(cuda)[:64]
+    stage = cg._check_walk_args(gc, qc, ef, cap, width, 0, **kc).stage
+    assert cg.records_staging(ef, cap, width, gc.max_m, gc.dims, stage) == 0
+    rings = cg.RING_WALKS
+    got, want = _walk_pair(gc, qc, ef=ef, metric_value=0, cand_cap=cap,
+                           expand_width=width, **kc)
+    assert cg.RING_WALKS == rings
+    _assert_bit_equal(got, want)
+    assert bool((got[2] > 1).all())
+    if case == "256 threads":
+        assert cg._walk_threads(width, gc.max_m) == 256
+        lib = _kernels.load_library()
+        for rows in (None, 8):
+            _assert_bit_equal(walk(lib, gc, qc, ef=ef, cand_cap=cap, t=width,
+                                   metric_value=0, staged="forced",
+                                   ring=rows, **kc), want)
 
 
 @pytest.mark.parametrize("dims,groups", [(32, 2), (32, 4), (32, 16),
