@@ -26,8 +26,11 @@ exits non-zero):
      multiple of the tile, with and without n_valid < N and tombstones, one
      k > n_valid case, up to 1M rows x 1024 queries, for a float32 corpus,
      a bfloat16 one (aligned and an unaligned view) and an int8 shadow
-     (bruteforce_topk_q8: the build's 1M x 256-row pool of 256, D = 100 /
-     960, QT = 16, pages, a view one byte in); k_run from 64 to 256 over
+     (the build's 1M x 256-row pool of 256 and a 64-d pool of 130 with
+     tombstones through the Hopper instance bruteforce_topk_q8_wgmma;
+     bruteforce_topk_q8 at D = 100 / 960, QT = 16, pages, a view one
+     byte in: each case's line names the instance it took); k_run from
+     64 to 256 over
      float32 / bf16 rows runs the wide instances (bruteforce_topk_wide /
      _bf16_wide, with exact mode's 1M x 256-row pool of 130 and the exact
      route's k = 100 at B = 1024);
@@ -46,15 +49,17 @@ exits non-zero):
      graph invariants, search() in auto mode through the kernel, exact and
      graph QPS, recall@10 of the graph route (>= 0.90 at T=8, printed
      beside EARLIER_RECALL; T=4's is printed), deletes never surfacing;
-     every build batch past the first one bruteforce_topk_q8 launch (the
-     build's candidate sweep) and no torch-op sweep on the card, every
+     every build batch past the first one bruteforce_topk_q8_wgmma launch
+     (the build's candidate sweep) and no torch-op sweep on the card, every
      batch one connect_batch launch (the wiring: back-links and their
      re-prunes) and no plain wiring on the card (PLAIN_CONNECTS_ON_CARD),
      prune_scan only at the insert's width; before
      it, a small build that must match the same build on the CPU, and
      exact-mode builds of 4,000 rows (float32 and bf16 storage: one launch
      of the wide instance a batch past the first, link rows >= 95% equal
-     to the CPU's);
+     to the CPU's) and an exact8 build of 4,000 rows at ef_construction
+     160 (a pool of 320, which the rule keeps on bruteforce_topk_q8: one
+     launch a batch past the first, the kernels line's launches of it);
  4b. right after the main path, on its index: the walk and prune kernels
      (ops/cuda_graph) against their plain twins.  beam_walk at ef=64, T=4
      and T=8 on the 1,024 queries against core/search._search_batch called
@@ -105,13 +110,15 @@ exits non-zero):
      library; never launched by the main path), and ptxas's registers
      and spills of every walk and scan instance in phase 3's report;
      the build's candidate sweep on that add()'s batch (captured by
-     wrapping core/build.sweep_pool): bruteforce_topk_q8's pool against
-     its plain twin (distances within phase 9's cancellation tolerance,
-     ids except float64 near-ties), the final cand_cap after the exact
-     rerank equal on >= 99.9% of rows, its time a call and on the card
-     beside its bound (products_s), the twin, the torch-op loop it
-     replaced (loop_pool) and torch.matmul + torch.topk, which the kernel
-     must beat on the card; the same for exact mode (bruteforce_topk_wide
+     wrapping core/build.sweep_pool): bruteforce_topk_q8_wgmma's pool
+     against its plain twin (distances within phase 9's cancellation
+     tolerance, ids except float64 near-ties), the final cand_cap after the
+     exact rerank equal on >= 99.9% of rows, its time a call and on the
+     card beside its bound (products_s), the mma.sync bruteforce_topk_q8
+     forced on the same batch (held to the twin the same way), the twin,
+     the torch-op loop it replaced (loop_pool) and torch.matmul +
+     torch.topk, which the kernel must beat on the card; the same for
+     exact mode (bruteforce_topk_wide
      over float32 rows and bruteforce_topk_bf16_wide over their bf16
      values, pool cand_cap + 2, beside addmm + topk) and for Manhattan over
      the shadow (bruteforce_topk_q8_l1 beside its twin, the torch-op loop
@@ -135,10 +142,12 @@ exits non-zero):
      prune, the wiring, the closing wait: median / min / max), the host
      syncs inside them counted (none allowed), re-prunes a batch from the
      kernel's counters, peak device memory, and one through loop_pool with
-     its peak; then a 200,000-row build through the kernels and again with
-     core/build's sweep swapped for loop_pool and its wiring for
-     _connect_batch_plain: link rows >= 99.9% identical, graph recall@10
-     within 0.002;
+     its peak; then a 200,000-row build through the kernels (its sweep
+     on bruteforce_topk_q8_wgmma by the rule) and again with core/build's
+     sweep swapped for loop_pool and its wiring for _connect_batch_plain,
+     and once more with the route forced to the mma.sync
+     bruteforce_topk_q8: link rows >= 99.9% identical, graph recall@10
+     within 0.002 (against the mma.sync build at T=4 and T=8);
   5. on the same index: tune_exact8_chunk (its cache in a temp dir, not
      saved): the exact8 sweep's ms per 256-row insert batch at chunks of
      262,144 / 524,288 / 1,048,576 / 2,097,152 rows (one kernel launch
@@ -253,8 +262,8 @@ exits non-zero):
      / build seconds, QPS and launches printed;
  10. VectorTable on the card: the knn.sql replay (3-d), then a 20,000 x
      128-d table with <->, <=> and <~> indexes, each built with one kernel
-     launch a batch past the first (bruteforce_topk_q8, and _q8_l1 for
-     <~>) and no torch-op sweep: the seq scan (order_by(use_index=False),
+     launch a batch past the first (bruteforce_topk_q8_wgmma, and _q8_l1
+     for <~>) and no torch-op sweep: the seq scan (order_by(use_index=False),
      through the exact entry) against a float64 oracle, and the pull scan
      against order_by through the index.
 Phases are timed with utils/profiling's Timer (synchronising the card).
@@ -350,7 +359,8 @@ MP_BUILD_ROWS = 200_000
 MP_TIMEOUT = 420
 LAUNCH_NAMES = ("bruteforce_topk", "bruteforce_topk_bf16",
                 "bruteforce_topk_wgmma", "bruteforce_topk_bf16_wgmma",
-                "bruteforce_topk_q8", "bruteforce_topk_wide",
+                "bruteforce_topk_q8", "bruteforce_topk_q8_wgmma",
+                "bruteforce_topk_wide",
                 "bruteforce_topk_bf16_wide", "bruteforce_topk_l1",
                 "bruteforce_topk_bf16_l1", "bruteforce_topk_q8_l1",
                 "bruteforce_topk_pq", "beam_walk", "prune_scan",
@@ -361,9 +371,10 @@ L1_SWEEPS = ("bruteforce_topk_l1", "bruteforce_topk_bf16_l1",
 # phase 8: the PQ pools timed beside the twin and the library call (the
 # tuner's choices reach 1024)
 PQ_POOLS = (32, 256, 512, 1024)
-# the sweep's instances of the build's pools (exact8, exact mode)
-BUILD_SWEEPS = ("bruteforce_topk_q8", "bruteforce_topk_wide",
-                "bruteforce_topk_bf16_wide")
+# the sweep's instances of the build's pools (exact8: the Hopper one the
+# rule takes and the mma.sync one, forced beside it; exact mode)
+BUILD_SWEEPS = ("bruteforce_topk_q8_wgmma", "bruteforce_topk_q8",
+                "bruteforce_topk_wide", "bruteforce_topk_bf16_wide")
 # phase 4b: the walk kernel's beam and widths at 1M
 WALK_EF = 64
 WALK_TS = (4, 8)
@@ -398,7 +409,7 @@ STAGED_SOURCES = ("records int8", "records bf16", "rows int8", "rows bf16")
 RECORDS_UNSTAGED = (256, 256, 256)
 # ptxas's report of the eight float32 / bf16 sweep instances as they were
 # built before the int8 instance (no stack, no spills): it leaves their code
-# as it was; and of the two Hopper instances as they were first built
+# as it was; and of the three Hopper instances as they were first built
 SWEEP_PTXAS = {
     f"sweep_kernel<QT={qt}, {res} queries, {elem}>": (
         "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
@@ -414,6 +425,9 @@ SWEEP_PTXAS.update({
         "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         f"Used {regs} registers, used 16 barriers")
     for elem, regs in (("float", 117), ("bf16", 96))})
+SWEEP_PTXAS["sweep_q8_wgmma_kernel<int8>"] = (
+    "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+    "Used 118 registers, used 3 barriers")
 # ptxas's report of the main path's walk instances (float32 rows, dense
 # dedupe; T = 4: 128 threads, T = 8: 256) before the wide instances'
 # redesign: it leaves their code as it was
@@ -442,8 +456,13 @@ EARLIER_MS = {"bruteforce_topk": 6.604, "bruteforce_topk_bf16": 5.287}
 HOPPER_OF = {"bruteforce_topk_wgmma": "bruteforce_topk",
              "bruteforce_topk_bf16_wgmma": "bruteforce_topk_bf16"}
 # the build's sweep on the card (phase 4b) before the wide selection:
-# bruteforce_topk_q8's and exact mode's (PERF.md, Findings)
+# bruteforce_topk_q8's and exact mode's; and exact8's mma.sync instance
+# before the Hopper one took it (PERF.md, Findings)
 EARLIER_SWEEP_MS = {"exact8": 6.746, "exact": 5.975}
+EARLIER_Q8_MS = 3.125
+# phase 4: the exact8 build whose pool (2 x 160) the rule keeps on the
+# mma.sync int8 instance
+Q8_MMA_EFC = 160
 # phase 4b: the rows of the build built twice (the sweep kernel, then the
 # torch-op loop in its place); the graph recall@10 at 1M, T=8, of the graph
 # the torch-op sweep built (PERF.md, Findings)
@@ -594,9 +613,12 @@ def kernel_phase(torch, cb, dev):
         (L2, 200_000, 128, 64, 1502, 0.9, True, f32),
         (COSINE, 100_000, 100, 40, 2100, 1.0, False, bf16),
         # the int8 shadow (quantize_rows of the rows): the build's sweep at
-        # 1M (B = 256, pool 2 cand_cap = 256), D % 16 != 0, QT = 16, pages,
-        # and a view that starts one byte in
+        # 1M (B = 256, pool 2 cand_cap = 256) and a 64-d pool of 130 with
+        # n_valid < N and tombstones (the Hopper instance); D % 16 != 0,
+        # QT = 16, a pool past 256, pages and a view that starts one byte
+        # in (bruteforce_topk_q8)
         (L2, 1_000_000, 128, 256, 256, 1.0, False, "q8"),
+        (COSINE, 300_000, 64, 65, 130, 0.9, True, "q8"),
         (COSINE, 300_000, 100, 65, 130, 0.9, True, "q8"),
         (L2, 100_000, 960, 17, 1024, 1.0, False, "q8"),
         (COSINE, 200_000, 128, 63, 257, 0.8, True, "q8"),
@@ -794,6 +816,8 @@ def compiler_report(_kernels):
         if m:
             return (f"sweep_wgmma_kernel<"
                     f"{'float' if m[1] == 'f' else 'bf16'}>")
+        if "sweep_q8_wgmma_kernel" in mangled:
+            return "sweep_q8_wgmma_kernel<int8>"
         m = re.search(r"sweep_kernel(_wide|_q8|_l1)?ILi(\d+)ELb([01])E"
                       r"([fta]?)E", mangled)
         if m:
@@ -878,12 +902,16 @@ def compiler_report(_kernels):
     rows = {n for n in built if n.startswith("sweep_kernel")}
     l1 = {n for n in rows if n.startswith("sweep_kernel_l1")}
     tf32 = {n for n, k in counts if k == "TF32"}
-    # the Hopper instances: TF32 wgmma and no mma.sync (the HMMA checks
-    # below hold every other L2 / cosine row instance to TF32 HMMA)
+    # the Hopper instances: TF32 wgmma (the int8 one's bf16) and no
+    # mma.sync (the HMMA checks below hold every other L2 / cosine row
+    # instance to TF32 HMMA)
     hopper = {n for n in built if n.startswith("sweep_wgmma_kernel")}
-    check(len(hopper) == 2 and set(hgmma) == {(n, "TF32") for n in hopper},
+    q8_hopper = {n for n in built if n.startswith("sweep_q8_wgmma_kernel")}
+    check(len(hopper) == 2 and len(q8_hopper) == 1
+          and set(hgmma) == {*((n, "TF32") for n in hopper),
+                             *((n, "BF16") for n in q8_hopper)},
           f"HGMMA by instance and kind: {sorted(hgmma)} (Hopper instances "
-          f"built: {sorted(hopper)})")
+          f"built: {sorted(hopper | q8_hopper)})")
     check(len(rows) == 28 and len(l1) == 12 and tf32 == rows - l1,
           f"TF32 HMMA in {len(tf32)} of {len(rows)} row sweep instances "
           f"({len(l1)} Manhattan ones, which run none)")
@@ -936,21 +964,32 @@ def small_build_matches_cpu(torch, HnswConfig, HnswIndex, dev):
           "cuda and cpu builds disagree")
 
 
-def exact_mode_builds(torch, cb, HnswConfig, HnswIndex, dev):
-    """The wide float32 / bf16 instances' own path: a 4,000-row build with
-    build_candidates="exact" at each storage dtype, every count set to 0
-    just before it: one launch of its wide instance a batch past the first
-    and no other sweep, link rows >= 95% equal to the same build on the
-    CPU.  Returns {instance: its launches}."""
+def sweep_path_builds(torch, cb, HnswConfig, HnswIndex, dev):
+    """The build sweep instances that the main path does not take, each
+    over its own path: a 4,000-row build with build_candidates="exact" at
+    each storage dtype (the wide float32 / bf16 instances), and an exact8
+    build at ef_construction Q8_MMA_EFC, whose pool of 2 cand_cap = 320
+    entries the rule keeps off the Hopper int8 instance (k_run past
+    WIDE_MAX_K: bruteforce_topk_q8).  Every count set to 0 just before
+    each: one launch of its instance a batch past the first and no other
+    sweep, no torch-op loop, link rows >= 95% equal to the same build on
+    the CPU.  Returns {instance: its launches}."""
     from pg_embedding_tpu_torch.core import build as core_build
     pts, _ = make_data(SEED + 11, 4000, 1)
-    cfg = HnswConfig(dims=DIMS, m=16, ef_construction=64, ef_search=64)
     launches = {}
-    for storage, name in (("float32", "bruteforce_topk_wide"),
-                          ("bfloat16", "bruteforce_topk_bf16_wide")):
-        kw = dict(build_candidates="exact", storage_dtype=storage)
+    for what, efc, kw, name in (
+            ("exact mode, float32 rows", 64,
+             dict(build_candidates="exact", storage_dtype="float32"),
+             "bruteforce_topk_wide"),
+            ("exact mode, bfloat16 rows", 64,
+             dict(build_candidates="exact", storage_dtype="bfloat16"),
+             "bruteforce_topk_bf16_wide"),
+            (f"exact8, ef_construction {Q8_MMA_EFC}", Q8_MMA_EFC, {},
+             "bruteforce_topk_q8")):
+        cfg = HnswConfig(dims=DIMS, m=16, ef_construction=efc, ef_search=64)
         gpu = HnswIndex(cfg, device=dev, **kw)
         cpu = HnswIndex(cfg, device="cpu", **kw)
+        loops = core_build.PLAIN_SWEEPS_ON_CARD
         reset_launches()
         gpu.build(pts)
         ran = dict(cb.LAUNCHES)
@@ -959,11 +998,12 @@ def exact_mode_builds(torch, cb, HnswConfig, HnswIndex, dev):
                      .all(dim=1)[:4000].float().mean())
         batches = len(core_build.build_schedule(len(pts),
                                                 gpu.max_insert_batch))
-        log(f"exact-mode build (4000 x 128-d, {storage} rows) cuda vs cpu: "
-            f"identical link rows {same:.4f}; sweep launches {ran}")
-        check(ran[name] == batches - 1 and sum(ran.values()) == ran[name],
-              f"exact mode, {storage}: {ran} over {batches} batches")
-        check(same >= 0.95, f"exact mode, {storage}: link rows {same}")
+        log(f"{what} build (4000 x 128-d) cuda vs cpu: identical link rows "
+            f"{same:.4f}; sweep launches {ran}")
+        check(ran[name] == batches - 1 and sum(ran.values()) == ran[name]
+              and core_build.PLAIN_SWEEPS_ON_CARD == loops,
+              f"{what}: {ran} over {batches} batches")
+        check(same >= 0.95, f"{what}: link rows {same}")
         launches[name] = ran[name]
     return launches
 
@@ -1057,19 +1097,19 @@ def main_path(torch, cb, HnswConfig, HnswIndex, dev, n, n_queries):
     check(sum(shapes.values()) == cuda_graph.LAUNCHES["prune_scan"],
           "prune_scan's launches by shape do not sum to its launches")
     batches = len(core_build.build_schedule(n, idx.max_insert_batch))
-    sweeps = cb.LAUNCHES["bruteforce_topk_q8"]
+    sweeps = cb.LAUNCHES["bruteforce_topk_q8_wgmma"]
     connects = cuda_graph.LAUNCHES["connect_batch"]
     log(f"build: {n} vectors in {build_s:.1f} s = {n / build_s:.0f} vec/s; "
         f"prune_scan launches by (C, nn): {dict(sorted(shapes.items()))}; "
-        f"bruteforce_topk_q8 launches {sweeps} over {batches} batches "
+        f"bruteforce_topk_q8_wgmma launches {sweeps} over {batches} batches "
         f"(exact8 from row 0: the first batch sweeps no rows); "
         f"connect_batch launches {connects}; torch-op sweeps on the card "
         f"{core_build.PLAIN_SWEEPS_ON_CARD}, plain wirings "
         f"{core_build.PLAIN_CONNECTS_ON_CARD}")
     check(sweeps == batches - 1 and sum(cb.LAUNCHES.values()) == sweeps,
           f"the build's sweep: {dict(cb.LAUNCHES)} launches over {batches} "
-          f"batches, not one bruteforce_topk_q8 launch a batch past the "
-          f"first")
+          f"batches, not one bruteforce_topk_q8_wgmma launch a batch past "
+          f"the first")
     check(core_build.PLAIN_SWEEPS_ON_CARD == 0,
           "the build ran the torch-op sweep on the card")
     check(connects == batches and core_build.PLAIN_CONNECTS_ON_CARD == 0,
@@ -1637,8 +1677,9 @@ def sweep_yardstick_ms(torch, points, rows, keep):
 def sweep_phase(torch, idx, args):
     """The build's candidate sweep on the add()'s own batch (``args``:
     sweep_pool's points, int8 shadow, pool, metric and base), in each mode:
-    exact8 (bruteforce_topk_q8 over the shadow, pool 2 cand_cap) and exact
-    mode (bruteforce_topk_wide over the index's float32 rows and
+    exact8 (bruteforce_topk_q8_wgmma over the shadow, pool 2 cand_cap, and
+    beside it the mma.sync bruteforce_topk_q8 forced on the same batch,
+    "exact8 mma.sync") and exact mode (bruteforce_topk_wide over the index's float32 rows and
     bruteforce_topk_bf16_wide over their bf16 values, pool cand_cap + 2).
     Each pool against its plain twin (_bruteforce_topk_plain) on the card
     (distances within the cancellation tolerance of phase 9, ids equal
@@ -1661,6 +1702,7 @@ def sweep_phase(torch, idx, args):
     vectors = idx.graph.vectors
     out = {}
     for mode, rows, pool in (("exact8", shadow, keep),
+                             ("exact8 mma.sync", shadow, keep),
                              ("exact", vectors, cand_cap + 2),
                              ("exact bf16", vectors.to(torch.bfloat16),
                               cand_cap + 2),
@@ -1670,10 +1712,20 @@ def sweep_phase(torch, idx, args):
             metric = MANHATTAN
         dense = (cb.dequantize_rows(shadow[0][:base], shadow[1][:base])
                  .float() if scaled else rows[:base].float())
-        name = cb._instance(torch.int8 if scaled else rows.dtype, pool,
-                            manhattan=metric == MANHATTAN)[0]
+        name, wgmma = cb.launch_instance(points, rows, pool, metric)
+        forced = mode == "exact8 mma.sync"
+        if mode == "exact8":
+            check(wgmma and name == "bruteforce_topk_q8_wgmma",
+                  f"the build's batch took {name}, not the Hopper instance")
+        if forced:
+            name = cb._instance(torch.int8, pool)[0]
 
         def kernel():
+            if forced:                  # the rule's choice overridden
+                return cb._launch(points, torch.int8,
+                                  tuple(t.data_ptr() for t in rows), 1, base,
+                                  rows[0].shape[0], pool, metric, None, None,
+                                  False)
             return cb.sweep_pool(points, rows, pool, metric, base)
 
         def twin():
@@ -1715,6 +1767,9 @@ def sweep_phase(torch, idx, args):
         earlier = EARLIER_SWEEP_MS.get(mode)
         before = ("" if earlier is None
                   else f"; {earlier} before the wide selection")
+        if mode == "exact8":
+            before += (f"; the mma.sync instance {EARLIER_Q8_MS} before the "
+                       f"Hopper one, PR 12's smoke")
         log(f"the build's sweep ({mode}: {name}) on the add()'s batch at "
             f"{base} rows, B={b}, pool {pool}: vs its plain twin "
             f"max_abs_err {err:.3g}, {swaps} float64 near-tie id swaps; "
@@ -3530,17 +3585,26 @@ def tuner_phase(idx, tmp):
 
 
 def twin_build_phase(torch, HnswConfig, HnswIndex, dev, pts, qs):
-    """The first TWIN_BUILD_ROWS rows built twice on the card: through the
-    API (the sweep and wiring kernels), and with core/build's sweep swapped
+    """The first TWIN_BUILD_ROWS rows built three times on the card:
+    through the API (the sweep and wiring kernels: the build's sweep on
+    the Hopper int8 instance by the rule), with core/build's sweep swapped
     for the torch-op loop (loop_pool) and its wiring for the plain twin
-    (_connect_batch_plain) by the smoke, inside own_twin_calls (no knob of
-    the package).  Link rows >= 99.9% identical, graph recall@10 (T=8,
-    against each index's exact route) within 0.002."""
+    (_connect_batch_plain), and with the route forced to the mma.sync int8
+    instance (ops/cuda_bruteforce._wgmma_route refusing int8 rows), each
+    swap made by the smoke inside own_twin_calls (no knob of the package).
+    Against the first build: link rows >= 99.9% identical, graph recall@10
+    (against each index's exact route) within 0.002 at T=8 (and, for the
+    mma.sync build, at T=4 too)."""
     from pg_embedding_tpu_torch.core import build as core_build
+    from pg_embedding_tpu_torch.ops import cuda_bruteforce as cb
     rows = pts[:TWIN_BUILD_ROWS]
     n = len(rows)
     res = {}
-    for name in ("kernel", "twin"):
+    route = cb._wgmma_route
+
+    def no_int8(dtype, *args):
+        return dtype != torch.int8 and route(dtype, *args)
+    for name in ("kernel", "twin", "mma.sync"):
         idx = HnswIndex(HnswConfig(dims=DIMS, m=16, ef_construction=64,
                                    ef_search=64), device=dev,
                         search_expand_width=GRAPH_T)
@@ -3551,26 +3615,50 @@ def twin_build_phase(torch, HnswConfig, HnswIndex, dev, pts, qs):
             if name == "twin":
                 core_build.sweep_pool = loop_pool
                 core_build._connect_batch = core_build._connect_batch_plain
+            if name == "mma.sync":
+                cb._wgmma_route = no_int8
             try:
+                reset_launches()
                 idx.build(rows)
+                built = dict(cb.LAUNCHES)
             finally:
                 core_build.sweep_pool, core_build._connect_batch = real
+                cb._wgmma_route = route
             torch.cuda.synchronize()
             secs = time.time() - t0
             _, el, _ = idx.exact_search(qs, K)
-            _, gl, gv = idx.search(qs, K, mode="graph")
-        res[name] = (idx.graph.links[:n].cpu(), recall(gl, gv, el), secs)
+            recalls = {}
+            for t in (4, GRAPH_T):
+                idx.search_expand_width = t
+                _, gl, gv = idx.search(qs, K, mode="graph")
+                recalls[t] = recall(gl, gv, el)
+        sweeps = {k: v for k, v in built.items() if v}
+        res[name] = (idx.graph.links[:n].cpu(), recalls, secs, sweeps)
+        batches = len(core_build.build_schedule(n, idx.max_insert_batch))
         del idx
         torch.cuda.empty_cache()
-    same = float((res["kernel"][0] == res["twin"][0]).all(1).float().mean())
-    rk, rt = res["kernel"][1], res["twin"][1]
-    log(f"{n}-row build through the sweep and wiring kernels "
-        f"({res['kernel'][2]:.1f} s) and with the torch-op loop and the "
-        f"plain wiring in their place ({res['twin'][2]:.1f} s): "
-        f"link rows identical {same:.5f}; graph recall@10 (T={GRAPH_T}) "
-        f"{rk:.4f} / {rt:.4f}")
-    check(same >= 0.999, f"kernel and twin builds: {same} of link rows")
-    check(abs(rk - rt) <= 0.002, f"graph recall {rk} vs the twin's {rt}")
+    check(res["kernel"][3] == {"bruteforce_topk_q8_wgmma": batches - 1}
+          and res["mma.sync"][3] == {"bruteforce_topk_q8": batches - 1},
+          f"the 200k builds' sweeps: {res['kernel'][3]} by the rule, "
+          f"{res['mma.sync'][3]} forced to mma.sync")
+    for other, what in (("twin", "the torch-op loop and the plain wiring"),
+                        ("mma.sync", "the mma.sync int8 sweep")):
+        same = float((res["kernel"][0] == res[other][0]).all(1)
+                     .float().mean())
+        ts = (4, GRAPH_T) if other == "mma.sync" else (GRAPH_T,)
+        log(f"{n}-row build through the sweep and wiring kernels "
+            f"({res['kernel'][2]:.1f} s, sweeps {res['kernel'][3]}) and "
+            f"with {what} in their place ({res[other][2]:.1f} s, sweeps "
+            f"{res[other][3]}): link rows identical {same:.5f}; graph "
+            f"recall@10 "
+            + ", ".join(f"T={t} {res['kernel'][1][t]:.4f} / "
+                        f"{res[other][1][t]:.4f}" for t in ts))
+        check(same >= 0.999, f"kernel and {other} builds: {same} of link "
+              f"rows")
+        for t in ts:
+            rk, rt = res["kernel"][1][t], res[other][1][t]
+            check(abs(rk - rt) <= 0.002,
+                  f"graph recall at T={t} {rk} vs the {other} build's {rt}")
 
 
 def free_port():
@@ -3851,7 +3939,8 @@ def table_phase(torch, VectorTable, dev):
     from pg_embedding_tpu_torch.core import build as core_build
     from pg_embedding_tpu_torch.ops import cuda_bruteforce as cb
     for op in ops:
-        name = "bruteforce_topk_q8_l1" if op == "<~>" else "bruteforce_topk_q8"
+        name = ("bruteforce_topk_q8_l1" if op == "<~>"
+                else "bruteforce_topk_q8_wgmma")
         before = (core_build.PLAIN_SWEEPS_ON_CARD, cb.LAUNCHES[name])
         t0 = time.time()
         t.create_index(op, m=16, ef_construction=64, ef_search=64)
@@ -3904,7 +3993,7 @@ def table_phase(torch, VectorTable, dev):
                     for op in ops)
         + f"; seq scan equals a float64 oracle on {len(qs)} queries per "
         f"opclass; pull scan equals order_by on 8; candidate sweeps of the "
-        f"index builds (torch-op loops, bruteforce_topk_q8 / _q8_l1 "
+        f"index builds (torch-op loops, bruteforce_topk_q8_wgmma / _q8_l1 "
         f"launches): {sweeps}")
 
 
@@ -3955,8 +4044,7 @@ def main():
     timings = kernel_phase(torch, cb, dev)
     walk_variants = {}                 # variant_vs_twin's numbers, by name
     small_build_matches_cpu(torch, HnswConfig, HnswIndex, dev)
-    exact_mode_launches = exact_mode_builds(torch, cb, HnswConfig, HnswIndex,
-                                            dev)
+    path_launches = sweep_path_builds(torch, cb, HnswConfig, HnswIndex, dev)
     idx, pts, qs, main_launches, single = main_path(
         torch, cb, HnswConfig, HnswIndex, dev, args.n, args.queries)
     os.makedirs(os.path.join(REPO, ".kernel_build"), exist_ok=True)
@@ -4046,16 +4134,22 @@ def main():
             # keeps on them; timed at the main path's shape, forced
             ("bruteforce_topk", paged_launches, sweep),
             ("bruteforce_topk_bf16", bf16_paged, sweep),
-            ("bruteforce_topk_q8", main_launches,
+            ("bruteforce_topk_q8_wgmma", main_launches,
+             ("pg_embedding_tpu_torch/csrc/bruteforce_topk.cu",
+              "pg_embedding_tpu/core/build.py:287")),
+            # the mma.sync int8 instance: launches from the exact8 build
+            # whose pool the rule keeps on it (sweep_path_builds); timed at
+            # phase 4b's batch, forced beside the Hopper one
+            ("bruteforce_topk_q8", path_launches,
              ("pg_embedding_tpu_torch/csrc/bruteforce_topk.cu",
               "pg_embedding_tpu/core/build.py:287")),
             # exact mode's build sweep: launches from its own path, the
-            # exact-mode builds (exact_mode_builds); its timings from phase
+            # exact-mode builds (sweep_path_builds); its timings from phase
             # 4b's 1M batch (sweep_phase)
-            ("bruteforce_topk_wide", exact_mode_launches,
+            ("bruteforce_topk_wide", path_launches,
              ("pg_embedding_tpu_torch/csrc/bruteforce_topk.cu",
               "pg_embedding_tpu/core/build.py:287")),
-            ("bruteforce_topk_bf16_wide", exact_mode_launches,
+            ("bruteforce_topk_bf16_wide", path_launches,
              ("pg_embedding_tpu_torch/csrc/bruteforce_topk.cu",
               "pg_embedding_tpu/core/build.py:287")),
             # Manhattan's instances: launches from the Manhattan index's
@@ -4096,7 +4190,8 @@ def main():
     for name in L1_SWEEPS:
         check(l1_launches[name] > 0,
               f"the Manhattan path never launched {name}")
-    for name in ("bruteforce_topk_wgmma", "bruteforce_topk_q8", "beam_walk",
+    for name in ("bruteforce_topk_wgmma", "bruteforce_topk_q8_wgmma",
+                 "beam_walk",
                  "prune_scan", "connect_batch"):
         check(main_launches[name] > 0,
               f"the main path never launched {name}")

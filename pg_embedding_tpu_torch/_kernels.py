@@ -94,9 +94,12 @@ def declare_sweep(lib) -> None:
         fn.argtypes = [vp, vp, vp, *[ci] * 9, *[vp] * 7, ci, vp]
         fn.restype = ci
     # the int8-row instances take the rows' scales after the rows
-    for fn in (lib.bruteforce_topk_q8, lib.bruteforce_topk_q8_l1):
-        fn.argtypes = [vp, vp, vp, vp, *[ci] * 9, *[vp] * 7, ci, vp]
-        fn.restype = ci
+    for name in ("bruteforce_topk_q8", "bruteforce_topk_q8_l1",
+                 "bruteforce_topk_q8_wgmma"):
+        if hasattr(lib, name):          # (an earlier tree's build: no wgmma)
+            getattr(lib, name).argtypes = [vp, vp, vp, vp, *[ci] * 9,
+                                           *[vp] * 7, ci, vp]
+            getattr(lib, name).restype = ci
     lib.bruteforce_topk_error_string.argtypes = [ci]
     lib.bruteforce_topk_error_string.restype = ctypes.c_char_p
 

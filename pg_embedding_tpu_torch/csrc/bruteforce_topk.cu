@@ -82,7 +82,8 @@
 //    and launch shape), so the pages concatenate to the one long list.
 // Not here: a persistent grid, one launch for k_run > 1024; wgmma, the
 // copy engine and a selector warpgroup are the Hopper instances' (below,
-// sweep_wgmma_kernel), which take the exact route's short lists.
+// sweep_wgmma_kernel, which takes the exact route's short lists, and
+// sweep_q8_wgmma_kernel, the build's int8 pools).
 //
 // The int8-row instance (bruteforce_topk_q8) also replaces
 // pg_embedding_tpu/core/build.py::_exact_candidates (its lax.fori_loop over
@@ -142,9 +143,10 @@
 // it (rows arrive in ascending id), as the strict < of one by one.  The
 // float32 / bf16 wide instances are new template instances beside the
 // eight of the exact route, whose code is unchanged; lists of 257-1024
-// entries (QT = 16) keep the insertion into shared memory.  Left for
-// later: wgmma, a bf16 x 3 query split on the bf16 tensor cores (the
-// int8 rows are bf16 values).
+// entries (QT = 16) keep the insertion into shared memory.  The int8
+// rows' build pools at D <= 128 take a Hopper instance (below,
+// sweep_q8_wgmma_kernel: bf16 wgmma with the query split in three bf16
+// parts, this wide selection in selector warpgroups).
 //
 // The Manhattan instances (bruteforce_topk_l1, _bf16_l1, _q8_l1) replace
 // the JAX package's Manhattan sweeps: pg_embedding_tpu/ops/bruteforce.py's
@@ -1903,6 +1905,439 @@ sweep_wgmma_kernel(const float* __restrict__ q,
   }
 }
 
+// ---------------------------------------------------------------------
+// The Hopper instance of the build's int8 pools (sweep_q8_wgmma_kernel;
+// C entry bruteforce_topk_q8_wgmma): int8 rows x their scales, L2 and
+// cosine, k_run <= kWQ8MaxK (the wide selection's lists), D <= kWMaxD,
+// 16-byte rows, row base and scale base, no page floor
+// (ops/cuda_bruteforce._wgmma_route is the rule; everything else keeps
+// sweep_kernel_q8).  It computes what sweep_kernel_q8 computes: the row
+// element bf16(bf16(q) * bf16(scale)) by the same integer rounding
+// (widen), the same scores and (score, id) order, the wide selection with
+// the bound the splits share, merge_kernel over the S partial lists.
+// What bounds it (1M x 128-d, one 256-row insert batch, k_run = 256): the
+// products, 2 B N D = 65.5 GFLOP in 3 bf16 passes at 989 TFLOP/s = 0.199
+// ms; the shadow is 132 MB, 0.040 ms.  Only the score path and the
+// selection's placement differ from sweep_kernel_q8:
+//  * Products on wgmma.mma_async m64n64k16 .f32.bf16.bf16.  The rows are A
+//    from registers (64 rows a consumer warpgroup, two a 128-row tile):
+//    each consumer thread widens its own fragment from the landed int8
+//    stage with its rows' rounded scales, an element exact in bf16.  The
+//    block's 64 queries are B, split once into three bf16 tiles in shared
+//    memory, x = hi + mid + lo exactly (split3_bf16: truncation, as
+//    csrc/pq_topk.cu's split3), in wgmma's K-major no-swizzle layout,
+//    read by descriptors.  A k16 step takes lo, then mid, then hi into
+//    float32 accumulators.  A thread's 8 int8 dims of a row are consecutive
+//    in the stage (one 8-byte load), so step s of a 32-dim chunk pairs its
+//    columns 2t, 2t + 1 with dims 8t + 4s, + 1 and columns 2t + 8, 2t + 9
+//    with dims 8t + 4s + 2, + 3; the query tiles are laid out in the same
+//    order (w8_q_offset; tests/test_torch_sweep_q8_wgmma.py emulates it).
+//    A chunk's six wgmma are one group, retired before the next chunk is
+//    widened (see w_group: two A register sets in flight gave wrong bf16
+//    scores on the card).  Two TF32 passes (sweep_wgmma_kernel's split)
+//    would take 64 KB of query tiles, leave no room for a ring beside
+//    the lists, and bound at 0.265 ms.
+//  * Copies by the copy engine: kWQ8Stages ring stages, each an int8
+//    [128 x 32] box of the rows (a tensor map of the [n_rows, D] rows:
+//    rows past n_rows land as zeros, masked by the selection) and, with a
+//    tile's first chunk, the tile's 128 scales (a 1-d tensor map of the
+//    scales, zero past n_rows) on the same full mbarrier.  The consumer
+//    arrival that ends a stage's phase issues its next copy.  Both maps
+//    are made per launch on the host: the build's base grows every batch.
+//  * The wide selection off the products' path: two selector warpgroups,
+//    8 queries a warp, read their queries' scores of a tile into
+//    registers and hand the score tile back at once, so the consumers
+//    compute and write the next tile while the selectors merge.  PR 12's
+//    rules are kept: the bound f32[B, S] read before each tile (admission
+//    at <=), the list in registers while its query takes a tile, a tile's
+//    admitted rows merged 32 at a time (select_in_registers, merge_tile),
+//    staged through a small buffer of the selector warp's own (the
+//    consumers write the next tile into the score tile).
+//  * |p|^2 from the widened values a consumer thread holds.
+// Shared memory at the build's shape (k_run 256, D 128): the lists 131,072
+// bytes, the three query tiles 49,152, one [64 x 132] score tile 33,792
+// (a second does not fit), |q|^2 256, the mbarriers 128, the selectors'
+// staging 2,048, the ring 3 x 4,608: 230,272 of 232,448.  512 threads, one
+// block an SM (q8_wgmma_smem_bytes, which the launch checks against the
+// caller's).  Not here: a persistent grid, clusters, setmaxnreg.
+constexpr int kWQ8MaxK = kRegK;
+constexpr int kWQ8Stages = 3;
+constexpr int kWQ8ScaleBytes = kTileN * 4;          // a tile's scales
+constexpr int kWQ8StageBytes = kTileN * kTileD + kWQ8ScaleBytes;
+constexpr int kWQ8Parts = 3;                        // hi, mid, lo
+// a selector warp's staging of a tile merge (merge_tile's 64 words)
+constexpr int kWQ8StageWords = 64;
+constexpr int kWQ8SelectorWarps = 8;
+// tiles between a selector warp's reads of the shared bound
+constexpr int kWQ8BoundTiles = 1;
+// named barriers: the score tile full (1) and free again (2), among the
+// consumer and selector warpgroups
+constexpr int kWQ8BarFull = 1;
+constexpr int kWQ8BarFree = 2;
+
+// Shared memory: the ring (first: a tensor copy lands 128-byte aligned;
+// a stage is its [128 x 32] int8 box, then the tile's scales), the query
+// hi / mid / lo tiles (bf16, D in whole 32-dim chunks, 64 queries), the
+// [64 x 132] score tile, |q|^2, the ring's mbarriers, the selector warps'
+// staging (64 words each), the [64 x k_run] lists (score, id).
+size_t q8_wgmma_smem_bytes(int k_run, int D) {
+  const size_t chunks = (size_t)(D + kTileD - 1) / kTileD;
+  return (size_t)kWQ8Stages * kWQ8StageBytes +
+         (size_t)kWQ8Parts * chunks * kTileD * kWQT * 2 +
+         (size_t)kWQT * kWSStride * 4 + kWQT * 4 + kWBarBytes +
+         (size_t)kWQ8SelectorWarps * kWQ8StageWords * 4 +
+         (size_t)8 * kWQT * k_run;
+}
+
+// The 1-d box of ``map`` at x into dst by the copy engine (the scales)
+__device__ __forceinline__ void w_tensor_copy_1d(void* dst,
+                                                 const CUtensorMap* map,
+                                                 int x,
+                                                 unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2}], [%3];\n" ::"r"(w_smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(w_smem_addr(bar))
+      : "memory");
+}
+
+// x = hi + mid + lo exactly, each part a bf16 value (its float32's top 16
+// bits) cut by truncation: hi keeps x's top 8 significant bits, the rest
+// (at most 16 bits) splits into mid's 8 and lo's.  csrc/pq_topk.cu's
+// split3 for one element; the parts' bf16 bits.
+__device__ __forceinline__ void split3_bf16(float x, uint16_t& hi,
+                                            uint16_t& mid, uint16_t& lo) {
+  const float h = __uint_as_float(__float_as_uint(x) & 0xffff0000u);
+  const float r = __fsub_rn(x, h);
+  const float m = __uint_as_float(__float_as_uint(r) & 0xffff0000u);
+  const float l = __fsub_rn(r, m);
+  hi = (uint16_t)(__float_as_uint(h) >> 16);
+  mid = (uint16_t)(__float_as_uint(m) >> 16);
+  lo = (uint16_t)(__float_as_uint(l) >> 16);
+}
+
+// Two bf16 values (floats whose low 16 bits are zero) as one register, the
+// first in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float first, float second) {
+  return __byte_perm(__float_as_uint(first), __float_as_uint(second),
+                     0x7632);
+}
+
+// Element (query n, dim d) of a bf16 query tile: chunk c = d / 32, and in
+// it step s = d % 8 / 4, K-half d % 4 / 2, column 2 (d % 32 / 8) + d % 2
+// of the half; each (chunk, step) is two [64 x 8] halves of 16-byte rows,
+// 1 KB apart.
+__device__ __forceinline__ int w8_q_offset(int n, int d) {
+  const int c = d / kTileD, r = d % kTileD;
+  return ((((c * 2 + (r & 7) / 4) * 2 + (r & 3) / 2) * kWQT + n) * 8) +
+         2 * (r / 8) + (r & 1);
+}
+
+// d (+)= A B^T on a warpgroup: A [64 x 16] bf16 from registers (thread
+// (g, t) of warp w: rows 16 w + g, + 8, columns 2t, 2t + 1 and 2t + 8, 2t
+// + 9, a register a row and column pair, the lower column in the low
+// half), B [64 x 16] bf16 from shared memory by ``desc`` (K-major);
+// ``acc`` 0 overwrites d.  d as wgmma_tf32's.
+__device__ __forceinline__ void wgmma_bf16(float (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc, int acc) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
+}
+
+// One selector warp's kWQPW queries from q_first (n_mine of them real)
+// over a tile's scores (score_s: [64 x kWSStride], rows tile + 0..127),
+// under the wide selection: every query's admissible scores (live, at or
+// under its bound ``tau_mine``: lane i holds query i's) into registers and
+// their least against its k-th at once; then ``release`` (the score tile
+// is free for the next tile's scores) and each query with a row under its
+// k-th merges them into its list (select_in_registers, staged through
+// ``stage``), which publishes the split's slot of ``bound``.
+template <typename Release>
+__device__ __forceinline__ void w8_select_tile(
+    const float* score_s, float* list_d, int* list_i,
+    const unsigned char* del, int tile, int row_end, int q_first,
+    int n_mine, int k_run, int lane, float tau_mine, float* stage,
+    float* bound, int q0, int split, int n_splits, int bound_rank,
+    const Release& release) {
+  bool live[kRowsPerLane];
+#pragma unroll
+  for (int j = 0; j < kRowsPerLane; ++j) {
+    const int row = tile + lane + 32 * j;
+    live[j] = row < row_end && (del == nullptr || del[row] == 0);
+  }
+  // lane i holds query i's k-th
+  const float kth_i = lane < n_mine
+                          ? list_d[(q_first + lane) * k_run + k_run - 1]
+                          : -CUDART_INF_F;
+  unsigned todo = 0;
+  float all[kWQPW][kRowsPerLane];
+#pragma unroll
+  for (int i = 0; i < kWQPW; ++i) {
+    const float tau = __shfl_sync(kFull, tau_mine, i);
+    float lo = CUDART_INF_F;
+#pragma unroll
+    for (int j = 0; j < kRowsPerLane; ++j) {
+      const float v = score_s[(q_first + i) * kWSStride + lane + 32 * j];
+      all[i][j] = live[j] && v <= tau ? v : CUDART_INF_F;
+      lo = fminf(lo, all[i][j]);
+    }
+    if (__any_sync(kFull, lo < __shfl_sync(kFull, kth_i, i))) todo |= 1u << i;
+  }
+  release();
+  while (todo) {                                         // warp-uniform
+    const int i = __ffs(todo) - 1;
+    todo &= todo - 1;
+    const int ql = q_first + i;
+    // query i's scores (the registers indexed statically)
+    float sc[kRowsPerLane];
+#pragma unroll
+    for (int j = 0; j < kRowsPerLane; ++j) {
+      sc[j] = all[0][j];
+#pragma unroll
+      for (int x = 1; x < kWQPW; ++x)
+        if (x == i) sc[j] = all[x][j];
+    }
+    select_in_registers(list_d + ql * k_run, list_i + ql * k_run, sc,
+                        __shfl_sync(kFull, kth_i, i), tile, k_run, lane,
+                        stage, bound, (q0 + ql) * n_splits + split,
+                        bound_rank);
+  }
+}
+
+// One block: queries [blockIdx.x 64, + 64) against split blockIdx.y's
+// rows, the running lists written to part_d / part_i (as sweep_block).
+// ``rows``: the tensor map of the int8 [n_rows, D] rows (box [128 x 32]);
+// ``scales``: of the float32 [n_rows] scales (box 128); ``bound`` (f32[B,
+// S] or null) and ``bound_rank`` as sweep_block takes them.
+__global__ void __launch_bounds__(kWThreads, 1)
+sweep_q8_wgmma_kernel(const float* __restrict__ q,
+                      const __grid_constant__ CUtensorMap rows,
+                      const __grid_constant__ CUtensorMap scales,
+                      const unsigned char* __restrict__ del, int B,
+                      int n_rows, int D, int k_run, int metric,
+                      int rows_per_split, float* __restrict__ part_d,
+                      int* __restrict__ part_i, float* bound,
+                      int bound_rank) {
+  constexpr int kRing = kWQ8Stages;
+  constexpr int kBox = kTileN * kTileD;                  // int8 bytes
+  static_assert(2 * kRing * 8 <= kWBarBytes, "the mbarriers fit");
+  const int n_chunks = (D + kTileD - 1) / kTileD;
+  const int q_part = n_chunks * kTileD * kWQT;          // bf16 elements
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* ring = smem;
+  uint16_t* q_hi = reinterpret_cast<uint16_t*>(ring + kRing * kWQ8StageBytes);
+  uint16_t* q_mid = q_hi + q_part;
+  uint16_t* q_lo = q_mid + q_part;
+  float* score_s = reinterpret_cast<float*>(q_lo + q_part);
+  float* qn_s = score_s + kWQT * kWSStride;
+  unsigned long long* full =
+      reinterpret_cast<unsigned long long*>(qn_s + kWQT);
+  unsigned long long* empty = full + kRing;
+  float* stage_s = reinterpret_cast<float*>(
+      reinterpret_cast<unsigned char*>(full) + kWBarBytes);
+  float* list_d = stage_s + kWQ8SelectorWarps * kWQ8StageWords;
+  int* list_i = reinterpret_cast<int*>(list_d + kWQT * k_run);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int q0 = blockIdx.x * kWQT;
+  const int split = blockIdx.y, n_splits = gridDim.y;
+  const int row_begin = split * rows_per_split;
+  const int row_end = min(n_rows, row_begin + rows_per_split);
+
+  // step s of the sweep is (tile s / n_chunks, chunk s % n_chunks), in
+  // ring stage s % kRing: its copy, with the tile's scales at its first
+  // chunk
+  const int total =
+      (row_end > row_begin ? (row_end - row_begin + kTileN - 1) / kTileN
+                           : 0) * n_chunks;
+  const auto copy_step = [&](int s) {
+    const int stage = s % kRing, chunk = s % n_chunks;
+    const int row = row_begin + s / n_chunks * kTileN;
+    unsigned char* dst = ring + stage * kWQ8StageBytes;
+    w_mbar_arrive_expect(full + stage,
+                         kBox + (chunk == 0 ? kWQ8ScaleBytes : 0));
+    w_tensor_copy(dst, &rows, chunk * kTileD, row, full + stage);
+    if (chunk == 0) w_tensor_copy_1d(dst + kBox, &scales, row, full + stage);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < kRing; ++s) {
+      w_mbar_init(full + s, 1);
+      w_mbar_init(empty + s, 8);             // the consumer warps
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int s = 0; s < kRing && s < total; ++s) copy_step(s);
+  }
+  for (int e = tid; e < kWQT * k_run; e += kWThreads) {
+    list_d[e] = CUDART_INF_F;
+    list_i[e] = -1;
+  }
+  for (int i = warp; i < kWQT; i += kWThreads / 32) {    // |q|^2
+    const int qi = q0 + i;
+    float s = 0.f;
+    if (qi < B)
+      for (int d = lane; d < D; d += 32) {
+        const float v = q[(size_t)qi * D + d];
+        s = fmaf(v, v, s);
+      }
+    s = warp_sum(s);
+    if (lane == 0) qn_s[i] = s;
+  }
+  // the query tiles, split once (zero past B and D)
+  for (int e = tid; e < q_part; e += kWThreads) {
+    const int n = e / (n_chunks * kTileD), d = e % (n_chunks * kTileD);
+    const float x =
+        q0 + n < B && d < D ? q[(size_t)(q0 + n) * D + d] : 0.f;
+    const int at = w8_q_offset(n, d);
+    split3_bf16(x, q_hi[at], q_mid[at], q_lo[at]);
+  }
+  // the tiles are read by wgmma, through the async proxy
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+
+  if (warp < kWSelectorWarp0) {
+    // a consumer warpgroup: rows 64 (warp / 4) + 16 (warp % 4) + g, + 8
+    const int row0 = 64 * (warp / 4) + 16 * (warp % 4);
+    const int g = lane >> 2, t = lane & 3;
+    const uint64_t desc_hi = w_desc(q_hi, kWQT * 16, 128);
+    const uint64_t desc_mid = w_desc(q_mid, kWQT * 16, 128);
+    const uint64_t desc_lo = w_desc(q_lo, kWQT * 16, 128);
+    float acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    int stage = 0, step = 0;
+    unsigned phase = 0;
+    int it = 0;
+    for (int tile = row_begin; tile < row_end; tile += kTileN, ++it) {
+      float pn[2] = {0.f, 0.f}, sb[2] = {0.f, 0.f};
+      for (int c = 0; c < n_chunks; ++c, ++step) {
+        const unsigned char* st = ring + stage * kWQ8StageBytes;
+        w_mbar_wait(full + stage, phase);
+        if (c == 0) {                    // the rows' scales, rounded once
+          const float* sc = reinterpret_cast<const float*>(st + kBox);
+          sb[0] = round_bf16(sc[row0 + g]);
+          sb[1] = round_bf16(sc[row0 + g + 8]);
+        }
+        // x[h][j]: dim 8t + j of row g + 8 h, widened
+        float x[2][8];
+        uint32_t a[2][4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const uint2 w = *reinterpret_cast<const uint2*>(
+              st + (row0 + g + 8 * h) * kTileD + 8 * t);
+          const unsigned ws[2] = {w.x, w.y};
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            x[h][j] = widen((int8_t)(ws[j / 4] >> (8 * (j % 4))), sb[h]);
+          // step s: a[s][h] dims 8t + 4s, + 1; a[s][2 + h] dims + 2, + 3
+#pragma unroll
+          for (int s = 0; s < 2; ++s) {
+            a[s][h] = pack_bf16(x[h][4 * s], x[h][4 * s + 1]);
+            a[s][2 + h] = pack_bf16(x[h][4 * s + 2], x[h][4 * s + 3]);
+          }
+        }
+        w_fence_acc(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          // (chunk, step)'s query halves: 2 KB a step
+          const uint64_t off = (uint64_t)((c * 2 + s) * 2 * kWQT * 16) >> 4;
+          wgmma_bf16(acc, a[s], desc_lo + off, c == 0 && s == 0 ? 0 : 1);
+          wgmma_bf16(acc, a[s], desc_mid + off, 1);
+          wgmma_bf16(acc, a[s], desc_hi + off, 1);
+        }
+        wgmma_commit();
+        // meanwhile: release the stage (the arrival that ends its phase
+        // issues its next copy) and add the squares
+        __syncwarp();
+        if (lane == 0 && w_mbar_arrive_last(empty + stage) &&
+            step + kRing < total)
+          copy_step(step + kRing);
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) pn[h] = fmaf(x[h][j], x[h][j], pn[h]);
+        wgmma_wait<0>();
+        w_fence_acc(acc);
+        if (++stage == kRing) {
+          stage = 0;
+          phase ^= 1u;
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        pn[h] += __shfl_xor_sync(kFull, pn[h], 1);
+        pn[h] += __shfl_xor_sync(kFull, pn[h], 2);
+      }
+      // the score tile is free once every selector warp has read the tile
+      // before
+      if (it > 0) named_bar_sync(kWQ8BarFree, kWBarThreads);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int ql = 8 * i + 2 * t + e;
+          const float qn = qn_s[ql];
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            score_s[ql * kWSStride + row0 + g + 8 * h] =
+                score(acc[4 * i + 2 * h + e], pn[h], qn, metric);
+        }
+      named_bar_arrive(kWQ8BarFull, kWBarThreads);
+    }
+  } else {
+    // the selector warpgroups: warp w takes queries 8 (w - 8) to + 8
+    const int sw = warp - kWSelectorWarp0;
+    const int q_first = kWQPW * sw;
+    const int n_mine = min(kWQPW, B - q0 - q_first);       // warp-uniform
+    float* stage = stage_s + sw * kWQ8StageWords;
+    float tau_mine = CUDART_INF_F;
+    int it = 0;
+    for (int tile = row_begin; tile < row_end; tile += kTileN, ++it) {
+      // the bound before the tile, every kWQ8BoundTiles (a stale read is
+      // safe: a slot only falls)
+      if (kReadBound && bound != nullptr && n_mine > 0 &&
+          it % kWQ8BoundTiles == 0)
+        tau_mine = read_bound<kWQPW>(bound, q0 + q_first, B, n_splits, lane);
+      named_bar_sync(kWQ8BarFull, kWBarThreads);
+      // the score tile is free again once this warp's scores are read
+      const auto release = [&] {
+        if (tile + kTileN < row_end)
+          named_bar_arrive(kWQ8BarFree, kWBarThreads);
+      };
+      // the int8 selection of a tile (it releases the tile)
+      if (n_mine > 0)
+        w8_select_tile(score_s, list_d, list_i, del, tile, row_end, q_first,
+                       n_mine, k_run, lane, tau_mine, stage, bound, q0,
+                       split, n_splits, bound_rank, release);
+      else
+      // the int8 selection of a tile: end
+        release();
+    }
+    for (int i = 0; i < n_mine; ++i) {
+      const int ql = q_first + i;
+      const size_t base = ((size_t)split * B + q0 + ql) * k_run;
+      for (int e = lane; e < k_run; e += 32) {
+        part_d[base + e] = list_d[ql * k_run + e];
+        part_i[base + e] = list_i[ql * k_run + e];
+      }
+    }
+  }
+}
+
 int ceil_div(long long a, long long b) { return (int)((a + b - 1) / b); }
 
 // The driver's tensor-map encoder, found through the runtime (no link to
@@ -1977,6 +2412,66 @@ int run_topk_wgmma(const float* q, const T* p, const unsigned char* del,
   sweep_wgmma_kernel<T><<<dim3(ceil_div(B, kWQT), S), kWThreads, smem,
                           stream>>>(q, map, del, B, n_rows, D, k_run, metric,
                                     rows_per_split, part_d, part_i);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  merge_kernel<<<ceil_div(B, kMergeWarps), kMergeWarps * 32, 0, stream>>>(
+      part_d, part_i, B, S, k_run, metric, out_d, out_i, nullptr, nullptr);
+  return (int)cudaGetLastError();
+}
+
+// The int8 Hopper instance's launch and merge: refuses what the rule keeps
+// off it (see sweep_q8_wgmma_kernel), a bound rank with S j < k_run and a
+// shared-memory figure other than q8_wgmma_smem_bytes.
+int run_topk_q8_wgmma(const float* q, const int8_t* p, const float* scale,
+                      const unsigned char* del, int B, int n_rows, int D,
+                      int k_run, int metric, int qt, int S, int q_res,
+                      int smem_bytes, float* part_d, int* part_i,
+                      float* out_d, int* out_i, const float* floor_d,
+                      const int* floor_i, float* bound, int bound_rank,
+                      void* stream_ptr) {
+  if (B <= 0 || n_rows < 0 || D <= 0 || D > kWMaxD || k_run < 1 ||
+      k_run > kWQ8MaxK || S < 1 || S > kMaxSplits || qt != kWQT || !q_res ||
+      (metric != kMetricL2 && metric != kMetricCosine) ||
+      floor_d != nullptr || floor_i != nullptr || scale == nullptr ||
+      D % 16 != 0 || reinterpret_cast<uintptr_t>(p) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(scale) % 16 != 0 ||
+      (bound != nullptr && (bound_rank < 1 || bound_rank > k_run ||
+                            (long long)S * bound_rank < k_run)))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = q8_wgmma_smem_bytes(k_run, D);
+  if (smem != (size_t)smem_bytes || smem > (size_t)kSmemLimit)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  // the rows as a [n_rows, D] tensor and the scales as a [n_rows] one (one
+  // row at least: an empty corpus launches blocks that copy nothing)
+  const cuuint64_t n = (cuuint64_t)max(n_rows, 1);
+  CUtensorMap rows, scales;
+  const cuuint64_t dims[2] = {(cuuint64_t)D, n};
+  const cuuint64_t strides[1] = {(cuuint64_t)D};
+  const cuuint32_t box[2] = {kTileD, kTileN}, ones[2] = {1, 1};
+  const cuuint32_t scale_box[1] = {kTileN};
+  if (encode(&rows, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<int8_t*>(p),
+             dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS ||
+      encode(&scales, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1,
+             const_cast<float*>(scale), &n, strides, scale_box, ones,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_NONE,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return (int)cudaErrorInvalidValue;
+  const void* kernel = reinterpret_cast<const void*>(sweep_q8_wgmma_kernel);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int rows_per_split =
+      ceil_div(ceil_div(n_rows, S), kTileN) * kTileN;
+  sweep_q8_wgmma_kernel<<<dim3(ceil_div(B, kWQT), S), kWThreads, smem,
+                          stream>>>(q, rows, scales, del, B, n_rows, D,
+                                    k_run, metric, rows_per_split, part_d,
+                                    part_i, bound, bound_rank);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   merge_kernel<<<ceil_div(B, kMergeWarps), kMergeWarps * 32, 0, stream>>>(
@@ -2197,6 +2692,24 @@ int bruteforce_topk_q8(const float* q, const void* p, const float* scale,
                                smem_bytes, part_d, part_i, out_d, out_i,
                                floor_d, floor_i, bound, bound_rank,
                                stream_ptr);
+}
+
+// The int8 Hopper instance (sweep_q8_wgmma_kernel): arguments as
+// bruteforce_topk_q8's, for the shapes ops/cuda_bruteforce's rule sends it
+// (QT = 64, resident queries, k_run <= 256, D <= 128 with D % 16 == 0,
+// 16-byte aligned rows and scales, L2 or cosine, no floor); anything else
+// is refused.
+int bruteforce_topk_q8_wgmma(const float* q, const void* p,
+                             const float* scale, const unsigned char* del,
+                             int B, int n_rows, int D, int k_run, int metric,
+                             int qt, int S, int q_res, int smem_bytes,
+                             float* part_d, int* part_i, float* out_d,
+                             int* out_i, float* floor_d, int* floor_i,
+                             float* bound, int bound_rank, void* stream_ptr) {
+  return run_topk_q8_wgmma(q, static_cast<const int8_t*>(p), scale, del, B,
+                           n_rows, D, k_run, metric, qt, S, q_res,
+                           smem_bytes, part_d, part_i, out_d, out_i, floor_d,
+                           floor_i, bound, bound_rank, stream_ptr);
 }
 
 // Manhattan (metric 2 only) over float32, bf16 and int8 rows: arguments as

@@ -27,9 +27,12 @@ instances, ``bruteforce_topk_wgmma`` and ``bruteforce_topk_bf16_wgmma``
 (3xTF32 on wgmma, a ring of tensor copies on mbarriers, two selector
 warpgroups beside the products), by an explicit rule (``_wgmma_route``): L2 or
 cosine, k_run < WIDE_MIN_K, D <= WGMMA_MAX_D, 16-byte rows and base, and
-no page of a paged call, whose pages must all score on one path.  Every
-other launch keeps the mma.sync instances; neither falls back on the
-other.
+no page of a paged call, whose pages must all score on one path.  The
+build's int8 pools take ``bruteforce_topk_q8_wgmma`` by the same rule at
+k_run <= WIDE_MAX_K (bf16 wgmma with the query split in three bf16 parts,
+the int8 chunks landed by tensor copies, the wide selection in selector
+warpgroups; the scales 16-byte aligned too).  Every other launch keeps the
+mma.sync instances; neither falls back on the other.
 
 The compressed sweep's coarse pool (ops/pq_sweep) has its own kernel,
 ``bruteforce_topk_pq`` (``csrc/pq_topk.cu``): rows are PQ codes u8[N, G],
@@ -68,7 +71,8 @@ from .distance import _matmul, _sqrt, pairwise_dist
 # them); a run reads them to show that a path went through the kernel.
 LAUNCHES = {"bruteforce_topk": 0, "bruteforce_topk_bf16": 0,
             "bruteforce_topk_wgmma": 0, "bruteforce_topk_bf16_wgmma": 0,
-            "bruteforce_topk_q8": 0, "bruteforce_topk_wide": 0,
+            "bruteforce_topk_q8": 0, "bruteforce_topk_q8_wgmma": 0,
+            "bruteforce_topk_wide": 0,
             "bruteforce_topk_bf16_wide": 0, "bruteforce_topk_l1": 0,
             "bruteforce_topk_bf16_l1": 0, "bruteforce_topk_q8_l1": 0,
             "bruteforce_topk_pq": 0}
@@ -109,19 +113,26 @@ _PLAIN_CHUNK = 16384
 # bf16); 64 queries a block, split once into TF32 hi and lo tiles of D in
 # whole 32-dim chunks; two [64 x 132] float32 score tiles; |q|^2; 128
 # bytes of mbarriers; 8 bytes a list entry.  512 threads: one block an SM.
+# The int8 instance (sweep_q8_wgmma_kernel, q8_wgmma_smem_bytes): 3 stages
+# of an int8 [128 x 32] box and the tile's 128 float32 scales; the queries
+# split into three bf16 tiles (hi, mid, lo); one score tile; the selector
+# warps' staging, 64 words each.
 WGMMA_MAX_D = 128
 _WG_QT = 64
-_WG_STAGES = {4: 3, 2: 6}
+_WG_STAGES = {4: 3, 2: 6, 1: 3}
 _WG_SCORE_STRIDE = _TILE_N + 4
 _WG_SCORE_BUFS = 2
 _WG_BAR_BYTES = 128
+_WG_Q8_PARTS = 3
+_WG_Q8_STAGE_WORDS, _WG_Q8_SELECTOR_WARPS = 64, 8
 
 # the kernel instantiation for each corpus dtype, L2 and cosine
 _KERNELS = {torch.float32: "bruteforce_topk",
             torch.bfloat16: "bruteforce_topk_bf16",
             torch.int8: "bruteforce_topk_q8"}
 _WGMMA_KERNELS = {torch.float32: "bruteforce_topk_wgmma",
-                  torch.bfloat16: "bruteforce_topk_bf16_wgmma"}
+                  torch.bfloat16: "bruteforce_topk_bf16_wgmma",
+                  torch.int8: "bruteforce_topk_q8_wgmma"}
 _WIDE_KERNELS = {torch.float32: "bruteforce_topk_wide",
                  torch.bfloat16: "bruteforce_topk_bf16_wide"}
 # Manhattan's, which run the wide selection at every k_run up to
@@ -189,9 +200,16 @@ def _smem_bytes(qt: int, k_run: int, itemsize: int, dims: int,
     whose ring stages also hold the tile's scales; ``manhattan`` the kL1
     instances, which widen bf16 and int8 rows into a float32 chunk;
     ``wgmma`` the Hopper instances' wgmma_smem_bytes (QT 64, resident
-    queries)."""
+    queries; itemsize 1: the int8 one's q8_wgmma_smem_bytes)."""
     if wgmma:
         chunks = -(-dims // _TILE_D)
+        if itemsize == 1:
+            return (_WG_STAGES[1] * (_TILE_N * _TILE_D + 4 * _TILE_N)
+                    + _WG_Q8_PARTS * chunks * _TILE_D * _WG_QT * 2
+                    + _WG_QT * _WG_SCORE_STRIDE * 4 + 4 * _WG_QT
+                    + _WG_BAR_BYTES
+                    + _WG_Q8_SELECTOR_WARPS * _WG_Q8_STAGE_WORDS * 4
+                    + 8 * _WG_QT * k_run)
         return (2 * chunks * _TILE_D * _WG_QT * 4
                 + _WG_STAGES[itemsize] * _TILE_N * _TILE_D * itemsize
                 + _WG_SCORE_BUFS * _WG_QT * _WG_SCORE_STRIDE * 4 + 4 * _WG_QT
@@ -256,17 +274,19 @@ def _launch_shape(b: int, n_rows: int, k_run: int, sms: int,
 
 def _wgmma_route(dtype, metric_value: int, k_run: int, dims: int,
                  aligned: bool, page: bool) -> bool:
-    """Whether a launch takes a Hopper instance: float32 or bf16 rows, L2
-    or cosine, k_run < WIDE_MIN_K (the exact route's QT = 64 tier, not the
-    wide one), D <= WGMMA_MAX_D (the query tiles, ring, score tiles and
-    lists fit a block), ``aligned`` (16-byte rows and base: the copy
-    engine's tensor copies) and not ``page`` (a page of a paged call: every
-    page of one call scores on one path, or the pages would not
-    concatenate).  A rule, not a fallback: what it leaves out takes the
-    mma.sync instances."""
+    """Whether a launch takes a Hopper instance: float32 or bf16 rows at
+    k_run < WIDE_MIN_K (the exact route's QT = 64 tier, not the wide one),
+    or int8 rows at k_run <= WIDE_MAX_K (the build's pools, the wide
+    selection's lists); L2 or cosine, D <= WGMMA_MAX_D (the query tiles,
+    ring, score tiles and lists fit a block), ``aligned`` (16-byte rows
+    and base, and for int8 rows the scales' base: the copy engine's tensor
+    copies) and not ``page`` (a page of a paged call: every page of one
+    call scores on one path, or the pages would not concatenate).  A rule,
+    not a fallback: what it leaves out takes the mma.sync instances."""
+    k_max = WIDE_MAX_K if dtype == torch.int8 else WIDE_MIN_K - 1
     return (dtype in _WGMMA_KERNELS
             and metric_value in (Metric.L2.value, Metric.COSINE.value)
-            and 1 <= k_run < WIDE_MIN_K and 1 <= dims <= WGMMA_MAX_D
+            and 1 <= k_run <= k_max and 1 <= dims <= WGMMA_MAX_D
             and aligned and not page)
 
 
@@ -275,10 +295,12 @@ def launch_instance(queries, points, k_run: int, metric_value: int,
     """The C entry a launch of ``bruteforce_topk`` over ``points`` (a
     corpus as bruteforce_topk takes it) at ``k_run`` takes, and whether
     it is a Hopper instance (``page``: a page of a paged call)."""
-    rows, _ = _corpus_rows(points)
-    # 16-byte rows and a 16-byte aligned base: the tensor copies' need
+    rows, scale = _corpus_rows(points)
+    # 16-byte rows and a 16-byte aligned base (and scales): the tensor
+    # copies' need
     aligned = (rows.data_ptr() % 16 == 0
-               and rows.shape[-1] * rows.element_size() % 16 == 0)
+               and rows.shape[-1] * rows.element_size() % 16 == 0
+               and (scale is None or scale.data_ptr() % 16 == 0))
     wgmma = _wgmma_route(rows.dtype, metric_value, k_run, queries.shape[1],
                          aligned, page)
     return _instance(rows.dtype, k_run,
@@ -294,9 +316,9 @@ def _instance(dtype, k_run: int, wide: bool | None = None,
     float32 / bf16 rows under L2 and cosine take the wide instances from
     WIDE_MIN_K to WIDE_MAX_K, else the exact route's; ``wide`` forces
     their choice (a probe's); ``wgmma`` (``_wgmma_route``'s answer) the
-    Hopper instances."""
+    Hopper instances (the int8 one with the bound)."""
     if wgmma:
-        return _WGMMA_KERNELS[dtype], False
+        return _WGMMA_KERNELS[dtype], dtype == torch.int8
     if manhattan:
         return _L1_KERNELS[dtype], k_run <= WIDE_MAX_K
     if dtype == torch.int8:
@@ -324,7 +346,7 @@ def _entry(dtype, k_run: int, b: int, splits: int, device,
     (f32[B, S] of +inf, or None) and the arguments the entry takes for the
     bound before the stream: (scratch, rank j); (None, 0) for the int8 and
     Manhattan entries past WIDE_MAX_K; none for the exact route's and the
-    Hopper instances."""
+    float32 / bf16 Hopper instances."""
     name, shared = _instance(dtype, k_run, wide, manhattan, wgmma)
     if shared:
         shape, rank = _shared_bound(b, splits, k_run)

@@ -11,8 +11,9 @@ bf16 corpus, through the Hopper instance the wrapper takes there
 before; float32 at k_run 12, 32, 64 and 102 (k = 100) through both
 the exact route's instance and the wide one, where the wrapper's
 WIDE_MIN_K comes from, and at 32 through the Hopper one) and the build sweep's (one 256-row insert batch:
-the int8 shadow of the rows at k_run = 2 cand_cap = 256, also at the other
-query tile, and exact mode's float32 / bf16 rows at cand_cap + 2 = 130,
+the int8 shadow of the rows at k_run = 2 cand_cap = 256 through the Hopper
+instance the wrapper takes there (bruteforce_topk_q8_wgmma) and the
+mma.sync one (also at the other query tile), and exact mode's float32 / bf16 rows at cand_cap + 2 = 130,
 through the wide instances and, float32, the exact route's).  Then the
 Manhattan instances at the exact route's shape (float32 and bf16 rows,
 B=1024, k=10) and the build's (the int8 shadow, B=256, pool 256), in the
@@ -41,11 +42,12 @@ variants, each against the kernel:
   kernel          as built for the port (the launch shape's resident queries)
   streamed-q      the same library, queries streamed through the ring
   no-select       the selection after each tile removed (scores still made;
-                  the Hopper instances: the selector warpgroup only takes
-                  the score tiles and hands them back)
+                  the Hopper instances: the selector warpgroups only take
+                  the score tiles and hand them back)
   loads-only      the mma's, the score tile and the selection removed (the
-                  Hopper instances: the wgmma's and the selection removed,
-                  the ring, the splits and the score epilogue kept)
+                  Hopper instances, the int8 one too: the wgmma's and the
+                  selection removed, the ring, the splits, the widening
+                  and the score epilogue kept)
   wgmma-2         the Hopper instances with a wgmma group of 2 steps (the
                   kernel's: a chunk's 4), each retired before the next
   cvt-rounding    the TF32 split by cvt.rna.tf32.f32 instead of integer ops
@@ -63,6 +65,8 @@ variants, each against the kernel:
                   one by one, more merged (the kernel's cut-off is 8)
   unused-bound    the bound read before each tile but not applied (its
                   reads' cost: this minus no-shared-bound)
+(the wide shapes take every one from smem-lists on; the int8 Hopper shape
+those that change its selection too: all but smem-lists and unused-bound)
 and Manhattan's, timed at l1_shapes only:
   l1-no-select    the scores made, the selection removed (no-select's text)
   l1-loads-only   the staging and widening alone: no selection and no
@@ -124,6 +128,7 @@ SHAPES = (("float32", 1024, 12, None, "wgmma"), ("bf16", 1024, 12, None, "wgmma"
           ("float32", 1024, 64, None, True),
           ("float32", 1024, 102, None, False),
           ("float32", 1024, 102, None, True),
+          ("int8", 256, 256, None, "wgmma"),
           ("int8", 256, 256, None, True), ("int8", 256, 256, 16, True),
           ("float32", 256, 130, None, False),
           ("float32", 256, 130, None, True), ("bf16", 256, 130, None, True))
@@ -138,6 +143,9 @@ _SELECTION = "    // selection: warp w alone"
 # the Hopper instances' selection of a tile, and their wgmma
 _W_SELECTION = "      // the selection of a tile\n"
 _W_SELECTION_END = "      // the selection of a tile: end"
+# the int8 Hopper instance's
+_W8_SELECTION = "      // the int8 selection of a tile (it releases the tile)\n"
+_W8_SELECTION_END = "      // the int8 selection of a tile: end"
 _W_MMA = "  asm volatile(\n      \"{\\n .reg .pred p;\\n setp.ne.b32 p, %37"
 _W_GROUP = "constexpr int kWGroupSteps = 4;"
 _EPILOGUE = "    // accumulators -> scores"
@@ -255,9 +263,10 @@ def _cut(src: str, begin: str, end: str) -> str:
     return src[:a] + "#if 0\n" + src[a:b] + "#endif\n" + src[b:]
 
 
-def _once(src: str, old: str, new: str) -> str:
-    """src with its one ``old`` replaced by ``new``."""
-    if src.count(old) != 1:
+def _once(src: str, old: str, new: str, times: int = 1) -> str:
+    """src with its ``times`` copies of ``old`` (one by default) replaced
+    by ``new``."""
+    if src.count(old) != times:
         raise ValueError(f"{old!r} appears {src.count(old)} times")
     return src.replace(old, new)
 
@@ -276,9 +285,10 @@ def _serial_max(src: str, n) -> str:
 
 
 def variants(src: str) -> dict:
-    no_select = _cut(_cut(src, _SELECTION, _NEXT_TILE), _W_SELECTION,
-                     _W_SELECTION_END)
-    no_mma = _once(no_select, _W_MMA, "  if (0)" + _W_MMA[1:]).replace(
+    no_select = _cut(_cut(_cut(src, _SELECTION, _NEXT_TILE), _W_SELECTION,
+                          _W_SELECTION_END), _W8_SELECTION, _W8_SELECTION_END)
+    # the TF32 and the bf16 wgmma
+    no_mma = _once(no_select, _W_MMA, "  if (0)" + _W_MMA[1:], 2).replace(
         '  asm("mma.sync', '  if (0) asm("mma.sync')
     loads = _cut(no_mma, _EPILOGUE, "    __syncthreads();\n\n#if 0")
     a = src.index("__device__ __forceinline__ void split_tf32")
@@ -858,10 +868,13 @@ def main() -> int:
         if hasattr(lib, "pq_topk_profile"):
             lib.pq_topk_profile.argtypes = [ctypes.c_void_p]
             lib.pq_topk_profile.restype = ctypes.c_int
-    # these differ from the kernel in the wide selection alone
+    # these differ from the kernel in the wide selection alone; all but
+    # smem-lists and unused-bound (sweep_block's text) change the int8
+    # Hopper instance's selection too
     wide_only = {"smem-lists", "serial-select", "no-shared-bound",
                  "bound-serial", "bound-merge", "unused-bound",
                  *(f"serial-max-{n}" for n in SERIAL_MAX_TRIED)}
+    q8_hopper_too = wide_only - {"smem-lists", "unused-bound"}
 
     g = torch.Generator(device="cuda").manual_seed(12345)
     rows = torch.randn((N, D), generator=g, device="cuda")
@@ -880,14 +893,15 @@ def main() -> int:
         for name, streamed in order:
             lib = libs["kernel" if name == "streamed-q" else name]
             for kind, b, k_run, force_qt, wide in SHAPES:
-                if name in wide_only and wide is not True:
+                q8_hopper = wide == "wgmma" and kind == "int8"
+                if name in wide_only and wide is not True and not (
+                        q8_hopper and name in q8_hopper_too):
                     continue
                 # the Hopper instances: not in an earlier tree, one query
                 # placement, and the only ones wgmma-2 changes
-                if wide == "wgmma" and (name in ("before", "streamed-q")
-                                        or name in wide_only):
+                if wide == "wgmma" and name in ("before", "streamed-q"):
                     continue
-                if name == "wgmma-2" and wide != "wgmma":
+                if name == "wgmma-2" and (wide != "wgmma" or kind == "int8"):
                     continue
                 q = qs[:b]
                 call, shape = launcher(lib, corpora[kind], q, k_run, force_qt,

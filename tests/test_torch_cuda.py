@@ -1481,21 +1481,28 @@ def _assert_pool_near(got, want, rows, pts, metric, rtol):
 @pytest.mark.parametrize("keep", [130, 256, 1024, 1500])
 @pytest.mark.parametrize("base", ["1", "keep-1", "keep", "131075"])
 def test_q8_kernel_bit_equal_on_integers(cuda, b, keep, base):
-    """bruteforce_topk_q8 (through sweep_pool, pages past 1024) against
-    its plain twin on integer rows at power-of-two scales, D = 30 / 960
+    """The int8 instances (through sweep_pool, pages past 1024) against
+    their plain twin on integer rows at power-of-two scales, D = 30 / 960
     (element loads: D % 16 != 0, and 16-byte copies) and 128, L2 bit for
-    bit.  Cosine's score rounds 1 - dot * rsqrt once (the sweep's shared
-    epilogue contracts it to an FMA) where the twin rounds twice: distances
-    within 1e-6 relative and ids except at float64 near-ties."""
+    bit: bruteforce_topk_q8, and at D = 128 up to a pool of 256 the Hopper
+    instance the rule takes there (launch_instance names it).  Cosine's
+    score rounds 1 - dot * rsqrt once (the sweep's shared epilogue
+    contracts it to an FMA) where the twin rounds twice: distances within
+    1e-6 relative and ids except at float64 near-ties."""
     n = {"1": 1, "keep-1": keep - 1, "keep": keep, "131075": 131_075}[base]
     for d in (30, 128, 960):
         qv, qs, pts = (t.to(cuda) for t in shadow_case(n + d + keep, n + 37,
                                                       d, b))
         for metric in (0, 1):
-            before = cb.LAUNCHES["bruteforce_topk_q8"]
+            name = cb.launch_instance(pts, (qv, qs), keep, metric,
+                                      page=keep > cb.MAX_K_RUN)[0]
+            assert name == ("bruteforce_topk_q8_wgmma"
+                            if d == 128 and keep <= cb.WIDE_MAX_K
+                            else "bruteforce_topk_q8")
+            before = cb.LAUNCHES[name]
             got = cb.sweep_pool(pts, (qv, qs), keep, metric, n)
             torch.cuda.synchronize()
-            assert cb.LAUNCHES["bruteforce_topk_q8"] == before + (
+            assert cb.LAUNCHES[name] == before + (
                 1 if keep <= cb.MAX_K_RUN else 2)
             want = cb._bruteforce_topk_plain(pts, (qv, qs), keep, metric, n)
             live = min(n, keep)
@@ -1543,6 +1550,145 @@ def test_q8_kernel_on_shard_views(cuda):
         pts, (off, qs[:9000]), 256, 0, 8999))
 
 
+# --- the int8 Hopper instance (bruteforce_topk_q8_wgmma) -------------------
+
+Q8_WGMMA_BASES = {"1": lambda k: 1, "keep-1": lambda k: k - 1,
+                  "keep": lambda k: k, "131075": lambda k: 131_075}
+
+
+@pytest.mark.parametrize("b", [1, 63, 65, 256])
+@pytest.mark.parametrize("keep", [1, 63, 64, 130, 256])
+@pytest.mark.parametrize("base", list(Q8_WGMMA_BASES))
+def test_q8_wgmma_bit_equal_on_integers(cuda, b, keep, base):
+    """bruteforce_topk_q8_wgmma (bf16 wgmma, the query split in three bf16
+    parts) through sweep_pool against the plain twin on integer rows at
+    power-of-two scales, D = 32 / 64 / 96 / 128: one launch of the Hopper
+    instance a call (none at base 0), L2 bit for bit; cosine within 1e-6
+    relative and ids except at float64 near-ties."""
+    n = Q8_WGMMA_BASES[base](keep)
+    for d in (32, 64, 96, 128):
+        qv, qs, pts = (t.to(cuda) for t in shadow_case(n + d + keep + b,
+                                                      n + 37, d, b))
+        for metric in (0, 1):
+            assert cb.launch_instance(pts, (qv, qs), keep, metric) == (
+                "bruteforce_topk_q8_wgmma", True)
+            before = dict(cb.LAUNCHES)
+            got = cb.sweep_pool(pts, (qv, qs), keep, metric, n)
+            torch.cuda.synchronize()
+            ran = {k: v - before[k] for k, v in cb.LAUNCHES.items() if v
+                   != before[k]}
+            assert ran == ({"bruteforce_topk_q8_wgmma": 1} if n else {})
+            want = cb._bruteforce_topk_plain(pts, (qv, qs), keep, metric, n)
+            live = min(n, keep)
+            assert bool((got[1][:, :live] >= 0).all())
+            assert bool((got[1][:, live:] == -1).all())
+            if metric == 0:
+                _assert_pool_bit_equal(got, want)
+            elif n:
+                rows = cb.dequantize_rows(qv[:n], qs[:n]).float()
+                _assert_pool_near(got, want, rows, pts, metric, 1e-6)
+
+
+@pytest.mark.parametrize("metric", [0, 1])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
+@pytest.mark.parametrize("keep", [1, 64, 256])
+def test_q8_wgmma_real_scales(cuda, metric, d, keep):
+    """The Hopper instance on quantize_rows' scales of normal rows and
+    normal queries: distances at rtol 1e-6 (the three bf16 passes are as
+    exact as a float32 product), ids except at float64 near-ties within
+    1e-5 relative."""
+    qv, qs, pts = (t.to(cuda) for t in shadow_case(d + keep + 7, 131_075, d,
+                                                  256, pow2=False))
+    n = 131_000
+    before = cb.LAUNCHES["bruteforce_topk_q8_wgmma"]
+    got = cb.sweep_pool(pts, (qv, qs), keep, metric, n)
+    assert cb.LAUNCHES["bruteforce_topk_q8_wgmma"] == before + 1
+    want = cb._bruteforce_topk_plain(pts, (qv, qs), keep, metric, n)
+    rows = cb.dequantize_rows(qv[:n], qs[:n]).float()
+    _assert_pool_near(got, want, rows, pts, metric, 1e-6)
+
+
+def test_q8_wgmma_masks_rows(cuda):
+    """n_valid < N and tombstones through bruteforce_topk (the exact
+    route's masks, which the build's sweep does not use): no masked row
+    admitted, the twin's pool."""
+    qv, qs, pts = (t.to(cuda) for t in shadow_case(5, 100_000, 128, 70,
+                                                  pow2=False))
+    dead = torch.from_numpy(np.random.default_rng(5).random(100_000)
+                            < 0.1).to(cuda)
+    for metric in (0, 1):
+        got = cb.bruteforce_topk(pts, (qv, qs), 200, metric, 80_000, dead)
+        want = cb._bruteforce_topk_plain(pts, (qv, qs), 200, metric, 80_000,
+                                         dead)
+        rows = cb.dequantize_rows(qv, qs).float()
+        _assert_pool_near(got, want, rows, pts, metric, 1e-6)
+        ids = got[1][got[1] >= 0].long()
+        assert bool((ids < 80_000).all()) and not bool(dead[ids].any())
+
+
+def test_q8_wgmma_on_shard_views(cuda):
+    """Each shard's view of a stacked [S, cap, D] shadow at D = 128 (its
+    base cap D bytes on, 16-byte aligned, and its scales' cap 4 bytes on)
+    takes the Hopper instance and equals the twin bit for bit; a view one
+    byte in keeps bruteforce_topk_q8, and so does a view whose scales
+    start 4 bytes in."""
+    qv, qs, pts = shadow_case(33, 3 * 5004, 128, 65)
+    qv, qs = qv.view(3, 5004, 128).to(cuda), qs.view(3, 5004).to(cuda)
+    pts = pts.to(cuda)
+    for s, n in enumerate((5004, 4000, 17)):
+        view = (qv[s], qs[s])
+        assert cb.launch_instance(pts, view, 256, 0)[0] == (
+            "bruteforce_topk_q8_wgmma")
+        before = cb.LAUNCHES["bruteforce_topk_q8_wgmma"]
+        got = cb.sweep_pool(pts, view, 256, 0, n)
+        assert cb.LAUNCHES["bruteforce_topk_q8_wgmma"] == before + 1
+        _assert_pool_bit_equal(got, cb._bruteforce_topk_plain(pts, view,
+                                                              256, 0, n))
+    flat_v, flat_s = qv.view(-1), qs.view(-1)
+    for view in ((flat_v[1:1 + 5000 * 128].view(5000, 128), flat_s[:5000]),
+                 (flat_v[:5000 * 128].view(5000, 128), flat_s[1:5001])):
+        assert cb.launch_instance(pts, view, 256, 0) == (
+            "bruteforce_topk_q8", False)
+        before = cb.LAUNCHES["bruteforce_topk_q8"]
+        got = cb.sweep_pool(pts, view, 256, 0, 4999)
+        assert cb.LAUNCHES["bruteforce_topk_q8"] == before + 1
+        _assert_pool_bit_equal(got, cb._bruteforce_topk_plain(pts, view,
+                                                              256, 0, 4999))
+
+
+def test_q8_wgmma_launch_refuses_what_the_rule_keeps_off(cuda):
+    """The C entry refuses, rather than run, k_run 257, D = 136, a base
+    one byte in, scales 4 bytes in, a page floor, Manhattan and a bound
+    rank j with S j < k_run; the same launch in scope runs."""
+    from pg_embedding_tpu_torch import _kernels
+    lib = _kernels.load_library()
+    b, n, splits = 8, 10_000, 4
+    qv = torch.zeros((n + 16) * 136, dtype=torch.int8, device=cuda)
+    sc = torch.ones(n + 16, device=cuda)
+    qs = torch.zeros((b, 136), device=cuda)
+    part = torch.empty((splits, b, 300), device=cuda)
+    out = torch.empty((b, 300), device=cuda)
+    floor = torch.zeros(b, device=cuda)
+    bound = torch.full((b, splits), float("inf"), device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(k=256, d=128, row_off=0, scale_off=0, metric=0, floor_at=None,
+               rank=64):
+        smem = cb._smem_bytes(64, k, 1, d, True, wgmma=True)
+        return lib.bruteforce_topk_q8_wgmma(
+            qs.data_ptr(), qv.data_ptr() + row_off, sc.data_ptr() + scale_off,
+            None, b, n, d, k, metric, 64, splits, 1, smem, part.data_ptr(),
+            part.data_ptr(), out.data_ptr(), out.data_ptr(), floor_at,
+            floor_at, bound.data_ptr(), rank, stream)
+    _kernels.check(lib, launch(), "bruteforce_topk_q8_wgmma")
+    torch.cuda.synchronize()
+    for kw in (dict(k=257, rank=65), dict(d=136), dict(row_off=1),
+               dict(scale_off=4), dict(metric=2),
+               dict(floor_at=floor.data_ptr()), dict(rank=63)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            _kernels.check(lib, launch(**kw), "bruteforce_topk_q8_wgmma")
+
+
 def _build_counts(cuda, **kw):
     """A 3,000-row build on the card in batches of 256: the sweep's
     launches by instance and the torch-op sweeps on the card."""
@@ -1573,6 +1719,9 @@ def test_build_sweep_is_one_launch_a_batch(cuda, mode, storage, name,
         name = {"bruteforce_topk_q8": "bruteforce_topk_q8_l1",
                 "bruteforce_topk_wide": "bruteforce_topk_l1",
                 "bruteforce_topk_bf16_wide": "bruteforce_topk_bf16_l1"}[name]
+    elif mode == "exact8":
+        # D = 32 and a pool of 2 cand_cap = 64: the rule's Hopper instance
+        name = "bruteforce_topk_q8_wgmma"
     idx, pts, launches, plain = _build_counts(
         cuda, build_candidates=mode, storage_dtype=storage, metric=metric)
     assert launches[name] == 11 and plain == 0

@@ -314,12 +314,19 @@ def test_sweep_probe_rewrites_find_their_text():
     got = sweep_probe.variants(src)
     assert got["kernel"] == src
     # no-select cuts the mma.sync instances' selection and the Hopper
-    # instances' (their selector warpgroups only hand the tiles back);
-    # loads-only also their epilogue and mma's, and the Hopper wgmma's
-    assert got["no-select"].count("#if 0") == 2
-    assert got["loads-only"].count("#if 0") == 3
+    # instances' (the float32 / bf16 ones' and the int8 one's: their
+    # selector warpgroups only hand the tiles back); loads-only also their
+    # epilogue and mma's, and the Hopper wgmma's, TF32 and bf16
+    assert got["no-select"].count("#if 0") == 3
+    for begin in (sweep_probe._SELECTION, sweep_probe._W_SELECTION,
+                  sweep_probe._W8_SELECTION):
+        assert "#if 0\n" + begin in got["no-select"]
+    assert got["loads-only"].count("#if 0") == 4
     assert "if (0) asm(\"mma.sync" in got["loads-only"]
-    assert "  if (0) asm volatile(" in got["loads-only"]
+    assert got["loads-only"].count("  if (0) asm volatile(") == 2
+    assert ("if (0) asm volatile(\n      \"{\\n .reg .pred p;\\n setp.ne.b32 "
+            "p, %37, 0;\\n\"\n      \" wgmma.mma_async.sync.aligned.m64n64k16"
+            in got["loads-only"])
     assert "constexpr int kWGroupSteps = 2;" in got["wgmma-2"]
     assert "cvt.rna.tf32.f32" in got["cvt-rounding"]
     assert "if (false) {" in got["smem-lists"]
@@ -343,7 +350,7 @@ def test_sweep_probe_rewrites_find_their_text():
         assert f"constexpr int kSerialMax = {serial_max};" in got[name]
     # Manhattan's: l1-no-select is no-select's text, timed at its shapes
     assert got["l1-no-select"] == got["no-select"]
-    assert got["l1-loads-only"].count("#if 0") == 2
+    assert got["l1-loads-only"].count("#if 0") == 3
     assert "      if (false) l1_tile<QT>(" in got["l1-loads-only"]
     assert "  static constexpr int RG = 32;" in got["l1-tile-8x4"]
     assert "part(qv[i], c)," in got["l1-no-swap"]
@@ -351,7 +358,7 @@ def test_sweep_probe_rewrites_find_their_text():
             and "__launch_bounds__(kThreads, 1)\nsweep_kernel_l1("
             in got["l1-pipe"])
     assert "(!kL1 || s < 1))\n      load_step" in got["l1-compute"]
-    assert got["l1-compute"].count("#if 0") == 2
+    assert got["l1-compute"].count("#if 0") == 3
     assert got["l1-compute-no-barrier"].count("if (!kL1) __syncthreads();") == 2
     assert len({*got.values()}) + 1 == len(got) == (
         20 + len(sweep_probe.SERIAL_MAX_TRIED))

@@ -34,12 +34,14 @@ def _corpus(dtype, dims, n=300):
 
 
 def _expect(dtype, metric, k_run, dims, aligned=True, page=False):
-    """The rule as its docstring states it: float32 / bf16 rows, L2 or
-    cosine, k_run < WIDE_MIN_K, D <= WGMMA_MAX_D, 16-byte rows and base,
-    no page."""
+    """The rule as its docstring states it: float32 / bf16 rows at k_run <
+    WIDE_MIN_K, int8 rows at k_run <= WIDE_MAX_K (the build's pools: the
+    int8 instance, tests/test_torch_sweep_q8_wgmma.py); L2 or cosine, D <=
+    WGMMA_MAX_D, 16-byte rows and base, no page."""
     itemsize = {F32: 4, BF16: 2, I8: 1}[dtype]
-    return (dtype in (F32, BF16) and metric in (L2, COSINE)
-            and k_run < cb.WIDE_MIN_K and dims <= cb.WGMMA_MAX_D
+    k_max = cb.WIDE_MAX_K if dtype is I8 else cb.WIDE_MIN_K - 1
+    return (metric in (L2, COSINE)
+            and k_run <= k_max and dims <= cb.WGMMA_MAX_D
             and dims * itemsize % 16 == 0 and aligned and not page)
 
 
@@ -48,7 +50,8 @@ def _expect(dtype, metric, k_run, dims, aligned=True, page=False):
 @pytest.mark.parametrize("k_run", [1, 12, 63, 64, 256, 257])
 def test_route_by_dtype_metric_and_k(dtype, metric, k_run):
     """The Hopper instances take float32 / bf16 rows under L2 and cosine
-    below WIDE_MIN_K; every other launch keeps its instance as before."""
+    below WIDE_MIN_K, and int8 rows up to WIDE_MAX_K; every other launch
+    keeps its instance as before."""
     pts = _corpus(dtype, 128)
     qs = torch.zeros((5, 128))
     name, wgmma = cb.launch_instance(qs, pts, k_run, metric)
